@@ -1,0 +1,131 @@
+"""Where the time goes: the port's serving main path under torch.profiler.
+
+    python3 chip_profile.py
+
+Builds the kernels, serves full-width qwen2-1.5b (float32, 28 full-attention
+layers, the chip_smoke.py configuration) and runs the shared-prefix workload
+three times: a warm-up, a measured run without the profiler (TTFT, TPOT,
+tokens/s, per-engine host time), and a run under torch.profiler (device
+time by kernel, device busy and idle share). Needs one CUDA device; prints
+the breakdown and writes chiprun_out/chip_profile.json.
+"""
+from __future__ import annotations
+
+import json
+import sys
+import time
+from collections import defaultdict
+
+import torch
+
+import chip_smoke as cs
+
+CATEGORIES = (("paged_prefill", ("paged_prefill_kernel",)),
+              ("paged_decode", ("paged_decode_kernel",)),
+              ("gemm", ("gemm", "gemv", "sm90_xmma", "cutlass", "cublas")),
+              ("index (gather/scatter)", ("index", "gather", "scatter")),
+              ("reduce/softmax/sort", ("reduce", "softmax", "sort", "scan",
+                                      "argmax", "max_", "min_")),
+              ("copy/fill", ("memcpy", "memset", "copy", "fill")),
+              ("elementwise", ("elementwise", "vectorized")))
+
+
+def category(name: str) -> str:
+    low = name.lower()
+    for cat, keys in CATEGORIES:
+        if any(k in low for k in keys):
+            return cat
+    return "other"
+
+
+def dev_time(evt) -> float:
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, attr):
+            return float(getattr(evt, attr))
+    return 0.0
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_profile: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(cs.ROOT / "src"))
+    from repro_torch.core.proxy import SamplingParams
+    from repro_torch.device import set_precision_policy
+    from repro_torch.kernels import build
+    set_precision_policy()
+    dev = torch.device("cuda")
+    smi = cs.nvidia_smi()
+    build.build_all()
+    cfg = cs.full_width_config()
+    srv = cs.build_server(cfg, True, dev)
+    rep = {"gpu": smi, "torch": torch.__version__}
+
+    def workload(seed):
+        prompts, _ = cs.workload(cfg.vocab_size, seed=seed)
+        return prompts, [SamplingParams(max_tokens=4)] * len(prompts)
+
+    list(srv.generate(*workload(8)))                       # warm-up
+    cs.reset_stats(srv)
+    _, _, summ, wall = cs.drive(srv, *workload(7))
+    ps, ds = dict(srv.prefills[0].stats), dict(srv.decodes[0].stats)
+    rep["measured"] = {k: summ[k] for k in (
+        "n_done", "ttft_mean", "ttft_p99", "tpot_mean_ms", "tpot_p99_ms",
+        "ott_tok_s", "ttt_tok_s")} | {
+        "wall_s": wall, "prefill_busy_s": ps["busy_s"],
+        "decode_busy_s": ds["busy_s"], "chunks": ps["chunks"],
+        "steps": ds["steps"], "prefill_tokens": ps["tokens"]}
+
+    cs.reset_stats(srv)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.monotonic()
+        list(srv.generate(*workload(9)))
+        torch.cuda.synchronize()
+        pwall = time.monotonic() - t0
+    by_name = defaultdict(lambda: [0.0, 0])
+    for evt in prof.key_averages():
+        # device-side events only (a CPU op's own device time would count
+        # its kernels twice)
+        if getattr(evt, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        t = dev_time(evt)
+        if t > 0:
+            by_name[evt.key][0] += t
+            by_name[evt.key][1] += evt.count
+    busy_us = sum(t for t, _ in by_name.values())
+    by_cat = defaultdict(float)
+    for name, (t, _) in by_name.items():
+        by_cat[category(name)] += t
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:20]
+    rep["profiled"] = {
+        "wall_s": pwall, "device_busy_s": busy_us / 1e6,
+        "device_idle_share": 1.0 - busy_us / 1e6 / pwall,
+        "by_category_s": {k: v / 1e6 for k, v in
+                          sorted(by_cat.items(), key=lambda kv: -kv[1])},
+        "top_ops": [{"name": n[:120], "device_s": t / 1e6, "count": c}
+                    for n, (t, c) in top]}
+
+    m, p = rep["measured"], rep["profiled"]
+    print(f"measured run [{smi}]: wall {m['wall_s']:.3f} s, TTFT mean "
+          f"{m['ttft_mean'] * 1e3:.1f} ms, TPOT mean {m['tpot_mean_ms']:.1f}"
+          f" ms, {m['ttt_tok_s']:.0f} tok/s total; host time in prefill "
+          f"rounds {m['prefill_busy_s']:.3f} s ({m['chunks']} chunks), in "
+          f"decode rounds {m['decode_busy_s']:.3f} s ({m['steps']} steps)")
+    print(f"profiled run [{smi}]: wall {p['wall_s']:.3f} s, device busy "
+          f"{p['device_busy_s']:.3f} s, idle share "
+          f"{p['device_idle_share']:.3f}")
+    for cat, t in p["by_category_s"].items():
+        print(f"  {cat:24s} {t * 1e3:9.2f} ms")
+    for op in p["top_ops"]:
+        print(f"  {op['device_s'] * 1e3:9.2f} ms x{op['count']:5d}  "
+              f"{op['name'][:90]}")
+    cs.OUT_DIR.mkdir(exist_ok=True)
+    (cs.OUT_DIR / "chip_profile.json").write_text(json.dumps(rep, indent=1))
+    print(json.dumps({"ok": True}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,557 @@
+"""Chip smoke test of the PyTorch port on one NVIDIA GPU (Hopper, sm_90a).
+
+    python3 chip_smoke.py
+
+Phases (any failure raises, so the script exits non-zero):
+  1. build the port's CUDA kernels from src/repro_torch/kernels/csrc;
+  2. hold each kernel against its plain PyTorch version on the card, at the
+     reference sweep shapes and at the full-width main-path shapes, in
+     float32 and bfloat16, and time kernel, plain version and one
+     `scaled_dot_product_attention` call on the gathered KV (`library_ms`,
+     a yardstick only: the port never calls it);
+  3. serve the bench's shared-prefix workload on full-width qwen2-1.5b
+     (28 layers, float32, every layer full attention) through
+     `Server.generate`, with the launch counters zeroed just before and
+     read just after; check completion, greedy streams equal with prefix
+     reuse on and off, pool invariants, one host fetch per decode step and
+     kernel launches == chunks x 28 / steps x 28;
+  4. cross-check a reduced-width server on the card against the same
+     server on the CPU (plain versions): identical greedy streams, logits
+     within 2e-3.
+The last line of standard output is {"ok": true, "device": {...}}; the line
+before it is the per-kernel JSON record; the card's name and power limit
+(nvidia-smi) come before that. Details go to chiprun_out/chip_smoke.json.
+"""
+from __future__ import annotations
+
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+OUT_DIR = ROOT / "chiprun_out"
+HBM_BYTES_S = 3.35e12                        # H100 SXM HBM3
+PEAK_FLOPS = {torch.float32: 67e12,          # float32 outside tensor cores
+              torch.bfloat16: 989e12}        # bf16 tensor cores, dense
+TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
+       torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+
+
+def nvidia_smi() -> str:
+    res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    return res.stdout.strip().splitlines()[0]
+
+
+class Timer:
+    """CUDA-event time of one call, L2 flushed before each launch (the
+    serving path finds each layer's arena cold: 28 layers of KV exceed the
+    50 MB L2)."""
+
+    def __init__(self, dev, reps=20, warmup=3):
+        self.reps, self.warmup = reps, warmup
+        self.flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+
+    def __call__(self, fn) -> float:
+        for _ in range(self.warmup):
+            fn()
+        times = []
+        for _ in range(self.reps):
+            self.flush_buf.zero_()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        return float(np.median(times))
+
+
+# ---- phase 2: kernels against their plain versions -------------------
+def decode_inputs(dev, dtype, B, K, G, h, bs, nb, N, lens, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((B, K, G, h), generator=g, device=dev).to(dtype)
+    kp = torch.randn((N, K, bs, h), generator=g, device=dev).to(dtype)
+    vp = torch.randn((N, K, bs, h), generator=g, device=dev).to(dtype)
+    perm = torch.randperm(N - 1, generator=g, device=dev) + 1
+    tables = perm[:B * nb].reshape(B, nb).to(torch.int32)
+    lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+    return q, kp, vp, tables, lens
+
+
+def prefill_inputs(dev, dtype, B, K, S, G, h, bs, nb, N, off, cl, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((B, K, S * G, h), generator=g, device=dev).to(dtype)
+    kn = torch.randn((B, K, S, h), generator=g, device=dev).to(dtype)
+    vn = torch.randn((B, K, S, h), generator=g, device=dev).to(dtype)
+    kp = torch.randn((N, K, bs, h), generator=g, device=dev).to(dtype)
+    vp = torch.randn((N, K, bs, h), generator=g, device=dev).to(dtype)
+    perm = torch.randperm(N - 1, generator=g, device=dev) + 1
+    tables = perm[:B * nb].reshape(B, nb).to(torch.int32)
+    off = torch.tensor(off, dtype=torch.int32, device=dev)
+    cl = torch.tensor(cl, dtype=torch.int32, device=dev)
+    return q, kn, vn, kp, vp, tables, off, cl
+
+
+def decode_bound(q, kp, tables, lens):
+    B, K, G, h = q.shape
+    bs, e = kp.shape[2], q.element_size()
+    ln = lens.cpu().numpy().astype(np.int64)
+    blocks = np.minimum(-(-ln // bs), tables.shape[1]).sum()
+    nbytes = (2 * q.numel() * e + tables.numel() * 4 + lens.numel() * 4
+              + 2 * int(blocks) * K * bs * h * e)
+    flops = 4 * K * G * h * int(ln.sum())
+    return bound(nbytes, flops, q.dtype)
+
+
+def prefill_bound(q, kn, kp, tables, off, cl):
+    B, K, SG, h = q.shape
+    S = kn.shape[2]
+    G = SG // S
+    bs, e = kp.shape[2], q.element_size()
+    o = off.cpu().numpy().astype(np.int64)
+    c = cl.cpu().numpy().astype(np.int64)
+    blocks = np.minimum(-(-o // bs), tables.shape[1]).sum()
+    i = np.arange(S)
+    visible = sum(int(G * (ob + np.minimum(i + 1, cb)).sum())
+                  for ob, cb in zip(o, c))               # keys per row, summed
+    nbytes = (2 * q.numel() * e + 2 * kn.numel() * e + tables.numel() * 4
+              + 8 * B + 2 * int(blocks) * K * bs * h * e)
+    flops = 4 * K * h * visible
+    return bound(nbytes, flops, q.dtype)
+
+
+def bound(nbytes, flops, dtype):
+    t_mem = nbytes / HBM_BYTES_S
+    t_ops = flops / PEAK_FLOPS[dtype]
+    return (1e3 * max(t_mem, t_ops), "bytes" if t_mem >= t_ops
+            else "operations", nbytes, flops)
+
+
+def sdpa_decode(q, kp, vp, tables, lens):
+    """One scaled_dot_product_attention call on pre-gathered KV (gather and
+    GQA head expansion happen outside the timed call)."""
+    import torch.nn.functional as F
+    B, K, G, h = q.shape
+    nb, bs = tables.shape[1], kp.shape[2]
+    tl = tables.long()
+    k = kp[tl].permute(0, 2, 1, 3, 4).reshape(B, K, nb * bs, h)
+    v = vp[tl].permute(0, 2, 1, 3, 4).reshape(B, K, nb * bs, h)
+    k, v = k.repeat_interleave(G, dim=1), v.repeat_interleave(G, dim=1)
+    qh = q.reshape(B, K * G, 1, h)
+    mask = (torch.arange(nb * bs, device=q.device)[None]
+            < lens[:, None].long())[:, None, None, :]
+    return lambda: F.scaled_dot_product_attention(qh, k, v, attn_mask=mask)
+
+
+def sdpa_prefill(q, kn, vn, kp, vp, tables, off, cl):
+    """The same for a prefill chunk: gathered history ++ chunk keys, with
+    the resident/causal/real-row mask."""
+    import torch.nn.functional as F
+    B, K, SG, h = q.shape
+    S = kn.shape[2]
+    G = SG // S
+    nb, bs = tables.shape[1], kp.shape[2]
+    L = nb * bs
+    tl = tables.long()
+    k = torch.cat([kp[tl].permute(0, 2, 1, 3, 4).reshape(B, K, L, h), kn],
+                  dim=2).repeat_interleave(G, dim=1)
+    v = torch.cat([vp[tl].permute(0, 2, 1, 3, 4).reshape(B, K, L, h), vn],
+                  dim=2).repeat_interleave(G, dim=1)
+    qh = q.reshape(B, K, S, G, h).permute(0, 1, 3, 2, 4).reshape(
+        B, K * G, S, h)
+    dev = q.device
+    o, c = off.long()[:, None, None], cl.long()[:, None, None]
+    pos = o + torch.arange(S, device=dev)[None, :, None]      # [B, S, 1]
+    th = torch.arange(L, device=dev)[None, None, :]
+    tc = torch.arange(S, device=dev)[None, None, :]
+    mask = torch.cat([(th < o).expand(B, S, L),
+                      (tc < c) & (o + tc <= pos)], dim=2)[:, None]
+    return lambda: F.scaled_dot_product_attention(qh, k, v, attn_mask=mask)
+
+
+def check_kernels(dev, timer, log):
+    from repro_torch.kernels.paged_decode import (paged_decode,
+                                                  paged_decode_plain)
+    from repro_torch.kernels.paged_prefill import (paged_prefill,
+                                                   paged_prefill_plain)
+    rec = {"paged_decode": {}, "paged_prefill": {}}
+
+    def cmp(name, got, want, dtype, rows=None):
+        got, want = got.float(), want.float()
+        if rows is not None:
+            got, want = rows(got), rows(want)
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"{name}: non-finite kernel output")
+        err = float((got - want).abs().max())
+        torch.testing.assert_close(got, want, **TOL[dtype], msg=name)
+        return err
+
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        # the reference sweep shapes (tests/test_kernels.py) ...
+        for bs, nb, G in ((8, 6, 1), (8, 6, 4), (16, 4, 1), (16, 4, 4),
+                          (16, 1, 4)):
+            a = decode_inputs(dev, dtype, 3, 2, G, 32, bs, nb, 24,
+                              [1, max(nb * bs // 2 - 3, 1), nb * bs], 1)
+            err = cmp("paged_decode sweep", paged_decode(*a),
+                      paged_decode_plain(*a), dtype)
+            log.append(f"paged_decode {dn} bs={bs} nb={nb} G={G} h=32 "
+                       f"max_abs_err={err:.3g}")
+        for bs, S, G, kw in ((8, 8, 1, {}), (16, 8, 4, {}), (8, 32, 4, {}),
+                             (16, 8, 4, dict(window=24)),
+                             (8, 8, 4, dict(window=24, sink=8))):
+            a = prefill_inputs(dev, dtype, 2, 2, S, G, 32, bs, 5, 24,
+                               [0, 5 * bs // 2 - 3], [S, max(S - 3, 1)], 2)
+            cl = a[-1].cpu().tolist()
+
+            def real(x, cl=cl, G=G):
+                return torch.cat([x[b, :, :cl[b] * G].reshape(-1)
+                                  for b in range(x.shape[0])])
+            err = cmp("paged_prefill sweep", paged_prefill(*a, **kw),
+                      paged_prefill_plain(*a, **kw), dtype, rows=real)
+            log.append(f"paged_prefill {dn} bs={bs} S={S} G={G} {kw} h=32 "
+                       f"max_abs_err={err:.3g}")
+        # ... and the full-width main-path shapes: K=2, G=6, h=128, bs=16
+        dec = decode_inputs(dev, dtype, 6, 2, 6, 128, 16, 32, 321,
+                            [1, 17, 100, 255, 448, 512], 3)
+        main_err = {}
+        err = main_err["paged_decode"] = cmp(
+            "paged_decode main", paged_decode(*dec),
+            paged_decode_plain(*dec), dtype)
+        log.append(f"paged_decode {dn} main B=6 K=2 G=6 h=128 bs=16 nb=32 "
+                   f"max_abs_err={err:.3g}")
+        pre = prefill_inputs(dev, dtype, 1, 2, 128, 6, 128, 16, 32, 321,
+                             [384], [128], 4)
+        pad = prefill_inputs(dev, dtype, 1, 2, 128, 6, 128, 16, 32, 321,
+                             [200], [100], 5)
+        err = main_err["paged_prefill"] = cmp(
+            "paged_prefill main", paged_prefill(*pre),
+            paged_prefill_plain(*pre), dtype)
+        err2 = cmp("paged_prefill padded", paged_prefill(*pad),
+                   paged_prefill_plain(*pad), dtype,
+                   rows=lambda x: x[:, :, :100 * 6])
+        if not torch.isfinite(paged_prefill(*pad)).all():
+            raise AssertionError("padded prefill rows are not finite")
+        log.append(f"paged_prefill {dn} main S=128 SG=768 off=384 cl=128 "
+                   f"max_abs_err={err:.3g}; off=200 cl=100 "
+                   f"max_abs_err={err2:.3g}")
+        for name, kern, plain, args, bnd, lib in (
+                ("paged_decode", paged_decode, paged_decode_plain, dec,
+                 decode_bound(dec[0], dec[1], dec[3], dec[4]),
+                 sdpa_decode(*dec)),
+                ("paged_prefill", paged_prefill, paged_prefill_plain, pre,
+                 prefill_bound(pre[0], pre[1], pre[3], pre[5], pre[6],
+                               pre[7]), sdpa_prefill(*pre))):
+            # the yardstick computes the same function
+            B, K = args[0].shape[:2]
+            h = args[0].shape[-1]
+            lo = lib()
+            if name == "paged_prefill":
+                lo = lo.reshape(B, K, 6, -1, h).permute(0, 1, 3, 2, 4)
+            lib_err = float((lo.reshape(-1).float()
+                             - plain(*args).float().reshape(-1)).abs().max())
+            log.append(f"{name} {dn} main: sdpa vs plain max_abs_err="
+                       f"{lib_err:.3g}")
+            rec[name][dn] = {
+                "max_abs_err": main_err[name],
+                "ms": timer(lambda: kern(*args)),
+                "plain_ms": timer(lambda: plain(*args)),
+                "library_ms": timer(lib),
+                "bound_ms": bnd[0], "bound_by": bnd[1],
+                "bytes": bnd[2], "flops": bnd[3]}
+    return rec
+
+
+# ---- phase 3: full-width serving -------------------------------------
+def workload(vocab, n=12, seed=7):
+    """benchmarks/bench_serving.py::_workload: two of three prompts carry a
+    384-token shared prefix + 64 distinct tokens, the rest 16 tokens;
+    4 new tokens each."""
+    rng = np.random.default_rng(seed)
+    base = tuple(int(t) for t in rng.integers(0, vocab, 384))
+    out = []
+    for i in range(n):
+        if i % 3 != 2:
+            out.append(base + tuple(int(t) for t in
+                                    rng.integers(0, vocab, 64)))
+        else:
+            out.append(tuple(int(t) for t in rng.integers(0, vocab, 16)))
+    return out, base
+
+
+def build_server(cfg, reuse, dev, params=None):
+    from repro_torch.core.proxy import OASConfig
+    from repro_torch.serving import Server, ServerConfig
+    scfg = ServerConfig(n_prefill=1, n_decode=1, decode_slots=6, max_len=512,
+                        chunk_tokens=128, prefill_tick_budget=512,
+                        prefix_reuse=reuse, kv_blocks=320, kv_block_size=16,
+                        oas=OASConfig(defer_window=0.0))
+    return Server(cfg, scfg, pattern=[0] * cfg.n_layers, params=params,
+                  seed=0, device=dev)
+
+
+def reset_stats(srv):
+    from repro_torch.core.proxy import MetricsAggregator
+    srv.metrics = MetricsAggregator()
+    for e in srv.prefills:
+        e.store.clear()
+        for k in e.stats:
+            e.stats[k] = 0.0 if k == "busy_s" else 0
+    for e in srv.decodes:
+        for k in e.stats:
+            e.stats[k] = 0.0 if k == "busy_s" else 0
+
+
+def drive(srv, prompts, params):
+    """The main path: Server.generate until every request finishes."""
+    t0 = time.monotonic()
+    outs = list(srv.generate(prompts, params, max_wall_s=900))
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    by_rid = {}
+    for o in outs:
+        by_rid.setdefault(o.rid, []).extend(o.new_tokens)
+    finished = [o.finish_reason for o in outs if o.finished]
+    # add_request hands out rids in prompt order
+    streams = [by_rid[r] for r in sorted(by_rid)]
+    return streams, finished, srv.metrics.summary(wall), wall
+
+
+def full_width_config():
+    from repro_torch.configs import get_config
+    cfg = get_config("qwen2-1.5b").with_updates(compute_dtype="float32",
+                                                param_dtype="float32")
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+            cfg.head_dim, cfg.d_ff, cfg.vocab_size) == \
+        (28, 1536, 12, 2, 128, 8960, 151936)
+    return cfg
+
+
+def serve(dev, log, cfg):
+    """Phase 3 on `cfg` (full-width qwen2-1.5b in main())."""
+    from repro_torch.core.proxy import SamplingParams
+    from repro_torch.kernels.paged_decode import paged_decode
+    from repro_torch.kernels.paged_prefill import paged_prefill
+    n_layers = cfg.n_layers
+    prompts, base = workload(cfg.vocab_size)
+    rng = np.random.default_rng(11)
+    prompts += [base + tuple(int(t) for t in rng.integers(0, cfg.vocab_size,
+                                                          64))
+                for _ in range(2)]
+    params = [SamplingParams(max_tokens=4)] * 12 + [
+        SamplingParams(temperature=0.9, top_k=64, top_p=0.95, seed=900 + i,
+                       max_tokens=4) for i in (12, 13)]
+    t0 = time.monotonic()
+    srv = build_server(cfg, True, dev)
+    torch.cuda.synchronize()
+    log.append(f"server built (weights + arena) in "
+               f"{time.monotonic() - t0:.1f} s")
+    # warm-up: the same workload shape on other tokens (every chunk bucket,
+    # decode batch and cuBLAS shape the measured run meets), outside the
+    # counts and the metrics
+    warm_prompts, _ = workload(cfg.vocab_size, seed=8)
+    list(srv.generate(warm_prompts, SamplingParams(max_tokens=4)))
+    reset_stats(srv)
+
+    paged_prefill.launches = 0
+    paged_decode.launches = 0
+    streams, finished, summ, wall = drive(srv, prompts, params)
+    n_pre, n_dec = paged_prefill.launches, paged_decode.launches
+
+    ps, ds = srv.prefills[0].stats, srv.decodes[0].stats
+    assert len(finished) == len(prompts) and all(
+        r == "length" for r in finished), finished
+    assert len(streams) == len(prompts) and all(
+        len(s) == 4 for s in streams), streams
+    assert ds["host_fetches"] == ds["steps"] > 0, ds
+    if dev.type == "cuda":
+        assert n_pre == ps["chunks"] * n_layers > 0, (n_pre, ps["chunks"])
+        assert n_dec == ds["steps"] * n_layers > 0, (n_dec, ds["steps"])
+    assert ps["reused_tokens"] > 0 and ds["handoff_copy_bytes"] == 0
+    srv.kv_arena.pool.check_invariants(arena=srv.kv_arena)
+
+    off = build_server(cfg, False, dev, params=srv.params)
+    list(off.generate(warm_prompts, SamplingParams(max_tokens=4)))
+    reset_stats(off)
+    streams_off, finished_off, summ_off, wall_off = drive(off, prompts,
+                                                          params)
+    assert len(finished_off) == len(prompts)
+    assert streams[:12] == streams_off[:12], \
+        "greedy streams differ with prefix reuse on and off"
+    off.kv_arena.pool.check_invariants(arena=off.kv_arena)
+    sampled_equal = all(streams[r] == streams_off[r] for r in (12, 13))
+    return {"launches": {"paged_prefill": n_pre, "paged_decode": n_dec},
+            "prefill_chunks": ps["chunks"], "decode_steps": ds["steps"],
+            "host_fetches": ds["host_fetches"],
+            "reused_tokens": ps["reused_tokens"],
+            "prefill_tokens": ps["tokens"],
+            "reuse_on": {k: summ[k] for k in (
+                "n_done", "ttft_mean", "ttft_p99", "tpot_mean_ms",
+                "tpot_p99_ms", "ott_tok_s", "ttt_tok_s")} | {"wall_s": wall},
+            "reuse_off": {k: summ_off[k] for k in (
+                "n_done", "ttft_mean", "tpot_mean_ms", "ott_tok_s",
+                "ttt_tok_s")} | {"wall_s": wall_off},
+            "sampled_streams_equal_on_off": sampled_equal,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+# ---- phase 4: reduced width, card against CPU ------------------------
+def cross_check_reduced(dev, log):
+    from repro_torch.configs import reduced_config
+    from repro_torch.core.proxy import OASConfig, SamplingParams
+    from repro_torch.models.lm import LM
+    from repro_torch.models.stack import alloc_arena_kv
+    from repro_torch.serving import DevicePlacement, Server, ServerConfig
+    cfg = reduced_config("qwen2-1.5b").with_updates(
+        compute_dtype="float32", param_dtype="float32", n_layers=2,
+        d_model=384, d_ff=768, n_heads=4, n_kv_heads=2, head_dim=64,
+        vocab_size=2048)
+    cpu_lm = LM.build(cfg, pattern=[0, 0], device="cpu")
+    params = cpu_lm.init(seed=5)
+    gpu_params = DevicePlacement.of(dev).place_params(params)
+    # logits through both paths on one chunk + one decode step
+    gpu_lm = LM.build(cfg, pattern=[0, 0], device=dev)
+    rng = np.random.default_rng(3)
+    toks = rng.integers(0, cfg.vocab_size, (1, 40)).astype(np.int32)
+    row = np.arange(1, 9, dtype=np.int32)[None]
+    worst = 0.0
+    res = []
+    for lm, p, d in ((cpu_lm, params, "cpu"), (gpu_lm, gpu_params, dev)):
+        arena = alloc_arena_kv(cfg, lm.plan, 12, 16, d)
+        cache = {"layers": arena, "pos": 0}
+        tb = torch.from_numpy(row).to(d)
+        cache, l1 = lm.prefill_resume(p, torch.from_numpy(toks).to(d), cache,
+                                      chunk_len=37, block_tables=tb)
+        _, l2 = lm.decode(p, cache, torch.tensor([[7]], dtype=torch.int32,
+                                                 device=d),
+                          torch.tensor([[37]], dtype=torch.int32, device=d),
+                          block_tables=tb)
+        res.append((l1.float().cpu(), l2.float().cpu()))
+    for a, b in zip(res[0], res[1]):
+        worst = max(worst, float((a - b).abs().max()))
+        torch.testing.assert_close(b, a, rtol=2e-3, atol=2e-3)
+    scfg = ServerConfig(decode_slots=3, max_len=128, chunk_tokens=32,
+                        prefill_tick_budget=64, kv_blocks=40,
+                        kv_block_size=8, oas=OASConfig(defer_window=0.0))
+    prompts, _ = workload(cfg.vocab_size, n=6, seed=9)
+    prompts = [p[-60:] for p in prompts]
+    out = []
+    for d, p in (("cpu", params), (dev, gpu_params)):
+        srv = Server(cfg, scfg, pattern=[0, 0], params=p, device=d)
+        s = srv.run([(q, SamplingParams(max_tokens=5)) for q in prompts])
+        assert s["n_done"] == len(prompts)
+        out.append({r.rid: tuple(r.output_tokens) for r in srv.metrics.done})
+        srv.kv_arena.pool.check_invariants(arena=srv.kv_arena)
+    assert out[0] == out[1], "card and CPU greedy streams differ"
+    log.append(f"reduced width: card vs CPU logits max_abs_err={worst:.3g}, "
+               f"greedy streams identical ({len(prompts)} requests)")
+    return {"logits_max_abs_err": worst, "streams_identical": True}
+
+
+# ----------------------------------------------------------------------
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False)", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.device import set_precision_policy
+    from repro_torch.kernels import build
+    set_precision_policy()
+    dev = torch.device("cuda")
+    smi = nvidia_smi()
+    report = {"torch": torch.__version__, "cuda": torch.version.cuda,
+              "python": sys.version.split()[0], "gpu": smi}
+    log: list = []
+
+    t0 = time.monotonic()
+    builds = build.build_all()
+    report["build_s"] = time.monotonic() - t0
+    print(f"phase 1: kernels built in {report['build_s']:.1f} s "
+          + ", ".join(f"{k} {v['seconds']:.1f} s" for k, v in builds.items()))
+    for name, b in builds.items():
+        for line in b["log"].splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {name}: {line.strip()}")
+
+    timer = Timer(dev)
+    kern = check_kernels(dev, timer, log)
+    print("phase 2: kernels agree with their plain versions on the card")
+    for line in log:
+        print("  " + line)
+    for name, by in kern.items():
+        for dn, r in by.items():
+            print(f"  {name} {dn} main shape: {r['ms']:.4f} ms kernel, "
+                  f"{r['plain_ms']:.4f} ms plain, {r['library_ms']:.4f} ms "
+                  f"sdpa, bound {r['bound_ms']:.4f} ms ({r['bound_by']}) "
+                  f"[{smi}]")
+    log.clear()
+
+    cfg = full_width_config()
+    served = serve(dev, log, cfg)
+    on = served["reuse_on"]
+    print("phase 3: full-width qwen2-1.5b served through the CUDA kernels")
+    for line in log:
+        print("  " + line)
+    print(f"  chunks {served['prefill_chunks']} x {cfg.n_layers} = "
+          f"{served['launches']['paged_prefill']} paged_prefill launches; "
+          f"steps {served['decode_steps']} x {cfg.n_layers} = "
+          f"{served['launches']['paged_decode']} paged_decode launches; "
+          f"host_fetches {served['host_fetches']}")
+    print(f"  TTFT mean {on['ttft_mean'] * 1e3:.2f} ms p99 "
+          f"{on['ttft_p99'] * 1e3:.2f} ms [{smi}]")
+    print(f"  TPOT mean {on['tpot_mean_ms']:.2f} ms p99 "
+          f"{on['tpot_p99_ms']:.2f} ms [{smi}]")
+    print(f"  output {on['ott_tok_s']:.1f} tok/s, total {on['ttt_tok_s']:.1f}"
+          f" tok/s over {on['wall_s']:.2f} s [{smi}]")
+    off = served["reuse_off"]
+    print(f"  prefix reuse off: TTFT mean {off['ttft_mean'] * 1e3:.2f} ms, "
+          f"TPOT mean {off['tpot_mean_ms']:.2f} ms, {off['ttt_tok_s']:.1f} "
+          f"tok/s; greedy streams identical [{smi}]")
+    log.clear()
+
+    report["reduced"] = cross_check_reduced(dev, log)
+    print("phase 4: " + "; ".join(log))
+
+    report.update(kernels=kern, serve=served)
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
+
+    src = {"paged_decode": ("src/repro_torch/kernels/csrc/paged_decode.cu",
+                            "src/repro/kernels/paged_decode.py:99"),
+           "paged_prefill": ("src/repro_torch/kernels/csrc/paged_prefill.cu",
+                             "src/repro/kernels/paged_prefill.py:131")}
+    line = {"kernels": []}
+    for name, (source, replaces) in src.items():
+        r = kern[name]["float32"]
+        line["kernels"].append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": served["launches"][name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "dtype": "float32"})
+    for k in line["kernels"]:
+        for key in ("max_abs_err", "ms", "plain_ms", "bound_ms"):
+            if not math.isfinite(k[key]):
+                raise AssertionError(f"{k['name']}: {key} is not finite")
+    print(smi)
+    print(json.dumps(line))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

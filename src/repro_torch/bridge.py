@@ -1,0 +1,49 @@
+"""Bridge from the JAX reference's parameters to the port's.
+
+The reference's `LM.init` pytree, converted leaf by leaf to numpy (for
+example `jax.tree.map(np.asarray, params)`), is turned into the port's
+parameter dict. Period-stacked leaves `[n_rep, ...]` are unstacked into one
+dict per layer in layer order (repeat r, period position i), then the
+remainder layers follow — the order of the reference's `unstack_params`.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+
+
+def _tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":      # numpy has no native bfloat16
+        return torch.from_numpy(a.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def params_from_numpy(tree: dict, cfg, plan, device=None) -> dict:
+    """tree: {"stack": {"period": (layer dict [n_rep, ...], ...),
+    "rem": (layer dict, ...)}, "embed", "final_norm"[, "head"]} of numpy
+    arrays → {"layers": [layer dict, ...], "embed", "final_norm"[, "head"]}
+    of tensors on `device` (None → cuda)."""
+    dev = resolve_device(device)
+    stack = tree["stack"]
+    period, rem = list(stack["period"]), list(stack["rem"])
+    if len(period) != len(plan.period) or len(rem) != len(plan.rem):
+        raise ValueError("parameter tree does not match the stack plan")
+    layers = []
+    for r in range(plan.n_rep):
+        for entry in period:
+            layers.append({k: _tensor(np.asarray(v)[r], dev)
+                           for k, v in entry.items()})
+    for entry in rem:
+        layers.append({k: _tensor(v, dev) for k, v in entry.items()})
+    if len(layers) != cfg.n_layers:
+        raise ValueError(f"{len(layers)} layers bridged, config has "
+                         f"{cfg.n_layers}")
+    out = {"layers": layers}
+    for k in ("embed", "final_norm", "head"):
+        if k in tree:
+            out[k] = _tensor(tree[k], dev)
+    return out

@@ -1,0 +1,35 @@
+"""Layout adapters between the model stack's tensors and the kernels'
+kv-head-major layouts (the counterparts of src/repro/kernels/ops.py)."""
+from __future__ import annotations
+
+from repro_torch.kernels.paged_decode import paged_decode
+from repro_torch.kernels.paged_prefill import paged_prefill
+
+
+def attention_paged_decode_op(q, k_pages, v_pages, tables, lens):
+    """q [B,H,h]; arenas [N,K,bs,h]; tables [B,nb] physical block ids;
+    lens [B] resident logical slots → [B,H,h]."""
+    B, H, h = q.shape
+    K = k_pages.shape[1]
+    G = H // K
+    o = paged_decode(q.reshape(B, K, G, h), k_pages, v_pages, tables, lens)
+    return o.reshape(B, H, h)
+
+
+def attention_paged_prefill_op(q, k_new, v_new, k_pages, v_pages, tables,
+                               off, chunk_len, *, window=0, sink=0):
+    """Chunked prefill over paged history. q [B,S,H,h]; k_new/v_new
+    [B,S,K,h]; arenas [N,K,bs,h]; tables [B,nb]; off/chunk_len scalars or
+    [B] → [B,S,H,h]. Rows are regrouped per kv head: row r of the kernel's
+    [B,K,S·G,h] query is chunk token r // G."""
+    B, S, H, h = q.shape
+    K = k_new.shape[2]
+    G = H // K
+    qf = q.reshape(B, S, K, G, h).permute(0, 2, 1, 3, 4) \
+        .reshape(B, K, S * G, h)
+    kf = k_new.permute(0, 2, 1, 3)
+    vf = v_new.permute(0, 2, 1, 3)
+    o = paged_prefill(qf, kf, vf, k_pages, v_pages, tables, off, chunk_len,
+                      window=window, sink=sink)
+    return o.reshape(B, K, S, G, h).permute(0, 2, 1, 3, 4) \
+        .reshape(B, S, H, h)

@@ -1,0 +1,109 @@
+"""Chunked-prefill attention over physically paged history KV.
+
+`paged_prefill` launches the hand-written CUDA kernel
+`csrc/paged_prefill.cu` (the port of the TPU kernel
+src/repro/kernels/paged_prefill.py) for tensors on a CUDA device, and runs
+`paged_prefill_plain` — the same function in plain PyTorch — for tensors on
+the CPU. `paged_prefill.launches` counts kernel launches (nothing else adds
+to it).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels._common import (DTYPE_CODES, HEAD_DIMS, kernel_arg,
+                                         per_row)
+
+NEG_INF = -1e30
+
+
+def paged_prefill_plain(q, k_new, v_new, k_pages, v_pages, tables, off,
+                        chunk_len, *, window: int = 0, sink: int = 0):
+    """q [B,K,S·G,h] (row r = chunk token r//G); k_new/v_new [B,K,S,h];
+    pages [N,K,bs,h]; tables [B,nb]; off/chunk_len scalars or [B] →
+    [B,K,S·G,h]. Gathers the tabled history into a linear cache, appends the
+    chunk's keys and runs one float32 masked softmax: resident history
+    (slot < off), real chunk keys (< chunk_len), causal on absolute
+    positions, and the optional sink+window mask."""
+    B, K, SG, h = q.shape
+    S = k_new.shape[2]
+    G = SG // S
+    nb = tables.shape[1]
+    bs = k_pages.shape[2]
+    dev = q.device
+    off = per_row(off, B, dev).long()
+    cl = per_row(chunk_len, B, dev).long()
+    tl = tables.long()
+    k_hist = k_pages[tl].permute(0, 2, 1, 3, 4).reshape(B, K, nb * bs, h)
+    v_hist = v_pages[tl].permute(0, 2, 1, 3, 4).reshape(B, K, nb * bs, h)
+    k_all = torch.cat([k_hist, k_new], dim=2).float()
+    v_all = torch.cat([v_hist, v_new], dim=2).float()
+    ar_h = torch.arange(nb * bs, device=dev)
+    ar_c = torch.arange(S, device=dev)
+    tok = torch.cat([ar_h[None].expand(B, -1), off[:, None] + ar_c[None]],
+                    dim=1)                                    # [B, L+S]
+    res = torch.cat([ar_h[None] < off[:, None], ar_c[None] < cl[:, None]],
+                    dim=1)
+    p_row = off[:, None] + (torch.arange(SG, device=dev) // G)[None]
+    ok = tok[:, None, :] <= p_row[:, :, None]
+    if window > 0:
+        win = (p_row[:, :, None] - tok[:, None, :]) < window
+        if sink > 0:
+            win = win | (tok < sink)[:, None, :]
+        ok = ok & win
+    mask = res[:, None, :] & ok                               # [B, SG, L+S]
+    s = torch.einsum("bkrh,bkth->bkrt", q.float(), k_all) * h ** -0.5
+    s = torch.where(mask[:, None], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bkrt,bkth->bkrh", p, v_all).to(q.dtype)
+
+
+def paged_prefill(q, k_new, v_new, k_pages, v_pages, tables, off, chunk_len,
+                  *, window: int = 0, sink: int = 0):
+    """q [B,K,S·G,h]; k_new/v_new [B,K,S,h]; arenas [N,K,bs,h]; tables
+    [B,nb] physical block ids; off/chunk_len scalars or [B] (history length,
+    real chunk rows) → o [B,K,S·G,h] in q's dtype. Rows ≥ chunk_len are
+    padding: finite, but not meaningful."""
+    if q.device.type != "cuda":
+        return paged_prefill_plain(q, k_new, v_new, k_pages, v_pages, tables,
+                                   off, chunk_len, window=window, sink=sink)
+    B, K, SG, h = q.shape
+    S = k_new.shape[2]
+    if k_new.shape != (B, K, S, h) or v_new.shape != k_new.shape \
+            or SG % S:
+        raise ValueError(f"chunk keys {tuple(k_new.shape)} do not match q "
+                         f"{tuple(q.shape)}")
+    G = SG // S
+    N, Kp, bs, hp = k_pages.shape
+    if (Kp, hp) != (K, h) or v_pages.shape != k_pages.shape:
+        raise ValueError(f"pages {tuple(k_pages.shape)} do not match q "
+                         f"{tuple(q.shape)}")
+    if q.dtype not in DTYPE_CODES or h not in HEAD_DIMS:
+        raise ValueError(f"paged_prefill kernel takes float32/bfloat16 and "
+                         f"h in {HEAD_DIMS}, got {q.dtype}, h={h}")
+    dev = q.device
+    q = kernel_arg(q, dev)
+    kn = kernel_arg(k_new, dev, q.dtype)
+    vn = kernel_arg(v_new, dev, q.dtype)
+    kp = kernel_arg(k_pages, dev, q.dtype)
+    vp = kernel_arg(v_pages, dev, q.dtype)
+    tbl = kernel_arg(tables, dev, torch.int32)
+    offs = kernel_arg(per_row(off, B, dev), dev, torch.int32)
+    cls = kernel_arg(per_row(chunk_len, B, dev), dev, torch.int32)
+    nb = tbl.shape[1]
+    out = torch.empty_like(q)
+    lib = build.load("paged_prefill")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.paged_prefill_launch(
+            DTYPE_CODES[q.dtype], q.data_ptr(), kn.data_ptr(), vn.data_ptr(),
+            kp.data_ptr(), vp.data_ptr(), tbl.data_ptr(), offs.data_ptr(),
+            cls.data_ptr(), out.data_ptr(), B, K, S, G, h, bs, nb, h ** -0.5,
+            int(window), int(sink), stream)
+    build.check_launch("paged_prefill", rc)
+    paged_prefill.launches += 1
+    return out
+
+
+paged_prefill.launches = 0

@@ -1,0 +1,131 @@
+"""Top-level model of the port: embeddings, tied (or untied) head, and the
+two serving entry points over paged KV (`prefill_resume`, `decode`)."""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device, torch_dtype
+from repro_torch.models import stack as stack_mod
+from repro_torch.models.common import rms_norm
+
+
+@dataclass(frozen=True)
+class LM:
+    cfg: ModelConfig
+    plan: stack_mod.StackPlan
+    device: torch.device
+
+    @staticmethod
+    def build(cfg: ModelConfig, pattern: Optional[list] = None,
+              device=None) -> "LM":
+        """`device` None → cuda. Raises NotImplementedError for a
+        configuration a later slice of the port brings."""
+        plan = stack_mod.StackPlan.from_config(cfg, pattern)
+        stack_mod.check_supported(cfg, plan)
+        return LM(cfg, plan, resolve_device(device))
+
+    # ------------------------------------------------------------------
+    def param_defs(self) -> dict:
+        """name → (shape, init) with init "normal:<std>", "zeros" or "ones",
+        the shapes and scales of the reference's ParamDefs."""
+        cfg = self.cfg
+        D, H, K, h, Fd = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                          cfg.head_dim, cfg.d_ff)
+        w = "normal:0.02"
+        layer = {"ln_attn": ((D,), "ones"), "wq": ((D, H * h), w),
+                 "wk": ((D, K * h), w), "wv": ((D, K * h), w),
+                 "wo": ((H * h, D), w)}
+        if cfg.qkv_bias:
+            layer.update(bq=((H * h,), "zeros"), bk=((K * h,), "zeros"),
+                         bv=((K * h,), "zeros"))
+        if cfg.qk_norm:
+            layer.update(q_norm=((h,), "ones"), k_norm=((h,), "ones"))
+        if Fd > 0:
+            layer.update(ln_mlp=((D,), "ones"), w1=((D, Fd), w),
+                         w3=((D, Fd), w), w2=((Fd, D), w))
+        d = {"layer": layer, "final_norm": ((D,), "ones"),
+             "embed": ((cfg.vocab_size, D), f"normal:{D ** -0.5}")}
+        if not cfg.tie_embeddings:
+            d["head"] = ((D, cfg.vocab_size), w)
+        return d
+
+    def init(self, seed: int = 0) -> dict:
+        """Fresh parameters on this LM's device from a seeded generator:
+        weights normal(0, std) drawn in float32 and cast to param_dtype,
+        biases zero, norm scales one."""
+        dt = torch_dtype(self.cfg.param_dtype)
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(int(seed))
+
+        def make(shape, init):
+            if init == "ones":
+                return torch.ones(shape, dtype=dt, device=self.device)
+            if init == "zeros":
+                return torch.zeros(shape, dtype=dt, device=self.device)
+            std = float(init.split(":")[1])
+            x = torch.randn(shape, generator=gen, dtype=torch.float32,
+                            device=self.device)
+            return (x * std).to(dt)
+
+        defs = self.param_defs()
+        params = {k: make(*v) for k, v in defs.items() if k != "layer"}
+        params["layers"] = [{k: make(*v) for k, v in defs["layer"].items()}
+                            for _ in range(self.plan.n_layers)]
+        return params
+
+    # ------------------------------------------------------------------
+    def _embed(self, params, tokens):
+        return params["embed"][tokens.long()].to(
+            torch_dtype(self.cfg.compute_dtype))
+
+    def _logits(self, params, x):
+        cfg = self.cfg
+        x = rms_norm(x, params["final_norm"], cfg.rms_eps)
+        cd = torch_dtype(cfg.compute_dtype)
+        if cfg.tie_embeddings:
+            return x.to(cd) @ params["embed"].t()
+        return x.to(cd) @ params["head"]
+
+    @torch.no_grad()
+    def prefill_resume(self, params, tokens, cache, *, chunk_len=None,
+                       block_tables=None):
+        """Continue a prefill: tokens [1, S] is the next chunk at absolute
+        positions cache["pos"] + arange(S); chunk_len (an int) marks the real
+        rows of a right-padded chunk. Full-attention cache entries are the
+        shared arenas, reached through block_tables [1, nb]; the chunk's
+        K/V is written into its blocks in place. → (cache with "pos"
+        advanced, logits of the last real token [1, V])."""
+        if block_tables is None:
+            raise NotImplementedError(
+                "dense (non-paged) prefill is not ported yet: pass "
+                "block_tables")
+        B, S = tokens.shape
+        off = int(cache["pos"])
+        cl = S if chunk_len is None else int(chunk_len)
+        x = self._embed(params, tokens)
+        positions = off + torch.arange(S, device=x.device)
+        x = stack_mod.stack_apply(self.cfg, self.plan, params["layers"], x,
+                                  mode="prefill", positions=positions,
+                                  caches=cache, block_tables=block_tables,
+                                  true_len=cl, pos0=off)
+        logits = self._logits(params, x[:, cl - 1])
+        return dict(cache, pos=off + cl), logits
+
+    @torch.no_grad()
+    def decode(self, params, cache, token, positions, *, block_tables=None):
+        """One decode step over paged KV. token [B, 1]; positions [B, 1]
+        (device int tensors: each slot's write position). Writes each
+        slot's K/V through block_tables [B, nb] and attends its resident
+        blocks. → (cache, logits [B, V])."""
+        if block_tables is None:
+            raise NotImplementedError(
+                "slot-dense decode is not ported yet: pass block_tables")
+        x = self._embed(params, token)
+        x = stack_mod.stack_apply(self.cfg, self.plan, params["layers"], x,
+                                  mode="decode", positions=positions,
+                                  caches=cache, block_tables=block_tables)
+        return cache, self._logits(params, x[:, 0])

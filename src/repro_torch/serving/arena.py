@@ -1,0 +1,121 @@
+"""Shared paged-KV arena + PD handoff record.
+
+KVArena owns the per-layer full-attention block arenas and their allocator
+(KVPool), shared by every paged engine of one host. Prefill writes chunk KV
+straight into the arenas through per-task block tables, decode reads and
+extends them through per-slot tables, and admission is a zero-copy
+block-table transfer (BlockHandoff: pool ownership renames from the handoff
+key to the decode rid). The arena tensors are updated in place by every
+engine, so there is no compose/split of donated buffers to keep in step.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.models.lm import LM
+from repro_torch.models.stack import alloc_arena_kv
+from repro_torch.serving.kvpool import KVPool
+from repro_torch.serving.placement import DevicePlacement
+
+
+def _bucket(n: int, lo: int = 32) -> int:
+    b = lo
+    while b < n:
+        b *= 2
+    return b
+
+
+def _pow2_floor(n: int) -> int:
+    b = 1
+    while b * 2 <= n:
+        b *= 2
+    return b
+
+
+@dataclass
+class KVArena:
+    """Per-layer full-attention block arenas (`kv`: one entry per layer,
+    None for layers without one) plus their pool. `reclaimers` are
+    backpressure callbacks (prefix stores registering `evict_for_blocks`):
+    when an allocation cannot be served, the caller asks the arena to
+    reclaim before deferring or preempting."""
+    lm: LM
+    pool: KVPool
+    kv: list
+    block_size: int
+    reclaimers: list = field(default_factory=list)
+    placement: Optional[DevicePlacement] = None
+
+    @staticmethod
+    def build(lm: LM, n_blocks: int, block_size: int = 16,
+              placement: Optional[DevicePlacement] = None) -> "KVArena":
+        pool = KVPool(n_blocks=n_blocks, block_size=block_size)
+        # +1: arena block 0 is the reserved null block (never allocated)
+        kv = alloc_arena_kv(lm.cfg, lm.plan, n_blocks + 1, block_size,
+                            lm.device)
+        return KVArena(lm, pool, kv, block_size, placement=placement)
+
+    def __post_init__(self):
+        if self.placement is None:
+            self.placement = DevicePlacement(self.lm.device)
+        n = self.pool.n_blocks + 1
+        # bytes one arena block pins across every full-attention layer
+        self.block_nbytes = sum(t.numel() // n * t.element_size()
+                                for e in self.kv if e is not None
+                                for t in e.values())
+
+    def copy_block(self, src: int, dst: int):
+        """Copy one physical block across every layer arena — content and
+        summaries together (the partial-tail copy-on-write of a prefix-store
+        resume): a copied block's summary is its source's, so no summary
+        goes stale."""
+        for e in self.kv:
+            if e is None:
+                continue
+            for t in e.values():
+                t[dst] = t[src]
+
+    def check_summaries(self):
+        """Zero-stale-summary invariant: for every block of every
+        full-attention layer, the stored key summaries equal a fresh
+        reduction of the block's key content (min/max exactly, mean to
+        rounding). Test/diagnostic helper — fetches the arenas."""
+        for e in self.kv:
+            if e is None:
+                continue
+            k = e["k"].float().cpu().numpy()
+            np.testing.assert_array_equal(e["kmin"].cpu().numpy(),
+                                          k.min(axis=-2),
+                                          err_msg="stale kmin summary")
+            np.testing.assert_array_equal(e["kmax"].cpu().numpy(),
+                                          k.max(axis=-2),
+                                          err_msg="stale kmax summary")
+            np.testing.assert_allclose(e["kmean"].cpu().numpy(),
+                                       k.mean(axis=-2), rtol=1e-5, atol=1e-6,
+                                       err_msg="stale kmean summary")
+
+    def reclaim(self, n_blocks: int) -> int:
+        """Free up to `n_blocks` pool blocks by evicting shared cache state
+        (LRU prefix-store entries first). → blocks actually freed."""
+        freed = 0
+        for cb in self.reclaimers:
+            if freed >= n_blocks:
+                break
+            freed += cb(n_blocks - freed)
+        return freed
+
+
+@dataclass
+class BlockHandoff:
+    """Zero-copy PD handoff record: a finished prefill's pool-owned block
+    table plus the bounded private leaves and the position. Admission
+    transfers pool ownership from `key` to the decode rid; no
+    full-attention KV byte is copied (`handoff_copy_bytes == 0`)."""
+    key: tuple                         # pool ownership key ("handoff", i)
+    blocks: tuple                      # physical block ids, logical order
+    private: dict                      # B=1 cache without full-attn entries
+    pos: int                           # resident tokens

@@ -1,0 +1,363 @@
+"""Continuous-batch paged decode engine (the D side of PD disaggregation).
+
+Attention KV lives in the shared per-layer block arenas. Admission is
+either a zero-copy BlockHandoff (the prefill engine already wrote the
+blocks; pool ownership renames to the decode rid) or a dense scatter of a
+B=1 cache into fresh blocks (re-admission after preemption). Slot state
+(position, current token, active flag, per-slot sampling parameters and
+base keys) lives on the device and is updated in place by the step, so a
+decode step does exactly ONE device→host fetch: the sampled tokens
+(`host_fetches == steps`). A step that cannot grow a request's allocation
+reclaims prefix-store blocks first and then preempts the request (its KV is
+gathered back out of the arenas for later re-admission).
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.proxy.params import device_row
+from repro_torch.device import torch_dtype
+from repro_torch.models import attention as attn_mod
+from repro_torch.models.lm import LM
+from repro_torch.models.stack import (alloc_paged_private_cache,
+                                      full_attn_layer, merge_arena_cache,
+                                      split_arena_cache)
+from repro_torch.serving.arena import BlockHandoff, KVArena, _bucket
+from repro_torch.serving.placement import DevicePlacement
+from repro_torch.serving.sampling import sample_tokens
+
+
+@dataclass
+class DecodeEngine:
+    lm: LM
+    params: dict
+    n_slots: int
+    max_len: int
+    arena: KVArena                    # shared paged-KV runtime
+    placement: Optional[DevicePlacement] = None
+    stats: dict = field(default_factory=lambda: {
+        "steps": 0, "tokens": 0, "busy_s": 0.0, "kv_transfer_bytes": 0,
+        "kv_transfer_bytes_padded": 0, "handoff_copy_bytes": 0,
+        "admits": 0, "preemptions": 0, "blocks_touched": 0,
+        "blocks_shared": 0, "blocks_fresh": 0, "host_fetches": 0})
+
+    def __post_init__(self):
+        cfg = self.lm.cfg
+        if self.placement is None:
+            self.placement = self.arena.placement
+        dev = self.device = self.placement.device
+        self.pool = self.arena.pool
+        self.block_size = self.arena.block_size
+        self.kv_blocks = self.pool.n_blocks
+        self.max_blocks = -(-self.max_len // self.block_size)
+        self.cache = alloc_paged_private_cache(
+            cfg, self.lm.plan, self.n_slots, self.max_len, self.block_size)
+        self.tables_h = np.zeros((self.n_slots, self.max_blocks), np.int32)
+        self._tbl_dev = torch.from_numpy(self.tables_h).to(dev)
+        self._tbl_bucket = self.max_blocks
+        self._tbl_dirty = False
+        # transfer-cost metering: a B=1 dense interchange cache holds
+        # max_len tokens of full-attention KV (+ the int32 position); the
+        # TRUE payload is `_full_tok_nbytes` per resident token
+        it = torch_dtype(cfg.compute_dtype).itemsize
+        n_full = sum(1 for sp in self.lm.plan.all_specs()
+                     if full_attn_layer(cfg, sp))
+        self._full_tok_nbytes = 2 * cfg.n_kv_heads * cfg.head_dim * it * n_full
+        self._dense_kv_nbytes = self._full_tok_nbytes * self.max_len + 4
+        self.free = list(range(self.n_slots))
+        self.slot_rid: dict = {}
+        self.rid_slot: dict = {}
+        self._prompts: dict = {}       # live rid → prompt (prefix sharing)
+        n = self.n_slots
+        self.state = {
+            "pos": torch.zeros(n, dtype=torch.int32, device=dev),
+            "tok": torch.zeros(n, dtype=torch.int32, device=dev),
+            "active": torch.zeros(n, dtype=torch.bool, device=dev),
+            "temp": torch.zeros(n, dtype=torch.float32, device=dev),
+            "top_k": torch.zeros(n, dtype=torch.int32, device=dev),
+            "top_p": torch.ones(n, dtype=torch.float32, device=dev),
+            "key": torch.zeros((n, 2), dtype=torch.int64, device=dev)}
+        self.pos_h = np.zeros(n, np.int64)      # next write position
+        self.tok_h = np.zeros(n, np.int64)      # current input token
+        self.tokens_h = np.zeros(n, np.int64)   # pool-accounted tokens
+        self.greedy_h = np.ones(n, bool)        # slot temperature <= 0
+        self.preempted: list = []   # (rid, cache_one, next_tok, pos)
+
+    # ---- arena compose -----------------------------------------------
+    def _full_cache(self):
+        return merge_arena_cache(self.lm.cfg, self.lm.plan, self.cache,
+                                 self.arena.kv)
+
+    def _true_kv_nbytes(self, n_tokens: int) -> int:
+        return 4 + self._full_tok_nbytes * min(n_tokens, self.max_len)
+
+    # ---- dense interchange (preemption / re-admission) ---------------
+    def _insert_dense(self, one: dict, wtbl: np.ndarray):
+        """Scatter a B=1 dense cache ({"layers": [{"k","v": [1, L, K, h]}]})
+        into the arena blocks of table row `wtbl` [max_blocks]; entries that
+        map a lender's prefix blocks are already redirected to the null
+        block (mapped, not written). Summaries of the written blocks are
+        recomputed."""
+        bs = self.block_size
+        tbl = torch.from_numpy(wtbl.astype(np.int64)).to(self.device)
+        for i, e in enumerate(self.arena.kv):
+            if e is None:
+                continue
+            for name in ("k", "v"):
+                x = one["layers"][i][name][0]                # [L, K, h]
+                L, K, h = x.shape
+                pad = self.max_blocks * bs - L
+                if pad:
+                    x = torch.cat([x, x.new_zeros((pad, K, h))], dim=0)
+                blocks = x.reshape(self.max_blocks, bs, K, h).transpose(1, 2)
+                e[name][tbl] = blocks.to(e[name].dtype)
+            attn_mod.update_block_summaries(e["kmin"], e["kmax"],
+                                            e["kmean"], e["k"], tbl)
+
+    def _extract_dense(self, slot: int) -> dict:
+        """Gather one slot's KV out of the arenas as a B=1 dense cache of
+        max_len tokens (the preemption interchange format)."""
+        tbl = torch.from_numpy(self.tables_h[slot].astype(np.int64)).to(
+            self.device)
+        layers = []
+        for e in self.arena.kv:
+            if e is None:
+                layers.append(None)
+                continue
+            ent = {}
+            for name in ("k", "v"):
+                blocks = e[name][tbl]                  # [nb, K, bs, h]
+                nb, K, bs, h = blocks.shape
+                x = blocks.transpose(1, 2).reshape(nb * bs, K, h)
+                ent[name] = x[:self.max_len][None].clone()
+            layers.append(ent)
+        return {"layers": layers, "pos": int(self.pos_h[slot])}
+
+    def _slot_state(self, slots, toks, poss, rows):
+        """Write the admitted slots' scalar state + sampling rows."""
+        dev = self.device
+        idx = torch.tensor(slots, dtype=torch.long, device=dev)
+        st = self.state
+        st["pos"][idx] = torch.tensor(poss, dtype=torch.int32, device=dev)
+        st["tok"][idx] = torch.tensor(toks, dtype=torch.int32, device=dev)
+        st["active"][idx] = True
+        st["temp"][idx] = torch.tensor([r[0] for r in rows],
+                                       dtype=torch.float32, device=dev)
+        st["top_k"][idx] = torch.tensor([r[1] for r in rows],
+                                        dtype=torch.int32, device=dev)
+        st["top_p"][idx] = torch.tensor([r[2] for r in rows],
+                                        dtype=torch.float32, device=dev)
+        st["key"][idx] = torch.from_numpy(
+            np.stack([r[3] for r in rows]).astype(np.int64)).to(dev)
+
+    # ------------------------------------------------------------------
+    def _refresh_tables(self):
+        """Upload the block tables when they changed, cut to the
+        pow2-bucketed (lo=8) resident block count of the live slots: short
+        contexts hand the kernel a narrow table. Stale rows of freed slots
+        are all null blocks."""
+        cur = 1
+        for slot in self.slot_rid:
+            cur = max(cur, self.pool.blocks_for(int(self.tokens_h[slot])))
+        nb = min(_bucket(cur, lo=8), self.max_blocks)
+        if self._tbl_dirty or nb != self._tbl_bucket:
+            self._tbl_dev = torch.from_numpy(
+                np.ascontiguousarray(self.tables_h[:, :nb])).to(self.device)
+            self._tbl_bucket = nb
+            self._tbl_dirty = False
+
+    def _find_shared(self, prompt, cached: int) -> list:
+        """FULL prefix blocks a live request sharing the first `cached`
+        tokens can lend (the partial tail is always copied)."""
+        shn = self.pool.shareable_blocks(cached)
+        if shn <= 0 or prompt is None:
+            return []
+        prompt = tuple(prompt)
+        for rid, ptoks in self._prompts.items():
+            if (ptoks is not None and len(ptoks) >= cached
+                    and tuple(ptoks[:cached]) == prompt[:cached]):
+                blocks = self.pool.owned(rid)
+                if len(blocks) >= shn:
+                    return blocks[:shn]
+        return []
+
+    def _admit_handle(self, rid: int, hb: BlockHandoff, pos: int) -> bool:
+        """Zero-copy admission: rename the handoff's pool ownership to the
+        decode rid and extend capacity for the next token. Fails clean —
+        ownership is handed back so the server can requeue the handoff."""
+        self.pool.transfer(hb.key, rid)
+        grown = self.pool.extend(rid, pos, pos + 1)
+        if grown is None:
+            self.arena.reclaim(1)
+            grown = self.pool.extend(rid, pos, pos + 1)
+        if grown is None:
+            self.pool.transfer(rid, hb.key)
+            return False
+        self.stats["blocks_fresh"] += len(grown)
+        return True
+
+    def admit_batch(self, items: list) -> dict:
+        """items: (rid, cache_one, next_token, pos, cached_tokens[, prompt
+        [, sampling_params]]). `cache_one` is a BlockHandoff (zero-copy) or
+        a B=1 dense cache (re-admission after preemption: scattered into
+        fresh blocks, with full prefix blocks mapped from a live lender
+        sharing `prompt`). → {rid: admitted}."""
+        out: dict = {}
+        slots, toks, poss, rows = [], [], [], []
+        for item in items:
+            rid, cache_one, tok, pos, cached = item[:5]
+            prompt = item[5] if len(item) > 5 else None
+            sparams = item[6] if len(item) > 6 else None
+            handoff = isinstance(cache_one, BlockHandoff)
+            if not self.free:
+                out[rid] = False
+                continue
+            if handoff:
+                if not self._admit_handle(rid, cache_one, pos):
+                    out[rid] = False
+                    continue
+                tbl = self.pool.owned(rid)
+                shn = 0
+            else:
+                shared = self._find_shared(prompt, cached)
+                tbl = self.pool.allocate(rid, pos + 1, shared=shared)
+                if tbl is None:
+                    self.arena.reclaim(self.pool.blocks_for(pos + 1)
+                                       - len(shared))
+                    tbl = self.pool.allocate(rid, pos + 1, shared=shared)
+                if tbl is None:
+                    out[rid] = False
+                    continue
+                shn = len(shared)
+                self.stats["blocks_shared"] += shn
+                self.stats["blocks_fresh"] += len(tbl) - shn
+            slot = self.free.pop()
+            row = np.zeros(self.max_blocks, np.int32)
+            row[:len(tbl)] = tbl
+            self.tables_h[slot] = row
+            if not handoff:
+                wtbl = row.copy()
+                wtbl[:shn] = 0
+                self._insert_dense(cache_one, wtbl)
+                self.stats["handoff_copy_bytes"] += \
+                    self._full_tok_nbytes * self.max_len
+            self.slot_rid[slot] = rid
+            self.rid_slot[rid] = slot
+            self._prompts[rid] = tuple(prompt) if prompt is not None else None
+            self.pos_h[slot] = pos
+            self.tok_h[slot] = tok
+            self.tokens_h[slot] = pos + 1
+            self.stats["kv_transfer_bytes"] += self._true_kv_nbytes(pos)
+            self.stats["kv_transfer_bytes_padded"] += self._dense_kv_nbytes
+            self.stats["admits"] += 1
+            drow = device_row(sparams, rid)
+            self.greedy_h[slot] = float(drow[0]) <= 0.0
+            slots.append(slot)
+            toks.append(tok)
+            poss.append(pos)
+            rows.append(drow)
+            out[rid] = True
+        if slots:
+            self._slot_state(slots, toks, poss, rows)
+            self._tbl_dirty = True
+        return out
+
+    # ------------------------------------------------------------------
+    def _step_impl(self) -> torch.Tensor:
+        """The device side of one step: decode every slot, sample, advance
+        the slot state in place. → sampled tokens [n_slots] (on device)."""
+        st = self.state
+        _, logits = self.lm.decode(self.params, self._full_cache(),
+                                   st["tok"][:, None], st["pos"][:, None],
+                                   block_tables=self._tbl_dev)
+        # the token after position pos sees pos + 1 context tokens: that is
+        # the draw's counter, so a stream is a pure function of
+        # (seed, position)
+        all_greedy = bool(all(self.greedy_h[s] for s in self.slot_rid))
+        nxt = sample_tokens(logits, st["temp"], st["top_k"], st["top_p"],
+                            st["key"], st["pos"] + 1, all_greedy=all_greedy)
+        act = st["active"]
+        st["pos"] += act.to(torch.int32)
+        st["tok"] = torch.where(act, nxt, st["tok"])
+        return nxt
+
+    def step(self) -> dict:
+        """One batched decode step → {rid: next_token} for live slots.
+        Requests whose allocation cannot grow are preempted into
+        self.preempted (cache extracted for re-admission)."""
+        if not self.slot_rid:
+            return {}
+        return self._step_base()
+
+    def _step_base(self) -> dict:
+        t0 = time.monotonic()
+        self._refresh_tables()
+        nxt = self._step_impl()
+        next_np = nxt.cpu().numpy()        # the single per-step host fetch
+        self.stats["host_fetches"] += 1
+        out = {}
+        for slot, rid in list(self.slot_rid.items()):
+            tok = int(next_np[slot])
+            out[rid] = tok
+            self.pos_h[slot] += 1
+            self.tok_h[slot] = tok
+            self.stats["blocks_touched"] += self.pool.blocks_for(
+                int(self.tokens_h[slot]))
+            # capacity is capped at max_len: past it a request keeps
+            # emitting (its writes land in the null block) but never grows
+            cur = int(self.tokens_h[slot])
+            new_tokens = min(cur + 1, self.max_len)
+            nb_used = self.pool.blocks_for(cur)
+            grown = self.pool.extend(rid, cur, new_tokens)
+            if grown is None and self.arena.reclaim(1):
+                grown = self.pool.extend(rid, cur, new_tokens)
+            if grown is None:
+                # the sampled token is already in `out`; the preemption
+                # record carries it as the resume input
+                self.stats["preemptions"] += 1
+                self.preempted.append(self._preempt(rid))
+                continue
+            if grown:
+                for b in grown:
+                    self.tables_h[slot, nb_used] = b
+                    nb_used += 1
+                self._tbl_dirty = True
+                self.stats["blocks_fresh"] += len(grown)
+            self.tokens_h[slot] = new_tokens
+        self.stats["steps"] += 1
+        self.stats["tokens"] += len(out)
+        self.stats["busy_s"] += time.monotonic() - t0
+        return out
+
+    def _preempt(self, rid: int) -> tuple:
+        slot = self.rid_slot[rid]
+        cache_one = self._extract_dense(slot)
+        rec = (rid, cache_one, int(self.tok_h[slot]), int(self.pos_h[slot]))
+        self._free_slot(rid, slot)
+        return rec
+
+    def _free_slot(self, rid: int, slot: int):
+        del self.slot_rid[slot]
+        del self.rid_slot[rid]
+        self._prompts.pop(rid, None)
+        self.state["active"][slot] = False
+        # a stale temperature > 0 on a freed slot would keep the sampled
+        # branch alive for rows nobody reads
+        self.state["temp"][slot] = 0.0
+        self.greedy_h[slot] = True
+        self.free.append(slot)
+        self.pool.release(rid)
+        # the freed slot keeps decoding garbage until reused: its writes
+        # must land in the null block, not in blocks the pool hands out
+        self.tables_h[slot] = 0
+        self._tbl_dirty = True
+
+    def release(self, rid: int):
+        slot = self.rid_slot.get(rid)
+        if slot is not None:
+            self._free_slot(rid, slot)

@@ -1,0 +1,380 @@
+"""PD-disaggregated continuous-batching server of the port: OmniProxy +
+paged prefill/decode engines over one shared KV arena.
+
+Request-level API: `add_request(prompt, SamplingParams) → rid` registers a
+request; `step()` advances every engine one round and returns per-request
+`RequestOutput` deltas (new tokens, finish_reason in {stop, length,
+abort}); `abort(rid)` cancels a request wherever it lives; `generate()` is
+a streaming iterator over the same primitives and `run()` the closed-batch
+entry point.
+
+Request lifecycle: proxy tick (APC-aware dispatch) → chunked paged prefill
+(shortest-remaining-first, resumed at radix prefix boundaries) → zero-copy
+BlockHandoff admission → batched paged decode with device-side sampling
+(preempted requests re-enter decode_wait with their extracted cache).
+
+This slice serves dense full-attention stacks with paged KV and chunked
+prefill. Options of later slices (speculative decoding, int8 KV, fault
+injection and recovery, MoE placement, slot-dense KV, whole-prompt prefill)
+raise NotImplementedError.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Iterator, Optional
+
+import numpy as np
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.proxy import (BackpressureError, MetricsAggregator,
+                                    OASConfig, OmniProxy, Request,
+                                    RequestOutput, SamplingParams)
+from repro_torch.models.lm import LM
+from repro_torch.serving.arena import BlockHandoff, KVArena
+from repro_torch.serving.decode import DecodeEngine
+from repro_torch.serving.placement import DevicePlacement
+from repro_torch.serving.prefill import PrefillEngine
+
+
+@dataclass
+class ServerConfig:
+    n_prefill: int = 1
+    n_decode: int = 1
+    decode_slots: int = 8
+    max_len: int = 256
+    oas: OASConfig = field(default_factory=OASConfig)
+    chunked_prefill: bool = True      # chunk + interleave prefill with decode
+    chunk_tokens: int = 64            # prefill chunk size
+    prefill_tick_budget: int = 128    # prefill tokens per tick: ↑TTFT-biased,
+                                      # ↓TPOT-biased (the paper's P/D knob)
+    prefix_reuse: bool = True         # radix partial-prefix KV resume
+    prefix_cache_cap: int = 32        # stored prefixes per prefill instance
+    prefix_cache_cap_bytes: Optional[int] = None   # byte cap (real sizes)
+    kv_blocks: Optional[int] = None   # KVPool size override
+    paged_kv: bool = True             # physically paged KV arenas
+    kv_block_size: int = 16           # tokens per KV block
+    idle_sleep_s: float = 0.01        # max per-iteration sleep while run()
+                                      # waits for a future arrival
+    # options of later slices: setting any of them raises
+    spec: Optional[object] = None     # speculative decoding
+    quant: Optional[object] = None    # int8 KV arenas
+    watchdog_steps: Optional[int] = None    # FaultPlane recovery
+    watchdog_wall_s: Optional[float] = None
+    admission_queue_cap: Optional[int] = None
+
+    def check_supported(self):
+        later = {"spec": self.spec is not None,
+                 "quant": self.quant is not None,
+                 "watchdog / admission_queue_cap":
+                 self.watchdog_steps is not None
+                 or self.watchdog_wall_s is not None
+                 or self.admission_queue_cap is not None,
+                 "paged_kv=False": not self.paged_kv,
+                 "chunked_prefill=False": not self.chunked_prefill}
+        bad = [k for k, v in later.items() if v]
+        if bad:
+            raise NotImplementedError(
+                f"ServerConfig options not ported yet: {', '.join(bad)}")
+
+
+class Server:
+    def __init__(self, cfg: ModelConfig, scfg: ServerConfig, *,
+                 pattern: Optional[list] = None, params=None, seed: int = 0,
+                 device=None, faults=None,
+                 placement: Optional[DevicePlacement] = None):
+        """`params`: the port's parameter dict (e.g. from
+        `bridge.params_from_numpy`), or None for `LM.init(seed)`. `device`
+        None → cuda."""
+        if faults is not None:
+            raise NotImplementedError("FaultPlane injection is not ported yet")
+        scfg.check_supported()
+        self.cfg, self.scfg = cfg, scfg
+        self.placement = placement if placement is not None else \
+            DevicePlacement.of(device)
+        self.lm = LM.build(cfg, pattern=pattern,
+                           device=self.placement.device)
+        self.params = self.placement.place_params(params) \
+            if params is not None else self.lm.init(seed)
+        self.proxy = OmniProxy(scfg.n_prefill, scfg.n_decode, scfg.oas)
+        self.metrics = MetricsAggregator()
+        # one shared paged-KV runtime for every engine: by default every
+        # decode slot gets max_len capacity plus one prompt of prefill
+        # headroom per prefill instance
+        max_blocks = -(-scfg.max_len // scfg.kv_block_size)
+        n_blocks = scfg.kv_blocks if scfg.kv_blocks is not None else \
+            (scfg.n_decode * scfg.decode_slots + scfg.n_prefill) * max_blocks
+        self.kv_arena = KVArena.build(self.lm, n_blocks, scfg.kv_block_size,
+                                      placement=self.placement)
+        self.prefills = [
+            PrefillEngine(self.lm, self.params, scfg.max_len, self.kv_arena,
+                          chunk_tokens=scfg.chunk_tokens,
+                          allow_partial_reuse=scfg.prefix_reuse,
+                          cache_cap=scfg.prefix_cache_cap,
+                          cache_cap_bytes=scfg.prefix_cache_cap_bytes,
+                          tree=self.proxy.trees[i],
+                          placement=self.placement)
+            for i in range(scfg.n_prefill)]
+        self.decodes = [DecodeEngine(self.lm, self.params, scfg.decode_slots,
+                                     scfg.max_len, self.kv_arena,
+                                     placement=self.placement)
+                        for _ in range(scfg.n_decode)]
+        # rid → (handoff or B=1 cache, next_token, pos, cached_tokens,
+        # prompt, params) awaiting decode admission
+        self._pending_kv: dict = {}
+        self._step_count = 0
+        self._next_rid = 0
+        self._fresh: dict = {}
+        self._emitted: dict = {}          # rid → tokens delivered
+        self._finish_info: dict = {}      # rid → (reason, total)
+        self._events: list = []
+        self._idle_slept_s = 0.0
+
+    # ---- request-level API -------------------------------------------
+    def add_request(self, prompt: tuple,
+                    params: Optional[SamplingParams] = None,
+                    now: Optional[float] = None) -> int:
+        """Register a request under its own SamplingParams; → rid."""
+        now = time.monotonic() if now is None else now
+        params = params if params is not None else SamplingParams()
+        rid = self._next_rid
+        while rid in self.proxy.inflight:
+            rid += 1
+        return self._submit(rid, tuple(prompt), params, now)
+
+    def _submit(self, rid: int, prompt: tuple, params: SamplingParams,
+                now: float) -> int:
+        self._admission_check(prompt)
+        self.proxy.submit(Request(rid, prompt, params.max_tokens,
+                                  arrival=now, sampling=params), now)
+        self._next_rid = max(self._next_rid, rid + 1)
+        return rid
+
+    def _admission_check(self, prompt: tuple):
+        """Shed at the door (BackpressureError) a prompt larger than the
+        whole pool: no sequence of releases could ever make it fit."""
+        pool = self.kv_arena.pool
+        need = pool.blocks_for(len(prompt))
+        if need > pool.n_blocks:
+            self.metrics.note_shed()
+            raise BackpressureError(
+                f"prompt needs {need} KV blocks but the pool has only "
+                f"{pool.n_blocks}")
+
+    def step(self, now: Optional[float] = None) -> list:
+        """Advance the whole server one round (proxy tick → prefill round →
+        decode round) → per-request deltas."""
+        now = time.monotonic() if now is None else now
+        self._drain_actions(now)
+        self._prefill_round()
+        self._decode_round()
+        return self._flush_outputs()
+
+    def abort(self, rid: int, now: Optional[float] = None) -> bool:
+        """Cancel a request wherever it lives. → True if it was in flight;
+        the next step() carries RequestOutput(finish_reason="abort")."""
+        now = time.monotonic() if now is None else now
+        req = self.proxy.abort(rid, now)
+        if req is None:
+            return False
+        kv = self._pending_kv.pop(rid, None)
+        if kv is not None:
+            self._release_handoff(kv[0])
+        for eng in self.prefills:
+            eng.abort(rid)
+        for eng in self.decodes:
+            eng.release(rid)
+        self._fresh.pop(rid, None)
+        self._finish_info.pop(rid, None)
+        n_out = max(len(req.output_tokens), self._emitted.pop(rid, 0))
+        self.metrics.add_aborted(req)
+        self._events.append(RequestOutput(rid, (), True, "abort", n_out))
+        return True
+
+    def generate(self, prompts, params=None,
+                 max_wall_s: float = 300.0) -> Iterator[RequestOutput]:
+        """Streaming front door: submit one prompt or a list of prompts
+        (`params` one SamplingParams, a matching list, or None → greedy),
+        then drive step() and yield every RequestOutput until all submitted
+        requests finish."""
+        single = bool(prompts) and isinstance(prompts[0], (int, np.integer))
+        plist = [tuple(prompts)] if single else [tuple(p) for p in prompts]
+        if params is None or isinstance(params, SamplingParams):
+            pparams = [params] * len(plist)
+        else:
+            pparams = list(params)
+            if len(pparams) != len(plist):
+                raise ValueError(f"{len(plist)} prompts but "
+                                 f"{len(pparams)} SamplingParams")
+        t0 = time.monotonic()
+        live = {self.add_request(p, sp, now=t0)
+                for p, sp in zip(plist, pparams)}
+        while live and time.monotonic() - t0 < max_wall_s:
+            for out in self.step():
+                if out.finished:
+                    live.discard(out.rid)
+                yield out
+
+    # ---- internals ---------------------------------------------------
+    def _release_handoff(self, cache) -> None:
+        """Free the arena blocks a zero-copy handoff still owns; every exit
+        path that drops a handoff before admission goes through here."""
+        if isinstance(cache, BlockHandoff):
+            self.kv_arena.pool.release(cache.key)
+
+    def _note_token(self, req: Request, tok: int) -> Optional[str]:
+        """Record one generated token; → finish reason or None."""
+        req.output_tokens.append(tok)
+        n = len(req.output_tokens)
+        if n > self._emitted.get(req.rid, 0):
+            self._fresh.setdefault(req.rid, []).append(tok)
+            self._emitted[req.rid] = n
+        if req.sampling is not None and tok in req.sampling.stop_token_ids:
+            return "stop"
+        if n >= req.max_tokens:
+            return "length"
+        return None
+
+    def _record_finish(self, req: Request, reason: str):
+        req.finish_reason = reason
+        self._finish_info[req.rid] = (reason, len(req.output_tokens))
+        self._emitted.pop(req.rid, None)
+        self.metrics.add(req)
+
+    def _flush_outputs(self) -> list:
+        outs = []
+        for rid, toks in self._fresh.items():
+            reason, total = self._finish_info.pop(rid, (None, None))
+            if total is None:
+                total = self._emitted.get(rid, len(toks))
+            outs.append(RequestOutput(rid, tuple(toks), reason is not None,
+                                      reason, total))
+        self._fresh.clear()
+        self._finish_info.clear()
+        outs.extend(self._events)
+        self._events = []
+        return outs
+
+    def _drain_actions(self, now: float):
+        admissions: dict = {}
+        for req, inst, stage in self.proxy.tick(now):
+            if stage == "prefill":
+                self.proxy.on_prefill_start(req, time.monotonic())
+                self.prefills[inst.iid].start(req.rid, req.tokens,
+                                              prefix_hint=req.prefix_match,
+                                              params=req.sampling)
+            else:
+                admissions.setdefault(inst.iid, []).append(req)
+        for iid, reqs in admissions.items():
+            eng = self.decodes[iid]
+            tnow = time.monotonic()
+            items, live = [], []
+            for r in reqs:
+                items.append((r.rid,) + self._pending_kv.pop(r.rid))
+                live.append(r)
+            t0 = eng.stats["kv_transfer_bytes"]
+            p0 = eng.stats["kv_transfer_bytes_padded"]
+            granted = eng.admit_batch(items)
+            self.metrics.note_kv_transfer(
+                eng.stats["kv_transfer_bytes"] - t0,
+                eng.stats["kv_transfer_bytes_padded"] - p0)
+            for req, item in zip(live, items):
+                if granted[req.rid]:
+                    self.proxy.on_decode_start(req, tnow)
+                else:
+                    self._pending_kv[req.rid] = item[1:]
+                    self.proxy.on_decode_requeue(req, tnow)
+
+    def _prefill_round(self):
+        budget = self.scfg.prefill_tick_budget
+        for iid, eng in enumerate(self.prefills):
+            if not eng.has_work():
+                continue
+            for rec in eng.step(budget):
+                req = self.proxy.inflight.get(rec.rid)
+                tnow = time.monotonic()
+                if req is None or req.prefill_instance != iid:
+                    self._release_handoff(rec.cache)    # stale result
+                    continue
+                self.proxy.on_prefill_done(req, tnow, batch_time=rec.elapsed_s)
+                self.proxy.on_first_token(req, rec.t_done or tnow)
+                reason = self._note_token(req, rec.first_token)
+                if reason:
+                    # finished at its FIRST token: never admitted to decode
+                    self._release_handoff(rec.cache)
+                    self.proxy.on_early_finish(req, tnow)
+                    self._record_finish(req, reason)
+                else:
+                    self._pending_kv[req.rid] = (rec.cache, rec.first_token,
+                                                 rec.prompt_len, rec.reused,
+                                                 req.tokens, req.sampling)
+
+    def _decode_round(self):
+        for iid, eng in enumerate(self.decodes):
+            toks = eng.step()
+            now = time.monotonic()
+            finished = set()
+            for rid, tok in toks.items():
+                req = self.proxy.inflight.get(rid)
+                if req is None or req.decode_instance != iid:
+                    eng.release(rid)             # done or re-routed elsewhere
+                    finished.add(rid)
+                    continue
+                reason = self._note_token(req, tok)
+                if reason:
+                    finished.add(rid)
+                    eng.release(rid)
+                    self.proxy.on_decode_done(req, now,
+                                              batch_time=eng.stats["busy_s"] /
+                                              max(eng.stats["steps"], 1))
+                    self._record_finish(req, reason)
+            for rid, cache_one, tok, pos in eng.preempted:
+                req = self.proxy.inflight.get(rid)
+                if rid in finished or req is None:
+                    continue
+                self._pending_kv[rid] = (cache_one, tok, pos, 0, req.tokens,
+                                         req.sampling)
+                self.proxy.on_decode_preempt(req, now)
+            eng.preempted.clear()
+        self._step_count += 1
+
+    # ------------------------------------------------------------------
+    def run(self, requests: list, max_wall_s: float = 300.0,
+            arrivals: Optional[list] = None):
+        """Closed-batch loop over the streaming primitives. requests:
+        [(prompt_tokens, max_tokens:int)] or [(prompt_tokens,
+        SamplingParams)]; arrivals: per-request offsets from t=0 (None → all
+        at t=0). → the metrics summary plus engine stats."""
+        t_start = time.monotonic()
+        todo = sorted(
+            ((0.0 if arrivals is None else arrivals[i], i, p, spec)
+             for i, (p, spec) in enumerate(requests)))
+        k = 0
+        while k < len(todo) or self.proxy.inflight:
+            now = time.monotonic()
+            if now - t_start >= max_wall_s:
+                break
+            while k < len(todo) and now - t_start >= todo[k][0]:
+                _, i, prompt, spec = todo[k]
+                params = spec if isinstance(spec, SamplingParams) else \
+                    SamplingParams(max_tokens=int(spec))
+                try:
+                    self._submit(i, tuple(prompt), params, now)
+                except BackpressureError:
+                    pass        # shed (counted in metrics.n_shed)
+                k += 1
+            if not self.proxy.inflight and k < len(todo):
+                wait = (t_start + todo[k][0]) - time.monotonic()
+                if wait > 0:
+                    nap = min(wait, self.scfg.idle_sleep_s)
+                    time.sleep(nap)
+                    self._idle_slept_s += nap
+                    continue
+            self.step(now)
+        wall = time.monotonic() - t_start
+        summary = self.metrics.summary(wall)
+        summary["wall_s"] = wall
+        summary["idle_slept_s"] = self._idle_slept_s
+        summary["prefill_stats"] = [e.stats for e in self.prefills]
+        summary["decode_stats"] = [e.stats for e in self.decodes]
+        return summary

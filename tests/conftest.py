@@ -14,6 +14,10 @@ def pytest_configure(config):
         "hot loops (CI runs them in the static-analysis job; the tp=2,ep=4 "
         "case additionally needs XLA_FLAGS="
         "--xla_force_host_platform_device_count=8)")
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs an NVIDIA GPU (the port's CUDA kernels); skips without "
+        "one")
 
 
 @pytest.fixture(scope="session")

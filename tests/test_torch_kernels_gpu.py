@@ -1,0 +1,106 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked `gpu`: they skip without a CUDA device (the kernels have no CPU
+mode). This file imports neither jax nor the JAX package, so it also runs
+on a GPU machine without them:
+
+    PYTHONPATH=src python -m pytest --noconftest -o markers=gpu -q tests/test_torch_kernels_gpu.py
+
+Tolerances: float32 1e-4 (the same math, sums in another order), bfloat16
+2e-2 (one bf16 rounding of the output).
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.paged_decode import paged_decode, paged_decode_plain
+from repro_torch.kernels.paged_prefill import (paged_prefill,
+                                               paged_prefill_plain)
+
+torch.set_num_threads(2)
+
+TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
+       torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _rand(rng, shape, dtype, dev):
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)) \
+        .to(dev, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bs,nb,G,h", [(8, 6, 1, 32), (16, 4, 4, 64),
+                                       (16, 32, 6, 128)])
+def test_paged_decode_kernel_matches_plain(cuda, dtype, bs, nb, G, h):
+    rng = np.random.default_rng(bs + G + h)
+    B, K, N = 3, 2, 3 * nb + 1
+    q = _rand(rng, (B, K, G, h), dtype, cuda)
+    kp = _rand(rng, (N, K, bs, h), dtype, cuda)
+    vp = _rand(rng, (N, K, bs, h), dtype, cuda)
+    kp[0] = 1e4                                   # poisoned null block
+    vp[0] = 1e4
+    tables = torch.from_numpy(rng.permutation(np.arange(1, N))[:B * nb]
+                              .reshape(B, nb).astype(np.int32)).to(cuda)
+    tables[0, 1:] = 0                             # slot 0: one block only
+    lens = torch.tensor([1, nb * bs // 2 + 1, nb * bs], dtype=torch.int32,
+                        device=cuda)
+    n0 = paged_decode.launches
+    got = paged_decode(q, kp, vp, tables, lens)
+    assert paged_decode.launches == n0 + 1 and got.dtype == dtype
+    torch.cuda.synchronize()
+    want = paged_decode_plain(q, kp, vp, tables, lens)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bs,S,G,h,kw", [(8, 8, 1, 32, {}),
+                                         (8, 32, 4, 32, dict(window=24)),
+                                         (16, 8, 4, 64,
+                                          dict(window=24, sink=8)),
+                                         (16, 128, 6, 128, {})])
+def test_paged_prefill_kernel_matches_plain(cuda, dtype, bs, S, G, h, kw):
+    rng = np.random.default_rng(bs + S + G)
+    B, K, nb = 2, 2, 5
+    N = B * nb + 1
+    q = _rand(rng, (B, K, S * G, h), dtype, cuda)
+    kn = _rand(rng, (B, K, S, h), dtype, cuda)
+    vn = _rand(rng, (B, K, S, h), dtype, cuda)
+    kp = _rand(rng, (N, K, bs, h), dtype, cuda)
+    vp = _rand(rng, (N, K, bs, h), dtype, cuda)
+    tables = torch.from_numpy(rng.permutation(np.arange(1, N)).reshape(
+        B, nb).astype(np.int32)).to(cuda)
+    off = torch.tensor([0, nb * bs // 2 - 3], dtype=torch.int32, device=cuda)
+    cl = torch.tensor([S, max(S - 3, 1)], dtype=torch.int32, device=cuda)
+    n0 = paged_prefill.launches
+    got = paged_prefill(q, kn, vn, kp, vp, tables, off, cl, **kw)
+    assert paged_prefill.launches == n0 + 1
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()      # padded rows included
+    want = paged_prefill_plain(q, kn, vn, kp, vp, tables, off, cl, **kw)
+    for b in range(B):
+        real = int(cl[b]) * G
+        torch.testing.assert_close(got[b, :, :real].float(),
+                                   want[b, :, :real].float(), **TOL[dtype])
+
+
+@pytest.mark.gpu
+def test_kernel_rejects_unsupported_inputs(cuda):
+    q = torch.zeros((1, 1, 2, 48), device=cuda)       # h=48: no kernel
+    kp = torch.zeros((2, 1, 8, 48), device=cuda)
+    tb = torch.ones((1, 1), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        paged_decode(q, kp, kp, tb, torch.ones(1, dtype=torch.int32,
+                                                device=cuda))
+    with pytest.raises(ValueError):                   # pages on the CPU
+        paged_decode(torch.zeros((1, 1, 2, 32), device=cuda),
+                     torch.zeros((2, 1, 8, 32)), torch.zeros((2, 1, 8, 32)),
+                     tb, torch.ones(1, dtype=torch.int32, device=cuda))

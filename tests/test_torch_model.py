@@ -1,0 +1,137 @@
+"""Model slice of the PyTorch port against the JAX reference: the same
+weights (JAX `LM.init(PRNGKey(0))`, bridged through numpy) give the same
+logits through paged chunked prefill and paged decode."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import reduced_config
+from repro.distributed.ctx import local_mesh_ctx
+from repro.models import LM
+from repro.models import stack as jstack
+from repro_torch import bridge
+from repro_torch.configs import reduced_config as t_reduced_config
+from repro_torch.models import stack as tstack
+from repro_torch.models.lm import LM as TLM
+
+torch.set_num_threads(2)
+
+# the tolerance of tests/test_consistency.py:40 (f32 logits, two stacks
+# summing in different orders)
+TOL = dict(rtol=2e-3, atol=2e-3)
+
+
+@pytest.fixture(scope="module")
+def models():
+    cfg = reduced_config("qwen2-1.5b").with_updates(
+        compute_dtype="float32", param_dtype="float32", n_layers=2)
+    lm = LM.build(cfg, local_mesh_ctx(), pattern=[0, 0])
+    params = lm.init(jax.random.PRNGKey(0))
+    tcfg = t_reduced_config("qwen2-1.5b").with_updates(
+        compute_dtype="float32", param_dtype="float32", n_layers=2)
+    tlm = TLM.build(tcfg, pattern=[0, 0], device="cpu")
+    tparams = bridge.params_from_numpy(jax.tree.map(np.asarray, params),
+                                       tcfg, tlm.plan, device="cpu")
+    return lm, params, tlm, tparams
+
+
+def test_bridge_unstacks_period_leaves(models):
+    lm, params, tlm, tparams = models
+    assert len(tparams["layers"]) == 2
+    for r in range(2):
+        np.testing.assert_array_equal(
+            tparams["layers"][r]["wq"].numpy(),
+            np.asarray(params["stack"]["period"][0]["wq"][r]))
+    np.testing.assert_array_equal(tparams["embed"].numpy(),
+                                  np.asarray(params["embed"]))
+
+
+def test_init_matches_reference_schema(models):
+    """The port's seeded init has the reference's shapes and scales."""
+    lm, params, tlm, tparams = models
+    fresh = tlm.init(seed=3)
+    assert fresh.keys() == tparams.keys()
+    for a, b in zip(fresh["layers"], tparams["layers"]):
+        assert {k: tuple(v.shape) for k, v in a.items()} == \
+            {k: tuple(v.shape) for k, v in b.items()}
+    assert float(fresh["layers"][0]["wq"].std()) == pytest.approx(0.02,
+                                                                  rel=0.1)
+    assert float(fresh["layers"][0]["bq"].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("chunk,bs", [(8, 16), (64, 8)])
+def test_paged_prefill_and_decode_logits_match(models, chunk, bs):
+    """Chunks of `chunk` tokens after a first chunk that ends mid-block
+    (history offset 5), over a scrambled block table, then decode steps."""
+    lm, params, tlm, tparams = models
+    cfg, tcfg = lm.cfg, tlm.cfg
+    max_len, N = 160, 48
+    nb = -(-max_len // bs)
+    rng = np.random.default_rng(chunk * 31 + bs)
+    prompt = rng.integers(0, cfg.vocab_size, 5 + chunk + 3).tolist()
+    row = np.zeros((1, nb), np.int32)
+    row[0] = rng.permutation(np.arange(1, N))[:nb]
+    tbl_j, tbl_t = jnp.asarray(row), torch.from_numpy(row)
+
+    jarena = jstack.alloc_arena_kv(cfg, lm.mesh, lm.plan, N, bs)
+    jcache = jstack.merge_arena_cache(
+        cfg, lm.plan,
+        jstack.alloc_prefill_private_cache(cfg, lm.mesh, lm.plan, max_len),
+        jarena)
+    tarena = tstack.alloc_arena_kv(tcfg, tlm.plan, N, bs, "cpu")
+    tcache = tstack.merge_arena_cache(
+        tcfg, tlm.plan,
+        tstack.alloc_prefill_private_cache(tcfg, tlm.plan, max_len), tarena)
+
+    # the reference runs jitted, as its engines run it
+    jprefill = jax.jit(lambda p, t, c, cl, bt: lm.prefill_resume(
+        p, {"tokens": t}, c, max_len=max_len, chunk_len=cl,
+        block_tables=bt)[:2])
+    jdecode = jax.jit(lambda p, c, t, pos, bt: lm.decode(
+        p, c, t, pos, block_tables=bt)[:2])
+    cur = 0
+    for cl in (5, chunk, 3):
+        toks = prompt[cur:cur + cl] + [0] * (chunk - cl)
+        jcache, jl = jprefill(params, jnp.asarray([toks], jnp.int32), jcache,
+                              jnp.int32(cl), tbl_j)
+        tcache, tl = tlm.prefill_resume(
+            tparams, torch.tensor([toks], dtype=torch.int32), tcache,
+            chunk_len=cl, block_tables=tbl_t)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+        cur += cl
+    assert tcache["pos"] == cur == int(jcache["pos"])
+
+    tok = int(np.argmax(np.asarray(jl)[0]))
+    for _ in range(4):
+        jcache, jl = jdecode(params, jcache, jnp.asarray([[tok]], jnp.int32),
+                             jnp.asarray([[cur]], jnp.int32), tbl_j)
+        tcache, tl = tlm.decode(tparams, tcache,
+                                torch.tensor([[tok]], dtype=torch.int32),
+                                torch.tensor([[cur]], dtype=torch.int32),
+                                block_tables=tbl_t)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+        tok = int(np.argmax(np.asarray(jl)[0]))
+        cur += 1
+    # the arenas and their summaries agree too, outside the null block 0
+    # (padded rows collide there; which duplicate write lands is unordered)
+    jent = jcache["period"][0]                  # leaves [n_rep, N, ...]
+    for li in range(2):
+        for name in ("k", "v", "kmin", "kmax", "kmean"):
+            np.testing.assert_allclose(
+                tcache["layers"][li][name].numpy()[1:],
+                np.asarray(jent[name])[li, 1:], rtol=1e-4, atol=1e-4,
+                err_msg=name)
+
+
+def test_unsupported_configs_raise():
+    tcfg = t_reduced_config("qwen2-1.5b")
+    with pytest.raises(NotImplementedError):
+        TLM.build(tcfg, pattern=None, device="cpu")     # ring layers
+    with pytest.raises(NotImplementedError):
+        TLM.build(tcfg.with_updates(omniattn_topk_blocks=2), pattern=[0, 0],
+                  device="cpu")
+    from repro_torch.configs import get_config
+    with pytest.raises(NotImplementedError):
+        get_config("qwen2-moe-a2.7b")

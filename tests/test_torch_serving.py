@@ -1,0 +1,193 @@
+"""Serving slice of the PyTorch port against the JAX reference: the JAX
+`Server` and the port's `Server`, on the same bridged weights and a small
+shared-prefix workload, give identical greedy streams; the port's pool
+invariants hold at quiescence and a decode step does one host fetch."""
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import reduced_config
+from repro.core.proxy import OASConfig
+from repro.serving import SamplingParams, Server, ServerConfig
+from repro.serving.kvpool import KVPool
+from repro_torch import bridge
+from repro_torch.configs import reduced_config as t_reduced_config
+from repro_torch.core.proxy import OASConfig as TOASConfig
+from repro_torch.core.proxy import SamplingParams as TSamplingParams
+from repro_torch.serving import Server as TServer
+from repro_torch.serving import ServerConfig as TServerConfig
+from repro_torch.serving.kvpool import KVPool as TKVPool
+
+torch.set_num_threads(2)
+
+SCFG = dict(n_prefill=1, n_decode=1, decode_slots=3, max_len=96,
+            chunk_tokens=16, prefill_tick_budget=32, kv_blocks=40,
+            kv_block_size=8)
+
+
+def _workload(vocab, n=7, prefix=40):
+    """bench_serving._workload in miniature: two of three prompts share a
+    `prefix`-token system prefix plus 8 distinct tokens; the rest are
+    short. Greedy, 4 new tokens each."""
+    rng = np.random.default_rng(7)
+    base = tuple(int(t) for t in rng.integers(0, vocab, prefix))
+    out = []
+    for i in range(n):
+        if i % 3 != 2:
+            out.append(base + tuple(int(t) for t in
+                                    rng.integers(0, vocab, 8)))
+        else:
+            out.append(tuple(int(t) for t in rng.integers(0, vocab, 6)))
+    return out
+
+
+@pytest.fixture(scope="module")
+def servers():
+    cfg = reduced_config("qwen2-1.5b").with_updates(
+        compute_dtype="float32", param_dtype="float32", n_layers=2)
+    tcfg = t_reduced_config("qwen2-1.5b").with_updates(
+        compute_dtype="float32", param_dtype="float32", n_layers=2)
+
+    def build(reuse, kv_blocks=SCFG["kv_blocks"]):
+        kw = dict(SCFG, prefix_reuse=reuse, kv_blocks=kv_blocks)
+        jsrv = Server(cfg, ServerConfig(**kw, oas=OASConfig(
+            defer_window=0.0)), pattern=[0, 0])
+        tparams = bridge.params_from_numpy(
+            jax.tree.map(np.asarray, jsrv.params), tcfg, jsrv.lm.plan,
+            device="cpu")
+        tsrv = TServer(tcfg, TServerConfig(**kw, oas=TOASConfig(
+            defer_window=0.0)), pattern=[0, 0], params=tparams,
+            device="cpu")
+        return jsrv, tsrv
+    return cfg, build
+
+
+def _greedy_streams(srv, prompts, params_cls):
+    reqs = [(p, params_cls(max_tokens=4)) for p in prompts]
+    s = srv.run(reqs, max_wall_s=600)
+    return {r.rid: tuple(r.output_tokens) for r in srv.metrics.done}, s
+
+
+@pytest.mark.parametrize("reuse", [True, False])
+def test_greedy_streams_identical_to_jax_server(servers, reuse):
+    cfg, build = servers
+    jsrv, tsrv = build(reuse)
+    prompts = _workload(cfg.vocab_size)
+    jout, _ = _greedy_streams(jsrv, prompts, SamplingParams)
+    tout, s = _greedy_streams(tsrv, prompts, TSamplingParams)
+    assert len(tout) == len(prompts)
+    assert tout == jout
+    ps, ds = s["prefill_stats"][0], s["decode_stats"][0]
+    assert ds["host_fetches"] == ds["steps"] > 0
+    assert ds["handoff_copy_bytes"] == 0
+    if reuse:
+        assert ps["reused_tokens"] > 0 and ps["prefix_hits"] > 0
+    tsrv.kv_arena.pool.check_invariants(arena=tsrv.kv_arena)
+
+
+def test_preemption_under_a_small_pool_keeps_streams(servers):
+    """A pool too small for every slot forces reclaim/defer/preemption;
+    the streams still equal the JAX server's on the same pool."""
+    cfg, build = servers
+    jsrv, tsrv = build(True, kv_blocks=14)
+    prompts = _workload(cfg.vocab_size, n=5)
+    jout, _ = _greedy_streams(jsrv, prompts, SamplingParams)
+    tout, s = _greedy_streams(tsrv, prompts, TSamplingParams)
+    assert tout == jout and len(tout) == len(prompts)
+    assert s["decode_stats"][0]["preemptions"] > 0
+    assert s["prefill_stats"][0]["defers"] > 0
+    tsrv.kv_arena.pool.check_invariants(arena=tsrv.kv_arena)
+
+
+def test_streaming_api_and_abort(servers):
+    cfg, build = servers
+    _, tsrv = build(True)
+    prompts = _workload(cfg.vocab_size, n=3)
+    outs = list(tsrv.generate(prompts[:2], TSamplingParams(max_tokens=3)))
+    done = [o for o in outs if o.finished]
+    assert sorted(o.rid for o in done) == [0, 1]
+    assert all(o.finish_reason == "length" and o.n_generated == 3
+               for o in done)
+    # a stop token ends the stream where it first appears
+    first = tuple(t for o in outs if o.rid == 0 for t in o.new_tokens)
+    stop = list(tsrv.generate(prompts[0], TSamplingParams(
+        max_tokens=3, stop_token_ids=(first[1],))))
+    end = [o for o in stop if o.finished][0]
+    assert end.finish_reason == "stop"
+    assert end.n_generated == first.index(first[1]) + 1
+    rid = tsrv.add_request(prompts[2], TSamplingParams(max_tokens=50))
+    tsrv.step()
+    assert tsrv.abort(rid)
+    out = tsrv.step()
+    assert any(o.rid == rid and o.finish_reason == "abort" for o in out)
+    assert rid not in tsrv.kv_arena.pool
+    tsrv.kv_arena.pool.check_invariants(arena=tsrv.kv_arena)
+
+
+def test_sampled_requests_are_reproducible(servers):
+    """Seeded sampled streams depend only on (seed, position): the same
+    request alone and beside other traffic gives the same tokens."""
+    cfg, build = servers
+    prompts = _workload(cfg.vocab_size, n=3)
+    sp = TSamplingParams(temperature=0.9, top_k=64, top_p=0.95, seed=901,
+                         max_tokens=5)
+    _, a = build(True)
+    alone = [o for o in a.generate([prompts[0]], [sp])]
+    _, b = build(True)
+    mixed = list(b.generate(prompts, [sp, TSamplingParams(max_tokens=5),
+                                      sp]))
+
+    def stream(outs, rid):
+        return tuple(t for o in outs if o.rid == rid for t in o.new_tokens)
+    assert stream(alone, 0) == stream(mixed, 0)
+    assert len(stream(alone, 0)) == 5
+
+
+def test_kvpool_replay_matches_reference():
+    """One alloc/extend/transfer/share/shrink/release sequence replayed on
+    both pools gives the same block lists and passes both invariants."""
+    ops = [("allocate", 1, 40), ("allocate", ("prefill", 2), 20),
+           ("extend", 1, 40, 70), ("transfer", ("prefill", 2), 2),
+           ("adopt", ("store", 0), 1), ("release", 1),
+           ("allocate_shared", 3, 50, ("store", 0), 2),
+           ("shrink", 3, 50, 33), ("extend", 2, 20, 64), ("release", 2),
+           ("release", ("store", 0)), ("allocate", 4, 90), ("release", 3)]
+    pools = [KVPool(n_blocks=24, block_size=8),
+             TKVPool(n_blocks=24, block_size=8)]
+    for op in ops:
+        res = []
+        for pool in pools:
+            kind = op[0]
+            if kind == "allocate":
+                r = pool.allocate(op[1], op[2])
+            elif kind == "extend":
+                r = pool.extend(op[1], op[2], op[3])
+            elif kind == "transfer":
+                r = pool.transfer(op[1], op[2])
+            elif kind == "adopt":
+                r = pool.adopt(op[1], pool.owned(op[2]))
+            elif kind == "allocate_shared":
+                r = pool.allocate(op[1], op[2],
+                                  shared=pool.owned(op[3])[:op[4]])
+            elif kind == "shrink":
+                r = pool.shrink(op[1], op[2], op[3])
+            else:
+                r = pool.release(op[1])
+            assert r is not None or kind == "release", op
+            res.append((r, dict(pool.per_request), list(pool._free)))
+            pool.check_invariants()
+        assert res[0] == res[1], op
+
+
+def test_later_slice_options_raise():
+    tcfg = t_reduced_config("qwen2-1.5b").with_updates(n_layers=2)
+    for kw in (dict(paged_kv=False), dict(spec=object()),
+               dict(quant=object()), dict(chunked_prefill=False)):
+        with pytest.raises(NotImplementedError):
+            TServer(tcfg, TServerConfig(**kw), pattern=[0, 0], device="cpu")
+    with pytest.raises(NotImplementedError):
+        TServer(tcfg, TServerConfig(), pattern=[0, 0], device="cpu",
+                faults=object())
+    with pytest.raises(NotImplementedError):
+        TServer(tcfg, TServerConfig(), device="cpu")   # ring layers
