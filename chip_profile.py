@@ -2,12 +2,15 @@
 
     python3 chip_profile.py
 
-Builds the kernels, serves full-width qwen2-1.5b (float32, 28 full-attention
-layers, the chip_smoke.py configuration) and runs the shared-prefix workload
-three times: a warm-up, a measured run without the profiler (TTFT, TPOT,
-tokens/s, per-engine host time), and a run under torch.profiler (device
-time by kernel, device busy and idle share). Needs one CUDA device; prints
-the breakdown and writes chiprun_out/chip_profile.json.
+Builds the kernels and serves full-width qwen2-1.5b (float32) in the
+configurations of chip_smoke.py: phase 3 (28 full-attention layers, chunked
+paged prefill, the shared-prefix workload) and phase 5 (the default OmniAttn
+pattern, whole-prompt prefill, the long-prompt workload) in both KV layouts.
+Each runs its workload three times: a warm-up, a measured run without the
+profiler (TTFT, TPOT, tokens/s, per-engine host time), and a run under
+torch.profiler (device time by kernel, device busy and idle share). Needs
+one CUDA device; prints the breakdown and writes
+chiprun_out/chip_profile.json.
 """
 from __future__ import annotations
 
@@ -22,6 +25,8 @@ import chip_smoke as cs
 
 CATEGORIES = (("paged_prefill", ("paged_prefill_kernel",)),
               ("paged_decode", ("paged_decode_kernel",)),
+              ("flash_prefill", ("flash_prefill_kernel",)),
+              ("sink_decode", ("sink_decode_kernel",)),
               ("gemm", ("gemm", "gemv", "sm90_xmma", "cutlass", "cublas")),
               ("index (gather/scatter)", ("index", "gather", "scatter")),
               ("reduce/softmax/sort", ("reduce", "softmax", "sort", "scan",
@@ -45,36 +50,20 @@ def dev_time(evt) -> float:
     return 0.0
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_profile: no CUDA device", file=sys.stderr)
-        return 1
-    sys.path.insert(0, str(cs.ROOT / "src"))
-    from repro_torch.core.proxy import SamplingParams
-    from repro_torch.device import set_precision_policy
-    from repro_torch.kernels import build
-    set_precision_policy()
-    dev = torch.device("cuda")
-    smi = cs.nvidia_smi()
-    build.build_all()
-    cfg = cs.full_width_config()
-    srv = cs.build_server(cfg, True, dev)
-    rep = {"gpu": smi, "torch": torch.__version__}
-
-    def workload(seed):
-        prompts, _ = cs.workload(cfg.vocab_size, seed=seed)
-        return prompts, [SamplingParams(max_tokens=4)] * len(prompts)
-
+def profile(srv, workload, smi: str, label: str) -> dict:
+    """Warm-up, measured and profiled runs of one server on `workload(seed)`
+    → (prompts, params); prints and returns the breakdown."""
     list(srv.generate(*workload(8)))                       # warm-up
     cs.reset_stats(srv)
     _, _, summ, wall = cs.drive(srv, *workload(7))
     ps, ds = dict(srv.prefills[0].stats), dict(srv.decodes[0].stats)
-    rep["measured"] = {k: summ[k] for k in (
+    rep = {"measured": {k: summ[k] for k in (
         "n_done", "ttft_mean", "ttft_p99", "tpot_mean_ms", "tpot_p99_ms",
         "ott_tok_s", "ttt_tok_s")} | {
         "wall_s": wall, "prefill_busy_s": ps["busy_s"],
         "decode_busy_s": ds["busy_s"], "chunks": ps["chunks"],
-        "steps": ds["steps"], "prefill_tokens": ps["tokens"]}
+        "whole_prefills": ps["prefills"] if not srv.prefills[0].chunked
+        else 0, "steps": ds["steps"], "prefill_tokens": ps["tokens"]}}
 
     cs.reset_stats(srv)
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -108,19 +97,59 @@ def main() -> int:
                     for n, (t, c) in top]}
 
     m, p = rep["measured"], rep["profiled"]
-    print(f"measured run [{smi}]: wall {m['wall_s']:.3f} s, TTFT mean "
-          f"{m['ttft_mean'] * 1e3:.1f} ms, TPOT mean {m['tpot_mean_ms']:.1f}"
-          f" ms, {m['ttt_tok_s']:.0f} tok/s total; host time in prefill "
-          f"rounds {m['prefill_busy_s']:.3f} s ({m['chunks']} chunks), in "
+    print(f"{label}: measured run [{smi}]: wall {m['wall_s']:.3f} s, TTFT "
+          f"mean {m['ttft_mean'] * 1e3:.1f} ms, TPOT mean "
+          f"{m['tpot_mean_ms']:.1f} ms, {m['ttt_tok_s']:.0f} tok/s total; "
+          f"host time in prefill rounds {m['prefill_busy_s']:.3f} s "
+          f"({m['chunks']} chunks, {m['whole_prefills']} whole prompts), in "
           f"decode rounds {m['decode_busy_s']:.3f} s ({m['steps']} steps)")
-    print(f"profiled run [{smi}]: wall {p['wall_s']:.3f} s, device busy "
-          f"{p['device_busy_s']:.3f} s, idle share "
+    print(f"{label}: profiled run [{smi}]: wall {p['wall_s']:.3f} s, device "
+          f"busy {p['device_busy_s']:.3f} s, idle share "
           f"{p['device_idle_share']:.3f}")
     for cat, t in p["by_category_s"].items():
         print(f"  {cat:24s} {t * 1e3:9.2f} ms")
     for op in p["top_ops"]:
         print(f"  {op['device_s'] * 1e3:9.2f} ms x{op['count']:5d}  "
               f"{op['name'][:90]}")
+    return rep
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_profile: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(cs.ROOT / "src"))
+    from repro_torch.core.proxy import SamplingParams
+    from repro_torch.device import set_precision_policy
+    from repro_torch.kernels import build
+    set_precision_policy()
+    dev = torch.device("cuda")
+    smi = cs.nvidia_smi()
+    build.build_all()
+    cfg = cs.full_width_config()
+    rep = {"gpu": smi, "torch": torch.__version__}
+
+    def shared_prefix(seed):
+        prompts, _ = cs.workload(cfg.vocab_size, seed=seed)
+        return prompts, [SamplingParams(max_tokens=4)] * len(prompts)
+
+    srv = cs.build_server(cfg, True, dev)
+    rep.update(profile(srv, shared_prefix, smi, "all-full, chunked paged"))
+    weights = srv.params
+    del srv
+    torch.cuda.empty_cache()
+
+    def long_prompts(seed):
+        return cs.default_pattern_workload(cfg.vocab_size, seed=20 + seed)
+
+    rep["default_pattern"] = {}
+    for paged in (True, False):
+        name = "paged" if paged else "dense"
+        srv = cs.build_default_server(cfg, paged, dev, params=weights)
+        rep["default_pattern"][name] = profile(
+            srv, long_prompts, smi, f"pattern=None, {name} KV")
+        del srv
+        torch.cuda.empty_cache()
     cs.OUT_DIR.mkdir(exist_ok=True)
     (cs.OUT_DIR / "chip_profile.json").write_text(json.dumps(rep, indent=1))
     print(json.dumps({"ok": True}))

@@ -3,21 +3,30 @@
     python3 chip_smoke.py
 
 Phases (any failure raises, so the script exits non-zero):
-  1. build the port's CUDA kernels from src/repro_torch/kernels/csrc;
+  1. build the port's four CUDA kernels from src/repro_torch/kernels/csrc,
+     one nvcc per source, all at once;
   2. hold each kernel against its plain PyTorch version on the card, at the
      reference sweep shapes and at the full-width main-path shapes, in
      float32 and bfloat16, and time kernel, plain version and one
-     `scaled_dot_product_attention` call on the gathered KV (`library_ms`,
-     a yardstick only: the port never calls it);
+     `scaled_dot_product_attention` call on the same data (`library_ms`, a
+     yardstick only: the port never calls it);
   3. serve the bench's shared-prefix workload on full-width qwen2-1.5b
      (28 layers, float32, every layer full attention) through
      `Server.generate`, with the launch counters zeroed just before and
      read just after; check completion, greedy streams equal with prefix
      reuse on and off, pool invariants, one host fetch per decode step and
      kernel launches == chunks x 28 / steps x 28;
-  4. cross-check a reduced-width server on the card against the same
-     server on the CPU (plain versions): identical greedy streams, logits
-     within 2e-3.
+  4. cross-check reduced-width servers on the card against the same servers
+     on the CPU (plain versions): identical greedy streams, logits within
+     2e-3 — all-full-attention chunked paged, and the default OmniAttn
+     pattern in both KV layouts;
+  5. serve full-width qwen2-1.5b under the default OmniAttn pattern
+     (`pattern=None`: 21 layers sink 128 + recent 4096, 7 full) with
+     whole-prompt prefill, once with paged KV (flash_prefill + paged_decode)
+     and once slot-dense (flash_prefill + sink_decode): 4,400-token prompts
+     that wrap the rings, an exact repeat, short and sampled requests; check
+     launches == whole prefills x 28 / steps x 28, one host fetch per step,
+     pool invariants and greedy streams equal across the two layouts.
 The last line of standard output is {"ok": true, "device": {...}}; the line
 before it is the per-kernel JSON record; the card's name and power limit
 (nvidia-smi) come before that. Details go to chiprun_out/chip_smoke.json.
@@ -37,11 +46,24 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out"
+REPLACES = {"paged_decode": "src/repro/kernels/paged_decode.py:99",
+            "paged_prefill": "src/repro/kernels/paged_prefill.py:131",
+            "flash_prefill": "src/repro/kernels/flash_prefill.py:73",
+            "sink_decode": "src/repro/kernels/sink_decode.py:63"}
 HBM_BYTES_S = 3.35e12                        # H100 SXM HBM3
 PEAK_FLOPS = {torch.float32: 67e12,          # float32 outside tensor cores
               torch.bfloat16: 989e12}        # bf16 tensor cores, dense
 TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
        torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+TOL_DENSE = {torch.float32: dict(rtol=2e-5, atol=2e-5),   # flash_prefill,
+             torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}  # sink_decode
+# main-path shapes of phases 2 and 5 (full-width qwen2-1.5b, pattern=None,
+# max_len 4608): one whole 4608-token prompt; six decode slots over the
+# 4224-slot ring (sink 128 + recent 4096) and the 4608-slot full cache
+FLASH_MAIN_S = 4608
+SINK_MAIN = ((4224, [1, 130, 2049, 4224, 4401, 4500]),
+             (4608, [1, 130, 2049, 4224, 4401, 4608]))
+P5_MAX_LEN, P5_LONG, P5_SHORT = 4608, 4400, 16
 
 
 def nvidia_smi() -> str:
@@ -60,11 +82,11 @@ class Timer:
         self.reps, self.warmup = reps, warmup
         self.flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
 
-    def __call__(self, fn) -> float:
+    def __call__(self, fn, reps=None) -> float:
         for _ in range(self.warmup):
             fn()
         times = []
-        for _ in range(self.reps):
+        for _ in range(reps or self.reps):
             self.flush_buf.zero_()
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
@@ -272,6 +294,161 @@ def check_kernels(dev, timer, log):
     return rec
 
 
+def flash_bound(q, k, causal, window, sink):
+    """Bytes and flops of one flash_prefill call: q, k, v read once, the
+    output written once; 4·h flops per visible (query row, key) pair."""
+    N, SG, h = q.shape
+    S = k.shape[1]
+    G = SG // S
+    e = q.element_size()
+    p = np.arange(S)[:, None]
+    t = np.arange(S)[None, :]
+    ok = (t <= p) if causal else np.ones((S, S), bool)
+    if window > 0:
+        ok = ok & (((p - t) < window) | (t < sink))
+    visible = N * G * int(ok.sum())
+    nbytes = 2 * q.numel() * e + 2 * k.numel() * e
+    return bound(nbytes, 4 * h * visible, q.dtype)
+
+
+def sink_bound(q, kc, t):
+    """Bytes and flops of one sink_decode call: the live slots min(t, W) of
+    each (sequence, kv head) read once, q read and the output written."""
+    B, K, G, h = q.shape
+    W = kc.shape[2]
+    e = q.element_size()
+    live = int(np.minimum(t.cpu().numpy().astype(np.int64), W).sum())
+    nbytes = 2 * q.numel() * e + 2 * live * K * h * e + 4 * B
+    return bound(nbytes, 4 * K * G * h * live, q.dtype)
+
+
+def sdpa_flash(q, k, v, causal, window, sink):
+    """One scaled_dot_product_attention call on the same data, kv heads
+    expanded to query heads outside the timed call."""
+    import torch.nn.functional as F
+    N, SG, h = q.shape
+    S = k.shape[1]
+    G = SG // S
+    qh = q.reshape(N, S, G, h).permute(0, 2, 1, 3)              # [N, G, S, h]
+    kh = k[:, None].expand(N, G, S, h).contiguous()
+    vh = v[:, None].expand(N, G, S, h).contiguous()
+    if window == 0:
+        return lambda: F.scaled_dot_product_attention(qh, kh, vh,
+                                                      is_causal=causal)
+    p = torch.arange(S, device=q.device)[:, None]
+    t = torch.arange(S, device=q.device)[None, :]
+    mask = ((t <= p) if causal else torch.ones_like(p - t, dtype=torch.bool)) \
+        & (((p - t) < window) | (t < sink))
+    return lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+
+
+def sdpa_sink(q, kc, vc, t):
+    import torch.nn.functional as F
+    B, K, G, h = q.shape
+    W = kc.shape[2]
+    qh = q.reshape(B, K * G, 1, h)
+    kh = kc.repeat_interleave(G, dim=1)
+    vh = vc.repeat_interleave(G, dim=1)
+    mask = (torch.arange(W, device=q.device)[None] < t[:, None].long())
+    mask = mask[:, None, None]
+    return lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+
+
+def check_dense_kernels(dev, timer, log):
+    """flash_prefill and sink_decode against their plain versions: the
+    reference sweep shapes (tests/test_kernels.py:20-66) plus h=128, then
+    the full-width main-path shapes, timed."""
+    from repro_torch.kernels.flash_prefill import (flash_prefill,
+                                                   flash_prefill_plain)
+    from repro_torch.kernels.sink_decode import sink_decode, sink_decode_plain
+    rec = {"flash_prefill": {}, "sink_decode": {}}
+
+    def rand(g, shape, dtype):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    def cmp(name, got, want, dtype):
+        got, want = got.float(), want.float()
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"{name}: non-finite kernel output")
+        torch.testing.assert_close(got, want, **TOL_DENSE[dtype], msg=name)
+        return float((got - want).abs().max())
+
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        g = torch.Generator(device=dev).manual_seed(6)
+        worst = {"flash_prefill": 0.0, "sink_decode": 0.0}
+        for S in (64, 128, 256):
+            for h in (32, 64, 128):
+                for kw in (dict(causal=True), dict(causal=False),
+                           dict(causal=True, window=32),
+                           dict(causal=True, window=32, sink=8)):
+                    q, k, v = (rand(g, (3, S, h), dtype) for _ in range(3))
+                    err = cmp(f"flash_prefill sweep S={S} h={h} {kw}",
+                              flash_prefill(q, k, v, **kw),
+                              flash_prefill_plain(q, k, v, **kw), dtype)
+                    worst["flash_prefill"] = max(worst["flash_prefill"], err)
+        for W in (64, 128, 96):
+            for G in (1, 4):
+                for h in (32, 128):
+                    q = rand(g, (2, 2, G, h), dtype)
+                    kc, vc = (rand(g, (2, W, 2, h), dtype).transpose(1, 2)
+                              for _ in range(2))
+                    t = torch.tensor([W // 3, W], dtype=torch.int32,
+                                     device=dev)
+                    err = cmp(f"sink_decode sweep W={W} G={G} h={h}",
+                              sink_decode(q, kc, vc, t),
+                              sink_decode_plain(q, kc, vc, t), dtype)
+                    worst["sink_decode"] = max(worst["sink_decode"], err)
+        log.append(f"flash_prefill {dn} sweep (S 64/128/256 x h 32/64/128 x "
+                   f"causal/bidir/window/sink): max_abs_err="
+                   f"{worst['flash_prefill']:.3g}")
+        log.append(f"sink_decode {dn} sweep (W 64/128/96 x G 1/4 x h 32/128, "
+                   f"model-layout views): max_abs_err="
+                   f"{worst['sink_decode']:.3g}")
+        # full width: one 4608-token prompt, 12 query heads over 2 kv heads
+        q = rand(g, (2, FLASH_MAIN_S * 6, 128), dtype)
+        k, v = (rand(g, (2, FLASH_MAIN_S, 128), dtype) for _ in range(2))
+        fa = (q, k, v)
+        err = cmp("flash_prefill main", flash_prefill(*fa),
+                  flash_prefill_plain(*fa), dtype)
+        log.append(f"flash_prefill {dn} main S={FLASH_MAIN_S} G=6 K=2 h=128 "
+                   f"causal "
+                   f"max_abs_err={err:.3g}")
+        fb = flash_bound(q, k, True, 0, 0)
+        lib = sdpa_flash(q, k, v, True, 0, 0)
+        lib_err = float((lib().permute(0, 2, 1, 3).reshape(q.shape).float()
+                         - flash_prefill_plain(*fa).float()).abs().max())
+        rec["flash_prefill"][dn] = {
+            "max_abs_err": err, "ms": timer(lambda: flash_prefill(*fa)),
+            "plain_ms": timer(lambda: flash_prefill_plain(*fa), reps=5),
+            "library_ms": timer(lib), "library_vs_plain_err": lib_err,
+            "bound_ms": fb[0], "bound_by": fb[1], "bytes": fb[2],
+            "flops": fb[3]}
+        del q, k, v, fa
+        # six decode slots over the ring (W=4224) and the full cache (4608)
+        for W, ts in SINK_MAIN:
+            q = rand(g, (6, 2, 6, 128), dtype)
+            kc, vc = (rand(g, (6, W, 2, 128), dtype).transpose(1, 2)
+                      for _ in range(2))
+            t = torch.tensor(ts, dtype=torch.int32, device=dev)
+            sa = (q, kc, vc, t)
+            err = cmp(f"sink_decode main W={W}", sink_decode(*sa),
+                      sink_decode_plain(*sa), dtype)
+            log.append(f"sink_decode {dn} main B=6 K=2 G=6 h=128 W={W} "
+                       f"t={ts} max_abs_err={err:.3g}")
+            sb = sink_bound(q, kc, t)
+            lib = sdpa_sink(*sa)
+            lib_err = float((lib().reshape(q.shape).float()
+                             - sink_decode_plain(*sa).float()).abs().max())
+            rec["sink_decode"][f"{dn}_W{W}"] = {
+                "max_abs_err": err, "ms": timer(lambda: sink_decode(*sa)),
+                "plain_ms": timer(lambda: sink_decode_plain(*sa)),
+                "library_ms": timer(lib), "library_vs_plain_err": lib_err,
+                "bound_ms": sb[0], "bound_by": sb[1], "bytes": sb[2],
+                "flops": sb[3]}
+    return rec
+
+
 # ---- phase 3: full-width serving -------------------------------------
 def workload(vocab, n=12, seed=7):
     """benchmarks/bench_serving.py::_workload: two of three prompts carry a
@@ -405,6 +582,147 @@ def serve(dev, log, cfg):
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
 
 
+# ---- phase 5: the default OmniAttn pattern, whole-prompt prefill ------
+def default_pattern_workload(vocab, seed=21):
+    """3 distinct 4,400-token prompts (past the 4,224-slot ring, which wraps
+    during prefill), an exact repeat of the first right behind it (whole
+    adoption from the prefix store), two 16-token prompts: 8 greedy tokens
+    each; plus one seeded sampled 16-token request, the seventh for six
+    slots, so one request waits for a slot."""
+    from repro_torch.core.proxy import SamplingParams
+    rng = np.random.default_rng(seed)
+
+    def toks(n):
+        return tuple(int(t) for t in rng.integers(0, vocab, n))
+    longs = [toks(P5_LONG) for _ in range(3)]
+    prompts = [longs[0], longs[0], longs[1], longs[2], toks(P5_SHORT),
+               toks(P5_SHORT), toks(P5_SHORT)]
+    params = [SamplingParams(max_tokens=8)] * 6 + [SamplingParams(
+        temperature=0.9, top_k=64, top_p=0.95, seed=905, max_tokens=8)]
+    return prompts, params
+
+
+def build_default_server(cfg, paged, dev, params=None):
+    """Both layouts get the paged default's pool: every slot max_len plus
+    one prompt of prefill headroom, (6 + 1) x 288 blocks. (The slot-dense
+    engine's own default accounting pool, 4 x 16 GiB / bytes per slot, is
+    276 blocks at this width: one 4,400-token request at a time.)"""
+    from repro_torch.core.proxy import OASConfig
+    from repro_torch.serving import Server, ServerConfig
+    scfg = ServerConfig(decode_slots=6, max_len=P5_MAX_LEN, kv_block_size=16,
+                        prefix_reuse=True, prefix_cache_cap=4,
+                        kv_blocks=(6 + 1) * -(-P5_MAX_LEN // 16),
+                        paged_kv=paged, oas=OASConfig(defer_window=0.0))
+    return Server(cfg, scfg, pattern=None, params=params, seed=0,
+                  device=dev)
+
+
+def top2_margin(srv, prompt, stream, i):
+    """Top-2 logit margin of the token at stream position i, recomputed by a
+    whole-prompt prefill of prompt + stream[:i]."""
+    ctx = list(prompt) + list(stream[:i])
+    S = min(1 << (len(ctx) - 1).bit_length(), srv.scfg.max_len)
+    toks = torch.tensor([ctx + [0] * (S - len(ctx))], dtype=torch.int32,
+                        device=srv.lm.device)
+    _, logits = srv.lm.prefill(srv.params, toks, max_len=srv.scfg.max_len,
+                               true_len=len(ctx))
+    top = torch.topk(logits[0].float(), 2).values
+    return float(top[0] - top[1])
+
+
+def serve_default_pattern(dev, log, cfg):
+    """Phase 5 on `cfg` (full-width qwen2-1.5b in main()): pattern=None, 21
+    compressed layers (sink 128 + recent 4096) and 7 full ones, served twice
+    — paged KV (flash_prefill + paged_decode) and slot-dense KV
+    (flash_prefill + sink_decode) — with the counts zeroed just before each
+    measured run and read just after."""
+    from repro_torch.kernels.flash_prefill import flash_prefill
+    from repro_torch.kernels.paged_decode import paged_decode
+    from repro_torch.kernels.paged_prefill import paged_prefill
+    from repro_torch.kernels.sink_decode import sink_decode
+    from repro_torch.core.proxy import SamplingParams
+    from repro_torch.models.stack import full_attn_layer
+    specs = None
+    n_layers = cfg.n_layers
+    prompts, params = default_pattern_workload(cfg.vocab_size)
+    warm, _ = default_pattern_workload(cfg.vocab_size, seed=22)
+    out, servers, weights = {}, {}, None
+    for paged in (True, False):
+        name = "paged" if paged else "dense"
+        t0 = time.monotonic()
+        srv = build_default_server(cfg, paged, dev, params=weights)
+        weights = srv.params
+        specs = srv.lm.plan.all_specs()
+        torch.cuda.synchronize()
+        log.append(f"{name}: server built in {time.monotonic() - t0:.1f} s")
+        # warm-up on other tokens: the 4608 and 16 prefill buckets, decode
+        # batches, cuBLAS shapes; outside the counts and the metrics
+        list(srv.generate([warm[0], warm[4]], SamplingParams(max_tokens=2)))
+        reset_stats(srv)
+        for kern in (flash_prefill, paged_decode, sink_decode,
+                     paged_prefill):
+            kern.launches = 0
+        streams, finished, summ, wall = drive(srv, prompts, params)
+        launches = {"flash_prefill": flash_prefill.launches,
+                    "paged_decode": paged_decode.launches,
+                    "sink_decode": sink_decode.launches,
+                    "paged_prefill": paged_prefill.launches}
+        ps, ds = srv.prefills[0].stats, srv.decodes[0].stats
+        assert len(finished) == len(prompts) and all(
+            r == "length" for r in finished), finished
+        assert all(len(x) == 8 for x in streams), streams
+        assert not srv.prefills[0].chunked
+        assert ds["host_fetches"] == ds["steps"] > 0, ds
+        assert ps["cache_hits"] == 1 and ps["prefills"] == len(prompts) - 1, \
+            ps
+        if dev.type == "cuda":          # the counts move only on the card
+            assert launches["flash_prefill"] == ps["prefills"] * n_layers \
+                > 0, (launches, ps)
+            dec = "paged_decode" if paged else "sink_decode"
+            other = "sink_decode" if paged else "paged_decode"
+            assert launches[dec] == ds["steps"] * n_layers > 0, \
+                (launches, ds)
+            assert launches[other] == 0 == launches["paged_prefill"], \
+                launches
+        srv.decodes[0].pool.check_invariants(arena=srv.kv_arena)
+        out[name] = {"launches": launches, "whole_prefills": ps["prefills"],
+                     "cache_hits": ps["cache_hits"],
+                     "decode_steps": ds["steps"],
+                     "host_fetches": ds["host_fetches"],
+                     "preemptions": ds["preemptions"],
+                     "metrics": {k: summ[k] for k in (
+                         "n_done", "ttft_mean", "ttft_p99", "tpot_mean_ms",
+                         "tpot_p99_ms", "ott_tok_s", "ttt_tok_s")}
+                     | {"wall_s": wall},
+                     "streams": streams}
+        servers[name] = srv
+    # greedy streams (requests 0-5) identical across the two layouts, up to
+    # a near-tie at the first differing step
+    ties = []
+    for r in range(6):
+        a, b = out["paged"]["streams"][r], out["dense"]["streams"][r]
+        if a == b:
+            continue
+        i = next(j for j in range(len(a)) if a[j] != b[j])
+        margin = top2_margin(servers["paged"], prompts[r], a, i)
+        log.append(f"request {r}: layouts differ at token {i}, top-2 logit "
+                   f"margin {margin:.3g}")
+        if margin >= 1e-4:
+            raise AssertionError(f"greedy streams of request {r} differ "
+                                 f"across KV layouts at token {i} (top-2 "
+                                 f"margin {margin:.3g})")
+        ties.append({"request": r, "token": i, "margin": margin})
+    n_comp = sum(s.compressed for s in specs)
+    n_full = sum(full_attn_layer(cfg, s) for s in specs)
+    return {"layouts": {k: {kk: vv for kk, vv in v.items()
+                            if kk != "streams"} for k, v in out.items()},
+            "compressed_layers": n_comp, "full_layers": n_full,
+            "greedy_streams_identical": not ties, "near_ties": ties,
+            "sampled_stream_equal": out["paged"]["streams"][6]
+            == out["dense"]["streams"][6],
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
 # ---- phase 4: reduced width, card against CPU ------------------------
 def cross_check_reduced(dev, log):
     from repro_torch.configs import reduced_config
@@ -455,7 +773,51 @@ def cross_check_reduced(dev, log):
     assert out[0] == out[1], "card and CPU greedy streams differ"
     log.append(f"reduced width: card vs CPU logits max_abs_err={worst:.3g}, "
                f"greedy streams identical ({len(prompts)} requests)")
-    return {"logits_max_abs_err": worst, "streams_identical": True}
+
+    # the default OmniAttn pattern (3 compressed layers of 4, sink 8 +
+    # recent 24, so the 60-token prompts wrap the rings): whole-prompt
+    # prefill + dense decode logits, then both KV layouts served
+    rcfg = cfg.with_updates(n_layers=4, omniattn_sink_tokens=8,
+                            omniattn_recent_tokens=24)
+    cpu_lm = LM.build(rcfg, pattern=None, device="cpu")
+    gpu_lm = LM.build(rcfg, pattern=None, device=dev)
+    p4 = cpu_lm.init(seed=6)
+    g4 = DevicePlacement.of(dev).place_params(p4)
+    worst4, res = 0.0, []
+    for lm, p, d in ((cpu_lm, p4, "cpu"), (gpu_lm, g4, dev)):
+        cache, l1 = lm.prefill(p, torch.from_numpy(
+            np.pad(toks, ((0, 0), (0, 24)))).to(d), max_len=128, true_len=40)
+        _, l2 = lm.decode(p, cache, torch.tensor([[7]], dtype=torch.int32,
+                                                 device=d),
+                          torch.tensor([[40]], dtype=torch.int32, device=d))
+        res.append((l1.float().cpu(), l2.float().cpu()))
+    for a, b in zip(res[0], res[1]):
+        worst4 = max(worst4, float((a - b).abs().max()))
+        torch.testing.assert_close(b, a, rtol=2e-3, atol=2e-3)
+    layouts = {}
+    for paged in (True, False):
+        scfg4 = ServerConfig(decode_slots=3, max_len=128, kv_block_size=8,
+                             paged_kv=paged, oas=OASConfig(defer_window=0.0))
+        got = []
+        for d, p in (("cpu", p4), (dev, g4)):
+            srv = Server(rcfg, scfg4, pattern=None, params=p, device=d)
+            s = srv.run([(q, SamplingParams(max_tokens=5)) for q in prompts])
+            assert s["n_done"] == len(prompts)
+            assert not srv.prefills[0].chunked
+            srv.decodes[0].pool.check_invariants(arena=srv.kv_arena)
+            got.append({r.rid: tuple(r.output_tokens)
+                        for r in srv.metrics.done})
+        assert got[0] == got[1], \
+            f"pattern=None paged_kv={paged}: card and CPU streams differ"
+        layouts["paged" if paged else "dense"] = got[1]
+    assert layouts["paged"] == layouts["dense"], \
+        "pattern=None: paged and dense layouts differ on the card"
+    log.append(f"reduced width, pattern=None: card vs CPU logits "
+               f"max_abs_err={worst4:.3g}, greedy streams identical in both "
+               f"KV layouts")
+    return {"logits_max_abs_err": worst, "streams_identical": True,
+            "default_pattern_logits_max_abs_err": worst4,
+            "default_pattern_streams_identical": True}
 
 
 # ----------------------------------------------------------------------
@@ -486,6 +848,7 @@ def main() -> int:
 
     timer = Timer(dev)
     kern = check_kernels(dev, timer, log)
+    kern.update(check_dense_kernels(dev, timer, log))
     print("phase 2: kernels agree with their plain versions on the card")
     for line in log:
         print("  " + line)
@@ -496,6 +859,7 @@ def main() -> int:
                   f"sdpa, bound {r['bound_ms']:.4f} ms ({r['bound_by']}) "
                   f"[{smi}]")
     log.clear()
+    torch.cuda.empty_cache()
 
     cfg = full_width_config()
     served = serve(dev, log, cfg)
@@ -522,21 +886,52 @@ def main() -> int:
 
     report["reduced"] = cross_check_reduced(dev, log)
     print("phase 4: " + "; ".join(log))
+    log.clear()
 
-    report.update(kernels=kern, serve=served)
+    omni = serve_default_pattern(dev, log, cfg)
+    print(f"phase 5: full-width qwen2-1.5b, pattern=None "
+          f"({omni['compressed_layers']} compressed + {omni['full_layers']} "
+          f"full layers), whole-prompt prefill")
+    for line in log:
+        print("  " + line)
+    for name, r in omni["layouts"].items():
+        m, ln = r["metrics"], r["launches"]
+        dec = "paged_decode" if name == "paged" else "sink_decode"
+        print(f"  {name} KV: {r['whole_prefills']} whole prefills x "
+              f"{cfg.n_layers} = {ln['flash_prefill']} flash_prefill "
+              f"launches; {r['decode_steps']} steps x {cfg.n_layers} = "
+              f"{ln[dec]} {dec} launches; host_fetches {r['host_fetches']}; "
+              f"cache hits {r['cache_hits']}")
+        print(f"  {name} KV: TTFT mean {m['ttft_mean'] * 1e3:.2f} ms p99 "
+              f"{m['ttft_p99'] * 1e3:.2f} ms, TPOT mean "
+              f"{m['tpot_mean_ms']:.2f} ms p99 {m['tpot_p99_ms']:.2f} ms, "
+              f"{m['ott_tok_s']:.1f} output tok/s, {m['ttt_tok_s']:.1f} total "
+              f"tok/s over {m['wall_s']:.2f} s [{smi}]")
+    print(f"  greedy streams identical across layouts: "
+          f"{omni['greedy_streams_identical']} "
+          f"(near-ties {omni['near_ties']})")
+
+    report.update(kernels=kern, serve=served, default_pattern=omni)
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 
-    src = {"paged_decode": ("src/repro_torch/kernels/csrc/paged_decode.cu",
-                            "src/repro/kernels/paged_decode.py:99"),
-           "paged_prefill": ("src/repro_torch/kernels/csrc/paged_prefill.cu",
-                             "src/repro/kernels/paged_prefill.py:131")}
+    lay = omni["layouts"]
+    rows = (("paged_decode", "paged_decode", "float32",
+             served["launches"]["paged_decode"]),
+            ("paged_prefill", "paged_prefill", "float32",
+             served["launches"]["paged_prefill"]),
+            ("flash_prefill", "flash_prefill", "float32",
+             lay["paged"]["launches"]["flash_prefill"]
+             + lay["dense"]["launches"]["flash_prefill"]),
+            ("sink_decode", "sink_decode", "float32_W4224",
+             lay["dense"]["launches"]["sink_decode"]))
     line = {"kernels": []}
-    for name, (source, replaces) in src.items():
-        r = kern[name]["float32"]
+    for name, key, dn, launches in rows:
+        r = kern[key][dn]
         line["kernels"].append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": served["launches"][name],
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": REPLACES[name], "launches": launches,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],

@@ -24,8 +24,10 @@ NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v", "-lineinfo"]
 
 # C entry points of each library and their ctypes signatures: pointers and
-# the stream as c_void_p, sizes as c_int, the softmax scale as c_float.
+# the stream as c_void_p, sizes as c_int, element strides as c_longlong, the
+# softmax scale as c_float.
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 SIGNATURES = {
     "paged_decode": {
         "paged_decode_launch": [_I, _P, _P, _P, _P, _P, _P,
@@ -34,6 +36,14 @@ SIGNATURES = {
     "paged_prefill": {
         "paged_prefill_launch": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                  _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
+    },
+    "flash_prefill": {
+        "flash_prefill_launch": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _F,
+                                 _I, _I, _I, _P],
+    },
+    "sink_decode": {
+        "sink_decode_launch": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                               _L, _L, _L, _L, _L, _L, _F, _P],
     },
 }
 

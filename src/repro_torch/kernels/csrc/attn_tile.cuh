@@ -1,6 +1,7 @@
-// Shared tile machinery of the paged attention kernels (paged_decode.cu,
-// paged_prefill.cu): typed 16-byte tile loads into float32 shared memory and
-// one online-softmax step of R query rows against a tile of TK keys.
+// Shared tile machinery of the attention kernels (paged_decode.cu,
+// paged_prefill.cu, flash_prefill.cu, sink_decode.cu): typed 16-byte tile
+// loads into float32 shared memory and one online-softmax step of R query
+// rows against a tile of TK keys.
 //
 // Layout of a CTA's shared memory (floats):
 //   Qs [R][HD+1]   query rows (padded: the score loop reads rows and keys
@@ -34,13 +35,15 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16(x);
 }
 
-// Copy `n_rows` rows of HD contiguous elements from `src` into shared `dst`
-// (row stride `ld` floats), converting to float32. Rows >= valid_rows are
-// zero-filled and never read from global memory. Each thread moves 16 bytes
-// per load; neighbouring threads read neighbouring addresses.
+// Copy `n_rows` rows of HD contiguous elements, `row_stride` elements apart,
+// from `src` into shared `dst` (row stride `ld` floats), converting to
+// float32. Rows >= valid_rows are zero-filled and never read from global
+// memory. Each thread moves 16 bytes per load; neighbouring threads read
+// neighbouring addresses. Every row start must be 16-byte aligned.
 template <typename T, int HD>
-__device__ __forceinline__ void load_tile(float* dst, int ld, const T* src,
-                                          int n_rows, int valid_rows) {
+__device__ __forceinline__ void load_rows(float* dst, int ld, const T* src,
+                                          size_t row_stride, int n_rows,
+                                          int valid_rows) {
   constexpr int VEC = 16 / sizeof(T);
   constexpr int VPR = HD / VEC;
   for (int i = threadIdx.x; i < n_rows * VPR; i += NT) {
@@ -48,7 +51,8 @@ __device__ __forceinline__ void load_tile(float* dst, int ld, const T* src,
     const int c = (i % VPR) * VEC;
     float* out = dst + r * ld + c;
     if (r < valid_rows) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(src + (size_t)r * HD + c);
+      const uint4 raw =
+          *reinterpret_cast<const uint4*>(src + (size_t)r * row_stride + c);
       const T* e = reinterpret_cast<const T*>(&raw);
 #pragma unroll
       for (int u = 0; u < VEC; ++u) out[u] = to_f32<T>(e[u]);
@@ -57,6 +61,13 @@ __device__ __forceinline__ void load_tile(float* dst, int ld, const T* src,
       for (int u = 0; u < VEC; ++u) out[u] = 0.f;
     }
   }
+}
+
+// The same for rows stored back to back (row stride HD).
+template <typename T, int HD>
+__device__ __forceinline__ void load_tile(float* dst, int ld, const T* src,
+                                          int n_rows, int valid_rows) {
+  load_rows<T, HD>(dst, ld, src, HD, n_rows, valid_rows);
 }
 
 // One online-softmax step: R query rows (Qs) against TK keys (Ks, Vs).

@@ -2,8 +2,37 @@
 kv-head-major layouts (the counterparts of src/repro/kernels/ops.py)."""
 from __future__ import annotations
 
+from repro_torch.kernels.flash_prefill import flash_prefill
 from repro_torch.kernels.paged_decode import paged_decode
 from repro_torch.kernels.paged_prefill import paged_prefill
+from repro_torch.kernels.sink_decode import sink_decode
+
+
+def attention_prefill_op(q, k, v, *, causal=True, window=0, sink=0):
+    """Whole-prompt attention. q [B,S,H,h]; k/v [B,S,K,h] → [B,S,H,h].
+    GQA is native: the G = H/K query heads of each kv head become the rows
+    of one [S·G, h] matrix (row r = token r // G); no kv head is repeated."""
+    B, S, H, h = q.shape
+    K = k.shape[2]
+    G = H // K
+    qf = q.reshape(B, S, K, G, h).permute(0, 2, 1, 3, 4) \
+        .reshape(B * K, S * G, h)
+    kf = k.permute(0, 2, 1, 3).reshape(B * K, S, h)
+    vf = v.permute(0, 2, 1, 3).reshape(B * K, S, h)
+    o = flash_prefill(qf, kf, vf, causal=causal, window=window, sink=sink)
+    return o.reshape(B, K, S, G, h).permute(0, 2, 1, 3, 4) \
+        .reshape(B, S, H, h)
+
+
+def attention_decode_op(q, k_cache, v_cache, t):
+    """q [B,H,h]; caches [B,W,K,h] (the model layout, read in place through
+    a transposed view); t scalar or [B] occupancy → [B,H,h]."""
+    B, H, h = q.shape
+    K = k_cache.shape[2]
+    G = H // K
+    o = sink_decode(q.reshape(B, K, G, h), k_cache.transpose(1, 2),
+                    v_cache.transpose(1, 2), t)
+    return o.reshape(B, H, h)
 
 
 def attention_paged_decode_op(q, k_pages, v_pages, tables, lens):

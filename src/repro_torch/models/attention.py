@@ -1,14 +1,16 @@
-"""Attention over physically paged KV: the arena writes, the block-summary
-plane, and the plain (model-layout) attention paths.
+"""Attention caches and the plain (model-layout) attention paths: paged
+arenas with their block-summary plane, and dense (sink‖ring or full) caches.
 
 Layouts (as in src/repro/models/attention.py):
   q        [B, S, H, h]       (H = n_heads)
   k, v     [B, S, K, h]       (K = n_kv_heads, G = H // K)
   arenas   [N, K, bs, h]      kv-head-major blocks; block 0 is the null block
   summaries kmin/kmax/kmean [N, K, h] float32
+  dense    [B, W, K, h]       W = sink + recent (ring) or max_len (full)
 
-Arena writes update the tensors IN PLACE and return them: the arenas are
-large, shared by the prefill and decode engines, and never copied.
+Cache writes update the tensors IN PLACE and return them: the arenas are
+large, shared by the prefill and decode engines, and never copied; a dense
+cache is owned by the decode engine that writes it.
 """
 from __future__ import annotations
 
@@ -129,6 +131,63 @@ def paged_cache_write(k_pages, v_pages, k_new, v_new, blk, off):
     k_pages[b, ki, o] = k_new.to(k_pages.dtype)
     v_pages[b, ki, o] = v_new.to(v_pages.dtype)
     return k_pages, v_pages
+
+
+def ring_slot(t, sink: int, recent: int):
+    """Cache slot of the token written at absolute position t (sink+ring):
+    tokens < sink + recent fill the slots in order, later ones cycle through
+    the recent ring."""
+    W = sink + recent
+    return torch.where(t < W, t, sink + (t - sink) % recent)
+
+
+def cache_write(k_cache, v_cache, k_new, v_new, t, *, sink: int = 0,
+                recent: int = 0):
+    """Write one token's K/V per sequence into dense caches, in place.
+    caches [B, W, K, h]; k_new/v_new [B, K, h]; t [B] absolute positions.
+    Full cache when sink == recent == 0 (slot t), else the sink+ring layout.
+    A write past the cache (slot >= W, a full cache at max_len) is dropped,
+    as the reference's scatter drops it: the clamped slot is rewritten with
+    its own content, so no host sync is needed."""
+    B, W = k_cache.shape[0], k_cache.shape[1]
+    t = t.long()
+    idx = ring_slot(t, sink, recent) if (sink or recent) else t
+    ok = (idx < W)[:, None, None]
+    idx = torch.clamp(idx, max=W - 1)
+    b = torch.arange(B, device=k_cache.device)
+    for c, new in ((k_cache, k_new), (v_cache, v_new)):
+        c[b, idx] = torch.where(ok, new.to(c.dtype), c[b, idx])
+    return k_cache, v_cache
+
+
+def compress_prefill_kv(k, v, *, sink: int, recent: int, true_len=None):
+    """Build a sink+recent ring cache [B, sink+recent, K, h] from whole-prompt
+    K/V [B, S, K, h]. Token i >= sink lives at slot sink + (i - sink) %
+    recent, so after `true_len` tokens (a right-padded prompt; default S)
+    each ring slot holds the latest token of its residue class; ring slots
+    no real token reached are zero. The sink slots copy rows :sink as they
+    are (padded rows included), as the reference does."""
+    B, S, K, h = k.shape
+    W = sink + recent
+    if true_len is None and S <= W:
+        pad = (0, 0, 0, 0, 0, W - S)
+        return (torch.nn.functional.pad(k, pad),
+                torch.nn.functional.pad(v, pad))
+    tl = S if true_len is None else int(true_len)
+    dev = k.device
+    base = sink + torch.arange(recent, device=dev)
+    n_wraps = torch.clamp(torch.div(tl - 1 - base, recent,
+                                    rounding_mode="floor"), min=0)
+    p = torch.clamp(base + n_wraps * recent, 0, S - 1)    # token at slot j
+    valid = (base < tl).to(k.dtype)[None, :, None, None]
+    out = []
+    for x in (k, v):
+        sink_x = x[:, :min(sink, S)]
+        if sink_x.shape[1] < sink:
+            sink_x = torch.nn.functional.pad(
+                sink_x, (0, 0, 0, 0, 0, sink - sink_x.shape[1]))
+        out.append(torch.cat([sink_x, x[:, p] * valid], dim=1))
+    return out[0], out[1]
 
 
 def update_block_summaries(kmin, kmax, kmean, k_pages, blocks):

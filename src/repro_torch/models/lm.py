@@ -1,8 +1,10 @@
 """Top-level model of the port: embeddings, tied (or untied) head, and the
-two serving entry points over paged KV (`prefill_resume`, `decode`)."""
+serving entry points: whole-prompt `prefill` into dense caches, chunked
+`prefill_resume` over paged KV, and `decode` over paged or dense KV."""
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import cached_property
 from typing import Optional
 
 import torch
@@ -91,6 +93,45 @@ class LM:
         return x.to(cd) @ params["head"]
 
     @torch.no_grad()
+    def prefill(self, params, tokens, *, max_len: int, true_len=None):
+        """Whole-prompt prefill: tokens [B, S] at positions arange(S), the
+        first `true_len` rows real (a right-padded prompt; default S).
+        Every layer attends through the flash-prefill kernel. → (dense cache
+        {"layers": [{"k","v": [B, W, K, h]}], "pos": true_len} — ring layers
+        compressed to sink+recent, full layers padded to max_len — and the
+        logits of the last real token [B, V])."""
+        B, S = tokens.shape
+        tl = S if true_len is None else int(true_len)
+        x = self._embed(params, tokens)
+        positions = torch.arange(S, device=x.device)
+        x, layers = stack_mod.stack_apply(
+            self.cfg, self.plan, params["layers"], x, mode="prefill",
+            positions=positions, caches=None, block_tables=None,
+            true_len=true_len, max_len=max_len)
+        return {"layers": layers, "pos": tl}, self._logits(params,
+                                                           x[:, tl - 1])
+
+    @cached_property
+    def chunked_prefill_support(self) -> tuple:
+        """(supported, max_chunk_tokens), as the reference decides it:
+        chunked prefill is exact only when no attention layer's prefill mask
+        needs keys its ring has dropped — compressed layers qualify only
+        under cfg.prefill_sparse — and a ring bounds the chunk to its recent
+        width. (The reference also refuses encoder and frontend families,
+        which `check_supported` keeps out of the port.)"""
+        cfg = self.cfg
+        limit = 1 << 30
+        for spec in self.plan.all_specs():
+            if spec.kind != "attn":
+                continue
+            if spec.compressed and not cfg.prefill_sparse:
+                return False, 0
+            sink, recent = stack_mod.cache_window(cfg, spec)
+            if sink or recent:
+                limit = min(limit, recent)
+        return True, limit
+
+    @torch.no_grad()
     def prefill_resume(self, params, tokens, cache, *, chunk_len=None,
                        block_tables=None):
         """Continue a prefill: tokens [1, S] is the next chunk at absolute
@@ -98,34 +139,33 @@ class LM:
         rows of a right-padded chunk. Full-attention cache entries are the
         shared arenas, reached through block_tables [1, nb]; the chunk's
         K/V is written into its blocks in place. → (cache with "pos"
-        advanced, logits of the last real token [1, V])."""
+        advanced, logits of the last real token [1, V]). Ring layers and
+        dense caches raise NotImplementedError (not ported yet)."""
         if block_tables is None:
             raise NotImplementedError(
-                "dense (non-paged) prefill is not ported yet: pass "
+                "dense (non-paged) chunked prefill is not ported yet: pass "
                 "block_tables")
         B, S = tokens.shape
         off = int(cache["pos"])
         cl = S if chunk_len is None else int(chunk_len)
         x = self._embed(params, tokens)
         positions = off + torch.arange(S, device=x.device)
-        x = stack_mod.stack_apply(self.cfg, self.plan, params["layers"], x,
-                                  mode="prefill", positions=positions,
-                                  caches=cache, block_tables=block_tables,
-                                  true_len=cl, pos0=off)
+        x, _ = stack_mod.stack_apply(self.cfg, self.plan, params["layers"], x,
+                                     mode="prefill", positions=positions,
+                                     caches=cache, block_tables=block_tables,
+                                     true_len=cl, pos0=off)
         logits = self._logits(params, x[:, cl - 1])
         return dict(cache, pos=off + cl), logits
 
     @torch.no_grad()
     def decode(self, params, cache, token, positions, *, block_tables=None):
-        """One decode step over paged KV. token [B, 1]; positions [B, 1]
-        (device int tensors: each slot's write position). Writes each
-        slot's K/V through block_tables [B, nb] and attends its resident
-        blocks. → (cache, logits [B, V])."""
-        if block_tables is None:
-            raise NotImplementedError(
-                "slot-dense decode is not ported yet: pass block_tables")
+        """One decode step. token [B, 1]; positions [B, 1] (device int
+        tensors: each slot's write position). With block_tables [B, nb] the
+        cache is paged (shared full-attention arenas + per-slot ring block
+        runs); without, it is dense (`alloc_cache`). Each slot's K/V is
+        written in place, then attended. → (cache, logits [B, V])."""
         x = self._embed(params, token)
-        x = stack_mod.stack_apply(self.cfg, self.plan, params["layers"], x,
-                                  mode="decode", positions=positions,
-                                  caches=cache, block_tables=block_tables)
+        x, _ = stack_mod.stack_apply(self.cfg, self.plan, params["layers"], x,
+                                     mode="decode", positions=positions,
+                                     caches=cache, block_tables=block_tables)
         return cache, self._logits(params, x[:, 0])

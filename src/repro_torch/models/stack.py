@@ -1,4 +1,4 @@
-"""Layer stack of the port: dense attention + SwiGLU layers over paged KV.
+"""Layer stack of the port: attention + SwiGLU layers over paged or dense KV.
 
 The JAX stack scans over a periodized layer sequence; here the layers run
 in a plain loop over a flat per-layer list (parameters are unstacked by
@@ -7,10 +7,17 @@ the layers in the reference's order.
 
 Params:  {"layers": [layer dict, ...], "embed", "final_norm"[, "head"]}
 Caches:  {"layers": [entry | None, ...], "pos": int}
-A full-attention entry is {"k","v": [N, K, bs, h] arenas,
-"kmin","kmax","kmean": [N, K, h] float32} — the shared arena, updated in
-place. This slice serves full-attention layers only; `check_supported`
-raises NotImplementedError for everything a later slice brings.
+Attention layers are full (KV grows with the context) or ring layers
+(OmniAttn sink+recent compression, or a sliding window: a fixed capacity
+W). Entries, all updated in place:
+  paged full layer   {"k","v": [N, K, bs, h] shared arenas,
+                      "kmin","kmax","kmean": [N, K, h] float32}
+  paged ring layer   {"k","v": [n_slots·bpw, K, bs, h]}: slot b owns the
+                      contiguous block run [b·bpw, (b+1)·bpw)
+  dense layer        {"k","v": [B, W, K, h]}, W = sink+recent or max_len
+`check_supported` raises NotImplementedError for what a later slice brings
+(MoE, SSM, online top-k); chunked prefill over ring layers raises where it
+is attempted (`attn_sublayer`).
 """
 from __future__ import annotations
 
@@ -82,10 +89,12 @@ def check_supported(cfg: ModelConfig, plan: StackPlan) -> None:
     for spec in plan.all_specs():
         if spec.kind != "attn":
             raise NotImplementedError("SSM (mamba) layers are not ported yet")
-        if not full_attn_layer(cfg, spec):
-            raise NotImplementedError(
-                "ring layers (sliding window or sink+recent compressed) are "
-                "not ported yet: pass a pattern of zeros")
+
+
+def ring_block_count(sink: int, recent: int, block_size: int) -> int:
+    """Blocks backing one slot's sink+recent ring (ceil, last may be
+    partial)."""
+    return -(-(sink + recent) // block_size)
 
 
 # ----------------------------------------------------------------------
@@ -112,26 +121,56 @@ def alloc_arena_kv(cfg: ModelConfig, plan: StackPlan, n_arena_blocks: int,
     return [one(s) for s in plan.all_specs()]
 
 
-def _private(cfg: ModelConfig, plan: StackPlan) -> dict:
-    # full-attention layers keep nothing private (their KV is the arena);
-    # check_supported guarantees no other layer kind reaches here
-    return {"layers": [None for _ in plan.all_specs()], "pos": 0}
+def alloc_cache(cfg: ModelConfig, plan: StackPlan, B: int, max_len: int,
+                device, dtype=None) -> dict:
+    """Dense caches for B sequences: every attention layer gets {"k","v":
+    [B, W, K, h]} zeros, W = sink + recent for ring layers and max_len for
+    full ones (the reference's `alloc_cache`)."""
+    dtype = torch_dtype(dtype or cfg.compute_dtype)
+    K, h = cfg.n_kv_heads, cfg.head_dim
+
+    def one(spec):
+        sink, recent = cache_window(cfg, spec)
+        W = (sink + recent) if (sink or recent) else max_len
+        return {n: torch.zeros((B, W, K, h), dtype=dtype, device=device)
+                for n in ("k", "v")}
+    return {"layers": [one(s) for s in plan.all_specs()], "pos": 0}
 
 
 def alloc_prefill_private_cache(cfg: ModelConfig, plan: StackPlan,
-                                max_len: int) -> dict:
+                                max_len: int, device, dtype=None) -> dict:
     """B=1 task cache without full-attention layers (their KV lives in the
-    shared arena): the position and, for later slices, ring KV / SSM
-    state."""
-    return _private(cfg, plan)
+    shared arena): the position and dense [1, W, K, h] ring KV."""
+    dtype = torch_dtype(dtype or cfg.compute_dtype)
+    K, h = cfg.n_kv_heads, cfg.head_dim
+
+    def one(spec):
+        if full_attn_layer(cfg, spec):
+            return None
+        W = sum(cache_window(cfg, spec))
+        return {n: torch.zeros((1, W, K, h), dtype=dtype, device=device)
+                for n in ("k", "v")}
+    return {"layers": [one(s) for s in plan.all_specs()], "pos": 0}
 
 
 def alloc_paged_private_cache(cfg: ModelConfig, plan: StackPlan,
-                              n_slots: int, max_len: int,
-                              block_size: int) -> dict:
-    """Decode-engine private side of the paged cache; full-attention entries
-    are None (shared arena)."""
-    return _private(cfg, plan)
+                              n_slots: int, max_len: int, block_size: int,
+                              device, dtype=None) -> dict:
+    """Decode-engine private side of the paged cache: full-attention entries
+    are None (shared arena); each ring layer gets [n_slots·bpw, K, bs, h]
+    blocks, slot b statically owning blocks [b·bpw, (b+1)·bpw) (the
+    reference's `layer_cache_shape_paged`)."""
+    dtype = torch_dtype(dtype or cfg.compute_dtype)
+    K, h = cfg.n_kv_heads, cfg.head_dim
+
+    def one(spec):
+        if full_attn_layer(cfg, spec):
+            return None
+        bpw = ring_block_count(*cache_window(cfg, spec), block_size)
+        shp = (n_slots * bpw, K, block_size, h)
+        return {n: torch.zeros(shp, dtype=dtype, device=device)
+                for n in ("k", "v")}
+    return {"layers": [one(s) for s in plan.all_specs()], "pos": 0}
 
 
 def merge_arena_cache(cfg: ModelConfig, plan: StackPlan, private: dict,
@@ -156,15 +195,24 @@ def split_arena_cache(cfg: ModelConfig, plan: StackPlan, cache: dict
 
 # ----------------------------------------------------------------------
 # Layer application
-def attn_sublayer(cfg: ModelConfig, p: dict, x, *, mode: str, positions,
-                  cache: dict, true_len: Optional[int] = None,
-                  block_tables=None, pos0: int = 0):
-    """Attention of one full-attention layer over the paged arenas, in
-    place. mode "prefill": a B=1 chunk at absolute positions pos0 + arange(S)
-    (the first `true_len` rows real) — attend history + chunk through the
-    paged-prefill kernel, then write the chunk's K/V into its blocks.
-    mode "decode": one token per slot at positions [B, 1] — write its K/V,
-    then attend the resident blocks through the paged-decode kernel."""
+def attn_sublayer(cfg: ModelConfig, spec: LayerSpec, p: dict, x, *,
+                  mode: str, positions, cache: Optional[dict],
+                  true_len: Optional[int] = None, block_tables=None,
+                  pos0: int = 0, max_len: int = 0):
+    """Attention of one layer. → (x, new cache entry or None).
+
+    mode "prefill", cache None: a whole B=1 prompt at positions arange(S)
+      (the first `true_len` rows real) through the flash-prefill kernel; the
+      new entry is the dense cache — ring layers compressed to sink+recent,
+      full layers zero-padded to `max_len`.
+    mode "prefill" with block_tables: a chunk at positions pos0 + arange(S)
+      of a full-attention layer over the paged arenas (paged-prefill kernel,
+      then the chunk's K/V written into its blocks, in place).
+    mode "decode": one token per slot at positions [B, 1]. With
+      block_tables the K/V are written into the arenas (full layers through
+      the table, ring layers into the slot's own block run) and attended
+      through the paged-decode kernel; without, into the dense caches,
+      attended through the sink-decode kernel. In place either way."""
     B, S, _ = x.shape
     H, K, h = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     cd = torch_dtype(cfg.compute_dtype)
@@ -182,10 +230,34 @@ def attn_sublayer(cfg: ModelConfig, p: dict, x, *, mode: str, positions,
         k = rms_norm(k, p["k_norm"], cfg.rms_eps)
     q = attn_mod.apply_rope(q, positions, cfg.rope_theta)
     k = attn_mod.apply_rope(k, positions, cfg.rope_theta)
-    kc, vc = cache["k"], cache["v"]
-    bs = kc.shape[2]
-    nb = block_tables.shape[1]
-    if mode == "prefill":
+    sink, recent = cache_window(cfg, spec)
+    ring = bool(sink or recent)
+    new_cache = None
+    if mode == "prefill" and cache is None:
+        window, use_sink = spec.window, 0
+        if spec.compressed and cfg.prefill_sparse:
+            window, use_sink = recent, sink
+        out = kops.attention_prefill_op(q, k, v, causal=cfg.causal,
+                                        window=window, sink=use_sink)
+        if ring:
+            kc, vc = attn_mod.compress_prefill_kv(k, v, sink=sink,
+                                                  recent=recent,
+                                                  true_len=true_len)
+        else:
+            pad = (0, 0, 0, 0, 0, max_len - S)
+            kc = torch.nn.functional.pad(k, pad)
+            vc = torch.nn.functional.pad(v, pad)
+        new_cache = {"k": kc, "v": vc}
+    elif mode == "prefill":
+        if ring or block_tables is None:
+            # the reference's `prefill_resume_attention` (no TPU kernel)
+            raise NotImplementedError(
+                "chunked prefill over ring layers (sliding window or "
+                "sink+recent compressed) or over dense caches is not ported "
+                "yet")
+        kc, vc = cache["k"], cache["v"]
+        bs = kc.shape[2]
+        nb = block_tables.shape[1]
         cl = S if true_len is None else int(true_len)
         out = kops.attention_paged_prefill_op(q, k, v, kc, vc, block_tables,
                                               pos0, cl)
@@ -200,25 +272,46 @@ def attn_sublayer(cfg: ModelConfig, p: dict, x, *, mode: str, positions,
             torch.zeros_like(ar))
         attn_mod.update_block_summaries(cache["kmin"], cache["kmax"],
                                         cache["kmean"], kc, wblk)
-    elif mode == "decode":
+    elif mode == "decode" and block_tables is not None:
+        kc, vc = cache["k"], cache["v"]
+        bs = kc.shape[2]
         t = positions[:, 0].to(torch.int32)
-        bidx = torch.arange(B, device=x.device)
-        # past the table's logical capacity the write goes to the null block
-        blk = torch.where(
-            t < nb * bs,
-            block_tables[bidx, torch.clamp(t // bs, max=nb - 1).long()],
-            torch.zeros_like(t))
-        off = t % bs
-        lens = torch.clamp(t + 1, max=nb * bs)
-        attn_mod.paged_cache_write(kc, vc, k[:, 0], v[:, 0], blk, off)
-        attn_mod.update_block_summaries(cache["kmin"], cache["kmax"],
-                                        cache["kmean"], kc, blk)
-        out = kops.attention_paged_decode_op(q[:, 0], kc, vc, block_tables,
-                                             lens)
+        bidx = torch.arange(B, device=x.device, dtype=torch.int32)
+        if ring:
+            # the slot's ring occupies its own contiguous block run
+            W = sink + recent
+            bpw = ring_block_count(sink, recent, bs)
+            slot = attn_mod.ring_slot(t, sink, recent)
+            blk = bidx * bpw + slot // bs
+            tbl = bidx[:, None] * bpw + torch.arange(
+                bpw, device=x.device, dtype=torch.int32)[None, :]
+            lens = torch.clamp(t + 1, max=W)
+            attn_mod.paged_cache_write(kc, vc, k[:, 0], v[:, 0], blk,
+                                       slot % bs)
+        else:
+            # past the table's logical capacity the write goes to the null
+            # block
+            nb = block_tables.shape[1]
+            blk = torch.where(
+                t < nb * bs,
+                block_tables[bidx.long(),
+                             torch.clamp(t // bs, max=nb - 1).long()],
+                torch.zeros_like(t))
+            tbl = block_tables
+            lens = torch.clamp(t + 1, max=nb * bs)
+            attn_mod.paged_cache_write(kc, vc, k[:, 0], v[:, 0], blk, t % bs)
+            attn_mod.update_block_summaries(cache["kmin"], cache["kmax"],
+                                            cache["kmean"], kc, blk)
+        out = kops.attention_paged_decode_op(q[:, 0], kc, vc, tbl, lens)
+    elif mode == "decode":
+        t = positions[:, 0]
+        kc, vc = attn_mod.cache_write(cache["k"], cache["v"], k[:, 0],
+                                      v[:, 0], t, sink=sink, recent=recent)
+        out = kops.attention_decode_op(q[:, 0], kc, vc, t + 1)
     else:
         raise NotImplementedError(f"attention mode {mode!r} is not ported")
     y = out.reshape(B, S, H * h)
-    return x + (y @ p["wo"]).to(x.dtype)
+    return x + (y @ p["wo"]).to(x.dtype), new_cache
 
 
 def ffn_sublayer(cfg: ModelConfig, p: dict, x):
@@ -231,12 +324,20 @@ def ffn_sublayer(cfg: ModelConfig, p: dict, x):
 
 
 def stack_apply(cfg: ModelConfig, plan: StackPlan, layers: list, x, *,
-                mode: str, positions, caches: dict, block_tables,
-                true_len: Optional[int] = None, pos0: int = 0):
-    """Run every layer in order; arena caches are updated in place."""
-    for spec, p, c in zip(plan.all_specs(), layers, caches["layers"]):
-        x = attn_sublayer(cfg, p, x, mode=mode, positions=positions,
-                          cache=c, true_len=true_len,
-                          block_tables=block_tables, pos0=pos0)
+                mode: str, positions, caches: Optional[dict], block_tables,
+                true_len: Optional[int] = None, pos0: int = 0,
+                max_len: int = 0):
+    """Run every layer in order. Caches given are updated in place; with
+    caches None (whole-prompt prefill) → (x, new per-layer entries), else
+    (x, None)."""
+    entries = [] if caches is None else None
+    for i, (spec, p) in enumerate(zip(plan.all_specs(), layers)):
+        x, nc = attn_sublayer(
+            cfg, spec, p, x, mode=mode, positions=positions,
+            cache=None if caches is None else caches["layers"][i],
+            true_len=true_len, block_tables=block_tables, pos0=pos0,
+            max_len=max_len)
+        if entries is not None:
+            entries.append(nc)
         x = ffn_sublayer(cfg, p, x)
-    return x
+    return x, entries

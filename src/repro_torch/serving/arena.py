@@ -36,6 +36,22 @@ def _pow2_floor(n: int) -> int:
     return b
 
 
+def dense_kv_to_blocks(x, n_blocks: int, block_size: int):
+    """[L, K, h] (dense token-major KV) → [n_blocks, K, bs, h] (kv-head-major
+    arena blocks); the tail is zero-padded to n_blocks · block_size."""
+    L, K, h = x.shape
+    pad = n_blocks * block_size - L
+    if pad:
+        x = torch.cat([x, x.new_zeros((pad, K, h))], dim=0)
+    return x.reshape(n_blocks, block_size, K, h).transpose(1, 2)
+
+
+def blocks_to_dense_kv(x, L: int):
+    """Inverse of dense_kv_to_blocks: [nb, K, bs, h] → [L, K, h]."""
+    nb, K, bs, h = x.shape
+    return x.transpose(1, 2).reshape(nb * bs, K, h)[:L]
+
+
 @dataclass
 class KVArena:
     """Per-layer full-attention block arenas (`kv`: one entry per layer,

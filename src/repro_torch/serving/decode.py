@@ -1,15 +1,23 @@
-"""Continuous-batch paged decode engine (the D side of PD disaggregation).
+"""Continuous-batch decode engine (the D side of PD disaggregation).
 
-Attention KV lives in the shared per-layer block arenas. Admission is
-either a zero-copy BlockHandoff (the prefill engine already wrote the
-blocks; pool ownership renames to the decode rid) or a dense scatter of a
-B=1 cache into fresh blocks (re-admission after preemption). Slot state
-(position, current token, active flag, per-slot sampling parameters and
-base keys) lives on the device and is updated in place by the step, so a
-decode step does exactly ONE device→host fetch: the sampled tokens
-(`host_fetches == steps`). A step that cannot grow a request's allocation
-reclaims prefix-store blocks first and then preempts the request (its KV is
-gathered back out of the arenas for later re-admission).
+With a KVArena (paged): full-attention KV lives in the shared per-layer
+block arenas and each ring layer (OmniAttn sink+recent, sliding window) in
+the engine's per-slot ring block runs. Admission is either a zero-copy
+BlockHandoff (the chunked prefill engine already wrote the blocks; pool
+ownership renames to the decode rid) or a dense scatter of a B=1 cache into
+fresh blocks (whole-prompt prefill, and re-admission after preemption). A
+step that cannot grow a request's allocation reclaims prefix-store blocks
+first and then preempts the request (its KV is gathered back out of the
+arenas for later re-admission).
+
+Without one (slot-dense): caches [n_slots, W, K, h] per layer, attended by
+the sink-decode kernel, with an accounting-only KVPool for admission
+control and preemption.
+
+Slot state (position, current token, active flag, per-slot sampling
+parameters and base keys) lives on the device and is updated in place by
+the step, so a decode step does exactly ONE device→host fetch: the sampled
+tokens (`host_fetches == steps`).
 """
 from __future__ import annotations
 
@@ -24,12 +32,17 @@ from repro_torch.core.proxy.params import device_row
 from repro_torch.device import torch_dtype
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.lm import LM
-from repro_torch.models.stack import (alloc_paged_private_cache,
-                                      full_attn_layer, merge_arena_cache,
-                                      split_arena_cache)
-from repro_torch.serving.arena import BlockHandoff, KVArena, _bucket
+from repro_torch.models.stack import (alloc_cache, alloc_paged_private_cache,
+                                      cache_window, full_attn_layer,
+                                      merge_arena_cache, ring_block_count)
+from repro_torch.serving.arena import (BlockHandoff, KVArena, _bucket,
+                                       blocks_to_dense_kv, dense_kv_to_blocks)
+from repro_torch.serving.kvpool import KVPool, tree_bytes
 from repro_torch.serving.placement import DevicePlacement
 from repro_torch.serving.sampling import sample_tokens
+
+
+HBM_BUDGET_BYTES = 1 << 34     # sizes the dense accounting pool (reference)
 
 
 @dataclass
@@ -38,7 +51,10 @@ class DecodeEngine:
     params: dict
     n_slots: int
     max_len: int
-    arena: KVArena                    # shared paged-KV runtime
+    arena: Optional[KVArena] = None   # shared paged-KV runtime; None →
+                                      # slot-dense caches
+    kv_blocks: Optional[int] = None   # dense accounting pool size
+    block_size: int = 16              # dense accounting granularity
     placement: Optional[DevicePlacement] = None
     stats: dict = field(default_factory=lambda: {
         "steps": 0, "tokens": 0, "busy_s": 0.0, "kv_transfer_bytes": 0,
@@ -47,28 +63,55 @@ class DecodeEngine:
         "blocks_shared": 0, "blocks_fresh": 0, "host_fetches": 0})
 
     def __post_init__(self):
-        cfg = self.lm.cfg
+        cfg, plan = self.lm.cfg, self.lm.plan
         if self.placement is None:
-            self.placement = self.arena.placement
+            self.placement = (self.arena.placement if self.arena is not None
+                              else DevicePlacement.of(self.lm.device))
         dev = self.device = self.placement.device
-        self.pool = self.arena.pool
-        self.block_size = self.arena.block_size
+        self.paged = self.arena is not None
+        if self.paged:
+            self.pool = self.arena.pool
+            self.block_size = self.arena.block_size
+            self.max_blocks = -(-self.max_len // self.block_size)
+            # engine-private side: the per-slot ring block runs (the
+            # full-attention arenas live in the shared KVArena)
+            self.cache = alloc_paged_private_cache(
+                cfg, plan, self.n_slots, self.max_len, self.block_size, dev)
+            self.tables_h = np.zeros((self.n_slots, self.max_blocks),
+                                     np.int32)
+            self._tbl_dev = torch.from_numpy(self.tables_h).to(dev)
+            self._tbl_bucket = self.max_blocks
+            self._tbl_dirty = False
+        else:
+            self.max_blocks = -(-self.max_len // self.block_size)
+            self.cache = alloc_cache(cfg, plan, self.n_slots, self.max_len,
+                                     dev)
+            if self.kv_blocks is None:
+                per_slot = tree_bytes(self.cache) // max(self.n_slots, 1)
+                budget = max(HBM_BUDGET_BYTES // max(per_slot, 1),
+                             self.n_slots) * 4
+                # the reference's sizing: blocks for 4 x the slots a
+                # HBM_BUDGET_BYTES budget holds, capped at 4 x the
+                # physical capacity (at full width with sink+recent rings
+                # it admits a single max_len request)
+                self.kv_blocks = min(budget,
+                                     self.n_slots * self.max_blocks * 4)
+            self.pool = KVPool(n_blocks=self.kv_blocks,
+                               block_size=self.block_size)
         self.kv_blocks = self.pool.n_blocks
-        self.max_blocks = -(-self.max_len // self.block_size)
-        self.cache = alloc_paged_private_cache(
-            cfg, self.lm.plan, self.n_slots, self.max_len, self.block_size)
-        self.tables_h = np.zeros((self.n_slots, self.max_blocks), np.int32)
-        self._tbl_dev = torch.from_numpy(self.tables_h).to(dev)
-        self._tbl_bucket = self.max_blocks
-        self._tbl_dirty = False
         # transfer-cost metering: a B=1 dense interchange cache holds
-        # max_len tokens of full-attention KV (+ the int32 position); the
-        # TRUE payload is `_full_tok_nbytes` per resident token
+        # max_len tokens of full-attention KV plus the bounded ring KV (and
+        # the int32 position); the TRUE payload grows by `_full_tok_nbytes`
+        # per resident token
         it = torch_dtype(cfg.compute_dtype).itemsize
-        n_full = sum(1 for sp in self.lm.plan.all_specs()
-                     if full_attn_layer(cfg, sp))
-        self._full_tok_nbytes = 2 * cfg.n_kv_heads * cfg.head_dim * it * n_full
-        self._dense_kv_nbytes = self._full_tok_nbytes * self.max_len + 4
+        kvh = 2 * cfg.n_kv_heads * cfg.head_dim * it
+        specs = plan.all_specs()
+        n_full = sum(1 for sp in specs if full_attn_layer(cfg, sp))
+        self._full_tok_nbytes = kvh * n_full
+        ring_nbytes = sum(kvh * sum(cache_window(cfg, sp)) for sp in specs
+                          if not full_attn_layer(cfg, sp))
+        self._dense_kv_nbytes = (self._full_tok_nbytes * self.max_len
+                                 + ring_nbytes + 4)
         self.free = list(range(self.n_slots))
         self.slot_rid: dict = {}
         self.rid_slot: dict = {}
@@ -90,52 +133,76 @@ class DecodeEngine:
 
     # ---- arena compose -----------------------------------------------
     def _full_cache(self):
+        if not self.paged:
+            return self.cache
         return merge_arena_cache(self.lm.cfg, self.lm.plan, self.cache,
                                  self.arena.kv)
 
     def _true_kv_nbytes(self, n_tokens: int) -> int:
-        return 4 + self._full_tok_nbytes * min(n_tokens, self.max_len)
+        bounded = self._dense_kv_nbytes - self._full_tok_nbytes * self.max_len
+        return bounded + self._full_tok_nbytes * min(n_tokens, self.max_len)
 
-    # ---- dense interchange (preemption / re-admission) ---------------
-    def _insert_dense(self, one: dict, wtbl: np.ndarray):
-        """Scatter a B=1 dense cache ({"layers": [{"k","v": [1, L, K, h]}]})
-        into the arena blocks of table row `wtbl` [max_blocks]; entries that
-        map a lender's prefix blocks are already redirected to the null
-        block (mapped, not written). Summaries of the written blocks are
-        recomputed."""
+    def _ring_run(self, spec, slot: int) -> tuple:
+        """(first block, blocks) of `slot`'s ring block run in a paged ring
+        layer, and the ring width W."""
+        sink, recent = cache_window(self.lm.cfg, spec)
+        bpw = ring_block_count(sink, recent, self.block_size)
+        return slot * bpw, bpw, sink + recent
+
+    # ---- dense interchange (whole-prompt admission / preemption) -----
+    def _insert_dense(self, one: dict, slot: int, wtbl: Optional[np.ndarray]):
+        """Write a B=1 dense cache ({"layers": [{"k","v": [1, L, K, h]}]})
+        into `slot`. Paged: full layers scatter into the arena blocks of
+        table row `wtbl` [max_blocks] (entries that map a lender's prefix
+        blocks are already redirected to the null block: mapped, not
+        written) and have those blocks' summaries recomputed; ring layers
+        overwrite the slot's own block run. Dense: a copy into row `slot`."""
+        if not self.paged:
+            for e, o in zip(self.cache["layers"], one["layers"]):
+                for name in ("k", "v"):
+                    e[name][slot] = o[name][0].to(e[name].dtype)
+            return
         bs = self.block_size
         tbl = torch.from_numpy(wtbl.astype(np.int64)).to(self.device)
-        for i, e in enumerate(self.arena.kv):
-            if e is None:
-                continue
-            for name in ("k", "v"):
-                x = one["layers"][i][name][0]                # [L, K, h]
-                L, K, h = x.shape
-                pad = self.max_blocks * bs - L
-                if pad:
-                    x = torch.cat([x, x.new_zeros((pad, K, h))], dim=0)
-                blocks = x.reshape(self.max_blocks, bs, K, h).transpose(1, 2)
-                e[name][tbl] = blocks.to(e[name].dtype)
-            attn_mod.update_block_summaries(e["kmin"], e["kmax"],
-                                            e["kmean"], e["k"], tbl)
+        for spec, e, priv, o in zip(self.lm.plan.all_specs(), self.arena.kv,
+                                    self.cache["layers"], one["layers"]):
+            if e is not None:
+                for name in ("k", "v"):
+                    e[name][tbl] = dense_kv_to_blocks(
+                        o[name][0], self.max_blocks, bs).to(e[name].dtype)
+                attn_mod.update_block_summaries(e["kmin"], e["kmax"],
+                                                e["kmean"], e["k"], tbl)
+            elif priv is not None:
+                b0, bpw, _ = self._ring_run(spec, slot)
+                for name in ("k", "v"):
+                    priv[name][b0:b0 + bpw] = dense_kv_to_blocks(
+                        o[name][0], bpw, bs).to(priv[name].dtype)
 
     def _extract_dense(self, slot: int) -> dict:
-        """Gather one slot's KV out of the arenas as a B=1 dense cache of
-        max_len tokens (the preemption interchange format)."""
+        """One slot's KV as a B=1 dense cache: max_len tokens of each full
+        layer (gathered out of the arenas through the slot's table when
+        paged), W slots of each ring layer (the preemption interchange
+        format)."""
+        if not self.paged:
+            layers = [{n: x[slot:slot + 1].clone() for n, x in e.items()}
+                      for e in self.cache["layers"]]
+            return {"layers": layers, "pos": int(self.pos_h[slot])}
         tbl = torch.from_numpy(self.tables_h[slot].astype(np.int64)).to(
             self.device)
         layers = []
-        for e in self.arena.kv:
-            if e is None:
+        for spec, e, priv in zip(self.lm.plan.all_specs(), self.arena.kv,
+                                 self.cache["layers"]):
+            if e is not None:
+                layers.append({n: blocks_to_dense_kv(
+                    e[n][tbl], self.max_len)[None].clone()
+                    for n in ("k", "v")})
+            elif priv is not None:
+                b0, bpw, W = self._ring_run(spec, slot)
+                layers.append({n: blocks_to_dense_kv(
+                    priv[n][b0:b0 + bpw], W)[None].clone()
+                    for n in ("k", "v")})
+            else:
                 layers.append(None)
-                continue
-            ent = {}
-            for name in ("k", "v"):
-                blocks = e[name][tbl]                  # [nb, K, bs, h]
-                nb, K, bs, h = blocks.shape
-                x = blocks.transpose(1, 2).reshape(nb * bs, K, h)
-                ent[name] = x[:self.max_len][None].clone()
-            layers.append(ent)
         return {"layers": layers, "pos": int(self.pos_h[slot])}
 
     def _slot_state(self, slots, toks, poss, rows):
@@ -203,10 +270,12 @@ class DecodeEngine:
 
     def admit_batch(self, items: list) -> dict:
         """items: (rid, cache_one, next_token, pos, cached_tokens[, prompt
-        [, sampling_params]]). `cache_one` is a BlockHandoff (zero-copy) or
-        a B=1 dense cache (re-admission after preemption: scattered into
-        fresh blocks, with full prefix blocks mapped from a live lender
-        sharing `prompt`). → {rid: admitted}."""
+        [, sampling_params]]). `cache_one` is a BlockHandoff (zero-copy,
+        paged) or a B=1 dense cache (whole-prompt prefill, or re-admission
+        after preemption). Paged: the dense cache is scattered into fresh
+        blocks, with full prefix blocks mapped from a live lender sharing
+        `prompt`. Dense: it is copied into the slot's row, admission
+        accounted in the pool (`cached_tokens` credit). → {rid: admitted}."""
         out: dict = {}
         slots, toks, poss, rows = [], [], [], []
         for item in items:
@@ -218,12 +287,14 @@ class DecodeEngine:
                 out[rid] = False
                 continue
             if handoff:
+                if not self.paged:
+                    raise ValueError("BlockHandoff admission needs paged KV")
                 if not self._admit_handle(rid, cache_one, pos):
                     out[rid] = False
                     continue
                 tbl = self.pool.owned(rid)
                 shn = 0
-            else:
+            elif self.paged:
                 shared = self._find_shared(prompt, cached)
                 tbl = self.pool.allocate(rid, pos + 1, shared=shared)
                 if tbl is None:
@@ -236,14 +307,20 @@ class DecodeEngine:
                 shn = len(shared)
                 self.stats["blocks_shared"] += shn
                 self.stats["blocks_fresh"] += len(tbl) - shn
+            elif self.pool.allocate(rid, pos + 1,
+                                    cached_tokens=cached) is None:
+                out[rid] = False
+                continue
             slot = self.free.pop()
-            row = np.zeros(self.max_blocks, np.int32)
-            row[:len(tbl)] = tbl
-            self.tables_h[slot] = row
-            if not handoff:
+            wtbl = None
+            if self.paged:
+                row = np.zeros(self.max_blocks, np.int32)
+                row[:len(tbl)] = tbl
+                self.tables_h[slot] = row
                 wtbl = row.copy()
                 wtbl[:shn] = 0
-                self._insert_dense(cache_one, wtbl)
+            if not handoff:
+                self._insert_dense(cache_one, slot, wtbl)
                 self.stats["handoff_copy_bytes"] += \
                     self._full_tok_nbytes * self.max_len
             self.slot_rid[slot] = rid
@@ -272,9 +349,10 @@ class DecodeEngine:
         """The device side of one step: decode every slot, sample, advance
         the slot state in place. → sampled tokens [n_slots] (on device)."""
         st = self.state
-        _, logits = self.lm.decode(self.params, self._full_cache(),
-                                   st["tok"][:, None], st["pos"][:, None],
-                                   block_tables=self._tbl_dev)
+        _, logits = self.lm.decode(
+            self.params, self._full_cache(), st["tok"][:, None],
+            st["pos"][:, None],
+            block_tables=self._tbl_dev if self.paged else None)
         # the token after position pos sees pos + 1 context tokens: that is
         # the draw's counter, so a stream is a pure function of
         # (seed, position)
@@ -296,7 +374,8 @@ class DecodeEngine:
 
     def _step_base(self) -> dict:
         t0 = time.monotonic()
-        self._refresh_tables()
+        if self.paged:
+            self._refresh_tables()
         nxt = self._step_impl()
         next_np = nxt.cpu().numpy()        # the single per-step host fetch
         self.stats["host_fetches"] += 1
@@ -306,15 +385,19 @@ class DecodeEngine:
             out[rid] = tok
             self.pos_h[slot] += 1
             self.tok_h[slot] = tok
-            self.stats["blocks_touched"] += self.pool.blocks_for(
-                int(self.tokens_h[slot]))
+            # full-attention blocks read for this slot this step (the dense
+            # layout always reads max_blocks)
+            self.stats["blocks_touched"] += (
+                self.pool.blocks_for(int(self.tokens_h[slot]))
+                if self.paged else self.max_blocks)
             # capacity is capped at max_len: past it a request keeps
-            # emitting (its writes land in the null block) but never grows
+            # emitting (its writes land in the null block, or are dropped
+            # by the dense cache write) but never grows
             cur = int(self.tokens_h[slot])
             new_tokens = min(cur + 1, self.max_len)
             nb_used = self.pool.blocks_for(cur)
             grown = self.pool.extend(rid, cur, new_tokens)
-            if grown is None and self.arena.reclaim(1):
+            if grown is None and self.paged and self.arena.reclaim(1):
                 grown = self.pool.extend(rid, cur, new_tokens)
             if grown is None:
                 # the sampled token is already in `out`; the preemption
@@ -322,7 +405,7 @@ class DecodeEngine:
                 self.stats["preemptions"] += 1
                 self.preempted.append(self._preempt(rid))
                 continue
-            if grown:
+            if grown and self.paged:
                 for b in grown:
                     self.tables_h[slot, nb_used] = b
                     nb_used += 1
@@ -352,10 +435,12 @@ class DecodeEngine:
         self.greedy_h[slot] = True
         self.free.append(slot)
         self.pool.release(rid)
-        # the freed slot keeps decoding garbage until reused: its writes
-        # must land in the null block, not in blocks the pool hands out
-        self.tables_h[slot] = 0
-        self._tbl_dirty = True
+        if self.paged:
+            # the freed slot keeps decoding garbage until reused: its writes
+            # must land in the null block (or its own ring run), not in
+            # blocks the pool hands out
+            self.tables_h[slot] = 0
+            self._tbl_dirty = True
 
     def release(self, rid: int):
         slot = self.rid_slot.get(rid)

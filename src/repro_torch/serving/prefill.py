@@ -1,16 +1,24 @@
-"""Paged chunked prefill engine (the P side of PD disaggregation).
+"""Prefill engine (the P side of PD disaggregation): chunked over paged KV,
+or whole-prompt into dense caches.
 
-PrefillEngine processes prompts in fixed-size token chunks and schedules
-queued prompts shortest-remaining-first at chunk granularity, so a short
-prompt never waits behind a long in-flight prefill. Prefill is PAGED: each
-chunk reserves real KVPool blocks and writes its KV straight into the
-per-layer block arenas through the task's block table (the paged-prefill
-kernel reads the history the same way), so an in-flight prompt pins blocks
-in proportion to its length, and a reservation the pool cannot serve DEFERS
-the task (backpressure) instead of over-committing device memory.
-Completed prefixes land in a radix-backed PrefixKVStore as refcounted block
-lists: a later prompt sharing an N-token prefix maps the entry's full
-blocks (copying only the partial tail block) and resumes at token N.
+Chunked (the model supports it, `LM.chunked_prefill_support`, and a shared
+KVArena is given): prompts run in fixed-size token chunks, scheduled
+shortest-remaining-first at chunk granularity, so a short prompt never
+waits behind a long in-flight prefill. Each chunk reserves real KVPool
+blocks and writes its KV straight into the per-layer block arenas through
+the task's block table, so an in-flight prompt pins blocks in proportion to
+its length, and a reservation the pool cannot serve DEFERS the task
+(backpressure). Completed prefixes land in a radix-backed PrefixKVStore as
+refcounted block lists: a later prompt sharing an N-token prefix maps the
+entry's full blocks (copying only the partial tail block) and resumes at
+token N.
+
+Whole-prompt (chunking unsupported — OmniAttn-compressed layers without
+`prefill_sparse`, the default — or switched off): FIFO, one whole prompt
+per `LM.prefill` call through the flash-prefill kernel, into a dense B=1
+cache that the decode engine scatters into its own layout at admission.
+Stored prefixes are dense prefix-length snapshots adopted only by an exact
+repeat of the whole prompt.
 
 First tokens of every prompt finished in one engine round are sampled in
 one fused call with one host fetch.
@@ -29,7 +37,8 @@ from repro_torch.core.proxy.params import GREEDY, SamplingParams, device_row
 from repro_torch.core.proxy.radix import RadixTree
 from repro_torch.models.lm import LM
 from repro_torch.models.stack import (alloc_prefill_private_cache,
-                                      merge_arena_cache, split_arena_cache)
+                                      full_attn_layer, merge_arena_cache,
+                                      split_arena_cache)
 from repro_torch.serving.arena import (BlockHandoff, KVArena, _bucket,
                                        _pow2_floor)
 from repro_torch.serving.kvpool import PrefixKVStore, tree_bytes
@@ -85,12 +94,14 @@ class PrefillEngine:
     lm: LM
     params: dict
     max_len: int
-    arena: KVArena                    # shared paged-KV runtime
+    arena: Optional[KVArena] = None   # shared paged-KV runtime → paged mode
     chunk_tokens: int = 64            # target chunk size (TTFT/TPOT knob)
+    enable_chunked: bool = True
     allow_partial_reuse: bool = True
     cache_cap: int = 32               # PrefixKVStore entries
     cache_cap_bytes: Optional[int] = None   # PrefixKVStore byte cap (LRU)
     tree: Optional[RadixTree] = None  # share the proxy's per-instance tree
+    block_size: int = 16              # accounting granularity (dense mode)
     placement: Optional[DevicePlacement] = None
     stats: dict = field(default_factory=lambda: {
         "prefills": 0, "cache_hits": 0, "prefix_hits": 0, "reused_tokens": 0,
@@ -99,25 +110,63 @@ class PrefillEngine:
 
     def __post_init__(self):
         if self.placement is None:
-            self.placement = self.arena.placement
+            self.placement = (self.arena.placement if self.arena is not None
+                              else DevicePlacement.of(self.lm.device))
         self.device = self.placement.device
         self.queue: deque = deque()
         self._ready: list = []
-        self.chunk = _pow2_floor(max(self.chunk_tokens, 1))
-        if self.chunk < 8:
-            raise NotImplementedError(
-                "chunks below 8 tokens fall back to whole-prompt prefill, "
-                "which is not ported yet")
-        self.block_size = self.arena.block_size
-        self.store = PrefixKVStore(self.tree, self.cache_cap,
-                                   pool=self.arena.pool,
-                                   capacity_bytes=self.cache_cap_bytes)
-        self.arena.reclaimers.append(self.store.evict_for_blocks)
+        sup, limit = self.lm.chunked_prefill_support
+        self.chunk = _pow2_floor(max(min(self.chunk_tokens, limit), 1))
+        self.chunked = bool(self.enable_chunked and sup and self.chunk >= 8)
+        # chunked prefill rides the paged arenas; without chunking the
+        # engine runs whole prompts into dense caches
+        self.paged = bool(self.arena is not None and self.chunked)
+        if self.chunked:
+            cfg = self.lm.cfg
+            if not self.paged or any(
+                    s.kind == "attn" and not full_attn_layer(cfg, s)
+                    for s in self.lm.plan.all_specs()):
+                # the reference's `prefill_resume_attention` path
+                raise NotImplementedError(
+                    "chunked prefill over ring layers (sliding window, or "
+                    "compressed with prefill_sparse) or over dense KV "
+                    "(paged_kv=False) is not ported yet; chunked_prefill="
+                    "False serves such a model whole-prompt")
+            self.block_size = self.arena.block_size
+        self.store = PrefixKVStore(
+            self.tree, self.cache_cap,
+            pool=self.arena.pool if self.paged else None,
+            capacity_bytes=self.cache_cap_bytes)
+        if self.paged:
+            self.arena.reclaimers.append(self.store.evict_for_blocks)
 
     # ---- paged-KV helpers --------------------------------------------
     @staticmethod
     def _pf_key(rid: int) -> tuple:
         return ("prefill", rid)
+
+    def _resize_full_attn(self, cache: dict, length: int) -> dict:
+        """A copy of a dense B=1 cache whose full-attention KV is sliced or
+        zero-padded to `length` tokens (stored prefixes pin prefix-length
+        KV, not a max_len allocation). Ring entries are shared, not copied:
+        nothing writes a B=1 cache after its prefill — admission copies it
+        into the decode engine's own layout."""
+        cfg = self.lm.cfg
+        layers = []
+        for spec, e in zip(self.lm.plan.all_specs(), cache["layers"]):
+            if e is None or not full_attn_layer(cfg, spec):
+                layers.append(e)
+                continue
+            ent = {}
+            for name, x in e.items():
+                W = x.shape[1]
+                if W >= length:
+                    ent[name] = x[:, :length].clone()
+                else:
+                    ent[name] = torch.nn.functional.pad(
+                        x, (0, 0, 0, 0, 0, length - W))
+            layers.append(ent)
+        return {"layers": layers, "pos": cache["pos"]}
 
     def _grow_blocks(self, task: PrefillTask, cl: int) -> bool:
         """Reserve pool blocks for the next `cl` chunk tokens. On
@@ -167,9 +216,13 @@ class PrefillEngine:
             self.arena.pool.release(rec.cache.key)
 
     def _note_peak(self, task: PrefillTask) -> None:
-        """Peak KV blocks pinned by a single in-flight prefill (grows per
-        chunk, so it is blocks_for(prompt_len))."""
-        held = len(self.arena.pool.owned(self._pf_key(task.rid)))
+        """Peak KV blocks pinned by a single in-flight prefill: a paged task
+        grows per chunk, so it is blocks_for(prompt_len); a dense task pins
+        a max_len cache whatever its length."""
+        if self.paged:
+            held = len(self.arena.pool.owned(self._pf_key(task.rid)))
+        else:
+            held = -(-self.max_len // self.block_size)
         if held > self.stats["prefill_kv_peak_blocks"]:
             self.stats["prefill_kv_peak_blocks"] = held
 
@@ -184,19 +237,36 @@ class PrefillEngine:
         for t in list(self.queue):
             if t.rid == rid:
                 self.queue.remove(t)
-                self.arena.pool.release(self._pf_key(rid))
+                if self.paged:
+                    self.arena.pool.release(self._pf_key(rid))
         for r in self._ready:
             if r.rid == rid:
                 self._release_result(r)
         self._ready = [r for r in self._ready if r.rid != rid]
         task = PrefillTask(rid, tuple(prompt), params=params or GREEDY,
                            t_start=time.monotonic())
-        if self.allow_partial_reuse and 8 <= prefix_hint < len(task.prompt):
+        if (self.chunked and self.allow_partial_reuse
+                and 8 <= prefix_hint < len(task.prompt)):
             task.snap = prefix_hint
         self._try_resume(task)
         self.queue.append(task)
 
     def _try_resume(self, task: PrefillTask) -> None:
+        """Resume from the deepest stored prefix. Dense (whole-prompt) mode
+        adopts only an exact hit of the whole prompt: its stored cache,
+        full-attention KV padded back to max_len (a new tensor), ring
+        entries shared read-only (see `_resize_full_attn`)."""
+        if self.paged:
+            self._try_resume_paged(task)
+            return
+        n, cache, logits = self.store.lookup(task.prompt)
+        if cache is None or n <= task.cursor or n != len(task.prompt):
+            return
+        task.cache = self._resize_full_attn(cache, self.max_len)
+        task.logits = logits
+        task.cursor = task.reused = n
+
+    def _try_resume_paged(self, task: PrefillTask) -> None:
         """Map the deepest stored prefix's FULL blocks into the task's table
         (refcount++, zero copy); a partial tail block is copied into a
         private block, since its content diverges as the task appends."""
@@ -246,7 +316,8 @@ class PrefillEngine:
             if t.rid == rid:
                 self.queue.remove(t)
                 hit = True
-        self.arena.pool.release(self._pf_key(rid))
+        if self.paged:
+            self.arena.pool.release(self._pf_key(rid))
         n0 = len(self._ready)
         for r in self._ready:
             if r.rid == rid:
@@ -256,9 +327,10 @@ class PrefillEngine:
 
     def step(self, token_budget: int = 1 << 30) -> list:
         """Run up to `token_budget` tokens of prefill work; → completed
-        prompts. Shortest-remaining-first at chunk granularity; a task that
-        cannot grow its block reservation is deferred for the round
-        (stats.defers) and retries when blocks come free."""
+        prompts. Chunked: shortest-remaining-first at chunk granularity; a
+        task that cannot grow its block reservation is deferred for the
+        round (stats.defers) and retries when blocks come free. Whole-prompt:
+        FIFO, whole prompts while budget remains (at least one)."""
         done, budget = self._ready, token_budget
         self._ready = []
         fresh: list = []
@@ -268,13 +340,15 @@ class PrefillEngine:
             cands = [t for t in self.queue if t.rid not in blocked]
             if not cands:
                 break
-            task = min(cands, key=lambda t: t.remaining)
+            task = (min(cands, key=lambda t: t.remaining)
+                    if self.chunked else cands[0])
             if task.cursor == 0:
                 # entries stored since enqueue (a queued sharer's snapshot)
                 # are visible to tasks that have not started
                 self._try_resume(task)
             if task.remaining > 0:
-                ran = self._run_chunk(task, min(budget, self.chunk))
+                ran = (self._run_chunk(task, min(budget, self.chunk))
+                       if self.chunked else self._run_full(task))
                 if ran == 0 and task.remaining > 0:
                     blocked.add(task.rid)       # pool backpressure: defer
                     continue
@@ -297,7 +371,7 @@ class PrefillEngine:
             return 0
         if task.cache is None:
             task.cache = alloc_prefill_private_cache(
-                self.lm.cfg, self.lm.plan, self.max_len)
+                self.lm.cfg, self.lm.plan, self.max_len, self.device)
         S = min(_bucket(cl, lo=8), self.chunk)
         toks = list(task.prompt[task.cursor:task.cursor + cl]) + [0] * (S - cl)
         cfg, plan = self.lm.cfg, self.lm.plan
@@ -319,17 +393,41 @@ class PrefillEngine:
         task.compute_s += time.monotonic() - t0
         return cl
 
+    def _run_full(self, task: PrefillTask) -> int:
+        """The whole prompt in one `LM.prefill`, right-padded to its pow2
+        bucket (lo=8, capped at max_len) so prompt lengths share shapes."""
+        t0 = time.monotonic()
+        S = len(task.prompt)
+        pad = min(_bucket(S, lo=8), self.max_len) - S
+        toks = torch.tensor([list(task.prompt) + [0] * pad],
+                            dtype=torch.int32, device=self.device)
+        task.cache, task.logits = self.lm.prefill(
+            self.params, toks, max_len=self.max_len, true_len=S)
+        task.cursor = S
+        self.stats["tokens"] += S
+        self._note_peak(task)
+        task.compute_s += time.monotonic() - t0
+        return S
+
     def _finish(self, task: PrefillTask) -> PrefillTask:
-        """Store bookkeeping for a completed prompt, and its BlockHandoff:
-        pool ownership moves from the task to the handoff record, which
-        admission later renames to the decode rid — zero copy end to end.
-        The first token is sampled for the whole round in `_emit`."""
+        """Store bookkeeping for a completed prompt. Paged tasks turn into a
+        BlockHandoff: pool ownership moves from the task to the handoff
+        record, which admission later renames to the decode rid — zero copy
+        end to end. Dense tasks store a prefix-length snapshot. The first
+        token is sampled for the whole round in `_emit`."""
         L = len(task.prompt)
         if task.reused == L:                    # whole prompt adopted
             self.stats["cache_hits"] += 1
         else:
             self.stats["prefills"] += 1
-            self._store_put_paged(task, L, copy_private=False)
+            if self.paged:
+                self._store_put_paged(task, L, copy_private=False)
+            else:
+                self.store.put(task.prompt, self._resize_full_attn(
+                    task.cache, min(_bucket(L, lo=8), self.max_len)),
+                    task.logits)
+        if not self.paged:
+            return task
         pool, key = self.arena.pool, self._pf_key(task.rid)
         # class-level counter: engines sharing one pool need handoff keys
         # unique across engines
@@ -345,7 +443,8 @@ class PrefillEngine:
                                  [t.rid for t in tasks],
                                  [len(t.prompt) for t in tasks])
         t_done = time.monotonic()
-        return [PrefillResult(t.rid, t.handoff, int(tok), len(t.prompt),
+        return [PrefillResult(t.rid, t.handoff if t.handoff is not None
+                              else t.cache, int(tok), len(t.prompt),
                               t.reused, t.compute_s, t_done)
                 for t, tok in zip(tasks, toks)]
 

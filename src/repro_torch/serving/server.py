@@ -8,15 +8,19 @@ abort}); `abort(rid)` cancels a request wherever it lives; `generate()` is
 a streaming iterator over the same primitives and `run()` the closed-batch
 entry point.
 
-Request lifecycle: proxy tick (APC-aware dispatch) → chunked paged prefill
-(shortest-remaining-first, resumed at radix prefix boundaries) → zero-copy
-BlockHandoff admission → batched paged decode with device-side sampling
-(preempted requests re-enter decode_wait with their extracted cache).
+Request lifecycle: proxy tick (APC-aware dispatch) → prefill → decode
+admission → batched decode with device-side sampling (preempted requests
+re-enter decode_wait with their extracted cache). Prefill is chunked and
+paged (shortest-remaining-first, resumed at radix prefix boundaries, then a
+zero-copy BlockHandoff) where the model allows it, and whole-prompt through
+the flash-prefill kernel otherwise — as for the default OmniAttn pattern
+(`pattern=None`), whose compressed layers keep a sink+recent ring. Decode KV
+is paged (`paged_kv=True`: shared arenas + per-slot ring block runs) or
+slot-dense (`paged_kv=False`, no arena).
 
-This slice serves dense full-attention stacks with paged KV and chunked
-prefill. Options of later slices (speculative decoding, int8 KV, fault
-injection and recovery, MoE placement, slot-dense KV, whole-prompt prefill)
-raise NotImplementedError.
+Options of later slices (speculative decoding, int8 KV, fault injection and
+recovery, MoE placement, chunked prefill over ring layers) raise
+NotImplementedError.
 """
 from __future__ import annotations
 
@@ -69,9 +73,7 @@ class ServerConfig:
                  "watchdog / admission_queue_cap":
                  self.watchdog_steps is not None
                  or self.watchdog_wall_s is not None
-                 or self.admission_queue_cap is not None,
-                 "paged_kv=False": not self.paged_kv,
-                 "chunked_prefill=False": not self.chunked_prefill}
+                 or self.admission_queue_cap is not None}
         bad = [k for k, v in later.items() if v]
         if bad:
             raise NotImplementedError(
@@ -101,22 +103,31 @@ class Server:
         # one shared paged-KV runtime for every engine: by default every
         # decode slot gets max_len capacity plus one prompt of prefill
         # headroom per prefill instance
-        max_blocks = -(-scfg.max_len // scfg.kv_block_size)
-        n_blocks = scfg.kv_blocks if scfg.kv_blocks is not None else \
-            (scfg.n_decode * scfg.decode_slots + scfg.n_prefill) * max_blocks
-        self.kv_arena = KVArena.build(self.lm, n_blocks, scfg.kv_block_size,
-                                      placement=self.placement)
+        self.kv_arena = None
+        if scfg.paged_kv:
+            max_blocks = -(-scfg.max_len // scfg.kv_block_size)
+            n_blocks = scfg.kv_blocks if scfg.kv_blocks is not None else \
+                (scfg.n_decode * scfg.decode_slots + scfg.n_prefill) \
+                * max_blocks
+            self.kv_arena = KVArena.build(self.lm, n_blocks,
+                                          scfg.kv_block_size,
+                                          placement=self.placement)
         self.prefills = [
-            PrefillEngine(self.lm, self.params, scfg.max_len, self.kv_arena,
+            PrefillEngine(self.lm, self.params, scfg.max_len,
+                          arena=self.kv_arena,
                           chunk_tokens=scfg.chunk_tokens,
+                          enable_chunked=scfg.chunked_prefill,
                           allow_partial_reuse=scfg.prefix_reuse,
                           cache_cap=scfg.prefix_cache_cap,
                           cache_cap_bytes=scfg.prefix_cache_cap_bytes,
                           tree=self.proxy.trees[i],
+                          block_size=scfg.kv_block_size,
                           placement=self.placement)
             for i in range(scfg.n_prefill)]
         self.decodes = [DecodeEngine(self.lm, self.params, scfg.decode_slots,
-                                     scfg.max_len, self.kv_arena,
+                                     scfg.max_len, arena=self.kv_arena,
+                                     kv_blocks=scfg.kv_blocks,
+                                     block_size=scfg.kv_block_size,
                                      placement=self.placement)
                         for _ in range(scfg.n_decode)]
         # rid → (handoff or B=1 cache, next_token, pos, cached_tokens,
@@ -152,7 +163,9 @@ class Server:
 
     def _admission_check(self, prompt: tuple):
         """Shed at the door (BackpressureError) a prompt larger than the
-        whole pool: no sequence of releases could ever make it fit."""
+        whole paged pool: no sequence of releases could ever make it fit."""
+        if self.kv_arena is None:
+            return
         pool = self.kv_arena.pool
         need = pool.blocks_for(len(prompt))
         if need > pool.n_blocks:

@@ -6,21 +6,27 @@ on a GPU machine without them:
 
     PYTHONPATH=src python -m pytest --noconftest -o markers=gpu -q tests/test_torch_kernels_gpu.py
 
-Tolerances: float32 1e-4 (the same math, sums in another order), bfloat16
-2e-2 (one bf16 rounding of the output).
+Tolerances: float32 1e-4 for the paged kernels and 2e-5 for flash_prefill
+and sink_decode (the same math, sums in another order), bfloat16 2e-2 (one
+bf16 rounding of the output).
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.flash_prefill import (flash_prefill,
+                                               flash_prefill_plain)
 from repro_torch.kernels.paged_decode import paged_decode, paged_decode_plain
 from repro_torch.kernels.paged_prefill import (paged_prefill,
                                                paged_prefill_plain)
+from repro_torch.kernels.sink_decode import sink_decode, sink_decode_plain
 
 torch.set_num_threads(2)
 
 TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
        torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+TOL_DENSE = {torch.float32: dict(rtol=2e-5, atol=2e-5),
+             torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
 
 
 @pytest.fixture
@@ -93,6 +99,50 @@ def test_paged_prefill_kernel_matches_plain(cuda, dtype, bs, S, G, h, kw):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,G,h,kw", [
+    (64, 1, 32, dict(causal=True)),
+    (256, 1, 64, dict(causal=False)),
+    (128, 4, 64, dict(causal=True, window=32)),
+    (96, 4, 32, dict(causal=True, window=32, sink=8)),
+    (200, 6, 128, dict(causal=True)),                # ragged tails
+    (4608, 6, 128, dict(causal=True))])              # full-width main path
+def test_flash_prefill_kernel_matches_plain(cuda, dtype, S, G, h, kw):
+    rng = np.random.default_rng(S + G + h)
+    N = 2
+    q = _rand(rng, (N, S * G, h), dtype, cuda)
+    k = _rand(rng, (N, S, h), dtype, cuda)
+    v = _rand(rng, (N, S, h), dtype, cuda)
+    n0 = flash_prefill.launches
+    got = flash_prefill(q, k, v, **kw)
+    assert flash_prefill.launches == n0 + 1 and got.dtype == dtype
+    torch.cuda.synchronize()
+    want = flash_prefill_plain(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), want.float(), **TOL_DENSE[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("W,G,h", [(64, 1, 32), (96, 4, 32), (128, 4, 64),
+                                   (4224, 6, 128), (4608, 6, 128)])
+def test_sink_decode_kernel_matches_plain(cuda, dtype, W, G, h):
+    """Caches in the model layout [B, W, K, h], read through the transposed
+    [B, K, W, h] view; occupancy 1, partial, exactly W and wrapped (> W)."""
+    rng = np.random.default_rng(W + G + h)
+    B, K = 4, 2
+    q = _rand(rng, (B, K, G, h), dtype, cuda)
+    kc = _rand(rng, (B, W, K, h), dtype, cuda).transpose(1, 2)
+    vc = _rand(rng, (B, W, K, h), dtype, cuda).transpose(1, 2)
+    t = torch.tensor([1, W // 3, W, W + 37], dtype=torch.int32, device=cuda)
+    n0 = sink_decode.launches
+    got = sink_decode(q, kc, vc, t)
+    assert sink_decode.launches == n0 + 1 and got.dtype == dtype
+    torch.cuda.synchronize()
+    want = sink_decode_plain(q, kc, vc, t)
+    torch.testing.assert_close(got.float(), want.float(), **TOL_DENSE[dtype])
+
+
+@pytest.mark.gpu
 def test_kernel_rejects_unsupported_inputs(cuda):
     q = torch.zeros((1, 1, 2, 48), device=cuda)       # h=48: no kernel
     kp = torch.zeros((2, 1, 8, 48), device=cuda)
@@ -104,3 +154,11 @@ def test_kernel_rejects_unsupported_inputs(cuda):
         paged_decode(torch.zeros((1, 1, 2, 32), device=cuda),
                      torch.zeros((2, 1, 8, 32)), torch.zeros((2, 1, 8, 32)),
                      tb, torch.ones(1, dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError):                   # h=48: no kernel
+        flash_prefill(torch.zeros((1, 8, 48), device=cuda),
+                      torch.zeros((1, 8, 48), device=cuda),
+                      torch.zeros((1, 8, 48), device=cuda))
+    with pytest.raises(ValueError):                   # h not contiguous
+        c = torch.zeros((1, 1, 32, 8), device=cuda).transpose(2, 3)
+        sink_decode(torch.zeros((1, 1, 2, 32), device=cuda), c, c,
+                    torch.ones(1, dtype=torch.int32, device=cuda))

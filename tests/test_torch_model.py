@@ -83,7 +83,8 @@ def test_paged_prefill_and_decode_logits_match(models, chunk, bs):
     tarena = tstack.alloc_arena_kv(tcfg, tlm.plan, N, bs, "cpu")
     tcache = tstack.merge_arena_cache(
         tcfg, tlm.plan,
-        tstack.alloc_prefill_private_cache(tcfg, tlm.plan, max_len), tarena)
+        tstack.alloc_prefill_private_cache(tcfg, tlm.plan, max_len, "cpu"),
+        tarena)
 
     # the reference runs jitted, as its engines run it
     jprefill = jax.jit(lambda p, t, c, cl, bt: lm.prefill_resume(
@@ -127,8 +128,11 @@ def test_paged_prefill_and_decode_logits_match(models, chunk, bs):
 
 def test_unsupported_configs_raise():
     tcfg = t_reduced_config("qwen2-1.5b")
-    with pytest.raises(NotImplementedError):
-        TLM.build(tcfg, pattern=None, device="cpu")     # ring layers
+    lm = TLM.build(tcfg, pattern=None, device="cpu")    # ring layers serve
+    with pytest.raises(NotImplementedError):            # ... but not chunked
+        lm.prefill_resume(lm.init(0), torch.zeros((1, 8), dtype=torch.int32),
+                          tstack.alloc_prefill_private_cache(
+                              tcfg, lm.plan, 64, "cpu"))
     with pytest.raises(NotImplementedError):
         TLM.build(tcfg.with_updates(omniattn_topk_blocks=2), pattern=[0, 0],
                   device="cpu")

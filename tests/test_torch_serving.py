@@ -182,12 +182,21 @@ def test_kvpool_replay_matches_reference():
 
 def test_later_slice_options_raise():
     tcfg = t_reduced_config("qwen2-1.5b").with_updates(n_layers=2)
-    for kw in (dict(paged_kv=False), dict(spec=object()),
-               dict(quant=object()), dict(chunked_prefill=False)):
+    for kw in (dict(spec=object()), dict(quant=object())):
         with pytest.raises(NotImplementedError):
             TServer(tcfg, TServerConfig(**kw), pattern=[0, 0], device="cpu")
     with pytest.raises(NotImplementedError):
         TServer(tcfg, TServerConfig(), pattern=[0, 0], device="cpu",
                 faults=object())
+    # chunked prefill over dense KV, or over ring layers (compressed under
+    # prefill_sparse, sliding window): the reference's
+    # prefill_resume_attention
     with pytest.raises(NotImplementedError):
-        TServer(tcfg, TServerConfig(), device="cpu")   # ring layers
+        TServer(tcfg, TServerConfig(paged_kv=False), pattern=[0, 0],
+                device="cpu")
+    with pytest.raises(NotImplementedError):
+        TServer(tcfg.with_updates(prefill_sparse=True), TServerConfig(),
+                device="cpu")
+    with pytest.raises(NotImplementedError):
+        TServer(tcfg.with_updates(local_per_global=1, local_window=16),
+                TServerConfig(), pattern=[0, 0], device="cpu")
