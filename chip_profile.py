@@ -4,8 +4,11 @@
 
 Builds the kernels and serves full-width qwen2-1.5b (float32) in the
 configurations of chip_smoke.py: phase 3 (28 full-attention layers, chunked
-paged prefill, the shared-prefix workload) and phase 5 (the default OmniAttn
-pattern, whole-prompt prefill, the long-prompt workload) in both KV layouts.
+paged prefill, the shared-prefix workload), phase 5 (the default OmniAttn
+pattern, whole-prompt prefill, the long-prompt workload) in both KV layouts,
+and phase 6 (28 full layers, six 3,968-token prompts) with online top-k off
+and at topk_frac 0.25 — `paged_decode` per call over the full 256-wide table
+against the compacted one.
 Each runs its workload three times: a warm-up, a measured run without the
 profiler (TTFT, TPOT, tokens/s, per-engine host time), and a run under
 torch.profiler (device time by kernel, device busy and idle share). Needs
@@ -25,6 +28,8 @@ import chip_smoke as cs
 
 CATEGORIES = (("paged_prefill", ("paged_prefill_kernel",)),
               ("paged_decode", ("paged_decode_kernel",)),
+              ("block_topk", ("block_topk_kernel",)),
+              ("spec_verify", ("spec_verify_kernel",)),
               ("flash_prefill", ("flash_prefill_kernel",)),
               ("sink_decode", ("sink_decode_kernel",)),
               ("gemm", ("gemm", "gemv", "sm90_xmma", "cutlass", "cublas")),
@@ -88,13 +93,23 @@ def profile(srv, workload, smi: str, label: str) -> dict:
     for name, (t, _) in by_name.items():
         by_cat[category(name)] += t
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:20]
+    per_call = {}
+    for name, (t, c) in by_name.items():
+        cat = category(name)
+        if cat in ("paged_decode", "paged_prefill", "block_topk",
+                   "spec_verify", "flash_prefill", "sink_decode"):
+            tot = per_call.setdefault(cat, [0.0, 0])
+            tot[0] += t
+            tot[1] += c
     rep["profiled"] = {
         "wall_s": pwall, "device_busy_s": busy_us / 1e6,
         "device_idle_share": 1.0 - busy_us / 1e6 / pwall,
         "by_category_s": {k: v / 1e6 for k, v in
                           sorted(by_cat.items(), key=lambda kv: -kv[1])},
         "top_ops": [{"name": n[:120], "device_s": t / 1e6, "count": c}
-                    for n, (t, c) in top]}
+                    for n, (t, c) in top],
+        "kernel_ms_per_call": {k: {"ms": t / 1e3 / max(c, 1), "calls": c}
+                               for k, (t, c) in per_call.items()}}
 
     m, p = rep["measured"], rep["profiled"]
     print(f"{label}: measured run [{smi}]: wall {m['wall_s']:.3f} s, TTFT "
@@ -108,6 +123,8 @@ def profile(srv, workload, smi: str, label: str) -> dict:
           f"{p['device_idle_share']:.3f}")
     for cat, t in p["by_category_s"].items():
         print(f"  {cat:24s} {t * 1e3:9.2f} ms")
+    for k, v in p["kernel_ms_per_call"].items():
+        print(f"  {k}: {v['ms']:.4f} ms per call x {v['calls']}")
     for op in p["top_ops"]:
         print(f"  {op['device_s'] * 1e3:9.2f} ms x{op['count']:5d}  "
               f"{op['name'][:90]}")
@@ -148,6 +165,19 @@ def main() -> int:
         srv = cs.build_default_server(cfg, paged, dev, params=weights)
         rep["default_pattern"][name] = profile(
             srv, long_prompts, smi, f"pattern=None, {name} KV")
+        del srv
+        torch.cuda.empty_cache()
+
+    def topk_prompts(seed):
+        return cs.topk_workload(cfg.vocab_size, seed=30 + seed)
+
+    rep["topk"] = {}
+    for name, topk in (("off", {}), ("frac_0.25", dict(
+            omniattn_topk_frac=0.25, omniattn_topk_sink_blocks=1,
+            omniattn_topk_recent_blocks=2))):
+        srv = cs.build_topk_server(cfg, dev, params=weights, **topk)
+        rep["topk"][name] = profile(srv, topk_prompts, smi,
+                                    f"online top-k {name}, 28 full layers")
         del srv
         torch.cuda.empty_cache()
     cs.OUT_DIR.mkdir(exist_ok=True)

@@ -3,13 +3,13 @@
     python3 chip_smoke.py
 
 Phases (any failure raises, so the script exits non-zero):
-  1. build the port's four CUDA kernels from src/repro_torch/kernels/csrc,
+  1. build the port's six CUDA kernels from src/repro_torch/kernels/csrc,
      one nvcc per source, all at once;
   2. hold each kernel against its plain PyTorch version on the card, at the
      reference sweep shapes and at the full-width main-path shapes, in
      float32 and bfloat16, and time kernel, plain version and one
      `scaled_dot_product_attention` call on the same data (`library_ms`, a
-     yardstick only: the port never calls it);
+     yardstick only: the port never calls it; block_topk has none);
   3. serve the bench's shared-prefix workload on full-width qwen2-1.5b
      (28 layers, float32, every layer full attention) through
      `Server.generate`, with the launch counters zeroed just before and
@@ -18,15 +18,27 @@ Phases (any failure raises, so the script exits non-zero):
      kernel launches == chunks x 28 / steps x 28;
   4. cross-check reduced-width servers on the card against the same servers
      on the CPU (plain versions): identical greedy streams, logits within
-     2e-3 — all-full-attention chunked paged, and the default OmniAttn
-     pattern in both KV layouts;
+     2e-3 — all-full-attention chunked paged, the default OmniAttn pattern
+     in both KV layouts, and a full/window stack with online top-k (equal
+     sparsity stats) and with speculative decoding (the ring commit);
   5. serve full-width qwen2-1.5b under the default OmniAttn pattern
      (`pattern=None`: 21 layers sink 128 + recent 4096, 7 full) with
      whole-prompt prefill, once with paged KV (flash_prefill + paged_decode)
      and once slot-dense (flash_prefill + sink_decode): 4,400-token prompts
      that wrap the rings, an exact repeat, short and sampled requests; check
      launches == whole prefills x 28 / steps x 28, one host fetch per step,
-     pool invariants and greedy streams equal across the two layouts.
+     pool invariants and greedy streams equal across the two layouts;
+  6. serve full-width qwen2-1.5b (28 full layers) with OmniAttn online top-k
+     on six 3,968-token prompts: top-k off, topk_frac 0.25, the same with
+     the attention mass measured, and a budget of the table width - 1 (the
+     kernel runs, every block is kept); check block_topk launches == steps x
+     28, streams of the last equal top-k off bit for bit, the attended share
+     matches the budget, mass kept in (0, 1], one host fetch per step, pool
+     and summary invariants;
+  7. serve full-width qwen2-1.5b with SpecPlane speculative decoding (k=4)
+     and without, on repeated-phrase prompts plus one sampled request;
+     check streams equal across the two runs, spec_verify launches ==
+     verify steps x 28, one host fetch per step, invariants.
 The last line of standard output is {"ok": true, "device": {...}}; the line
 before it is the per-kernel JSON record; the card's name and power limit
 (nvidia-smi) come before that. Details go to chiprun_out/chip_smoke.json.
@@ -49,7 +61,9 @@ OUT_DIR = ROOT / "chiprun_out"
 REPLACES = {"paged_decode": "src/repro/kernels/paged_decode.py:99",
             "paged_prefill": "src/repro/kernels/paged_prefill.py:131",
             "flash_prefill": "src/repro/kernels/flash_prefill.py:73",
-            "sink_decode": "src/repro/kernels/sink_decode.py:63"}
+            "sink_decode": "src/repro/kernels/sink_decode.py:63",
+            "spec_verify": "src/repro/kernels/spec_verify.py:123",
+            "block_topk": "src/repro/kernels/block_topk.py:73"}
 HBM_BYTES_S = 3.35e12                        # H100 SXM HBM3
 PEAK_FLOPS = {torch.float32: 67e12,          # float32 outside tensor cores
               torch.bfloat16: 989e12}        # bf16 tensor cores, dense
@@ -64,7 +78,17 @@ FLASH_MAIN_S = 4608
 SINK_MAIN = ((4224, [1, 130, 2049, 4224, 4401, 4500]),
              (4608, [1, 130, 2049, 4224, 4401, 4608]))
 P5_MAX_LEN, P5_LONG, P5_SHORT = 4608, 4400, 16
-
+# phase-5 paged decode over the ring block runs: six slots of 264 blocks
+# (sink 128 + recent 4096 at bs 16), four wrapped long prompts, two short
+RING_MAIN = (264, [4224, 4224, 4224, 4224, 20, 20])
+# phases 6-7 (full-width qwen2-1.5b, 28 full layers): six 3,968-token
+# prompts decoding 12 tokens over a 256-wide table; six 256-token
+# repeated-phrase prompts verified in windows of k + 1 = 5
+P6_PROMPT, P6_NEW, P6_MAX_LEN, P6_BLOCKS = 3968, 12, 4608, 2016
+TOPK_MAIN = (256, [3968, 3970, 3972, 3975, 3978, 3980])
+SPEC_MAIN = (32, [256, 262, 270, 281, 295, 304])
+SPEC_LONG = (256, [3990, 3995, 4000, 4003, 4007, 4010])
+P7_PHRASE, P7_REPEAT, P7_NEW, P7_K = 32, 8, 48, 4
 
 def nvidia_smi() -> str:
     res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -291,6 +315,160 @@ def check_kernels(dev, timer, log):
                 "library_ms": timer(lib),
                 "bound_ms": bnd[0], "bound_by": bnd[1],
                 "bytes": bnd[2], "flops": bnd[3]}
+        # paged_decode over phase 5's ring block runs (264-block tables)
+        nbr, lens_r = RING_MAIN
+        ring = decode_inputs(dev, dtype, 6, 2, 6, 128, 16, nbr, 6 * nbr + 1,
+                             lens_r, 6)
+        err = cmp("paged_decode ring", paged_decode(*ring),
+                  paged_decode_plain(*ring), dtype)
+        log.append(f"paged_decode {dn} ring B=6 nb={nbr} lens={lens_r} "
+                   f"max_abs_err={err:.3g}")
+        bnd = decode_bound(ring[0], ring[1], ring[3], ring[4])
+        rec["paged_decode"][f"{dn}_ring"] = {
+            "max_abs_err": err, "ms": timer(lambda: paged_decode(*ring)),
+            "plain_ms": timer(lambda: paged_decode_plain(*ring)),
+            "library_ms": timer(sdpa_decode(*ring)),
+            "bound_ms": bnd[0], "bound_by": bnd[1], "bytes": bnd[2],
+            "flops": bnd[3]}
+    return rec
+
+
+def topk_inputs(dev, dtype, B, K, G, h, bs, nb, N, lens, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((B, K, G, h), generator=g, device=dev).to(dtype)
+    kmin = torch.randn((N, K, h), generator=g, device=dev)
+    kmax = kmin + torch.randn((N, K, h), generator=g, device=dev).relu()
+    perm = torch.randperm(N - 1, generator=g, device=dev) + 1
+    tables = perm[:B * nb].reshape(B, nb).to(torch.int32)
+    lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+    return q, kmin, kmax, tables, lens
+
+
+def topk_bound(q, tables, lens, bs):
+    """Bytes and operations of one block_topk call: q, the table, lens and
+    the scores once, and the two float32 summary rows of every resident
+    (block, kv head); 4 operations (2 products, max, add) per (resident
+    block, kv head, query row, channel), in float32."""
+    B, K, G, h = q.shape
+    nb = tables.shape[1]
+    ln = lens.cpu().numpy().astype(np.int64)
+    blocks = int(np.minimum(-(-ln // bs), nb).sum())
+    nbytes = (q.numel() * q.element_size() + tables.numel() * 4 + 4 * B
+              + 4 * B * nb + 2 * blocks * K * h * 4)
+    return bound(nbytes, 4 * blocks * K * G * h, torch.float32)
+
+
+def check_sparse_kernels(dev, timer, log):
+    """block_topk and spec_verify against their plain versions: the
+    reference sweep shapes (tests/test_kernels.py:195-197, :226, :275-277,
+    :299; h=32 where the reference takes 16, the kernels' smallest head
+    width), then the full-width main-path shapes of phases 6 and 7 and a
+    long-history verify, timed."""
+    from repro_torch.kernels.block_topk import (block_topk_scores,
+                                                block_topk_scores_plain)
+    from repro_torch.kernels.spec_verify import (spec_verify,
+                                                 spec_verify_plain)
+    rec = {"block_topk": {}, "spec_verify": {}}
+
+    def cmp_scores(name, got, want, dtype):
+        neg = want == -1e30
+        if not torch.equal(got[neg], want[neg]) or (got[~neg] == -1e30).any():
+            raise AssertionError(f"{name}: NEG_INF entries differ")
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"{name}: non-finite scores")
+        torch.testing.assert_close(got, want, **TOL[dtype], msg=name)
+        return float((got - want).abs().max())
+
+    def cmp_rows(name, got, want, dtype, cl, G):
+        if not torch.isfinite(got.float()).all():
+            raise AssertionError(f"{name}: non-finite kernel output")
+        err = 0.0
+        for b, c in enumerate(cl.cpu().tolist()):
+            a, w = got[b, :, :c * G].float(), want[b, :, :c * G].float()
+            torch.testing.assert_close(a, w, **TOL[dtype], msg=name)
+            err = max(err, float((a - w).abs().max()))
+        return err
+
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        worst = {"block_topk": 0.0, "spec_verify": 0.0}
+        for bs, nb in ((8, 4), (16, 3), (8, 8)):
+            for G in (1, 3):
+                a = topk_inputs(dev, dtype, 3, 2, G, 32, bs, nb, 30,
+                                [1, nb * bs - bs // 2, nb * bs], 7)
+                worst["block_topk"] = max(worst["block_topk"], cmp_scores(
+                    "block_topk sweep", block_topk_scores(*a, block_size=bs),
+                    block_topk_scores_plain(*a, block_size=bs), dtype))
+        q = torch.ones((1, 1, 1, 32), device=dev, dtype=dtype)
+        kmin = torch.zeros((6, 1, 32), device=dev)
+        kmax = torch.ones((6, 1, 32), device=dev)
+        kmin[0] = kmax[0] = 1e4                         # poisoned null block
+        a = (q, kmin, kmax, torch.tensor([[3, 0, 0]], dtype=torch.int32,
+                                         device=dev),
+             torch.tensor([5], dtype=torch.int32, device=dev))
+        got = block_topk_scores(*a, block_size=8)
+        cmp_scores("block_topk non-resident", got,
+                   block_topk_scores_plain(*a, block_size=8), dtype)
+        assert float(got[0, 0]) == 32.0, got
+        for bs, S in ((8, 4), (16, 5), (8, 2)):
+            for G in (1, 4):
+                a = prefill_inputs(dev, dtype, 3, 2, S, G, 32, bs, 4, 20,
+                                   [0, bs + bs // 2 - 1, 4 * bs],
+                                   [S, max(S - 2, 1), 1], 8)
+                worst["spec_verify"] = max(worst["spec_verify"], cmp_rows(
+                    "spec_verify sweep", spec_verify(*a),
+                    spec_verify_plain(*a), dtype, a[-1], G))
+        a = list(prefill_inputs(dev, dtype, 1, 1, 3, 2, 32, 8, 3, 6, [8],
+                                [3], 9))
+        a[3][0] = a[4][0] = 1e4                         # poisoned null block
+        a[5] = torch.tensor([[3, 0, 0]], dtype=torch.int32, device=dev)
+        cmp_rows("spec_verify null block", spec_verify(*a),
+                 spec_verify_plain(*a), dtype, a[-1], 2)
+        log.append(f"block_topk {dn} sweep (bs/nb 8/4 16/3 8/8 x G 1/3, "
+                   f"h=32) + non-resident: max_abs_err="
+                   f"{worst['block_topk']:.3g}, NEG_INF entries equal")
+        log.append(f"spec_verify {dn} sweep (bs/S 8/4 16/5 8/2 x G 1/4, "
+                   f"h=32) + null block: max_abs_err="
+                   f"{worst['spec_verify']:.3g}")
+        # phase 6's shape: six slots over a 256-wide table, ~249 resident
+        nbt, lens_t = TOPK_MAIN
+        ta = topk_inputs(dev, dtype, 6, 2, 6, 128, 16, nbt, P6_BLOCKS,
+                         lens_t, 10)
+        err = cmp_scores("block_topk main",
+                         block_topk_scores(*ta, block_size=16),
+                         block_topk_scores_plain(*ta, block_size=16), dtype)
+        log.append(f"block_topk {dn} main B=6 K=2 G=6 h=128 bs=16 nb={nbt} "
+                   f"lens={lens_t} max_abs_err={err:.3g}")
+        tb = topk_bound(ta[0], ta[3], ta[4], 16)
+        rec["block_topk"][dn] = {
+            "max_abs_err": err,
+            "ms": timer(lambda: block_topk_scores(*ta, block_size=16)),
+            "plain_ms": timer(lambda: block_topk_scores_plain(
+                *ta, block_size=16)),
+            "library_ms": None, "bound_ms": tb[0], "bound_by": tb[1],
+            "bytes": tb[2], "flops": tb[3]}
+        # phase 7's shape (S = 5 window rows, off 256-304) and a long
+        # history (off ~4,000)
+        for key, (nbs, offs), N in (("", SPEC_MAIN, 321),
+                                    ("_long", SPEC_LONG, P6_BLOCKS)):
+            sa = prefill_inputs(dev, dtype, 6, 2, P7_K + 1, 6, 128, 16, nbs,
+                                N, offs, [P7_K + 1] * 6, 11)
+            err = cmp_rows(f"spec_verify main{key}", spec_verify(*sa),
+                           spec_verify_plain(*sa), dtype, sa[-1], 6)
+            log.append(f"spec_verify {dn} main{key} B=6 S={P7_K + 1} K=2 "
+                       f"G=6 h=128 bs=16 nb={nbs} off={offs} "
+                       f"max_abs_err={err:.3g}")
+            sb = prefill_bound(sa[0], sa[1], sa[3], sa[5], sa[6], sa[7])
+            lib = sdpa_prefill(*sa)
+            lo = lib().reshape(6, 2, 6, P7_K + 1, 128).permute(0, 1, 3, 2, 4)
+            lib_err = float((lo.reshape(-1).float() - spec_verify_plain(
+                *sa).float().reshape(-1)).abs().max())
+            rec["spec_verify"][dn + key] = {
+                "max_abs_err": err, "ms": timer(lambda: spec_verify(*sa)),
+                "plain_ms": timer(lambda: spec_verify_plain(*sa)),
+                "library_ms": timer(lib), "library_vs_plain_err": lib_err,
+                "bound_ms": sb[0], "bound_by": sb[1], "bytes": sb[2],
+                "flops": sb[3]}
     return rec
 
 
@@ -466,13 +644,13 @@ def workload(vocab, n=12, seed=7):
     return out, base
 
 
-def build_server(cfg, reuse, dev, params=None):
+def build_server(cfg, reuse, dev, params=None, spec=None):
     from repro_torch.core.proxy import OASConfig
     from repro_torch.serving import Server, ServerConfig
     scfg = ServerConfig(n_prefill=1, n_decode=1, decode_slots=6, max_len=512,
                         chunk_tokens=128, prefill_tick_budget=512,
                         prefix_reuse=reuse, kv_blocks=320, kv_block_size=16,
-                        oas=OASConfig(defer_window=0.0))
+                        oas=OASConfig(defer_window=0.0), spec=spec)
     return Server(cfg, scfg, pattern=[0] * cfg.n_layers, params=params,
                   seed=0, device=dev)
 
@@ -487,6 +665,9 @@ def reset_stats(srv):
     for e in srv.decodes:
         for k in e.stats:
             e.stats[k] = 0.0 if k == "busy_s" else 0
+        for k in ("sparsity", "spec"):      # device-side stat windows
+            if k in e.state:
+                e.state[k].zero_()
 
 
 def drive(srv, prompts, params):
@@ -495,6 +676,7 @@ def drive(srv, prompts, params):
     outs = list(srv.generate(prompts, params, max_wall_s=900))
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
+    srv.drain_decode_stats()        # sparsity / speculation windows
     by_rid = {}
     for o in outs:
         by_rid.setdefault(o.rid, []).extend(o.new_tokens)
@@ -750,10 +932,10 @@ def cross_check_reduced(dev, log):
         tb = torch.from_numpy(row).to(d)
         cache, l1 = lm.prefill_resume(p, torch.from_numpy(toks).to(d), cache,
                                       chunk_len=37, block_tables=tb)
-        _, l2 = lm.decode(p, cache, torch.tensor([[7]], dtype=torch.int32,
-                                                 device=d),
-                          torch.tensor([[37]], dtype=torch.int32, device=d),
-                          block_tables=tb)
+        seven = torch.tensor([[7]], dtype=torch.int32, device=d)
+        _, l2, _ = lm.decode(p, cache, seven,
+                             torch.tensor([[37]], dtype=torch.int32,
+                                          device=d), block_tables=tb)
         res.append((l1.float().cpu(), l2.float().cpu()))
     for a, b in zip(res[0], res[1]):
         worst = max(worst, float((a - b).abs().max()))
@@ -787,9 +969,10 @@ def cross_check_reduced(dev, log):
     for lm, p, d in ((cpu_lm, p4, "cpu"), (gpu_lm, g4, dev)):
         cache, l1 = lm.prefill(p, torch.from_numpy(
             np.pad(toks, ((0, 0), (0, 24)))).to(d), max_len=128, true_len=40)
-        _, l2 = lm.decode(p, cache, torch.tensor([[7]], dtype=torch.int32,
-                                                 device=d),
-                          torch.tensor([[40]], dtype=torch.int32, device=d))
+        seven = torch.tensor([[7]], dtype=torch.int32, device=d)
+        _, l2, _ = lm.decode(p, cache, seven,
+                             torch.tensor([[40]], dtype=torch.int32,
+                                          device=d))
         res.append((l1.float().cpu(), l2.float().cpu()))
     for a, b in zip(res[0], res[1]):
         worst4 = max(worst4, float((a - b).abs().max()))
@@ -817,8 +1000,291 @@ def cross_check_reduced(dev, log):
                f"KV layouts")
     return {"logits_max_abs_err": worst, "streams_identical": True,
             "default_pattern_logits_max_abs_err": worst4,
-            "default_pattern_streams_identical": True}
+            "default_pattern_streams_identical": True,
+            **cross_check_sparse_spec(dev, log, cfg)}
 
+
+def cross_check_sparse_spec(dev, log, cfg):
+    """Phase 4, continued, on the reduced config `cfg` of phase 4: online
+    top-k (block_topk + selection) logits through LM.decode, then a
+    full/window stack (window 16, whole-prompt prefill) served with top-k
+    below the resident count and with speculation (k=4: spec_verify on the
+    full layers, ring verify + masked ring commit on the window layers) —
+    card against CPU."""
+    from repro_torch.core.proxy import OASConfig, SamplingParams
+    from repro_torch.models.lm import LM
+    from repro_torch.models.stack import alloc_arena_kv
+    from repro_torch.serving import DevicePlacement, Server, ServerConfig
+    from repro_torch.serving.spec import SpecConfig
+    tcfg = cfg.with_updates(omniattn_topk_blocks=3,
+                            omniattn_topk_measure_mass=True)
+    cpu_lm = LM.build(tcfg, pattern=[0, 0], device="cpu")
+    gpu_lm = LM.build(tcfg, pattern=[0, 0], device=dev)
+    params = cpu_lm.init(seed=7)
+    gparams = DevicePlacement.of(dev).place_params(params)
+    rng = np.random.default_rng(4)
+    toks = rng.integers(0, cfg.vocab_size, (1, 40)).astype(np.int32)
+    row = np.arange(1, 13, dtype=np.int32)[None]     # 12 entries of bs 8
+    res, worst = [], 0.0
+    for lm, p, d in ((cpu_lm, params, "cpu"), (gpu_lm, gparams, dev)):
+        cache = {"layers": alloc_arena_kv(tcfg, lm.plan, 16, 8, d), "pos": 0}
+        tb = torch.from_numpy(row).to(d)
+        cache, _ = lm.prefill_resume(p, torch.from_numpy(toks).to(d), cache,
+                                     chunk_len=37, block_tables=tb)
+        _, lg, aux = lm.decode(p, cache, torch.tensor([[7]], dtype=torch.int32,
+                                                      device=d),
+                               torch.tensor([[37]], dtype=torch.int32,
+                                            device=d), block_tables=tb)
+        res.append((lg.float().cpu(), torch.stack(aux["sparsity"]).cpu()))
+    worst = float((res[0][0] - res[1][0]).abs().max())
+    torch.testing.assert_close(res[1][0], res[0][0], rtol=2e-3, atol=2e-3)
+    assert torch.equal(res[1][1][:, :2], res[0][1][:, :2]), res
+    assert (res[0][1][:, 1] < res[0][1][:, 0]).all(), res   # 3 of 5 kept
+    torch.testing.assert_close(res[1][1], res[0][1], rtol=1e-4, atol=1e-5)
+
+    mcfg = cfg.with_updates(n_layers=4, local_per_global=1, local_window=16)
+    pattern = [0] * 4
+    p4 = LM.build(mcfg, pattern=pattern, device="cpu").init(seed=8)
+    g4 = DevicePlacement.of(dev).place_params(p4)
+    prompts, _ = workload(cfg.vocab_size, n=6, seed=10)
+    prompts = [q[-60:] for q in prompts]
+    base = dict(decode_slots=3, max_len=128, chunked_prefill=False,
+                kv_blocks=60, kv_block_size=8,
+                oas=OASConfig(defer_window=0.0))
+    out = {}
+    for name, c, extra in (
+            ("topk", mcfg.with_updates(omniattn_topk_blocks=3,
+                                       omniattn_topk_measure_mass=True), {}),
+            ("spec", mcfg, dict(spec=SpecConfig(k=4))),
+            ("spec_off", mcfg, {})):
+        got = []
+        for d, p in (("cpu", p4), (dev, g4)):
+            srv = Server(c, ServerConfig(**base, **extra), pattern=pattern,
+                         params=p, device=d)
+            summ = srv.run([(q, SamplingParams(max_tokens=12))
+                            for q in prompts])
+            assert summ["n_done"] == len(prompts)
+            ds = summ["decode_stats"][0]
+            assert ds["host_fetches"] == ds["steps"] > 0, ds
+            srv.kv_arena.pool.check_invariants(arena=srv.kv_arena)
+            got.append(({r.rid: tuple(r.output_tokens)
+                         for r in srv.metrics.done}, summ))
+        (cs, csum), (gs, gsum) = got
+        assert cs == gs, f"{name}: card and CPU streams differ"
+        out[name] = (gs, gsum)
+        if name == "topk":
+            for k in ("blocks_scored", "blocks_attended"):
+                assert gsum[k] == csum[k] > 0, (k, gsum[k], csum[k])
+            assert gsum["blocks_attended"] < gsum["blocks_scored"]
+            assert abs(gsum["attn_mass_kept"] - csum["attn_mass_kept"]) \
+                < 1e-4, (gsum["attn_mass_kept"], csum["attn_mass_kept"])
+        if name == "spec":
+            for k in ("spec_drafted", "spec_accepted", "spec_verifies"):
+                assert gsum[k] == csum[k], (k, gsum[k], csum[k])
+            assert gsum["spec_verifies"] > 0
+    assert out["spec"][0] == out["spec_off"][0], \
+        "speculation changed the streams on the card"
+    t, sp = out["topk"][1], out["spec"][1]
+    log.append(f"reduced width, online top-k (3-block budget): card vs CPU "
+               f"logits max_abs_err={worst:.3g}, aux equal; full/window "
+               f"stack served: streams identical, blocks "
+               f"{t['blocks_attended']}/{t['blocks_scored']}, mass kept "
+               f"{t['attn_mass_kept']:.4f} on both")
+    log.append(f"reduced width, speculation k=4 on the full/window stack: "
+               f"streams identical on card and CPU and to spec off, "
+               f"{sp['spec_accepted']}/{sp['spec_drafted']} drafts accepted "
+               f"over {sp['spec_verifies']} verifies on both")
+    return {"topk_logits_max_abs_err": worst,
+            "topk_blocks": [t["blocks_attended"], t["blocks_scored"]],
+            "topk_mass_kept": t["attn_mass_kept"],
+            "spec": {k: sp[k] for k in ("spec_drafted", "spec_accepted",
+                                        "spec_verifies")}}
+
+
+# ---- phase 6: online top-k at full width ------------------------------
+def topk_workload(vocab, seed=31):
+    """Six distinct seeded 3,968-token prompts, 12 greedy tokens each."""
+    from repro_torch.core.proxy import SamplingParams
+    rng = np.random.default_rng(seed)
+    prompts = [tuple(int(t) for t in rng.integers(0, vocab, P6_PROMPT))
+               for _ in range(6)]
+    return prompts, [SamplingParams(max_tokens=P6_NEW)] * 6
+
+
+def build_topk_server(cfg, dev, params=None, **topk):
+    """Phase 3's knobs at max_len 4608 with a 2016-block pool; `topk` sets
+    cfg.omniattn's budget (omniattn_topk_frac=..., ...)."""
+    from repro_torch.core.proxy import OASConfig
+    from repro_torch.serving import Server, ServerConfig
+    scfg = ServerConfig(decode_slots=6, max_len=P6_MAX_LEN, chunk_tokens=128,
+                        prefill_tick_budget=512, kv_blocks=P6_BLOCKS,
+                        kv_block_size=16, prefix_reuse=True,
+                        oas=OASConfig(defer_window=0.0))
+    return Server(cfg.with_updates(**topk), scfg, pattern=[0] * cfg.n_layers,
+                  params=params, seed=0, device=dev)
+
+
+def serve_topk(dev, log, cfg):
+    """Phase 6 on `cfg` (full-width qwen2-1.5b in main()): four servers on
+    the same weights, the counts zeroed just before each run and read just
+    after."""
+    from repro_torch.kernels.block_topk import block_topk_scores
+    from repro_torch.kernels.paged_decode import paged_decode
+    from repro_torch.kernels.paged_prefill import paged_prefill
+    from repro_torch.core.proxy import SamplingParams
+    n_layers = cfg.n_layers
+    prompts, params = topk_workload(cfg.vocab_size)
+    # the decode table's width: the pow2 bucket (floor 8) of the resident
+    # blocks, 249 throughout decode → 256
+    width = 1 << (-(-(P6_PROMPT + P6_NEW) // 16) - 1).bit_length()
+    frac = dict(omniattn_topk_frac=0.25, omniattn_topk_sink_blocks=1,
+                omniattn_topk_recent_blocks=2)
+    runs = (("a_off", {}, True), ("b_frac", frac, True),
+            ("c_mass", dict(frac, omniattn_topk_measure_mass=True), False),
+            ("d_width_minus_1", dict(omniattn_topk_blocks=width - 1), False))
+    out, streams_of, weights = {}, {}, None
+    for name, topk, timed in runs:
+        t0 = time.monotonic()
+        srv = build_topk_server(cfg, dev, params=weights, **topk)
+        weights = srv.params
+        if timed:
+            # warm-up outside the counts and the metrics: the chunk and
+            # decode shapes the measured run meets
+            warm = topk_workload(cfg.vocab_size, seed=32)[0][0][:200]
+            list(srv.generate([warm], SamplingParams(max_tokens=3)))
+            reset_stats(srv)
+        for kern in (block_topk_scores, paged_decode, paged_prefill):
+            kern.launches = 0
+        streams, finished, summ, wall = drive(srv, prompts, params)
+        launches = {"block_topk": block_topk_scores.launches,
+                    "paged_decode": paged_decode.launches,
+                    "paged_prefill": paged_prefill.launches}
+        ps, ds = srv.prefills[0].stats, srv.decodes[0].stats
+        assert len(finished) == 6 and all(r == "length" for r in finished)
+        assert all(len(x) == P6_NEW for x in streams), streams
+        assert ds["host_fetches"] == ds["steps"] > 0, ds
+        steps = ds["steps"]
+        if dev.type == "cuda":
+            assert launches["paged_decode"] == steps * n_layers, launches
+            assert launches["paged_prefill"] == ps["chunks"] * n_layers > 0
+            want = 0 if name == "a_off" else steps * n_layers
+            assert launches["block_topk"] == want, (name, launches, steps)
+        if name != "a_off":
+            ratio = summ["blocks_attended"] / summ["blocks_scored"]
+            if name == "d_width_minus_1":
+                assert summ["blocks_attended"] == summ["blocks_scored"] > 0
+            else:
+                # ceil(0.25 · n_res) of n_res >= 249 blocks per slot-step
+                min_res = -(-(P6_PROMPT + 1) // 16)
+                assert 0.25 <= ratio <= 0.25 + 1 / min_res, ratio
+            if name == "c_mass":
+                assert 0 < summ["attn_mass_kept"] <= 1 + 1e-6, summ
+        srv.kv_arena.pool.check_invariants(arena=srv.kv_arena)
+        streams_of[name] = streams
+        out[name] = {"launches": launches, "decode_steps": steps,
+                     "prefill_chunks": ps["chunks"],
+                     "host_fetches": ds["host_fetches"],
+                     "blocks_scored": summ.get("blocks_scored"),
+                     "blocks_attended": summ.get("blocks_attended"),
+                     "attn_mass_kept": summ.get("attn_mass_kept"),
+                     "metrics": {k: summ[k] for k in (
+                         "n_done", "ttft_mean", "ttft_p99", "tpot_mean_ms",
+                         "tpot_p99_ms", "ott_tok_s", "ttt_tok_s")}
+                     | {"wall_s": wall}}
+        log.append(f"{name}: served in {time.monotonic() - t0:.1f} s "
+                   f"(server built, warm-up, run, invariants)")
+        del srv
+        torch.cuda.empty_cache()
+    assert streams_of["d_width_minus_1"] == streams_of["a_off"], \
+        "a budget keeping every block changed the greedy streams"
+    agree = sum(a == b for a, b in zip(streams_of["b_frac"],
+                                       streams_of["a_off"]))
+    return {"runs": out, "table_width": width,
+            "streams_equal_full_budget": True,
+            "frac_streams_equal_off": agree,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+# ---- phase 7: SpecPlane at full width --------------------------------
+def spec_workload(vocab, seed=41):
+    """Six greedy prompts, each a distinct seeded 32-token phrase repeated
+    8 times (256 tokens), 48 new tokens; one seeded sampled request
+    (temperature 0.8, a 64-token prompt, 16 tokens), the seventh for six
+    slots."""
+    from repro_torch.core.proxy import SamplingParams
+    rng = np.random.default_rng(seed)
+    prompts = [tuple(int(t) for t in rng.integers(0, vocab, P7_PHRASE))
+               * P7_REPEAT for _ in range(6)]
+    prompts.append(tuple(int(t) for t in rng.integers(0, vocab, 64)))
+    params = [SamplingParams(max_tokens=P7_NEW)] * 6 + [SamplingParams(
+        temperature=0.8, seed=907, max_tokens=16)]
+    return prompts, params
+
+
+def serve_spec(dev, log, cfg):
+    """Phase 7 on `cfg` (full-width qwen2-1.5b in main()): phase 3's server
+    with and without SpecConfig(k=4), on the same weights."""
+    from repro_torch.core.proxy import SamplingParams
+    from repro_torch.kernels.paged_decode import paged_decode
+    from repro_torch.kernels.spec_verify import spec_verify
+    from repro_torch.serving.spec import SpecConfig
+    n_layers = cfg.n_layers
+    prompts, params = spec_workload(cfg.vocab_size)
+    warm, _ = spec_workload(cfg.vocab_size, seed=42)
+    out, streams_of, servers, weights = {}, {}, {}, None
+    for name, spec in (("spec_off", None), ("spec_on", SpecConfig(k=P7_K))):
+        srv = build_server(cfg, True, dev, params=weights, spec=spec)
+        weights = srv.params
+        list(srv.generate(warm[:2], SamplingParams(max_tokens=8)))
+        reset_stats(srv)
+        spec_verify.launches = paged_decode.launches = 0
+        streams, finished, summ, wall = drive(srv, prompts, params)
+        launches = {"spec_verify": spec_verify.launches,
+                    "paged_decode": paged_decode.launches}
+        ds = srv.decodes[0].stats
+        assert len(finished) == 7 and all(r == "length" for r in finished)
+        assert [len(x) for x in streams] == [P7_NEW] * 6 + [16], streams
+        assert ds["host_fetches"] == ds["steps"] > 0, ds
+        verifies = ds.get("spec_verifies", 0)
+        if dev.type == "cuda":
+            assert launches["spec_verify"] == verifies * n_layers, \
+                (launches, ds)
+            assert launches["paged_decode"] == \
+                (ds["steps"] - verifies) * n_layers, (launches, ds)
+        if spec is not None:
+            assert verifies > 0 and summ["spec_verifies"] == verifies
+        srv.kv_arena.pool.check_invariants(arena=srv.kv_arena)
+        streams_of[name] = streams
+        servers[name] = srv
+        out[name] = {"launches": launches, "decode_steps": ds["steps"],
+                     "host_fetches": ds["host_fetches"],
+                     "spec": {k: summ[k] for k in (
+                         "spec_drafted", "spec_accepted", "spec_verifies",
+                         "draft_acceptance", "tokens_per_verify")},
+                     "metrics": {k: summ[k] for k in (
+                         "n_done", "ttft_mean", "ttft_p99", "tpot_mean_ms",
+                         "tpot_p99_ms", "ott_tok_s", "ttt_tok_s")}
+                     | {"wall_s": wall}}
+    # every stream identical across the two runs, up to a near-tie at the
+    # first differing greedy step (the verify forward runs its GEMMs over
+    # 30 rows, the single-token step over 6)
+    ties = []
+    for r, (a, b) in enumerate(zip(streams_of["spec_on"],
+                                   streams_of["spec_off"])):
+        if a == b:
+            continue
+        i = next(j for j in range(len(a)) if a[j] != b[j])
+        margin = top2_margin(servers["spec_off"], prompts[r], b, i) \
+            if r < 6 else 0.0
+        log.append(f"request {r}: spec on/off differ at token {i}, top-2 "
+                   f"logit margin {margin:.3g}")
+        if r == 6 or margin >= 1e-4:
+            raise AssertionError(f"stream {r} differs with speculation on "
+                                 f"and off at token {i}")
+        ties.append({"request": r, "token": i, "margin": margin})
+    del servers
+    torch.cuda.empty_cache()
+    return {"runs": out, "streams_identical": not ties, "near_ties": ties}
 
 # ----------------------------------------------------------------------
 def main() -> int:
@@ -849,22 +1315,26 @@ def main() -> int:
     timer = Timer(dev)
     kern = check_kernels(dev, timer, log)
     kern.update(check_dense_kernels(dev, timer, log))
-    print("phase 2: kernels agree with their plain versions on the card")
+    kern.update(check_sparse_kernels(dev, timer, log))
+    print(f"phase 2: kernels agree with their plain versions on the card "
+          f"[{time.monotonic() - t0:.1f} s since the start]")
     for line in log:
         print("  " + line)
     for name, by in kern.items():
         for dn, r in by.items():
+            lib = "no library call" if r["library_ms"] is None else \
+                f"{r['library_ms']:.4f} ms sdpa"
             print(f"  {name} {dn} main shape: {r['ms']:.4f} ms kernel, "
-                  f"{r['plain_ms']:.4f} ms plain, {r['library_ms']:.4f} ms "
-                  f"sdpa, bound {r['bound_ms']:.4f} ms ({r['bound_by']}) "
-                  f"[{smi}]")
+                  f"{r['plain_ms']:.4f} ms plain, {lib}, bound "
+                  f"{r['bound_ms']:.4f} ms ({r['bound_by']}) [{smi}]")
     log.clear()
     torch.cuda.empty_cache()
 
     cfg = full_width_config()
     served = serve(dev, log, cfg)
     on = served["reuse_on"]
-    print("phase 3: full-width qwen2-1.5b served through the CUDA kernels")
+    print(f"phase 3: full-width qwen2-1.5b served through the CUDA kernels "
+          f"[{time.monotonic() - t0:.1f} s]")
     for line in log:
         print("  " + line)
     print(f"  chunks {served['prefill_chunks']} x {cfg.n_layers} = "
@@ -885,11 +1355,14 @@ def main() -> int:
     log.clear()
 
     report["reduced"] = cross_check_reduced(dev, log)
-    print("phase 4: " + "; ".join(log))
+    print(f"phase 4: [{time.monotonic() - t0:.1f} s]")
+    for line in log:
+        print("  " + line)
     log.clear()
 
     omni = serve_default_pattern(dev, log, cfg)
-    print(f"phase 5: full-width qwen2-1.5b, pattern=None "
+    print(f"phase 5 [{time.monotonic() - t0:.1f} s]: full-width qwen2-1.5b, "
+          f"pattern=None "
           f"({omni['compressed_layers']} compressed + {omni['full_layers']} "
           f"full layers), whole-prompt prefill")
     for line in log:
@@ -911,7 +1384,60 @@ def main() -> int:
           f"{omni['greedy_streams_identical']} "
           f"(near-ties {omni['near_ties']})")
 
-    report.update(kernels=kern, serve=served, default_pattern=omni)
+    log.clear()
+
+    topk = serve_topk(dev, log, cfg)
+    print(f"phase 6 [{time.monotonic() - t0:.1f} s]: full-width qwen2-1.5b, "
+          f"28 full layers, online top-k "
+          f"over a {topk['table_width']}-wide table")
+    for line in log:
+        print("  " + line)
+    for name, r in topk["runs"].items():
+        m, ln = r["metrics"], r["launches"]
+        sel = "" if not r["blocks_scored"] else (
+            f"; blocks attended/scored {r['blocks_attended']}/"
+            f"{r['blocks_scored']} = "
+            f"{r['blocks_attended'] / r['blocks_scored']:.4f}")
+        mass = "" if r["attn_mass_kept"] is None or \
+            r["attn_mass_kept"] != r["attn_mass_kept"] else \
+            f"; attn_mass_kept {r['attn_mass_kept']:.4f}"
+        print(f"  {name}: {r['decode_steps']} steps x {cfg.n_layers} = "
+              f"{ln['paged_decode']} paged_decode, {ln['block_topk']} "
+              f"block_topk launches; host_fetches {r['host_fetches']}"
+              f"{sel}{mass}")
+        print(f"  {name}: TTFT mean {m['ttft_mean'] * 1e3:.2f} ms p99 "
+              f"{m['ttft_p99'] * 1e3:.2f} ms, TPOT mean "
+              f"{m['tpot_mean_ms']:.2f} ms p99 {m['tpot_p99_ms']:.2f} ms, "
+              f"{m['ttt_tok_s']:.1f} total tok/s over {m['wall_s']:.2f} s "
+              f"[{smi}]")
+    print(f"  greedy streams with a budget of width - 1 equal top-k off: "
+          f"True; top-k 0.25 streams equal top-k off: "
+          f"{topk['frac_streams_equal_off']}/6")
+    log.clear()
+
+    spec = serve_spec(dev, log, cfg)
+    print(f"phase 7 [{time.monotonic() - t0:.1f} s]: full-width qwen2-1.5b, "
+          f"SpecPlane speculation k=4")
+    for line in log:
+        print("  " + line)
+    for name, r in spec["runs"].items():
+        m, sp = r["metrics"], r["spec"]
+        print(f"  {name}: {r['decode_steps']} steps, "
+              f"{r['launches']['spec_verify']} spec_verify + "
+              f"{r['launches']['paged_decode']} paged_decode launches, "
+              f"host_fetches {r['host_fetches']}; drafts accepted "
+              f"{sp['spec_accepted']}/{sp['spec_drafted']} "
+              f"(acceptance {sp['draft_acceptance']:.4f}), tokens per "
+              f"verify {sp['tokens_per_verify']:.3f}")
+        print(f"  {name}: TTFT mean {m['ttft_mean'] * 1e3:.2f} ms, TPOT mean "
+              f"{m['tpot_mean_ms']:.2f} ms p99 {m['tpot_p99_ms']:.2f} ms, "
+              f"{m['ott_tok_s']:.1f} output tok/s over {m['wall_s']:.2f} s "
+              f"[{smi}]")
+    print(f"  streams identical with speculation on and off: "
+          f"{spec['streams_identical']} (near-ties {spec['near_ties']})")
+
+    report.update(kernels=kern, serve=served, default_pattern=omni,
+                  topk=topk, spec=spec)
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 
@@ -924,7 +1450,12 @@ def main() -> int:
              lay["paged"]["launches"]["flash_prefill"]
              + lay["dense"]["launches"]["flash_prefill"]),
             ("sink_decode", "sink_decode", "float32_W4224",
-             lay["dense"]["launches"]["sink_decode"]))
+             lay["dense"]["launches"]["sink_decode"]),
+            ("spec_verify", "spec_verify", "float32",
+             spec["runs"]["spec_on"]["launches"]["spec_verify"]),
+            ("block_topk", "block_topk", "float32",
+             sum(r["launches"]["block_topk"]
+                 for r in topk["runs"].values())))
     line = {"kernels": []}
     for name, key, dn, launches in rows:
         r = kern[key][dn]
@@ -940,6 +1471,9 @@ def main() -> int:
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms"):
             if not math.isfinite(k[key]):
                 raise AssertionError(f"{k['name']}: {key} is not finite")
+        if k["launches"] <= 0:
+            raise AssertionError(f"{k['name']}: no launch on the main path")
+    print(f"all phases done in {time.monotonic() - t0:.1f} s")
     print(smi)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

@@ -1,2 +1,3 @@
-"""OmniInfer core of the PyTorch port. Only the proxy (OmniProxy:
-disaggregation-aware global scheduling) is ported so far; it is pure Python."""
+"""OmniInfer core of the PyTorch port: the proxy (OmniProxy:
+disaggregation-aware global scheduling) and OmniAttn's offline half (pattern
+search and fidelity); both are host code."""

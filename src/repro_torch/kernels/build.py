@@ -45,6 +45,14 @@ SIGNATURES = {
         "sink_decode_launch": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _L, _L, _L, _L, _L, _L, _F, _P],
     },
+    "block_topk": {
+        "block_topk_launch": [_I, _P, _P, _P, _P, _P, _P,
+                              _I, _I, _I, _I, _I, _I, _P],
+    },
+    "spec_verify": {
+        "spec_verify_launch": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                               _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    },
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}   # dlopen'd libraries (process-wide)

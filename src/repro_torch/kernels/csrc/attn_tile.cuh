@@ -10,7 +10,8 @@
 //   P  [R][TK]     scores, then probabilities
 //   M, L, C [R]    running max, running sum, this step's correction
 // Accumulators live in registers: thread `tid` owns column d = tid % HD of
-// rows tid / HD + k * (NT / HD), k < MAXR.
+// rows tid / HD + k * (NT / HD), k < NR (NR = MAXR unless a kernel passes a
+// longer accumulator array: a CTA holds at most NR · NT / HD query rows).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -75,10 +76,10 @@ __device__ __forceinline__ void load_tile(float* dst, int ld, const T* src,
 // NEG_INF, exactly as the TPU kernels mask them. The caller has synchronised
 // after filling Ks/Vs; this function ends with a barrier, so the caller may
 // overwrite the tiles right after it returns.
-template <int HD, typename ValidF>
+template <int HD, int NR, typename ValidF>
 __device__ __forceinline__ void tile_step(const float* Qs, const float* Ks,
                                           const float* Vs, float* P, float* M,
-                                          float* L, float* C, float (&acc)[MAXR],
+                                          float* L, float* C, float (&acc)[NR],
                                           int R, int TK, float scale,
                                           ValidF valid) {
   constexpr int LD = HD + 1;
@@ -114,7 +115,7 @@ __device__ __forceinline__ void tile_step(const float* Qs, const float* Ks,
   const int d = threadIdx.x % HD;
   const int r0 = threadIdx.x / HD;
 #pragma unroll
-  for (int k = 0; k < MAXR; ++k) {
+  for (int k = 0; k < NR; ++k) {
     const int r = r0 + k * RG;
     if (r < R) {
       const float* p = P + r * TK;
@@ -127,14 +128,14 @@ __device__ __forceinline__ void tile_step(const float* Qs, const float* Ks,
 }
 
 // out[r][d] = acc / max(l, 1e-30) for the rows this thread owns, r < R.
-template <typename T, int HD>
-__device__ __forceinline__ void store_rows(T* out, const float (&acc)[MAXR],
+template <typename T, int HD, int NR>
+__device__ __forceinline__ void store_rows(T* out, const float (&acc)[NR],
                                            const float* L, int R) {
   constexpr int RG = NT / HD;
   const int d = threadIdx.x % HD;
   const int r0 = threadIdx.x / HD;
 #pragma unroll
-  for (int k = 0; k < MAXR; ++k) {
+  for (int k = 0; k < NR; ++k) {
     const int r = r0 + k * RG;
     if (r < R) out[(size_t)r * HD + d] = from_f32<T>(acc[k] / fmaxf(L[r], 1e-30f));
   }

@@ -2,10 +2,12 @@
 kv-head-major layouts (the counterparts of src/repro/kernels/ops.py)."""
 from __future__ import annotations
 
+from repro_torch.kernels.block_topk import block_topk_scores
 from repro_torch.kernels.flash_prefill import flash_prefill
 from repro_torch.kernels.paged_decode import paged_decode
 from repro_torch.kernels.paged_prefill import paged_prefill
 from repro_torch.kernels.sink_decode import sink_decode
+from repro_torch.kernels.spec_verify import spec_verify
 
 
 def attention_prefill_op(q, k, v, *, causal=True, window=0, sink=0):
@@ -60,5 +62,33 @@ def attention_paged_prefill_op(q, k_new, v_new, k_pages, v_pages, tables,
     vf = v_new.permute(0, 2, 1, 3)
     o = paged_prefill(qf, kf, vf, k_pages, v_pages, tables, off, chunk_len,
                       window=window, sink=sink)
+    return o.reshape(B, K, S, G, h).permute(0, 2, 1, 3, 4) \
+        .reshape(B, S, H, h)
+
+
+def block_topk_scores_op(q, kmin, kmax, tables, lens, *, block_size):
+    """q [B,H,h]; kmin/kmax [N,K,h] per-block key channel bounds; tables
+    [B,nb]; lens [B] resident logical slots → upper-bound block scores
+    [B,nb] float32 (NEG_INF past the residency)."""
+    B, H, h = q.shape
+    K = kmin.shape[1]
+    return block_topk_scores(q.reshape(B, K, H // K, h), kmin, kmax, tables,
+                             lens, block_size=block_size)
+
+
+def spec_verify_op(q, k_new, v_new, k_pages, v_pages, tables, off, n_tok):
+    """Batched multi-token speculative verify over paged history
+    (read-only). q [B,S,H,h], S = k+1 window rows per slot; k_new/v_new
+    [B,S,K,h] the window's rope'd keys (not yet in any block); arenas
+    [N,K,bs,h]; tables [B,nb]; off [B] per-slot resident-history length;
+    n_tok [B] real window rows → [B,S,H,h]. The GQA regroup of the
+    chunked-prefill adapter."""
+    B, S, H, h = q.shape
+    K = k_new.shape[2]
+    G = H // K
+    qf = q.reshape(B, S, K, G, h).permute(0, 2, 1, 3, 4) \
+        .reshape(B, K, S * G, h)
+    o = spec_verify(qf, k_new.permute(0, 2, 1, 3), v_new.permute(0, 2, 1, 3),
+                    k_pages, v_pages, tables, off, n_tok)
     return o.reshape(B, K, S, G, h).permute(0, 2, 1, 3, 4) \
         .reshape(B, S, H, h)

@@ -202,3 +202,177 @@ def update_block_summaries(kmin, kmax, kmean, k_pages, blocks):
     kmax[blocks] = k.amax(dim=-2)
     kmean[blocks] = k.mean(dim=-2)
     return kmin, kmax, kmean
+
+
+# ----------------------------------------------------------------------
+# OmniAttn online top-k block selection (the scores come from the
+# block_topk kernel, kernels/block_topk.py)
+def select_kv_blocks(scores, tables, lens, *, block_size: int, k_static: int,
+                     frac: float = 0.0, sink_blocks: int = 1,
+                     recent_blocks: int = 2):
+    """Per-slot top-k block selection → a compacted block table.
+
+    scores [B, nb] upper-bound block scores (NEG_INF past residency);
+    tables [B, nb]; lens [B] resident logical slots. Keeps up to `k_static`
+    resident blocks per slot: the sink blocks (logical j < sink_blocks) and
+    the `recent_blocks` most recent ones are forced, the rest ranked by
+    score, equal scores by the lower index first (as jax.lax.top_k ranks
+    them: a stable descending sort). With `frac > 0` the per-slot budget is
+    ceil(frac · resident blocks), floored at the forced keeps; budgets at or
+    above the resident count keep every resident block in logical order, so
+    the compacted table equals the input table.
+
+    Selected blocks land in logical order (ascending), so all entries but
+    the last are full blocks and `new_lens = (m-1)·bs + tail fill` makes the
+    paged-decode occupancy mask right on the compacted view; unused entries
+    are the null block 0.
+
+    → (new_tables [B, k_static] int32, new_lens [B] int32, m [B] selected
+    block counts, selected [B, nb] bool over the original logical blocks)."""
+    B, nb = tables.shape
+    dev = tables.device
+    lens = lens.to(torch.int32)
+    n_res = torch.div(lens + block_size - 1, block_size,
+                      rounding_mode="floor")                 # [B] >= 1
+    j = torch.arange(nb, device=dev)
+    resident = j[None] < n_res[:, None]
+    keep = resident & ((j[None] < sink_blocks)
+                       | (j[None] >= (n_res - recent_blocks)[:, None]))
+    adj = torch.where(keep, torch.full_like(scores, float("inf")),
+                      torch.where(resident, scores,
+                                  torch.full_like(scores, float("-inf"))))
+    idx = torch.sort(adj, dim=1, descending=True, stable=True).indices[
+        :, :k_static]                                        # [B, k_static]
+    if frac > 0:
+        k_b = torch.ceil(frac * n_res.float()).to(torch.int32)
+        k_b = torch.clamp(k_b, min=sink_blocks + recent_blocks)
+    else:
+        k_b = torch.full_like(n_res, k_static)
+    k_b = torch.minimum(k_b, n_res)                          # degrade
+    sel = (torch.arange(k_static, device=dev)[None] < k_b[:, None]) \
+        & torch.gather(resident, 1, idx)
+    sidx = torch.sort(torch.where(sel, idx, torch.full_like(idx, nb)),
+                      dim=1).values                          # pad → nb
+    gat = torch.gather(tables, 1, torch.clamp(sidx, max=nb - 1))
+    new_tables = torch.where(sidx < nb, gat, torch.zeros_like(gat)) \
+        .to(torch.int32)
+    m = sel.sum(dim=1).to(torch.int32)
+    tail_fill = lens - (n_res - 1) * block_size
+    new_lens = (torch.clamp(m - 1, min=0) * block_size + tail_fill) \
+        .to(torch.int32)
+    selected = torch.zeros((B, nb), dtype=torch.bool, device=dev) \
+        .scatter(1, idx, sel)                          # idx rows distinct
+    return new_tables, new_lens, m, selected
+
+
+def selected_attention_mass(q, k_pages, tables, lens, selected):
+    """Exact attention mass the selected blocks capture, per slot.
+
+    q [B, H, h]; k_pages [N, K, bs, h]; tables/selected [B, nb] over the
+    original logical blocks; lens [B] resident slots. Computes the full
+    resident softmax (a diagnostics pass, gated by
+    `omniattn.topk_measure_mass`) and sums the probability landing in
+    selected blocks, averaged over heads → [B] float32 in [0, 1]."""
+    B, H, h = q.shape
+    K, bs = k_pages.shape[1], k_pages.shape[2]
+    G = H // K
+    nb = tables.shape[1]
+    k_lin = k_pages[tables.long()].permute(0, 1, 3, 2, 4) \
+        .reshape(B, nb * bs, K, h).float()
+    qg = q.reshape(B, K, G, h).float()
+    s = torch.einsum("bkgh,bwkh->bkgw", qg, k_lin) * h ** -0.5
+    valid = torch.arange(nb * bs, device=q.device)[None] \
+        < per_row(lens, B, q.device)[:, None]
+    s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    slot_sel = selected.repeat_interleave(bs, dim=1)         # [B, nb·bs]
+    return (p * slot_sel[:, None, None, :]).sum(-1).mean(dim=(1, 2))
+
+
+# ----------------------------------------------------------------------
+# SpecPlane: the verify window's commit and its ring-layer attention
+def paged_cache_write_tokens(k_pages, v_pages, k_new, v_new, blk, off):
+    """Write a per-sequence token window into arena blocks, in place.
+
+    arenas [N, K, bs, h]; k_new/v_new [B, S, K, h]; blk/off [B, S] physical
+    block id and in-block offset per row. The speculative-verify commit: the
+    caller redirects rejected and padded rows to the null block 0, so only
+    the accepted prefix lands in a real block — rollback is a write that
+    never happens. Live rows of distinct sequences occupy distinct (block,
+    offset) slots; rows sharing the null block may land in any order."""
+    K = k_pages.shape[1]
+    ki = torch.arange(K, device=k_pages.device)[None, None, :]
+    b = blk.long()[:, :, None]
+    o = off.long()[:, :, None]
+    k_pages[b, ki, o] = k_new.to(k_pages.dtype)
+    v_pages[b, ki, o] = v_new.to(v_pages.dtype)
+    return k_pages, v_pages
+
+
+def paged_cache_write_tokens_masked(k_pages, v_pages, k_new, v_new, blk,
+                                    off, write):
+    """`paged_cache_write_tokens` for arenas without a null block (the ring
+    block runs): rows with write[b, s] False write back their slot's current
+    content, so a rejected draft row is a bit-exact no-op on its target
+    slot. Callers keep each sequence's rows on distinct (blk, off) slots."""
+    K = k_pages.shape[1]
+    ki = torch.arange(K, device=k_pages.device)[None, None, :]
+    b = blk.long()[:, :, None]
+    o = off.long()[:, :, None]
+    wm = write[:, :, None, None]
+    for pages, new in ((k_pages, k_new), (v_pages, v_new)):
+        cur = pages[b, ki, o]                                # [B, S, K, h]
+        pages[b, ki, o] = torch.where(wm, new.to(pages.dtype), cur)
+    return k_pages, v_pages
+
+
+def spec_verify_ring_attention(q, k_new, v_new, k_cache, v_cache, positions,
+                               *, sink: int, recent: int):
+    """Read-only speculative-verify attention over a ring (sink+recent)
+    cache (the reference has no TPU kernel for it).
+
+    q [B,S,H,h] is each slot's draft window at absolute positions [B,S]
+    (row i of slot b at positions[b, 0] + i); k_new/v_new [B,S,K,h] are the
+    window's rope'd keys; caches [B,W,K,h] hold the frozen ring history —
+    tokens < positions[:, 0], each ring slot its residue class's largest
+    member below the window. A row at position p drops a frozen token with
+    p - tok >= recent (its evicting class member lies inside the window and
+    is attended instead), which is exactly the resident set single-token
+    ring decode would see at p; in-window keys take the causal mask only
+    (S <= recent). Nothing is written."""
+    B, S, H, h = q.shape
+    K = k_new.shape[2]
+    G = H // K
+    W = k_cache.shape[1]
+    dev = q.device
+    pos = positions.to(torch.int32)                          # [B, S]
+    off = pos[:, 0]
+    j = torch.arange(W, device=dev, dtype=torch.int32)[None]    # [1, W]
+    if sink or recent:
+        wraps = torch.clamp(torch.div(off[:, None] - 1 - j, recent,
+                                      rounding_mode="floor"), min=0)
+        tok = torch.where(j < sink, j, j + wraps * recent)
+    else:
+        tok = j.expand(B, W)
+    res = tok < off[:, None]                                 # [B, W]
+
+    def allowed(p, t):
+        ok = t <= p
+        if recent > 0:
+            ok = ok & (((p - t) < recent) | (t < sink))
+        return ok
+
+    m_old = res[:, None, :] & allowed(pos[:, :, None], tok[:, None, :])
+    m_new = allowed(pos[:, :, None], pos[:, None, :])
+    qg = q.reshape(B, S, K, G, h).float()
+    s_old = torch.einsum("bskgh,bwkh->bskgw", qg, k_cache.float()) \
+        * h ** -0.5
+    s_old = torch.where(m_old[:, :, None, None, :], s_old,
+                        torch.full_like(s_old, NEG_INF))
+    s_new = torch.einsum("bskgh,bukh->bskgu", qg, k_new.float()) * h ** -0.5
+    s_new = torch.where(m_new[:, :, None, None, :], s_new,
+                        torch.full_like(s_new, NEG_INF))
+    p_att = torch.softmax(torch.cat([s_old, s_new], dim=-1), dim=-1)
+    v_all = torch.cat([v_cache.float(), v_new.float()], dim=1)
+    out = torch.einsum("bskgw,bwkh->bskgh", p_att, v_all)
+    return out.reshape(B, S, H, h).to(q.dtype)

@@ -1,6 +1,8 @@
 """Top-level model of the port: embeddings, tied (or untied) head, and the
 serving entry points: whole-prompt `prefill` into dense caches, chunked
-`prefill_resume` over paged KV, and `decode` over paged or dense KV."""
+`prefill_resume` over paged KV, `decode` over paged or dense KV (with
+OmniAttn online top-k on paged full layers), and the speculative `verify` /
+`verify_commit` pair over paged KV."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -104,7 +106,7 @@ class LM:
         tl = S if true_len is None else int(true_len)
         x = self._embed(params, tokens)
         positions = torch.arange(S, device=x.device)
-        x, layers = stack_mod.stack_apply(
+        x, layers, _ = stack_mod.stack_apply(
             self.cfg, self.plan, params["layers"], x, mode="prefill",
             positions=positions, caches=None, block_tables=None,
             true_len=true_len, max_len=max_len)
@@ -150,22 +152,53 @@ class LM:
         cl = S if chunk_len is None else int(chunk_len)
         x = self._embed(params, tokens)
         positions = off + torch.arange(S, device=x.device)
-        x, _ = stack_mod.stack_apply(self.cfg, self.plan, params["layers"], x,
-                                     mode="prefill", positions=positions,
+        x, _, _ = stack_mod.stack_apply(self.cfg, self.plan, params["layers"],
+                                        x, mode="prefill", positions=positions,
                                      caches=cache, block_tables=block_tables,
                                      true_len=cl, pos0=off)
         logits = self._logits(params, x[:, cl - 1])
         return dict(cache, pos=off + cl), logits
 
     @torch.no_grad()
-    def decode(self, params, cache, token, positions, *, block_tables=None):
+    def decode(self, params, cache, token, positions, *, block_tables=None,
+               token_mask=None):
         """One decode step. token [B, 1]; positions [B, 1] (device int
         tensors: each slot's write position). With block_tables [B, nb] the
         cache is paged (shared full-attention arenas + per-slot ring block
         runs); without, it is dense (`alloc_cache`). Each slot's K/V is
-        written in place, then attended. → (cache, logits [B, V])."""
+        written in place, then attended — with cfg.omniattn.topk_* set, on
+        paged full layers only the query-selected top-k of the resident
+        blocks. token_mask [B] (live rows) weights the online-sparsity
+        stats. → (cache, logits [B, V], aux {"sparsity": [per-layer [4]
+        vectors [blocks_scored, blocks_attended, mass_sum, mass_n]]})."""
         x = self._embed(params, token)
-        x, _ = stack_mod.stack_apply(self.cfg, self.plan, params["layers"], x,
-                                     mode="decode", positions=positions,
-                                     caches=cache, block_tables=block_tables)
-        return cache, self._logits(params, x[:, 0])
+        x, _, sp = stack_mod.stack_apply(
+            self.cfg, self.plan, params["layers"], x, mode="decode",
+            positions=positions, caches=cache, block_tables=block_tables,
+            token_mask=token_mask)
+        return cache, self._logits(params, x[:, 0]), {"sparsity": sp}
+
+    @torch.no_grad()
+    def verify(self, params, cache, tokens, positions, *, block_tables):
+        """Speculative multi-token verify: a read-only forward over each
+        slot's draft window. tokens [B, S] = [current input token,
+        draft_1..draft_{S-1}] per row; positions [B] each slot's next write
+        position; paged caches through block_tables [B, nb]. No K/V is
+        written: each attention layer stages its rope'd window K/V instead.
+        → (logits [B, S, V], staged per-layer entries)."""
+        B, S = tokens.shape
+        x = self._embed(params, tokens)
+        pos2 = positions.to(torch.int32)[:, None] + torch.arange(
+            S, device=x.device, dtype=torch.int32)[None]
+        x, staged, _ = stack_mod.stack_apply(
+            self.cfg, self.plan, params["layers"], x, mode="verify",
+            positions=pos2, caches=cache, block_tables=block_tables)
+        return self._logits(params, x), staged
+
+    def verify_commit(self, cache, staged, positions, n_write, block_tables):
+        """Land the accepted prefix of a `verify` window — n_write [B] rows
+        per slot — in the paged caches, in place; see
+        stack.stack_verify_commit."""
+        return stack_mod.stack_verify_commit(self.cfg, self.plan, cache,
+                                             staged, positions, n_write,
+                                             block_tables)

@@ -15,12 +15,16 @@ W). Entries, all updated in place:
   paged ring layer   {"k","v": [n_slots·bpw, K, bs, h]}: slot b owns the
                       contiguous block run [b·bpw, (b+1)·bpw)
   dense layer        {"k","v": [B, W, K, h]}, W = sink+recent or max_len
-`check_supported` raises NotImplementedError for what a later slice brings
-(MoE, SSM, online top-k); chunked prefill over ring layers raises where it
-is attempted (`attn_sublayer`).
+Paged decode of full layers runs OmniAttn online top-k block selection when
+cfg.omniattn sets a budget (`topk_block_budget`); mode "verify" is the
+read-only speculative-verify forward, and `stack_verify_commit` lands its
+accepted prefix. `check_supported` raises NotImplementedError for what a
+later slice brings (MoE, SSM); chunked prefill over ring layers raises where
+it is attempted (`attn_sublayer`).
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Optional
 
@@ -76,19 +80,30 @@ def full_attn_layer(cfg: ModelConfig, spec: LayerSpec) -> bool:
 def check_supported(cfg: ModelConfig, plan: StackPlan) -> None:
     """Raise NotImplementedError for a configuration this slice of the port
     does not serve (rather than silently serving something else)."""
-    oa = cfg.omniattn
     if cfg.moe.n_experts:
         raise NotImplementedError("MoE layers are not ported yet")
     if cfg.family not in ("dense",) or cfg.encoder_only or not cfg.causal \
             or cfg.frontend_dim:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (dense decoders only)")
-    if oa.topk_blocks > 0 or oa.topk_frac > 0:
-        raise NotImplementedError("OmniAttn online top-k block selection "
-                                  "(omniattn.topk_*) is not ported yet")
     for spec in plan.all_specs():
         if spec.kind != "attn":
             raise NotImplementedError("SSM (mamba) layers are not ported yet")
+
+
+def topk_block_budget(oa, nb: int) -> Optional[int]:
+    """Top-k block budget against a width-`nb` block table, or None when
+    online sparsity is off (both budget knobs 0). Absolute `topk_blocks`
+    wins over `topk_frac` (which resolves per slot against the resident
+    block count — this figure is its ceiling, ceil(frac·nb)). Floored at the
+    forced keeps and capped at nb; a budget == nb means the (bucketed) table
+    already fits and selection is skipped: exact attention."""
+    if oa.topk_blocks <= 0 and oa.topk_frac <= 0:
+        return None
+    k = oa.topk_blocks if oa.topk_blocks > 0 else \
+        int(math.ceil(oa.topk_frac * nb))
+    k = max(k, max(oa.topk_sink_blocks, 0) + max(oa.topk_recent_blocks, 1), 1)
+    return min(k, nb)
 
 
 def ring_block_count(sink: int, recent: int, block_size: int) -> int:
@@ -198,8 +213,9 @@ def split_arena_cache(cfg: ModelConfig, plan: StackPlan, cache: dict
 def attn_sublayer(cfg: ModelConfig, spec: LayerSpec, p: dict, x, *,
                   mode: str, positions, cache: Optional[dict],
                   true_len: Optional[int] = None, block_tables=None,
-                  pos0: int = 0, max_len: int = 0):
-    """Attention of one layer. → (x, new cache entry or None).
+                  pos0: int = 0, max_len: int = 0, token_mask=None):
+    """Attention of one layer. → (x, new cache entry or None, sparsity aux
+    or None).
 
     mode "prefill", cache None: a whole B=1 prompt at positions arange(S)
       (the first `true_len` rows real) through the flash-prefill kernel; the
@@ -212,7 +228,15 @@ def attn_sublayer(cfg: ModelConfig, spec: LayerSpec, p: dict, x, *,
       block_tables the K/V are written into the arenas (full layers through
       the table, ring layers into the slot's own block run) and attended
       through the paged-decode kernel; without, into the dense caches,
-      attended through the sink-decode kernel. In place either way."""
+      attended through the sink-decode kernel. In place either way. With
+      cfg.omniattn.topk_* set, a paged full layer scores its resident blocks
+      (block-topk kernel), attends only the selected ones through a
+      compacted table, and returns the aux [blocks_scored,
+      blocks_attended, mass_sum, mass_n], weighted by `token_mask` [B].
+    mode "verify": each slot's draft window, positions [B, S], read-only
+      against the paged caches — full layers through the spec-verify
+      kernel, ring layers through `spec_verify_ring_attention`; the new
+      entry is the window's rope'd K/V, staged for `stack_verify_commit`."""
     B, S, _ = x.shape
     H, K, h = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     cd = torch_dtype(cfg.compute_dtype)
@@ -232,7 +256,7 @@ def attn_sublayer(cfg: ModelConfig, spec: LayerSpec, p: dict, x, *,
     k = attn_mod.apply_rope(k, positions, cfg.rope_theta)
     sink, recent = cache_window(cfg, spec)
     ring = bool(sink or recent)
-    new_cache = None
+    new_cache = sp_aux = None
     if mode == "prefill" and cache is None:
         window, use_sink = spec.window, 0
         if spec.compressed and cfg.prefill_sparse:
@@ -300,9 +324,32 @@ def attn_sublayer(cfg: ModelConfig, spec: LayerSpec, p: dict, x, *,
             tbl = block_tables
             lens = torch.clamp(t + 1, max=nb * bs)
             attn_mod.paged_cache_write(kc, vc, k[:, 0], v[:, 0], blk, t % bs)
+            # the appended token's block is re-summarised before scoring, so
+            # the tail bound covers the new key
             attn_mod.update_block_summaries(cache["kmin"], cache["kmax"],
                                             cache["kmean"], kc, blk)
+            tbl, lens, sp_aux = _select_blocks(cfg, q[:, 0], cache, tbl,
+                                               lens, token_mask)
         out = kops.attention_paged_decode_op(q[:, 0], kc, vc, tbl, lens)
+    elif mode == "verify":
+        # read-only: the window's K/V is staged, the accepted prefix is
+        # committed afterwards (a rejected row never touches a block)
+        pos2 = positions.to(torch.int32)                     # [B, S]
+        if ring:
+            # the slot's frozen ring run as a dense [B, W] view (slot b owns
+            # blocks [b·bpw, (b+1)·bpw))
+            bs = cache["k"].shape[2]
+            bpw = ring_block_count(sink, recent, bs)
+            W = sink + recent
+            kr, vr = (cache[n].reshape(B, bpw, K, bs, h).transpose(2, 3)
+                      .reshape(B, bpw * bs, K, h)[:, :W] for n in ("k", "v"))
+            out = attn_mod.spec_verify_ring_attention(
+                q, k, v, kr, vr, pos2, sink=sink, recent=recent)
+        else:
+            t = pos2[:, 0]
+            out = kops.spec_verify_op(q, k, v, cache["k"], cache["v"],
+                                      block_tables, t, torch.full_like(t, S))
+        new_cache = {"k": k, "v": v}
     elif mode == "decode":
         t = positions[:, 0]
         kc, vc = attn_mod.cache_write(cache["k"], cache["v"], k[:, 0],
@@ -311,7 +358,45 @@ def attn_sublayer(cfg: ModelConfig, spec: LayerSpec, p: dict, x, *,
     else:
         raise NotImplementedError(f"attention mode {mode!r} is not ported")
     y = out.reshape(B, S, H * h)
-    return x + (y @ p["wo"]).to(x.dtype), new_cache
+    return x + (y @ p["wo"]).to(x.dtype), new_cache, sp_aux
+
+
+def _select_blocks(cfg: ModelConfig, q, cache: dict, tbl, lens, token_mask):
+    """OmniAttn online top-k on one paged full layer's decode step. q
+    [B, H, h]; tbl [B, nb]; lens [B]. → (table, lens) to attend, and the aux
+    [blocks_scored, blocks_attended, mass_sum, mass_n] (None when sparsity
+    is off). A budget covering the whole (bucketed) table skips selection:
+    exact attention, still reported so the stats stay comparable."""
+    oa = cfg.omniattn
+    nb = tbl.shape[1]
+    k_static = topk_block_budget(oa, nb)
+    if k_static is None:
+        return tbl, lens, None
+    B = q.shape[0]
+    bs = cache["k"].shape[2]
+    act = token_mask.float() if token_mask is not None else \
+        torch.ones(B, dtype=torch.float32, device=q.device)
+    n_res = torch.div(lens + bs - 1, bs, rounding_mode="floor")
+    scored = (act * n_res).sum()
+    zero = torch.zeros((), dtype=torch.float32, device=q.device)
+    if k_static >= nb:
+        mn = act.sum() if oa.topk_measure_mass else zero
+        return tbl, lens, torch.stack([scored, scored, mn, mn])
+    scores = kops.block_topk_scores_op(q, cache["kmin"], cache["kmax"], tbl,
+                                       lens, block_size=bs)
+    tbl_s, lens_s, m, selected = attn_mod.select_kv_blocks(
+        scores, tbl, lens, block_size=bs, k_static=k_static,
+        frac=0.0 if oa.topk_blocks > 0 else oa.topk_frac,
+        sink_blocks=max(oa.topk_sink_blocks, 0),
+        recent_blocks=max(oa.topk_recent_blocks, 1))
+    if oa.topk_measure_mass:
+        mass = attn_mod.selected_attention_mass(q, cache["k"], tbl, lens,
+                                                selected)
+        mass_sum, mass_n = (act * mass).sum(), act.sum()
+    else:
+        mass_sum = mass_n = zero
+    return tbl_s, lens_s, torch.stack([scored, (act * m).sum(), mass_sum,
+                                       mass_n])
 
 
 def ffn_sublayer(cfg: ModelConfig, p: dict, x):
@@ -326,18 +411,75 @@ def ffn_sublayer(cfg: ModelConfig, p: dict, x):
 def stack_apply(cfg: ModelConfig, plan: StackPlan, layers: list, x, *,
                 mode: str, positions, caches: Optional[dict], block_tables,
                 true_len: Optional[int] = None, pos0: int = 0,
-                max_len: int = 0):
-    """Run every layer in order. Caches given are updated in place; with
-    caches None (whole-prompt prefill) → (x, new per-layer entries), else
-    (x, None)."""
-    entries = [] if caches is None else None
+                max_len: int = 0, token_mask=None):
+    """Run every layer in order. Caches given are updated in place (read
+    only in mode "verify"). → (x, entries, sparsity): entries are the new
+    per-layer cache entries with caches None (whole-prompt prefill) or the
+    staged window K/V per layer in mode "verify", else None; sparsity is the
+    list of per-layer [4] online-sparsity vectors (empty when off)."""
+    entries = [] if caches is None or mode == "verify" else None
+    sparsity = []
     for i, (spec, p) in enumerate(zip(plan.all_specs(), layers)):
-        x, nc = attn_sublayer(
+        x, nc, sp = attn_sublayer(
             cfg, spec, p, x, mode=mode, positions=positions,
             cache=None if caches is None else caches["layers"][i],
             true_len=true_len, block_tables=block_tables, pos0=pos0,
-            max_len=max_len)
+            max_len=max_len, token_mask=token_mask)
         if entries is not None:
             entries.append(nc)
+        if sp is not None:
+            sparsity.append(sp)
         x = ffn_sublayer(cfg, p, x)
-    return x, entries
+    return x, entries, sparsity
+
+
+def stack_verify_commit(cfg: ModelConfig, plan: StackPlan, caches: dict,
+                        staged: list, positions, n_write, block_tables):
+    """Land a verify window's accepted prefix in the paged caches, in place.
+
+    staged: stack_apply(mode="verify")'s per-layer window K/V [B, S, K, h];
+    positions [B] the window start (the pre-verify slot cursor); n_write [B]
+    rows to land per slot — the consumed input tokens (current token +
+    accepted drafts; 0 for idle slots); block_tables [B, nb]. Window row i
+    of slot b lands at position positions[b] + i iff i < n_write[b].
+
+    Full layers redirect rejected, idle and overflow rows to the null block
+    and re-summarise every touched block, so no summary goes stale: a
+    rollback is a write that never happened. Ring block runs have no null
+    block: rejected rows write back their slot's current content. Window
+    rows map to distinct ring slots because S <= recent (the controller caps
+    the window)."""
+    positions = positions.to(torch.int32)
+    n_write = n_write.to(torch.int32)
+    B = positions.shape[0]
+    dev = positions.device
+    S = staged[0]["k"].shape[1]
+    pos2 = positions[:, None] + torch.arange(S, device=dev,
+                                             dtype=torch.int32)[None]
+    valid = torch.arange(S, device=dev, dtype=torch.int32)[None] \
+        < n_write[:, None]
+    bidx = torch.arange(B, device=dev, dtype=torch.int32)
+    for spec, entry, stg in zip(plan.all_specs(), caches["layers"], staged):
+        bs = entry["k"].shape[2]
+        sink, recent = cache_window(cfg, spec)
+        if sink or recent:
+            bpw = ring_block_count(sink, recent, bs)
+            slot = attn_mod.ring_slot(pos2, sink, recent)
+            blk = bidx[:, None] * bpw + torch.div(slot, bs,
+                                                  rounding_mode="floor")
+            attn_mod.paged_cache_write_tokens_masked(
+                entry["k"], entry["v"], stg["k"], stg["v"], blk, slot % bs,
+                valid)
+            continue
+        nb = block_tables.shape[1]
+        col = torch.clamp(torch.div(pos2, bs, rounding_mode="floor"),
+                          max=nb - 1).long()
+        blk = torch.where(valid & (pos2 < nb * bs),
+                          block_tables[bidx.long()[:, None], col],
+                          torch.zeros_like(pos2))
+        attn_mod.paged_cache_write_tokens(entry["k"], entry["v"], stg["k"],
+                                          stg["v"], blk, pos2 % bs)
+        attn_mod.update_block_summaries(entry["kmin"], entry["kmax"],
+                                        entry["kmean"], entry["k"],
+                                        blk.reshape(-1))
+    return caches

@@ -14,10 +14,18 @@ Without one (slot-dense): caches [n_slots, W, K, h] per layer, attended by
 the sink-decode kernel, with an accounting-only KVPool for admission
 control and preemption.
 
+Paged engines run OmniAttn online top-k block selection when
+cfg.omniattn sets a budget (`sparsity`, a SparsityController), and SpecPlane
+speculative decoding when given a SpecConfig (`spec_ctl`): drafts gathered
+on the host, one batched read-only verify forward over [n_slots, k+1]
+window positions, the greedy-prefix acceptance on the device, and a masked
+commit of the accepted rows. The slot-dense layout serves neither.
+
 Slot state (position, current token, active flag, per-slot sampling
-parameters and base keys) lives on the device and is updated in place by
-the step, so a decode step does exactly ONE device→host fetch: the sampled
-tokens (`host_fetches == steps`).
+parameters and base keys, the sparsity and speculation accumulators) lives
+on the device and is updated in place by the step, so a decode step does
+exactly ONE device→host fetch: the sampled tokens, or the packed verify
+window (`host_fetches == steps`).
 """
 from __future__ import annotations
 
@@ -40,6 +48,9 @@ from repro_torch.serving.arena import (BlockHandoff, KVArena, _bucket,
 from repro_torch.serving.kvpool import KVPool, tree_bytes
 from repro_torch.serving.placement import DevicePlacement
 from repro_torch.serving.sampling import sample_tokens
+from repro_torch.serving.sparsity import SparsityController
+from repro_torch.serving.spec import SpecConfig, SpecController
+from repro_torch.serving.stats import drain_accumulator
 
 
 HBM_BUDGET_BYTES = 1 << 34     # sizes the dense accounting pool (reference)
@@ -56,6 +67,8 @@ class DecodeEngine:
     kv_blocks: Optional[int] = None   # dense accounting pool size
     block_size: int = 16              # dense accounting granularity
     placement: Optional[DevicePlacement] = None
+    spec: Optional[SpecConfig] = None   # model-free speculative decoding
+    spec_radix: Optional[object] = None  # proxy RadixTree for draft lookup
     stats: dict = field(default_factory=lambda: {
         "steps": 0, "tokens": 0, "busy_s": 0.0, "kv_transfer_bytes": 0,
         "kv_transfer_bytes_padded": 0, "handoff_copy_bytes": 0,
@@ -82,7 +95,17 @@ class DecodeEngine:
             self._tbl_dev = torch.from_numpy(self.tables_h).to(dev)
             self._tbl_bucket = self.max_blocks
             self._tbl_dirty = False
+            # online top-k block selection, resolved once from
+            # cfg.omniattn (the layers read the same config)
+            self.sparsity = SparsityController.from_model(
+                cfg, plan, self.block_size, self.max_blocks)
         else:
+            oa = cfg.omniattn
+            if oa.topk_blocks > 0 or oa.topk_frac > 0:
+                raise NotImplementedError(
+                    "OmniAttn online top-k on the slot-dense KV layout is "
+                    "not ported (it selects arena blocks: use paged KV)")
+            self.sparsity = None
             self.max_blocks = -(-self.max_len // self.block_size)
             self.cache = alloc_cache(cfg, plan, self.n_slots, self.max_len,
                                      dev)
@@ -99,6 +122,18 @@ class DecodeEngine:
             self.pool = KVPool(n_blocks=self.kv_blocks,
                                block_size=self.block_size)
         self.kv_blocks = self.pool.n_blocks
+        if self.sparsity is not None:
+            self.stats.update(SparsityController.stats_keys())
+        # speculation: drafting state lives host-side in the controller; the
+        # verify is one batched forward over [n_slots, k+1] positions
+        self.spec_ctl = SpecController.from_model(
+            self.lm, self.spec, sparsity=self.sparsity, radix=self.spec_radix)
+        if self.spec_ctl is not None:
+            if not self.paged:
+                raise ValueError("speculative decoding requires paged "
+                                 "attention KV (block/summary rollback is "
+                                 "defined on the paged plane)")
+            self.stats.update(SpecController.stats_keys())
         # transfer-cost metering: a B=1 dense interchange cache holds
         # max_len tokens of full-attention KV plus the bounded ring KV (and
         # the int32 position); the TRUE payload grows by `_full_tok_nbytes`
@@ -125,6 +160,16 @@ class DecodeEngine:
             "top_k": torch.zeros(n, dtype=torch.int32, device=dev),
             "top_p": torch.ones(n, dtype=torch.float32, device=dev),
             "key": torch.zeros((n, 2), dtype=torch.int64, device=dev)}
+        if self.sparsity is not None:
+            # [blocks_scored, blocks_attended, mass_sum, mass_n], summed
+            # over layers on the device; drained by take_sparsity_stats()
+            self.state["sparsity"] = torch.zeros(4, dtype=torch.float32,
+                                                 device=dev)
+        if self.spec_ctl is not None:
+            # [drafted, accepted, emitted, verifies]; drained by
+            # take_spec_stats()
+            self.state["spec"] = torch.zeros(4, dtype=torch.float32,
+                                             device=dev)
         self.pos_h = np.zeros(n, np.int64)      # next write position
         self.tok_h = np.zeros(n, np.int64)      # current input token
         self.tokens_h = np.zeros(n, np.int64)   # pool-accounted tokens
@@ -334,6 +379,8 @@ class DecodeEngine:
             self.stats["admits"] += 1
             drow = device_row(sparams, rid)
             self.greedy_h[slot] = float(drow[0]) <= 0.0
+            if self.spec_ctl is not None:
+                self.spec_ctl.on_admit(rid, prompt, tok)
             slots.append(slot)
             toks.append(tok)
             poss.append(pos)
@@ -349,10 +396,13 @@ class DecodeEngine:
         """The device side of one step: decode every slot, sample, advance
         the slot state in place. → sampled tokens [n_slots] (on device)."""
         st = self.state
-        _, logits = self.lm.decode(
+        _, logits, aux = self.lm.decode(
             self.params, self._full_cache(), st["tok"][:, None],
             st["pos"][:, None],
-            block_tables=self._tbl_dev if self.paged else None)
+            block_tables=self._tbl_dev if self.paged else None,
+            token_mask=st["active"])
+        if "sparsity" in st and aux["sparsity"]:
+            st["sparsity"] += torch.stack(aux["sparsity"]).sum(dim=0)
         # the token after position pos sees pos + 1 context tokens: that is
         # the draw's counter, so a stream is a pure function of
         # (seed, position)
@@ -364,13 +414,200 @@ class DecodeEngine:
         st["tok"] = torch.where(act, nxt, st["tok"])
         return nxt
 
+    def _verify_impl(self, drafts, draft_len) -> torch.Tensor:
+        """The device side of one speculative step: feed every slot's window
+        [current token, draft_1..draft_k] through the read-only verify
+        forward, accept the longest draft prefix equal to the model's own
+        greedy argmax, and commit exactly the accepted rows' K/V — rejected
+        positions never touch a block or its summary. Position 0 reproduces
+        the single-token step (greedy slots take the same argmax, sampled
+        slots draw with the same (key, pos + 1) fold), so the emitted stream
+        equals non-speculative decode under any draft source. drafts [B, k],
+        draft_len [B] int32 (device). → packed [B, k+2] (on device): the
+        emitted tokens, then the per-slot emit count."""
+        st = self.state
+        B, k = drafts.shape
+        act = st["active"]
+        toks = torch.cat([st["tok"][:, None], drafts], dim=1)
+        cache = self._full_cache()
+        logits, staged = self.lm.verify(self.params, cache, toks, st["pos"],
+                                        block_tables=self._tbl_dev)
+        greedy = logits.float().argmax(dim=-1).to(torch.int32)   # [B, k+1]
+        all_greedy = bool(all(self.greedy_h[s] for s in self.slot_rid))
+        nxt0 = sample_tokens(logits[:, 0], st["temp"], st["top_k"],
+                             st["top_p"], st["key"], st["pos"] + 1,
+                             all_greedy=all_greedy)
+        is_greedy = st["temp"] <= 0.0
+        dmask = torch.arange(k, device=self.device)[None] \
+            < draft_len[:, None]
+        match = (drafts == greedy[:, :k]) & dmask & is_greedy[:, None]
+        # draft i is right iff it equals the greedy continuation given the
+        # positions before it, all accepted themselves (cumprod): the
+        # sequential decode induction
+        a = torch.cumprod(match.to(torch.int32), dim=1).sum(dim=1)
+        n_emit = torch.where(act, a + 1, torch.zeros_like(a)).to(torch.int32)
+        emit = torch.cat([nxt0[:, None], greedy[:, 1:]], dim=1)
+        new_tok = torch.where(
+            act, emit[torch.arange(B, device=self.device), a.long()],
+            st["tok"])
+        self.lm.verify_commit(cache, staged, st["pos"], n_emit,
+                              self._tbl_dev)
+        st["pos"] += n_emit
+        st["tok"] = new_tok
+        actf = act.float()
+        st["spec"] += torch.stack([
+            (actf * draft_len.float()).sum(), (actf * a.float()).sum(),
+            n_emit.sum().float(), torch.ones((), device=self.device)])
+        return torch.cat([emit, n_emit[:, None]], dim=1)
+
+    def take_sparsity_stats(self):
+        """Fetch and reset the device-side online-sparsity window and fold
+        it into stats (blocks_scored / blocks_attended / attn_mass_*,
+        layer-averaged — see serving/sparsity.py). → the layer-averaged [4]
+        numpy vector, or None when online sparsity is off. A host sync: call
+        at monitor ticks / run end, not per step."""
+        v = drain_accumulator(self.state, "sparsity")
+        if v is None:
+            return None
+        self.sparsity.note(self.stats, v)
+        return v / max(self.sparsity.plan.n_sparse_layers, 1)
+
+    def take_spec_stats(self):
+        """Fetch and reset the device-side speculation window ([drafted,
+        accepted, emitted, verify steps]) and fold it into stats. → the raw
+        [4] numpy vector, or None when speculation is off. A host sync: call
+        at monitor ticks / run end, not per step."""
+        v = drain_accumulator(self.state, "spec")
+        if v is None:
+            return None
+        SpecController.note(self.stats, v)
+        return v
+
     def step(self) -> dict:
-        """One batched decode step → {rid: next_token} for live slots.
+        """One batched decode step. Without speculation: {rid: next_token}
+        for live slots. With it: {rid: [tokens]} (≥ 1 each) — up to k drafts
+        per greedy slot go through the batched verify window instead of the
+        single-token step, still with exactly one device→host fetch.
         Requests whose allocation cannot grow are preempted into
         self.preempted (cache extracted for re-admission)."""
         if not self.slot_rid:
             return {}
-        return self._step_base()
+        if self.spec_ctl is None:
+            return self._step_base()
+        drafts_h, dlen_h = self._gather_drafts()
+        if not dlen_h.any():
+            # nothing to speculate: the single-token step is cheaper than a
+            # window of empty drafts
+            out = {rid: [t] for rid, t in self._step_base().items()}
+            for rid, ts in out.items():
+                self.spec_ctl.on_tokens(rid, ts)
+            return out
+        return self._step_spec(drafts_h, dlen_h)
+
+    def _gather_drafts(self):
+        """Host-side draft gather → (drafts [n_slots, k] int32, dlen
+        [n_slots] int32). Sampled slots and slots at the max_len wall draft
+        nothing (they ride the window as single-token rows); a draft is cut
+        so every candidate write position stays below max_len."""
+        k = self.spec_ctl.k
+        drafts = np.zeros((self.n_slots, k), np.int32)
+        dlen = np.zeros(self.n_slots, np.int32)
+        for slot, rid in self.slot_rid.items():
+            if not self.greedy_h[slot]:
+                continue
+            room = self.max_len - int(self.tokens_h[slot])
+            if room <= 0:
+                continue
+            d = self.spec_ctl.draft(rid)[:room]
+            if not d:
+                continue
+            drafts[slot, :len(d)] = d
+            dlen[slot] = len(d)
+        return drafts, dlen
+
+    def _step_spec(self, drafts_h, dlen_h) -> dict:
+        """One speculative verify step → {rid: [tokens]}."""
+        t0 = time.monotonic()
+        # pre-extend each drafting slot's allocation over its window's write
+        # positions; a slot that cannot grow (even after reclaim) degrades
+        # to a single-token row — never preempt here, the single-token row
+        # fits the blocks it already owns
+        touched = 0
+        for slot, rid in self.slot_rid.items():
+            cur = int(self.tokens_h[slot])
+            touched += self.pool.blocks_for(cur)
+            d = int(dlen_h[slot])
+            want = min(cur + d, self.max_len)
+            if d <= 0 or want <= cur:
+                continue
+            nb_used = self.pool.blocks_for(cur)
+            grown = self.pool.extend(rid, cur, want)
+            if grown is None and self.arena.reclaim(
+                    max(self.pool.blocks_for(want) - nb_used, 1)):
+                grown = self.pool.extend(rid, cur, want)
+            if grown is None:
+                drafts_h[slot] = 0
+                dlen_h[slot] = 0
+                continue
+            for b in grown:
+                self.tables_h[slot, nb_used] = b
+                nb_used += 1
+            if grown:
+                self._tbl_dirty = True
+                self.stats["blocks_fresh"] += len(grown)
+            self.tokens_h[slot] = want
+        self.stats["blocks_touched"] += touched
+        self._refresh_tables()
+        packed = self._verify_impl(
+            torch.from_numpy(drafts_h).to(self.device),
+            torch.from_numpy(dlen_h).to(self.device))
+        packed_np = packed.cpu().numpy()   # the single per-step host fetch
+        self.stats["host_fetches"] += 1
+        out = {}
+        ntok = 0
+        for slot, rid in list(self.slot_rid.items()):
+            n = int(packed_np[slot, -1])
+            toks = [int(t) for t in packed_np[slot, :n]]
+            out[rid] = toks
+            ntok += n
+            self.pos_h[slot] += n
+            if n:
+                self.tok_h[slot] = toks[-1]
+            covered = int(self.tokens_h[slot])
+            new_tokens = min(int(self.pos_h[slot]) + 1, self.max_len)
+            if new_tokens > covered:
+                # full accept: the next input token needs one position past
+                # the pre-extended window — the single-token grow path
+                nb_used = self.pool.blocks_for(covered)
+                grown = self.pool.extend(rid, covered, new_tokens)
+                if grown is None and self.arena.reclaim(1):
+                    grown = self.pool.extend(rid, covered, new_tokens)
+                if grown is None:
+                    self.stats["preemptions"] += 1
+                    self.preempted.append(self._preempt(rid))
+                    continue
+                for b in grown:
+                    self.tables_h[slot, nb_used] = b
+                    nb_used += 1
+                if grown:
+                    self._tbl_dirty = True
+                    self.stats["blocks_fresh"] += len(grown)
+            elif new_tokens < covered:
+                # rejected tail: hand the over-extended blocks back and zero
+                # their table entries. The masked commit never wrote them
+                # (rejected rows land in the null block), so they carry no
+                # new content and no summary goes stale: the rollback.
+                dropped = self.pool.shrink(rid, covered, new_tokens)
+                if dropped:
+                    nb_new = self.pool.blocks_for(new_tokens)
+                    self.tables_h[slot, nb_new:nb_new + len(dropped)] = 0
+                    self._tbl_dirty = True
+            self.tokens_h[slot] = new_tokens
+            self.spec_ctl.on_tokens(rid, toks)
+        self.stats["steps"] += 1
+        self.stats["tokens"] += ntok
+        self.stats["busy_s"] += time.monotonic() - t0
+        return out
 
     def _step_base(self) -> dict:
         t0 = time.monotonic()
@@ -428,6 +665,8 @@ class DecodeEngine:
         del self.slot_rid[slot]
         del self.rid_slot[rid]
         self._prompts.pop(rid, None)
+        if self.spec_ctl is not None:
+            self.spec_ctl.on_release(rid)
         self.state["active"][slot] = False
         # a stale temperature > 0 on a freed slot would keep the sampled
         # branch alive for rows nobody reads

@@ -16,11 +16,15 @@ zero-copy BlockHandoff) where the model allows it, and whole-prompt through
 the flash-prefill kernel otherwise — as for the default OmniAttn pattern
 (`pattern=None`), whose compressed layers keep a sink+recent ring. Decode KV
 is paged (`paged_kv=True`: shared arenas + per-slot ring block runs) or
-slot-dense (`paged_kv=False`, no arena).
+slot-dense (`paged_kv=False`, no arena). On paged KV, decode runs OmniAttn
+online top-k block selection when the model config sets a budget
+(cfg.omniattn.topk_*), or SpecPlane speculative decoding with
+`ServerConfig.spec` (a SpecConfig; the two do not compose); their
+device-side stats are drained into the metrics every STAT_DRAIN_ROUNDS
+decode rounds and at the end of `run`.
 
-Options of later slices (speculative decoding, int8 KV, fault injection and
-recovery, MoE placement, chunked prefill over ring layers) raise
-NotImplementedError.
+Options of later slices (int8 KV, fault injection and recovery, MoE
+placement, chunked prefill over ring layers) raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -39,6 +43,11 @@ from repro_torch.serving.arena import BlockHandoff, KVArena
 from repro_torch.serving.decode import DecodeEngine
 from repro_torch.serving.placement import DevicePlacement
 from repro_torch.serving.prefill import PrefillEngine
+from repro_torch.serving.spec import SpecConfig
+
+# decode rounds between drains of the engines' device-side sparsity and
+# speculation windows (a host sync each; the reference's monitor interval)
+STAT_DRAIN_ROUNDS = 16
 
 
 @dataclass
@@ -60,16 +69,18 @@ class ServerConfig:
     kv_block_size: int = 16           # tokens per KV block
     idle_sleep_s: float = 0.01        # max per-iteration sleep while run()
                                       # waits for a future arrival
+    spec: Optional[SpecConfig] = None  # model-free speculative decoding
     # options of later slices: setting any of them raises
-    spec: Optional[object] = None     # speculative decoding
     quant: Optional[object] = None    # int8 KV arenas
     watchdog_steps: Optional[int] = None    # FaultPlane recovery
     watchdog_wall_s: Optional[float] = None
     admission_queue_cap: Optional[int] = None
 
     def check_supported(self):
-        later = {"spec": self.spec is not None,
-                 "quant": self.quant is not None,
+        if self.spec is not None and not isinstance(self.spec, SpecConfig):
+            raise TypeError(f"ServerConfig.spec takes a SpecConfig, got "
+                            f"{type(self.spec).__name__}")
+        later = {"quant": self.quant is not None,
                  "watchdog / admission_queue_cap":
                  self.watchdog_steps is not None
                  or self.watchdog_wall_s is not None
@@ -128,7 +139,10 @@ class Server:
                                      scfg.max_len, arena=self.kv_arena,
                                      kv_blocks=scfg.kv_blocks,
                                      block_size=scfg.kv_block_size,
-                                     placement=self.placement)
+                                     placement=self.placement,
+                                     spec=scfg.spec,
+                                     spec_radix=self.proxy.trees[0]
+                                     if self.proxy.trees else None)
                         for _ in range(scfg.n_decode)]
         # rid → (handoff or B=1 cache, next_token, pos, cached_tokens,
         # prompt, params) awaiting decode admission
@@ -333,7 +347,14 @@ class Server:
                     eng.release(rid)             # done or re-routed elsewhere
                     finished.add(rid)
                     continue
-                reason = self._note_token(req, tok)
+                # a speculating engine emits a list per slot (≥ 1 token per
+                # verify step): note them in order and stop at the first
+                # finish reason, exactly as if decoded one at a time
+                reason = None
+                for t in (tok if isinstance(tok, list) else (tok,)):
+                    reason = self._note_token(req, t)
+                    if reason:
+                        break
                 if reason:
                     finished.add(rid)
                     eng.release(rid)
@@ -350,6 +371,20 @@ class Server:
                 self.proxy.on_decode_preempt(req, now)
             eng.preempted.clear()
         self._step_count += 1
+        if self._step_count % STAT_DRAIN_ROUNDS == 0:
+            self.drain_decode_stats()
+
+    def drain_decode_stats(self):
+        """Fold the decode engines' device-side online-sparsity and
+        speculation windows into the metrics (one host sync per engine with
+        either on; none otherwise). `step` calls it every
+        STAT_DRAIN_ROUNDS decode rounds and `run` at its end; a caller
+        driving `generate` calls it once the stream ends."""
+        for eng in self.decodes:
+            if eng.sparsity is not None:
+                self.metrics.note_sparsity(*eng.take_sparsity_stats())
+            if eng.spec_ctl is not None:
+                self.metrics.note_spec(*eng.take_spec_stats())
 
     # ------------------------------------------------------------------
     def run(self, requests: list, max_wall_s: float = 300.0,
@@ -385,6 +420,7 @@ class Server:
                     continue
             self.step(now)
         wall = time.monotonic() - t_start
+        self.drain_decode_stats()
         summary = self.metrics.summary(wall)
         summary["wall_s"] = wall
         summary["idle_slept_s"] = self._idle_slept_s

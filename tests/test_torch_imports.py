@@ -60,3 +60,18 @@ def test_no_jax_or_repro_import_in_source(path):
             top = n.split(".")[0]
             assert top not in ("jax", "jaxlib", "repro"), \
                 f"{path.name}:{node.lineno} imports {n}"
+
+
+def test_every_slice_module_is_checked():
+    """The import check above walks the package; the modules of each slice
+    (paged serving, the OmniAttn ring path, online top-k and SpecPlane)
+    are among the ones it loads."""
+    mods = set(_modules())
+    for m in ("repro_torch.kernels.paged_decode",
+              "repro_torch.kernels.sink_decode",
+              "repro_torch.kernels.block_topk",
+              "repro_torch.kernels.spec_verify",
+              "repro_torch.serving.sparsity", "repro_torch.serving.spec",
+              "repro_torch.core.omniattn.fidelity",
+              "repro_torch.core.omniattn.search"):
+        assert m in mods, m

@@ -6,20 +6,25 @@ on a GPU machine without them:
 
     PYTHONPATH=src python -m pytest --noconftest -o markers=gpu -q tests/test_torch_kernels_gpu.py
 
-Tolerances: float32 1e-4 for the paged kernels and 2e-5 for flash_prefill
-and sink_decode (the same math, sums in another order), bfloat16 2e-2 (one
-bf16 rounding of the output).
+Tolerances: float32 1e-4 for the paged kernels (spec_verify among them)
+and 2e-5 for flash_prefill and sink_decode (the same math, sums in another
+order), bfloat16 2e-2 (one bf16 rounding of the output); block_topk scores
+are float32 in both dtypes, 1e-5 relative and 1e-4 absolute (sums of h
+products in another order), with NEG_INF entries equal exactly.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.block_topk import (block_topk_scores,
+                                            block_topk_scores_plain)
 from repro_torch.kernels.flash_prefill import (flash_prefill,
                                                flash_prefill_plain)
 from repro_torch.kernels.paged_decode import paged_decode, paged_decode_plain
 from repro_torch.kernels.paged_prefill import (paged_prefill,
                                                paged_prefill_plain)
 from repro_torch.kernels.sink_decode import sink_decode, sink_decode_plain
+from repro_torch.kernels.spec_verify import spec_verify, spec_verify_plain
 
 torch.set_num_threads(2)
 
@@ -143,6 +148,73 @@ def test_sink_decode_kernel_matches_plain(cuda, dtype, W, G, h):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bs,nb,G,h", [(8, 4, 1, 32), (16, 3, 3, 32),
+                                       (8, 8, 3, 64), (16, 256, 6, 128)])
+def test_block_topk_kernel_matches_plain(cuda, dtype, bs, nb, G, h):
+    """Lens covering one block, a mid-block tail and full residency, with a
+    poisoned null block behind the non-resident entries; NEG_INF entries
+    equal exactly."""
+    rng = np.random.default_rng(bs + nb + G + h)
+    B, K, N = 3, 2, 3 * nb + 1
+    q = _rand(rng, (B, K, G, h), dtype, cuda)
+    kmin = _rand(rng, (N, K, h), torch.float32, cuda)
+    kmax = kmin + _rand(rng, (N, K, h), torch.float32, cuda).relu()
+    kmin[0] = kmax[0] = 1e4
+    tables = torch.from_numpy(rng.permutation(np.arange(1, N))[:B * nb]
+                              .reshape(B, nb).astype(np.int32)).to(cuda)
+    tables[0, 1:] = 0
+    lens = torch.tensor([1, nb * bs - bs // 2, nb * bs], dtype=torch.int32,
+                        device=cuda)
+    n0 = block_topk_scores.launches
+    got = block_topk_scores(q, kmin, kmax, tables, lens, block_size=bs)
+    assert block_topk_scores.launches == n0 + 1
+    torch.cuda.synchronize()
+    want = block_topk_scores_plain(q, kmin, kmax, tables, lens,
+                                   block_size=bs)
+    neg = want == -1e30
+    assert torch.equal(got[neg], want[neg]) and not (got[~neg] == -1e30).any()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bs,S,G,h,nb", [(8, 4, 1, 32, 4), (16, 5, 4, 32, 4),
+                                         (8, 2, 4, 64, 4),
+                                         (16, 5, 6, 128, 20),
+                                         (16, 9, 6, 128, 4)])  # 2 CTAs
+def test_spec_verify_kernel_matches_plain(cuda, dtype, bs, S, G, h, nb):
+    """Per-slot offsets covering an empty, a mid-block and a fully resident
+    history, a poisoned null block past the residency, padded window rows
+    (compared on real rows; finite everywhere)."""
+    rng = np.random.default_rng(bs * S + G + h)
+    B, K = 3, 2
+    N = B * nb + 1
+    q = _rand(rng, (B, K, S * G, h), dtype, cuda)
+    kn = _rand(rng, (B, K, S, h), dtype, cuda)
+    vn = _rand(rng, (B, K, S, h), dtype, cuda)
+    kp = _rand(rng, (N, K, bs, h), dtype, cuda)
+    vp = _rand(rng, (N, K, bs, h), dtype, cuda)
+    kp[0] = vp[0] = 1e4
+    tables = torch.from_numpy(rng.permutation(np.arange(1, N)).reshape(
+        B, nb).astype(np.int32)).to(cuda)
+    tables[1, 2:] = 0
+    off = torch.tensor([0, bs + bs // 2 - 1, nb * bs], dtype=torch.int32,
+                       device=cuda)
+    cl = torch.tensor([S, max(S - 2, 1), 1], dtype=torch.int32, device=cuda)
+    n0 = spec_verify.launches
+    got = spec_verify(q, kn, vn, kp, vp, tables, off, cl)
+    assert spec_verify.launches == n0 + 1 and got.dtype == dtype
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    want = spec_verify_plain(q, kn, vn, kp, vp, tables, off, cl)
+    for b in range(B):
+        real = int(cl[b]) * G
+        torch.testing.assert_close(got[b, :, :real].float(),
+                                   want[b, :, :real].float(), **TOL[dtype])
+
+
+@pytest.mark.gpu
 def test_kernel_rejects_unsupported_inputs(cuda):
     q = torch.zeros((1, 1, 2, 48), device=cuda)       # h=48: no kernel
     kp = torch.zeros((2, 1, 8, 48), device=cuda)
@@ -162,3 +234,17 @@ def test_kernel_rejects_unsupported_inputs(cuda):
         c = torch.zeros((1, 1, 32, 8), device=cuda).transpose(2, 3)
         sink_decode(torch.zeros((1, 1, 2, 32), device=cuda), c, c,
                     torch.ones(1, dtype=torch.int32, device=cuda))
+    with pytest.raises(TypeError):                    # bf16 summaries
+        block_topk_scores(torch.zeros((1, 1, 2, 32), device=cuda),
+                          torch.zeros((2, 1, 32), device=cuda,
+                                      dtype=torch.bfloat16),
+                          torch.zeros((2, 1, 32), device=cuda,
+                                      dtype=torch.bfloat16),
+                          tb, torch.ones(1, dtype=torch.int32, device=cuda),
+                          block_size=8)
+    with pytest.raises(ValueError):                   # window rows % S
+        spec_verify(torch.zeros((1, 1, 7, 32), device=cuda),
+                    torch.zeros((1, 1, 2, 32), device=cuda),
+                    torch.zeros((1, 1, 2, 32), device=cuda),
+                    torch.zeros((2, 1, 8, 32), device=cuda),
+                    torch.zeros((2, 1, 8, 32), device=cuda), tb, 0, 2)

@@ -108,7 +108,7 @@ def test_paged_prefill_and_decode_logits_match(models, chunk, bs):
     for _ in range(4):
         jcache, jl = jdecode(params, jcache, jnp.asarray([[tok]], jnp.int32),
                              jnp.asarray([[cur]], jnp.int32), tbl_j)
-        tcache, tl = tlm.decode(tparams, tcache,
+        tcache, tl, _ = tlm.decode(tparams, tcache,
                                 torch.tensor([[tok]], dtype=torch.int32),
                                 torch.tensor([[cur]], dtype=torch.int32),
                                 block_tables=tbl_t)
@@ -133,9 +133,12 @@ def test_unsupported_configs_raise():
         lm.prefill_resume(lm.init(0), torch.zeros((1, 8), dtype=torch.int32),
                           tstack.alloc_prefill_private_cache(
                               tcfg, lm.plan, 64, "cpu"))
+    # online top-k builds (it is served on paged KV), SSM layers do not
+    TLM.build(tcfg.with_updates(omniattn_topk_blocks=2), pattern=[0, 0],
+              device="cpu")
     with pytest.raises(NotImplementedError):
-        TLM.build(tcfg.with_updates(omniattn_topk_blocks=2), pattern=[0, 0],
-                  device="cpu")
+        TLM.build(tcfg.with_updates(omniattn_topk_blocks=2, attn_period=2),
+                  pattern=[0, 0], device="cpu")
     from repro_torch.configs import get_config
     with pytest.raises(NotImplementedError):
         get_config("qwen2-moe-a2.7b")

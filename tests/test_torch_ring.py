@@ -136,7 +136,7 @@ def test_prefill_then_decode_logits_match(models, n):
     for _ in range(4):
         jcache, jl = jdecode(params, jcache, jnp.asarray([[tok]], jnp.int32),
                              jnp.asarray([[pos]], jnp.int32))
-        tcache, tl = tlm.decode(tparams, tcache,
+        tcache, tl, _ = tlm.decode(tparams, tcache,
                                 torch.tensor([[tok]], dtype=torch.int32),
                                 torch.tensor([[pos]], dtype=torch.int32))
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
@@ -197,7 +197,7 @@ def test_paged_decode_over_rings_matches(models):
     for _ in range(4):
         jcache, jl = jdecode(params, jcache, jnp.asarray(toks),
                              jnp.asarray(pos), jnp.asarray(rows))
-        tcache, tl = tlm.decode(tparams, tcache, torch.from_numpy(toks),
+        tcache, tl, _ = tlm.decode(tparams, tcache, torch.from_numpy(toks),
                                 torch.from_numpy(pos),
                                 block_tables=torch.from_numpy(rows))
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)

@@ -18,6 +18,7 @@ from repro_torch.core.proxy import SamplingParams as TSamplingParams
 from repro_torch.serving import Server as TServer
 from repro_torch.serving import ServerConfig as TServerConfig
 from repro_torch.serving.kvpool import KVPool as TKVPool
+from repro_torch.serving.spec import SpecConfig as TSpecConfig
 
 torch.set_num_threads(2)
 
@@ -182,9 +183,21 @@ def test_kvpool_replay_matches_reference():
 
 def test_later_slice_options_raise():
     tcfg = t_reduced_config("qwen2-1.5b").with_updates(n_layers=2)
-    for kw in (dict(spec=object()), dict(quant=object())):
-        with pytest.raises(NotImplementedError):
-            TServer(tcfg, TServerConfig(**kw), pattern=[0, 0], device="cpu")
+    with pytest.raises(NotImplementedError):
+        TServer(tcfg, TServerConfig(quant=object()), pattern=[0, 0],
+                device="cpu")
+    # speculation and online top-k serve on paged KV only (the reference
+    # refuses speculation on the slot-dense layout too)
+    dense = dict(paged_kv=False, chunked_prefill=False)
+    with pytest.raises(ValueError):
+        TServer(tcfg, TServerConfig(spec=TSpecConfig(k=2), **dense),
+                pattern=[0, 0], device="cpu")
+    with pytest.raises(NotImplementedError):
+        TServer(tcfg.with_updates(omniattn_topk_blocks=2),
+                TServerConfig(**dense), pattern=[0, 0], device="cpu")
+    with pytest.raises(TypeError):
+        TServer(tcfg, TServerConfig(spec=object()), pattern=[0, 0],
+                device="cpu")
     with pytest.raises(NotImplementedError):
         TServer(tcfg, TServerConfig(), pattern=[0, 0], device="cpu",
                 faults=object())
