@@ -1,14 +1,17 @@
 """Where the time goes: the port's serving main path under torch.profiler.
 
-    python3 chip_profile.py
+    python3 chip_profile.py [CELL ...]
 
-Builds the kernels and serves full-width qwen2-1.5b (float32) in the
-configurations of chip_smoke.py: phase 3 (28 full-attention layers, chunked
-paged prefill, the shared-prefix workload), phase 5 (the default OmniAttn
-pattern, whole-prompt prefill, the long-prompt workload) in both KV layouts,
-and phase 6 (28 full layers, six 3,968-token prompts) with online top-k off
-and at topk_frac 0.25 — `paged_decode` per call over the full 256-wide table
-against the compacted one.
+Builds the kernels and serves, in the configurations of chip_smoke.py, the
+cells named (all of them by default): `all-full` (phase 3: full-width
+qwen2-1.5b, float32, 28 full-attention layers, chunked paged prefill, the
+shared-prefix workload), `default-pattern` (phase 5: the default OmniAttn
+pattern, whole-prompt prefill, the long-prompt workload) in both KV
+layouts, `topk` (phase 6: 28 full layers, six 3,968-token prompts) with
+online top-k off and at topk_frac 0.25 — `paged_decode` per call over the
+full 256-wide table against the compacted one — and `moe-full` (phase 8:
+full-width qwen2-moe-a2.7b, float32, the shared-prefix workload with 16 new
+tokens each, OmniPlacement's monitor every 4 decode rounds).
 Each runs its workload three times: a warm-up, a measured run without the
 profiler (TTFT, TPOT, tokens/s, per-engine host time), and a run under
 torch.profiler (device time by kernel, device busy and idle share). Needs
@@ -17,6 +20,7 @@ chiprun_out/chip_profile.json.
 """
 from __future__ import annotations
 
+import gc
 import json
 import sys
 import time
@@ -26,7 +30,11 @@ import torch
 
 import chip_smoke as cs
 
-CATEGORIES = (("paged_prefill", ("paged_prefill_kernel",)),
+CELLS = ("all-full", "default-pattern", "topk", "moe-full")
+KERNELS = ("paged_decode", "paged_prefill", "block_topk", "spec_verify",
+           "flash_prefill", "sink_decode", "moe_gmm")
+CATEGORIES = (("moe_gmm", ("moe_gmm_kernel",)),
+              ("paged_prefill", ("paged_prefill_kernel",)),
               ("paged_decode", ("paged_decode_kernel",)),
               ("block_topk", ("block_topk_kernel",)),
               ("spec_verify", ("spec_verify_kernel",)),
@@ -96,8 +104,7 @@ def profile(srv, workload, smi: str, label: str) -> dict:
     per_call = {}
     for name, (t, c) in by_name.items():
         cat = category(name)
-        if cat in ("paged_decode", "paged_prefill", "block_topk",
-                   "spec_verify", "flash_prefill", "sink_decode"):
+        if cat in KERNELS:
             tot = per_call.setdefault(cat, [0.0, 0])
             tot[0] += t
             tot[1] += c
@@ -145,39 +152,74 @@ def main() -> int:
     build.build_all()
     cfg = cs.full_width_config()
     rep = {"gpu": smi, "torch": torch.__version__}
+    cells = sys.argv[1:] or list(CELLS)
+    unknown = set(cells) - set(CELLS)
+    if unknown:
+        print(f"chip_profile: unknown cells {sorted(unknown)}; known: "
+              f"{CELLS}", file=sys.stderr)
+        return 2
 
-    def shared_prefix(seed):
-        prompts, _ = cs.workload(cfg.vocab_size, seed=seed)
-        return prompts, [SamplingParams(max_tokens=4)] * len(prompts)
+    weights = None
+    if "all-full" in cells:
+        def shared_prefix(seed):
+            prompts, _ = cs.workload(cfg.vocab_size, seed=seed)
+            return prompts, [SamplingParams(max_tokens=4)] * len(prompts)
 
-    srv = cs.build_server(cfg, True, dev)
-    rep.update(profile(srv, shared_prefix, smi, "all-full, chunked paged"))
-    weights = srv.params
-    del srv
-    torch.cuda.empty_cache()
-
-    def long_prompts(seed):
-        return cs.default_pattern_workload(cfg.vocab_size, seed=20 + seed)
-
-    rep["default_pattern"] = {}
-    for paged in (True, False):
-        name = "paged" if paged else "dense"
-        srv = cs.build_default_server(cfg, paged, dev, params=weights)
-        rep["default_pattern"][name] = profile(
-            srv, long_prompts, smi, f"pattern=None, {name} KV")
+        srv = cs.build_server(cfg, True, dev)
+        rep.update(profile(srv, shared_prefix, smi,
+                           "all-full, chunked paged"))
+        weights = srv.params
         del srv
         torch.cuda.empty_cache()
 
-    def topk_prompts(seed):
-        return cs.topk_workload(cfg.vocab_size, seed=30 + seed)
+    if "default-pattern" in cells:
+        def long_prompts(seed):
+            return cs.default_pattern_workload(cfg.vocab_size,
+                                               seed=20 + seed)
 
-    rep["topk"] = {}
-    for name, topk in (("off", {}), ("frac_0.25", dict(
-            omniattn_topk_frac=0.25, omniattn_topk_sink_blocks=1,
-            omniattn_topk_recent_blocks=2))):
-        srv = cs.build_topk_server(cfg, dev, params=weights, **topk)
-        rep["topk"][name] = profile(srv, topk_prompts, smi,
-                                    f"online top-k {name}, 28 full layers")
+        rep["default_pattern"] = {}
+        for paged in (True, False):
+            name = "paged" if paged else "dense"
+            srv = cs.build_default_server(cfg, paged, dev, params=weights)
+            weights = srv.params
+            rep["default_pattern"][name] = profile(
+                srv, long_prompts, smi, f"pattern=None, {name} KV")
+            del srv
+            torch.cuda.empty_cache()
+
+    if "topk" in cells:
+        def topk_prompts(seed):
+            return cs.topk_workload(cfg.vocab_size, seed=30 + seed)
+
+        rep["topk"] = {}
+        for name, topk in (("off", {}), ("frac_0.25", dict(
+                omniattn_topk_frac=0.25, omniattn_topk_sink_blocks=1,
+                omniattn_topk_recent_blocks=2))):
+            srv = cs.build_topk_server(cfg, dev, params=weights, **topk)
+            weights = srv.params
+            rep["topk"][name] = profile(srv, topk_prompts, smi,
+                                        f"online top-k {name}, 28 full "
+                                        f"layers")
+            del srv
+            torch.cuda.empty_cache()
+
+    if "moe-full" in cells:
+        del weights
+        gc.collect()
+        torch.cuda.empty_cache()
+        mcfg = cs.moe_full_config()
+
+        def moe_traffic(seed):
+            prompts, _ = cs.workload(mcfg.vocab_size, seed=seed)
+            return prompts, [SamplingParams(max_tokens=cs.P8_NEW)] * len(
+                prompts)
+
+        srv = cs.build_server(mcfg, True, dev, enable_placement=True,
+                              placement_interval=4)
+        rep["moe_full"] = profile(srv, moe_traffic, smi,
+                                  "moe-full, qwen2-moe-a2.7b")
+        rep["moe_full"]["peak_mem_gb"] = \
+            torch.cuda.max_memory_allocated() / 1e9
         del srv
         torch.cuda.empty_cache()
     cs.OUT_DIR.mkdir(exist_ok=True)

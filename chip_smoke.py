@@ -3,13 +3,14 @@
     python3 chip_smoke.py
 
 Phases (any failure raises, so the script exits non-zero):
-  1. build the port's six CUDA kernels from src/repro_torch/kernels/csrc,
+  1. build the port's seven CUDA kernels from src/repro_torch/kernels/csrc,
      one nvcc per source, all at once;
   2. hold each kernel against its plain PyTorch version on the card, at the
      reference sweep shapes and at the full-width main-path shapes, in
-     float32 and bfloat16, and time kernel, plain version and one
-     `scaled_dot_product_attention` call on the same data (`library_ms`, a
-     yardstick only: the port never calls it; block_topk has none);
+     float32 and bfloat16, and time kernel, plain version and one library
+     call on the same data (`library_ms`, a yardstick only: the port never
+     calls it — `scaled_dot_product_attention` for the attention kernels,
+     `torch.bmm` over every slot for moe_gmm; block_topk has none);
   3. serve the bench's shared-prefix workload on full-width qwen2-1.5b
      (28 layers, float32, every layer full attention) through
      `Server.generate`, with the launch counters zeroed just before and
@@ -38,13 +39,26 @@ Phases (any failure raises, so the script exits non-zero):
   7. serve full-width qwen2-1.5b with SpecPlane speculative decoding (k=4)
      and without, on repeated-phrase prompts plus one sampled request;
      check streams equal across the two runs, spec_verify launches ==
-     verify steps x 28, one host fetch per step, invariants.
+     verify steps x 28, one host fetch per step, invariants;
+  8. once the earlier phases' servers are freed, serve full-width
+     qwen2-moe-a2.7b (24 MoE layers: 60 routed experts top-4 + 4 shared,
+     float32, ~57 GB of weights) with phase 3's server knobs and traffic
+     (16 new tokens each) and OmniPlacement's monitor every 4 decode
+     rounds: (a) through `Server.generate`, checking completion, one host
+     fetch per step, pool invariants, launches (moe_gmm == 3 x 24 x
+     (chunks + steps)), >= 4 placement ticks whose drained counts each sum
+     to top_k x 24 x the decode tokens since the last, and no rebalance at
+     ep = 1; (b) the same traffic through add_request/step with a forced
+     migration that reverses the slot order halfway through decode: every
+     greedy stream equal to (a)'s bit for bit; (c) layer 0's moe_ffn on a
+     real prefill chunk's hidden states against the dense oracle.
 The last line of standard output is {"ok": true, "device": {...}}; the line
 before it is the per-kernel JSON record; the card's name and power limit
 (nvidia-smi) come before that. Details go to chiprun_out/chip_smoke.json.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -63,7 +77,8 @@ REPLACES = {"paged_decode": "src/repro/kernels/paged_decode.py:99",
             "flash_prefill": "src/repro/kernels/flash_prefill.py:73",
             "sink_decode": "src/repro/kernels/sink_decode.py:63",
             "spec_verify": "src/repro/kernels/spec_verify.py:123",
-            "block_topk": "src/repro/kernels/block_topk.py:73"}
+            "block_topk": "src/repro/kernels/block_topk.py:73",
+            "moe_gmm": "src/repro/kernels/moe_gmm.py:49"}
 HBM_BYTES_S = 3.35e12                        # H100 SXM HBM3
 PEAK_FLOPS = {torch.float32: 67e12,          # float32 outside tensor cores
               torch.bfloat16: 989e12}        # bf16 tensor cores, dense
@@ -89,6 +104,12 @@ TOPK_MAIN = (256, [3968, 3970, 3972, 3975, 3978, 3980])
 SPEC_MAIN = (32, [256, 262, 270, 281, 295, 304])
 SPEC_LONG = (256, [3990, 3995, 4000, 4003, 4007, 4010])
 P7_PHRASE, P7_REPEAT, P7_NEW, P7_K = 32, 8, 48, 4
+# phase 8 (full-width qwen2-moe-a2.7b, 60 experts top-4, d_ff_expert 1408):
+# moe_gmm's (capacity C, D, F, tokens) at decode (6 slots: capacity 8) for
+# w1/w3 and for w2, and for a 128-token prefill chunk (capacity 24)
+MOE_DECODE, MOE_DECODE_W2 = (8, 2048, 1408, 6), (8, 1408, 2048, 6)
+MOE_PREFILL = (24, 2048, 1408, 128)
+P8_NEW, P8_LAYERS = 16, 24
 
 def nvidia_smi() -> str:
     res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -315,6 +336,26 @@ def check_kernels(dev, timer, log):
                 "library_ms": timer(lib),
                 "bound_ms": bnd[0], "bound_by": bnd[1],
                 "bytes": bnd[2], "flops": bnd[3]}
+        # phase 8's attention shape (qwen2-moe-a2.7b: K=16, G=1, h=128)
+        mdec = decode_inputs(dev, dtype, 6, 16, 1, 128, 16, 32, 321,
+                             [1, 17, 100, 255, 448, 512], 12)
+        mpre = prefill_inputs(dev, dtype, 1, 16, 128, 1, 128, 16, 32, 321,
+                              [384], [128], 13)
+        for name, kern, plain, args, bnd, lib in (
+                ("paged_decode", paged_decode, paged_decode_plain, mdec,
+                 decode_bound(mdec[0], mdec[1], mdec[3], mdec[4]),
+                 sdpa_decode(*mdec)),
+                ("paged_prefill", paged_prefill, paged_prefill_plain, mpre,
+                 prefill_bound(mpre[0], mpre[1], mpre[3], mpre[5], mpre[6],
+                               mpre[7]), sdpa_prefill(*mpre))):
+            err = cmp(f"{name} moe shape", kern(*args), plain(*args), dtype)
+            rec[name][f"{dn}_moe"] = {
+                "max_abs_err": err, "ms": timer(lambda: kern(*args)),
+                "plain_ms": timer(lambda: plain(*args)),
+                "library_ms": timer(lib), "bound_ms": bnd[0],
+                "bound_by": bnd[1], "bytes": bnd[2], "flops": bnd[3]}
+            log.append(f"{name} {dn} moe shape K=16 G=1 h=128 "
+                       f"max_abs_err={err:.3g}")
         # paged_decode over phase 5's ring block runs (264-block tables)
         nbr, lens_r = RING_MAIN
         ring = decode_inputs(dev, dtype, 6, 2, 6, 128, 16, nbr, 6 * nbr + 1,
@@ -627,6 +668,94 @@ def check_dense_kernels(dev, timer, log):
     return rec
 
 
+def moe_gmm_inputs(dev, dtype, S, C, D, F, n_tok, k, seed):
+    """The slot buffer one MoE product of the main path sees: n_tok tokens
+    routed to k distinct experts each over S slots, the capacity C cutting
+    each slot's valid rows; rows past n_valid are zero, as dispatch leaves
+    them. Weights at the model's init scale (std 0.02)."""
+    rng = np.random.default_rng(seed)
+    nv = np.zeros(S, np.int64)
+    for _ in range(n_tok):
+        nv[rng.choice(S, k, replace=False)] += 1
+    nv = np.minimum(nv, C)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n_valid = torch.tensor(nv, dtype=torch.int32, device=dev)
+    rows = torch.arange(C, device=dev)[None, :, None] \
+        < n_valid.long()[:, None, None]
+    x = (torch.randn((S, C, D), generator=g, device=dev) * rows).to(dtype)
+    w = (torch.randn((S, D, F), generator=g, device=dev) * 0.02).to(dtype)
+    return x, w, n_valid
+
+
+def moe_gmm_bound(x, w, n_valid):
+    """Bytes and operations of one moe_gmm call: the weights of every slot
+    with a valid row, the valid rows of x (the rows at or past n_valid are
+    never read), the whole output (written, zeros included) and n_valid,
+    once each; 2 operations per (valid row, D, F)."""
+    S, C, D = x.shape
+    F = w.shape[2]
+    nv = n_valid.cpu().numpy().astype(np.int64)
+    e = x.element_size()
+    nbytes = (int((nv > 0).sum()) * D * F * e + int(nv.sum()) * D * e
+              + S * C * F * e + 4 * S)
+    return bound(nbytes, 2 * int(nv.sum()) * D * F, x.dtype)
+
+
+def check_moe_kernels(dev, timer, log):
+    """moe_gmm against its plain version: the reference sweep
+    (tests/test_kernels.py:334-355) with the n_valid edges 0 and C, then
+    the full-width shapes of phase 8 — decode (6 tokens x top-4 over 60
+    slots, capacity 8) for w1/w3 and w2, and a 128-token prefill chunk
+    (capacity 24) — timed beside the plain version, one torch.bmm over all
+    slots (the library yardstick; the port never calls it) and the bound."""
+    from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_plain
+    rec = {"moe_gmm": {}}
+
+    def cmp(name, x, w, nv, dtype):
+        got = moe_gmm(x, w, nv)
+        torch.cuda.synchronize()
+        want = moe_gmm_plain(x, w, nv)
+        if not torch.isfinite(got.float()).all():
+            raise AssertionError(f"{name}: non-finite kernel output")
+        for s_, n in enumerate(nv.cpu().tolist()):
+            if got[s_, n:].any():
+                raise AssertionError(f"{name}: rows past n_valid not zero")
+        torch.testing.assert_close(got.float(), want.float(), **TOL[dtype],
+                                   msg=name)
+        return float((got.float() - want.float()).abs().max())
+
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        worst = 0.0
+        for i, (S, C, D, F) in enumerate(((2, 32, 64, 48), (4, 64, 128, 96),
+                                          (1, 16, 32, 32), (3, 40, 50, 130))):
+            x, w, nv = moe_gmm_inputs(dev, dtype, S, C, D, F, C, 1, 20 + i)
+            nv[0] = 0
+            nv[-1] = C
+            worst = max(worst, cmp("moe_gmm sweep", x, w, nv, dtype))
+        log.append(f"moe_gmm {dn} sweep (reference shapes + C=40 D=50 "
+                   f"F=130, n_valid 0 and C): max_abs_err={worst:.3g}")
+        for key, (C, D, F, n_tok) in (
+                ("", MOE_DECODE), ("_w2", MOE_DECODE_W2),
+                ("_prefill", MOE_PREFILL)):
+            x, w, nv = moe_gmm_inputs(dev, dtype, 60, C, D, F, n_tok, 4,
+                                      30 + len(key))
+            err = cmp(f"moe_gmm main{key}", x, w, nv, dtype)
+            mb = moe_gmm_bound(x, w, nv)
+            log.append(f"moe_gmm {dn} main{key} x [60, {C}, {D}] w [60, {D},"
+                       f" {F}], {int((nv > 0).sum())} live slots, "
+                       f"{int(nv.sum())} rows: max_abs_err={err:.3g}")
+            rec["moe_gmm"][dn + key] = {
+                "max_abs_err": err, "ms": timer(lambda: moe_gmm(x, w, nv)),
+                "plain_ms": timer(lambda: moe_gmm_plain(x, w, nv)),
+                "library_ms": timer(lambda: torch.bmm(x, w)),
+                "bound_ms": mb[0], "bound_by": mb[1], "bytes": mb[2],
+                "flops": mb[3], "live_slots": int((nv > 0).sum()),
+                "valid_rows": int(nv.sum())}
+            del x, w
+    return rec
+
+
 # ---- phase 3: full-width serving -------------------------------------
 def workload(vocab, n=12, seed=7):
     """benchmarks/bench_serving.py::_workload: two of three prompts carry a
@@ -644,13 +773,14 @@ def workload(vocab, n=12, seed=7):
     return out, base
 
 
-def build_server(cfg, reuse, dev, params=None, spec=None):
+def build_server(cfg, reuse, dev, params=None, spec=None, **placement):
     from repro_torch.core.proxy import OASConfig
     from repro_torch.serving import Server, ServerConfig
     scfg = ServerConfig(n_prefill=1, n_decode=1, decode_slots=6, max_len=512,
                         chunk_tokens=128, prefill_tick_budget=512,
                         prefix_reuse=reuse, kv_blocks=320, kv_block_size=16,
-                        oas=OASConfig(defer_window=0.0), spec=spec)
+                        oas=OASConfig(defer_window=0.0), spec=spec,
+                        **placement)
     return Server(cfg, scfg, pattern=[0] * cfg.n_layers, params=params,
                   seed=0, device=dev)
 
@@ -665,7 +795,7 @@ def reset_stats(srv):
     for e in srv.decodes:
         for k in e.stats:
             e.stats[k] = 0.0 if k == "busy_s" else 0
-        for k in ("sparsity", "spec"):      # device-side stat windows
+        for k in ("sparsity", "spec", "moe_counts"):  # device-side windows
             if k in e.state:
                 e.state[k].zero_()
 
@@ -806,8 +936,9 @@ def top2_margin(srv, prompt, stream, i):
     S = min(1 << (len(ctx) - 1).bit_length(), srv.scfg.max_len)
     toks = torch.tensor([ctx + [0] * (S - len(ctx))], dtype=torch.int32,
                         device=srv.lm.device)
-    _, logits = srv.lm.prefill(srv.params, toks, max_len=srv.scfg.max_len,
-                               true_len=len(ctx))
+    _, logits, _ = srv.lm.prefill(srv.params, toks,
+                                  max_len=srv.scfg.max_len,
+                                  true_len=len(ctx))
     top = torch.topk(logits[0].float(), 2).values
     return float(top[0] - top[1])
 
@@ -930,8 +1061,9 @@ def cross_check_reduced(dev, log):
         arena = alloc_arena_kv(cfg, lm.plan, 12, 16, d)
         cache = {"layers": arena, "pos": 0}
         tb = torch.from_numpy(row).to(d)
-        cache, l1 = lm.prefill_resume(p, torch.from_numpy(toks).to(d), cache,
-                                      chunk_len=37, block_tables=tb)
+        cache, l1, _ = lm.prefill_resume(p, torch.from_numpy(toks).to(d),
+                                         cache, chunk_len=37,
+                                         block_tables=tb)
         seven = torch.tensor([[7]], dtype=torch.int32, device=d)
         _, l2, _ = lm.decode(p, cache, seven,
                              torch.tensor([[37]], dtype=torch.int32,
@@ -967,7 +1099,7 @@ def cross_check_reduced(dev, log):
     g4 = DevicePlacement.of(dev).place_params(p4)
     worst4, res = 0.0, []
     for lm, p, d in ((cpu_lm, p4, "cpu"), (gpu_lm, g4, dev)):
-        cache, l1 = lm.prefill(p, torch.from_numpy(
+        cache, l1, _ = lm.prefill(p, torch.from_numpy(
             np.pad(toks, ((0, 0), (0, 24)))).to(d), max_len=128, true_len=40)
         seven = torch.tensor([[7]], dtype=torch.int32, device=d)
         _, l2, _ = lm.decode(p, cache, seven,
@@ -1029,8 +1161,9 @@ def cross_check_sparse_spec(dev, log, cfg):
     for lm, p, d in ((cpu_lm, params, "cpu"), (gpu_lm, gparams, dev)):
         cache = {"layers": alloc_arena_kv(tcfg, lm.plan, 16, 8, d), "pos": 0}
         tb = torch.from_numpy(row).to(d)
-        cache, _ = lm.prefill_resume(p, torch.from_numpy(toks).to(d), cache,
-                                     chunk_len=37, block_tables=tb)
+        cache, _, _ = lm.prefill_resume(p, torch.from_numpy(toks).to(d),
+                                        cache, chunk_len=37,
+                                        block_tables=tb)
         _, lg, aux = lm.decode(p, cache, torch.tensor([[7]], dtype=torch.int32,
                                                       device=d),
                                torch.tensor([[37]], dtype=torch.int32,
@@ -1286,6 +1419,220 @@ def serve_spec(dev, log, cfg):
     torch.cuda.empty_cache()
     return {"runs": out, "streams_identical": not ties, "near_ties": ties}
 
+# ---- phase 8: MoE with OmniPlacement ---------------------------------
+def moe_full_config():
+    from repro_torch.configs import get_config
+    cfg = get_config("qwen2-moe-a2.7b").with_updates(
+        param_dtype="float32", compute_dtype="float32")
+    m = cfg.moe
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+            cfg.head_dim, cfg.vocab_size, m.n_experts, m.top_k,
+            m.n_shared_experts, m.d_ff_expert, m.capacity_factor) == \
+        (24, 2048, 16, 16, 128, 151936, 60, 4, 4, 1408, 2.0)
+    return cfg.with_updates(n_layers=P8_LAYERS)
+
+
+def moe_workload(vocab):
+    """Phase 3's traffic: the shared-prefix workload plus two seeded
+    sampled requests on the same prefix, P8_NEW new tokens each."""
+    from repro_torch.core.proxy import SamplingParams
+    prompts, base = workload(vocab)
+    rng = np.random.default_rng(11)
+    prompts += [base + tuple(int(t) for t in rng.integers(0, vocab, 64))
+                for _ in range(2)]
+    params = [SamplingParams(max_tokens=P8_NEW)] * 12 + [
+        SamplingParams(temperature=0.9, top_k=64, top_p=0.95, seed=900 + i,
+                       max_tokens=P8_NEW) for i in (12, 13)]
+    return prompts, params
+
+
+def build_moe_server(cfg, dev, params=None):
+    """Phase 3's server knobs with OmniPlacement's monitor every 4 decode
+    rounds; warmed on other tokens (every chunk bucket and the decode
+    batch), then its counts, store and device windows reset."""
+    from repro_torch.core.proxy import SamplingParams
+    srv = build_server(cfg, True, dev, params=params, enable_placement=True,
+                       placement_interval=4)
+    warm, _ = workload(cfg.vocab_size, seed=8)
+    list(srv.generate(warm[:4], SamplingParams(max_tokens=2)))
+    reset_stats(srv)
+    return srv
+
+
+def record_drains(srv) -> list:
+    """Note (drained count sum, decode tokens so far) at every placement
+    tick of the decode engine."""
+    eng = srv.decodes[0]
+    take, ticks = eng.take_moe_counts, []
+
+    def rec():
+        c = take()
+        ticks.append((float(c.sum()), int(eng.stats["tokens"])))
+        return c
+    eng.take_moe_counts = rec
+    return ticks
+
+
+def reversed_slots_plan(srv):
+    from repro_torch.core.placement.migration import MigrationPlan
+    old = srv.tables["slot_expert"].cpu().numpy()
+    new = old[:, ::-1].copy()
+    return MigrationPlan(old, new, tuple(
+        (0, i, int(new[0, i])) for i in range(new.shape[1])), new.shape[1])
+
+
+def check_moe_layer(srv, cfg, prompt, log):
+    """(c) One real 128-token prefill chunk's hidden states at layer 0's
+    FFN: moe_ffn through the kernel against the dense oracle, with a
+    capacity that drops nothing (all rows) and at the serving capacity
+    (the rows none of whose assignments were dropped)."""
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import stack as stack_mod
+    from repro_torch.models.common import rms_norm
+    p, tables, dev = srv.params["layers"][0], srv.tables, srv.lm.device
+    S, k = 128, cfg.moe.top_k
+    toks = torch.tensor([prompt[:S]], dtype=torch.int32, device=dev)
+    x = srv.lm._embed(srv.params, toks)
+    x, _, _ = stack_mod.attn_sublayer(
+        cfg, srv.lm.plan.all_specs()[0], p, x, mode="prefill",
+        positions=torch.arange(S, device=dev), cache=None, true_len=S,
+        max_len=S)
+    hid = rms_norm(x, p["ln_mlp"], cfg.rms_eps)[0]
+    shared = (p["shared_w1"], p["shared_w3"], p["shared_w2"])
+    rs = tables["rep_slot"][:, 0].long()
+    canon = [p[n][0][rs] for n in ("moe_w1", "moe_w3", "moe_w2")]
+    want = moe_mod.moe_ffn_dense(cfg, hid, p["router"], *canon, shared)
+    del canon
+    out = {}
+    for name, cf in (("no_drop", 16.0), ("serving", cfg.moe.capacity_factor)):
+        c = cfg.with_updates(moe_capacity_factor=cf)
+        got, counts = moe_mod.moe_ffn(c, hid, p["router"], p["moe_w1"],
+                                      p["moe_w3"], p["moe_w2"], tables,
+                                      shared)
+        assert float(counts.sum()) == S * k
+        # the assignments past capacity, recomputed on the host
+        _, eidx, _ = moe_mod.router(c, hid, p["router"])
+        slot = rs.cpu().numpy()[eidx.cpu().numpy()]
+        cap = moe_mod._bucket_capacity(S, k, 1, rs.numel(), cf)
+        seen, dropped = {}, np.zeros(S, bool)
+        for t in range(S):
+            for sl in slot[t]:
+                seen[sl] = seen.get(sl, 0) + 1
+                dropped[t] |= seen[sl] > cap
+        keep = torch.from_numpy(~dropped).to(dev)
+        if name == "no_drop":
+            assert not dropped.any()
+        torch.testing.assert_close(got[keep], want[keep],
+                                   **TOL[torch.float32], msg=f"moe {name}")
+        out[name] = {"capacity": cap, "tokens_with_drops": int(
+            dropped.sum()), "max_abs_err": float(
+            (got[keep] - want[keep]).abs().max())}
+        log.append(f"(c) layer-0 moe_ffn vs dense oracle, {name} capacity "
+                   f"{cap}: {int(dropped.sum())} of {S} tokens had a "
+                   f"dropped assignment; max_abs_err over the rest "
+                   f"{out[name]['max_abs_err']:.3g}")
+    return out
+
+
+def serve_moe(dev, log, cfg):
+    """Phase 8 on `cfg` (full-width qwen2-moe-a2.7b in main())."""
+    from repro_torch.kernels.moe_gmm import moe_gmm
+    from repro_torch.kernels.paged_decode import paged_decode
+    from repro_torch.kernels.paged_prefill import paged_prefill
+    L, k = cfg.n_layers, cfg.moe.top_k
+    prompts, params = moe_workload(cfg.vocab_size)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    srv = build_moe_server(cfg, dev)
+    torch.cuda.synchronize()
+    wbytes = sum(t.numel() * t.element_size() for t in
+                 [v for lay in srv.params["layers"] for v in lay.values()]
+                 + [v for k_, v in srv.params.items() if k_ != "layers"])
+    log.append(f"server built and warmed in {time.monotonic() - t0:.1f} s; "
+               f"weights {wbytes / 1e9:.2f} GB")
+    hist0 = len(srv.placement_sched.history)
+    ticks = record_drains(srv)
+
+    # (a) the main path through generate
+    moe_gmm.launches = paged_prefill.launches = paged_decode.launches = 0
+    streams, finished, summ, wall = drive(srv, prompts, params)
+    launches = {"moe_gmm": moe_gmm.launches,
+                "paged_prefill": paged_prefill.launches,
+                "paged_decode": paged_decode.launches}
+    ps, ds = srv.prefills[0].stats, srv.decodes[0].stats
+    assert len(finished) == len(prompts) and all(
+        r == "length" for r in finished), finished
+    assert [len(x) for x in streams] == [P8_NEW] * len(prompts), streams
+    assert ds["host_fetches"] == ds["steps"] > 0, ds
+    if dev.type == "cuda":
+        assert launches["paged_prefill"] == ps["chunks"] * L > 0, launches
+        assert launches["paged_decode"] == ds["steps"] * L > 0, launches
+        assert launches["moe_gmm"] == 3 * L * (ps["chunks"] + ds["steps"]), \
+            (launches, ps["chunks"], ds["steps"])
+    srv.kv_arena.pool.check_invariants(arena=srv.kv_arena)
+    hist = srv.placement_sched.history[hist0:]
+    assert len(ticks) >= 4 and len(hist) == len(ticks), (ticks, hist)
+    assert all(h["b"] == 1.0 and not h["rebalanced"] for h in hist), hist
+    assert srv.n_migrations == 0
+    prev = 0
+    for total, tokens in ticks:
+        assert total == k * L * (tokens - prev), (ticks, k, L)
+        prev = tokens
+    peak_a = torch.cuda.max_memory_allocated() / 1e9
+    weights, a_steps = srv.params, ds["steps"]
+    res = {"launches": launches, "prefill_chunks": ps["chunks"],
+           "decode_steps": a_steps, "host_fetches": ds["host_fetches"],
+           "reused_tokens": ps["reused_tokens"],
+           "prefill_tokens": ps["tokens"], "weights_gb": wbytes / 1e9,
+           "placement_ticks": [{"assignments": t, "decode_tokens": n}
+                               for t, n in ticks],
+           "rebalances": srv.placement_sched.n_rebalances,
+           "metrics": {k_: summ[k_] for k_ in (
+               "n_done", "ttft_mean", "ttft_p99", "tpot_mean_ms",
+               "tpot_p99_ms", "ott_tok_s", "ttt_tok_s")} | {"wall_s": wall},
+           "peak_mem_gb": peak_a}
+    del srv
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the same weights and traffic through add_request/step, with the
+    # slot order reversed halfway through decode
+    srv = build_moe_server(cfg, dev, params=weights)
+    for prompt, sp in zip(prompts, params):
+        srv.add_request(prompt, sp)
+    out, mig = {}, None
+    t1 = time.monotonic()
+    while srv.proxy.inflight and time.monotonic() - t1 < 900:
+        for o in srv.step():
+            out.setdefault(o.rid, []).extend(o.new_tokens)
+        if mig is None and srv.decodes[0].stats["steps"] >= a_steps // 2:
+            tm = time.monotonic()
+            srv._apply_migration(reversed_slots_plan(srv))
+            torch.cuda.synchronize()
+            mig = {"at_step": srv.decodes[0].stats["steps"],
+                   "seconds": time.monotonic() - tm}
+    streams_b = [out[r] for r in sorted(out)]
+    ds = srv.decodes[0].stats
+    assert srv.n_migrations == 1 and mig is not None
+    assert ds["host_fetches"] == ds["steps"] > 0
+    assert streams_b[:12] == streams[:12], \
+        "greedy streams changed across the forced migration"
+    srv.kv_arena.pool.check_invariants(arena=srv.kv_arena)
+    res["migration"] = mig | {
+        "greedy_streams_identical": True,
+        "sampled_streams_identical": streams_b[12:] == streams[12:],
+        "slot_expert_reversed": bool(
+            srv.tables["slot_expert"][0, 0] == cfg.moe.n_experts - 1)}
+
+    # (c) one layer's moe_ffn on real hidden states against the oracle
+    res["layer_check"] = check_moe_layer(srv, cfg, prompts[0], log)
+    res["peak_mem_gb"] = max(peak_a, torch.cuda.max_memory_allocated() / 1e9)
+    del srv, weights
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
 # ----------------------------------------------------------------------
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1316,6 +1663,7 @@ def main() -> int:
     kern = check_kernels(dev, timer, log)
     kern.update(check_dense_kernels(dev, timer, log))
     kern.update(check_sparse_kernels(dev, timer, log))
+    kern.update(check_moe_kernels(dev, timer, log))
     print(f"phase 2: kernels agree with their plain versions on the card "
           f"[{time.monotonic() - t0:.1f} s since the start]")
     for line in log:
@@ -1323,7 +1671,8 @@ def main() -> int:
     for name, by in kern.items():
         for dn, r in by.items():
             lib = "no library call" if r["library_ms"] is None else \
-                f"{r['library_ms']:.4f} ms sdpa"
+                f"{r['library_ms']:.4f} ms " + (
+                    "torch.bmm" if name == "moe_gmm" else "sdpa")
             print(f"  {name} {dn} main shape: {r['ms']:.4f} ms kernel, "
                   f"{r['plain_ms']:.4f} ms plain, {lib}, bound "
                   f"{r['bound_ms']:.4f} ms ({r['bound_by']}) [{smi}]")
@@ -1436,8 +1785,44 @@ def main() -> int:
     print(f"  streams identical with speculation on and off: "
           f"{spec['streams_identical']} (near-ties {spec['near_ties']})")
 
+    log.clear()
+
+    # phase 8 runs once the earlier phases' servers and weights are gone
+    gc.collect()
+    torch.cuda.empty_cache()
+    mcfg = moe_full_config()
+    moe = serve_moe(dev, log, mcfg)
+    m, ln = moe["metrics"], moe["launches"]
+    print(f"phase 8 [{time.monotonic() - t0:.1f} s]: full-width "
+          f"qwen2-moe-a2.7b ({mcfg.n_layers} MoE layers, 60 experts top-4 "
+          f"+ 4 shared, float32, {moe['weights_gb']:.2f} GB of weights), "
+          f"OmniPlacement monitor every 4 decode rounds")
+    for line in log:
+        print("  " + line)
+    print(f"  (a) chunks {moe['prefill_chunks']}, steps "
+          f"{moe['decode_steps']}: {ln['moe_gmm']} moe_gmm = 3 x "
+          f"{mcfg.n_layers} x (chunks + steps), {ln['paged_prefill']} "
+          f"paged_prefill, {ln['paged_decode']} paged_decode launches; "
+          f"host_fetches {moe['host_fetches']}; reused tokens "
+          f"{moe['reused_tokens']}")
+    print(f"  (a) {len(moe['placement_ticks'])} placement ticks, each drain "
+          f"= top_k x {mcfg.n_layers} x decode tokens since the last: "
+          + ", ".join(f"{t['assignments']:.0f}"
+                      for t in moe["placement_ticks"])
+          + f"; rebalances {moe['rebalances']} (ep = 1)")
+    print(f"  (a) TTFT mean {m['ttft_mean'] * 1e3:.2f} ms p99 "
+          f"{m['ttft_p99'] * 1e3:.2f} ms, TPOT mean {m['tpot_mean_ms']:.2f} "
+          f"ms p99 {m['tpot_p99_ms']:.2f} ms, {m['ott_tok_s']:.1f} output "
+          f"tok/s, {m['ttt_tok_s']:.1f} total tok/s over {m['wall_s']:.2f} "
+          f"s; peak memory {moe['peak_mem_gb']:.2f} GB [{smi}]")
+    mg = moe["migration"]
+    print(f"  (b) slot order reversed at decode step {mg['at_step']} in "
+          f"{mg['seconds']:.3f} s: greedy streams identical to (a) bit for "
+          f"bit; sampled streams identical "
+          f"{mg['sampled_streams_identical']} [{smi}]")
+
     report.update(kernels=kern, serve=served, default_pattern=omni,
-                  topk=topk, spec=spec)
+                  topk=topk, spec=spec, moe=moe)
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 
@@ -1455,7 +1840,8 @@ def main() -> int:
              spec["runs"]["spec_on"]["launches"]["spec_verify"]),
             ("block_topk", "block_topk", "float32",
              sum(r["launches"]["block_topk"]
-                 for r in topk["runs"].values())))
+                 for r in topk["runs"].values())),
+            ("moe_gmm", "moe_gmm", "float32", moe["launches"]["moe_gmm"]))
     line = {"kernels": []}
     for name, key, dn, launches in rows:
         r = kern[key][dn]

@@ -10,6 +10,7 @@ from repro_torch.configs.base import (SHAPES, LayerSpec, ModelConfig,
 
 _MODULES = {
     "qwen2-1.5b": "qwen2_1_5b",
+    "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
 }
 
 ARCH_IDS = list(_MODULES)

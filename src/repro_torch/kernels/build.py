@@ -53,6 +53,9 @@ SIGNATURES = {
         "spec_verify_launch": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I, _I, _I, _F, _P],
     },
+    "moe_gmm": {
+        "moe_gmm_launch": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    },
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}   # dlopen'd libraries (process-wide)

@@ -2,7 +2,9 @@
 serving entry points: whole-prompt `prefill` into dense caches, chunked
 `prefill_resume` over paged KV, `decode` over paged or dense KV (with
 OmniAttn online top-k on paged full layers), and the speculative `verify` /
-`verify_commit` pair over paged KV."""
+`verify_commit` pair over paged KV. MoE layers route through the
+OmniPlacement tables each entry point takes (`default_tables()` to start);
+the per-layer expert counts come back in the aux."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -13,6 +15,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device, torch_dtype
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import stack as stack_mod
 from repro_torch.models.common import rms_norm
 
@@ -34,38 +37,60 @@ class LM:
 
     # ------------------------------------------------------------------
     def param_defs(self) -> dict:
-        """name → (shape, init) with init "normal:<std>", "zeros" or "ones",
-        the shapes and scales of the reference's ParamDefs."""
+        """{"layers": [per-layer {name: (shape, init, dtype)}], "embed",
+        "final_norm"[, "head"]: (shape, init, dtype)} with init
+        "normal:<std>", "zeros" or "ones": the shapes, scales and dtypes of
+        the reference's ParamDefs. An MoE layer (`LayerSpec.use_moe`)
+        carries the router (float32 whatever param_dtype is), its slot
+        weights [1, s, ...] and the shared experts instead of the dense
+        FFN."""
         cfg = self.cfg
         D, H, K, h, Fd = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                           cfg.head_dim, cfg.d_ff)
-        w = "normal:0.02"
-        layer = {"ln_attn": ((D,), "ones"), "wq": ((D, H * h), w),
-                 "wk": ((D, K * h), w), "wv": ((D, K * h), w),
-                 "wo": ((H * h, D), w)}
+        w, dt = "normal:0.02", cfg.param_dtype
+        attn = {"ln_attn": ((D,), "ones", dt), "wq": ((D, H * h), w, dt),
+                "wk": ((D, K * h), w, dt), "wv": ((D, K * h), w, dt),
+                "wo": ((H * h, D), w, dt)}
         if cfg.qkv_bias:
-            layer.update(bq=((H * h,), "zeros"), bk=((K * h,), "zeros"),
-                         bv=((K * h,), "zeros"))
+            attn.update(bq=((H * h,), "zeros", dt), bk=((K * h,), "zeros", dt),
+                        bv=((K * h,), "zeros", dt))
         if cfg.qk_norm:
-            layer.update(q_norm=((h,), "ones"), k_norm=((h,), "ones"))
+            attn.update(q_norm=((h,), "ones", dt), k_norm=((h,), "ones", dt))
+        dense = {}
         if Fd > 0:
-            layer.update(ln_mlp=((D,), "ones"), w1=((D, Fd), w),
-                         w3=((D, Fd), w), w2=((Fd, D), w))
-        d = {"layer": layer, "final_norm": ((D,), "ones"),
-             "embed": ((cfg.vocab_size, D), f"normal:{D ** -0.5}")}
+            dense = {"ln_mlp": ((D,), "ones", dt), "w1": ((D, Fd), w, dt),
+                     "w3": ((D, Fd), w, dt), "w2": ((Fd, D), w, dt)}
+        moe = {}
+        m = cfg.moe
+        if m.n_experts:
+            s, Fe = moe_mod.default_slot_count(cfg, 1), m.d_ff_expert
+            moe = {"ln_mlp": ((D,), "ones", dt),
+                   "router": ((D, m.n_experts), w, "float32"),
+                   "moe_w1": ((1, s, D, Fe), w, dt),
+                   "moe_w3": ((1, s, D, Fe), w, dt),
+                   "moe_w2": ((1, s, Fe, D), w, dt)}
+            if m.n_shared_experts:
+                Fsh = m.n_shared_experts * Fe
+                moe.update(shared_w1=((D, Fsh), w, dt),
+                           shared_w3=((D, Fsh), w, dt),
+                           shared_w2=((Fsh, D), w, dt))
+        d = {"layers": [dict(attn, **(moe if sp.use_moe else dense))
+                        for sp in self.plan.all_specs()],
+             "final_norm": ((D,), "ones", dt),
+             "embed": ((cfg.vocab_size, D), f"normal:{D ** -0.5}", dt)}
         if not cfg.tie_embeddings:
-            d["head"] = ((D, cfg.vocab_size), w)
+            d["head"] = ((D, cfg.vocab_size), w, dt)
         return d
 
     def init(self, seed: int = 0) -> dict:
         """Fresh parameters on this LM's device from a seeded generator:
-        weights normal(0, std) drawn in float32 and cast to param_dtype,
+        weights normal(0, std) drawn in float32 and cast to their dtype,
         biases zero, norm scales one."""
-        dt = torch_dtype(self.cfg.param_dtype)
         gen = torch.Generator(device=self.device)
         gen.manual_seed(int(seed))
 
-        def make(shape, init):
+        def make(shape, init, dtype):
+            dt = torch_dtype(dtype)
             if init == "ones":
                 return torch.ones(shape, dtype=dt, device=self.device)
             if init == "zeros":
@@ -73,13 +98,23 @@ class LM:
             std = float(init.split(":")[1])
             x = torch.randn(shape, generator=gen, dtype=torch.float32,
                             device=self.device)
-            return (x * std).to(dt)
+            return x.mul_(std).to(dt)
 
         defs = self.param_defs()
-        params = {k: make(*v) for k, v in defs.items() if k != "layer"}
-        params["layers"] = [{k: make(*v) for k, v in defs["layer"].items()}
-                            for _ in range(self.plan.n_layers)]
+        params = {k: make(*v) for k, v in defs.items() if k != "layers"}
+        params["layers"] = [{k: make(*v) for k, v in layer.items()}
+                            for layer in defs["layers"]]
         return params
+
+    def default_tables(self) -> Optional[dict]:
+        """The round-robin placement's tables on this LM's device (one
+        rank), or None without MoE layers."""
+        m = self.cfg.moe
+        if m.n_experts == 0:
+            return None
+        s = moe_mod.default_slot_count(self.cfg, 1)
+        return moe_mod.tables_from_placement(
+            moe_mod.round_robin_placement(m.n_experts, 1, s), s, self.device)
 
     # ------------------------------------------------------------------
     def _embed(self, params, tokens):
@@ -95,23 +130,26 @@ class LM:
         return x.to(cd) @ params["head"]
 
     @torch.no_grad()
-    def prefill(self, params, tokens, *, max_len: int, true_len=None):
+    def prefill(self, params, tokens, *, max_len: int, true_len=None,
+                tables=None):
         """Whole-prompt prefill: tokens [B, S] at positions arange(S), the
         first `true_len` rows real (a right-padded prompt; default S).
-        Every layer attends through the flash-prefill kernel. → (dense cache
+        Every layer attends through the flash-prefill kernel; MoE layers
+        route through `tables` (default_tables()). → (dense cache
         {"layers": [{"k","v": [B, W, K, h]}], "pos": true_len} — ring layers
-        compressed to sink+recent, full layers padded to max_len — and the
-        logits of the last real token [B, V])."""
+        compressed to sink+recent, full layers padded to max_len — the
+        logits of the last real token [B, V], and aux {"moe_counts":
+        [per-MoE-layer [E]]})."""
         B, S = tokens.shape
         tl = S if true_len is None else int(true_len)
         x = self._embed(params, tokens)
         positions = torch.arange(S, device=x.device)
-        x, layers, _ = stack_mod.stack_apply(
+        x, layers, _, counts = stack_mod.stack_apply(
             self.cfg, self.plan, params["layers"], x, mode="prefill",
             positions=positions, caches=None, block_tables=None,
-            true_len=true_len, max_len=max_len)
-        return {"layers": layers, "pos": tl}, self._logits(params,
-                                                           x[:, tl - 1])
+            true_len=true_len, max_len=max_len, tables=tables)
+        return ({"layers": layers, "pos": tl},
+                self._logits(params, x[:, tl - 1]), {"moe_counts": counts})
 
     @cached_property
     def chunked_prefill_support(self) -> tuple:
@@ -135,14 +173,16 @@ class LM:
 
     @torch.no_grad()
     def prefill_resume(self, params, tokens, cache, *, chunk_len=None,
-                       block_tables=None):
+                       block_tables=None, tables=None):
         """Continue a prefill: tokens [1, S] is the next chunk at absolute
         positions cache["pos"] + arange(S); chunk_len (an int) marks the real
         rows of a right-padded chunk. Full-attention cache entries are the
         shared arenas, reached through block_tables [1, nb]; the chunk's
-        K/V is written into its blocks in place. → (cache with "pos"
-        advanced, logits of the last real token [1, V]). Ring layers and
-        dense caches raise NotImplementedError (not ported yet)."""
+        K/V is written into its blocks in place. MoE layers route through
+        `tables`; padded rows are routed and take capacity, as in the
+        reference. → (cache with "pos" advanced, logits of the last real
+        token [1, V], aux {"moe_counts": [per-MoE-layer [E]]}). Ring layers
+        and dense caches raise NotImplementedError (not ported yet)."""
         if block_tables is None:
             raise NotImplementedError(
                 "dense (non-paged) chunked prefill is not ported yet: pass "
@@ -152,48 +192,55 @@ class LM:
         cl = S if chunk_len is None else int(chunk_len)
         x = self._embed(params, tokens)
         positions = off + torch.arange(S, device=x.device)
-        x, _, _ = stack_mod.stack_apply(self.cfg, self.plan, params["layers"],
-                                        x, mode="prefill", positions=positions,
-                                     caches=cache, block_tables=block_tables,
-                                     true_len=cl, pos0=off)
+        x, _, _, counts = stack_mod.stack_apply(
+            self.cfg, self.plan, params["layers"], x, mode="prefill",
+            positions=positions, caches=cache, block_tables=block_tables,
+            true_len=cl, pos0=off, tables=tables)
         logits = self._logits(params, x[:, cl - 1])
-        return dict(cache, pos=off + cl), logits
+        return dict(cache, pos=off + cl), logits, {"moe_counts": counts}
 
     @torch.no_grad()
     def decode(self, params, cache, token, positions, *, block_tables=None,
-               token_mask=None):
+               token_mask=None, tables=None):
         """One decode step. token [B, 1]; positions [B, 1] (device int
         tensors: each slot's write position). With block_tables [B, nb] the
         cache is paged (shared full-attention arenas + per-slot ring block
         runs); without, it is dense (`alloc_cache`). Each slot's K/V is
         written in place, then attended — with cfg.omniattn.topk_* set, on
         paged full layers only the query-selected top-k of the resident
-        blocks. token_mask [B] (live rows) weights the online-sparsity
-        stats. → (cache, logits [B, V], aux {"sparsity": [per-layer [4]
-        vectors [blocks_scored, blocks_attended, mass_sum, mass_n]]})."""
+        blocks. MoE layers route through `tables`. token_mask [B] (live
+        rows) weights the online-sparsity stats and the MoE counts. →
+        (cache, logits [B, V], aux {"sparsity": [per-layer [4] vectors
+        [blocks_scored, blocks_attended, mass_sum, mass_n]], "moe_counts":
+        [per-MoE-layer [E]]})."""
         x = self._embed(params, token)
-        x, _, sp = stack_mod.stack_apply(
+        x, _, sp, counts = stack_mod.stack_apply(
             self.cfg, self.plan, params["layers"], x, mode="decode",
             positions=positions, caches=cache, block_tables=block_tables,
-            token_mask=token_mask)
-        return cache, self._logits(params, x[:, 0]), {"sparsity": sp}
+            token_mask=token_mask, tables=tables)
+        return cache, self._logits(params, x[:, 0]), {"sparsity": sp,
+                                                      "moe_counts": counts}
 
     @torch.no_grad()
-    def verify(self, params, cache, tokens, positions, *, block_tables):
+    def verify(self, params, cache, tokens, positions, *, block_tables,
+               tables=None, token_mask=None):
         """Speculative multi-token verify: a read-only forward over each
         slot's draft window. tokens [B, S] = [current input token,
         draft_1..draft_{S-1}] per row; positions [B] each slot's next write
         position; paged caches through block_tables [B, nb]. No K/V is
         written: each attention layer stages its rope'd window K/V instead.
-        → (logits [B, S, V], staged per-layer entries)."""
+        token_mask [B] (live slots) weights the MoE counts of all S window
+        rows. → (logits [B, S, V], staged per-layer entries, aux
+        {"moe_counts": [per-MoE-layer [E]]})."""
         B, S = tokens.shape
         x = self._embed(params, tokens)
         pos2 = positions.to(torch.int32)[:, None] + torch.arange(
             S, device=x.device, dtype=torch.int32)[None]
-        x, staged, _ = stack_mod.stack_apply(
+        x, staged, _, counts = stack_mod.stack_apply(
             self.cfg, self.plan, params["layers"], x, mode="verify",
-            positions=pos2, caches=cache, block_tables=block_tables)
-        return self._logits(params, x), staged
+            positions=pos2, caches=cache, block_tables=block_tables,
+            tables=tables, token_mask=token_mask)
+        return self._logits(params, x), staged, {"moe_counts": counts}
 
     def verify_commit(self, cache, staged, positions, n_write, block_tables):
         """Land the accepted prefix of a `verify` window — n_write [B] rows

@@ -18,9 +18,11 @@ W). Entries, all updated in place:
 Paged decode of full layers runs OmniAttn online top-k block selection when
 cfg.omniattn sets a budget (`topk_block_budget`); mode "verify" is the
 read-only speculative-verify forward, and `stack_verify_commit` lands its
-accepted prefix. `check_supported` raises NotImplementedError for what a
-later slice brings (MoE, SSM); chunked prefill over ring layers raises where
-it is attempted (`attn_sublayer`).
+accepted prefix. Each layer's FFN is a dense SwiGLU or, on an MoE layer,
+the routed experts over OmniPlacement slot tables (models/moe.py) plus the
+shared SwiGLU. `check_supported` raises NotImplementedError for what a
+later slice brings (SSM; online top-k with MoE); chunked prefill over ring
+layers raises where it is attempted (`attn_sublayer`).
 """
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.device import torch_dtype
 from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import rms_norm, swiglu
 
 
@@ -80,15 +83,18 @@ def full_attn_layer(cfg: ModelConfig, spec: LayerSpec) -> bool:
 def check_supported(cfg: ModelConfig, plan: StackPlan) -> None:
     """Raise NotImplementedError for a configuration this slice of the port
     does not serve (rather than silently serving something else)."""
-    if cfg.moe.n_experts:
-        raise NotImplementedError("MoE layers are not ported yet")
-    if cfg.family not in ("dense",) or cfg.encoder_only or not cfg.causal \
-            or cfg.frontend_dim:
+    if cfg.family not in ("dense", "moe") or cfg.encoder_only \
+            or not cfg.causal or cfg.frontend_dim:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (dense decoders only)")
+            f"family {cfg.family!r} is not ported yet (dense and MoE "
+            f"decoders only)")
     for spec in plan.all_specs():
         if spec.kind != "attn":
             raise NotImplementedError("SSM (mamba) layers are not ported yet")
+    oa = cfg.omniattn
+    if cfg.moe.n_experts and (oa.topk_blocks > 0 or oa.topk_frac > 0):
+        raise NotImplementedError(
+            "OmniAttn online top-k with MoE layers is not ported yet")
 
 
 def topk_block_budget(oa, nb: int) -> Optional[int]:
@@ -399,26 +405,44 @@ def _select_blocks(cfg: ModelConfig, q, cache: dict, tbl, lens, token_mask):
                                        mass_n])
 
 
-def ffn_sublayer(cfg: ModelConfig, p: dict, x):
-    """Dense SwiGLU feed-forward with its pre-norm and residual."""
-    if cfg.d_ff == 0:
-        return x
+def ffn_sublayer(cfg: ModelConfig, spec: LayerSpec, p: dict, x, *,
+                 tables: Optional[dict] = None, token_mask=None):
+    """Feed-forward with its pre-norm and residual: a dense SwiGLU, or on
+    an MoE layer the routed experts (through the moe_gmm kernel) plus the
+    shared SwiGLU. → (x, expert counts [E] or None). token_mask [B]
+    weights the counts of each row's S tokens."""
+    if not spec.use_moe and cfg.d_ff == 0:
+        return x, None
     cd = torch_dtype(cfg.compute_dtype)
     hid = rms_norm(x, p["ln_mlp"], cfg.rms_eps).to(cd)
-    return x + swiglu(hid, p["w1"], p["w3"], p["w2"]).to(x.dtype)
+    if not spec.use_moe:
+        return x + swiglu(hid, p["w1"], p["w3"], p["w2"]).to(x.dtype), None
+    B, S, D = x.shape
+    shared = None
+    if cfg.moe.n_shared_experts:
+        shared = (p["shared_w1"], p["shared_w3"], p["shared_w2"])
+    tm = None if token_mask is None else token_mask.repeat_interleave(S)
+    y, counts = moe_mod.moe_ffn(cfg, hid.reshape(B * S, D), p["router"],
+                                p["moe_w1"], p["moe_w3"], p["moe_w2"],
+                                tables, shared, token_mask=tm)
+    return x + y.reshape(B, S, D).to(x.dtype), counts
 
 
 def stack_apply(cfg: ModelConfig, plan: StackPlan, layers: list, x, *,
                 mode: str, positions, caches: Optional[dict], block_tables,
                 true_len: Optional[int] = None, pos0: int = 0,
-                max_len: int = 0, token_mask=None):
+                max_len: int = 0, token_mask=None,
+                tables: Optional[dict] = None):
     """Run every layer in order. Caches given are updated in place (read
-    only in mode "verify"). → (x, entries, sparsity): entries are the new
-    per-layer cache entries with caches None (whole-prompt prefill) or the
-    staged window K/V per layer in mode "verify", else None; sparsity is the
-    list of per-layer [4] online-sparsity vectors (empty when off)."""
+    only in mode "verify"). `tables` are the MoE placement tables (every
+    MoE layer reads the same). → (x, entries, sparsity, counts): entries
+    are the new per-layer cache entries with caches None (whole-prompt
+    prefill) or the staged window K/V per layer in mode "verify", else
+    None; sparsity is the list of per-layer [4] online-sparsity vectors
+    (empty when off); counts the list of per-MoE-layer expert counts [E]
+    (empty without MoE layers)."""
     entries = [] if caches is None or mode == "verify" else None
-    sparsity = []
+    sparsity, counts = [], []
     for i, (spec, p) in enumerate(zip(plan.all_specs(), layers)):
         x, nc, sp = attn_sublayer(
             cfg, spec, p, x, mode=mode, positions=positions,
@@ -429,8 +453,11 @@ def stack_apply(cfg: ModelConfig, plan: StackPlan, layers: list, x, *,
             entries.append(nc)
         if sp is not None:
             sparsity.append(sp)
-        x = ffn_sublayer(cfg, p, x)
-    return x, entries, sparsity
+        x, cnt = ffn_sublayer(cfg, spec, p, x, tables=tables,
+                              token_mask=token_mask)
+        if cnt is not None:
+            counts.append(cnt)
+    return x, entries, sparsity, counts
 
 
 def stack_verify_commit(cfg: ModelConfig, plan: StackPlan, caches: dict,

@@ -21,8 +21,14 @@ on the host, one batched read-only verify forward over [n_slots, k+1]
 window positions, the greedy-prefix acceptance on the device, and a masked
 commit of the accepted rows. The slot-dense layout serves neither.
 
+MoE layers route through the engine's `tables`; each step adds the live
+rows' expert counts to a [L_moe, E] device accumulator that the server
+drains at placement ticks (`take_moe_counts`). Speculation with MoE layers
+raises NotImplementedError.
+
 Slot state (position, current token, active flag, per-slot sampling
-parameters and base keys, the sparsity and speculation accumulators) lives
+parameters and base keys, the sparsity, speculation and MoE-count
+accumulators) lives
 on the device and is updated in place by the step, so a decode step does
 exactly ONE device→host fetch: the sampled tokens, or the packed verify
 window (`host_fetches == steps`).
@@ -69,6 +75,8 @@ class DecodeEngine:
     placement: Optional[DevicePlacement] = None
     spec: Optional[SpecConfig] = None   # model-free speculative decoding
     spec_radix: Optional[object] = None  # proxy RadixTree for draft lookup
+    tables: Optional[dict] = None     # MoE placement tables (swapped by
+                                      # the server at migration)
     stats: dict = field(default_factory=lambda: {
         "steps": 0, "tokens": 0, "busy_s": 0.0, "kv_transfer_bytes": 0,
         "kv_transfer_bytes_padded": 0, "handoff_copy_bytes": 0,
@@ -129,6 +137,10 @@ class DecodeEngine:
         self.spec_ctl = SpecController.from_model(
             self.lm, self.spec, sparsity=self.sparsity, radix=self.spec_radix)
         if self.spec_ctl is not None:
+            if cfg.moe.n_experts:
+                raise NotImplementedError(
+                    "SpecPlane speculative decoding with MoE layers is not "
+                    "ported yet")
             if not self.paged:
                 raise ValueError("speculative decoding requires paged "
                                  "attention KV (block/summary rollback is "
@@ -165,6 +177,13 @@ class DecodeEngine:
             # over layers on the device; drained by take_sparsity_stats()
             self.state["sparsity"] = torch.zeros(4, dtype=torch.float32,
                                                  device=dev)
+        n_moe = sum(1 for sp in plan.all_specs() if sp.use_moe)
+        if n_moe:
+            # expert activation counts [L_moe, E] of the live rows,
+            # accumulated on the device; drained only at placement ticks
+            # (take_moe_counts)
+            self.state["moe_counts"] = torch.zeros(
+                (n_moe, cfg.moe.n_experts), dtype=torch.float32, device=dev)
         if self.spec_ctl is not None:
             # [drafted, accepted, emitted, verifies]; drained by
             # take_spec_stats()
@@ -400,9 +419,11 @@ class DecodeEngine:
             self.params, self._full_cache(), st["tok"][:, None],
             st["pos"][:, None],
             block_tables=self._tbl_dev if self.paged else None,
-            token_mask=st["active"])
+            token_mask=st["active"], tables=self.tables)
         if "sparsity" in st and aux["sparsity"]:
             st["sparsity"] += torch.stack(aux["sparsity"]).sum(dim=0)
+        if "moe_counts" in st:
+            st["moe_counts"] += torch.stack(aux["moe_counts"])
         # the token after position pos sees pos + 1 context tokens: that is
         # the draw's counter, so a stream is a pure function of
         # (seed, position)
@@ -430,8 +451,9 @@ class DecodeEngine:
         act = st["active"]
         toks = torch.cat([st["tok"][:, None], drafts], dim=1)
         cache = self._full_cache()
-        logits, staged = self.lm.verify(self.params, cache, toks, st["pos"],
-                                        block_tables=self._tbl_dev)
+        logits, staged, _ = self.lm.verify(self.params, cache, toks,
+                                           st["pos"],
+                                           block_tables=self._tbl_dev)
         greedy = logits.float().argmax(dim=-1).to(torch.int32)   # [B, k+1]
         all_greedy = bool(all(self.greedy_h[s] for s in self.slot_rid))
         nxt0 = sample_tokens(logits[:, 0], st["temp"], st["top_k"],
@@ -471,6 +493,13 @@ class DecodeEngine:
             return None
         self.sparsity.note(self.stats, v)
         return v / max(self.sparsity.plan.n_sparse_layers, 1)
+
+    def take_moe_counts(self):
+        """Fetch and reset the device-side expert activation window: the
+        [L_moe, E] float64 numpy counts of the live rows since the last
+        call, or None for a model without MoE layers. The only host read of
+        the counts: call at placement ticks, not per step."""
+        return drain_accumulator(self.state, "moe_counts")
 
     def take_spec_stats(self):
         """Fetch and reset the device-side speculation window ([drafted,

@@ -21,7 +21,8 @@ Stored prefixes are dense prefix-length snapshots adopted only by an exact
 repeat of the whole prompt.
 
 First tokens of every prompt finished in one engine round are sampled in
-one fused call with one host fetch.
+one fused call with one host fetch. MoE layers route through the engine's
+`tables` (the server swaps them at a migration).
 """
 from __future__ import annotations
 
@@ -103,6 +104,8 @@ class PrefillEngine:
     tree: Optional[RadixTree] = None  # share the proxy's per-instance tree
     block_size: int = 16              # accounting granularity (dense mode)
     placement: Optional[DevicePlacement] = None
+    tables: Optional[dict] = None     # MoE placement tables (swapped by
+                                      # the server at migration)
     stats: dict = field(default_factory=lambda: {
         "prefills": 0, "cache_hits": 0, "prefix_hits": 0, "reused_tokens": 0,
         "tokens": 0, "chunks": 0, "busy_s": 0.0, "host_fetches": 0,
@@ -378,10 +381,11 @@ class PrefillEngine:
         # the composed cache's full-attention entries ARE the shared arenas;
         # the chunk's K/V is written into the task's blocks in place
         composed = merge_arena_cache(cfg, plan, task.cache, self.arena.kv)
-        composed, task.logits = self.lm.prefill_resume(
+        composed, task.logits, _ = self.lm.prefill_resume(
             self.params,
             torch.tensor([toks], dtype=torch.int32, device=self.device),
-            composed, chunk_len=cl, block_tables=self._table_row(task.rid))
+            composed, chunk_len=cl, block_tables=self._table_row(task.rid),
+            tables=self.tables)
         task.cache, _ = split_arena_cache(cfg, plan, composed)
         task.cursor += cl
         self.stats["tokens"] += cl
@@ -401,8 +405,9 @@ class PrefillEngine:
         pad = min(_bucket(S, lo=8), self.max_len) - S
         toks = torch.tensor([list(task.prompt) + [0] * pad],
                             dtype=torch.int32, device=self.device)
-        task.cache, task.logits = self.lm.prefill(
-            self.params, toks, max_len=self.max_len, true_len=S)
+        task.cache, task.logits, _ = self.lm.prefill(
+            self.params, toks, max_len=self.max_len, true_len=S,
+            tables=self.tables)
         task.cursor = S
         self.stats["tokens"] += S
         self._note_peak(task)

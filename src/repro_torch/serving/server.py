@@ -23,8 +23,18 @@ online top-k block selection when the model config sets a budget
 device-side stats are drained into the metrics every STAT_DRAIN_ROUNDS
 decode rounds and at the end of `run`.
 
-Options of later slices (int8 KV, fault injection and recovery, MoE
-placement, chunked prefill over ring layers) raise NotImplementedError.
+MoE models (qwen2-moe-a2.7b) serve through the same path: every MoE layer
+routes through the server's OmniPlacement tables, and with
+`enable_placement` a DynamicScheduler reads the decode engines' expert
+counts every `placement_interval` decode rounds (the only host read of
+them) and, when it accepts a rebalance, `_apply_migration` re-slots the
+expert weights in place and swaps the tables. On one device (ep = 1) the
+imbalance is always 1.0, so the loop monitors and never rebalances;
+`_apply_migration` also takes a forced plan.
+
+Options of later slices (int8 KV, fault injection and recovery, chunked
+prefill over ring layers, speculation or online top-k with MoE layers)
+raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -33,11 +43,16 @@ from dataclasses import dataclass, field
 from typing import Iterator, Optional
 
 import numpy as np
+import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.placement import DynamicScheduler, SchedulerConfig
+from repro_torch.core.placement.migration import \
+    tables_from_placement_from_slots
 from repro_torch.core.proxy import (BackpressureError, MetricsAggregator,
                                     OASConfig, OmniProxy, Request,
                                     RequestOutput, SamplingParams)
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.lm import LM
 from repro_torch.serving.arena import BlockHandoff, KVArena
 from repro_torch.serving.decode import DecodeEngine
@@ -70,6 +85,11 @@ class ServerConfig:
     idle_sleep_s: float = 0.01        # max per-iteration sleep while run()
                                       # waits for a future arrival
     spec: Optional[SpecConfig] = None  # model-free speculative decoding
+    enable_placement: bool = True     # OmniPlacement dynamic scheduler
+    placement_interval: int = 16      # decode rounds between monitor ticks
+    placement_cfg: Optional[SchedulerConfig] = None  # scheduler override
+                                      # (None → defaults with budget=0,
+                                      # table-width max_slots)
     # options of later slices: setting any of them raises
     quant: Optional[object] = None    # int8 KV arenas
     watchdog_steps: Optional[int] = None    # FaultPlane recovery
@@ -109,6 +129,7 @@ class Server:
                            device=self.placement.device)
         self.params = self.placement.place_params(params) \
             if params is not None else self.lm.init(seed)
+        self.tables = self.lm.default_tables()
         self.proxy = OmniProxy(scfg.n_prefill, scfg.n_decode, scfg.oas)
         self.metrics = MetricsAggregator()
         # one shared paged-KV runtime for every engine: by default every
@@ -133,7 +154,7 @@ class Server:
                           cache_cap_bytes=scfg.prefix_cache_cap_bytes,
                           tree=self.proxy.trees[i],
                           block_size=scfg.kv_block_size,
-                          placement=self.placement)
+                          placement=self.placement, tables=self.tables)
             for i in range(scfg.n_prefill)]
         self.decodes = [DecodeEngine(self.lm, self.params, scfg.decode_slots,
                                      scfg.max_len, arena=self.kv_arena,
@@ -142,7 +163,8 @@ class Server:
                                      placement=self.placement,
                                      spec=scfg.spec,
                                      spec_radix=self.proxy.trees[0]
-                                     if self.proxy.trees else None)
+                                     if self.proxy.trees else None,
+                                     tables=self.tables)
                         for _ in range(scfg.n_decode)]
         # rid → (handoff or B=1 cache, next_token, pos, cached_tokens,
         # prompt, params) awaiting decode admission
@@ -154,6 +176,20 @@ class Server:
         self._finish_info: dict = {}      # rid → (reason, total)
         self._events: list = []
         self._idle_slept_s = 0.0
+        self.placement_sched = None
+        if scfg.enable_placement and cfg.moe.n_experts:
+            s = int(self.tables["slot_expert"].shape[1])
+            # the engines apply ONE placement table across layers, so the
+            # monitor runs on layer-summed counts (n_layers=1 collapse)
+            pcfg = scfg.placement_cfg
+            if pcfg is None:
+                pcfg = SchedulerConfig(budget=0, max_slots=s)
+            self.placement_sched = DynamicScheduler(
+                ep=1, n_experts=cfg.moe.n_experts, n_layers=1, cfg=pcfg,
+                placements=[moe_mod.round_robin_placement(
+                    cfg.moe.n_experts, 1, s)])
+        self.n_migrations = 0
+        self.migration_log: list = []
 
     # ---- request-level API -------------------------------------------
     def add_request(self, prompt: tuple,
@@ -371,8 +407,57 @@ class Server:
                 self.proxy.on_decode_preempt(req, now)
             eng.preempted.clear()
         self._step_count += 1
+        self._maybe_placement_tick()
         if self._step_count % STAT_DRAIN_ROUNDS == 0:
             self.drain_decode_stats()
+
+    # ---- OmniPlacement closed loop -----------------------------------
+    def _maybe_placement_tick(self):
+        """One monitor tick every `placement_interval` decode rounds, on the
+        expert counts drained from every decode engine (the scheduler's
+        activation window is time-indexed)."""
+        if (self.placement_sched is None or self._step_count
+                % max(self.scfg.placement_interval, 1) != 0):
+            return
+        counts = None
+        for eng in self.decodes:
+            c = eng.take_moe_counts()           # fetch + reset the window
+            if c is not None:
+                counts = c if counts is None else counts + c
+        if counts is None:
+            return
+        plans = self.placement_sched.step(counts.sum(axis=0, keepdims=True))
+        if plans:
+            self._apply_migration(plans[0])
+
+    @torch.no_grad()
+    def _apply_migration(self, plan):
+        """Re-slot the MoE expert weights for `plan`'s slot layout and swap
+        the tables. Layer by layer and tensor by tensor, in place: each
+        expert's canonical rows are gathered through the OLD tables' first
+        replica, then scattered into the new slot layout (two slot-sized
+        temporaries at a time, never a copy of the stack)."""
+        old = self.tables
+        rr = old["rep_rank"][:, 0].long()
+        rs = old["rep_slot"][:, 0].long()
+        new_se = np.asarray(plan.new_slot_expert)
+        for p in self.params["layers"]:
+            for k in ("moe_w1", "moe_w3", "moe_w2"):
+                if k in p:
+                    p[k].copy_(moe_mod.slots_from_canonical(p[k][rr, rs],
+                                                            new_se))
+        self.tables = tables_from_placement_from_slots(
+            new_se, self.placement.device)
+        for eng in self.prefills + self.decodes:
+            eng.tables = self.tables
+        self.n_migrations += 1
+        hist = self.placement_sched.history[-1] \
+            if self.placement_sched is not None and \
+            self.placement_sched.history else {}
+        self.migration_log.append({
+            "step": self._step_count,
+            "b_before": float(hist.get("b", 0.0)),
+            "b_after": float(hist.get("b_sim", 0.0))})
 
     def drain_decode_stats(self):
         """Fold the decode engines' device-side online-sparsity and
@@ -423,6 +508,8 @@ class Server:
         self.drain_decode_stats()
         summary = self.metrics.summary(wall)
         summary["wall_s"] = wall
+        summary["n_migrations"] = self.n_migrations
+        summary["migration_log"] = list(self.migration_log)
         summary["idle_slept_s"] = self._idle_slept_s
         summary["prefill_stats"] = [e.stats for e in self.prefills]
         summary["decode_stats"] = [e.stats for e in self.decodes]

@@ -4,8 +4,8 @@ Engine counters that accumulate on the device (a tensor in the decode
 engine's slot-state dict that each step adds to) are fetched and reset only
 at monitor ticks or at the end of a run, never in the per-step loop, so a
 decode step keeps exactly one device→host fetch (`host_fetches == steps`).
-No accumulator is installed on this slice's main path; the helper is the
-one implementation later slices (sparsity, MoE counts, speculation) use.
+The online-sparsity, speculation and MoE expert-count windows all drain
+through this one helper.
 """
 from __future__ import annotations
 

@@ -64,8 +64,8 @@ def test_no_jax_or_repro_import_in_source(path):
 
 def test_every_slice_module_is_checked():
     """The import check above walks the package; the modules of each slice
-    (paged serving, the OmniAttn ring path, online top-k and SpecPlane)
-    are among the ones it loads."""
+    (paged serving, the OmniAttn ring path, online top-k and SpecPlane,
+    MoE with OmniPlacement) are among the ones it loads."""
     mods = set(_modules())
     for m in ("repro_torch.kernels.paged_decode",
               "repro_torch.kernels.sink_decode",
@@ -73,5 +73,10 @@ def test_every_slice_module_is_checked():
               "repro_torch.kernels.spec_verify",
               "repro_torch.serving.sparsity", "repro_torch.serving.spec",
               "repro_torch.core.omniattn.fidelity",
-              "repro_torch.core.omniattn.search"):
+              "repro_torch.core.omniattn.search",
+              "repro_torch.kernels.moe_gmm", "repro_torch.models.moe",
+              "repro_torch.configs.qwen2_moe_a2_7b",
+              "repro_torch.core.placement.static",
+              "repro_torch.core.placement.dynamic",
+              "repro_torch.core.placement.migration"):
         assert m in mods, m

@@ -10,7 +10,9 @@ Tolerances: float32 1e-4 for the paged kernels (spec_verify among them)
 and 2e-5 for flash_prefill and sink_decode (the same math, sums in another
 order), bfloat16 2e-2 (one bf16 rounding of the output); block_topk scores
 are float32 in both dtypes, 1e-5 relative and 1e-4 absolute (sums of h
-products in another order), with NEG_INF entries equal exactly.
+products in another order), with NEG_INF entries equal exactly; moe_gmm
+float32 1e-4 over weights of the model's scale (std 0.02), bfloat16 2e-2,
+with rows past n_valid exactly zero.
 """
 import numpy as np
 import pytest
@@ -20,6 +22,7 @@ from repro_torch.kernels.block_topk import (block_topk_scores,
                                             block_topk_scores_plain)
 from repro_torch.kernels.flash_prefill import (flash_prefill,
                                                flash_prefill_plain)
+from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_plain
 from repro_torch.kernels.paged_decode import paged_decode, paged_decode_plain
 from repro_torch.kernels.paged_prefill import (paged_prefill,
                                                paged_prefill_plain)
@@ -215,6 +218,39 @@ def test_spec_verify_kernel_matches_plain(cuda, dtype, bs, S, G, h, nb):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,C,D,F,nv", [
+    (2, 32, 64, 48, None), (4, 64, 128, 96, None), (1, 16, 32, 32, None),
+    (3, 40, 50, 130, (0, 40, 33)),              # edges: n_valid 0 and C
+    (60, 8, 2048, 1408, "decode"),              # full width, w1/w3 at decode
+    (60, 8, 1408, 2048, "decode"),              # w2 at decode
+    (60, 24, 2048, 1408, "prefill")])           # a 128-token prefill chunk
+def test_moe_gmm_kernel_matches_plain(cuda, dtype, S, C, D, F, nv):
+    from repro_torch.device import set_precision_policy
+    set_precision_policy()
+    rng = np.random.default_rng(S + C + D)
+    x = _rand(rng, (S, C, D), dtype, cuda)
+    w = (_rand(rng, (S, D, F), torch.float32, cuda) * 0.02).to(dtype)
+    if nv is None:
+        nv = rng.integers(0, C + 1, S)
+    elif nv == "decode":            # 6 tokens x top-4 over 60 slots
+        nv = np.zeros(S, np.int64)
+        nv[rng.choice(S, 24, replace=False)] = rng.integers(1, 3, 24)
+    elif nv == "prefill":           # 512 assignments, capacity 24
+        nv = np.minimum(rng.multinomial(512, np.full(S, 1 / S)), C)
+    n_valid = torch.tensor(np.asarray(nv), dtype=torch.int32, device=cuda)
+    x = x * (torch.arange(C, device=cuda)[None, :, None]
+             < n_valid.long()[:, None, None]).to(dtype)
+    got = moe_gmm(x, w, n_valid)
+    torch.cuda.synchronize()
+    want = moe_gmm_plain(x, w, n_valid)
+    assert got.dtype == dtype and got.shape == (S, C, F)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    for s in range(S):
+        assert not got[s, int(nv[s]):].any()
+
+
+@pytest.mark.gpu
 def test_kernel_rejects_unsupported_inputs(cuda):
     q = torch.zeros((1, 1, 2, 48), device=cuda)       # h=48: no kernel
     kp = torch.zeros((2, 1, 8, 48), device=cuda)
@@ -242,6 +278,10 @@ def test_kernel_rejects_unsupported_inputs(cuda):
                                       dtype=torch.bfloat16),
                           tb, torch.ones(1, dtype=torch.int32, device=cuda),
                           block_size=8)
+    with pytest.raises(ValueError):                   # mixed dtypes
+        moe_gmm(torch.zeros((1, 8, 32), device=cuda),
+                torch.zeros((1, 32, 8), device=cuda, dtype=torch.bfloat16),
+                torch.ones(1, dtype=torch.int32, device=cuda))
     with pytest.raises(ValueError):                   # window rows % S
         spec_verify(torch.zeros((1, 1, 7, 32), device=cuda),
                     torch.zeros((1, 1, 2, 32), device=cuda),

@@ -97,7 +97,7 @@ def test_paged_prefill_and_decode_logits_match(models, chunk, bs):
         toks = prompt[cur:cur + cl] + [0] * (chunk - cl)
         jcache, jl = jprefill(params, jnp.asarray([toks], jnp.int32), jcache,
                               jnp.int32(cl), tbl_j)
-        tcache, tl = tlm.prefill_resume(
+        tcache, tl, _ = tlm.prefill_resume(
             tparams, torch.tensor([toks], dtype=torch.int32), tcache,
             chunk_len=cl, block_tables=tbl_t)
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
@@ -140,5 +140,11 @@ def test_unsupported_configs_raise():
         TLM.build(tcfg.with_updates(omniattn_topk_blocks=2, attn_period=2),
                   pattern=[0, 0], device="cpu")
     from repro_torch.configs import get_config
+    with pytest.raises(NotImplementedError):            # not registered
+        get_config("qwen3-moe-235b-a22b")
+    # MoE serves, but not with online top-k
+    mcfg = t_reduced_config("qwen2-moe-a2.7b")
+    TLM.build(mcfg, pattern=[0, 0], device="cpu")
     with pytest.raises(NotImplementedError):
-        get_config("qwen2-moe-a2.7b")
+        TLM.build(mcfg.with_updates(omniattn_topk_blocks=2), pattern=[0, 0],
+                  device="cpu")

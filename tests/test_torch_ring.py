@@ -121,9 +121,9 @@ def test_prefill_then_decode_logits_match(models, n):
     jcache, jl, _ = jax.jit(lambda p, t, tl: lm.prefill(
         p, {"tokens": t}, max_len=MAX_LEN, true_len=tl))(
         params, jnp.asarray([padded], jnp.int32), jnp.int32(n))
-    tcache, tl = tlm.prefill(tparams,
-                             torch.tensor([padded], dtype=torch.int32),
-                             max_len=MAX_LEN, true_len=n)
+    tcache, tl, _ = tlm.prefill(tparams,
+                                torch.tensor([padded], dtype=torch.int32),
+                                max_len=MAX_LEN, true_len=n)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
     assert tcache["pos"] == n == int(jcache["pos"])
     for jl_, tl_ in zip(_j_layers(lm.plan, jcache), tcache["layers"]):
@@ -160,7 +160,7 @@ def test_paged_decode_over_rings_matches(models):
     dense, first = [], []
     for toks in seqs:
         n = len(toks)
-        c, lg = tlm.prefill(tparams, torch.tensor(
+        c, lg, _ = tlm.prefill(tparams, torch.tensor(
             [toks + [0] * (_bucket(n) - n)], dtype=torch.int32),
             max_len=MAX_LEN, true_len=n)
         dense.append(c)

@@ -281,9 +281,9 @@ def test_lm_verify_logits_match_jax(small):
         p, c, t, ps, block_tables=bt))(params, jcache, jnp.asarray(window),
                                        jnp.asarray(pos), jnp.asarray(tables))
     before = [e["k"].clone() for e in tarena]
-    tl, tstaged = tlm.verify(tparams, tcache, torch.from_numpy(window),
-                             torch.from_numpy(pos),
-                             block_tables=torch.from_numpy(tables))
+    tl, tstaged, _ = tlm.verify(tparams, tcache, torch.from_numpy(window),
+                                torch.from_numpy(pos),
+                                block_tables=torch.from_numpy(tables))
     assert tl.shape == (B, S, cfg.vocab_size)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **LOGIT_TOL)
     for e, k0 in zip(tarena, before):             # read-only
