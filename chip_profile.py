@@ -9,7 +9,10 @@ shared-prefix workload), `default-pattern` (phase 5: the default OmniAttn
 pattern, whole-prompt prefill, the long-prompt workload) in both KV
 layouts, `topk` (phase 6: 28 full layers, six 3,968-token prompts) with
 online top-k off and at topk_frac 0.25 — `paged_decode` per call over the
-full 256-wide table against the compacted one — and `moe-full` (phase 8:
+full 256-wide table against the compacted one — `all-full-quant` (phase 9
+(a): phase 3's server on int8 arenas, QuantPlane, phase 3's traffic with 24
+new tokens and a sampled request; the same server on float32 arenas first,
+on the same traffic), and `moe-full` (phase 8:
 full-width qwen2-moe-a2.7b, float32, the shared-prefix workload with 16 new
 tokens each, OmniPlacement's monitor every 4 decode rounds).
 Each runs its workload three times: a warm-up, a measured run without the
@@ -30,7 +33,8 @@ import torch
 
 import chip_smoke as cs
 
-CELLS = ("all-full", "default-pattern", "topk", "moe-full")
+CELLS = ("all-full", "default-pattern", "topk", "all-full-quant",
+         "moe-full")
 KERNELS = ("paged_decode", "paged_prefill", "block_topk", "spec_verify",
            "flash_prefill", "sink_decode", "moe_gmm")
 CATEGORIES = (("moe_gmm", ("moe_gmm_kernel",)),
@@ -61,6 +65,41 @@ def dev_time(evt) -> float:
         if hasattr(evt, attr):
             return float(getattr(evt, attr))
     return 0.0
+
+
+def count_decode_ops(srv) -> dict:
+    """aten ops one `LM.decode` step dispatches with this server's model and
+    arena type (float or int8, QuantPlane), six slots over fresh arenas:
+    {"total": n, "by_op": {op: n}}. Counted with a TorchDispatchMode, so
+    views are included; each op the step dispatches costs host time."""
+    from collections import Counter
+
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.models.stack import alloc_arena_kv
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.n = Counter()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n[str(func.overloadpacket)] += 1
+            return func(*args, **(kwargs or {}))
+
+    lm, dev = srv.lm, srv.lm.device
+    B, nb = 6, 4
+    cache = {"layers": alloc_arena_kv(lm.cfg, lm.plan, B * nb + 1, 16, dev,
+                                      quant=srv.kv_arena.quant), "pos": 0}
+    tables = torch.arange(1, B * nb + 1, dtype=torch.int32,
+                          device=dev).reshape(B, nb)
+    tok = torch.zeros((B, 1), dtype=torch.int32, device=dev)
+    pos = torch.full((B, 1), 15, dtype=torch.int32, device=dev)
+    mode = Count()
+    with mode:
+        lm.decode(srv.params, cache, tok, pos, block_tables=tables)
+    torch.cuda.synchronize()
+    return {"total": sum(mode.n.values()), "by_op": dict(mode.n)}
 
 
 def profile(srv, workload, smi: str, label: str) -> dict:
@@ -200,6 +239,28 @@ def main() -> int:
             rep["topk"][name] = profile(srv, topk_prompts, smi,
                                         f"online top-k {name}, 28 full "
                                         f"layers")
+            del srv
+            torch.cuda.empty_cache()
+
+    if "all-full-quant" in cells:
+        from repro_torch.serving.quant import QuantConfig
+
+        def quant_traffic(seed):
+            return cs.quant_workload(cfg.vocab_size, seed=seed)
+
+        # the float32 arenas on the same traffic first: what the int8
+        # writes add to a decode round shows against them, in one call
+        rep["all_full_quant"] = {}
+        for name, quant in (("float32", None), ("int8", QuantConfig())):
+            srv = cs.build_server(cfg, True, dev, params=weights, quant=quant)
+            weights = srv.params
+            rep["all_full_quant"][name] = profile(
+                srv, quant_traffic, smi,
+                f"all-full-quant traffic, {name} arenas")
+            ops = count_decode_ops(srv)
+            rep["all_full_quant"][name]["decode_step_aten_ops"] = ops
+            print(f"  one decode step ({cfg.n_layers} layers, 6 slots) "
+                  f"dispatches {ops['total']} aten ops")
             del srv
             torch.cuda.empty_cache()
 

@@ -10,7 +10,11 @@ Phases (any failure raises, so the script exits non-zero):
      float32 and bfloat16, and time kernel, plain version and one library
      call on the same data (`library_ms`, a yardstick only: the port never
      calls it — `scaled_dot_product_attention` for the attention kernels,
-     `torch.bmm` over every slot for moe_gmm; block_topk has none);
+     `torch.bmm` over every slot for moe_gmm; block_topk has none); and the
+     int8 paths (QuantPlane) of paged_decode, paged_prefill and spec_verify
+     over arenas written by the port's int8 write path, at the reference
+     quant sweep shapes and the full-width shapes, timed against their plain
+     versions and dequantize-then-SDPA;
   3. serve the bench's shared-prefix workload on full-width qwen2-1.5b
      (28 layers, float32, every layer full attention) through
      `Server.generate`, with the launch counters zeroed just before and
@@ -20,8 +24,10 @@ Phases (any failure raises, so the script exits non-zero):
   4. cross-check reduced-width servers on the card against the same servers
      on the CPU (plain versions): identical greedy streams, logits within
      2e-3 — all-full-attention chunked paged, the default OmniAttn pattern
-     in both KV layouts, and a full/window stack with online top-k (equal
-     sparsity stats) and with speculative decoding (the ring commit);
+     in both KV layouts, a full/window stack with online top-k (equal
+     sparsity stats) and with speculative decoding (the ring commit), and
+     int8 arenas alone, with speculation and with online top-k (summary and
+     scale invariants on both devices);
   5. serve full-width qwen2-1.5b under the default OmniAttn pattern
      (`pattern=None`: 21 layers sink 128 + recent 4096, 7 full) with
      whole-prompt prefill, once with paged KV (flash_prefill + paged_decode)
@@ -51,7 +57,17 @@ Phases (any failure raises, so the script exits non-zero):
      ep = 1; (b) the same traffic through add_request/step with a forced
      migration that reverses the slot order halfway through decode: every
      greedy stream equal to (a)'s bit for bit; (c) layer 0's moe_ffn on a
-     real prefill chunk's hidden states against the dense oracle.
+     real prefill chunk's hidden states against the dense oracle;
+  9. serve full-width qwen2-1.5b on int8 arenas (`quant=QuantConfig()`):
+     (a) phase 3's traffic with 24 new tokens and a sampled request through
+     `Server.generate`, checking completion, one host fetch per step, pool,
+     summary and scale invariants, int8 launches == chunks x 28 / steps x
+     28 and the block-bytes reckoning (int8 13,568 / float32 35,840 per
+     layer), with the float32 server's streams reported beside; (b) phase
+     7's prompts without and with SpecConfig(k=4) (streams equal, int8
+     spec_verify launches == verify steps x 28); (c) (a)'s traffic on a pool
+     cut until a request is preempted (greedy streams equal (a)'s bit for
+     bit through the int8 sidecar).
 The last line of standard output is {"ok": true, "device": {...}}; the line
 before it is the per-kernel JSON record; the card's name and power limit
 (nvidia-smi) come before that. Details go to chiprun_out/chip_smoke.json.
@@ -110,6 +126,11 @@ P7_PHRASE, P7_REPEAT, P7_NEW, P7_K = 32, 8, 48, 4
 MOE_DECODE, MOE_DECODE_W2 = (8, 2048, 1408, 6), (8, 1408, 2048, 6)
 MOE_PREFILL = (24, 2048, 1408, 128)
 P8_NEW, P8_LAYERS = 16, 24
+# phase 9 (QuantPlane, full-width qwen2-1.5b on int8 arenas): phase 3's
+# traffic with 24 new tokens, so every stream crosses a block boundary in
+# decode; (c) cuts the pool from 320 blocks to P9_PREEMPT_BLOCKS (and lower
+# until a request is preempted)
+P9_NEW, P9_PREEMPT_BLOCKS = 24, 96
 
 def nvidia_smi() -> str:
     res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -169,13 +190,24 @@ def prefill_inputs(dev, dtype, B, K, S, G, h, bs, nb, N, off, cl, seed):
     return q, kn, vn, kp, vp, tables, off, cl
 
 
+def block_bytes(kp):
+    """Bytes one resident block moves per kv head, K and V together: the
+    payload, plus on int8 arenas the block's float32 scale rows (h seal
+    scales + bs token scales, each for K and V)."""
+    bs, h = kp.shape[2], kp.shape[3]
+    nbytes = 2 * bs * h * kp.element_size()
+    if kp.dtype == torch.int8:
+        nbytes += 2 * (h + bs) * 4
+    return nbytes
+
+
 def decode_bound(q, kp, tables, lens):
     B, K, G, h = q.shape
     bs, e = kp.shape[2], q.element_size()
     ln = lens.cpu().numpy().astype(np.int64)
     blocks = np.minimum(-(-ln // bs), tables.shape[1]).sum()
     nbytes = (2 * q.numel() * e + tables.numel() * 4 + lens.numel() * 4
-              + 2 * int(blocks) * K * bs * h * e)
+              + int(blocks) * K * block_bytes(kp))
     flops = 4 * K * G * h * int(ln.sum())
     return bound(nbytes, flops, q.dtype)
 
@@ -192,7 +224,7 @@ def prefill_bound(q, kn, kp, tables, off, cl):
     visible = sum(int(G * (ob + np.minimum(i + 1, cb)).sum())
                   for ob, cb in zip(o, c))               # keys per row, summed
     nbytes = (2 * q.numel() * e + 2 * kn.numel() * e + tables.numel() * 4
-              + 8 * B + 2 * int(blocks) * K * bs * h * e)
+              + 8 * B + int(blocks) * K * block_bytes(kp))
     flops = 4 * K * h * visible
     return bound(nbytes, flops, q.dtype)
 
@@ -513,6 +545,213 @@ def check_sparse_kernels(dev, timer, log):
     return rec
 
 
+def int8_arena(dev, K, bs, h, N, tables, lens, seed):
+    """int8 pages and their scale plane, written by the port's own write
+    path (`quant_paged_prefill_write`): every block first holds a previous
+    owner's sealed content, then each row of `tables` is rewritten from
+    offset 0 with lens[b] tokens — each block it opens is unsealed on open,
+    full blocks seal, the tail stays per-token. → (k_pages, v_pages,
+    scale-plane kwargs)."""
+    from repro_torch.models import attention as attn_mod
+    g = torch.Generator(device=dev).manual_seed(seed)
+    e = {n: torch.zeros((N, K, bs, h), dtype=torch.int8, device=dev)
+         for n in ("k", "v")}
+    for n in ("k", "v"):
+        e[n + "scale"] = torch.zeros((N, K, h), device=dev)
+        e[n + "tok"] = torch.zeros((N, K, bs), device=dev)
+
+    def write(table, n_tok):          # 256-token chunks, as prefill writes
+        for o in range(0, n_tok, 256):
+            c = min(256, n_tok - o)
+            x = torch.randn((1, c, K, h), generator=g, device=dev)
+            y = torch.randn((1, c, K, h), generator=g, device=dev)
+            attn_mod.quant_paged_prefill_write(e, x, y, table, o, c)
+    write(torch.arange(1, N, dtype=torch.int32, device=dev)[None],
+          (N - 1) * bs)
+    for b, n_tok in enumerate(int(x) for x in lens):
+        write(tables[b:b + 1], n_tok)
+    sc = dict(k_scale=e["kscale"], k_tok=e["ktok"], v_scale=e["vscale"],
+              v_tok=e["vtok"])
+    return e["k"], e["v"], sc
+
+
+def sdpa_decode_int8(q, kq, vq, tables, lens, sc):
+    """The int8 decode yardstick, dequantize-then-SDPA: the tabled blocks
+    gathered and dequantized, then one scaled_dot_product_attention call,
+    both inside the timed call."""
+    import torch.nn.functional as F
+    from repro_torch.kernels._common import gather_kv
+    B, K, G, h = q.shape
+    nb, bs = tables.shape[1], kq.shape[2]
+    qh = q.reshape(B, K * G, 1, h)
+    mask = (torch.arange(nb * bs, device=q.device)[None]
+            < lens[:, None].long())[:, None, None, :]
+
+    def run():
+        k = gather_kv(kq, tables, sc["k_scale"], sc["k_tok"]).to(q.dtype)
+        v = gather_kv(vq, tables, sc["v_scale"], sc["v_tok"]).to(q.dtype)
+        return F.scaled_dot_product_attention(
+            qh, k.repeat_interleave(G, dim=1), v.repeat_interleave(G, dim=1),
+            attn_mask=mask)
+    return run
+
+
+def sdpa_prefill_int8(q, kn, vn, kq, vq, tables, off, cl, sc):
+    """The same for a prefill chunk or a verify window: dequantized history
+    ++ the chunk's keys, with the resident/causal/real-row mask."""
+    import torch.nn.functional as F
+    from repro_torch.kernels._common import gather_kv
+    B, K, SG, h = q.shape
+    S = kn.shape[2]
+    G = SG // S
+    nb, bs = tables.shape[1], kq.shape[2]
+    L = nb * bs
+    qh = q.reshape(B, K, S, G, h).permute(0, 1, 3, 2, 4).reshape(
+        B, K * G, S, h)
+    dev = q.device
+    o, c = off.long()[:, None, None], cl.long()[:, None, None]
+    pos = o + torch.arange(S, device=dev)[None, :, None]      # [B, S, 1]
+    th = torch.arange(L, device=dev)[None, None, :]
+    tc = torch.arange(S, device=dev)[None, None, :]
+    mask = torch.cat([(th < o).expand(B, S, L),
+                      (tc < c) & (o + tc <= pos)], dim=2)[:, None]
+
+    def run():
+        k = torch.cat([gather_kv(kq, tables, sc["k_scale"], sc["k_tok"])
+                       .to(q.dtype), kn], dim=2).repeat_interleave(G, dim=1)
+        v = torch.cat([gather_kv(vq, tables, sc["v_scale"], sc["v_tok"])
+                       .to(q.dtype), vn], dim=2).repeat_interleave(G, dim=1)
+        return F.scaled_dot_product_attention(qh, k, v, attn_mask=mask)
+    return run
+
+
+def check_quant_kernels(dev, timer, log):
+    """The int8 paths (QuantPlane) of paged_decode, paged_prefill and
+    spec_verify against their plain versions, q in float32 and bfloat16,
+    over arenas written by the port's int8 write path: the reference quant
+    sweep shapes (tests/test_kernels.py:394-470: bs 8/16, G 1/4), then the
+    full-width shapes — all-full decode (B=6, K=2, G=6, h=128, bs=16),
+    phase 3's prefill chunk, phase 7's verify window and the MoE attention
+    shape (K=16, G=1) — timed against the plain version and the
+    dequantize-then-SDPA yardstick, with the bound of the int8 bytes."""
+    from repro_torch.kernels.paged_decode import (paged_decode,
+                                                  paged_decode_plain)
+    from repro_torch.kernels.paged_prefill import (paged_prefill,
+                                                   paged_prefill_plain)
+    from repro_torch.kernels.spec_verify import (spec_verify,
+                                                 spec_verify_plain)
+    rec = {"paged_decode": {}, "paged_prefill": {}, "spec_verify": {}}
+
+    def cmp(name, got, want, dtype, cl=None, G=1):
+        got, want = got.float(), want.float()
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"{name}: non-finite kernel output")
+        if cl is not None:                       # real rows only
+            got = torch.cat([got[b, :, :c * G].reshape(-1)
+                             for b, c in enumerate(cl.cpu().tolist())])
+            want = torch.cat([want[b, :, :c * G].reshape(-1)
+                              for b, c in enumerate(cl.cpu().tolist())])
+        torch.testing.assert_close(got, want, **TOL[dtype], msg=name)
+        return float((got - want).abs().max())
+
+    def time_one(key, name, kern, plain, args, sc, bnd, lib, err):
+        rec[name][key] = {
+            "max_abs_err": err, "ms": timer(lambda: kern(*args, **sc)),
+            "plain_ms": timer(lambda: plain(*args, **sc)),
+            "library_ms": timer(lib), "library": "dequant+sdpa",
+            "bound_ms": bnd[0], "bound_by": bnd[1], "bytes": bnd[2],
+            "flops": bnd[3]}
+
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        worst = {"paged_decode": 0.0, "paged_prefill": 0.0,
+                 "spec_verify": 0.0}
+        for bs, nb in ((8, 6), (16, 4)):
+            for G in (1, 4):
+                a = decode_inputs(dev, dtype, 3, 2, G, 32, bs, nb, 24,
+                                  [1, max(nb * bs // 2 - 3, 1), nb * bs], 21)
+                kq, vq, sc = int8_arena(dev, 2, bs, 32, 24, a[3], a[4], 22)
+                args = (a[0], kq, vq, a[3], a[4])
+                worst["paged_decode"] = max(worst["paged_decode"], cmp(
+                    "paged_decode int8 sweep", paged_decode(*args, **sc),
+                    paged_decode_plain(*args, **sc), dtype))
+        for bs, S in ((8, 8), (16, 8)):
+            for G in (1, 4):
+                a = prefill_inputs(dev, dtype, 2, 2, S, G, 32, bs, 5, 24,
+                                   [0, 5 * bs // 2 - 3], [S, max(S - 3, 1)],
+                                   23)
+                kq, vq, sc = int8_arena(dev, 2, bs, 32, 24, a[5], a[6], 24)
+                args = (a[0], a[1], a[2], kq, vq, a[5], a[6], a[7])
+                worst["paged_prefill"] = max(worst["paged_prefill"], cmp(
+                    "paged_prefill int8 sweep", paged_prefill(*args, **sc),
+                    paged_prefill_plain(*args, **sc), dtype, a[7], G))
+        for bs, S in ((8, 4), (16, 5)):
+            for G in (1, 4):
+                a = prefill_inputs(dev, dtype, 3, 2, S, G, 32, bs, 4, 20,
+                                   [0, bs + bs // 2 - 1, 4 * bs],
+                                   [S, max(S - 2, 1), 1], 25)
+                kq, vq, sc = int8_arena(dev, 2, bs, 32, 20, a[5], a[6], 26)
+                args = (a[0], a[1], a[2], kq, vq, a[5], a[6], a[7])
+                worst["spec_verify"] = max(worst["spec_verify"], cmp(
+                    "spec_verify int8 sweep", spec_verify(*args, **sc),
+                    spec_verify_plain(*args, **sc), dtype, a[7], G))
+        log.append(f"int8 {dn} sweeps (bs 8/16 x G 1/4, h=32, arenas from "
+                   f"the write path): max_abs_err paged_decode "
+                   f"{worst['paged_decode']:.3g}, paged_prefill "
+                   f"{worst['paged_prefill']:.3g}, spec_verify "
+                   f"{worst['spec_verify']:.3g}")
+        # full width: all-full decode, phase 3's chunk (and a padded one),
+        # phase 7's verify window, the MoE attention shape
+        for key, K, G in (("", 2, 6), ("_moe", 16, 1)):
+            dec = decode_inputs(dev, dtype, 6, K, G, 128, 16, 32, 321,
+                                [1, 17, 100, 255, 448, 512], 27)
+            kq, vq, sc = int8_arena(dev, K, 16, 128, 321, dec[3], dec[4], 28)
+            args = (dec[0], kq, vq, dec[3], dec[4])
+            err = cmp(f"paged_decode int8 main{key}",
+                      paged_decode(*args, **sc),
+                      paged_decode_plain(*args, **sc), dtype)
+            time_one(dn + key, "paged_decode", paged_decode,
+                     paged_decode_plain, args, sc,
+                     decode_bound(dec[0], kq, dec[3], dec[4]),
+                     sdpa_decode_int8(*args, sc), err)
+            pre = prefill_inputs(dev, dtype, 1, K, 128, G, 128, 16, 32, 321,
+                                 [384], [128], 29)
+            kq, vq, sc = int8_arena(dev, K, 16, 128, 321, pre[5], pre[6], 30)
+            args = (pre[0], pre[1], pre[2], kq, vq, pre[5], pre[6], pre[7])
+            err = cmp(f"paged_prefill int8 main{key}",
+                      paged_prefill(*args, **sc),
+                      paged_prefill_plain(*args, **sc), dtype)
+            time_one(dn + key, "paged_prefill", paged_prefill,
+                     paged_prefill_plain, args, sc,
+                     prefill_bound(pre[0], pre[1], kq, pre[5], pre[6],
+                                   pre[7]),
+                     sdpa_prefill_int8(*args, sc), err)
+            log.append(f"int8 {dn} main{key} (K={K}, G={G}, h=128, bs=16): "
+                       f"paged_decode max_abs_err "
+                       f"{rec['paged_decode'][dn + key]['max_abs_err']:.3g}, "
+                       f"paged_prefill S=128 off=384 max_abs_err {err:.3g}")
+        pad = prefill_inputs(dev, dtype, 1, 2, 128, 6, 128, 16, 32, 321,
+                             [200], [100], 31)
+        kq, vq, sc = int8_arena(dev, 2, 16, 128, 321, pad[5], pad[6], 32)
+        args = (pad[0], pad[1], pad[2], kq, vq, pad[5], pad[6], pad[7])
+        err = cmp("paged_prefill int8 padded", paged_prefill(*args, **sc),
+                  paged_prefill_plain(*args, **sc), dtype, pad[7], 6)
+        nbs, offs = SPEC_MAIN
+        sa = prefill_inputs(dev, dtype, 6, 2, P7_K + 1, 6, 128, 16, nbs, 321,
+                            offs, [P7_K + 1] * 6, 33)
+        kq, vq, sc = int8_arena(dev, 2, 16, 128, 321, sa[5], sa[6], 34)
+        args = (sa[0], sa[1], sa[2], kq, vq, sa[5], sa[6], sa[7])
+        err2 = cmp("spec_verify int8 main", spec_verify(*args, **sc),
+                   spec_verify_plain(*args, **sc), dtype, sa[7], 6)
+        time_one(dn, "spec_verify", spec_verify, spec_verify_plain, args, sc,
+                 prefill_bound(sa[0], sa[1], kq, sa[5], sa[6], sa[7]),
+                 sdpa_prefill_int8(*args, sc), err2)
+        log.append(f"int8 {dn}: paged_prefill off=200 cl=100 max_abs_err "
+                   f"{err:.3g}; spec_verify B=6 S={P7_K + 1} off={offs} "
+                   f"max_abs_err {err2:.3g}")
+    return rec
+
+
 def flash_bound(q, k, causal, window, sink):
     """Bytes and flops of one flash_prefill call: q, k, v read once, the
     output written once; 4·h flops per visible (query row, key) pair."""
@@ -773,14 +1012,17 @@ def workload(vocab, n=12, seed=7):
     return out, base
 
 
-def build_server(cfg, reuse, dev, params=None, spec=None, **placement):
+def build_server(cfg, reuse, dev, params=None, spec=None, kv_blocks=320,
+                 **extra):
+    """Phase 3's server; `extra` sets further ServerConfig knobs (the
+    placement monitor of phase 8, `quant` of phase 9)."""
     from repro_torch.core.proxy import OASConfig
     from repro_torch.serving import Server, ServerConfig
     scfg = ServerConfig(n_prefill=1, n_decode=1, decode_slots=6, max_len=512,
                         chunk_tokens=128, prefill_tick_budget=512,
-                        prefix_reuse=reuse, kv_blocks=320, kv_block_size=16,
-                        oas=OASConfig(defer_window=0.0), spec=spec,
-                        **placement)
+                        prefix_reuse=reuse, kv_blocks=kv_blocks,
+                        kv_block_size=16, oas=OASConfig(defer_window=0.0),
+                        spec=spec, **extra)
     return Server(cfg, scfg, pattern=[0] * cfg.n_layers, params=params,
                   seed=0, device=dev)
 
@@ -798,6 +1040,8 @@ def reset_stats(srv):
         for k in ("sparsity", "spec", "moe_counts"):  # device-side windows
             if k in e.state:
                 e.state[k].zero_()
+        if srv.quant_ctl is not None:     # static residency figures
+            srv.quant_ctl.note(e.stats)
 
 
 def drive(srv, prompts, params):
@@ -1133,7 +1377,8 @@ def cross_check_reduced(dev, log):
     return {"logits_max_abs_err": worst, "streams_identical": True,
             "default_pattern_logits_max_abs_err": worst4,
             "default_pattern_streams_identical": True,
-            **cross_check_sparse_spec(dev, log, cfg)}
+            **cross_check_sparse_spec(dev, log, cfg),
+            "quant": cross_check_quant(dev, log, cfg)}
 
 
 def cross_check_sparse_spec(dev, log, cfg):
@@ -1232,6 +1477,98 @@ def cross_check_sparse_spec(dev, log, cfg):
             "topk_mass_kept": t["attn_mass_kept"],
             "spec": {k: sp[k] for k in ("spec_drafted", "spec_accepted",
                                         "spec_verifies")}}
+
+
+def cross_check_quant(dev, log, cfg):
+    """Phase 4, continued: QuantPlane on the reduced config `cfg` of phase
+    4, card against CPU. Logits of a chunk and a decode step over int8
+    arenas within 2e-3; then phase 4's server and traffic (12 new tokens, so
+    every stream seals a block on the append path) with quant=QuantConfig()
+    — alone, with SpecConfig(k=4), and with online top-k (3-block budget,
+    mass measured) over the same int8 arenas: greedy streams identical
+    across the devices and to quant alone, and the pool, summary and scale
+    invariants green on both. The int8 bytes themselves are not compared
+    across devices: one rounding difference in a GEMM can move a value
+    across a rounding boundary."""
+    from repro_torch.core.proxy import OASConfig, SamplingParams
+    from repro_torch.models.lm import LM
+    from repro_torch.models.stack import alloc_arena_kv
+    from repro_torch.serving import DevicePlacement, Server, ServerConfig
+    from repro_torch.serving.quant import QuantConfig
+    from repro_torch.serving.spec import SpecConfig
+    cpu_lm = LM.build(cfg, pattern=[0, 0], device="cpu")
+    gpu_lm = LM.build(cfg, pattern=[0, 0], device=dev)
+    params = cpu_lm.init(seed=9)
+    gparams = DevicePlacement.of(dev).place_params(params)
+    rng = np.random.default_rng(5)
+    toks = rng.integers(0, cfg.vocab_size, (1, 40)).astype(np.int32)
+    row = np.arange(1, 9, dtype=np.int32)[None]
+    res = []
+    for lm, p, d in ((cpu_lm, params, "cpu"), (gpu_lm, gparams, dev)):
+        cache = {"layers": alloc_arena_kv(cfg, lm.plan, 12, 16, d,
+                                          quant=True), "pos": 0}
+        tb = torch.from_numpy(row).to(d)
+        cache, l1, _ = lm.prefill_resume(p, torch.from_numpy(toks).to(d),
+                                         cache, chunk_len=37,
+                                         block_tables=tb)
+        _, l2, _ = lm.decode(p, cache, torch.tensor([[7]], dtype=torch.int32,
+                                                    device=d),
+                             torch.tensor([[37]], dtype=torch.int32,
+                                          device=d), block_tables=tb)
+        res.append((l1.float().cpu(), l2.float().cpu()))
+    worst = max(float((a - b).abs().max()) for a, b in zip(*res))
+    for a, b in zip(res[0], res[1]):
+        torch.testing.assert_close(b, a, rtol=2e-3, atol=2e-3)
+    prompts, _ = workload(cfg.vocab_size, n=6, seed=9)
+    prompts = [q[-60:] for q in prompts]
+    base = dict(decode_slots=3, max_len=128, chunk_tokens=32,
+                prefill_tick_budget=64, kv_blocks=40, kv_block_size=8,
+                oas=OASConfig(defer_window=0.0), quant=QuantConfig())
+    topk = cfg.with_updates(omniattn_topk_blocks=3,
+                            omniattn_topk_measure_mass=True)
+    out = {}
+    for name, c, extra in (("quant", cfg, {}),
+                           ("quant_spec", cfg, dict(spec=SpecConfig(k=4))),
+                           ("quant_topk", topk, {})):
+        got = []
+        for d, p in (("cpu", params), (dev, gparams)):
+            srv = Server(c, ServerConfig(**base, **extra), pattern=[0, 0],
+                         params=p, device=d)
+            summ = srv.run([(q, SamplingParams(max_tokens=12))
+                            for q in prompts])
+            assert summ["n_done"] == len(prompts) and srv.kv_arena.quant
+            ds = summ["decode_stats"][0]
+            assert ds["host_fetches"] == ds["steps"] > 0, ds
+            srv.kv_arena.pool.check_invariants(arena=srv.kv_arena)
+            got.append(({r.rid: tuple(r.output_tokens)
+                         for r in srv.metrics.done}, summ))
+        (cs, csum), (gs, gsum) = got
+        assert cs == gs, f"{name}: card and CPU streams differ"
+        out[name] = (gs, gsum)
+        if name == "quant_spec":
+            for k in ("spec_drafted", "spec_accepted", "spec_verifies"):
+                assert gsum[k] == csum[k], (k, gsum[k], csum[k])
+            assert gsum["spec_verifies"] > 0
+        if name == "quant_topk":
+            for k in ("blocks_scored", "blocks_attended"):
+                assert gsum[k] == csum[k] > 0, (k, gsum[k], csum[k])
+            assert gsum["blocks_attended"] < gsum["blocks_scored"]
+            assert abs(gsum["attn_mass_kept"] - csum["attn_mass_kept"]) \
+                < 1e-4, (gsum["attn_mass_kept"], csum["attn_mass_kept"])
+    assert out["quant_spec"][0] == out["quant"][0], \
+        "speculation over int8 arenas changed the streams"
+    sp, t = out["quant_spec"][1], out["quant_topk"][1]
+    log.append(f"reduced width, int8 arenas: card vs CPU logits "
+               f"max_abs_err={worst:.3g}; served alone, with speculation "
+               f"k=4 ({sp['spec_accepted']}/{sp['spec_drafted']} drafts "
+               f"accepted) and with online top-k (blocks "
+               f"{t['blocks_attended']}/{t['blocks_scored']}, mass kept "
+               f"{t['attn_mass_kept']:.4f}): streams identical on card and "
+               f"CPU, summary and scale invariants hold on both")
+    return {"logits_max_abs_err": worst,
+            "spec": {k: sp[k] for k in ("spec_drafted", "spec_accepted",
+                                        "spec_verifies")},
+            "topk_blocks": [t["blocks_attended"], t["blocks_scored"]]}
 
 
 # ---- phase 6: online top-k at full width ------------------------------
@@ -1418,6 +1755,214 @@ def serve_spec(dev, log, cfg):
     del servers
     torch.cuda.empty_cache()
     return {"runs": out, "streams_identical": not ties, "near_ties": ties}
+
+# ---- phase 9: QuantPlane at full width -------------------------------
+def quant_workload(vocab, seed=7):
+    """Phase 3's 12 prompts (two of three a 384-token shared prefix + 64
+    tokens, the rest 16) with 24 new tokens each, plus one seeded sampled
+    request on the shared prefix: 13 requests for 6 slots."""
+    from repro_torch.core.proxy import SamplingParams
+    prompts, base = workload(vocab, seed=seed)
+    rng = np.random.default_rng(seed + 100)
+    prompts.append(base + tuple(int(t) for t in rng.integers(0, vocab, 64)))
+    params = [SamplingParams(max_tokens=P9_NEW)] * 12 + [SamplingParams(
+        temperature=0.9, top_k=64, top_p=0.95, seed=909,
+        max_tokens=P9_NEW)]
+    return prompts, params
+
+
+def quant_block_reckoning(cfg, bs=16):
+    """Bytes one arena block pins per full-attention layer: (int8, f32),
+    each with the float32 key summaries (kmin/kmax/kmean [K, h]); int8 adds
+    the scale plane (kscale/vscale [K, h], ktok/vtok [K, bs])."""
+    K, h = cfg.n_kv_heads, cfg.head_dim
+    summaries = 3 * K * h * 4
+    scales = 2 * (K * h + K * bs) * 4
+    return 2 * K * bs * h + scales + summaries, 2 * K * bs * h * 4 + summaries
+
+
+def serve_quant(dev, log, cfg):
+    """Phase 9 on `cfg` (full-width qwen2-1.5b in main()): phase 3's server
+    with quant=QuantConfig(), the counts zeroed just before each measured
+    run and read just after. (a) `Server.generate` on phase 3's traffic
+    with 24 new tokens and a sampled request; (b) phase 7's prompts without
+    and with SpecConfig(k=4); (c) (a)'s traffic on a pool cut until a
+    request is preempted. The float32 server's streams on (a)'s traffic
+    are reported beside (a)'s, not gated."""
+    from repro_torch.core.proxy import SamplingParams
+    from repro_torch.kernels.paged_decode import paged_decode
+    from repro_torch.kernels.paged_prefill import paged_prefill
+    from repro_torch.kernels.spec_verify import spec_verify
+    from repro_torch.serving.quant import QuantConfig
+    from repro_torch.serving.spec import SpecConfig
+    n_layers = cfg.n_layers
+    kerns = (paged_prefill, paged_decode, spec_verify)
+
+    def zero():
+        for k in kerns:
+            k.launches = k.int8_launches = 0
+
+    def counts():
+        return {k.__name__: {"launches": k.launches,
+                             "int8_launches": k.int8_launches}
+                for k in kerns}
+
+    def check_run(srv, streams, finished, n_new, n_req):
+        ds = srv.decodes[0].stats
+        assert len(finished) == n_req and all(
+            r == "length" for r in finished), finished
+        assert [len(x) for x in streams] == n_new, streams
+        assert ds["host_fetches"] == ds["steps"] > 0, ds
+        srv.kv_arena.pool.check_invariants(arena=srv.kv_arena)
+
+    prompts, params = quant_workload(cfg.vocab_size)
+    warm, _ = workload(cfg.vocab_size, seed=8)
+    t0 = time.monotonic()
+    srv = build_server(cfg, True, dev, quant=QuantConfig())
+    weights = srv.params
+    list(srv.generate(warm, SamplingParams(max_tokens=4)))
+    reset_stats(srv)
+    zero()
+    streams, finished, summ, wall = drive(srv, prompts, params)
+    launches = counts()
+    # copies: (b) reuses this server and resets its stats
+    ps, ds = dict(srv.prefills[0].stats), dict(srv.decodes[0].stats)
+    check_run(srv, streams, finished, [P9_NEW] * 13, 13)
+    assert ps["reused_tokens"] > 0 and ds["handoff_copy_bytes"] == 0, ps
+    if dev.type == "cuda":
+        pp, pd = launches["paged_prefill"], launches["paged_decode"]
+        assert pp["launches"] == pp["int8_launches"] \
+            == ps["chunks"] * n_layers > 0, (launches, ps)
+        assert pd["launches"] == pd["int8_launches"] \
+            == ds["steps"] * n_layers > 0, (launches, ds)
+    q_bytes, f_bytes = quant_block_reckoning(cfg)
+    assert srv.kv_arena.block_nbytes == q_bytes * n_layers, \
+        (srv.kv_arena.block_nbytes, q_bytes)
+    assert ds["quant_layers"] == n_layers
+    K, h = cfg.n_kv_heads, cfg.head_dim
+    assert ds["quant_block_bytes"] == \
+        (2 * K * 16 * h + 2 * (K * h + K * 16) * 4) * n_layers, ds
+    assert ds["quant_block_bytes_f32"] == 2 * K * 16 * h * 4 * n_layers, ds
+    sealed = int((srv.kv_arena.kv[0]["kscale"][1:] != 0).any(-1).any(-1)
+                 .sum())
+    log.append(f"(a) served in {time.monotonic() - t0:.1f} s; layer 0 holds "
+               f"{sealed} sealed blocks at the end")
+
+    # the float32 server on the same weights and traffic: report only
+    f32 = build_server(cfg, True, dev, params=weights)
+    list(f32.generate(warm, SamplingParams(max_tokens=4)))
+    reset_stats(f32)
+    f32_streams, _, f32_summ, f32_wall = drive(f32, prompts, params)
+    ratio = srv.kv_arena.block_nbytes / f32.kv_arena.block_nbytes
+    assert f32.kv_arena.block_nbytes == f_bytes * n_layers
+    differ = []
+    for r in range(12):
+        a, b = streams[r], f32_streams[r]
+        if a != b:
+            i = next(j for j in range(len(a)) if a[j] != b[j])
+            differ.append({"request": r, "token": i, "f32_top2_margin":
+                           top2_margin(f32, prompts[r], b, i)})
+    log.append(f"(a) against the float32 server: {12 - len(differ)}/12 "
+               f"greedy streams equal; differing: {differ}")
+    del f32
+    torch.cuda.empty_cache()
+
+    # (b) speculation over int8 arenas, on phase 7's prompts
+    sp_prompts, sp_params = spec_workload(cfg.vocab_size)
+    sp_warm, _ = spec_workload(cfg.vocab_size, seed=42)
+    spec_out, spec_streams = {}, {}
+    servers = {"spec_off": srv}
+    servers["spec_on"] = build_server(cfg, True, dev, params=weights,
+                                      spec=SpecConfig(k=P7_K),
+                                      quant=QuantConfig())
+    for name, s2 in servers.items():
+        list(s2.generate(sp_warm[:2], SamplingParams(max_tokens=8)))
+        reset_stats(s2)
+        zero()
+        st, fin, sm, w = drive(s2, sp_prompts, sp_params)
+        ln = counts()
+        check_run(s2, st, fin, [P7_NEW] * 6 + [16], 7)
+        d2 = s2.decodes[0].stats
+        verifies = d2.get("spec_verifies", 0)
+        if dev.type == "cuda":
+            sv, pd = ln["spec_verify"], ln["paged_decode"]
+            assert sv["launches"] == sv["int8_launches"] \
+                == verifies * n_layers, (ln, d2)
+            assert pd["launches"] == pd["int8_launches"] \
+                == (d2["steps"] - verifies) * n_layers, (ln, d2)
+        if name == "spec_on":
+            assert verifies > 0
+        spec_streams[name] = st
+        spec_out[name] = {"launches": ln, "decode_steps": d2["steps"],
+                          "verify_steps": verifies,
+                          "spec": {k: sm.get(k) for k in (
+                              "spec_drafted", "spec_accepted",
+                              "draft_acceptance", "tokens_per_verify")},
+                          "metrics": {k: sm[k] for k in (
+                              "n_done", "ttft_mean", "tpot_mean_ms",
+                              "tpot_p99_ms", "ott_tok_s")}
+                          | {"wall_s": w}}
+    ties = []
+    for r, (a, b) in enumerate(zip(spec_streams["spec_on"],
+                                   spec_streams["spec_off"])):
+        if a == b:
+            continue
+        i = next(j for j in range(len(a)) if a[j] != b[j])
+        margin = top2_margin(srv, sp_prompts[r], b, i) if r < 6 else 0.0
+        log.append(f"(b) request {r}: spec on/off differ at token {i}, "
+                   f"top-2 logit margin {margin:.3g}")
+        if r == 6 or margin >= 1e-4:
+            raise AssertionError(f"int8 stream {r} differs with speculation "
+                                 f"on and off at token {i}")
+        ties.append({"request": r, "token": i, "margin": margin})
+    del servers["spec_on"]
+    torch.cuda.empty_cache()
+
+    # (c) forced preemption: the int8 sidecar makes the round trip exact
+    kv_blocks, pre = P9_PREEMPT_BLOCKS, None
+    while True:
+        s3 = build_server(cfg, True, dev, params=weights, kv_blocks=kv_blocks,
+                          quant=QuantConfig())
+        reset_stats(s3)
+        st3, fin3, sm3, w3 = drive(s3, prompts, params)
+        d3 = s3.decodes[0].stats
+        check_run(s3, st3, fin3, [P9_NEW] * 13, 13)
+        if d3["preemptions"] >= 1:
+            pre = {"kv_blocks": kv_blocks, "preemptions": d3["preemptions"],
+                   "defers": s3.prefills[0].stats["defers"],
+                   "decode_steps": d3["steps"], "wall_s": w3}
+            break
+        del s3
+        kv_blocks -= 8
+        assert kv_blocks >= 40, "no preemption down to 40 blocks"
+    assert st3[:12] == streams[:12], \
+        "preempted int8 streams differ from the unpreempted ones"
+    pre["sampled_stream_equal"] = st3[12] == streams[12]
+    log.append(f"(c) kv_blocks={kv_blocks}: {d3['preemptions']} "
+               f"preemptions, greedy streams equal (a)'s bit for bit; "
+               f"sampled stream equal {pre['sampled_stream_equal']}")
+    del s3, srv
+    torch.cuda.empty_cache()
+    return {"launches": launches, "prefill_chunks": ps["chunks"],
+            "decode_steps": ds["steps"], "host_fetches": ds["host_fetches"],
+            "reused_tokens": ps["reused_tokens"],
+            "block_nbytes": {"int8": q_bytes * n_layers,
+                             "float32": f_bytes * n_layers, "ratio": ratio},
+            "quant_stats": {k: ds[k] for k in (
+                "quant_layers", "quant_block_bytes",
+                "quant_block_bytes_f32")},
+            "sealed_blocks_layer0": sealed,
+            "metrics": {k: summ[k] for k in (
+                "n_done", "ttft_mean", "ttft_p99", "tpot_mean_ms",
+                "tpot_p99_ms", "ott_tok_s", "ttt_tok_s")} | {"wall_s": wall},
+            "f32_metrics": {k: f32_summ[k] for k in (
+                "ttft_mean", "tpot_mean_ms", "ott_tok_s")}
+            | {"wall_s": f32_wall},
+            "vs_f32": {"equal": 12 - len(differ), "differ": differ},
+            "spec": spec_out, "spec_near_ties": ties,
+            "preemption": pre,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
 
 # ---- phase 8: MoE with OmniPlacement ---------------------------------
 def moe_full_config():
@@ -1664,18 +2209,20 @@ def main() -> int:
     kern.update(check_dense_kernels(dev, timer, log))
     kern.update(check_sparse_kernels(dev, timer, log))
     kern.update(check_moe_kernels(dev, timer, log))
+    kern_q = check_quant_kernels(dev, timer, log)
     print(f"phase 2: kernels agree with their plain versions on the card "
           f"[{time.monotonic() - t0:.1f} s since the start]")
     for line in log:
         print("  " + line)
-    for name, by in kern.items():
-        for dn, r in by.items():
-            lib = "no library call" if r["library_ms"] is None else \
-                f"{r['library_ms']:.4f} ms " + (
-                    "torch.bmm" if name == "moe_gmm" else "sdpa")
-            print(f"  {name} {dn} main shape: {r['ms']:.4f} ms kernel, "
-                  f"{r['plain_ms']:.4f} ms plain, {lib}, bound "
-                  f"{r['bound_ms']:.4f} ms ({r['bound_by']}) [{smi}]")
+    for path, recs in (("", kern), (" int8", kern_q)):
+        for name, by in recs.items():
+            for dn, r in by.items():
+                lib = "no library call" if r["library_ms"] is None else \
+                    f"{r['library_ms']:.4f} ms " + r.get("library", (
+                        "torch.bmm" if name == "moe_gmm" else "sdpa"))
+                print(f"  {name}{path} {dn} main shape: {r['ms']:.4f} ms "
+                      f"kernel, {r['plain_ms']:.4f} ms plain, {lib}, bound "
+                      f"{r['bound_ms']:.4f} ms ({r['bound_by']}) [{smi}]")
     log.clear()
     torch.cuda.empty_cache()
 
@@ -1821,8 +2368,47 @@ def main() -> int:
           f"bit; sampled streams identical "
           f"{mg['sampled_streams_identical']} [{smi}]")
 
-    report.update(kernels=kern, serve=served, default_pattern=omni,
-                  topk=topk, spec=spec, moe=moe)
+    log.clear()
+
+    # phase 9 runs once phase 8's MoE weights are gone
+    gc.collect()
+    torch.cuda.empty_cache()
+    quant = serve_quant(dev, log, cfg)
+    qm, ql = quant["metrics"], quant["launches"]
+    print(f"phase 9 [{time.monotonic() - t0:.1f} s]: full-width qwen2-1.5b "
+          f"on int8 arenas (QuantPlane), 28 full layers")
+    for line in log:
+        print("  " + line)
+    print(f"  (a) chunks {quant['prefill_chunks']} x {cfg.n_layers} = "
+          f"{ql['paged_prefill']['int8_launches']} int8 paged_prefill "
+          f"launches; steps {quant['decode_steps']} x {cfg.n_layers} = "
+          f"{ql['paged_decode']['int8_launches']} int8 paged_decode "
+          f"launches; host_fetches {quant['host_fetches']}; block bytes "
+          f"{quant['block_nbytes']['int8']} / "
+          f"{quant['block_nbytes']['float32']} = "
+          f"{quant['block_nbytes']['ratio']:.4f}; quant_block_bytes "
+          f"{quant['quant_stats']['quant_block_bytes']}")
+    print(f"  (a) TTFT mean {qm['ttft_mean'] * 1e3:.2f} ms p99 "
+          f"{qm['ttft_p99'] * 1e3:.2f} ms, TPOT mean {qm['tpot_mean_ms']:.2f}"
+          f" ms p99 {qm['tpot_p99_ms']:.2f} ms, {qm['ott_tok_s']:.1f} output "
+          f"tok/s over {qm['wall_s']:.2f} s; float32 server on the same "
+          f"traffic: TTFT mean {quant['f32_metrics']['ttft_mean'] * 1e3:.2f}"
+          f" ms, TPOT mean {quant['f32_metrics']['tpot_mean_ms']:.2f} ms "
+          f"[{smi}]")
+    for name, r in quant["spec"].items():
+        m, sp = r["metrics"], r["spec"]
+        print(f"  (b) {name}: {r['decode_steps']} steps, "
+              f"{r['launches']['spec_verify']['int8_launches']} int8 "
+              f"spec_verify + {r['launches']['paged_decode']['int8_launches']}"
+              f" int8 paged_decode launches; drafts accepted "
+              f"{sp['spec_accepted']}/{sp['spec_drafted']}; TPOT mean "
+              f"{m['tpot_mean_ms']:.2f} ms [{smi}]")
+    print(f"  (b) streams equal with speculation on and off (near-ties "
+          f"{quant['spec_near_ties']}); (c) {quant['preemption']}")
+
+    report.update(kernels=kern, kernels_int8=kern_q, serve=served,
+                  default_pattern=omni, topk=topk, spec=spec, moe=moe,
+                  quant=quant)
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 
@@ -1842,23 +2428,41 @@ def main() -> int:
              sum(r["launches"]["block_topk"]
                  for r in topk["runs"].values())),
             ("moe_gmm", "moe_gmm", "float32", moe["launches"]["moe_gmm"]))
+    # the int8 paths' launches come from phase 9: (a) for the prefill and
+    # decode kernels, (b)'s speculative run for spec_verify
+    int8_launches = {
+        "paged_decode": quant["launches"]["paged_decode"]["int8_launches"],
+        "paged_prefill": quant["launches"]["paged_prefill"]["int8_launches"],
+        "spec_verify": quant["spec"]["spec_on"]["launches"]["spec_verify"][
+            "int8_launches"]}
     line = {"kernels": []}
     for name, key, dn, launches in rows:
         r = kern[key][dn]
-        line["kernels"].append({
+        entry = {
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": REPLACES[name], "launches": launches,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "dtype": "float32"})
+            "dtype": "float32"}
+        if name in int8_launches:
+            q8 = kern_q[name]["float32"]
+            entry["int8"] = {k: q8[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "library", "max_abs_err")} | {
+                "launches": int8_launches[name]}
+        line["kernels"].append(entry)
     for k in line["kernels"]:
-        for key in ("max_abs_err", "ms", "plain_ms", "bound_ms"):
-            if not math.isfinite(k[key]):
-                raise AssertionError(f"{k['name']}: {key} is not finite")
-        if k["launches"] <= 0:
-            raise AssertionError(f"{k['name']}: no launch on the main path")
+        for rec in (k, k.get("int8")):
+            if rec is None:
+                continue
+            for key in ("max_abs_err", "ms", "plain_ms", "bound_ms"):
+                if not math.isfinite(rec[key]):
+                    raise AssertionError(f"{k['name']}: {key} is not finite")
+            if rec["launches"] <= 0:
+                raise AssertionError(f"{k['name']}: no launch on the main "
+                                     f"path")
     print(f"all phases done in {time.monotonic() - t0:.1f} s")
     print(smi)
     print(json.dumps(line))

@@ -28,3 +28,32 @@ def per_row(x, B: int, device: torch.device) -> torch.Tensor:
         x = x.to(device=device, dtype=torch.int32)
         return x.expand(B).contiguous() if x.ndim == 0 else x.contiguous()
     return torch.full((B,), int(x), dtype=torch.int32, device=device)
+
+
+def gather_kv(pages, tables, scale=None, tok=None):
+    """Tabled blocks of an arena [N,K,bs,h] as a linear [B,K,nb·bs,h] cache
+    (the plain versions' gather). int8 pages with their scale plane (scale
+    [N,K,h], tok [N,K,bs]) come out dequantized, one float32 product per
+    element: q · where(scale != 0, scale, tok), decided per channel."""
+    B, nb = tables.shape
+    K, bs, h = pages.shape[1:]
+    tl = tables.long()
+    g = pages[tl]                                  # [B, nb, K, bs, h]
+    if scale is not None:
+        sc = scale[tl][..., None, :]
+        g = g.float() * torch.where(sc != 0, sc, tok[tl][..., None])
+    return g.permute(0, 2, 1, 3, 4).reshape(B, K, nb * bs, h)
+
+
+def scale_plane_args(k_pages, scales, dev):
+    """Check the scale plane of int8 arenas for a kernel launch → the four
+    contiguous float32 tensors (k_scale, k_tok, v_scale, v_tok). scales is
+    that tuple; each `*_scale` is [N,K,h], each `*_tok` [N,K,bs]."""
+    N, K, bs, h = k_pages.shape
+    out = []
+    for t, shp in zip(scales, ((N, K, h), (N, K, bs)) * 2):
+        if tuple(t.shape) != shp:
+            raise ValueError(f"scale plane {tuple(t.shape)} does not match "
+                             f"int8 pages {tuple(k_pages.shape)}")
+        out.append(kernel_arg(t, dev, torch.float32))
+    return out

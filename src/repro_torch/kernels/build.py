@@ -32,10 +32,15 @@ SIGNATURES = {
     "paged_decode": {
         "paged_decode_launch": [_I, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _I, _F, _P],
+        # int8 pages + the scale plane (k_scale, k_tok, v_scale, v_tok)
+        "paged_decode_int8_launch": [_I, *[_P] * 10,
+                                     _I, _I, _I, _I, _I, _I, _F, _P],
     },
     "paged_prefill": {
         "paged_prefill_launch": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                  _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
+        "paged_prefill_int8_launch": [_I, *[_P] * 13, _I, _I, _I, _I, _I,
+                                      _I, _I, _F, _I, _I, _P],
     },
     "flash_prefill": {
         "flash_prefill_launch": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _F,
@@ -52,6 +57,8 @@ SIGNATURES = {
     "spec_verify": {
         "spec_verify_launch": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I, _I, _I, _F, _P],
+        "spec_verify_int8_launch": [_I, *[_P] * 13, _I, _I, _I, _I, _I, _I,
+                                    _I, _F, _P],
     },
     "moe_gmm": {
         "moe_gmm_launch": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P],

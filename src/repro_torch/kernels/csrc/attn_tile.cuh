@@ -1,7 +1,8 @@
 // Shared tile machinery of the attention kernels (paged_decode.cu,
-// paged_prefill.cu, flash_prefill.cu, sink_decode.cu): typed 16-byte tile
-// loads into float32 shared memory and one online-softmax step of R query
-// rows against a tile of TK keys.
+// paged_prefill.cu, spec_verify.cu, flash_prefill.cu, sink_decode.cu): typed
+// 16-byte tile loads into float32 shared memory, the int8 arena tile load
+// that dequantizes as it writes shared memory (QuantPlane), and one
+// online-softmax step of R query rows against a tile of TK keys.
 //
 // Layout of a CTA's shared memory (floats):
 //   Qs [R][HD+1]   query rows (padded: the score loop reads rows and keys
@@ -17,6 +18,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace paged {
 
@@ -69,6 +72,75 @@ template <typename T, int HD>
 __device__ __forceinline__ void load_tile(float* dst, int ld, const T* src,
                                           int n_rows, int valid_rows) {
   load_rows<T, HD>(dst, ld, src, HD, n_rows, valid_rows);
+}
+
+// QuantPlane: an int8 arena block carries float32 per-channel seal scales
+// sc[HD] (a nonzero entry marks a sealed block's channel) and per-token
+// scales tk[bs] of unsealed content. Element (r, c) of the block is
+// q · (sc[c] != 0 ? sc[c] : tk[r]), decided per channel: exactly one
+// float32 product, as the plain version computes it.
+template <typename KV>
+constexpr bool kInt8Kv = std::is_same<KV, int8_t>::value;
+
+// Copy block `phys`'s scale rows (kv head kh) of K and V into shared memory:
+// Ks_sc/Vs_sc [HD], Ks_tk/Vs_tk [bs]. Only resident blocks are passed in.
+template <int HD>
+__device__ __forceinline__ void load_scale_rows(
+    float* Ks_sc, float* Ks_tk, float* Vs_sc, float* Vs_tk,
+    const float* __restrict__ ks, const float* __restrict__ kt,
+    const float* __restrict__ vs, const float* __restrict__ vt, int phys,
+    int K, int kh, int bs) {
+  const size_t srow = ((size_t)phys * K + kh) * HD;
+  const size_t trow = ((size_t)phys * K + kh) * bs;
+  for (int i = threadIdx.x; i < HD; i += NT) {
+    Ks_sc[i] = ks[srow + i];
+    Vs_sc[i] = vs[srow + i];
+  }
+  for (int i = threadIdx.x; i < bs; i += NT) {
+    Ks_tk[i] = kt[trow + i];
+    Vs_tk[i] = vt[trow + i];
+  }
+}
+
+// Load `n_rows` back-to-back rows of an arena block into shared `dst` (row
+// stride `ld` floats). KV = float / bf16: `load_tile`. KV = int8_t: each
+// thread moves 16 int8 per 16-byte load and dequantizes each element with
+// the block's scale rows in shared memory (sc, tk) as it writes it.
+template <typename KV, int HD>
+__device__ __forceinline__ void load_kv_tile(float* dst, int ld, const KV* src,
+                                             int n_rows, int valid_rows,
+                                             const float* sc, const float* tk) {
+  if constexpr (kInt8Kv<KV>) {
+    constexpr int VEC = 16;
+    constexpr int VPR = HD / VEC;
+    for (int i = threadIdx.x; i < n_rows * VPR; i += NT) {
+      const int r = i / VPR;
+      const int c = (i % VPR) * VEC;
+      float* out = dst + r * ld + c;
+      if (r < valid_rows) {
+        const uint4 raw =
+            *reinterpret_cast<const uint4*>(src + (size_t)r * HD + c);
+        const int8_t* e = reinterpret_cast<const int8_t*>(&raw);
+        const float t = tk[r];
+#pragma unroll
+        for (int u = 0; u < VEC; ++u) {
+          const float s = sc[c + u];
+          out[u] = (float)e[u] * (s != 0.f ? s : t);
+        }
+      } else {
+#pragma unroll
+        for (int u = 0; u < VEC; ++u) out[u] = 0.f;
+      }
+    }
+  } else {
+    load_tile<KV, HD>(dst, ld, src, n_rows, valid_rows);
+  }
+}
+
+// Shared-memory floats of the scale rows (none for float / bf16 arenas).
+template <typename KV>
+inline size_t scale_smem_floats(int HD, int bs) {
+  return kInt8Kv<KV> ? 2 * ((size_t)HD + bs) : 0;
 }
 
 // One online-softmax step: R query rows (Qs) against TK keys (Ks, Vs).

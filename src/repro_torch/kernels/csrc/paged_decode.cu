@@ -21,6 +21,15 @@
 //   * each [bs, h] tile is contiguous, loaded with 16-byte coalesced loads;
 //   * online softmax in float32 with NEG_INF = -1e30 and l clamped at 1e-30,
 //     as paged_decode.py:41 and :94 do.
+//
+// QuantPlane (int8 arenas, paged_decode.py:50-90): the pages are int8 and
+// each block carries float32 scale rows, per-channel seal scales [N, K, h]
+// and per-token scales [N, K, bs]. Before a block's tile is loaded, its K
+// and V scale rows go into shared memory; each element is dequantized as it
+// is written to shared memory (q · (scale != 0 ? scale : tok), one float32
+// product, per channel), so the online softmax is the float path's. Only
+// resident blocks' scale rows are read. An int8 block moves a quarter of a
+// float32 block's payload bytes plus 2·(h + bs)·4 bytes of scales.
 // Not done yet (later work): splitting the blocks of one sequence across
 // CTAs (B·K = 12 CTAs on the main path leave most of the 132 SMs idle),
 // cp.async/TMA double buffering, tensor-core products.
@@ -28,10 +37,15 @@
 
 using namespace paged;
 
-template <typename T, int HD>
+// T: q and out (float / bf16); KV: the arena payload (T, or int8_t with the
+// scale plane ks/kt/vs/vt, null otherwise).
+template <typename T, typename KV, int HD>
 __global__ void __launch_bounds__(NT)
-paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
-                    const T* __restrict__ vp, const int* __restrict__ tables,
+paged_decode_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
+                    const KV* __restrict__ vp, const float* __restrict__ ks,
+                    const float* __restrict__ kt, const float* __restrict__ vs,
+                    const float* __restrict__ vt,
+                    const int* __restrict__ tables,
                     const int* __restrict__ lens, T* __restrict__ out, int K,
                     int G, int bs, int nb, float scale) {
   extern __shared__ float smem[];
@@ -44,6 +58,10 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   float* M = P + G * bs;
   float* L = M + G;
   float* C = L + G;
+  float* Ksc = C + G;        // scale rows (int8 arenas only)
+  float* Ktk = Ksc + HD;
+  float* Vsc = Ktk + bs;
+  float* Vtk = Vsc + HD;
 
   const size_t qoff = ((size_t)b * K + kh) * G * HD;
   load_tile<T, HD>(Qs, LD, q + qoff, G, G);
@@ -61,8 +79,13 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   for (int j = 0; j < nblk; ++j) {
     const int phys = tables[(size_t)b * nb + j];
     const size_t base = ((size_t)phys * K + kh) * bs * HD;
-    load_tile<T, HD>(Ks, LD, kp + base, bs, bs);
-    load_tile<T, HD>(Vs, HD, vp + base, bs, bs);
+    if constexpr (kInt8Kv<KV>) {
+      load_scale_rows<HD>(Ksc, Ktk, Vsc, Vtk, ks, kt, vs, vt, phys, K, kh,
+                          bs);
+      __syncthreads();
+    }
+    load_kv_tile<KV, HD>(Ks, LD, kp + base, bs, bs, Ksc, Ktk);
+    load_kv_tile<KV, HD>(Vs, HD, vp + base, bs, bs, Vsc, Vtk);
     __syncthreads();
     const int slot0 = j * bs;
     tile_step<HD>(Qs, Ks, Vs, P, M, L, C, acc, G, bs, scale,
@@ -71,13 +94,15 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   store_rows<T, HD>(out + qoff, acc, L, G);
 }
 
-template <typename T, int HD>
+template <typename T, typename KV, int HD>
 static int launch(const void* q, const void* kp, const void* vp,
-                  const void* tables, const void* lens, void* out, int B,
-                  int K, int G, int bs, int nb, float scale,
+                  const float* ks, const float* kt, const float* vs,
+                  const float* vt, const void* tables, const void* lens,
+                  void* out, int B, int K, int G, int bs, int nb, float scale,
                   cudaStream_t stream) {
-  const size_t smem = tile_smem_bytes(G, bs, HD);
-  auto kern = paged_decode_kernel<T, HD>;
+  const size_t smem = tile_smem_bytes(G, bs, HD) +
+                      sizeof(float) * scale_smem_floats<KV>(HD, bs);
+  auto kern = paged_decode_kernel<T, KV, HD>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -85,26 +110,28 @@ static int launch(const void* q, const void* kp, const void* vp,
   }
   dim3 grid(B, K);
   kern<<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kp),
-      static_cast<const T*>(vp), static_cast<const int*>(tables),
-      static_cast<const int*>(lens), static_cast<T*>(out), K, G, bs, nb,
-      scale);
+      static_cast<const T*>(q), static_cast<const KV*>(kp),
+      static_cast<const KV*>(vp), ks, kt, vs, vt,
+      static_cast<const int*>(tables), static_cast<const int*>(lens),
+      static_cast<T*>(out), K, G, bs, nb, scale);
   return (int)cudaGetLastError();
 }
 
-// dtype: 0 = float32, 1 = bfloat16. Returns 0 on success, a cudaError_t
-// value after a failed launch, or -1 for a shape the kernel does not take.
-extern "C" int paged_decode_launch(int dtype, const void* q, const void* kp,
-                                   const void* vp, const void* tables,
-                                   const void* lens, void* out, int B, int K,
-                                   int G, int h, int bs, int nb, float scale,
-                                   void* stream) {
+// KV = T when `int8` is 0, else int8_t with the scale plane.
+static int dispatch(int dtype, bool int8, const void* q, const void* kp,
+                    const void* vp, const float* ks, const float* kt,
+                    const float* vs, const float* vt, const void* tables,
+                    const void* lens, void* out, int B, int K, int G, int h,
+                    int bs, int nb, float scale, void* stream) {
   if (G < 1 || G > MAXR * (NT / h) || bs < 1 || nb < 1) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define PD_CASE(T, HD)                                                     \
   if (h == HD)                                                             \
-    return launch<T, HD>(q, kp, vp, tables, lens, out, B, K, G, bs, nb,    \
-                         scale, s);
+    return int8 ? launch<T, int8_t, HD>(q, kp, vp, ks, kt, vs, vt, tables, \
+                                        lens, out, B, K, G, bs, nb, scale, \
+                                        s)                                 \
+                : launch<T, T, HD>(q, kp, vp, ks, kt, vs, vt, tables, lens, \
+                                   out, B, K, G, bs, nb, scale, s);
   if (dtype == 0) {
     PD_CASE(float, 32) PD_CASE(float, 64) PD_CASE(float, 128)
   } else if (dtype == 1) {
@@ -113,4 +140,33 @@ extern "C" int paged_decode_launch(int dtype, const void* q, const void* kp,
   }
 #undef PD_CASE
   return -1;
+}
+
+// dtype (of q and out): 0 = float32, 1 = bfloat16; the pages have the same
+// type. Returns 0 on success, a cudaError_t value after a failed launch, or
+// -1 for a shape the kernel does not take.
+extern "C" int paged_decode_launch(int dtype, const void* q, const void* kp,
+                                   const void* vp, const void* tables,
+                                   const void* lens, void* out, int B, int K,
+                                   int G, int h, int bs, int nb, float scale,
+                                   void* stream) {
+  return dispatch(dtype, false, q, kp, vp, nullptr, nullptr, nullptr,
+                  nullptr, tables, lens, out, B, K, G, h, bs, nb, scale,
+                  stream);
+}
+
+// The same over int8 pages with their scale plane: ks/vs [N, K, h] and
+// kt/vt [N, K, bs], float32.
+extern "C" int paged_decode_int8_launch(int dtype, const void* q,
+                                        const void* kp, const void* vp,
+                                        const void* ks, const void* kt,
+                                        const void* vs, const void* vt,
+                                        const void* tables, const void* lens,
+                                        void* out, int B, int K, int G, int h,
+                                        int bs, int nb, float scale,
+                                        void* stream) {
+  return dispatch(dtype, true, q, kp, vp, static_cast<const float*>(ks),
+                  static_cast<const float*>(kt), static_cast<const float*>(vs),
+                  static_cast<const float*>(vt), tables, lens, out, B, K, G, h,
+                  bs, nb, scale, stream);
 }

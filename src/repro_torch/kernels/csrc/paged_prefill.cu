@@ -25,6 +25,12 @@
 //   * 16-byte coalesced tile loads into float32 shared memory and the same
 //     online softmax as the TPU kernel (NEG_INF = -1e30, l >= 1e-30), so
 //     padded rows (>= chunk_len) stay finite.
+//
+// QuantPlane (int8 arenas, paged_prefill.py:54-110): the HISTORY pages are
+// int8 with their float32 scale plane; the chunk's own keys k_new/v_new stay
+// in q's type. Each resident history block's K and V scale rows go into
+// shared memory before its tile, which is dequantized as it is written to
+// shared memory (one float32 product per element, decided per channel).
 // Not done yet (later work): wgmma / mma.sync products, TMA pipelining.
 #include "attn_tile.cuh"
 
@@ -38,11 +44,17 @@ __device__ __forceinline__ bool allowed(int p, int t, int window, int sink) {
   return ok;
 }
 
-template <typename T, int HD>
+// T: q, out and the chunk's keys (float / bf16); KV: the arena payload (T,
+// or int8_t with the scale plane ks/kt/vs/vt, null otherwise).
+template <typename T, typename KV, int HD>
 __global__ void __launch_bounds__(NT)
 paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ kn,
-                     const T* __restrict__ vn, const T* __restrict__ kp,
-                     const T* __restrict__ vp, const int* __restrict__ tables,
+                     const T* __restrict__ vn, const KV* __restrict__ kp,
+                     const KV* __restrict__ vp, const float* __restrict__ ks,
+                     const float* __restrict__ kt,
+                     const float* __restrict__ vs,
+                     const float* __restrict__ vt,
+                     const int* __restrict__ tables,
                      const int* __restrict__ off_a,
                      const int* __restrict__ cl_a, T* __restrict__ out, int K,
                      int S, int G, int bs, int nb, float scale, int window,
@@ -60,6 +72,10 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ kn,
   float* M = P + TQ * bs;
   float* L = M + TQ;
   float* C = L + TQ;
+  float* Ksc = C + TQ;       // scale rows (int8 arenas only)
+  float* Ktk = Ksc + HD;
+  float* Vsc = Ktk + bs;
+  float* Vtk = Vsc + HD;
 
   const size_t qoff = (((size_t)b * K + kh) * SG + r0) * HD;
   load_tile<T, HD>(Qs, LD, q + qoff, TQ, R);
@@ -79,8 +95,13 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ kn,
   for (int j = 0; j < nh; ++j) {
     const int phys = tables[(size_t)b * nb + j];
     const size_t base = ((size_t)phys * K + kh) * bs * HD;
-    load_tile<T, HD>(Ks, LD, kp + base, bs, bs);
-    load_tile<T, HD>(Vs, HD, vp + base, bs, bs);
+    if constexpr (kInt8Kv<KV>) {
+      load_scale_rows<HD>(Ksc, Ktk, Vsc, Vtk, ks, kt, vs, vt, phys, K, kh,
+                          bs);
+      __syncthreads();
+    }
+    load_kv_tile<KV, HD>(Ks, LD, kp + base, bs, bs, Ksc, Ktk);
+    load_kv_tile<KV, HD>(Vs, HD, vp + base, bs, bs, Vsc, Vtk);
     __syncthreads();
     const int tok0 = j * bs;
     tile_step<HD>(Qs, Ks, Vs, P, M, L, C, acc, R, bs, scale,
@@ -110,14 +131,16 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ kn,
   store_rows<T, HD>(out + qoff, acc, L, R);
 }
 
-template <typename T, int HD>
+template <typename T, typename KV, int HD>
 static int launch(const void* q, const void* kn, const void* vn,
-                  const void* kp, const void* vp, const void* tables,
-                  const void* off, const void* cl, void* out, int B, int K,
-                  int S, int G, int bs, int nb, float scale, int window,
-                  int sink, cudaStream_t stream) {
-  const size_t smem = tile_smem_bytes(TQ, bs, HD);
-  auto kern = paged_prefill_kernel<T, HD>;
+                  const void* kp, const void* vp, const float* ks,
+                  const float* kt, const float* vs, const float* vt,
+                  const void* tables, const void* off, const void* cl,
+                  void* out, int B, int K, int S, int G, int bs, int nb,
+                  float scale, int window, int sink, cudaStream_t stream) {
+  const size_t smem = tile_smem_bytes(TQ, bs, HD) +
+                      sizeof(float) * scale_smem_floats<KV>(HD, bs);
+  auto kern = paged_prefill_kernel<T, KV, HD>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -126,28 +149,32 @@ static int launch(const void* q, const void* kn, const void* vn,
   dim3 grid(B, K, (S * G + TQ - 1) / TQ);
   kern<<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kn),
-      static_cast<const T*>(vn), static_cast<const T*>(kp),
-      static_cast<const T*>(vp), static_cast<const int*>(tables),
-      static_cast<const int*>(off), static_cast<const int*>(cl),
-      static_cast<T*>(out), K, S, G, bs, nb, scale, window, sink);
+      static_cast<const T*>(vn), static_cast<const KV*>(kp),
+      static_cast<const KV*>(vp), ks, kt, vs, vt,
+      static_cast<const int*>(tables), static_cast<const int*>(off),
+      static_cast<const int*>(cl), static_cast<T*>(out), K, S, G, bs, nb,
+      scale, window, sink);
   return (int)cudaGetLastError();
 }
 
-// dtype: 0 = float32, 1 = bfloat16. Returns 0 on success, a cudaError_t
-// value after a failed launch, or -1 for a shape the kernel does not take.
-extern "C" int paged_prefill_launch(int dtype, const void* q, const void* kn,
-                                    const void* vn, const void* kp,
-                                    const void* vp, const void* tables,
-                                    const void* off, const void* cl,
-                                    void* out, int B, int K, int S, int G,
-                                    int h, int bs, int nb, float scale,
-                                    int window, int sink, void* stream) {
+// KV = T when `int8` is false, else int8_t with the scale plane.
+static int dispatch(int dtype, bool int8, const void* q, const void* kn,
+                    const void* vn, const void* kp, const void* vp,
+                    const float* ks, const float* kt, const float* vs,
+                    const float* vt, const void* tables, const void* off,
+                    const void* cl, void* out, int B, int K, int S, int G,
+                    int h, int bs, int nb, float scale, int window, int sink,
+                    void* stream) {
   if (TQ > MAXR * (NT / h) || S < 1 || G < 1 || bs < 1 || nb < 1) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define PP_CASE(T, HD)                                                     \
-  if (h == HD)                                                             \
-    return launch<T, HD>(q, kn, vn, kp, vp, tables, off, cl, out, B, K, S, \
-                         G, bs, nb, scale, window, sink, s);
+#define PP_CASE(T, HD)                                                      \
+  if (h == HD)                                                              \
+    return int8 ? launch<T, int8_t, HD>(q, kn, vn, kp, vp, ks, kt, vs, vt,  \
+                                        tables, off, cl, out, B, K, S, G,   \
+                                        bs, nb, scale, window, sink, s)     \
+                : launch<T, T, HD>(q, kn, vn, kp, vp, ks, kt, vs, vt,       \
+                                   tables, off, cl, out, B, K, S, G, bs,    \
+                                   nb, scale, window, sink, s);
   if (dtype == 0) {
     PP_CASE(float, 32) PP_CASE(float, 64) PP_CASE(float, 128)
   } else if (dtype == 1) {
@@ -156,4 +183,34 @@ extern "C" int paged_prefill_launch(int dtype, const void* q, const void* kn,
   }
 #undef PP_CASE
   return -1;
+}
+
+// dtype (of q, out, the chunk's keys and the pages): 0 = float32,
+// 1 = bfloat16. Returns 0 on success, a cudaError_t value after a failed
+// launch, or -1 for a shape the kernel does not take.
+extern "C" int paged_prefill_launch(int dtype, const void* q, const void* kn,
+                                    const void* vn, const void* kp,
+                                    const void* vp, const void* tables,
+                                    const void* off, const void* cl,
+                                    void* out, int B, int K, int S, int G,
+                                    int h, int bs, int nb, float scale,
+                                    int window, int sink, void* stream) {
+  return dispatch(dtype, false, q, kn, vn, kp, vp, nullptr, nullptr, nullptr,
+                  nullptr, tables, off, cl, out, B, K, S, G, h, bs, nb, scale,
+                  window, sink, stream);
+}
+
+// The same over int8 history pages with their scale plane: ks/vs [N, K, h]
+// and kt/vt [N, K, bs], float32 (the chunk's keys stay in q's type).
+extern "C" int paged_prefill_int8_launch(
+    int dtype, const void* q, const void* kn, const void* vn, const void* kp,
+    const void* vp, const void* ks, const void* kt, const void* vs,
+    const void* vt, const void* tables, const void* off, const void* cl,
+    void* out, int B, int K, int S, int G, int h, int bs, int nb, float scale,
+    int window, int sink, void* stream) {
+  return dispatch(dtype, true, q, kn, vn, kp, vp,
+                  static_cast<const float*>(ks), static_cast<const float*>(kt),
+                  static_cast<const float*>(vs), static_cast<const float*>(vt),
+                  tables, off, cl, out, B, K, S, G, h, bs, nb, scale, window,
+                  sink, stream);
 }

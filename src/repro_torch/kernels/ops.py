@@ -37,22 +37,26 @@ def attention_decode_op(q, k_cache, v_cache, t):
     return o.reshape(B, H, h)
 
 
-def attention_paged_decode_op(q, k_pages, v_pages, tables, lens):
+def attention_paged_decode_op(q, k_pages, v_pages, tables, lens, **scales):
     """q [B,H,h]; arenas [N,K,bs,h]; tables [B,nb] physical block ids;
-    lens [B] resident logical slots → [B,H,h]."""
+    lens [B] resident logical slots → [B,H,h]. `scales`: the scale plane of
+    int8 arenas (k_scale=, k_tok=, v_scale=, v_tok=)."""
     B, H, h = q.shape
     K = k_pages.shape[1]
     G = H // K
-    o = paged_decode(q.reshape(B, K, G, h), k_pages, v_pages, tables, lens)
+    o = paged_decode(q.reshape(B, K, G, h), k_pages, v_pages, tables, lens,
+                     **scales)
     return o.reshape(B, H, h)
 
 
 def attention_paged_prefill_op(q, k_new, v_new, k_pages, v_pages, tables,
-                               off, chunk_len, *, window=0, sink=0):
+                               off, chunk_len, *, window=0, sink=0,
+                               **scales):
     """Chunked prefill over paged history. q [B,S,H,h]; k_new/v_new
     [B,S,K,h]; arenas [N,K,bs,h]; tables [B,nb]; off/chunk_len scalars or
     [B] → [B,S,H,h]. Rows are regrouped per kv head: row r of the kernel's
-    [B,K,S·G,h] query is chunk token r // G."""
+    [B,K,S·G,h] query is chunk token r // G. `scales`: the scale plane of
+    int8 arenas."""
     B, S, H, h = q.shape
     K = k_new.shape[2]
     G = H // K
@@ -61,7 +65,7 @@ def attention_paged_prefill_op(q, k_new, v_new, k_pages, v_pages, tables,
     kf = k_new.permute(0, 2, 1, 3)
     vf = v_new.permute(0, 2, 1, 3)
     o = paged_prefill(qf, kf, vf, k_pages, v_pages, tables, off, chunk_len,
-                      window=window, sink=sink)
+                      window=window, sink=sink, **scales)
     return o.reshape(B, K, S, G, h).permute(0, 2, 1, 3, 4) \
         .reshape(B, S, H, h)
 
@@ -76,19 +80,20 @@ def block_topk_scores_op(q, kmin, kmax, tables, lens, *, block_size):
                              lens, block_size=block_size)
 
 
-def spec_verify_op(q, k_new, v_new, k_pages, v_pages, tables, off, n_tok):
+def spec_verify_op(q, k_new, v_new, k_pages, v_pages, tables, off, n_tok,
+                   **scales):
     """Batched multi-token speculative verify over paged history
     (read-only). q [B,S,H,h], S = k+1 window rows per slot; k_new/v_new
     [B,S,K,h] the window's rope'd keys (not yet in any block); arenas
     [N,K,bs,h]; tables [B,nb]; off [B] per-slot resident-history length;
     n_tok [B] real window rows → [B,S,H,h]. The GQA regroup of the
-    chunked-prefill adapter."""
+    chunked-prefill adapter. `scales`: the scale plane of int8 arenas."""
     B, S, H, h = q.shape
     K = k_new.shape[2]
     G = H // K
     qf = q.reshape(B, S, K, G, h).permute(0, 2, 1, 3, 4) \
         .reshape(B, K, S * G, h)
     o = spec_verify(qf, k_new.permute(0, 2, 1, 3), v_new.permute(0, 2, 1, 3),
-                    k_pages, v_pages, tables, off, n_tok)
+                    k_pages, v_pages, tables, off, n_tok, **scales)
     return o.reshape(B, K, S, G, h).permute(0, 2, 1, 3, 4) \
         .reshape(B, S, H, h)

@@ -11,22 +11,24 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels._common import (DTYPE_CODES, HEAD_DIMS, kernel_arg,
-                                         per_row)
+from repro_torch.kernels._common import (DTYPE_CODES, HEAD_DIMS, gather_kv,
+                                         kernel_arg, per_row,
+                                         scale_plane_args)
 
 NEG_INF = -1e30
 
 
-def paged_decode_plain(q, k_pages, v_pages, tables, lens):
+def paged_decode_plain(q, k_pages, v_pages, tables, lens, *, k_scale=None,
+                       k_tok=None, v_scale=None, v_tok=None):
     """q [B,K,G,h]; pages [N,K,bs,h]; tables [B,nb]; lens [B] → [B,K,G,h].
-    Gathers the tabled blocks into a linear [B,K,nb·bs,h] cache and runs a
-    float32 masked softmax over the first `lens` logical slots."""
+    Gathers the tabled blocks into a linear [B,K,nb·bs,h] cache (int8
+    pages dequantized through the scale plane) and runs a float32 masked
+    softmax over the first `lens` logical slots."""
     B, K, G, h = q.shape
     nb = tables.shape[1]
     bs = k_pages.shape[2]
-    tl = tables.long()
-    k_lin = k_pages[tl].permute(0, 2, 1, 3, 4).reshape(B, K, nb * bs, h)
-    v_lin = v_pages[tl].permute(0, 2, 1, 3, 4).reshape(B, K, nb * bs, h)
+    k_lin = gather_kv(k_pages, tables, k_scale, k_tok)
+    v_lin = gather_kv(v_pages, tables, v_scale, v_tok)
     s = torch.einsum("bkgh,bkwh->bkgw", q.float(), k_lin.float()) * h ** -0.5
     lens = per_row(lens, B, q.device)
     occ = torch.arange(nb * bs, device=q.device)[None, None, None, :] \
@@ -36,12 +38,18 @@ def paged_decode_plain(q, k_pages, v_pages, tables, lens):
     return torch.einsum("bkgw,bkwh->bkgh", p, v_lin.float()).to(q.dtype)
 
 
-def paged_decode(q, k_pages, v_pages, tables, lens):
+def paged_decode(q, k_pages, v_pages, tables, lens, *, k_scale=None,
+                 k_tok=None, v_scale=None, v_tok=None):
     """q [B,K,G,h]; pages [N,K,bs,h]; tables [B,nb] physical block ids;
     lens [B] resident logical slots (≥ 1) → o [B,K,G,h] in q's dtype.
-    Table entries past a sequence's resident blocks are never read."""
+    Table entries past a sequence's resident blocks are never read. Int8
+    arenas pass their scale plane: k_scale/v_scale [N,K,h], k_tok/v_tok
+    [N,K,bs] float32; the pages then must be int8 (never cast)."""
+    quant = k_scale is not None
     if q.device.type != "cuda":
-        return paged_decode_plain(q, k_pages, v_pages, tables, lens)
+        return paged_decode_plain(q, k_pages, v_pages, tables, lens,
+                                  k_scale=k_scale, k_tok=k_tok,
+                                  v_scale=v_scale, v_tok=v_tok)
     B, K, G, h = q.shape
     N, Kp, bs, hp = k_pages.shape
     if (Kp, hp) != (K, h) or v_pages.shape != k_pages.shape:
@@ -52,8 +60,9 @@ def paged_decode(q, k_pages, v_pages, tables, lens):
                          f"h in {HEAD_DIMS}, got {q.dtype}, h={h}")
     dev = q.device
     q = kernel_arg(q, dev)
-    kp = kernel_arg(k_pages, dev, q.dtype)
-    vp = kernel_arg(v_pages, dev, q.dtype)
+    kv_dtype = torch.int8 if quant else q.dtype
+    kp = kernel_arg(k_pages, dev, kv_dtype)
+    vp = kernel_arg(v_pages, dev, kv_dtype)
     tbl = kernel_arg(tables, dev, torch.int32)
     ln = kernel_arg(per_row(lens, B, dev), dev, torch.int32)
     nb = tbl.shape[1]
@@ -61,13 +70,23 @@ def paged_decode(q, k_pages, v_pages, tables, lens):
     lib = build.load("paged_decode")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.paged_decode_launch(
-            DTYPE_CODES[q.dtype], q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
-            tbl.data_ptr(), ln.data_ptr(), out.data_ptr(), B, K, G, h, bs, nb,
-            h ** -0.5, stream)
+        if quant:
+            sp = scale_plane_args(kp, (k_scale, k_tok, v_scale, v_tok), dev)
+            rc = lib.paged_decode_int8_launch(
+                DTYPE_CODES[q.dtype], q.data_ptr(), kp.data_ptr(),
+                vp.data_ptr(), *(t.data_ptr() for t in sp), tbl.data_ptr(),
+                ln.data_ptr(), out.data_ptr(), B, K, G, h, bs, nb,
+                h ** -0.5, stream)
+        else:
+            rc = lib.paged_decode_launch(
+                DTYPE_CODES[q.dtype], q.data_ptr(), kp.data_ptr(),
+                vp.data_ptr(), tbl.data_ptr(), ln.data_ptr(), out.data_ptr(),
+                B, K, G, h, bs, nb, h ** -0.5, stream)
     build.check_launch("paged_decode", rc)
     paged_decode.launches += 1
+    paged_decode.int8_launches += int(quant)
     return out
 
 
 paged_decode.launches = 0
+paged_decode.int8_launches = 0

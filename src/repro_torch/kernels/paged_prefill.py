@@ -5,27 +5,32 @@
 src/repro/kernels/paged_prefill.py) for tensors on a CUDA device, and runs
 `paged_prefill_plain` — the same function in plain PyTorch — for tensors on
 the CPU. `paged_prefill.launches` counts kernel launches (nothing else adds
-to it).
+to it), `paged_prefill.int8_launches` those over int8 history (QuantPlane:
+int8 pages with the scale plane, dequantized in the tile; the chunk's own
+keys are never quantized).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels._common import (DTYPE_CODES, HEAD_DIMS, kernel_arg,
-                                         per_row)
+from repro_torch.kernels._common import (DTYPE_CODES, HEAD_DIMS, gather_kv,
+                                         kernel_arg, per_row,
+                                         scale_plane_args)
 
 NEG_INF = -1e30
 
 
 def paged_prefill_plain(q, k_new, v_new, k_pages, v_pages, tables, off,
-                        chunk_len, *, window: int = 0, sink: int = 0):
+                        chunk_len, *, window: int = 0, sink: int = 0,
+                        k_scale=None, k_tok=None, v_scale=None, v_tok=None):
     """q [B,K,S·G,h] (row r = chunk token r//G); k_new/v_new [B,K,S,h];
     pages [N,K,bs,h]; tables [B,nb]; off/chunk_len scalars or [B] →
-    [B,K,S·G,h]. Gathers the tabled history into a linear cache, appends the
-    chunk's keys and runs one float32 masked softmax: resident history
-    (slot < off), real chunk keys (< chunk_len), causal on absolute
-    positions, and the optional sink+window mask."""
+    [B,K,S·G,h]. Gathers the tabled history into a linear cache (int8 pages
+    dequantized through the scale plane), appends the chunk's keys and runs
+    one float32 masked softmax: resident history (slot < off), real chunk
+    keys (< chunk_len), causal on absolute positions, and the optional
+    sink+window mask."""
     B, K, SG, h = q.shape
     S = k_new.shape[2]
     G = SG // S
@@ -34,11 +39,10 @@ def paged_prefill_plain(q, k_new, v_new, k_pages, v_pages, tables, off,
     dev = q.device
     off = per_row(off, B, dev).long()
     cl = per_row(chunk_len, B, dev).long()
-    tl = tables.long()
-    k_hist = k_pages[tl].permute(0, 2, 1, 3, 4).reshape(B, K, nb * bs, h)
-    v_hist = v_pages[tl].permute(0, 2, 1, 3, 4).reshape(B, K, nb * bs, h)
-    k_all = torch.cat([k_hist, k_new], dim=2).float()
-    v_all = torch.cat([v_hist, v_new], dim=2).float()
+    k_hist = gather_kv(k_pages, tables, k_scale, k_tok)
+    v_hist = gather_kv(v_pages, tables, v_scale, v_tok)
+    k_all = torch.cat([k_hist.float(), k_new.float()], dim=2)
+    v_all = torch.cat([v_hist.float(), v_new.float()], dim=2)
     ar_h = torch.arange(nb * bs, device=dev)
     ar_c = torch.arange(S, device=dev)
     tok = torch.cat([ar_h[None].expand(B, -1), off[:, None] + ar_c[None]],
@@ -60,14 +64,20 @@ def paged_prefill_plain(q, k_new, v_new, k_pages, v_pages, tables, off,
 
 
 def paged_prefill(q, k_new, v_new, k_pages, v_pages, tables, off, chunk_len,
-                  *, window: int = 0, sink: int = 0):
+                  *, window: int = 0, sink: int = 0, k_scale=None,
+                  k_tok=None, v_scale=None, v_tok=None):
     """q [B,K,S·G,h]; k_new/v_new [B,K,S,h]; arenas [N,K,bs,h]; tables
     [B,nb] physical block ids; off/chunk_len scalars or [B] (history length,
     real chunk rows) → o [B,K,S·G,h] in q's dtype. Rows ≥ chunk_len are
-    padding: finite, but not meaningful."""
+    padding: finite, but not meaningful. Int8 arenas pass their scale plane
+    (k_scale/v_scale [N,K,h], k_tok/v_tok [N,K,bs] float32); k_new/v_new
+    stay in q's dtype."""
+    quant = k_scale is not None
     if q.device.type != "cuda":
         return paged_prefill_plain(q, k_new, v_new, k_pages, v_pages, tables,
-                                   off, chunk_len, window=window, sink=sink)
+                                   off, chunk_len, window=window, sink=sink,
+                                   k_scale=k_scale, k_tok=k_tok,
+                                   v_scale=v_scale, v_tok=v_tok)
     B, K, SG, h = q.shape
     S = k_new.shape[2]
     if k_new.shape != (B, K, S, h) or v_new.shape != k_new.shape \
@@ -86,8 +96,9 @@ def paged_prefill(q, k_new, v_new, k_pages, v_pages, tables, off, chunk_len,
     q = kernel_arg(q, dev)
     kn = kernel_arg(k_new, dev, q.dtype)
     vn = kernel_arg(v_new, dev, q.dtype)
-    kp = kernel_arg(k_pages, dev, q.dtype)
-    vp = kernel_arg(v_pages, dev, q.dtype)
+    kv_dtype = torch.int8 if quant else q.dtype
+    kp = kernel_arg(k_pages, dev, kv_dtype)
+    vp = kernel_arg(v_pages, dev, kv_dtype)
     tbl = kernel_arg(tables, dev, torch.int32)
     offs = kernel_arg(per_row(off, B, dev), dev, torch.int32)
     cls = kernel_arg(per_row(chunk_len, B, dev), dev, torch.int32)
@@ -96,14 +107,25 @@ def paged_prefill(q, k_new, v_new, k_pages, v_pages, tables, off, chunk_len,
     lib = build.load("paged_prefill")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.paged_prefill_launch(
-            DTYPE_CODES[q.dtype], q.data_ptr(), kn.data_ptr(), vn.data_ptr(),
-            kp.data_ptr(), vp.data_ptr(), tbl.data_ptr(), offs.data_ptr(),
-            cls.data_ptr(), out.data_ptr(), B, K, S, G, h, bs, nb, h ** -0.5,
-            int(window), int(sink), stream)
+        if quant:
+            sp = scale_plane_args(kp, (k_scale, k_tok, v_scale, v_tok), dev)
+            rc = lib.paged_prefill_int8_launch(
+                DTYPE_CODES[q.dtype], q.data_ptr(), kn.data_ptr(),
+                vn.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+                *(t.data_ptr() for t in sp), tbl.data_ptr(),
+                offs.data_ptr(), cls.data_ptr(), out.data_ptr(), B, K, S, G,
+                h, bs, nb, h ** -0.5, int(window), int(sink), stream)
+        else:
+            rc = lib.paged_prefill_launch(
+                DTYPE_CODES[q.dtype], q.data_ptr(), kn.data_ptr(),
+                vn.data_ptr(), kp.data_ptr(), vp.data_ptr(), tbl.data_ptr(),
+                offs.data_ptr(), cls.data_ptr(), out.data_ptr(), B, K, S, G,
+                h, bs, nb, h ** -0.5, int(window), int(sink), stream)
     build.check_launch("paged_prefill", rc)
     paged_prefill.launches += 1
+    paged_prefill.int8_launches += int(quant)
     return out
 
 
 paged_prefill.launches = 0
+paged_prefill.int8_launches = 0

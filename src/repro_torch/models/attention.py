@@ -6,6 +6,9 @@ Layouts (as in src/repro/models/attention.py):
   k, v     [B, S, K, h]       (K = n_kv_heads, G = H // K)
   arenas   [N, K, bs, h]      kv-head-major blocks; block 0 is the null block
   summaries kmin/kmax/kmean [N, K, h] float32
+  scale plane (QuantPlane, int8 arenas) kscale/vscale [N, K, h] float32
+           per-channel seal scales (a nonzero row marks a sealed block),
+           ktok/vtok [N, K, bs] float32 per-token scales of unsealed content
   dense    [B, W, K, h]       W = sink + recent (ring) or max_len (full)
 
 Cache writes update the tensors IN PLACE and return them: the arenas are
@@ -39,29 +42,42 @@ def decode_attention(q, k_cache, v_cache, t):
     return out.reshape(B, H, h)
 
 
-def paged_decode_attention(q, k_pages, v_pages, tables, lens):
+def _gather_linear(pages, tables, scale=None, tok=None):
+    """Tabled blocks of an arena [N,K,bs,h] as a linear [B, nb·bs, K, h]
+    view; int8 pages with their scale plane come out dequantized (f32)."""
+    B, nb = tables.shape
+    K, bs, h = pages.shape[1:]
+    tl = tables.long()
+    g = pages[tl]
+    if scale is not None:
+        g = dequant_pages(g, scale[tl], tok[tl])
+    return g.permute(0, 1, 3, 2, 4).reshape(B, nb * bs, K, h)
+
+
+def paged_decode_attention(q, k_pages, v_pages, tables, lens, *,
+                           k_scale=None, k_tok=None, v_scale=None,
+                           v_tok=None):
     """Single-token attention over paged KV (plain path). q [B,H,h]; arenas
     [N,K,bs,h]; tables [B,nb]; lens [B] resident logical slots. Gathers the
     tabled blocks into a linear [B, nb·bs, K, h] view (non-resident entries
-    alias the null block and are masked by lens)."""
-    B = q.shape[0]
-    nb = tables.shape[1]
-    K, bs, h = k_pages.shape[1], k_pages.shape[2], k_pages.shape[3]
-    tl = tables.long()
-    k_lin = k_pages[tl].permute(0, 1, 3, 2, 4).reshape(B, nb * bs, K, h)
-    v_lin = v_pages[tl].permute(0, 1, 3, 2, 4).reshape(B, nb * bs, K, h)
+    alias the null block and are masked by lens). With the scale-plane
+    kwargs the arenas are int8 and the gathered view is dequantized."""
+    k_lin = _gather_linear(k_pages, tables, k_scale, k_tok)
+    v_lin = _gather_linear(v_pages, tables, v_scale, v_tok)
     return decode_attention(q, k_lin, v_lin, lens)
 
 
 def paged_prefill_attention(q, k_new, v_new, k_pages, v_pages, tables, off,
                             chunk_len, *, mask_window: int = 0,
-                            mask_sink: int = 0):
+                            mask_sink: int = 0, k_scale=None, k_tok=None,
+                            v_scale=None, v_tok=None):
     """Chunked-prefill attention over paged history (plain path). q
     [B,S,H,h] is one prompt chunk at absolute positions off + arange(S)
     (only the first chunk_len rows real); k_new/v_new [B,S,K,h]; history
     (tokens < off) lives in arena blocks mapped by tables [B,nb]. Queries
     attend resident history plus causal in-chunk keys, optionally under the
-    sink+window mask."""
+    sink+window mask. Int8 arenas (the scale-plane kwargs) dequantize only
+    the gathered history; the chunk's own k_new/v_new are not quantized."""
     B, S, H, h = q.shape
     K = k_new.shape[2]
     G = H // K
@@ -71,9 +87,8 @@ def paged_prefill_attention(q, k_new, v_new, k_pages, v_pages, tables, off,
     dev = q.device
     off = per_row(off, B, dev).long()
     cl = per_row(chunk_len, B, dev).long()
-    tl = tables.long()
-    k_hist = k_pages[tl].permute(0, 1, 3, 2, 4).reshape(B, L, K, h)
-    v_hist = v_pages[tl].permute(0, 1, 3, 2, 4).reshape(B, L, K, h)
+    k_hist = _gather_linear(k_pages, tables, k_scale, k_tok)
+    v_hist = _gather_linear(v_pages, tables, v_scale, v_tok)
     ar_l = torch.arange(L, device=dev)
     ar_s = torch.arange(S, device=dev)
     pos = off[:, None] + ar_s[None]                          # [B, S]
@@ -190,14 +205,19 @@ def compress_prefill_kv(k, v, *, sink: int, recent: int, true_len=None):
     return out[0], out[1]
 
 
-def update_block_summaries(kmin, kmax, kmean, k_pages, blocks):
+def update_block_summaries(kmin, kmax, kmean, k_pages, blocks, *,
+                           k_scale=None, k_tok=None):
     """Recompute the per-block key summaries of `blocks` ([M] ids,
     duplicates fine) from the arena, in place: min, max and mean over all bs
     slots of each block, zeros of unwritten slots included (they only widen
     the [kmin, kmax] interval). Every path that writes arena K calls this
-    for the blocks it touched, so no summary is ever stale."""
+    for the blocks it touched, so no summary is ever stale. Int8 arenas pass
+    their key scale plane: the summaries reduce the dequantized content,
+    which is what attention reads."""
     blocks = blocks.long()
     k = k_pages[blocks].float()                      # [M, K, bs, h]
+    if k_scale is not None:
+        k = k * quant_effective_scale(k_scale[blocks], k_tok[blocks])
     kmin[blocks] = k.amin(dim=-2)
     kmax[blocks] = k.amax(dim=-2)
     kmean[blocks] = k.mean(dim=-2)
@@ -265,20 +285,21 @@ def select_kv_blocks(scores, tables, lens, *, block_size: int, k_static: int,
     return new_tables, new_lens, m, selected
 
 
-def selected_attention_mass(q, k_pages, tables, lens, selected):
+def selected_attention_mass(q, k_pages, tables, lens, selected, *,
+                            k_scale=None, k_tok=None):
     """Exact attention mass the selected blocks capture, per slot.
 
     q [B, H, h]; k_pages [N, K, bs, h]; tables/selected [B, nb] over the
     original logical blocks; lens [B] resident slots. Computes the full
     resident softmax (a diagnostics pass, gated by
     `omniattn.topk_measure_mass`) and sums the probability landing in
-    selected blocks, averaged over heads → [B] float32 in [0, 1]."""
+    selected blocks, averaged over heads → [B] float32 in [0, 1]. Int8
+    arenas pass the key scale plane (the mass over dequantized keys)."""
     B, H, h = q.shape
     K, bs = k_pages.shape[1], k_pages.shape[2]
     G = H // K
     nb = tables.shape[1]
-    k_lin = k_pages[tables.long()].permute(0, 1, 3, 2, 4) \
-        .reshape(B, nb * bs, K, h).float()
+    k_lin = _gather_linear(k_pages, tables, k_scale, k_tok).float()
     qg = q.reshape(B, K, G, h).float()
     s = torch.einsum("bkgh,bwkh->bkgw", qg, k_lin) * h ** -0.5
     valid = torch.arange(nb * bs, device=q.device)[None] \
@@ -376,3 +397,136 @@ def spec_verify_ring_attention(q, k_new, v_new, k_cache, v_cache, positions,
     v_all = torch.cat([v_cache.float(), v_new.float()], dim=1)
     out = torch.einsum("bskgw,bwkh->bskgh", p_att, v_all)
     return out.reshape(B, S, H, h).to(q.dtype)
+
+
+# ----------------------------------------------------------------------
+# QuantPlane: int8 arena payloads and their float32 scale plane (the
+# reference's models/attention.py:214-382). Sealed (full) blocks hold int8
+# with per-block, per-channel scales kscale/vscale [N, K, h]; unsealed
+# content holds the per-token quantization with scalar scales ktok/vtok
+# [N, K, bs]. A nonzero scale row marks a sealed block, and one elementwise
+# rule dequantizes both: q · where(scale != 0, scale, tok). Both
+# quantizations are pure functions of the written content, so the arena
+# bytes do not depend on how writes were grouped into chunks or windows.
+#
+# absmax/127 is computed as absmax · float32(1/127): the reference runs its
+# writes under jit, where XLA folds a division by a constant into a product
+# with the constant's float32 reciprocal, so this is the value its arenas
+# hold. The quantization itself, x / scale, stays a true division.
+INV_127 = 1.0 / 127.0
+
+
+def quant_tokens(x):
+    """Per-token int8 quantization (the unsealed format). x [..., h] → (q
+    int8 [..., h], ts float32 [...]): ts = absmax/127 per (token, kv head),
+    q = round(x / ts) clipped to ±127, rounding half to even; a zero token
+    gets ts = 0 and q = 0."""
+    x = x.float()
+    ts = x.abs().amax(dim=-1) * INV_127
+    safe = torch.where(ts > 0, ts, 1.0)
+    q = torch.clamp(torch.round(x / safe[..., None]), -127, 127)
+    return q.to(torch.int8), ts
+
+
+def quant_effective_scale(scale, tok):
+    """Elementwise dequant scale [..., bs, h] from the per-channel seal
+    scales [..., h] and the per-token scales [..., bs]."""
+    sc = scale[..., None, :]
+    return torch.where(sc != 0, sc, tok[..., None])
+
+
+def dequant_pages(pages, scale, tok):
+    """int8 payload [..., bs, h] → float32 content (one product per
+    element)."""
+    return pages.float() * quant_effective_scale(scale, tok)
+
+
+def seal_blocks(pages, scale, tok, blocks, do_seal):
+    """Seal freshly filled blocks, in place: re-quantize each block's stored
+    per-token payload with per-channel scales and zero its per-token row.
+    pages int8 [N, K, bs, h]; scale [N, K, h]; tok [N, K, bs]; blocks [M]
+    ids; do_seal [M] bool. Rows that do not seal are redirected to the null
+    block 0, which is never sealed and gets its own content back, so every
+    real target of the whole-block scatter is unique."""
+    blocks = blocks.long()
+    do_seal = do_seal & (blocks != 0)
+    tgt = blocks.masked_fill(~do_seal, 0)
+    praw = pages[tgt]                                # [M, K, bs, h] int8
+    ts = tok[tgt]                                    # [M, K, bs]
+    deq = praw.float() * ts[..., None]
+    sc = deq.abs().amax(dim=-2) * INV_127            # [M, K, h]
+    safe = torch.where(sc > 0, sc, 1.0)
+    q2 = torch.clamp(torch.round(deq / safe[..., None, :]), -127, 127) \
+        .to(torch.int8)
+    m4 = do_seal[:, None, None]
+    pages[tgt] = torch.where(m4[..., None], q2, praw)
+    scale[tgt] = torch.where(m4, sc, scale[tgt])
+    tok[tgt] = ts.masked_fill(m4, 0.0)
+    return pages, scale, tok
+
+
+def _quant_scatter(entry, k_new, v_new, blk, off, opened, filled):
+    """The three scatters of every int8 write, in order, in place: unseal
+    the blocks in `opened` (a block's offset-0 token lands: a reallocated
+    block may still carry its previous owner's seal scale), land the
+    per-token payload and scales at (blk, off) [R] for rows k_new/v_new
+    [R, K, h], then seal the blocks whose last slot (`filled` [R]) landed.
+    blk/off/opened are long tensors; redirected rows point at block 0."""
+    K = entry["k"].shape[1]
+    ki = torch.arange(K, device=blk.device)[None, :]
+    b, o = blk[:, None], off[:, None]
+    for name, new in (("k", k_new), ("v", v_new)):
+        q, ts = quant_tokens(new)
+        entry[name + "scale"][opened] = 0.0
+        entry[name][b, ki, o] = q
+        entry[name + "tok"][b, ki, o] = ts
+        seal_blocks(entry[name], entry[name + "scale"], entry[name + "tok"],
+                    blk, filled)
+    return entry
+
+
+def quant_paged_cache_write(entry, k_new, v_new, blk, off):
+    """Decode append into an int8 arena entry, in place (the int8 twin of
+    `paged_cache_write`): k_new/v_new [B, K, h]; blk/off [B]. Unseals a
+    block receiving its offset-0 token, writes the per-token payload, seals
+    a block whose last slot (off == bs - 1) landed."""
+    bs = entry["k"].shape[2]
+    blk, off = blk.long(), off.long()
+    opened = torch.where(off == 0, blk, torch.zeros_like(blk))
+    return _quant_scatter(entry, k_new, v_new, blk, off, opened,
+                          off == bs - 1)
+
+
+def quant_paged_prefill_write(entry, k_new, v_new, tables, off, chunk_len):
+    """Chunk scatter into an int8 arena entry, in place (the int8 twin of
+    `paged_prefill_write`): the chunk k_new/v_new [1, S, K, h] at absolute
+    positions off + arange(S); padded rows (>= chunk_len) go to the null
+    block."""
+    S = k_new.shape[1]
+    bs = entry["k"].shape[2]
+    nb = tables.shape[1]
+    ar = torch.arange(S, device=entry["k"].device)
+    pos = int(off) + ar
+    valid = ar < int(chunk_len)
+    blk = torch.where(valid,
+                      tables[0].long()[torch.clamp(pos // bs, 0, nb - 1)],
+                      torch.zeros_like(pos))
+    offi = pos % bs
+    opened = torch.where(valid & (offi == 0), blk, torch.zeros_like(blk))
+    return _quant_scatter(entry, k_new[0], v_new[0], blk, offi, opened,
+                          valid & (offi == bs - 1))
+
+
+def quant_paged_cache_write_tokens(entry, k_new, v_new, blk, off):
+    """Window scatter into an int8 arena entry, in place (the int8 twin of
+    `paged_cache_write_tokens`, the speculative commit): k_new/v_new
+    [B, S, K, h]; blk/off [B, S] with rejected and idle rows already
+    redirected to the null block, so a rollback is a write that never
+    happens, for the payload and the scale plane alike."""
+    B, S, K, h = k_new.shape
+    bs = entry["k"].shape[2]
+    blk, off = blk.long().reshape(-1), off.long().reshape(-1)
+    opened = torch.where(off == 0, blk, torch.zeros_like(blk))
+    return _quant_scatter(entry, k_new.reshape(B * S, K, h),
+                          v_new.reshape(B * S, K, h), blk, off, opened,
+                          off == bs - 1)

@@ -11,16 +11,21 @@ Attention layers are full (KV grows with the context) or ring layers
 (OmniAttn sink+recent compression, or a sliding window: a fixed capacity
 W). Entries, all updated in place:
   paged full layer   {"k","v": [N, K, bs, h] shared arenas,
-                      "kmin","kmax","kmean": [N, K, h] float32}
+                      "kmin","kmax","kmean": [N, K, h] float32}; with
+                      QuantPlane "k","v" are int8 and the entry carries
+                      the scale plane "kscale","vscale": [N, K, h] and
+                      "ktok","vtok": [N, K, bs] float32
   paged ring layer   {"k","v": [n_slots·bpw, K, bs, h]}: slot b owns the
                       contiguous block run [b·bpw, (b+1)·bpw)
   dense layer        {"k","v": [B, W, K, h]}, W = sink+recent or max_len
 Paged decode of full layers runs OmniAttn online top-k block selection when
 cfg.omniattn sets a budget (`topk_block_budget`); mode "verify" is the
 read-only speculative-verify forward, and `stack_verify_commit` lands its
-accepted prefix. Each layer's FFN is a dense SwiGLU or, on an MoE layer,
-the routed experts over OmniPlacement slot tables (models/moe.py) plus the
-shared SwiGLU. `check_supported` raises NotImplementedError for what a
+accepted prefix. Quant is structural: an entry with "kscale" is int8, its
+reads dequantize in the kernels' tiles and its writes quantize
+(models/attention.py's QuantPlane section); ring layers never quantize.
+Each layer's FFN is a dense SwiGLU or, on an MoE layer, the routed experts
+over OmniPlacement slot tables (models/moe.py) plus the shared SwiGLU. `check_supported` raises NotImplementedError for what a
 later slice brings (SSM; online top-k with MoE); chunked prefill over ring
 layers raises where it is attempted (`attn_sublayer`).
 """
@@ -121,11 +126,15 @@ def ring_block_count(sink: int, recent: int, block_size: int) -> int:
 # ----------------------------------------------------------------------
 # Caches: the shared full-attention arenas and the engine-private side
 def alloc_arena_kv(cfg: ModelConfig, plan: StackPlan, n_arena_blocks: int,
-                   block_size: int, device, dtype=None) -> list:
+                   block_size: int, device, dtype=None,
+                   quant: bool = False) -> list:
     """One entry per layer: {"k","v": [N, K, bs, h], "kmin","kmax","kmean":
     [N, K, h] float32} for full-attention layers (`n_arena_blocks` includes
-    the null block 0), None elsewhere."""
-    dtype = torch_dtype(dtype or cfg.compute_dtype)
+    the null block 0), None elsewhere. With `quant` (QuantPlane) "k","v"
+    are int8 and the entry adds the scale plane: "kscale","vscale" [N, K,
+    h] per-channel seal scales and "ktok","vtok" [N, K, bs] per-token
+    scales, float32."""
+    dtype = torch.int8 if quant else torch_dtype(dtype or cfg.compute_dtype)
     K, h = cfg.n_kv_heads, cfg.head_dim
 
     def one(spec):
@@ -133,13 +142,28 @@ def alloc_arena_kv(cfg: ModelConfig, plan: StackPlan, n_arena_blocks: int,
             return None
         shp = (n_arena_blocks, K, block_size, h)
         sshp = (n_arena_blocks, K, h)
-        z = dict(device=device)
-        return {"k": torch.zeros(shp, dtype=dtype, **z),
-                "v": torch.zeros(shp, dtype=dtype, **z),
-                "kmin": torch.zeros(sshp, dtype=torch.float32, **z),
-                "kmax": torch.zeros(sshp, dtype=torch.float32, **z),
-                "kmean": torch.zeros(sshp, dtype=torch.float32, **z)}
+        z = dict(dtype=torch.float32, device=device)
+        e = {"k": torch.zeros(shp, dtype=dtype, device=device),
+             "v": torch.zeros(shp, dtype=dtype, device=device),
+             "kmin": torch.zeros(sshp, **z),
+             "kmax": torch.zeros(sshp, **z),
+             "kmean": torch.zeros(sshp, **z)}
+        if quant:
+            tshp = (n_arena_blocks, K, block_size)
+            e.update(kscale=torch.zeros(sshp, **z),
+                     vscale=torch.zeros(sshp, **z),
+                     ktok=torch.zeros(tshp, **z), vtok=torch.zeros(tshp, **z))
+        return e
     return [one(s) for s in plan.all_specs()]
+
+
+def quant_kwargs(entry: dict) -> dict:
+    """The kernels' scale-plane kwargs of an int8 arena entry ({} for a
+    float entry)."""
+    if "kscale" not in entry:
+        return {}
+    return dict(k_scale=entry["kscale"], k_tok=entry["ktok"],
+                v_scale=entry["vscale"], v_tok=entry["vtok"])
 
 
 def alloc_cache(cfg: ModelConfig, plan: StackPlan, B: int, max_len: int,
@@ -289,9 +313,15 @@ def attn_sublayer(cfg: ModelConfig, spec: LayerSpec, p: dict, x, *,
         bs = kc.shape[2]
         nb = block_tables.shape[1]
         cl = S if true_len is None else int(true_len)
+        qkw = quant_kwargs(cache)
         out = kops.attention_paged_prefill_op(q, k, v, kc, vc, block_tables,
-                                              pos0, cl)
-        attn_mod.paged_prefill_write(kc, vc, k, v, block_tables, pos0, cl)
+                                              pos0, cl, **qkw)
+        if qkw:
+            attn_mod.quant_paged_prefill_write(cache, k, v, block_tables,
+                                               pos0, cl)
+        else:
+            attn_mod.paged_prefill_write(kc, vc, k, v, block_tables, pos0,
+                                         cl)
         # the chunk touched the blocks its real positions map to (padded
         # rows alias the null block, whose re-summary is harmless)
         ar = torch.arange(S, device=x.device)
@@ -301,12 +331,15 @@ def attn_sublayer(cfg: ModelConfig, spec: LayerSpec, p: dict, x, *,
             block_tables[0].long()[torch.clamp(ppos // bs, 0, nb - 1)],
             torch.zeros_like(ar))
         attn_mod.update_block_summaries(cache["kmin"], cache["kmax"],
-                                        cache["kmean"], kc, wblk)
+                                        cache["kmean"], kc, wblk,
+                                        k_scale=qkw.get("k_scale"),
+                                        k_tok=qkw.get("k_tok"))
     elif mode == "decode" and block_tables is not None:
         kc, vc = cache["k"], cache["v"]
         bs = kc.shape[2]
         t = positions[:, 0].to(torch.int32)
         bidx = torch.arange(B, device=x.device, dtype=torch.int32)
+        qkw = quant_kwargs(cache)          # {} on ring layers
         if ring:
             # the slot's ring occupies its own contiguous block run
             W = sink + recent
@@ -329,14 +362,22 @@ def attn_sublayer(cfg: ModelConfig, spec: LayerSpec, p: dict, x, *,
                 torch.zeros_like(t))
             tbl = block_tables
             lens = torch.clamp(t + 1, max=nb * bs)
-            attn_mod.paged_cache_write(kc, vc, k[:, 0], v[:, 0], blk, t % bs)
+            if qkw:
+                attn_mod.quant_paged_cache_write(cache, k[:, 0], v[:, 0],
+                                                 blk, t % bs)
+            else:
+                attn_mod.paged_cache_write(kc, vc, k[:, 0], v[:, 0], blk,
+                                           t % bs)
             # the appended token's block is re-summarised before scoring, so
             # the tail bound covers the new key
             attn_mod.update_block_summaries(cache["kmin"], cache["kmax"],
-                                            cache["kmean"], kc, blk)
+                                            cache["kmean"], kc, blk,
+                                            k_scale=qkw.get("k_scale"),
+                                            k_tok=qkw.get("k_tok"))
             tbl, lens, sp_aux = _select_blocks(cfg, q[:, 0], cache, tbl,
                                                lens, token_mask)
-        out = kops.attention_paged_decode_op(q[:, 0], kc, vc, tbl, lens)
+        out = kops.attention_paged_decode_op(q[:, 0], kc, vc, tbl, lens,
+                                             **qkw)
     elif mode == "verify":
         # read-only: the window's K/V is staged, the accepted prefix is
         # committed afterwards (a rejected row never touches a block)
@@ -354,7 +395,8 @@ def attn_sublayer(cfg: ModelConfig, spec: LayerSpec, p: dict, x, *,
         else:
             t = pos2[:, 0]
             out = kops.spec_verify_op(q, k, v, cache["k"], cache["v"],
-                                      block_tables, t, torch.full_like(t, S))
+                                      block_tables, t, torch.full_like(t, S),
+                                      **quant_kwargs(cache))
         new_cache = {"k": k, "v": v}
     elif mode == "decode":
         t = positions[:, 0]
@@ -397,7 +439,9 @@ def _select_blocks(cfg: ModelConfig, q, cache: dict, tbl, lens, token_mask):
         recent_blocks=max(oa.topk_recent_blocks, 1))
     if oa.topk_measure_mass:
         mass = attn_mod.selected_attention_mass(q, cache["k"], tbl, lens,
-                                                selected)
+                                                selected,
+                                                k_scale=cache.get("kscale"),
+                                                k_tok=cache.get("ktok"))
         mass_sum, mass_n = (act * mass).sum(), act.sum()
     else:
         mass_sum = mass_n = zero
@@ -504,9 +548,18 @@ def stack_verify_commit(cfg: ModelConfig, plan: StackPlan, caches: dict,
         blk = torch.where(valid & (pos2 < nb * bs),
                           block_tables[bidx.long()[:, None], col],
                           torch.zeros_like(pos2))
-        attn_mod.paged_cache_write_tokens(entry["k"], entry["v"], stg["k"],
-                                          stg["v"], blk, pos2 % bs)
+        if "kscale" in entry:
+            # the staged window quantizes per token as it lands; rejected
+            # rows go to the null block, for the scale plane too
+            attn_mod.quant_paged_cache_write_tokens(entry, stg["k"],
+                                                    stg["v"], blk, pos2 % bs)
+        else:
+            attn_mod.paged_cache_write_tokens(entry["k"], entry["v"],
+                                              stg["k"], stg["v"], blk,
+                                              pos2 % bs)
         attn_mod.update_block_summaries(entry["kmin"], entry["kmax"],
                                         entry["kmean"], entry["k"],
-                                        blk.reshape(-1))
+                                        blk.reshape(-1),
+                                        k_scale=entry.get("kscale"),
+                                        k_tok=entry.get("ktok"))
     return caches

@@ -7,6 +7,9 @@ extends them through per-slot tables, and admission is a zero-copy
 block-table transfer (BlockHandoff: pool ownership renames from the handoff
 key to the decode rid). The arena tensors are updated in place by every
 engine, so there is no compose/split of donated buffers to keep in step.
+With QuantPlane (`KVArena.build(quant=True)`) the arenas are int8 with their
+scale plane; every block-level operation (CoW copy, prefix-store sharing,
+handoff) carries the scale rows with the payload.
 """
 from __future__ import annotations
 
@@ -68,12 +71,18 @@ class KVArena:
 
     @staticmethod
     def build(lm: LM, n_blocks: int, block_size: int = 16,
-              placement: Optional[DevicePlacement] = None) -> "KVArena":
+              placement: Optional[DevicePlacement] = None,
+              quant: bool = False) -> "KVArena":
         pool = KVPool(n_blocks=n_blocks, block_size=block_size)
         # +1: arena block 0 is the reserved null block (never allocated)
         kv = alloc_arena_kv(lm.cfg, lm.plan, n_blocks + 1, block_size,
-                            lm.device)
+                            lm.device, quant=quant)
         return KVArena(lm, pool, kv, block_size, placement=placement)
+
+    @property
+    def quant(self) -> bool:
+        """An arena is int8 iff its entries carry the scale plane."""
+        return any(e is not None and "kscale" in e for e in self.kv)
 
     def __post_init__(self):
         if self.placement is None:
@@ -85,25 +94,41 @@ class KVArena:
                                 for t in e.values())
 
     def copy_block(self, src: int, dst: int):
-        """Copy one physical block across every layer arena — content and
-        summaries together (the partial-tail copy-on-write of a prefix-store
-        resume): a copied block's summary is its source's, so no summary
-        goes stale."""
+        """Copy one physical block across every layer arena — content,
+        summaries and (int8 arenas) scale rows together (the partial-tail
+        copy-on-write of a prefix-store resume): a copied block's summary is
+        its source's, so no summary goes stale."""
         for e in self.kv:
             if e is None:
                 continue
             for t in e.values():
                 t[dst] = t[src]
 
+    @staticmethod
+    def _dense_k(entry) -> np.ndarray:
+        """Host float32 view of an entry's key content, dequantized through
+        the scale plane on int8 arenas (one float32 product per element, as
+        the device computes it), so the checks read what attention reads."""
+        k = entry["k"].float().cpu().numpy()
+        if "kscale" in entry:
+            sc = entry["kscale"].cpu().numpy()[..., None, :]
+            tk = entry["ktok"].cpu().numpy()[..., None]
+            k = k * np.where(sc != 0, sc, tk)
+        return k
+
     def check_summaries(self):
         """Zero-stale-summary invariant: for every block of every
         full-attention layer, the stored key summaries equal a fresh
         reduction of the block's key content (min/max exactly, mean to
-        rounding). Test/diagnostic helper — fetches the arenas."""
+        rounding); on int8 arenas the dequantized content. Int8 arenas add
+        the zero-stale-scale checks: every scale is finite and >= 0, and a
+        sealed block (nonzero scale row) has its per-token row zeroed — the
+        null block 0, a redirect target of duplicate writes, is exempt.
+        Test/diagnostic helper — fetches the arenas."""
         for e in self.kv:
             if e is None:
                 continue
-            k = e["k"].float().cpu().numpy()
+            k = self._dense_k(e)
             np.testing.assert_array_equal(e["kmin"].cpu().numpy(),
                                           k.min(axis=-2),
                                           err_msg="stale kmin summary")
@@ -113,6 +138,19 @@ class KVArena:
             np.testing.assert_allclose(e["kmean"].cpu().numpy(),
                                        k.mean(axis=-2), rtol=1e-5, atol=1e-6,
                                        err_msg="stale kmean summary")
+            if "kscale" not in e:
+                continue
+            for sck, tkk in (("kscale", "ktok"), ("vscale", "vtok")):
+                sc = e[sck].cpu().numpy()
+                tk = e[tkk].cpu().numpy()
+                assert np.all(np.isfinite(sc)) and np.all(sc >= 0), \
+                    f"invalid {sck} seal scales"
+                assert np.all(np.isfinite(tk)) and np.all(tk >= 0), \
+                    f"invalid {tkk} per-token scales"
+                sealed = (sc != 0).any(axis=-1)              # [N, K]
+                sealed[0] = False                            # null block
+                assert not (sealed[..., None] & (tk != 0)).any(), \
+                    f"sealed block retains nonzero {tkk} row"
 
     def reclaim(self, n_blocks: int) -> int:
         """Free up to `n_blocks` pool blocks by evicting shared cache state

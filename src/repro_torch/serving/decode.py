@@ -230,7 +230,9 @@ class DecodeEngine:
         tbl = torch.from_numpy(wtbl.astype(np.int64)).to(self.device)
         for spec, e, priv, o in zip(self.lm.plan.all_specs(), self.arena.kv,
                                     self.cache["layers"], one["layers"]):
-            if e is not None:
+            if e is not None and "kscale" in e:
+                self._insert_quant(e, o, tbl)
+            elif e is not None:
                 for name in ("k", "v"):
                     e[name][tbl] = dense_kv_to_blocks(
                         o[name][0], self.max_blocks, bs).to(e[name].dtype)
@@ -242,11 +244,42 @@ class DecodeEngine:
                     priv[name][b0:b0 + bpw] = dense_kv_to_blocks(
                         o[name][0], bpw, bs).to(priv[name].dtype)
 
+    def _insert_quant(self, e: dict, o: dict, tbl):
+        """Dense-scatter admission into an int8 arena entry `e` through the
+        table row `tbl` (shared prefix entries already redirected to the
+        null block, so a lender's payload, scales and summaries stand). A
+        cache extracted at preemption carries the raw sidecar ("kq",
+        "kscale", "ktok", v likewise, block-major): it is scattered back
+        verbatim, so the round trip is exact (requantizing the dequantized
+        view would not be). A fresh float cache takes the per-token
+        quantization, every rewritten block unsealed — the reference's
+        admission, so the streams stay the same. The written blocks'
+        summaries are recomputed over the dequantized content."""
+        for name in ("k", "v"):
+            sn, tn = name + "scale", name + "tok"
+            if name + "q" in o:
+                e[name][tbl] = o[name + "q"][0]
+                e[sn][tbl] = o[sn][0]
+                e[tn][tbl] = o[tn][0]
+            else:
+                q, ts = attn_mod.quant_tokens(o[name][0])   # [L,K,h], [L,K]
+                e[name][tbl] = dense_kv_to_blocks(q, self.max_blocks,
+                                                  self.block_size)
+                e[sn][tbl] = 0.0
+                e[tn][tbl] = dense_kv_to_blocks(
+                    ts[..., None], self.max_blocks, self.block_size)[..., 0]
+        attn_mod.update_block_summaries(e["kmin"], e["kmax"], e["kmean"],
+                                        e["k"], tbl, k_scale=e["kscale"],
+                                        k_tok=e["ktok"])
+
     def _extract_dense(self, slot: int) -> dict:
         """One slot's KV as a B=1 dense cache: max_len tokens of each full
         layer (gathered out of the arenas through the slot's table when
         paged), W slots of each ring layer (the preemption interchange
-        format)."""
+        format). An int8 arena entry gives its dequantized float32 view
+        under "k"/"v" plus the raw sidecar ("kq", "kscale", "ktok", v
+        likewise, [1, max_blocks, ...] block-major) that `_insert_quant`
+        scatters back verbatim."""
         if not self.paged:
             layers = [{n: x[slot:slot + 1].clone() for n, x in e.items()}
                       for e in self.cache["layers"]]
@@ -256,7 +289,18 @@ class DecodeEngine:
         layers = []
         for spec, e, priv in zip(self.lm.plan.all_specs(), self.arena.kv,
                                  self.cache["layers"]):
-            if e is not None:
+            if e is not None and "kscale" in e:
+                ent = {}
+                for n in ("k", "v"):
+                    raw = {n + "q": e[n][tbl],
+                           n + "scale": e[n + "scale"][tbl],
+                           n + "tok": e[n + "tok"][tbl]}
+                    ent[n] = blocks_to_dense_kv(attn_mod.dequant_pages(
+                        raw[n + "q"], raw[n + "scale"], raw[n + "tok"]),
+                        self.max_len)[None].clone()
+                    ent.update({k: x[None] for k, x in raw.items()})
+                layers.append(ent)
+            elif e is not None:
                 layers.append({n: blocks_to_dense_kv(
                     e[n][tbl], self.max_len)[None].clone()
                     for n in ("k", "v")})

@@ -21,7 +21,9 @@ online top-k block selection when the model config sets a budget
 (cfg.omniattn.topk_*), or SpecPlane speculative decoding with
 `ServerConfig.spec` (a SpecConfig; the two do not compose); their
 device-side stats are drained into the metrics every STAT_DRAIN_ROUNDS
-decode rounds and at the end of `run`.
+decode rounds and at the end of `run`. With `ServerConfig.quant` (a
+QuantConfig, QuantPlane) every full-attention arena is int8 with its scale
+plane; it composes with top-k and speculation.
 
 MoE models (qwen2-moe-a2.7b) serve through the same path: every MoE layer
 routes through the server's OmniPlacement tables, and with
@@ -32,9 +34,9 @@ expert weights in place and swaps the tables. On one device (ep = 1) the
 imbalance is always 1.0, so the loop monitors and never rebalances;
 `_apply_migration` also takes a forced plan.
 
-Options of later slices (int8 KV, fault injection and recovery, chunked
-prefill over ring layers, speculation or online top-k with MoE layers)
-raise NotImplementedError.
+Options of later slices (fault injection and recovery, chunked prefill
+over ring layers, speculation or online top-k with MoE layers) raise
+NotImplementedError.
 """
 from __future__ import annotations
 
@@ -58,6 +60,7 @@ from repro_torch.serving.arena import BlockHandoff, KVArena
 from repro_torch.serving.decode import DecodeEngine
 from repro_torch.serving.placement import DevicePlacement
 from repro_torch.serving.prefill import PrefillEngine
+from repro_torch.serving.quant import QuantConfig, QuantController
 from repro_torch.serving.spec import SpecConfig
 
 # decode rounds between drains of the engines' device-side sparsity and
@@ -90,8 +93,9 @@ class ServerConfig:
     placement_cfg: Optional[SchedulerConfig] = None  # scheduler override
                                       # (None → defaults with budget=0,
                                       # table-width max_slots)
+    quant: Optional[QuantConfig] = None  # int8 paged KV arenas
+                                      # (QuantPlane; None → float arenas)
     # options of later slices: setting any of them raises
-    quant: Optional[object] = None    # int8 KV arenas
     watchdog_steps: Optional[int] = None    # FaultPlane recovery
     watchdog_wall_s: Optional[float] = None
     admission_queue_cap: Optional[int] = None
@@ -100,8 +104,11 @@ class ServerConfig:
         if self.spec is not None and not isinstance(self.spec, SpecConfig):
             raise TypeError(f"ServerConfig.spec takes a SpecConfig, got "
                             f"{type(self.spec).__name__}")
-        later = {"quant": self.quant is not None,
-                 "watchdog / admission_queue_cap":
+        if self.quant is not None and not isinstance(self.quant,
+                                                     QuantConfig):
+            raise TypeError(f"ServerConfig.quant takes a QuantConfig, got "
+                            f"{type(self.quant).__name__}")
+        later = {"watchdog / admission_queue_cap":
                  self.watchdog_steps is not None
                  or self.watchdog_wall_s is not None
                  or self.admission_queue_cap is not None}
@@ -136,6 +143,12 @@ class Server:
         # decode slot gets max_len capacity plus one prompt of prefill
         # headroom per prefill instance
         self.kv_arena = None
+        # QuantPlane: validated against this stack (raises on a width other
+        # than 8 bits or over slot-dense KV; None when no full-attention
+        # layer exists to quantize) before any arena is allocated
+        self.quant_ctl = QuantController.from_model(
+            cfg, self.lm.plan, scfg.quant, scfg.kv_block_size,
+            paged_kv=scfg.paged_kv)
         if scfg.paged_kv:
             max_blocks = -(-scfg.max_len // scfg.kv_block_size)
             n_blocks = scfg.kv_blocks if scfg.kv_blocks is not None else \
@@ -143,7 +156,8 @@ class Server:
                 * max_blocks
             self.kv_arena = KVArena.build(self.lm, n_blocks,
                                           scfg.kv_block_size,
-                                          placement=self.placement)
+                                          placement=self.placement,
+                                          quant=self.quant_ctl is not None)
         self.prefills = [
             PrefillEngine(self.lm, self.params, scfg.max_len,
                           arena=self.kv_arena,
@@ -166,6 +180,11 @@ class Server:
                                      if self.proxy.trees else None,
                                      tables=self.tables)
                         for _ in range(scfg.n_decode)]
+        if self.quant_ctl is not None:
+            # static residency figures beside the per-step counters
+            for eng in self.decodes:
+                eng.stats.update(QuantController.stats_keys())
+                self.quant_ctl.note(eng.stats)
         # rid → (handoff or B=1 cache, next_token, pos, cached_tokens,
         # prompt, params) awaiting decode admission
         self._pending_kv: dict = {}

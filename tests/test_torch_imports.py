@@ -65,7 +65,7 @@ def test_no_jax_or_repro_import_in_source(path):
 def test_every_slice_module_is_checked():
     """The import check above walks the package; the modules of each slice
     (paged serving, the OmniAttn ring path, online top-k and SpecPlane,
-    MoE with OmniPlacement) are among the ones it loads."""
+    MoE with OmniPlacement, QuantPlane) are among the ones it loads."""
     mods = set(_modules())
     for m in ("repro_torch.kernels.paged_decode",
               "repro_torch.kernels.sink_decode",
@@ -78,5 +78,6 @@ def test_every_slice_module_is_checked():
               "repro_torch.configs.qwen2_moe_a2_7b",
               "repro_torch.core.placement.static",
               "repro_torch.core.placement.dynamic",
-              "repro_torch.core.placement.migration"):
+              "repro_torch.core.placement.migration",
+              "repro_torch.serving.quant"):
         assert m in mods, m

@@ -12,7 +12,11 @@ order), bfloat16 2e-2 (one bf16 rounding of the output); block_topk scores
 are float32 in both dtypes, 1e-5 relative and 1e-4 absolute (sums of h
 products in another order), with NEG_INF entries equal exactly; moe_gmm
 float32 1e-4 over weights of the model's scale (std 0.02), bfloat16 2e-2,
-with rows past n_valid exactly zero.
+with rows past n_valid exactly zero. The int8 paths (QuantPlane) take the
+float tolerances: the kernel and the plain version dequantize each element
+with the same single float32 product, so only the sums' order differs.
+Their arenas are written by the port's own int8 write path over stale
+sealed blocks: sealed blocks, unsealed tails and blocks unsealed on open.
 """
 import numpy as np
 import pytest
@@ -28,6 +32,7 @@ from repro_torch.kernels.paged_prefill import (paged_prefill,
                                                paged_prefill_plain)
 from repro_torch.kernels.sink_decode import sink_decode, sink_decode_plain
 from repro_torch.kernels.spec_verify import spec_verify, spec_verify_plain
+from repro_torch.models import attention as attn_mod
 
 torch.set_num_threads(2)
 
@@ -248,6 +253,138 @@ def test_moe_gmm_kernel_matches_plain(cuda, dtype, S, C, D, F, nv):
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
     for s in range(S):
         assert not got[s, int(nv[s]):].any()
+
+
+def _int8_arena(rng, N, K, bs, h, tables, lens, dev):
+    """int8 pages + scale plane written by the port's write path: every
+    block first holds a previous owner's sealed content, then each row of
+    `tables` is rewritten from offset 0 with lens[b] tokens (opening each
+    block unseals it; full blocks seal, the tail stays per-token). The null
+    block 0 is poisoned."""
+    e = {n: torch.zeros((N, K, bs, h), dtype=torch.int8, device=dev)
+         for n in ("k", "v")}
+    for n in ("k", "v"):
+        e[n + "scale"] = torch.zeros((N, K, h), device=dev)
+        e[n + "tok"] = torch.zeros((N, K, bs), device=dev)
+    every = torch.arange(1, N, dtype=torch.int32, device=dev)[None]
+    old = _rand(rng, (1, (N - 1) * bs, K, h), torch.float32, dev)
+    attn_mod.quant_paged_prefill_write(e, old, -old, every, 0,
+                                       (N - 1) * bs)
+    for b, n_tok in enumerate(lens):
+        if n_tok:
+            x = _rand(rng, (1, int(n_tok), K, h), torch.float32, dev)
+            attn_mod.quant_paged_prefill_write(e, x, x * 0.5,
+                                               tables[b:b + 1], 0, n_tok)
+    e["k"][0] = e["v"][0] = 127
+    e["kscale"][0] = e["vscale"][0] = 1e4
+    scales = dict(k_scale=e["kscale"], k_tok=e["ktok"],
+                  v_scale=e["vscale"], v_tok=e["vtok"])
+    return e["k"], e["v"], scales
+
+
+def _tables(rng, B, nb, N, dev):
+    return torch.from_numpy(rng.permutation(np.arange(1, N))[:B * nb]
+                            .reshape(B, nb).astype(np.int32)).to(dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bs,nb,G,h,K", [(8, 6, 1, 32, 2), (16, 4, 4, 32, 2),
+                                         (16, 32, 6, 128, 2),
+                                         (16, 32, 1, 128, 16)])
+def test_paged_decode_int8_matches_plain(cuda, dtype, bs, nb, G, h, K):
+    rng = np.random.default_rng(bs + G + h + K)
+    B, N = 3, 3 * nb + 1
+    q = _rand(rng, (B, K, G, h), dtype, cuda)
+    tables = _tables(rng, B, nb, N, cuda)
+    lens = [1, nb * bs // 2 + 1, nb * bs]
+    kq, vq, sc = _int8_arena(rng, N, K, bs, h, tables, lens, cuda)
+    ln = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    n0, i0 = paged_decode.launches, paged_decode.int8_launches
+    got = paged_decode(q, kq, vq, tables, ln, **sc)
+    assert paged_decode.launches == n0 + 1
+    assert paged_decode.int8_launches == i0 + 1 and got.dtype == dtype
+    torch.cuda.synchronize()
+    want = paged_decode_plain(q, kq, vq, tables, ln, **sc)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bs,S,G,h", [(8, 8, 1, 32), (16, 8, 4, 32),
+                                      (16, 128, 6, 128)])
+def test_paged_prefill_int8_matches_plain(cuda, dtype, bs, S, G, h):
+    rng = np.random.default_rng(bs + S + G + 1)
+    B, K, nb = 2, 2, 5
+    N = B * nb + 1
+    q = _rand(rng, (B, K, S * G, h), dtype, cuda)
+    kn = _rand(rng, (B, K, S, h), dtype, cuda)
+    vn = _rand(rng, (B, K, S, h), dtype, cuda)
+    tables = _tables(rng, B, nb, N, cuda)
+    offs = [0, nb * bs // 2 - 3]
+    kq, vq, sc = _int8_arena(rng, N, K, bs, h, tables, offs, cuda)
+    off = torch.tensor(offs, dtype=torch.int32, device=cuda)
+    cl = torch.tensor([S, max(S - 3, 1)], dtype=torch.int32, device=cuda)
+    i0 = paged_prefill.int8_launches
+    got = paged_prefill(q, kn, vn, kq, vq, tables, off, cl, **sc)
+    assert paged_prefill.int8_launches == i0 + 1
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    want = paged_prefill_plain(q, kn, vn, kq, vq, tables, off, cl, **sc)
+    for b in range(B):
+        real = int(cl[b]) * G
+        torch.testing.assert_close(got[b, :, :real].float(),
+                                   want[b, :, :real].float(), **TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bs,S,G,h,nb", [(8, 4, 1, 32, 4), (16, 5, 4, 32, 4),
+                                         (16, 5, 6, 128, 20)])
+def test_spec_verify_int8_matches_plain(cuda, dtype, bs, S, G, h, nb):
+    rng = np.random.default_rng(bs * S + G + h + 2)
+    B, K = 3, 2
+    N = B * nb + 1
+    q = _rand(rng, (B, K, S * G, h), dtype, cuda)
+    kn = _rand(rng, (B, K, S, h), dtype, cuda)
+    vn = _rand(rng, (B, K, S, h), dtype, cuda)
+    tables = _tables(rng, B, nb, N, cuda)
+    offs = [0, bs + bs // 2 - 1, nb * bs]
+    kq, vq, sc = _int8_arena(rng, N, K, bs, h, tables, offs, cuda)
+    off = torch.tensor(offs, dtype=torch.int32, device=cuda)
+    cl = torch.tensor([S, max(S - 2, 1), 1], dtype=torch.int32, device=cuda)
+    i0 = spec_verify.int8_launches
+    got = spec_verify(q, kn, vn, kq, vq, tables, off, cl, **sc)
+    assert spec_verify.int8_launches == i0 + 1
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    want = spec_verify_plain(q, kn, vn, kq, vq, tables, off, cl, **sc)
+    for b in range(B):
+        real = int(cl[b]) * G
+        torch.testing.assert_close(got[b, :, :real].float(),
+                                   want[b, :, :real].float(), **TOL[dtype])
+
+
+@pytest.mark.gpu
+def test_int8_paths_refuse_casts_and_bad_scales(cuda):
+    """int8 pages need their scale plane and the scale plane int8 pages:
+    nothing is cast."""
+    q = torch.zeros((1, 1, 2, 32), device=cuda)
+    p8 = torch.zeros((3, 1, 8, 32), dtype=torch.int8, device=cuda)
+    pf = torch.zeros((3, 1, 8, 32), device=cuda)
+    tb = torch.ones((1, 1), dtype=torch.int32, device=cuda)
+    ln = torch.ones(1, dtype=torch.int32, device=cuda)
+    sc = dict(k_scale=torch.zeros((3, 1, 32), device=cuda),
+              k_tok=torch.zeros((3, 1, 8), device=cuda),
+              v_scale=torch.zeros((3, 1, 32), device=cuda),
+              v_tok=torch.zeros((3, 1, 8), device=cuda))
+    with pytest.raises(TypeError):                    # int8 without scales
+        paged_decode(q, p8, p8, tb, ln)
+    with pytest.raises(TypeError):                    # scales, float pages
+        paged_decode(q, pf, pf, tb, ln, **sc)
+    with pytest.raises(ValueError):                   # tok rows of bs 4
+        paged_decode(q, p8, p8, tb, ln, **dict(
+            sc, k_tok=torch.zeros((3, 1, 4), device=cuda)))
 
 
 @pytest.mark.gpu

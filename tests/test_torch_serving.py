@@ -18,6 +18,7 @@ from repro_torch.core.proxy import SamplingParams as TSamplingParams
 from repro_torch.serving import Server as TServer
 from repro_torch.serving import ServerConfig as TServerConfig
 from repro_torch.serving.kvpool import KVPool as TKVPool
+from repro_torch.serving.quant import QuantConfig as TQuantConfig
 from repro_torch.serving.spec import SpecConfig as TSpecConfig
 
 torch.set_num_threads(2)
@@ -183,12 +184,21 @@ def test_kvpool_replay_matches_reference():
 
 def test_later_slice_options_raise():
     tcfg = t_reduced_config("qwen2-1.5b").with_updates(n_layers=2)
-    with pytest.raises(NotImplementedError):
+    # QuantPlane serves int8 paged arenas only: quant over the slot-dense
+    # layout and a width other than 8 bits are refused, as the reference
+    # refuses them
+    dense = dict(paged_kv=False, chunked_prefill=False)
+    with pytest.raises(ValueError):
+        TServer(tcfg, TServerConfig(quant=TQuantConfig(), **dense),
+                pattern=[0, 0], device="cpu")
+    with pytest.raises(ValueError):
+        TServer(tcfg, TServerConfig(quant=TQuantConfig(bits=4)),
+                pattern=[0, 0], device="cpu")
+    with pytest.raises(TypeError):
         TServer(tcfg, TServerConfig(quant=object()), pattern=[0, 0],
                 device="cpu")
     # speculation and online top-k serve on paged KV only (the reference
     # refuses speculation on the slot-dense layout too)
-    dense = dict(paged_kv=False, chunked_prefill=False)
     with pytest.raises(ValueError):
         TServer(tcfg, TServerConfig(spec=TSpecConfig(k=2), **dense),
                 pattern=[0, 0], device="cpu")
