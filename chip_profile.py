@@ -39,7 +39,8 @@ KERNELS = ("paged_decode", "paged_prefill", "block_topk", "spec_verify",
            "flash_prefill", "sink_decode", "moe_gmm")
 CATEGORIES = (("moe_gmm", ("moe_gmm_kernel",)),
               ("paged_prefill", ("paged_prefill_kernel",)),
-              ("paged_decode", ("paged_decode_kernel",)),
+              ("paged_decode", ("paged_decode_kernel",
+                                "paged_decode_combine")),
               ("block_topk", ("block_topk_kernel",)),
               ("spec_verify", ("spec_verify_kernel",)),
               ("flash_prefill", ("flash_prefill_kernel",)),
@@ -50,6 +51,11 @@ CATEGORIES = (("moe_gmm", ("moe_gmm_kernel",)),
                                       "argmax", "max_", "min_")),
               ("copy/fill", ("memcpy", "memset", "copy", "fill")),
               ("elementwise", ("elementwise", "vectorized")))
+
+
+# a kernel's calls are counted on its first name; the others (paged_decode's
+# split merge) add device time to the same call
+CALL_NAME = {cat: keys[0] for cat, keys in CATEGORIES}
 
 
 def category(name: str) -> str:
@@ -146,7 +152,7 @@ def profile(srv, workload, smi: str, label: str) -> dict:
         if cat in KERNELS:
             tot = per_call.setdefault(cat, [0.0, 0])
             tot[0] += t
-            tot[1] += c
+            tot[1] += c if CALL_NAME[cat] in name.lower() else 0
     rep["profiled"] = {
         "wall_s": pwall, "device_busy_s": busy_us / 1e6,
         "device_idle_share": 1.0 - busy_us / 1e6 / pwall,

@@ -14,7 +14,11 @@ Phases (any failure raises, so the script exits non-zero):
      int8 paths (QuantPlane) of paged_decode, paged_prefill and spec_verify
      over arenas written by the port's int8 write path, at the reference
      quant sweep shapes and the full-width shapes, timed against their plain
-     versions and dequantize-then-SDPA;
+     versions and dequantize-then-SDPA; paged_decode (split-KV) also over
+     phase 5's ring tables in float and int8 and over tables whose late
+     splits hold no resident block, flash_prefill (tensor cores) also with
+     GQA rows off its tiles and window/sink edges inside a tile; float32
+     bounds by operations are reckoned at the 3xTF32 rate (165 TF/s);
   3. serve the bench's shared-prefix workload on full-width qwen2-1.5b
      (28 layers, float32, every layer full attention) through
      `Server.generate`, with the launch counters zeroed just before and
@@ -96,7 +100,12 @@ REPLACES = {"paged_decode": "src/repro/kernels/paged_decode.py:99",
             "block_topk": "src/repro/kernels/block_topk.py:73",
             "moe_gmm": "src/repro/kernels/moe_gmm.py:49"}
 HBM_BYTES_S = 3.35e12                        # H100 SXM HBM3
-PEAK_FLOPS = {torch.float32: 67e12,          # float32 outside tensor cores
+# float32 products at float32 accuracy: the tensor cores' 3xTF32 split
+# (three TF32 products per float32 product) at the dense TF32 peak of 495
+# TF/s gives 165 TF/s, above the 67 TF/s of float32 outside tensor cores,
+# so the least time of float32 work is reckoned at this rate
+F32_3XTF32_FLOPS = 495e12 / 3
+PEAK_FLOPS = {torch.float32: F32_3XTF32_FLOPS,
               torch.bfloat16: 989e12}        # bf16 tensor cores, dense
 TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
        torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
@@ -140,20 +149,36 @@ def nvidia_smi() -> str:
 
 
 class Timer:
-    """CUDA-event time of one call, L2 flushed before each launch (the
-    serving path finds each layer's arena cold: 28 layers of KV exceed the
-    50 MB L2)."""
+    """CUDA-event device time of one call, L2 flushed before each launch
+    (the serving path finds each layer's arena cold: 28 layers of KV exceed
+    the 50 MB L2). Before each timed call the device is held busy by
+    `torch.cuda._sleep` for twice the call's host enqueue time (measured in
+    the warm-up) plus 0.5 ms, so the window between the two events holds
+    the call's device work and not the host's Python and launch overhead."""
 
     def __init__(self, dev, reps=20, warmup=3):
         self.reps, self.warmup = reps, warmup
         self.flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        torch.cuda._sleep(1_000_000)
+        b.record()
+        b.synchronize()
+        self.cycles_per_ms = 1e6 / a.elapsed_time(b)
 
     def __call__(self, fn, reps=None) -> float:
+        host_s = 0.0
         for _ in range(self.warmup):
+            t = time.perf_counter()
             fn()
+            host_s = max(host_s, time.perf_counter() - t)
+            torch.cuda.synchronize()
+        sleep = int(self.cycles_per_ms * (2e3 * host_s + 0.5))
         times = []
         for _ in range(reps or self.reps):
             self.flush_buf.zero_()
+            torch.cuda._sleep(sleep)
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
@@ -388,6 +413,17 @@ def check_kernels(dev, timer, log):
                 "bound_by": bnd[1], "bytes": bnd[2], "flops": bnd[3]}
             log.append(f"{name} {dn} moe shape K=16 G=1 h=128 "
                        f"max_abs_err={err:.3g}")
+        # split-KV edges: splits past the residency, one-block rows, a
+        # poisoned null block behind every non-resident table entry
+        edge = list(decode_inputs(dev, dtype, 6, 2, 6, 128, 16, 200, 1201,
+                                  [1, 16, 17, 3000, 3199, 5], 14))
+        for b, n in enumerate([1, 16, 17, 3000, 3199, 5]):
+            edge[3][b, -(-n // 16):] = 0
+        edge[1][0] = edge[2][0] = 1e4
+        err = cmp("paged_decode split edges", paged_decode(*edge),
+                  paged_decode_plain(*edge), dtype)
+        log.append(f"paged_decode {dn} split edges nb=200 lens 1..3199 "
+                   f"max_abs_err={err:.3g}")
         # paged_decode over phase 5's ring block runs (264-block tables)
         nbr, lens_r = RING_MAIN
         ring = decode_inputs(dev, dtype, 6, 2, 6, 128, 16, nbr, 6 * nbr + 1,
@@ -730,6 +766,22 @@ def check_quant_kernels(dev, timer, log):
                        f"paged_decode max_abs_err "
                        f"{rec['paged_decode'][dn + key]['max_abs_err']:.3g}, "
                        f"paged_prefill S=128 off=384 max_abs_err {err:.3g}")
+        # paged_decode over phase 5's ring tables on int8 arenas
+        nbr, lens_r = RING_MAIN
+        ring = decode_inputs(dev, dtype, 6, 2, 6, 128, 16, nbr, 6 * nbr + 1,
+                             lens_r, 35)
+        kq, vq, sc = int8_arena(dev, 2, 16, 128, 6 * nbr + 1, ring[3],
+                                ring[4], 36)
+        args = (ring[0], kq, vq, ring[3], ring[4])
+        err = cmp("paged_decode int8 ring", paged_decode(*args, **sc),
+                  paged_decode_plain(*args, **sc), dtype)
+        time_one(dn + "_ring", "paged_decode", paged_decode,
+                 paged_decode_plain, args, sc,
+                 decode_bound(ring[0], kq, ring[3], ring[4]),
+                 sdpa_decode_int8(*args, sc), err)
+        log.append(f"int8 {dn} ring B=6 nb={nbr} lens={lens_r}: "
+                   f"paged_decode max_abs_err {err:.3g}")
+        del ring, kq, vq, sc, args
         pad = prefill_inputs(dev, dtype, 1, 2, 128, 6, 128, 16, 32, 321,
                              [200], [100], 31)
         kq, vq, sc = int8_arena(dev, 2, 16, 128, 321, pad[5], pad[6], 32)
@@ -857,9 +909,25 @@ def check_dense_kernels(dev, timer, log):
                               sink_decode(q, kc, vc, t),
                               sink_decode_plain(q, kc, vc, t), dtype)
                     worst["sink_decode"] = max(worst["sink_decode"], err)
+        # GQA rows off the tiles: S and S·G not multiples of the key or
+        # query tile, window edges and a sink inside a tile, bidirectional
+        for S, G, h, kw in ((77, 5, 64, dict(causal=True)),
+                            (300, 4, 128, dict(causal=True, window=40)),
+                            (300, 4, 128, dict(causal=True, window=40,
+                                               sink=24)),
+                            (512, 6, 128, dict(causal=False)),
+                            (333, 3, 32, dict(causal=False, window=100,
+                                              sink=16))):
+            q = rand(g, (2, S * G, h), dtype)
+            k, v = (rand(g, (2, S, h), dtype) for _ in range(2))
+            err = cmp(f"flash_prefill GQA S={S} G={G} h={h} {kw}",
+                      flash_prefill(q, k, v, **kw),
+                      flash_prefill_plain(q, k, v, **kw), dtype)
+            worst["flash_prefill"] = max(worst["flash_prefill"], err)
         log.append(f"flash_prefill {dn} sweep (S 64/128/256 x h 32/64/128 x "
-                   f"causal/bidir/window/sink): max_abs_err="
-                   f"{worst['flash_prefill']:.3g}")
+                   f"causal/bidir/window/sink; GQA S 77/300/512/333 with "
+                   f"ragged tiles, window and sink edges inside tiles): "
+                   f"max_abs_err={worst['flash_prefill']:.3g}")
         log.append(f"sink_decode {dn} sweep (W 64/128/96 x G 1/4 x h 32/128, "
                    f"model-layout views): max_abs_err="
                    f"{worst['sink_decode']:.3g}")
@@ -2452,6 +2520,12 @@ def main() -> int:
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                 "library", "max_abs_err")} | {
                 "launches": int8_launches[name]}
+        if name == "paged_decode":           # phase 5's ring tables
+            for rec, src in ((entry, kern[key]["float32_ring"]),
+                             (entry["int8"], kern_q[key]["float32_ring"])):
+                rec["ring"] = {k: src[k] for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                    "max_abs_err")}
         line["kernels"].append(entry)
     for k in line["kernels"]:
         for rec in (k, k.get("int8")):

@@ -30,11 +30,12 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L = ctypes.c_longlong
 SIGNATURES = {
     "paged_decode": {
-        "paged_decode_launch": [_I, _P, _P, _P, _P, _P, _P,
-                                _I, _I, _I, _I, _I, _I, _F, _P],
+        # ... out, workspace, B, K, G, h, bs, nb, n_split, per, scale
+        "paged_decode_launch": [_I, *[_P] * 7,
+                                _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
         # int8 pages + the scale plane (k_scale, k_tok, v_scale, v_tok)
-        "paged_decode_int8_launch": [_I, *[_P] * 10,
-                                     _I, _I, _I, _I, _I, _I, _F, _P],
+        "paged_decode_int8_launch": [_I, *[_P] * 11,
+                                     _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     },
     "paged_prefill": {
         "paged_prefill_launch": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,

@@ -1,10 +1,20 @@
 // Shared tile machinery of the attention kernels (paged_decode.cu,
-// paged_prefill.cu, spec_verify.cu, flash_prefill.cu, sink_decode.cu): typed
-// 16-byte tile loads into float32 shared memory, the int8 arena tile load
-// that dequantizes as it writes shared memory (QuantPlane), and one
-// online-softmax step of R query rows against a tile of TK keys.
+// paged_prefill.cu, spec_verify.cu, flash_prefill.cu, sink_decode.cu):
+//   * typed 16-byte tile loads into float32 shared memory, the int8 arena
+//     tile load that dequantizes as it writes shared memory (QuantPlane),
+//     and one online-softmax step of R query rows against a tile of TK keys
+//     on CUDA cores (`tile_step`: paged_prefill, spec_verify, sink_decode);
+//   * the tensor-core prefill tile (`tc_tile_step`, flash_prefill): 16 query
+//     rows per warp against a key tile staged by cp.async, products on
+//     mma.sync (bf16 m16n8k16, or float32 through the 3xTF32 split), the
+//     online softmax in registers;
+//   * the split-KV decode routine (`decode_stage_issue`,
+//     `decode_block_step`, `decode_merge`, `lse_combine`, paged_decode):
+//     each warp walks its own KV chunks through a cp.async double buffer
+//     with its own softmax state; the warps of a CTA, then the CTAs of a
+//     split grid, merge by log-sum-exp.
 //
-// Layout of a CTA's shared memory (floats):
+// Layout of a `tile_step` CTA's shared memory (floats):
 //   Qs [R][HD+1]   query rows (padded: the score loop reads rows and keys
 //   Ks [TK][HD+1]  key tile     column-wise, the +1 keeps banks distinct)
 //   Vs [TK][HD]    value tile (read row-wise by consecutive threads)
@@ -31,6 +41,9 @@ template <typename T> __device__ __forceinline__ float to_f32(T x);
 template <> __device__ __forceinline__ float to_f32<float>(float x) { return x; }
 template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+template <> __device__ __forceinline__ float to_f32<int8_t>(int8_t x) {
+  return (float)x;
 }
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
@@ -217,6 +230,609 @@ __device__ __forceinline__ void store_rows(T* out, const float (&acc)[NR],
 inline size_t tile_smem_bytes(int R, int TK, int HD) {
   return sizeof(float) * ((size_t)R * (HD + 1) + (size_t)TK * (HD + 1) +
                           (size_t)TK * HD + (size_t)R * TK + 3 * (size_t)R);
+}
+
+
+// ---- asynchronous copies, vector loads ----------------------------------
+
+// 16 bytes global → shared with cp.async (L2 only); `pred` false writes
+// zeros and reads nothing (src must still be a valid address).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool pred = true) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(pred ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// n contiguous elements at p (aligned to n · sizeof(KV) bytes, or 16) as
+// float32, with the widest loads that alignment allows.
+template <typename KV, int n>
+__device__ __forceinline__ void ld_f32(const KV* p, float (&o)[n]) {
+  constexpr int bytes = n * (int)sizeof(KV);
+  if constexpr (bytes % 16 == 0) {
+    constexpr int E = 16 / sizeof(KV);
+#pragma unroll
+    for (int i = 0; i < bytes / 16; ++i) {
+      const uint4 raw = reinterpret_cast<const uint4*>(p)[i];
+      const KV* e = reinterpret_cast<const KV*>(&raw);
+#pragma unroll
+      for (int u = 0; u < E; ++u) o[i * E + u] = to_f32<KV>(e[u]);
+    }
+  } else if constexpr (bytes == 8) {
+    const uint2 raw = *reinterpret_cast<const uint2*>(p);
+    const KV* e = reinterpret_cast<const KV*>(&raw);
+#pragma unroll
+    for (int u = 0; u < n; ++u) o[u] = to_f32<KV>(e[u]);
+  } else if constexpr (bytes == 4) {
+    const uint32_t raw = *reinterpret_cast<const uint32_t*>(p);
+    const KV* e = reinterpret_cast<const KV*>(&raw);
+#pragma unroll
+    for (int u = 0; u < n; ++u) o[u] = to_f32<KV>(e[u]);
+  } else {
+#pragma unroll
+    for (int u = 0; u < n; ++u) o[u] = to_f32<KV>(p[u]);
+  }
+}
+
+// ---- tensor-core prefill tile (flash_prefill; paged_prefill may adopt) ---
+//
+// A CTA of TC_WARPS warps holds TC_BM = 16 · TC_WARPS query rows in shared
+// memory; warp w owns rows 16w .. 16w + 15. A key tile of BN keys (K and V)
+// is staged in shared memory by the caller (cp.async). Per tile and warp:
+//   S = Q·Kᵀ on mma.sync into C fragments (registers), the online softmax on
+//   those fragments (row max and sum over the quad that holds a row, exp2
+//   of log2e-prescaled scores), then O += P·V with P taken straight from
+//   the S fragments.
+// float32 runs m16n8k8 TF32 with the 3xTF32 split of each operand
+// (big = tf32(x), small = tf32(x − big), both rounded to nearest;
+// big·big' + big·small' + small·big'), which keeps float32 accuracy; bf16
+// runs m16n8k16 with P rounded to bf16.
+// Fragment layouts (PTX ISA, mma.m16n8k8 / m16n8k16): lane = 4·g + t holds
+// C rows g and g + 8, columns 2t and 2t + 1 of each 8-wide n-tile. The
+// k order inside one mma is free (it is a sum), so each operand's k index is
+// permuted to make a thread's loads contiguous:
+//   TF32 scores: k = t ↔ d = 8kc + 2t, k = t + 4 ↔ d = 8kc + 2t + 1 (float2
+//   loads of Q and K rows); TF32 P·V: k = t ↔ key 8kc + 2t, k = t + 4 ↔
+//   key 8kc + 2t + 1, so A = (c0, c2, c1, c3) of the S n-tile kc, with no
+//   shuffle; bf16 scores: k pairs (2t, 2t+1) ↔ d = 16kc + 4t + (0, 1),
+//   (2t+8, 2t+9) ↔ 16kc + 4t + (2, 3) (8-byte loads); bf16 P·V keeps the
+//   natural key order (A from the S n-tiles 2kc and 2kc + 1) and reads V
+//   with ldmatrix.trans.
+// Shared-memory row strides (elements) keep every fragment load free of
+// bank conflicts and every row 16-byte aligned for cp.async.
+constexpr int TC_WARPS = 4;
+constexpr int TC_BM = 16 * TC_WARPS;
+
+template <typename T> constexpr bool kIsF32 = std::is_same<T, float>::value;
+// Q and K rows: float HD + 8 (≡ 8 mod 16 words), bf16 HD + 16 elements.
+template <typename T, int HD>
+__host__ __device__ constexpr int tc_ldk() { return kIsF32<T> ? HD + 8 : HD + 16; }
+// V rows: float HD + 4 (≡ 4 mod 32 words), bf16 HD + 8 (an odd number of
+// 16-byte units, for ldmatrix).
+template <typename T, int HD>
+__host__ __device__ constexpr int tc_ldv() { return kIsF32<T> ? HD + 4 : HD + 8; }
+
+// Round a float32 to TF32 (nearest, ties away from zero) with integer
+// operations: add half a TF32 ulp, clear the 13 low mantissa bits. (A cvt
+// instruction does the same on a slower pipe.) Finite inputs only.
+__device__ __forceinline__ uint32_t tf32_round(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+// x ≈ big + small, both TF32 (the residual keeps 21 more bits).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = tf32_round(x);
+  small = tf32_round(x - __uint_as_float(big));
+}
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// d += a·b in 3xTF32: the small cross terms first, then big·big.
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4],
+                                           const uint32_t (&ab)[4],
+                                           const uint32_t (&as)[4],
+                                           const uint32_t (&bb)[2],
+                                           const uint32_t (&bsm)[2]) {
+  mma_tf32(d, as, bb[0], bb[1]);
+  mma_tf32(d, ab, bsm[0], bsm[1]);
+  mma_tf32(d, ab, bb[0], bb[1]);
+}
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s)
+      : "memory");
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// cp.async `n_rows` rows of HD elements (`row_stride` elements apart in
+// global memory) into shared `dst` (row stride `ld` elements); rows >=
+// valid_rows are zero-filled and read nothing. Called by all NT threads.
+template <typename T, int HD>
+__device__ __forceinline__ void cp_rows(T* dst, int ld, const T* src,
+                                        size_t row_stride, int n_rows,
+                                        int valid_rows) {
+  constexpr int VEC = 16 / sizeof(T);
+  constexpr int CPR = HD / VEC;
+  for (int i = threadIdx.x; i < n_rows * CPR; i += NT) {
+    const int r = i / CPR;
+    const int c = (i - r * CPR) * VEC;
+    const bool ok = r < valid_rows;
+    cp_async16(dst + r * ld + c, src + (ok ? (size_t)r * row_stride : 0) + c,
+               ok);
+  }
+}
+
+// One warp's 16 query rows: output fragments, and per row (g, g + 8) the
+// running max (log2 domain) and this thread's share of the running sum.
+template <int HD>
+struct TcRows {
+  float o[HD / 8][4];
+  float m[2];
+  float l[2];
+  __device__ __forceinline__ void init() {
+#pragma unroll
+    for (int i = 0; i < HD / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[i][e] = 0.f;
+    m[0] = m[1] = NEG_INF;
+    l[0] = l[1] = 0.f;
+  }
+};
+
+// S = Q·Kᵀ for this warp's rows (row0 .. row0 + 15 of Qs) and BN keys.
+template <typename T, int HD, int BN>
+__device__ __forceinline__ void tc_scores(const T* Qs, const T* Ks, int row0,
+                                          float (&s)[BN / 8][4]) {
+  constexpr int LD = tc_ldk<T, HD>();
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < BN / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+  if constexpr (kIsF32<T>) {
+    const T* qa = Qs + (row0 + g) * LD + 2 * t;
+    const T* kb = Ks + g * LD + 2 * t;
+#pragma unroll
+    for (int kc = 0; kc < HD / 8; ++kc) {
+      const float2 x = *reinterpret_cast<const float2*>(qa + kc * 8);
+      const float2 y = *reinterpret_cast<const float2*>(qa + 8 * LD + kc * 8);
+      uint32_t ab[4], as[4];
+      split_tf32(x.x, ab[0], as[0]);
+      split_tf32(y.x, ab[1], as[1]);
+      split_tf32(x.y, ab[2], as[2]);
+      split_tf32(y.y, ab[3], as[3]);
+#pragma unroll
+      for (int nt = 0; nt < BN / 8; ++nt) {
+        const float2 z =
+            *reinterpret_cast<const float2*>(kb + nt * 8 * LD + kc * 8);
+        uint32_t bb[2], bsm[2];
+        split_tf32(z.x, bb[0], bsm[0]);
+        split_tf32(z.y, bb[1], bsm[1]);
+        mma_3xtf32(s[nt], ab, as, bb, bsm);
+      }
+    }
+  } else {
+    const T* qa = Qs + (row0 + g) * LD + 4 * t;
+    const T* kb = Ks + g * LD + 4 * t;
+#pragma unroll
+    for (int kc = 0; kc < HD / 16; ++kc) {
+      const uint2 x = *reinterpret_cast<const uint2*>(qa + kc * 16);
+      const uint2 y = *reinterpret_cast<const uint2*>(qa + 8 * LD + kc * 16);
+      const uint32_t a[4] = {x.x, y.x, x.y, y.y};
+#pragma unroll
+      for (int nt = 0; nt < BN / 8; ++nt) {
+        const uint2 z =
+            *reinterpret_cast<const uint2*>(kb + nt * 8 * LD + kc * 16);
+        mma_bf16(s[nt], a, z.x, z.y);
+      }
+    }
+  }
+}
+
+// O += P·V: P (BN keys) in this warp's S fragments, V [BN][HD] in Vs.
+template <typename T, int HD, int BN>
+__device__ __forceinline__ void tc_pv(const T* Vs, const float (&p)[BN / 8][4],
+                                      float (&o)[HD / 8][4]) {
+  constexpr int LD = tc_ldv<T, HD>();
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  if constexpr (kIsF32<T>) {
+#pragma unroll
+    for (int kc = 0; kc < BN / 8; ++kc) {
+      uint32_t ab[4], as[4];
+      split_tf32(p[kc][0], ab[0], as[0]);
+      split_tf32(p[kc][2], ab[1], as[1]);
+      split_tf32(p[kc][1], ab[2], as[2]);
+      split_tf32(p[kc][3], ab[3], as[3]);
+      const T* v0 = Vs + (kc * 8 + 2 * t) * LD + g;
+#pragma unroll
+      for (int dt = 0; dt < HD / 8; ++dt) {
+        uint32_t bb[2], bsm[2];
+        split_tf32(v0[dt * 8], bb[0], bsm[0]);
+        split_tf32(v0[LD + dt * 8], bb[1], bsm[1]);
+        mma_3xtf32(o[dt], ab, as, bb, bsm);
+      }
+    }
+  } else {
+    const int mi = lane >> 3, ri = lane & 7;
+#pragma unroll
+    for (int kc = 0; kc < BN / 16; ++kc) {
+      const uint32_t a[4] = {pack_bf16(p[2 * kc][0], p[2 * kc][1]),
+                             pack_bf16(p[2 * kc][2], p[2 * kc][3]),
+                             pack_bf16(p[2 * kc + 1][0], p[2 * kc + 1][1]),
+                             pack_bf16(p[2 * kc + 1][2], p[2 * kc + 1][3])};
+      const T* vrow = Vs + (kc * 16 + (mi & 1) * 8 + ri) * LD + (mi >> 1) * 8;
+#pragma unroll
+      for (int dp = 0; dp < HD / 16; ++dp) {
+        uint32_t b[4];
+        ldmatrix_x4_trans(b, vrow + dp * 16);
+        mma_bf16(o[2 * dp], a, b[0], b[1]);
+        mma_bf16(o[2 * dp + 1], a, b[2], b[3]);
+      }
+    }
+  }
+}
+
+// One online-softmax step of this warp's 16 rows against a key tile of BN
+// keys (Ks [BN][tc_ldk], Vs [BN][tc_ldv], staged and synchronised by the
+// caller; nothing here writes shared memory). `valid(r, t)`: key t of the
+// tile is visible to row r of the CTA (r = row0 + 0..15); masked scores are
+// NEG_INF exactly, as in the TPU kernels. With `masked` false every key is
+// visible to every row and the predicate is never evaluated.
+// scale_log2 = softmax scale · log2(e).
+template <typename T, int HD, int BN, typename ValidF>
+__device__ __forceinline__ void tc_tile_step(const T* Qs, const T* Ks,
+                                             const T* Vs, TcRows<HD>& st,
+                                             int row0, float scale_log2,
+                                             bool masked, ValidF valid) {
+  float s[BN / 8][4];
+  tc_scores<T, HD, BN>(Qs, Ks, row0, s);
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  float mx[2] = {st.m[0], st.m[1]};
+  if (masked) {
+#pragma unroll
+    for (int nt = 0; nt < BN / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float v = valid(row0 + g + 8 * (e >> 1), nt * 8 + 2 * t + (e & 1))
+                            ? s[nt][e] * scale_log2
+                            : NEG_INF;
+        s[nt][e] = v;
+        mx[e >> 1] = fmaxf(mx[e >> 1], v);
+      }
+  } else {
+#pragma unroll
+    for (int nt = 0; nt < BN / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[nt][e] *= scale_log2;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
+      }
+  }
+  float corr[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    corr[i] = exp2f(st.m[i] - mx[i]);
+    st.m[i] = mx[i];
+  }
+#pragma unroll
+  for (int nt = 0; nt < BN / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = exp2f(s[nt][e] - mx[e >> 1]);
+      s[nt][e] = p;
+      sum[e >> 1] += p;
+    }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) st.l[i] = st.l[i] * corr[i] + sum[i];
+#pragma unroll
+  for (int dt = 0; dt < HD / 8; ++dt) {
+    st.o[dt][0] *= corr[0];
+    st.o[dt][1] *= corr[0];
+    st.o[dt][2] *= corr[1];
+    st.o[dt][3] *= corr[1];
+  }
+  tc_pv<T, HD, BN>(Vs, s, st.o);
+}
+
+// out[r][d] = o / max(l, 1e-30) for this warp's rows r < R (row r of `out`
+// is CTA row r). All lanes of the warp must call it.
+template <typename T, int HD>
+__device__ __forceinline__ void tc_store_rows(T* out, TcRows<HD>& st, int row0,
+                                              int R) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float l = st.l[i];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    l = fmaxf(l, 1e-30f);
+    const int r = row0 + g + 8 * i;
+    if (r >= R) continue;
+    T* row = out + (size_t)r * HD + 2 * t;
+#pragma unroll
+    for (int dt = 0; dt < HD / 8; ++dt) {
+      const float a = st.o[dt][2 * i] / l, b = st.o[dt][2 * i + 1] / l;
+      if constexpr (kIsF32<T>) {
+        *reinterpret_cast<float2*>(row + dt * 8) = make_float2(a, b);
+      } else {
+        *reinterpret_cast<__nv_bfloat162*>(row + dt * 8) =
+            __floats2bfloat162_rn(a, b);
+      }
+    }
+  }
+}
+
+// ---- split-KV decode (paged_decode; sink_decode and spec_verify next) ---
+//
+// A decode CTA holds the G query rows of one GQA group (float32, row stride
+// HD + 4) and walks a run of KV "chunks" (at most DEC_TR consecutive rows of
+// one block). Its DEC_WARPS warps take the chunks in turn; each warp
+// double-buffers its chunks with cp.async (`decode_stage_issue`) and keeps
+// its own online-softmax state: M, L, C [G] in shared memory, acc in
+// registers (lane owns d = lane · HD/32 + 0 .. HD/32 − 1 of each row).
+// `decode_merge` folds the warps' states by log-sum-exp; `lse_combine`
+// folds the splits of a split grid the same way. A warp or split that saw
+// no key has m = NEG_INF, l = 0, acc = 0 and adds exactly nothing next to
+// one that did.
+constexpr int DEC_WARPS = 4;
+constexpr int DEC_TR = 16;       // rows per chunk
+constexpr int DEC_STAGES = 2;
+
+// One warp's staging buffer for a chunk of TR rows: K [TR][HD + 16 bytes]
+// (the pad keeps the score loop's row-wise reads conflict-free), V [TR][HD],
+// and for int8 pages the block's scale rows (seal scales [HD] and this
+// chunk's token scales [TR], for K and for V).
+template <typename KV, int HD>
+struct DecStage {
+  static constexpr int LDK = HD + 16 / (int)sizeof(KV);
+  static __host__ __device__ size_t bytes() {
+    size_t b = (size_t)DEC_TR * (LDK + HD) * sizeof(KV);
+    if (kInt8Kv<KV>) b += sizeof(float) * (2 * HD + 2 * DEC_TR);
+    return (b + 15) / 16 * 16;
+  }
+  KV* K;
+  KV* V;
+  float *ksc, *vsc, *ktk, *vtk;
+  __device__ __forceinline__ explicit DecStage(unsigned char* base) {
+    K = reinterpret_cast<KV*>(base);
+    V = K + DEC_TR * LDK;
+    ksc = reinterpret_cast<float*>(V + DEC_TR * HD);
+    vsc = ksc + HD;
+    ktk = vsc + HD;
+    vtk = ktk + DEC_TR;
+  }
+};
+
+// Issue (no wait) this warp's cp.async of `rows` rows starting at row r0 of
+// block `phys` (kv head kh) of the arenas [N, K, bs, HD]; int8 arenas also
+// bring the block's scale rows ks/vs [N, K, HD] and rows r0.. of kt/vt
+// [N, K, bs].
+template <typename KV, int HD>
+__device__ __forceinline__ void decode_stage_issue(
+    const DecStage<KV, HD>& st, const KV* __restrict__ kp,
+    const KV* __restrict__ vp, const float* __restrict__ ks,
+    const float* __restrict__ kt, const float* __restrict__ vs,
+    const float* __restrict__ vt, int phys, int K, int kh, int bs, int r0,
+    int rows) {
+  constexpr int VEC = 16 / sizeof(KV);
+  constexpr int CPR = HD / VEC;
+  constexpr int LDK = DecStage<KV, HD>::LDK;
+  const int lane = threadIdx.x & 31;
+  const size_t blk = (size_t)phys * K + kh;
+  const size_t base = (blk * bs + r0) * HD;
+  for (int i = lane; i < rows * CPR; i += 32) {
+    const int r = i / CPR;
+    const int c = (i - r * CPR) * VEC;
+    cp_async16(st.K + r * LDK + c, kp + base + (size_t)r * HD + c);
+    cp_async16(st.V + r * HD + c, vp + base + (size_t)r * HD + c);
+  }
+  if constexpr (kInt8Kv<KV>) {
+    for (int i = lane; i < HD / 4; i += 32) {
+      cp_async16(st.ksc + 4 * i, ks + blk * HD + 4 * i);
+      cp_async16(st.vsc + 4 * i, vs + blk * HD + 4 * i);
+    }
+    for (int i = lane; i < rows; i += 32) {
+      cp_async4(st.ktk + i, kt + blk * bs + r0 + i);
+      cp_async4(st.vtk + i, vt + blk * bs + r0 + i);
+    }
+  }
+}
+
+// One warp's online-softmax step of the G rows of Qs against the `rows`
+// keys of a staged chunk (synchronised by the caller: wait + __syncwarp).
+// Scores: each lane takes whole (row, key) dot products, q from Qs and k
+// dequantized as it is read (int8: q · (sc[c] != 0 ? sc[c] : tk[r]), the
+// one float32 product of load_kv_tile); `valid(t)` says whether key t of
+// the chunk is visible (masked scores are NEG_INF). Softmax: lane r < G owns
+// row r. P·V: each lane its HD/32 columns of every row. P, M, L, C are this
+// warp's [G·DEC_TR], [G], [G], [G] in shared memory. Ends with __syncwarp,
+// so the caller may refill the stage right after it returns.
+template <typename KV, int HD, int GMAX, typename ValidF>
+__device__ __forceinline__ void decode_block_step(
+    const float* Qs, const DecStage<KV, HD>& st, float* P, float* M, float* L,
+    float* C, float (&acc)[GMAX][HD / 32], int G, int rows, float scale_log2,
+    ValidF valid) {
+  constexpr int LDQ = HD + 4;
+  constexpr int LDK = DecStage<KV, HD>::LDK;
+  constexpr int CH = 16 / sizeof(KV);   // elements per 16-byte load
+  constexpr int VD = HD / 32;
+  const int lane = threadIdx.x & 31;
+  for (int i = lane; i < G * rows; i += 32) {
+    const int r = i / rows, t = i - r * rows;
+    const float* qr = Qs + r * LDQ;
+    const KV* kr = st.K + t * LDK;
+    float s4[4] = {0.f, 0.f, 0.f, 0.f};   // four chains: latency, not one
+                                          // 128-long dependent FMA chain
+#pragma unroll 2
+    for (int c = 0; c < HD; c += CH) {
+      float k[CH];
+      ld_f32<KV, CH>(kr + c, k);
+      if constexpr (kInt8Kv<KV>) {
+        const float tk = st.ktk[t];
+#pragma unroll
+        for (int u = 0; u < CH; ++u) {
+          const float sc = st.ksc[c + u];
+          k[u] *= sc != 0.f ? sc : tk;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < CH; u += 4) {
+        const float4 q = *reinterpret_cast<const float4*>(qr + c + u);
+        s4[0] = fmaf(q.x, k[u], s4[0]);
+        s4[1] = fmaf(q.y, k[u + 1], s4[1]);
+        s4[2] = fmaf(q.z, k[u + 2], s4[2]);
+        s4[3] = fmaf(q.w, k[u + 3], s4[3]);
+      }
+    }
+    const float s = (s4[0] + s4[1]) + (s4[2] + s4[3]);
+    P[r * DEC_TR + t] = valid(t) ? s * scale_log2 : NEG_INF;
+  }
+  __syncwarp();
+  for (int r = lane; r < G; r += 32) {
+    float* p = P + r * DEC_TR;
+    const float m_prev = M[r];
+    float x[DEC_TR];                     // the row in registers: one
+#pragma unroll                           // batch of loads, no chain
+    for (int t = 0; t < DEC_TR; ++t) x[t] = t < rows ? p[t] : NEG_INF;
+    float mx = m_prev;
+#pragma unroll
+    for (int t = 0; t < DEC_TR; ++t) mx = fmaxf(mx, x[t]);
+    float sum = 0.f;
+#pragma unroll
+    for (int t = 0; t < DEC_TR; ++t) {
+      if (t < rows) {
+        const float e = exp2f(x[t] - mx);
+        p[t] = e;
+        sum += e;
+      }
+    }
+    const float corr = exp2f(m_prev - mx);
+    L[r] = L[r] * corr + sum;
+    M[r] = mx;
+    C[r] = corr;
+  }
+  __syncwarp();
+  const int d0 = lane * VD;
+#pragma unroll
+  for (int r = 0; r < GMAX; ++r) {
+    if (r < G) {
+      const float c = C[r];
+#pragma unroll
+      for (int u = 0; u < VD; ++u) acc[r][u] *= c;
+    }
+  }
+#pragma unroll 4
+  for (int t = 0; t < rows; ++t) {
+    float v[VD];
+    ld_f32<KV, VD>(st.V + t * HD + d0, v);
+    if constexpr (kInt8Kv<KV>) {
+      const float tk = st.vtk[t];
+#pragma unroll
+      for (int u = 0; u < VD; ++u) {
+        const float sc = st.vsc[d0 + u];
+        v[u] *= sc != 0.f ? sc : tk;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < GMAX; ++r) {
+      if (r < G) {
+        const float p = P[r * DEC_TR + t];
+#pragma unroll
+        for (int u = 0; u < VD; ++u) acc[r][u] = fmaf(p, v[u], acc[r][u]);
+      }
+    }
+  }
+  __syncwarp();
+}
+
+// Fold the DEC_WARPS warps' states of a CTA by log-sum-exp. Mall/Lall
+// [DEC_WARPS][G] hold each warp's M and L; Oall [DEC_WARPS][G][HD] is
+// scratch (it may alias the warps' stages: the caller has synchronised
+// after the last step). emit(r, d, m, l, acc) receives, for every row r < G
+// and column d, the CTA's max, sum and unnormalised output; m and l are the
+// same for every d of a row.
+template <int HD, int GMAX, typename EmitF>
+__device__ __forceinline__ void decode_merge(const float (&acc)[GMAX][HD / 32],
+                                             const float* Mall,
+                                             const float* Lall, float* Oall,
+                                             int G, EmitF emit) {
+  constexpr int VD = HD / 32;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+#pragma unroll
+  for (int r = 0; r < GMAX; ++r) {
+    if (r < G) {
+#pragma unroll
+      for (int u = 0; u < VD; ++u)
+        Oall[((size_t)warp * G + r) * HD + lane * VD + u] = acc[r][u];
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < G * HD; i += NT) {
+    const int r = i / HD, d = i - r * HD;
+    float m = NEG_INF;
+    for (int w = 0; w < DEC_WARPS; ++w) m = fmaxf(m, Mall[w * G + r]);
+    float l = 0.f, o = 0.f;
+    for (int w = 0; w < DEC_WARPS; ++w) {
+      const float e = exp2f(Mall[w * G + r] - m);
+      l += e * Lall[w * G + r];
+      o += e * Oall[((size_t)w * G + r) * HD + d];
+    }
+    emit(r, d, m, l, o);
+  }
+}
+
+// out[r][d] = Σ_s e^{m_s − M}·acc_s / max(Σ_s e^{m_s − M}·l_s, 1e-30) over
+// the n splits of one (sequence, kv head), for one row r and column d (one
+// thread each): m/l [n][G], acc [n][G][HD], float32, m in the log2 domain.
+// The split loops are unrolled so their loads are in flight together.
+template <typename T, int HD>
+__device__ __forceinline__ void lse_combine(const float* m, const float* l,
+                                            const float* acc, T* out, int G,
+                                            int n, int r, int d) {
+  float M = NEG_INF;
+#pragma unroll 8
+  for (int s = 0; s < n; ++s) M = fmaxf(M, m[s * G + r]);
+  float den = 0.f, num = 0.f;
+#pragma unroll 8
+  for (int s = 0; s < n; ++s) {
+    const float e = exp2f(m[s * G + r] - M);
+    den = fmaf(e, l[s * G + r], den);
+    num = fmaf(e, acc[((size_t)s * G + r) * HD + d], num);
+  }
+  out[(size_t)r * HD + d] = from_f32<T>(num / fmaxf(den, 1e-30f));
 }
 
 }  // namespace paged

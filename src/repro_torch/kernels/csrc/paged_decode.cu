@@ -8,37 +8,63 @@
 //
 // What bounds it on the card: bytes. Every resident K/V block is read once
 // per (sequence, kv head) and each element feeds only 2·G flops (G query
-// rows of the GQA group), far below the ~20 flop/byte where float32 compute
-// would take over. The design therefore reads each resident block exactly
-// once and nothing else:
-//   * one CTA per (sequence, kv head); the G query rows of the group sit in
-//     shared memory, so one K/V tile read serves all G rows (G = 6 on
-//     full-width qwen2-1.5b);
-//   * the CTA reads its own table entries and loops only over blocks
+// rows of the GQA group). The design reads each resident block exactly once,
+// from enough CTAs and with enough loads in flight to keep the memory busy
+// (split-KV, "flash-decoding"; attn_tile.cuh's decode routines):
+//   * grid (B, K, n_split): split s of (sequence b, kv head kh) owns table
+//     entries [s·per, (s+1)·per). n_split and per come from shapes alone
+//     (kernels/paged_decode.py::decode_splits: about two CTAs per SM), so
+//     the host never reads `lens` and a captured launch stays valid;
+//   * each CTA reads its own table entries and visits only blocks
 //     j < ceil(lens / bs). Unlike the TPU kernel, whose grid fetches every
 //     tabled block and skips only the compute, blocks past `lens` are never
-//     touched;
-//   * each [bs, h] tile is contiguous, loaded with 16-byte coalesced loads;
+//     touched; a split with no resident block adds exactly nothing;
+//   * the G query rows of the group sit in shared memory, so one K/V read
+//     serves all G rows (G = 6 on full-width qwen2-1.5b);
+//   * the CTA's 4 warps take its chunks (≤ 16 rows of a block) in turn, each
+//     with a two-stage cp.async buffer, so the next chunk is in flight while
+//     one computes. Scores are lane-parallel dot products, the softmax of
+//     row r runs in lane r, P·V gives each lane h/32 columns; every warp
+//     keeps its own online-softmax state and the warps merge by
+//     log-sum-exp in shared memory;
+//   * with n_split > 1 each CTA writes (m, l, acc[G][h]) in float32 to a
+//     workspace the wrapper allocates, and a second small kernel merges the
+//     splits: Σ e^{m_i−M}·acc_i / max(Σ e^{m_i−M}·l_i, 1e-30); with
+//     n_split = 1 the CTA writes the output itself;
 //   * online softmax in float32 with NEG_INF = -1e30 and l clamped at 1e-30,
-//     as paged_decode.py:41 and :94 do.
+//     as paged_decode.py:41 and :94 do (exp2 of log2e-prescaled scores).
 //
 // QuantPlane (int8 arenas, paged_decode.py:50-90): the pages are int8 and
 // each block carries float32 scale rows, per-channel seal scales [N, K, h]
-// and per-token scales [N, K, bs]. Before a block's tile is loaded, its K
-// and V scale rows go into shared memory; each element is dequantized as it
-// is written to shared memory (q · (scale != 0 ? scale : tok), one float32
-// product, per channel), so the online softmax is the float path's. Only
-// resident blocks' scale rows are read. An int8 block moves a quarter of a
-// float32 block's payload bytes plus 2·(h + bs)·4 bytes of scales.
-// Not done yet (later work): splitting the blocks of one sequence across
-// CTAs (B·K = 12 CTAs on the main path leave most of the 132 SMs idle),
-// cp.async/TMA double buffering, tensor-core products.
+// and per-token scales [N, K, bs]. They travel with the block's payload in
+// the same cp.async stage; each element is dequantized as it is read from
+// shared memory with the one float32 product q · (scale != 0 ? scale : tok),
+// per channel, as load_kv_tile does, so the softmax is the float path's.
+// Only resident blocks' scale rows are read. An int8 block moves a quarter
+// of a float32 block's payload bytes plus 2·(h + bs)·4 bytes of scales.
+// Not done yet (later work): TMA bulk copies with an mbarrier ring in place
+// of per-lane cp.async, a merge by the last CTA of a split (one launch, not
+// two), sink_decode and spec_verify on the same routine (ROADMAP B9).
 #include "attn_tile.cuh"
 
 using namespace paged;
 
+// Shared memory of a CTA: Qs [G][h + 4] | M, L, C [DEC_WARPS][G] | P
+// [DEC_WARPS][G][DEC_TR] | the warps' stages [DEC_WARPS][DEC_STAGES], or,
+// after the walk, the merge scratch [DEC_WARPS][G][h] in their place.
+template <typename KV, int HD>
+static size_t decode_smem_bytes(int G) {
+  const size_t head =
+      sizeof(float) * ((size_t)G * (HD + 4) + 3 * DEC_WARPS * (size_t)G +
+                       (size_t)DEC_WARPS * G * DEC_TR);
+  const size_t stages = DEC_WARPS * DEC_STAGES * DecStage<KV, HD>::bytes();
+  const size_t merge = sizeof(float) * DEC_WARPS * (size_t)G * HD;
+  return (head + 15) / 16 * 16 + (stages > merge ? stages : merge);
+}
+
 // T: q and out (float / bf16); KV: the arena payload (T, or int8_t with the
-// scale plane ks/kt/vs/vt, null otherwise).
+// scale plane ks/kt/vs/vt, null otherwise). ws: [B·K][n_split][G] m, then
+// the same of l, then [B·K][n_split][G][HD] acc (unused when n_split = 1).
 template <typename T, typename KV, int HD>
 __global__ void __launch_bounds__(NT)
 paged_decode_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
@@ -46,74 +72,133 @@ paged_decode_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
                     const float* __restrict__ kt, const float* __restrict__ vs,
                     const float* __restrict__ vt,
                     const int* __restrict__ tables,
-                    const int* __restrict__ lens, T* __restrict__ out, int K,
-                    int G, int bs, int nb, float scale) {
-  extern __shared__ float smem[];
-  constexpr int LD = HD + 1;
-  const int b = blockIdx.x, kh = blockIdx.y;
-  float* Qs = smem;
-  float* Ks = Qs + G * LD;
-  float* Vs = Ks + bs * LD;
-  float* P = Vs + bs * HD;
-  float* M = P + G * bs;
-  float* L = M + G;
-  float* C = L + G;
-  float* Ksc = C + G;        // scale rows (int8 arenas only)
-  float* Ktk = Ksc + HD;
-  float* Vsc = Ktk + bs;
-  float* Vtk = Vsc + HD;
+                    const int* __restrict__ lens, T* __restrict__ out,
+                    float* __restrict__ ws, int K, int G, int bs, int nb,
+                    int per, float scale_log2) {
+  constexpr int GMAX = MAXR * (NT / HD);
+  constexpr int VD = HD / 32;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int b = blockIdx.x, kh = blockIdx.y, sp = blockIdx.z;
+  const int nsp = gridDim.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int bk = b * K + kh;
+  float* Qs = reinterpret_cast<float*>(smem);
+  float* Mall = Qs + G * (HD + 4);
+  float* Lall = Mall + DEC_WARPS * G;
+  float* Call = Lall + DEC_WARPS * G;
+  float* Pall = Call + DEC_WARPS * G;
+  const size_t head =
+      sizeof(float) * ((size_t)G * (HD + 4) + 3 * DEC_WARPS * (size_t)G +
+                       (size_t)DEC_WARPS * G * DEC_TR);
+  unsigned char* tail = smem + (head + 15) / 16 * 16;
+  unsigned char* wstages = tail + warp * DEC_STAGES * DecStage<KV, HD>::bytes();
+  auto stage = [&](int st) {
+    return DecStage<KV, HD>(wstages + st * DecStage<KV, HD>::bytes());
+  };
+  float* M = Mall + warp * G;
+  float* L = Lall + warp * G;
+  float* C = Call + warp * G;
+  float* P = Pall + warp * G * DEC_TR;
 
-  const size_t qoff = ((size_t)b * K + kh) * G * HD;
-  load_tile<T, HD>(Qs, LD, q + qoff, G, G);
-  for (int r = threadIdx.x; r < G; r += NT) {
+  // This split's resident chunks: blocks [j0, j1), each cut into cpb chunks
+  // of at most DEC_TR rows; chunk c is walked by warp c % DEC_WARPS.
+  const int len = lens[b];
+  const int nblk = min((len + bs - 1) / bs, nb);
+  const int j0 = sp * per;
+  const int j1 = min(j0 + per, nblk);
+  const int cpb = (bs + DEC_TR - 1) / DEC_TR;
+  const int c_end = j1 > j0 ? (j1 - j0) * cpb : 0;
+  const int* tbl = tables + (size_t)b * nb;
+  auto issue = [&](int st, int c) {
+    const int j = j0 + c / cpb, r0 = (c % cpb) * DEC_TR;
+    decode_stage_issue<KV, HD>(stage(st), kp, vp, ks, kt, vs, vt, tbl[j], K,
+                               kh, bs, r0, min(DEC_TR, bs - r0));
+  };
+  int c = warp;                          // the first chunk is in flight
+  if (c < c_end) issue(0, c);            // while q loads
+  cp_async_commit();
+  const size_t qoff = (size_t)bk * G * HD;
+  load_tile<T, HD>(Qs, HD + 4, q + qoff, G, G);
+  for (int r = lane; r < G; r += 32) {
     M[r] = NEG_INF;
     L[r] = 0.f;
   }
-  float acc[MAXR];
+  float acc[GMAX][VD];
 #pragma unroll
-  for (int k = 0; k < MAXR; ++k) acc[k] = 0.f;
-  const int len = lens[b];
-  const int nblk = min((len + bs - 1) / bs, nb);
+  for (int r = 0; r < GMAX; ++r)
+#pragma unroll
+    for (int u = 0; u < VD; ++u) acc[r][u] = 0.f;
   __syncthreads();
 
-  for (int j = 0; j < nblk; ++j) {
-    const int phys = tables[(size_t)b * nb + j];
-    const size_t base = ((size_t)phys * K + kh) * bs * HD;
-    if constexpr (kInt8Kv<KV>) {
-      load_scale_rows<HD>(Ksc, Ktk, Vsc, Vtk, ks, kt, vs, vt, phys, K, kh,
-                          bs);
-      __syncthreads();
-    }
-    load_kv_tile<KV, HD>(Ks, LD, kp + base, bs, bs, Ksc, Ktk);
-    load_kv_tile<KV, HD>(Vs, HD, vp + base, bs, bs, Vsc, Vtk);
-    __syncthreads();
-    const int slot0 = j * bs;
-    tile_step<HD>(Qs, Ks, Vs, P, M, L, C, acc, G, bs, scale,
-                  [=](int, int t) { return slot0 + t < len; });
+  for (int it = 0; c < c_end; ++it, c += DEC_WARPS) {
+    const int cn = c + DEC_WARPS;
+    if (cn < c_end) issue((it + 1) & 1, cn);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncwarp();
+    const int j = j0 + c / cpb, r0 = (c % cpb) * DEC_TR;
+    const int slot0 = j * bs + r0;
+    decode_block_step<KV, HD, GMAX>(Qs, stage(it & 1), P, M, L, C, acc, G,
+                                    min(DEC_TR, bs - r0), scale_log2,
+                                    [=](int t) { return slot0 + t < len; });
   }
-  store_rows<T, HD>(out + qoff, acc, L, G);
+  cp_async_wait<0>();
+  __syncthreads();                       // stages become the merge scratch
+
+  float* ws_m = ws;
+  float* ws_l = ws ? ws + (size_t)gridDim.x * K * nsp * G : nullptr;
+  float* ws_acc = ws ? ws_l + (size_t)gridDim.x * K * nsp * G : nullptr;
+  const size_t wrow = ((size_t)bk * nsp + sp) * G;
+  decode_merge<HD, GMAX>(
+      acc, Mall, Lall, reinterpret_cast<float*>(tail), G,
+      [&](int r, int d, float m, float l, float o) {
+        if (nsp == 1) {
+          out[qoff + (size_t)r * HD + d] = from_f32<T>(o / fmaxf(l, 1e-30f));
+        } else {
+          ws_acc[(wrow + r) * HD + d] = o;
+          if (d == 0) {
+            ws_m[wrow + r] = m;
+            ws_l[wrow + r] = l;
+          }
+        }
+      });
+}
+
+// Merge the n_split partial states: grid (B·K, G), one thread per column.
+template <typename T, int HD>
+__global__ void __launch_bounds__(HD)
+paged_decode_combine(const float* __restrict__ ws, T* __restrict__ out,
+                     int BK, int G, int nsp) {
+  const size_t bk = blockIdx.x;
+  const size_t rows = (size_t)BK * nsp * G;
+  lse_combine<T, HD>(ws + bk * nsp * G, ws + rows + bk * nsp * G,
+                     ws + 2 * rows + bk * nsp * G * HD, out + bk * G * HD, G,
+                     nsp, blockIdx.y, threadIdx.x);
 }
 
 template <typename T, typename KV, int HD>
 static int launch(const void* q, const void* kp, const void* vp,
                   const float* ks, const float* kt, const float* vs,
                   const float* vt, const void* tables, const void* lens,
-                  void* out, int B, int K, int G, int bs, int nb, float scale,
-                  cudaStream_t stream) {
-  const size_t smem = tile_smem_bytes(G, bs, HD) +
-                      sizeof(float) * scale_smem_floats<KV>(HD, bs);
+                  void* out, void* ws, int B, int K, int G, int bs, int nb,
+                  int n_split, int per, float scale, cudaStream_t stream) {
+  const size_t smem = decode_smem_bytes<KV, HD>(G);
   auto kern = paged_decode_kernel<T, KV, HD>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  dim3 grid(B, K);
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(B, K, n_split);
+  float* w = n_split > 1 ? static_cast<float*>(ws) : nullptr;
   kern<<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const KV*>(kp),
       static_cast<const KV*>(vp), ks, kt, vs, vt,
       static_cast<const int*>(tables), static_cast<const int*>(lens),
-      static_cast<T*>(out), K, G, bs, nb, scale);
+      static_cast<T*>(out), w, K, G, bs, nb, per,
+      scale * 1.4426950408889634f);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || n_split == 1) return (int)e;
+  paged_decode_combine<T, HD><<<dim3(B * K, G), HD, 0, stream>>>(
+      w, static_cast<T*>(out), B * K, G, n_split);
   return (int)cudaGetLastError();
 }
 
@@ -121,17 +206,22 @@ static int launch(const void* q, const void* kp, const void* vp,
 static int dispatch(int dtype, bool int8, const void* q, const void* kp,
                     const void* vp, const float* ks, const float* kt,
                     const float* vs, const float* vt, const void* tables,
-                    const void* lens, void* out, int B, int K, int G, int h,
-                    int bs, int nb, float scale, void* stream) {
-  if (G < 1 || G > MAXR * (NT / h) || bs < 1 || nb < 1) return -1;
+                    const void* lens, void* out, void* ws, int B, int K,
+                    int G, int h, int bs, int nb, int n_split, int per,
+                    float scale, void* stream) {
+  if (G < 1 || G > MAXR * (NT / h) || bs < 1 || nb < 1 || B < 1 || K < 1 ||
+      K > 65535 || n_split < 1 || n_split > 65535 || per < 1 ||
+      (long long)n_split * per < nb || (n_split > 1 && ws == nullptr))
+    return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define PD_CASE(T, HD)                                                     \
-  if (h == HD)                                                             \
-    return int8 ? launch<T, int8_t, HD>(q, kp, vp, ks, kt, vs, vt, tables, \
-                                        lens, out, B, K, G, bs, nb, scale, \
-                                        s)                                 \
+#define PD_CASE(T, HD)                                                      \
+  if (h == HD)                                                              \
+    return int8 ? launch<T, int8_t, HD>(q, kp, vp, ks, kt, vs, vt, tables,  \
+                                        lens, out, ws, B, K, G, bs, nb,     \
+                                        n_split, per, scale, s)             \
                 : launch<T, T, HD>(q, kp, vp, ks, kt, vs, vt, tables, lens, \
-                                   out, B, K, G, bs, nb, scale, s);
+                                   out, ws, B, K, G, bs, nb, n_split, per,  \
+                                   scale, s);
   if (dtype == 0) {
     PD_CASE(float, 32) PD_CASE(float, 64) PD_CASE(float, 128)
   } else if (dtype == 1) {
@@ -143,16 +233,18 @@ static int dispatch(int dtype, bool int8, const void* q, const void* kp,
 }
 
 // dtype (of q and out): 0 = float32, 1 = bfloat16; the pages have the same
-// type. Returns 0 on success, a cudaError_t value after a failed launch, or
-// -1 for a shape the kernel does not take.
+// type. ws: float32 workspace of B·K·n_split·G·(h + 2) floats (may be null
+// when n_split = 1). Returns 0 on success, a cudaError_t value after a
+// failed launch, or -1 for a shape the kernel does not take.
 extern "C" int paged_decode_launch(int dtype, const void* q, const void* kp,
                                    const void* vp, const void* tables,
-                                   const void* lens, void* out, int B, int K,
-                                   int G, int h, int bs, int nb, float scale,
+                                   const void* lens, void* out, void* ws,
+                                   int B, int K, int G, int h, int bs, int nb,
+                                   int n_split, int per, float scale,
                                    void* stream) {
   return dispatch(dtype, false, q, kp, vp, nullptr, nullptr, nullptr,
-                  nullptr, tables, lens, out, B, K, G, h, bs, nb, scale,
-                  stream);
+                  nullptr, tables, lens, out, ws, B, K, G, h, bs, nb, n_split,
+                  per, scale, stream);
 }
 
 // The same over int8 pages with their scale plane: ks/vs [N, K, h] and
@@ -162,11 +254,12 @@ extern "C" int paged_decode_int8_launch(int dtype, const void* q,
                                         const void* ks, const void* kt,
                                         const void* vs, const void* vt,
                                         const void* tables, const void* lens,
-                                        void* out, int B, int K, int G, int h,
-                                        int bs, int nb, float scale,
+                                        void* out, void* ws, int B, int K,
+                                        int G, int h, int bs, int nb,
+                                        int n_split, int per, float scale,
                                         void* stream) {
   return dispatch(dtype, true, q, kp, vp, static_cast<const float*>(ks),
                   static_cast<const float*>(kt), static_cast<const float*>(vs),
-                  static_cast<const float*>(vt), tables, lens, out, B, K, G, h,
-                  bs, nb, scale, stream);
+                  static_cast<const float*>(vt), tables, lens, out, ws, B, K,
+                  G, h, bs, nb, n_split, per, scale, stream);
 }

@@ -3,10 +3,16 @@
 `paged_decode` launches the hand-written CUDA kernel `csrc/paged_decode.cu`
 (the port of the TPU kernel src/repro/kernels/paged_decode.py) for tensors
 on a CUDA device, and runs `paged_decode_plain` — the same function in plain
-PyTorch — for tensors on the CPU. `paged_decode.launches` counts kernel
-launches (nothing else adds to it).
+PyTorch — for tensors on the CPU. The kernel splits each sequence's table
+across CTAs (split-KV) and merges the splits by log-sum-exp; the split plan
+(`decode_splits`) depends on shapes only, never on `lens`.
+`paged_decode.launches` (and `.int8_launches` for int8 arenas) advance once
+per `paged_decode` call on a CUDA device, however many CUDA launches the
+split and its merge take; nothing else adds to them.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -16,6 +22,25 @@ from repro_torch.kernels._common import (DTYPE_CODES, HEAD_DIMS, gather_kv,
                                          scale_plane_args)
 
 NEG_INF = -1e30
+DECODE_WARPS = 4          # warps per CTA of the kernel (csrc DEC_WARPS)
+
+
+def decode_splits(B: int, K: int, nb: int, n_sm: int) -> tuple[int, int]:
+    """The kernel's split plan from shapes alone → (n_split, per): grid
+    (B, K, n_split), split s taking table entries [s·per, min((s+1)·per,
+    nb)). About two CTAs per SM (B·K·n_split ≈ 2·n_sm) while every warp of
+    a CTA can take at least one entry (per ≥ DECODE_WARPS where nb allows);
+    n_split = ceil(nb / per), so every split has an entry and every entry
+    one split. Splits past a sequence's resident blocks add nothing."""
+    want = -(-2 * n_sm // (B * K))
+    n = max(1, min(want, nb // DECODE_WARPS, 65535))
+    per = -(-nb // n)
+    return -(-nb // per), per
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def paged_decode_plain(q, k_pages, v_pages, tables, lens, *, k_scale=None,
@@ -67,6 +92,10 @@ def paged_decode(q, k_pages, v_pages, tables, lens, *, k_scale=None,
     ln = kernel_arg(per_row(lens, B, dev), dev, torch.int32)
     nb = tbl.shape[1]
     out = torch.empty_like(q)
+    n_split, per = decode_splits(B, K, nb, _sm_count(dev.index))
+    ws = None if n_split == 1 else torch.empty(
+        B * K * n_split * G * (h + 2), dtype=torch.float32, device=dev)
+    ws_ptr = None if ws is None else ws.data_ptr()
     lib = build.load("paged_decode")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -75,13 +104,13 @@ def paged_decode(q, k_pages, v_pages, tables, lens, *, k_scale=None,
             rc = lib.paged_decode_int8_launch(
                 DTYPE_CODES[q.dtype], q.data_ptr(), kp.data_ptr(),
                 vp.data_ptr(), *(t.data_ptr() for t in sp), tbl.data_ptr(),
-                ln.data_ptr(), out.data_ptr(), B, K, G, h, bs, nb,
-                h ** -0.5, stream)
+                ln.data_ptr(), out.data_ptr(), ws_ptr, B, K, G, h, bs, nb,
+                n_split, per, h ** -0.5, stream)
         else:
             rc = lib.paged_decode_launch(
                 DTYPE_CODES[q.dtype], q.data_ptr(), kp.data_ptr(),
                 vp.data_ptr(), tbl.data_ptr(), ln.data_ptr(), out.data_ptr(),
-                B, K, G, h, bs, nb, h ** -0.5, stream)
+                ws_ptr, B, K, G, h, bs, nb, n_split, per, h ** -0.5, stream)
     build.check_launch("paged_decode", rc)
     paged_decode.launches += 1
     paged_decode.int8_launches += int(quant)

@@ -119,6 +119,11 @@ def test_paged_prefill_kernel_matches_plain(cuda, dtype, bs, S, G, h, kw):
     (128, 4, 64, dict(causal=True, window=32)),
     (96, 4, 32, dict(causal=True, window=32, sink=8)),
     (200, 6, 128, dict(causal=True)),                # ragged tails
+    (77, 5, 64, dict(causal=True)),                  # S, S·G off the tiles
+    (300, 4, 128, dict(causal=True, window=40)),     # window edge in a tile
+    (300, 4, 128, dict(causal=True, window=40, sink=24)),
+    (512, 6, 128, dict(causal=False)),               # bidirectional
+    (333, 3, 32, dict(causal=False, window=100, sink=16)),
     (4608, 6, 128, dict(causal=True))])              # full-width main path
 def test_flash_prefill_kernel_matches_plain(cuda, dtype, S, G, h, kw):
     rng = np.random.default_rng(S + G + h)
@@ -285,6 +290,47 @@ def _int8_arena(rng, N, K, bs, h, tables, lens, dev):
 def _tables(rng, B, nb, N, dev):
     return torch.from_numpy(rng.permutation(np.arange(1, N))[:B * nb]
                             .reshape(B, nb).astype(np.int32)).to(dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("nb,lens,K,G,bs,h", [
+    (264, [4224] * 4 + [20] * 2, 2, 6, 16, 128),     # phase 5's ring tables
+    (200, [1, 16, 17, 3000, 3199, 5], 2, 6, 16, 128),    # empty splits
+    (64, [1, 8, 9, 200, 512, 7], 4, 1, 8, 128),      # one-block rows, bs 8
+    (40, [1, 31, 33, 640, 1279, 1280], 2, 4, 32, 128),   # 2 chunks a block
+    (48, [1, 100, 383, 384, 7, 200], 2, 4, 8, 32),   # the merge at h 32
+    (40, [640, 1, 33, 500, 639, 16], 2, 8, 16, 64)])     # and at h 64
+def test_paged_decode_split_kv_matches_plain(cuda, dtype, int8, nb, lens, K,
+                                             G, bs, h):
+    """Split-KV paged_decode over long tables: splits that hold no resident
+    block, one-block sequences, blocks longer than one chunk; every table
+    entry past a sequence's residency points at the poisoned null block,
+    float and int8 arenas."""
+    rng = np.random.default_rng(nb + bs + G + int8)
+    B = len(lens)
+    N = B * nb + 1
+    q = _rand(rng, (B, K, G, h), dtype, cuda)
+    tables = _tables(rng, B, nb, N, cuda)
+    for b, n in enumerate(lens):
+        tables[b, -(-n // bs):] = 0
+    if int8:
+        kp, vp, sc = _int8_arena(rng, N, K, bs, h, tables, lens, cuda)
+    else:
+        kp = _rand(rng, (N, K, bs, h), dtype, cuda)
+        vp = _rand(rng, (N, K, bs, h), dtype, cuda)
+        kp[0] = vp[0] = 1e4
+        sc = {}
+    ln = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    n0, i0 = paged_decode.launches, paged_decode.int8_launches
+    got = paged_decode(q, kp, vp, tables, ln, **sc)
+    assert paged_decode.launches == n0 + 1
+    assert paged_decode.int8_launches == i0 + int(int8)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and torch.isfinite(got.float()).all()
+    want = paged_decode_plain(q, kp, vp, tables, ln, **sc)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
 
 
 @pytest.mark.gpu
