@@ -38,11 +38,12 @@ CELLS = ("all-full", "default-pattern", "topk", "all-full-quant",
 KERNELS = ("paged_decode", "paged_prefill", "block_topk", "spec_verify",
            "flash_prefill", "sink_decode", "moe_gmm")
 CATEGORIES = (("moe_gmm", ("moe_gmm_kernel",)),
-              ("paged_prefill", ("paged_prefill_kernel",)),
+              ("paged_prefill", ("paged_prefill_kernel",
+                                 "paged_prefill_combine")),
               ("paged_decode", ("paged_decode_kernel",
                                 "paged_decode_combine")),
               ("block_topk", ("block_topk_kernel",)),
-              ("spec_verify", ("spec_verify_kernel",)),
+              ("spec_verify", ("spec_verify_kernel", "spec_verify_combine")),
               ("flash_prefill", ("flash_prefill_kernel",)),
               ("sink_decode", ("sink_decode_kernel",)),
               ("gemm", ("gemm", "gemv", "sm90_xmma", "cutlass", "cublas")),
@@ -53,8 +54,9 @@ CATEGORIES = (("moe_gmm", ("moe_gmm_kernel",)),
               ("elementwise", ("elementwise", "vectorized")))
 
 
-# a kernel's calls are counted on its first name; the others (paged_decode's
-# split merge) add device time to the same call
+# a kernel's calls are counted on its first name; the others (the split
+# merges of paged_decode, paged_prefill and spec_verify) add device time to
+# the same call
 CALL_NAME = {cat: keys[0] for cat, keys in CATEGORIES}
 
 

@@ -17,7 +17,10 @@ Phases (any failure raises, so the script exits non-zero):
      versions and dequantize-then-SDPA; paged_decode (split-KV) also over
      phase 5's ring tables in float and int8 and over tables whose late
      splits hold no resident block, flash_prefill (tensor cores) also with
-     GQA rows off its tiles and window/sink edges inside a tile; float32
+     GQA rows off its tiles and window/sink edges inside a tile,
+     paged_prefill and spec_verify (the paged-history tensor-core routine)
+     also over long histories in float and int8 (topk-long's last chunk:
+     off 3,840 over 288 entries; a verify at off ~4,000); float32
      bounds by operations are reckoned at the 3xTF32 rate (165 TF/s);
   3. serve the bench's shared-prefix workload on full-width qwen2-1.5b
      (28 layers, float32, every layer full attention) through
@@ -128,6 +131,9 @@ P6_PROMPT, P6_NEW, P6_MAX_LEN, P6_BLOCKS = 3968, 12, 4608, 2016
 TOPK_MAIN = (256, [3968, 3970, 3972, 3975, 3978, 3980])
 SPEC_MAIN = (32, [256, 262, 270, 281, 295, 304])
 SPEC_LONG = (256, [3990, 3995, 4000, 4003, 4007, 4010])
+# topk-long's last prefill chunk: 128 tokens over a 3,840-token history in a
+# 288-entry table (max_len 4608 at bs 16)
+PREFILL_LONG = (288, 3840)
 P7_PHRASE, P7_REPEAT, P7_NEW, P7_K = 32, 8, 48, 4
 # phase 8 (full-width qwen2-moe-a2.7b, 60 experts top-4, d_ff_expert 1408):
 # moe_gmm's (capacity C, D, F, tokens) at decode (6 slots: capacity 8) for
@@ -413,6 +419,22 @@ def check_kernels(dev, timer, log):
                 "bound_by": bnd[1], "bytes": bnd[2], "flops": bnd[3]}
             log.append(f"{name} {dn} moe shape K=16 G=1 h=128 "
                        f"max_abs_err={err:.3g}")
+        # topk-long's last chunk, where paged_prefill's device seconds are
+        nbl, offl = PREFILL_LONG
+        lng = prefill_inputs(dev, dtype, 1, 2, 128, 6, 128, 16, nbl, nbl + 1,
+                             [offl], [128], 15)
+        err = cmp("paged_prefill long", paged_prefill(*lng),
+                  paged_prefill_plain(*lng), dtype)
+        log.append(f"paged_prefill {dn} long S=128 SG=768 off={offl} cl=128 "
+                   f"nb={nbl} max_abs_err={err:.3g}")
+        bnd = prefill_bound(lng[0], lng[1], lng[3], lng[5], lng[6], lng[7])
+        rec["paged_prefill"][f"{dn}_long"] = {
+            "max_abs_err": err, "ms": timer(lambda: paged_prefill(*lng)),
+            "plain_ms": timer(lambda: paged_prefill_plain(*lng)),
+            "library_ms": timer(sdpa_prefill(*lng)),
+            "bound_ms": bnd[0], "bound_by": bnd[1], "bytes": bnd[2],
+            "flops": bnd[3]}
+        del lng
         # split-KV edges: splits past the residency, one-block rows, a
         # poisoned null block behind every non-resident table entry
         edge = list(decode_inputs(dev, dtype, 6, 2, 6, 128, 16, 200, 1201,
@@ -801,6 +823,34 @@ def check_quant_kernels(dev, timer, log):
         log.append(f"int8 {dn}: paged_prefill off=200 cl=100 max_abs_err "
                    f"{err:.3g}; spec_verify B=6 S={P7_K + 1} off={offs} "
                    f"max_abs_err {err2:.3g}")
+        # the long histories: topk-long's last chunk, a ~4,000-token verify
+        nbl, offl = PREFILL_LONG
+        lng = prefill_inputs(dev, dtype, 1, 2, 128, 6, 128, 16, nbl, nbl + 1,
+                             [offl], [128], 37)
+        kq, vq, sc = int8_arena(dev, 2, 16, 128, nbl + 1, lng[5], lng[6], 38)
+        args = (lng[0], lng[1], lng[2], kq, vq, lng[5], lng[6], lng[7])
+        err = cmp("paged_prefill int8 long", paged_prefill(*args, **sc),
+                  paged_prefill_plain(*args, **sc), dtype)
+        time_one(dn + "_long", "paged_prefill", paged_prefill,
+                 paged_prefill_plain, args, sc,
+                 prefill_bound(lng[0], lng[1], kq, lng[5], lng[6], lng[7]),
+                 sdpa_prefill_int8(*args, sc), err)
+        nbs, offs = SPEC_LONG
+        sa = prefill_inputs(dev, dtype, 6, 2, P7_K + 1, 6, 128, 16, nbs,
+                            6 * nbs + 1, offs, [P7_K + 1] * 6, 39)
+        kq, vq, sc = int8_arena(dev, 2, 16, 128, 6 * nbs + 1, sa[5], sa[6],
+                                40)
+        args = (sa[0], sa[1], sa[2], kq, vq, sa[5], sa[6], sa[7])
+        err2 = cmp("spec_verify int8 long", spec_verify(*args, **sc),
+                   spec_verify_plain(*args, **sc), dtype, sa[7], 6)
+        time_one(dn + "_long", "spec_verify", spec_verify, spec_verify_plain,
+                 args, sc,
+                 prefill_bound(sa[0], sa[1], kq, sa[5], sa[6], sa[7]),
+                 sdpa_prefill_int8(*args, sc), err2)
+        log.append(f"int8 {dn} long: paged_prefill off={offl} nb={nbl} "
+                   f"max_abs_err {err:.3g}; spec_verify off={offs} nb={nbs} "
+                   f"max_abs_err {err2:.3g}")
+        del lng, sa, kq, vq, sc, args
     return rec
 
 
@@ -2520,10 +2570,15 @@ def main() -> int:
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                 "library", "max_abs_err")} | {
                 "launches": int8_launches[name]}
-        if name == "paged_decode":           # phase 5's ring tables
-            for rec, src in ((entry, kern[key]["float32_ring"]),
-                             (entry["int8"], kern_q[key]["float32_ring"])):
-                rec["ring"] = {k: src[k] for k in (
+        # the shapes where the device seconds are: phase 5's ring tables,
+        # long histories (topk-long's last chunk, a ~4,000-token verify)
+        extra = {"paged_decode": "ring", "paged_prefill": "long",
+                 "spec_verify": "long"}.get(name)
+        if extra:
+            for rec, src in ((entry, kern[key][f"float32_{extra}"]),
+                             (entry["int8"],
+                              kern_q[key][f"float32_{extra}"])):
+                rec[extra] = {k: src[k] for k in (
                     "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                     "max_abs_err")}
         line["kernels"].append(entry)
@@ -2531,9 +2586,11 @@ def main() -> int:
         for rec in (k, k.get("int8")):
             if rec is None:
                 continue
-            for key in ("max_abs_err", "ms", "plain_ms", "bound_ms"):
-                if not math.isfinite(rec[key]):
-                    raise AssertionError(f"{k['name']}: {key} is not finite")
+            for r in (rec, rec.get("ring"), rec.get("long")):
+                for key in ("max_abs_err", "ms", "plain_ms", "bound_ms"):
+                    if r is not None and not math.isfinite(r[key]):
+                        raise AssertionError(f"{k['name']}: {key} is not "
+                                             f"finite")
             if rec["launches"] <= 0:
                 raise AssertionError(f"{k['name']}: no launch on the main "
                                      f"path")

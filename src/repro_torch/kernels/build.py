@@ -38,10 +38,11 @@ SIGNATURES = {
                                      _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     },
     "paged_prefill": {
-        "paged_prefill_launch": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                 _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
-        "paged_prefill_int8_launch": [_I, *[_P] * 13, _I, _I, _I, _I, _I,
-                                      _I, _I, _F, _I, _I, _P],
+        # ... out, workspace, B, K, S, G, h, bs, nb, n_split, per, scale,
+        # window, sink
+        "paged_prefill_launch": [_I, *[_P] * 10, *[_I] * 9, _F, _I, _I, _P],
+        "paged_prefill_int8_launch": [_I, *[_P] * 14, *[_I] * 9, _F, _I, _I,
+                                      _P],
     },
     "flash_prefill": {
         "flash_prefill_launch": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _F,
@@ -56,10 +57,8 @@ SIGNATURES = {
                               _I, _I, _I, _I, _I, _I, _P],
     },
     "spec_verify": {
-        "spec_verify_launch": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                               _I, _I, _I, _I, _I, _I, _I, _F, _P],
-        "spec_verify_int8_launch": [_I, *[_P] * 13, _I, _I, _I, _I, _I, _I,
-                                    _I, _F, _P],
+        "spec_verify_launch": [_I, *[_P] * 10, *[_I] * 9, _F, _P],
+        "spec_verify_int8_launch": [_I, *[_P] * 14, *[_I] * 9, _F, _P],
     },
     "moe_gmm": {
         "moe_gmm_launch": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P],

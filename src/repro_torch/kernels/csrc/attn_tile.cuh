@@ -1,18 +1,23 @@
 // Shared tile machinery of the attention kernels (paged_decode.cu,
 // paged_prefill.cu, spec_verify.cu, flash_prefill.cu, sink_decode.cu):
-//   * typed 16-byte tile loads into float32 shared memory, the int8 arena
-//     tile load that dequantizes as it writes shared memory (QuantPlane),
-//     and one online-softmax step of R query rows against a tile of TK keys
-//     on CUDA cores (`tile_step`: paged_prefill, spec_verify, sink_decode);
-//   * the tensor-core prefill tile (`tc_tile_step`, flash_prefill): 16 query
-//     rows per warp against a key tile staged by cp.async, products on
-//     mma.sync (bf16 m16n8k16, or float32 through the 3xTF32 split), the
-//     online softmax in registers;
+//   * typed 16-byte tile loads into float32 shared memory and one
+//     online-softmax step of R query rows against a tile of TK keys on CUDA
+//     cores (`tile_step`: sink_decode);
+//   * the tensor-core tile (`tc_tile_step`): 16 query rows per warp against
+//     a key tile staged in shared memory, products on mma.sync (bf16
+//     m16n8k16, or float32 through the 3xTF32 split), the online softmax in
+//     registers (flash_prefill, and through the paged-history routine);
 //   * the split-KV decode routine (`decode_stage_issue`,
 //     `decode_block_step`, `decode_merge`, `lse_combine`, paged_decode):
 //     each warp walks its own KV chunks through a cp.async double buffer
 //     with its own softmax state; the warps of a CTA, then the CTAs of a
-//     split grid, merge by log-sum-exp.
+//     split grid, merge by log-sum-exp;
+//   * the paged-history tensor-core routine (`paged_tc_attend`,
+//     paged_prefill and spec_verify): a CTA of 16-row warps walks its
+//     split's share of a paged history, key tiles staged through the table
+//     by cp.async (int8 pages dequantized through registers), then the
+//     chunk's own keys, all on `tc_tile_step`; the splits merge by
+//     `lse_combine`.
 //
 // Layout of a `tile_step` CTA's shared memory (floats):
 //   Qs [R][HD+1]   query rows (padded: the score loop reads rows and keys
@@ -94,67 +99,6 @@ __device__ __forceinline__ void load_tile(float* dst, int ld, const T* src,
 // float32 product, as the plain version computes it.
 template <typename KV>
 constexpr bool kInt8Kv = std::is_same<KV, int8_t>::value;
-
-// Copy block `phys`'s scale rows (kv head kh) of K and V into shared memory:
-// Ks_sc/Vs_sc [HD], Ks_tk/Vs_tk [bs]. Only resident blocks are passed in.
-template <int HD>
-__device__ __forceinline__ void load_scale_rows(
-    float* Ks_sc, float* Ks_tk, float* Vs_sc, float* Vs_tk,
-    const float* __restrict__ ks, const float* __restrict__ kt,
-    const float* __restrict__ vs, const float* __restrict__ vt, int phys,
-    int K, int kh, int bs) {
-  const size_t srow = ((size_t)phys * K + kh) * HD;
-  const size_t trow = ((size_t)phys * K + kh) * bs;
-  for (int i = threadIdx.x; i < HD; i += NT) {
-    Ks_sc[i] = ks[srow + i];
-    Vs_sc[i] = vs[srow + i];
-  }
-  for (int i = threadIdx.x; i < bs; i += NT) {
-    Ks_tk[i] = kt[trow + i];
-    Vs_tk[i] = vt[trow + i];
-  }
-}
-
-// Load `n_rows` back-to-back rows of an arena block into shared `dst` (row
-// stride `ld` floats). KV = float / bf16: `load_tile`. KV = int8_t: each
-// thread moves 16 int8 per 16-byte load and dequantizes each element with
-// the block's scale rows in shared memory (sc, tk) as it writes it.
-template <typename KV, int HD>
-__device__ __forceinline__ void load_kv_tile(float* dst, int ld, const KV* src,
-                                             int n_rows, int valid_rows,
-                                             const float* sc, const float* tk) {
-  if constexpr (kInt8Kv<KV>) {
-    constexpr int VEC = 16;
-    constexpr int VPR = HD / VEC;
-    for (int i = threadIdx.x; i < n_rows * VPR; i += NT) {
-      const int r = i / VPR;
-      const int c = (i % VPR) * VEC;
-      float* out = dst + r * ld + c;
-      if (r < valid_rows) {
-        const uint4 raw =
-            *reinterpret_cast<const uint4*>(src + (size_t)r * HD + c);
-        const int8_t* e = reinterpret_cast<const int8_t*>(&raw);
-        const float t = tk[r];
-#pragma unroll
-        for (int u = 0; u < VEC; ++u) {
-          const float s = sc[c + u];
-          out[u] = (float)e[u] * (s != 0.f ? s : t);
-        }
-      } else {
-#pragma unroll
-        for (int u = 0; u < VEC; ++u) out[u] = 0.f;
-      }
-    }
-  } else {
-    load_tile<KV, HD>(dst, ld, src, n_rows, valid_rows);
-  }
-}
-
-// Shared-memory floats of the scale rows (none for float / bf16 arenas).
-template <typename KV>
-inline size_t scale_smem_floats(int HD, int bs) {
-  return kInt8Kv<KV> ? 2 * ((size_t)HD + bs) : 0;
-}
 
 // One online-softmax step: R query rows (Qs) against TK keys (Ks, Vs).
 // `valid(r, t)` says whether key t is visible to row r; masked scores are
@@ -287,7 +231,7 @@ __device__ __forceinline__ void ld_f32(const KV* p, float (&o)[n]) {
   }
 }
 
-// ---- tensor-core prefill tile (flash_prefill; paged_prefill may adopt) ---
+// ---- tensor-core tile (flash_prefill, paged_tc_attend) -----------------
 //
 // A CTA of TC_WARPS warps holds TC_BM = 16 · TC_WARPS query rows in shared
 // memory; warp w owns rows 16w .. 16w + 15. A key tile of BN keys (K and V)
@@ -377,14 +321,14 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 // cp.async `n_rows` rows of HD elements (`row_stride` elements apart in
 // global memory) into shared `dst` (row stride `ld` elements); rows >=
-// valid_rows are zero-filled and read nothing. Called by all NT threads.
-template <typename T, int HD>
+// valid_rows are zero-filled and read nothing. Called by all NTH threads.
+template <typename T, int HD, int NTH = NT>
 __device__ __forceinline__ void cp_rows(T* dst, int ld, const T* src,
                                         size_t row_stride, int n_rows,
                                         int valid_rows) {
   constexpr int VEC = 16 / sizeof(T);
   constexpr int CPR = HD / VEC;
-  for (int i = threadIdx.x; i < n_rows * CPR; i += NT) {
+  for (int i = threadIdx.x; i < n_rows * CPR; i += NTH) {
     const int r = i / CPR;
     const int c = (i - r * CPR) * VEC;
     const bool ok = r < valid_rows;
@@ -595,7 +539,7 @@ __device__ __forceinline__ void tc_store_rows(T* out, TcRows<HD>& st, int row0,
   }
 }
 
-// ---- split-KV decode (paged_decode; sink_decode and spec_verify next) ---
+// ---- split-KV decode (paged_decode; sink_decode next) -------------------
 //
 // A decode CTA holds the G query rows of one GQA group (float32, row stride
 // HD + 4) and walks a run of KV "chunks" (at most DEC_TR consecutive rows of
@@ -817,6 +761,7 @@ __device__ __forceinline__ void decode_merge(const float (&acc)[GMAX][HD / 32],
 // out[r][d] = Σ_s e^{m_s − M}·acc_s / max(Σ_s e^{m_s − M}·l_s, 1e-30) over
 // the n splits of one (sequence, kv head), for one row r and column d (one
 // thread each): m/l [n][G], acc [n][G][HD], float32, m in the log2 domain.
+// A split that saw no key (l = 0) adds nothing, and its acc is not read.
 // The split loops are unrolled so their loads are in flight together.
 template <typename T, int HD>
 __device__ __forceinline__ void lse_combine(const float* m, const float* l,
@@ -828,11 +773,361 @@ __device__ __forceinline__ void lse_combine(const float* m, const float* l,
   float den = 0.f, num = 0.f;
 #pragma unroll 8
   for (int s = 0; s < n; ++s) {
-    const float e = exp2f(m[s * G + r] - M);
-    den = fmaf(e, l[s * G + r], den);
-    num = fmaf(e, acc[((size_t)s * G + r) * HD + d], num);
+    const float e = exp2f(m[s * G + r] - M), ls = l[s * G + r];
+    den = fmaf(e, ls, den);
+    if (ls > 0.f) num = fmaf(e, acc[((size_t)s * G + r) * HD + d], num);
   }
   out[(size_t)r * HD + d] = from_f32<T>(num / fmaxf(den, 1e-30f));
+}
+
+// ---- paged-history tensor-core routine (paged_prefill, spec_verify) -----
+//
+// A CTA of W warps holds BM = 16·W query rows of one (sequence b, kv head
+// kh): rows r0 .. r0 + BM − 1 of q [B, K, S·G, h], row r being chunk token
+// r / G (GQA rows of one group share every key tile). It walks, through
+// `tc_tile_step`, key tiles of BN keys from two sources:
+//   1. its split's share of the resident history: table entries
+//      [sp·per, (sp+1)·per) of row b, cut at the residency ceil(off / bs)
+//      (entries past it alias the null block and are never read) and at
+//      key `off`;
+//   2. on the last split only, the chunk's own keys k_new/v_new
+//      [B, K, S, h], keys u < n_keys.
+// A history tile may span several table entries (a bf16 tile of 64 keys
+// spans four blocks of 16); each row is staged from its own physical
+// block. float / bf16 pages go by cp.async straight into the tile,
+// double-buffered: tile i + 1 is in flight while tile i is scored. int8
+// pages cannot: their payload, their token scales and the channel scale
+// rows of the blocks a tile touches go by cp.async into a raw stage
+// (double-buffered), and are dequantized through registers into the tile
+// (`ph_dequant`) — one float32 product per element, q · (sc[c] != 0 ?
+// sc[c] : tk[r]), decided per channel, as the plain version computes it —
+// then written in the tile's type (bf16 tiles round it to bf16). The split
+// plan comes from shapes alone (the host never reads off, chunk_len or
+// n_tok). With one split the CTA writes its rows; otherwise it writes its
+// partial state (m in the log2 domain, l, unnormalised acc; float32) to a
+// workspace that `lse_combine` folds. A split with no resident block and
+// not the chunk writes m = NEG_INF and l = 0 (and no acc, which the merge
+// then never reads): it adds exactly nothing.
+//
+// Shared memory: Qs [BM][tc_ldk] | tile 0 {K [BN][tc_ldk], V [BN][tc_ldv]}
+// | area: tile 1 (float / bf16 pages), or two int8 raw stages (at least one
+// tile's bytes, so the chunk walk takes tile 0 and the area as its two
+// stages).
+
+// Keys per tile: 16 in float32 (12-15 % faster than 32 at the main chunk
+// and verify window, the same at long histories; three CTAs per SM), 64 in
+// bf16.
+template <typename T>
+__host__ __device__ constexpr int ph_bn() { return kIsF32<T> ? 16 : 64; }
+
+template <typename T, int HD, int BN>
+__host__ __device__ constexpr int ph_tile_elems() {
+  return BN * (tc_ldk<T, HD>() + tc_ldv<T, HD>());
+}
+
+// Channel-scale slots of an int8 raw stage: the blocks BN consecutive keys
+// can touch.
+__host__ __device__ inline int ph_slots(int BN, int bs) {
+  const int s = (BN - 1) / bs + 2;
+  return s < BN ? s : BN;
+}
+
+// One int8 raw stage: payload K, V [BN][HD] int8; channel scale rows K, V
+// [slots][HD] and token scales K, V [BN], float32.
+template <int HD, int BN>
+struct PhRaw {
+  static __host__ __device__ size_t bytes(int bs) {
+    return 2 * (size_t)BN * HD +
+           sizeof(float) * (2 * (size_t)ph_slots(BN, bs) * HD + 2 * BN);
+  }
+  int8_t *K, *V;
+  float *ksc, *vsc, *ktk, *vtk;
+  __device__ __forceinline__ PhRaw(unsigned char* base, int bs) {
+    const int slots = ph_slots(BN, bs);
+    K = reinterpret_cast<int8_t*>(base);
+    V = K + BN * HD;
+    ksc = reinterpret_cast<float*>(V + BN * HD);
+    vsc = ksc + slots * HD;
+    ktk = vsc + slots * HD;
+    vtk = ktk + BN;
+  }
+};
+
+template <typename T, typename KV, int HD, int BM, int BN>
+__host__ __device__ inline size_t ph_smem_bytes(int bs) {
+  const size_t q = sizeof(T) * (size_t)BM * tc_ldk<T, HD>();
+  const size_t tile = sizeof(T) * (size_t)ph_tile_elems<T, HD, BN>();
+  if (!kInt8Kv<KV>) return q + 2 * tile;
+  const size_t raw = 2 * PhRaw<HD, BN>::bytes(bs);
+  return q + tile + (raw > tile ? raw : tile);
+}
+
+// Everything a paged-history CTA reads and writes. T: q, out and the
+// chunk's keys (float / bf16); KV: the pages (T, or int8_t with the scale
+// plane ks/vs [N, K, h], kt/vt [N, K, bs]; null otherwise).
+template <typename T, typename KV>
+struct PhArgs {
+  const T *q, *kn, *vn;
+  const KV *kp, *vp;
+  const float *ks, *kt, *vs, *vt;
+  const int* tables;                 // [B, nb]
+  T* out;
+  float* ws;                         // per (b, kh): m, l [n_split][S·G],
+                                     // acc [n_split][S·G][HD]
+  int K, S, G, bs, nb, per;
+  float scale_log2;                  // softmax scale · log2(e)
+};
+
+// Walk n tiles double-buffered: issue(stage, i) starts tile i's cp.async
+// copies, step(stage, i) consumes it. All threads of the CTA call it; n is
+// uniform over the CTA.
+template <typename IssueF, typename StepF>
+__device__ __forceinline__ void ph_walk(int n, IssueF issue, StepF step) {
+  if (n > 0) issue(0, 0);
+  cp_async_commit();
+  for (int i = 0; i < n; ++i) {
+    if (i + 1 < n) issue((i + 1) & 1, i + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    step(i & 1, i);
+    __syncthreads();                     // the stage is refilled next
+  }
+}
+
+// 4 dequantized elements into a tile row.
+template <typename T>
+__device__ __forceinline__ void ph_put4(T* o, const float (&f)[4]) {
+  if constexpr (kIsF32<T>)
+    *reinterpret_cast<float4*>(o) = make_float4(f[0], f[1], f[2], f[3]);
+  else
+    *reinterpret_cast<uint2*>(o) =
+        make_uint2(pack_bf16(f[0], f[1]), pack_bf16(f[2], f[3]));
+}
+
+// Dequantize an int8 raw stage (tile keys k0 .., nv present) into the tile
+// K [BN][tc_ldk], V [BN][tc_ldv]: element (r, c) = q · (sc[c] != 0 ?
+// sc[c] : tk[r]), one float32 product; absent rows are zeros. Thread x
+// owns channels 4·(x mod HD/4) .. + 3 of every (NTH·4/HD)-th row, so a warp
+// reads and writes contiguous row segments (no bank conflicts; 16-byte
+// chunks per thread conflicted 4–8 ways and cost the long chunk 10 %).
+template <typename T, int HD, int BN, int NTH>
+__device__ __forceinline__ void ph_dequant(T* Ks, const PhRaw<HD, BN>& w,
+                                           int k0, int nv, int bs) {
+  constexpr int LDK = tc_ldk<T, HD>(), LDV = tc_ldv<T, HD>();
+  constexpr int CG = HD / 4;             // 4-channel groups per row
+  constexpr int RS = NTH / CG;           // rows per pass
+  static_assert(NTH % CG == 0 && BN % RS == 0, "whole rows per pass");
+  T* Vs = Ks + BN * LDK;
+  const int c = 4 * (threadIdx.x % CG), b0 = k0 / bs;
+#pragma unroll
+  for (int j = 0; j < BN / RS; ++j) {
+    const int r = threadIdx.x / CG + j * RS;
+    float kf[4] = {0.f, 0.f, 0.f, 0.f}, vf[4] = {0.f, 0.f, 0.f, 0.f};
+    if (r < nv) {
+      const int sl = (k0 + r) / bs - b0;
+      const float4 ks = *reinterpret_cast<const float4*>(w.ksc + sl * HD + c);
+      const float4 vs = *reinterpret_cast<const float4*>(w.vsc + sl * HD + c);
+      const float kt = w.ktk[r], vt = w.vtk[r];
+      const char4 kq = *reinterpret_cast<const char4*>(w.K + r * HD + c);
+      const char4 vq = *reinterpret_cast<const char4*>(w.V + r * HD + c);
+      kf[0] = (float)kq.x * (ks.x != 0.f ? ks.x : kt);
+      kf[1] = (float)kq.y * (ks.y != 0.f ? ks.y : kt);
+      kf[2] = (float)kq.z * (ks.z != 0.f ? ks.z : kt);
+      kf[3] = (float)kq.w * (ks.w != 0.f ? ks.w : kt);
+      vf[0] = (float)vq.x * (vs.x != 0.f ? vs.x : vt);
+      vf[1] = (float)vq.y * (vs.y != 0.f ? vs.y : vt);
+      vf[2] = (float)vq.z * (vs.z != 0.f ? vs.z : vt);
+      vf[3] = (float)vq.w * (vs.w != 0.f ? vs.w : vt);
+    }
+    ph_put4<T>(Ks + r * LDK + c, kf);
+    ph_put4<T>(Vs + r * LDV + c, vf);
+  }
+}
+
+// This warp's partial state of its rows r < R (CTA rows; row r0 + r of the
+// sequence's S·G) for split sp of nsp, into the workspace wb of its
+// (b, kh); acc only if the split walked a key (l > 0). All lanes of the
+// warp call it.
+template <int HD>
+__device__ __forceinline__ void tc_store_partial(float* wb, TcRows<HD>& st,
+                                                 int row0, int R, int r0,
+                                                 int SG, int sp, int nsp,
+                                                 bool walked) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const size_t n = (size_t)nsp * SG;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float l = st.l[i];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const int r = row0 + g + 8 * i;
+    if (r >= R) continue;
+    const size_t row = (size_t)sp * SG + r0 + r;
+    if (t == 0) {
+      wb[row] = st.m[i];
+      wb[n + row] = l;
+    }
+    if (!walked) continue;
+    float* acc = wb + 2 * n + row * HD + 2 * t;
+#pragma unroll
+    for (int dt = 0; dt < HD / 8; ++dt)
+      *reinterpret_cast<float2*>(acc + dt * 8) =
+          make_float2(st.o[dt][2 * i], st.o[dt][2 * i + 1]);
+  }
+}
+
+// The routine: rows r0.. of (b, kh), split sp of nsp, history of `off`
+// tokens, the chunk's first n_keys keys (last split). hist_ok(r, key):
+// history key `key` (absolute position, < off) is visible to CTA row r;
+// chunk_ok(r, u): chunk key u is. hist_visible: every resident history key
+// is visible to every row (no window), so whole tiles skip the mask.
+template <typename T, typename KV, int HD, int W, int BN, typename HistF,
+          typename ChunkF>
+__device__ __forceinline__ void paged_tc_attend(const PhArgs<T, KV>& a,
+                                                int b, int kh, int r0,
+                                                int sp, int nsp, int off,
+                                                int n_keys, bool hist_visible,
+                                                HistF hist_ok,
+                                                ChunkF chunk_ok) {
+  constexpr int BM = 16 * W, NTH = 32 * W;
+  constexpr int LDK = tc_ldk<T, HD>(), LDV = tc_ldv<T, HD>();
+  extern __shared__ __align__(16) unsigned char ph_smem[];
+  T* Qs = reinterpret_cast<T*>(ph_smem);
+  T* tile0 = Qs + BM * LDK;
+  unsigned char* area =
+      reinterpret_cast<unsigned char*>(tile0 + ph_tile_elems<T, HD, BN>());
+  auto tile = [&](int s) { return s ? reinterpret_cast<T*>(area) : tile0; };
+  const int SG = a.S * a.G;
+  const int R = min(BM, SG - r0);
+  const int bk = b * a.K + kh;
+  const size_t qoff = ((size_t)bk * SG + r0) * HD;
+  const int row0 = (threadIdx.x >> 5) * 16;
+
+  cp_rows<T, HD, NTH>(Qs, LDK, a.q + qoff, HD, BM, R);
+  cp_async_commit();
+  TcRows<HD> st;
+  st.init();
+
+  // 1. this split's resident history: keys [k_lo, k_hi)
+  const int bs = a.bs;
+  const int nres = min((off + bs - 1) / bs, a.nb);
+  const int j0 = sp * a.per;
+  const int j1 = min(j0 + a.per, nres);
+  const int k_lo = j0 * bs;
+  const int k_hi = min(j1 * bs, off);
+  const int n_hist = k_hi > k_lo ? (k_hi - k_lo + BN - 1) / BN : 0;
+  const int* tbl = a.tables + (size_t)b * a.nb;
+  auto block_of = [&](int key) {         // (phys · K + kh), key < k_hi
+    return (size_t)tbl[key / bs] * a.K + kh;
+  };
+  auto hist_step = [&](const T* Ks, int k0) {
+    tc_tile_step<T, HD, BN>(Qs, Ks, Ks + BN * LDK, st, row0, a.scale_log2,
+                            !hist_visible || k0 + BN > k_hi,
+                            [=](int r, int t) {
+                              const int key = k0 + t;
+                              return key < k_hi && hist_ok(r, key);
+                            });
+  };
+  if constexpr (!kInt8Kv<KV>) {
+    constexpr int VEC = 16 / sizeof(T), CPR = HD / VEC;
+    ph_walk(
+        n_hist,
+        [&](int s, int i) {
+          const int k0 = k_lo + i * BN, nv = min(BN, k_hi - k0);
+          T* Ks = tile(s);
+          for (int x = threadIdx.x; x < BN * CPR; x += NTH) {
+            const int r = x / CPR, c = (x - r * CPR) * VEC;
+            const bool ok = r < nv;
+            const size_t src =
+                ok ? (block_of(k0 + r) * bs + (k0 + r) % bs) * HD + c : 0;
+            cp_async16(Ks + r * LDK + c, a.kp + src, ok);
+            cp_async16(Ks + BN * LDK + r * LDV + c, a.vp + src, ok);
+          }
+        },
+        [&](int s, int i) { hist_step(tile(s), k_lo + i * BN); });
+  } else {
+    constexpr int C8 = HD / 16;          // 16-byte chunks of an int8 row
+    const size_t raw_bytes = PhRaw<HD, BN>::bytes(bs);
+    ph_walk(
+        n_hist,
+        [&](int s, int i) {
+          const int k0 = k_lo + i * BN, nv = min(BN, k_hi - k0);
+          const PhRaw<HD, BN> w(area + s * raw_bytes, bs);
+          for (int x = threadIdx.x; x < BN * C8; x += NTH) {
+            const int r = x / C8, c = (x - r * C8) * 16;
+            const bool ok = r < nv;
+            const size_t src =
+                ok ? (block_of(k0 + r) * bs + (k0 + r) % bs) * HD + c : 0;
+            cp_async16(w.K + r * HD + c, a.kp + src, ok);
+            cp_async16(w.V + r * HD + c, a.vp + src, ok);
+          }
+          const int b0 = k0 / bs, n_sl = (k0 + nv - 1) / bs - b0 + 1;
+          for (int x = threadIdx.x; x < n_sl * (HD / 4); x += NTH) {
+            const int sl = x / (HD / 4), c = (x - sl * (HD / 4)) * 4;
+            const size_t src = block_of((b0 + sl) * bs) * HD + c;
+            cp_async16(w.ksc + sl * HD + c, a.ks + src);
+            cp_async16(w.vsc + sl * HD + c, a.vs + src);
+          }
+          for (int r = threadIdx.x; r < nv; r += NTH) {
+            const size_t src = block_of(k0 + r) * bs + (k0 + r) % bs;
+            cp_async4(w.ktk + r, a.kt + src);
+            cp_async4(w.vtk + r, a.vt + src);
+          }
+        },
+        [&](int s, int i) {
+          const int k0 = k_lo + i * BN;
+          ph_dequant<T, HD, BN, NTH>(tile0,
+                                     PhRaw<HD, BN>(area + s * raw_bytes, bs),
+                                     k0, min(BN, k_hi - k0), bs);
+          __syncthreads();
+          hist_step(tile0, k0);
+        });
+  }
+
+  // 2. the chunk's own keys, on the last split
+  n_keys = sp == nsp - 1 ? min(n_keys, a.S) : 0;
+  if (n_keys > 0) {
+    const size_t kvoff = (size_t)bk * a.S * HD;
+    ph_walk(
+        (n_keys + BN - 1) / BN,
+        [&](int s, int i) {
+          const int u0 = i * BN, nv = min(BN, n_keys - u0);
+          T* Ks = tile(s);
+          cp_rows<T, HD, NTH>(Ks, LDK, a.kn + kvoff + (size_t)u0 * HD, HD, BN,
+                              nv);
+          cp_rows<T, HD, NTH>(Ks + BN * LDK, LDV,
+                              a.vn + kvoff + (size_t)u0 * HD, HD, BN, nv);
+        },
+        [&](int s, int i) {
+          const int u0 = i * BN;
+          const T* Ks = tile(s);
+          tc_tile_step<T, HD, BN>(Qs, Ks, Ks + BN * LDK, st, row0,
+                                  a.scale_log2, true, [=](int r, int t) {
+                                    const int u = u0 + t;
+                                    return u < n_keys && chunk_ok(r, u);
+                                  });
+        });
+  }
+  cp_async_wait<0>();                    // q's copy when no tile was walked
+
+  if (nsp == 1)
+    tc_store_rows<T, HD>(a.out + qoff, st, row0, R);
+  else
+    tc_store_partial<HD>(a.ws + (size_t)bk * nsp * SG * (HD + 2), st, row0,
+                         R, r0, SG, sp, nsp, n_hist > 0 || n_keys > 0);
+}
+
+// Fold the n_split partial states of one (b, kh) — grid (B·K, S·G), one
+// thread per column d (blockDim HD) — into out [B, K, S·G, h].
+template <typename T, int HD>
+__device__ __forceinline__ void ph_combine(const float* ws, T* out, int SG,
+                                           int nsp) {
+  const size_t n = (size_t)nsp * SG;
+  const float* wb = ws + blockIdx.x * n * (HD + 2);
+  lse_combine<T, HD>(wb, wb + n, wb + 2 * n,
+                     out + (size_t)blockIdx.x * SG * HD, SG, nsp, blockIdx.y,
+                     threadIdx.x);
 }
 
 }  // namespace paged

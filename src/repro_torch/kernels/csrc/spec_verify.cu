@@ -12,148 +12,106 @@
 //      keys past n_tok_b masked.
 // Query rows are GQA-grouped per kv head: row r of q [B, K, S·G, h] is
 // window token r / G. Nothing is written: the engine commits the accepted
-// prefix afterwards.
+// prefix afterwards. It is chunked prefill's function with per-slot
+// offsets and no sparse window (as ref.spec_verify_ref is
+// ref.paged_prefill_ref).
 //
-// What bounds it on the card: bytes at the main-path shape. Each history
-// K or V element (4 bytes in float32) feeds 2·S·G = 60 flops (S = 5,
-// G = 6): 15 flop/byte, below the ~20 flop/byte where float32 compute would
-// take over; and the window is a handful of rows, far from a tensor-core
-// tile. Unlike chunked prefill
-// (one task, 16-row tiles over many CTAs), every slot here has its own
-// off_b and n_tok_b, read on the device. The design:
-//   * one CTA per (slot, kv head) holds all S·G window rows in shared memory
-//     (30 rows at k = 4, G = 6; the accumulators are a 32-row array), so
-//     each history K/V tile is read once for all of them; windows longer
-//     than 32·128/h rows take further CTAs along grid z;
-//   * the CTA reads off_b, n_tok_b and its table row itself and walks only
-//     the history blocks j < ceil(off_b / bs), never the table entries past
-//     the residency (they alias the null block);
-//   * then the window's keys in tiles of bs, stopping at the last key its
-//     rows can see (min(n_tok_b, last row token + 1));
-//   * 16-byte coalesced tile loads into float32 shared memory and the TPU
-//     kernel's online softmax (NEG_INF = -1e30, l >= 1e-30) from
-//     attn_tile.cuh, so padded window rows stay finite.
+// What bounds it on the card: bytes. Each history K or V element (4 bytes
+// in float32) feeds 2·S·G = 60 flops (S = 5, G = 6), 15 flop/byte — below
+// the card's balance — and at a 4,000-token history one verify reads 49 MB
+// of K/V, which one CTA per (slot, kv head) — 12 CTAs on 132 SMs — cannot
+// pull at the memory's rate. The design runs on the paged-history routine
+// (attn_tile.cuh, `paged_tc_attend`):
+//   * one 32-row tile of two 16-row warps holds all S·G = 30 window rows of
+//     a (slot, kv head), so every history tile is read once for all of
+//     them; longer windows take further row tiles;
+//   * the history split over CTAs from shapes alone (`prefill_splits`:
+//     about 2 CTAs per SM, 22 splits per (slot, kv head) at a 256-entry
+//     table), each CTA reading its slot's off_b and n_tok_b and walking
+//     only its resident table entries, never those past the residency
+//     (they alias the null block); key tiles staged by cp.async through
+//     the table, double-buffered, so the next tile is in flight while one
+//     is scored; int8 pages dequantized through registers;
+//   * products on the tensor cores (`tc_tile_step`; float32 through
+//     3xTF32); the window's own keys on the last split; a second small
+//     kernel merges the splits by log-sum-exp;
+//   * the TPU kernel's online softmax (NEG_INF = -1e30, l >= 1e-30), so
+//     padded window rows (>= n_tok, or 30 and 31 of the tile) stay finite;
+//     they are never stored out of bounds.
 //
 // QuantPlane (int8 arenas, spec_verify.py:55-100): the history pages are
 // int8 with their float32 scale plane; the window's keys stay in q's type.
-// Each resident history block's K and V scale rows go into shared memory
-// before its tile, which is dequantized as it is written to shared memory
-// (one float32 product per element, decided per channel).
-// Not done yet (later work): split-KV over more CTAs for long histories
-// (B·K = 12 CTAs on the main path), cp.async/TMA double buffering.
+// Not done yet (later work): TMA bulk copies with an mbarrier ring, a merge
+// by the last CTA of a split (one launch, not two).
 #include "attn_tile.cuh"
 
 using namespace paged;
 
-constexpr int NRV = 32;   // accumulator rows per thread (window rows / CTA
-                          // = NRV · NT / h)
+constexpr int SV_WARPS = 2;              // 32-row tiles
 
-// T: q, out and the window's keys (float / bf16); KV: the arena payload (T,
-// or int8_t with the scale plane ks/kt/vs/vt, null otherwise).
+// grid (n_split, row tiles, B·K)
 template <typename T, typename KV, int HD>
-__global__ void __launch_bounds__(NT)
-spec_verify_kernel(const T* __restrict__ q, const T* __restrict__ kn,
-                   const T* __restrict__ vn, const KV* __restrict__ kp,
-                   const KV* __restrict__ vp, const float* __restrict__ ks,
-                   const float* __restrict__ kt, const float* __restrict__ vs,
-                   const float* __restrict__ vt,
-                   const int* __restrict__ tables,
-                   const int* __restrict__ off_a,
-                   const int* __restrict__ ntok_a, T* __restrict__ out, int K,
-                   int S, int G, int bs, int nb, float scale) {
-  extern __shared__ float smem[];
-  constexpr int LD = HD + 1;
-  constexpr int TQ = NRV * (NT / HD);
-  const int b = blockIdx.x, kh = blockIdx.y;
-  const int SG = S * G;
-  const int r0 = blockIdx.z * TQ;
-  const int R = min(TQ, SG - r0);
-  float* Qs = smem;
-  float* Ks = Qs + TQ * LD;
-  float* Vs = Ks + bs * LD;
-  float* P = Vs + bs * HD;
-  float* M = P + TQ * bs;
-  float* L = M + TQ;
-  float* C = L + TQ;
-  float* Ksc = C + TQ;       // scale rows (int8 arenas only)
-  float* Ktk = Ksc + HD;
-  float* Vsc = Ktk + bs;
-  float* Vtk = Vsc + HD;
-
-  const size_t qoff = (((size_t)b * K + kh) * SG + r0) * HD;
-  load_tile<T, HD>(Qs, LD, q + qoff, TQ, R);
-  for (int r = threadIdx.x; r < TQ; r += NT) {
-    M[r] = NEG_INF;
-    L[r] = 0.f;
-  }
-  float acc[NRV];
-#pragma unroll
-  for (int k = 0; k < NRV; ++k) acc[k] = 0.f;
-  const int off = off_a[b];
+__global__ void __launch_bounds__(32 * SV_WARPS)
+spec_verify_kernel(PhArgs<T, KV> a, const int* __restrict__ off_a,
+                   const int* __restrict__ ntok_a) {
+  constexpr int BM = 16 * SV_WARPS;
+  const int b = blockIdx.z / a.K, kh = blockIdx.z - b * a.K;
+  const int r0 = blockIdx.y * BM;
+  const int G = a.G;
+  const int R = min(BM, a.S * G - r0);
   const int ntok = ntok_a[b];
-  __syncthreads();
+  paged_tc_attend<T, KV, HD, SV_WARPS, ph_bn<T>()>(
+      a, b, kh, r0, blockIdx.x, gridDim.x, off_a[b],
+      min(ntok, (r0 + R - 1) / G + 1), true, [](int, int) { return true; },
+      [=](int r, int u) { return u < ntok && u <= (r0 + r) / G; });
+}
 
-  // 1. resident history: logical slot = absolute token position < off
-  const int nh = min((off + bs - 1) / bs, nb);
-  for (int j = 0; j < nh; ++j) {
-    const int phys = tables[(size_t)b * nb + j];
-    const size_t base = ((size_t)phys * K + kh) * bs * HD;
-    if constexpr (kInt8Kv<KV>) {
-      load_scale_rows<HD>(Ksc, Ktk, Vsc, Vtk, ks, kt, vs, vt, phys, K, kh,
-                          bs);
-      __syncthreads();
-    }
-    load_kv_tile<KV, HD>(Ks, LD, kp + base, bs, bs, Ksc, Ktk);
-    load_kv_tile<KV, HD>(Vs, HD, vp + base, bs, bs, Vsc, Vtk);
-    __syncthreads();
-    const int tok0 = j * bs;
-    tile_step<HD>(Qs, Ks, Vs, P, M, L, C, acc, R, bs, scale,
-                  [=](int, int t) { return tok0 + t < off; });
-  }
-
-  // 2. the window's own keys, causal: row token i sees keys u <= i, u < ntok
-  const size_t kvoff = ((size_t)b * K + kh) * S * HD;
-  const int last_tok = (r0 + R - 1) / G;
-  const int n_keys = min(ntok, last_tok + 1);
-  for (int u0 = 0; u0 < n_keys; u0 += bs) {
-    const int rows = min(bs, S - u0);
-    load_tile<T, HD>(Ks, LD, kn + kvoff + (size_t)u0 * HD, bs, rows);
-    load_tile<T, HD>(Vs, HD, vn + kvoff + (size_t)u0 * HD, bs, rows);
-    __syncthreads();
-    tile_step<HD>(Qs, Ks, Vs, P, M, L, C, acc, R, bs, scale,
-                  [=](int r, int t) {
-                    const int u = u0 + t;
-                    return u < ntok && u <= (r0 + r) / G;
-                  });
-  }
-  store_rows<T, HD>(out + qoff, acc, L, R);
+template <typename T, int HD>
+__global__ void __launch_bounds__(HD)
+spec_verify_combine(const float* __restrict__ ws, T* __restrict__ out,
+                    int SG, int nsp) {
+  ph_combine<T, HD>(ws, out, SG, nsp);
 }
 
 template <typename T, typename KV, int HD>
-static int launch(const void* q, const void* kn, const void* vn,
-                  const void* kp, const void* vp, const float* ks,
-                  const float* kt, const float* vs, const float* vt,
-                  const void* tables, const void* off, const void* ntok,
-                  void* out, int B, int K, int S, int G, int bs, int nb,
-                  float scale, cudaStream_t stream) {
-  constexpr int TQ = NRV * (NT / HD);
-  const size_t smem = tile_smem_bytes(TQ, bs, HD) +
-                      sizeof(float) * scale_smem_floats<KV>(HD, bs);
+static int launch(const PhArgs<T, KV>& a, const int* off, const int* ntok,
+                  int B, int n_split, cudaStream_t stream) {
+  constexpr int BM = 16 * SV_WARPS;
+  const size_t smem = ph_smem_bytes<T, KV, HD, BM, ph_bn<T>()>(a.bs);
   auto kern = spec_verify_kernel<T, KV, HD>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  dim3 grid(B, K, (S * G + TQ - 1) / TQ);
-  kern<<<grid, NT, smem, stream>>>(
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kern,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return (int)e;
+  const int SG = a.S * a.G;
+  dim3 grid(n_split, (SG + BM - 1) / BM, B * a.K);
+  kern<<<grid, 32 * SV_WARPS, smem, stream>>>(a, off, ntok);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || n_split == 1) return (int)e;
+  spec_verify_combine<T, HD><<<dim3(B * a.K, SG), HD, 0, stream>>>(
+      a.ws, a.out, SG, n_split);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, typename KV, int HD>
+static int run(const void* q, const void* kn, const void* vn, const void* kp,
+               const void* vp, const float* ks, const float* kt,
+               const float* vs, const float* vt, const void* tables,
+               const void* off, const void* ntok, void* out, void* ws, int B,
+               int K, int S, int G, int bs, int nb, int n_split, int per,
+               float scale, cudaStream_t stream) {
+  const PhArgs<T, KV> a{
       static_cast<const T*>(q), static_cast<const T*>(kn),
       static_cast<const T*>(vn), static_cast<const KV*>(kp),
       static_cast<const KV*>(vp), ks, kt, vs, vt,
-      static_cast<const int*>(tables), static_cast<const int*>(off),
-      static_cast<const int*>(ntok), static_cast<T*>(out), K, S, G, bs, nb,
-      scale);
-  return (int)cudaGetLastError();
+      static_cast<const int*>(tables), static_cast<T*>(out),
+      static_cast<float*>(ws), K, S, G, bs, nb, per,
+      scale * 1.4426950408889634f};
+  return launch<T, KV, HD>(a, static_cast<const int*>(off),
+                           static_cast<const int*>(ntok), B, n_split, stream);
 }
 
 // KV = T when `int8` is false, else int8_t with the scale plane.
@@ -161,18 +119,25 @@ static int dispatch(int dtype, bool int8, const void* q, const void* kn,
                     const void* vn, const void* kp, const void* vp,
                     const float* ks, const float* kt, const float* vs,
                     const float* vt, const void* tables, const void* off,
-                    const void* ntok, void* out, int B, int K, int S, int G,
-                    int h, int bs, int nb, float scale, void* stream) {
-  if (B < 1 || K < 1 || S < 1 || G < 1 || bs < 1 || nb < 1) return -1;
+                    const void* ntok, void* out, void* ws, int B, int K,
+                    int S, int G, int h, int bs, int nb, int n_split, int per,
+                    float scale, void* stream) {
+  const long long SG = (long long)S * G;
+  if (B < 1 || K < 1 || S < 1 || G < 1 || bs < 1 || nb < 1 ||
+      (long long)B * K > 65535 ||
+      (SG + 16 * SV_WARPS - 1) / (16 * SV_WARPS) > 65535 || n_split < 1 ||
+      per < 1 || (long long)n_split * per < nb ||
+      (n_split > 1 && (ws == nullptr || SG > 65535)))
+    return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define SV_CASE(T, HD)                                                      \
   if (h == HD)                                                              \
-    return int8 ? launch<T, int8_t, HD>(q, kn, vn, kp, vp, ks, kt, vs, vt,  \
-                                        tables, off, ntok, out, B, K, S, G, \
-                                        bs, nb, scale, s)                   \
-                : launch<T, T, HD>(q, kn, vn, kp, vp, ks, kt, vs, vt,       \
-                                   tables, off, ntok, out, B, K, S, G, bs,  \
-                                   nb, scale, s);
+    return int8 ? run<T, int8_t, HD>(q, kn, vn, kp, vp, ks, kt, vs, vt,     \
+                                     tables, off, ntok, out, ws, B, K, S,   \
+                                     G, bs, nb, n_split, per, scale, s)     \
+                : run<T, T, HD>(q, kn, vn, kp, vp, ks, kt, vs, vt, tables,  \
+                                off, ntok, out, ws, B, K, S, G, bs, nb,     \
+                                n_split, per, scale, s);
   if (dtype == 0) {
     SV_CASE(float, 32) SV_CASE(float, 64) SV_CASE(float, 128)
   } else if (dtype == 1) {
@@ -184,18 +149,21 @@ static int dispatch(int dtype, bool int8, const void* q, const void* kn,
 }
 
 // dtype (of q, out, the window's keys and the pages): 0 = float32,
-// 1 = bfloat16. Returns 0 on success, a cudaError_t value after a failed
-// launch, or -1 for a shape the kernel does not take.
+// 1 = bfloat16. The grid is (n_split, ceil(S·G / 32), B·K); split s takes
+// table entries [s·per, (s+1)·per) (kernels/paged_decode.py::
+// prefill_splits). ws: float32 workspace of B·K·n_split·S·G·(h + 2) floats
+// (may be null when n_split = 1). Returns 0 on success, a cudaError_t value
+// after a failed launch, or -1 for a shape the kernel does not take.
 extern "C" int spec_verify_launch(int dtype, const void* q, const void* kn,
                                   const void* vn, const void* kp,
                                   const void* vp, const void* tables,
                                   const void* off, const void* ntok,
-                                  void* out, int B, int K, int S, int G,
-                                  int h, int bs, int nb, float scale,
-                                  void* stream) {
+                                  void* out, void* ws, int B, int K, int S,
+                                  int G, int h, int bs, int nb, int n_split,
+                                  int per, float scale, void* stream) {
   return dispatch(dtype, false, q, kn, vn, kp, vp, nullptr, nullptr, nullptr,
-                  nullptr, tables, off, ntok, out, B, K, S, G, h, bs, nb,
-                  scale, stream);
+                  nullptr, tables, off, ntok, out, ws, B, K, S, G, h, bs, nb,
+                  n_split, per, scale, stream);
 }
 
 // The same over int8 history pages with their scale plane: ks/vs [N, K, h]
@@ -204,11 +172,11 @@ extern "C" int spec_verify_int8_launch(
     int dtype, const void* q, const void* kn, const void* vn, const void* kp,
     const void* vp, const void* ks, const void* kt, const void* vs,
     const void* vt, const void* tables, const void* off, const void* ntok,
-    void* out, int B, int K, int S, int G, int h, int bs, int nb, float scale,
-    void* stream) {
+    void* out, void* ws, int B, int K, int S, int G, int h, int bs, int nb,
+    int n_split, int per, float scale, void* stream) {
   return dispatch(dtype, true, q, kn, vn, kp, vp,
                   static_cast<const float*>(ks), static_cast<const float*>(kt),
                   static_cast<const float*>(vs), static_cast<const float*>(vt),
-                  tables, off, ntok, out, B, K, S, G, h, bs, nb, scale,
-                  stream);
+                  tables, off, ntok, out, ws, B, K, S, G, h, bs, nb, n_split,
+                  per, scale, stream);
 }

@@ -6,6 +6,8 @@ on a CUDA device, and runs `paged_decode_plain` — the same function in plain
 PyTorch — for tensors on the CPU. The kernel splits each sequence's table
 across CTAs (split-KV) and merges the splits by log-sum-exp; the split plan
 (`decode_splits`) depends on shapes only, never on `lens`.
+`prefill_splits` is the same kind of plan for the paged-history kernels
+of paged_prefill and spec_verify.
 `paged_decode.launches` (and `.int8_launches` for int8 arenas) advance once
 per `paged_decode` call on a CUDA device, however many CUDA launches the
 split and its merge take; nothing else adds to them.
@@ -34,6 +36,21 @@ def decode_splits(B: int, K: int, nb: int, n_sm: int) -> tuple[int, int]:
     one split. Splits past a sequence's resident blocks add nothing."""
     want = -(-2 * n_sm // (B * K))
     n = max(1, min(want, nb // DECODE_WARPS, 65535))
+    per = -(-nb // n)
+    return -(-nb // per), per
+
+
+def prefill_splits(B: int, K: int, n_row_tiles: int, nb: int,
+                   n_sm: int) -> tuple[int, int]:
+    """The split plan of the paged-history kernels (paged_prefill,
+    spec_verify) from shapes alone → (n_split, per): grid (n_split,
+    n_row_tiles, B·K), split s taking table entries [s·per, min((s+1)·per,
+    nb)); the last split also takes the chunk's (or window's) own keys.
+    About two CTAs per SM (B·K·n_row_tiles·n_split ≈ 2·n_sm); n_split =
+    ceil(nb / per), so every split has an entry and every entry one split.
+    Splits past a sequence's resident blocks add nothing."""
+    want = -(-2 * n_sm // (B * K * n_row_tiles))
+    n = max(1, min(want, nb, 65535))
     per = -(-nb // n)
     return -(-nb // per), per
 

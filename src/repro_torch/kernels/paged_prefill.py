@@ -4,10 +4,13 @@
 `csrc/paged_prefill.cu` (the port of the TPU kernel
 src/repro/kernels/paged_prefill.py) for tensors on a CUDA device, and runs
 `paged_prefill_plain` — the same function in plain PyTorch — for tensors on
-the CPU. `paged_prefill.launches` counts kernel launches (nothing else adds
-to it), `paged_prefill.int8_launches` those over int8 history (QuantPlane:
-int8 pages with the scale plane, dequantized in the tile; the chunk's own
-keys are never quantized).
+the CPU. The kernel splits the history across CTAs (`prefill_splits`, from
+shapes alone: the host never reads `off` or `chunk_len`) and merges the
+splits by log-sum-exp. `paged_prefill.launches` counts calls that launch
+the kernel (once per call, however many CUDA launches the split and its
+merge take; nothing else adds to it), `paged_prefill.int8_launches` those
+over int8 history (QuantPlane: int8 pages with the scale plane, dequantized
+in the tile; the chunk's own keys are never quantized).
 """
 from __future__ import annotations
 
@@ -17,8 +20,10 @@ from repro_torch.kernels import build
 from repro_torch.kernels._common import (DTYPE_CODES, HEAD_DIMS, gather_kv,
                                          kernel_arg, per_row,
                                          scale_plane_args)
+from repro_torch.kernels.paged_decode import _sm_count, prefill_splits
 
 NEG_INF = -1e30
+PREFILL_ROWS = 64         # query rows per CTA of the kernel (csrc PP_WARPS)
 
 
 def paged_prefill_plain(q, k_new, v_new, k_pages, v_pages, tables, off,
@@ -104,6 +109,11 @@ def paged_prefill(q, k_new, v_new, k_pages, v_pages, tables, off, chunk_len,
     cls = kernel_arg(per_row(chunk_len, B, dev), dev, torch.int32)
     nb = tbl.shape[1]
     out = torch.empty_like(q)
+    n_split, per = prefill_splits(B, K, -(-SG // PREFILL_ROWS), nb,
+                                  _sm_count(dev.index))
+    ws = None if n_split == 1 else torch.empty(
+        B * K * n_split * SG * (h + 2), dtype=torch.float32, device=dev)
+    ws_ptr = None if ws is None else ws.data_ptr()
     lib = build.load("paged_prefill")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -113,14 +123,16 @@ def paged_prefill(q, k_new, v_new, k_pages, v_pages, tables, off, chunk_len,
                 DTYPE_CODES[q.dtype], q.data_ptr(), kn.data_ptr(),
                 vn.data_ptr(), kp.data_ptr(), vp.data_ptr(),
                 *(t.data_ptr() for t in sp), tbl.data_ptr(),
-                offs.data_ptr(), cls.data_ptr(), out.data_ptr(), B, K, S, G,
-                h, bs, nb, h ** -0.5, int(window), int(sink), stream)
+                offs.data_ptr(), cls.data_ptr(), out.data_ptr(), ws_ptr, B,
+                K, S, G, h, bs, nb, n_split, per, h ** -0.5, int(window),
+                int(sink), stream)
         else:
             rc = lib.paged_prefill_launch(
                 DTYPE_CODES[q.dtype], q.data_ptr(), kn.data_ptr(),
                 vn.data_ptr(), kp.data_ptr(), vp.data_ptr(), tbl.data_ptr(),
-                offs.data_ptr(), cls.data_ptr(), out.data_ptr(), B, K, S, G,
-                h, bs, nb, h ** -0.5, int(window), int(sink), stream)
+                offs.data_ptr(), cls.data_ptr(), out.data_ptr(), ws_ptr, B,
+                K, S, G, h, bs, nb, n_split, per, h ** -0.5, int(window),
+                int(sink), stream)
     build.check_launch("paged_prefill", rc)
     paged_prefill.launches += 1
     paged_prefill.int8_launches += int(quant)

@@ -20,7 +20,10 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels._common import (DTYPE_CODES, HEAD_DIMS, kernel_arg,
                                          per_row, scale_plane_args)
+from repro_torch.kernels.paged_decode import _sm_count, prefill_splits
 from repro_torch.kernels.paged_prefill import paged_prefill_plain
+
+VERIFY_ROWS = 32          # query rows per CTA of the kernel (csrc SV_WARPS)
 
 
 def spec_verify_plain(q, k_new, v_new, k_pages, v_pages, tables, off, n_tok,
@@ -75,6 +78,11 @@ def spec_verify(q, k_new, v_new, k_pages, v_pages, tables, off, n_tok, *,
     nts = kernel_arg(per_row(n_tok, B, dev), dev, torch.int32)
     nb = tbl.shape[1]
     out = torch.empty_like(q)
+    n_split, per = prefill_splits(B, K, -(-SG // VERIFY_ROWS), nb,
+                                  _sm_count(dev.index))
+    ws = None if n_split == 1 else torch.empty(
+        B * K * n_split * SG * (h + 2), dtype=torch.float32, device=dev)
+    ws_ptr = None if ws is None else ws.data_ptr()
     lib = build.load("spec_verify")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -84,14 +92,14 @@ def spec_verify(q, k_new, v_new, k_pages, v_pages, tables, off, n_tok, *,
                 DTYPE_CODES[q.dtype], q.data_ptr(), kn.data_ptr(),
                 vn.data_ptr(), kp.data_ptr(), vp.data_ptr(),
                 *(t.data_ptr() for t in sp), tbl.data_ptr(),
-                offs.data_ptr(), nts.data_ptr(), out.data_ptr(), B, K, S, G,
-                h, bs, nb, h ** -0.5, stream)
+                offs.data_ptr(), nts.data_ptr(), out.data_ptr(), ws_ptr, B,
+                K, S, G, h, bs, nb, n_split, per, h ** -0.5, stream)
         else:
             rc = lib.spec_verify_launch(
                 DTYPE_CODES[q.dtype], q.data_ptr(), kn.data_ptr(),
                 vn.data_ptr(), kp.data_ptr(), vp.data_ptr(), tbl.data_ptr(),
-                offs.data_ptr(), nts.data_ptr(), out.data_ptr(), B, K, S, G,
-                h, bs, nb, h ** -0.5, stream)
+                offs.data_ptr(), nts.data_ptr(), out.data_ptr(), ws_ptr, B,
+                K, S, G, h, bs, nb, n_split, per, h ** -0.5, stream)
     build.check_launch("spec_verify", rc)
     spec_verify.launches += 1
     spec_verify.int8_launches += int(quant)

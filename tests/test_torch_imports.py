@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: importing it (and each of its modules)
 loads neither jax nor the JAX package `repro`, and no file of the port,
-chip_smoke.py or chip_profile.py imports either. The import check runs in
+nor chip_smoke.py, chip_profile.py or chip_variants.py, imports either. The import check runs in
 a subprocess because the test process has imported jax already
 (tests/conftest.py)."""
 import ast
@@ -28,7 +28,8 @@ def _modules():
 
 def _sources():
     return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                        ROOT / "chip_profile.py"]
+                                        ROOT / "chip_profile.py",
+                                        ROOT / "chip_variants.py"]
 
 
 def test_importing_the_port_loads_no_jax():

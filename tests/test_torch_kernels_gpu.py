@@ -6,7 +6,8 @@ on a GPU machine without them:
 
     PYTHONPATH=src python -m pytest --noconftest -o markers=gpu -q tests/test_torch_kernels_gpu.py
 
-Tolerances: float32 1e-4 for the paged kernels (spec_verify among them)
+Tolerances: float32 1e-4 for the paged kernels (spec_verify among them;
+paged_prefill and spec_verify run 3xTF32 tensor-core products)
 and 2e-5 for flash_prefill and sink_decode (the same math, sums in another
 order), bfloat16 2e-2 (one bf16 rounding of the output); block_topk scores
 are float32 in both dtypes, 1e-5 relative and 1e-4 absolute (sums of h
@@ -85,7 +86,10 @@ def test_paged_decode_kernel_matches_plain(cuda, dtype, bs, nb, G, h):
                                          (8, 32, 4, 32, dict(window=24)),
                                          (16, 8, 4, 64,
                                           dict(window=24, sink=8)),
-                                         (16, 128, 6, 128, {})])
+                                         (16, 128, 6, 128, {}),
+                                         (16, 5, 6, 128, {}),   # S·G = 30
+                                         (8, 7, 3, 32,          # S·G = 21
+                                          dict(window=20, sink=4))])
 def test_paged_prefill_kernel_matches_plain(cuda, dtype, bs, S, G, h, kw):
     rng = np.random.default_rng(bs + S + G)
     B, K, nb = 2, 2, 5
@@ -195,7 +199,9 @@ def test_block_topk_kernel_matches_plain(cuda, dtype, bs, nb, G, h):
 @pytest.mark.parametrize("bs,S,G,h,nb", [(8, 4, 1, 32, 4), (16, 5, 4, 32, 4),
                                          (8, 2, 4, 64, 4),
                                          (16, 5, 6, 128, 20),
-                                         (16, 9, 6, 128, 4)])  # 2 CTAs
+                                         (16, 9, 6, 128, 4),   # 2 row tiles
+                                         (16, 7, 3, 64, 40),   # S·G = 21
+                                         (16, 5, 6, 128, 160)])  # off 2,560
 def test_spec_verify_kernel_matches_plain(cuda, dtype, bs, S, G, h, nb):
     """Per-slot offsets covering an empty, a mid-block and a fully resident
     history, a poisoned null block past the residency, padded window rows
@@ -358,7 +364,8 @@ def test_paged_decode_int8_matches_plain(cuda, dtype, bs, nb, G, h, K):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("bs,S,G,h", [(8, 8, 1, 32), (16, 8, 4, 32),
-                                      (16, 128, 6, 128)])
+                                      (16, 128, 6, 128), (16, 5, 6, 128),
+                                      (8, 7, 3, 64)])
 def test_paged_prefill_int8_matches_plain(cuda, dtype, bs, S, G, h):
     rng = np.random.default_rng(bs + S + G + 1)
     B, K, nb = 2, 2, 5
@@ -386,7 +393,9 @@ def test_paged_prefill_int8_matches_plain(cuda, dtype, bs, S, G, h):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("bs,S,G,h,nb", [(8, 4, 1, 32, 4), (16, 5, 4, 32, 4),
-                                         (16, 5, 6, 128, 20)])
+                                         (16, 5, 6, 128, 20),
+                                         (16, 5, 6, 128, 160),  # off 2,560
+                                         (8, 7, 3, 32, 12)])    # S·G = 21
 def test_spec_verify_int8_matches_plain(cuda, dtype, bs, S, G, h, nb):
     rng = np.random.default_rng(bs * S + G + h + 2)
     B, K = 3, 2
@@ -409,6 +418,94 @@ def test_spec_verify_int8_matches_plain(cuda, dtype, bs, S, G, h, nb):
         real = int(cl[b]) * G
         torch.testing.assert_close(got[b, :, :real].float(),
                                    want[b, :, :real].float(), **TOL[dtype])
+
+
+# The paged-history routine's edges (paged_prefill and spec_verify):
+# (B, K, S, G, h, bs, nb, off, real rows, kwargs). Tables past each
+# residency point at the poisoned null block.
+HISTORY_EDGES = [
+    # history spread over many splits, off not a multiple of bs
+    (2, 2, 16, 6, 128, 16, 200, [2003, 1001], [16, 9], {}),
+    # off = 0 in every row: every history split empty
+    (2, 2, 8, 4, 64, 16, 12, [0, 0], [8, 3], {}),
+    # chunk_len / n_tok < S: padded rows finite
+    (3, 2, 32, 2, 32, 8, 10, [7, 40, 80], [1, 17, 31], {}),
+    # S·G off the row tile (30 and 21 rows)
+    (3, 2, 5, 6, 128, 16, 20, [0, 151, 320], [5, 2, 1], {}),
+    (3, 2, 7, 3, 32, 8, 24, [5, 64, 191], [7, 4, 1], {}),
+    # the MoE attention shape, K = 16, G = 1
+    (2, 16, 5, 1, 128, 16, 32, [17, 511], [5, 3], {}),
+    (1, 16, 128, 1, 128, 16, 32, [384], [128], {}),
+    # off >= 2,000: topk-long's last chunk (S·G 768, nb 288)
+    (1, 2, 128, 6, 128, 16, 288, [3840], [128], {}),
+]
+# window and sink edges inside a key tile (paged_prefill only)
+PREFILL_WINDOW_EDGES = [
+    (1, 2, 32, 4, 64, 8, 20, [77], [29], dict(window=45, sink=12)),
+    (2, 2, 64, 2, 128, 16, 40, [600, 31], [64, 50],
+     dict(window=100, sink=20)),
+]
+
+
+def _history_case(rng, dtype, int8, B, K, S, G, h, bs, nb, offs, cls, dev):
+    N = B * nb + 1
+    q = _rand(rng, (B, K, S * G, h), dtype, dev)
+    kn = _rand(rng, (B, K, S, h), dtype, dev)
+    vn = _rand(rng, (B, K, S, h), dtype, dev)
+    tables = _tables(rng, B, nb, N, dev)
+    for b, n in enumerate(offs):
+        tables[b, -(-n // bs):] = 0
+    if int8:
+        kp, vp, sc = _int8_arena(rng, N, K, bs, h, tables, offs, dev)
+    else:
+        kp = _rand(rng, (N, K, bs, h), dtype, dev)
+        vp = _rand(rng, (N, K, bs, h), dtype, dev)
+        kp[0] = vp[0] = 1e4
+        sc = {}
+    off = torch.tensor(offs, dtype=torch.int32, device=dev)
+    cl = torch.tensor(cls, dtype=torch.int32, device=dev)
+    return (q, kn, vn, kp, vp, tables, off, cl), sc
+
+
+def _check_history_case(kern, plain, args, sc, kw, dtype, int8):
+    n0, i0 = kern.launches, kern.int8_launches
+    got = kern(*args, **sc, **kw)
+    assert kern.launches == n0 + 1
+    assert kern.int8_launches == i0 + int(int8)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and torch.isfinite(got.float()).all()
+    want = plain(*args, **sc, **kw)
+    G = args[0].shape[2] // args[1].shape[2]
+    for b, c in enumerate(args[7].tolist()):
+        torch.testing.assert_close(got[b, :, :c * G].float(),
+                                   want[b, :, :c * G].float(), **TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("B,K,S,G,h,bs,nb,offs,cls,kw",
+                         HISTORY_EDGES + PREFILL_WINDOW_EDGES)
+def test_paged_prefill_history_edges(cuda, dtype, int8, B, K, S, G, h, bs,
+                                     nb, offs, cls, kw):
+    rng = np.random.default_rng(B * nb + S + G + h + int8)
+    args, sc = _history_case(rng, dtype, int8, B, K, S, G, h, bs, nb, offs,
+                             cls, cuda)
+    _check_history_case(paged_prefill, paged_prefill_plain, args, sc, kw,
+                        dtype, int8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("B,K,S,G,h,bs,nb,offs,cls,kw", HISTORY_EDGES)
+def test_spec_verify_history_edges(cuda, dtype, int8, B, K, S, G, h, bs, nb,
+                                   offs, cls, kw):
+    rng = np.random.default_rng(B * nb + S + G + h + int8 + 1)
+    args, sc = _history_case(rng, dtype, int8, B, K, S, G, h, bs, nb, offs,
+                             cls, cuda)
+    _check_history_case(spec_verify, spec_verify_plain, args, sc, kw, dtype,
+                        int8)
 
 
 @pytest.mark.gpu
