@@ -45,7 +45,8 @@ CATEGORIES = (("moe_gmm", ("moe_gmm_kernel",)),
               ("block_topk", ("block_topk_kernel",)),
               ("spec_verify", ("spec_verify_kernel", "spec_verify_combine")),
               ("flash_prefill", ("flash_prefill_kernel",)),
-              ("sink_decode", ("sink_decode_kernel",)),
+              ("sink_decode", ("sink_decode_kernel",
+                               "sink_decode_combine")),
               ("gemm", ("gemm", "gemv", "sm90_xmma", "cutlass", "cublas")),
               ("index (gather/scatter)", ("index", "gather", "scatter")),
               ("reduce/softmax/sort", ("reduce", "softmax", "sort", "scan",
@@ -55,8 +56,8 @@ CATEGORIES = (("moe_gmm", ("moe_gmm_kernel",)),
 
 
 # a kernel's calls are counted on its first name; the others (the split
-# merges of paged_decode, paged_prefill and spec_verify) add device time to
-# the same call
+# merges of paged_decode, paged_prefill, spec_verify and sink_decode) add
+# device time to the same call
 CALL_NAME = {cat: keys[0] for cat, keys in CATEGORIES}
 
 

@@ -16,7 +16,12 @@ Phases (any failure raises, so the script exits non-zero):
      quant sweep shapes and the full-width shapes, timed against their plain
      versions and dequantize-then-SDPA; paged_decode (split-KV) also over
      phase 5's ring tables in float and int8 and over tables whose late
-     splits hold no resident block, flash_prefill (tensor cores) also with
+     splits hold no resident block, sink_decode (split-KV) also over splits
+     past the occupancy, W off its 16-slot chunk and wrapped rings, with the
+     slots past the occupancy poisoned, moe_gmm (a weight stream spread
+     over the card) also with every slot empty, n_valid across row tiles, D
+     and F off its tiles, NaN in what it must not read, and in reversed slot
+     order bit for bit, flash_prefill (tensor cores) also with
      GQA rows off its tiles and window/sink edges inside a tile,
      paged_prefill and spec_verify (the paged-history tensor-core routine)
      also over long histories in float and int8 (topk-long's last chunk:
@@ -120,6 +125,12 @@ TOL_DENSE = {torch.float32: dict(rtol=2e-5, atol=2e-5),   # flash_prefill,
 FLASH_MAIN_S = 4608
 SINK_MAIN = ((4224, [1, 130, 2049, 4224, 4401, 4500]),
              (4608, [1, 130, 2049, 4224, 4401, 4608]))
+# sink_decode's split-KV edges (B, W, G, h, t): splits past the occupancy,
+# W off the 16-slot chunk, wrapped rings (t > W), a one-chunk cache
+SINK_EDGES = ((6, 4224, 6, 128, [1] * 6), (4, 100, 1, 64, [1, 99, 100, 250]),
+              (4, 4223, 6, 128, [1, 17, 4223, 9000]),
+              (3, 4223, 1, 32, [4222, 16, 5000]), (2, 16, 6, 128, [1, 40]),
+              (4, 4608, 6, 128, [4608, 4097, 2, 4609]))
 P5_MAX_LEN, P5_LONG, P5_SHORT = 4608, 4400, 16
 # phase-5 paged decode over the ring block runs: six slots of 264 blocks
 # (sink 128 + recent 4096 at bs 16), four wrapped long prompts, two short
@@ -140,6 +151,13 @@ P7_PHRASE, P7_REPEAT, P7_NEW, P7_K = 32, 8, 48, 4
 # w1/w3 and for w2, and for a 128-token prefill chunk (capacity 24)
 MOE_DECODE, MOE_DECODE_W2 = (8, 2048, 1408, 6), (8, 1408, 2048, 6)
 MOE_PREFILL = (24, 2048, 1408, 128)
+# moe_gmm's edges (S, C, D, F, n_valid): every slot empty, n_valid across
+# 16- and 32-row tiles, D and F off every tile (plain loads) and off the
+# tiles with 16-byte rows
+MOE_EDGES = ((8, 24, 256, 192, (0,) * 8),
+             (6, 24, 2048, 1408, (16, 17, 24, 0, 1, 15)),
+             (5, 40, 50, 130, (16, 17, 24, 40, 0)),
+             (4, 24, 48, 136, (17, 24, 0, 3)), (3, 70, 64, 64, (70, 33, 64)))
 P8_NEW, P8_LAYERS = 16, 24
 # phase 9 (QuantPlane, full-width qwen2-1.5b on int8 arenas): phase 3's
 # traffic with 24 new tokens, so every stream crosses a block boundary in
@@ -981,6 +999,23 @@ def check_dense_kernels(dev, timer, log):
         log.append(f"sink_decode {dn} sweep (W 64/128/96 x G 1/4 x h 32/128, "
                    f"model-layout views): max_abs_err="
                    f"{worst['sink_decode']:.3g}")
+        # split-KV edges: splits past the occupancy (t = 1), W off the
+        # 16-slot chunk, wrapped rings; slots past t hold 1e4 (never read)
+        worst_e = 0.0
+        for B, W, G, h, ts in SINK_EDGES:
+            q = rand(g, (B, 2, G, h), dtype)
+            kc, vc = (rand(g, (B, W, 2, h), dtype) for _ in range(2))
+            for b, t_b in enumerate(ts):
+                kc[b, t_b:] = vc[b, t_b:] = 1e4
+            kc, vc = kc.transpose(1, 2), vc.transpose(1, 2)
+            t = torch.tensor(ts, dtype=torch.int32, device=dev)
+            worst_e = max(worst_e, cmp(f"sink_decode edge W={W} G={G} t={ts}",
+                                       sink_decode(q, kc, vc, t),
+                                       sink_decode_plain(q, kc, vc, t),
+                                       dtype))
+        log.append(f"sink_decode {dn} split edges (t = 1, W 100/4223/16/4608,"
+                   f" G 1/6, t > W; slots past t poisoned): max_abs_err="
+                   f"{worst_e:.3g}")
         # full width: one 4608-token prompt, 12 query heads over 2 kv heads
         q = rand(g, (2, FLASH_MAIN_S * 6, 128), dtype)
         k, v = (rand(g, (2, FLASH_MAIN_S, 128), dtype) for _ in range(2))
@@ -1092,16 +1127,54 @@ def check_moe_kernels(dev, timer, log):
             worst = max(worst, cmp("moe_gmm sweep", x, w, nv, dtype))
         log.append(f"moe_gmm {dn} sweep (reference shapes + C=40 D=50 "
                    f"F=130, n_valid 0 and C): max_abs_err={worst:.3g}")
+        # edges: every slot empty, n_valid across 16- and 32-row tiles, D
+        # and F off every tile (plain-load path) and off the tiles with
+        # 16-byte rows; empty slots' weights and rows past n_valid are NaN
+        # (never read)
+        worst = 0.0
+        for i, (S, C, D, F, nv_e) in enumerate(MOE_EDGES):
+            x, w, nv = moe_gmm_inputs(dev, dtype, S, C, D, F, 0, 1, 40 + i)
+            nv.copy_(torch.tensor(nv_e, dtype=torch.int32))
+            live = torch.arange(C, device=dev)[None, :, None] \
+                < nv.long()[:, None, None]
+            x = torch.randn((S, C, D), device=dev, generator=torch.Generator(
+                device=dev).manual_seed(50 + i)).to(dtype) * live
+            want = moe_gmm_plain(x, w, nv)
+            x = torch.where(live, x, torch.full_like(x, float("nan")))
+            w[nv == 0] = float("nan")
+            got = moe_gmm(x, w, nv)
+            torch.cuda.synchronize()
+            if not torch.isfinite(got.float()).all():
+                raise AssertionError(f"moe_gmm edge {S}x{C}x{D}x{F}: "
+                                     f"non-finite output (a NaN was read)")
+            for s_, n in enumerate(nv_e):
+                if got[s_, n:].any():
+                    raise AssertionError("moe_gmm edge: rows past n_valid "
+                                         "not zero")
+            torch.testing.assert_close(got.float(), want.float(),
+                                       **TOL[dtype], msg="moe_gmm edge")
+            worst = max(worst, float((got.float() - want.float()).abs()
+                                     .max()))
+        log.append(f"moe_gmm {dn} edges (all slots empty; n_valid 16/17/24/"
+                   f"40/70; D x F 50 x 130 and 48 x 136): max_abs_err="
+                   f"{worst:.3g}")
         for key, (C, D, F, n_tok) in (
                 ("", MOE_DECODE), ("_w2", MOE_DECODE_W2),
                 ("_prefill", MOE_PREFILL)):
             x, w, nv = moe_gmm_inputs(dev, dtype, 60, C, D, F, n_tok, 4,
                                       30 + len(key))
             err = cmp(f"moe_gmm main{key}", x, w, nv, dtype)
+            # phase 8 (b)'s slot-reversal migration: bit for bit
+            if not torch.equal(moe_gmm(x.flip(0), w.flip(0),
+                                       nv.flip(0)).flip(0),
+                               moe_gmm(x, w, nv)):
+                raise AssertionError(f"moe_gmm main{key}: the output "
+                                     f"depends on the slot order")
             mb = moe_gmm_bound(x, w, nv)
             log.append(f"moe_gmm {dn} main{key} x [60, {C}, {D}] w [60, {D},"
                        f" {F}], {int((nv > 0).sum())} live slots, "
-                       f"{int(nv.sum())} rows: max_abs_err={err:.3g}")
+                       f"{int(nv.sum())} rows: max_abs_err={err:.3g}; "
+                       f"reversed slot order bit-identical")
             rec["moe_gmm"][dn + key] = {
                 "max_abs_err": err, "ms": timer(lambda: moe_gmm(x, w, nv)),
                 "plain_ms": timer(lambda: moe_gmm_plain(x, w, nv)),

@@ -49,8 +49,10 @@ SIGNATURES = {
                                  _I, _I, _I, _P],
     },
     "sink_decode": {
-        "sink_decode_launch": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                               _L, _L, _L, _L, _L, _L, _F, _P],
+        # ... out, workspace, B, K, G, h, W, six strides, n_split, per,
+        # scale
+        "sink_decode_launch": [_I, *[_P] * 6, _I, _I, _I, _I, _I,
+                               *[_L] * 6, _I, _I, _F, _P],
     },
     "block_topk": {
         "block_topk_launch": [_I, _P, _P, _P, _P, _P, _P,
@@ -61,7 +63,8 @@ SIGNATURES = {
         "spec_verify_int8_launch": [_I, *[_P] * 14, *[_I] * 9, _F, _P],
     },
     "moe_gmm": {
-        "moe_gmm_launch": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        # ... out, S, C, D, F, n_cta
+        "moe_gmm_launch": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     },
 }
 

@@ -1,33 +1,23 @@
 // Shared tile machinery of the attention kernels (paged_decode.cu,
-// paged_prefill.cu, spec_verify.cu, flash_prefill.cu, sink_decode.cu):
-//   * typed 16-byte tile loads into float32 shared memory and one
-//     online-softmax step of R query rows against a tile of TK keys on CUDA
-//     cores (`tile_step`: sink_decode);
+// sink_decode.cu, paged_prefill.cu, spec_verify.cu, flash_prefill.cu):
+//   * typed 16-byte loads of rows into float32 shared memory (`load_rows`,
+//     `load_tile`: the query rows of a decode CTA);
 //   * the tensor-core tile (`tc_tile_step`): 16 query rows per warp against
 //     a key tile staged in shared memory, products on mma.sync (bf16
 //     m16n8k16, or float32 through the 3xTF32 split), the online softmax in
 //     registers (flash_prefill, and through the paged-history routine);
-//   * the split-KV decode routine (`decode_stage_issue`,
-//     `decode_block_step`, `decode_merge`, `lse_combine`, paged_decode):
-//     each warp walks its own KV chunks through a cp.async double buffer
-//     with its own softmax state; the warps of a CTA, then the CTAs of a
-//     split grid, merge by log-sum-exp;
+//   * the split-KV decode routine (`decode_split_attend` over
+//     `decode_stage_rows`, `decode_block_step`, `decode_merge`, then
+//     `decode_combine` / `lse_combine`: paged_decode and sink_decode): each
+//     warp walks its own KV chunks through a cp.async double buffer with
+//     its own softmax state; the warps of a CTA, then the CTAs of a split
+//     grid, merge by log-sum-exp;
 //   * the paged-history tensor-core routine (`paged_tc_attend`,
 //     paged_prefill and spec_verify): a CTA of 16-row warps walks its
 //     split's share of a paged history, key tiles staged through the table
 //     by cp.async (int8 pages dequantized through registers), then the
 //     chunk's own keys, all on `tc_tile_step`; the splits merge by
 //     `lse_combine`.
-//
-// Layout of a `tile_step` CTA's shared memory (floats):
-//   Qs [R][HD+1]   query rows (padded: the score loop reads rows and keys
-//   Ks [TK][HD+1]  key tile     column-wise, the +1 keeps banks distinct)
-//   Vs [TK][HD]    value tile (read row-wise by consecutive threads)
-//   P  [R][TK]     scores, then probabilities
-//   M, L, C [R]    running max, running sum, this step's correction
-// Accumulators live in registers: thread `tid` owns column d = tid % HD of
-// rows tid / HD + k * (NT / HD), k < NR (NR = MAXR unless a kernel passes a
-// longer accumulator array: a CTA holds at most NR · NT / HD query rows).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -40,7 +30,8 @@ namespace paged {
 
 constexpr float NEG_INF = -1e30f;   // masked score (finite, as in the TPU kernels)
 constexpr int NT = 128;             // threads per CTA
-constexpr int MAXR = 16;            // accumulator rows per thread
+constexpr int MAXR = 16;            // a decode CTA holds ≤ MAXR·NT/HD
+                                    // query rows
 
 template <typename T> __device__ __forceinline__ float to_f32(T x);
 template <> __device__ __forceinline__ float to_f32<float>(float x) { return x; }
@@ -99,83 +90,6 @@ __device__ __forceinline__ void load_tile(float* dst, int ld, const T* src,
 // float32 product, as the plain version computes it.
 template <typename KV>
 constexpr bool kInt8Kv = std::is_same<KV, int8_t>::value;
-
-// One online-softmax step: R query rows (Qs) against TK keys (Ks, Vs).
-// `valid(r, t)` says whether key t is visible to row r; masked scores are
-// NEG_INF, exactly as the TPU kernels mask them. The caller has synchronised
-// after filling Ks/Vs; this function ends with a barrier, so the caller may
-// overwrite the tiles right after it returns.
-template <int HD, int NR, typename ValidF>
-__device__ __forceinline__ void tile_step(const float* Qs, const float* Ks,
-                                          const float* Vs, float* P, float* M,
-                                          float* L, float* C, float (&acc)[NR],
-                                          int R, int TK, float scale,
-                                          ValidF valid) {
-  constexpr int LD = HD + 1;
-  for (int i = threadIdx.x; i < R * TK; i += NT) {
-    const int r = i / TK, t = i % TK;
-    const float* q = Qs + r * LD;
-    const float* k = Ks + t * LD;
-    float s = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < HD; ++d) s = fmaf(q[d], k[d], s);
-    P[i] = valid(r, t) ? s * scale : NEG_INF;
-  }
-  __syncthreads();
-  for (int r = threadIdx.x; r < R; r += NT) {
-    float* p = P + r * TK;
-    const float m_prev = M[r];
-    float mx = NEG_INF;
-    for (int t = 0; t < TK; ++t) mx = fmaxf(mx, p[t]);
-    const float m_new = fmaxf(m_prev, mx);
-    float sum = 0.f;
-    for (int t = 0; t < TK; ++t) {
-      const float e = expf(p[t] - m_new);
-      p[t] = e;
-      sum += e;
-    }
-    const float corr = expf(m_prev - m_new);
-    L[r] = L[r] * corr + sum;
-    M[r] = m_new;
-    C[r] = corr;
-  }
-  __syncthreads();
-  constexpr int RG = NT / HD;
-  const int d = threadIdx.x % HD;
-  const int r0 = threadIdx.x / HD;
-#pragma unroll
-  for (int k = 0; k < NR; ++k) {
-    const int r = r0 + k * RG;
-    if (r < R) {
-      const float* p = P + r * TK;
-      float a = acc[k] * C[r];
-      for (int t = 0; t < TK; ++t) a = fmaf(p[t], Vs[t * HD + d], a);
-      acc[k] = a;
-    }
-  }
-  __syncthreads();
-}
-
-// out[r][d] = acc / max(l, 1e-30) for the rows this thread owns, r < R.
-template <typename T, int HD, int NR>
-__device__ __forceinline__ void store_rows(T* out, const float (&acc)[NR],
-                                           const float* L, int R) {
-  constexpr int RG = NT / HD;
-  const int d = threadIdx.x % HD;
-  const int r0 = threadIdx.x / HD;
-#pragma unroll
-  for (int k = 0; k < NR; ++k) {
-    const int r = r0 + k * RG;
-    if (r < R) out[(size_t)r * HD + d] = from_f32<T>(acc[k] / fmaxf(L[r], 1e-30f));
-  }
-}
-
-// Shared-memory bytes of one CTA holding R query rows and a TK-key tile.
-inline size_t tile_smem_bytes(int R, int TK, int HD) {
-  return sizeof(float) * ((size_t)R * (HD + 1) + (size_t)TK * (HD + 1) +
-                          (size_t)TK * HD + (size_t)R * TK + 3 * (size_t)R);
-}
-
 
 // ---- asynchronous copies, vector loads ----------------------------------
 
@@ -539,16 +453,18 @@ __device__ __forceinline__ void tc_store_rows(T* out, TcRows<HD>& st, int row0,
   }
 }
 
-// ---- split-KV decode (paged_decode; sink_decode next) -------------------
+// ---- split-KV decode (paged_decode, sink_decode) ------------------------
 //
 // A decode CTA holds the G query rows of one GQA group (float32, row stride
-// HD + 4) and walks a run of KV "chunks" (at most DEC_TR consecutive rows of
-// one block). Its DEC_WARPS warps take the chunks in turn; each warp
-// double-buffers its chunks with cp.async (`decode_stage_issue`) and keeps
-// its own online-softmax state: M, L, C [G] in shared memory, acc in
-// registers (lane owns d = lane · HD/32 + 0 .. HD/32 − 1 of each row).
-// `decode_merge` folds the warps' states by log-sum-exp; `lse_combine`
-// folds the splits of a split grid the same way. A warp or split that saw
+// HD + 4) and walks a run of KV "chunks" (at most DEC_TR consecutive rows:
+// of one arena block for paged_decode, of the dense cache for sink_decode).
+// Its DEC_WARPS warps take the chunks in turn; each warp double-buffers its
+// chunks with cp.async (`decode_stage_rows`, which both callers hand a row
+// base and a row stride) and keeps its own online-softmax state: M, L, C
+// [G] in shared memory, acc in registers (lane owns d = lane · HD/32 + 0 ..
+// HD/32 − 1 of each row). `decode_split_attend` is the CTA's walk;
+// `decode_merge` folds the warps' states by log-sum-exp, `decode_combine`
+// (`lse_combine`) the splits of a split grid the same way. A warp or split that saw
 // no key has m = NEG_INF, l = 0, acc = 0 and adds exactly nothing next to
 // one that did.
 constexpr int DEC_WARPS = 4;
@@ -580,10 +496,30 @@ struct DecStage {
   }
 };
 
-// Issue (no wait) this warp's cp.async of `rows` rows starting at row r0 of
-// block `phys` (kv head kh) of the arenas [N, K, bs, HD]; int8 arenas also
-// bring the block's scale rows ks/vs [N, K, HD] and rows r0.. of kt/vt
-// [N, K, bs].
+// Issue (no wait) this warp's cp.async of `rows` K and V rows into a stage:
+// row r of the chunk is at krow + r·kstride and vrow + r·vstride (elements;
+// HD contiguous, every row 16-byte aligned).
+template <typename KV, int HD>
+__device__ __forceinline__ void decode_stage_rows(const DecStage<KV, HD>& st,
+                                                  const KV* __restrict__ krow,
+                                                  const KV* __restrict__ vrow,
+                                                  size_t kstride,
+                                                  size_t vstride, int rows) {
+  constexpr int VEC = 16 / sizeof(KV);
+  constexpr int CPR = HD / VEC;
+  constexpr int LDK = DecStage<KV, HD>::LDK;
+  const int lane = threadIdx.x & 31;
+  for (int i = lane; i < rows * CPR; i += 32) {
+    const int r = i / CPR;
+    const int c = (i - r * CPR) * VEC;
+    cp_async16(st.K + r * LDK + c, krow + (size_t)r * kstride + c);
+    cp_async16(st.V + r * HD + c, vrow + (size_t)r * vstride + c);
+  }
+}
+
+// The paged caller's stage: `rows` rows from row r0 of block `phys` (kv
+// head kh) of the arenas [N, K, bs, HD]; int8 arenas also bring the block's
+// scale rows ks/vs [N, K, HD] and rows r0.. of kt/vt [N, K, bs].
 template <typename KV, int HD>
 __device__ __forceinline__ void decode_stage_issue(
     const DecStage<KV, HD>& st, const KV* __restrict__ kp,
@@ -591,19 +527,11 @@ __device__ __forceinline__ void decode_stage_issue(
     const float* __restrict__ kt, const float* __restrict__ vs,
     const float* __restrict__ vt, int phys, int K, int kh, int bs, int r0,
     int rows) {
-  constexpr int VEC = 16 / sizeof(KV);
-  constexpr int CPR = HD / VEC;
-  constexpr int LDK = DecStage<KV, HD>::LDK;
-  const int lane = threadIdx.x & 31;
   const size_t blk = (size_t)phys * K + kh;
   const size_t base = (blk * bs + r0) * HD;
-  for (int i = lane; i < rows * CPR; i += 32) {
-    const int r = i / CPR;
-    const int c = (i - r * CPR) * VEC;
-    cp_async16(st.K + r * LDK + c, kp + base + (size_t)r * HD + c);
-    cp_async16(st.V + r * HD + c, vp + base + (size_t)r * HD + c);
-  }
+  decode_stage_rows<KV, HD>(st, kp + base, vp + base, HD, HD, rows);
   if constexpr (kInt8Kv<KV>) {
+    const int lane = threadIdx.x & 31;
     for (int i = lane; i < HD / 4; i += 32) {
       cp_async16(st.ksc + 4 * i, ks + blk * HD + 4 * i);
       cp_async16(st.vsc + 4 * i, vs + blk * HD + 4 * i);
@@ -778,6 +706,117 @@ __device__ __forceinline__ void lse_combine(const float* m, const float* l,
     if (ls > 0.f) num = fmaf(e, acc[((size_t)s * G + r) * HD + d], num);
   }
   out[(size_t)r * HD + d] = from_f32<T>(num / fmaxf(den, 1e-30f));
+}
+
+// Shared memory of a decode CTA: a head of Qs [G][HD + 4] | M, L, C
+// [DEC_WARPS][G] | P [DEC_WARPS][G][DEC_TR] (floats, padded to 16 bytes),
+// then the warps' stages [DEC_WARPS][DEC_STAGES], or, after the walk, the
+// merge scratch [DEC_WARPS][G][HD] in their place.
+template <int HD>
+__host__ __device__ inline size_t decode_head_bytes(int G) {
+  const size_t b = sizeof(float) * ((size_t)G * (HD + 4) +
+                                    3 * DEC_WARPS * (size_t)G +
+                                    (size_t)DEC_WARPS * G * DEC_TR);
+  return (b + 15) / 16 * 16;
+}
+template <typename KV, int HD>
+inline size_t decode_smem_bytes(int G) {
+  const size_t stages = DEC_WARPS * DEC_STAGES * DecStage<KV, HD>::bytes();
+  const size_t merge = sizeof(float) * DEC_WARPS * (size_t)G * HD;
+  return decode_head_bytes<HD>(G) + (stages > merge ? stages : merge);
+}
+
+// The body of a split-KV decode CTA. q and out point at its G rows of
+// [.., G, HD]; it walks chunks 0 .. n_chunks − 1 of its split: issue(stage,
+// c) starts chunk c's cp.async copies (decode_stage_rows), chunk(c) gives
+// (first slot, rows) of chunk c; slot s is visible when s < limit. With ws
+// null the CTA writes out; otherwise its partial state (m in the log2
+// domain, l, unnormalised acc) goes to row wrow of the workspace: m [rows],
+// l [rows], acc [rows][HD] (rows = ws_rows), for `decode_combine`.
+template <typename T, typename KV, int HD, typename IssueF, typename ChunkF>
+__device__ __forceinline__ void decode_split_attend(
+    const T* __restrict__ q, T* __restrict__ out, float* __restrict__ ws,
+    size_t ws_rows, size_t wrow, int G, int n_chunks, int limit,
+    float scale_log2, IssueF issue, ChunkF chunk) {
+  constexpr int GMAX = MAXR * (NT / HD);
+  constexpr int VD = HD / 32;
+  extern __shared__ __align__(16) unsigned char dec_smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* Qs = reinterpret_cast<float*>(dec_smem);
+  float* Mall = Qs + G * (HD + 4);
+  float* Lall = Mall + DEC_WARPS * G;
+  float* Call = Lall + DEC_WARPS * G;
+  float* Pall = Call + DEC_WARPS * G;
+  unsigned char* tail = dec_smem + decode_head_bytes<HD>(G);
+  unsigned char* wstages = tail + warp * DEC_STAGES * DecStage<KV, HD>::bytes();
+  auto stage = [&](int st) {
+    return DecStage<KV, HD>(wstages + st * DecStage<KV, HD>::bytes());
+  };
+  float* M = Mall + warp * G;
+  float* L = Lall + warp * G;
+  float* C = Call + warp * G;
+  float* P = Pall + warp * G * DEC_TR;
+
+  // chunk c is walked by warp c % DEC_WARPS; its first chunk is in flight
+  // while q loads
+  int c = warp;
+  if (c < n_chunks) issue(stage(0), c);
+  cp_async_commit();
+  load_tile<T, HD>(Qs, HD + 4, q, G, G);
+  for (int r = lane; r < G; r += 32) {
+    M[r] = NEG_INF;
+    L[r] = 0.f;
+  }
+  float acc[GMAX][VD];
+#pragma unroll
+  for (int r = 0; r < GMAX; ++r)
+#pragma unroll
+    for (int u = 0; u < VD; ++u) acc[r][u] = 0.f;
+  __syncthreads();
+
+  for (int it = 0; c < n_chunks; ++it, c += DEC_WARPS) {
+    const int cn = c + DEC_WARPS;
+    if (cn < n_chunks) issue(stage((it + 1) & 1), cn);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncwarp();
+    const int2 ch = chunk(c);
+    decode_block_step<KV, HD, GMAX>(Qs, stage(it & 1), P, M, L, C, acc, G,
+                                    ch.y, scale_log2,
+                                    [=](int t) { return ch.x + t < limit; });
+  }
+  cp_async_wait<0>();
+  __syncthreads();                       // stages become the merge scratch
+
+  float* ws_l = ws + ws_rows;
+  float* ws_acc = ws + 2 * ws_rows;
+  decode_merge<HD, GMAX>(
+      acc, Mall, Lall, reinterpret_cast<float*>(tail), G,
+      [&](int r, int d, float m, float l, float o) {
+        if (ws == nullptr) {
+          out[(size_t)r * HD + d] = from_f32<T>(o / fmaxf(l, 1e-30f));
+        } else {
+          ws_acc[(wrow + r) * HD + d] = o;
+          if (d == 0) {
+            ws[wrow + r] = m;
+            ws_l[wrow + r] = l;
+          }
+        }
+      });
+}
+
+// Merge the n_split partial states of decode_split_attend: grid (B·K, G),
+// one thread per column; the workspace rows of (b, kh) are bk·nsp·G ..
+// (bk + 1)·nsp·G − 1 (split-major).
+template <typename T, int HD>
+__device__ __forceinline__ void decode_combine(const float* __restrict__ ws,
+                                               T* __restrict__ out, int BK,
+                                               int G, int nsp) {
+  const size_t bk = blockIdx.x;
+  const size_t rows = (size_t)BK * nsp * G;
+  lse_combine<T, HD>(ws + bk * nsp * G, ws + rows + bk * nsp * G,
+                     ws + 2 * rows + bk * nsp * G * HD, out + bk * G * HD, G,
+                     nsp, blockIdx.y, threadIdx.x);
 }
 
 // ---- paged-history tensor-core routine (paged_prefill, spec_verify) -----

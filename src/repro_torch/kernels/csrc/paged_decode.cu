@@ -42,29 +42,18 @@
 // per channel, as load_kv_tile does, so the softmax is the float path's.
 // Only resident blocks' scale rows are read. An int8 block moves a quarter
 // of a float32 block's payload bytes plus 2·(h + bs)·4 bytes of scales.
+// The CTA's walk and merge are `decode_split_attend` in attn_tile.cuh,
+// which sink_decode.cu shares.
 // Not done yet (later work): TMA bulk copies with an mbarrier ring in place
 // of per-lane cp.async, a merge by the last CTA of a split (one launch, not
-// two), sink_decode and spec_verify on the same routine (ROADMAP B9).
+// two).
 #include "attn_tile.cuh"
 
 using namespace paged;
 
-// Shared memory of a CTA: Qs [G][h + 4] | M, L, C [DEC_WARPS][G] | P
-// [DEC_WARPS][G][DEC_TR] | the warps' stages [DEC_WARPS][DEC_STAGES], or,
-// after the walk, the merge scratch [DEC_WARPS][G][h] in their place.
-template <typename KV, int HD>
-static size_t decode_smem_bytes(int G) {
-  const size_t head =
-      sizeof(float) * ((size_t)G * (HD + 4) + 3 * DEC_WARPS * (size_t)G +
-                       (size_t)DEC_WARPS * G * DEC_TR);
-  const size_t stages = DEC_WARPS * DEC_STAGES * DecStage<KV, HD>::bytes();
-  const size_t merge = sizeof(float) * DEC_WARPS * (size_t)G * HD;
-  return (head + 15) / 16 * 16 + (stages > merge ? stages : merge);
-}
-
 // T: q and out (float / bf16); KV: the arena payload (T, or int8_t with the
 // scale plane ks/kt/vs/vt, null otherwise). ws: [B·K][n_split][G] m, then
-// the same of l, then [B·K][n_split][G][HD] acc (unused when n_split = 1).
+// the same of l, then [B·K][n_split][G][HD] acc (null when n_split = 1).
 template <typename T, typename KV, int HD>
 __global__ void __launch_bounds__(NT)
 paged_decode_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
@@ -75,92 +64,30 @@ paged_decode_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
                     const int* __restrict__ lens, T* __restrict__ out,
                     float* __restrict__ ws, int K, int G, int bs, int nb,
                     int per, float scale_log2) {
-  constexpr int GMAX = MAXR * (NT / HD);
-  constexpr int VD = HD / 32;
-  extern __shared__ __align__(16) unsigned char smem[];
   const int b = blockIdx.x, kh = blockIdx.y, sp = blockIdx.z;
   const int nsp = gridDim.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int bk = b * K + kh;
-  float* Qs = reinterpret_cast<float*>(smem);
-  float* Mall = Qs + G * (HD + 4);
-  float* Lall = Mall + DEC_WARPS * G;
-  float* Call = Lall + DEC_WARPS * G;
-  float* Pall = Call + DEC_WARPS * G;
-  const size_t head =
-      sizeof(float) * ((size_t)G * (HD + 4) + 3 * DEC_WARPS * (size_t)G +
-                       (size_t)DEC_WARPS * G * DEC_TR);
-  unsigned char* tail = smem + (head + 15) / 16 * 16;
-  unsigned char* wstages = tail + warp * DEC_STAGES * DecStage<KV, HD>::bytes();
-  auto stage = [&](int st) {
-    return DecStage<KV, HD>(wstages + st * DecStage<KV, HD>::bytes());
-  };
-  float* M = Mall + warp * G;
-  float* L = Lall + warp * G;
-  float* C = Call + warp * G;
-  float* P = Pall + warp * G * DEC_TR;
-
   // This split's resident chunks: blocks [j0, j1), each cut into cpb chunks
-  // of at most DEC_TR rows; chunk c is walked by warp c % DEC_WARPS.
+  // of at most DEC_TR rows.
   const int len = lens[b];
   const int nblk = min((len + bs - 1) / bs, nb);
   const int j0 = sp * per;
   const int j1 = min(j0 + per, nblk);
   const int cpb = (bs + DEC_TR - 1) / DEC_TR;
-  const int c_end = j1 > j0 ? (j1 - j0) * cpb : 0;
   const int* tbl = tables + (size_t)b * nb;
-  auto issue = [&](int st, int c) {
-    const int j = j0 + c / cpb, r0 = (c % cpb) * DEC_TR;
-    decode_stage_issue<KV, HD>(stage(st), kp, vp, ks, kt, vs, vt, tbl[j], K,
-                               kh, bs, r0, min(DEC_TR, bs - r0));
-  };
-  int c = warp;                          // the first chunk is in flight
-  if (c < c_end) issue(0, c);            // while q loads
-  cp_async_commit();
   const size_t qoff = (size_t)bk * G * HD;
-  load_tile<T, HD>(Qs, HD + 4, q + qoff, G, G);
-  for (int r = lane; r < G; r += 32) {
-    M[r] = NEG_INF;
-    L[r] = 0.f;
-  }
-  float acc[GMAX][VD];
-#pragma unroll
-  for (int r = 0; r < GMAX; ++r)
-#pragma unroll
-    for (int u = 0; u < VD; ++u) acc[r][u] = 0.f;
-  __syncthreads();
-
-  for (int it = 0; c < c_end; ++it, c += DEC_WARPS) {
-    const int cn = c + DEC_WARPS;
-    if (cn < c_end) issue((it + 1) & 1, cn);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncwarp();
-    const int j = j0 + c / cpb, r0 = (c % cpb) * DEC_TR;
-    const int slot0 = j * bs + r0;
-    decode_block_step<KV, HD, GMAX>(Qs, stage(it & 1), P, M, L, C, acc, G,
-                                    min(DEC_TR, bs - r0), scale_log2,
-                                    [=](int t) { return slot0 + t < len; });
-  }
-  cp_async_wait<0>();
-  __syncthreads();                       // stages become the merge scratch
-
-  float* ws_m = ws;
-  float* ws_l = ws ? ws + (size_t)gridDim.x * K * nsp * G : nullptr;
-  float* ws_acc = ws ? ws_l + (size_t)gridDim.x * K * nsp * G : nullptr;
-  const size_t wrow = ((size_t)bk * nsp + sp) * G;
-  decode_merge<HD, GMAX>(
-      acc, Mall, Lall, reinterpret_cast<float*>(tail), G,
-      [&](int r, int d, float m, float l, float o) {
-        if (nsp == 1) {
-          out[qoff + (size_t)r * HD + d] = from_f32<T>(o / fmaxf(l, 1e-30f));
-        } else {
-          ws_acc[(wrow + r) * HD + d] = o;
-          if (d == 0) {
-            ws_m[wrow + r] = m;
-            ws_l[wrow + r] = l;
-          }
-        }
+  decode_split_attend<T, KV, HD>(
+      q + qoff, out + qoff, ws, (size_t)gridDim.x * K * nsp * G,
+      ((size_t)bk * nsp + sp) * G, G, j1 > j0 ? (j1 - j0) * cpb : 0, len,
+      scale_log2,
+      [&](const DecStage<KV, HD>& st, int c) {
+        const int j = j0 + c / cpb, r0 = (c % cpb) * DEC_TR;
+        decode_stage_issue<KV, HD>(st, kp, vp, ks, kt, vs, vt, tbl[j], K, kh,
+                                   bs, r0, min(DEC_TR, bs - r0));
+      },
+      [&](int c) {
+        const int j = j0 + c / cpb, r0 = (c % cpb) * DEC_TR;
+        return make_int2(j * bs + r0, min(DEC_TR, bs - r0));
       });
 }
 
@@ -169,11 +96,7 @@ template <typename T, int HD>
 __global__ void __launch_bounds__(HD)
 paged_decode_combine(const float* __restrict__ ws, T* __restrict__ out,
                      int BK, int G, int nsp) {
-  const size_t bk = blockIdx.x;
-  const size_t rows = (size_t)BK * nsp * G;
-  lse_combine<T, HD>(ws + bk * nsp * G, ws + rows + bk * nsp * G,
-                     ws + 2 * rows + bk * nsp * G * HD, out + bk * G * HD, G,
-                     nsp, blockIdx.y, threadIdx.x);
+  decode_combine<T, HD>(ws, out, BK, G, nsp);
 }
 
 template <typename T, typename KV, int HD>

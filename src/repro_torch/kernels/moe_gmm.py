@@ -4,8 +4,10 @@ FFN's hot op.
 `moe_gmm` launches the hand-written CUDA kernel `csrc/moe_gmm.cu` (the port
 of the TPU kernel src/repro/kernels/moe_gmm.py) for tensors on a CUDA
 device, and runs `moe_gmm_plain` — the same function in plain PyTorch — for
-tensors on the CPU. `moe_gmm.launches` counts kernel launches (nothing else
-adds to it).
+tensors on the CPU. The kernel's grid (`gmm_ctas`) comes from shapes alone:
+its CTAs list the live work items on the device, so the host never reads
+n_valid. `moe_gmm.launches` counts kernel launches (nothing else adds to
+it).
 
     out[s, c, :] = x[s, c, :] @ w[s]   for c < n_valid[s],   0 otherwise
 
@@ -19,6 +21,21 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels._common import DTYPE_CODES, kernel_arg
+from repro_torch.kernels.paged_decode import _sm_count
+
+# the kernel's work item and occupancy (csrc/moe_gmm.cu BN, RT, CTAS_PER_SM)
+GMM_COLS, GMM_ROWS, GMM_CTAS_PER_SM = 64, 32, 4
+
+
+def gmm_ctas(S: int, C: int, F: int, n_sm: int) -> int:
+    """The kernel's grid from shapes alone → n CTAs. The work items are
+    (slot, GMM_ROWS-row tile, GMM_COLS-column tile) triples; on the device
+    each CTA lists the live ones (row tiles below n_valid) in slot order
+    and takes items b, b + n, ...; output row r of the S·C rows is zeroed
+    (if at or past n_valid) by CTA r mod n. GMM_CTAS_PER_SM CTAs per SM,
+    never more than there are items."""
+    items = S * -(-C // GMM_ROWS) * -(-F // GMM_COLS)
+    return max(1, min(items, GMM_CTAS_PER_SM * n_sm))
 
 
 def moe_gmm_plain(x, w, n_valid):
@@ -34,7 +51,8 @@ def moe_gmm_plain(x, w, n_valid):
 def moe_gmm(x, w, n_valid):
     """x [s, C, D] float32/bfloat16; w [s, D, F] of x's dtype; n_valid [s]
     int → [s, C, F]. On the card a slot with n_valid = 0 never reads its
-    weights, and a row tile past n_valid writes zeros without reading."""
+    weights, and rows at or past n_valid are written as zeros without
+    being read."""
     if x.device.type != "cuda":
         return moe_gmm_plain(x, w, n_valid)
     S, C, D = x.shape
@@ -52,12 +70,13 @@ def moe_gmm(x, w, n_valid):
     wa = kernel_arg(w, dev)
     nv = kernel_arg(n_valid.to(torch.int32), dev, torch.int32)
     out = torch.empty((S, C, F), dtype=x.dtype, device=dev)
+    n_cta = gmm_ctas(S, C, F, _sm_count(dev.index))
     lib = build.load("moe_gmm")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.moe_gmm_launch(DTYPE_CODES[x.dtype], xa.data_ptr(),
                                 wa.data_ptr(), nv.data_ptr(), out.data_ptr(),
-                                S, C, D, F, stream)
+                                S, C, D, F, n_cta, stream)
     build.check_launch("moe_gmm", rc)
     moe_gmm.launches += 1
     return out

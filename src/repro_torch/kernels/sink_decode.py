@@ -3,8 +3,12 @@
 `sink_decode` launches the hand-written CUDA kernel `csrc/sink_decode.cu`
 (the port of the TPU kernel src/repro/kernels/sink_decode.py) for tensors on
 a CUDA device, and runs `sink_decode_plain` — the same function in plain
-PyTorch — for tensors on the CPU. `sink_decode.launches` counts kernel
-launches (nothing else adds to it).
+PyTorch — for tensors on the CPU. The kernel splits each cache across CTAs
+(split-KV, on the routine it shares with paged_decode) and merges the splits
+by log-sum-exp; the split plan (`sink_splits`) depends on shapes only,
+never on the occupancy `t`. `sink_decode.launches` advances once per
+`sink_decode` call on a CUDA device, however many CUDA launches the split
+and its merge take; nothing else adds to it.
 
 The caches are [B, K, W, h] views of any strides with a contiguous h: the
 model's [B, W, K, h] cache transposed is read in place, without a copy.
@@ -16,8 +20,19 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels._common import (DTYPE_CODES, HEAD_DIMS, kernel_arg,
                                          per_row)
+from repro_torch.kernels.paged_decode import _sm_count, decode_splits
 
 NEG_INF = -1e30
+SINK_CHUNK = 16           # cache slots per chunk of the kernel (csrc DEC_TR)
+
+
+def sink_splits(B: int, K: int, W: int, n_sm: int) -> tuple[int, int]:
+    """The kernel's split plan from shapes alone → (n_split, per): grid
+    (B, K, n_split), split s taking the SINK_CHUNK-slot chunks [s·per,
+    min((s+1)·per, ceil(W / SINK_CHUNK))) of the cache — paged_decode's
+    plan (`decode_splits`) with the chunks in place of table entries.
+    Chunks past a sequence's occupancy add nothing."""
+    return decode_splits(B, K, -(-W // SINK_CHUNK), n_sm)
 
 
 def sink_decode_plain(q, k_cache, v_cache, t):
@@ -70,13 +85,17 @@ def sink_decode(q, k_cache, v_cache, t):
     ks, vs = _strides(k_cache, "k_cache"), _strides(v_cache, "v_cache")
     tt = kernel_arg(per_row(t, B, dev), dev, torch.int32)
     out = torch.empty_like(q)
+    n_split, per = sink_splits(B, K, W, _sm_count(dev.index))
+    ws = None if n_split == 1 else torch.empty(
+        B * K * n_split * G * (h + 2), dtype=torch.float32, device=dev)
     lib = build.load("sink_decode")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.sink_decode_launch(
             DTYPE_CODES[q.dtype], q.data_ptr(), k_cache.data_ptr(),
-            v_cache.data_ptr(), tt.data_ptr(), out.data_ptr(), B, K, G, h, W,
-            *ks, *vs, h ** -0.5, stream)
+            v_cache.data_ptr(), tt.data_ptr(), out.data_ptr(),
+            None if ws is None else ws.data_ptr(), B, K, G, h, W, *ks, *vs,
+            n_split, per, h ** -0.5, stream)
     build.check_launch("sink_decode", rc)
     sink_decode.launches += 1
     return out

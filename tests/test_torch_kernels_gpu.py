@@ -266,6 +266,98 @@ def test_moe_gmm_kernel_matches_plain(cuda, dtype, S, C, D, F, nv):
         assert not got[s, int(nv[s]):].any()
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,W,G,h,ts", [
+    (6, 4224, 6, 128, [1] * 6),                 # t = 1: 21 of 22 splits empty
+    (4, 100, 1, 64, [1, 99, 100, 250]),         # W off the 16-slot chunk
+    (4, 4223, 6, 128, [1, 17, 4223, 9000]),     # and wrapped (t > W)
+    (3, 4223, 1, 32, [4222, 16, 5000]),
+    (2, 16, 6, 128, [1, 40]),                   # one chunk, one split
+    (4, 4608, 6, 128, [4608, 4097, 2, 4609])])  # the full cache
+def test_sink_decode_split_edges(cuda, dtype, B, W, G, h, ts):
+    """Split-KV sink_decode: splits past the occupancy, W off the chunk,
+    wrapped rings; every slot past a sequence's occupancy holds 1e4, so a
+    read of one would show."""
+    rng = np.random.default_rng(W + G + h + B)
+    K = 2
+    q = _rand(rng, (B, K, G, h), dtype, cuda)
+    kc = _rand(rng, (B, W, K, h), dtype, cuda)
+    vc = _rand(rng, (B, W, K, h), dtype, cuda)
+    for b, t in enumerate(ts):
+        kc[b, t:] = vc[b, t:] = 1e4
+    kc, vc = kc.transpose(1, 2), vc.transpose(1, 2)
+    t = torch.tensor(ts, dtype=torch.int32, device=cuda)
+    n0 = sink_decode.launches
+    got = sink_decode(q, kc, vc, t)
+    assert sink_decode.launches == n0 + 1 and got.dtype == dtype
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    want = sink_decode_plain(q, kc, vc, t)
+    torch.testing.assert_close(got.float(), want.float(), **TOL_DENSE[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,C,D,F,nv", [
+    (8, 24, 256, 192, (0,) * 8),                # every slot empty
+    (6, 24, 2048, 1408, (16, 17, 24, 0, 1, 15)),    # across 16-row tiles
+    (5, 40, 50, 130, (16, 17, 24, 40, 0)),      # D, F off every tile
+    (4, 24, 48, 136, (17, 24, 0, 3)),           # off the tiles, 16-byte rows
+    (3, 70, 64, 64, (70, 33, 64))])             # three 32-row tiles
+def test_moe_gmm_edges(cuda, dtype, S, C, D, F, nv):
+    """Empty slots hold NaN weights and rows past n_valid NaN inputs: the
+    kernel reads neither (rows past n_valid come out exactly zero)."""
+    rng = np.random.default_rng(S + C + D + F)
+    n_valid = torch.tensor(nv, dtype=torch.int32, device=cuda)
+    live = torch.arange(C, device=cuda)[None, :, None] \
+        < n_valid.long()[:, None, None]
+    x = _rand(rng, (S, C, D), dtype, cuda) * live.to(dtype)
+    w = (_rand(rng, (S, D, F), torch.float32, cuda) * 0.02).to(dtype)
+    empty = n_valid == 0
+    w[empty] = 0
+    want = moe_gmm_plain(x, w, n_valid)
+    x = torch.where(live, x, torch.full_like(x, float("nan")))
+    w[empty] = float("nan")
+    n0 = moe_gmm.launches
+    got = moe_gmm(x, w, n_valid)
+    assert moe_gmm.launches == n0 + 1
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (S, C, F)
+    assert torch.isfinite(got.float()).all()
+    for s, n in enumerate(nv):
+        assert not got[s, n:].any()
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,D,F,n_tok", [(8, 2048, 1408, 6),
+                                         (8, 1408, 2048, 6),
+                                         (24, 2048, 1408, 128)])
+def test_moe_gmm_slot_order_bit_exact(cuda, dtype, C, D, F, n_tok):
+    """A slot's output depends neither on its index nor on which CTA takes
+    it: the call on x, w and n_valid in reversed slot order gives the
+    forward output reversed, bit for bit (phase 8's forced migration)."""
+    rng = np.random.default_rng(C + D + n_tok)
+    S = 60
+    nv = np.zeros(S, np.int64)
+    for _ in range(n_tok):
+        nv[rng.choice(S, 4, replace=False)] += 1
+    n_valid = torch.tensor(np.minimum(nv, C), dtype=torch.int32, device=cuda)
+    x = _rand(rng, (S, C, D), dtype, cuda) * (
+        torch.arange(C, device=cuda)[None, :, None]
+        < n_valid.long()[:, None, None]).to(dtype)
+    w = (_rand(rng, (S, D, F), torch.float32, cuda) * 0.02).to(dtype)
+    got = moe_gmm(x, w, n_valid)
+    rev = moe_gmm(x.flip(0), w.flip(0), n_valid.flip(0))
+    torch.cuda.synchronize()
+    assert torch.equal(rev.flip(0), got)
+    torch.testing.assert_close(got.float(),
+                               moe_gmm_plain(x, w, n_valid).float(),
+                               **TOL[dtype])
+
+
 def _int8_arena(rng, N, K, bs, h, tables, lens, dev):
     """int8 pages + scale plane written by the port's write path: every
     block first holds a previous owner's sealed content, then each row of

@@ -1,19 +1,23 @@
-"""The split-KV plans of the port's paged kernels: `decode_splits`
-(paged_decode) and `prefill_splits` (the paged-history routine of
-paged_prefill and spec_verify).
+"""The grid plans of the port's kernels: `decode_splits` (paged_decode),
+`prefill_splits` (the paged-history routine of paged_prefill and
+spec_verify), `sink_splits` (sink_decode) and `gmm_ctas` (moe_gmm).
 
 The plans are pure Python and run here on the CPU: each must cover every
-table entry exactly once, depend on shapes only (never on `lens`, `off`,
-`chunk_len` or `n_tok`, so a step needs no host read and a captured launch
-stays valid), and keep the grid within the card's limits.
+table entry, cache slot or work item exactly once, depend on shapes only
+(never on `lens`, `off`, `chunk_len`, `n_tok`, `t` or `n_valid`, so a step
+needs no host read and a captured launch stays valid), and keep the grid
+within the card's limits.
 """
 import inspect
 
 import pytest
 
+from repro_torch.kernels.moe_gmm import (GMM_COLS, GMM_CTAS_PER_SM, GMM_ROWS,
+                                         gmm_ctas)
 from repro_torch.kernels.paged_decode import (DECODE_WARPS, decode_splits,
                                               prefill_splits)
 from repro_torch.kernels.paged_prefill import PREFILL_ROWS
+from repro_torch.kernels.sink_decode import SINK_CHUNK, sink_splits
 from repro_torch.kernels.spec_verify import VERIFY_ROWS
 
 SHAPES = [(6, 2, 264, 132), (6, 2, 32, 132), (6, 16, 32, 132),
@@ -103,3 +107,95 @@ def test_prefill_split_count_depends_on_shapes_only():
     assert prefill_splits(1, 2, 768 // PREFILL_ROWS, 288, 132) == (11, 27)
     assert prefill_splits(6, 2, 1, 32, 132) == (16, 2)      # verify, main
     assert prefill_splits(6, 2, 1, 256, 132) == (22, 12)    # verify, long
+
+
+# (B, K, W, n_sm): phase 5's ring (sink 128 + recent 4096) and full cache,
+# W off the 16-slot chunk (100, 4223), one-chunk caches, many kv heads,
+# a huge cache, a small card
+SINK_SHAPES = [(6, 2, 4224, 132), (6, 2, 4608, 132), (4, 2, 100, 132),
+               (4, 2, 4223, 132), (1, 1, 1, 132), (2, 2, 16, 132),
+               (4, 2, 64, 132), (64, 8, 96, 132), (1, 2, 1_000_000, 132),
+               (6, 2, 4224, 114), (1, 1, 33, 1)]
+
+
+@pytest.mark.parametrize("B,K,W,n_sm", SINK_SHAPES)
+def test_sink_every_slot_in_exactly_one_split(B, K, W, n_sm):
+    n, per = sink_splits(B, K, W, n_sm)
+    covered = [0] * W
+    for s in range(n):
+        lo, hi = s * per * SINK_CHUNK, min((s + 1) * per * SINK_CHUNK, W)
+        assert lo < hi, f"split {s} holds no cache slot"
+        for w in range(lo, hi):
+            covered[w] += 1
+    assert covered == [1] * W
+
+
+@pytest.mark.parametrize("B,K,W,n_sm", SINK_SHAPES)
+def test_sink_grid_within_card_limits(B, K, W, n_sm):
+    n, per = sink_splits(B, K, W, n_sm)
+    chunks = -(-W // SINK_CHUNK)
+    assert 1 <= n <= 65535 and per >= 1          # gridDim.z
+    assert B <= 2**31 - 1 and K <= 65535         # gridDim.x, gridDim.y
+    assert n * per >= chunks and (n - 1) * per < chunks
+    assert B * K * n <= max(2 * n_sm + B * K - 1, B * K)
+    if chunks >= DECODE_WARPS:                   # every warp takes a chunk
+        assert per >= DECODE_WARPS
+
+
+def test_sink_split_count_depends_on_shapes_only():
+    assert list(inspect.signature(sink_splits).parameters) == [
+        "B", "K", "W", "n_sm"]
+    first = [sink_splits(*s) for s in SINK_SHAPES]
+    assert [sink_splits(*s) for s in SINK_SHAPES] == first
+    # the main path's shapes on a 132-SM card: the ring's plan is the ring
+    # tables' (264 blocks of 16) in paged_decode
+    assert sink_splits(6, 2, 4224, 132) == decode_splits(6, 2, 264, 132) \
+        == (22, 12)
+    assert sink_splits(6, 2, 4608, 132) == (21, 14)
+
+
+# (S, C, F, n_sm): phase 8's decode w1/w3 and w2 and its prefill chunk, the
+# reference sweep shapes, F off the column tile, C over two row tiles, a
+# huge expert count, one slot of one row, a small card
+GMM_SHAPES = [(60, 8, 1408, 132), (60, 8, 2048, 132), (60, 24, 1408, 132),
+              (2, 32, 48, 132), (4, 64, 96, 132), (3, 40, 130, 132),
+              (1, 1, 1, 132), (16384, 8, 1408, 132), (60, 24, 1408, 114),
+              (2, 33, 65, 1)]
+
+
+@pytest.mark.parametrize("S,C,F,n_sm", GMM_SHAPES)
+def test_gmm_every_work_item_in_exactly_one_cta(S, C, F, n_sm):
+    n = gmm_ctas(S, C, F, n_sm)
+    items = S * -(-C // GMM_ROWS) * -(-F // GMM_COLS)
+    # whichever row tiles are live, item i of the live list goes to CTA
+    # i mod n, and output row r to CTA r mod n for the zero pass
+    for live in sorted({0, 1, items // 3, items}):
+        taken = [0] * live
+        for b in range(n):
+            for i in range(b, live, n):
+                taken[i] += 1
+        assert taken == [1] * live
+    rows = [0] * (S * C)
+    for b in range(n):
+        for r in range(b, S * C, n):
+            rows[r] += 1
+    assert rows == [1] * (S * C)
+
+
+@pytest.mark.parametrize("S,C,F,n_sm", GMM_SHAPES)
+def test_gmm_grid_within_card_limits(S, C, F, n_sm):
+    n = gmm_ctas(S, C, F, n_sm)
+    items = S * -(-C // GMM_ROWS) * -(-F // GMM_COLS)
+    assert 1 <= n <= 2**31 - 1                  # gridDim.x
+    assert n <= GMM_CTAS_PER_SM * n_sm          # one wave, all resident
+    assert n == min(items, GMM_CTAS_PER_SM * n_sm)
+
+
+def test_gmm_grid_depends_on_shapes_only():
+    assert list(inspect.signature(gmm_ctas).parameters) == [
+        "S", "C", "F", "n_sm"]
+    first = [gmm_ctas(*s) for s in GMM_SHAPES]
+    assert [gmm_ctas(*s) for s in GMM_SHAPES] == first
+    # the main path's shapes on a 132-SM card: four CTAs per SM
+    assert (GMM_COLS, GMM_ROWS, GMM_CTAS_PER_SM) == (64, 32, 4)
+    assert gmm_ctas(60, 8, 1408, 132) == gmm_ctas(60, 24, 1408, 132) == 528
