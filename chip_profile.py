@@ -9,7 +9,9 @@ shared-prefix workload), `default-pattern` (phase 5: the default OmniAttn
 pattern, whole-prompt prefill, the long-prompt workload) in both KV
 layouts, `topk` (phase 6: 28 full layers, six 3,968-token prompts) with
 online top-k off and at topk_frac 0.25 — `paged_decode` per call over the
-full 256-wide table against the compacted one — `all-full-quant` (phase 9
+full 256-wide table against the compacted one, `block_topk` (scores,
+ranking and compaction in one launch) per call, and the aten ops one
+decode step dispatches in each — `all-full-quant` (phase 9
 (a): phase 3's server on int8 arenas, QuantPlane, phase 3's traffic with 24
 new tokens and a sampled request; the same server on float32 arenas first,
 on the same traffic), and `moe-full` (phase 8:
@@ -77,10 +79,12 @@ def dev_time(evt) -> float:
 
 
 def count_decode_ops(srv) -> dict:
-    """aten ops one `LM.decode` step dispatches with this server's model and
-    arena type (float or int8, QuantPlane), six slots over fresh arenas:
-    {"total": n, "by_op": {op: n}}. Counted with a TorchDispatchMode, so
-    views are included; each op the step dispatches costs host time."""
+    """aten ops one `LM.decode` step dispatches with this server's model,
+    arena type (float or int8, QuantPlane) and top-k budget, six slots over
+    fresh arenas and a 4-wide table (a top-k budget of 0.25 keeps 3 of its
+    blocks, so selection runs): {"total": n, "by_op": {op: n}}. Counted
+    with a TorchDispatchMode, so views are included; each op the step
+    dispatches costs host time."""
     from collections import Counter
 
     from torch.utils._python_dispatch import TorchDispatchMode
@@ -248,6 +252,10 @@ def main() -> int:
             rep["topk"][name] = profile(srv, topk_prompts, smi,
                                         f"online top-k {name}, 28 full "
                                         f"layers")
+            ops = count_decode_ops(srv)
+            rep["topk"][name]["decode_step_aten_ops"] = ops
+            print(f"  one decode step ({cfg.n_layers} layers, 6 slots) "
+                  f"dispatches {ops['total']} aten ops")
             del srv
             torch.cuda.empty_cache()
 

@@ -10,7 +10,13 @@ Phases (any failure raises, so the script exits non-zero):
      float32 and bfloat16, and time kernel, plain version and one library
      call on the same data (`library_ms`, a yardstick only: the port never
      calls it — `scaled_dot_product_attention` for the attention kernels,
-     `torch.bmm` over every slot for moe_gmm; block_topk has none); and the
+     `torch.bmm` over every slot for moe_gmm; block_topk has none);
+     block_topk's fused launch (`block_topk_select`: scores, ranking and
+     the compacted table) exactly against `select_kv_blocks` on its own
+     scores, over tables of 8 to 8,192 entries with tied scores, a
+     poisoned null block and absolute, fractional, degrading and
+     all-forced budgets, its C grid plan against `topk_cluster_plan`, and
+     timed against the eager composition it replaced; and the
      int8 paths (QuantPlane) of paged_decode, paged_prefill and spec_verify
      over arenas written by the port's int8 write path, at the reference
      quant sweep shapes and the full-width shapes, timed against their plain
@@ -86,6 +92,7 @@ before it is the per-kernel JSON record; the card's name and power limit
 """
 from __future__ import annotations
 
+import ctypes
 import gc
 import json
 import math
@@ -507,6 +514,135 @@ def topk_bound(q, tables, lens, bs):
     return bound(nbytes, 4 * blocks * K * G * h, torch.float32)
 
 
+def topk_select_bound(q, tables, lens, bs, k_static):
+    """block_topk_select: the scoring's bytes and operations (topk_bound)
+    plus its outputs written once (the compacted table, lens, counts and
+    the [B, nb] bool mask); the ranking is integer work and adds none."""
+    B, nb = tables.shape
+    nbytes, flops = topk_bound(q, tables, lens, bs)[2:]
+    nbytes += 4 * B * k_static + 8 * B + B * nb
+    return bound(nbytes, flops, torch.float32)
+
+
+# block_topk_select's sweep (B, nb, lens): one-block and mid-block tails,
+# tables from 8 entries up to the kernel's limit (8,192)
+TOPK_SELECT_SWEEP = ((3, 8, [1, 60, 128]), (4, 33, [16, 17, 400, 528]),
+                     (6, 256, TOPK_MAIN[1]), (3, 300, [4799, 100, 4800]),
+                     (2, 1024, [16384, 9000]), (2, 4097, [65552, 30000]),
+                     (2, 8192, [131072, 70001]))
+
+
+def topk_select_inputs(dev, dtype, B, nb, lens, seed):
+    """Phase 6's widths (K 2, G 6, h 128, bs 16) with ties made by copying
+    summary rows across a third of each row's table entries and the null
+    block poisoned (1e4) behind every non-resident entry."""
+    a = list(topk_inputs(dev, dtype, B, 2, 6, 128, 16, nb, B * nb + 1, lens,
+                         seed))
+    kmin, kmax, tables = a[1], a[2], a[3]
+    for b, n in enumerate(lens):
+        res = min(-(-n // 16), nb)
+        src, dst = tables[b, 0:res:3], tables[b, 1:res:3]
+        k = min(len(src), len(dst))
+        kmin[dst[:k].long()] = kmin[src[:k].long()]
+        kmax[dst[:k].long()] = kmax[src[:k].long()]
+        tables[b, res:] = 0
+    kmin[0] = kmax[0] = 1e4
+    return a
+
+
+def check_topk_select(dev, timer, log, cmp_scores):
+    """block_topk_select against `select_kv_blocks` run on the launch's own
+    scores, exactly (tables, lens, counts, mask, and the step's stats over
+    the live slots), and its scores against
+    the plain version at the scores' tolerance, over TOPK_SELECT_SWEEP with
+    absolute, fractional, degrading and all-forced budgets; the C plan
+    against topk_cluster_plan for every width; phase 6's shape timed
+    against the plain version and the eager composition it replaces."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.block_topk import (
+        TOPK_NB_MAX, block_topk_scores, block_topk_scores_plain,
+        block_topk_select, block_topk_select_plain, select_kv_blocks,
+        topk_cluster_plan)
+    lib = build.load("block_topk")
+    c, per = ctypes.c_int(), ctypes.c_int()
+    for nb in range(1, TOPK_NB_MAX + 1):
+        if lib.block_topk_plan(nb, ctypes.byref(c), ctypes.byref(per)) or \
+                (c.value, per.value) != topk_cluster_plan(nb):
+            raise AssertionError(f"block_topk plan differs at nb={nb}")
+    if lib.block_topk_plan(TOPK_NB_MAX + 1, ctypes.byref(c),
+                           ctypes.byref(per)) != -1:
+        raise AssertionError("block_topk plan takes a table past its limit")
+    rec = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        worst, n_cases = 0.0, 0
+        for B, nb, lens in TOPK_SELECT_SWEEP:
+            a = topk_select_inputs(dev, dtype, B, nb, lens, 20 + nb)
+            budgets = (dict(k_static=max(nb // 4, 3), frac=0.0),
+                       dict(k_static=max(-(-nb // 4), 3), frac=0.25),
+                       dict(k_static=nb, frac=0.0),             # degrade
+                       dict(k_static=min(nb, 5), frac=0.0, sink_blocks=3,
+                            recent_blocks=nb))                  # all forced
+            live = torch.arange(B, device=dev) % 3 != 1
+            for i, kw in enumerate(budgets):
+                kw = dict(dict(sink_blocks=1, recent_blocks=2), **kw)
+                mask = live if i % 2 else None
+                got = block_topk_select(*a, block_size=16, token_mask=mask,
+                                        **kw)
+                want = (*select_kv_blocks(got[0], a[3], a[4], block_size=16,
+                                          **kw), None)
+                act = torch.ones(B, device=dev) if mask is None else \
+                    mask.float()
+                n_res = torch.div(a[4] + 15, 16, rounding_mode="floor")
+                zero = torch.zeros((), device=dev)
+                want = (*want[:4], torch.stack([
+                    (act * n_res).sum(), (act * want[2]).sum(), zero, zero]))
+                for name, g, w in zip(("tables", "lens", "m", "selected",
+                                       "aux"), got[1:], want):
+                    if g.dtype != w.dtype or not torch.equal(g, w):
+                        raise AssertionError(
+                            f"block_topk_select {dn} nb={nb} {kw}: {name} "
+                            f"differ from select_kv_blocks")
+                if kw["k_static"] >= nb and not (
+                        torch.equal(got[1], a[3]) and torch.equal(got[2],
+                                                                  a[4])):
+                    raise AssertionError(f"block_topk_select nb={nb}: a "
+                                         f"budget >= n_res changed the table")
+                worst = max(worst, cmp_scores(
+                    f"block_topk_select {dn} nb={nb}", got[0],
+                    block_topk_scores_plain(*a, block_size=16), dtype))
+                n_cases += 1
+        log.append(f"block_topk_select {dn}: {len(TOPK_SELECT_SWEEP)} widths "
+                   f"(nb {TOPK_SELECT_SWEEP[0][1]}.."
+                   f"{TOPK_SELECT_SWEEP[-1][1]}) x 4 budgets (absolute, "
+                   f"frac 0.25, "
+                   f"degrade, all forced), ties and a poisoned null block: "
+                   f"tables/lens/m/selected/aux equal select_kv_blocks on "
+                   f"the launch's scores; scores max_abs_err={worst:.3g}")
+        # phase 6 (b)'s call: frac 0.25 over the 256-wide table
+        ta = topk_select_inputs(dev, dtype, 6, TOPK_MAIN[0], TOPK_MAIN[1],
+                                10)
+        kw = dict(block_size=16, k_static=64, frac=0.25, sink_blocks=1,
+                  recent_blocks=2)
+        got = block_topk_select(*ta, **kw)
+        plain = block_topk_select_plain(*ta, **kw)
+        err = cmp_scores(f"block_topk_select {dn} main", got[0], plain[0],
+                         dtype)
+        sb = topk_select_bound(ta[0], ta[3], ta[4], 16, 64)
+
+        def composition(ta=ta, kw=kw):
+            sc = block_topk_scores(*ta, block_size=16)
+            return select_kv_blocks(sc, ta[3], ta[4], **kw)
+        rec[dn] = {
+            "max_abs_err": err, "exact": True, "cases": n_cases,
+            "ms": timer(lambda: block_topk_select(*ta, **kw)),
+            "plain_ms": timer(lambda: block_topk_select_plain(*ta, **kw)),
+            "composition_ms": timer(composition),
+            "library_ms": None, "bound_ms": sb[0], "bound_by": sb[1],
+            "bytes": sb[2], "flops": sb[3]}
+    return rec
+
+
 def check_sparse_kernels(dev, timer, log):
     """block_topk and spec_verify against their plain versions: the
     reference sweep shapes (tests/test_kernels.py:195-197, :226, :275-277,
@@ -618,6 +754,8 @@ def check_sparse_kernels(dev, timer, log):
                 "library_ms": timer(lib), "library_vs_plain_err": lib_err,
                 "bound_ms": sb[0], "bound_by": sb[1], "bytes": sb[2],
                 "flops": sb[3]}
+    for dn, r in check_topk_select(dev, timer, log, cmp_scores).items():
+        rec["block_topk"][f"{dn}_select"] = r
     return rec
 
 
@@ -2411,9 +2549,12 @@ def main() -> int:
                 lib = "no library call" if r["library_ms"] is None else \
                     f"{r['library_ms']:.4f} ms " + r.get("library", (
                         "torch.bmm" if name == "moe_gmm" else "sdpa"))
+                comp = "" if "composition_ms" not in r else \
+                    f", {r['composition_ms']:.4f} ms eager composition"
                 print(f"  {name}{path} {dn} main shape: {r['ms']:.4f} ms "
-                      f"kernel, {r['plain_ms']:.4f} ms plain, {lib}, bound "
-                      f"{r['bound_ms']:.4f} ms ({r['bound_by']}) [{smi}]")
+                      f"kernel, {r['plain_ms']:.4f} ms plain{comp}, {lib}, "
+                      f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) "
+                      f"[{smi}]")
     log.clear()
     torch.cuda.empty_cache()
 
@@ -2643,6 +2784,13 @@ def main() -> int:
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                 "library", "max_abs_err")} | {
                 "launches": int8_launches[name]}
+        if name == "block_topk":
+            # what the main path launches: scores, ranking and compaction
+            # in one launch (phase 6 counts its launches above), against
+            # the eager composition it replaced
+            entry["select"] = {k: kern[key]["float32_select"][k] for k in (
+                "ms", "plain_ms", "composition_ms", "bound_ms", "bound_by",
+                "library_ms", "max_abs_err", "exact")}
         # the shapes where the device seconds are: phase 5's ring tables,
         # long histories (topk-long's last chunk, a ~4,000-token verify)
         extra = {"paged_decode": "ring", "paged_prefill": "long",
@@ -2659,7 +2807,8 @@ def main() -> int:
         for rec in (k, k.get("int8")):
             if rec is None:
                 continue
-            for r in (rec, rec.get("ring"), rec.get("long")):
+            for r in (rec, rec.get("ring"), rec.get("long"),
+                      rec.get("select")):
                 for key in ("max_abs_err", "ms", "plain_ms", "bound_ms"):
                     if r is not None and not math.isfinite(r[key]):
                         raise AssertionError(f"{k['name']}: {key} is not "

@@ -1,16 +1,19 @@
-"""Time edited builds of the attention and expert kernels against this
-tree's, in one call on one NVIDIA GPU.
+"""Time edited builds of the attention, expert and block-score kernels
+against this tree's, in one call on one NVIDIA GPU.
 
     python3 chip_variants.py [--kernels K1,K2] NAME=DIR [NAME=DIR ...]
 
 Each DIR holds an edited copy of src/repro_torch/kernels/csrc (or a parent
-commit's) with the same C entry points. The script builds `paged_prefill`,
-`spec_verify`, `paged_decode`, `sink_decode` and `moe_gmm` from this tree
-and from every DIR (one nvcc per source, all at once), then, at
-chip_smoke.py's main and long shapes (paged_decode: its main shape and
-phase 5's ring tables, float and int8 pages; sink_decode: the ring and the
-full cache; moe_gmm: decode w1/w3 and w2 and the prefill chunk, float32
-and bf16; the paged-history kernels float32, float and int8 pages),
+commit's) with the same C entry points (a DIR may lack entry points this
+tree added: the cases call only the ones both have). The script builds
+`paged_prefill`, `spec_verify`, `paged_decode`, `sink_decode`, `moe_gmm`
+and `block_topk` from this tree and from every DIR (one nvcc per source,
+all at once), then, at chip_smoke.py's main and long shapes (paged_decode:
+its main shape and phase 5's ring tables, float and int8 pages;
+sink_decode: the ring and the full cache; moe_gmm: decode w1/w3 and w2 and
+the prefill chunk, float32 and bf16; the paged-history kernels float32,
+float and int8 pages; block_topk: the scores of phase 6's decode step,
+float32 and bf16 queries),
 times each variant against this tree in turns (this, variant, variant,
 this; device time, chip_smoke.Timer) and reports its largest difference
 from this tree's output. A variant may be wrong on purpose (to time a
@@ -25,6 +28,7 @@ device.
 from __future__ import annotations
 
 import ctypes
+import functools
 import json
 import subprocess
 import sys
@@ -35,7 +39,7 @@ import torch
 import chip_smoke as cs
 
 NAMES = ("paged_prefill", "spec_verify", "paged_decode", "sink_decode",
-         "moe_gmm")
+         "moe_gmm", "block_topk")
 
 
 def build_variants(dirs: dict, names) -> dict:
@@ -56,6 +60,8 @@ def build_variants(dirs: dict, names) -> dict:
             raise RuntimeError(f"{name}/{k}: nvcc failed:\n{log}")
         lib = ctypes.CDLL(str(out))
         for fn, argtypes in build.SIGNATURES[k].items():
+            if not hasattr(lib, fn):            # an older tree's library
+                continue
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
         libs.setdefault(name, {})[k] = lib
@@ -78,6 +84,12 @@ def cases(dev):
                                       ("chunk", cs.MOE_PREFILL)):
             a = cs.moe_gmm_inputs(dev, dtype, 60, C, D, F, n_tok, 4, 30)
             out.append((f"moe_gmm {key} {str(dtype)[6:]}", "moe_gmm", a, {}))
+    nbt, lens_t = cs.TOPK_MAIN
+    for dtype in (torch.float32, torch.bfloat16):
+        a = cs.topk_inputs(dev, dtype, 6, 2, 6, 128, 16, nbt, cs.P6_BLOCKS,
+                           lens_t, 10)
+        out.append((f"block_topk main {str(dtype)[6:]}", "block_topk", a,
+                    {}))
     for label, nb, lens, seed in (
             ("main", 32, [1, 17, 100, 255, 448, 512], 3),
             ("ring", *cs.RING_MAIN, 6)):
@@ -125,6 +137,8 @@ def main() -> int:
     sys.path.insert(0, str(cs.ROOT / "src"))
     from repro_torch.device import set_precision_policy
     from repro_torch.kernels import build
+    from repro_torch.kernels.block_topk import (block_topk_scores,
+                                                block_topk_scores_plain)
     from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_plain
     from repro_torch.kernels.paged_decode import (paged_decode,
                                                   paged_decode_plain)
@@ -142,7 +156,10 @@ def main() -> int:
            "sink_decode": (sink_decode, sink_decode_plain),
            "moe_gmm": (moe_gmm, moe_gmm_plain),
            "paged_prefill": (paged_prefill, paged_prefill_plain),
-           "spec_verify": (spec_verify, spec_verify_plain)}
+           "spec_verify": (spec_verify, spec_verify_plain),
+           "block_topk": (functools.partial(block_topk_scores, block_size=16),
+                          functools.partial(block_topk_scores_plain,
+                                            block_size=16))}
     timer = cs.Timer(dev)
     report = {"gpu": smi, "cases": {}}
     for label, kern, args, sc in cases(dev):
@@ -158,9 +175,9 @@ def main() -> int:
         mine = run("this")()
         torch.cuda.synchronize()
         want = plain(*args, **sc)
-        if kern in ("paged_decode", "sink_decode", "moe_gmm"):
+        if kern in ("paged_decode", "sink_decode", "moe_gmm", "block_topk"):
             torch.testing.assert_close(mine.float(), want.float(),
-                                       **cs.TOL[mine.dtype], msg=label)
+                                       **cs.TOL[args[0].dtype], msg=label)
         else:
             G = args[0].shape[2] // args[1].shape[2]
             for b, c in enumerate(args[7].tolist()):

@@ -57,6 +57,11 @@ SIGNATURES = {
     "block_topk": {
         "block_topk_launch": [_I, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _I, _P],
+        # ... scores, new_tables, new_lens, m, selected, mask, aux, B, K,
+        # G, h, nb, bs, k_static, use_frac, frac, sink, recent
+        "block_topk_select_launch": [_I, *[_P] * 12, *[_I] * 8, _F, _I, _I,
+                                     _P],
+        "block_topk_plan": [_I, _P, _P],
     },
     "spec_verify": {
         "spec_verify_launch": [_I, *[_P] * 10, *[_I] * 9, _F, _P],

@@ -2,7 +2,7 @@
 kv-head-major layouts (the counterparts of src/repro/kernels/ops.py)."""
 from __future__ import annotations
 
-from repro_torch.kernels.block_topk import block_topk_scores
+from repro_torch.kernels.block_topk import block_topk_select
 from repro_torch.kernels.flash_prefill import flash_prefill
 from repro_torch.kernels.paged_decode import paged_decode
 from repro_torch.kernels.paged_prefill import paged_prefill
@@ -70,14 +70,23 @@ def attention_paged_prefill_op(q, k_new, v_new, k_pages, v_pages, tables,
         .reshape(B, S, H, h)
 
 
-def block_topk_scores_op(q, kmin, kmax, tables, lens, *, block_size):
+def block_topk_select_op(q, kmin, kmax, tables, lens, *, block_size,
+                         k_static, frac, sink_blocks, recent_blocks,
+                         token_mask=None):
     """q [B,H,h]; kmin/kmax [N,K,h] per-block key channel bounds; tables
-    [B,nb]; lens [B] resident logical slots → upper-bound block scores
-    [B,nb] float32 (NEG_INF past the residency)."""
+    [B,nb]; lens [B] resident logical slots; token_mask [B] live slots →
+    (scores [B,nb] float32, NEG_INF past the residency; new_tables
+    [B,k_static], new_lens [B], m [B], selected [B,nb]; aux [4]: blocks
+    scored and attended over the live slots, 0, 0): the scores, the
+    compacted top-k block table and the stats of one decode step, one
+    kernel launch on the card."""
     B, H, h = q.shape
     K = kmin.shape[1]
-    return block_topk_scores(q.reshape(B, K, H // K, h), kmin, kmax, tables,
-                             lens, block_size=block_size)
+    return block_topk_select(q.reshape(B, K, H // K, h), kmin, kmax, tables,
+                             lens, block_size=block_size, k_static=k_static,
+                             frac=frac, sink_blocks=sink_blocks,
+                             recent_blocks=recent_blocks,
+                             token_mask=token_mask)
 
 
 def spec_verify_op(q, k_new, v_new, k_pages, v_pages, tables, off, n_tok,

@@ -225,66 +225,9 @@ def update_block_summaries(kmin, kmax, kmean, k_pages, blocks, *,
 
 
 # ----------------------------------------------------------------------
-# OmniAttn online top-k block selection (the scores come from the
-# block_topk kernel, kernels/block_topk.py)
-def select_kv_blocks(scores, tables, lens, *, block_size: int, k_static: int,
-                     frac: float = 0.0, sink_blocks: int = 1,
-                     recent_blocks: int = 2):
-    """Per-slot top-k block selection → a compacted block table.
-
-    scores [B, nb] upper-bound block scores (NEG_INF past residency);
-    tables [B, nb]; lens [B] resident logical slots. Keeps up to `k_static`
-    resident blocks per slot: the sink blocks (logical j < sink_blocks) and
-    the `recent_blocks` most recent ones are forced, the rest ranked by
-    score, equal scores by the lower index first (as jax.lax.top_k ranks
-    them: a stable descending sort). With `frac > 0` the per-slot budget is
-    ceil(frac · resident blocks), floored at the forced keeps; budgets at or
-    above the resident count keep every resident block in logical order, so
-    the compacted table equals the input table.
-
-    Selected blocks land in logical order (ascending), so all entries but
-    the last are full blocks and `new_lens = (m-1)·bs + tail fill` makes the
-    paged-decode occupancy mask right on the compacted view; unused entries
-    are the null block 0.
-
-    → (new_tables [B, k_static] int32, new_lens [B] int32, m [B] selected
-    block counts, selected [B, nb] bool over the original logical blocks)."""
-    B, nb = tables.shape
-    dev = tables.device
-    lens = lens.to(torch.int32)
-    n_res = torch.div(lens + block_size - 1, block_size,
-                      rounding_mode="floor")                 # [B] >= 1
-    j = torch.arange(nb, device=dev)
-    resident = j[None] < n_res[:, None]
-    keep = resident & ((j[None] < sink_blocks)
-                       | (j[None] >= (n_res - recent_blocks)[:, None]))
-    adj = torch.where(keep, torch.full_like(scores, float("inf")),
-                      torch.where(resident, scores,
-                                  torch.full_like(scores, float("-inf"))))
-    idx = torch.sort(adj, dim=1, descending=True, stable=True).indices[
-        :, :k_static]                                        # [B, k_static]
-    if frac > 0:
-        k_b = torch.ceil(frac * n_res.float()).to(torch.int32)
-        k_b = torch.clamp(k_b, min=sink_blocks + recent_blocks)
-    else:
-        k_b = torch.full_like(n_res, k_static)
-    k_b = torch.minimum(k_b, n_res)                          # degrade
-    sel = (torch.arange(k_static, device=dev)[None] < k_b[:, None]) \
-        & torch.gather(resident, 1, idx)
-    sidx = torch.sort(torch.where(sel, idx, torch.full_like(idx, nb)),
-                      dim=1).values                          # pad → nb
-    gat = torch.gather(tables, 1, torch.clamp(sidx, max=nb - 1))
-    new_tables = torch.where(sidx < nb, gat, torch.zeros_like(gat)) \
-        .to(torch.int32)
-    m = sel.sum(dim=1).to(torch.int32)
-    tail_fill = lens - (n_res - 1) * block_size
-    new_lens = (torch.clamp(m - 1, min=0) * block_size + tail_fill) \
-        .to(torch.int32)
-    selected = torch.zeros((B, nb), dtype=torch.bool, device=dev) \
-        .scatter(1, idx, sel)                          # idx rows distinct
-    return new_tables, new_lens, m, selected
-
-
+# OmniAttn online top-k: the selection (`select_kv_blocks`) lives beside
+# the kernel that fuses it with the block scores, kernels/block_topk.py;
+# the mass diagnostics stay here
 def selected_attention_mass(q, k_pages, tables, lens, selected, *,
                             k_scale=None, k_tok=None):
     """Exact attention mass the selected blocks capture, per slot.

@@ -260,8 +260,8 @@ def attn_sublayer(cfg: ModelConfig, spec: LayerSpec, p: dict, x, *,
       through the paged-decode kernel; without, into the dense caches,
       attended through the sink-decode kernel. In place either way. With
       cfg.omniattn.topk_* set, a paged full layer scores its resident blocks
-      (block-topk kernel), attends only the selected ones through a
-      compacted table, and returns the aux [blocks_scored,
+      and compacts the selected ones into a table (one block-topk kernel
+      launch), attends only those, and returns the aux [blocks_scored,
       blocks_attended, mass_sum, mass_n], weighted by `token_mask` [B].
     mode "verify": each slot's draft window, positions [B, S], read-only
       against the paged caches — full layers through the spec-verify
@@ -420,33 +420,37 @@ def _select_blocks(cfg: ModelConfig, q, cache: dict, tbl, lens, token_mask):
     k_static = topk_block_budget(oa, nb)
     if k_static is None:
         return tbl, lens, None
-    B = q.shape[0]
     bs = cache["k"].shape[2]
-    act = token_mask.float() if token_mask is not None else \
-        torch.ones(B, dtype=torch.float32, device=q.device)
-    n_res = torch.div(lens + bs - 1, bs, rounding_mode="floor")
-    scored = (act * n_res).sum()
-    zero = torch.zeros((), dtype=torch.float32, device=q.device)
     if k_static >= nb:
-        mn = act.sum() if oa.topk_measure_mass else zero
+        act = _live(token_mask, q)
+        n_res = torch.div(lens + bs - 1, bs, rounding_mode="floor")
+        scored = (act * n_res).sum()
+        mn = act.sum() if oa.topk_measure_mass else \
+            torch.zeros((), dtype=torch.float32, device=q.device)
         return tbl, lens, torch.stack([scored, scored, mn, mn])
-    scores = kops.block_topk_scores_op(q, cache["kmin"], cache["kmax"], tbl,
-                                       lens, block_size=bs)
-    tbl_s, lens_s, m, selected = attn_mod.select_kv_blocks(
-        scores, tbl, lens, block_size=bs, k_static=k_static,
-        frac=0.0 if oa.topk_blocks > 0 else oa.topk_frac,
+    # scores, ranking, compaction and the stats: one kernel launch on the
+    # card
+    _, tbl_s, lens_s, m, selected, aux = kops.block_topk_select_op(
+        q, cache["kmin"], cache["kmax"], tbl, lens, block_size=bs,
+        k_static=k_static, frac=0.0 if oa.topk_blocks > 0 else oa.topk_frac,
         sink_blocks=max(oa.topk_sink_blocks, 0),
-        recent_blocks=max(oa.topk_recent_blocks, 1))
+        recent_blocks=max(oa.topk_recent_blocks, 1), token_mask=token_mask)
     if oa.topk_measure_mass:
         mass = attn_mod.selected_attention_mass(q, cache["k"], tbl, lens,
                                                 selected,
                                                 k_scale=cache.get("kscale"),
                                                 k_tok=cache.get("ktok"))
-        mass_sum, mass_n = (act * mass).sum(), act.sum()
-    else:
-        mass_sum = mass_n = zero
-    return tbl_s, lens_s, torch.stack([scored, (act * m).sum(), mass_sum,
-                                       mass_n])
+        act = _live(token_mask, q)
+        aux = torch.stack([aux[0], aux[1], (act * mass).sum(), act.sum()])
+    return tbl_s, lens_s, aux
+
+
+def _live(token_mask, q):
+    """The live-slot weights [B] float32 of a decode step (all ones without
+    a mask)."""
+    if token_mask is not None:
+        return token_mask.float()
+    return torch.ones(q.shape[0], dtype=torch.float32, device=q.device)
 
 
 def ffn_sublayer(cfg: ModelConfig, spec: LayerSpec, p: dict, x, *,

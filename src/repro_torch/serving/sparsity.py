@@ -6,11 +6,11 @@ governs the *online*, query-aware half built on the paged-KV plane: every
 resident full-attention KV block carries key summaries (per-kv-head mean +
 min/max channel bounds, maintained by the same calls that write KV —
 see ``models/stack.py::alloc_arena_kv``), each decode step scores resident
-blocks with a Quest-style upper bound (the block-topk kernel,
-``kernels/block_topk.py`` + ``kernels/csrc/block_topk.cu``) and
-attends only a per-slot budget of them through a compacted block table
-(``models/attention.py::select_kv_blocks``) — non-selected blocks are never
-read.
+blocks with a Quest-style upper bound and compacts the per-slot budget of
+them into a block table, in one launch of the block-topk kernel
+(``kernels/block_topk.py::block_topk_select`` + ``kernels/csrc/
+block_topk.cu``; plain version ``select_kv_blocks`` there), and attends only
+those blocks — non-selected blocks are never read.
 
 The controller maps ``ModelConfig.omniattn`` budget knobs (absolute
 ``topk_blocks`` or per-slot ``topk_frac`` of the resident block count) onto

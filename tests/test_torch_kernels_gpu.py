@@ -11,7 +11,9 @@ paged_prefill and spec_verify run 3xTF32 tensor-core products)
 and 2e-5 for flash_prefill and sink_decode (the same math, sums in another
 order), bfloat16 2e-2 (one bf16 rounding of the output); block_topk scores
 are float32 in both dtypes, 1e-5 relative and 1e-4 absolute (sums of h
-products in another order), with NEG_INF entries equal exactly; moe_gmm
+products in another order), with NEG_INF entries equal exactly, and the
+fused selection's tables, lens, counts and mask equal `select_kv_blocks`
+on the launch's own scores exactly (integer work); moe_gmm
 float32 1e-4 over weights of the model's scale (std 0.02), bfloat16 2e-2,
 with rows past n_valid exactly zero. The int8 paths (QuantPlane) take the
 float tolerances: the kernel and the plain version dequantize each element
@@ -23,8 +25,10 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels.block_topk import (block_topk_scores,
-                                            block_topk_scores_plain)
+from repro_torch.kernels.block_topk import (TOPK_NB_MAX, block_topk_scores,
+                                            block_topk_scores_plain,
+                                            block_topk_select,
+                                            select_kv_blocks)
 from repro_torch.kernels.flash_prefill import (flash_prefill,
                                                flash_prefill_plain)
 from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_plain
@@ -192,6 +196,96 @@ def test_block_topk_kernel_matches_plain(cuda, dtype, bs, nb, G, h):
     neg = want == -1e30
     assert torch.equal(got[neg], want[neg]) and not (got[~neg] == -1e30).any()
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+
+# (budget kwargs of select_kv_blocks): absolute, fractional, a budget that
+# degrades to every resident block, every resident block forced
+TOPK_BUDGETS = {
+    "absolute": lambda nb: dict(k_static=max(nb // 4, 3), frac=0.0),
+    "frac": lambda nb: dict(k_static=max(-(-nb // 4), 3), frac=0.25),
+    "degrade": lambda nb: dict(k_static=nb, frac=0.0),
+    "forced": lambda nb: dict(k_static=min(nb, 5), frac=0.0, sink_blocks=3,
+                              recent_blocks=nb),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("budget", sorted(TOPK_BUDGETS))
+@pytest.mark.parametrize("nb", [8, 33, 256, 1000, 4097, TOPK_NB_MAX])
+def test_block_topk_select_matches_selection(cuda, dtype, budget, nb):
+    """One launch: the scores within the scores' tolerance of the plain
+    version, the compacted table, lens, counts and mask equal to
+    `select_kv_blocks` on those scores bit for bit, and the step's stats
+    (blocks scored and attended over the live slots) exactly. Ties from
+    summary rows copied across a third of each row, a poisoned null block
+    behind the non-resident entries, lens of one block, a mid-block tail
+    and the full table (h 128, G 6, K 2 as on the main path; h 64 and G 1
+    at nb 33); the live mask drops slot 1 in all but the absolute case."""
+    rng = np.random.default_rng(nb + len(budget))
+    B, K, bs = 3, 2, 16
+    G, h = (1, 64) if nb == 33 else (6, 128)
+    N = B * nb + 1
+    q = _rand(rng, (B, K, G, h), dtype, cuda)
+    kmin = _rand(rng, (N, K, h), torch.float32, cuda)
+    kmax = kmin + _rand(rng, (N, K, h), torch.float32, cuda).relu()
+    tables = torch.from_numpy(rng.permutation(np.arange(1, N))[:B * nb]
+                              .reshape(B, nb).astype(np.int32)).to(cuda)
+    lens_l = [1, nb * bs // 2 + 5, nb * bs]
+    for b, n in enumerate(lens_l):
+        res = -(-n // bs)
+        src, dst = tables[b, 0:res:3], tables[b, 1:res:3]
+        k = min(len(src), len(dst))
+        kmin[dst[:k].long()] = kmin[src[:k].long()]
+        kmax[dst[:k].long()] = kmax[src[:k].long()]
+        tables[b, res:] = 0
+    kmin[0] = kmax[0] = 1e4
+    lens = torch.tensor(lens_l, dtype=torch.int32, device=cuda)
+    kw = dict(dict(sink_blocks=1, recent_blocks=2), **TOPK_BUDGETS[budget](nb))
+    mask = None if budget == "absolute" else torch.tensor(
+        [True, False, True], device=cuda)
+    n0 = block_topk_scores.launches
+    got = block_topk_select(q, kmin, kmax, tables, lens, block_size=bs,
+                            token_mask=mask, **kw)
+    assert block_topk_scores.launches == n0 + 1
+    torch.cuda.synchronize()
+    want = select_kv_blocks(got[0], tables, lens, block_size=bs, **kw)
+    for g, w in zip(got[1:5], want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    # the step's stats, folded into the launch: blocks scored and attended
+    # over the live slots, as the model step sums them
+    act = torch.ones(B, device=cuda) if mask is None else mask.float()
+    n_res = torch.div(lens + bs - 1, bs, rounding_mode="floor")
+    zero = torch.zeros((), device=cuda)
+    assert torch.equal(got[5], torch.stack([(act * n_res).sum(),
+                                            (act * want[2]).sum(), zero,
+                                            zero]))
+    if budget == "degrade":
+        assert torch.equal(got[1], tables) and torch.equal(got[2], lens)
+    plain = block_topk_scores_plain(q, kmin, kmax, tables, lens,
+                                    block_size=bs)
+    neg = plain == -1e30
+    assert torch.equal(got[0][neg], plain[neg])
+    assert not (got[0][~neg] == -1e30).any()
+    torch.testing.assert_close(got[0], plain, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_block_topk_select_rejects_unsupported_tables(cuda):
+    q = torch.zeros((1, 1, 2, 32), device=cuda)
+    kmin = torch.zeros((2, 1, 32), device=cuda)
+    ln = torch.ones(1, dtype=torch.int32, device=cuda)
+    wide = torch.ones((1, TOPK_NB_MAX + 1), dtype=torch.int32, device=cuda)
+    n0 = block_topk_scores.launches
+    with pytest.raises(ValueError):                   # past the limit
+        block_topk_select(q, kmin, kmin, wide, ln, block_size=16,
+                          k_static=4)
+    with pytest.raises(ValueError):
+        block_topk_scores(q, kmin, kmin, wide, ln, block_size=16)
+    tb = torch.ones((1, 4), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):                   # k_static > nb
+        block_topk_select(q, kmin, kmin, tb, ln, block_size=16, k_static=5)
+    assert block_topk_scores.launches == n0
 
 
 @pytest.mark.gpu

@@ -6,7 +6,11 @@ against `repro.kernels.ref.block_topk_scores_ref` and the Pallas kernel in
 interpret mode on the sweep of tests/test_kernels.py (bs {8,16}, nb
 {3,4,8}, G {1,3}, float32/bfloat16) and the non-resident case. The
 selection (`select_kv_blocks`, planted ties, absolute and fractional
-budgets), the attention mass, `LM.decode` with top-k, and the `Server` of
+budgets), the fused select's plain version (`block_topk_select_plain`:
+scores then selection, held exactly against the Pallas kernel in interpret
+mode followed by the reference's selection, on integer-valued inputs whose
+scores both frameworks compute exactly), the attention mass, `LM.decode`
+with absolute and fractional top-k budgets, and the `Server` of
 both packages (a full-attention stack and a mixed full/window/compressed
 one, on the same bridged weights) must agree: streams and block counts
 exactly, logits within 2e-3 (the tolerance of tests/test_consistency.py:40:
@@ -37,7 +41,10 @@ from repro_torch.core.proxy import OASConfig as TOASConfig
 from repro_torch.core.proxy import SamplingParams as TSamplingParams
 from repro_torch.kernels import ops
 from repro_torch.kernels.block_topk import (block_topk_scores,
-                                            block_topk_scores_plain)
+                                            block_topk_scores_plain,
+                                            block_topk_select,
+                                            block_topk_select_plain,
+                                            select_kv_blocks)
 from repro_torch.models import attention as t_attn
 from repro_torch.models import stack as tstack
 from repro_torch.models.lm import LM as TLM
@@ -105,9 +112,97 @@ def test_block_topk_non_resident_masked():
                                   tables, lens, block_size=bs)
     assert out[0, 0].item() == pytest.approx(h, rel=1e-5)
     assert out[0, 1].item() == out[0, 2].item() == np.float32(-1e30)
-    via_op = ops.block_topk_scores_op(torch.ones((B, K * G, h)), kmin, kmax,
-                                      tables, lens, block_size=bs)
+    via_op = ops.block_topk_select_op(torch.ones((B, K * G, h)), kmin, kmax,
+                                      tables, lens, block_size=bs, k_static=1,
+                                      frac=0.0, sink_blocks=0,
+                                      recent_blocks=1)[0]
     torch.testing.assert_close(via_op, out, rtol=0, atol=0)
+
+
+# ---- the fused select's plain version against the JAX composition -----
+# (k_static, frac, sink, recent): absolute budgets, fractional ones, a
+# budget at the table width (>= every n_res: the table comes back as it
+# was), every resident block forced (sink 2 + recent nb)
+SELECT_BUDGETS = [(4, 0.0, 1, 2), (6, 0.0, 0, 1), (5, 0.25, 1, 2),
+                  (8, 0.5, 2, 2), (12, 0.3, 1, 2), (16, 0.0, 1, 2),
+                  (5, 0.0, 2, 16)]
+
+
+@pytest.mark.parametrize("k_static,frac,sink,recent", SELECT_BUDGETS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_block_topk_select_plain_matches_jax(k_static, frac, sink, recent,
+                                             dtype):
+    """Integer-valued q and summaries in [-3, 3]: every product and sum is
+    exact in float32 (and q exact in bfloat16), so both frameworks score
+    bit for bit and the selections must agree exactly; the scores' ties
+    are many (small integers) and planted (a third of each row's summary
+    rows copied). Slots hold one block (n_res = 1), a mid-block tail, 12
+    blocks and the full table."""
+    rng = np.random.default_rng(k_static + 10 * sink + recent)
+    B, K, G, h, bs, nb = 4, 2, 3, 32, 8, 16
+    N = B * nb + 1
+    q = rng.integers(-3, 4, (B, K, G, h)).astype(np.float32)
+    kmin = rng.integers(-3, 4, (N, K, h)).astype(np.float32)
+    kmax = kmin + rng.integers(0, 3, (N, K, h)).astype(np.float32)
+    tables = rng.permutation(np.arange(1, N))[:B * nb].reshape(B, nb) \
+        .astype(np.int32)
+    lens = np.array([1, 5 * bs + 3, 12 * bs, nb * bs], np.int32)
+    for b in range(B):
+        res = -(-lens[b] // bs)
+        src, dst = tables[b, 0:res:3], tables[b, 1:res:3]
+        k = min(len(src), len(dst))
+        kmin[dst[:k]], kmax[dst[:k]] = kmin[src[:k]], kmax[src[:k]]
+        tables[b, res:] = 0
+    kmin[0] = kmax[0] = 1e4                         # poisoned null block
+    kw = dict(block_size=bs, k_static=k_static, frac=frac, sink_blocks=sink,
+              recent_blocks=recent)
+    jq = jnp.asarray(q, JDT[dtype])
+    jscores = j_block_topk(jq, kmin, kmax, tables, lens, block_size=bs,
+                           interpret=True)
+    jout = j_attn.select_kv_blocks(jscores, jnp.asarray(tables),
+                                   jnp.asarray(lens), **kw)
+    n0 = block_topk_scores.launches
+    tout = block_topk_select(torch.tensor(q).to(TDT[dtype]),
+                             torch.tensor(kmin), torch.tensor(kmax),
+                             torch.tensor(tables), torch.tensor(lens), **kw)
+    assert block_topk_scores.launches == n0       # the CPU runs no kernel
+    np.testing.assert_allclose(tout[0].numpy(), np.asarray(jscores),
+                               **TOL[dtype])
+    for name, t, j in zip(("tables", "lens", "m", "selected"), tout[1:],
+                          jout):
+        np.testing.assert_array_equal(t.numpy(), np.asarray(j), err_msg=name)
+    assert tout[1].dtype == tout[2].dtype == tout[3].dtype == torch.int32
+    assert tout[4].dtype == torch.bool
+    n_res = -(-lens // bs)
+    m = tout[3].numpy()
+    if k_static >= nb:                             # degrade: table as given
+        np.testing.assert_array_equal(tout[1].numpy(), tables)
+        np.testing.assert_array_equal(tout[2].numpy(), lens)
+    if recent >= nb:                               # all forced: the lowest
+        for b in range(B):
+            keep = np.arange(min(k_static, n_res[b]))
+            np.testing.assert_array_equal(tout[1].numpy()[b, :m[b]],
+                                          tables[b, keep])
+    assert m[0] == 1 and tout[1].numpy()[0, 0] == tables[0, 0]
+
+
+def test_block_topk_select_op_matches_plain():
+    """The model-layout adapter of the fused select ([B, H, h] queries)
+    gives the plain composition's outputs exactly."""
+    rng = np.random.default_rng(17)
+    B, K, G, h, bs, nb, N = 3, 2, 2, 32, 8, 6, 20
+    q = torch.tensor(_np(rng, (B, K * G, h)))
+    kmin = torch.tensor(_np(rng, (N, K, h)))
+    kmax = kmin + torch.tensor(_np(rng, (N, K, h))).relu()
+    tables = torch.tensor(rng.integers(1, N, (B, nb)).astype(np.int32))
+    lens = torch.tensor([3, 20, 48], dtype=torch.int32)
+    kw = dict(block_size=bs, k_static=3, frac=0.0, sink_blocks=1,
+              recent_blocks=1)
+    got = ops.block_topk_select_op(q, kmin, kmax, tables, lens, **kw)
+    want = block_topk_select_plain(q.reshape(B, K, G, h), kmin, kmax, tables,
+                                   lens, **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
 
 
 # ---- selection and attention mass -------------------------------------
@@ -128,9 +223,8 @@ def test_select_kv_blocks_matches_jax(k_static, frac):
               recent_blocks=2)
     jout = j_attn.select_kv_blocks(jnp.asarray(scores), jnp.asarray(tables),
                                    jnp.asarray(lens), **kw)
-    tout = t_attn.select_kv_blocks(torch.tensor(scores),
-                                   torch.tensor(tables), torch.tensor(lens),
-                                   **kw)
+    tout = select_kv_blocks(torch.tensor(scores), torch.tensor(tables),
+                            torch.tensor(lens), **kw)
     for j, t in zip(jout, tout):
         np.testing.assert_array_equal(t.numpy(), np.asarray(j))
     new_tables, new_lens = tout[0].numpy(), tout[1].numpy()
@@ -164,13 +258,33 @@ def test_selected_attention_mass_matches_jax():
 
 
 # ---- the model step ----------------------------------------------------
-def test_lm_decode_with_topk_matches_jax():
+def test_lm_decode_with_topk_matches_jax(monkeypatch):
     """Paged chunked prefill of three slots of different lengths, then
     decode steps with a 3-block budget (below every slot's resident count
     at the end): logits within 2e-3 and the per-layer aux vectors equal."""
+    _lm_decode_topk(monkeypatch, dict(omniattn_topk_blocks=3,
+                                      omniattn_topk_measure_mass=True))
+
+
+def test_lm_decode_with_topk_frac_matches_jax(monkeypatch):
+    """The same with a fractional budget (ceil(0.25 · n_res) per slot,
+    floored at sink 1 + recent 2), the mass unmeasured: `_select_blocks`
+    goes through the fused select op, and logits and aux vectors agree."""
+    _lm_decode_topk(monkeypatch, dict(omniattn_topk_frac=0.25,
+                                      omniattn_topk_sink_blocks=1,
+                                      omniattn_topk_recent_blocks=2))
+
+
+def _lm_decode_topk(monkeypatch, topk):
+    calls = []
+
+    def counted(*a, **k):
+        calls.append(1)
+        return block_topk_select_op(*a, **k)
+    block_topk_select_op = ops.block_topk_select_op
+    monkeypatch.setattr(ops, "block_topk_select_op", counted)
     kw = dict(compute_dtype="float32", param_dtype="float32", n_layers=2,
-              vocab_size=128, omniattn_topk_blocks=3,
-              omniattn_topk_measure_mass=True)
+              vocab_size=128, **topk)
     cfg = reduced_config("qwen2-1.5b").with_updates(**kw)
     lm = LM.build(cfg, local_mesh_ctx(), pattern=[0, 0])
     params = lm.init(jax.random.PRNGKey(0))
@@ -221,6 +335,7 @@ def test_lm_decode_with_topk_matches_jax():
         assert (tsp[:, 1] < tsp[:, 0]).all()       # the budget bit
         tok = np.asarray(jl).argmax(-1).astype(np.int32)[:, None]
         pos = pos + 1
+    assert len(calls) == 3 * 2                     # each step, each layer
 
 
 # ---- serving -------------------------------------------------------------

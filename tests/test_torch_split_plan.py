@@ -1,10 +1,12 @@
 """The grid plans of the port's kernels: `decode_splits` (paged_decode),
 `prefill_splits` (the paged-history routine of paged_prefill and
-spec_verify), `sink_splits` (sink_decode) and `gmm_ctas` (moe_gmm).
+spec_verify), `sink_splits` (sink_decode), `gmm_ctas` (moe_gmm) and
+`topk_cluster_plan` (block_topk's cluster per slot).
 
 The plans are pure Python and run here on the CPU: each must cover every
 table entry, cache slot or work item exactly once, depend on shapes only
-(never on `lens`, `off`, `chunk_len`, `n_tok`, `t` or `n_valid`, so a step
+(never on `lens`, `off`, `chunk_len`, `n_tok`, `t`, `n_valid` or a top-k
+budget, so a step
 needs no host read and a captured launch stays valid), and keep the grid
 within the card's limits.
 """
@@ -12,6 +14,8 @@ import inspect
 
 import pytest
 
+from repro_torch.kernels.block_topk import (TOPK_MAX_CLUSTER, TOPK_MIN_SHARE,
+                                            TOPK_NB_MAX, topk_cluster_plan)
 from repro_torch.kernels.moe_gmm import (GMM_COLS, GMM_CTAS_PER_SM, GMM_ROWS,
                                          gmm_ctas)
 from repro_torch.kernels.paged_decode import (DECODE_WARPS, decode_splits,
@@ -199,3 +203,50 @@ def test_gmm_grid_depends_on_shapes_only():
     # the main path's shapes on a 132-SM card: four CTAs per SM
     assert (GMM_COLS, GMM_ROWS, GMM_CTAS_PER_SM) == (64, 32, 4)
     assert gmm_ctas(60, 8, 1408, 132) == gmm_ctas(60, 24, 1408, 132) == 528
+
+
+# table widths nb: the pow2 buckets the decode engine hands the kernel
+# (8 .. 8192), widths off them (max_blocks caps a bucket), the edges of a
+# CTA's share and of the cluster's growth
+TOPK_WIDTHS = [1, 7, 8, 31, 32, 33, 64, 100, 255, 256, 257, 288, 1000,
+               4096, 4097, 8191, 8192]
+
+
+@pytest.mark.parametrize("nb", TOPK_WIDTHS)
+def test_topk_every_table_entry_in_exactly_one_cta(nb):
+    cluster, per = topk_cluster_plan(nb)
+    covered = [0] * nb
+    for r in range(cluster):
+        lo, hi = r * per, min((r + 1) * per, nb)
+        assert lo < hi, f"CTA {r} scores no tabled block"
+        for j in range(lo, hi):
+            covered[j] += 1
+    assert covered == [1] * nb
+
+
+@pytest.mark.parametrize("nb", TOPK_WIDTHS)
+def test_topk_cluster_within_limits(nb):
+    cluster, per = topk_cluster_plan(nb)
+    assert 1 <= cluster <= TOPK_MAX_CLUSTER == 8    # a portable cluster
+    assert cluster * per >= nb and (cluster - 1) * per < nb
+    # a CTA takes about TOPK_MIN_SHARE blocks until the cluster is full
+    assert cluster == min(-(-nb // TOPK_MIN_SHARE), TOPK_MAX_CLUSTER)
+
+
+def test_topk_plan_depends_on_shapes_only():
+    assert list(inspect.signature(topk_cluster_plan).parameters) == ["nb"]
+    first = [topk_cluster_plan(nb) for nb in TOPK_WIDTHS]
+    assert [topk_cluster_plan(nb) for nb in TOPK_WIDTHS] == first
+    # the main path's widths: topk-long's 256-wide decode table, the
+    # reduced tests' 8- and 16-wide ones, qwen2-1.5b's 32,768-token context
+    assert topk_cluster_plan(256) == (8, 32)
+    assert topk_cluster_plan(8) == (1, 8)
+    assert topk_cluster_plan(16) == (1, 16)
+    assert topk_cluster_plan(2048) == (8, 256)
+    assert (TOPK_MIN_SHARE, TOPK_NB_MAX) == (32, 8192)
+
+
+@pytest.mark.parametrize("nb", [0, TOPK_NB_MAX + 1, 200000])
+def test_topk_plan_rejects_tables_past_limit(nb):
+    with pytest.raises(ValueError):
+        topk_cluster_plan(nb)
