@@ -1,6 +1,6 @@
 """Where the time goes: the port's serving main path under torch.profiler.
 
-    python3 chip_profile.py [CELL ...]
+    python3 chip_profile.py [--src=DIR] [--out=NAME] [--pairs=N] [CELL ...]
 
 Builds the kernels and serves, in the configurations of chip_smoke.py, the
 cells named (all of them by default): `all-full` (phase 3: full-width
@@ -17,19 +17,31 @@ new tokens and a sampled request; the same server on float32 arenas first,
 on the same traffic), and `moe-full` (phase 8:
 full-width qwen2-moe-a2.7b, float32, the shared-prefix workload with 16 new
 tokens each, OmniPlacement's monitor every 4 decode rounds).
-Each runs its workload three times: a warm-up, a measured run without the
-profiler (TTFT, TPOT, tokens/s, per-engine host time), and a run under
-torch.profiler (device time by kernel, device busy and idle share). Needs
-one CUDA device; prints the breakdown and writes
-chiprun_out/chip_profile.json.
+Each runs its workload four times: a warm-up, a measured run without the
+profiler (TTFT, TPOT, tokens/s, per-engine host time), a run under
+torch.profiler (device time by kernel, device busy and idle share), and a
+run that counts the aten ops each decode step dispatches from Python (a
+TorchDispatchMode around `DecodeEngine.step`: near zero on a step that
+replays its captured graph). Each cell also reports the hot-loop entries'
+keys, eager calls, captures and replays (`DevicePlacement.hot_loops`).
+`--src=DIR` imports the port from another tree's `src` (a parent commit's,
+unpacked with `git archive`), so two trees are compared by this one script
+in one call; `--out=NAME` names the JSON file under chiprun_out/
+(chip_profile.json by default). `--pairs=N` replaces the `topk` cell's
+runs by capture against eager in turns (`capture_pairs`): N pairs of
+measured runs on fresh servers, then a torch.profiler session and one
+more pair, each run with the prefill chunks' device backlog split out.
+Needs one CUDA device; prints the breakdown and writes the JSON.
 """
 from __future__ import annotations
 
 import gc
 import json
+import statistics
 import sys
 import time
-from collections import defaultdict
+from collections import Counter, defaultdict
+from pathlib import Path
 
 import torch
 
@@ -78,18 +90,8 @@ def dev_time(evt) -> float:
     return 0.0
 
 
-def count_decode_ops(srv) -> dict:
-    """aten ops one `LM.decode` step dispatches with this server's model,
-    arena type (float or int8, QuantPlane) and top-k budget, six slots over
-    fresh arenas and a 4-wide table (a top-k budget of 0.25 keeps 3 of its
-    blocks, so selection runs): {"total": n, "by_op": {op: n}}. Counted
-    with a TorchDispatchMode, so views are included; each op the step
-    dispatches costs host time."""
-    from collections import Counter
-
+def _op_counter():
     from torch.utils._python_dispatch import TorchDispatchMode
-
-    from repro_torch.models.stack import alloc_arena_kv
 
     class Count(TorchDispatchMode):
         def __init__(self):
@@ -99,6 +101,124 @@ def count_decode_ops(srv) -> dict:
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             self.n[str(func.overloadpacket)] += 1
             return func(*args, **(kwargs or {}))
+    return Count()
+
+
+def count_step_ops(srv, workload) -> dict:
+    """aten ops each decode step of `srv`'s first decode engine dispatches
+    while it serves workload(10), counted with a TorchDispatchMode around
+    `DecodeEngine.step` (the table upload, the fetch and anything a step
+    runs eagerly; a graph replay dispatches none) → {"steps", "mean",
+    "median", "min", "max", "by_op" (summed over the steps)}."""
+    eng = srv.decodes[0]
+    step, per_step, by_op = eng.step, [], Counter()
+
+    def counted():
+        n0 = eng.stats["steps"]
+        mode = _op_counter()
+        with mode:
+            out = step()
+        if eng.stats["steps"] > n0:
+            per_step.append(sum(mode.n.values()))
+            by_op.update(mode.n)
+        return out
+    eng.step = counted
+    try:
+        list(srv.generate(*workload(10)))
+        torch.cuda.synchronize()
+    finally:
+        del eng.step
+    return {"steps": len(per_step), "mean": statistics.fmean(per_step),
+            "median": statistics.median(per_step), "min": min(per_step),
+            "max": max(per_step),
+            "by_op": dict(by_op.most_common(12))}
+
+
+def capture_pairs(build, workload, label, n) -> list:
+    """Capture against eager in turns: n pairs of measured runs (eager
+    first in even pairs), each on a fresh server `build(placement)` warmed
+    on workload(8) and measured on workload(7), then a torch.profiler
+    session over one warmed capture run and one more pair. Each run
+    reports its wall, the host seconds in prefill and decode rounds, the
+    process time, and the prefill chunks' device backlog: what a
+    torch.cuda.synchronize() at each chunk's start waits (the chunk's own
+    token upload from pageable memory waits for the same, so the split
+    adds no wait)."""
+    from repro_torch.serving import DevicePlacement
+    from repro_torch.serving.prefill import PrefillEngine
+    run_chunk, acc = PrefillEngine._run_chunk, {"backlog_s": 0.0}
+
+    def timed(self, task, budget):
+        t0 = time.monotonic()
+        torch.cuda.synchronize()
+        acc["backlog_s"] += time.monotonic() - t0
+        return run_chunk(self, task, budget)
+
+    def one(capture, tag):
+        srv = build(DevicePlacement.of(torch.device("cuda"), capture=capture))
+        list(srv.generate(*workload(8)))
+        cs.reset_stats(srv)
+        acc["backlog_s"] = 0.0
+        c0 = time.process_time()
+        _, _, summ, wall = cs.drive(srv, *workload(7))
+        ps, ds = srv.prefills[0].stats, srv.decodes[0].stats
+        r = {"run": tag, "capture": capture, "wall_s": wall,
+             "prefill_host_s": ps["busy_s"], "chunks": ps["chunks"],
+             "decode_host_s": ds["busy_s"], "steps": ds["steps"],
+             "process_s": time.process_time() - c0,
+             "backlog_s": acc["backlog_s"], "tpot_mean_ms":
+             summ["tpot_mean_ms"], "ttft_mean": summ["ttft_mean"]}
+        print(f"{label}: {tag} {'capture' if capture else 'eager'}: wall "
+              f"{wall:.3f} s, host in prefill / decode rounds "
+              f"{r['prefill_host_s']:.3f} / {r['decode_host_s']:.3f} s "
+              f"({r['chunks']} chunks, {r['steps']} steps), process time "
+              f"{r['process_s']:.3f} s, prefill backlog "
+              f"{r['backlog_s']:.3f} s, TPOT {r['tpot_mean_ms']:.1f} ms")
+        del srv
+        torch.cuda.empty_cache()
+        return r
+
+    PrefillEngine._run_chunk = timed
+    try:
+        runs = []
+        for i in range(n):
+            for cap in ((False, True) if i % 2 == 0 else (True, False)):
+                runs.append(one(cap, f"pair {i}"))
+        srv = build(DevicePlacement.of(torch.device("cuda")))
+        list(srv.generate(*workload(8)))
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts):
+            list(srv.generate(*workload(9)))
+            torch.cuda.synchronize()
+        del srv
+        for cap in (False, True):
+            runs.append(one(cap, "after a profiler session"))
+    finally:
+        PrefillEngine._run_chunk = run_chunk
+    return runs
+
+
+def hot_loop_summary(srv):
+    """The placement's hot-loop entries (None for a tree without them)."""
+    reg = getattr(srv.placement, "hot_loops", None)
+    if reg is None:
+        return None
+    out = reg.summary()
+    for v in out.values():
+        v["keys"] = [list(k) for k in v["keys"]]
+    pool = getattr(srv.placement, "graph_pool_bytes", None)
+    return {"entries": out, "pool_gb": pool() / 1e9 if pool else None}
+
+
+def count_decode_ops(srv) -> dict:
+    """aten ops one `LM.decode` step dispatches with this server's model,
+    arena type (float or int8, QuantPlane) and top-k budget, six slots over
+    fresh arenas and a 4-wide table (a top-k budget of 0.25 keeps 3 of its
+    blocks, so selection runs): {"total": n, "by_op": {op: n}}. Counted
+    with a TorchDispatchMode, so views are included; each op the step
+    dispatches costs host time."""
+    from repro_torch.models.stack import alloc_arena_kv
 
     lm, dev = srv.lm, srv.lm.device
     B, nb = 6, 4
@@ -108,7 +228,7 @@ def count_decode_ops(srv) -> dict:
                           device=dev).reshape(B, nb)
     tok = torch.zeros((B, 1), dtype=torch.int32, device=dev)
     pos = torch.full((B, 1), 15, dtype=torch.int32, device=dev)
-    mode = Count()
+    mode = _op_counter()
     with mode:
         lm.decode(srv.params, cache, tok, pos, block_tables=tables)
     torch.cuda.synchronize()
@@ -170,6 +290,9 @@ def profile(srv, workload, smi: str, label: str) -> dict:
         "kernel_ms_per_call": {k: {"ms": t / 1e3 / max(c, 1), "calls": c}
                                for k, (t, c) in per_call.items()}}
 
+    rep["step_ops"] = count_step_ops(srv, workload)
+    rep["hot_loops"] = hot_loop_summary(srv)
+
     m, p = rep["measured"], rep["profiled"]
     print(f"{label}: measured run [{smi}]: wall {m['wall_s']:.3f} s, TTFT "
           f"mean {m['ttft_mean'] * 1e3:.1f} ms, TPOT mean "
@@ -180,6 +303,19 @@ def profile(srv, workload, smi: str, label: str) -> dict:
     print(f"{label}: profiled run [{smi}]: wall {p['wall_s']:.3f} s, device "
           f"busy {p['device_busy_s']:.3f} s, idle share "
           f"{p['device_idle_share']:.3f}")
+    so = rep["step_ops"]
+    print(f"{label}: aten ops dispatched per decode step over "
+          f"{so['steps']} steps: mean {so['mean']:.1f}, median "
+          f"{so['median']}, min {so['min']}, max {so['max']}")
+    hl = rep["hot_loops"]
+    if hl is None:
+        print(f"{label}: no hot-loop entries in this tree")
+    else:
+        for name, v in hl["entries"].items():
+            print(f"{label}: hot loop {name}: {len(v['keys'])} keys, "
+                  f"{v['eager']} eager calls, {v['captures']} captures, "
+                  f"{v['replays']} replays (all four runs)")
+        print(f"{label}: graph pool {hl['pool_gb']:.3f} GB")
     for cat, t in p["by_category_s"].items():
         print(f"  {cat:24s} {t * 1e3:9.2f} ms")
     for k, v in p["kernel_ms_per_call"].items():
@@ -194,7 +330,20 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_profile: no CUDA device", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(cs.ROOT / "src"))
+    args = sys.argv[1:]
+    src, out_name, pairs = cs.ROOT / "src", "chip_profile.json", 0
+    for a in [a for a in args if a.startswith("--")]:
+        key, _, val = a.partition("=")
+        if key == "--src":
+            src = Path(val).resolve()
+        elif key == "--out":
+            out_name = val
+        elif key == "--pairs":
+            pairs = int(val)
+        else:
+            print(f"chip_profile: unknown option {a}", file=sys.stderr)
+            return 2
+    sys.path.insert(0, str(src))
     from repro_torch.core.proxy import SamplingParams
     from repro_torch.device import set_precision_policy
     from repro_torch.kernels import build
@@ -203,8 +352,9 @@ def main() -> int:
     smi = cs.nvidia_smi()
     build.build_all()
     cfg = cs.full_width_config()
-    rep = {"gpu": smi, "torch": torch.__version__}
-    cells = sys.argv[1:] or list(CELLS)
+    rep = {"gpu": smi, "torch": torch.__version__, "src": str(src)}
+    print(f"chip_profile: the port from {src} [{smi}]")
+    cells = [a for a in args if not a.startswith("--")] or list(CELLS)
     unknown = set(cells) - set(CELLS)
     if unknown:
         print(f"chip_profile: unknown cells {sorted(unknown)}; known: "
@@ -249,6 +399,13 @@ def main() -> int:
                 omniattn_topk_recent_blocks=2))):
             srv = cs.build_topk_server(cfg, dev, params=weights, **topk)
             weights = srv.params
+            if pairs:
+                del srv
+                rep["topk"][name] = {"pairs": capture_pairs(
+                    lambda pl: cs.build_topk_server(
+                        cfg, dev, params=weights, placement=pl, **topk),
+                    topk_prompts, f"online top-k {name} [{smi}]", pairs)}
+                continue
             rep["topk"][name] = profile(srv, topk_prompts, smi,
                                         f"online top-k {name}, 28 full "
                                         f"layers")
@@ -301,7 +458,7 @@ def main() -> int:
         del srv
         torch.cuda.empty_cache()
     cs.OUT_DIR.mkdir(exist_ok=True)
-    (cs.OUT_DIR / "chip_profile.json").write_text(json.dumps(rep, indent=1))
+    (cs.OUT_DIR / out_name).write_text(json.dumps(rep, indent=1))
     print(json.dumps({"ok": True}))
     return 0
 

@@ -85,7 +85,21 @@ Phases (any failure raises, so the script exits non-zero):
      7's prompts without and with SpecConfig(k=4) (streams equal, int8
      spec_verify launches == verify steps x 28); (c) (a)'s traffic on a pool
      cut until a request is preempted (greedy streams equal (a)'s bit for
-     bit through the int8 sidecar).
+     bit through the int8 sidecar);
+ 10. serve phases 3 (prefix reuse on), 7 (speculation on) and 9 (a) again
+     with `DevicePlacement.of(dev, capture=False)`: greedy streams equal
+     the captured runs' bit for bit, the launch counts obey the same
+     formulas, and the largest logits difference of one decode step (one
+     verify window for phase 7), replayed from a captured graph against
+     eager on the same inputs, is reported beside TPOT and host seconds per
+     decode round both ways.
+Every serving phase of 3 and 5-9 serves under CUDA-graph capture, the
+default on `cuda`: the decode step and the verify step are hot-loop
+entries (`DevicePlacement.hot_loop`), one graph per key replayed each
+step, and the launch counts above advance by the replays. Each phase
+asserts that its decode entry (and the verify entry with speculation on)
+replayed in its measured run and reports keys, eager calls, captures and
+replays per entry and the bytes of the graph pool.
 The last line of standard output is {"ok": true, "device": {...}}; the line
 before it is the per-kernel JSON record; the card's name and power limit
 (nvidia-smi) come before that. Details go to chiprun_out/chip_smoke.json.
@@ -1342,9 +1356,11 @@ def workload(vocab, n=12, seed=7):
 
 
 def build_server(cfg, reuse, dev, params=None, spec=None, kv_blocks=320,
-                 **extra):
+                 placement=None, **extra):
     """Phase 3's server; `extra` sets further ServerConfig knobs (the
-    placement monitor of phase 8, `quant` of phase 9)."""
+    placement monitor of phase 8, `quant` of phase 9); `placement` a
+    DevicePlacement (phase 10's capture=False), else the default on `dev`
+    (capture on for cuda)."""
     from repro_torch.core.proxy import OASConfig
     from repro_torch.serving import Server, ServerConfig
     scfg = ServerConfig(n_prefill=1, n_decode=1, decode_slots=6, max_len=512,
@@ -1353,7 +1369,37 @@ def build_server(cfg, reuse, dev, params=None, spec=None, kv_blocks=320,
                         kv_block_size=16, oas=OASConfig(defer_window=0.0),
                         spec=spec, **extra)
     return Server(cfg, scfg, pattern=[0] * cfg.n_layers, params=params,
-                  seed=0, device=dev)
+                  seed=0, device=dev, placement=placement)
+
+
+def hot_loops(srv) -> dict:
+    """The server's hot-loop registry: per entry name its keys, eager calls,
+    captures and replays."""
+    return srv.placement.hot_loops.summary()
+
+
+def check_hot_loops(srv, before, dev, entries=("decode.step",)) -> dict:
+    """The hot-loop calls since `before` (a `hot_loops` snapshot), per
+    entry: keys met so far, eager calls, captures and replays, and the
+    graph pool's bytes. Under capture each entry in `entries` must have
+    replayed."""
+    out = {}
+    for name, a in hot_loops(srv).items():
+        b = before.get(name, {"eager": 0, "captures": 0, "replays": 0})
+        out[name] = {"keys": len(a["keys"])} | {
+            k: a[k] - b[k] for k in ("eager", "captures", "replays")}
+    if dev.type == "cuda" and srv.placement.capture:
+        for name in entries:
+            assert out.get(name, {}).get("replays", 0) > 0, (name, out)
+    out["pool_gb"] = srv.placement.graph_pool_bytes() / 1e9
+    return out
+
+
+def hot_loop_line(hl) -> str:
+    return "; ".join(f"{n}: {v['keys']} keys, {v['eager']} eager, "
+                     f"{v['captures']} captures, {v['replays']} replays"
+                     for n, v in hl.items() if n != "pool_gb") + \
+        f"; graph pool {hl['pool_gb']:.3f} GB"
 
 
 def reset_stats(srv):
@@ -1425,10 +1471,12 @@ def serve(dev, log, cfg):
     list(srv.generate(warm_prompts, SamplingParams(max_tokens=4)))
     reset_stats(srv)
 
+    hl0 = hot_loops(srv)
     paged_prefill.launches = 0
     paged_decode.launches = 0
     streams, finished, summ, wall = drive(srv, prompts, params)
     n_pre, n_dec = paged_prefill.launches, paged_decode.launches
+    hl = check_hot_loops(srv, hl0, dev)
 
     ps, ds = srv.prefills[0].stats, srv.decodes[0].stats
     assert len(finished) == len(prompts) and all(
@@ -1445,8 +1493,10 @@ def serve(dev, log, cfg):
     off = build_server(cfg, False, dev, params=srv.params)
     list(off.generate(warm_prompts, SamplingParams(max_tokens=4)))
     reset_stats(off)
+    hl0 = hot_loops(off)
     streams_off, finished_off, summ_off, wall_off = drive(off, prompts,
                                                           params)
+    hl_off = check_hot_loops(off, hl0, dev)
     assert len(finished_off) == len(prompts)
     assert streams[:12] == streams_off[:12], \
         "greedy streams differ with prefix reuse on and off"
@@ -1464,6 +1514,9 @@ def serve(dev, log, cfg):
                 "n_done", "ttft_mean", "tpot_mean_ms", "ott_tok_s",
                 "ttt_tok_s")} | {"wall_s": wall_off},
             "sampled_streams_equal_on_off": sampled_equal,
+            "host_s_per_round": ds["busy_s"] / ds["steps"],
+            "hot_loops": hl, "hot_loops_reuse_off": hl_off,
+            "streams": streams,
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
 
 
@@ -1545,10 +1598,12 @@ def serve_default_pattern(dev, log, cfg):
         # batches, cuBLAS shapes; outside the counts and the metrics
         list(srv.generate([warm[0], warm[4]], SamplingParams(max_tokens=2)))
         reset_stats(srv)
+        hl0 = hot_loops(srv)
         for kern in (flash_prefill, paged_decode, sink_decode,
                      paged_prefill):
             kern.launches = 0
         streams, finished, summ, wall = drive(srv, prompts, params)
+        hl = check_hot_loops(srv, hl0, dev)
         launches = {"flash_prefill": flash_prefill.launches,
                     "paged_decode": paged_decode.launches,
                     "sink_decode": sink_decode.launches,
@@ -1575,6 +1630,8 @@ def serve_default_pattern(dev, log, cfg):
                      "cache_hits": ps["cache_hits"],
                      "decode_steps": ds["steps"],
                      "host_fetches": ds["host_fetches"],
+                     "host_s_per_round": ds["busy_s"] / ds["steps"],
+                     "hot_loops": hl,
                      "preemptions": ds["preemptions"],
                      "metrics": {k: summ[k] for k in (
                          "n_done", "ttft_mean", "ttft_p99", "tpot_mean_ms",
@@ -1657,9 +1714,11 @@ def cross_check_reduced(dev, log):
         assert s["n_done"] == len(prompts)
         out.append({r.rid: tuple(r.output_tokens) for r in srv.metrics.done})
         srv.kv_arena.pool.check_invariants(arena=srv.kv_arena)
+        hl = check_hot_loops(srv, {}, torch.device(d))
     assert out[0] == out[1], "card and CPU greedy streams differ"
     log.append(f"reduced width: card vs CPU logits max_abs_err={worst:.3g}, "
-               f"greedy streams identical ({len(prompts)} requests)")
+               f"greedy streams identical ({len(prompts)} requests); on the "
+               f"card {hot_loop_line(hl)}")
 
     # the default OmniAttn pattern (3 compressed layers of 4, sink 8 +
     # recent 24, so the 60-token prompts wrap the rings): whole-prompt
@@ -1910,9 +1969,10 @@ def topk_workload(vocab, seed=31):
     return prompts, [SamplingParams(max_tokens=P6_NEW)] * 6
 
 
-def build_topk_server(cfg, dev, params=None, **topk):
+def build_topk_server(cfg, dev, params=None, placement=None, **topk):
     """Phase 3's knobs at max_len 4608 with a 2016-block pool; `topk` sets
-    cfg.omniattn's budget (omniattn_topk_frac=..., ...)."""
+    cfg.omniattn's budget (omniattn_topk_frac=..., ...); `placement` as
+    in `build_server`."""
     from repro_torch.core.proxy import OASConfig
     from repro_torch.serving import Server, ServerConfig
     scfg = ServerConfig(decode_slots=6, max_len=P6_MAX_LEN, chunk_tokens=128,
@@ -1920,7 +1980,7 @@ def build_topk_server(cfg, dev, params=None, **topk):
                         kv_block_size=16, prefix_reuse=True,
                         oas=OASConfig(defer_window=0.0))
     return Server(cfg.with_updates(**topk), scfg, pattern=[0] * cfg.n_layers,
-                  params=params, seed=0, device=dev)
+                  params=params, seed=0, device=dev, placement=placement)
 
 
 def serve_topk(dev, log, cfg):
@@ -1952,9 +2012,11 @@ def serve_topk(dev, log, cfg):
             warm = topk_workload(cfg.vocab_size, seed=32)[0][0][:200]
             list(srv.generate([warm], SamplingParams(max_tokens=3)))
             reset_stats(srv)
+        hl0 = hot_loops(srv)
         for kern in (block_topk_scores, paged_decode, paged_prefill):
             kern.launches = 0
         streams, finished, summ, wall = drive(srv, prompts, params)
+        hl = check_hot_loops(srv, hl0, dev)
         launches = {"block_topk": block_topk_scores.launches,
                     "paged_decode": paged_decode.launches,
                     "paged_prefill": paged_prefill.launches}
@@ -1983,6 +2045,8 @@ def serve_topk(dev, log, cfg):
         out[name] = {"launches": launches, "decode_steps": steps,
                      "prefill_chunks": ps["chunks"],
                      "host_fetches": ds["host_fetches"],
+                     "host_s_per_round": ds["busy_s"] / steps,
+                     "hot_loops": hl,
                      "blocks_scored": summ.get("blocks_scored"),
                      "blocks_attended": summ.get("blocks_attended"),
                      "attn_mass_kept": summ.get("attn_mass_kept"),
@@ -2036,10 +2100,13 @@ def serve_spec(dev, log, cfg):
         weights = srv.params
         list(srv.generate(warm[:2], SamplingParams(max_tokens=8)))
         reset_stats(srv)
+        hl0 = hot_loops(srv)
         spec_verify.launches = paged_decode.launches = 0
         streams, finished, summ, wall = drive(srv, prompts, params)
         launches = {"spec_verify": spec_verify.launches,
                     "paged_decode": paged_decode.launches}
+        hl = check_hot_loops(srv, hl0, dev, entries=(
+            "decode.verify",) if spec is not None else ("decode.step",))
         ds = srv.decodes[0].stats
         assert len(finished) == 7 and all(r == "length" for r in finished)
         assert [len(x) for x in streams] == [P7_NEW] * 6 + [16], streams
@@ -2057,6 +2124,8 @@ def serve_spec(dev, log, cfg):
         servers[name] = srv
         out[name] = {"launches": launches, "decode_steps": ds["steps"],
                      "host_fetches": ds["host_fetches"],
+                     "host_s_per_round": ds["busy_s"] / ds["steps"],
+                     "hot_loops": hl, "streams": streams,
                      "spec": {k: summ[k] for k in (
                          "spec_drafted", "spec_accepted", "spec_verifies",
                          "draft_acceptance", "tokens_per_verify")},
@@ -2151,9 +2220,11 @@ def serve_quant(dev, log, cfg):
     weights = srv.params
     list(srv.generate(warm, SamplingParams(max_tokens=4)))
     reset_stats(srv)
+    hl0 = hot_loops(srv)
     zero()
     streams, finished, summ, wall = drive(srv, prompts, params)
     launches = counts()
+    hl = check_hot_loops(srv, hl0, dev)
     # copies: (b) reuses this server and resets its stats
     ps, ds = dict(srv.prefills[0].stats), dict(srv.decodes[0].stats)
     check_run(srv, streams, finished, [P9_NEW] * 13, 13)
@@ -2181,7 +2252,9 @@ def serve_quant(dev, log, cfg):
     f32 = build_server(cfg, True, dev, params=weights)
     list(f32.generate(warm, SamplingParams(max_tokens=4)))
     reset_stats(f32)
+    hl0 = hot_loops(f32)
     f32_streams, _, f32_summ, f32_wall = drive(f32, prompts, params)
+    hl_f32 = check_hot_loops(f32, hl0, dev)
     ratio = srv.kv_arena.block_nbytes / f32.kv_arena.block_nbytes
     assert f32.kv_arena.block_nbytes == f_bytes * n_layers
     differ = []
@@ -2207,9 +2280,12 @@ def serve_quant(dev, log, cfg):
     for name, s2 in servers.items():
         list(s2.generate(sp_warm[:2], SamplingParams(max_tokens=8)))
         reset_stats(s2)
+        hl0 = hot_loops(s2)
         zero()
         st, fin, sm, w = drive(s2, sp_prompts, sp_params)
         ln = counts()
+        hl2 = check_hot_loops(s2, hl0, dev, entries=(
+            "decode.verify",) if name == "spec_on" else ("decode.step",))
         check_run(s2, st, fin, [P7_NEW] * 6 + [16], 7)
         d2 = s2.decodes[0].stats
         verifies = d2.get("spec_verifies", 0)
@@ -2223,7 +2299,7 @@ def serve_quant(dev, log, cfg):
             assert verifies > 0
         spec_streams[name] = st
         spec_out[name] = {"launches": ln, "decode_steps": d2["steps"],
-                          "verify_steps": verifies,
+                          "verify_steps": verifies, "hot_loops": hl2,
                           "spec": {k: sm.get(k) for k in (
                               "spec_drafted", "spec_accepted",
                               "draft_acceptance", "tokens_per_verify")},
@@ -2253,11 +2329,13 @@ def serve_quant(dev, log, cfg):
         s3 = build_server(cfg, True, dev, params=weights, kv_blocks=kv_blocks,
                           quant=QuantConfig())
         reset_stats(s3)
+        hl0 = hot_loops(s3)
         st3, fin3, sm3, w3 = drive(s3, prompts, params)
         d3 = s3.decodes[0].stats
         check_run(s3, st3, fin3, [P9_NEW] * 13, 13)
         if d3["preemptions"] >= 1:
             pre = {"kv_blocks": kv_blocks, "preemptions": d3["preemptions"],
+                   "hot_loops": check_hot_loops(s3, hl0, dev),
                    "defers": s3.prefills[0].stats["defers"],
                    "decode_steps": d3["steps"], "wall_s": w3}
             break
@@ -2274,6 +2352,8 @@ def serve_quant(dev, log, cfg):
     torch.cuda.empty_cache()
     return {"launches": launches, "prefill_chunks": ps["chunks"],
             "decode_steps": ds["steps"], "host_fetches": ds["host_fetches"],
+            "host_s_per_round": ds["busy_s"] / ds["steps"],
+            "hot_loops": hl, "hot_loops_f32": hl_f32, "streams": streams,
             "reused_tokens": ps["reused_tokens"],
             "block_nbytes": {"int8": q_bytes * n_layers,
                              "float32": f_bytes * n_layers, "ratio": ratio},
@@ -2428,8 +2508,10 @@ def serve_moe(dev, log, cfg):
     ticks = record_drains(srv)
 
     # (a) the main path through generate
+    hl0 = hot_loops(srv)
     moe_gmm.launches = paged_prefill.launches = paged_decode.launches = 0
     streams, finished, summ, wall = drive(srv, prompts, params)
+    hl = check_hot_loops(srv, hl0, dev)
     launches = {"moe_gmm": moe_gmm.launches,
                 "paged_prefill": paged_prefill.launches,
                 "paged_decode": paged_decode.launches}
@@ -2456,6 +2538,7 @@ def serve_moe(dev, log, cfg):
     weights, a_steps = srv.params, ds["steps"]
     res = {"launches": launches, "prefill_chunks": ps["chunks"],
            "decode_steps": a_steps, "host_fetches": ds["host_fetches"],
+           "host_s_per_round": ds["busy_s"] / a_steps, "hot_loops": hl,
            "reused_tokens": ps["reused_tokens"],
            "prefill_tokens": ps["tokens"], "weights_gb": wbytes / 1e9,
            "placement_ticks": [{"assignments": t, "decode_tokens": n}
@@ -2472,6 +2555,7 @@ def serve_moe(dev, log, cfg):
     # (b) the same weights and traffic through add_request/step, with the
     # slot order reversed halfway through decode
     srv = build_moe_server(cfg, dev, params=weights)
+    hl0 = hot_loops(srv)
     for prompt, sp in zip(prompts, params):
         srv.add_request(prompt, sp)
     out, mig = {}, None
@@ -2493,6 +2577,7 @@ def serve_moe(dev, log, cfg):
         "greedy streams changed across the forced migration"
     srv.kv_arena.pool.check_invariants(arena=srv.kv_arena)
     res["migration"] = mig | {
+        "hot_loops": check_hot_loops(srv, hl0, dev),
         "greedy_streams_identical": True,
         "sampled_streams_identical": streams_b[12:] == streams[12:],
         "slot_expert_reversed": bool(
@@ -2505,6 +2590,152 @@ def serve_moe(dev, log, cfg):
     gc.collect()
     torch.cuda.empty_cache()
     return res
+
+
+# ---- phase 10: captured against eager ------------------------------
+def capture_logits_diff(srv, dev, verify=False):
+    """Largest |difference| between the logits of one step of `srv`'s model
+    (one decode step, or one verify window of k + 1 = 5 rows) replayed from
+    a captured graph and run eagerly, on the same inputs: six slots over
+    16-entry tables of seeded random K/V (int8 pages with their scale plane
+    where `srv`'s arenas are int8), each at a mid-block position, so the
+    step's own K/V write opens and seals no block and lands the same bytes
+    every time."""
+    from repro_torch.models.attention import update_block_summaries
+    from repro_torch.models.stack import alloc_arena_kv
+    from repro_torch.serving import DevicePlacement
+    lm, B, nb, bs = srv.lm, 6, 16, 16
+    quant = srv.kv_arena.quant
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    layers = alloc_arena_kv(lm.cfg, lm.plan, B * nb + 1, bs, dev,
+                            quant=quant)
+    every = torch.arange(B * nb + 1, device=dev)
+    for e in layers:
+        for n in ("k", "v"):
+            if quant:
+                e[n].copy_(torch.randint(-127, 128, e[n].shape, generator=g,
+                                         device=dev, dtype=torch.int8))
+                e[n + "tok"].copy_(torch.rand(e[n + "tok"].shape,
+                                              generator=g, device=dev) / 64)
+            else:
+                e[n].copy_(torch.randn(e[n].shape, generator=g, device=dev))
+        update_block_summaries(e["kmin"], e["kmax"], e["kmean"], e["k"],
+                               every, k_scale=e.get("kscale"),
+                               k_tok=e.get("ktok"))
+    cache = {"layers": layers, "pos": 0}
+    tables = torch.arange(1, B * nb + 1, dtype=torch.int32,
+                          device=dev).reshape(B, nb)
+    pos = torch.tensor([200, 37, 101, 250, 5, 133], dtype=torch.int32,
+                       device=dev)           # offsets in block: 8, 5 or 10
+    S = P7_K + 1 if verify else 1
+    toks = torch.randint(0, lm.cfg.vocab_size, (B, S), generator=g,
+                         device=dev, dtype=torch.int32)
+    out = torch.empty((B, S, lm.cfg.vocab_size) if verify else
+                      (B, lm.cfg.vocab_size), dtype=torch.float32,
+                      device=dev)
+
+    def step(key, out):
+        if verify:
+            logits = lm.verify(srv.params, cache, toks, pos,
+                               block_tables=tables)[0]
+        else:
+            logits = lm.decode(srv.params, cache, toks, pos[:, None],
+                               block_tables=tables, tables=srv.tables)[1]
+        return out.copy_(logits)
+
+    entry = DevicePlacement.of(dev).hot_loop(step, name="check.logits")
+    eager = entry((nb, True), (out,)).clone()
+    entry((nb, True), (out,))                 # capture, then one replay
+    torch.cuda.synchronize()
+    assert dev.type != "cuda" or entry.replays[(nb, True)] == 1
+    return float((out - eager).abs().max())
+
+
+def serve_eager(dev, log, cfg, served, spec, quant):
+    """Phase 10: phase 3 (prefix reuse on), phase 7 (speculation on) and
+    phase 9 (a) served again with `capture=False` on the same seed-0
+    weights and traffic. Greedy streams must equal the captured runs' bit
+    for bit; the launch counts obey the same formulas; the largest logits
+    difference of one captured step against eager is reported, and TPOT
+    and host seconds per decode round both ways."""
+    from repro_torch.core.proxy import SamplingParams
+    from repro_torch.kernels.paged_decode import paged_decode
+    from repro_torch.kernels.paged_prefill import paged_prefill
+    from repro_torch.kernels.spec_verify import spec_verify
+    from repro_torch.serving import DevicePlacement
+    from repro_torch.serving.quant import QuantConfig
+    from repro_torch.serving.spec import SpecConfig
+    n_layers = cfg.n_layers
+    cases = []
+    prompts, base = workload(cfg.vocab_size)
+    rng = np.random.default_rng(11)
+    prompts += [base + tuple(int(t) for t in rng.integers(0, cfg.vocab_size,
+                                                          64))
+                for _ in range(2)]
+    p3 = [SamplingParams(max_tokens=4)] * 12 + [
+        SamplingParams(temperature=0.9, top_k=64, top_p=0.95, seed=900 + i,
+                       max_tokens=4) for i in (12, 13)]
+    warm3 = (workload(cfg.vocab_size, seed=8)[0], SamplingParams(
+        max_tokens=4))
+    cases.append(("phase3_all_full", {}, prompts, p3, warm3, 12, served,
+                  False))
+    sp_prompts, sp_params = spec_workload(cfg.vocab_size)
+    sp_warm = (spec_workload(cfg.vocab_size, seed=42)[0][:2],
+               SamplingParams(max_tokens=8))
+    cases.append(("phase7_spec_on", {"spec": SpecConfig(k=P7_K)},
+                  sp_prompts, sp_params, sp_warm, 6,
+                  spec["runs"]["spec_on"], True))
+    q_prompts, q_params = quant_workload(cfg.vocab_size)
+    cases.append(("phase9a_int8", {"quant": QuantConfig()}, q_prompts,
+                  q_params, warm3, 12, quant, False))
+    out, weights = {}, None
+    for name, knobs, prompts, params, warm, n_greedy, cap, verify in cases:
+        srv = build_server(cfg, True, dev, params=weights,
+                           placement=DevicePlacement.of(dev, capture=False),
+                           **knobs)
+        weights = srv.params
+        list(srv.generate(warm[0], warm[1]))
+        reset_stats(srv)
+        hl0 = hot_loops(srv)
+        for k in (paged_prefill, paged_decode, spec_verify):
+            k.launches = k.int8_launches = 0
+        streams, finished, summ, wall = drive(srv, prompts, params)
+        ps, ds = srv.prefills[0].stats, srv.decodes[0].stats
+        hl = check_hot_loops(srv, hl0, dev)
+        assert all(v["captures"] == v["replays"] == 0
+                   for n, v in hl.items() if n != "pool_gb"), hl
+        assert len(finished) == len(prompts), finished
+        assert ds["host_fetches"] == ds["steps"] > 0, ds
+        verifies = ds.get("spec_verifies", 0)
+        if dev.type == "cuda":          # the counts move only on the card
+            assert paged_prefill.launches == ps["chunks"] * n_layers > 0
+            assert paged_decode.launches == \
+                (ds["steps"] - verifies) * n_layers
+            assert spec_verify.launches == verifies * n_layers
+            if "quant" in knobs:
+                assert paged_decode.int8_launches == paged_decode.launches
+        assert streams[:n_greedy] == cap["streams"][:n_greedy], \
+            f"{name}: greedy streams differ between capture and eager"
+        diff = capture_logits_diff(srv, dev, verify=verify)
+        cm = cap["metrics"] if "metrics" in cap else cap["reuse_on"]
+        out[name] = {
+            "greedy_streams_equal": True,
+            "sampled_streams_equal": streams[n_greedy:]
+            == cap["streams"][n_greedy:],
+            "logits_max_abs_diff": diff,
+            "captured": {"tpot_mean_ms": cm["tpot_mean_ms"],
+                         "host_s_per_round": cap["host_s_per_round"],
+                         "steps": cap["decode_steps"]},
+            "eager": {"tpot_mean_ms": summ["tpot_mean_ms"],
+                      "host_s_per_round": ds["busy_s"] / ds["steps"],
+                      "steps": ds["steps"], "wall_s": wall},
+            "hot_loops": hl}
+        log.append(f"{name}: served eagerly in {wall:.2f} s; "
+                   f"{n_greedy} greedy streams equal the captured run's")
+        del srv
+        torch.cuda.empty_cache()
+    return out
 
 
 # ----------------------------------------------------------------------
@@ -2580,6 +2811,10 @@ def main() -> int:
     print(f"  prefix reuse off: TTFT mean {off['ttft_mean'] * 1e3:.2f} ms, "
           f"TPOT mean {off['tpot_mean_ms']:.2f} ms, {off['ttt_tok_s']:.1f} "
           f"tok/s; greedy streams identical [{smi}]")
+    print(f"  hot loops (reuse on): {hot_loop_line(served['hot_loops'])}; "
+          f"host {served['host_s_per_round'] * 1e3:.2f} ms per decode round")
+    print(f"  hot loops (reuse off): "
+          f"{hot_loop_line(served['hot_loops_reuse_off'])}")
     log.clear()
 
     report["reduced"] = cross_check_reduced(dev, log)
@@ -2608,6 +2843,8 @@ def main() -> int:
               f"{m['tpot_mean_ms']:.2f} ms p99 {m['tpot_p99_ms']:.2f} ms, "
               f"{m['ott_tok_s']:.1f} output tok/s, {m['ttt_tok_s']:.1f} total "
               f"tok/s over {m['wall_s']:.2f} s [{smi}]")
+        print(f"  {name} KV: hot loops: {hot_loop_line(r['hot_loops'])}; "
+              f"host {r['host_s_per_round'] * 1e3:.2f} ms per decode round")
     print(f"  greedy streams identical across layouts: "
           f"{omni['greedy_streams_identical']} "
           f"(near-ties {omni['near_ties']})")
@@ -2638,6 +2875,8 @@ def main() -> int:
               f"{m['tpot_mean_ms']:.2f} ms p99 {m['tpot_p99_ms']:.2f} ms, "
               f"{m['ttt_tok_s']:.1f} total tok/s over {m['wall_s']:.2f} s "
               f"[{smi}]")
+        print(f"  {name}: hot loops: {hot_loop_line(r['hot_loops'])}; host "
+              f"{r['host_s_per_round'] * 1e3:.2f} ms per decode round")
     print(f"  greedy streams with a budget of width - 1 equal top-k off: "
           f"True; top-k 0.25 streams equal top-k off: "
           f"{topk['frac_streams_equal_off']}/6")
@@ -2661,6 +2900,8 @@ def main() -> int:
               f"{m['tpot_mean_ms']:.2f} ms p99 {m['tpot_p99_ms']:.2f} ms, "
               f"{m['ott_tok_s']:.1f} output tok/s over {m['wall_s']:.2f} s "
               f"[{smi}]")
+        print(f"  {name}: hot loops: {hot_loop_line(r['hot_loops'])}; host "
+              f"{r['host_s_per_round'] * 1e3:.2f} ms per decode round")
     print(f"  streams identical with speculation on and off: "
           f"{spec['streams_identical']} (near-ties {spec['near_ties']})")
 
@@ -2699,6 +2940,9 @@ def main() -> int:
           f"{mg['seconds']:.3f} s: greedy streams identical to (a) bit for "
           f"bit; sampled streams identical "
           f"{mg['sampled_streams_identical']} [{smi}]")
+    print(f"  (a) hot loops: {hot_loop_line(moe['hot_loops'])}; host "
+          f"{moe['host_s_per_round'] * 1e3:.2f} ms per decode round")
+    print(f"  (b) hot loops: {hot_loop_line(mg['hot_loops'])}")
 
     log.clear()
 
@@ -2737,10 +2981,37 @@ def main() -> int:
               f"{m['tpot_mean_ms']:.2f} ms [{smi}]")
     print(f"  (b) streams equal with speculation on and off (near-ties "
           f"{quant['spec_near_ties']}); (c) {quant['preemption']}")
+    print(f"  (a) hot loops: {hot_loop_line(quant['hot_loops'])}; host "
+          f"{quant['host_s_per_round'] * 1e3:.2f} ms per decode round; "
+          f"float32 server: {hot_loop_line(quant['hot_loops_f32'])}")
+    for name, r in quant["spec"].items():
+        print(f"  (b) {name}: hot loops: {hot_loop_line(r['hot_loops'])}")
+    log.clear()
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    eager = serve_eager(dev, log, cfg, served, spec, quant)
+    print(f"phase 10 [{time.monotonic() - t0:.1f} s]: phases 3, 7 (spec "
+          f"on) and 9 (a) again with capture=False")
+    for line in log:
+        print("  " + line)
+    for name, r in eager.items():
+        c, e = r["captured"], r["eager"]
+        print(f"  {name}: greedy streams equal bit for bit, sampled "
+              f"{r['sampled_streams_equal']}; one step's logits, captured "
+              f"vs eager: max |diff| {r['logits_max_abs_diff']:.3g}; TPOT "
+              f"mean {c['tpot_mean_ms']:.2f} ms captured / "
+              f"{e['tpot_mean_ms']:.2f} ms eager; host "
+              f"{c['host_s_per_round'] * 1e3:.2f} / "
+              f"{e['host_s_per_round'] * 1e3:.2f} ms per decode round "
+              f"({c['steps']} / {e['steps']} steps) [{smi}]")
+
+    for rec in (served, spec["runs"]["spec_on"], spec["runs"]["spec_off"],
+                quant):
+        rec.pop("streams", None)
     report.update(kernels=kern, kernels_int8=kern_q, serve=served,
                   default_pattern=omni, topk=topk, spec=spec, moe=moe,
-                  quant=quant)
+                  quant=quant, eager=eager)
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 

@@ -1,10 +1,57 @@
-"""Argument checks shared by the kernel wrappers."""
+"""Argument checks shared by the kernel wrappers, and the one list of their
+launch counters."""
 from __future__ import annotations
+
+import importlib
 
 import torch
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128)
+
+# Every launch counter of the kernel wrappers, as (module, wrapper,
+# attribute): a wrapper adds one where it launches its kernel on the card.
+# The counters live in Python, so a CUDA-graph replay does not advance
+# them; the hot-loop entries (serving/placement.py) read them around a
+# capture through this list and add the capture's deltas at each replay.
+# A new counted kernel goes here.
+LAUNCH_COUNTERS = (
+    ("paged_decode", "paged_decode", "launches"),
+    ("paged_decode", "paged_decode", "int8_launches"),
+    ("paged_prefill", "paged_prefill", "launches"),
+    ("paged_prefill", "paged_prefill", "int8_launches"),
+    ("flash_prefill", "flash_prefill", "launches"),
+    ("sink_decode", "sink_decode", "launches"),
+    ("spec_verify", "spec_verify", "launches"),
+    ("spec_verify", "spec_verify", "int8_launches"),
+    ("block_topk", "block_topk_scores", "launches"),
+    ("moe_gmm", "moe_gmm", "launches"))
+
+
+def _wrapper(module: str, name: str):
+    return getattr(importlib.import_module(f"repro_torch.kernels.{module}"),
+                   name)
+
+
+def launch_counts() -> dict:
+    """{"wrapper.attribute": count} of every counter in LAUNCH_COUNTERS."""
+    return {f"{n}.{a}": getattr(_wrapper(m, n), a)
+            for m, n, a in LAUNCH_COUNTERS}
+
+
+def count_delta(before: dict, after: dict) -> dict:
+    """after - before, per counter, leaving out the counters that did not
+    move."""
+    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+def add_launch_counts(delta: dict, sign: int = 1) -> None:
+    """Add `sign` × delta to the counters (sign -1 takes it back)."""
+    for m, n, a in LAUNCH_COUNTERS:
+        k = f"{n}.{a}"
+        if k in delta:
+            fn = _wrapper(m, n)
+            setattr(fn, a, getattr(fn, a) + sign * delta[k])
 
 
 def kernel_arg(t: torch.Tensor, device: torch.device, dtype=None

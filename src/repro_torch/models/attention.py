@@ -420,7 +420,7 @@ def _quant_scatter(entry, k_new, v_new, blk, off, opened, filled):
     b, o = blk[:, None], off[:, None]
     for name, new in (("k", k_new), ("v", v_new)):
         q, ts = quant_tokens(new)
-        entry[name + "scale"][opened] = 0.0
+        entry[name + "scale"].index_fill_(0, opened, 0.0)
         entry[name][b, ki, o] = q
         entry[name + "tok"][b, ki, o] = ts
         seal_blocks(entry[name], entry[name + "scale"], entry[name + "tok"],

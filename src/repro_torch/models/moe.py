@@ -35,7 +35,7 @@ from repro_torch.models.common import swiglu
 
 
 # ----------------------------------------------------------------------
-# Placement tables (swapped as a whole at migration time)
+# Placement tables (rewritten in place at migration time)
 def tables_from_replicas(reps: list, slot_expert: np.ndarray,
                          device) -> dict:
     """reps[e]: expert e's (rank, slot) replicas; slot_expert [R, s] → the
@@ -57,6 +57,19 @@ def tables_from_replicas(reps: list, slot_expert: np.ndarray,
     return {k: torch.from_numpy(v).to(device) for k, v in (
         ("rep_rank", rep_rank), ("rep_slot", rep_slot), ("n_rep", n_rep),
         ("slot_expert", slot_expert.astype(np.int32)))}
+
+
+def pad_replicas(tables: dict) -> dict:
+    """`tables` with the replica lists padded round-robin to R·s columns,
+    the most replicas a placement over these slots can give an expert (the
+    router reads only the first n_rep of a row, so the lookups are those of
+    `tables`). The tables of every placement then have the same shapes: a
+    migration rewrites the serving tables in place."""
+    n = tables["n_rep"].long().clamp(min=1)
+    width = tables["slot_expert"].numel()
+    col = torch.arange(width, device=n.device)[None] % n[:, None]
+    return dict(tables, **{k: torch.gather(tables[k], 1, col)
+                           for k in ("rep_rank", "rep_slot")})
 
 
 def tables_from_placement(placement: np.ndarray, n_slots: int,

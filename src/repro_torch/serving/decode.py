@@ -32,6 +32,16 @@ accumulators) lives
 on the device and is updated in place by the step, so a decode step does
 exactly ONE device→host fetch: the sampled tokens, or the packed verify
 window (`host_fetches == steps`).
+
+The decode step and the verify step are hot-loop entries of the placement
+(`DevicePlacement.hot_loop`): on `cuda` each is one captured CUDA graph per
+key, replayed every step. The key is (table bucket nb, or None on the
+slot-dense layout; all_greedy), the only Python values that reach a
+captured op besides the engine's fixed shapes. Everything else the steps
+read or write is static for the engine's life: the slot state, the arenas
+and ring runs, one [n_slots, nb] table buffer per bucket (filled from a
+pinned host copy), the verify step's draft buffers, and the static outputs
+the single fetch reads.
 """
 from __future__ import annotations
 
@@ -75,8 +85,8 @@ class DecodeEngine:
     placement: Optional[DevicePlacement] = None
     spec: Optional[SpecConfig] = None   # model-free speculative decoding
     spec_radix: Optional[object] = None  # proxy RadixTree for draft lookup
-    tables: Optional[dict] = None     # MoE placement tables (swapped by
-                                      # the server at migration)
+    tables: Optional[dict] = None     # MoE placement tables (rewritten in
+                                      # place by the server at migration)
     stats: dict = field(default_factory=lambda: {
         "steps": 0, "tokens": 0, "busy_s": 0.0, "kv_transfer_bytes": 0,
         "kv_transfer_bytes_padded": 0, "handoff_copy_bytes": 0,
@@ -100,9 +110,12 @@ class DecodeEngine:
                 cfg, plan, self.n_slots, self.max_len, self.block_size, dev)
             self.tables_h = np.zeros((self.n_slots, self.max_blocks),
                                      np.int32)
-            self._tbl_dev = torch.from_numpy(self.tables_h).to(dev)
-            self._tbl_bucket = self.max_blocks
-            self._tbl_dirty = False
+            # one static device table per bucket nb, each with its pinned
+            # host staging copy: the captured steps read the table in place
+            self._tbl_bufs: dict = {}
+            self._tbl_dev = None
+            self._tbl_bucket = None
+            self._tbl_dirty = True
             # online top-k block selection, resolved once from
             # cfg.omniattn (the layers read the same config)
             self.sparsity = SparsityController.from_model(
@@ -189,11 +202,46 @@ class DecodeEngine:
             # take_spec_stats()
             self.state["spec"] = torch.zeros(4, dtype=torch.float32,
                                              device=dev)
+        # the static outputs the per-step fetch reads, and the hot-loop
+        # entries of the two steps
+        self._next = torch.zeros(n, dtype=torch.int32, device=dev)
+        self._step = self.placement.hot_loop(self._step_impl,
+                                             name="decode.step")
+        if self.spec_ctl is not None:
+            k = self.spec_ctl.k
+            self._drafts = (torch.zeros((n, k), dtype=torch.int32,
+                                        device=dev), self._stage((n, k)))
+            self._dlen = (torch.zeros(n, dtype=torch.int32, device=dev),
+                          self._stage((n,)))
+            self._packed = torch.zeros((n, k + 2), dtype=torch.int32,
+                                       device=dev)
+            self._verify = self.placement.hot_loop(self._verify_impl,
+                                                   name="decode.verify")
         self.pos_h = np.zeros(n, np.int64)      # next write position
         self.tok_h = np.zeros(n, np.int64)      # current input token
         self.tokens_h = np.zeros(n, np.int64)   # pool-accounted tokens
         self.greedy_h = np.ones(n, bool)        # slot temperature <= 0
         self.preempted: list = []   # (rid, cache_one, next_tok, pos)
+
+    # ---- static buffers ----------------------------------------------
+    def _stage(self, shape) -> torch.Tensor:
+        """An int32 host staging copy, pinned on the card."""
+        return torch.zeros(shape, dtype=torch.int32,
+                           pin_memory=self.device.type == "cuda")
+
+    @staticmethod
+    def _upload(buf_stage: tuple, arr) -> torch.Tensor:
+        """Copy the host int array `arr` into a static device buffer
+        through its pinned staging copy (buf_stage = (buffer, staging)).
+        The previous step's fetch has synchronised the stream, so no
+        earlier copy still reads the staging copy."""
+        buf, stage = buf_stage
+        stage.numpy()[...] = arr
+        buf.copy_(stage, non_blocking=True)
+        return buf
+
+    def _all_greedy(self) -> bool:
+        return bool(all(self.greedy_h[s] for s in self.slot_rid))
 
     # ---- arena compose -----------------------------------------------
     def _full_cache(self):
@@ -341,8 +389,13 @@ class DecodeEngine:
             cur = max(cur, self.pool.blocks_for(int(self.tokens_h[slot])))
         nb = min(_bucket(cur, lo=8), self.max_blocks)
         if self._tbl_dirty or nb != self._tbl_bucket:
-            self._tbl_dev = torch.from_numpy(
-                np.ascontiguousarray(self.tables_h[:, :nb])).to(self.device)
+            if nb not in self._tbl_bufs:
+                self._tbl_bufs[nb] = (
+                    torch.zeros((self.n_slots, nb), dtype=torch.int32,
+                                device=self.device),
+                    self._stage((self.n_slots, nb)))
+            self._tbl_dev = self._upload(self._tbl_bufs[nb],
+                                         self.tables_h[:, :nb])
             self._tbl_bucket = nb
             self._tbl_dirty = False
 
@@ -455,14 +508,16 @@ class DecodeEngine:
         return out
 
     # ------------------------------------------------------------------
-    def _step_impl(self) -> torch.Tensor:
-        """The device side of one step: decode every slot, sample, advance
-        the slot state in place. → sampled tokens [n_slots] (on device)."""
+    def _step_impl(self, key, tbl, out) -> torch.Tensor:
+        """The device side of one step (the "decode.step" hot loop): decode
+        every slot, sample, advance the slot state in place. key (nb,
+        all_greedy); tbl the bucket's static table (None slot-dense); out
+        the static [n_slots] output. → out, the sampled tokens."""
+        all_greedy = key[1]
         st = self.state
         _, logits, aux = self.lm.decode(
             self.params, self._full_cache(), st["tok"][:, None],
-            st["pos"][:, None],
-            block_tables=self._tbl_dev if self.paged else None,
+            st["pos"][:, None], block_tables=tbl,
             token_mask=st["active"], tables=self.tables)
         if "sparsity" in st and aux["sparsity"]:
             st["sparsity"] += torch.stack(aux["sparsity"]).sum(dim=0)
@@ -471,15 +526,14 @@ class DecodeEngine:
         # the token after position pos sees pos + 1 context tokens: that is
         # the draw's counter, so a stream is a pure function of
         # (seed, position)
-        all_greedy = bool(all(self.greedy_h[s] for s in self.slot_rid))
         nxt = sample_tokens(logits, st["temp"], st["top_k"], st["top_p"],
                             st["key"], st["pos"] + 1, all_greedy=all_greedy)
         act = st["active"]
         st["pos"] += act.to(torch.int32)
-        st["tok"] = torch.where(act, nxt, st["tok"])
-        return nxt
+        st["tok"].copy_(torch.where(act, nxt, st["tok"]))
+        return out.copy_(nxt)
 
-    def _verify_impl(self, drafts, draft_len) -> torch.Tensor:
+    def _verify_impl(self, key, tbl, drafts, draft_len, out) -> torch.Tensor:
         """The device side of one speculative step: feed every slot's window
         [current token, draft_1..draft_k] through the read-only verify
         forward, accept the longest draft prefix equal to the model's own
@@ -487,19 +541,20 @@ class DecodeEngine:
         positions never touch a block or its summary. Position 0 reproduces
         the single-token step (greedy slots take the same argmax, sampled
         slots draw with the same (key, pos + 1) fold), so the emitted stream
-        equals non-speculative decode under any draft source. drafts [B, k],
-        draft_len [B] int32 (device). → packed [B, k+2] (on device): the
-        emitted tokens, then the per-slot emit count."""
+        equals non-speculative decode under any draft source. The
+        "decode.verify" hot loop: key (nb, all_greedy); tbl the bucket's
+        static table; drafts [B, k], draft_len [B] int32 static buffers;
+        out the static [B, k+2] output. → out, packed: the emitted tokens,
+        then the per-slot emit count."""
+        all_greedy = key[1]
         st = self.state
         B, k = drafts.shape
         act = st["active"]
         toks = torch.cat([st["tok"][:, None], drafts], dim=1)
         cache = self._full_cache()
         logits, staged, _ = self.lm.verify(self.params, cache, toks,
-                                           st["pos"],
-                                           block_tables=self._tbl_dev)
+                                           st["pos"], block_tables=tbl)
         greedy = logits.float().argmax(dim=-1).to(torch.int32)   # [B, k+1]
-        all_greedy = bool(all(self.greedy_h[s] for s in self.slot_rid))
         nxt0 = sample_tokens(logits[:, 0], st["temp"], st["top_k"],
                              st["top_p"], st["key"], st["pos"] + 1,
                              all_greedy=all_greedy)
@@ -516,15 +571,14 @@ class DecodeEngine:
         new_tok = torch.where(
             act, emit[torch.arange(B, device=self.device), a.long()],
             st["tok"])
-        self.lm.verify_commit(cache, staged, st["pos"], n_emit,
-                              self._tbl_dev)
+        self.lm.verify_commit(cache, staged, st["pos"], n_emit, tbl)
         st["pos"] += n_emit
-        st["tok"] = new_tok
+        st["tok"].copy_(new_tok)
         actf = act.float()
         st["spec"] += torch.stack([
             (actf * draft_len.float()).sum(), (actf * a.float()).sum(),
             n_emit.sum().float(), torch.ones((), device=self.device)])
-        return torch.cat([emit, n_emit[:, None]], dim=1)
+        return out.copy_(torch.cat([emit, n_emit[:, None]], dim=1))
 
     def take_sparsity_stats(self):
         """Fetch and reset the device-side online-sparsity window and fold
@@ -631,9 +685,10 @@ class DecodeEngine:
             self.tokens_h[slot] = want
         self.stats["blocks_touched"] += touched
         self._refresh_tables()
-        packed = self._verify_impl(
-            torch.from_numpy(drafts_h).to(self.device),
-            torch.from_numpy(dlen_h).to(self.device))
+        packed = self._verify(
+            (self._tbl_bucket, self._all_greedy()),
+            (self._tbl_dev, self._upload(self._drafts, drafts_h),
+             self._upload(self._dlen, dlen_h), self._packed))
         packed_np = packed.cpu().numpy()   # the single per-step host fetch
         self.stats["host_fetches"] += 1
         out = {}
@@ -686,7 +741,9 @@ class DecodeEngine:
         t0 = time.monotonic()
         if self.paged:
             self._refresh_tables()
-        nxt = self._step_impl()
+        nxt = self._step((self._tbl_bucket if self.paged else None,
+                          self._all_greedy()),
+                         (self._tbl_dev if self.paged else None, self._next))
         next_np = nxt.cpu().numpy()        # the single per-step host fetch
         self.stats["host_fetches"] += 1
         out = {}

@@ -22,7 +22,7 @@ repeat of the whole prompt.
 
 First tokens of every prompt finished in one engine round are sampled in
 one fused call with one host fetch. MoE layers route through the engine's
-`tables` (the server swaps them at a migration).
+`tables` (the server rewrites them in place at a migration).
 """
 from __future__ import annotations
 
@@ -104,8 +104,8 @@ class PrefillEngine:
     tree: Optional[RadixTree] = None  # share the proxy's per-instance tree
     block_size: int = 16              # accounting granularity (dense mode)
     placement: Optional[DevicePlacement] = None
-    tables: Optional[dict] = None     # MoE placement tables (swapped by
-                                      # the server at migration)
+    tables: Optional[dict] = None     # MoE placement tables (rewritten in
+                                      # place by the server at migration)
     stats: dict = field(default_factory=lambda: {
         "prefills": 0, "cache_hits": 0, "prefix_hits": 0, "reused_tokens": 0,
         "tokens": 0, "chunks": 0, "busy_s": 0.0, "host_fetches": 0,

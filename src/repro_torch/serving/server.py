@@ -30,7 +30,7 @@ routes through the server's OmniPlacement tables, and with
 `enable_placement` a DynamicScheduler reads the decode engines' expert
 counts every `placement_interval` decode rounds (the only host read of
 them) and, when it accepts a rebalance, `_apply_migration` re-slots the
-expert weights in place and swaps the tables. On one device (ep = 1) the
+expert weights and rewrites the tables, both in place. On one device (ep = 1) the
 imbalance is always 1.0, so the loop monitors and never rebalances;
 `_apply_migration` also takes a forced plan.
 
@@ -137,6 +137,9 @@ class Server:
         self.params = self.placement.place_params(params) \
             if params is not None else self.lm.init(seed)
         self.tables = self.lm.default_tables()
+        if self.tables is not None:
+            # fixed shapes: _apply_migration rewrites them in place
+            self.tables = moe_mod.pad_replicas(self.tables)
         self.proxy = OmniProxy(scfg.n_prefill, scfg.n_decode, scfg.oas)
         self.metrics = MetricsAggregator()
         # one shared paged-KV runtime for every engine: by default every
@@ -451,11 +454,14 @@ class Server:
 
     @torch.no_grad()
     def _apply_migration(self, plan):
-        """Re-slot the MoE expert weights for `plan`'s slot layout and swap
-        the tables. Layer by layer and tensor by tensor, in place: each
-        expert's canonical rows are gathered through the OLD tables' first
-        replica, then scattered into the new slot layout (two slot-sized
-        temporaries at a time, never a copy of the stack)."""
+        """Re-slot the MoE expert weights for `plan`'s slot layout and
+        rewrite the tables. Layer by layer and tensor by tensor, in place:
+        each expert's canonical rows are gathered through the OLD tables'
+        first replica, then scattered into the new slot layout (two
+        slot-sized temporaries at a time, never a copy of the stack). The
+        tables every engine holds are rewritten in place too (padded, every
+        placement's tables have the same shapes), so the decode step's
+        captured graphs read the new layout."""
         old = self.tables
         rr = old["rep_rank"][:, 0].long()
         rs = old["rep_slot"][:, 0].long()
@@ -465,10 +471,10 @@ class Server:
                 if k in p:
                     p[k].copy_(moe_mod.slots_from_canonical(p[k][rr, rs],
                                                             new_se))
-        self.tables = tables_from_placement_from_slots(
-            new_se, self.placement.device)
-        for eng in self.prefills + self.decodes:
-            eng.tables = self.tables
+        new = moe_mod.pad_replicas(tables_from_placement_from_slots(
+            new_se, self.placement.device))
+        for k, t in self.tables.items():
+            t.copy_(new[k])
         self.n_migrations += 1
         hist = self.placement_sched.history[-1] \
             if self.placement_sched is not None and \

@@ -1,0 +1,259 @@
+"""The port's hot-loop choke point on the CPU: `DevicePlacement.hot_loop`
+entries (the counterpart of the reference's `donate_jit` /
+`HotLoopRegistry`) count their calls per key and hold their static inputs
+to the storage of each key's first call; the decode engine's table buffers
+and slot state keep their storage across steps and bucket changes, with
+the new contents visible; a migration rewrites the MoE tables every engine
+holds in place; the launch-counter arithmetic the entries apply at each
+replay. Capture itself needs a card (tests/test_torch_capture_gpu.py);
+`capture=True` on the CPU raises.
+
+    PYTHONPATH=src JAX_PLATFORMS=cpu python -m pytest tests/test_torch_capture.py -q
+"""
+import importlib
+import pkgutil
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch.kernels as kpkg
+from repro_torch.configs import reduced_config
+from repro_torch.core.placement.migration import MigrationPlan
+from repro_torch.core.proxy import OASConfig, SamplingParams
+from repro_torch.kernels import _common
+from repro_torch.serving import DevicePlacement, Server, ServerConfig
+from repro_torch.serving.spec import SpecConfig
+
+torch.set_num_threads(2)
+
+SCFG = dict(n_prefill=1, n_decode=1, decode_slots=3, max_len=96,
+            chunk_tokens=16, prefill_tick_budget=32, kv_blocks=40,
+            kv_block_size=8, oas=OASConfig(defer_window=0.0))
+
+
+def _cfg(arch="qwen2-1.5b"):
+    return reduced_config(arch).with_updates(
+        compute_dtype="float32", param_dtype="float32", n_layers=2)
+
+
+def _server(cfg=None, **kw):
+    cfg = cfg or _cfg()
+    return Server(cfg, ServerConfig(**dict(SCFG, **kw)),
+                  pattern=[0] * cfg.n_layers, seed=0, device="cpu")
+
+
+# ---- the placement and its entries ------------------------------------
+def test_capture_is_off_on_the_cpu_and_cannot_be_asked_for():
+    pl = DevicePlacement.of("cpu")
+    assert pl.capture is False
+    assert DevicePlacement.of(pl) is pl
+    assert DevicePlacement.of(pl, capture=False) is pl
+    with pytest.raises(ValueError, match="CUDA"):
+        DevicePlacement.of("cpu", capture=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        DevicePlacement(torch.device("cpu"), capture=True)
+    with pytest.raises(ValueError, match="capture"):
+        DevicePlacement.of(pl, capture=True)
+    assert pl.graph_pool_bytes() == 0
+
+
+def test_entry_counts_calls_per_key_and_holds_static_inputs():
+    pl = DevicePlacement.of("cpu")
+    seen = []
+
+    def fn(key, x, out):
+        seen.append(key)
+        return out.copy_(x * key[0])
+
+    entry = pl.hot_loop(fn, name="t.step")
+    x, out = torch.arange(4.0), torch.zeros(4)
+    for key in [(2, True), (2, True), (3, False), (2, True)]:
+        res = entry(key, (x, out))
+        assert res is out and torch.equal(out, x * key[0])
+    assert seen == [(2, True), (2, True), (3, False), (2, True)]
+    assert entry.keys == [(2, True), (3, False)]
+    assert entry.eager == {(2, True): 3, (3, False): 1}
+    assert not entry.captures and not entry.replays and not entry.graphs
+    other = torch.zeros(4)
+    with pytest.raises(RuntimeError, match="static inputs"):
+        entry((2, True), (x, other))
+    with pytest.raises(RuntimeError, match="static inputs"):
+        entry((3, False), (x, torch.zeros(5)))
+    assert pl.hot_loops.names() == ["t.step"]
+    assert pl.hot_loops.called() == [entry]
+    assert pl.hot_loops.summary() == {"t.step": {
+        "keys": [(2, True), (3, False)], "eager": 4, "captures": 0,
+        "replays": 0}}
+
+
+# ---- launch counters ---------------------------------------------------
+def test_count_delta_arithmetic():
+    before = {"a.launches": 3, "b.launches": 7, "c.launches": 0}
+    after = {"a.launches": 5, "b.launches": 7, "c.launches": 28}
+    assert _common.count_delta(before, after) == {"a.launches": 2,
+                                                  "c.launches": 28}
+    assert _common.count_delta(after, after) == {}
+    snap = _common.launch_counts()
+    delta = {"paged_decode.launches": 28, "paged_decode.int8_launches": 28,
+             "moe_gmm.launches": 72}
+    try:
+        _common.add_launch_counts(delta)
+        now = _common.launch_counts()
+        assert _common.count_delta(snap, now) == delta
+        # a capture's own increments taken back, then three replays
+        _common.add_launch_counts(delta, sign=-1)
+        assert _common.launch_counts() == snap
+        for _ in range(3):
+            _common.add_launch_counts(delta)
+        assert _common.count_delta(snap, _common.launch_counts()) == {
+            k: 3 * v for k, v in delta.items()}
+    finally:
+        _common.add_launch_counts(_common.count_delta(
+            _common.launch_counts(), snap))
+    assert _common.launch_counts() == snap
+
+
+def test_every_launch_counter_is_listed():
+    """Each `launches` / `int8_launches` attribute of a kernel wrapper is in
+    LAUNCH_COUNTERS, so a replay advances it."""
+    listed = {(m, n, a) for m, n, a in _common.LAUNCH_COUNTERS}
+    found = set()
+    for info in pkgutil.iter_modules(kpkg.__path__):
+        mod = importlib.import_module(f"repro_torch.kernels.{info.name}")
+        for name, obj in vars(mod).items():
+            if callable(obj) and getattr(obj, "__module__", None) == \
+                    mod.__name__:
+                for attr in ("launches", "int8_launches"):
+                    if hasattr(obj, attr):
+                        found.add((info.name, name, attr))
+    assert found == listed
+    assert set(_common.launch_counts()) == {f"{n}.{a}"
+                                            for _, n, a in listed}
+
+
+# ---- the decode engine's static buffers ---------------------------------
+def _drive(srv, prompts, params, on_step=None):
+    for p, sp in zip(prompts, params):
+        srv.add_request(p, sp)
+    out = {}
+    while srv.proxy.inflight:
+        for o in srv.step():
+            out.setdefault(o.rid, []).extend(o.new_tokens)
+        if on_step is not None:
+            on_step()
+    return [out[r] for r in sorted(out)]
+
+
+def test_decode_buffers_keep_storage_across_steps_and_buckets():
+    """A 60-token prompt decoding 12 tokens crosses 64 (8 blocks of 8): the
+    table bucket goes 8 → 12 (16 capped at max_len's 12 blocks); once it
+    finishes the short requests take the bucket back to 8. Each bucket's
+    table buffer and the slot state keep their storage, and after each
+    step's refresh the buffer holds the host tables. Keys: (bucket,
+    all_greedy)."""
+    cfg = _cfg()
+    srv = _server(cfg)
+    eng = srv.decodes[0]
+    rng = np.random.default_rng(3)
+    prompts = [tuple(int(t) for t in rng.integers(0, cfg.vocab_size, n))
+               for n in (60, 10, 12, 9)]
+    params = [SamplingParams(max_tokens=12), SamplingParams(max_tokens=20),
+              SamplingParams(max_tokens=20),
+              SamplingParams(temperature=0.8, seed=5, max_tokens=6)]
+    st_ptrs = {k: v.data_ptr() for k, v in eng.state.items()}
+    next_ptr = eng._next.data_ptr()
+    trace = []
+
+    def check():
+        if eng._tbl_bucket is None:
+            return
+        nb = eng._tbl_bucket
+        buf = eng._tbl_bufs[nb][0]
+        assert eng._tbl_dev is buf
+        trace.append((nb, buf.data_ptr()))
+        # the step's refresh wrote the host tables into the buffer
+        if not eng._tbl_dirty:
+            np.testing.assert_array_equal(buf.numpy(), eng.tables_h[:, :nb])
+
+    streams = _drive(srv, prompts, params, on_step=check)
+    assert [len(s) for s in streams] == [12, 20, 20, 6]
+    assert {k: v.data_ptr() for k, v in eng.state.items()} == st_ptrs
+    assert eng._next.data_ptr() == next_ptr
+    buckets = [nb for nb, _ in trace]
+    assert eng.max_blocks == 12
+    assert 12 in buckets and buckets[-1] == 8
+    i12 = buckets.index(12)
+    assert 8 in buckets[:i12] and 8 in buckets[i12:]     # a bucket return
+    ptr_of = {}
+    for nb, ptr in trace:
+        assert ptr_of.setdefault(nb, ptr) == ptr
+    assert set(eng._tbl_bufs) == {8, 12}
+    summ = srv.placement.hot_loops.summary()
+    assert set(summ) == {"decode.step"}
+    s = summ["decode.step"]
+    assert {(8, True), (8, False), (12, True)} <= set(s["keys"])
+    assert all(k[0] in (8, 12) for k in s["keys"])
+    assert s["eager"] == eng.stats["steps"] == eng.stats["host_fetches"]
+    assert s["captures"] == s["replays"] == 0
+
+
+def test_slot_dense_step_key_has_no_bucket():
+    cfg = _cfg()
+    srv = _server(cfg, paged_kv=False, chunked_prefill=False)
+    rng = np.random.default_rng(4)
+    prompts = [tuple(int(t) for t in rng.integers(0, cfg.vocab_size, 9))
+               for _ in range(2)]
+    _drive(srv, prompts, [SamplingParams(max_tokens=4)] * 2)
+    s = srv.placement.hot_loops.summary()["decode.step"]
+    assert s["keys"] == [(None, True)]
+    assert s["eager"] == srv.decodes[0].stats["steps"]
+
+
+def test_verify_entry_serves_the_speculative_steps():
+    """With speculation the verify window goes through "decode.verify" and
+    the single-token fallback through "decode.step"; the draft buffers and
+    the packed output keep their storage."""
+    cfg = _cfg()
+    srv = _server(cfg, spec=SpecConfig(k=3))
+    eng = srv.decodes[0]
+    ptrs = [t.data_ptr() for t in (eng._drafts[0], eng._dlen[0],
+                                   eng._packed)]
+    rng = np.random.default_rng(5)
+    phrase = tuple(int(t) for t in rng.integers(0, cfg.vocab_size, 6))
+    prompts = [phrase * 5, phrase[::-1] * 5]
+    _drive(srv, prompts, [SamplingParams(max_tokens=16)] * 2)
+    srv.drain_decode_stats()
+    summ = srv.placement.hot_loops.summary()
+    ds = eng.stats
+    assert summ["decode.verify"]["eager"] == ds["spec_verifies"] > 0
+    assert summ["decode.step"]["eager"] == ds["steps"] - ds["spec_verifies"]
+    assert [t.data_ptr() for t in (eng._drafts[0], eng._dlen[0],
+                                   eng._packed)] == ptrs
+
+
+# ---- migration ---------------------------------------------------------
+def test_apply_migration_rewrites_tables_in_place():
+    cfg = reduced_config("qwen2-moe-a2.7b").with_updates(
+        compute_dtype="float32", param_dtype="float32")
+    srv = _server(cfg, enable_placement=False)
+    tables = srv.tables
+    ids = {k: (id(t), t.data_ptr(), tuple(t.shape)) for k, t in
+           tables.items()}
+    old = {k: t.clone() for k, t in tables.items()}
+    se = old["slot_expert"].numpy()
+    new = se[:, ::-1].copy()
+    srv._apply_migration(MigrationPlan(se, new, tuple(
+        (0, i, int(new[0, i])) for i in range(new.shape[1])), new.shape[1]))
+    for eng in srv.prefills + srv.decodes:
+        assert eng.tables is tables
+    assert srv.tables is tables
+    assert {k: (id(t), t.data_ptr(), tuple(t.shape)) for k, t in
+            tables.items()} == ids
+    np.testing.assert_array_equal(tables["slot_expert"].numpy(), new)
+    assert not torch.equal(tables["rep_slot"], old["rep_slot"])
+    # the first replica of each expert now points at its reversed slot
+    s = new.shape[1]
+    for e in range(cfg.moe.n_experts):
+        j = int(old["rep_slot"][e, 0])
+        assert int(tables["rep_slot"][e, 0]) == s - 1 - j

@@ -1,0 +1,259 @@
+"""CUDA-graph capture of the port's decode and verify steps, on the card.
+
+Marked `gpu`: they skip without a CUDA device. Each serving test runs the
+same reduced-width server (2 layers, seed-0 weights) twice on the same
+traffic through `add_request`/`step`: once with the hot-loop entries
+captured and replayed (the default on `cuda`) and once eagerly
+(`DevicePlacement.of("cuda", capture=False)`). Greedy and sampled streams,
+every slot-state tensor (tokens, positions, the sparsity, speculation and
+MoE-count accumulators), the metrics' drained stats, the arenas outside
+the null block 0 (int8 payload and scale plane too), the ring runs or
+dense caches, and the kernels' launch counts must be equal, exactly. The
+five decode paths (paged float32, paged int8, online top-k, MoE with a
+forced migration, slot-dense) and the verify step are covered. Also: the
+fused top-k launch (a cluster launch) replayed from a graph equals its
+eager launch, and an exception inside a capture propagates (no fallback).
+This file imports neither jax nor the JAX package:
+
+    PYTHONPATH=src python -m pytest --noconftest -o markers=gpu -q tests/test_torch_capture_gpu.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import reduced_config
+from repro_torch.core.placement.migration import MigrationPlan
+from repro_torch.core.proxy import OASConfig, SamplingParams
+from repro_torch.kernels._common import count_delta, launch_counts
+from repro_torch.kernels.block_topk import block_topk_select
+from repro_torch.serving import DevicePlacement, Server, ServerConfig
+from repro_torch.serving.quant import QuantConfig
+from repro_torch.serving.spec import SpecConfig
+
+pytestmark = pytest.mark.gpu
+
+SCFG = dict(n_prefill=1, n_decode=1, decode_slots=4, max_len=128,
+            chunk_tokens=32, prefill_tick_budget=64, kv_blocks=64,
+            kv_block_size=8, oas=OASConfig(defer_window=0.0))
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA graphs)")
+    return torch.device("cuda")
+
+
+def _cfg(arch="qwen2-1.5b", **kw):
+    return reduced_config(arch).with_updates(
+        compute_dtype="float32", param_dtype="float32", n_layers=2, **kw)
+
+
+def _traffic(vocab, n=6, seed=7, long=40, phrase=False):
+    """Two of three prompts share a prefix (`long` tokens plus 8), the rest
+    are short; one sampled request. `phrase` repeats a 6-token phrase so
+    speculation has drafts."""
+    rng = np.random.default_rng(seed)
+    if phrase:
+        ph = [tuple(int(t) for t in rng.integers(0, vocab, 6))
+              for _ in range(n)]
+        prompts = [p * 6 for p in ph]
+    else:
+        base = tuple(int(t) for t in rng.integers(0, vocab, long))
+        prompts = [base + tuple(int(t) for t in rng.integers(0, vocab, 8))
+                   if i % 3 != 2 else
+                   tuple(int(t) for t in rng.integers(0, vocab, 6))
+                   for i in range(n)]
+    params = [SamplingParams(max_tokens=10)] * (n - 1) + [SamplingParams(
+        temperature=0.9, top_k=16, top_p=0.9, seed=3, max_tokens=10)]
+    return prompts, params
+
+
+def _serve(cfg, capture, traffic, migrate_at=None, pattern=None, **kw):
+    pl = DevicePlacement.of("cuda", capture=capture)
+    srv = Server(cfg, ServerConfig(**dict(SCFG, **kw)),
+                 pattern=pattern or [0] * cfg.n_layers, seed=0, placement=pl)
+    before = launch_counts()
+    prompts, params = traffic
+    for p, sp in zip(prompts, params):
+        srv.add_request(p, sp)
+    out, steps = {}, 0
+    while srv.proxy.inflight:
+        for o in srv.step():
+            out.setdefault(o.rid, []).extend(o.new_tokens)
+        steps += 1
+        if steps == migrate_at:
+            se = srv.tables["slot_expert"].cpu().numpy()
+            new = se[:, ::-1].copy()
+            srv._apply_migration(MigrationPlan(se, new, tuple(
+                (0, i, int(new[0, i])) for i in range(new.shape[1])),
+                new.shape[1]))
+    torch.cuda.synchronize()
+    counts = count_delta(before, launch_counts())
+    return srv, [out[r] for r in sorted(out)], counts
+
+
+def _equal_trees(a, b, what, skip_null=False):
+    if a is None or b is None:
+        assert a is None and b is None, what
+        return
+    if isinstance(a, dict):
+        assert a.keys() == b.keys(), what
+        for k in a:
+            _equal_trees(a[k], b[k], f"{what}.{k}", skip_null)
+        return
+    if isinstance(a, (list, tuple)):
+        assert len(a) == len(b), what
+        for i, (x, y) in enumerate(zip(a, b)):
+            _equal_trees(x, y, f"{what}[{i}]", skip_null)
+        return
+    if isinstance(a, torch.Tensor):
+        x, y = (a[1:], b[1:]) if skip_null else (a, b)
+        assert torch.equal(x, y), what
+        return
+    assert a == b, what
+
+
+def _check_modes(cfg, traffic, verify=False, **kw):
+    """Serve captured and eager; everything equal; → the captured server's
+    hot-loop summary."""
+    cap, s_cap, n_cap = _serve(cfg, True, traffic, **kw)
+    eag, s_eag, n_eag = _serve(cfg, False, traffic, **kw)
+    assert s_cap == s_eag and len(s_cap) == len(traffic[0])
+    assert n_cap == n_eag and n_cap
+    e_cap, e_eag = cap.decodes[0], eag.decodes[0]
+    _equal_trees(e_cap.state, e_eag.state, "state")
+    cap.drain_decode_stats()
+    eag.drain_decode_stats()
+    for k in ("blocks_scored", "blocks_attended", "spec_drafted",
+              "spec_accepted", "spec_verifies"):
+        assert e_cap.stats.get(k) == e_eag.stats.get(k), k
+    if cap.kv_arena is not None:
+        _equal_trees(cap.kv_arena.kv, eag.kv_arena.kv, "arena",
+                     skip_null=True)
+        cap.kv_arena.pool.check_invariants(arena=cap.kv_arena)
+    _equal_trees(e_cap.cache["layers"], e_eag.cache["layers"], "private")
+    if cap.tables is not None:
+        _equal_trees(cap.tables, eag.tables, "tables")
+    summ = cap.placement.hot_loops.summary()
+    assert summ["decode.step"]["replays"] > 0, summ
+    # a key met once runs only its eager call
+    assert 0 < summ["decode.step"]["captures"] <= \
+        len(summ["decode.step"]["keys"]), summ
+    if verify:
+        assert summ["decode.verify"]["replays"] > 0, summ
+    eager = eag.placement.hot_loops.summary()
+    assert all(v["captures"] == v["replays"] == 0 for v in eager.values())
+    assert cap.placement.graph_pool_bytes() > 0
+    assert e_cap.stats["host_fetches"] == e_cap.stats["steps"]
+    return summ
+
+
+def test_capture_paged_float32(cuda):
+    cfg = _cfg()
+    _check_modes(cfg, _traffic(cfg.vocab_size))
+
+
+def test_capture_paged_int8(cuda):
+    cfg = _cfg()
+    _check_modes(cfg, _traffic(cfg.vocab_size, seed=8, long=56),
+                 quant=QuantConfig())
+
+
+def test_capture_online_topk(cuda):
+    """~100-token contexts in blocks of 8: the table bucket is 16 and a
+    budget of 0.25 keeps 4 of its blocks, so the fused launch ranks and
+    compacts."""
+    cfg = _cfg(omniattn_topk_frac=0.25, omniattn_topk_sink_blocks=1,
+               omniattn_topk_recent_blocks=2)
+    summ = _check_modes(cfg, _traffic(cfg.vocab_size, seed=9, long=90))
+    assert any(k[0] == 16 for k in summ["decode.step"]["keys"])
+
+
+def test_capture_moe_with_forced_migration(cuda):
+    cfg = reduced_config("qwen2-moe-a2.7b").with_updates(
+        compute_dtype="float32", param_dtype="float32")
+    _check_modes(cfg, _traffic(cfg.vocab_size, seed=10), migrate_at=6,
+                 enable_placement=True, placement_interval=2)
+
+
+def test_capture_slot_dense(cuda):
+    cfg = _cfg()
+    _check_modes(cfg, _traffic(cfg.vocab_size, seed=11), paged_kv=False,
+                 chunked_prefill=False)
+
+
+def test_capture_verify(cuda):
+    cfg = _cfg()
+    _check_modes(cfg, _traffic(cfg.vocab_size, seed=12, phrase=True),
+                 verify=True, spec=SpecConfig(k=3))
+
+
+def test_block_topk_select_replayed_equals_eager(cuda):
+    """The fused top-k launch (a cluster per slot through
+    cudaLaunchKernelEx) captured in a graph: a replay writes the scores,
+    compacted tables, lens, counts, mask and stats of an eager launch on
+    the same inputs, bit for bit."""
+    rng = np.random.default_rng(0)
+    B, K, G, h, bs, nb, N = 6, 2, 6, 128, 16, 256, 6 * 256 + 1
+    q = torch.from_numpy(rng.standard_normal((B, K, G, h)).astype(
+        np.float32)).to(cuda)
+    lo = torch.from_numpy(rng.standard_normal((N, K, h)).astype(
+        np.float32)).to(cuda)
+    hi = lo + torch.from_numpy(rng.random((N, K, h)).astype(
+        np.float32)).to(cuda)
+    tables = torch.from_numpy(rng.permutation(N - 1)[:B * nb].reshape(
+        B, nb).astype(np.int32) + 1).to(cuda)
+    lens = torch.tensor([3968, 3970, 1, 17, 4096, 2000], dtype=torch.int32,
+                        device=cuda)
+    mask = torch.tensor([1, 1, 0, 1, 1, 1], dtype=torch.bool, device=cuda)
+    kw = dict(block_size=bs, k_static=64, frac=0.25, sink_blocks=1,
+              recent_blocks=2, token_mask=mask)
+    want = block_topk_select(q, lo, hi, tables, lens, **kw)
+    outs = tuple(torch.empty_like(t) for t in want)
+
+    def fn(key, *static):
+        got = block_topk_select(q, lo, hi, tables, lens, **kw)
+        for o, g in zip(static, got):
+            o.copy_(g)
+        return static
+
+    entry = DevicePlacement.of(cuda).hot_loop(fn, name="check.topk")
+    for o in outs:
+        o.zero_()
+    entry((nb,), outs)                      # eager
+    for o in outs:
+        o.zero_()
+    before = launch_counts()
+    entry((nb,), outs)                      # capture, then one replay
+    entry((nb,), outs)                      # replay
+    torch.cuda.synchronize()
+    assert entry.captures[(nb,)] == 1 and entry.replays[(nb,)] == 2
+    assert count_delta(before, launch_counts()) == {
+        "block_topk_scores.launches": 2}
+    for o, w in zip(outs, want):
+        assert torch.equal(o, w)
+
+
+def test_failed_capture_raises(cuda):
+    """An error inside the capture propagates; the key gets no graph and
+    the next call captures again (never an eager fallback)."""
+    x = torch.ones(8, device=cuda)
+    calls = []
+
+    def fn(key, out):
+        calls.append(key)
+        if len(calls) == 2:
+            raise RuntimeError("boom inside the capture")
+        return out.copy_(x * 2)
+
+    entry = DevicePlacement.of(cuda).hot_loop(fn, name="check.fail")
+    out = torch.zeros(8, device=cuda)
+    entry(("k",), (out,))
+    with pytest.raises(RuntimeError, match="boom"):
+        entry(("k",), (out,))
+    assert ("k",) not in entry.graphs and entry.eager[("k",)] == 1
+    entry(("k",), (out,))
+    torch.cuda.synchronize()
+    assert entry.captures[("k",)] == 1 and entry.eager[("k",)] == 1
+    assert torch.equal(out, x * 2)
