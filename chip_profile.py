@@ -47,8 +47,8 @@ import torch
 
 import chip_smoke as cs
 
-CELLS = ("all-full", "default-pattern", "topk", "all-full-quant",
-         "moe-full")
+CELLS = ("all-full", "default-pattern", "default-pattern-chunked", "topk",
+         "all-full-quant", "moe-full")
 KERNELS = ("paged_decode", "paged_prefill", "block_topk", "spec_verify",
            "flash_prefill", "sink_decode", "moe_gmm")
 CATEGORIES = (("moe_gmm", ("moe_gmm_kernel",)),
@@ -88,6 +88,21 @@ def dev_time(evt) -> float:
         if hasattr(evt, attr):
             return float(getattr(evt, attr))
     return 0.0
+
+
+def device_events(prof) -> dict:
+    """{kernel name: [device µs, calls]} of a torch.profiler session,
+    device-side events only (a CPU op's own device time would count its
+    kernels twice)."""
+    by_name = defaultdict(lambda: [0.0, 0])
+    for evt in prof.key_averages():
+        if getattr(evt, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        t = dev_time(evt)
+        if t > 0:
+            by_name[evt.key][0] += t
+            by_name[evt.key][1] += evt.count
+    return by_name
 
 
 def _op_counter():
@@ -138,12 +153,15 @@ def capture_pairs(build, workload, label, n) -> list:
     """Capture against eager in turns: n pairs of measured runs (eager
     first in even pairs), each on a fresh server `build(placement)` warmed
     on workload(8) and measured on workload(7), then a torch.profiler
-    session over one warmed capture run and one more pair. Each run
-    reports its wall, the host seconds in prefill and decode rounds, the
-    process time, and the prefill chunks' device backlog: what a
-    torch.cuda.synchronize() at each chunk's start waits (the chunk's own
-    token upload from pageable memory waits for the same, so the split
-    adds no wait)."""
+    session over one warmed capture run (its wall, device busy and idle
+    share) and one more pair. Each run reports its wall, the host seconds
+    in prefill and decode rounds and per chunk, the process time, and the
+    prefill chunks' device backlog: what a torch.cuda.synchronize() at
+    each chunk's start waits. An eager chunk's token upload from pageable
+    memory waits for the same, so there the split adds no wait; a captured
+    chunk uploads from pinned staging without waiting, and the sync moves
+    its round's wait for the device from the first-token fetch to the
+    chunks' starts."""
     from repro_torch.serving import DevicePlacement
     from repro_torch.serving.prefill import PrefillEngine
     run_chunk, acc = PrefillEngine._run_chunk, {"backlog_s": 0.0}
@@ -167,13 +185,16 @@ def capture_pairs(build, workload, label, n) -> list:
              "decode_host_s": ds["busy_s"], "steps": ds["steps"],
              "process_s": time.process_time() - c0,
              "backlog_s": acc["backlog_s"], "tpot_mean_ms":
-             summ["tpot_mean_ms"], "ttft_mean": summ["ttft_mean"]}
+             summ["tpot_mean_ms"], "ttft_mean": summ["ttft_mean"],
+             "host_ms_per_chunk": ps["busy_s"] * 1e3 / max(ps["chunks"],
+                                                            1)}
         print(f"{label}: {tag} {'capture' if capture else 'eager'}: wall "
               f"{wall:.3f} s, host in prefill / decode rounds "
               f"{r['prefill_host_s']:.3f} / {r['decode_host_s']:.3f} s "
               f"({r['chunks']} chunks, {r['steps']} steps), process time "
               f"{r['process_s']:.3f} s, prefill backlog "
-              f"{r['backlog_s']:.3f} s, TPOT {r['tpot_mean_ms']:.1f} ms")
+              f"{r['backlog_s']:.3f} s, TPOT {r['tpot_mean_ms']:.1f} ms, "
+              f"host {r['host_ms_per_chunk']:.2f} ms per chunk")
         del srv
         torch.cuda.empty_cache()
         return r
@@ -188,9 +209,17 @@ def capture_pairs(build, workload, label, n) -> list:
         list(srv.generate(*workload(8)))
         acts = [torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts):
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.monotonic()
             list(srv.generate(*workload(9)))
             torch.cuda.synchronize()
+            pwall = time.monotonic() - t0
+        busy = sum(t for t, _ in device_events(prof).values()) / 1e6
+        runs.append({"run": "profiled, capture", "wall_s": pwall,
+                     "device_busy_s": busy,
+                     "device_idle_share": 1.0 - busy / pwall})
+        print(f"{label}: profiled capture run: wall {pwall:.3f} s, device "
+              f"busy {busy:.3f} s, idle share {1.0 - busy / pwall:.3f}")
         del srv
         for cap in (False, True):
             runs.append(one(cap, "after a profiler session"))
@@ -258,16 +287,7 @@ def profile(srv, workload, smi: str, label: str) -> dict:
         list(srv.generate(*workload(9)))
         torch.cuda.synchronize()
         pwall = time.monotonic() - t0
-    by_name = defaultdict(lambda: [0.0, 0])
-    for evt in prof.key_averages():
-        # device-side events only (a CPU op's own device time would count
-        # its kernels twice)
-        if getattr(evt, "device_type", None) != torch.autograd.DeviceType.CUDA:
-            continue
-        t = dev_time(evt)
-        if t > 0:
-            by_name[evt.key][0] += t
-            by_name[evt.key][1] += evt.count
+    by_name = device_events(prof)
     busy_us = sum(t for t, _ in by_name.values())
     by_cat = defaultdict(float)
     for name, (t, _) in by_name.items():
@@ -291,6 +311,10 @@ def profile(srv, workload, smi: str, label: str) -> dict:
                                for k, (t, c) in per_call.items()}}
 
     rep["step_ops"] = count_step_ops(srv, workload)
+    if srv.prefills[0].chunked:
+        rep["measured"]["host_ms_per_chunk"] = \
+            ps["busy_s"] * 1e3 / max(ps["chunks"], 1)
+        rep["chunk_ops"] = cs.count_chunk_ops(srv, *workload(11))
     rep["hot_loops"] = hot_loop_summary(srv)
 
     m, p = rep["measured"], rep["profiled"]
@@ -307,6 +331,12 @@ def profile(srv, workload, smi: str, label: str) -> dict:
     print(f"{label}: aten ops dispatched per decode step over "
           f"{so['steps']} steps: mean {so['mean']:.1f}, median "
           f"{so['median']}, min {so['min']}, max {so['max']}")
+    if "chunk_ops" in rep:
+        co = rep["chunk_ops"]
+        print(f"{label}: host {m['host_ms_per_chunk']:.2f} ms per prefill "
+              f"chunk (measured run); aten ops dispatched per chunk over "
+              f"{co['chunks']} chunks: mean {co['mean']:.1f}, min "
+              f"{co['min']}, max {co['max']}")
     hl = rep["hot_loops"]
     if hl is None:
         print(f"{label}: no hot-loop entries in this tree")
@@ -368,9 +398,16 @@ def main() -> int:
             return prompts, [SamplingParams(max_tokens=4)] * len(prompts)
 
         srv = cs.build_server(cfg, True, dev)
+        weights = srv.params
+        if pairs:
+            del srv
+            rep["all_full_pairs"] = capture_pairs(
+                lambda pl: cs.build_server(cfg, True, dev, params=weights,
+                                           placement=pl),
+                shared_prefix, f"all-full [{smi}]", pairs)
+            srv = cs.build_server(cfg, True, dev, params=weights)
         rep.update(profile(srv, shared_prefix, smi,
                            "all-full, chunked paged"))
-        weights = srv.params
         del srv
         torch.cuda.empty_cache()
 
@@ -386,6 +423,29 @@ def main() -> int:
             weights = srv.params
             rep["default_pattern"][name] = profile(
                 srv, long_prompts, smi, f"pattern=None, {name} KV")
+            del srv
+            torch.cuda.empty_cache()
+
+    if "default-pattern-chunked" in cells:
+        def long_prompts(seed):
+            return cs.default_pattern_workload(cfg.vocab_size,
+                                               seed=20 + seed)
+
+        rep["default_pattern_chunked"] = {}
+        for paged in (True, False):
+            name = "paged" if paged else "dense"
+            try:
+                srv = cs.build_ring_chunk_server(cfg, paged, True, dev,
+                                                 params=weights)
+            except NotImplementedError as e:      # a tree without A20
+                print(f"pattern=None chunked, {name} KV: not served by "
+                      f"this tree ({e})")
+                rep["default_pattern_chunked"][name] = None
+                continue
+            weights = srv.params
+            rep["default_pattern_chunked"][name] = profile(
+                srv, long_prompts, smi,
+                f"pattern=None, prefill_sparse, chunked, {name} KV")
             del srv
             torch.cuda.empty_cache()
 
@@ -451,8 +511,21 @@ def main() -> int:
 
         srv = cs.build_server(mcfg, True, dev, enable_placement=True,
                               placement_interval=4)
+        moe_weights = srv.params
+        if pairs:
+            del srv
+            pair_runs = capture_pairs(
+                lambda pl: cs.build_server(
+                    mcfg, True, dev, params=moe_weights, placement=pl,
+                    enable_placement=True, placement_interval=4),
+                moe_traffic, f"moe-full [{smi}]", pairs)
+            srv = cs.build_server(mcfg, True, dev, params=moe_weights,
+                                  enable_placement=True,
+                                  placement_interval=4)
         rep["moe_full"] = profile(srv, moe_traffic, smi,
                                   "moe-full, qwen2-moe-a2.7b")
+        if pairs:
+            rep["moe_full"]["pairs"] = pair_runs
         rep["moe_full"]["peak_mem_gb"] = \
             torch.cuda.max_memory_allocated() / 1e9
         del srv

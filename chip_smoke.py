@@ -42,7 +42,9 @@ Phases (any failure raises, so the script exits non-zero):
   4. cross-check reduced-width servers on the card against the same servers
      on the CPU (plain versions): identical greedy streams, logits within
      2e-3 — all-full-attention chunked paged, the default OmniAttn pattern
-     in both KV layouts, a full/window stack with online top-k (equal
+     in both KV layouts, the mixed stack (window, compressed under
+     prefill_sparse, full) chunked in both KV layouts (equal across them
+     too), a full/window stack with online top-k (equal
      sparsity stats) and with speculative decoding (the ring commit), and
      int8 arenas alone, with speculation and with online top-k (summary and
      scale invariants on both devices);
@@ -90,16 +92,27 @@ Phases (any failure raises, so the script exits non-zero):
      with `DevicePlacement.of(dev, capture=False)`: greedy streams equal
      the captured runs' bit for bit, the launch counts obey the same
      formulas, and the largest logits difference of one decode step (one
-     verify window for phase 7), replayed from a captured graph against
-     eager on the same inputs, is reported beside TPOT and host seconds per
-     decode round both ways.
-Every serving phase of 3 and 5-9 serves under CUDA-graph capture, the
-default on `cuda`: the decode step and the verify step are hot-loop
-entries (`DevicePlacement.hot_loop`), one graph per key replayed each
-step, and the launch counts above advance by the replays. Each phase
-asserts that its decode entry (and the verify entry with speculation on)
-replayed in its measured run and reports keys, eager calls, captures and
-replays per entry and the bytes of the graph pool.
+     verify window for phase 7) and of one prefill chunk, replayed from a
+     captured graph against eager on the same inputs, is reported beside
+     TPOT and host seconds per decode round both ways, and host ms and
+     aten ops per prefill chunk both ways (the captured side on a new
+     server with the same weights, knobs and warm-up);
+ 11. serve full-width qwen2-1.5b under pattern=None with prefill_sparse
+     (21 compressed layers, sink 128 + recent 4096, and 7 full) on phase
+     5's traffic, (a) chunked (chunks of 128) over paged KV, (b) chunked
+     over dense KV (`paged_kv=False`) and (c) whole-prompt: completion,
+     pool invariants, one host fetch per decode step, paged_prefill ==
+     chunks x 7 in (a), "prefill.chunk" replayed in (a) and (b), greedy
+     streams equal across (a), (b) and (c) (phase 5's near-tie rule), and
+     the device time of one chunk's private-leaf copies.
+Every serving phase of 3, 5-9 and 11 serves under CUDA-graph capture, the
+default on `cuda`: the decode step, the verify step and the prefill chunk
+are hot-loop entries (`DevicePlacement.hot_loop`), one graph per key
+replayed each step or chunk, and the launch counts above advance by the
+replays. Each phase asserts that its decode entry (the verify entry with
+speculation on, and in phases 3, 8, 9 and 11 the chunk entry) replayed in
+its measured run and reports keys, eager calls, captures and replays per
+entry and the bytes of the graph pool.
 The last line of standard output is {"ok": true, "device": {...}}; the line
 before it is the per-kernel JSON record; the card's name and power limit
 (nvidia-smi) come before that. Details go to chiprun_out/chip_smoke.json.
@@ -1395,6 +1408,10 @@ def check_hot_loops(srv, before, dev, entries=("decode.step",)) -> dict:
     return out
 
 
+# the entries a server with chunked prefill replays in a measured run
+CHUNKED_ENTRIES = ("decode.step", "prefill.chunk")
+
+
 def hot_loop_line(hl) -> str:
     return "; ".join(f"{n}: {v['keys']} keys, {v['eager']} eager, "
                      f"{v['captures']} captures, {v['replays']} replays"
@@ -1476,7 +1493,7 @@ def serve(dev, log, cfg):
     paged_decode.launches = 0
     streams, finished, summ, wall = drive(srv, prompts, params)
     n_pre, n_dec = paged_prefill.launches, paged_decode.launches
-    hl = check_hot_loops(srv, hl0, dev)
+    hl = check_hot_loops(srv, hl0, dev, entries=CHUNKED_ENTRIES)
 
     ps, ds = srv.prefills[0].stats, srv.decodes[0].stats
     assert len(finished) == len(prompts) and all(
@@ -1496,7 +1513,7 @@ def serve(dev, log, cfg):
     hl0 = hot_loops(off)
     streams_off, finished_off, summ_off, wall_off = drive(off, prompts,
                                                           params)
-    hl_off = check_hot_loops(off, hl0, dev)
+    hl_off = check_hot_loops(off, hl0, dev, entries=CHUNKED_ENTRIES)
     assert len(finished_off) == len(prompts)
     assert streams[:12] == streams_off[:12], \
         "greedy streams differ with prefix reuse on and off"
@@ -1666,6 +1683,138 @@ def serve_default_pattern(dev, log, cfg):
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
 
 
+# ---- phase 11: chunked prefill over ring layers and dense KV ----------
+def build_ring_chunk_server(cfg, paged, chunked, dev, params=None):
+    """Phase 11's server: full-width qwen2-1.5b under pattern=None with
+    prefill_sparse (the 21 compressed layers attend sink + window in
+    prefill too, so a chunk over their rings is exact), max_len 4608, chunks
+    of 128 and phase 5's pool of (6 + 1) x 288 = 2016 blocks, in either KV
+    layout; chunked=False is whole-prompt prefill of the same model."""
+    from repro_torch.core.proxy import OASConfig
+    from repro_torch.serving import Server, ServerConfig
+    scfg = ServerConfig(decode_slots=6, max_len=P5_MAX_LEN, kv_block_size=16,
+                        prefix_reuse=True, prefix_cache_cap=4,
+                        kv_blocks=(6 + 1) * -(-P5_MAX_LEN // 16),
+                        chunk_tokens=128, prefill_tick_budget=512,
+                        paged_kv=paged, chunked_prefill=chunked,
+                        oas=OASConfig(defer_window=0.0))
+    return Server(cfg.with_updates(prefill_sparse=True), scfg, pattern=None,
+                  params=params, seed=0, device=dev)
+
+
+def serve_ring_chunks(dev, log, cfg, timer):
+    """Phase 11 on `cfg` (full-width qwen2-1.5b in main()): phase 5's
+    traffic (4,400-token prompts that wrap the 4,224-slot rings) served (a)
+    chunked over paged KV, (b) chunked over dense KV and (c) whole-prompt,
+    with the counts zeroed just before each measured run and read just
+    after; then the device time of one chunk's private-leaf copies (the
+    task's rings, and in (b) its full layers, into the static cache and
+    back out)."""
+    from repro_torch.core.proxy import SamplingParams
+    from repro_torch.kernels.flash_prefill import flash_prefill
+    from repro_torch.kernels.paged_decode import paged_decode
+    from repro_torch.kernels.paged_prefill import paged_prefill
+    from repro_torch.kernels.sink_decode import sink_decode
+    from repro_torch.models.stack import full_attn_layer
+    n_layers = cfg.n_layers
+    prompts, params = default_pattern_workload(cfg.vocab_size)
+    warm, _ = default_pattern_workload(cfg.vocab_size, seed=22)
+    runs = {"paged": (True, True), "dense": (False, True),
+            "whole_prompt": (True, False)}
+    out, streams, weights, srv_a = {}, {}, None, None
+    for name, (paged, chunked) in runs.items():
+        t0 = time.monotonic()
+        srv = build_ring_chunk_server(cfg, paged, chunked, dev,
+                                      params=weights)
+        weights = srv.params
+        eng = srv.prefills[0]
+        assert eng.chunked == chunked and eng.paged == (paged and chunked)
+        n_full = sum(full_attn_layer(srv.lm.cfg, sp)
+                     for sp in srv.lm.plan.all_specs())
+        list(srv.generate([warm[0], warm[4]], SamplingParams(max_tokens=2)))
+        reset_stats(srv)
+        hl0 = hot_loops(srv)
+        kerns = (flash_prefill, paged_decode, sink_decode, paged_prefill)
+        for k in kerns:
+            k.launches = 0
+        st, finished, summ, wall = drive(srv, prompts, params)
+        hl = check_hot_loops(srv, hl0, dev, entries=CHUNKED_ENTRIES
+                             if chunked else ("decode.step",))
+        ln = {k.__name__: k.launches for k in kerns}
+        ps, ds = srv.prefills[0].stats, srv.decodes[0].stats
+        assert len(finished) == len(prompts) and all(
+            r == "length" for r in finished), finished
+        assert all(len(x) == 8 for x in st), st
+        assert ds["host_fetches"] == ds["steps"] > 0, ds
+        srv.decodes[0].pool.check_invariants(arena=srv.kv_arena)
+        if dev.type == "cuda":          # the counts move only on the card
+            dec, other = ("paged_decode", "sink_decode") if paged else \
+                ("sink_decode", "paged_decode")
+            assert ln[dec] == ds["steps"] * n_layers > 0, (ln, ds)
+            assert ln[other] == 0, ln
+            if chunked:
+                assert ln["flash_prefill"] == 0, ln
+                assert ln["paged_prefill"] == (ps["chunks"] * n_full
+                                               if paged else 0), (ln, ps)
+            else:
+                assert ln["paged_prefill"] == 0, ln
+                assert ln["flash_prefill"] == ps["prefills"] * n_layers \
+                    > 0, (ln, ps)
+        rec = {"launches": ln, "chunks": ps["chunks"],
+               "whole_prefills": 0 if chunked else ps["prefills"],
+               "cache_hits": ps["cache_hits"], "decode_steps": ds["steps"],
+               "host_fetches": ds["host_fetches"],
+               "prefill_host_s": ps["busy_s"],
+               "host_s_per_round": ds["busy_s"] / ds["steps"],
+               "hot_loops": hl,
+               "metrics": {k: summ[k] for k in (
+                   "n_done", "ttft_mean", "ttft_p99", "tpot_mean_ms",
+                   "tpot_p99_ms", "ott_tok_s", "ttt_tok_s")}
+               | {"wall_s": wall}}
+        if chunked:
+            rec["host_ms_per_chunk"] = ps["busy_s"] * 1e3 / ps["chunks"]
+            task = eng._alloc_task_cache()
+            rec["leaf_copy_ms"] = timer(lambda: (
+                eng._swap(task, into_static=True),
+                eng._swap(task, into_static=False)))
+            rec["leaf_copy_bytes"] = 2 * sum(
+                t.numel() * t.element_size() for e in task["layers"]
+                if e is not None for t in e.values())
+            del task
+        log.append(f"({'abc'[len(out)]}) {name}: server built, warmed and "
+                   f"served in {time.monotonic() - t0:.1f} s")
+        out[name], streams[name] = rec, st
+        if name == "paged":
+            srv_a = srv
+        del srv
+        torch.cuda.empty_cache()
+    # greedy streams (requests 0-5) equal across (a), (b) and (c), up to a
+    # near-tie at the first differing step (phase 5's rule)
+    ties = []
+    for other in ("dense", "whole_prompt"):
+        for r in range(6):
+            a, b = streams["paged"][r], streams[other][r]
+            if a == b:
+                continue
+            i = next(j for j in range(len(a)) if a[j] != b[j])
+            margin = top2_margin(srv_a, prompts[r], a, i)
+            log.append(f"request {r}: paged chunks and {other} differ at "
+                       f"token {i}, top-2 logit margin {margin:.3g}")
+            if margin >= 1e-4:
+                raise AssertionError(
+                    f"greedy stream {r}: chunked paged and {other} differ "
+                    f"at token {i} (top-2 margin {margin:.3g})")
+            ties.append({"request": r, "against": other, "token": i,
+                         "margin": margin})
+    del srv_a
+    torch.cuda.empty_cache()
+    return {"runs": out, "full_layers": n_full,
+            "greedy_streams_identical": not ties, "near_ties": ties,
+            "sampled_streams_equal": {o: streams["paged"][6] == streams[o][6]
+                                      for o in ("dense", "whole_prompt")},
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
 # ---- phase 4: reduced width, card against CPU ------------------------
 def cross_check_reduced(dev, log):
     from repro_torch.configs import reduced_config
@@ -1762,9 +1911,42 @@ def cross_check_reduced(dev, log):
     log.append(f"reduced width, pattern=None: card vs CPU logits "
                f"max_abs_err={worst4:.3g}, greedy streams identical in both "
                f"KV layouts")
+
+    # chunked prefill over ring layers and dense KV: the mixed stack of
+    # tests/test_paged_prefill.py (window 16, compressed under
+    # prefill_sparse, full; sink 8 + recent 24), chunks of 16, on the card
+    # (each chunk a "prefill.chunk" replay) against the CPU
+    mcfg = rcfg.with_updates(local_per_global=1, local_window=16,
+                             prefill_sparse=True)
+    mixed = {}
+    for paged in (True, False):
+        scfg4 = ServerConfig(decode_slots=3, max_len=128, kv_block_size=8,
+                             paged_kv=paged, oas=OASConfig(defer_window=0.0))
+        got = []
+        for d, p in (("cpu", p4), (dev, g4)):
+            srv = Server(mcfg, scfg4, pattern=[0, 0, 0, 1], params=p,
+                         device=d)
+            s = srv.run([(q, SamplingParams(max_tokens=5)) for q in prompts])
+            assert s["n_done"] == len(prompts)
+            assert srv.prefills[0].chunked and \
+                srv.prefills[0].paged == paged
+            srv.decodes[0].pool.check_invariants(arena=srv.kv_arena)
+            got.append({r.rid: tuple(r.output_tokens)
+                        for r in srv.metrics.done})
+            hl = check_hot_loops(srv, {}, torch.device(d),
+                                 entries=CHUNKED_ENTRIES)
+        assert got[0] == got[1], \
+            f"mixed stack chunked, paged_kv={paged}: card and CPU differ"
+        mixed["paged" if paged else "dense"] = got[1]
+        log.append(f"reduced mixed stack, chunked, paged_kv={paged}: greedy "
+                   f"streams identical card vs CPU; on the card "
+                   f"{hot_loop_line(hl)}")
+    assert mixed["paged"] == mixed["dense"], \
+        "mixed stack chunked: paged and dense layouts differ on the card"
     return {"logits_max_abs_err": worst, "streams_identical": True,
             "default_pattern_logits_max_abs_err": worst4,
             "default_pattern_streams_identical": True,
+            "mixed_chunked_streams_identical": True,
             **cross_check_sparse_spec(dev, log, cfg),
             "quant": cross_check_quant(dev, log, cfg)}
 
@@ -2224,7 +2406,7 @@ def serve_quant(dev, log, cfg):
     zero()
     streams, finished, summ, wall = drive(srv, prompts, params)
     launches = counts()
-    hl = check_hot_loops(srv, hl0, dev)
+    hl = check_hot_loops(srv, hl0, dev, entries=CHUNKED_ENTRIES)
     # copies: (b) reuses this server and resets its stats
     ps, ds = dict(srv.prefills[0].stats), dict(srv.decodes[0].stats)
     check_run(srv, streams, finished, [P9_NEW] * 13, 13)
@@ -2254,7 +2436,7 @@ def serve_quant(dev, log, cfg):
     reset_stats(f32)
     hl0 = hot_loops(f32)
     f32_streams, _, f32_summ, f32_wall = drive(f32, prompts, params)
-    hl_f32 = check_hot_loops(f32, hl0, dev)
+    hl_f32 = check_hot_loops(f32, hl0, dev, entries=CHUNKED_ENTRIES)
     ratio = srv.kv_arena.block_nbytes / f32.kv_arena.block_nbytes
     assert f32.kv_arena.block_nbytes == f_bytes * n_layers
     differ = []
@@ -2285,7 +2467,8 @@ def serve_quant(dev, log, cfg):
         st, fin, sm, w = drive(s2, sp_prompts, sp_params)
         ln = counts()
         hl2 = check_hot_loops(s2, hl0, dev, entries=(
-            "decode.verify",) if name == "spec_on" else ("decode.step",))
+            "decode.verify" if name == "spec_on" else "decode.step",
+            "prefill.chunk"))
         check_run(s2, st, fin, [P7_NEW] * 6 + [16], 7)
         d2 = s2.decodes[0].stats
         verifies = d2.get("spec_verifies", 0)
@@ -2335,7 +2518,8 @@ def serve_quant(dev, log, cfg):
         check_run(s3, st3, fin3, [P9_NEW] * 13, 13)
         if d3["preemptions"] >= 1:
             pre = {"kv_blocks": kv_blocks, "preemptions": d3["preemptions"],
-                   "hot_loops": check_hot_loops(s3, hl0, dev),
+                   "hot_loops": check_hot_loops(s3, hl0, dev,
+                                                entries=CHUNKED_ENTRIES),
                    "defers": s3.prefills[0].stats["defers"],
                    "decode_steps": d3["steps"], "wall_s": w3}
             break
@@ -2511,7 +2695,7 @@ def serve_moe(dev, log, cfg):
     hl0 = hot_loops(srv)
     moe_gmm.launches = paged_prefill.launches = paged_decode.launches = 0
     streams, finished, summ, wall = drive(srv, prompts, params)
-    hl = check_hot_loops(srv, hl0, dev)
+    hl = check_hot_loops(srv, hl0, dev, entries=CHUNKED_ENTRIES)
     launches = {"moe_gmm": moe_gmm.launches,
                 "paged_prefill": paged_prefill.launches,
                 "paged_decode": paged_decode.launches}
@@ -2577,7 +2761,8 @@ def serve_moe(dev, log, cfg):
         "greedy streams changed across the forced migration"
     srv.kv_arena.pool.check_invariants(arena=srv.kv_arena)
     res["migration"] = mig | {
-        "hot_loops": check_hot_loops(srv, hl0, dev),
+        "hot_loops": check_hot_loops(srv, hl0, dev,
+                                     entries=CHUNKED_ENTRIES),
         "greedy_streams_identical": True,
         "sampled_streams_identical": streams_b[12:] == streams[12:],
         "slot_expert_reversed": bool(
@@ -2593,25 +2778,17 @@ def serve_moe(dev, log, cfg):
 
 
 # ---- phase 10: captured against eager ------------------------------
-def capture_logits_diff(srv, dev, verify=False):
-    """Largest |difference| between the logits of one step of `srv`'s model
-    (one decode step, or one verify window of k + 1 = 5 rows) replayed from
-    a captured graph and run eagerly, on the same inputs: six slots over
-    16-entry tables of seeded random K/V (int8 pages with their scale plane
-    where `srv`'s arenas are int8), each at a mid-block position, so the
-    step's own K/V write opens and seals no block and lands the same bytes
-    every time."""
+def random_arena(lm, n_blocks, bs, dev, quant, g):
+    """Arenas of `n_blocks` blocks filled with seeded random K/V (int8
+    pages with random per-token scales where `quant`), summaries
+    computed."""
     from repro_torch.models.attention import update_block_summaries
     from repro_torch.models.stack import alloc_arena_kv
-    from repro_torch.serving import DevicePlacement
-    lm, B, nb, bs = srv.lm, 6, 16, 16
-    quant = srv.kv_arena.quant
-    g = torch.Generator(device=dev)
-    g.manual_seed(5)
-    layers = alloc_arena_kv(lm.cfg, lm.plan, B * nb + 1, bs, dev,
-                            quant=quant)
-    every = torch.arange(B * nb + 1, device=dev)
+    layers = alloc_arena_kv(lm.cfg, lm.plan, n_blocks, bs, dev, quant=quant)
+    every = torch.arange(n_blocks, device=dev)
     for e in layers:
+        if e is None:
+            continue
         for n in ("k", "v"):
             if quant:
                 e[n].copy_(torch.randint(-127, 128, e[n].shape, generator=g,
@@ -2623,6 +2800,22 @@ def capture_logits_diff(srv, dev, verify=False):
         update_block_summaries(e["kmin"], e["kmax"], e["kmean"], e["k"],
                                every, k_scale=e.get("kscale"),
                                k_tok=e.get("ktok"))
+    return layers
+
+
+def capture_logits_diff(srv, dev, verify=False):
+    """Largest |difference| between the logits of one step of `srv`'s model
+    (one decode step, or one verify window of k + 1 = 5 rows) replayed from
+    a captured graph and run eagerly, on the same inputs: six slots over
+    16-entry tables of seeded random K/V (int8 pages with their scale plane
+    where `srv`'s arenas are int8), each at a mid-block position, so the
+    step's own K/V write opens and seals no block and lands the same bytes
+    every time."""
+    from repro_torch.serving import DevicePlacement
+    lm, B, nb, bs = srv.lm, 6, 16, 16
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    layers = random_arena(lm, B * nb + 1, bs, dev, srv.kv_arena.quant, g)
     cache = {"layers": layers, "pos": 0}
     tables = torch.arange(1, B * nb + 1, dtype=torch.int32,
                           device=dev).reshape(B, nb)
@@ -2650,6 +2843,83 @@ def capture_logits_diff(srv, dev, verify=False):
     torch.cuda.synchronize()
     assert dev.type != "cuda" or entry.replays[(nb, True)] == 1
     return float((out - eager).abs().max())
+
+
+def chunk_logits_diff(srv, dev):
+    """Largest |difference| between the logits of one prefill chunk of
+    `srv`'s model replayed from a captured graph and run eagerly on the
+    same inputs: 100 real rows of a 128-row chunk at offset 192 over a
+    24-entry table of seeded random history (int8 with its scale plane
+    where `srv`'s arenas are int8), the offset and length read from the
+    device. The chunk starts on a block boundary, so its writes never
+    touch the history it reads and land the same bytes every call."""
+    from repro_torch.serving import DevicePlacement
+    lm, nb, bs, S = srv.lm, 24, 16, 128
+    g = torch.Generator(device=dev)
+    g.manual_seed(6)
+    cache = {"layers": random_arena(lm, nb + 1, bs, dev, srv.kv_arena.quant,
+                                    g),
+             "pos": torch.tensor(192, dtype=torch.int32, device=dev)}
+    tables = torch.arange(1, nb + 1, dtype=torch.int32, device=dev)[None]
+    cl = torch.tensor(100, dtype=torch.int32, device=dev)
+    toks = torch.randint(0, lm.cfg.vocab_size, (1, S), generator=g,
+                         device=dev, dtype=torch.int32)
+    out = torch.empty((1, lm.cfg.vocab_size), dtype=torch.float32,
+                      device=dev)
+
+    def chunk(key, out):
+        logits = lm.prefill_resume(srv.params, toks, cache, chunk_len=cl,
+                                   block_tables=tables,
+                                   tables=srv.tables)[1]
+        return out.copy_(logits)
+
+    entry = DevicePlacement.of(dev).hot_loop(chunk, name="check.chunk")
+    eager = entry((S, "paged"), (out,)).clone()
+    entry((S, "paged"), (out,))               # capture, then one replay
+    torch.cuda.synchronize()
+    assert dev.type != "cuda" or entry.replays[(S, "paged")] == 1
+    return float((out - eager).abs().max())
+
+
+def op_counter():
+    """A TorchDispatchMode counting the aten ops dispatched inside it (a
+    graph replay dispatches none)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+    return Count()
+
+
+def count_chunk_ops(srv, prompts, params) -> dict:
+    """aten ops each prefill chunk of `srv`'s first prefill engine
+    dispatches from Python while it serves (prompts, params), counted
+    around `PrefillEngine._run_chunk` (the upload, the private-leaf copies,
+    the logits clone and anything the chunk runs eagerly) → {"chunks",
+    "mean", "min", "max"}. Serve prompts the store has not seen, on keys
+    the server has met (a capture inside would be counted)."""
+    eng = srv.prefills[0]
+    run, per = eng._run_chunk, []
+
+    def counted(task, budget):
+        mode = op_counter()
+        with mode:
+            ran = run(task, budget)
+        if ran:
+            per.append(mode.n)
+        return ran
+    eng._run_chunk = counted
+    try:
+        list(srv.generate(prompts, params))
+        torch.cuda.synchronize()
+    finally:
+        del eng._run_chunk
+    return {"chunks": len(per), "mean": sum(per) / max(len(per), 1),
+            "min": min(per, default=0), "max": max(per, default=0)}
 
 
 def serve_eager(dev, log, cfg, served, spec, quant):
@@ -2718,6 +2988,30 @@ def serve_eager(dev, log, cfg, served, spec, quant):
         assert streams[:n_greedy] == cap["streams"][:n_greedy], \
             f"{name}: greedy streams differ between capture and eager"
         diff = capture_logits_diff(srv, dev, verify=verify)
+        # the prefill chunk both ways: host ms per chunk over a measured
+        # run, aten ops per chunk over fresh prompts shaped like the
+        # warm-up's (no key met for the first time), and one chunk's
+        # logits replayed against eager; the captured side on a new
+        # server with this one's weights, knobs and warm-up
+        fresh = ((spec_workload(cfg.vocab_size, seed=43)[0][:2] if verify
+                  else workload(cfg.vocab_size, seed=13)[0]),
+                 SamplingParams(max_tokens=2))
+        chunk = {"logits_max_abs_diff": chunk_logits_diff(srv, dev),
+                 "eager": {"host_ms_per_chunk": ps["busy_s"] * 1e3
+                           / ps["chunks"], "chunks": ps["chunks"],
+                           "aten_ops": count_chunk_ops(srv, *fresh)}}
+        c_srv = build_server(cfg, True, dev, params=weights, **knobs)
+        list(c_srv.generate(warm[0], warm[1]))
+        reset_stats(c_srv)
+        c_streams, _, _, _ = drive(c_srv, prompts, params)
+        assert c_streams[:n_greedy] == streams[:n_greedy]
+        cps = c_srv.prefills[0].stats
+        chunk["captured"] = {"host_ms_per_chunk": cps["busy_s"] * 1e3
+                             / cps["chunks"], "chunks": cps["chunks"],
+                             "aten_ops": count_chunk_ops(c_srv, *fresh)}
+        hl_c = hot_loops(c_srv)["prefill.chunk"]
+        assert dev.type != "cuda" or hl_c["replays"] > 0, hl_c
+        del c_srv
         cm = cap["metrics"] if "metrics" in cap else cap["reuse_on"]
         out[name] = {
             "greedy_streams_equal": True,
@@ -2730,7 +3024,7 @@ def serve_eager(dev, log, cfg, served, spec, quant):
             "eager": {"tpot_mean_ms": summ["tpot_mean_ms"],
                       "host_s_per_round": ds["busy_s"] / ds["steps"],
                       "steps": ds["steps"], "wall_s": wall},
-            "hot_loops": hl}
+            "chunk": chunk, "hot_loops": hl}
         log.append(f"{name}: served eagerly in {wall:.2f} s; "
                    f"{n_greedy} greedy streams equal the captured run's")
         del srv
@@ -3005,13 +3299,58 @@ def main() -> int:
               f"{c['host_s_per_round'] * 1e3:.2f} / "
               f"{e['host_s_per_round'] * 1e3:.2f} ms per decode round "
               f"({c['steps']} / {e['steps']} steps) [{smi}]")
+        ch = r["chunk"]
+        cc, ce = ch["captured"], ch["eager"]
+        print(f"  {name}: prefill.chunk: one chunk's logits, captured vs "
+              f"eager: max |diff| {ch['logits_max_abs_diff']:.3g}; host "
+              f"{cc['host_ms_per_chunk']:.2f} / {ce['host_ms_per_chunk']:.2f}"
+              f" ms per chunk in prefill rounds ({cc['chunks']} / "
+              f"{ce['chunks']} chunks); aten ops per chunk "
+              f"{cc['aten_ops']['mean']:.1f} / {ce['aten_ops']['mean']:.1f} "
+              f"(captured / eager) [{smi}]")
+
+    log.clear()
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    rings = serve_ring_chunks(dev, log, cfg, timer)
+    print(f"phase 11 [{time.monotonic() - t0:.1f} s]: full-width qwen2-1.5b, "
+          f"pattern=None with prefill_sparse ({rings['full_layers']} full "
+          f"layers), chunks of 128 over the rings")
+    for line in log:
+        print("  " + line)
+    for name, r in rings["runs"].items():
+        m, ln = r["metrics"], r["launches"]
+        work = (f"{r['chunks']} chunks: {ln['paged_prefill']} paged_prefill "
+                f"launches" if r["chunks"] else
+                f"{r['whole_prefills']} whole prefills: "
+                f"{ln['flash_prefill']} flash_prefill launches")
+        dec = "paged_decode" if ln["paged_decode"] else "sink_decode"
+        print(f"  {name}: {work}; {r['decode_steps']} steps: {ln[dec]} "
+              f"{dec} launches; host_fetches {r['host_fetches']}; cache hits "
+              f"{r['cache_hits']}")
+        print(f"  {name}: TTFT mean {m['ttft_mean'] * 1e3:.2f} ms p99 "
+              f"{m['ttft_p99'] * 1e3:.2f} ms, TPOT mean "
+              f"{m['tpot_mean_ms']:.2f} ms, {m['ttt_tok_s']:.1f} total tok/s "
+              f"over {m['wall_s']:.2f} s; host in prefill rounds "
+              f"{r['prefill_host_s']:.3f} s [{smi}]")
+        if r["chunks"]:
+            print(f"  {name}: host {r['host_ms_per_chunk']:.2f} ms per chunk;"
+                  f" private-leaf copies in and out "
+                  f"{r['leaf_copy_bytes'] / 1e6:.1f} MB in "
+                  f"{r['leaf_copy_ms']:.4f} ms device time [{smi}]")
+        print(f"  {name}: hot loops: {hot_loop_line(r['hot_loops'])}")
+    print(f"  greedy streams identical across paged chunks, dense chunks "
+          f"and whole-prompt prefill: {rings['greedy_streams_identical']} "
+          f"(near-ties {rings['near_ties']}); sampled stream equal "
+          f"{rings['sampled_streams_equal']}")
 
     for rec in (served, spec["runs"]["spec_on"], spec["runs"]["spec_off"],
                 quant):
         rec.pop("streams", None)
     report.update(kernels=kern, kernels_int8=kern_q, serve=served,
                   default_pattern=omni, topk=topk, spec=spec, moe=moe,
-                  quant=quant, eager=eager)
+                  quant=quant, eager=eager, ring_chunks=rings)
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 

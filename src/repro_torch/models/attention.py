@@ -117,14 +117,16 @@ def paged_prefill_write(k_pages, v_pages, k_new, v_new, tables, off,
     """Scatter one chunk's K/V [B,S,K,h] (B == 1) into arena blocks, in
     place. Chunk token i lands at absolute position off + i → block
     tables[0, (off+i)//bs] at offset (off+i) % bs; padded rows
-    (i >= chunk_len) are redirected to the null block 0."""
+    (i >= chunk_len) are redirected to the null block 0. off and chunk_len
+    are ints or 0-d device tensors (a captured chunk reads them from the
+    device, never from the host)."""
     B, S, K, h = k_new.shape
     bs = k_pages.shape[2]
     nb = tables.shape[1]
     dev = k_pages.device
     ar = torch.arange(S, device=dev)
-    pos = int(off) + ar
-    blk = torch.where(ar < int(chunk_len),
+    pos = off + ar
+    blk = torch.where(ar < chunk_len,
                       tables[0].long()[torch.clamp(pos // bs, 0, nb - 1)],
                       torch.zeros_like(pos))
     offi = pos % bs
@@ -173,6 +175,91 @@ def cache_write(k_cache, v_cache, k_new, v_new, t, *, sink: int = 0,
     for c, new in ((k_cache, k_new), (v_cache, v_new)):
         c[b, idx] = torch.where(ok, new.to(c.dtype), c[b, idx])
     return k_cache, v_cache
+
+
+def resident_token_positions(W: int, off, *, sink: int, recent: int):
+    """Token position resident at each of W cache slots after `off` tokens
+    were written (an int, a 0-d device tensor, or per sequence [B, 1]).
+    Full cache (sink == recent == 0): slot j holds token j iff j < off.
+    Ring layout: slots < sink hold the sink tokens; ring slot j >= sink
+    hosts the residue class {j, j + recent, ...} and holds its largest
+    member < off. → (tok, resident bool), both [W] or [B, W]."""
+    off = torch.as_tensor(off)
+    j = torch.arange(W, device=off.device)
+    if sink or recent:
+        wraps = torch.clamp(torch.div(off - 1 - j, recent,
+                                      rounding_mode="floor"), min=0)
+        tok = torch.where(j < sink, j, j + wraps * recent)
+    else:
+        tok = j
+    return torch.broadcast_tensors(tok, tok < off)
+
+
+def prefill_resume_attention(q, k_new, v_new, k_cache, v_cache, positions,
+                             *, chunk_len, sink: int, recent: int,
+                             mask_window: int = 0, mask_sink: int = 0):
+    """Continuation-prefill attention of one chunk over a dense cache (the
+    reference has no TPU kernel for it), with the chunk written into the
+    cache in place.
+
+    q [B,S,H,h], k_new/v_new [B,S,K,h] at absolute positions [S] (off +
+    arange(S), a device tensor); caches [B,W,K,h] hold the tokens < off.
+    Queries attend the resident cache tokens plus causal in-chunk keys,
+    under the sink+window mask when mask_window > 0 (else dense causal).
+    chunk_len (an int or a 0-d device tensor) counts the real rows: padded
+    query rows give outputs callers ignore, padded keys are neither
+    attended nor written. The chunk lands at ring slots (`ring_slot`), or at
+    linear slots when sink == recent == 0, where rows past the cache are
+    dropped. Ring callers keep S <= recent, so the chunk's slots are
+    distinct. → out [B,S,H,h]."""
+    B, S, H, h = q.shape
+    K = k_new.shape[2]
+    G = H // K
+    W = k_cache.shape[1]
+    dev = q.device
+    pos = positions
+    off = pos[0]
+    ar = torch.arange(S, device=dev)
+    valid_q = ar < chunk_len
+
+    def allowed(p, t):
+        ok = t <= p
+        if mask_window > 0:
+            ok = ok & (((p - t) < mask_window) | (t < mask_sink))
+        return ok
+
+    tok_old, res_old = resident_token_positions(W, off, sink=sink,
+                                                recent=recent)
+    qg = q.reshape(B, S, K, G, h).float()
+    s_old = torch.einsum("bskgh,bwkh->bskgw", qg, k_cache.float()) \
+        * h ** -0.5
+    m_old = res_old[None, :] & allowed(pos[:, None], tok_old[None, :])
+    s_old = torch.where(m_old[None, :, None, None, :], s_old,
+                        torch.full_like(s_old, NEG_INF))
+    s_new = torch.einsum("bskgh,bukh->bskgu", qg, k_new.float()) * h ** -0.5
+    m_new = allowed(pos[:, None], pos[None, :]) & valid_q[None, :]
+    s_new = torch.where(m_new[None, :, None, None, :], s_new,
+                        torch.full_like(s_new, NEG_INF))
+    p_att = torch.softmax(torch.cat([s_old, s_new], dim=-1), dim=-1)
+    v_all = torch.cat([v_cache.float(), v_new.float()], dim=1)
+    out = torch.einsum("bskgw,bwkh->bskgh", p_att, v_all)
+
+    # the write: each target slot takes the chunk row that owns it if that
+    # row is real, else keeps its content. Linear rows past the cache clamp
+    # onto slot W - 1 and carry the same value as the row that owns it, so
+    # duplicate targets write identical bytes
+    if sink or recent:
+        slots, src = ring_slot(pos, sink, recent), ar
+    else:
+        slots = torch.clamp(pos, max=W - 1)
+        src = slots - off
+    slots = slots.long()
+    keep = (src < chunk_len)[None, :, None, None]
+    src = src.long()
+    for c, new in ((k_cache, k_new), (v_cache, v_new)):
+        c[:, slots] = torch.where(keep, new.index_select(1, src).to(c.dtype),
+                                  c[:, slots])
+    return out.reshape(B, S, H, h).to(q.dtype)
 
 
 def compress_prefill_kv(k, v, *, sink: int, recent: int, true_len=None):
@@ -308,17 +395,9 @@ def spec_verify_ring_attention(q, k_new, v_new, k_cache, v_cache, positions,
     K = k_new.shape[2]
     G = H // K
     W = k_cache.shape[1]
-    dev = q.device
     pos = positions.to(torch.int32)                          # [B, S]
-    off = pos[:, 0]
-    j = torch.arange(W, device=dev, dtype=torch.int32)[None]    # [1, W]
-    if sink or recent:
-        wraps = torch.clamp(torch.div(off[:, None] - 1 - j, recent,
-                                      rounding_mode="floor"), min=0)
-        tok = torch.where(j < sink, j, j + wraps * recent)
-    else:
-        tok = j.expand(B, W)
-    res = tok < off[:, None]                                 # [B, W]
+    tok, res = resident_token_positions(W, pos[:, :1], sink=sink,
+                                        recent=recent)       # [B, W]
 
     def allowed(p, t):
         ok = t <= p
@@ -449,8 +528,8 @@ def quant_paged_prefill_write(entry, k_new, v_new, tables, off, chunk_len):
     bs = entry["k"].shape[2]
     nb = tables.shape[1]
     ar = torch.arange(S, device=entry["k"].device)
-    pos = int(off) + ar
-    valid = ar < int(chunk_len)
+    pos = off + ar
+    valid = ar < chunk_len
     blk = torch.where(valid,
                       tables[0].long()[torch.clamp(pos // bs, 0, nb - 1)],
                       torch.zeros_like(pos))

@@ -1,8 +1,8 @@
 """Top-level model of the port: embeddings, tied (or untied) head, and the
 serving entry points: whole-prompt `prefill` into dense caches, chunked
-`prefill_resume` over paged KV, `decode` over paged or dense KV (with
-OmniAttn online top-k on paged full layers), and the speculative `verify` /
-`verify_commit` pair over paged KV. MoE layers route through the
+`prefill_resume` and `decode` over paged or dense KV (with OmniAttn online
+top-k on paged full layers), and the speculative `verify` / `verify_commit`
+pair over paged KV. MoE layers route through the
 OmniPlacement tables each entry point takes (`default_tables()` to start);
 the per-layer expert counts come back in the aux."""
 from __future__ import annotations
@@ -18,6 +18,13 @@ from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import stack as stack_mod
 from repro_torch.models.common import rms_norm
+
+
+def _device_int(x, device) -> torch.Tensor:
+    """An int or a tensor → a 0-d int32 tensor on `device`."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.int32).reshape(())
+    return torch.tensor(int(x), dtype=torch.int32, device=device)
 
 
 @dataclass(frozen=True)
@@ -175,28 +182,30 @@ class LM:
     def prefill_resume(self, params, tokens, cache, *, chunk_len=None,
                        block_tables=None, tables=None):
         """Continue a prefill: tokens [1, S] is the next chunk at absolute
-        positions cache["pos"] + arange(S); chunk_len (an int) marks the real
-        rows of a right-padded chunk. Full-attention cache entries are the
-        shared arenas, reached through block_tables [1, nb]; the chunk's
-        K/V is written into its blocks in place. MoE layers route through
-        `tables`; padded rows are routed and take capacity, as in the
-        reference. → (cache with "pos" advanced, logits of the last real
-        token [1, V], aux {"moe_counts": [per-MoE-layer [E]]}). Ring layers
-        and dense caches raise NotImplementedError (not ported yet)."""
-        if block_tables is None:
-            raise NotImplementedError(
-                "dense (non-paged) chunked prefill is not ported yet: pass "
-                "block_tables")
+        positions cache["pos"] + arange(S); chunk_len marks the real rows of
+        a right-padded chunk. cache["pos"] and chunk_len are ints or 0-d
+        device tensors: every op reads them from the device, so a captured
+        chunk bakes in no host value. With block_tables [1, nb] the
+        full-attention entries are the shared arenas, and the chunk's K/V
+        is written into its blocks in place; ring layers, and every layer
+        of a dense B=1 cache (`alloc_cache(..., 1, max_len)`, block_tables
+        None), attend and write their dense caches in place. MoE layers
+        route through `tables`; padded rows are routed and take capacity,
+        as in the reference. → (cache with "pos" advanced, logits of the
+        last real token [1, V], aux {"moe_counts": [per-MoE-layer [E]]})."""
         B, S = tokens.shape
-        off = int(cache["pos"])
-        cl = S if chunk_len is None else int(chunk_len)
+        dev = tokens.device
+        off = cache["pos"]
+        cl = S if chunk_len is None else chunk_len
+        off_t, cl_t = _device_int(off, dev), _device_int(cl, dev)
         x = self._embed(params, tokens)
-        positions = off + torch.arange(S, device=x.device)
+        positions = off_t + torch.arange(S, device=dev)
         x, _, _, counts = stack_mod.stack_apply(
             self.cfg, self.plan, params["layers"], x, mode="prefill",
             positions=positions, caches=cache, block_tables=block_tables,
-            true_len=cl, pos0=off, tables=tables)
-        logits = self._logits(params, x[:, cl - 1])
+            true_len=cl_t, pos0=off_t, tables=tables)
+        last = x.index_select(1, (cl_t - 1).long().reshape(1))[:, 0]
+        logits = self._logits(params, last)
         return dict(cache, pos=off + cl), logits, {"moe_counts": counts}
 
     @torch.no_grad()

@@ -25,9 +25,9 @@ accepted prefix. Quant is structural: an entry with "kscale" is int8, its
 reads dequantize in the kernels' tiles and its writes quantize
 (models/attention.py's QuantPlane section); ring layers never quantize.
 Each layer's FFN is a dense SwiGLU or, on an MoE layer, the routed experts
-over OmniPlacement slot tables (models/moe.py) plus the shared SwiGLU. `check_supported` raises NotImplementedError for what a
-later slice brings (SSM; online top-k with MoE); chunked prefill over ring
-layers raises where it is attempted (`attn_sublayer`).
+over OmniPlacement slot tables (models/moe.py) plus the shared SwiGLU.
+`check_supported` raises NotImplementedError for what a later slice brings
+(SSM; online top-k with MoE).
 """
 from __future__ import annotations
 
@@ -226,18 +226,6 @@ def merge_arena_cache(cfg: ModelConfig, plan: StackPlan, private: dict,
     return {"layers": layers, "pos": private["pos"]}
 
 
-def split_arena_cache(cfg: ModelConfig, plan: StackPlan, cache: dict
-                      ) -> tuple:
-    """Inverse of merge_arena_cache → (private, arena_kv)."""
-    specs = plan.all_specs()
-    private = {"layers": [None if full_attn_layer(cfg, s) else
-                          cache["layers"][i] for i, s in enumerate(specs)],
-               "pos": cache["pos"]}
-    arena = [cache["layers"][i] if full_attn_layer(cfg, s) else None
-             for i, s in enumerate(specs)]
-    return private, arena
-
-
 # ----------------------------------------------------------------------
 # Layer application
 def attn_sublayer(cfg: ModelConfig, spec: LayerSpec, p: dict, x, *,
@@ -251,9 +239,12 @@ def attn_sublayer(cfg: ModelConfig, spec: LayerSpec, p: dict, x, *,
       (the first `true_len` rows real) through the flash-prefill kernel; the
       new entry is the dense cache — ring layers compressed to sink+recent,
       full layers zero-padded to `max_len`.
-    mode "prefill" with block_tables: a chunk at positions pos0 + arange(S)
-      of a full-attention layer over the paged arenas (paged-prefill kernel,
-      then the chunk's K/V written into its blocks, in place).
+    mode "prefill" with a cache: a chunk at positions pos0 + arange(S) (the
+      first `true_len` rows real; pos0 and true_len ints or 0-d device
+      tensors). A full-attention layer with block_tables attends the paged
+      arenas (paged-prefill kernel), then writes the chunk's K/V into its
+      blocks, in place; a ring layer, or any layer without block_tables,
+      attends and writes its dense cache (`prefill_resume_attention`).
     mode "decode": one token per slot at positions [B, 1]. With
       block_tables the K/V are written into the arenas (full layers through
       the table, ring layers into the slot's own block run) and attended
@@ -302,17 +293,24 @@ def attn_sublayer(cfg: ModelConfig, spec: LayerSpec, p: dict, x, *,
             kc = torch.nn.functional.pad(k, pad)
             vc = torch.nn.functional.pad(v, pad)
         new_cache = {"k": kc, "v": vc}
+    elif mode == "prefill" and (ring or block_tables is None):
+        # a chunk over the layer's dense cache (a ring, or a full layer's
+        # [1, max_len] cache): attend the resident tokens and the causal
+        # chunk, then write the chunk in place
+        mask_window = mask_sink = 0
+        if spec.window > 0:
+            mask_window = spec.window
+        elif spec.compressed and cfg.prefill_sparse:
+            mask_window, mask_sink = recent, sink
+        out = attn_mod.prefill_resume_attention(
+            q, k, v, cache["k"], cache["v"], positions,
+            chunk_len=S if true_len is None else true_len, sink=sink,
+            recent=recent, mask_window=mask_window, mask_sink=mask_sink)
     elif mode == "prefill":
-        if ring or block_tables is None:
-            # the reference's `prefill_resume_attention` (no TPU kernel)
-            raise NotImplementedError(
-                "chunked prefill over ring layers (sliding window or "
-                "sink+recent compressed) or over dense caches is not ported "
-                "yet")
         kc, vc = cache["k"], cache["v"]
         bs = kc.shape[2]
         nb = block_tables.shape[1]
-        cl = S if true_len is None else int(true_len)
+        cl = S if true_len is None else true_len
         qkw = quant_kwargs(cache)
         out = kops.attention_paged_prefill_op(q, k, v, kc, vc, block_tables,
                                               pos0, cl, **qkw)

@@ -4,7 +4,8 @@ With a KVArena (paged): full-attention KV lives in the shared per-layer
 block arenas and each ring layer (OmniAttn sink+recent, sliding window) in
 the engine's per-slot ring block runs. Admission is either a zero-copy
 BlockHandoff (the chunked prefill engine already wrote the blocks; pool
-ownership renames to the decode rid) or a dense scatter of a B=1 cache into
+ownership renames to the decode rid, and only the handoff's ring KV is
+written into the slot's ring runs) or a dense scatter of a B=1 cache into
 fresh blocks (whole-prompt prefill, and re-admission after preemption). A
 step that cannot grow a request's allocation reclaims prefix-store blocks
 first and then preempts the request (its KV is gathered back out of the
@@ -276,8 +277,7 @@ class DecodeEngine:
             return
         bs = self.block_size
         tbl = torch.from_numpy(wtbl.astype(np.int64)).to(self.device)
-        for spec, e, priv, o in zip(self.lm.plan.all_specs(), self.arena.kv,
-                                    self.cache["layers"], one["layers"]):
+        for e, o in zip(self.arena.kv, one["layers"]):
             if e is not None and "kscale" in e:
                 self._insert_quant(e, o, tbl)
             elif e is not None:
@@ -286,11 +286,21 @@ class DecodeEngine:
                         o[name][0], self.max_blocks, bs).to(e[name].dtype)
                 attn_mod.update_block_summaries(e["kmin"], e["kmax"],
                                                 e["kmean"], e["k"], tbl)
-            elif priv is not None:
-                b0, bpw, _ = self._ring_run(spec, slot)
-                for name in ("k", "v"):
-                    priv[name][b0:b0 + bpw] = dense_kv_to_blocks(
-                        o[name][0], bpw, bs).to(priv[name].dtype)
+        self._insert_rings(one, slot)
+
+    def _insert_rings(self, one: dict, slot: int):
+        """Overwrite `slot`'s ring block run in every paged ring layer with
+        the [1, W, K, h] ring KV of a B=1 cache (dense, or a handoff's
+        private leaves; full-attention entries are skipped)."""
+        bs = self.block_size
+        for spec, priv, o in zip(self.lm.plan.all_specs(),
+                                 self.cache["layers"], one["layers"]):
+            if priv is None:
+                continue
+            b0, bpw, _ = self._ring_run(spec, slot)
+            for name in ("k", "v"):
+                priv[name][b0:b0 + bpw] = dense_kv_to_blocks(
+                    o[name][0], bpw, bs).to(priv[name].dtype)
 
     def _insert_quant(self, e: dict, o: dict, tbl):
         """Dense-scatter admission into an int8 arena entry `e` through the
@@ -416,8 +426,10 @@ class DecodeEngine:
 
     def _admit_handle(self, rid: int, hb: BlockHandoff, pos: int) -> bool:
         """Zero-copy admission: rename the handoff's pool ownership to the
-        decode rid and extend capacity for the next token. Fails clean —
-        ownership is handed back so the server can requeue the handoff."""
+        decode rid and extend capacity for the next token (the caller then
+        writes the handoff's ring leaves into the slot's ring runs). Fails
+        clean — ownership is handed back so the server can requeue the
+        handoff."""
         self.pool.transfer(hb.key, rid)
         grown = self.pool.extend(rid, pos, pos + 1)
         if grown is None:
@@ -480,7 +492,11 @@ class DecodeEngine:
                 self.tables_h[slot] = row
                 wtbl = row.copy()
                 wtbl[:shn] = 0
-            if not handoff:
+            if handoff:
+                # the full-attention KV is already in the tabled blocks;
+                # only the bounded private ring KV is written
+                self._insert_rings(cache_one.private, slot)
+            else:
                 self._insert_dense(cache_one, slot, wtbl)
                 self.stats["handoff_copy_bytes"] += \
                     self._full_tok_nbytes * self.max_len

@@ -6,10 +6,10 @@ the caller asks for the CPU) and moves parameter trees onto it.
 
 `hot_loop` is the port's counterpart of the reference's `donate_jit` and
 `HotLoopRegistry` (src/repro/serving/placement.py): every serving step that
-runs once per decode round is built through it. Where the reference
-compiles one XLA program per shape, an entry captures one CUDA graph per
-key on `cuda` and replays it: the first call for a key runs the step
-eagerly (a real step, and the warm-up: modules load, the allocator
+runs once per decode round or prefill chunk is built through it. Where the
+reference compiles one XLA program per shape, an entry captures one CUDA
+graph per key on `cuda` and replays it: the first call for a key runs the
+step eagerly (a real step, and the warm-up: modules load, the allocator
 settles), the second captures it on a side stream and replays the graph
 once to do that step's work, and every later call only replays. The key
 carries every Python value that reaches a captured op; everything else the
@@ -28,6 +28,7 @@ slice.
 """
 from __future__ import annotations
 
+import gc
 from collections import Counter
 from dataclasses import dataclass, field
 from functools import cached_property
@@ -103,8 +104,16 @@ class HotLoopEntry:
     def _capture(self, key, static_inputs: tuple):
         graph = torch.cuda.CUDAGraph()
         before = launch_counts()
-        with torch.cuda.graph(graph, pool=self.placement.graph_pool):
-            out = self.fn(key, *static_inputs)
+        # a dead server's graphs must not be freed mid-capture (freeing a
+        # graph invalidates the capture): collect them first, and keep the
+        # collector off while capturing
+        gc.collect()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=self.placement.graph_pool):
+                out = self.fn(key, *static_inputs)
+        finally:
+            gc.enable()
         delta = count_delta(before, launch_counts())
         add_launch_counts(delta, sign=-1)      # the capture launched nothing
         self.graphs[key], self.outputs[key] = graph, out

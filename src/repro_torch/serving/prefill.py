@@ -1,17 +1,31 @@
-"""Prefill engine (the P side of PD disaggregation): chunked over paged KV,
-or whole-prompt into dense caches.
+"""Prefill engine (the P side of PD disaggregation): chunked over paged or
+dense KV, or whole-prompt into dense caches.
 
-Chunked (the model supports it, `LM.chunked_prefill_support`, and a shared
-KVArena is given): prompts run in fixed-size token chunks, scheduled
-shortest-remaining-first at chunk granularity, so a short prompt never
-waits behind a long in-flight prefill. Each chunk reserves real KVPool
-blocks and writes its KV straight into the per-layer block arenas through
-the task's block table, so an in-flight prompt pins blocks in proportion to
-its length, and a reservation the pool cannot serve DEFERS the task
-(backpressure). Completed prefixes land in a radix-backed PrefixKVStore as
+Chunked (the model supports it, `LM.chunked_prefill_support`): prompts run
+in fixed-size token chunks, scheduled shortest-remaining-first at chunk
+granularity, so a short prompt never waits behind a long in-flight
+prefill. With a shared KVArena the chunks are paged: each chunk reserves
+real KVPool blocks and writes its full-attention KV straight into the
+per-layer block arenas through the task's block table, so an in-flight
+prompt pins blocks in proportion to its length, and a reservation the pool
+cannot serve DEFERS the task (backpressure); ring layers (OmniAttn
+sink+recent under `prefill_sparse`, sliding windows) keep a bounded dense
+ring per task. Completed prefixes land in a radix-backed PrefixKVStore as
 refcounted block lists: a later prompt sharing an N-token prefix maps the
 entry's full blocks (copying only the partial tail block) and resumes at
-token N.
+token N. Without an arena (`paged_kv=False`) each task threads a dense B=1
+max_len cache through its chunks, and stored prefixes are prefix-length
+snapshots that a later prompt resumes from, whole or in part.
+
+Every chunk runs through the placement's "prefill.chunk" hot-loop entry,
+keyed by (chunk bucket S, layout): on `cuda` one CUDA graph per key,
+replayed for every chunk of every task. The graph reads only engine-owned
+static buffers: the chunk's tokens, the task's table row, a [2] device
+buffer holding the chunk's offset and real length (uploaded together from
+pinned staging), the arenas, and one private cache whose leaves each chunk
+copies the task's ring (and, dense, full) KV into before the replay and
+back out after; the logits land in a static [1, V] buffer that the task
+keeps a clone of.
 
 Whole-prompt (chunking unsupported — OmniAttn-compressed layers without
 `prefill_sparse`, the default — or switched off): FIFO, one whole prompt
@@ -36,10 +50,11 @@ import torch
 
 from repro_torch.core.proxy.params import GREEDY, SamplingParams, device_row
 from repro_torch.core.proxy.radix import RadixTree
+from repro_torch.device import torch_dtype
 from repro_torch.models.lm import LM
-from repro_torch.models.stack import (alloc_prefill_private_cache,
-                                      full_attn_layer, merge_arena_cache,
-                                      split_arena_cache)
+from repro_torch.models.stack import (alloc_cache,
+                                      alloc_prefill_private_cache,
+                                      full_attn_layer, merge_arena_cache)
 from repro_torch.serving.arena import (BlockHandoff, KVArena, _bucket,
                                        _pow2_floor)
 from repro_torch.serving.kvpool import PrefixKVStore, tree_bytes
@@ -121,20 +136,11 @@ class PrefillEngine:
         sup, limit = self.lm.chunked_prefill_support
         self.chunk = _pow2_floor(max(min(self.chunk_tokens, limit), 1))
         self.chunked = bool(self.enable_chunked and sup and self.chunk >= 8)
-        # chunked prefill rides the paged arenas; without chunking the
-        # engine runs whole prompts into dense caches
+        # chunked prefill rides the paged arenas when there are some, else
+        # threads a dense B=1 cache; without chunking the engine runs whole
+        # prompts into dense caches
         self.paged = bool(self.arena is not None and self.chunked)
-        if self.chunked:
-            cfg = self.lm.cfg
-            if not self.paged or any(
-                    s.kind == "attn" and not full_attn_layer(cfg, s)
-                    for s in self.lm.plan.all_specs()):
-                # the reference's `prefill_resume_attention` path
-                raise NotImplementedError(
-                    "chunked prefill over ring layers (sliding window, or "
-                    "compressed with prefill_sparse) or over dense KV "
-                    "(paged_kv=False) is not ported yet; chunked_prefill="
-                    "False serves such a model whole-prompt")
+        if self.paged:
             self.block_size = self.arena.block_size
         self.store = PrefixKVStore(
             self.tree, self.cache_cap,
@@ -142,23 +148,70 @@ class PrefillEngine:
             capacity_bytes=self.cache_cap_bytes)
         if self.paged:
             self.arena.reclaimers.append(self.store.evict_for_blocks)
+        if self.chunked:
+            self._init_chunk_buffers()
+
+    def _init_chunk_buffers(self):
+        """The static buffers of the "prefill.chunk" entry, owned by the
+        engine for its life: one device int32 upload buffer holding the
+        chunk's tokens [:chunk], the task's table row [chunk:chunk + nb] and
+        (off, chunk_len) at the end, each bucket's tokens a [1, S] view of
+        it; two pinned staging copies, each guarded by the event recorded
+        after its last upload; the [1, V] logits; the private cache (ring
+        leaves; dense, every leaf) composed with the arenas."""
+        cfg, plan, dev = self.lm.cfg, self.lm.plan, self.device
+        self.layout = "paged" if self.paged else "dense"
+        nb = -(-self.max_len // self.block_size) if self.paged else 0
+        n = self.chunk + nb + 2
+        self._up = torch.zeros(n, dtype=torch.int32, device=dev)
+        cuda = dev.type == "cuda"
+        self._stages = [(torch.zeros(n, dtype=torch.int32, pin_memory=cuda),
+                         torch.cuda.Event() if cuda else None)
+                        for _ in range(2)]
+        self._stage_next = 0
+        self._tok_bufs: dict = {}
+        self._row = (self._up[self.chunk:self.chunk + nb].view(1, nb)
+                     if self.paged else None)
+        self._ctl = self._up[n - 2:]
+        self._logits = torch.zeros((1, cfg.vocab_size),
+                                   dtype=torch_dtype(cfg.compute_dtype),
+                                   device=dev)
+        self._priv = self._alloc_task_cache()
+        cache = (merge_arena_cache(cfg, plan, self._priv, self.arena.kv)
+                 if self.paged else self._priv)
+        self._cache = dict(cache, pos=self._ctl[0])
+        self._leaves = tuple(t for e in self._cache["layers"]
+                             if e is not None for t in e.values())
+        self._chunk_step = self.placement.hot_loop(self._chunk_impl,
+                                                   name="prefill.chunk")
+
+    def _alloc_task_cache(self) -> dict:
+        """A task's private chunk cache: ring KV only when paged (full
+        layers live in the arenas), else the dense B=1 max_len cache."""
+        cfg, plan = self.lm.cfg, self.lm.plan
+        if self.paged:
+            return alloc_prefill_private_cache(cfg, plan, self.max_len,
+                                               self.device)
+        return alloc_cache(cfg, plan, 1, self.max_len, self.device)
 
     # ---- paged-KV helpers --------------------------------------------
     @staticmethod
     def _pf_key(rid: int) -> tuple:
         return ("prefill", rid)
 
-    def _resize_full_attn(self, cache: dict, length: int) -> dict:
+    def _resize_full_attn(self, cache: dict, length: int,
+                          copy_rest: bool = False) -> dict:
         """A copy of a dense B=1 cache whose full-attention KV is sliced or
         zero-padded to `length` tokens (stored prefixes pin prefix-length
-        KV, not a max_len allocation). Ring entries are shared, not copied:
-        nothing writes a B=1 cache after its prefill — admission copies it
-        into the decode engine's own layout."""
+        KV, not a max_len allocation). Ring entries are shared unless
+        `copy_rest`: a snapshot taken while its task keeps chunking, or a
+        stored prefix a task resumes from, must not alias a cache the
+        chunks write."""
         cfg = self.lm.cfg
         layers = []
         for spec, e in zip(self.lm.plan.all_specs(), cache["layers"]):
             if e is None or not full_attn_layer(cfg, spec):
-                layers.append(e)
+                layers.append(clone_tree(e) if copy_rest else e)
                 continue
             ent = {}
             for name, x in e.items():
@@ -190,13 +243,6 @@ class PrefillEngine:
             self.arena.reclaim(max(need, 1))
             got = attempt()
         return got is not None
-
-    def _table_row(self, rid: int) -> torch.Tensor:
-        nb = -(-self.max_len // self.block_size)
-        row = np.zeros((1, nb), np.int32)
-        owned = self.arena.pool.owned(self._pf_key(rid))
-        row[0, :len(owned)] = owned
-        return torch.from_numpy(row).to(self.device)
 
     def _store_put_paged(self, task: PrefillTask, n: int,
                          copy_private: bool) -> None:
@@ -255,17 +301,26 @@ class PrefillEngine:
         self.queue.append(task)
 
     def _try_resume(self, task: PrefillTask) -> None:
-        """Resume from the deepest stored prefix. Dense (whole-prompt) mode
-        adopts only an exact hit of the whole prompt: its stored cache,
-        full-attention KV padded back to max_len (a new tensor), ring
-        entries shared read-only (see `_resize_full_attn`)."""
+        """Resume from the deepest stored prefix. Dense mode adopts an exact
+        hit of the whole prompt (full-attention KV padded back to max_len, a
+        new tensor; ring entries shared read-only, as no chunk follows) and,
+        chunked with partial reuse on, resumes a shorter prefix from a copy
+        of its snapshot."""
         if self.paged:
             self._try_resume_paged(task)
             return
         n, cache, logits = self.store.lookup(task.prompt)
-        if cache is None or n <= task.cursor or n != len(task.prompt):
+        if cache is None or n <= task.cursor:
             return
-        task.cache = self._resize_full_attn(cache, self.max_len)
+        if n == len(task.prompt):
+            task.cache = self._resize_full_attn(cache, self.max_len)
+        elif self.chunked and self.allow_partial_reuse:
+            task.cache = self._resize_full_attn(cache, self.max_len,
+                                                copy_rest=True)
+            self.stats["prefix_hits"] += 1
+            self.stats["reused_tokens"] += n
+        else:
+            return
         task.logits = logits
         task.cursor = task.reused = n
 
@@ -369,33 +424,87 @@ class PrefillEngine:
         cl = min(self.chunk, task.remaining, max(budget, 1))
         if task.cursor < task.snap:
             cl = min(cl, task.snap - task.cursor)   # land on the boundary
-        if not self._grow_blocks(task, cl):
+        if self.paged and not self._grow_blocks(task, cl):
             self.stats["defers"] += 1
             return 0
         if task.cache is None:
-            task.cache = alloc_prefill_private_cache(
-                self.lm.cfg, self.lm.plan, self.max_len, self.device)
+            task.cache = self._alloc_task_cache()
         S = min(_bucket(cl, lo=8), self.chunk)
-        toks = list(task.prompt[task.cursor:task.cursor + cl]) + [0] * (S - cl)
-        cfg, plan = self.lm.cfg, self.lm.plan
-        # the composed cache's full-attention entries ARE the shared arenas;
-        # the chunk's K/V is written into the task's blocks in place
-        composed = merge_arena_cache(cfg, plan, task.cache, self.arena.kv)
-        composed, task.logits, _ = self.lm.prefill_resume(
-            self.params,
-            torch.tensor([toks], dtype=torch.int32, device=self.device),
-            composed, chunk_len=cl, block_tables=self._table_row(task.rid),
-            tables=self.tables)
-        task.cache, _ = split_arena_cache(cfg, plan, composed)
+        self._upload(task, S, cl)
+        self._swap(task.cache, into_static=True)
+        self._chunk_step((S, self.layout), self._static_inputs(S))
+        self._swap(task.cache, into_static=False)
+        task.logits = self._logits.clone()
         task.cursor += cl
+        task.cache["pos"] = task.cursor
         self.stats["tokens"] += cl
         self.stats["chunks"] += 1
         self._note_peak(task)
         if task.cursor == task.snap:
-            if self.store.lookup(task.prompt[:task.snap])[0] != task.snap:
-                self._store_put_paged(task, task.snap, copy_private=True)
+            shared = task.prompt[:task.snap]
+            if self.store.lookup(shared)[0] != task.snap:
+                if self.paged:
+                    self._store_put_paged(task, task.snap, copy_private=True)
+                else:
+                    self.store.put(shared, self._resize_full_attn(
+                        task.cache, min(_bucket(task.snap, lo=8),
+                                        self.max_len), copy_rest=True),
+                        task.logits)
         task.compute_s += time.monotonic() - t0
         return cl
+
+    # ---- the "prefill.chunk" hot loop -----------------------------------
+    def _upload(self, task: PrefillTask, S: int, cl: int) -> None:
+        """The chunk's tokens, the task's table row and (off, chunk_len) in
+        one copy from pinned staging into the static upload buffer. No
+        fetch separates two chunks, so an earlier copy may still be reading
+        a staging buffer: the two alternate, and each is rewritten only
+        after the event recorded behind its last copy has completed."""
+        stage, done = self._stages[self._stage_next]
+        self._stage_next ^= 1
+        if done is not None:
+            done.synchronize()
+        a = stage.numpy()
+        a[:cl] = task.prompt[task.cursor:task.cursor + cl]
+        a[cl:S] = 0
+        if self.paged:
+            owned = self.arena.pool.owned(self._pf_key(task.rid))
+            row = a[self.chunk:self.chunk + self._row.shape[1]]
+            row[:] = 0
+            row[:len(owned)] = owned
+        a[-2:] = (task.cursor, cl)
+        self._up.copy_(stage, non_blocking=True)
+        if done is not None:
+            done.record()
+
+    def _swap(self, cache: dict, into_static: bool) -> None:
+        """Copy a task's private leaves into the static private cache
+        (before the chunk) or back out of it (after)."""
+        for s, t in zip(self._priv["layers"], cache["layers"]):
+            if s is None:
+                continue
+            for name in ("k", "v"):
+                if into_static:
+                    s[name].copy_(t[name])
+                else:
+                    t[name].copy_(s[name])
+
+    def _static_inputs(self, S: int) -> tuple:
+        tok = self._tok_bufs.get(S)
+        if tok is None:
+            tok = self._tok_bufs[S] = self._up[:S].view(1, S)
+        return (tok, self._row, self._ctl, self._logits) + self._leaves
+
+    def _chunk_impl(self, key, tokens, row, ctl, logits, *leaves):
+        """The device side of one chunk (the "prefill.chunk" hot loop): the
+        chunk through every layer against the static cache (offset and real
+        length read from `ctl` on the device), its K/V written into the
+        arenas and the private leaves in place, the last real row's logits
+        into the static `logits`. key (S, layout). → logits."""
+        _, lg, _ = self.lm.prefill_resume(
+            self.params, tokens, self._cache, chunk_len=ctl[1],
+            block_tables=row, tables=self.tables)
+        return logits.copy_(lg)
 
     def _run_full(self, task: PrefillTask) -> int:
         """The whole prompt in one `LM.prefill`, right-padded to its pow2

@@ -5,7 +5,9 @@ to the storage of each key's first call; the decode engine's table buffers
 and slot state keep their storage across steps and bucket changes, with
 the new contents visible; a migration rewrites the MoE tables every engine
 holds in place; the launch-counter arithmetic the entries apply at each
-replay. Capture itself needs a card (tests/test_torch_capture_gpu.py);
+replay; the prefill engine's "prefill.chunk" entry, one key per (chunk
+bucket, layout) shared by every task and offset, its static buffers kept
+across chunks and tasks. Capture itself needs a card (tests/test_torch_capture_gpu.py);
 `capture=True` on the CPU raises.
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python -m pytest tests/test_torch_capture.py -q
@@ -190,7 +192,7 @@ def test_decode_buffers_keep_storage_across_steps_and_buckets():
         assert ptr_of.setdefault(nb, ptr) == ptr
     assert set(eng._tbl_bufs) == {8, 12}
     summ = srv.placement.hot_loops.summary()
-    assert set(summ) == {"decode.step"}
+    assert set(summ) == {"decode.step", "prefill.chunk"}
     s = summ["decode.step"]
     assert {(8, True), (8, False), (12, True)} <= set(s["keys"])
     assert all(k[0] in (8, 12) for k in s["keys"])
@@ -257,3 +259,67 @@ def test_apply_migration_rewrites_tables_in_place():
     for e in range(cfg.moe.n_experts):
         j = int(old["rep_slot"][e, 0])
         assert int(tables["rep_slot"][e, 0]) == s - 1 - j
+
+
+# ---- the prefill engine's chunk entry ----------------------------------
+@pytest.mark.parametrize("paged", [True, False], ids=["paged", "dense"])
+def test_prefill_chunk_entry_keys_and_static_buffers(paged):
+    """Every chunk goes through "prefill.chunk", keyed (bucket S, layout):
+    prompts of 40, 20 and 33 tokens in chunks of 16 meet the keys (16,
+    layout) and (8, layout) only, chunks at other offsets and of other
+    tasks reusing them. Each call finds the bucket's token buffer, the
+    table row, the (off, chunk_len) buffer, the logits and the private
+    leaves at their first storage, holding that chunk's tokens, offset and
+    length (and, paged, the task's blocks)."""
+    cfg = _cfg()
+    srv = _server(cfg, paged_kv=paged)
+    eng = srv.prefills[0]
+    entry = eng._chunk_step
+    assert eng.chunked and eng.paged == paged and eng.layout == (
+        "paged" if paged else "dense")
+    assert "prefill.chunk" in srv.placement.hot_loops.names()
+    rng = np.random.default_rng(6)
+    prompts = [tuple(int(t) for t in rng.integers(0, cfg.vocab_size, n))
+               for n in (40, 20, 33)]
+    calls, fn = [], entry.fn
+
+    def watched(key, tokens, row, ctl, logits, *leaves):
+        off, cl = (int(x) for x in ctl)
+        S = key[0]
+        assert tokens.shape == (1, S) and cl <= S
+        got = tuple(int(t) for t in tokens[0, :cl])
+        owners = [i for i, p in enumerate(prompts) if p[off:off + cl] == got]
+        assert len(owners) == 1
+        assert not tokens[0, cl:].any()
+        if paged:
+            n_real = int((row[0] != 0).sum())
+            assert n_real == -(-(off + cl) // eng.block_size)
+        else:
+            assert row is None
+        calls.append((key, (owners[0], off), tokens.data_ptr(),
+                      tuple(t.data_ptr() for t in (ctl, logits) + leaves
+                            + ((row,) if paged else ()))))
+        return fn(key, tokens, row, ctl, logits, *leaves)
+
+    entry.fn = watched
+    streams = _drive(srv, prompts, [SamplingParams(max_tokens=3)] * 3)
+    assert [len(s) for s in streams] == [3, 3, 3]
+    layout = eng.layout
+    assert sorted(entry.keys) == [(8, layout), (16, layout)]
+    assert len(calls) == eng.stats["chunks"] >= 3 + 2 + 3
+    assert {c[3] for c in calls} == {calls[0][3]}
+    tok_ptr = {}
+    for key, _, ptr, _ in calls:
+        assert tok_ptr.setdefault(key, ptr) == ptr
+    at16 = [where for key, where, _, _ in calls if key[0] == 16]
+    assert len({task for task, _ in at16}) > 1      # tasks share a key
+    assert len({off for _, off in at16}) > 1        # so do offsets
+    assert entry.eager == {k: n for k, n in
+                           ((k, sum(c[0] == k for c in calls))
+                            for k in entry.keys)}
+    summ = srv.placement.hot_loops.summary()["prefill.chunk"]
+    assert summ["captures"] == summ["replays"] == 0
+    # the logits each task kept are clones, not the static buffer
+    assert srv.prefills[0]._logits.data_ptr() == calls[0][3][1]
+    if paged:
+        srv.kv_arena.pool.check_invariants(arena=srv.kv_arena)

@@ -10,7 +10,10 @@ MoE-count accumulators), the metrics' drained stats, the arenas outside
 the null block 0 (int8 payload and scale plane too), the ring runs or
 dense caches, and the kernels' launch counts must be equal, exactly. The
 five decode paths (paged float32, paged int8, online top-k, MoE with a
-forced migration, slot-dense) and the verify step are covered. Also: the
+forced migration, slot-dense) and the verify step are covered, and so is
+the prefill engine's "prefill.chunk" entry on six paths (float32, int8,
+MoE, a resume after prefix reuse, ring layers over paged KV, dense KV),
+its static private leaves equal across the two modes too. Also: the
 fused top-k launch (a cluster launch) replayed from a graph equals its
 eager launch, and an exception inside a capture propagates (no fallback).
 This file imports neither jax nor the JAX package:
@@ -45,8 +48,8 @@ def cuda():
 
 
 def _cfg(arch="qwen2-1.5b", **kw):
-    return reduced_config(arch).with_updates(
-        compute_dtype="float32", param_dtype="float32", n_layers=2, **kw)
+    return reduced_config(arch).with_updates(**dict(dict(
+        compute_dtype="float32", param_dtype="float32", n_layers=2), **kw))
 
 
 def _traffic(vocab, n=6, seed=7, long=40, phrase=False):
@@ -69,10 +72,13 @@ def _traffic(vocab, n=6, seed=7, long=40, phrase=False):
     return prompts, params
 
 
-def _serve(cfg, capture, traffic, migrate_at=None, pattern=None, **kw):
+def _serve(cfg, capture, traffic, migrate_at=None, pattern=None,
+           on_build=None, **kw):
     pl = DevicePlacement.of("cuda", capture=capture)
     srv = Server(cfg, ServerConfig(**dict(SCFG, **kw)),
                  pattern=pattern or [0] * cfg.n_layers, seed=0, placement=pl)
+    if on_build is not None:
+        on_build(srv)
     before = launch_counts()
     prompts, params = traffic
     for p, sp in zip(prompts, params):
@@ -187,6 +193,117 @@ def test_capture_verify(cuda):
     cfg = _cfg()
     _check_modes(cfg, _traffic(cfg.vocab_size, seed=12, phrase=True),
                  verify=True, spec=SpecConfig(k=3))
+
+
+# ---- the prefill engine's "prefill.chunk" entry --------------------------
+def _check_prefill(cfg, traffic, **kw):
+    """`_check_modes` over a chunked prefill path, and the chunk entry
+    replayed, its static private leaves equal across the two modes, and,
+    with `reused`, a prefix resumed from the store."""
+    reused = kw.pop("reused", False)
+    admitted = {True: [], False: []}
+
+    def record(capture):
+        """Keep the ring KV each zero-copy admission writes (the handoff's
+        private leaves)."""
+        def on_build(srv):
+            eng = srv.decodes[0]
+            insert = eng._insert_rings
+
+            def recorded(one, slot):
+                insert(one, slot)
+                admitted[capture].append((slot, [
+                    None if e is None else {n: x.clone()
+                                            for n, x in e.items()}
+                    for e in one["layers"]]))
+            eng._insert_rings = recorded
+        return on_build
+
+    cap, s_cap, n_cap = _serve(cfg, True, traffic, on_build=record(True),
+                               **kw)
+    eag, s_eag, n_eag = _serve(cfg, False, traffic, on_build=record(False),
+                               **kw)
+    assert s_cap == s_eag and len(s_cap) == len(traffic[0])
+    assert n_cap == n_eag and n_cap
+    p_cap, p_eag = cap.prefills[0], eag.prefills[0]
+    assert p_cap.stats["chunks"] == p_eag.stats["chunks"]
+    assert p_cap.chunked and p_cap.layout == p_eag.layout
+    _equal_trees(p_cap._priv, p_eag._priv, "prefill private")
+    _equal_trees(admitted[True], admitted[False], "admitted rings")
+    rings = any(e is not None for e in cap.decodes[0].cache["layers"])
+    if p_cap.paged and rings:
+        # a paged ring run's last content is written by decode steps the
+        # slot took while idle, which attend the null block: compare what
+        # admission wrote instead
+        assert admitted[True]
+    else:
+        _equal_trees(cap.decodes[0].cache["layers"],
+                     eag.decodes[0].cache["layers"], "decode private")
+    _equal_trees(cap.decodes[0].state, eag.decodes[0].state, "state")
+    if cap.kv_arena is not None:
+        _equal_trees(cap.kv_arena.kv, eag.kv_arena.kv, "arena",
+                     skip_null=True)
+        cap.kv_arena.pool.check_invariants(arena=cap.kv_arena)
+    if reused:
+        assert p_cap.stats["prefix_hits"] > 0
+    summ = cap.placement.hot_loops.summary()
+    chunk = summ["prefill.chunk"]
+    assert chunk["replays"] > 0 and 0 < chunk["captures"] <= len(
+        chunk["keys"]), summ
+    assert chunk["eager"] + chunk["replays"] == p_cap.stats["chunks"]
+    assert all(k[1] == p_cap.layout for k in chunk["keys"])
+    eager = eag.placement.hot_loops.summary()
+    assert all(v["captures"] == v["replays"] == 0 for v in eager.values())
+    return summ
+
+
+def test_prefill_chunk_capture_float32(cuda):
+    cfg = _cfg()
+    _check_prefill(cfg, _traffic(cfg.vocab_size, seed=13, long=70),
+                   prefix_reuse=False)
+
+
+def test_prefill_chunk_capture_int8(cuda):
+    cfg = _cfg()
+    _check_prefill(cfg, _traffic(cfg.vocab_size, seed=14, long=70),
+                   prefix_reuse=False, quant=QuantConfig())
+
+
+def test_prefill_chunk_capture_moe(cuda):
+    cfg = reduced_config("qwen2-moe-a2.7b").with_updates(
+        compute_dtype="float32", param_dtype="float32")
+    _check_prefill(cfg, _traffic(cfg.vocab_size, seed=15, long=70),
+                   enable_placement=False)
+
+
+def test_prefill_chunk_capture_after_prefix_reuse(cuda):
+    """Sharers of a 70-token prefix resume from its snapshot at another
+    offset than the chunk grid's: their chunks replay the same keys."""
+    cfg = _cfg()
+    _check_prefill(cfg, _traffic(cfg.vocab_size, n=9, seed=16, long=70),
+                   reused=True)
+
+
+RING = dict(n_layers=4, local_per_global=1, local_window=16,
+            prefill_sparse=True, omniattn_sink_tokens=8,
+            omniattn_recent_tokens=24)
+
+
+def test_prefill_chunk_capture_ring_paged(cuda):
+    """The mixed stack (sliding window, compressed under prefill_sparse,
+    full): full layers in the arenas, the rings copied into the static
+    private leaves before each replay and back out after."""
+    cfg = _cfg(**RING)
+    _check_prefill(cfg, _traffic(cfg.vocab_size, seed=17, long=70),
+                   pattern=[0, 0, 0, 1])
+
+
+def test_prefill_chunk_capture_dense(cuda):
+    """paged_kv=False: every layer's dense B=1 cache is a static private
+    leaf of the chunk; decode over the slot-dense caches."""
+    cfg = _cfg(**RING)
+    _check_prefill(cfg, _traffic(cfg.vocab_size, seed=18, long=70),
+                   pattern=[0, 0, 0, 1], paged_kv=False)
 
 
 def test_block_topk_select_replayed_equals_eager(cuda):

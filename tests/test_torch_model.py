@@ -128,11 +128,24 @@ def test_paged_prefill_and_decode_logits_match(models, chunk, bs):
 
 def test_unsupported_configs_raise():
     tcfg = t_reduced_config("qwen2-1.5b")
-    lm = TLM.build(tcfg, pattern=None, device="cpu")    # ring layers serve
-    with pytest.raises(NotImplementedError):            # ... but not chunked
-        lm.prefill_resume(lm.init(0), torch.zeros((1, 8), dtype=torch.int32),
-                          tstack.alloc_prefill_private_cache(
-                              tcfg, lm.plan, 64, "cpu"))
+    TLM.build(tcfg, pattern=None, device="cpu")         # ring layers serve
+    # ... and so does chunked prefill over a dense B=1 cache: a full chunk
+    # and a padded one (5 real rows of 8, wrapping the 16-slot rings) give
+    # the logits of whole-prompt prefill under prefill_sparse
+    scfg = tcfg.with_updates(prefill_sparse=True, compute_dtype="float32",
+                             param_dtype="float32")
+    lm = TLM.build(scfg, pattern=None, device="cpu")
+    params = lm.init(0)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, scfg.vocab_size, (1, 24)).astype(np.int32))
+    cache = tstack.alloc_cache(scfg, lm.plan, 1, 64, "cpu")
+    cache, _, _ = lm.prefill_resume(params, toks[:, :16], cache)
+    cache, got, _ = lm.prefill_resume(params, toks[:, 16:], cache,
+                                      chunk_len=5)
+    assert cache["pos"] == 21
+    _, want, _ = lm.prefill(params, toks, max_len=64, true_len=21)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4,
+                               atol=1e-4)
     # online top-k builds (it is served on paged KV), SSM layers do not
     TLM.build(tcfg.with_updates(omniattn_topk_blocks=2), pattern=[0, 0],
               device="cpu")

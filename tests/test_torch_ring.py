@@ -218,17 +218,46 @@ def test_paged_decode_over_rings_matches(models):
 
 
 def test_chunked_prefill_over_rings_raises(models):
-    """Chunked prefill over ring layers (the reference's
-    prefill_resume_attention) is not ported: LM.prefill_resume refuses."""
-    _, lm, _, tlm, tparams = models
+    """Chunked prefill over ring layers serves (it raised before the
+    reference's prefill_resume_attention was ported): a 70-token prompt in
+    chunks of 16 (the last padded, 6 real rows of 8) through
+    LM.prefill_resume, full layers paged through a block table and rings
+    dense, against the reference's chunks over its dense cache — logits of
+    every chunk, the rings slot for slot and the full layers' KV."""
+    _, lm, params, tlm, tparams = models
     cfg = tlm.cfg
+    n, bs = LENS[3], 8
+    toks = list(_prompts(cfg.vocab_size, seed=n)[3])
+    nb = MAX_LEN // bs
     priv = tstack.alloc_prefill_private_cache(cfg, tlm.plan, MAX_LEN, "cpu")
-    arena = tstack.alloc_arena_kv(cfg, tlm.plan, 20, 8, "cpu")
-    cache = tstack.merge_arena_cache(cfg, tlm.plan, priv, arena)
-    with pytest.raises(NotImplementedError):
-        tlm.prefill_resume(tparams, torch.zeros((1, 8), dtype=torch.int32),
-                           cache, block_tables=torch.ones(
-                               (1, 16), dtype=torch.int32))
+    arena = tstack.alloc_arena_kv(cfg, tlm.plan, nb + 1, bs, "cpu")
+    tcache = tstack.merge_arena_cache(cfg, tlm.plan, priv, arena)
+    row = torch.arange(1, nb + 1, dtype=torch.int32)[None]
+    jcache = jstack.alloc_cache(cfg, local_mesh_ctx(), lm.plan, 1, MAX_LEN)
+    jresume = jax.jit(lambda p, t, c, cl: lm.prefill_resume(
+        p, {"tokens": t}, c, max_len=MAX_LEN, chunk_len=cl)[:2])
+    cur = 0
+    while cur < n:
+        cl = min(16, n - cur)
+        S = _bucket(cl)
+        chunk = toks[cur:cur + cl] + [0] * (S - cl)
+        jcache, jl = jresume(params, jnp.asarray([chunk], jnp.int32), jcache,
+                             jnp.int32(cl))
+        tcache, tl, _ = tlm.prefill_resume(
+            tparams, torch.tensor([chunk], dtype=torch.int32), tcache,
+            chunk_len=cl, block_tables=row)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+        cur += cl
+    assert tcache["pos"] == n == int(jcache["pos"])
+    for spec, jl_, tl_ in zip(tlm.plan.all_specs(),
+                              _j_layers(lm.plan, jcache), tcache["layers"]):
+        for name in ("k", "v"):
+            if tstack.full_attn_layer(cfg, spec):
+                got = blocks_to_dense_kv(tl_[name][1:], MAX_LEN)[:n]
+                want = jl_[name][0, :n]
+            else:
+                got, want = tl_[name][0], jl_[name][0]
+            np.testing.assert_allclose(got.numpy(), want, **TOL)
 
 
 def test_bridge_under_the_default_pattern_plan():

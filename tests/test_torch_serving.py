@@ -211,15 +211,24 @@ def test_later_slice_options_raise():
     with pytest.raises(NotImplementedError):
         TServer(tcfg, TServerConfig(), pattern=[0, 0], device="cpu",
                 faults=object())
-    # chunked prefill over dense KV, or over ring layers (compressed under
-    # prefill_sparse, sliding window): the reference's
-    # prefill_resume_attention
-    with pytest.raises(NotImplementedError):
-        TServer(tcfg, TServerConfig(paged_kv=False), pattern=[0, 0],
-                device="cpu")
-    with pytest.raises(NotImplementedError):
-        TServer(tcfg.with_updates(prefill_sparse=True), TServerConfig(),
-                device="cpu")
-    with pytest.raises(NotImplementedError):
-        TServer(tcfg.with_updates(local_per_global=1, local_window=16),
-                TServerConfig(), pattern=[0, 0], device="cpu")
+    # chunked prefill over dense KV and over ring layers (compressed under
+    # prefill_sparse, sliding window) serves: the reference's
+    # prefill_resume_attention. Each of these servers chunks and finishes
+    # a request whose prompt wraps its rings (streams against the JAX
+    # server: tests/test_torch_chunked_serving.py)
+    rng = np.random.default_rng(3)
+    prompt = tuple(int(t) for t in rng.integers(0, tcfg.vocab_size, 45))
+    for cfg, kw, pattern, paged in (
+            (tcfg, dict(paged_kv=False), [0, 0], False),
+            (tcfg.with_updates(prefill_sparse=True), {}, None, True),
+            (tcfg.with_updates(local_per_global=1, local_window=16), {},
+             [0, 0], True)):
+        srv = TServer(cfg, TServerConfig(**dict(SCFG, **kw)),
+                      pattern=pattern, device="cpu")
+        eng = srv.prefills[0]
+        assert eng.chunked and eng.paged == paged
+        outs = list(srv.generate([prompt], TSamplingParams(max_tokens=3)))
+        assert [o.finish_reason for o in outs if o.finished] == ["length"]
+        assert eng.stats["chunks"] >= 3
+        if paged:
+            srv.kv_arena.pool.check_invariants(arena=srv.kv_arena)
