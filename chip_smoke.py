@@ -104,8 +104,27 @@ Phases (any failure raises, so the script exits non-zero):
      pool invariants, one host fetch per decode step, paged_prefill ==
      chunks x 7 in (a), "prefill.chunk" replayed in (a) and (b), greedy
      streams equal across (a), (b) and (c) (phase 5's near-tie rule), and
-     the device time of one chunk's private-leaf copies.
-Every serving phase of 3, 5-9 and 11 serves under CUDA-graph capture, the
+     the device time of one chunk's private-leaf copies;
+ 12. serve full-width qwen2-1.5b (28 full layers) with two prefill and two
+     decode instances over one arena (the watchdog on, ten retries per
+     request) under FaultPlane chaos: (a) phase 3's prompts with 24 new
+     tokens and two sampled requests, (b) phase 7's prompts with
+     SpecConfig(k=4), (c) (a) on int8 arenas; each first fault-free (its
+     server steps set the horizon, about half), then under seeds (1, 2, 5)
+     for (a) and (1, 2) for (b) and (c), each on a new warmed server:
+     every request completes with stop or length, every stream (greedy and
+     sampled) equals the fault-free run's, streamed deltas equal the
+     outputs, each corruption is condemned as exactly its block, the pool's
+     invariants and summaries hold with only prefix-store keys left and
+     the quarantined blocks counted, one host fetch per decode step,
+     paged_prefill == chunks x 28 and paged_decode == (steps - verifies) x
+     28 over both engines of a kind, every engine's entries replayed, and
+     (a)'s kinds kill_prefill, kill_decode, kv_corrupt and kv_lost each
+     fired; (a)'s fault-free greedy streams equal phase 3's 1P/1D streams.
+     It reports the summary scan's device time (float32, int8), the ms of
+     each recover_corruption, walls fault-free / chaos, retries,
+     quarantined blocks, swept handoffs and re-prefilled chunks.
+Every serving phase of 3, 5-9, 11 and 12 serves under CUDA-graph capture, the
 default on `cuda`: the decode step, the verify step and the prefill chunk
 are hot-loop entries (`DevicePlacement.hot_loop`), one graph per key
 replayed each step or chunk, and the launch counts above advance by the
@@ -1371,16 +1390,17 @@ def workload(vocab, n=12, seed=7):
 def build_server(cfg, reuse, dev, params=None, spec=None, kv_blocks=320,
                  placement=None, **extra):
     """Phase 3's server; `extra` sets further ServerConfig knobs (the
-    placement monitor of phase 8, `quant` of phase 9); `placement` a
-    DevicePlacement (phase 10's capture=False), else the default on `dev`
-    (capture on for cuda)."""
+    placement monitor of phase 8, `quant` of phase 9, phase 12's instance
+    counts, watchdog and `oas`); `placement` a DevicePlacement (phase 10's
+    capture=False), else the default on `dev` (capture on for cuda)."""
     from repro_torch.core.proxy import OASConfig
     from repro_torch.serving import Server, ServerConfig
-    scfg = ServerConfig(n_prefill=1, n_decode=1, decode_slots=6, max_len=512,
-                        chunk_tokens=128, prefill_tick_budget=512,
-                        prefix_reuse=reuse, kv_blocks=kv_blocks,
-                        kv_block_size=16, oas=OASConfig(defer_window=0.0),
-                        spec=spec, **extra)
+    knobs = dict(n_prefill=1, n_decode=1,
+                 oas=OASConfig(defer_window=0.0)) | extra
+    scfg = ServerConfig(decode_slots=6, max_len=512, chunk_tokens=128,
+                        prefill_tick_budget=512, prefix_reuse=reuse,
+                        kv_blocks=kv_blocks, kv_block_size=16, spec=spec,
+                        **knobs)
     return Server(cfg, scfg, pattern=[0] * cfg.n_layers, params=params,
                   seed=0, device=dev, placement=placement)
 
@@ -1393,17 +1413,23 @@ def hot_loops(srv) -> dict:
 
 def check_hot_loops(srv, before, dev, entries=("decode.step",)) -> dict:
     """The hot-loop calls since `before` (a `hot_loops` snapshot), per
-    entry: keys met so far, eager calls, captures and replays, and the
-    graph pool's bytes. Under capture each entry in `entries` must have
-    replayed."""
+    entry name: keys met so far, eager calls, captures and replays (and
+    each engine's replays), and the graph pool's bytes. Under capture every
+    engine's entry of each name in `entries` must have replayed."""
     out = {}
     for name, a in hot_loops(srv).items():
-        b = before.get(name, {"eager": 0, "captures": 0, "replays": 0})
+        b = before.get(name, {"eager": 0, "captures": 0, "replays": 0,
+                              "replays_each": []})
+        prev = b["replays_each"] + [0] * (len(a["replays_each"])
+                                          - len(b["replays_each"]))
         out[name] = {"keys": len(a["keys"])} | {
-            k: a[k] - b[k] for k in ("eager", "captures", "replays")}
+            k: a[k] - b[k] for k in ("eager", "captures", "replays")} | {
+            "replays_each": [x - y for x, y in zip(a["replays_each"],
+                                                   prev)]}
     if dev.type == "cuda" and srv.placement.capture:
         for name in entries:
-            assert out.get(name, {}).get("replays", 0) > 0, (name, out)
+            each = out.get(name, {}).get("replays_each", [])
+            assert each and all(r > 0 for r in each), (name, out)
     out["pool_gb"] = srv.placement.graph_pool_bytes() / 1e9
     return out
 
@@ -1415,6 +1441,8 @@ CHUNKED_ENTRIES = ("decode.step", "prefill.chunk")
 def hot_loop_line(hl) -> str:
     return "; ".join(f"{n}: {v['keys']} keys, {v['eager']} eager, "
                      f"{v['captures']} captures, {v['replays']} replays"
+                     + (f" {v['replays_each']}"
+                        if len(v["replays_each"]) > 1 else "")
                      for n, v in hl.items() if n != "pool_gb") + \
         f"; graph pool {hl['pool_gb']:.3f} GB"
 
@@ -1813,6 +1841,226 @@ def serve_ring_chunks(dev, log, cfg, timer):
             "sampled_streams_equal": {o: streams["paged"][6] == streams[o][6]
                                       for o in ("dense", "whole_prompt")},
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+# ---- phase 12: FaultPlane chaos, two prefill and two decode instances --
+# fault seeds per traffic: (a) phase 3's prompts, (b) phase 7's with
+# speculation, (c) (a) on int8 arenas
+P12_SEEDS = {"a": (1, 2, 5), "b": (1, 2), "c": (1, 2)}
+P12_NEW = 24
+P12_KINDS = ("kill_prefill", "kill_decode", "kv_corrupt", "kv_lost")
+
+
+def chaos_workload(vocab):
+    """Phase 3's 14 requests (its 12 prompts and two sampled requests on the
+    shared prefix) with P12_NEW new tokens each."""
+    from repro_torch.core.proxy import SamplingParams
+    prompts, base = workload(vocab)
+    rng = np.random.default_rng(11)
+    prompts += [base + tuple(int(t) for t in rng.integers(0, vocab, 64))
+                for _ in range(2)]
+    params = [SamplingParams(max_tokens=P12_NEW)] * 12 + [SamplingParams(
+        temperature=0.9, top_k=64, top_p=0.95, seed=900 + i,
+        max_tokens=P12_NEW) for i in (12, 13)]
+    return prompts, params
+
+
+def build_chaos_server(cfg, dev, params=None, **extra):
+    """Phase 3's server with two prefill and two decode instances over one
+    arena, the watchdog on and ten retries per request."""
+    from repro_torch.core.proxy import OASConfig
+    return build_server(cfg, True, dev, params=params, n_prefill=2,
+                        n_decode=2, watchdog_steps=200,
+                        oas=OASConfig(defer_window=0.0, max_retries=10),
+                        **extra)
+
+
+def chaos_run(srv, prompts, params, warm, dev, plane=None):
+    """One measured run of phase 12 on a warmed server: the counts zeroed
+    just before `drive` and read just after, `plane` attached after the
+    warm-up (its steps count from there), each `recover_corruption` timed
+    on the host with the device synchronised around it. Every assert of
+    the phase that concerns one run is here."""
+    from repro_torch.kernels.paged_decode import paged_decode
+    from repro_torch.kernels.paged_prefill import paged_prefill
+    from repro_torch.kernels.spec_verify import spec_verify
+    list(srv.generate(*warm))
+    reset_stats(srv)
+    srv.faults = plane
+    recover, recover_s = srv.recover_corruption, []
+
+    def timed(now=None):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = recover(now)
+        torch.cuda.synchronize()
+        recover_s.append(time.perf_counter() - t)
+        return got
+    srv.recover_corruption = timed
+    hl0 = hot_loops(srv)
+    kerns = (paged_prefill, paged_decode, spec_verify)
+    for k in kerns:
+        k.launches = 0
+    step0 = srv._step_count
+    streams, finished, summ, wall = drive(srv, prompts, params)
+    launches = {k.__name__: k.launches for k in kerns}
+    del srv.recover_corruption
+    n_layers = srv.cfg.n_layers
+    spec = srv.scfg.spec is not None
+    hl = check_hot_loops(srv, hl0, dev, entries=(
+        "decode.verify" if spec else "decode.step", "prefill.chunk"))
+    assert len(finished) == len(prompts) and all(
+        r in ("stop", "length") for r in finished), finished
+    done = {r.rid: list(r.output_tokens) for r in srv.metrics.done}
+    outputs = [done[r] for r in sorted(done)]
+    chunks = sum(e.stats["chunks"] for e in srv.prefills)
+    steps = sum(e.stats["steps"] for e in srv.decodes)
+    verifies = sum(e.stats.get("spec_verifies", 0) for e in srv.decodes)
+    for e in srv.decodes:
+        assert e.stats["host_fetches"] == e.stats["steps"], e.stats
+    if dev.type == "cuda":
+        assert launches["paged_prefill"] == chunks * n_layers > 0, \
+            (launches, chunks)
+        assert launches["paged_decode"] == (steps - verifies) * n_layers, \
+            (launches, steps, verifies)
+        assert launches["spec_verify"] == verifies * n_layers, \
+            (launches, verifies)
+    assert not spec or verifies > 0
+    pool = srv.kv_arena.pool
+    pool.check_invariants(arena=srv.kv_arena)
+    assert len(pool.quarantined) == srv.metrics.blocks_quarantined
+    left = [k for k in pool.per_request
+            if not (isinstance(k, tuple) and k[0] == "store")]
+    assert not left, f"pool keys left at quiescence: {left}"
+    if plane is not None:
+        assert sum(plane.injected.values()) > 0, "chaos injected nothing"
+        for _, kind, target in plane.fired:
+            if kind == "kv_corrupt":
+                b, got = target
+                assert got == (b,), f"corrupted block {b}, condemned {got}"
+    return {"streams": streams, "outputs": outputs, "wall_s": wall,
+            "server_steps": srv._step_count - step0, "chunks": chunks,
+            "decode_steps": steps, "verify_steps": verifies,
+            "launches": launches, "hot_loops": hl,
+            "recover_s": recover_s,
+            "retries": summ["n_retries"],
+            "quarantined": summ["blocks_quarantined"],
+            "handoffs_swept": srv.n_handoffs_swept,
+            "injected": None if plane is None else dict(plane.injected),
+            "skipped": None if plane is None else dict(plane.skipped),
+            "fired": None if plane is None else [
+                [st, k, t] for st, k, t in plane.fired],
+            "metrics": {k: summ[k] for k in (
+                "n_done", "ttft_mean", "tpot_mean_ms", "ott_tok_s")}}
+
+
+def stream_diffs(srv, prompts, params, got, want) -> list:
+    """Every request whose stream in `got` differs from `want`: its index,
+    the first differing token, whether it samples, and (greedy) the top-2
+    logit margin of `want`'s token there on `srv`'s model (phase 5's
+    rule)."""
+    out = []
+    for r, (x, y) in enumerate(zip(got, want)):
+        if x == y:
+            continue
+        i = next((j for j in range(min(len(x), len(y))) if x[j] != y[j]),
+                 min(len(x), len(y)))
+        sampled = params[r].temperature > 0
+        margin = None if sampled or i >= len(y) else \
+            top2_margin(srv, prompts[r], y, i)
+        out.append({"request": r, "token": i, "sampled": sampled,
+                    "margin": margin, "len": [len(x), len(y)]})
+    return out
+
+
+def serve_chaos(dev, log, cfg, timer, phase3_streams):
+    """Phase 12 on `cfg` (full-width qwen2-1.5b, every layer full attention,
+    in main()): FaultPlane chaos over two prefill and two decode instances
+    sharing one arena. Each traffic first runs fault-free; its server-step
+    count sets the horizon (about half of it), then each seed runs under
+    FaultPlane(FaultConfig(seed, horizon)) on a new warmed server with the
+    same weights. Every completed stream, greedy and sampled, must equal
+    the fault-free run's. The summary scan's device time is taken on the
+    float32 and int8 arenas."""
+    from repro_torch.core.proxy import SamplingParams
+    from repro_torch.serving import FaultConfig, FaultPlane
+    from repro_torch.serving.quant import QuantConfig
+    from repro_torch.serving.spec import SpecConfig
+    vocab = cfg.vocab_size
+    a_prompts, a_params = chaos_workload(vocab)
+    a_warm = (workload(vocab, seed=8)[0], SamplingParams(max_tokens=4))
+    b_prompts, b_params = spec_workload(vocab)
+    b_warm = (spec_workload(vocab, seed=42)[0][:2],
+              SamplingParams(max_tokens=8))
+    traffic = {"a": (a_prompts, a_params, a_warm, {}),
+               "b": (b_prompts, b_params, b_warm,
+                     {"spec": SpecConfig(k=P7_K)}),
+               "c": (a_prompts, a_params, a_warm,
+                     {"quant": QuantConfig()})}
+    out, weights, fired = {}, None, {k: 0 for k in P12_KINDS}
+    for name, (prompts, params, warm, knobs) in traffic.items():
+        t0 = time.monotonic()
+        base = build_chaos_server(cfg, dev, params=weights, **knobs)
+        weights = base.params
+        ref = chaos_run(base, prompts, params, warm, dev)
+        assert ref["streams"] == ref.pop("outputs")
+        horizon = max(ref["server_steps"] // 2, 3)
+        scan_ms = timer(base.kv_arena.corrupt_mask)
+        assert not base.kv_arena.corrupt_mask().any()
+        log.append(f"({name}) fault-free: {ref['server_steps']} server "
+                   f"steps, {ref['chunks']} chunks, {ref['decode_steps']} "
+                   f"decode steps; horizon {horizon}")
+        if name == "a":
+            # 2P/2D against phase 3's 1P/1D on the same prompts (4 tokens)
+            assert [s[:4] for s in ref["streams"][:12]] == \
+                phase3_streams[:12], "2P/2D greedy streams differ from " \
+                "phase 3's 1P/1D streams"
+            ref["sampled_equal_phase3"] = [s[:4] for s in
+                                           ref["streams"][12:]] == \
+                phase3_streams[12:14]
+        runs = {}
+        for seed in P12_SEEDS[name]:
+            plane = FaultPlane(FaultConfig(seed=seed, horizon=horizon))
+            srv = build_chaos_server(cfg, dev, params=weights, **knobs)
+            run = chaos_run(srv, prompts, params, warm, dev, plane=plane)
+            # streamed deltas against the outputs (nothing replayed or
+            # lost), and both against the fault-free run
+            diffs = {k: stream_diffs(base, prompts, params, run[k], w)
+                     for k, w in (("streams", run["outputs"]),
+                                  ("outputs", ref["streams"]))}
+            if any(diffs.values()):
+                log.append(f"({name}) seed {seed}: deltas vs outputs "
+                           f"{diffs['streams']}; outputs vs the fault-free "
+                           f"run {diffs['outputs']}; fired {plane.fired}")
+                raise AssertionError(f"({name}) seed {seed}: streams differ "
+                                     f"({diffs})")
+            if name == "a":
+                for k in P12_KINDS:
+                    fired[k] += plane.injected[k]
+            run["reprefilled_chunks"] = run["chunks"] - ref["chunks"]
+            run.pop("streams")
+            run.pop("outputs")
+            runs[seed] = run
+            log.append(
+                f"({name}) seed {seed}: streams equal the fault-free run; "
+                f"injected {run['injected']}, skipped "
+                f"{ {k: v for k, v in run['skipped'].items() if v} }; "
+                f"retries {run['retries']}, blocks quarantined "
+                f"{run['quarantined']}, handoffs swept "
+                f"{run['handoffs_swept']}, re-prefilled chunks "
+                f"{run['reprefilled_chunks']}; wall {run['wall_s']:.3f} s "
+                f"(fault-free {ref['wall_s']:.3f} s)")
+            del srv
+        ref.pop("streams")
+        out[name] = {"fault_free": ref, "horizon": horizon,
+                     "scan_ms": scan_ms, "runs": runs,
+                     "seconds": time.monotonic() - t0}
+        del base
+        gc.collect()
+        torch.cuda.empty_cache()
+    assert all(fired.values()), f"(a) fired none of some kinds: {fired}"
+    out["a_fired"] = fired
+    return out
 
 
 # ---- phase 4: reduced width, card against CPU ------------------------
@@ -3345,12 +3593,44 @@ def main() -> int:
           f"(near-ties {rings['near_ties']}); sampled stream equal "
           f"{rings['sampled_streams_equal']}")
 
+    log.clear()
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t12 = time.monotonic()
+    chaos = serve_chaos(dev, log, cfg, timer, served["streams"])
+    print(f"phase 12 [{time.monotonic() - t0:.1f} s]: full-width qwen2-1.5b, "
+          f"28 full layers, FaultPlane chaos over 2 prefill + 2 decode "
+          f"instances in {time.monotonic() - t12:.1f} s")
+    for line in log:
+        print("  " + line)
+    for name in ("a", "b", "c"):
+        r, ff = chaos[name], chaos[name]["fault_free"]
+        rec_ms = [x * 1e3 for run in r["runs"].values()
+                  for x in run["recover_s"]]
+        walls = ", ".join(f"{run['wall_s']:.3f}"
+                          for run in r["runs"].values())
+        print(f"  ({name}) summary scan {r['scan_ms']:.4f} ms device time "
+              f"({'int8' if name == 'c' else 'float32'} arena, "
+              f"{cfg.n_layers} layers x 321 blocks); recover_corruption "
+              + (f"median {float(np.median(rec_ms)):.2f} ms, max "
+                 f"{max(rec_ms):.2f} ms over {len(rec_ms)} calls"
+                 if rec_ms else "not called")
+              + f"; walls fault-free {ff['wall_s']:.3f} s / chaos {walls} s "
+              f"[{smi}]")
+        print(f"  ({name}) fault-free hot loops: "
+              f"{hot_loop_line(ff['hot_loops'])} (phase 3, 1P/1D: "
+              f"{served['hot_loops']['pool_gb']:.3f} GB)")
+    print(f"  (a) kinds fired over seeds {P12_SEEDS['a']}: {chaos['a_fired']};"
+          f" 2P/2D greedy streams equal phase 3's 1P/1D streams; sampled "
+          f"{chaos['a']['fault_free']['sampled_equal_phase3']}")
+
     for rec in (served, spec["runs"]["spec_on"], spec["runs"]["spec_off"],
                 quant):
         rec.pop("streams", None)
     report.update(kernels=kern, kernels_int8=kern_q, serve=served,
                   default_pattern=omni, topk=topk, spec=spec, moe=moe,
-                  quant=quant, eager=eager, ring_chunks=rings)
+                  quant=quant, eager=eager, ring_chunks=rings, chaos=chaos)
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 

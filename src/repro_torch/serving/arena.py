@@ -19,6 +19,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.models.attention import dequant_pages
 from repro_torch.models.lm import LM
 from repro_torch.models.stack import alloc_arena_kv
 from repro_torch.serving.kvpool import KVPool
@@ -103,6 +104,46 @@ class KVArena:
                 continue
             for t in e.values():
                 t[dst] = t[src]
+
+    def scrub_block(self, b: int):
+        """Zero one physical block in every leaf of every layer arena, in
+        place: content, summaries and (int8 arenas) the scale and per-token
+        rows (corruption quarantine: the block leaves circulation, and
+        all-zero keys reduce to all-zero min/max/mean, so `check_summaries`
+        holds; a stale nonzero scale row would mark it sealed)."""
+        for e in self.kv:
+            if e is None:
+                continue
+            for t in e.values():
+                t[b] = 0
+
+    @torch.no_grad()
+    def corrupt_mask(self) -> torch.Tensor:
+        """[N+1] bool device mask of the blocks whose stored kmin/kmax differ
+        from a fresh min/max of the block's (dequantized) keys, OR-ed over
+        every full-attention layer; int8 keys are dequantized with the one
+        float32 product of `_dense_k`. Computed on the device; min and max
+        do not depend on the reduction order, so the comparison is exact."""
+        bad = torch.zeros(self.pool.n_blocks + 1, dtype=torch.bool,
+                          device=self.lm.device)
+        for e in self.kv:
+            if e is None or "kmin" not in e:
+                continue
+            k = (dequant_pages(e["k"], e["kscale"], e["ktok"])
+                 if "kscale" in e else e["k"].float())   # [N, K, bs, h]
+            mism = (e["kmin"] != k.amin(dim=-2)) | \
+                (e["kmax"] != k.amax(dim=-2))             # [N, K, h]
+            bad |= mism.flatten(1).any(dim=1)
+        return bad
+
+    def find_corrupt_blocks(self) -> list:
+        """Summary-plane corruption scan: the block ids whose stored key
+        summaries disagree with their content (a fault that changed K
+        without going through a summary-maintaining write). The scan runs
+        on the device; one fetch of the [N+1] mask. Call at recovery
+        points, not per step."""
+        return [int(b) for b in
+                torch.nonzero(self.corrupt_mask().cpu()).flatten()]
 
     @staticmethod
     def _dense_k(entry) -> np.ndarray:

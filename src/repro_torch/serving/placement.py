@@ -145,16 +145,20 @@ class HotLoopRegistry:
         return [e for e in self.entries if e.inputs]
 
     def summary(self) -> dict:
-        """{entry name: {"keys", "eager", "captures", "replays"}}, summed
-        over the entries of one name (one per decode engine)."""
+        """{entry name: {"keys", "eager", "captures", "replays",
+        "replays_each"}}: summed over the entries of one name (one per
+        engine), and each entry's replays in the order the engines
+        registered them."""
         out: dict = {}
         for e in self.entries:
             s = e.summary()
             acc = out.setdefault(e.name, {"keys": [], "eager": 0,
-                                          "captures": 0, "replays": 0})
+                                          "captures": 0, "replays": 0,
+                                          "replays_each": []})
             acc["keys"] += [k for k in s["keys"] if k not in acc["keys"]]
             for k in ("eager", "captures", "replays"):
                 acc[k] += s[k]
+            acc["replays_each"].append(s["replays"])
         return out
 
 

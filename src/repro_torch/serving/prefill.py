@@ -383,12 +383,33 @@ class PrefillEngine:
         self._ready = [r for r in self._ready if r.rid != rid]
         return hit or len(self._ready) != n0
 
+    def drop_results(self) -> int:
+        """Discard every completed-but-undelivered result and release its
+        handoff blocks (a dead instance's results are never drained by the
+        server, so their ("handoff", i) keys would leak). → results
+        dropped."""
+        n = len(self._ready)
+        for r in self._ready:
+            self._release_result(r)
+        self._ready = []
+        return n
+
     def step(self, token_budget: int = 1 << 30) -> list:
         """Run up to `token_budget` tokens of prefill work; → completed
-        prompts. Chunked: shortest-remaining-first at chunk granularity; a
-        task that cannot grow its block reservation is deferred for the
-        round (stats.defers) and retries when blocks come free. Whole-prompt:
-        FIFO, whole prompts while budget remains (at least one)."""
+        prompts. Chunked: shortest-remaining-first at chunk granularity,
+        whole chunks while the next one fits in the budget (at least one a
+        round); a task that cannot grow its block reservation is deferred
+        for the round (stats.defers) and retries when blocks come free.
+        Whole-prompt: FIFO, whole prompts while budget remains (at least
+        one).
+
+        The budget never cuts a chunk (the reference cuts the last one of a
+        round to the budget left): on int8 arenas a chunk attends its own
+        K/V unquantized and its history dequantized, so the KV a prompt
+        leaves depends on where its chunks end. Without cuts the ends are
+        set by the prompt, its resume point and its snapshot boundary
+        alone, not by the round's mix, so a prompt prefilled again after a
+        fault lands the same int8 KV."""
         done, budget = self._ready, token_budget
         self._ready = []
         fresh: list = []
@@ -405,8 +426,13 @@ class PrefillEngine:
                 # are visible to tasks that have not started
                 self._try_resume(task)
             if task.remaining > 0:
-                ran = (self._run_chunk(task, min(budget, self.chunk))
-                       if self.chunked else self._run_full(task))
+                if self.chunked:
+                    cl = self._chunk_len(task)
+                    if cl > budget and budget < token_budget:
+                        break           # the next whole chunk does not fit
+                    ran = self._run_chunk(task, cl)
+                else:
+                    ran = self._run_full(task)
                 if ran == 0 and task.remaining > 0:
                     blocked.add(task.rid)       # pool backpressure: defer
                     continue
@@ -419,11 +445,16 @@ class PrefillEngine:
         self.stats["busy_s"] += time.monotonic() - t0
         return done
 
-    def _run_chunk(self, task: PrefillTask, budget: int) -> int:
-        t0 = time.monotonic()
-        cl = min(self.chunk, task.remaining, max(budget, 1))
+    def _chunk_len(self, task: PrefillTask) -> int:
+        """Tokens of `task`'s next chunk: a whole chunk, cut only by the
+        prompt's end and its snapshot boundary."""
+        cl = min(self.chunk, task.remaining)
         if task.cursor < task.snap:
             cl = min(cl, task.snap - task.cursor)   # land on the boundary
+        return cl
+
+    def _run_chunk(self, task: PrefillTask, cl: int) -> int:
+        t0 = time.monotonic()
         if self.paged and not self._grow_blocks(task, cl):
             self.stats["defers"] += 1
             return 0

@@ -34,9 +34,16 @@ expert weights and rewrites the tables, both in place. On one device (ep = 1) th
 imbalance is always 1.0, so the loop monitors and never rebalances;
 `_apply_migration` also takes a forced plan.
 
-Options of later slices (fault injection and recovery, chunked prefill
-over ring layers, speculation or online top-k with MoE layers) raise
-NotImplementedError.
+FaultPlane (`Server(faults=FaultPlane(...))`, serving/faults.py) fires
+seeded faults at the top of every `step`, before any engine round and
+outside every captured graph; the recovery machinery behind it (instance
+death and revival, KV loss, dropped handoffs, corruption scan, quarantine
+and scrub, retry caps, the no-progress watchdog, admission shedding) keeps
+every completed stream equal to the fault-free run's. Recovery never
+rebinds a tensor a graph was captured with: the arenas are scrubbed in
+place, and a freed slot's table row goes to the null block.
+
+Speculation or online top-k with MoE layers raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -52,12 +59,13 @@ from repro_torch.core.placement import DynamicScheduler, SchedulerConfig
 from repro_torch.core.placement.migration import \
     tables_from_placement_from_slots
 from repro_torch.core.proxy import (BackpressureError, MetricsAggregator,
-                                    OASConfig, OmniProxy, Request,
+                                    OASConfig, OmniProxy, Phase, Request,
                                     RequestOutput, SamplingParams)
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.lm import LM
 from repro_torch.serving.arena import BlockHandoff, KVArena
 from repro_torch.serving.decode import DecodeEngine
+from repro_torch.serving.faults import FaultPlane
 from repro_torch.serving.placement import DevicePlacement
 from repro_torch.serving.prefill import PrefillEngine
 from repro_torch.serving.quant import QuantConfig, QuantController
@@ -95,10 +103,14 @@ class ServerConfig:
                                       # table-width max_slots)
     quant: Optional[QuantConfig] = None  # int8 paged KV arenas
                                       # (QuantPlane; None → float arenas)
-    # options of later slices: setting any of them raises
-    watchdog_steps: Optional[int] = None    # FaultPlane recovery
-    watchdog_wall_s: Optional[float] = None
-    admission_queue_cap: Optional[int] = None
+    # ---- FaultPlane recovery knobs (None → off) ----
+    watchdog_steps: Optional[int] = None    # retire a request whose progress
+                                            # marker is unchanged for N steps
+                                            # with finish_reason="timeout"
+    watchdog_wall_s: Optional[float] = None  # same, wall-clock bound
+    admission_queue_cap: Optional[int] = None  # shed (BackpressureError) when
+                                               # the admission backlog reaches
+                                               # this many waiting requests
 
     def check_supported(self):
         if self.spec is not None and not isinstance(self.spec, SpecConfig):
@@ -108,14 +120,6 @@ class ServerConfig:
                                                      QuantConfig):
             raise TypeError(f"ServerConfig.quant takes a QuantConfig, got "
                             f"{type(self.quant).__name__}")
-        later = {"watchdog / admission_queue_cap":
-                 self.watchdog_steps is not None
-                 or self.watchdog_wall_s is not None
-                 or self.admission_queue_cap is not None}
-        bad = [k for k, v in later.items() if v]
-        if bad:
-            raise NotImplementedError(
-                f"ServerConfig options not ported yet: {', '.join(bad)}")
 
 
 class Server:
@@ -125,11 +129,14 @@ class Server:
                  placement: Optional[DevicePlacement] = None):
         """`params`: the port's parameter dict (e.g. from
         `bridge.params_from_numpy`), or None for `LM.init(seed)`. `device`
-        None → cuda."""
-        if faults is not None:
-            raise NotImplementedError("FaultPlane injection is not ported yet")
+        None → cuda. `faults`: a FaultPlane, or None."""
+        if faults is not None and not isinstance(faults, FaultPlane):
+            raise TypeError(f"Server(faults=...) takes a FaultPlane, got "
+                            f"{type(faults).__name__}")
         scfg.check_supported()
         self.cfg, self.scfg = cfg, scfg
+        # fired at the top of every step(), before any engine work
+        self.faults = faults
         self.placement = placement if placement is not None else \
             DevicePlacement.of(device)
         self.lm = LM.build(cfg, pattern=pattern,
@@ -198,6 +205,9 @@ class Server:
         self._finish_info: dict = {}      # rid → (reason, total)
         self._events: list = []
         self._idle_slept_s = 0.0
+        # watchdog state: rid → (progress marker, step seen, wall seen)
+        self._wd: dict = {}
+        self.n_handoffs_swept = 0
         self.placement_sched = None
         if scfg.enable_placement and cfg.moe.n_experts:
             s = int(self.tables["slot_expert"].shape[1])
@@ -234,25 +244,46 @@ class Server:
         return rid
 
     def _admission_check(self, prompt: tuple):
-        """Shed at the door (BackpressureError) a prompt larger than the
-        whole paged pool: no sequence of releases could ever make it fit."""
-        if self.kv_arena is None:
-            return
-        pool = self.kv_arena.pool
-        need = pool.blocks_for(len(prompt))
-        if need > pool.n_blocks:
-            self.metrics.note_shed()
-            raise BackpressureError(
-                f"prompt needs {need} KV blocks but the pool has only "
-                f"{pool.n_blocks}")
+        """Shed at the door with a BackpressureError instead of admitting a
+        request that would defer inside the engines forever. Two gates: a
+        prompt no sequence of releases could ever make fit (larger than
+        every non-quarantined block), and a bounded admission backlog
+        (`admission_queue_cap`, None → unbounded)."""
+        if self.kv_arena is not None:
+            pool = self.kv_arena.pool
+            usable = pool.n_blocks - len(pool.quarantined)
+            need = pool.blocks_for(len(prompt))
+            if need > usable:
+                self.metrics.note_shed()
+                raise BackpressureError(
+                    f"prompt needs {need} KV blocks but the pool has only "
+                    f"{usable} usable ({len(pool.quarantined)} quarantined)")
+        cap = self.scfg.admission_queue_cap
+        if cap is not None:
+            backlog = (len(self.proxy.pending) + len(self.proxy.decode_wait)
+                       + len(self._pending_kv)
+                       + sum(len(e.queue) for e in self.prefills))
+            if backlog >= cap:
+                self.metrics.note_shed()
+                raise BackpressureError(
+                    f"admission backlog {backlog} >= cap {cap}")
 
     def step(self, now: Optional[float] = None) -> list:
-        """Advance the whole server one round (proxy tick → prefill round →
-        decode round) → per-request deltas."""
+        """Advance the whole server one round → per-request deltas. Faults
+        and their recovery run first, before any engine round and outside
+        every graph, so no token is computed from corrupt or lost KV; then
+        the orphan-handoff sweep, the proxy tick, the retirement of failed
+        requests, the prefill round, the decode round and the watchdog."""
         now = time.monotonic() if now is None else now
+        if self.faults is not None:
+            self.faults.on_step(self, self._step_count, now)
+        if self.kv_arena is not None:
+            self._sweep_orphan_handoffs()
         self._drain_actions(now)
+        self._sweep_failed(now)
         self._prefill_round()
         self._decode_round()
+        self._watchdog(now)
         return self._flush_outputs()
 
     def abort(self, rid: int, now: Optional[float] = None) -> bool:
@@ -307,8 +338,184 @@ class Server:
         if isinstance(cache, BlockHandoff):
             self.kv_arena.pool.release(cache.key)
 
+    # ---- FaultPlane recovery machinery -------------------------------
+    def _retire_faulted(self, rid: int, reason: str, now: float):
+        """Retire a request the recovery gave up on ("error": retries
+        exhausted, "timeout": watchdog): release every engine and pool
+        resource it holds and emit a terminal RequestOutput. proxy.abort
+        does the accounting unwind (a FAILED request matches none of its
+        branches)."""
+        req = self.proxy.abort(rid, now)
+        if req is None:
+            return
+        req.finish_reason = reason
+        kv = self._pending_kv.pop(rid, None)
+        if kv is not None:
+            self._release_handoff(kv[0])
+        for eng in self.prefills:
+            eng.abort(rid)
+        for eng in self.decodes:
+            eng.release(rid)
+        self._fresh.pop(rid, None)
+        self._finish_info.pop(rid, None)
+        self._wd.pop(rid, None)
+        n_out = max(len(req.output_tokens), self._emitted.pop(rid, 0))
+        if reason == "timeout":
+            self.metrics.add_timeout(req)
+        else:
+            self.metrics.add_error(req)
+        self._events.append(RequestOutput(rid, (), True, reason, n_out))
+
+    def _sweep_failed(self, now: float):
+        """Retire every FAILED request with finish_reason="error": retry-cap
+        exhaustion only advances the phase, and a FAILED request left in
+        proxy.inflight would keep run()/generate() from returning."""
+        for rid in [r.rid for r in list(self.proxy.inflight.values())
+                    if r.phase == Phase.FAILED]:
+            self._retire_faulted(rid, "error", now)
+
+    def _watchdog(self, now: float):
+        """Retire with finish_reason="timeout" the requests whose progress
+        marker has not changed for `watchdog_steps` steps or
+        `watchdog_wall_s` seconds. The marker puts DECODE_WAIT and
+        DECODE_SCHEDULED in one class (admission-requeue ping-pong is not
+        progress); a prefill cursor advance, a new output token or a
+        granted retry each re-earn the full window."""
+        ws, ww = self.scfg.watchdog_steps, self.scfg.watchdog_wall_s
+        if ws is None and ww is None:
+            return
+        live = set()
+        for rid, req in list(self.proxy.inflight.items()):
+            live.add(rid)
+            phase_class = (Phase.DECODE_WAIT if req.phase in
+                           (Phase.DECODE_WAIT, Phase.DECODE_SCHEDULED)
+                           else req.phase)
+            cursor = max((t.cursor for eng in self.prefills
+                          for t in eng.queue if t.rid == rid), default=0)
+            marker = (phase_class, cursor, len(req.output_tokens),
+                      req.n_retries)
+            prev = self._wd.get(rid)
+            if prev is None or prev[0] != marker:
+                self._wd[rid] = (marker, self._step_count, now)
+                continue
+            _, step0, t0 = prev
+            if (ws is not None and self._step_count - step0 >= ws) or \
+                    (ww is not None and now - t0 >= ww):
+                self._retire_faulted(rid, "timeout", now)
+                live.discard(rid)
+        for rid in [r for r in self._wd if r not in live]:
+            del self._wd[rid]
+
+    def _sweep_orphan_handoffs(self):
+        """Leak backstop for the ("handoff", i) rename stage: a handoff key
+        in the pool that neither a parked `_pending_kv` record nor an
+        engine's undelivered result references belongs to nobody. Its
+        blocks go back to the free list (`n_handoffs_swept` counts them):
+        dead-instance drops and injected handoff faults land here."""
+        pool = self.kv_arena.pool
+        refs = {kv[0].key for kv in self._pending_kv.values()
+                if isinstance(kv[0], BlockHandoff)}
+        for eng in self.prefills:
+            refs |= {r.cache.key for r in eng._ready
+                     if isinstance(r.cache, BlockHandoff)}
+        for key in list(pool.per_request):
+            if isinstance(key, tuple) and len(key) == 2 \
+                    and key[0] == "handoff" and key not in refs:
+                pool.release(key)
+                self.n_handoffs_swept += 1
+
+    def recover_corruption(self, now: Optional[float] = None) -> list:
+        """Summary-plane corruption recovery: scan the arenas (on the
+        device, one fetch) for blocks whose stored key summaries disagree
+        with their content, then (1) drop the prefix-store entries built on
+        them, (2) drop the parked handoffs and (3) abort and restart the
+        prefill work touching them, (4) restart the decode residents that
+        map them (their slots' table rows go to the null block), and (5)
+        quarantine and scrub the now unmapped blocks in place. → condemned
+        block ids. Restarted requests regenerate the same prefix
+        (positional draws) and the delivered counter keeps it from being
+        streamed again."""
+        if self.kv_arena is None:
+            return []
+        now = time.monotonic() if now is None else now
+        bad = self.kv_arena.find_corrupt_blocks()
+        if not bad:
+            return []
+        badset = set(bad)
+        pool = self.kv_arena.pool
+        # an orphaned handoff key may map a condemned block: sweep first so
+        # the holder scan below sees only live owners
+        self._sweep_orphan_handoffs()
+        for eng in self.prefills:
+            eng.store.drop_containing(badset)
+        for rid in list(self._pending_kv):
+            kv = self._pending_kv[rid]
+            if isinstance(kv[0], BlockHandoff) and badset & set(kv[0].blocks):
+                self._pending_kv.pop(rid)
+                self._release_handoff(kv[0])
+                req = self.proxy.inflight.get(rid)
+                if req is not None:
+                    self.proxy.on_handoff_lost(req, now)
+        for eng in self.prefills:
+            hit = {r.rid for r in eng._ready
+                   if isinstance(r.cache, BlockHandoff)
+                   and badset & set(r.cache.blocks)}
+            hit |= {t.rid for t in eng.queue
+                    if badset & set(pool.owned(("prefill", t.rid)))}
+            for rid in hit:
+                eng.abort(rid)
+                req = self.proxy.inflight.get(rid)
+                if req is not None:
+                    self.proxy.on_prefill_restart(req, now)
+        for eng in self.decodes:
+            for rid in list(eng.rid_slot):
+                if badset & set(pool.owned(rid)):
+                    eng.release(rid)
+                    req = self.proxy.inflight.get(rid)
+                    if req is not None and req.phase == Phase.DECODE_RUNNING:
+                        self.proxy.on_decode_restart(req, now)
+        self._sweep_failed(now)
+        for b in bad:
+            pool.quarantine(b)
+            assert b not in pool.refcount, \
+                f"corrupt block {b} still mapped after recovery"
+            self.kv_arena.scrub_block(b)
+        self.metrics.note_quarantine(len(bad))
+        return bad
+
+    # ---- fault-injection entry points (FaultPlane hooks) -------------
+    def inject_instance_failure(self, kind: str, iid: int,
+                                now: Optional[float] = None):
+        """Kill one engine instance: the proxy reroutes its in-flight
+        requests (retry-capped) and the next step's engine rounds release
+        its slots, queued tasks and undelivered results."""
+        now = time.monotonic() if now is None else now
+        self.proxy.mark_unhealthy(kind, iid, now)
+
+    def revive_instance(self, kind: str, iid: int):
+        self.proxy.mark_healthy(kind, iid)
+
+    def inject_kv_lost(self, rid: int, now: Optional[float] = None):
+        """Lose one resident decode request's KV: its slot and blocks are
+        released and the request reroutes through prefill, retry-capped."""
+        now = time.monotonic() if now is None else now
+        req = self.proxy.inflight.get(rid)
+        for eng in self.decodes:
+            eng.release(rid)
+        if req is not None and req.phase == Phase.DECODE_RUNNING:
+            self.proxy.on_decode_restart(req, now)
+
+    def inject_handoff_drop(self, rid: int) -> bool:
+        """Drop a parked handoff WITHOUT releasing its pool key (a payload
+        lost mid-rename). The orphan-handoff sweep reclaims the blocks; the
+        request recovers through the kv-lost path at dispatch."""
+        return self._pending_kv.pop(rid, None) is not None
+
     def _note_token(self, req: Request, tok: int) -> Optional[str]:
-        """Record one generated token; → finish reason or None."""
+        """Record one generated token; → finish reason or None. A request
+        restarted through prefill regenerates from scratch: the draws are
+        positional, so the replayed prefix is the same, and the delivered
+        counter keeps it from being streamed again."""
         req.output_tokens.append(tok)
         n = len(req.output_tokens)
         if n > self._emitted.get(req.rid, 0):
@@ -355,7 +562,11 @@ class Server:
             tnow = time.monotonic()
             items, live = [], []
             for r in reqs:
-                items.append((r.rid,) + self._pending_kv.pop(r.rid))
+                kv = self._pending_kv.pop(r.rid, None)
+                if kv is None:   # KV died with a failed decode instance
+                    self.proxy.on_decode_kv_lost(r, tnow)
+                    continue
+                items.append((r.rid,) + kv)
                 live.append(r)
             t0 = eng.stats["kv_transfer_bytes"]
             p0 = eng.stats["kv_transfer_bytes_padded"]
@@ -373,6 +584,13 @@ class Server:
     def _prefill_round(self):
         budget = self.scfg.prefill_tick_budget
         for iid, eng in enumerate(self.prefills):
+            if not self.proxy.prefill[iid].healthy:
+                # died: the proxy re-dispatches its requests; abort() frees
+                # the tasks' blocks and undelivered results die too
+                for t in list(eng.queue):
+                    eng.abort(t.rid)
+                eng.drop_results()
+                continue
             if not eng.has_work():
                 continue
             for rec in eng.step(budget):
@@ -396,6 +614,11 @@ class Server:
 
     def _decode_round(self):
         for iid, eng in enumerate(self.decodes):
+            if not self.proxy.decode[iid].healthy:
+                for rid in list(eng.rid_slot):   # died: slots are garbage,
+                    eng.release(rid)             # the proxy re-routes them
+                eng.preempted.clear()
+                continue
             toks = eng.step()
             now = time.monotonic()
             finished = set()
@@ -536,6 +759,9 @@ class Server:
         summary["n_migrations"] = self.n_migrations
         summary["migration_log"] = list(self.migration_log)
         summary["idle_slept_s"] = self._idle_slept_s
+        summary["n_handoffs_swept"] = self.n_handoffs_swept
+        if self.faults is not None:
+            summary["faults_injected"] = dict(self.faults.injected)
         summary["prefill_stats"] = [e.stats for e in self.prefills]
         summary["decode_stats"] = [e.stats for e in self.decodes]
         return summary

@@ -86,7 +86,7 @@ def test_entry_counts_calls_per_key_and_holds_static_inputs():
     assert pl.hot_loops.called() == [entry]
     assert pl.hot_loops.summary() == {"t.step": {
         "keys": [(2, True), (3, False)], "eager": 4, "captures": 0,
-        "replays": 0}}
+        "replays": 0, "replays_each": [0]}}
 
 
 # ---- launch counters ---------------------------------------------------

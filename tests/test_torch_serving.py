@@ -15,6 +15,8 @@ from repro_torch import bridge
 from repro_torch.configs import reduced_config as t_reduced_config
 from repro_torch.core.proxy import OASConfig as TOASConfig
 from repro_torch.core.proxy import SamplingParams as TSamplingParams
+from repro_torch.serving import FaultConfig as TFaultConfig
+from repro_torch.serving import FaultPlane as TFaultPlane
 from repro_torch.serving import Server as TServer
 from repro_torch.serving import ServerConfig as TServerConfig
 from repro_torch.serving.kvpool import KVPool as TKVPool
@@ -90,9 +92,10 @@ def test_greedy_streams_identical_to_jax_server(servers, reuse):
 
 def test_preemption_under_a_small_pool_keeps_streams(servers):
     """A pool too small for every slot forces reclaim/defer/preemption;
-    the streams still equal the JAX server's on the same pool."""
+    the streams still equal the JAX server's on the same pool (12 blocks:
+    with whole-chunk prefill rounds, 14 no longer forces a preemption)."""
     cfg, build = servers
-    jsrv, tsrv = build(True, kv_blocks=14)
+    jsrv, tsrv = build(True, kv_blocks=12)
     prompts = _workload(cfg.vocab_size, n=5)
     jout, _ = _greedy_streams(jsrv, prompts, SamplingParams)
     tout, s = _greedy_streams(tsrv, prompts, TSamplingParams)
@@ -208,9 +211,24 @@ def test_later_slice_options_raise():
     with pytest.raises(TypeError):
         TServer(tcfg, TServerConfig(spec=object()), pattern=[0, 0],
                 device="cpu")
-    with pytest.raises(NotImplementedError):
+    # FaultPlane: Server(faults=...) takes a FaultPlane (anything else is a
+    # TypeError, as for spec and quant), and the recovery knobs serve
+    with pytest.raises(TypeError):
         TServer(tcfg, TServerConfig(), pattern=[0, 0], device="cpu",
                 faults=object())
+    plane = TFaultPlane(TFaultConfig(seed=1, horizon=8))
+    srv = TServer(tcfg, TServerConfig(**dict(
+        SCFG, watchdog_steps=200, watchdog_wall_s=600.0,
+        admission_queue_cap=8, oas=TOASConfig(defer_window=0.0,
+                                              max_retries=10))),
+        pattern=[0, 0], device="cpu", faults=plane)
+    assert srv.faults is plane
+    rng = np.random.default_rng(2)
+    s = srv.run([(tuple(int(t) for t in rng.integers(0, tcfg.vocab_size,
+                                                      20)), 3)
+                 for _ in range(3)], max_wall_s=600)
+    assert s["n_done"] == 3 and s["faults_injected"] == plane.injected
+    assert "n_handoffs_swept" in s
     # chunked prefill over dense KV and over ring layers (compressed under
     # prefill_sparse, sliding window) serves: the reference's
     # prefill_resume_attention. Each of these servers chunks and finishes
