@@ -31,8 +31,16 @@ Phases (any failure raises, so the script exits non-zero):
      GQA rows off its tiles and window/sink edges inside a tile,
      paged_prefill and spec_verify (the paged-history tensor-core routine)
      also over long histories in float and int8 (topk-long's last chunk:
-     off 3,840 over 288 entries; a verify at off ~4,000); float32
-     bounds by operations are reckoned at the 3xTF32 rate (165 TF/s);
+     off 3,840 over 288 entries; a verify at off ~4,000); and phase 13's
+     shapes (`check_wide_kernels`): the six attention kernels at
+     gemma3-4b's (K 4, G 2, h 256) and granite-34b's (K 1, G 48, h 128) in
+     float32 and bfloat16, the int8 paths there, the decode routine's
+     row-group edges (G 16/17/33 at h 128, 8/9/48 at h 256), block_topk's
+     fused select exactly at both and at qwen3-moe's (K 4, G 16), and
+     moe_gmm at qwen3-moe's 129 slots of 4,096 x 1,536 (top-8); float32
+     bounds by operations are reckoned at the 3xTF32 rate (165 TF/s). It
+     prints each library's most registers, its h = 256 instances' and any
+     spill (ptxas -v);
   3. serve the bench's shared-prefix workload on full-width qwen2-1.5b
      (28 layers, float32, every layer full attention) through
      `Server.generate`, with the launch counters zeroed just before and
@@ -47,7 +55,9 @@ Phases (any failure raises, so the script exits non-zero):
      too), a full/window stack with online top-k (equal
      sparsity stats) and with speculative decoding (the ring commit), and
      int8 arenas alone, with speculation and with online top-k (summary and
-     scale invariants on both devices);
+     scale invariants on both devices); and the reduced configs of phase
+     13's four decoders chunked, qwen3-moe also with speculation and with
+     online top-k (`cross_check_archs`);
   5. serve full-width qwen2-1.5b under the default OmniAttn pattern
      (`pattern=None`: 21 layers sink 128 + recent 4096, 7 full) with
      whole-prompt prefill, once with paged KV (flash_prefill + paged_decode)
@@ -123,8 +133,27 @@ Phases (any failure raises, so the script exits non-zero):
      fired; (a)'s fault-free greedy streams equal phase 3's 1P/1D streams.
      It reports the summary scan's device time (float32, int8), the ms of
      each recover_corruption, walls fault-free / chaos, retries,
-     quarantined blocks, swept handoffs and re-prefilled chunks.
-Every serving phase of 3, 5-9, 11 and 12 serves under CUDA-graph capture, the
+     quarantined blocks, swept handoffs and re-prefilled chunks;
+ 13. serve the reference's other four decoders at full width, one model's
+     weights (seed 0) alive at a time (`serve_archs`): gemma3-4b at full
+     depth (34 layers: 29 window rings of 1,024, 5 full; h 256) on six
+     1,536-2,048-token prompts with a shared 512-token prefix and two
+     sampled requests, (a) chunked paged with prefix reuse on and off
+     (greedy streams equal), online top-k at 0.25 on (a)'s model, (b)
+     whole-prompt on the slot-dense layout, (c) speculation on and off on
+     phase 7's prompts twice over, (d) int8 arenas plain and with
+     speculation, (e) the default pattern paged and dense — every
+     comparison equal up to phase 5's near-tie rule; qwen3-32b and
+     granite-34b at 24 layers through phases 3 and 7 (phase 7's prompts
+     twice over), granite also whole-prompt on the slot-dense layout and
+     with online top-k at 0.5; qwen3-moe-235b-a22b at 5 layers through
+     phases 7 (at a capacity that drops nothing; the serving capacity's
+     differing streams reported), 6 and 8 — each run's launch counts
+     (paged_prefill == chunks x full layers, paged_decode == steps x
+     layers, ...) and its hot-loop replays asserted. The kernels line's
+     `h256`, `g48` and `qwen3moe` records carry these shapes' phase 2
+     times and phase 13 launches.
+Every serving phase of 3, 5-9 and 11-13 serves under CUDA-graph capture, the
 default on `cuda`: the decode step, the verify step and the prefill chunk
 are hot-loop entries (`DevicePlacement.hot_loop`), one graph per key
 replayed each step or chunk, and the launch counts above advance by the
@@ -217,6 +246,31 @@ P8_NEW, P8_LAYERS = 16, 24
 # decode; (c) cuts the pool from 320 blocks to P9_PREEMPT_BLOCKS (and lower
 # until a request is preempted)
 P9_NEW, P9_PREEMPT_BLOCKS = 24, 96
+
+def ptxas_report(build_log: str) -> dict:
+    """ptxas's -v report of one library → {kernel: {"registers",
+    "spill_bytes", "stack_bytes"}} (the build log of `build.build_all`;
+    empty for a cached library)."""
+    import re
+    out, cur = {}, None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = m.group(1)
+            out[cur] = {"registers": 0, "spill_bytes": 0, "stack_bytes": 0}
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out[cur]["stack_bytes"] = int(m.group(1))
+            out[cur]["spill_bytes"] = int(m.group(2)) + int(m.group(3))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[cur]["registers"] = int(m.group(1))
+    return out
+
 
 def nvidia_smi() -> str:
     res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1370,6 +1424,321 @@ def check_moe_kernels(dev, timer, log):
     return rec
 
 
+# ---- phase 2, continued: the shapes of phase 13 ------------------------
+# (K, G, h, table width, decode lens, chunk offset, whole-prompt length,
+# dense cache widths): gemma3-4b's global layers over its 2,304-token
+# context (K 4, G 2, h 256; 1,024-slot local rings) and granite-34b's MQA
+# group over phase 3's 512-token context (K 1, G 48, h 128)
+WIDE = {"h256": (4, 2, 256, 144, [1536, 1700, 1800, 1900, 2000, 2064], 1536,
+                 2048, (1024, 2304)),
+        "g48": (1, 48, 128, 32, [1, 17, 100, 255, 448, 512], 384, 448,
+                (512,))}
+# the decode routine's row-group boundaries (K, G, h): one group at its
+# largest (16 rows at h 128, 8 at h 256), then two and three groups
+WIDE_EDGES = ((1, 16, 128), (1, 17, 128), (1, 33, 128), (2, 8, 256),
+              (2, 9, 256), (1, 48, 256))
+# qwen3-moe-235b-a22b's expert products (capacity C, D, F, tokens) over its
+# 129 slots, top-8: a decode step of 6 slots, a 128-token chunk
+MOE3_SLOTS, MOE3_TOPK = 129, 8
+MOE3_DECODE, MOE3_PREFILL = (8, 4096, 1536, 6), (16, 4096, 1536, 128)
+# a capacity factor at which no slot drops an assignment of a verify
+# window (30 rows x top-8 over 129 slots: capacity ceil(30·8·17/129) = 32)
+MOE3_NODROP_CF = 17.0
+# qwen3-moe's attention group for its top-k decode (K 4, G 16, h 128)
+TOPK3 = (4, 16, 128)
+
+
+def check_wide_kernels(dev, timer, log):
+    """The six attention kernels at the shapes this slice adds, against
+    their plain versions and timed beside the bound and the library call:
+    (K 4, G 2, h 256) and (K 1, G 48, h 128) in float32 and bfloat16, the
+    int8 paths of paged_decode, paged_prefill and spec_verify there, the
+    decode routine's row-group edges (G 16/17/33 at h 128, 8/9/48 at h 256)
+    in paged_decode and sink_decode, block_topk's fused select exactly
+    against select_kv_blocks at both shapes and qwen3-moe's (K 4, G 16),
+    and moe_gmm at qwen3-moe's expert shapes. → {kernel: {"<dtype>_<shape>":
+    record}} and the int8 records the same way."""
+    from repro_torch.kernels.block_topk import (block_topk_scores,
+                                                block_topk_scores_plain,
+                                                block_topk_select,
+                                                select_kv_blocks)
+    from repro_torch.kernels.flash_prefill import (flash_prefill,
+                                                   flash_prefill_plain)
+    from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_plain
+    from repro_torch.kernels.paged_decode import (paged_decode,
+                                                  paged_decode_plain)
+    from repro_torch.kernels.paged_prefill import (paged_prefill,
+                                                   paged_prefill_plain)
+    from repro_torch.kernels.sink_decode import sink_decode, sink_decode_plain
+    from repro_torch.kernels.spec_verify import (spec_verify,
+                                                 spec_verify_plain)
+    names = ("paged_decode", "paged_prefill", "flash_prefill", "sink_decode",
+             "spec_verify", "block_topk", "moe_gmm")
+    rec = {n: {} for n in names}
+    rec_q = {n: {} for n in ("paged_decode", "paged_prefill", "spec_verify")}
+
+    def cmp(name, got, want, dtype, tol=TOL, rows=None):
+        got, want = got.float(), want.float()
+        if rows is not None:
+            got, want = rows(got), rows(want)
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"{name}: non-finite kernel output")
+        torch.testing.assert_close(got, want, **tol[dtype], msg=name)
+        return float((got - want).abs().max())
+
+    def real_rows(cl, G):
+        return lambda x: torch.cat([x[b, :, :c * G].reshape(-1) for b, c in
+                                    enumerate(cl.cpu().tolist())])
+
+    def timed(out, key, err, run, plain, lib, bnd, shape, plain_reps=None):
+        out[key] = {"max_abs_err": err, "ms": timer(run),
+                    "plain_ms": timer(plain, reps=plain_reps),
+                    "library_ms": None if lib is None else timer(lib),
+                    "bound_ms": bnd[0], "bound_by": bnd[1], "bytes": bnd[2],
+                    "flops": bnd[3], "shape": shape}
+
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        for sk, (K, G, h, nb, lens, off, Sf, Ws) in WIDE.items():
+            key = f"{dn}_{sk}"
+            shp = f"K={K} G={G} h={h}"
+            # paged_decode: six slots over the shape's table
+            dec = decode_inputs(dev, dtype, 6, K, G, h, 16, nb, 6 * nb + 1,
+                                lens, 101)
+            err = cmp(f"paged_decode {key}", paged_decode(*dec),
+                      paged_decode_plain(*dec), dtype)
+            timed(rec["paged_decode"], key, err, lambda: paged_decode(*dec),
+                  lambda: paged_decode_plain(*dec), sdpa_decode(*dec),
+                  decode_bound(dec[0], dec[1], dec[3], dec[4]),
+                  f"{shp} B=6 nb={nb} lens={lens}")
+            kq, vq, sc = int8_arena(dev, K, 16, h, 6 * nb + 1, dec[3], dec[4],
+                                    102)
+            qa = (dec[0], kq, vq, dec[3], dec[4])
+            err = cmp(f"paged_decode int8 {key}", paged_decode(*qa, **sc),
+                      paged_decode_plain(*qa, **sc), dtype)
+            timed(rec_q["paged_decode"], key, err,
+                  lambda: paged_decode(*qa, **sc),
+                  lambda: paged_decode_plain(*qa, **sc),
+                  sdpa_decode_int8(*qa, sc),
+                  decode_bound(dec[0], kq, dec[3], dec[4]),
+                  f"{shp} B=6 nb={nb} int8")
+            log.append(f"paged_decode {dn} {sk} ({shp}, B=6, nb={nb}): "
+                       f"max_abs_err "
+                       f"{rec['paged_decode'][key]['max_abs_err']:.3g}, int8 "
+                       f"{err:.3g}")
+            del dec, kq, vq, sc, qa
+            # paged_prefill: a 128-token chunk over `off` tokens of history
+            pre = prefill_inputs(dev, dtype, 1, K, 128, G, h, 16, nb, nb + 1,
+                                 [off], [128], 103)
+            err = cmp(f"paged_prefill {key}", paged_prefill(*pre),
+                      paged_prefill_plain(*pre), dtype)
+            timed(rec["paged_prefill"], key, err,
+                  lambda: paged_prefill(*pre),
+                  lambda: paged_prefill_plain(*pre), sdpa_prefill(*pre),
+                  prefill_bound(pre[0], pre[1], pre[3], pre[5], pre[6],
+                                pre[7]), f"{shp} S=128 off={off} nb={nb}")
+            kq, vq, sc = int8_arena(dev, K, 16, h, nb + 1, pre[5], pre[6],
+                                    104)
+            qa = (pre[0], pre[1], pre[2], kq, vq, pre[5], pre[6], pre[7])
+            err2 = cmp(f"paged_prefill int8 {key}",
+                       paged_prefill(*qa, **sc),
+                       paged_prefill_plain(*qa, **sc), dtype)
+            timed(rec_q["paged_prefill"], key, err2,
+                  lambda: paged_prefill(*qa, **sc),
+                  lambda: paged_prefill_plain(*qa, **sc),
+                  sdpa_prefill_int8(*qa, sc),
+                  prefill_bound(pre[0], pre[1], kq, pre[5], pre[6], pre[7]),
+                  f"{shp} S=128 off={off} int8")
+            pad = prefill_inputs(dev, dtype, 1, K, 128, G, h, 16, nb, nb + 1,
+                                 [off // 2 + 5], [100], 105)
+            err3 = cmp(f"paged_prefill padded {key}", paged_prefill(*pad),
+                       paged_prefill_plain(*pad), dtype,
+                       rows=real_rows(pad[7], G))
+            log.append(f"paged_prefill {dn} {sk} ({shp}, S=128, S·G="
+                       f"{128 * G}, off={off}): max_abs_err {err:.3g}, int8 "
+                       f"{err2:.3g}, padded chunk (cl=100) {err3:.3g}")
+            del pre, pad, kq, vq, sc, qa
+            # spec_verify: six windows of k + 1 = 5 over per-slot histories
+            offs = [max(x - 8, 0) for x in lens]
+            sa = prefill_inputs(dev, dtype, 6, K, P7_K + 1, G, h, 16, nb,
+                                6 * nb + 1, offs, [P7_K + 1, P7_K + 1, 3, 1,
+                                                   P7_K + 1, 2], 106)
+            rows = real_rows(sa[7], G)
+            err = cmp(f"spec_verify {key}", spec_verify(*sa),
+                      spec_verify_plain(*sa), dtype, rows=rows)
+            timed(rec["spec_verify"], key, err, lambda: spec_verify(*sa),
+                  lambda: spec_verify_plain(*sa), sdpa_prefill(*sa),
+                  prefill_bound(sa[0], sa[1], sa[3], sa[5], sa[6], sa[7]),
+                  f"{shp} B=6 S={P7_K + 1} nb={nb}")
+            kq, vq, sc = int8_arena(dev, K, 16, h, 6 * nb + 1, sa[5], sa[6],
+                                    107)
+            qa = (sa[0], sa[1], sa[2], kq, vq, sa[5], sa[6], sa[7])
+            err2 = cmp(f"spec_verify int8 {key}", spec_verify(*qa, **sc),
+                       spec_verify_plain(*qa, **sc), dtype, rows=rows)
+            timed(rec_q["spec_verify"], key, err2,
+                  lambda: spec_verify(*qa, **sc),
+                  lambda: spec_verify_plain(*qa, **sc),
+                  sdpa_prefill_int8(*qa, sc),
+                  prefill_bound(sa[0], sa[1], kq, sa[5], sa[6], sa[7]),
+                  f"{shp} B=6 S={P7_K + 1} int8")
+            log.append(f"spec_verify {dn} {sk} ({shp}, B=6, S={P7_K + 1}, "
+                       f"S·G={(P7_K + 1) * G}, n_tok 5/5/3/1/5/2): "
+                       f"max_abs_err {err:.3g}, int8 {err2:.3g}")
+            del sa, kq, vq, sc, qa
+            # flash_prefill: one whole prompt; h 256 under gemma3's local
+            # window (1,024) and with a sink, G 48 causal
+            g = torch.Generator(device=dev).manual_seed(108)
+            q = torch.randn((K, Sf * G, h), generator=g, device=dev).to(dtype)
+            k, v = (torch.randn((K, Sf, h), generator=g, device=dev)
+                    .to(dtype) for _ in range(2))
+            kws = ((dict(causal=True, window=Ws[0]),
+                    dict(causal=True, window=Ws[0], sink=128))
+                   if h == 256 else (dict(causal=True),))
+            errs = []
+            for i, kw in enumerate(kws):
+                err = cmp(f"flash_prefill {key} {kw}",
+                          flash_prefill(q, k, v, **kw),
+                          flash_prefill_plain(q, k, v, **kw), dtype,
+                          tol=TOL_DENSE)
+                errs.append(err)
+                if i == 0:
+                    w_, s_ = kw.get("window", 0), kw.get("sink", 0)
+                    timed(rec["flash_prefill"], key, err,
+                          lambda: flash_prefill(q, k, v, **kw),
+                          lambda: flash_prefill_plain(q, k, v, **kw),
+                          sdpa_flash(q, k, v, True, w_, s_),
+                          flash_bound(q, k, True, w_, s_),
+                          f"{shp} S={Sf} {kw}", plain_reps=5)
+            log.append(f"flash_prefill {dn} {sk} ({shp}, S={Sf}, "
+                       f"{', '.join(str(kw) for kw in kws)}): max_abs_err "
+                       f"{', '.join(f'{x:.3g}' for x in errs)}")
+            del q, k, v
+            # sink_decode: six slots over the dense caches (a wrapped ring)
+            for W in Ws:
+                g = torch.Generator(device=dev).manual_seed(109 + W)
+                q = torch.randn((6, K, G, h), generator=g,
+                                device=dev).to(dtype)
+                kc, vc = (torch.randn((6, W, K, h), generator=g, device=dev)
+                          .to(dtype).transpose(1, 2) for _ in range(2))
+                t = torch.tensor([min(x + 1, W + 40) for x in lens],
+                                 dtype=torch.int32, device=dev)
+                sa = (q, kc, vc, t)
+                err = cmp(f"sink_decode {key} W={W}", sink_decode(*sa),
+                          sink_decode_plain(*sa), dtype, tol=TOL_DENSE)
+                timed(rec["sink_decode"], f"{key}_W{W}", err,
+                      lambda: sink_decode(*sa),
+                      lambda: sink_decode_plain(*sa), sdpa_sink(*sa),
+                      sink_bound(q, kc, t), f"{shp} B=6 W={W}")
+                log.append(f"sink_decode {dn} {sk} ({shp}, B=6, W={W}, "
+                           f"t={t.tolist()}): max_abs_err {err:.3g}")
+            del sa, q, kc, vc
+            # block_topk: scores, and the fused select exactly
+            ta = topk_inputs(dev, dtype, 6, K, G, h, 16, nb, 6 * nb + 1,
+                             lens, 110)
+            err = cmp(f"block_topk {key}",
+                      block_topk_scores(*ta, block_size=16),
+                      block_topk_scores_plain(*ta, block_size=16), dtype)
+            timed(rec["block_topk"], key, err,
+                  lambda: block_topk_scores(*ta, block_size=16),
+                  lambda: block_topk_scores_plain(*ta, block_size=16), None,
+                  topk_bound(ta[0], ta[3], ta[4], 16),
+                  f"{shp} B=6 nb={nb}")
+            log.append(f"block_topk {dn} {sk} ({shp}, B=6, nb={nb}): scores "
+                       f"max_abs_err {err:.3g}; "
+                       + check_select_exact(ta, nb, dn))
+            del ta
+        # the decode routine's row-group edges, slots past lens poisoned
+        worst = {"paged_decode": 0.0, "sink_decode": 0.0}
+        for i, (K, G, h) in enumerate(WIDE_EDGES):
+            lens = [1, 16, 17, 300, 511]
+            dec = list(decode_inputs(dev, dtype, 5, K, G, h, 16, 32, 161,
+                                     lens, 120 + i))
+            for b, n in enumerate(lens):
+                dec[3][b, -(-n // 16):] = 0
+            dec[1][0] = dec[2][0] = 1e4
+            err_pd = cmp(f"paged_decode edge K={K} G={G} h={h}",
+                         paged_decode(*dec), paged_decode_plain(*dec), dtype)
+            worst["paged_decode"] = max(worst["paged_decode"], err_pd)
+            g = torch.Generator(device=dev).manual_seed(130 + i)
+            q = torch.randn((5, K, G, h), generator=g, device=dev).to(dtype)
+            kc, vc = (torch.randn((5, 300, K, h), generator=g, device=dev)
+                      .to(dtype) for _ in range(2))
+            ts = [1, 16, 17, 300, 420]
+            for b, t_b in enumerate(ts):
+                kc[b, t_b:] = vc[b, t_b:] = 1e4
+            kc, vc = kc.transpose(1, 2), vc.transpose(1, 2)
+            t = torch.tensor(ts, dtype=torch.int32, device=dev)
+            err = cmp(f"sink_decode edge K={K} G={G} h={h}",
+                      sink_decode(q, kc, vc, t),
+                      sink_decode_plain(q, kc, vc, t), dtype, tol=TOL_DENSE)
+            worst["sink_decode"] = max(worst["sink_decode"], err)
+            if dtype == torch.float32:
+                ek = f"float32_edge_K{K}_G{G}_h{h}"
+                timed(rec["paged_decode"], ek, err_pd,
+                      lambda: paged_decode(*dec),
+                      lambda: paged_decode_plain(*dec), sdpa_decode(*dec),
+                      decode_bound(dec[0], dec[1], dec[3], dec[4]),
+                      f"K={K} G={G} h={h} B=5 nb=32 lens={lens}")
+                timed(rec["sink_decode"], ek, err,
+                      lambda: sink_decode(q, kc, vc, t),
+                      lambda: sink_decode_plain(q, kc, vc, t),
+                      sdpa_sink(q, kc, vc, t), sink_bound(q, kc, t),
+                      f"K={K} G={G} h={h} B=5 W=300 t={ts}")
+        log.append(f"paged_decode / sink_decode {dn} row-group edges (K, G, "
+                   f"h) {WIDE_EDGES}, splits past lens, poisoned null block "
+                   f"and slots: max_abs_err {worst['paged_decode']:.3g} / "
+                   f"{worst['sink_decode']:.3g}")
+        # qwen3-moe's top-k decode: the fused select at phase 13's budget
+        K, G, h = TOPK3
+        ta = topk_inputs(dev, dtype, 6, K, G, h, 16, 256, 6 * 256 + 1,
+                         TOPK_MAIN[1], 111)
+        log.append(f"block_topk {dn} qwen3-moe (K={K} G={G} h={h}, nb=256): "
+                   + check_select_exact(ta, 256, dn))
+        del ta
+        # moe_gmm at qwen3-moe's expert shapes (129 slots, top-8)
+        for mk, (C, D, F, n_tok) in (("qwen3moe_decode", MOE3_DECODE),
+                                     ("qwen3moe_prefill", MOE3_PREFILL)):
+            x, w, nv = moe_gmm_inputs(dev, dtype, MOE3_SLOTS, C, D, F, n_tok,
+                                      MOE3_TOPK, 112)
+            got = moe_gmm(x, w, nv)
+            torch.cuda.synchronize()
+            err = cmp(f"moe_gmm {mk}", got, moe_gmm_plain(x, w, nv), dtype)
+            for s_, n in enumerate(nv.cpu().tolist()):
+                if got[s_, n:].any():
+                    raise AssertionError(f"moe_gmm {mk}: rows past n_valid "
+                                         f"not zero")
+            timed(rec["moe_gmm"], f"{dn}_{mk}", err,
+                  lambda: moe_gmm(x, w, nv), lambda: moe_gmm_plain(x, w, nv),
+                  lambda: torch.bmm(x, w), moe_gmm_bound(x, w, nv),
+                  f"S={MOE3_SLOTS} C={C} D={D} F={F}, {int((nv > 0).sum())} "
+                  f"live slots, {int(nv.sum())} rows")
+            log.append(f"moe_gmm {dn} {mk} x [{MOE3_SLOTS}, {C}, {D}] w "
+                       f"[{MOE3_SLOTS}, {D}, {F}], {int((nv > 0).sum())} live "
+                       f"slots: max_abs_err {err:.3g}")
+            del x, w, got
+        torch.cuda.empty_cache()
+    return rec, rec_q
+
+
+def check_select_exact(ta, nb, dn) -> str:
+    """block_topk_select at two budgets (absolute and frac 0.25) against
+    select_kv_blocks on the launch's own scores, exactly. → a log phrase."""
+    from repro_torch.kernels.block_topk import (block_topk_select,
+                                                select_kv_blocks)
+    for kw in (dict(k_static=max(nb // 4, 3), frac=0.0),
+               dict(k_static=max(-(-nb // 4), 3), frac=0.25)):
+        kw = dict(kw, sink_blocks=1, recent_blocks=2)
+        got = block_topk_select(*ta, block_size=16, **kw)
+        want = select_kv_blocks(got[0], ta[3], ta[4], block_size=16, **kw)
+        for name, a, b in zip(("tables", "lens", "m", "selected"), got[1:5],
+                              want):
+            if a.dtype != b.dtype or not torch.equal(a, b):
+                raise AssertionError(f"block_topk_select {dn} nb={nb} {kw}: "
+                                     f"{name} differ from select_kv_blocks")
+    return "fused select equals select_kv_blocks on its scores (absolute " \
+        "and frac 0.25 budgets)"
+
+
 # ---- phase 3: full-width serving -------------------------------------
 def workload(vocab, n=12, seed=7):
     """benchmarks/bench_serving.py::_workload: two of three prompts carry a
@@ -1490,8 +1859,9 @@ def full_width_config():
     return cfg
 
 
-def serve(dev, log, cfg):
-    """Phase 3 on `cfg` (full-width qwen2-1.5b in main())."""
+def serve(dev, log, cfg, weights=None):
+    """Phase 3 on `cfg` (full-width qwen2-1.5b in main(); phase 13 passes
+    its decoders with their `weights`)."""
     from repro_torch.core.proxy import SamplingParams
     from repro_torch.kernels.paged_decode import paged_decode
     from repro_torch.kernels.paged_prefill import paged_prefill
@@ -1505,7 +1875,7 @@ def serve(dev, log, cfg):
         SamplingParams(temperature=0.9, top_k=64, top_p=0.95, seed=900 + i,
                        max_tokens=4) for i in (12, 13)]
     t0 = time.monotonic()
-    srv = build_server(cfg, True, dev)
+    srv = build_server(cfg, True, dev, params=weights)
     torch.cuda.synchronize()
     log.append(f"server built (weights + arena) in "
                f"{time.monotonic() - t0:.1f} s")
@@ -1609,7 +1979,7 @@ def top2_margin(srv, prompt, stream, i):
                         device=srv.lm.device)
     _, logits, _ = srv.lm.prefill(srv.params, toks,
                                   max_len=srv.scfg.max_len,
-                                  true_len=len(ctx))
+                                  true_len=len(ctx), tables=srv.tables)
     top = torch.topk(logits[0].float(), 2).values
     return float(top[0] - top[1])
 
@@ -2196,7 +2566,63 @@ def cross_check_reduced(dev, log):
             "default_pattern_streams_identical": True,
             "mixed_chunked_streams_identical": True,
             **cross_check_sparse_spec(dev, log, cfg),
-            "quant": cross_check_quant(dev, log, cfg)}
+            "quant": cross_check_quant(dev, log, cfg),
+            "archs": cross_check_archs(dev, log)}
+
+
+def cross_check_archs(dev, log):
+    """Phase 4, continued: the reduced configs of phase 13's four decoders
+    (the reference's `reduced_config`: qwen3's qk_norm, granite's single kv
+    head, gemma3's 12 layers with 32-token windows, qwen3-moe's norm_topk
+    experts) served chunked on the card and on the CPU from the same
+    weights: greedy streams identical; qwen3-moe also with speculation and
+    with online top-k (the two compositions with MoE layers)."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.core.proxy import OASConfig, SamplingParams
+    from repro_torch.models.lm import LM
+    from repro_torch.serving import DevicePlacement, Server, ServerConfig
+    from repro_torch.serving.spec import SpecConfig
+    out = {}
+    for arch in ("qwen3-32b", "granite-34b", "gemma3-4b",
+                 "qwen3-moe-235b-a22b"):
+        cfg = reduced_config(arch).with_updates(compute_dtype="float32",
+                                                param_dtype="float32")
+        pattern = [0] * cfg.n_layers
+        p = LM.build(cfg, pattern=pattern, device="cpu").init(seed=9)
+        g = DevicePlacement.of(dev).place_params(p)
+        prompts, _ = workload(cfg.vocab_size, n=6, seed=10)
+        prompts = [q[-60:] for q in prompts]
+        cases = [("plain", cfg, None)]
+        if cfg.moe.n_experts:
+            cases += [("spec", cfg, SpecConfig(k=2)),
+                      ("topk", cfg.with_updates(omniattn_topk_frac=0.5),
+                       None)]
+        for name, c, spec in cases:
+            scfg = ServerConfig(decode_slots=3, max_len=128, chunk_tokens=16,
+                                prefill_tick_budget=32, kv_blocks=60,
+                                kv_block_size=8, spec=spec,
+                                oas=OASConfig(defer_window=0.0))
+            got = []
+            for d, w in (("cpu", p), (dev, g)):
+                srv = Server(c, scfg, pattern=pattern, params=w, device=d)
+                s = srv.run([(q, SamplingParams(max_tokens=6))
+                             for q in prompts])
+                assert s["n_done"] == len(prompts) and \
+                    srv.prefills[0].chunked
+                srv.kv_arena.pool.check_invariants(arena=srv.kv_arena)
+                got.append({r.rid: tuple(r.output_tokens)
+                            for r in srv.metrics.done})
+                hl = check_hot_loops(
+                    srv, {}, torch.device(d), entries=CHUNKED_ENTRIES
+                    if spec is None else ("prefill.chunk",))
+                if spec is not None:
+                    assert srv.decodes[0].stats["spec_verifies"] > 0
+            assert got[0] == got[1], \
+                f"{arch} {name}: card and CPU greedy streams differ"
+            out[f"{arch}_{name}"] = True
+            log.append(f"reduced {arch} ({name}): greedy streams identical "
+                       f"card vs CPU; on the card {hot_loop_line(hl)}")
+    return out
 
 
 def cross_check_sparse_spec(dev, log, cfg):
@@ -2413,10 +2839,10 @@ def build_topk_server(cfg, dev, params=None, placement=None, **topk):
                   params=params, seed=0, device=dev, placement=placement)
 
 
-def serve_topk(dev, log, cfg):
-    """Phase 6 on `cfg` (full-width qwen2-1.5b in main()): four servers on
-    the same weights, the counts zeroed just before each run and read just
-    after."""
+def serve_topk(dev, log, cfg, weights=None):
+    """Phase 6 on `cfg` (full-width qwen2-1.5b in main(); phase 13 passes
+    qwen3-moe with its `weights`): four servers on the same weights,
+    the counts zeroed just before each run and read just after."""
     from repro_torch.kernels.block_topk import block_topk_scores
     from repro_torch.kernels.paged_decode import paged_decode
     from repro_torch.kernels.paged_prefill import paged_prefill
@@ -2431,7 +2857,7 @@ def serve_topk(dev, log, cfg):
     runs = (("a_off", {}, True), ("b_frac", frac, True),
             ("c_mass", dict(frac, omniattn_topk_measure_mass=True), False),
             ("d_width_minus_1", dict(omniattn_topk_blocks=width - 1), False))
-    out, streams_of, weights = {}, {}, None
+    out, streams_of = {}, {}
     for name, topk, timed in runs:
         t0 = time.monotonic()
         srv = build_topk_server(cfg, dev, params=weights, **topk)
@@ -2499,47 +2925,59 @@ def serve_topk(dev, log, cfg):
 
 
 # ---- phase 7: SpecPlane at full width --------------------------------
-def spec_workload(vocab, seed=41):
+def spec_workload(vocab, seed=41, repeats=1):
     """Six greedy prompts, each a distinct seeded 32-token phrase repeated
     8 times (256 tokens), 48 new tokens; one seeded sampled request
     (temperature 0.8, a 64-token prompt, 16 tokens), the seventh for six
-    slots."""
+    slots. With `repeats` the six greedy requests come that many times
+    before the sampled one: a later copy drafts from the suffix table its
+    finished twin fed (phase 13's models do not repeat their own output,
+    so prompt lookup alone drafts only at a request's first step)."""
     from repro_torch.core.proxy import SamplingParams
     rng = np.random.default_rng(seed)
     prompts = [tuple(int(t) for t in rng.integers(0, vocab, P7_PHRASE))
-               * P7_REPEAT for _ in range(6)]
+               * P7_REPEAT for _ in range(6)] * repeats
     prompts.append(tuple(int(t) for t in rng.integers(0, vocab, 64)))
-    params = [SamplingParams(max_tokens=P7_NEW)] * 6 + [SamplingParams(
-        temperature=0.8, seed=907, max_tokens=16)]
+    params = [SamplingParams(max_tokens=P7_NEW)] * (6 * repeats) + [
+        SamplingParams(temperature=0.8, seed=907, max_tokens=16)]
     return prompts, params
 
 
-def serve_spec(dev, log, cfg):
-    """Phase 7 on `cfg` (full-width qwen2-1.5b in main()): phase 3's server
-    with and without SpecConfig(k=4), on the same weights."""
+def serve_spec(dev, log, cfg, weights=None, repeats=1, require_equal=True):
+    """Phase 7 on `cfg` (full-width qwen2-1.5b in main(); phase 13 passes
+    its decoders with their `weights`): phase 3's server with and
+    without SpecConfig(k=4), on the same weights. MoE layers also route
+    the verify window (moe_gmm's launches are counted). With
+    `require_equal` False the streams that differ are reported, not
+    refused."""
     from repro_torch.core.proxy import SamplingParams
     from repro_torch.kernels.paged_decode import paged_decode
     from repro_torch.kernels.spec_verify import spec_verify
     from repro_torch.serving.spec import SpecConfig
     n_layers = cfg.n_layers
-    prompts, params = spec_workload(cfg.vocab_size)
+    prompts, params = spec_workload(cfg.vocab_size, repeats=repeats)
+    n_greedy = 6 * repeats
     warm, _ = spec_workload(cfg.vocab_size, seed=42)
-    out, streams_of, servers, weights = {}, {}, {}, None
+    from repro_torch.kernels.moe_gmm import moe_gmm
+    out, streams_of, servers = {}, {}, {}
     for name, spec in (("spec_off", None), ("spec_on", SpecConfig(k=P7_K))):
         srv = build_server(cfg, True, dev, params=weights, spec=spec)
         weights = srv.params
         list(srv.generate(warm[:2], SamplingParams(max_tokens=8)))
         reset_stats(srv)
         hl0 = hot_loops(srv)
-        spec_verify.launches = paged_decode.launches = 0
+        spec_verify.launches = paged_decode.launches = moe_gmm.launches = 0
         streams, finished, summ, wall = drive(srv, prompts, params)
         launches = {"spec_verify": spec_verify.launches,
-                    "paged_decode": paged_decode.launches}
+                    "paged_decode": paged_decode.launches,
+                    "moe_gmm": moe_gmm.launches}
         hl = check_hot_loops(srv, hl0, dev, entries=(
             "decode.verify",) if spec is not None else ("decode.step",))
         ds = srv.decodes[0].stats
-        assert len(finished) == 7 and all(r == "length" for r in finished)
-        assert [len(x) for x in streams] == [P7_NEW] * 6 + [16], streams
+        assert len(finished) == n_greedy + 1 and all(
+            r == "length" for r in finished)
+        assert [len(x) for x in streams] == [P7_NEW] * n_greedy + [16], \
+            streams
         assert ds["host_fetches"] == ds["steps"] > 0, ds
         verifies = ds.get("spec_verifies", 0)
         if dev.type == "cuda":
@@ -2549,6 +2987,13 @@ def serve_spec(dev, log, cfg):
                 (ds["steps"] - verifies) * n_layers, (launches, ds)
         if spec is not None:
             assert verifies > 0 and summ["spec_verifies"] == verifies
+        n_moe = sum(sp.use_moe for sp in srv.lm.plan.all_specs())
+        if dev.type == "cuda" and n_moe:
+            # three expert products per MoE layer in every chunk, decode
+            # step and verify step
+            chunks = srv.prefills[0].stats["chunks"]
+            assert launches["moe_gmm"] == 3 * n_moe * (chunks + ds["steps"]),\
+                (launches, chunks, ds)
         srv.kv_arena.pool.check_invariants(arena=srv.kv_arena)
         streams_of[name] = streams
         servers[name] = srv
@@ -2566,23 +3011,27 @@ def serve_spec(dev, log, cfg):
     # every stream identical across the two runs, up to a near-tie at the
     # first differing greedy step (the verify forward runs its GEMMs over
     # 30 rows, the single-token step over 6)
-    ties = []
+    ties, differ = [], []
     for r, (a, b) in enumerate(zip(streams_of["spec_on"],
                                    streams_of["spec_off"])):
         if a == b:
             continue
         i = next(j for j in range(len(a)) if a[j] != b[j])
         margin = top2_margin(servers["spec_off"], prompts[r], b, i) \
-            if r < 6 else 0.0
-        log.append(f"request {r}: spec on/off differ at token {i}, top-2 "
-                   f"logit margin {margin:.3g}")
-        if r == 6 or margin >= 1e-4:
-            raise AssertionError(f"stream {r} differs with speculation on "
-                                 f"and off at token {i}")
+            if r < n_greedy else 0.0
+        log.append(f"{cfg.arch_id}: request {r}: spec on/off differ at "
+                   f"token {i}, top-2 logit margin {margin:.3g}")
+        if r == n_greedy or margin >= 1e-4:
+            if require_equal:
+                raise AssertionError(f"stream {r} differs with speculation "
+                                     f"on and off at token {i}")
+            differ.append({"request": r, "token": i, "margin": margin})
+            continue
         ties.append({"request": r, "token": i, "margin": margin})
     del servers
     torch.cuda.empty_cache()
-    return {"runs": out, "streams_identical": not ties, "near_ties": ties}
+    return {"runs": out, "streams_identical": not ties and not differ,
+            "near_ties": ties, "differ": differ}
 
 # ---- phase 9: QuantPlane at full width -------------------------------
 def quant_workload(vocab, seed=7):
@@ -2884,7 +3333,8 @@ def check_moe_layer(srv, cfg, prompt, log):
         positions=torch.arange(S, device=dev), cache=None, true_len=S,
         max_len=S)
     hid = rms_norm(x, p["ln_mlp"], cfg.rms_eps)[0]
-    shared = (p["shared_w1"], p["shared_w3"], p["shared_w2"])
+    shared = (p["shared_w1"], p["shared_w3"], p["shared_w2"]) \
+        if cfg.moe.n_shared_experts else None
     rs = tables["rep_slot"][:, 0].long()
     canon = [p[n][0][rs] for n in ("moe_w1", "moe_w3", "moe_w2")]
     want = moe_mod.moe_ffn_dense(cfg, hid, p["router"], *canon, shared)
@@ -2920,8 +3370,10 @@ def check_moe_layer(srv, cfg, prompt, log):
     return out
 
 
-def serve_moe(dev, log, cfg):
-    """Phase 8 on `cfg` (full-width qwen2-moe-a2.7b in main())."""
+def serve_moe(dev, log, cfg, weights=None):
+    """Phase 8 on `cfg` (full-width qwen2-moe-a2.7b in main(); phase 13
+    passes qwen3-moe with its `weights`, which (b)'s migration re-slots in
+    place: run it last on them)."""
     from repro_torch.kernels.moe_gmm import moe_gmm
     from repro_torch.kernels.paged_decode import paged_decode
     from repro_torch.kernels.paged_prefill import paged_prefill
@@ -2929,7 +3381,7 @@ def serve_moe(dev, log, cfg):
     prompts, params = moe_workload(cfg.vocab_size)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
-    srv = build_moe_server(cfg, dev)
+    srv = build_moe_server(cfg, dev, params=weights)
     torch.cuda.synchronize()
     wbytes = sum(t.numel() * t.element_size() for t in
                  [v for lay in srv.params["layers"] for v in lay.values()]
@@ -3023,6 +3475,337 @@ def serve_moe(dev, log, cfg):
     gc.collect()
     torch.cuda.empty_cache()
     return res
+
+
+# ---- phase 13: the reference's other four decoders at full width -------
+# depth cuts forced by 80 GB of float32 weights (PERF.md §4): qwen3-32b and
+# granite-34b keep 24 layers, qwen3-moe-235b-a22b 5 (129 expert slots x 3 x
+# 4,096 x 1,536 floats = 9.7 GB a layer); gemma3-4b keeps all 34
+P13_DEPTH = {"qwen3-32b": 24, "granite-34b": 24, "qwen3-moe-235b-a22b": 5}
+# gemma3-4b's traffic: six prompts of 1,536-2,048 tokens, the 1st, 2nd, 4th
+# and 5th on a shared 512-token prefix (four chunks), so the 1,024-token
+# local windows wrap; two sampled requests on the prefix; 16 new tokens
+# each, on a server at max_len 2,304
+G3_LENS, G3_SAMPLED = (1536, 1664, 1792, 1920, 2048, 1600), (1700, 1850)
+G3_PREFIX, G3_NEW, G3_MAX_LEN, G3_BLOCKS, G3_CHUNK = 512, 16, 2304, 1200, 128
+
+
+def arch_config(arch):
+    """A decoder of the port's registry at full width in float32, cut in
+    depth where P13_DEPTH says."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch).with_updates(compute_dtype="float32",
+                                        param_dtype="float32")
+    if arch in P13_DEPTH:
+        cfg = cfg.with_updates(n_layers=P13_DEPTH[arch])
+    return cfg
+
+
+def init_weights(cfg, dev):
+    """The seed-0 weights every Server(seed=0) of `cfg` would make, made
+    once (→ params, GB)."""
+    from repro_torch.models.lm import LM
+    params = LM.build(cfg, pattern=[0] * cfg.n_layers, device=dev).init(0)
+    gb = sum(t.numel() * t.element_size() for t in
+             [v for lay in params["layers"] for v in lay.values()]
+             + [v for k, v in params.items() if k != "layers"]) / 1e9
+    return params, gb
+
+
+def gemma3_workload(vocab, seed=61):
+    from repro_torch.core.proxy import SamplingParams
+    rng = np.random.default_rng(seed)
+    base = tuple(int(t) for t in rng.integers(0, vocab, G3_PREFIX))
+
+    def tail(n):
+        return tuple(int(t) for t in rng.integers(0, vocab, n))
+    prompts = [base + tail(n - G3_PREFIX) if i % 3 != 2 else tail(n)
+               for i, n in enumerate(G3_LENS)]
+    prompts += [base + tail(n - G3_PREFIX) for n in G3_SAMPLED]
+    params = [SamplingParams(max_tokens=G3_NEW)] * 6 + [
+        SamplingParams(temperature=0.9, top_k=64, top_p=0.95, seed=960 + i,
+                       max_tokens=G3_NEW) for i in range(2)]
+    return prompts, params
+
+
+def build_g3_server(cfg, dev, params, pattern="full", **knobs):
+    """gemma3-4b's server: phase 3's knobs at max_len 2,304 with a
+    1,200-block pool; `pattern` "full" is [0] * 34 (29 window layers, 5
+    full), None the default OmniAttn pattern."""
+    from repro_torch.core.proxy import OASConfig
+    from repro_torch.serving import Server, ServerConfig
+    scfg = ServerConfig(**(dict(
+        decode_slots=6, max_len=G3_MAX_LEN, chunk_tokens=G3_CHUNK,
+        prefill_tick_budget=512, prefix_reuse=True, kv_blocks=G3_BLOCKS,
+        kv_block_size=16, oas=OASConfig(defer_window=0.0)) | knobs))
+    return Server(cfg, scfg, pattern=[0] * cfg.n_layers
+                  if pattern == "full" else pattern, params=params, seed=0,
+                  device=dev)
+
+
+def served_run(srv, prompts, params, dev, entries, warm=None):
+    """One measured run: (a warm-up on `warm` outside the counts), every
+    launch counter set to 0 just before `Server.generate`, read just after;
+    the run's hot-loop entries `entries` must have replayed. → record."""
+    from repro_torch.kernels._common import add_launch_counts, launch_counts
+    if warm is not None:
+        list(srv.generate(*warm))
+        reset_stats(srv)
+    hl0 = hot_loops(srv)
+    add_launch_counts(launch_counts(), -1)
+    streams, finished, summ, wall = drive(srv, prompts, params)
+    launches = {k.split(".")[0] + ("_int8" if "int8" in k else ""): v
+                for k, v in launch_counts().items()}
+    launches["block_topk"] = launches.pop("block_topk_scores")
+    hl = check_hot_loops(srv, hl0, dev, entries=entries)
+    ps, ds = srv.prefills[0].stats, srv.decodes[0].stats
+    assert len(finished) == len(prompts) and all(
+        r == "length" for r in finished), finished
+    assert [len(s) for s in streams] == [p.max_tokens for p in params]
+    assert ds["host_fetches"] == ds["steps"] > 0, ds
+    srv.decodes[0].pool.check_invariants(arena=srv.kv_arena)
+    return {"streams": streams, "launches": launches,
+            "chunks": ps["chunks"], "whole_prefills": ps["prefills"],
+            "steps": ds["steps"], "verifies": ds.get("spec_verifies", 0),
+            "reused_tokens": ps["reused_tokens"], "hot_loops": hl,
+            "host_s_per_round": ds["busy_s"] / ds["steps"],
+            "summary": {k: summ[k] for k in (
+                "blocks_scored", "blocks_attended", "spec_drafted",
+                "spec_accepted", "spec_verifies") if k in summ},
+            "metrics": {k: summ[k] for k in (
+                "n_done", "ttft_mean", "ttft_p99", "tpot_mean_ms",
+                "tpot_p99_ms", "ott_tok_s", "ttt_tok_s")} | {"wall_s": wall}}
+
+
+def near_tie_diffs(srv, prompts, params, got, want, what, log,
+                   limit=1e-4):
+    """Greedy streams `got` against `want` under phase 5's near-tie rule
+    (`stream_diffs`): a greedy stream may differ only where `srv`'s model
+    puts its top-2 logits within `limit` at the first differing token;
+    sampled streams that differ are logged. → the near-ties."""
+    ties = []
+    for d in stream_diffs(srv, prompts, params, got, want):
+        log.append(f"{what}: request {d['request']} differs at token "
+                   f"{d['token']}, top-2 logit margin {d['margin']}")
+        if d["sampled"]:
+            continue
+        if d["margin"] is None or d["margin"] >= limit:
+            raise AssertionError(f"{what}: stream {d['request']} differs: "
+                                 f"{d}")
+        ties.append(d)
+    return ties
+
+
+def serve_gemma3(dev, log, cfg, params):
+    """Phase 13 on full-width, full-depth gemma3-4b (h 256, 8 query heads
+    over 4 kv heads, 29 window layers + 5 full): (a) chunked paged prefill
+    with prefix reuse on and off; top-k on (a)'s model; (b) whole-prompt
+    prefill on the slot-dense layout; (c) speculation on and off; (d) int8
+    arenas, plain and with speculation; (e) the default OmniAttn pattern
+    (the 5 globals compressed to sink + recent), paged and dense."""
+    from repro_torch.core.proxy import SamplingParams
+    from repro_torch.serving.quant import QuantConfig
+    from repro_torch.serving.spec import SpecConfig
+    L = cfg.n_layers
+    n_full = sum(sp.window == 0 for sp in cfg.layer_specs())
+    prompts, sp = gemma3_workload(cfg.vocab_size)
+    warm = ([p[:1900] for p in gemma3_workload(cfg.vocab_size, seed=62)[0]
+             [:3]], SamplingParams(max_tokens=4))
+    runs, ties = {}, {}
+
+    def run(name, entries, warm_=None, **knobs):
+        t0 = time.monotonic()
+        srv = build_g3_server(cfg, dev, params, **knobs)
+        r = runs[name] = served_run(srv, prompts if "spec" not in knobs
+                                    else spec_prompts, sp if "spec" not in
+                                    knobs else spec_params, dev, entries,
+                                    warm=warm_)
+        log.append(f"gemma3 {name}: {r['chunks']} chunks, "
+                   f"{r['whole_prefills']} whole prefills, {r['steps']} "
+                   f"steps ({r['verifies']} verifies); launches "
+                   f"{ {k: v for k, v in r['launches'].items() if v} }; "
+                   f"TTFT mean {r['metrics']['ttft_mean'] * 1e3:.1f} ms, "
+                   f"TPOT mean {r['metrics']['tpot_mean_ms']:.2f} ms; "
+                   f"{hot_loop_line(r['hot_loops'])} "
+                   f"[{time.monotonic() - t0:.1f} s]")
+        return srv, r
+
+    spec_prompts, spec_params = spec_workload(cfg.vocab_size, repeats=2)
+    # (a) the main path: chunked paged prefill, reuse on (warmed) and off
+    srv, a = run("a_reuse_on", CHUNKED_ENTRIES, warm_=warm)
+    ln = a["launches"]
+    if dev.type == "cuda":
+        # the full layers' chunks attend the arenas; every layer decodes
+        # paged (the window layers over their slots' ring block runs)
+        assert ln["paged_prefill"] == a["chunks"] * n_full > 0, ln
+        assert ln["paged_decode"] == a["steps"] * L > 0, ln
+    assert a["reused_tokens"] > 0
+    del srv
+    _, off = run("a_reuse_off", CHUNKED_ENTRIES, prefix_reuse=False)
+    assert off["streams"][:6] == a["streams"][:6], \
+        "gemma3: greedy streams differ with prefix reuse on and off"
+    # online top-k on (a)'s model: the 5 full layers select a quarter of
+    # their blocks (block_topk at K 4, G 2, h 256)
+    tcfg = cfg.with_updates(omniattn_topk_frac=0.25)
+    srv = build_g3_server(tcfg, dev, params)
+    t = runs["a_topk"] = served_run(srv, prompts, sp, dev, CHUNKED_ENTRIES)
+    if dev.type == "cuda":
+        assert t["launches"]["block_topk"] == t["steps"] * n_full > 0
+    same = sum(x == y for x, y in zip(t["streams"][:6], a["streams"][:6]))
+    log.append(f"gemma3 a_topk (frac 0.25): blocks attended/scored "
+               f"{t['summary']['blocks_attended']}/"
+               f"{t['summary']['blocks_scored']}; greedy streams equal "
+               f"top-k off {same}/6")
+    del srv
+    # (b) whole-prompt prefill, slot-dense KV
+    srv, b = run("b_whole_dense", ("decode.step",), paged_kv=False,
+                 chunked_prefill=False)
+    if dev.type == "cuda":
+        assert b["launches"]["flash_prefill"] == b["whole_prefills"] * L > 0
+        assert b["launches"]["sink_decode"] == b["steps"] * L > 0
+    ties["b"] = near_tie_diffs(srv, prompts, sp, b["streams"], a["streams"],
+                               "gemma3 (b) vs (a)", log)
+    del srv
+    # (c) speculation on and off, spec-repeat's prompts
+    srv, c_off = run("c_spec_off", ("decode.step",), spec=None)
+    _, c_on = run("c_spec_on", ("decode.verify",), spec=SpecConfig(k=P7_K))
+    if dev.type == "cuda":
+        assert c_on["launches"]["spec_verify"] == c_on["verifies"] * n_full \
+            > 0
+    ties["c"] = near_tie_diffs(srv, spec_prompts, spec_params,
+                               c_on["streams"], c_off["streams"],
+                               "gemma3 (c) spec", log)
+    del srv
+    # (d) int8 arenas: (a)'s traffic, then speculation on and off
+    srv, d = run("d_int8", CHUNKED_ENTRIES, quant=QuantConfig())
+    if dev.type == "cuda":
+        assert d["launches"]["paged_prefill_int8"] == d["chunks"] * n_full
+        assert d["launches"]["paged_decode_int8"] == d["steps"] * n_full > 0
+    agree = sum(x == y for x, y in zip(d["streams"][:6], a["streams"][:6]))
+    log.append(f"gemma3 d_int8: greedy streams equal float32's {agree}/6")
+    del srv
+    srv, d_off = run("d_int8_spec_off", ("decode.step",), spec=None,
+                     quant=QuantConfig())
+    _, d_on = run("d_int8_spec_on", ("decode.verify",),
+                  spec=SpecConfig(k=P7_K), quant=QuantConfig())
+    if dev.type == "cuda":
+        assert d_on["launches"]["spec_verify_int8"] == \
+            d_on["verifies"] * n_full > 0
+    ties["d"] = near_tie_diffs(srv, spec_prompts, spec_params,
+                               d_on["streams"], d_off["streams"],
+                               "gemma3 (d) int8 spec", log)
+    del srv
+    # (e) the default pattern: every layer a ring (29 windows, 5
+    # compressed globals), whole-prompt prefill, paged and dense
+    srv, e_p = run("e_default_paged", ("decode.step",), pattern=None)
+    _, e_d = run("e_default_dense", ("decode.step",), pattern=None,
+                 paged_kv=False)
+    if dev.type == "cuda":
+        for r, dec in ((e_p, "paged_decode"), (e_d, "sink_decode")):
+            assert r["launches"]["flash_prefill"] == r["whole_prefills"] * L
+            assert r["launches"][dec] == r["steps"] * L > 0
+    ties["e"] = near_tie_diffs(srv, prompts, sp, e_d["streams"],
+                               e_p["streams"], "gemma3 (e) dense vs paged",
+                               log)
+    del srv
+    for r in runs.values():
+        r.pop("streams")
+    return {"runs": runs, "near_ties": ties, "full_layers": n_full,
+            "int8_streams_equal_f32": agree}
+
+
+def serve_dense_arch(dev, log, cfg, params, phase3_streams):
+    """Phase 3's traffic on `cfg` through whole-prompt prefill and the
+    slot-dense layout (flash_prefill and sink_decode), equal to phase 3's
+    chunked paged streams up to the near-tie rule; then online top-k at
+    half the table on the paged layout (block_topk)."""
+    from repro_torch.core.proxy import SamplingParams
+    L = cfg.n_layers
+    prompts, base = workload(cfg.vocab_size)
+    rng = np.random.default_rng(11)
+    prompts += [base + tuple(int(t) for t in rng.integers(0, cfg.vocab_size,
+                                                          64))
+                for _ in range(2)]
+    sp = [SamplingParams(max_tokens=4)] * 12 + [
+        SamplingParams(temperature=0.9, top_k=64, top_p=0.95, seed=900 + i,
+                       max_tokens=4) for i in (12, 13)]
+    srv = build_server(cfg, True, dev, params=params, paged_kv=False,
+                       chunked_prefill=False)
+    d = served_run(srv, prompts, sp, dev, ("decode.step",))
+    if dev.type == "cuda":
+        assert d["launches"]["flash_prefill"] == d["whole_prefills"] * L > 0
+        assert d["launches"]["sink_decode"] == d["steps"] * L > 0
+    ties = near_tie_diffs(srv, prompts, sp, d["streams"], phase3_streams,
+                          f"{cfg.arch_id} dense whole-prompt vs chunked "
+                          f"paged", log)
+    del srv
+    srv = build_server(cfg.with_updates(omniattn_topk_frac=0.5), True, dev,
+                       params=params)
+    t = served_run(srv, prompts, sp, dev, CHUNKED_ENTRIES)
+    if dev.type == "cuda":
+        assert t["launches"]["block_topk"] == t["steps"] * L > 0
+    del srv
+    d.pop("streams")
+    t.pop("streams")
+    log.append(f"{cfg.arch_id} dense whole-prompt: {d['whole_prefills']} "
+               f"prefills, {d['steps']} steps, launches "
+               f"{ {k: v for k, v in d['launches'].items() if v} }; top-k "
+               f"0.5: blocks attended/scored "
+               f"{t['summary']['blocks_attended']}/"
+               f"{t['summary']['blocks_scored']}, launches "
+               f"{ {k: v for k, v in t['launches'].items() if v} }")
+    return {"dense": d, "topk": t, "near_ties": ties}
+
+
+def serve_archs(dev, log, archs=("gemma3-4b", "qwen3-32b", "granite-34b",
+                                 "qwen3-moe-235b-a22b")):
+    """Phase 13: gemma3-4b at full width and depth; qwen3-32b, granite-34b
+    and qwen3-moe-235b-a22b at full width and the depths of P13_DEPTH. One
+    model's weights alive at a time, each made once from seed 0."""
+    out = {}
+    for arch in archs:
+        t0 = time.monotonic()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = arch_config(arch)
+        params, gb = init_weights(cfg, dev)
+        rec = {"n_layers": cfg.n_layers, "weights_gb": gb}
+        log.append(f"{arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+                   f"{cfg.n_heads}/{cfg.n_kv_heads} heads, h "
+                   f"{cfg.head_dim}; weights {gb:.2f} GB")
+        if arch == "gemma3-4b":
+            rec.update(serve_gemma3(dev, log, cfg, params))
+        elif arch == "qwen3-moe-235b-a22b":
+            # a verify step routes 6 x 5 window rows at once and a decode
+            # step 6: at the serving capacity (factor 2.0, 8 rows a slot)
+            # a verify can drop an assignment a step does not. Equality is
+            # held at a capacity that drops nothing; the serving capacity's
+            # differences are reported
+            nodrop = cfg.with_updates(moe_capacity_factor=MOE3_NODROP_CF)
+            rec["spec"] = serve_spec(dev, log, nodrop, weights=params,
+                                     repeats=2)
+            rec["spec_serving_capacity"] = serve_spec(
+                dev, log, cfg, weights=params, repeats=2,
+                require_equal=False)
+            rec["topk"] = serve_topk(dev, log, cfg, weights=params)
+            rec["moe"] = serve_moe(dev, log, cfg, weights=params)
+        else:
+            rec["serve"] = serve(dev, log, cfg, weights=params)
+            rec["spec"] = serve_spec(dev, log, cfg, weights=params,
+                                     repeats=2)
+            if arch == "granite-34b":
+                rec.update(serve_dense_arch(dev, log, cfg, params,
+                                            rec["serve"]["streams"]))
+            rec["serve"].pop("streams")
+        for key in ("spec", "spec_serving_capacity"):
+            for r in rec.get(key, {}).get("runs", {}).values():
+                r.pop("streams", None)
+        rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        rec["seconds"] = time.monotonic() - t0
+        out[arch] = rec
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
 
 
 # ---- phase 10: captured against eager ------------------------------
@@ -3301,10 +4084,21 @@ def main() -> int:
     report["build_s"] = time.monotonic() - t0
     print(f"phase 1: kernels built in {report['build_s']:.1f} s "
           + ", ".join(f"{k} {v['seconds']:.1f} s" for k, v in builds.items()))
-    for name, b in builds.items():
-        for line in b["log"].splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+    report["ptxas"] = {name: ptxas_report(b["log"])
+                       for name, b in builds.items()}
+    for name, fns in report["ptxas"].items():
+        if not fns:
+            continue
+        worst = max(fns.items(), key=lambda kv: kv[1]["registers"])
+        spills = {f: v for f, v in fns.items()
+                  if v["spill_bytes"] or v["stack_bytes"]}
+        h256 = ", ".join(f"{v['registers']}" for f, v in fns.items()
+                         if "Li256E" in f and "combine" not in f)
+        print(f"  {name}: {len(fns)} kernels, most registers "
+              f"{worst[1]['registers']}; h=256 instances: {h256 or '-'} "
+              f"registers; spills/stack: "
+              + (", ".join(f"{f} {v}" for f, v in spills.items())
+                 if spills else "none"))
 
     timer = Timer(dev)
     kern = check_kernels(dev, timer, log)
@@ -3312,6 +4106,14 @@ def main() -> int:
     kern.update(check_sparse_kernels(dev, timer, log))
     kern.update(check_moe_kernels(dev, timer, log))
     kern_q = check_quant_kernels(dev, timer, log)
+    # the shapes of phase 13: h 256, G 48, the row-group edges
+    wide, wide_q = check_wide_kernels(dev, timer, log)
+    for name, by in wide.items():
+        kern[name].update(by)
+    for name, by in wide_q.items():
+        for r in by.values():
+            r["library"] = "dequant+sdpa"
+        kern_q[name].update(by)
     print(f"phase 2: kernels agree with their plain versions on the card "
           f"[{time.monotonic() - t0:.1f} s since the start]")
     for line in log:
@@ -3324,7 +4126,8 @@ def main() -> int:
                         "torch.bmm" if name == "moe_gmm" else "sdpa"))
                 comp = "" if "composition_ms" not in r else \
                     f", {r['composition_ms']:.4f} ms eager composition"
-                print(f"  {name}{path} {dn} main shape: {r['ms']:.4f} ms "
+                where = f"({r['shape']})" if "shape" in r else "main shape"
+                print(f"  {name}{path} {dn} {where}: {r['ms']:.4f} ms "
                       f"kernel, {r['plain_ms']:.4f} ms plain{comp}, {lib}, "
                       f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) "
                       f"[{smi}]")
@@ -3625,12 +4428,75 @@ def main() -> int:
           f" 2P/2D greedy streams equal phase 3's 1P/1D streams; sampled "
           f"{chaos['a']['fault_free']['sampled_equal_phase3']}")
 
+    log.clear()
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t13 = time.monotonic()
+    archs = serve_archs(dev, log)
+    print(f"phase 13 [{time.monotonic() - t0:.1f} s]: the other four "
+          f"decoders at full width in {time.monotonic() - t13:.1f} s "
+          f"(gemma3-4b all 34 layers; qwen3-32b, granite-34b 24 layers, "
+          f"qwen3-moe-235b-a22b 5)")
+    for line in log:
+        print("  " + line)
+    for arch, rec in archs.items():
+        parts = [f"{rec['weights_gb']:.2f} GB of weights, peak "
+                 f"{rec['peak_mem_gb']:.2f} GB, {rec['seconds']:.1f} s"]
+        if "runs" in rec:
+            a = rec["runs"]["a_reuse_on"]
+            parts.append(f"(a) TTFT mean {a['metrics']['ttft_mean'] * 1e3:.1f}"
+                         f" ms, TPOT mean {a['metrics']['tpot_mean_ms']:.2f} "
+                         f"ms, graph pool {a['hot_loops']['pool_gb']:.3f} GB;"
+                         f" near-ties {rec['near_ties']}")
+        if "serve" in rec:
+            s = rec["serve"]
+            parts.append(f"phase 3's traffic: {s['prefill_chunks']} chunks, "
+                         f"{s['decode_steps']} steps, TTFT mean "
+                         f"{s['reuse_on']['ttft_mean'] * 1e3:.1f} ms, TPOT "
+                         f"mean {s['reuse_on']['tpot_mean_ms']:.2f} ms, "
+                         f"reuse on/off streams equal")
+        if "spec" in rec:
+            on = rec["spec"]["runs"]["spec_on"]
+            parts.append(f"spec on: {on['launches']['spec_verify']} "
+                         f"spec_verify, {on['launches']['moe_gmm']} moe_gmm "
+                         f"launches, decode.verify replays "
+                         f"{on['hot_loops']['decode.verify']['replays']}, "
+                         f"accepted {on['spec']['spec_accepted']}/"
+                         f"{on['spec']['spec_drafted']}; streams equal spec "
+                         f"off (near-ties {rec['spec']['near_ties']})"
+                         + ("" if "spec_serving_capacity" not in rec else
+                            f" at capacity factor {MOE3_NODROP_CF}; at the "
+                            f"serving capacity "
+                            f"{len(rec['spec_serving_capacity']['differ'])}"
+                            f" streams differ: "
+                            f"{rec['spec_serving_capacity']['differ']}"))
+        if "topk" in rec and "runs" in rec["topk"]:
+            b = rec["topk"]["runs"]["b_frac"]
+            parts.append(f"top-k 0.25: blocks attended/scored "
+                         f"{b['blocks_attended']}/{b['blocks_scored']}; a "
+                         f"budget of width - 1 equals top-k off")
+        if "moe" in rec:
+            m = rec["moe"]
+            parts.append(f"phase 8's knobs: TPOT mean "
+                         f"{m['metrics']['tpot_mean_ms']:.2f} ms, TTFT mean "
+                         f"{m['metrics']['ttft_mean'] * 1e3:.1f} ms, "
+                         f"{m['launches']['moe_gmm']} "
+                         f"moe_gmm launches, drains "
+                         + ", ".join(f"{t['assignments']:.0f}"
+                                     for t in m["placement_ticks"])
+                         + f"; forced migration at step "
+                         f"{m['migration']['at_step']}, greedy streams "
+                         f"identical")
+        print(f"  {arch}: " + "; ".join(parts) + f" [{smi}]")
+
     for rec in (served, spec["runs"]["spec_on"], spec["runs"]["spec_off"],
                 quant):
         rec.pop("streams", None)
     report.update(kernels=kern, kernels_int8=kern_q, serve=served,
                   default_pattern=omni, topk=topk, spec=spec, moe=moe,
-                  quant=quant, eager=eager, ring_chunks=rings, chaos=chaos)
+                  quant=quant, eager=eager, ring_chunks=rings, chaos=chaos,
+                  archs=archs)
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 
@@ -3657,6 +4523,38 @@ def main() -> int:
         "paged_prefill": quant["launches"]["paged_prefill"]["int8_launches"],
         "spec_verify": quant["spec"]["spec_on"]["launches"]["spec_verify"][
             "int8_launches"]}
+    g3, gr = archs["gemma3-4b"]["runs"], archs["granite-34b"]
+    new_launches = {
+        "paged_decode": {
+            "h256": g3["a_reuse_on"]["launches"]["paged_decode"],
+            "g48": gr["serve"]["launches"]["paged_decode"]},
+        "paged_prefill": {
+            "h256": g3["a_reuse_on"]["launches"]["paged_prefill"],
+            "g48": gr["serve"]["launches"]["paged_prefill"]},
+        "flash_prefill": {
+            "h256": sum(g3[r]["launches"]["flash_prefill"] for r in (
+                "b_whole_dense", "e_default_paged", "e_default_dense")),
+            "g48": gr["dense"]["launches"]["flash_prefill"]},
+        # gemma3's ring width (29 of 34 layers); the count is all widths'
+        "sink_decode": {
+            "h256": sum(g3[r]["launches"]["sink_decode"] for r in (
+                "b_whole_dense", "e_default_dense")),
+            "g48": gr["dense"]["launches"]["sink_decode"]},
+        "spec_verify": {
+            "h256": g3["c_spec_on"]["launches"]["spec_verify"],
+            "g48": gr["spec"]["runs"]["spec_on"]["launches"]["spec_verify"]},
+        "block_topk": {
+            "h256": g3["a_topk"]["launches"]["block_topk"],
+            "g48": gr["topk"]["launches"]["block_topk"]},
+        "moe_gmm": {
+            "qwen3moe": archs["qwen3-moe-235b-a22b"]["moe"]["launches"][
+                "moe_gmm"]}}
+    new_int8 = {
+        "paged_decode": {"h256": g3["d_int8"]["launches"]["paged_decode_int8"]},
+        "paged_prefill": {
+            "h256": g3["d_int8"]["launches"]["paged_prefill_int8"]},
+        "spec_verify": {
+            "h256": g3["d_int8_spec_on"]["launches"]["spec_verify_int8"]}}
     line = {"kernels": []}
     for name, key, dn, launches in rows:
         r = kern[key][dn]
@@ -3692,13 +4590,33 @@ def main() -> int:
                 rec[extra] = {k: src[k] for k in (
                     "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                     "max_abs_err")}
+        # this slice's shapes, with their launches in phase 13
+        for sub, launches_ in new_launches.get(name, {}).items():
+            src = kern[key][{"sink_decode": {"h256": "float32_h256_W1024",
+                                             "g48": "float32_g48_W512"},
+                             "moe_gmm": {"qwen3moe":
+                                         "float32_qwen3moe_decode"}}
+                            .get(name, {}).get(sub, f"float32_{sub}")]
+            entry[sub] = {k: src[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "max_abs_err", "shape")} | {"launches": launches_}
+        for sub, launches_ in new_int8.get(name, {}).items():
+            src = kern_q[key][f"float32_{sub}"]
+            entry["int8"][sub] = {k: src[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "max_abs_err", "shape")} | {"launches": launches_}
         line["kernels"].append(entry)
     for k in line["kernels"]:
         for rec in (k, k.get("int8")):
             if rec is None:
                 continue
+            for sub in ("h256", "g48", "qwen3moe"):
+                if sub in rec and rec[sub]["launches"] <= 0:
+                    raise AssertionError(f"{k['name']} {sub}: no launch in "
+                                         f"phase 13")
             for r in (rec, rec.get("ring"), rec.get("long"),
-                      rec.get("select")):
+                      rec.get("select"), rec.get("h256"), rec.get("g48"),
+                      rec.get("qwen3moe")):
                 for key in ("max_abs_err", "ms", "plain_ms", "bound_ms"):
                     if r is not None and not math.isfinite(r[key]):
                         raise AssertionError(f"{k['name']}: {key} is not "

@@ -10,7 +10,11 @@ from repro_torch.configs.base import (SHAPES, LayerSpec, ModelConfig,
 
 _MODULES = {
     "qwen2-1.5b": "qwen2_1_5b",
+    "qwen3-32b": "qwen3_32b",
+    "gemma3-4b": "gemma3_4b",
+    "granite-34b": "granite_34b",
     "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
+    "qwen3-moe-235b-a22b": "qwen3_moe_235b",
 }
 
 ARCH_IDS = list(_MODULES)

@@ -1,0 +1,18 @@
+"""qwen3-32b — dense, GQA kv=8, qk_norm. [hf:Qwen/Qwen3-8B family; hf]"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    arch_id="qwen3-32b",
+    family="dense",
+    n_layers=64,
+    d_model=5120,
+    n_heads=64,
+    n_kv_heads=8,
+    head_dim=128,
+    d_ff=25600,
+    vocab_size=151936,
+    qk_norm=True,
+    rope_theta=1e6,
+    fsdp=True,
+    grad_accum=8,
+)

@@ -7,7 +7,7 @@ import importlib
 import torch
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 
 # Every launch counter of the kernel wrappers, as (module, wrapper,
 # attribute): a wrapper adds one where it launches its kernel on the card.

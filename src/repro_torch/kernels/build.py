@@ -30,12 +30,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L = ctypes.c_longlong
 SIGNATURES = {
     "paged_decode": {
-        # ... out, workspace, B, K, G, h, bs, nb, n_split, per, scale
-        "paged_decode_launch": [_I, *[_P] * 7,
-                                _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+        # ... out, workspace, B, K, G, h, n_grp, rows, bs, nb, n_split,
+        # per, scale
+        "paged_decode_launch": [_I, *[_P] * 7, *[_I] * 10, _F, _P],
         # int8 pages + the scale plane (k_scale, k_tok, v_scale, v_tok)
-        "paged_decode_int8_launch": [_I, *[_P] * 11,
-                                     _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+        "paged_decode_int8_launch": [_I, *[_P] * 11, *[_I] * 10, _F, _P],
     },
     "paged_prefill": {
         # ... out, workspace, B, K, S, G, h, bs, nb, n_split, per, scale,
@@ -49,10 +48,10 @@ SIGNATURES = {
                                  _I, _I, _I, _P],
     },
     "sink_decode": {
-        # ... out, workspace, B, K, G, h, W, six strides, n_split, per,
-        # scale
-        "sink_decode_launch": [_I, *[_P] * 6, _I, _I, _I, _I, _I,
-                               *[_L] * 6, _I, _I, _F, _P],
+        # ... out, workspace, B, K, G, h, n_grp, rows, W, six strides,
+        # n_split, per, scale
+        "sink_decode_launch": [_I, *[_P] * 6, *[_I] * 7, *[_L] * 6, _I, _I,
+                               _F, _P],
     },
     "block_topk": {
         "block_topk_launch": [_I, _P, _P, _P, _P, _P, _P,

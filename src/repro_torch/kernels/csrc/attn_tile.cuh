@@ -11,7 +11,8 @@
 //     `decode_combine` / `lse_combine`: paged_decode and sink_decode): each
 //     warp walks its own KV chunks through a cp.async double buffer with
 //     its own softmax state; the warps of a CTA, then the CTAs of a split
-//     grid, merge by log-sum-exp;
+//     grid, merge by log-sum-exp; a GQA group wider than a CTA holds
+//     (`dec_gmax`) is cut into row groups, one CTA each;
 //   * the paged-history tensor-core routine (`paged_tc_attend`,
 //     paged_prefill and spec_verify): a CTA of 16-row warps walks its
 //     split's share of a paged history, key tiles staged through the table
@@ -31,7 +32,7 @@ namespace paged {
 constexpr float NEG_INF = -1e30f;   // masked score (finite, as in the TPU kernels)
 constexpr int NT = 128;             // threads per CTA
 constexpr int MAXR = 16;            // a decode CTA holds ≤ MAXR·NT/HD
-                                    // query rows
+                                    // query rows (dec_gmax)
 
 template <typename T> __device__ __forceinline__ float to_f32(T x);
 template <> __device__ __forceinline__ float to_f32<float>(float x) { return x; }
@@ -455,9 +456,12 @@ __device__ __forceinline__ void tc_store_rows(T* out, TcRows<HD>& st, int row0,
 
 // ---- split-KV decode (paged_decode, sink_decode) ------------------------
 //
-// A decode CTA holds the G query rows of one GQA group (float32, row stride
-// HD + 4) and walks a run of KV "chunks" (at most DEC_TR consecutive rows:
-// of one arena block for paged_decode, of the dense cache for sink_decode).
+// A decode CTA holds G ≤ dec_gmax<HD>() query rows of one GQA group
+// (float32, row stride HD + 4: the whole group, or one of its row groups,
+// which the callers' grids add as a further axis and which each re-read the
+// kv head) and walks a run of KV "chunks" (at most dec_tr<HD>() consecutive
+// rows: of one arena block for paged_decode, of the dense cache for
+// sink_decode).
 // Its DEC_WARPS warps take the chunks in turn; each warp double-buffers its
 // chunks with cp.async (`decode_stage_rows`, which both callers hand a row
 // base and a row stride) and keeps its own online-softmax state: M, L, C
@@ -468,8 +472,16 @@ __device__ __forceinline__ void tc_store_rows(T* out, TcRows<HD>& st, int row0,
 // no key has m = NEG_INF, l = 0, acc = 0 and adds exactly nothing next to
 // one that did.
 constexpr int DEC_WARPS = 4;
-constexpr int DEC_TR = 16;       // rows per chunk
 constexpr int DEC_STAGES = 2;
+// Rows per chunk: 16, and 8 at HD = 256, where a 16-row float32 stage
+// (33 KB) times DEC_STAGES · DEC_WARPS would pass the 227 KB a CTA may
+// take; the 8-row stages keep the CTA's bytes those of HD = 128.
+template <int HD>
+__host__ __device__ constexpr int dec_tr() { return HD > 128 ? 8 : 16; }
+// Query rows a decode CTA holds: a lane keeps HD/32 accumulators of each,
+// MAXR·NT/HD rows keep that at 64 registers (16 at HD = 128, 8 at 256).
+template <int HD>
+__host__ __device__ constexpr int dec_gmax() { return MAXR * NT / HD; }
 
 // One warp's staging buffer for a chunk of TR rows: K [TR][HD + 16 bytes]
 // (the pad keeps the score loop's row-wise reads conflict-free), V [TR][HD],
@@ -477,10 +489,11 @@ constexpr int DEC_STAGES = 2;
 // chunk's token scales [TR], for K and for V).
 template <typename KV, int HD>
 struct DecStage {
+  static constexpr int TR = dec_tr<HD>();
   static constexpr int LDK = HD + 16 / (int)sizeof(KV);
   static __host__ __device__ size_t bytes() {
-    size_t b = (size_t)DEC_TR * (LDK + HD) * sizeof(KV);
-    if (kInt8Kv<KV>) b += sizeof(float) * (2 * HD + 2 * DEC_TR);
+    size_t b = (size_t)TR * (LDK + HD) * sizeof(KV);
+    if (kInt8Kv<KV>) b += sizeof(float) * (2 * HD + 2 * TR);
     return (b + 15) / 16 * 16;
   }
   KV* K;
@@ -488,11 +501,11 @@ struct DecStage {
   float *ksc, *vsc, *ktk, *vtk;
   __device__ __forceinline__ explicit DecStage(unsigned char* base) {
     K = reinterpret_cast<KV*>(base);
-    V = K + DEC_TR * LDK;
-    ksc = reinterpret_cast<float*>(V + DEC_TR * HD);
+    V = K + TR * LDK;
+    ksc = reinterpret_cast<float*>(V + TR * HD);
     vsc = ksc + HD;
     ktk = vsc + HD;
-    vtk = ktk + DEC_TR;
+    vtk = ktk + TR;
   }
 };
 
@@ -550,8 +563,9 @@ __device__ __forceinline__ void decode_stage_issue(
 // one float32 product of load_kv_tile); `valid(t)` says whether key t of
 // the chunk is visible (masked scores are NEG_INF). Softmax: lane r < G owns
 // row r. P·V: each lane its HD/32 columns of every row. P, M, L, C are this
-// warp's [G·DEC_TR], [G], [G], [G] in shared memory. Ends with __syncwarp,
-// so the caller may refill the stage right after it returns.
+// warp's [G·TR], [G], [G], [G] in shared memory (TR = dec_tr<HD>()). Ends
+// with __syncwarp, so the caller may refill the stage right after it
+// returns.
 template <typename KV, int HD, int GMAX, typename ValidF>
 __device__ __forceinline__ void decode_block_step(
     const float* Qs, const DecStage<KV, HD>& st, float* P, float* M, float* L,
@@ -561,6 +575,7 @@ __device__ __forceinline__ void decode_block_step(
   constexpr int LDK = DecStage<KV, HD>::LDK;
   constexpr int CH = 16 / sizeof(KV);   // elements per 16-byte load
   constexpr int VD = HD / 32;
+  constexpr int TR = DecStage<KV, HD>::TR;
   const int lane = threadIdx.x & 31;
   for (int i = lane; i < G * rows; i += 32) {
     const int r = i / rows, t = i - r * rows;
@@ -590,21 +605,21 @@ __device__ __forceinline__ void decode_block_step(
       }
     }
     const float s = (s4[0] + s4[1]) + (s4[2] + s4[3]);
-    P[r * DEC_TR + t] = valid(t) ? s * scale_log2 : NEG_INF;
+    P[r * TR + t] = valid(t) ? s * scale_log2 : NEG_INF;
   }
   __syncwarp();
   for (int r = lane; r < G; r += 32) {
-    float* p = P + r * DEC_TR;
+    float* p = P + r * TR;
     const float m_prev = M[r];
-    float x[DEC_TR];                     // the row in registers: one
+    float x[TR];                         // the row in registers: one
 #pragma unroll                           // batch of loads, no chain
-    for (int t = 0; t < DEC_TR; ++t) x[t] = t < rows ? p[t] : NEG_INF;
+    for (int t = 0; t < TR; ++t) x[t] = t < rows ? p[t] : NEG_INF;
     float mx = m_prev;
 #pragma unroll
-    for (int t = 0; t < DEC_TR; ++t) mx = fmaxf(mx, x[t]);
+    for (int t = 0; t < TR; ++t) mx = fmaxf(mx, x[t]);
     float sum = 0.f;
 #pragma unroll
-    for (int t = 0; t < DEC_TR; ++t) {
+    for (int t = 0; t < TR; ++t) {
       if (t < rows) {
         const float e = exp2f(x[t] - mx);
         p[t] = e;
@@ -641,7 +656,7 @@ __device__ __forceinline__ void decode_block_step(
 #pragma unroll
     for (int r = 0; r < GMAX; ++r) {
       if (r < G) {
-        const float p = P[r * DEC_TR + t];
+        const float p = P[r * TR + t];
 #pragma unroll
         for (int u = 0; u < VD; ++u) acc[r][u] = fmaf(p, v[u], acc[r][u]);
       }
@@ -708,15 +723,15 @@ __device__ __forceinline__ void lse_combine(const float* m, const float* l,
   out[(size_t)r * HD + d] = from_f32<T>(num / fmaxf(den, 1e-30f));
 }
 
-// Shared memory of a decode CTA: a head of Qs [G][HD + 4] | M, L, C
-// [DEC_WARPS][G] | P [DEC_WARPS][G][DEC_TR] (floats, padded to 16 bytes),
+// Shared memory of a decode CTA of G rows: a head of Qs [G][HD + 4] | M, L,
+// C [DEC_WARPS][G] | P [DEC_WARPS][G][dec_tr] (floats, padded to 16 bytes),
 // then the warps' stages [DEC_WARPS][DEC_STAGES], or, after the walk, the
 // merge scratch [DEC_WARPS][G][HD] in their place.
 template <int HD>
 __host__ __device__ inline size_t decode_head_bytes(int G) {
   const size_t b = sizeof(float) * ((size_t)G * (HD + 4) +
                                     3 * DEC_WARPS * (size_t)G +
-                                    (size_t)DEC_WARPS * G * DEC_TR);
+                                    (size_t)DEC_WARPS * G * dec_tr<HD>());
   return (b + 15) / 16 * 16;
 }
 template <typename KV, int HD>
@@ -726,19 +741,22 @@ inline size_t decode_smem_bytes(int G) {
   return decode_head_bytes<HD>(G) + (stages > merge ? stages : merge);
 }
 
-// The body of a split-KV decode CTA. q and out point at its G rows of
-// [.., G, HD]; it walks chunks 0 .. n_chunks − 1 of its split: issue(stage,
+// The body of a split-KV decode CTA. q and out point at its G ≤
+// dec_gmax<HD>() rows of [.., HD] (a GQA group, or a row group of one); it
+// walks chunks 0 .. n_chunks − 1 of its split: issue(stage,
 // c) starts chunk c's cp.async copies (decode_stage_rows), chunk(c) gives
 // (first slot, rows) of chunk c; slot s is visible when s < limit. With ws
 // null the CTA writes out; otherwise its partial state (m in the log2
-// domain, l, unnormalised acc) goes to row wrow of the workspace: m [rows],
-// l [rows], acc [rows][HD] (rows = ws_rows), for `decode_combine`.
+// domain, l, unnormalised acc) goes to rows wrow .. wrow + G − 1 of the
+// workspace: m [rows], l [rows], acc [rows][HD] (rows = ws_rows), for
+// `decode_combine`.
 template <typename T, typename KV, int HD, typename IssueF, typename ChunkF>
 __device__ __forceinline__ void decode_split_attend(
     const T* __restrict__ q, T* __restrict__ out, float* __restrict__ ws,
     size_t ws_rows, size_t wrow, int G, int n_chunks, int limit,
     float scale_log2, IssueF issue, ChunkF chunk) {
-  constexpr int GMAX = MAXR * (NT / HD);
+  constexpr int GMAX = dec_gmax<HD>();
+  constexpr int TR = dec_tr<HD>();
   constexpr int VD = HD / 32;
   extern __shared__ __align__(16) unsigned char dec_smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -755,7 +773,7 @@ __device__ __forceinline__ void decode_split_attend(
   float* M = Mall + warp * G;
   float* L = Lall + warp * G;
   float* C = Call + warp * G;
-  float* P = Pall + warp * G * DEC_TR;
+  float* P = Pall + warp * G * TR;
 
   // chunk c is walked by warp c % DEC_WARPS; its first chunk is in flight
   // while q loads
@@ -807,7 +825,7 @@ __device__ __forceinline__ void decode_split_attend(
 
 // Merge the n_split partial states of decode_split_attend: grid (B·K, G),
 // one thread per column; the workspace rows of (b, kh) are bk·nsp·G ..
-// (bk + 1)·nsp·G − 1 (split-major).
+// (bk + 1)·nsp·G − 1 (split-major; each row group writes its own rows).
 template <typename T, int HD>
 __device__ __forceinline__ void decode_combine(const float* __restrict__ ws,
                                                T* __restrict__ out, int BK,

@@ -23,7 +23,10 @@
 // What bounds it on the card: bytes. Each resident block contributes 2·K·h
 // float32 summary values (1 KB per block at K = 2, h = 128) and ~4·K·G·h
 // flops, about one flop per byte; the ranking is integer work on nb keys
-// in shared memory. Design:
+// in shared memory (h = 256 and G = 48 take the same path: a kv head's
+// row of summaries spans two 32-lane passes at h = 256, summed before the
+// head's reduction; the q rows, K·G·h values, stay in shared memory).
+// Design:
 //   * a thread-block cluster per slot (grid [cluster, B]); `plan` gives
 //     the cluster size (at most 8 CTAs, about 32 tabled blocks each) and
 //     each CTA's share from nb alone, so the grid depends on shapes only
@@ -158,6 +161,13 @@ __device__ __forceinline__ float4 q_chunk<__nv_bfloat16>(
                      __bfloat162float(e[2]), __bfloat162float(e[3]));
 }
 
+// A lane takes float4 chunks lane + 32·t of a block's K·HD summaries; a kv
+// head's row is HD/4 chunks, so past HD = 128 one head spans parts() = HD/128
+// consecutive t (its chunks lane, lane + 32, ...), summed before the
+// reduction over the head's lanes.
+template <int HD>
+__host__ __device__ constexpr int parts() { return HD / 4 > 32 ? HD / 128 : 1; }
+
 // Score this CTA's share [j0, j1) of slot b's tabled blocks; in select
 // mode each score's key goes to `lead` (the leader CTA's key array). The
 // query rows arrive in `qs` by cp.async: each warp first issues its table
@@ -172,6 +182,8 @@ __device__ __forceinline__ void score_share(const Args& a, const T* qs,
   constexpr int CPH = HD / 4;          // float4 chunks per kv-head row
   constexpr int U = LOADS / TG;        // blocks in flight per warp
   constexpr int RED = CPH < 32 ? CPH : 32;
+  constexpr int PARTS = parts<HD>();
+  static_assert(TG % PARTS == 0, "a kv head's chunks in one batch");
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nch = a.K * CPH;           // chunks of a block's K·HD floats
   const int n_t = (nch + 31) / 32;     // chunks per lane
@@ -231,19 +243,25 @@ __device__ __forceinline__ void score_share(const Args& a, const T* qs,
     for (int t0 = 0; t0 < n_t; t0 += TG) {
       if (t0 > 0) load(t0);
 #pragma unroll
-      for (int t = 0; t < TG; ++t) {
+      for (int t = 0; t < TG; t += PARTS) {
         const int c = lane + 32 * (t0 + t);
         const bool cv = c < nch;       // uniform over a kv head's lanes
         const int kh = c / CPH, c4 = c % CPH;
         for (int g = 0; g < a.G; ++g) {
-          const float4 x = cv ? q_chunk<T>(qs, (kh * a.G + g) * CPH + c4)
-                              : make_float4(0.f, 0.f, 0.f, 0.f);
           float v[U];
 #pragma unroll
-          for (int u = 0; u < U; ++u) {
-            const float4 l = lo[u][t], h = hi[u][t];
-            v[u] = fmaxf(x.x * l.x, x.x * h.x) + fmaxf(x.y * l.y, x.y * h.y)
-                 + fmaxf(x.z * l.z, x.z * h.z) + fmaxf(x.w * l.w, x.w * h.w);
+          for (int p = 0; p < PARTS; ++p) {
+            const float4 x =
+                cv ? q_chunk<T>(qs, (kh * a.G + g) * CPH + c4 + 32 * p)
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+            for (int u = 0; u < U; ++u) {
+              const float4 l = lo[u][t + p], h = hi[u][t + p];
+              const float e =
+                  fmaxf(x.x * l.x, x.x * h.x) + fmaxf(x.y * l.y, x.y * h.y)
+                  + fmaxf(x.z * l.z, x.z * h.z) + fmaxf(x.w * l.w, x.w * h.w);
+              v[u] = p == 0 ? e : v[u] + e;
+            }
           }
 #pragma unroll
           for (int i = 0; i < LOG_U; ++i) {
@@ -495,12 +513,16 @@ static int launch(Args a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// float4 chunks per lane: ceil(K·HD / 128), taken TG at a time
+// float4 chunks per lane: ceil(K·HD / 128), taken TG at a time (at least
+// the parts() of one kv head's row, so a head's sum ends inside a batch)
 template <typename T, int HD, bool SELECT>
 static int launch_tg(const Args& a, cudaStream_t stream) {
+  constexpr int P = parts<HD>();
   const int n_t = (a.K * HD / 4 + 31) / 32;
-  if (n_t <= 1) return launch<T, HD, 1, SELECT>(a, stream);
-  if (n_t <= 2) return launch<T, HD, 2, SELECT>(a, stream);
+  if constexpr (P <= 1)
+    if (n_t <= 1) return launch<T, HD, 1, SELECT>(a, stream);
+  if constexpr (P <= 2)
+    if (n_t <= 2) return launch<T, HD, 2, SELECT>(a, stream);
   if (n_t <= 4) return launch<T, HD, 4, SELECT>(a, stream);
   return launch<T, HD, 8, SELECT>(a, stream);
 }
@@ -511,9 +533,10 @@ static int dispatch(int dtype, int h, const Args& a, cudaStream_t s) {
   if (h == HD) return launch_tg<T, HD, SELECT>(a, s);
   if (dtype == 0) {
     BT_CASE(float, 32) BT_CASE(float, 64) BT_CASE(float, 128)
+    BT_CASE(float, 256)
   } else if (dtype == 1) {
     BT_CASE(__nv_bfloat16, 32) BT_CASE(__nv_bfloat16, 64)
-    BT_CASE(__nv_bfloat16, 128)
+    BT_CASE(__nv_bfloat16, 128) BT_CASE(__nv_bfloat16, 256)
   }
 #undef BT_CASE
   return -1;

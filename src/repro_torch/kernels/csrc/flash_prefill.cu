@@ -27,7 +27,9 @@
 //   * key tiles of BN keys (32 in float32, 64 in bf16) double-buffered with
 //     cp.async: tile j + 1 is in flight while tile j computes; padded shared
 //     rows keep fragment loads free of bank conflicts; ~101 KB (float32) or
-//     ~88 KB (bf16) of shared memory, two CTAs per SM;
+//     ~88 KB (bf16) of shared memory, two CTAs per SM; at h = 256 (gemma3)
+//     ~197 KB / ~168 KB, one CTA per SM, and each thread keeps 128 output
+//     accumulators (`TcRows<256>`) beside the 3xTF32 fragments;
 //   * key tiles wholly above the causal diagonal are never visited, nor are
 //     tiles wholly outside every row's window that also lie outside the sink
 //     (they contribute nothing); tiles visible to every row skip the mask;
@@ -167,9 +169,10 @@ extern "C" int flash_prefill_launch(int dtype, const void* q, const void* k,
                          sink, s);
   if (dtype == 0) {
     FP_CASE(float, 32) FP_CASE(float, 64) FP_CASE(float, 128)
+    FP_CASE(float, 256)
   } else if (dtype == 1) {
     FP_CASE(__nv_bfloat16, 32) FP_CASE(__nv_bfloat16, 64)
-    FP_CASE(__nv_bfloat16, 128)
+    FP_CASE(__nv_bfloat16, 128) FP_CASE(__nv_bfloat16, 256)
   }
 #undef FP_CASE
   return -1;

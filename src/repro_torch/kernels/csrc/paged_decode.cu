@@ -11,17 +11,26 @@
 // rows of the GQA group). The design reads each resident block exactly once,
 // from enough CTAs and with enough loads in flight to keep the memory busy
 // (split-KV, "flash-decoding"; attn_tile.cuh's decode routines):
-//   * grid (B, K, n_split): split s of (sequence b, kv head kh) owns table
-//     entries [s·per, (s+1)·per). n_split and per come from shapes alone
-//     (kernels/paged_decode.py::decode_splits: about two CTAs per SM), so
-//     the host never reads `lens` and a captured launch stays valid;
+//   * grid (B, K·n_grp, n_split): split s of (sequence b, kv head kh)
+//     owns table entries [s·per, (s+1)·per). n_split and per come from
+//     shapes alone (kernels/paged_decode.py::decode_splits: about two CTAs
+//     per SM), so the host never reads `lens` and a captured launch stays
+//     valid;
 //   * each CTA reads its own table entries and visits only blocks
 //     j < ceil(lens / bs). Unlike the TPU kernel, whose grid fetches every
 //     tabled block and skips only the compute, blocks past `lens` are never
 //     touched; a split with no resident block adds exactly nothing;
 //   * the G query rows of the group sit in shared memory, so one K/V read
-//     serves all G rows (G = 6 on full-width qwen2-1.5b);
-//   * the CTA's 4 warps take its chunks (≤ 16 rows of a block) in turn, each
+//     serves all G rows (G = 6 on full-width qwen2-1.5b). A CTA holds at
+//     most dec_gmax = 2048/h rows (16 at h = 128, 8 at h = 256: a lane
+//     keeps h/32 accumulators of each); a wider group (granite-34b: 48
+//     query heads over one kv head) is cut into n_grp row groups of `rows`
+//     rows, a further grid axis (kernels/paged_decode.py::
+//     decode_row_groups). Each row group reads the kv head again — the
+//     bytes bound counts them once, so at G = 48 the kernel moves three
+//     times the bytes of its bound;
+//   * the CTA's 4 warps take its chunks (≤ 16 rows of a block, ≤ 8 at
+//     h = 256, whose stages would otherwise pass 227 KB) in turn, each
 //     with a two-stage cp.async buffer, so the next chunk is in flight while
 //     one computes. Scores are lane-parallel dot products, the softmax of
 //     row r runs in lane r, P·V gives each lane h/32 columns; every warp
@@ -54,6 +63,8 @@ using namespace paged;
 // T: q and out (float / bf16); KV: the arena payload (T, or int8_t with the
 // scale plane ks/kt/vs/vt, null otherwise). ws: [B·K][n_split][G] m, then
 // the same of l, then [B·K][n_split][G][HD] acc (null when n_split = 1).
+// grid (B, K·n_grp, n_split): row group gi of kv head kh holds query rows
+// gi·rows .. min((gi + 1)·rows, G) − 1.
 template <typename T, typename KV, int HD>
 __global__ void __launch_bounds__(NT)
 paged_decode_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
@@ -62,32 +73,34 @@ paged_decode_kernel(const T* __restrict__ q, const KV* __restrict__ kp,
                     const float* __restrict__ vt,
                     const int* __restrict__ tables,
                     const int* __restrict__ lens, T* __restrict__ out,
-                    float* __restrict__ ws, int K, int G, int bs, int nb,
-                    int per, float scale_log2) {
-  const int b = blockIdx.x, kh = blockIdx.y, sp = blockIdx.z;
+                    float* __restrict__ ws, int K, int G, int n_grp,
+                    int rows, int bs, int nb, int per, float scale_log2) {
+  constexpr int TR = dec_tr<HD>();
+  const int b = blockIdx.x, sp = blockIdx.z;
+  const int kh = blockIdx.y / n_grp, g0 = (blockIdx.y - kh * n_grp) * rows;
   const int nsp = gridDim.z;
   const int bk = b * K + kh;
   // This split's resident chunks: blocks [j0, j1), each cut into cpb chunks
-  // of at most DEC_TR rows.
+  // of at most TR rows.
   const int len = lens[b];
   const int nblk = min((len + bs - 1) / bs, nb);
   const int j0 = sp * per;
   const int j1 = min(j0 + per, nblk);
-  const int cpb = (bs + DEC_TR - 1) / DEC_TR;
+  const int cpb = (bs + TR - 1) / TR;
   const int* tbl = tables + (size_t)b * nb;
-  const size_t qoff = (size_t)bk * G * HD;
+  const size_t qoff = ((size_t)bk * G + g0) * HD;
   decode_split_attend<T, KV, HD>(
       q + qoff, out + qoff, ws, (size_t)gridDim.x * K * nsp * G,
-      ((size_t)bk * nsp + sp) * G, G, j1 > j0 ? (j1 - j0) * cpb : 0, len,
-      scale_log2,
+      ((size_t)bk * nsp + sp) * G + g0, min(rows, G - g0),
+      j1 > j0 ? (j1 - j0) * cpb : 0, len, scale_log2,
       [&](const DecStage<KV, HD>& st, int c) {
-        const int j = j0 + c / cpb, r0 = (c % cpb) * DEC_TR;
+        const int j = j0 + c / cpb, r0 = (c % cpb) * TR;
         decode_stage_issue<KV, HD>(st, kp, vp, ks, kt, vs, vt, tbl[j], K, kh,
-                                   bs, r0, min(DEC_TR, bs - r0));
+                                   bs, r0, min(TR, bs - r0));
       },
       [&](int c) {
-        const int j = j0 + c / cpb, r0 = (c % cpb) * DEC_TR;
-        return make_int2(j * bs + r0, min(DEC_TR, bs - r0));
+        const int j = j0 + c / cpb, r0 = (c % cpb) * TR;
+        return make_int2(j * bs + r0, min(TR, bs - r0));
       });
 }
 
@@ -103,20 +116,22 @@ template <typename T, typename KV, int HD>
 static int launch(const void* q, const void* kp, const void* vp,
                   const float* ks, const float* kt, const float* vs,
                   const float* vt, const void* tables, const void* lens,
-                  void* out, void* ws, int B, int K, int G, int bs, int nb,
-                  int n_split, int per, float scale, cudaStream_t stream) {
-  const size_t smem = decode_smem_bytes<KV, HD>(G);
+                  void* out, void* ws, int B, int K, int G, int n_grp,
+                  int rows, int bs, int nb, int n_split, int per, float scale,
+                  cudaStream_t stream) {
+  if (rows > dec_gmax<HD>()) return -1;
+  const size_t smem = decode_smem_bytes<KV, HD>(rows);
   auto kern = paged_decode_kernel<T, KV, HD>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid(B, K, n_split);
+  dim3 grid(B, K * n_grp, n_split);
   float* w = n_split > 1 ? static_cast<float*>(ws) : nullptr;
   kern<<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const KV*>(kp),
       static_cast<const KV*>(vp), ks, kt, vs, vt,
       static_cast<const int*>(tables), static_cast<const int*>(lens),
-      static_cast<T*>(out), w, K, G, bs, nb, per,
+      static_cast<T*>(out), w, K, G, n_grp, rows, bs, nb, per,
       scale * 1.4426950408889634f);
   e = cudaGetLastError();
   if (e != cudaSuccess || n_split == 1) return (int)e;
@@ -130,44 +145,51 @@ static int dispatch(int dtype, bool int8, const void* q, const void* kp,
                     const void* vp, const float* ks, const float* kt,
                     const float* vs, const float* vt, const void* tables,
                     const void* lens, void* out, void* ws, int B, int K,
-                    int G, int h, int bs, int nb, int n_split, int per,
-                    float scale, void* stream) {
-  if (G < 1 || G > MAXR * (NT / h) || bs < 1 || nb < 1 || B < 1 || K < 1 ||
-      K > 65535 || n_split < 1 || n_split > 65535 || per < 1 ||
-      (long long)n_split * per < nb || (n_split > 1 && ws == nullptr))
+                    int G, int h, int n_grp, int rows, int bs, int nb,
+                    int n_split, int per, float scale, void* stream) {
+  // every row group holds 1..rows rows (rows ≤ dec_gmax, checked per HD)
+  if (G < 1 || rows < 1 || n_grp < 1 || (long long)n_grp * rows < G ||
+      (long long)(n_grp - 1) * rows >= G || bs < 1 || nb < 1 || B < 1 ||
+      K < 1 || (long long)K * n_grp > 65535 || n_split < 1 ||
+      n_split > 65535 || per < 1 || (long long)n_split * per < nb ||
+      (n_split > 1 && ws == nullptr))
     return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define PD_CASE(T, HD)                                                      \
   if (h == HD)                                                              \
     return int8 ? launch<T, int8_t, HD>(q, kp, vp, ks, kt, vs, vt, tables,  \
-                                        lens, out, ws, B, K, G, bs, nb,     \
-                                        n_split, per, scale, s)             \
+                                        lens, out, ws, B, K, G, n_grp,      \
+                                        rows, bs, nb, n_split, per, scale,  \
+                                        s)                                  \
                 : launch<T, T, HD>(q, kp, vp, ks, kt, vs, vt, tables, lens, \
-                                   out, ws, B, K, G, bs, nb, n_split, per,  \
-                                   scale, s);
+                                   out, ws, B, K, G, n_grp, rows, bs, nb,   \
+                                   n_split, per, scale, s);
   if (dtype == 0) {
     PD_CASE(float, 32) PD_CASE(float, 64) PD_CASE(float, 128)
+    PD_CASE(float, 256)
   } else if (dtype == 1) {
     PD_CASE(__nv_bfloat16, 32) PD_CASE(__nv_bfloat16, 64)
-    PD_CASE(__nv_bfloat16, 128)
+    PD_CASE(__nv_bfloat16, 128) PD_CASE(__nv_bfloat16, 256)
   }
 #undef PD_CASE
   return -1;
 }
 
 // dtype (of q and out): 0 = float32, 1 = bfloat16; the pages have the same
-// type. ws: float32 workspace of B·K·n_split·G·(h + 2) floats (may be null
-// when n_split = 1). Returns 0 on success, a cudaError_t value after a
-// failed launch, or -1 for a shape the kernel does not take.
+// type. The G query rows of a kv head go in n_grp row groups of `rows`
+// (kernels/paged_decode.py::decode_row_groups). ws: float32 workspace of
+// B·K·n_split·G·(h + 2) floats (may be null when n_split = 1). Returns 0
+// on success, a cudaError_t value after a failed launch, or -1 for a shape
+// the kernel does not take.
 extern "C" int paged_decode_launch(int dtype, const void* q, const void* kp,
                                    const void* vp, const void* tables,
                                    const void* lens, void* out, void* ws,
-                                   int B, int K, int G, int h, int bs, int nb,
-                                   int n_split, int per, float scale,
-                                   void* stream) {
+                                   int B, int K, int G, int h, int n_grp,
+                                   int rows, int bs, int nb, int n_split,
+                                   int per, float scale, void* stream) {
   return dispatch(dtype, false, q, kp, vp, nullptr, nullptr, nullptr,
-                  nullptr, tables, lens, out, ws, B, K, G, h, bs, nb, n_split,
-                  per, scale, stream);
+                  nullptr, tables, lens, out, ws, B, K, G, h, n_grp, rows, bs,
+                  nb, n_split, per, scale, stream);
 }
 
 // The same over int8 pages with their scale plane: ks/vs [N, K, h] and
@@ -178,11 +200,11 @@ extern "C" int paged_decode_int8_launch(int dtype, const void* q,
                                         const void* vs, const void* vt,
                                         const void* tables, const void* lens,
                                         void* out, void* ws, int B, int K,
-                                        int G, int h, int bs, int nb,
-                                        int n_split, int per, float scale,
-                                        void* stream) {
+                                        int G, int h, int n_grp, int rows,
+                                        int bs, int nb, int n_split, int per,
+                                        float scale, void* stream) {
   return dispatch(dtype, true, q, kp, vp, static_cast<const float*>(ks),
                   static_cast<const float*>(kt), static_cast<const float*>(vs),
                   static_cast<const float*>(vt), tables, lens, out, ws, B, K,
-                  G, h, bs, nb, n_split, per, scale, stream);
+                  G, h, n_grp, rows, bs, nb, n_split, per, scale, stream);
 }

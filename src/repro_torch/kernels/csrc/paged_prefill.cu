@@ -21,7 +21,10 @@
 //   * products on the tensor cores (`tc_tile_step`: mma.sync, float32
 //     through the 3xTF32 split, bf16 m16n8k16), the online softmax in
 //     registers, 64-row tiles of four 16-row warps — 12 row tiles per kv
-//     head at the main chunk, each key tile serving all six GQA heads;
+//     head at the main chunk, each key tile serving all six GQA heads (96
+//     row tiles at granite-34b's G = 48, S·G = 6,144; at h = 256 a thread
+//     keeps 128 output accumulators and the CTA ~132 KB float32 / ~168 KB
+//     bf16 of shared memory);
 //   * the history split over CTAs from shapes alone (`prefill_splits`:
 //     B·K·row tiles·splits ≈ 2 CTAs per SM), each split walking only its
 //     resident table entries, key tiles staged by cp.async through the
@@ -151,9 +154,10 @@ static int dispatch(int dtype, bool int8, const void* q, const void* kn,
                                 n_split, per, scale, window, sink, s);
   if (dtype == 0) {
     PP_CASE(float, 32) PP_CASE(float, 64) PP_CASE(float, 128)
+    PP_CASE(float, 256)
   } else if (dtype == 1) {
     PP_CASE(__nv_bfloat16, 32) PP_CASE(__nv_bfloat16, 64)
-    PP_CASE(__nv_bfloat16, 128)
+    PP_CASE(__nv_bfloat16, 128) PP_CASE(__nv_bfloat16, 256)
   }
 #undef PP_CASE
   return -1;

@@ -24,7 +24,9 @@
 // (attn_tile.cuh, `paged_tc_attend`):
 //   * one 32-row tile of two 16-row warps holds all S·G = 30 window rows of
 //     a (slot, kv head), so every history tile is read once for all of
-//     them; longer windows take further row tiles;
+//     them; longer windows take further row tiles (G = 48: 240 rows, 8
+//     tiles; h = 256 runs the same tile with 128 output accumulators a
+//     thread);
 //   * the history split over CTAs from shapes alone (`prefill_splits`:
 //     about 2 CTAs per SM, 22 splits per (slot, kv head) at a 256-entry
 //     table), each CTA reading its slot's off_b and n_tok_b and walking
@@ -140,9 +142,10 @@ static int dispatch(int dtype, bool int8, const void* q, const void* kn,
                                 n_split, per, scale, s);
   if (dtype == 0) {
     SV_CASE(float, 32) SV_CASE(float, 64) SV_CASE(float, 128)
+    SV_CASE(float, 256)
   } else if (dtype == 1) {
     SV_CASE(__nv_bfloat16, 32) SV_CASE(__nv_bfloat16, 64)
-    SV_CASE(__nv_bfloat16, 128)
+    SV_CASE(__nv_bfloat16, 128) SV_CASE(__nv_bfloat16, 256)
   }
 #undef SV_CASE
   return -1;

@@ -5,7 +5,9 @@
 on a CUDA device, and runs `paged_decode_plain` — the same function in plain
 PyTorch — for tensors on the CPU. The kernel splits each sequence's table
 across CTAs (split-KV) and merges the splits by log-sum-exp; the split plan
-(`decode_splits`) depends on shapes only, never on `lens`.
+(`decode_splits`) depends on shapes only, never on `lens`. A CTA holds at
+most DECODE_ROW_FLOATS / h query rows of a GQA group; a wider group is cut
+into row groups (`decode_row_groups`), a further grid axis.
 `prefill_splits` is the same kind of plan for the paged-history kernels
 of paged_prefill and spec_verify.
 `paged_decode.launches` (and `.int8_launches` for int8 arenas) advance once
@@ -25,15 +27,31 @@ from repro_torch.kernels._common import (DTYPE_CODES, HEAD_DIMS, gather_kv,
 
 NEG_INF = -1e30
 DECODE_WARPS = 4          # warps per CTA of the kernel (csrc DEC_WARPS)
+DECODE_ROW_FLOATS = 2048  # query rows × h a decode CTA holds (csrc
+                          # dec_gmax = MAXR·NT/h: h/32 accumulators a lane
+                          # for each row; 16 rows at h 128, 8 at h 256)
+
+
+def decode_row_groups(G: int, h: int) -> tuple[int, int]:
+    """The row groups of a GQA group of G query rows from shapes alone →
+    (n_grp, rows): CTA gi of a (slot, kv head, split) holds rows
+    [gi·rows, min((gi+1)·rows, G)). The fewest groups of at most
+    DECODE_ROW_FLOATS / h rows, balanced, none empty (G = 48 at h = 128:
+    three groups of 16; G = 17: 9 + 8)."""
+    n = -(-G // (DECODE_ROW_FLOATS // h))
+    rows = -(-G // n)
+    return -(-G // rows), rows
 
 
 def decode_splits(B: int, K: int, nb: int, n_sm: int) -> tuple[int, int]:
     """The kernel's split plan from shapes alone → (n_split, per): grid
     (B, K, n_split), split s taking table entries [s·per, min((s+1)·per,
-    nb)). About two CTAs per SM (B·K·n_split ≈ 2·n_sm) while every warp of
-    a CTA can take at least one entry (per ≥ DECODE_WARPS where nb allows);
-    n_split = ceil(nb / per), so every split has an entry and every entry
-    one split. Splits past a sequence's resident blocks add nothing."""
+    nb)); the wrapper passes K·n_grp for K when a GQA group goes in row
+    groups (`decode_row_groups`). About two CTAs per SM (B·K·n_split ≈
+    2·n_sm) while every warp of a CTA can take at least one entry (per ≥
+    DECODE_WARPS where nb allows); n_split = ceil(nb / per), so every split
+    has an entry and every entry one split. Splits past a sequence's
+    resident blocks add nothing."""
     want = -(-2 * n_sm // (B * K))
     n = max(1, min(want, nb // DECODE_WARPS, 65535))
     per = -(-nb // n)
@@ -109,7 +127,8 @@ def paged_decode(q, k_pages, v_pages, tables, lens, *, k_scale=None,
     ln = kernel_arg(per_row(lens, B, dev), dev, torch.int32)
     nb = tbl.shape[1]
     out = torch.empty_like(q)
-    n_split, per = decode_splits(B, K, nb, _sm_count(dev.index))
+    n_grp, rows = decode_row_groups(G, h)
+    n_split, per = decode_splits(B, K * n_grp, nb, _sm_count(dev.index))
     ws = None if n_split == 1 else torch.empty(
         B * K * n_split * G * (h + 2), dtype=torch.float32, device=dev)
     ws_ptr = None if ws is None else ws.data_ptr()
@@ -121,13 +140,14 @@ def paged_decode(q, k_pages, v_pages, tables, lens, *, k_scale=None,
             rc = lib.paged_decode_int8_launch(
                 DTYPE_CODES[q.dtype], q.data_ptr(), kp.data_ptr(),
                 vp.data_ptr(), *(t.data_ptr() for t in sp), tbl.data_ptr(),
-                ln.data_ptr(), out.data_ptr(), ws_ptr, B, K, G, h, bs, nb,
-                n_split, per, h ** -0.5, stream)
+                ln.data_ptr(), out.data_ptr(), ws_ptr, B, K, G, h, n_grp,
+                rows, bs, nb, n_split, per, h ** -0.5, stream)
         else:
             rc = lib.paged_decode_launch(
                 DTYPE_CODES[q.dtype], q.data_ptr(), kp.data_ptr(),
                 vp.data_ptr(), tbl.data_ptr(), ln.data_ptr(), out.data_ptr(),
-                ws_ptr, B, K, G, h, bs, nb, n_split, per, h ** -0.5, stream)
+                ws_ptr, B, K, G, h, n_grp, rows, bs, nb, n_split, per,
+                h ** -0.5, stream)
     build.check_launch("paged_decode", rc)
     paged_decode.launches += 1
     paged_decode.int8_launches += int(quant)

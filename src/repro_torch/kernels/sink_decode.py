@@ -20,10 +20,12 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels._common import (DTYPE_CODES, HEAD_DIMS, kernel_arg,
                                          per_row)
-from repro_torch.kernels.paged_decode import _sm_count, decode_splits
+from repro_torch.kernels.paged_decode import (_sm_count, decode_row_groups,
+                                              decode_splits)
 
 NEG_INF = -1e30
-SINK_CHUNK = 16           # cache slots per chunk of the kernel (csrc DEC_TR)
+SINK_CHUNK = 16           # cache slots per chunk of the kernel's split plan
+                          # (csrc SINK_CHUNK; staged 8 at a time at h = 256)
 
 
 def sink_splits(B: int, K: int, W: int, n_sm: int) -> tuple[int, int]:
@@ -31,7 +33,9 @@ def sink_splits(B: int, K: int, W: int, n_sm: int) -> tuple[int, int]:
     (B, K, n_split), split s taking the SINK_CHUNK-slot chunks [s·per,
     min((s+1)·per, ceil(W / SINK_CHUNK))) of the cache — paged_decode's
     plan (`decode_splits`) with the chunks in place of table entries.
-    Chunks past a sequence's occupancy add nothing."""
+    Chunks past a sequence's occupancy add nothing. A GQA group wider than
+    a CTA holds goes in row groups as in paged_decode (`decode_row_groups`),
+    the wrapper handing this plan K·n_grp in place of K."""
     return decode_splits(B, K, -(-W // SINK_CHUNK), n_sm)
 
 
@@ -85,7 +89,8 @@ def sink_decode(q, k_cache, v_cache, t):
     ks, vs = _strides(k_cache, "k_cache"), _strides(v_cache, "v_cache")
     tt = kernel_arg(per_row(t, B, dev), dev, torch.int32)
     out = torch.empty_like(q)
-    n_split, per = sink_splits(B, K, W, _sm_count(dev.index))
+    n_grp, rows = decode_row_groups(G, h)
+    n_split, per = sink_splits(B, K * n_grp, W, _sm_count(dev.index))
     ws = None if n_split == 1 else torch.empty(
         B * K * n_split * G * (h + 2), dtype=torch.float32, device=dev)
     lib = build.load("sink_decode")
@@ -94,8 +99,8 @@ def sink_decode(q, k_cache, v_cache, t):
         rc = lib.sink_decode_launch(
             DTYPE_CODES[q.dtype], q.data_ptr(), k_cache.data_ptr(),
             v_cache.data_ptr(), tt.data_ptr(), out.data_ptr(),
-            None if ws is None else ws.data_ptr(), B, K, G, h, W, *ks, *vs,
-            n_split, per, h ** -0.5, stream)
+            None if ws is None else ws.data_ptr(), B, K, G, h, n_grp, rows, W,
+            *ks, *vs, n_split, per, h ** -0.5, stream)
     build.check_launch("sink_decode", rc)
     sink_decode.launches += 1
     return out

@@ -27,7 +27,7 @@ reads dequantize in the kernels' tiles and its writes quantize
 Each layer's FFN is a dense SwiGLU or, on an MoE layer, the routed experts
 over OmniPlacement slot tables (models/moe.py) plus the shared SwiGLU.
 `check_supported` raises NotImplementedError for what a later slice brings
-(SSM; online top-k with MoE).
+(SSM layers; encoder, frontend and non-causal families).
 """
 from __future__ import annotations
 
@@ -96,10 +96,6 @@ def check_supported(cfg: ModelConfig, plan: StackPlan) -> None:
     for spec in plan.all_specs():
         if spec.kind != "attn":
             raise NotImplementedError("SSM (mamba) layers are not ported yet")
-    oa = cfg.omniattn
-    if cfg.moe.n_experts and (oa.topk_blocks > 0 or oa.topk_frac > 0):
-        raise NotImplementedError(
-            "OmniAttn online top-k with MoE layers is not ported yet")
 
 
 def topk_block_budget(oa, nb: int) -> Optional[int]:

@@ -20,12 +20,13 @@ cfg.omniattn sets a budget (`sparsity`, a SparsityController), and SpecPlane
 speculative decoding when given a SpecConfig (`spec_ctl`): drafts gathered
 on the host, one batched read-only verify forward over [n_slots, k+1]
 window positions, the greedy-prefix acceptance on the device, and a masked
-commit of the accepted rows. The slot-dense layout serves neither.
+commit of the accepted rows. The slot-dense layout refuses speculation and
+ignores the top-k knobs, as the reference does.
 
 MoE layers route through the engine's `tables`; each step adds the live
 rows' expert counts to a [L_moe, E] device accumulator that the server
-drains at placement ticks (`take_moe_counts`). Speculation with MoE layers
-raises NotImplementedError.
+drains at placement ticks (`take_moe_counts`); a verify step adds the
+counts of every window row of a live slot, as the reference's does.
 
 Slot state (position, current token, active flag, per-slot sampling
 parameters and base keys, the sparsity, speculation and MoE-count
@@ -122,11 +123,9 @@ class DecodeEngine:
             self.sparsity = SparsityController.from_model(
                 cfg, plan, self.block_size, self.max_blocks)
         else:
-            oa = cfg.omniattn
-            if oa.topk_blocks > 0 or oa.topk_frac > 0:
-                raise NotImplementedError(
-                    "OmniAttn online top-k on the slot-dense KV layout is "
-                    "not ported (it selects arena blocks: use paged KV)")
+            # online top-k selects arena blocks: on the slot-dense layout
+            # its knobs are ignored, as the reference ignores them (it
+            # builds the controller in the paged branch only)
             self.sparsity = None
             self.max_blocks = -(-self.max_len // self.block_size)
             self.cache = alloc_cache(cfg, plan, self.n_slots, self.max_len,
@@ -151,10 +150,6 @@ class DecodeEngine:
         self.spec_ctl = SpecController.from_model(
             self.lm, self.spec, sparsity=self.sparsity, radix=self.spec_radix)
         if self.spec_ctl is not None:
-            if cfg.moe.n_experts:
-                raise NotImplementedError(
-                    "SpecPlane speculative decoding with MoE layers is not "
-                    "ported yet")
             if not self.paged:
                 raise ValueError("speculative decoding requires paged "
                                  "attention KV (block/summary rollback is "
@@ -568,8 +563,9 @@ class DecodeEngine:
         act = st["active"]
         toks = torch.cat([st["tok"][:, None], drafts], dim=1)
         cache = self._full_cache()
-        logits, staged, _ = self.lm.verify(self.params, cache, toks,
-                                           st["pos"], block_tables=tbl)
+        logits, staged, aux = self.lm.verify(
+            self.params, cache, toks, st["pos"], block_tables=tbl,
+            tables=self.tables, token_mask=act)
         greedy = logits.float().argmax(dim=-1).to(torch.int32)   # [B, k+1]
         nxt0 = sample_tokens(logits[:, 0], st["temp"], st["top_k"],
                              st["top_p"], st["key"], st["pos"] + 1,
@@ -588,6 +584,10 @@ class DecodeEngine:
             act, emit[torch.arange(B, device=self.device), a.long()],
             st["tok"])
         self.lm.verify_commit(cache, staged, st["pos"], n_emit, tbl)
+        if "moe_counts" in st:
+            # every window row of a live slot is routed and counted, the
+            # rejected drafts' rows too, as the reference counts them
+            st["moe_counts"] += torch.stack(aux["moe_counts"])
         st["pos"] += n_emit
         st["tok"].copy_(new_tok)
         actf = act.float()

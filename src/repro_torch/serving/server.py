@@ -43,7 +43,8 @@ every completed stream equal to the fault-free run's. Recovery never
 rebinds a tensor a graph was captured with: the arenas are scrubbed in
 place, and a freed slot's table row goes to the null block.
 
-Speculation or online top-k with MoE layers raise NotImplementedError.
+Speculation and online top-k compose with MoE layers (a verify step's
+window rows are routed and counted like decode rows).
 """
 from __future__ import annotations
 

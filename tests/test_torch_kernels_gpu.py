@@ -754,3 +754,197 @@ def test_kernel_rejects_unsupported_inputs(cuda):
                     torch.zeros((1, 1, 2, 32), device=cuda),
                     torch.zeros((2, 1, 8, 32), device=cuda),
                     torch.zeros((2, 1, 8, 32), device=cuda), tb, 0, 2)
+
+
+# ---- gemma3-4b's head width (h 256) and granite-34b's GQA group (G 48) --
+# (K, G, h): gemma3's global layers, granite's single kv head, qwen3-moe's
+# group of 16; the decode routine's row-group edges: one group at its
+# largest (16 rows at h 128, 8 at h 256), then two and three groups
+WIDE = [(4, 2, 256), (1, 48, 128)]
+ROW_GROUPS = [(1, 16, 128), (1, 17, 128), (1, 33, 128), (2, 8, 256),
+              (2, 9, 256), (1, 48, 256)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("K,G,h", WIDE + ROW_GROUPS)
+def test_paged_decode_wide_shapes_match_plain(cuda, dtype, int8, K, G, h):
+    """Row groups and h 256 over split tables: one-token, one-block and
+    long rows, the poisoned null block behind every non-resident entry."""
+    rng = np.random.default_rng(K * 100 + G + h + int8)
+    lens, bs, nb = [1, 16, 17, 700, 1300, 2064], 16, 130
+    B, N = len(lens), len(lens) * nb + 1
+    q = _rand(rng, (B, K, G, h), dtype, cuda)
+    tables = _tables(rng, B, nb, N, cuda)
+    for b, n in enumerate(lens):
+        tables[b, -(-n // bs):] = 0
+    if int8:
+        kp, vp, sc = _int8_arena(rng, N, K, bs, h, tables, lens, cuda)
+    else:
+        kp = _rand(rng, (N, K, bs, h), dtype, cuda)
+        vp = _rand(rng, (N, K, bs, h), dtype, cuda)
+        kp[0] = vp[0] = 1e4
+        sc = {}
+    ln = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    n0, i0 = paged_decode.launches, paged_decode.int8_launches
+    got = paged_decode(q, kp, vp, tables, ln, **sc)
+    assert paged_decode.launches == n0 + 1
+    assert paged_decode.int8_launches == i0 + int(int8)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and torch.isfinite(got.float()).all()
+    want = paged_decode_plain(q, kp, vp, tables, ln, **sc)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("W", [1024, 2304])
+@pytest.mark.parametrize("K,G,h", WIDE + ROW_GROUPS)
+def test_sink_decode_wide_shapes_match_plain(cuda, dtype, W, K, G, h):
+    """gemma3's local ring (1,024) and full cache (2,304) in the model
+    layout; occupancy 1, 17 (off the 8-slot stage at h 256), partial,
+    exactly W and wrapped; slots past t poisoned."""
+    rng = np.random.default_rng(W + K * 100 + G + h)
+    ts = [1, 17, W // 3, W, W + 37]
+    B = len(ts)
+    q = _rand(rng, (B, K, G, h), dtype, cuda)
+    kc = _rand(rng, (B, W, K, h), dtype, cuda)
+    vc = _rand(rng, (B, W, K, h), dtype, cuda)
+    for b, t_b in enumerate(ts):
+        kc[b, t_b:] = vc[b, t_b:] = 1e4
+    kc, vc = kc.transpose(1, 2), vc.transpose(1, 2)
+    t = torch.tensor(ts, dtype=torch.int32, device=cuda)
+    n0 = sink_decode.launches
+    got = sink_decode(q, kc, vc, t)
+    assert sink_decode.launches == n0 + 1 and got.dtype == dtype
+    torch.cuda.synchronize()
+    want = sink_decode_plain(q, kc, vc, t)
+    torch.testing.assert_close(got.float(), want.float(), **TOL_DENSE[dtype])
+
+
+# (B, K, S, G, h, bs, nb, off, real rows, kwargs) at the wide shapes: a
+# prefill chunk over a long and an empty history, a padded chunk, a verify
+# window per slot
+WIDE_HISTORY = [
+    (2, 4, 128, 2, 256, 16, 144, [1536, 0], [128, 100], {}),
+    (2, 4, 64, 2, 256, 16, 144, [1100, 37], [64, 9],
+     dict(window=1024)),
+    (1, 1, 128, 48, 128, 16, 32, [384], [128], {}),
+    (2, 1, 32, 48, 128, 16, 32, [200, 0], [32, 7], {}),
+    (6, 4, 5, 2, 256, 16, 144, [0, 15, 16, 700, 1999, 2299],
+     [5, 5, 3, 1, 5, 2], {}),
+    (6, 1, 5, 48, 128, 16, 32, [0, 15, 16, 300, 470, 507],
+     [5, 5, 3, 1, 5, 2], {}),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("B,K,S,G,h,bs,nb,offs,cls,kw", WIDE_HISTORY)
+def test_paged_prefill_wide_shapes_match_plain(cuda, dtype, int8, B, K, S,
+                                               G, h, bs, nb, offs, cls, kw):
+    rng = np.random.default_rng(B * nb + S + G + h + int8 + 2)
+    args, sc = _history_case(rng, dtype, int8, B, K, S, G, h, bs, nb, offs,
+                             cls, cuda)
+    _check_history_case(paged_prefill, paged_prefill_plain, args, sc, kw,
+                        dtype, int8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("B,K,S,G,h,bs,nb,offs,cls,kw",
+                         [c for c in WIDE_HISTORY if not c[-1]])
+def test_spec_verify_wide_shapes_match_plain(cuda, dtype, int8, B, K, S, G,
+                                             h, bs, nb, offs, cls, kw):
+    rng = np.random.default_rng(B * nb + S + G + h + int8 + 3)
+    args, sc = _history_case(rng, dtype, int8, B, K, S, G, h, bs, nb, offs,
+                             cls, cuda)
+    _check_history_case(spec_verify, spec_verify_plain, args, sc, kw, dtype,
+                        int8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,S,G,h,kw", [
+    (4, 2048, 2, 256, dict(causal=True, window=1024)),   # gemma3 local
+    (4, 2048, 2, 256, dict(causal=True, window=1024, sink=128)),
+    (4, 300, 2, 256, dict(causal=True)),                 # ragged tiles
+    (2, 333, 2, 256, dict(causal=False, window=100, sink=16)),
+    (1, 448, 48, 128, dict(causal=True)),                # granite
+    (1, 77, 48, 128, dict(causal=True, window=40, sink=8))])
+def test_flash_prefill_wide_shapes_match_plain(cuda, dtype, N, S, G, h, kw):
+    rng = np.random.default_rng(S + G + h + len(kw))
+    q = _rand(rng, (N, S * G, h), dtype, cuda)
+    k = _rand(rng, (N, S, h), dtype, cuda)
+    v = _rand(rng, (N, S, h), dtype, cuda)
+    n0 = flash_prefill.launches
+    got = flash_prefill(q, k, v, **kw)
+    assert flash_prefill.launches == n0 + 1 and got.dtype == dtype
+    torch.cuda.synchronize()
+    want = flash_prefill_plain(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), want.float(), **TOL_DENSE[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K,G,h", WIDE + [(4, 16, 128), (1, 3, 256)])
+def test_block_topk_wide_shapes_match_plain_and_selection(cuda, dtype, K, G,
+                                                          h):
+    """Scores against the plain version (a kv head's h 256 row spans two
+    passes of the warp), then the fused select exactly against
+    select_kv_blocks on its own scores."""
+    rng = np.random.default_rng(K * 10 + G + h)
+    bs, nb = 16, 144
+    lens = [1, 100, 1000, 2048, 2300, 17]
+    B, N = len(lens), len(lens) * nb + 1
+    q = _rand(rng, (B, K, G, h), dtype, cuda)
+    kmin = _rand(rng, (N, K, h), torch.float32, cuda)
+    kmax = kmin + _rand(rng, (N, K, h), torch.float32, cuda).relu()
+    kmin[0] = kmax[0] = 1e4
+    tables = _tables(rng, B, nb, N, cuda)
+    for b, n in enumerate(lens):
+        tables[b, -(-n // bs):] = 0
+    ln = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    got = block_topk_scores(q, kmin, kmax, tables, ln, block_size=bs)
+    torch.cuda.synchronize()
+    want = block_topk_scores_plain(q, kmin, kmax, tables, ln, block_size=bs)
+    neg = want == -1e30
+    assert torch.equal(got[neg], want[neg]) and not (got[~neg] == -1e30).any()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+    kw = dict(k_static=36, frac=0.25, sink_blocks=1, recent_blocks=2)
+    sel = block_topk_select(q, kmin, kmax, tables, ln, block_size=bs, **kw)
+    ref = select_kv_blocks(sel[0], tables, ln, block_size=bs, **kw)
+    for a, b in zip(sel[1:5], ref):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_head_dims_outside_the_kernels_raise(cuda):
+    """h = 512 (and 96) is in no kernel's list: every attention wrapper
+    raises on the card, nothing falls back."""
+    tb = torch.ones((1, 1), dtype=torch.int32, device=cuda)
+    one = torch.ones(1, dtype=torch.int32, device=cuda)
+    for h in (96, 512):
+        q = torch.zeros((1, 1, 2, h), device=cuda)
+        kp = torch.zeros((2, 1, 16, h), device=cuda)
+        with pytest.raises(ValueError):
+            paged_decode(q, kp, kp, tb, one)
+        with pytest.raises(ValueError):
+            sink_decode(q, kp[:1], kp[:1], one)
+        with pytest.raises(ValueError):
+            flash_prefill(torch.zeros((1, 8, h), device=cuda),
+                          torch.zeros((1, 4, h), device=cuda),
+                          torch.zeros((1, 4, h), device=cuda))
+        qc = torch.zeros((1, 1, 4, h), device=cuda)
+        kn = torch.zeros((1, 1, 2, h), device=cuda)
+        with pytest.raises(ValueError):
+            paged_prefill(qc, kn, kn, kp, kp, tb, 0, 2)
+        with pytest.raises(ValueError):
+            spec_verify(qc, kn, kn, kp, kp, tb, 0, 2)
+        with pytest.raises(ValueError):
+            block_topk_scores(q, torch.zeros((2, 1, h), device=cuda),
+                              torch.zeros((2, 1, h), device=cuda), tb, one,
+                              block_size=16)

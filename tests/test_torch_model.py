@@ -152,12 +152,27 @@ def test_unsupported_configs_raise():
     with pytest.raises(NotImplementedError):
         TLM.build(tcfg.with_updates(omniattn_topk_blocks=2, attn_period=2),
                   pattern=[0, 0], device="cpu")
+    # the registry: qwen3-moe (and the other decoders the stack models) is
+    # registered with the reference's configuration; an SSM stack is not
+    import dataclasses
+
+    from repro.configs import get_config as j_get_config
     from repro_torch.configs import get_config
+    assert dataclasses.asdict(get_config("qwen3-moe-235b-a22b")) == \
+        dataclasses.asdict(j_get_config("qwen3-moe-235b-a22b"))
     with pytest.raises(NotImplementedError):            # not registered
-        get_config("qwen3-moe-235b-a22b")
-    # MoE serves, but not with online top-k
+        get_config("mamba2-130m")
+    # MoE serves, with online top-k too: the model's selection plan is the
+    # reference's (tests/test_torch_compositions.py holds the served
+    # streams to the JAX Server)
+    from repro.models import LM as JLM
+    from repro.serving.sparsity import SparsityController as JSC
+    from repro_torch.serving.sparsity import SparsityController as TSC
     mcfg = t_reduced_config("qwen2-moe-a2.7b")
     TLM.build(mcfg, pattern=[0, 0], device="cpu")
-    with pytest.raises(NotImplementedError):
-        TLM.build(mcfg.with_updates(omniattn_topk_blocks=2), pattern=[0, 0],
-                  device="cpu")
+    tk = TLM.build(mcfg.with_updates(omniattn_topk_blocks=2), pattern=[0, 0],
+                   device="cpu")
+    jk = JLM.build(reduced_config("qwen2-moe-a2.7b").with_updates(
+        omniattn_topk_blocks=2), local_mesh_ctx(), pattern=[0, 0])
+    assert dataclasses.asdict(TSC.from_model(tk.cfg, tk.plan, 8, 12).plan) \
+        == dataclasses.asdict(JSC.from_model(jk.cfg, jk.plan, 8, 12).plan)

@@ -288,9 +288,51 @@ def test_placement_cfg_override_drives_scheduled_migrations(moe_servers):
     tsrv.kv_arena.pool.check_invariants(arena=tsrv.kv_arena)
 
 
-def test_speculation_with_moe_layers_raises():
-    from repro_torch.serving.spec import SpecConfig
-    tcfg = t_reduced_config("qwen2-moe-a2.7b")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        TServer(tcfg, TServerConfig(**SCFG, spec=SpecConfig(k=2)),
-                pattern=[0, 0], device="cpu")
+def test_speculation_with_moe_layers_raises(moe_servers):
+    """Speculation with MoE layers, once refused, now serves as the
+    reference serves it: on the reference's weights the port's spec server
+    gives the JAX spec server's streams, draft counts and drained expert
+    counts at every monitor tick (a verify step routes and counts every
+    window row of a live slot, rejected drafts included), and its greedy
+    streams equal spec off."""
+    from repro.serving.spec import SpecConfig
+    from repro_torch.serving.spec import SpecConfig as TSpecConfig
+    cfg = moe_servers[0]
+    tcfg = t_reduced_config("qwen2-moe-a2.7b").with_updates(
+        compute_dtype="float32", param_dtype="float32")
+    mesh = MeshCtx(jax.make_mesh((1, 1), ("data", "model"),
+                                 axis_types=(AxisType.Auto,) * 2))
+    jsrv = Server(cfg, ServerConfig(**SCFG, spec=SpecConfig(k=2),
+                                    oas=OASConfig(defer_window=0.0)),
+                  mesh=mesh, pattern=[0, 0])
+    tparams = bridge.params_from_numpy(jax.tree.map(np.asarray, jsrv.params),
+                                       tcfg, jsrv.lm.plan, device="cpu")
+    rng = np.random.default_rng(3)
+    gram = tuple(int(t) for t in rng.integers(0, 64, 5))
+    prompts = [gram * 5, tuple(int(t) for t in rng.integers(0, 512, 9)),
+               gram * 3 + (7,)]
+    js = jsrv.run([(p, SamplingParams(max_tokens=10)) for p in prompts],
+                  max_wall_s=600)
+    outs = {}
+    for name, spec in (("on", TSpecConfig(k=2)), ("off", None)):
+        tsrv = TServer(tcfg, TServerConfig(**SCFG, spec=spec, oas=TOASConfig(
+            defer_window=0.0)), pattern=[0, 0], params=tparams, device="cpu")
+        s = tsrv.run([(p, TSamplingParams(max_tokens=10)) for p in prompts],
+                     max_wall_s=600)
+        outs[name] = ({r.rid: tuple(r.output_tokens)
+                       for r in tsrv.metrics.done}, s, tsrv)
+    tout, ts, tsrv = outs["on"]
+    jout = {r.rid: tuple(r.output_tokens) for r in jsrv.metrics.done}
+    assert len(tout) == len(prompts) and tout == jout == outs["off"][0]
+    for key in ("spec_drafted", "spec_accepted", "spec_verifies"):
+        assert ts[key] == js[key], key
+    assert ts["spec_accepted"] > 0
+    jw, tw = _window(jsrv), _window(tsrv)
+    assert len(tw) == len(jw) >= 1
+    for a, b in zip(tw, jw):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(tsrv.decodes[0].take_moe_counts(),
+                                  jsrv.decodes[0].take_moe_counts())
+    ds = ts["decode_stats"][0]
+    assert ds["host_fetches"] == ds["steps"] > 0
+    tsrv.kv_arena.pool.check_invariants(arena=tsrv.kv_arena)

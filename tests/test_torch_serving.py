@@ -200,14 +200,20 @@ def test_later_slice_options_raise():
     with pytest.raises(TypeError):
         TServer(tcfg, TServerConfig(quant=object()), pattern=[0, 0],
                 device="cpu")
-    # speculation and online top-k serve on paged KV only (the reference
-    # refuses speculation on the slot-dense layout too)
+    # speculation serves on paged KV only (the reference refuses it on the
+    # slot-dense layout too); online top-k knobs on the slot-dense layout
+    # are ignored, as the reference ignores them (no controller: it selects
+    # arena blocks) — tests/test_torch_compositions.py holds the streams
     with pytest.raises(ValueError):
         TServer(tcfg, TServerConfig(spec=TSpecConfig(k=2), **dense),
                 pattern=[0, 0], device="cpu")
-    with pytest.raises(NotImplementedError):
+    jcfg = reduced_config("qwen2-1.5b").with_updates(n_layers=2)
+    topk_dense = [
         TServer(tcfg.with_updates(omniattn_topk_blocks=2),
-                TServerConfig(**dense), pattern=[0, 0], device="cpu")
+                TServerConfig(**dense), pattern=[0, 0], device="cpu"),
+        Server(jcfg.with_updates(omniattn_topk_blocks=2),
+               ServerConfig(**dense), pattern=[0, 0])]
+    assert all(s.decodes[0].sparsity is None for s in topk_dense)
     with pytest.raises(TypeError):
         TServer(tcfg, TServerConfig(spec=object()), pattern=[0, 0],
                 device="cpu")

@@ -1,4 +1,6 @@
-"""The grid plans of the port's kernels: `decode_splits` (paged_decode),
+"""The grid plans of the port's kernels: `decode_splits` and
+`decode_row_groups` (paged_decode and sink_decode: splits of the table and
+row groups of a GQA group wider than a CTA holds),
 `prefill_splits` (the paged-history routine of paged_prefill and
 spec_verify), `sink_splits` (sink_decode), `gmm_ctas` (moe_gmm) and
 `topk_cluster_plan` (block_topk's cluster per slot).
@@ -18,8 +20,9 @@ from repro_torch.kernels.block_topk import (TOPK_MAX_CLUSTER, TOPK_MIN_SHARE,
                                             TOPK_NB_MAX, topk_cluster_plan)
 from repro_torch.kernels.moe_gmm import (GMM_COLS, GMM_CTAS_PER_SM, GMM_ROWS,
                                          gmm_ctas)
-from repro_torch.kernels.paged_decode import (DECODE_WARPS, decode_splits,
-                                              prefill_splits)
+from repro_torch.kernels.paged_decode import (DECODE_ROW_FLOATS, DECODE_WARPS,
+                                              decode_row_groups,
+                                              decode_splits, prefill_splits)
 from repro_torch.kernels.paged_prefill import PREFILL_ROWS
 from repro_torch.kernels.sink_decode import SINK_CHUNK, sink_splits
 from repro_torch.kernels.spec_verify import VERIFY_ROWS
@@ -250,3 +253,62 @@ def test_topk_plan_depends_on_shapes_only():
 def test_topk_plan_rejects_tables_past_limit(nb):
     with pytest.raises(ValueError):
         topk_cluster_plan(nb)
+
+
+# (G, h): one group at its largest (16 rows at h 128, 8 at h 256), one row
+# past it, granite-34b's 48 rows over one kv head, gemma3-4b's 2 at h 256,
+# the main path's 6, qwen3-moe's 16 and qwen3-32b's 8, groups at h 32/64,
+# a group far past the row limit
+ROW_GROUP_SHAPES = [(16, 128), (17, 128), (33, 128), (48, 128), (2, 256),
+                    (8, 256), (9, 256), (48, 256), (6, 128), (8, 128),
+                    (1, 32), (64, 32), (65, 32), (33, 64), (300, 256)]
+
+
+@pytest.mark.parametrize("G,h", ROW_GROUP_SHAPES)
+def test_every_query_row_in_exactly_one_row_group(G, h):
+    n_grp, rows = decode_row_groups(G, h)
+    covered = [0] * G
+    for gi in range(n_grp):
+        lo, hi = gi * rows, min((gi + 1) * rows, G)
+        assert lo < hi, f"row group {gi} holds no row"
+        for r in range(lo, hi):
+            covered[r] += 1
+    assert covered == [1] * G
+    # a CTA keeps h/32 accumulators of each of its rows: at most 2048 / h
+    # rows (csrc dec_gmax), and no more groups than the limit needs
+    assert DECODE_ROW_FLOATS == 2048
+    assert 1 <= rows <= DECODE_ROW_FLOATS // h
+    assert n_grp == -(-G // (DECODE_ROW_FLOATS // h))
+    # balanced and none empty: the last group holds 1..rows rows
+    assert 0 < G - (n_grp - 1) * rows <= rows
+
+
+@pytest.mark.parametrize("B,K,nb,n_sm", SHAPES[:6])
+@pytest.mark.parametrize("G,h", [(48, 128), (2, 256), (17, 128)])
+def test_row_groups_grid_within_card_limits(B, K, nb, n_sm, G, h):
+    """The decode grid (B, K·n_grp, n_split): the split plan takes the row
+    groups as further kv heads, so its CTA budget counts them."""
+    n_grp, _ = decode_row_groups(G, h)
+    n, per = decode_splits(B, K * n_grp, nb, n_sm)
+    assert K * n_grp <= 65535 and 1 <= n <= 65535
+    assert B * K * n_grp * n <= max(2 * n_sm + B * K * n_grp - 1,
+                                    B * K * n_grp)
+    assert n * per >= nb and (n - 1) * per < nb
+
+
+def test_row_groups_depend_on_shapes_only():
+    assert list(inspect.signature(decode_row_groups).parameters) == [
+        "G", "h"]
+    assert [decode_row_groups(*s) for s in ROW_GROUP_SHAPES] == \
+        [decode_row_groups(*s) for s in ROW_GROUP_SHAPES]
+    # this slice's shapes: granite's group in three CTAs of 16 rows, the
+    # boundaries balanced, gemma3's groups in one CTA
+    assert decode_row_groups(48, 128) == (3, 16)
+    assert decode_row_groups(17, 128) == (2, 9)
+    assert decode_row_groups(33, 128) == (3, 11)
+    assert decode_row_groups(2, 256) == (1, 2)
+    assert decode_row_groups(9, 256) == (2, 5)
+    assert decode_row_groups(6, 128) == (1, 6)     # the main path: unchanged
+    # granite's decode on a 132-SM card: six slots over phase 3's 32-entry
+    # tables, three row groups
+    assert decode_splits(6, 1 * 3, 32, 132) == (8, 4)
