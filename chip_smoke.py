@@ -37,10 +37,15 @@ Phases (any failure raises, so the script exits non-zero):
      float32 and bfloat16, the int8 paths there, the decode routine's
      row-group edges (G 16/17/33 at h 128, 8/9/48 at h 256), block_topk's
      fused select exactly at both and at qwen3-moe's (K 4, G 16), and
-     moe_gmm at qwen3-moe's 129 slots of 4,096 x 1,536 (top-8); float32
-     bounds by operations are reckoned at the 3xTF32 rate (165 TF/s). It
-     prints each library's most registers, its h = 256 instances' and any
-     spill (ptxas -v);
+     moe_gmm at qwen3-moe's 129 slots of 4,096 x 1,536 (top-8); and phase
+     14's jamba shapes in bfloat16 (`check_jamba_kernels`): paged_decode
+     and paged_prefill at (K 8, G 8, h 128), paged_decode also over the
+     ring tables, flash_prefill over a 4,608-token prompt and sink_decode
+     over the 4,224-slot ring, moe_gmm at 17 slots of 8,192 x 24,576
+     (top-2) for a decode step and a 128-token chunk; float32 bounds by
+     operations are reckoned at the 3xTF32 rate (165 TF/s). It prints each
+     library's most registers, its h = 256 instances' and any spill
+     (ptxas -v);
   3. serve the bench's shared-prefix workload on full-width qwen2-1.5b
      (28 layers, float32, every layer full attention) through
      `Server.generate`, with the launch counters zeroed just before and
@@ -56,8 +61,8 @@ Phases (any failure raises, so the script exits non-zero):
      sparsity stats) and with speculative decoding (the ring commit), and
      int8 arenas alone, with speculation and with online top-k (summary and
      scale invariants on both devices); and the reduced configs of phase
-     13's four decoders chunked, qwen3-moe also with speculation and with
-     online top-k (`cross_check_archs`);
+     13's four decoders and phase 14's mamba2 and jamba chunked, qwen3-moe
+     also with speculation and with online top-k (`cross_check_archs`);
   5. serve full-width qwen2-1.5b under the default OmniAttn pattern
      (`pattern=None`: 21 layers sink 128 + recent 4096, 7 full) with
      whole-prompt prefill, once with paged KV (flash_prefill + paged_decode)
@@ -152,8 +157,29 @@ Phases (any failure raises, so the script exits non-zero):
      (paged_prefill == chunks x full layers, paged_decode == steps x
      layers, ...) and its hot-loop replays asserted. The kernels line's
      `h256`, `g48` and `qwen3moe` records carry these shapes' phase 2
-     times and phase 13 launches.
-Every serving phase of 3, 5-9 and 11-13 serves under CUDA-graph capture, the
+     times and phase 13 launches;
+ 14. serve the SSM and hybrid stacks (`serve_mamba2`, `serve_jamba`):
+     mamba2-130m as published (24 Mamba-2 layers, float32, no kernel of
+     the port: its launches stay 0) on (a) phase 3's traffic chunked
+     paged, prefix reuse on and off (streams equal), captured and with
+     capture=False (streams bit for bit; one decode step's and one
+     chunk's logits replayed against eager: difference 0; their device
+     time split into the SSD, the GEMMs and the rest), (b) topk-long's
+     six 3,968-token prompts chunked paged against whole-prompt
+     slot-dense (phase 5's near-tie rule), (c) speculation refused and
+     int8 arenas degraded to float ((a)'s streams); then
+     jamba-1.5-large-398b at full width in bfloat16, its first 5 layers
+     (m, m+moe, m, m+moe, attn; ~50 GB), on (d) phase 3's traffic with
+     phase 8's monitor knobs, reuse on and off (streams equal) and on
+     int8 arenas: paged_prefill == chunks x 1, paged_decode == steps x
+     1, moe_gmm == 3 x 2 x (chunks + steps), each drain == top_k x 2 x
+     the decode tokens since the last; (e) the default pattern (its
+     attention layer sink 128 + recent 4,096) on phase 5's traffic,
+     whole-prompt, paged and slot-dense (flash_prefill, paged_decode over
+     the ring runs, sink_decode; streams equal under phase 5's rule with
+     a bfloat16 limit). The kernels line's `jamba` records carry phase
+     2's bfloat16 times and phase 14's launches.
+Every serving phase of 3, 5-9 and 11-14 serves under CUDA-graph capture, the
 default on `cuda`: the decode step, the verify step and the prefill chunk
 are hot-loop entries (`DevicePlacement.hot_loop`), one graph per key
 replayed each step or chunk, and the launch counts above advance by the
@@ -1298,18 +1324,23 @@ def check_dense_kernels(dev, timer, log):
     return rec
 
 
+def slot_rows(dev, S, C, n_tok, k, seed):
+    """n_valid [S] int32 of n_tok tokens routed to k distinct slots each,
+    cut at the capacity C."""
+    rng = np.random.default_rng(seed)
+    nv = np.zeros(S, np.int64)
+    for _ in range(n_tok):
+        nv[rng.choice(S, k, replace=False)] += 1
+    return torch.tensor(np.minimum(nv, C), dtype=torch.int32, device=dev)
+
+
 def moe_gmm_inputs(dev, dtype, S, C, D, F, n_tok, k, seed):
     """The slot buffer one MoE product of the main path sees: n_tok tokens
     routed to k distinct experts each over S slots, the capacity C cutting
     each slot's valid rows; rows past n_valid are zero, as dispatch leaves
     them. Weights at the model's init scale (std 0.02)."""
-    rng = np.random.default_rng(seed)
-    nv = np.zeros(S, np.int64)
-    for _ in range(n_tok):
-        nv[rng.choice(S, k, replace=False)] += 1
-    nv = np.minimum(nv, C)
     g = torch.Generator(device=dev).manual_seed(seed)
-    n_valid = torch.tensor(nv, dtype=torch.int32, device=dev)
+    n_valid = slot_rows(dev, S, C, n_tok, k, seed)
     rows = torch.arange(C, device=dev)[None, :, None] \
         < n_valid.long()[:, None, None]
     x = (torch.randn((S, C, D), generator=g, device=dev) * rows).to(dtype)
@@ -1718,6 +1749,151 @@ def check_wide_kernels(dev, timer, log):
             del x, w, got
         torch.cuda.empty_cache()
     return rec, rec_q
+
+
+# ---- phase 2, continued: jamba-1.5-large-398b's bfloat16 shapes ---------
+# phase 14's served shapes: the attention group (K 8, G 8, h 128) over
+# phase 3's 512-token context (decode lens, a chunk at offset 384), the
+# default pattern's ring (sink 128 + recent 4,096) over phase 5's prompts
+# (one 4,608-token whole prompt, six decode slots over W 4,224), and the
+# expert product over 17 slots of 8,192 x 24,576, top-2 (a decode step of
+# six slots: capacity 8; a 128-token chunk: capacity 32)
+JAMBA_ATTN = (8, 8, 128, 32, [1, 17, 100, 255, 448, 512], 384)
+JAMBA_SLOTS, JAMBA_TOPK = 17, 2
+JAMBA_MOE = {"jamba_decode": (8, 8192, 24576, 6),
+             "jamba_chunk": (32, 8192, 24576, 128)}
+
+
+def check_jamba_kernels(dev, timer, log):
+    """The five kernels jamba's served path launches, at its shapes in
+    bfloat16 (its published dtype), against their plain versions and timed
+    beside the library call and the bound. → {kernel: {"bfloat16_jamba..."
+    : record}}."""
+    from repro_torch.kernels.flash_prefill import (flash_prefill,
+                                                   flash_prefill_plain)
+    from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_plain
+    from repro_torch.kernels.paged_decode import (paged_decode,
+                                                  paged_decode_plain)
+    from repro_torch.kernels.paged_prefill import (paged_prefill,
+                                                   paged_prefill_plain)
+    from repro_torch.kernels.sink_decode import sink_decode, sink_decode_plain
+    dtype, key = torch.bfloat16, "bfloat16_jamba"
+    rec = {n: {} for n in ("paged_decode", "paged_prefill", "flash_prefill",
+                           "sink_decode", "moe_gmm")}
+
+    def cmp(name, got, want, tol=TOL, rows=None):
+        got, want = got.float(), want.float()
+        if rows is not None:
+            got, want = rows(got), rows(want)
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"{name}: non-finite kernel output")
+        torch.testing.assert_close(got, want, **tol[dtype], msg=name)
+        return float((got - want).abs().max())
+
+    def timed(out, k, err, run, plain, lib, bnd, shape, plain_reps=None):
+        out[k] = {"max_abs_err": err, "ms": timer(run),
+                  "plain_ms": timer(plain, reps=plain_reps),
+                  "library_ms": timer(lib), "bound_ms": bnd[0],
+                  "bound_by": bnd[1], "bytes": bnd[2], "flops": bnd[3],
+                  "shape": shape}
+
+    K, G, h, nb, lens, off = JAMBA_ATTN
+    shp = f"K={K} G={G} h={h}"
+    dec = decode_inputs(dev, dtype, 6, K, G, h, 16, nb, 6 * nb + 1, lens, 201)
+    err = cmp("paged_decode jamba", paged_decode(*dec),
+              paged_decode_plain(*dec))
+    timed(rec["paged_decode"], key, err, lambda: paged_decode(*dec),
+          lambda: paged_decode_plain(*dec), sdpa_decode(*dec),
+          decode_bound(dec[0], dec[1], dec[3], dec[4]),
+          f"{shp} B=6 nb={nb} lens={lens}")
+    # the default pattern's decode over the paged ring runs (phase 5's
+    # ring tables)
+    nbr, lens_r = RING_MAIN
+    ring = decode_inputs(dev, dtype, 6, K, G, h, 16, nbr, 6 * nbr + 1,
+                         lens_r, 202)
+    err_r = cmp("paged_decode jamba ring", paged_decode(*ring),
+                paged_decode_plain(*ring))
+    timed(rec["paged_decode"], key + "_ring", err_r,
+          lambda: paged_decode(*ring), lambda: paged_decode_plain(*ring),
+          sdpa_decode(*ring), decode_bound(ring[0], ring[1], ring[3],
+                                           ring[4]),
+          f"{shp} B=6 nb={nbr} lens={lens_r}")
+    log.append(f"paged_decode bfloat16 jamba ({shp}, B=6, nb={nb}): "
+               f"max_abs_err {err:.3g}; over the ring runs (nb={nbr}) "
+               f"{err_r:.3g}")
+    del dec, ring
+    pre = prefill_inputs(dev, dtype, 1, K, 128, G, h, 16, nb, nb + 1, [off],
+                         [128], 203)
+    err = cmp("paged_prefill jamba", paged_prefill(*pre),
+              paged_prefill_plain(*pre))
+    timed(rec["paged_prefill"], key, err, lambda: paged_prefill(*pre),
+          lambda: paged_prefill_plain(*pre), sdpa_prefill(*pre),
+          prefill_bound(pre[0], pre[1], pre[3], pre[5], pre[6], pre[7]),
+          f"{shp} S=128 off={off} nb={nb}")
+    log.append(f"paged_prefill bfloat16 jamba ({shp}, S=128, off={off}): "
+               f"max_abs_err {err:.3g}")
+    del pre
+    g = torch.Generator(device=dev).manual_seed(204)
+    q = torch.randn((K, FLASH_MAIN_S * G, h), generator=g,
+                    device=dev).to(dtype)
+    k, v = (torch.randn((K, FLASH_MAIN_S, h), generator=g, device=dev)
+            .to(dtype) for _ in range(2))
+    err = cmp("flash_prefill jamba", flash_prefill(q, k, v, causal=True),
+              flash_prefill_plain(q, k, v, causal=True), tol=TOL_DENSE)
+    timed(rec["flash_prefill"], key, err,
+          lambda: flash_prefill(q, k, v, causal=True),
+          lambda: flash_prefill_plain(q, k, v, causal=True),
+          sdpa_flash(q, k, v, True, 0, 0), flash_bound(q, k, True, 0, 0),
+          f"{shp} S={FLASH_MAIN_S} causal", plain_reps=3)
+    log.append(f"flash_prefill bfloat16 jamba ({shp}, S={FLASH_MAIN_S}, "
+               f"causal): max_abs_err {err:.3g}")
+    del q, k, v
+    W, ts = SINK_MAIN[0]
+    q = torch.randn((6, K, G, h), generator=g, device=dev).to(dtype)
+    kc, vc = (torch.randn((6, W, K, h), generator=g, device=dev).to(dtype)
+              .transpose(1, 2) for _ in range(2))
+    t = torch.tensor(ts, dtype=torch.int32, device=dev)
+    sa = (q, kc, vc, t)
+    err = cmp("sink_decode jamba", sink_decode(*sa), sink_decode_plain(*sa),
+              tol=TOL_DENSE)
+    timed(rec["sink_decode"], key, err, lambda: sink_decode(*sa),
+          lambda: sink_decode_plain(*sa), sdpa_sink(*sa),
+          sink_bound(q, kc, t), f"{shp} B=6 W={W} t={ts}")
+    log.append(f"sink_decode bfloat16 jamba ({shp}, B=6, W={W}, t={ts}): "
+               f"max_abs_err {err:.3g}")
+    del q, kc, vc, sa
+    # the expert product: one weight stream of 17 x 8,192 x 24,576 (6.8 GB)
+    # shared by the decode and the chunk shapes
+    D, F = JAMBA_MOE["jamba_decode"][1:3]
+    g = torch.Generator(device=dev).manual_seed(205)
+    w = torch.empty((JAMBA_SLOTS, D, F), dtype=dtype, device=dev)
+    for i in range(JAMBA_SLOTS):
+        w[i] = (torch.randn((D, F), generator=g, device=dev) * 0.02).to(dtype)
+    for mk, (C, D, F, n_tok) in JAMBA_MOE.items():
+        nv = slot_rows(dev, JAMBA_SLOTS, C, n_tok, JAMBA_TOPK, 206)
+        rows = torch.arange(C, device=dev)[None, :, None] \
+            < nv.long()[:, None, None]
+        x = (torch.randn((JAMBA_SLOTS, C, D), generator=g, device=dev)
+             * rows).to(dtype)
+        got = moe_gmm(x, w, nv)
+        torch.cuda.synchronize()
+        err = cmp(f"moe_gmm {mk}", got, moe_gmm_plain(x, w, nv))
+        for s_, n in enumerate(nv.cpu().tolist()):
+            if got[s_, n:].any():
+                raise AssertionError(f"moe_gmm {mk}: rows past n_valid not "
+                                     f"zero")
+        timed(rec["moe_gmm"], f"bfloat16_{mk}", err,
+              lambda: moe_gmm(x, w, nv), lambda: moe_gmm_plain(x, w, nv),
+              lambda: torch.bmm(x, w), moe_gmm_bound(x, w, nv),
+              f"S={JAMBA_SLOTS} C={C} D={D} F={F}, {int((nv > 0).sum())} "
+              f"live slots, {int(nv.sum())} rows", plain_reps=5)
+        log.append(f"moe_gmm bfloat16 {mk} x [{JAMBA_SLOTS}, {C}, {D}] w "
+                   f"[{JAMBA_SLOTS}, {D}, {F}], {int((nv > 0).sum())} live "
+                   f"slots: max_abs_err {err:.3g}")
+        del x, got
+    del w
+    torch.cuda.empty_cache()
+    return rec
 
 
 def check_select_exact(ta, nb, dn) -> str:
@@ -2570,21 +2746,25 @@ def cross_check_reduced(dev, log):
             "archs": cross_check_archs(dev, log)}
 
 
-def cross_check_archs(dev, log):
+def cross_check_archs(dev, log, archs=("qwen3-32b", "granite-34b",
+                                        "gemma3-4b", "qwen3-moe-235b-a22b",
+                                        "mamba2-130m",
+                                        "jamba-1.5-large-398b")):
     """Phase 4, continued: the reduced configs of phase 13's four decoders
     (the reference's `reduced_config`: qwen3's qk_norm, granite's single kv
     head, gemma3's 12 layers with 32-token windows, qwen3-moe's norm_topk
-    experts) served chunked on the card and on the CPU from the same
-    weights: greedy streams identical; qwen3-moe also with speculation and
-    with online top-k (the two compositions with MoE layers)."""
+    experts) and of phase 14's SSM stacks (mamba2's 2 Mamba-2 layers,
+    jamba's 16 hybrid layers) served chunked on the card and on the CPU from
+    the same weights: greedy streams identical; qwen3-moe also with
+    speculation and with online top-k (the two compositions with MoE
+    layers; speculation refuses SSM layers)."""
     from repro_torch.configs import reduced_config
     from repro_torch.core.proxy import OASConfig, SamplingParams
     from repro_torch.models.lm import LM
     from repro_torch.serving import DevicePlacement, Server, ServerConfig
     from repro_torch.serving.spec import SpecConfig
     out = {}
-    for arch in ("qwen3-32b", "granite-34b", "gemma3-4b",
-                 "qwen3-moe-235b-a22b"):
+    for arch in archs:
         cfg = reduced_config(arch).with_updates(compute_dtype="float32",
                                                 param_dtype="float32")
         pattern = [0] * cfg.n_layers
@@ -2593,7 +2773,7 @@ def cross_check_archs(dev, log):
         prompts, _ = workload(cfg.vocab_size, n=6, seed=10)
         prompts = [q[-60:] for q in prompts]
         cases = [("plain", cfg, None)]
-        if cfg.moe.n_experts:
+        if cfg.moe.n_experts and cfg.family == "moe":
             cases += [("spec", cfg, SpecConfig(k=2)),
                       ("topk", cfg.with_updates(omniattn_topk_frac=0.5),
                        None)]
@@ -2829,14 +3009,21 @@ def build_topk_server(cfg, dev, params=None, placement=None, **topk):
     """Phase 3's knobs at max_len 4608 with a 2016-block pool; `topk` sets
     cfg.omniattn's budget (omniattn_topk_frac=..., ...); `placement` as
     in `build_server`."""
+    return long_server(cfg.with_updates(**topk), dev, params,
+                       placement=placement)
+
+
+def long_server(cfg, dev, params, placement=None, **knobs):
+    """topk-long's server (phase 3's knobs at max_len 4,608 with a
+    2,016-block pool) with further ServerConfig knobs."""
     from repro_torch.core.proxy import OASConfig
     from repro_torch.serving import Server, ServerConfig
-    scfg = ServerConfig(decode_slots=6, max_len=P6_MAX_LEN, chunk_tokens=128,
-                        prefill_tick_budget=512, kv_blocks=P6_BLOCKS,
-                        kv_block_size=16, prefix_reuse=True,
-                        oas=OASConfig(defer_window=0.0))
-    return Server(cfg.with_updates(**topk), scfg, pattern=[0] * cfg.n_layers,
-                  params=params, seed=0, device=dev, placement=placement)
+    scfg = ServerConfig(**(dict(
+        decode_slots=6, max_len=P6_MAX_LEN, chunk_tokens=128,
+        prefill_tick_budget=512, kv_blocks=P6_BLOCKS, kv_block_size=16,
+        prefix_reuse=True, oas=OASConfig(defer_window=0.0)) | knobs))
+    return Server(cfg, scfg, pattern=[0] * cfg.n_layers, params=params,
+                  seed=0, device=dev, placement=placement)
 
 
 def serve_topk(dev, log, cfg, weights=None):
@@ -3267,17 +3454,17 @@ def moe_full_config():
     return cfg.with_updates(n_layers=P8_LAYERS)
 
 
-def moe_workload(vocab):
+def moe_workload(vocab, new=P8_NEW):
     """Phase 3's traffic: the shared-prefix workload plus two seeded
-    sampled requests on the same prefix, P8_NEW new tokens each."""
+    sampled requests on the same prefix, `new` new tokens each."""
     from repro_torch.core.proxy import SamplingParams
     prompts, base = workload(vocab)
     rng = np.random.default_rng(11)
     prompts += [base + tuple(int(t) for t in rng.integers(0, vocab, 64))
                 for _ in range(2)]
-    params = [SamplingParams(max_tokens=P8_NEW)] * 12 + [
+    params = [SamplingParams(max_tokens=new)] * 12 + [
         SamplingParams(temperature=0.9, top_k=64, top_p=0.95, seed=900 + i,
-                       max_tokens=P8_NEW) for i in (12, 13)]
+                       max_tokens=new) for i in (12, 13)]
     return prompts, params
 
 
@@ -3808,6 +3995,370 @@ def serve_archs(dev, log, archs=("gemma3-4b", "qwen3-32b", "granite-34b",
     return out
 
 
+# ---- phase 14: the SSM and hybrid stacks -------------------------------
+# jamba-1.5-large-398b in bfloat16, cut to its first 5 layers (m, m+moe, m,
+# m+moe, attn: ~50 GB of weights; one whole 8-layer period is ~95 GB)
+P14_JAMBA_DEPTH = 5
+# phase 5's near-tie limit for bfloat16 logits: two of their steps at the
+# top logit's magnitude of jamba's seed-0 weights
+BF16_TIE = 2 ** -4
+
+
+def mamba2_config():
+    """mamba2-130m as published (24 Mamba-2 layers, d_model 768, 24 SSM heads
+    of 64, d_state 128, vocab 50,280, tied) in float32."""
+    from repro_torch.configs import get_config
+    cfg = get_config("mamba2-130m").with_updates(compute_dtype="float32",
+                                                 param_dtype="float32")
+    s = cfg.ssm
+    assert (cfg.n_layers, cfg.d_model, cfg.vocab_size, s.d_state, s.head_dim,
+            s.expand, s.conv_width) == (24, 768, 50280, 128, 64, 2, 4)
+    return cfg
+
+
+def jamba_config():
+    """jamba-1.5-large-398b at full width in its published bfloat16, cut to
+    P14_JAMBA_DEPTH layers."""
+    from repro_torch.configs import get_config
+    cfg = get_config("jamba-1.5-large-398b")
+    m = cfg.moe
+    assert (cfg.compute_dtype, cfg.param_dtype) == ("bfloat16", "bfloat16")
+    assert (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+            cfg.d_ff, cfg.vocab_size, m.n_experts, m.top_k, m.d_ff_expert,
+            m.moe_every) == (8192, 64, 8, 128, 24576, 65536, 16, 2, 24576, 2)
+    return cfg.with_updates(n_layers=P14_JAMBA_DEPTH)
+
+
+def state_bytes_per_slot(cfg) -> int:
+    """Bytes of one slot's Mamba-2 entries over the stack (state and
+    convolution rows)."""
+    from repro_torch.models.stack import StackPlan, mamba_cache_shapes
+    one = sum(math.prod(shp) * dt.itemsize
+              for shp, dt in mamba_cache_shapes(cfg, 1).values())
+    return one * sum(1 for s in StackPlan.from_config(
+        cfg, [0] * cfg.n_layers).all_specs() if s.kind == "mamba")
+
+
+def ssm_captured_checks(srv, dev, timer):
+    """mamba2's captured decode step (six slots) and 128-row chunk (100
+    real rows at offset 192) against eager on the same inputs, from seeded
+    random state and convolution rows that each call first restores (inside
+    the graph), so every call reads the same state: the largest logits
+    difference of each, the device time of a replay of each, and that time
+    split into the SSD, the GEMMs (the five projections of every layer and
+    the head) and the rest, each part at the call's shapes for every layer
+    captured as a graph of its own and timed by a replay, as the step
+    is."""
+    from repro_torch.models import ssd as ssd_mod
+    from repro_torch.models.common import rms_norm
+    from repro_torch.models.stack import (alloc_paged_private_cache,
+                                          alloc_prefill_private_cache)
+    from repro_torch.serving import DevicePlacement
+    lm, cfg, params = srv.lm, srv.lm.cfg, srv.params
+    assert all(s.kind == "mamba" for s in lm.plan.all_specs())
+    g = torch.Generator(device=dev)
+    g.manual_seed(7)
+    V, D = cfg.vocab_size, cfg.d_model
+    ssm = cfg.ssm
+    d_in = ssm.expand * D
+    nh, N = d_in // ssm.head_dim, ssm.d_state
+
+    def randomized(cache):
+        saved = []
+        for e in cache["layers"]:
+            for t in e.values():
+                t.copy_(torch.randn(t.shape, generator=g, device=dev))
+                saved.append((t, t.clone()))
+        return saved
+
+    place = DevicePlacement.of(dev)
+
+    def graph_ms(part, name):
+        """Device ms of one replay of `part` captured as a hot-loop entry
+        (its results are discarded)."""
+        done = torch.zeros(1, device=dev)
+
+        def body(key, done):
+            part()
+            return done
+        e = place.hot_loop(body, name=name)
+        e((name,), (done,))
+        e((name,), (done,))                   # capture, then one replay
+        return timer(lambda: e((name,), (done,)))
+
+    out = {}
+    for what, B, S in (("step", 6, 1), ("chunk", 1, 128)):
+        if what == "step":
+            cache = alloc_paged_private_cache(cfg, lm.plan, B, 512, 16, dev)
+        else:
+            cache = alloc_prefill_private_cache(cfg, lm.plan, 512, dev)
+            cache["pos"] = torch.tensor(192, dtype=torch.int32, device=dev)
+        saved = randomized(cache)
+        toks = torch.randint(0, V, (B, S), generator=g, device=dev,
+                             dtype=torch.int32)
+        pos = torch.tensor([200, 37, 101, 250, 5, 133][:B],
+                           dtype=torch.int32, device=dev)[:, None]
+        cl = torch.tensor(100, dtype=torch.int32, device=dev)
+        res = torch.empty((B, V), dtype=torch.float32, device=dev)
+
+        def call(key, res, cache=cache, saved=saved, toks=toks, pos=pos,
+                 cl=cl, what=what):
+            for t, t0 in saved:
+                t.copy_(t0)
+            if what == "step":
+                logits = lm.decode(params, cache, toks, pos)[1]
+            else:
+                logits = lm.prefill_resume(params, toks, cache,
+                                           chunk_len=cl)[1]
+            return res.copy_(logits)
+
+        entry = place.hot_loop(call, name=f"check.{what}")
+        key = (what,)
+        eager = entry(key, (res,)).clone()
+        entry(key, (res,))                    # capture, then one replay
+        torch.cuda.synchronize()
+        assert dev.type != "cuda" or entry.replays[key] == 1
+        diff = float((res - eager).abs().max())
+        total = timer(lambda: entry(key, (res,)))
+        # the parts at this call's shapes, for every layer
+        hid = torch.randn((B, S, D), generator=g, device=dev)
+        y = torch.randn((B, S, d_in), generator=g, device=dev)
+        last = rms_norm(hid[:, -1], params["final_norm"])
+
+        def gemms():
+            for p in params["layers"]:
+                for w in ("w_z", "w_x", "w_bc", "w_dt"):
+                    hid @ p[w]
+                y @ p["out_proj"]
+            last @ params["embed"].t()
+        xh = torch.randn((B, S, nh, ssm.head_dim), generator=g, device=dev)
+        dt = torch.rand((B, S, nh), generator=g, device=dev) * 0.1
+        As = [-torch.exp(p["A_log"].float()) for p in params["layers"]]
+        Bm, Cm = (torch.randn((B, S, N), generator=g, device=dev)
+                  for _ in range(2))
+        st = torch.randn((B, nh, ssm.head_dim, N), generator=g, device=dev)
+
+        def ssds():
+            for A in As:
+                if what == "step":
+                    ssd_mod.ssd_decode_step(st, xh[:, 0], dt[:, 0], A,
+                                            Bm[:, 0], Cm[:, 0])
+                else:
+                    ssd_mod.ssd_chunked(xh, dt, A, Bm, Cm, ssm.chunk, st)
+        gemm = graph_ms(gemms, f"check.{what}.gemm")
+        ssd = graph_ms(ssds, f"check.{what}.ssd")
+        out[what] = {"logits_max_abs_diff": diff, "ms": total,
+                     "ssd_ms": ssd, "gemm_ms": gemm,
+                     "rest_ms": total - ssd - gemm,
+                     "ssd_share": ssd / total}
+        del entry, cache, saved
+    return out
+
+
+def serve_mamba2(dev, log, timer):
+    """Phase 14 on mamba2-130m at full width in float32: (a) phase 3's
+    traffic chunked paged, prefix reuse on and off, captured and eager;
+    (b) topk-long's six 3,968-token prompts chunked paged against
+    whole-prompt slot-dense; (c) speculation refused, int8 arenas degraded
+    to float. No kernel of the port runs: its launches must stay 0."""
+    from repro_torch.core.proxy import SamplingParams
+    from repro_torch.serving import DevicePlacement
+    from repro_torch.serving.quant import QuantConfig
+    from repro_torch.serving.spec import SpecConfig
+    t0 = time.monotonic()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = mamba2_config()
+    params, gb = init_weights(cfg, dev)
+    rec = {"weights_gb": gb, "state_bytes_per_slot": state_bytes_per_slot(
+        cfg)}
+    prompts, sp = moe_workload(cfg.vocab_size, new=4)
+    warm = (workload(cfg.vocab_size, seed=8)[0], SamplingParams(max_tokens=4))
+
+    def no_launch(r, what):
+        if dev.type == "cuda":
+            assert not any(r["launches"].values()), (what, r["launches"])
+
+    # (a) reuse on and off, captured; then eager
+    runs = {}
+    for name, reuse in (("a_reuse_on", True), ("a_reuse_off", False)):
+        srv = build_server(cfg, reuse, dev, params=params)
+        r = served_run(srv, prompts, sp, dev, CHUNKED_ENTRIES, warm=warm)
+        no_launch(r, name)
+        assert (r["reused_tokens"] > 0) == reuse, r["reused_tokens"]
+        assert srv.decodes[0].stats["handoff_copy_bytes"] == 0
+        assert srv.kv_arena.block_nbytes == 0
+        assert srv.kv_arena.find_corrupt_blocks() == []
+        runs[name] = r
+        if reuse:
+            rec["captured"] = ssm_captured_checks(srv, dev, timer)
+        del srv
+    assert runs["a_reuse_on"]["streams"][:12] == \
+        runs["a_reuse_off"]["streams"][:12], \
+        "mamba2: greedy streams differ with prefix reuse on and off"
+    srv = build_server(cfg, True, dev, params=params,
+                       placement=DevicePlacement.of(dev, capture=False))
+    e = served_run(srv, prompts, sp, dev, (), warm=warm)
+    assert all(v["captures"] == v["replays"] == 0
+               for n, v in e["hot_loops"].items() if n != "pool_gb")
+    assert e["streams"] == runs["a_reuse_on"]["streams"], \
+        "mamba2: streams differ between capture and eager"
+    for what, c in rec["captured"].items():
+        assert c["logits_max_abs_diff"] == 0.0, (what, c)
+    runs["a_eager"] = e
+    del srv
+    # (c) speculation refused; int8 arenas degrade to float
+    try:
+        build_server(cfg, True, dev, params=params, spec=SpecConfig(k=P7_K))
+        raise AssertionError("mamba2: speculation was not refused")
+    except ValueError as err:
+        rec["spec_refused"] = str(err)
+    srv = build_server(cfg, True, dev, params=params, quant=QuantConfig())
+    assert srv.quant_ctl is None and not srv.kv_arena.quant
+    q = served_run(srv, prompts, sp, dev, CHUNKED_ENTRIES, warm=warm)
+    no_launch(q, "c_quant")
+    assert q["streams"] == runs["a_reuse_on"]["streams"], \
+        "mamba2: int8 knob changed the streams"
+    runs["c_quant_degraded"] = q
+    del srv
+    # (b) long prompts: chunked paged against whole-prompt slot-dense
+    lprompts, lparams = topk_workload(cfg.vocab_size)
+    lwarm = ([topk_workload(cfg.vocab_size, seed=32)[0][0][:200]],
+             SamplingParams(max_tokens=3))
+    srv = long_server(cfg, dev, params)
+    b = served_run(srv, lprompts, lparams, dev, CHUNKED_ENTRIES, warm=lwarm)
+    no_launch(b, "b_chunked_paged")
+    del srv
+    srv = long_server(cfg, dev, params, paged_kv=False,
+                      chunked_prefill=False)
+    d = served_run(srv, lprompts, lparams, dev, ("decode.step",), warm=lwarm)
+    no_launch(d, "b_whole_dense")
+    assert d["whole_prefills"] == len(lprompts) and d["chunks"] == 0
+    rec["long_near_ties"] = near_tie_diffs(
+        srv, lprompts, lparams, d["streams"], b["streams"],
+        "mamba2 long: whole-prompt slot-dense vs chunked paged", log)
+    runs["b_chunked_paged"], runs["b_whole_dense"] = b, d
+    del srv
+    for r in runs.values():
+        r.pop("streams")
+    rec["runs"] = runs
+    rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    rec["seconds"] = time.monotonic() - t0
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def serve_jamba(dev, log):
+    """Phase 14 on jamba-1.5-large-398b at full width in bfloat16, 5 layers:
+    (d) every attention layer full, phase 3's traffic (16 new tokens) with
+    phase 8's monitor knobs, prefix reuse on and off and on int8 arenas;
+    (e) the default pattern (the attention layer compressed to sink 128 +
+    recent 4,096), phase 5's traffic whole-prompt over paged and slot-dense
+    KV. Launches per layer kind and the drained expert counts asserted."""
+    from repro_torch.core.proxy import SamplingParams
+    from repro_torch.serving.quant import QuantConfig
+    t0 = time.monotonic()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = jamba_config()
+    params, gb = init_weights(cfg, dev)
+    specs = cfg.layer_specs([0] * cfg.n_layers)
+    n_attn = sum(1 for s in specs if s.kind == "attn")
+    n_moe = sum(1 for s in specs if s.use_moe)
+    k = cfg.moe.top_k
+    rec = {"weights_gb": gb, "n_layers": cfg.n_layers,
+           "layers": [s.kind + ("+moe" if s.use_moe else "") for s in specs],
+           "state_bytes_per_slot": state_bytes_per_slot(cfg)}
+    log.append(f"jamba: {cfg.n_layers} layers {rec['layers']}, weights "
+               f"{gb:.2f} GB (bfloat16), Mamba-2 state "
+               f"{rec['state_bytes_per_slot'] / 1e6:.1f} MB a slot")
+    prompts, sp = moe_workload(cfg.vocab_size)
+    runs = {}
+    # (d) every attention layer full, chunked paged
+    for name, reuse, knobs in (("d_reuse_on", True, {}),
+                               ("d_reuse_off", False, {}),
+                               ("d_int8", True, {"quant": QuantConfig()})):
+        srv = build_server(cfg, reuse, dev, params=params,
+                           enable_placement=True, placement_interval=4,
+                           **knobs)
+        warm, _ = workload(cfg.vocab_size, seed=8)
+        list(srv.generate(warm[:4], SamplingParams(max_tokens=2)))
+        reset_stats(srv)
+        hist0 = len(srv.placement_sched.history)
+        ticks = record_drains(srv)
+        r = served_run(srv, prompts, sp, dev, CHUNKED_ENTRIES)
+        ln = r["launches"]
+        q8 = "_int8" if knobs else ""
+        if dev.type == "cuda":
+            assert ln["paged_prefill" + q8] == r["chunks"] * n_attn > 0, ln
+            assert ln["paged_decode" + q8] == r["steps"] * n_attn > 0, ln
+            assert ln["moe_gmm"] == 3 * n_moe * (r["chunks"] + r["steps"]), \
+                (ln, r["chunks"], r["steps"])
+        assert (r["reused_tokens"] > 0) == reuse
+        hist = srv.placement_sched.history[hist0:]
+        assert len(ticks) >= 4 and len(hist) == len(ticks), (ticks, hist)
+        assert all(not h["rebalanced"] for h in hist), hist
+        prev = 0
+        for total, tokens in ticks:
+            assert total == k * n_moe * (tokens - prev), (ticks, k, n_moe)
+            prev = tokens
+        r["placement_ticks"] = [{"assignments": t, "decode_tokens": n}
+                                for t, n in ticks]
+        if knobs:
+            assert srv.kv_arena.quant
+            srv.kv_arena.check_summaries()
+        runs[name] = r
+        del srv
+        gc.collect()
+    on = runs["d_reuse_on"]["streams"]
+    assert on[:12] == runs["d_reuse_off"]["streams"][:12], \
+        "jamba: greedy streams differ with prefix reuse on and off"
+    rec["int8_streams_equal_float"] = sum(
+        a == b for a, b in zip(runs["d_int8"]["streams"], on))
+    # (e) the default pattern: whole-prompt prefill, paged and slot-dense
+    dprompts, dparams = default_pattern_workload(cfg.vocab_size)
+    rng = np.random.default_rng(22)
+    dwarm = ([tuple(int(t) for t in rng.integers(0, cfg.vocab_size, n))
+              for n in (P5_LONG, P5_SHORT)], SamplingParams(max_tokens=2))
+    for name, paged in (("e_default_paged", True), ("e_default_dense",
+                                                    False)):
+        srv = build_default_server(cfg, paged, dev, params=params)
+        assert not srv.prefills[0].chunked
+        r = served_run(srv, dprompts, dparams, dev, ("decode.step",),
+                       warm=dwarm)
+        ln = r["launches"]
+        dec = "paged_decode" if paged else "sink_decode"
+        if dev.type == "cuda":
+            assert ln["flash_prefill"] == r["whole_prefills"] * n_attn > 0, ln
+            assert ln[dec] == r["steps"] * n_attn > 0, ln
+            assert ln["moe_gmm"] == 3 * n_moe * (r["whole_prefills"]
+                                                 + r["steps"]), ln
+        runs[name] = r
+        if paged:
+            paged_srv = srv
+        else:
+            # bfloat16 logits step by 2^-5 at the top logit's magnitude of
+            # these weights (~7.5: head std 0.02 x sqrt(8192) at 4 sigma
+            # over 65,536 rows): a near tie is a margin of two steps
+            rec["default_near_ties"] = near_tie_diffs(
+                paged_srv, dprompts, dparams, r["streams"],
+                runs["e_default_paged"]["streams"],
+                "jamba default pattern: slot-dense vs paged", log,
+                limit=BF16_TIE)
+            del paged_srv
+        del srv
+        gc.collect()
+    for r in runs.values():
+        r.pop("streams")
+    rec["runs"] = runs
+    rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    rec["seconds"] = time.monotonic() - t0
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
 # ---- phase 10: captured against eager ------------------------------
 def random_arena(lm, n_blocks, bs, dev, quant, g):
     """Arenas of `n_blocks` blocks filled with seeded random K/V (int8
@@ -4109,6 +4660,9 @@ def main() -> int:
     # the shapes of phase 13: h 256, G 48, the row-group edges
     wide, wide_q = check_wide_kernels(dev, timer, log)
     for name, by in wide.items():
+        kern[name].update(by)
+    # the shapes of phase 14: jamba in bfloat16
+    for name, by in check_jamba_kernels(dev, timer, log).items():
         kern[name].update(by)
     for name, by in wide_q.items():
         for r in by.values():
@@ -4490,13 +5044,66 @@ def main() -> int:
                          f"identical")
         print(f"  {arch}: " + "; ".join(parts) + f" [{smi}]")
 
+    log.clear()
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t14 = time.monotonic()
+    mamba2 = serve_mamba2(dev, log, timer)
+    jamba = serve_jamba(dev, log)
+    print(f"phase 14 [{time.monotonic() - t0:.1f} s]: the SSM and hybrid "
+          f"stacks in {time.monotonic() - t14:.1f} s (mamba2-130m all 24 "
+          f"layers, float32; jamba-1.5-large-398b 5 layers, bfloat16)")
+    for line in log:
+        print("  " + line)
+    mr = mamba2["runs"]
+    for name in ("a_reuse_on", "a_reuse_off", "a_eager", "c_quant_degraded",
+                 "b_chunked_paged", "b_whole_dense"):
+        r = mr[name]
+        m = r["metrics"]
+        print(f"  mamba2 {name}: {r['chunks']} chunks, {r['whole_prefills']}"
+              f" whole prefills, {r['steps']} steps, no kernel launched; "
+              f"TTFT mean {m['ttft_mean'] * 1e3:.2f} ms, TPOT mean "
+              f"{m['tpot_mean_ms']:.2f} ms p99 {m['tpot_p99_ms']:.2f} ms; "
+              f"hot loops: {hot_loop_line(r['hot_loops'])} [{smi}]")
+    for what, c in mamba2["captured"].items():
+        print(f"  mamba2 captured {what} vs eager: max |logits diff| "
+              f"{c['logits_max_abs_diff']:.3g}; device {c['ms']:.4f} ms = "
+              f"SSD {c['ssd_ms']:.4f} + GEMM {c['gemm_ms']:.4f} + rest "
+              f"{c['rest_ms']:.4f} ms (SSD share {c['ssd_share']:.3f}) "
+              f"[{smi}]")
+    print(f"  mamba2: weights {mamba2['weights_gb']:.2f} GB, state "
+          f"{mamba2['state_bytes_per_slot'] / 1e6:.2f} MB a slot, peak "
+          f"{mamba2['peak_mem_gb']:.2f} GB, {mamba2['seconds']:.1f} s; "
+          f"streams equal reuse on/off, captured/eager, quant knob; long "
+          f"near-ties {len(mamba2['long_near_ties'])}; speculation refused: "
+          f"{mamba2['spec_refused']!r} [{smi}]")
+    jr = jamba["runs"]
+    for name, r in jr.items():
+        m, ln = r["metrics"], r["launches"]
+        extra = "" if "placement_ticks" not in r else (
+            "; drains " + ", ".join(f"{t['assignments']:.0f}"
+                                    for t in r["placement_ticks"]))
+        print(f"  jamba {name}: {r['chunks']} chunks, {r['whole_prefills']}"
+              f" whole prefills, {r['steps']} steps; launches "
+              f"{ {k: v for k, v in ln.items() if v} }{extra}; TTFT mean "
+              f"{m['ttft_mean'] * 1e3:.1f} ms, TPOT mean "
+              f"{m['tpot_mean_ms']:.2f} ms p99 {m['tpot_p99_ms']:.2f} ms "
+              f"[{smi}]")
+    print(f"  jamba: weights {jamba['weights_gb']:.2f} GB, state "
+          f"{jamba['state_bytes_per_slot'] / 1e6:.2f} MB a slot, peak "
+          f"{jamba['peak_mem_gb']:.2f} GB, {jamba['seconds']:.1f} s; int8 "
+          f"streams equal float {jamba['int8_streams_equal_float']}/14; "
+          f"default pattern near-ties {len(jamba['default_near_ties'])} "
+          f"[{smi}]")
+
     for rec in (served, spec["runs"]["spec_on"], spec["runs"]["spec_off"],
                 quant):
         rec.pop("streams", None)
     report.update(kernels=kern, kernels_int8=kern_q, serve=served,
                   default_pattern=omni, topk=topk, spec=spec, moe=moe,
                   quant=quant, eager=eager, ring_chunks=rings, chaos=chaos,
-                  archs=archs)
+                  archs=archs, mamba2=mamba2, jamba=jamba)
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 
@@ -4549,6 +5156,19 @@ def main() -> int:
         "moe_gmm": {
             "qwen3moe": archs["qwen3-moe-235b-a22b"]["moe"]["launches"][
                 "moe_gmm"]}}
+    # phase 14's jamba shapes, with their launches there
+    jd, je = jamba["runs"]["d_reuse_on"], jamba["runs"]
+    new_launches["paged_decode"]["jamba"] = jd["launches"]["paged_decode"]
+    new_launches["paged_decode"]["jamba_ring"] = \
+        je["e_default_paged"]["launches"]["paged_decode"]
+    new_launches["paged_prefill"]["jamba"] = jd["launches"]["paged_prefill"]
+    new_launches["flash_prefill"]["jamba"] = sum(
+        je[r]["launches"]["flash_prefill"] for r in ("e_default_paged",
+                                                     "e_default_dense"))
+    new_launches["sink_decode"]["jamba"] = \
+        je["e_default_dense"]["launches"]["sink_decode"]
+    new_launches["moe_gmm"]["jamba"] = jd["launches"]["moe_gmm"]
+    new_launches["moe_gmm"]["jamba_chunk"] = jd["launches"]["moe_gmm"]
     new_int8 = {
         "paged_decode": {"h256": g3["d_int8"]["launches"]["paged_decode_int8"]},
         "paged_prefill": {
@@ -4595,11 +5215,17 @@ def main() -> int:
             src = kern[key][{"sink_decode": {"h256": "float32_h256_W1024",
                                              "g48": "float32_g48_W512"},
                              "moe_gmm": {"qwen3moe":
-                                         "float32_qwen3moe_decode"}}
-                            .get(name, {}).get(sub, f"float32_{sub}")]
+                                         "float32_qwen3moe_decode",
+                                         "jamba": "bfloat16_jamba_decode",
+                                         "jamba_chunk":
+                                         "bfloat16_jamba_chunk"}}
+                            .get(name, {}).get(sub, (
+                                f"bfloat16_{sub}" if sub.startswith("jamba")
+                                else f"float32_{sub}"))]
             entry[sub] = {k: src[k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                "max_abs_err", "shape")} | {"launches": launches_}
+                "max_abs_err", "shape")} | {"launches": launches_, "dtype": (
+                    "bfloat16" if sub.startswith("jamba") else "float32")}
         for sub, launches_ in new_int8.get(name, {}).items():
             src = kern_q[key][f"float32_{sub}"]
             entry["int8"][sub] = {k: src[k] for k in (
@@ -4610,13 +5236,14 @@ def main() -> int:
         for rec in (k, k.get("int8")):
             if rec is None:
                 continue
-            for sub in ("h256", "g48", "qwen3moe"):
+            subs = ("h256", "g48", "qwen3moe", "jamba", "jamba_ring",
+                    "jamba_chunk")
+            for sub in subs:
                 if sub in rec and rec[sub]["launches"] <= 0:
                     raise AssertionError(f"{k['name']} {sub}: no launch in "
-                                         f"phase 13")
+                                         f"phase 13 or 14")
             for r in (rec, rec.get("ring"), rec.get("long"),
-                      rec.get("select"), rec.get("h256"), rec.get("g48"),
-                      rec.get("qwen3moe")):
+                      rec.get("select")) + tuple(rec.get(x) for x in subs):
                 for key in ("max_abs_err", "ms", "plain_ms", "bound_ms"):
                     if r is not None and not math.isfinite(r[key]):
                         raise AssertionError(f"{k['name']}: {key} is not "

@@ -13,8 +13,10 @@ _MODULES = {
     "qwen3-32b": "qwen3_32b",
     "gemma3-4b": "gemma3_4b",
     "granite-34b": "granite_34b",
+    "jamba-1.5-large-398b": "jamba_1_5_large",
     "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
     "qwen3-moe-235b-a22b": "qwen3_moe_235b",
+    "mamba2-130m": "mamba2_130m",
 }
 
 ARCH_IDS = list(_MODULES)

@@ -2,7 +2,8 @@
 serving entry points: whole-prompt `prefill` into dense caches, chunked
 `prefill_resume` and `decode` over paged or dense KV (with OmniAttn online
 top-k on paged full layers), and the speculative `verify` / `verify_commit`
-pair over paged KV. MoE layers route through the
+pair over paged KV. Mamba-2 layers carry their per-sequence state through
+the same entry points (verify refuses them). MoE layers route through the
 OmniPlacement tables each entry point takes (`default_tables()` to start);
 the per-layer expert counts come back in the aux."""
 from __future__ import annotations
@@ -39,7 +40,7 @@ class LM:
         """`device` None → cuda. Raises NotImplementedError for a
         configuration a later slice of the port brings."""
         plan = stack_mod.StackPlan.from_config(cfg, pattern)
-        stack_mod.check_supported(cfg, plan)
+        stack_mod.check_supported(cfg)
         return LM(cfg, plan, resolve_device(device))
 
     # ------------------------------------------------------------------
@@ -47,10 +48,11 @@ class LM:
         """{"layers": [per-layer {name: (shape, init, dtype)}], "embed",
         "final_norm"[, "head"]: (shape, init, dtype)} with init
         "normal:<std>", "zeros" or "ones": the shapes, scales and dtypes of
-        the reference's ParamDefs. An MoE layer (`LayerSpec.use_moe`)
-        carries the router (float32 whatever param_dtype is), its slot
-        weights [1, s, ...] and the shared experts instead of the dense
-        FFN."""
+        the reference's ParamDefs. A mamba layer carries the reference's
+        `mamba_defs` (the SSD mixer) in place of attention. An MoE layer
+        (`LayerSpec.use_moe`) carries the router (float32 whatever
+        param_dtype is), its slot weights [1, s, ...] and the shared
+        experts instead of the dense FFN."""
         cfg = self.cfg
         D, H, K, h, Fd = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                           cfg.head_dim, cfg.d_ff)
@@ -81,7 +83,20 @@ class LM:
                 moe.update(shared_w1=((D, Fsh), w, dt),
                            shared_w3=((D, Fsh), w, dt),
                            shared_w2=((Fsh, D), w, dt))
-        d = {"layers": [dict(attn, **(moe if sp.use_moe else dense))
+        ssm = cfg.ssm
+        d_in = ssm.expand * D
+        nh = d_in // ssm.head_dim if ssm.head_dim else 0
+        N, cw = ssm.d_state, ssm.conv_width
+        mamba = {"ln_attn": ((D,), "ones", dt), "w_z": ((D, d_in), w, dt),
+                 "w_x": ((D, d_in), w, dt), "w_bc": ((D, 2 * N), w, dt),
+                 "w_dt": ((D, nh), w, dt), "dt_bias": ((nh,), "zeros", dt),
+                 "conv_x": ((cw, d_in), w, dt),
+                 "conv_bc": ((cw, 2 * N), w, dt),
+                 "A_log": ((nh,), "ones", dt), "D_skip": ((nh,), "ones", dt),
+                 "ssm_norm": ((d_in,), "ones", dt),
+                 "out_proj": ((d_in, D), w, dt)}
+        d = {"layers": [dict(mamba if sp.kind == "mamba" else attn,
+                             **(moe if sp.use_moe else dense))
                         for sp in self.plan.all_specs()],
              "final_norm": ((D,), "ones", dt),
              "embed": ((cfg.vocab_size, D), f"normal:{D ** -0.5}", dt)}

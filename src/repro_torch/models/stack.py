@@ -24,10 +24,16 @@ read-only speculative-verify forward, and `stack_verify_commit` lands its
 accepted prefix. Quant is structural: an entry with "kscale" is int8, its
 reads dequantize in the kernels' tiles and its writes quantize
 (models/attention.py's QuantPlane section); ring layers never quantize.
+Mamba-2 layers (`LayerSpec.kind == "mamba"`, the SSM and hybrid families)
+carry a per-slot recurrent entry instead of KV, never in the arenas:
+  mamba layer        {"state": [B, nh, head_dim, d_state] float32,
+                      "conv_x": [B, cw-1, d_in], "conv_bc": [B, cw-1,
+                      2·d_state]} (B = slots, or 1 for a prefill task)
 Each layer's FFN is a dense SwiGLU or, on an MoE layer, the routed experts
-over OmniPlacement slot tables (models/moe.py) plus the shared SwiGLU.
+over OmniPlacement slot tables (models/moe.py) plus the shared SwiGLU; a
+stack without an FFN (d_ff 0, no MoE: mamba2) skips it.
 `check_supported` raises NotImplementedError for what a later slice brings
-(SSM layers; encoder, frontend and non-causal families).
+(encoder, frontend and non-causal families).
 """
 from __future__ import annotations
 
@@ -42,6 +48,7 @@ from repro_torch.device import torch_dtype
 from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssd as ssd_mod
 from repro_torch.models.common import rms_norm, swiglu
 
 
@@ -85,17 +92,14 @@ def full_attn_layer(cfg: ModelConfig, spec: LayerSpec) -> bool:
     return spec.kind == "attn" and cache_window(cfg, spec) == (0, 0)
 
 
-def check_supported(cfg: ModelConfig, plan: StackPlan) -> None:
+def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for a configuration this slice of the port
     does not serve (rather than silently serving something else)."""
-    if cfg.family not in ("dense", "moe") or cfg.encoder_only \
-            or not cfg.causal or cfg.frontend_dim:
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid") \
+            or cfg.encoder_only or not cfg.causal or cfg.frontend_dim:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (dense and MoE "
-            f"decoders only)")
-    for spec in plan.all_specs():
-        if spec.kind != "attn":
-            raise NotImplementedError("SSM (mamba) layers are not ported yet")
+            f"family {cfg.family!r} is not ported yet (dense, MoE, SSM and "
+            f"hybrid decoders only)")
 
 
 def topk_block_budget(oa, nb: int) -> Optional[int]:
@@ -162,15 +166,37 @@ def quant_kwargs(entry: dict) -> dict:
                 v_scale=entry["vscale"], v_tok=entry["vtok"])
 
 
+def mamba_cache_shapes(cfg: ModelConfig, B: int, dtype=None) -> dict:
+    """{name: (shape, dtype)} of a mamba layer's entry for B sequences: the
+    SSD state, always float32 (the reference's `cache_struct`), and the two
+    convolutions' last cw-1 pre-convolution inputs in the compute dtype."""
+    dtype = torch_dtype(dtype or cfg.compute_dtype)
+    ssm = cfg.ssm
+    d_in = ssm.expand * cfg.d_model
+    nh = d_in // ssm.head_dim
+    cw1 = ssm.conv_width - 1
+    return {"state": ((B, nh, ssm.head_dim, ssm.d_state), torch.float32),
+            "conv_x": ((B, cw1, d_in), dtype),
+            "conv_bc": ((B, cw1, 2 * ssm.d_state), dtype)}
+
+
+def _alloc_mamba(cfg: ModelConfig, B: int, device, dtype) -> dict:
+    return {n: torch.zeros(shp, dtype=dt, device=device)
+            for n, (shp, dt) in mamba_cache_shapes(cfg, B, dtype).items()}
+
+
 def alloc_cache(cfg: ModelConfig, plan: StackPlan, B: int, max_len: int,
                 device, dtype=None) -> dict:
     """Dense caches for B sequences: every attention layer gets {"k","v":
     [B, W, K, h]} zeros, W = sink + recent for ring layers and max_len for
-    full ones (the reference's `alloc_cache`)."""
+    full ones, every mamba layer its B-row entry (the reference's
+    `alloc_cache`)."""
     dtype = torch_dtype(dtype or cfg.compute_dtype)
     K, h = cfg.n_kv_heads, cfg.head_dim
 
     def one(spec):
+        if spec.kind == "mamba":
+            return _alloc_mamba(cfg, B, device, dtype)
         sink, recent = cache_window(cfg, spec)
         W = (sink + recent) if (sink or recent) else max_len
         return {n: torch.zeros((B, W, K, h), dtype=dtype, device=device)
@@ -181,13 +207,16 @@ def alloc_cache(cfg: ModelConfig, plan: StackPlan, B: int, max_len: int,
 def alloc_prefill_private_cache(cfg: ModelConfig, plan: StackPlan,
                                 max_len: int, device, dtype=None) -> dict:
     """B=1 task cache without full-attention layers (their KV lives in the
-    shared arena): the position and dense [1, W, K, h] ring KV."""
+    shared arena): the position, dense [1, W, K, h] ring KV and the mamba
+    layers' B=1 entries."""
     dtype = torch_dtype(dtype or cfg.compute_dtype)
     K, h = cfg.n_kv_heads, cfg.head_dim
 
     def one(spec):
         if full_attn_layer(cfg, spec):
             return None
+        if spec.kind == "mamba":
+            return _alloc_mamba(cfg, 1, device, dtype)
         W = sum(cache_window(cfg, spec))
         return {n: torch.zeros((1, W, K, h), dtype=dtype, device=device)
                 for n in ("k", "v")}
@@ -200,13 +229,16 @@ def alloc_paged_private_cache(cfg: ModelConfig, plan: StackPlan,
     """Decode-engine private side of the paged cache: full-attention entries
     are None (shared arena); each ring layer gets [n_slots·bpw, K, bs, h]
     blocks, slot b statically owning blocks [b·bpw, (b+1)·bpw) (the
-    reference's `layer_cache_shape_paged`)."""
+    reference's `layer_cache_shape_paged`); each mamba layer its per-slot
+    entry, row b slot b's."""
     dtype = torch_dtype(dtype or cfg.compute_dtype)
     K, h = cfg.n_kv_heads, cfg.head_dim
 
     def one(spec):
         if full_attn_layer(cfg, spec):
             return None
+        if spec.kind == "mamba":
+            return _alloc_mamba(cfg, n_slots, device, dtype)
         bpw = ring_block_count(*cache_window(cfg, spec), block_size)
         shp = (n_slots * bpw, K, block_size, h)
         return {n: torch.zeros(shp, dtype=dtype, device=device)
@@ -447,6 +479,86 @@ def _live(token_mask, q):
     return torch.ones(q.shape[0], dtype=torch.float32, device=q.device)
 
 
+def mamba_sublayer(cfg: ModelConfig, p: dict, x, *, mode: str,
+                   cache: Optional[dict], true_len=None):
+    """The Mamba-2 SSD mixer of one layer with its pre-norm and residual.
+    → (x, new entry or None).
+
+    mode "prefill", cache None: a whole B=1 prompt from a zero state; the
+      new entry is returned. With a cache: a chunk continuing the entry's
+      state and convolution rows, updated in place. With `true_len` (an int
+      or a 0-d device tensor, read on the device) the rows past it are
+      padding: their dt and x are zeroed, which leaves the state as it was
+      (decay exp(0) = 1, update 0), and the new convolution rows are the
+      last cw-1 real pre-convolution inputs, gathered from (old rows ‖
+      chunk) at true_len.
+    mode "decode": one token per slot, the entry updated in place (the
+      convolution rows shift through a new tensor).
+    mode "verify" raises: a rejected draft would need the recurrent state
+      from before the window back (SpecController refuses SSM stacks
+      first)."""
+    if mode == "verify":
+        raise NotImplementedError(
+            "speculative verify has no multi-token SSM rollback path")
+    B, S, D = x.shape
+    ssm = cfg.ssm
+    d_in = ssm.expand * D
+    nh = d_in // ssm.head_dim
+    N, cw = ssm.d_state, ssm.conv_width
+    cd = torch_dtype(cfg.compute_dtype)
+    hid = rms_norm(x, p["ln_attn"], cfg.rms_eps).to(cd)
+    z = hid @ p["w_z"]
+    xin = hid @ p["w_x"]
+    bc = hid @ p["w_bc"]
+    dt_raw = (hid @ p["w_dt"]).float() + p["dt_bias"].float()
+    dt = torch.logaddexp(dt_raw, torch.zeros_like(dt_raw))   # softplus
+    A = -torch.exp(p["A_log"].float())
+
+    cx = cache["conv_x"] if cache is not None else None
+    cbc = cache["conv_bc"] if cache is not None else None
+    xin_pre, bc_pre = xin, bc               # pre-convolution rows
+    xin, new_cx = ssd_mod.causal_conv(xin, p["conv_x"], cx)
+    bc, new_cbc = ssd_mod.causal_conv(bc, p["conv_bc"], cbc)
+    xin = torch.nn.functional.silu(xin)
+    bc = torch.nn.functional.silu(bc)
+    if true_len is not None and mode != "decode":
+        tl = torch.as_tensor(true_len, device=x.device)
+        live = torch.arange(S, device=x.device) < tl
+        dt = dt * live[None, :, None]
+        xin = xin * live[None, :, None].to(xin.dtype)
+        if cx is not None:
+            pad_x = torch.cat([cx.to(xin_pre.dtype), xin_pre], dim=1)
+            pad_bc = torch.cat([cbc.to(bc_pre.dtype), bc_pre], dim=1)
+        else:
+            pad_x = torch.nn.functional.pad(xin_pre, (0, 0, cw - 1, 0))
+            pad_bc = torch.nn.functional.pad(bc_pre, (0, 0, cw - 1, 0))
+        rows = tl.long() + torch.arange(cw - 1, device=x.device)
+        new_cx = pad_x.index_select(1, rows)
+        new_cbc = pad_bc.index_select(1, rows)
+    Bm, Cm = bc[..., :N], bc[..., N:]
+
+    xh = xin.reshape(B, S, nh, ssm.head_dim)
+    if mode == "decode":
+        y1, new_state = ssd_mod.ssd_decode_step(
+            cache["state"], xh[:, 0], dt[:, 0], A, Bm[:, 0], Cm[:, 0])
+        y = y1[:, None]
+    else:
+        init = cache["state"] if cache is not None else None
+        y, new_state = ssd_mod.ssd_chunked(xh, dt, A, Bm, Cm, ssm.chunk,
+                                           init)
+    y = y + xh.to(y.dtype) * p["D_skip"].to(y.dtype)[None, None, :, None]
+    y = y.reshape(B, S, d_in)
+    y = rms_norm(y * torch.nn.functional.silu(z.to(y.dtype)), p["ssm_norm"],
+                 cfg.rms_eps)
+    out = (y.to(cd) @ p["out_proj"]).to(x.dtype)
+    entry = {"state": new_state, "conv_x": new_cx, "conv_bc": new_cbc}
+    if cache is None:
+        return x + out, entry
+    for name, t in entry.items():
+        cache[name].copy_(t)
+    return x + out, None
+
+
 def ffn_sublayer(cfg: ModelConfig, spec: LayerSpec, p: dict, x, *,
                  tables: Optional[dict] = None, token_mask=None):
     """Feed-forward with its pre-norm and residual: a dense SwiGLU, or on
@@ -486,11 +598,16 @@ def stack_apply(cfg: ModelConfig, plan: StackPlan, layers: list, x, *,
     entries = [] if caches is None or mode == "verify" else None
     sparsity, counts = [], []
     for i, (spec, p) in enumerate(zip(plan.all_specs(), layers)):
-        x, nc, sp = attn_sublayer(
-            cfg, spec, p, x, mode=mode, positions=positions,
-            cache=None if caches is None else caches["layers"][i],
-            true_len=true_len, block_tables=block_tables, pos0=pos0,
-            max_len=max_len, token_mask=token_mask)
+        cache = None if caches is None else caches["layers"][i]
+        sp = None
+        if spec.kind == "mamba":
+            x, nc = mamba_sublayer(cfg, p, x, mode=mode, cache=cache,
+                                   true_len=true_len)
+        else:
+            x, nc, sp = attn_sublayer(
+                cfg, spec, p, x, mode=mode, positions=positions, cache=cache,
+                true_len=true_len, block_tables=block_tables, pos0=pos0,
+                max_len=max_len, token_mask=token_mask)
         if entries is not None:
             entries.append(nc)
         if sp is not None:

@@ -1,19 +1,20 @@
 """Continuous-batch decode engine (the D side of PD disaggregation).
 
 With a KVArena (paged): full-attention KV lives in the shared per-layer
-block arenas and each ring layer (OmniAttn sink+recent, sliding window) in
-the engine's per-slot ring block runs. Admission is either a zero-copy
-BlockHandoff (the chunked prefill engine already wrote the blocks; pool
-ownership renames to the decode rid, and only the handoff's ring KV is
-written into the slot's ring runs) or a dense scatter of a B=1 cache into
+block arenas, each ring layer (OmniAttn sink+recent, sliding window) in
+the engine's per-slot ring block runs and each Mamba-2 layer's recurrent
+state in its per-slot rows. Admission is either a zero-copy BlockHandoff
+(the chunked prefill engine already wrote the blocks; pool ownership
+renames to the decode rid, and only the handoff's bounded private leaves
+are written into the slot) or a dense scatter of a B=1 cache into
 fresh blocks (whole-prompt prefill, and re-admission after preemption). A
 step that cannot grow a request's allocation reclaims prefix-store blocks
 first and then preempts the request (its KV is gathered back out of the
 arenas for later re-admission).
 
-Without one (slot-dense): caches [n_slots, W, K, h] per layer, attended by
-the sink-decode kernel, with an accounting-only KVPool for admission
-control and preemption.
+Without one (slot-dense): caches [n_slots, W, K, h] per attention layer,
+attended by the sink-decode kernel, and the per-slot mamba rows, with an
+accounting-only KVPool for admission control and preemption.
 
 Paged engines run OmniAttn online top-k block selection when
 cfg.omniattn sets a budget (`sparsity`, a SparsityController), and SpecPlane
@@ -47,6 +48,7 @@ the single fetch reads.
 """
 from __future__ import annotations
 
+import math
 import time
 from dataclasses import dataclass, field
 from typing import Optional
@@ -60,7 +62,8 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models.lm import LM
 from repro_torch.models.stack import (alloc_cache, alloc_paged_private_cache,
                                       cache_window, full_attn_layer,
-                                      merge_arena_cache, ring_block_count)
+                                      mamba_cache_shapes, merge_arena_cache,
+                                      ring_block_count)
 from repro_torch.serving.arena import (BlockHandoff, KVArena, _bucket,
                                        blocks_to_dense_kv, dense_kv_to_blocks)
 from repro_torch.serving.kvpool import KVPool, tree_bytes
@@ -164,10 +167,16 @@ class DecodeEngine:
         specs = plan.all_specs()
         n_full = sum(1 for sp in specs if full_attn_layer(cfg, sp))
         self._full_tok_nbytes = kvh * n_full
-        ring_nbytes = sum(kvh * sum(cache_window(cfg, sp)) for sp in specs
-                          if not full_attn_layer(cfg, sp))
+        # bounded leaves: ring KV and each mamba layer's state and
+        # convolution rows
+        mamba_nbytes = sum(
+            math.prod(shp) * dt.itemsize
+            for shp, dt in mamba_cache_shapes(cfg, 1).values())
+        bounded = sum(mamba_nbytes if sp.kind == "mamba" else
+                      kvh * sum(cache_window(cfg, sp)) for sp in specs
+                      if not full_attn_layer(cfg, sp))
         self._dense_kv_nbytes = (self._full_tok_nbytes * self.max_len
-                                 + ring_nbytes + 4)
+                                 + bounded + 4)
         self.free = list(range(self.n_slots))
         self.slot_rid: dict = {}
         self.rid_slot: dict = {}
@@ -247,6 +256,9 @@ class DecodeEngine:
                                  self.arena.kv)
 
     def _true_kv_nbytes(self, n_tokens: int) -> int:
+        """Real bytes of a request's cache at `n_tokens` resident tokens:
+        the bounded leaves (ring KV, mamba state) plus the per-token
+        full-attention KV, without the max_len padding."""
         bounded = self._dense_kv_nbytes - self._full_tok_nbytes * self.max_len
         return bounded + self._full_tok_nbytes * min(n_tokens, self.max_len)
 
@@ -259,16 +271,17 @@ class DecodeEngine:
 
     # ---- dense interchange (whole-prompt admission / preemption) -----
     def _insert_dense(self, one: dict, slot: int, wtbl: Optional[np.ndarray]):
-        """Write a B=1 dense cache ({"layers": [{"k","v": [1, L, K, h]}]})
-        into `slot`. Paged: full layers scatter into the arena blocks of
-        table row `wtbl` [max_blocks] (entries that map a lender's prefix
-        blocks are already redirected to the null block: mapped, not
-        written) and have those blocks' summaries recomputed; ring layers
-        overwrite the slot's own block run. Dense: a copy into row `slot`."""
+        """Write a B=1 dense cache ({"layers": [{"k","v": [1, L, K, h]} or a
+        mamba entry]}) into `slot`. Paged: full layers scatter into the
+        arena blocks of table row `wtbl` [max_blocks] (entries that map a
+        lender's prefix blocks are already redirected to the null block:
+        mapped, not written) and have those blocks' summaries recomputed;
+        ring layers overwrite the slot's own block run, mamba layers its
+        row. Dense: every leaf copied into row `slot`."""
         if not self.paged:
             for e, o in zip(self.cache["layers"], one["layers"]):
-                for name in ("k", "v"):
-                    e[name][slot] = o[name][0].to(e[name].dtype)
+                for name, t in e.items():
+                    t[slot] = o[name][0].to(t.dtype)
             return
         bs = self.block_size
         tbl = torch.from_numpy(wtbl.astype(np.int64)).to(self.device)
@@ -281,16 +294,21 @@ class DecodeEngine:
                         o[name][0], self.max_blocks, bs).to(e[name].dtype)
                 attn_mod.update_block_summaries(e["kmin"], e["kmax"],
                                                 e["kmean"], e["k"], tbl)
-        self._insert_rings(one, slot)
+        self._insert_private(one, slot)
 
-    def _insert_rings(self, one: dict, slot: int):
-        """Overwrite `slot`'s ring block run in every paged ring layer with
-        the [1, W, K, h] ring KV of a B=1 cache (dense, or a handoff's
-        private leaves; full-attention entries are skipped)."""
+    def _insert_private(self, one: dict, slot: int):
+        """Write the bounded leaves of a B=1 cache (dense, or a handoff's
+        private leaves; full-attention entries are skipped) into `slot`:
+        each paged ring layer's [1, W, K, h] ring KV over the slot's ring
+        block run, each mamba layer's entry into the slot's row."""
         bs = self.block_size
         for spec, priv, o in zip(self.lm.plan.all_specs(),
                                  self.cache["layers"], one["layers"]):
             if priv is None:
+                continue
+            if spec.kind == "mamba":
+                for name, t in priv.items():
+                    t[slot] = o[name][0].to(t.dtype)
                 continue
             b0, bpw, _ = self._ring_run(spec, slot)
             for name in ("k", "v"):
@@ -328,8 +346,8 @@ class DecodeEngine:
     def _extract_dense(self, slot: int) -> dict:
         """One slot's KV as a B=1 dense cache: max_len tokens of each full
         layer (gathered out of the arenas through the slot's table when
-        paged), W slots of each ring layer (the preemption interchange
-        format). An int8 arena entry gives its dequantized float32 view
+        paged), W slots of each ring layer and each mamba layer's row (the
+        preemption interchange format). An int8 arena entry gives its dequantized float32 view
         under "k"/"v" plus the raw sidecar ("kq", "kscale", "ktok", v
         likewise, [1, max_blocks, ...] block-major) that `_insert_quant`
         scatters back verbatim."""
@@ -357,6 +375,9 @@ class DecodeEngine:
                 layers.append({n: blocks_to_dense_kv(
                     e[n][tbl], self.max_len)[None].clone()
                     for n in ("k", "v")})
+            elif priv is not None and spec.kind == "mamba":
+                layers.append({n: x[slot:slot + 1].clone()
+                               for n, x in priv.items()})
             elif priv is not None:
                 b0, bpw, W = self._ring_run(spec, slot)
                 layers.append({n: blocks_to_dense_kv(
@@ -489,8 +510,8 @@ class DecodeEngine:
                 wtbl[:shn] = 0
             if handoff:
                 # the full-attention KV is already in the tabled blocks;
-                # only the bounded private ring KV is written
-                self._insert_rings(cache_one.private, slot)
+                # only the bounded private leaves are written
+                self._insert_private(cache_one.private, slot)
             else:
                 self._insert_dense(cache_one, slot, wtbl)
                 self.stats["handoff_copy_bytes"] += \

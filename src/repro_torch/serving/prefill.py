@@ -23,8 +23,8 @@ replayed for every chunk of every task. The graph reads only engine-owned
 static buffers: the chunk's tokens, the task's table row, a [2] device
 buffer holding the chunk's offset and real length (uploaded together from
 pinned staging), the arenas, and one private cache whose leaves each chunk
-copies the task's ring (and, dense, full) KV into before the replay and
-back out after; the logits land in a static [1, V] buffer that the task
+copies the task's bounded leaves (ring KV, Mamba-2 state and convolution
+rows; dense, the full KV too) into before the replay and back out after; the logits land in a static [1, V] buffer that the task
 keeps a clone of.
 
 Whole-prompt (chunking unsupported — OmniAttn-compressed layers without
@@ -186,8 +186,9 @@ class PrefillEngine:
                                                    name="prefill.chunk")
 
     def _alloc_task_cache(self) -> dict:
-        """A task's private chunk cache: ring KV only when paged (full
-        layers live in the arenas), else the dense B=1 max_len cache."""
+        """A task's private chunk cache: the bounded leaves (ring KV, mamba
+        entries) only when paged (full layers live in the arenas), else
+        the dense B=1 max_len cache."""
         cfg, plan = self.lm.cfg, self.lm.plan
         if self.paged:
             return alloc_prefill_private_cache(cfg, plan, self.max_len,
@@ -514,11 +515,11 @@ class PrefillEngine:
         for s, t in zip(self._priv["layers"], cache["layers"]):
             if s is None:
                 continue
-            for name in ("k", "v"):
+            for name, x in s.items():
                 if into_static:
-                    s[name].copy_(t[name])
+                    x.copy_(t[name])
                 else:
-                    t[name].copy_(s[name])
+                    t[name].copy_(x)
 
     def _static_inputs(self, S: int) -> tuple:
         tok = self._tok_bufs.get(S)

@@ -13,7 +13,9 @@ five decode paths (paged float32, paged int8, online top-k, MoE with a
 forced migration, slot-dense) and the verify step are covered, and so is
 the prefill engine's "prefill.chunk" entry on six paths (float32, int8,
 MoE, a resume after prefix reuse, ring layers over paged KV, dense KV),
-its static private leaves equal across the two modes too. Also: the
+its static private leaves equal across the two modes too; and the SSM
+stacks: reduced mamba2-130m's decode step and chunks (its state and
+convolution rows updated in place), reduced jamba in bfloat16. Also: the
 fused top-k launch (a cluster launch) replayed from a graph equals its
 eager launch, and an exception inside a capture propagates (no fallback).
 This file imports neither jax nor the JAX package:
@@ -99,6 +101,13 @@ def _serve(cfg, capture, traffic, migrate_at=None, pattern=None,
     return srv, [out[r] for r in sorted(out)], counts
 
 
+def _no_kernels(cfg):
+    """A stack that launches no kernel of the port: Mamba-2 layers only,
+    without MoE (mamba2-130m)."""
+    return all(s.kind == "mamba" and not s.use_moe
+               for s in cfg.layer_specs([0] * cfg.n_layers))
+
+
 def _equal_trees(a, b, what, skip_null=False):
     if a is None or b is None:
         assert a is None and b is None, what
@@ -126,7 +135,7 @@ def _check_modes(cfg, traffic, verify=False, **kw):
     cap, s_cap, n_cap = _serve(cfg, True, traffic, **kw)
     eag, s_eag, n_eag = _serve(cfg, False, traffic, **kw)
     assert s_cap == s_eag and len(s_cap) == len(traffic[0])
-    assert n_cap == n_eag and n_cap
+    assert n_cap == n_eag and (n_cap or _no_kernels(cfg))
     e_cap, e_eag = cap.decodes[0], eag.decodes[0]
     _equal_trees(e_cap.state, e_eag.state, "state")
     cap.drain_decode_stats()
@@ -208,7 +217,7 @@ def _check_prefill(cfg, traffic, **kw):
         private leaves)."""
         def on_build(srv):
             eng = srv.decodes[0]
-            insert = eng._insert_rings
+            insert = eng._insert_private
 
             def recorded(one, slot):
                 insert(one, slot)
@@ -216,7 +225,7 @@ def _check_prefill(cfg, traffic, **kw):
                     None if e is None else {n: x.clone()
                                             for n, x in e.items()}
                     for e in one["layers"]]))
-            eng._insert_rings = recorded
+            eng._insert_private = recorded
         return on_build
 
     cap, s_cap, n_cap = _serve(cfg, True, traffic, on_build=record(True),
@@ -224,7 +233,7 @@ def _check_prefill(cfg, traffic, **kw):
     eag, s_eag, n_eag = _serve(cfg, False, traffic, on_build=record(False),
                                **kw)
     assert s_cap == s_eag and len(s_cap) == len(traffic[0])
-    assert n_cap == n_eag and n_cap
+    assert n_cap == n_eag and (n_cap or _no_kernels(cfg))
     p_cap, p_eag = cap.prefills[0], eag.prefills[0]
     assert p_cap.stats["chunks"] == p_eag.stats["chunks"]
     assert p_cap.chunked and p_cap.layout == p_eag.layout
@@ -304,6 +313,32 @@ def test_prefill_chunk_capture_dense(cuda):
     cfg = _cfg(**RING)
     _check_prefill(cfg, _traffic(cfg.vocab_size, seed=18, long=70),
                    pattern=[0, 0, 0, 1], paged_kv=False)
+
+
+def test_capture_mamba2(cuda):
+    """Reduced mamba2-130m (2 Mamba-2 layers, no attention): the decode
+    step updates every slot's state and convolution rows in place in the
+    static buffers; captured equals eager, the private rows too."""
+    cfg = _cfg("mamba2-130m")
+    _check_modes(cfg, _traffic(cfg.vocab_size, seed=19, long=70))
+
+
+def test_prefill_chunk_capture_mamba2(cuda):
+    """The chunk's padding mask and the convolution rows' gather read the
+    real length from the device; sharers resume from the prefix store's
+    cloned state."""
+    cfg = _cfg("mamba2-130m")
+    _check_prefill(cfg, _traffic(cfg.vocab_size, n=9, seed=20, long=70),
+                   reused=True)
+
+
+def test_capture_jamba_bfloat16(cuda):
+    """Reduced jamba in its published bfloat16: Mamba-2, MoE and one full
+    attention layer in eight; decode and chunks captured equal eager."""
+    cfg = _cfg("jamba-1.5-large-398b", n_layers=8,
+               compute_dtype="bfloat16", param_dtype="bfloat16")
+    _check_prefill(cfg, _traffic(cfg.vocab_size, seed=21, long=70),
+                   enable_placement=False)
 
 
 def test_block_topk_select_replayed_equals_eager(cuda):

@@ -146,22 +146,36 @@ def test_unsupported_configs_raise():
     _, want, _ = lm.prefill(params, toks, max_len=64, true_len=21)
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4,
                                atol=1e-4)
-    # online top-k builds (it is served on paged KV), SSM layers do not
-    TLM.build(tcfg.with_updates(omniattn_topk_blocks=2), pattern=[0, 0],
-              device="cpu")
-    with pytest.raises(NotImplementedError):
-        TLM.build(tcfg.with_updates(omniattn_topk_blocks=2, attn_period=2),
-                  pattern=[0, 0], device="cpu")
-    # the registry: qwen3-moe (and the other decoders the stack models) is
-    # registered with the reference's configuration; an SSM stack is not
+    # online top-k builds (it is served on paged KV), and so do SSM layers:
+    # attn_period=2 makes layers off its attention offset Mamba-2 layers,
+    # the plan the reference's
     import dataclasses
 
+    from repro.models import stack as jstack
+    TLM.build(tcfg.with_updates(omniattn_topk_blocks=2), pattern=[0, 0],
+              device="cpu")
+    hcfg = tcfg.with_updates(omniattn_topk_blocks=2, attn_period=2)
+    hyb = TLM.build(hcfg, pattern=[0, 0], device="cpu")
+    assert "mamba" in [s.kind for s in hyb.plan.all_specs()]
+    assert hyb.plan.all_specs() == \
+        jstack.StackPlan.from_config(hcfg, [0, 0]).all_specs()
+    # encoder-only and frontend families stay refused
+    with pytest.raises(NotImplementedError):
+        TLM.build(tcfg.with_updates(encoder_only=True), pattern=[0, 0],
+                  device="cpu")
+    with pytest.raises(NotImplementedError):
+        TLM.build(tcfg.with_updates(family="audio", frontend_dim=64),
+                  pattern=[0, 0], device="cpu")
+    # the registry: qwen3-moe and mamba2-130m (and the other decoders the
+    # stack models) are registered with the reference's configuration; an
+    # encoder is not
     from repro.configs import get_config as j_get_config
     from repro_torch.configs import get_config
-    assert dataclasses.asdict(get_config("qwen3-moe-235b-a22b")) == \
-        dataclasses.asdict(j_get_config("qwen3-moe-235b-a22b"))
+    for arch in ("qwen3-moe-235b-a22b", "mamba2-130m"):
+        assert dataclasses.asdict(get_config(arch)) == \
+            dataclasses.asdict(j_get_config(arch))
     with pytest.raises(NotImplementedError):            # not registered
-        get_config("mamba2-130m")
+        get_config("hubert-xlarge")
     # MoE serves, with online top-k too: the model's selection plan is the
     # reference's (tests/test_torch_compositions.py holds the served
     # streams to the JAX Server)

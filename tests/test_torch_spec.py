@@ -21,11 +21,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.sharding import AxisType
 
 from repro.configs import reduced_config
 from repro.core.proxy import OASConfig
 from repro.core.proxy.radix import RadixTree as JRadixTree
-from repro.distributed.ctx import local_mesh_ctx
+from repro.distributed.ctx import MeshCtx, local_mesh_ctx
 from repro.kernels import ref
 from repro.kernels.spec_verify import spec_verify as j_spec_verify
 from repro.models import LM
@@ -133,18 +134,29 @@ def test_controller_refusals_match_reference(small):
                                         sparsity=object())
     assert str(terr.value) == str(jerr.value)
 
-    # SSM layers (a stand-in plan: the port builds no mamba stack)
+    # SSM layers: a stand-in plan, and the real mamba2 and jamba stacks
+    # (every attention layer full, and jamba's default pattern)
     class _SSM:
         def __init__(self, lm):
             self.cfg, self.plan = lm.cfg, self
 
         def all_specs(self):
             return [type("S", (), {"kind": "mamba"})()]
-    with pytest.raises(ValueError) as jerr:
-        jspec.SpecController.from_model(_SSM(lm), jspec.SpecConfig())
-    with pytest.raises(ValueError) as terr:
-        tspec.SpecController.from_model(_SSM(tlm), tspec.SpecConfig())
-    assert str(terr.value) == str(jerr.value)
+    cases = [(_SSM(lm), _SSM(tlm))]
+    for arch in ("mamba2-130m", "jamba-1.5-large-398b"):
+        jc, tc = reduced_config(arch), t_reduced_config(arch)
+        for pattern in ([0] * jc.n_layers, None):
+            mesh = local_mesh_ctx() if not jc.moe.n_experts else MeshCtx(
+                jax.make_mesh((1, 1), ("data", "model"),
+                              axis_types=(AxisType.Auto,) * 2))
+            cases.append((LM.build(jc, mesh, pattern=pattern),
+                          TLM.build(tc, pattern=pattern, device="cpu")))
+    for jl, tl in cases:
+        with pytest.raises(ValueError) as jerr:
+            jspec.SpecController.from_model(jl, jspec.SpecConfig())
+        with pytest.raises(ValueError) as terr:
+            tspec.SpecController.from_model(tl, tspec.SpecConfig())
+        assert str(terr.value) == str(jerr.value)
     # the ring caps the window: k + 1 <= the smallest recent width, and a
     # ring too small for one draft turns speculation off; a compressed
     # layer without prefill_sparse refuses multi-position verify
