@@ -179,6 +179,23 @@ Phases (any failure raises, so the script exits non-zero):
      the ring runs, sink_decode; streams equal under phase 5's rule with
      a bfloat16 limit). The kernels line's `jamba` records carry phase
      2's bfloat16 times and phase 14's launches.
+ 15. train on the card (`train_phase`; no train step launches any of the
+     seven kernels: the launch counters stay put): (a) qwen2-1.5b as
+     published (bfloat16, float32 moments, remat) through
+     `repro_torch.launch.train.main` at its defaults (batch 8, seq 128,
+     lr 3e-4): a preemption drill (6 steps, a checkpoint every 4, exit 42
+     after step 4), its relaunch from step 4 and an uninterrupted run —
+     the resumed steps equal the uninterrupted ones (bit for bit, or
+     within P15_RESUME_TOL), the loss falls; step ms, tokens/s, peak
+     memory, checkpoint bytes, save and restore seconds; (b) the step-4
+     checkpoint restored bit-equal to the saved parameters and served
+     on phase 3's traffic (bfloat16) with streams equal to the in-memory
+     parameters'; (c) mamba2-130m as published (batch 4, seq 256, 6
+     steps): the loss falls, one step's loss equal with remat on and
+     off; (d) qwen2-moe-a2.7b at its published widths and grad_accum 2,
+     cut to P15_MOE_LAYERS layers, 3 steps: router and expert gradients
+     nonzero; (e) one float32 step of reduced qwen2-1.5b, card against
+     CPU within P15_CPU_TOL.
 Every serving phase of 3, 5-9 and 11-14 serves under CUDA-graph capture, the
 default on `cuda`: the decode step, the verify step and the prefill chunk
 are hot-loop entries (`DevicePlacement.hot_loop`), one graph per key
@@ -4359,6 +4376,432 @@ def serve_jamba(dev, log):
     return rec
 
 
+# ---- phase 15: training on the card ----------------------------------
+# (a) the training launcher at its defaults (batch 8, seq 128, lr 3e-4) on
+# qwen2-1.5b as published (bfloat16, float32 moments, remat on): a
+# preemption drill of P15_STEPS steps with a checkpoint every P15_EVERY,
+# preempted after step P15_PREEMPT, its relaunch, and an uninterrupted run
+P15_STEPS, P15_EVERY, P15_PREEMPT = 6, 4, 4
+# (c) mamba2-130m as published: batch, seq, steps (the reference example's)
+P15_MAMBA = (4, 256, 6)
+# (d) qwen2-moe-a2.7b at its published widths and grad_accum 2, cut to its
+# first P15_MOE_LAYERS layers (bfloat16 parameters and gradients, float32
+# accumulators and moments: ~47 GB), P15_MOE_STEPS steps at the launcher's
+# batch and seq
+P15_MOE_LAYERS, P15_MOE_STEPS = 4, 3
+# the resumed steps against the uninterrupted run's where they are not bit
+# for bit, and (e) card against CPU in float32 (PERF.md §6), relative
+P15_RESUME_TOL = {"loss": 1e-3, "grad_norm": 1e-2}
+P15_CPU_TOL = {"loss": 1e-5, "grad_norm": 1e-4}
+P15_CKPT_DIR = ROOT / "chiprun_ckpt"
+# the published fields phase 15 holds each architecture to
+P15_PUBLISHED = {
+    "qwen2-1.5b": dict(n_layers=28, d_model=1536, n_heads=12, n_kv_heads=2,
+                       head_dim=128, d_ff=8960, vocab_size=151936,
+                       tie_embeddings=True, param_dtype="bfloat16",
+                       compute_dtype="bfloat16", optimizer_dtype="float32",
+                       remat=True, grad_accum=1),
+    "mamba2-130m": {"n_layers": 24, "d_model": 768, "ssm.d_state": 128,
+                    "vocab_size": 50280, "param_dtype": "bfloat16",
+                    "remat": True},
+    "qwen2-moe-a2.7b": {"n_layers": 24, "d_model": 2048, "n_heads": 16,
+                        "d_ff": 1408, "vocab_size": 151936,
+                        "moe.n_experts": 60, "moe.top_k": 4,
+                        "moe.n_shared_experts": 4, "moe.d_ff_expert": 1408,
+                        "grad_accum": 2, "param_dtype": "bfloat16",
+                        "optimizer_dtype": "float32"}}
+
+
+def train_config(arch):
+    """`arch`'s registered config, held to its published fields."""
+    import operator
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    got = {k: operator.attrgetter(k)(cfg) for k in P15_PUBLISHED[arch]}
+    assert got == P15_PUBLISHED[arch], (arch, got)
+    return cfg
+
+
+class StepLog:
+    """The `on_step` of `launch.train.main`: per step the loss, gradient
+    norm and the device-synchronised ms since the previous step's record
+    (the first step's includes the launcher's set-up); with `keep_at` a
+    device copy of the parameters after that many steps."""
+
+    def __init__(self, keep_at=None):
+        self.steps, self.keep_at, self.kept = {}, keep_at, None
+        self.t = time.monotonic()
+
+    def __call__(self, step, params, opt, metrics):
+        torch.cuda.synchronize()
+        self.steps[step] = {"loss": float(metrics["loss"]),
+                            "grad_norm": float(metrics["grad_norm"]),
+                            "ms": (time.monotonic() - self.t) * 1e3}
+        if self.keep_at == step + 1:
+            from repro_torch.tree import tree_map
+            self.kept = tree_map(torch.clone, params)
+        self.t = time.monotonic()
+
+    def step_ms(self) -> float:
+        """Median ms of the steps after the run's first."""
+        return float(np.median([r["ms"] for s, r in sorted(
+            self.steps.items())[1:]]))
+
+
+def timed_checkpoints(times: dict):
+    """Record the device-synchronised seconds of every
+    `CheckpointManager.save` / `restore` under times["save_s"] /
+    ["restore_s"]. → the undo."""
+    from repro_torch.checkpoint.store import CheckpointManager as M
+    orig = M.save, M.restore
+
+    def wrap(fn, key):
+        def timed(*a, **k):
+            t = time.monotonic()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            times.setdefault(key, []).append(time.monotonic() - t)
+            return out
+        return timed
+    M.save, M.restore = wrap(orig[0], "save_s"), wrap(orig[1], "restore_s")
+
+    def undo():
+        M.save, M.restore = orig
+    return undo
+
+
+def step_breakdown(cfg, dev, reps=3) -> dict:
+    """Where a train step's time goes, on `cfg` at the launcher's batch 8 x
+    seq 128: the loss and its gradients (forward, the remat recompute and
+    backward) and the AdamW update, each as the host's enqueue ms and the
+    ms to the device's end (the median of `reps` after a warm-up). Host ms
+    close to the total means the host paces the part."""
+    from repro_torch.models.lm import LM
+    from repro_torch.training.data import DataConfig, make_batch
+    from repro_torch.training.optim import adamw_init, adamw_update
+    from repro_torch.training.trainer import loss_and_grads
+    from repro_torch.tree import tree_unflatten
+    lm = LM.build(cfg, device=dev)
+    params = lm.init(0)
+    opt = adamw_init(params, cfg.optimizer_dtype)
+    batch = make_batch(cfg, DataConfig(cfg.vocab_size, 128, 8), 0,
+                       device=dev)
+    rec = {k: [] for k in ("grad_host_ms", "grad_ms", "update_host_ms",
+                           "update_ms")}
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        _, grads = loss_and_grads(lm, params, batch)
+        t1 = time.monotonic()
+        torch.cuda.synchronize()
+        t2 = time.monotonic()
+        adamw_update(tree_unflatten(params, grads), opt, params)
+        t3 = time.monotonic()
+        torch.cuda.synchronize()
+        t4 = time.monotonic()
+        for k, v in (("grad_host_ms", t1 - t0), ("grad_ms", t2 - t0),
+                     ("update_host_ms", t3 - t2), ("update_ms", t4 - t2)):
+            rec[k].append(v * 1e3)
+        del grads
+    out = {k: float(np.median(v[1:])) for k, v in rec.items()}
+    del params, opt, lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def bit_equal_or_close(a: dict, b: dict, tol: dict, what: str) -> bool:
+    """Steps' loss and gradient norm: True when bit-equal, else held to
+    `tol` (relative) and False."""
+    same = all(a[k] == b[k] for k in tol)
+    if not same:
+        for k, r in tol.items():
+            assert abs(a[k] - b[k]) <= r * abs(b[k]), (what, k, a[k], b[k])
+    return same
+
+
+def train_qwen2(dev, log):
+    """Phase 15 (a) and (b): the preemption drill through the launcher, the
+    committed checkpoint restored bit for bit and served."""
+    import shutil
+    from repro_torch.checkpoint import load_checkpoint
+    from repro_torch.core.proxy import SamplingParams
+    from repro_torch.kernels._common import count_delta, launch_counts
+    from repro_torch.launch import train
+    from repro_torch.models.lm import LM
+    from repro_torch.tree import tree_items, tree_leaves
+    cfg = train_config("qwen2-1.5b")
+    n_params = sum(p.numel() for p in tree_leaves(
+        LM.build(cfg, device=dev).shapes()))
+    state_bytes = n_params * (2 + 4 + 4)
+    if P15_CKPT_DIR.exists():
+        shutil.rmtree(P15_CKPT_DIR)
+    P15_CKPT_DIR.mkdir()
+    free = shutil.disk_usage(P15_CKPT_DIR).free
+    assert free > 1.3 * state_bytes, \
+        f"{free / 1e9:.1f} GB free for a {state_bytes / 1e9:.1f} GB checkpoint"
+    argv = ["--arch", "qwen2-1.5b", "--steps", str(P15_STEPS), "--device",
+            str(dev), "--log-every", "1"]
+    ck = ["--ckpt-dir", str(P15_CKPT_DIR), "--ckpt-every", str(P15_EVERY)]
+    times, out = {}, {"n_params": n_params, "disk_free_gb": free / 1e9}
+    undo = timed_checkpoints(times)
+    c0 = launch_counts()
+    try:
+        pre = StepLog(keep_at=P15_PREEMPT)
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            train.main(argv + ck + ["--preempt-at", str(P15_PREEMPT)],
+                       on_step=pre)
+            raise AssertionError("the preemption drill ran to its end")
+        except SystemExit as e:
+            assert e.code == 42, e.code
+        gc.collect()
+        out["peak_mem_gb_drill"] = torch.cuda.max_memory_allocated() / 1e9
+        step_dir = P15_CKPT_DIR / f"step_{P15_PREEMPT:08d}"
+        assert sorted(p.name for p in P15_CKPT_DIR.iterdir()) == \
+            [step_dir.name]
+        out["ckpt_bytes"] = sum(f.stat().st_size
+                                for f in step_dir.iterdir())
+        res = StepLog()
+        last = train.main(argv + ck, on_step=res)
+        gc.collect()
+        torch.cuda.empty_cache()
+        whole = StepLog()
+        torch.cuda.reset_peak_memory_stats()
+        last_whole = train.main(argv, on_step=whole)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        undo()
+    out["launches_during_training"] = count_delta(c0, launch_counts())
+    assert not out["launches_during_training"], out
+    assert sorted(pre.steps) == list(range(P15_PREEMPT))
+    assert sorted(res.steps) == list(range(P15_PREEMPT, P15_STEPS))
+    assert sorted(whole.steps) == list(range(P15_STEPS))
+    assert last == res.steps[P15_STEPS - 1]["loss"]
+    assert last_whole == whole.steps[P15_STEPS - 1]["loss"]
+    out["drill_equal_uninterrupted"] = all(
+        bit_equal_or_close(pre.steps[s], whole.steps[s], P15_RESUME_TOL,
+                           f"drill step {s}") for s in pre.steps)
+    out["resume_bit_equal"] = all(
+        bit_equal_or_close(res.steps[s], whole.steps[s], P15_RESUME_TOL,
+                           f"resumed step {s}") for s in res.steps)
+    losses = [whole.steps[s]["loss"] for s in range(P15_STEPS)]
+    assert all(math.isfinite(x) for x in losses), losses
+    assert losses[-1] < losses[0], losses
+    out["losses"] = losses
+    out["grad_norms"] = [whole.steps[s]["grad_norm"]
+                         for s in range(P15_STEPS)]
+    out["resumed"] = [res.steps[s] for s in sorted(res.steps)]
+    out["step_ms"] = whole.step_ms()
+    out["first_step_ms"] = whole.steps[0]["ms"]
+    out["tokens_per_s"] = 8 * 128 / (out["step_ms"] / 1e3)
+    out["save_s"], out["restore_s"] = times["save_s"], times["restore_s"]
+
+    # (b) the committed step restored onto the card, bit for bit against
+    # the parameters the drill saved, and served from both
+    saved = pre.kept
+    assert not any(p.requires_grad for p in tree_leaves(saved))
+    t = time.monotonic()
+    got, step, _ = load_checkpoint(
+        P15_CKPT_DIR, template={"params": LM.build(cfg, device=dev).shapes()},
+        device=dev)
+    torch.cuda.synchronize()
+    out["restore_params_s"] = time.monotonic() - t
+    assert step == P15_PREEMPT
+    restored = got["params"]
+    for (k, a), b in zip(tree_items(restored), tree_leaves(saved)):
+        assert a.dtype == b.dtype and torch.equal(a, b), k
+    del got
+    shutil.rmtree(P15_CKPT_DIR)
+    prompts, base = workload(cfg.vocab_size)
+    rng = np.random.default_rng(11)
+    prompts += [base + tuple(int(t) for t in rng.integers(0, cfg.vocab_size,
+                                                          64))
+                for _ in range(2)]
+    params = [SamplingParams(max_tokens=4)] * 12 + [
+        SamplingParams(temperature=0.9, top_k=64, top_p=0.95, seed=900 + i,
+                       max_tokens=4) for i in (12, 13)]
+    served = {}
+    for name, w in (("restored", restored), ("in_memory", saved)):
+        srv = build_server(cfg, True, dev, params=w)
+        c = launch_counts()
+        streams, finished, summ, wall = drive(srv, prompts, params)
+        n = count_delta(c, launch_counts())
+        assert len(finished) == len(prompts) and all(
+            len(s) == 4 for s in streams), finished
+        if dev.type == "cuda":
+            assert n.get("paged_prefill.launches", 0) > 0 and \
+                n.get("paged_decode.launches", 0) > 0, n
+        served[name] = {"streams": streams, "launches": n, "wall_s": wall,
+                        "ttft_mean": summ["ttft_mean"],
+                        "tpot_mean_ms": summ["tpot_mean_ms"]}
+        del srv
+        gc.collect()
+        torch.cuda.empty_cache()
+    assert served["restored"]["streams"] == served["in_memory"]["streams"], \
+        "streams from the restored checkpoint differ from the in-memory ones"
+    out["served"] = {k: {kk: vv for kk, vv in v.items() if kk != "streams"}
+                     for k, v in served.items()}
+    del restored, saved, pre
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["breakdown"] = step_breakdown(cfg, dev)
+    # the least time of a step: 6 FLOPs a parameter a token, plus the
+    # forward recomputed under remat, at the dense bfloat16 rate
+    out["bound_ms"] = 8 * n_params * 8 * 128 / PEAK_FLOPS[torch.bfloat16] \
+        * 1e3
+    log.append(f"qwen2-1.5b: {n_params / 1e9:.3f} B parameters; drill "
+               f"exited 42 after step {P15_PREEMPT}; checkpoint "
+               f"{out['ckpt_bytes'] / 1e9:.2f} GB saved in "
+               f"{out['save_s'][0]:.2f} s, restored in "
+               f"{out['restore_s'][0]:.2f} s ({out['disk_free_gb']:.0f} GB "
+               f"free)")
+    return out
+
+
+def train_mamba2(dev, log):
+    """Phase 15 (c): mamba2-130m as published through the launcher, and one
+    step's loss with remat on against remat off."""
+    from repro_torch.launch import train
+    from repro_torch.models.lm import LM
+    from repro_torch.training.data import DataConfig, make_batch
+    from repro_torch.training.optim import adamw_init
+    from repro_torch.training.trainer import make_train_step
+    from repro_torch.tree import tree_map
+    cfg = train_config("mamba2-130m")
+    B, S, steps = P15_MAMBA
+    rec = StepLog()
+    torch.cuda.reset_peak_memory_stats()
+    train.main(["--arch", "mamba2-130m", "--batch", str(B), "--seq", str(S),
+                "--steps", str(steps), "--device", str(dev), "--log-every",
+                str(steps)], on_step=rec)
+    out = {"peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    losses = [rec.steps[s]["loss"] for s in range(steps)]
+    assert all(math.isfinite(x) for x in losses) and losses[-1] < losses[0], \
+        losses
+    out.update(losses=losses, step_ms=rec.step_ms(),
+               tokens_per_s=B * S / (rec.step_ms() / 1e3))
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm = LM.build(cfg, device=dev)
+    params = lm.init(0)
+    batch = make_batch(cfg, DataConfig(cfg.vocab_size, S, B), 0, device=dev)
+    one = {}
+    for remat in (True, False):
+        lm_r = LM.build(cfg.with_updates(remat=remat), device=dev)
+        p = tree_map(torch.clone, params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.monotonic()
+        _, _, m = make_train_step(lm_r)(p, adamw_init(p, cfg.optimizer_dtype),
+                                        batch)
+        torch.cuda.synchronize()
+        one[remat] = {"loss": float(m["loss"]),
+                      "grad_norm": float(m["grad_norm"]),
+                      "ms": (time.monotonic() - t) * 1e3,
+                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del p, m
+    assert one[True]["loss"] == one[False]["loss"], one
+    out["remat_grad_norm_bit_equal"] = bit_equal_or_close(
+        one[True], one[False], {"grad_norm": P15_RESUME_TOL["grad_norm"]},
+        "mamba2 remat")
+    out["remat_on"], out["remat_off"] = one[True], one[False]
+    del params, batch, lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_moe(dev, log):
+    """Phase 15 (d): qwen2-moe-a2.7b at its published widths and grad_accum
+    2, cut in depth; router, expert and shared-expert gradients nonzero (a
+    nonzero first moment after a step), no moe_gmm launch."""
+    from repro_torch.models.lm import LM
+    from repro_torch.training.data import DataConfig, make_batch
+    from repro_torch.training.optim import adamw_init
+    from repro_torch.training.trainer import make_train_step
+    from repro_torch.tree import tree_leaves
+    full = train_config("qwen2-moe-a2.7b")
+    cfg = full.with_updates(n_layers=P15_MOE_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    lm = LM.build(cfg, device=dev)
+    params = lm.init(0)
+    opt = adamw_init(params, cfg.optimizer_dtype)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    tables = lm.default_tables()
+    step = make_train_step(lm)
+    dcfg = DataConfig(cfg.vocab_size, 128, 8)
+    recs = []
+    for s in range(P15_MOE_STEPS):
+        batch = make_batch(cfg, dcfg, s, device=dev)
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        params, opt, met = step(params, opt, batch, tables)
+        torch.cuda.synchronize()
+        recs.append({"loss": float(met["loss"]),
+                     "grad_norm": float(met["grad_norm"]),
+                     "ms": (time.monotonic() - t) * 1e3})
+    assert all(math.isfinite(r["loss"]) and r["grad_norm"] > 0
+               for r in recs), recs
+    for i, layer in enumerate(opt["m"]["layers"]):
+        for k in ("router", "moe_w1", "moe_w3", "moe_w2", "shared_w1",
+                  "shared_w2"):
+            assert float(layer[k].abs().max()) > 0, (i, k)
+    out = {"n_layers": P15_MOE_LAYERS, "n_layers_published": full.n_layers,
+           "n_params": n_params, "steps": recs,
+           "step_ms": float(np.median([r["ms"] for r in recs[1:]])),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    out["tokens_per_s"] = 8 * 128 / (out["step_ms"] / 1e3)
+    del params, opt, lm, tables
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_card_vs_cpu(dev, log):
+    """Phase 15 (e): one float32 train step of reduced qwen2-1.5b on the
+    card and on the CPU from the same parameters and batch."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models.lm import LM
+    from repro_torch.training.data import DataConfig, make_batch
+    from repro_torch.training.optim import adamw_init
+    from repro_torch.training.trainer import make_train_step
+    from repro_torch.tree import tree_map
+    cfg = reduced_config("qwen2-1.5b").with_updates(
+        compute_dtype="float32", param_dtype="float32", remat=True)
+    base = LM.build(cfg, device="cpu").init(0)
+    got = {}
+    for d in ("cpu", dev):
+        lm = LM.build(cfg, device=d)
+        p = tree_map(lambda t: t.to(d, copy=True), base)
+        batch = make_batch(cfg, DataConfig(cfg.vocab_size, 128, 8), 0,
+                           device=d)
+        _, _, met = make_train_step(lm)(p, adamw_init(p), batch)
+        got[torch.device(d).type] = {"loss": float(met["loss"]),
+                                     "grad_norm": float(met["grad_norm"])}
+    for k, r in P15_CPU_TOL.items():
+        assert abs(got["cuda"][k] - got["cpu"][k]) <= r * abs(got["cpu"][k]), \
+            (k, got)
+    return {"card": got["cuda"], "cpu": got["cpu"],
+            "rel_diff": {k: abs(got["cuda"][k] - got["cpu"][k])
+                         / abs(got["cpu"][k]) for k in P15_CPU_TOL}}
+
+
+def train_phase(dev, log):
+    """Phase 15: (a)-(e); no kernel launches during any train step."""
+    from repro_torch.kernels._common import count_delta, launch_counts
+    out = {"qwen2": train_qwen2(dev, log)}
+    c0 = launch_counts()
+    out["mamba2"] = train_mamba2(dev, log)
+    out["moe"] = train_moe(dev, log)
+    out["card_vs_cpu"] = train_card_vs_cpu(dev, log)
+    out["launches_during_training_cde"] = count_delta(c0, launch_counts())
+    assert not out["launches_during_training_cde"], out
+    return out
+
+
 # ---- phase 10: captured against eager ------------------------------
 def random_arena(lm, n_blocks, bs, dev, quant, g):
     """Arenas of `n_blocks` blocks filled with seeded random K/V (int8
@@ -5097,13 +5540,77 @@ def main() -> int:
           f"default pattern near-ties {len(jamba['default_near_ties'])} "
           f"[{smi}]")
 
+    log.clear()
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t15 = time.monotonic()
+    trained = train_phase(dev, log)
+    print(f"phase 15 [{time.monotonic() - t0:.1f} s]: training on the card "
+          f"in {time.monotonic() - t15:.1f} s (no kernel launched by a "
+          f"train step)")
+    for line in log:
+        print("  " + line)
+    q = trained["qwen2"]
+    print(f"  (a) qwen2-1.5b, bfloat16, remat, batch 8 x seq 128: step "
+          f"{q['step_ms']:.2f} ms (first {q['first_step_ms']:.0f} ms), "
+          f"{q['tokens_per_s']:.0f} tokens/s, peak {q['peak_mem_gb']:.2f} GB"
+          f" (drill with its save {q['peak_mem_gb_drill']:.2f} GB); losses "
+          + ", ".join(f"{x:.4f}" for x in q["losses"])
+          + f"; drill steps equal the uninterrupted run's: "
+          f"{q['drill_equal_uninterrupted']}, resumed steps "
+          f"{P15_PREEMPT}-{P15_STEPS - 1} bit-equal: "
+          f"{q['resume_bit_equal']}; checkpoint {q['ckpt_bytes'] / 1e9:.2f}"
+          f" GB, save {q['save_s'][0]:.2f} s, restore {q['restore_s'][0]:.2f}"
+          f" s [{smi}]")
+    b = q["breakdown"]
+    print(f"  (a) a step's parts: loss + gradients {b['grad_ms']:.1f} ms "
+          f"(host enqueue {b['grad_host_ms']:.1f}), AdamW "
+          f"{b['update_ms']:.1f} ms (host {b['update_host_ms']:.1f}); the "
+          f"bound of a step {q['bound_ms']:.2f} ms (8 x parameters x "
+          f"tokens at the bfloat16 rate) [{smi}]")
+    print(f"  (b) step {P15_PREEMPT} restored ({q['restore_params_s']:.2f} s,"
+          f" parameters only) bit-equal to the saved parameters; greedy and "
+          f"sampled streams from it equal the in-memory ones; "
+          + "; ".join(f"{k}: TTFT mean {v['ttft_mean'] * 1e3:.1f} ms, TPOT "
+                      f"mean {v['tpot_mean_ms']:.2f} ms, launches "
+                      f"{v['launches']}" for k, v in q["served"].items())
+          + f" [{smi}]")
+    mm = trained["mamba2"]
+    print(f"  (c) mamba2-130m, bfloat16, remat, batch {P15_MAMBA[0]} x seq "
+          f"{P15_MAMBA[1]}: step {mm['step_ms']:.2f} ms, "
+          f"{mm['tokens_per_s']:.0f} tokens/s, peak {mm['peak_mem_gb']:.2f} "
+          f"GB; losses " + ", ".join(f"{x:.4f}" for x in mm["losses"])
+          + f"; one step remat on / off: loss equal, gradient norm bit-equal "
+          f"{mm['remat_grad_norm_bit_equal']}, {mm['remat_on']['ms']:.1f} / "
+          f"{mm['remat_off']['ms']:.1f} ms, peak "
+          f"{mm['remat_on']['peak_mem_gb']:.2f} / "
+          f"{mm['remat_off']['peak_mem_gb']:.2f} GB [{smi}]")
+    mo = trained["moe"]
+    print(f"  (d) qwen2-moe-a2.7b, {mo['n_layers']} of "
+          f"{mo['n_layers_published']} layers ({mo['n_params'] / 1e9:.2f} B "
+          f"parameters), bfloat16, grad_accum 2, batch 8 x seq 128: step "
+          f"{mo['step_ms']:.1f} ms, {mo['tokens_per_s']:.0f} tokens/s, peak "
+          f"{mo['peak_mem_gb']:.2f} GB; losses "
+          + ", ".join(f"{r['loss']:.4f}" for r in mo["steps"])
+          + f"; router, expert and shared-expert gradients nonzero [{smi}]")
+    cc = trained["card_vs_cpu"]
+    print(f"  (e) reduced qwen2-1.5b float32, one step: loss card "
+          f"{cc['card']['loss']:.6f} / CPU {cc['cpu']['loss']:.6f}, "
+          f"gradient norm {cc['card']['grad_norm']:.6f} / "
+          f"{cc['cpu']['grad_norm']:.6f} (relative "
+          f"{cc['rel_diff']['loss']:.2e}, {cc['rel_diff']['grad_norm']:.2e})")
+    log.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
     for rec in (served, spec["runs"]["spec_on"], spec["runs"]["spec_off"],
                 quant):
         rec.pop("streams", None)
     report.update(kernels=kern, kernels_int8=kern_q, serve=served,
                   default_pattern=omni, topk=topk, spec=spec, moe=moe,
                   quant=quant, eager=eager, ring_chunks=rings, chaos=chaos,
-                  archs=archs, mamba2=mamba2, jamba=jamba)
+                  archs=archs, mamba2=mamba2, jamba=jamba, train=trained)
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 

@@ -5,6 +5,9 @@ example `jax.tree.map(np.asarray, params)`), is turned into the port's
 parameter dict. Period-stacked leaves `[n_rep, ...]` are unstacked into one
 dict per layer in layer order (repeat r, period position i), then the
 remainder layers follow — the order of the reference's `unstack_params`.
+The optimizer's state crosses the same way (`opt_from_numpy`), and
+`params_to_numpy` carries parameters back, so two frameworks' parameters
+after k steps compare leaf by leaf.
 """
 from __future__ import annotations
 
@@ -46,4 +49,42 @@ def params_from_numpy(tree: dict, cfg, plan, device=None) -> dict:
     for k in ("embed", "final_norm", "head"):
         if k in tree:
             out[k] = _tensor(tree[k], dev)
+    return out
+
+
+def opt_from_numpy(opt: dict, cfg, plan, device=None) -> dict:
+    """The reference's AdamW state ({"m", "v": parameter-shaped trees,
+    "step"} of `adamw_init` / `adamw_update`, as numpy) → the port's, the
+    moments unstacked as `params_from_numpy` unstacks parameters and the
+    step a 0-d int32 tensor."""
+    dev = resolve_device(device)
+    return {"m": params_from_numpy(opt["m"], cfg, plan, dev),
+            "v": params_from_numpy(opt["v"], cfg, plan, dev),
+            "step": torch.tensor(int(np.asarray(opt["step"])),
+                                 dtype=torch.int32, device=dev)}
+
+
+def _array(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:       # exact in float32
+        t = t.float()
+    return t.numpy()
+
+
+def params_to_numpy(params: dict, plan) -> dict:
+    """The inverse of `params_from_numpy`: the port's parameter dict (or
+    a moment tree of its structure) → the reference's layout of numpy
+    arrays, period layers restacked [n_rep, ...] and the remainder after
+    them. bfloat16 leaves come out as float32 (exact; numpy has no
+    bfloat16)."""
+    layers, P = params["layers"], len(plan.period)
+    period = tuple({k: np.stack([_array(layers[r * P + i][k])
+                                 for r in range(plan.n_rep)])
+                    for k in layers[i]} for i in range(P))
+    rem = tuple({k: _array(v) for k, v in layers[plan.n_rep * P + j].items()}
+                for j in range(len(plan.rem)))
+    out = {"stack": {"period": period, "rem": rem}}
+    for k in ("embed", "final_norm", "head"):
+        if k in params:
+            out[k] = _array(params[k])
     return out

@@ -54,6 +54,22 @@ def add_launch_counts(delta: dict, sign: int = 1) -> None:
             setattr(fn, a, getattr(fn, a) + sign * delta[k])
 
 
+def refuse_autograd(name: str, *tensors) -> None:
+    """Raise when grad mode is on and an input of a kernel launch requires
+    grad. A kernel launched through ctypes is no autograd op: its output
+    has no grad_fn, so a backward through it would succeed and leave every
+    parameter upstream of it without its gradient. The train path
+    (`stack_apply(mode="train")`) runs plain PyTorch instead, and serving
+    runs under torch.no_grad(), where this costs one flag read."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward and would drop the "
+            f"gradients of an input that requires grad; train through "
+            f"stack_apply(mode='train') (plain PyTorch), or call it under "
+            f"torch.no_grad()")
+
+
 def kernel_arg(t: torch.Tensor, device: torch.device, dtype=None
                ) -> torch.Tensor:
     """A contiguous, 16-byte aligned tensor on `device` for a raw pointer

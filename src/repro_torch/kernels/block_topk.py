@@ -23,7 +23,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels._common import (DTYPE_CODES, HEAD_DIMS, kernel_arg,
-                                         per_row)
+                                         per_row, refuse_autograd)
 
 NEG_INF = -1e30
 # the kernel's grid (csrc/block_topk.cu::topk::plan): a cluster of CTAs per
@@ -177,6 +177,7 @@ def block_topk_scores(q, kmin, kmax, tables, lens, *, block_size: int):
     if q.device.type != "cuda":
         return block_topk_scores_plain(q, kmin, kmax, tables, lens,
                                        block_size=block_size)
+    refuse_autograd("block_topk_scores", q, kmin, kmax)
     q, lo, hi, tbl, ln = _kernel_args(q, kmin, kmax, tables, lens)
     B, K, G, h = q.shape
     nb = tbl.shape[1]
@@ -213,6 +214,7 @@ def block_topk_select(q, kmin, kmax, tables, lens, *, block_size: int,
             q, kmin, kmax, tables, lens, block_size=block_size,
             k_static=k_static, frac=frac, sink_blocks=sink_blocks,
             recent_blocks=recent_blocks, token_mask=token_mask)
+    refuse_autograd("block_topk_select", q, kmin, kmax)
     q, lo, hi, tbl, ln = _kernel_args(q, kmin, kmax, tables, lens)
     B, K, G, h = q.shape
     nb = tbl.shape[1]

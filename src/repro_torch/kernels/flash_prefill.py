@@ -15,7 +15,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels._common import DTYPE_CODES, HEAD_DIMS, kernel_arg
+from repro_torch.kernels._common import (DTYPE_CODES, HEAD_DIMS, kernel_arg,
+                                         refuse_autograd)
 
 NEG_INF = -1e30
 
@@ -53,6 +54,7 @@ def flash_prefill(q, k, v, *, causal: bool = True, window: int = 0,
     if q.device.type != "cuda":
         return flash_prefill_plain(q, k, v, causal=causal, window=window,
                                    sink=sink)
+    refuse_autograd("flash_prefill", q, k, v)
     N, SG, h = q.shape
     S = k.shape[1]
     if k.shape != (N, S, h) or v.shape != k.shape or SG % S:

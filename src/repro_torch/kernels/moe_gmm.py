@@ -20,7 +20,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels._common import DTYPE_CODES, kernel_arg
+from repro_torch.kernels._common import (DTYPE_CODES, kernel_arg,
+                                         refuse_autograd)
 from repro_torch.kernels.paged_decode import _sm_count
 
 # the kernel's work item and occupancy (csrc/moe_gmm.cu BN, RT, CTAS_PER_SM)
@@ -55,6 +56,7 @@ def moe_gmm(x, w, n_valid):
     being read."""
     if x.device.type != "cuda":
         return moe_gmm_plain(x, w, n_valid)
+    refuse_autograd("moe_gmm", x, w)
     S, C, D = x.shape
     if w.ndim != 3 or w.shape[0] != S or w.shape[1] != D:
         raise ValueError(f"w {tuple(w.shape)} does not match x "

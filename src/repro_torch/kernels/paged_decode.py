@@ -23,7 +23,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels._common import (DTYPE_CODES, HEAD_DIMS, gather_kv,
                                          kernel_arg, per_row,
-                                         scale_plane_args)
+                                         refuse_autograd, scale_plane_args)
 
 NEG_INF = -1e30
 DECODE_WARPS = 4          # warps per CTA of the kernel (csrc DEC_WARPS)
@@ -110,6 +110,7 @@ def paged_decode(q, k_pages, v_pages, tables, lens, *, k_scale=None,
         return paged_decode_plain(q, k_pages, v_pages, tables, lens,
                                   k_scale=k_scale, k_tok=k_tok,
                                   v_scale=v_scale, v_tok=v_tok)
+    refuse_autograd("paged_decode", q, k_pages, v_pages)
     B, K, G, h = q.shape
     N, Kp, bs, hp = k_pages.shape
     if (Kp, hp) != (K, h) or v_pages.shape != k_pages.shape:

@@ -19,7 +19,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels._common import (DTYPE_CODES, HEAD_DIMS, gather_kv,
                                          kernel_arg, per_row,
-                                         scale_plane_args)
+                                         refuse_autograd, scale_plane_args)
 from repro_torch.kernels.paged_decode import _sm_count, prefill_splits
 
 NEG_INF = -1e30
@@ -83,6 +83,7 @@ def paged_prefill(q, k_new, v_new, k_pages, v_pages, tables, off, chunk_len,
                                    off, chunk_len, window=window, sink=sink,
                                    k_scale=k_scale, k_tok=k_tok,
                                    v_scale=v_scale, v_tok=v_tok)
+    refuse_autograd("paged_prefill", q, k_new, v_new, k_pages, v_pages)
     B, K, SG, h = q.shape
     S = k_new.shape[2]
     if k_new.shape != (B, K, S, h) or v_new.shape != k_new.shape \

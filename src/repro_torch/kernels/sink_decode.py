@@ -19,7 +19,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels._common import (DTYPE_CODES, HEAD_DIMS, kernel_arg,
-                                         per_row)
+                                         per_row, refuse_autograd)
 from repro_torch.kernels.paged_decode import (_sm_count, decode_row_groups,
                                               decode_splits)
 
@@ -72,6 +72,7 @@ def sink_decode(q, k_cache, v_cache, t):
     dtype."""
     if q.device.type != "cuda":
         return sink_decode_plain(q, k_cache, v_cache, t)
+    refuse_autograd("sink_decode", q, k_cache, v_cache)
     B, K, G, h = q.shape
     Bc, Kc, W, hc = k_cache.shape
     if (Bc, Kc, hc) != (B, K, h) or v_cache.shape != k_cache.shape:

@@ -19,7 +19,8 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels._common import (DTYPE_CODES, HEAD_DIMS, kernel_arg,
-                                         per_row, scale_plane_args)
+                                         per_row, refuse_autograd,
+                                         scale_plane_args)
 from repro_torch.kernels.paged_decode import _sm_count, prefill_splits
 from repro_torch.kernels.paged_prefill import paged_prefill_plain
 
@@ -52,6 +53,7 @@ def spec_verify(q, k_new, v_new, k_pages, v_pages, tables, off, n_tok, *,
         return spec_verify_plain(q, k_new, v_new, k_pages, v_pages, tables,
                                  off, n_tok, k_scale=k_scale, k_tok=k_tok,
                                  v_scale=v_scale, v_tok=v_tok)
+    refuse_autograd("spec_verify", q, k_new, v_new, k_pages, v_pages)
     B, K, SG, h = q.shape
     S = k_new.shape[2]
     if k_new.shape != (B, K, S, h) or v_new.shape != k_new.shape \

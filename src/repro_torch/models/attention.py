@@ -42,6 +42,45 @@ def decode_attention(q, k_cache, v_cache, t):
     return out.reshape(B, H, h)
 
 
+def chunked_attention(q, k, v, *, causal: bool, window: int = 0,
+                      sink: int = 0, q_offset: int = 0,
+                      fp32_scores: bool = True):
+    """Whole-sequence attention of the train path (the reference's jnp
+    `chunked_attention`), plain and differentiable PyTorch. q [B,S,H,h];
+    k/v [B,Skv,K,h] → [B,S,H,h] in v's dtype. Query row i sits at position
+    q_offset + i, key j at j. causal masks keys past the query; window > 0
+    keeps keys with q_pos - k_pos < window, and with sink > 0 also the
+    first `sink` keys (OmniAttn sparse prefill).
+
+    It computes the whole masked score matrix [B, K, G, S, Skv] at once,
+    each kv head's G query heads batched against it (no kv head is
+    repeated), not blockwise over attn_q_chunk / attn_kv_chunk: the train
+    path's sequences are short enough that the matrix fits. Masked scores
+    are NEG_INF, as in the reference, so a row with no visible key would
+    average every key; scores and softmax are float32 unless fp32_scores
+    is False."""
+    B, S, H, h = q.shape
+    Skv, K = k.shape[1], k.shape[2]
+    G = H // K
+    sd = torch.float32 if fp32_scores else q.dtype
+    qg = q.reshape(B, S, K, G, h).to(sd)
+    s = torch.einsum("bqkgh,bckh->bkgqc", qg, k.to(sd)) * h ** -0.5
+    q_pos = q_offset + torch.arange(S, device=q.device)
+    k_pos = torch.arange(Skv, device=q.device)
+    mask = torch.ones((S, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_pos[None, :] <= q_pos[:, None]
+    if window > 0:
+        in_win = (q_pos[:, None] - k_pos[None, :]) < window
+        if sink > 0:
+            in_win |= k_pos[None, :] < sink
+        mask &= in_win
+    s = s.masked_fill(~mask, NEG_INF)
+    p = torch.softmax(s.float(), dim=-1)
+    out = torch.einsum("bkgqc,bckh->bqkgh", p.to(v.dtype), v)
+    return out.reshape(B, S, H, h)
+
+
 def _gather_linear(pages, tables, scale=None, tok=None):
     """Tabled blocks of an arena [N,K,bs,h] as a linear [B, nb·bs, K, h]
     view; int8 pages with their scale plane come out dequantized (f32)."""

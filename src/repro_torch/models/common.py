@@ -1,4 +1,5 @@
-"""Shared model primitives: norms, the gated FFN, rope."""
+"""Shared model primitives: norms, the gated FFN, rope, the training
+loss."""
 from __future__ import annotations
 
 import torch
@@ -42,3 +43,18 @@ def apply_rope(x: torch.Tensor, positions, theta: float) -> torch.Tensor:
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask=None) -> torch.Tensor:
+    """Mean token cross-entropy through a float32 logsumexp. logits
+    [..., V]; labels [...] int; mask [...] (optional) weights the tokens,
+    over a denominator of max(sum(mask), 1)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = lse - ll
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)

@@ -1,8 +1,9 @@
-"""Top-level model of the port: embeddings, tied (or untied) head, and the
-serving entry points: whole-prompt `prefill` into dense caches, chunked
-`prefill_resume` and `decode` over paged or dense KV (with OmniAttn online
-top-k on paged full layers), and the speculative `verify` / `verify_commit`
-pair over paged KV. Mamba-2 layers carry their per-sequence state through
+"""Top-level model of the port: embeddings, tied (or untied) head, the
+training loss (`train_loss`, differentiable) and the serving entry points:
+whole-prompt `prefill` into dense caches, chunked `prefill_resume` and
+`decode` over paged or dense KV (with OmniAttn online top-k on paged full
+layers), and the speculative `verify` / `verify_commit` pair over paged
+KV. Mamba-2 layers carry their per-sequence state through
 the same entry points (verify refuses them). MoE layers route through the
 OmniPlacement tables each entry point takes (`default_tables()` to start);
 the per-layer expert counts come back in the aux."""
@@ -18,7 +19,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import stack as stack_mod
-from repro_torch.models.common import rms_norm
+from repro_torch.models.common import cross_entropy, rms_norm
 
 
 def _device_int(x, device) -> torch.Tensor:
@@ -128,6 +129,17 @@ class LM:
                             for layer in defs["layers"]]
         return params
 
+    def shapes(self) -> dict:
+        """The parameter tree as "meta" tensors — shapes and dtypes, no
+        storage: a checkpoint restore's template."""
+        defs = self.param_defs()
+        make = lambda shape, _init, dtype: torch.empty(
+            shape, dtype=torch_dtype(dtype), device="meta")
+        out = {k: make(*v) for k, v in defs.items() if k != "layers"}
+        out["layers"] = [{k: make(*v) for k, v in layer.items()}
+                         for layer in defs["layers"]]
+        return out
+
     def default_tables(self) -> Optional[dict]:
         """The round-robin placement's tables on this LM's device (one
         rank), or None without MoE layers."""
@@ -150,6 +162,27 @@ class LM:
         if cfg.tie_embeddings:
             return x.to(cd) @ params["embed"].t()
         return x.to(cd) @ params["head"]
+
+    def train_loss(self, params, batch: dict, tables=None):
+        """batch {"tokens" [B, S], "labels" [B, S][, "mask" [B, S]]} → (mean
+        token cross-entropy, aux {"moe_counts": [per-MoE-layer [E]]}): the
+        whole sequences at positions arange(S) through `stack_apply(mode=
+        "train")` — plain differentiable attention and expert products, no
+        kernel, each layer an activation checkpoint under cfg.remat. MoE
+        layers route through `tables` (default_tables())."""
+        if "frames" in batch or "patches" in batch:
+            raise NotImplementedError(
+                "audio frames and vlm patches are not ported yet (ROADMAP "
+                "A15)")
+        x = self._embed(params, batch["tokens"])
+        positions = torch.arange(x.shape[1], device=x.device)
+        x, _, _, counts = stack_mod.stack_apply(
+            self.cfg, self.plan, params["layers"], x, mode="train",
+            positions=positions, caches=None, block_tables=None,
+            tables=tables)
+        loss = cross_entropy(self._logits(params, x), batch["labels"],
+                             batch.get("mask"))
+        return loss, {"moe_counts": counts}
 
     @torch.no_grad()
     def prefill(self, params, tokens, *, max_len: int, true_len=None,

@@ -12,7 +12,8 @@ Layout (the reference's, src/repro/models/moe.py):
   · dispatch (the body of the reference's shard_map for one device):
     bucket the (token, choice) assignments per slot in token order, run the
     three expert products over the slot buffer [s, Cb, D] through the
-    `moe_gmm` kernel with each slot's valid-row count, then a weighted
+    `moe_gmm` kernel with each slot's valid-row count (`torch.bmm` on the
+    train path), then a weighted
     combine. Assignments past a slot's capacity Cb are dropped (they add 0;
     the kept gates are not renormalised).
 
@@ -138,7 +139,8 @@ def _bucket_capacity(tc: int, k: int, ep: int, s: int, cf: float) -> int:
 
 # ----------------------------------------------------------------------
 def moe_ffn(cfg: ModelConfig, x, router_w, w1, w3, w2, tables: dict,
-            shared: Optional[tuple] = None, token_mask=None):
+            shared: Optional[tuple] = None, token_mask=None,
+            train: bool = False):
     """x [T, D] → (y [T, D] in x's dtype, expert_counts [E] f32).
 
     Counts are the routed (token, choice) assignments per expert, taken
@@ -146,7 +148,11 @@ def moe_ffn(cfg: ModelConfig, x, router_w, w1, w3, w2, tables: dict,
     slots and padded prefill rows are routed and take capacity, exactly as
     in the reference, but do not count). w1/w3 [1, s, D, Fe], w2 [1, s,
     Fe, D]; shared (sw1, sw3, sw2) is the shared experts' SwiGLU, a plain
-    product outside any kernel."""
+    product outside any kernel. With `train` the three expert products are
+    `torch.bmm` over the slot buffers (what the reference's einsums
+    compute; the moe_gmm kernel has no backward), so gradients reach the
+    router, the slot weights and the shared experts; routing, capacity and
+    counts are the serving path's."""
     R, s = w1.shape[0], w1.shape[1]
     if R != 1:
         raise NotImplementedError(
@@ -198,9 +204,12 @@ def moe_ffn(cfg: ModelConfig, x, router_w, w1, w3, w2, tables: dict,
         n_valid = torch.clamp(
             torch.zeros(s, dtype=torch.int32, device=dev).index_add_(
                 0, key, torch.ones_like(key, dtype=torch.int32)), max=Cb)
-        h = torch.nn.functional.silu(moe_gmm(xe, w1[0], n_valid))
-        h = h * moe_gmm(xe, w3[0], n_valid)
-        oe = moe_gmm(h, w2[0], n_valid).view(s * Cb, D)
+        # rows past a slot's n_valid are zeros in xe, so the plain products
+        # give them the kernel's zeros too
+        gmm = (lambda a, w, _nv: torch.bmm(a, w)) if train else moe_gmm
+        h = torch.nn.functional.silu(gmm(xe, w1[0], n_valid))
+        h = h * gmm(xe, w3[0], n_valid)
+        oe = gmm(h, w2[0], n_valid).view(s * Cb, D)
         res = oe[torch.where(valid, flat, torch.zeros_like(flat))]
         wgt = (gate_f * valid).to(res.dtype)[:, None]
         # src repeats each token k times in a row: the combine is a sum over

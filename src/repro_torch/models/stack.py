@@ -285,7 +285,10 @@ def attn_sublayer(cfg: ModelConfig, spec: LayerSpec, p: dict, x, *,
     mode "verify": each slot's draft window, positions [B, S], read-only
       against the paged caches — full layers through the spec-verify
       kernel, ring layers through `spec_verify_ring_attention`; the new
-      entry is the window's rope'd K/V, staged for `stack_verify_commit`."""
+      entry is the window's rope'd K/V, staged for `stack_verify_commit`.
+    mode "train": whole sequences [B, S] at positions arange(S), no cache,
+      through the plain differentiable `chunked_attention` (never a
+      kernel: none has a backward); no entry."""
     B, S, _ = x.shape
     H, K, h = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     cd = torch_dtype(cfg.compute_dtype)
@@ -305,11 +308,16 @@ def attn_sublayer(cfg: ModelConfig, spec: LayerSpec, p: dict, x, *,
     k = attn_mod.apply_rope(k, positions, cfg.rope_theta)
     sink, recent = cache_window(cfg, spec)
     ring = bool(sink or recent)
+    # the mask of a whole sequence (train, whole-prompt prefill)
+    window, use_sink = spec.window, 0
+    if spec.compressed and cfg.prefill_sparse:
+        window, use_sink = recent, sink
     new_cache = sp_aux = None
-    if mode == "prefill" and cache is None:
-        window, use_sink = spec.window, 0
-        if spec.compressed and cfg.prefill_sparse:
-            window, use_sink = recent, sink
+    if mode == "train":
+        out = attn_mod.chunked_attention(q, k, v, causal=cfg.causal,
+                                         window=window, sink=use_sink,
+                                         fp32_scores=cfg.attn_fp32_scores)
+    elif mode == "prefill" and cache is None:
         out = kops.attention_prefill_op(q, k, v, causal=cfg.causal,
                                         window=window, sink=use_sink)
         if ring:
@@ -484,9 +492,10 @@ def mamba_sublayer(cfg: ModelConfig, p: dict, x, *, mode: str,
     """The Mamba-2 SSD mixer of one layer with its pre-norm and residual.
     → (x, new entry or None).
 
-    mode "prefill", cache None: a whole B=1 prompt from a zero state; the
-      new entry is returned. With a cache: a chunk continuing the entry's
-      state and convolution rows, updated in place. With `true_len` (an int
+    mode "prefill" or "train", cache None: whole sequences from a zero state
+      (a B=1 prompt, or a training batch); the new entry is returned. Mode
+      "prefill" with a cache: a chunk continuing the entry's state and
+      convolution rows, updated in place. With `true_len` (an int
       or a 0-d device tensor, read on the device) the rows past it are
       padding: their dt and x are zeroed, which leaves the state as it was
       (decay exp(0) = 1, update 0), and the new convolution rows are the
@@ -560,11 +569,13 @@ def mamba_sublayer(cfg: ModelConfig, p: dict, x, *, mode: str,
 
 
 def ffn_sublayer(cfg: ModelConfig, spec: LayerSpec, p: dict, x, *,
-                 tables: Optional[dict] = None, token_mask=None):
+                 tables: Optional[dict] = None, token_mask=None,
+                 train: bool = False):
     """Feed-forward with its pre-norm and residual: a dense SwiGLU, or on
-    an MoE layer the routed experts (through the moe_gmm kernel) plus the
-    shared SwiGLU. → (x, expert counts [E] or None). token_mask [B]
-    weights the counts of each row's S tokens."""
+    an MoE layer the routed experts (through the moe_gmm kernel, or plain
+    products with `train`) plus the shared SwiGLU. → (x, expert counts
+    [E] or None). token_mask [B] weights the counts of each row's S
+    tokens."""
     if not spec.use_moe and cfg.d_ff == 0:
         return x, None
     cd = torch_dtype(cfg.compute_dtype)
@@ -578,8 +589,45 @@ def ffn_sublayer(cfg: ModelConfig, spec: LayerSpec, p: dict, x, *,
     tm = None if token_mask is None else token_mask.repeat_interleave(S)
     y, counts = moe_mod.moe_ffn(cfg, hid.reshape(B * S, D), p["router"],
                                 p["moe_w1"], p["moe_w3"], p["moe_w2"],
-                                tables, shared, token_mask=tm)
+                                tables, shared, token_mask=tm, train=train)
     return x + y.reshape(B, S, D).to(x.dtype), counts
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of remat_policy "dots": keep the matrix
+    products' outputs, recompute everything else (the reference's
+    `dots_saveable`)."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+              torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
+def apply_layer(cfg: ModelConfig, spec: LayerSpec, p: dict, x, *, mode: str,
+                positions, cache: Optional[dict], block_tables=None,
+                true_len: Optional[int] = None, pos0: int = 0,
+                max_len: int = 0, token_mask=None,
+                tables: Optional[dict] = None):
+    """One layer: its mixer (attention or Mamba-2) and its FFN. → (x, new
+    entry, sparsity aux, expert counts)."""
+    sp = None
+    if spec.kind == "mamba":
+        x, nc = mamba_sublayer(cfg, p, x, mode=mode, cache=cache,
+                               true_len=true_len)
+    else:
+        x, nc, sp = attn_sublayer(
+            cfg, spec, p, x, mode=mode, positions=positions, cache=cache,
+            true_len=true_len, block_tables=block_tables, pos0=pos0,
+            max_len=max_len, token_mask=token_mask)
+    x, cnt = ffn_sublayer(cfg, spec, p, x, tables=tables,
+                          token_mask=token_mask, train=mode == "train")
+    return x, nc, sp, cnt
 
 
 def stack_apply(cfg: ModelConfig, plan: StackPlan, layers: list, x, *,
@@ -594,26 +642,34 @@ def stack_apply(cfg: ModelConfig, plan: StackPlan, layers: list, x, *,
     prefill) or the staged window K/V per layer in mode "verify", else
     None; sparsity is the list of per-layer [4] online-sparsity vectors
     (empty when off); counts the list of per-MoE-layer expert counts [E]
-    (empty without MoE layers)."""
+    (empty without MoE layers).
+
+    Mode "train" (whole sequences, no cache) is differentiable; with
+    cfg.remat each layer is an activation checkpoint
+    (`torch.utils.checkpoint`, non-reentrant): remat_policy "nothing"
+    keeps only the layer's input and recomputes the rest in the backward,
+    "dots" also keeps the matrix products' outputs."""
     entries = [] if caches is None or mode == "verify" else None
     sparsity, counts = [], []
+    remat = mode == "train" and cfg.remat
+    if remat:
+        from torch.utils.checkpoint import checkpoint
+        ctx = {"dots": dict(context_fn=_dots_context)}.get(cfg.remat_policy,
+                                                            {})
     for i, (spec, p) in enumerate(zip(plan.all_specs(), layers)):
-        cache = None if caches is None else caches["layers"][i]
-        sp = None
-        if spec.kind == "mamba":
-            x, nc = mamba_sublayer(cfg, p, x, mode=mode, cache=cache,
-                                   true_len=true_len)
+        kw = dict(mode=mode, positions=positions,
+                  cache=None if caches is None else caches["layers"][i],
+                  block_tables=block_tables, true_len=true_len, pos0=pos0,
+                  max_len=max_len, token_mask=token_mask, tables=tables)
+        if remat:
+            x, nc, sp, cnt = checkpoint(apply_layer, cfg, spec, p, x,
+                                        use_reentrant=False, **ctx, **kw)
         else:
-            x, nc, sp = attn_sublayer(
-                cfg, spec, p, x, mode=mode, positions=positions, cache=cache,
-                true_len=true_len, block_tables=block_tables, pos0=pos0,
-                max_len=max_len, token_mask=token_mask)
+            x, nc, sp, cnt = apply_layer(cfg, spec, p, x, **kw)
         if entries is not None:
             entries.append(nc)
         if sp is not None:
             sparsity.append(sp)
-        x, cnt = ffn_sublayer(cfg, spec, p, x, tables=tables,
-                              token_mask=token_mask)
         if cnt is not None:
             counts.append(cnt)
     return x, entries, sparsity, counts

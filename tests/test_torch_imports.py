@@ -66,7 +66,8 @@ def test_no_jax_or_repro_import_in_source(path):
 def test_every_slice_module_is_checked():
     """The import check above walks the package; the modules of each slice
     (paged serving, the OmniAttn ring path, online top-k and SpecPlane,
-    MoE with OmniPlacement, QuantPlane) are among the ones it loads."""
+    MoE with OmniPlacement, QuantPlane, training, checkpoints and the
+    launchers) are among the ones it loads."""
     mods = set(_modules())
     for m in ("repro_torch.kernels.paged_decode",
               "repro_torch.kernels.sink_decode",
@@ -80,5 +81,8 @@ def test_every_slice_module_is_checked():
               "repro_torch.core.placement.static",
               "repro_torch.core.placement.dynamic",
               "repro_torch.core.placement.migration",
-              "repro_torch.serving.quant"):
+              "repro_torch.serving.quant", "repro_torch.tree",
+              "repro_torch.training.optim", "repro_torch.training.data",
+              "repro_torch.training.trainer", "repro_torch.checkpoint.store",
+              "repro_torch.launch.train", "repro_torch.launch.serve"):
         assert m in mods, m

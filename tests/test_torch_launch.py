@@ -1,0 +1,77 @@
+"""The port's launchers on the CPU, reduced configs.
+
+- `launch.train.main`: a preemption drill (`--preempt-at 4` exits 42
+  after committing step 4), a relaunch that resumes at step 4 and runs to
+  6, and an uninterrupted 6-step run: the resumed steps' losses and
+  gradient norms are bit-equal to the uninterrupted run's, and so are the
+  final parameters;
+- `launch.serve.main`: the summary's keys are the reference launcher's
+  (`repro.launch.serve`) on the same flags, every request completes, and
+  --tp / --ep above 1 raise naming ROADMAP A16.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro.launch import serve as jserve
+from repro_torch.launch import serve, train
+from repro_torch.tree import tree_leaves
+
+torch.set_num_threads(2)
+
+ARGS = ["--arch", "qwen2-1.5b", "--reduced", "--device", "cpu",
+        "--batch", "2", "--seq", "32", "--lr", "1e-3", "--steps", "6",
+        "--log-every", "1"]
+
+
+def _run(argv):
+    log = {}
+
+    def on_step(step, params, opt, metrics):
+        log[step] = (float(metrics["loss"]), float(metrics["grad_norm"]))
+        log["params"] = [p.clone() for p in tree_leaves(params)]
+    try:
+        last = train.main(argv, on_step=on_step)
+        code = None
+    except SystemExit as e:
+        last, code = None, e.code
+    return log, last, code
+
+
+def test_train_preempt_and_resume_bit_equal(tmp_path, capsys):
+    ck = ["--ckpt-dir", str(tmp_path), "--ckpt-every", "4"]
+    first, _, code = _run(ARGS + ck + ["--preempt-at", "4"])
+    assert code == 42
+    assert sorted(k for k in first if k != "params") == [0, 1, 2, 3]
+    assert (tmp_path / "step_00000004" / "manifest.json").exists()
+    resumed, last, code = _run(ARGS + ck)
+    assert code is None
+    assert sorted(k for k in resumed if k != "params") == [4, 5]
+    out = capsys.readouterr().out
+    assert "simulated preemption at step 4" in out
+    assert "resumed from step 4" in out
+    whole, last_whole, _ = _run(ARGS)
+    for s in (0, 1, 2, 3):
+        assert first[s] == whole[s]
+    for s in (4, 5):
+        assert resumed[s] == whole[s]
+    assert last == last_whole == whole[5][0]
+    for a, b in zip(resumed["params"], whole["params"]):
+        assert torch.equal(a, b)
+    assert whole[5][0] < whole[0][0]
+
+
+def test_serve_summary_keys_match_reference(capsys):
+    argv = ["--arch", "qwen2-1.5b", "--reduced", "--requests", "3",
+            "--max-tokens", "2"]
+    got = serve.main(argv + ["--device", "cpu"])
+    want = jserve.main(argv)
+    keys = lambda s: sorted(k for k, v in s.items()
+                            if not isinstance(v, list))
+    assert keys(got) == keys(want)
+    assert got["n_done"] == want["n_done"] == 3
+
+
+def test_serve_refuses_multi_gpu():
+    with pytest.raises(NotImplementedError, match="A16"):
+        serve.main(["--reduced", "--device", "cpu", "--tp", "2"])
