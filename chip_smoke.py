@@ -42,7 +42,12 @@ Phases (any failure raises, so the script exits non-zero):
      and paged_prefill at (K 8, G 8, h 128), paged_decode also over the
      ring tables, flash_prefill over a 4,608-token prompt and sink_decode
      over the 4,224-slot ring, moe_gmm at 17 slots of 8,192 x 24,576
-     (top-2) for a decode step and a 128-token chunk; float32 bounds by
+     (top-2) for a decode step and a 128-token chunk; and phase 16's head
+     dims (`check_frontend_kernels`): flash_prefill, sink_decode and
+     paged_decode (float and int8 pages) at h 80 and 96 in float32 and
+     bfloat16 (causal, bidirectional, window + sink, GQA groups at the
+     decode routine's row limit and past it; channels 64-79 held on their
+     own at h 80), timed at phase 16's shapes; float32 bounds by
      operations are reckoned at the 3xTF32 rate (165 TF/s). It prints each
      library's most registers, its h = 256 instances' and any spill
      (ptxas -v);
@@ -196,6 +201,25 @@ Phases (any failure raises, so the script exits non-zero):
      cut to P15_MOE_LAYERS layers, 3 steps: router and expert gradients
      nonzero; (e) one float32 step of reduced qwen2-1.5b, card against
      CPU within P15_CPU_TOL.
+ 16. run the frontend families at full width in float32 through `LM`
+     (`frontend_phase`; the Server refuses them, as the reference's
+     does): (a) phi-3-vision-4.2b as published (32 layers, h 96, every
+     layer full attention): two prompts of 256 patch embeddings + 768
+     tokens, each prefilled alone (flash_prefill == 32 a prefill), then
+     decoded together for 16 greedy steps from position 1,024
+     (sink_decode == 32 a step); the first step's logits equal one
+     prefill of the patches + 769 tokens within 2e-3, and zero patches
+     change the logits; (b) hubert-xlarge as published (48 layers, h 80,
+     bidirectional): two 1,024-frame clips in one batch through
+     `LM.prefill(frames=...)` → per-frame logits [2, 1,024, 504]
+     (flash_prefill == 48 a forward), equal to the same forward through
+     flash_prefill_plain on the card within 2e-3; (c) the reduced configs
+     with h 80 / 96, card against CPU (logits 2e-3, a train step's loss
+     and gradient norm within P15_CPU_TOL, no launch in it); (d)
+     launch/train.py on hubert-xlarge in bfloat16, batch 2 x 512 frames,
+     2 steps, no kernel launched. The kernels line's `h80` / `h96` records
+     carry phase 2's times at these shapes and phase 16's launches
+     (paged_decode's with launches 0 and "on_path": false).
 Every serving phase of 3, 5-9 and 11-14 serves under CUDA-graph capture, the
 default on `cuda`: the decode step, the verify step and the prefill chunk
 are hot-loop entries (`DevicePlacement.hot_loop`), one graph per key
@@ -1911,6 +1935,168 @@ def check_jamba_kernels(dev, timer, log):
     del w
     torch.cuda.empty_cache()
     return rec
+
+
+# ---- phase 2, continued: the head dims of phase 16 (h 80, h 96) --------
+# phase 16's shapes: phi-3-vision's whole-prompt prefill (one 1,024-row
+# prompt: 32 heads, h 96, causal) and its B 2 decode over the dense caches
+# (W 1,040: the 1,024 prompt rows and 16 steps; t the first and the last
+# step's occupancy); hubert's encoder pass (two 1,024-frame clips in one
+# batch: 2 x 16 heads, h 80, bidirectional); paged_decode at both head
+# dims over 1,040-token tables (not on phase 16's path: the Server refuses
+# both families)
+P16_FLASH = {"h96": (32, 1024, 96, True), "h80": (32, 1024, 80, False)}
+P16_SINK = (2, 32, 96, 1040, [1025, 1040])
+P16_PAGED = {"h96": (32, 96), "h80": (16, 80)}
+P16_PAGED_LENS = [1025, 1040]
+# (N or K, G, h) of the correctness cases: G 1, a GQA group at a decode
+# CTA's row limit (25 rows at h 80, 21 at 96) and one row past it
+P16_EDGES = ((4, 1, 80), (4, 1, 96), (1, 25, 80), (1, 26, 80), (1, 21, 96),
+             (1, 22, 96))
+
+
+def check_frontend_kernels(dev, timer, log):
+    """flash_prefill, sink_decode and paged_decode (float and int8 pages)
+    at h 80 and 96, float32 and bfloat16, against their plain versions:
+    edge cases, then phase 16's shapes timed beside the plain version, the
+    library call and the bound. At h 80 a decode lane owns 3 channels, the
+    last lanes masked: channels 64-79 are checked on their own. → ({kernel:
+    {"<dtype>_h80" / "_h96": record}}, {"paged_decode": int8 records})."""
+    from repro_torch.kernels.flash_prefill import (flash_prefill,
+                                                   flash_prefill_plain)
+    from repro_torch.kernels.paged_decode import (paged_decode,
+                                                  paged_decode_plain)
+    from repro_torch.kernels.sink_decode import sink_decode, sink_decode_plain
+    rec = {n: {} for n in ("flash_prefill", "sink_decode", "paged_decode")}
+    rec_q = {"paged_decode": {}}
+
+    def cmp(name, got, want, dtype, tol):
+        got, want = got.float(), want.float()
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"{name}: non-finite kernel output")
+        torch.testing.assert_close(got, want, **tol[dtype], msg=name)
+        if got.shape[-1] == 80:
+            tail = got[..., 64:80]
+            torch.testing.assert_close(tail, want[..., 64:80], **tol[dtype],
+                                       msg=f"{name} channels 64-79")
+            if not float(tail.abs().amax()) > 0:
+                raise AssertionError(f"{name}: channels 64-79 are zero")
+        return float((got - want).abs().max())
+
+    def timed(out, k, err, run, plain, lib, bnd, shape, plain_reps=None):
+        out[k] = {"max_abs_err": err, "ms": timer(run),
+                  "plain_ms": timer(plain, reps=plain_reps),
+                  "library_ms": timer(lib), "bound_ms": bnd[0],
+                  "bound_by": bnd[1], "bytes": bnd[2], "flops": bnd[3],
+                  "shape": shape}
+
+    def rand(g, shape, dtype):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        g = torch.Generator(device=dev).manual_seed(160)
+        worst = dict.fromkeys(("flash", "sink", "paged", "int8"), 0.0)
+        for N, G, h in P16_EDGES:
+            for S, kw in ((333, dict(causal=False)), (300, dict(causal=True)),
+                          (200, dict(causal=True, window=64, sink=8)),
+                          (177, dict(causal=False, window=40, sink=16))):
+                q = rand(g, (N, S * G, h), dtype)
+                k, v = (rand(g, (N, S, h), dtype) for _ in range(2))
+                worst["flash"] = max(worst["flash"], cmp(
+                    f"flash_prefill h={h} G={G} S={S} {kw}",
+                    flash_prefill(q, k, v, **kw),
+                    flash_prefill_plain(q, k, v, **kw), dtype, TOL_DENSE))
+            ts = [1, 17, 400, 1041, 1100]
+            B, W = len(ts), 1041
+            q = rand(g, (B, N, G, h), dtype)
+            kc, vc = (rand(g, (B, W, N, h), dtype) for _ in range(2))
+            for b, t_b in enumerate(ts):
+                kc[b, t_b:] = vc[b, t_b:] = 1e4
+            kc, vc = kc.transpose(1, 2), vc.transpose(1, 2)
+            t = torch.tensor(ts, dtype=torch.int32, device=dev)
+            worst["sink"] = max(worst["sink"], cmp(
+                f"sink_decode h={h} G={G} t={ts}", sink_decode(q, kc, vc, t),
+                sink_decode_plain(q, kc, vc, t), dtype, TOL_DENSE))
+            lens, nb = [1, 17, 300, 1041], 66
+            dec = decode_inputs(dev, dtype, len(lens), N, G, h, 16, nb,
+                                len(lens) * nb + 1, lens, 161 + h + G)
+            tables = dec[3]
+            for b, n in enumerate(lens):
+                tables[b, -(-n // 16):] = 0
+            dec[1][0] = dec[2][0] = 1e4            # the poisoned null block
+            worst["paged"] = max(worst["paged"], cmp(
+                f"paged_decode h={h} G={G}", paged_decode(*dec),
+                paged_decode_plain(*dec), dtype, TOL))
+            kq, vq, sc = int8_arena(dev, N, 16, h, len(lens) * nb + 1,
+                                    tables, lens, 162 + h + G)
+            a8 = (dec[0], kq, vq, tables, dec[4])
+            worst["int8"] = max(worst["int8"], cmp(
+                f"paged_decode int8 h={h} G={G}", paged_decode(*a8, **sc),
+                paged_decode_plain(*a8, **sc), dtype, TOL))
+            del dec, a8, kq, vq, sc
+        log.append(f"h 80 / 96 {dn} ((K, G, h) {list(P16_EDGES)}; channels "
+                   f"64-79 held on their own at h 80): flash_prefill "
+                   f"(causal, bidirectional, window + sink, ragged S) "
+                   f"max_abs_err {worst['flash']:.3g}; sink_decode (t 1 .. "
+                   f"> W 1,041, slots past t poisoned) {worst['sink']:.3g}; "
+                   f"paged_decode (lens 1 .. 1,041, null block poisoned) "
+                   f"{worst['paged']:.3g}, int8 pages {worst['int8']:.3g}")
+        # phase 16's shapes, timed
+        for sub, (N, S, h, causal) in P16_FLASH.items():
+            q = rand(g, (N, S, h), dtype)
+            k, v = (rand(g, (N, S, h), dtype) for _ in range(2))
+            fa = (q, k, v)
+            err = cmp(f"flash_prefill {sub} main", flash_prefill(
+                *fa, causal=causal), flash_prefill_plain(*fa, causal=causal),
+                dtype, TOL_DENSE)
+            timed(rec["flash_prefill"], f"{dn}_{sub}", err,
+                  lambda: flash_prefill(*fa, causal=causal),
+                  lambda: flash_prefill_plain(*fa, causal=causal),
+                  sdpa_flash(q, k, v, causal, 0, 0),
+                  flash_bound(q, k, causal, 0, 0),
+                  f"N={N} S={S} G=1 h={h} "
+                  f"{'causal' if causal else 'bidirectional'}")
+            del q, k, v, fa
+        B, K, h, W, ts = P16_SINK
+        q = rand(g, (B, K, 1, h), dtype)
+        kc, vc = (rand(g, (B, W, K, h), dtype).transpose(1, 2)
+                  for _ in range(2))
+        t = torch.tensor(ts, dtype=torch.int32, device=dev)
+        sa = (q, kc, vc, t)
+        err = cmp("sink_decode h96 main", sink_decode(*sa),
+                  sink_decode_plain(*sa), dtype, TOL_DENSE)
+        timed(rec["sink_decode"], f"{dn}_h96", err, lambda: sink_decode(*sa),
+              lambda: sink_decode_plain(*sa), sdpa_sink(*sa),
+              sink_bound(q, kc, t), f"B={B} K={K} G=1 h={h} W={W} t={ts}")
+        del q, kc, vc, sa
+        nb = -(-W // 16)
+        for sub, (K, h) in P16_PAGED.items():
+            lens = P16_PAGED_LENS
+            dec = decode_inputs(dev, dtype, 2, K, 1, h, 16, nb, 2 * nb + 1,
+                                lens, 163 + h)
+            shape = f"B=2 K={K} G=1 h={h} nb={nb} lens={lens}"
+            err = cmp(f"paged_decode {sub} main", paged_decode(*dec),
+                      paged_decode_plain(*dec), dtype, TOL)
+            timed(rec["paged_decode"], f"{dn}_{sub}", err,
+                  lambda: paged_decode(*dec), lambda: paged_decode_plain(*dec),
+                  sdpa_decode(*dec), decode_bound(dec[0], dec[1], dec[3],
+                                                  dec[4]), shape)
+            kq, vq, sc = int8_arena(dev, K, 16, h, 2 * nb + 1, dec[3], lens,
+                                    164 + h)
+            a8 = (dec[0], kq, vq, dec[3], dec[4])
+            err = cmp(f"paged_decode int8 {sub} main",
+                      paged_decode(*a8, **sc), paged_decode_plain(*a8, **sc),
+                      dtype, TOL)
+            timed(rec_q["paged_decode"], f"{dn}_{sub}", err,
+                  lambda: paged_decode(*a8, **sc),
+                  lambda: paged_decode_plain(*a8, **sc),
+                  sdpa_decode_int8(*a8, sc),
+                  decode_bound(dec[0], kq, dec[3], dec[4]), shape)
+            rec_q["paged_decode"][f"{dn}_{sub}"]["library"] = "dequant+sdpa"
+            del dec, a8, kq, vq, sc
+    torch.cuda.empty_cache()
+    return rec, rec_q
 
 
 def check_select_exact(ta, nb, dn) -> str:
@@ -4802,6 +4988,297 @@ def train_phase(dev, log):
     return out
 
 
+# ---- phase 16: the frontend families at full width -----------------------
+# (a) phi-3-vision-4.2b as published (32 layers, float32, seed-0 weights,
+# every layer full attention, as the reference's tests/test_consistency.py
+# runs it): two prompts of 256 patch embeddings + 768 tokens (1,024 rows),
+# each prefilled alone (the whole-prompt prefill of one prompt), then both
+# decoded together (B 2) for 16 greedy steps from position 1,024
+P16_TOKENS, P16_NEW = 768, 16
+# (b) hubert-xlarge as published (48 layers, float32): two clips of 1,024
+# frames (~20 s of audio at 50 frames/s) in one batch through the encoder
+P16_CLIPS, P16_FRAMES = 2, 1024
+# (d) launch/train.py on hubert-xlarge, bfloat16 as registered: batch,
+# frames, steps
+P16_TRAIN = (2, 512, 2)
+# float32 logits: prefill-then-decode against the longer prefill (the
+# reference's test_consistency tolerance), the kernel forward against the
+# plain forward on the card, and the card against the CPU (phase 4's)
+P16_LOGIT_TOL = dict(rtol=2e-3, atol=2e-3)
+# the published fields phase 16 holds each architecture to
+P16_PUBLISHED = {
+    "phi-3-vision-4.2b": dict(n_layers=32, d_model=3072, n_heads=32,
+                              n_kv_heads=32, head_dim=96, d_ff=8192,
+                              num_patches=256, frontend_dim=1024,
+                              vocab_size=32064, causal=True),
+    "hubert-xlarge": dict(n_layers=48, d_model=1280, n_heads=16,
+                          n_kv_heads=16, head_dim=80, d_ff=5120,
+                          frontend_dim=512, vocab_size=504, causal=False,
+                          encoder_only=True)}
+
+
+def zero_launch_counts():
+    from repro_torch.kernels._common import add_launch_counts, launch_counts
+    add_launch_counts(launch_counts(), -1)
+
+
+def moved_counts() -> dict:
+    from repro_torch.kernels._common import launch_counts
+    return {k: v for k, v in launch_counts().items() if v}
+
+
+def frontend_config(arch):
+    """`arch` as published (held to P16_PUBLISHED), in float32."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    got = {k: getattr(cfg, k) for k in P16_PUBLISHED[arch]}
+    assert got == P16_PUBLISHED[arch], (arch, got)
+    return cfg.with_updates(compute_dtype="float32", param_dtype="float32")
+
+
+def params_gb(params) -> float:
+    from repro_torch.tree import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(params)) / 1e9
+
+
+def run_vlm(dev, log):
+    """Phase 16 (a): phi-3-vision-4.2b's whole-prompt prefills and a B 2
+    greedy decode over their dense caches; prefill-then-decode against the
+    longer prefill; zero patches change the logits."""
+    from repro_torch.models.lm import LM
+    cfg = frontend_config("phi-3-vision-4.2b")
+    L, P = cfg.n_layers, cfg.num_patches
+    S = P + P16_TOKENS
+    max_len = S + P16_NEW
+    torch.cuda.reset_peak_memory_stats()
+    lm = LM.build(cfg, pattern=[0] * L, device=dev)
+    params = lm.init(0)
+    out = {"weights_gb": params_gb(params), "prefill_ms": [], "rows": S}
+    g = torch.Generator(device=dev).manual_seed(16)
+    patches = torch.randn((2, P, cfg.frontend_dim), generator=g, device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (2, P16_TOKENS), generator=g,
+                         device=dev)
+    caches, last = [], []
+    for i in range(2):
+        zero_launch_counts()
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        c, lg, _ = lm.prefill(params, toks[i:i + 1],
+                              patches=patches[i:i + 1], max_len=max_len)
+        torch.cuda.synchronize()
+        out["prefill_ms"].append((time.monotonic() - t) * 1e3)
+        n = moved_counts()
+        assert n == {"flash_prefill.launches": L}, n
+        assert c["pos"] == S and torch.isfinite(lg).all()
+        caches.append(c)
+        last.append(lg)
+    out["prefill_launches"] = L
+    cache = {"layers": [{n: torch.cat([a[n], b[n]]) for n in ("k", "v")}
+                        for a, b in zip(caches[0]["layers"],
+                                        caches[1]["layers"])], "pos": S}
+    del caches
+    tok = torch.cat(last).argmax(-1, keepdim=True)
+    first_tok, steps, stream = tok.clone(), [], [tok]
+    for j in range(P16_NEW):
+        pos = torch.full((2, 1), S + j, dtype=torch.long, device=dev)
+        zero_launch_counts()
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        cache, lg, _ = lm.decode(params, cache, tok, pos)
+        torch.cuda.synchronize()
+        steps.append((time.monotonic() - t) * 1e3)
+        n = moved_counts()
+        assert n == {"sink_decode.launches": L}, n
+        assert torch.isfinite(lg).all()
+        if j == 0:
+            first = lg[0].clone()
+        tok = lg.argmax(-1, keepdim=True)
+        stream.append(tok)
+    out.update(decode_ms=steps, decode_ms_median=float(np.median(steps[1:])),
+               decode_launches_per_step=L,
+               streams=torch.cat(stream, 1).cpu().tolist())
+    del cache
+    # the first step's logits against one prefill of the patches, the 768
+    # tokens and the first greedy token
+    _, longer, _ = lm.prefill(params, torch.cat([toks[:1], first_tok[:1]], 1),
+                              patches=patches[:1], max_len=max_len)
+    torch.testing.assert_close(first, longer[0], **P16_LOGIT_TOL,
+                               msg="phi-3-vision: prefill-then-decode "
+                                   "against the longer prefill")
+    out["decode_vs_longer_prefill"] = float((first - longer[0]).abs().max())
+    _, zero, _ = lm.prefill(params, toks[:1], patches=torch.zeros_like(
+        patches[:1]), max_len=max_len)
+    out["zero_patches_logit_change"] = float((zero - last[0]).abs().max())
+    assert out["zero_patches_logit_change"] > 1e-3, out
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log.append(f"(a) phi-3-vision-4.2b: {out['weights_gb']:.2f} GB of "
+               f"float32 weights; prefill-then-decode against the longer "
+               f"prefill max |diff| {out['decode_vs_longer_prefill']:.3g} "
+               f"(tolerance 2e-3); zero patches move the logits by "
+               f"{out['zero_patches_logit_change']:.3g}")
+    del params, lm, longer, zero, last, first
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_audio(dev, log):
+    """Phase 16 (b): hubert-xlarge's encoder pass over two clips in one
+    batch → per-frame logits; the kernel forward against the same forward
+    through flash_prefill_plain on the card."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.flash_prefill import flash_prefill_plain
+    from repro_torch.models.lm import LM
+    cfg = frontend_config("hubert-xlarge")
+    L = cfg.n_layers
+    torch.cuda.reset_peak_memory_stats()
+    lm = LM.build(cfg, device=dev)
+    params = lm.init(0)
+    out = {"weights_gb": params_gb(params), "ms": []}
+    g = torch.Generator(device=dev).manual_seed(17)
+    frames = torch.randn((P16_CLIPS, P16_FRAMES, cfg.frontend_dim),
+                         generator=g, device=dev)
+    for _ in range(2):
+        zero_launch_counts()
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        cache, logits, _ = lm.prefill(params, frames=frames)
+        torch.cuda.synchronize()
+        out["ms"].append((time.monotonic() - t) * 1e3)
+        n = moved_counts()
+        assert n == {"flash_prefill.launches": L}, n
+    assert cache is None and logits.shape == (P16_CLIPS, P16_FRAMES,
+                                              cfg.vocab_size)
+    assert torch.isfinite(logits).all()
+    out["launches"] = L
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    kernel_fn = kops.flash_prefill
+    kops.flash_prefill = flash_prefill_plain
+    try:
+        zero_launch_counts()
+        _, plain, _ = lm.prefill(params, frames=frames)
+        assert not moved_counts()
+    finally:
+        kops.flash_prefill = kernel_fn
+    torch.testing.assert_close(logits, plain, **P16_LOGIT_TOL,
+                               msg="hubert: kernel forward against plain")
+    out["kernel_vs_plain"] = float((logits - plain).abs().max())
+    log.append(f"(b) hubert-xlarge: {out['weights_gb']:.2f} GB of float32 "
+               f"weights; per-frame logits {list(logits.shape)}; the kernel "
+               f"forward against the flash_prefill_plain forward on the "
+               f"card max |diff| {out['kernel_vs_plain']:.3g} (tolerance "
+               f"2e-3)")
+    del params, lm, logits, plain, frames
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def frontend_card_vs_cpu(dev, log):
+    """Phase 16 (c): the reduced configs with their real head dims (hubert
+    80, phi-3-vision 96) on the same seeded weights, the card's kernels
+    against the plain versions on the CPU: the vlm's prefill and one decode
+    step, hubert's per-frame logits (2e-3), one float32 train step's loss
+    and gradient norm of each (phase 15's 1e-5 / 1e-4 relative, no kernel
+    launched)."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models.lm import LM
+    from repro_torch.training.data import DataConfig, make_batch
+    from repro_torch.training.optim import adamw_init
+    from repro_torch.training.trainer import make_train_step
+    from repro_torch.tree import tree_map
+    out = {}
+    for arch, hd in (("phi-3-vision-4.2b", 96), ("hubert-xlarge", 80)):
+        cfg = reduced_config(arch).with_updates(
+            compute_dtype="float32", param_dtype="float32", head_dim=hd)
+        pattern = [0] * cfg.n_layers
+        base = LM.build(cfg, pattern=pattern, device="cpu").init(seed=9)
+        rng = np.random.default_rng(hd)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 40)))
+        pat = torch.from_numpy(rng.standard_normal(
+            (1, cfg.num_patches, cfg.frontend_dim)).astype(np.float32))
+        frames = torch.from_numpy(rng.standard_normal(
+            (2, 64, cfg.frontend_dim)).astype(np.float32))
+        got = []
+        for d in ("cpu", dev):
+            lm = LM.build(cfg, pattern=pattern, device=d)
+            p = tree_map(lambda t: t.to(d, copy=True), base)
+            zero_launch_counts()
+            if cfg.family == "vlm":
+                S = cfg.num_patches + toks.shape[1]
+                cache, l1, _ = lm.prefill(p, toks.to(d), patches=pat.to(d),
+                                          max_len=S + 4)
+                _, l2, _ = lm.decode(p, cache, toks[:, :1].to(d),
+                                     torch.full((1, 1), S, device=d))
+                logits = (l1, l2)
+                want = {"flash_prefill.launches": cfg.n_layers,
+                        "sink_decode.launches": cfg.n_layers}
+            else:
+                _, l1, _ = lm.prefill(p, frames=frames.to(d))
+                logits = (l1,)
+                want = {"flash_prefill.launches": cfg.n_layers}
+            n = moved_counts()
+            assert n == (want if torch.device(d).type == "cuda" else {}), \
+                (arch, d, n)
+            batch = make_batch(cfg, DataConfig(cfg.vocab_size, 64, 2), 0,
+                               device=d)
+            zero_launch_counts()
+            _, _, met = make_train_step(lm)(p, adamw_init(p), batch)
+            assert not moved_counts()
+            got.append({"logits": [x.float().cpu() for x in logits],
+                        "loss": float(met["loss"]),
+                        "grad_norm": float(met["grad_norm"])})
+        c, g_ = got
+        err = 0.0
+        for a, b in zip(c["logits"], g_["logits"]):
+            torch.testing.assert_close(b, a, **P16_LOGIT_TOL,
+                                       msg=f"{arch} h {hd}: card vs CPU")
+            err = max(err, float((a - b).abs().max()))
+        rel = {k: abs(g_[k] - c[k]) / abs(c[k]) for k in P15_CPU_TOL}
+        for k, r in P15_CPU_TOL.items():
+            assert rel[k] <= r, (arch, k, c, g_)
+        out[arch] = {"head_dim": hd, "logits_max_abs_err": err,
+                     "rel_diff": rel, "card": {k: g_[k] for k in rel},
+                     "cpu": {k: c[k] for k in rel}}
+        log.append(f"(c) reduced {arch} at h {hd}: logits card vs CPU max "
+                   f"|diff| {err:.3g} (2e-3); a train step's loss / gradient "
+                   f"norm relative {rel['loss']:.2e} / "
+                   f"{rel['grad_norm']:.2e}, no kernel launched")
+    return out
+
+
+def train_audio(dev, log):
+    """Phase 16 (d): launch/train.py on hubert-xlarge as published
+    (bfloat16), batch 2 x 512 frames, 2 steps; no kernel launched."""
+    from repro_torch.launch import train
+    B, S, steps = P16_TRAIN
+    rec = StepLog()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts()
+    train.main(["--arch", "hubert-xlarge", "--batch", str(B), "--seq",
+                str(S), "--steps", str(steps), "--device", str(dev),
+                "--log-every", "1"], on_step=rec)
+    out = {"launches": moved_counts(),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "losses": [rec.steps[s]["loss"] for s in range(steps)],
+           "first_step_ms": rec.steps[0]["ms"], "step_ms": rec.step_ms()}
+    assert not out["launches"], out
+    assert all(math.isfinite(x) for x in out["losses"]), out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def frontend_phase(dev, log):
+    """Phase 16: (a)-(d)."""
+    out = {"vlm": run_vlm(dev, log), "audio": run_audio(dev, log)}
+    out["card_vs_cpu"] = frontend_card_vs_cpu(dev, log)
+    out["train_audio"] = train_audio(dev, log)
+    return out
+
+
 # ---- phase 10: captured against eager ------------------------------
 def random_arena(lm, n_blocks, bs, dev, quant, g):
     """Arenas of `n_blocks` blocks filled with seeded random K/V (int8
@@ -5110,6 +5587,12 @@ def main() -> int:
     for name, by in wide_q.items():
         for r in by.values():
             r["library"] = "dequant+sdpa"
+        kern_q[name].update(by)
+    # the head dims of phase 16: h 80 (hubert) and 96 (phi-3-vision)
+    fr, fr_q = check_frontend_kernels(dev, timer, log)
+    for name, by in fr.items():
+        kern[name].update(by)
+    for name, by in fr_q.items():
         kern_q[name].update(by)
     print(f"phase 2: kernels agree with their plain versions on the card "
           f"[{time.monotonic() - t0:.1f} s since the start]")
@@ -5604,13 +6087,44 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    t16 = time.monotonic()
+    fronts = frontend_phase(dev, log)
+    print(f"phase 16 [{time.monotonic() - t0:.1f} s]: the frontend families "
+          f"at full width in {time.monotonic() - t16:.1f} s")
+    for line in log:
+        print("  " + line)
+    fv, fa, ft = fronts["vlm"], fronts["audio"], fronts["train_audio"]
+    print(f"  (a) phi-3-vision-4.2b, float32, 32 layers: prefill of "
+          f"{fv['rows']} rows (256 patches + {P16_TOKENS} tokens) "
+          + " / ".join(f"{x:.1f}" for x in fv["prefill_ms"])
+          + f" ms, {fv['prefill_launches']} flash_prefill launches each; "
+          f"B 2 decode {fv['decode_ms_median']:.2f} ms a step (median of "
+          f"steps 2-{P16_NEW}; first {fv['decode_ms'][0]:.2f} ms), "
+          f"{fv['decode_launches_per_step']} sink_decode launches a step; "
+          f"peak {fv['peak_mem_gb']:.2f} GB [{smi}]")
+    print(f"  (b) hubert-xlarge, float32, 48 layers: {P16_CLIPS} clips x "
+          f"{P16_FRAMES} frames in one batch, "
+          + " / ".join(f"{x:.1f}" for x in fa["ms"])
+          + f" ms a forward, {fa['launches']} flash_prefill launches each; "
+          f"peak {fa['peak_mem_gb']:.2f} GB [{smi}]")
+    print(f"  (d) launch/train.py hubert-xlarge, bfloat16, batch "
+          f"{P16_TRAIN[0]} x {P16_TRAIN[1]} frames: step {ft['step_ms']:.1f}"
+          f" ms (first {ft['first_step_ms']:.0f} ms), peak "
+          f"{ft['peak_mem_gb']:.2f} GB, losses "
+          + ", ".join(f"{x:.4f}" for x in ft["losses"])
+          + f"; kernel launches {ft['launches'] or 'none'} [{smi}]")
+    log.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
     for rec in (served, spec["runs"]["spec_on"], spec["runs"]["spec_off"],
                 quant):
         rec.pop("streams", None)
     report.update(kernels=kern, kernels_int8=kern_q, serve=served,
                   default_pattern=omni, topk=topk, spec=spec, moe=moe,
                   quant=quant, eager=eager, ring_chunks=rings, chaos=chaos,
-                  archs=archs, mamba2=mamba2, jamba=jamba, train=trained)
+                  archs=archs, mamba2=mamba2, jamba=jamba, train=trained,
+                  frontends=fronts)
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 
@@ -5676,8 +6190,18 @@ def main() -> int:
         je["e_default_dense"]["launches"]["sink_decode"]
     new_launches["moe_gmm"]["jamba"] = jd["launches"]["moe_gmm"]
     new_launches["moe_gmm"]["jamba_chunk"] = jd["launches"]["moe_gmm"]
+    # phase 16's shapes: phi-3-vision's two prefills and its 16 B 2 decode
+    # steps, hubert's two timed forwards; paged_decode at h 80 / 96 is on no
+    # path of phase 16 (the Server refuses both families)
+    new_launches["flash_prefill"]["h96"] = 2 * fv["prefill_launches"]
+    new_launches["flash_prefill"]["h80"] = len(fa["ms"]) * fa["launches"]
+    new_launches["sink_decode"]["h96"] = \
+        P16_NEW * fv["decode_launches_per_step"]
+    new_launches["paged_decode"]["h96"] = 0
+    new_launches["paged_decode"]["h80"] = 0
     new_int8 = {
-        "paged_decode": {"h256": g3["d_int8"]["launches"]["paged_decode_int8"]},
+        "paged_decode": {"h256": g3["d_int8"]["launches"]["paged_decode_int8"],
+                         "h96": 0, "h80": 0},
         "paged_prefill": {
             "h256": g3["d_int8"]["launches"]["paged_prefill_int8"]},
         "spec_verify": {
@@ -5733,22 +6257,32 @@ def main() -> int:
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                 "max_abs_err", "shape")} | {"launches": launches_, "dtype": (
                     "bfloat16" if sub.startswith("jamba") else "float32")}
+            if sub in ("h80", "h96"):
+                entry[sub]["bfloat16"] = {k: kern[key][f"bfloat16_{sub}"][k]
+                                          for k in ("ms", "plain_ms",
+                                                    "bound_ms", "bound_by",
+                                                    "library_ms",
+                                                    "max_abs_err")}
+                entry[sub]["on_path"] = launches_ > 0
         for sub, launches_ in new_int8.get(name, {}).items():
             src = kern_q[key][f"float32_{sub}"]
             entry["int8"][sub] = {k: src[k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                 "max_abs_err", "shape")} | {"launches": launches_}
+            if sub in ("h80", "h96"):
+                entry["int8"][sub]["on_path"] = False
         line["kernels"].append(entry)
     for k in line["kernels"]:
         for rec in (k, k.get("int8")):
             if rec is None:
                 continue
             subs = ("h256", "g48", "qwen3moe", "jamba", "jamba_ring",
-                    "jamba_chunk")
+                    "jamba_chunk", "h80", "h96")
             for sub in subs:
-                if sub in rec and rec[sub]["launches"] <= 0:
+                if sub in rec and rec[sub]["launches"] <= 0 and \
+                        rec[sub].get("on_path", True):
                     raise AssertionError(f"{k['name']} {sub}: no launch in "
-                                         f"phase 13 or 14")
+                                         f"phase 13, 14 or 16")
             for r in (rec, rec.get("ring"), rec.get("long"),
                       rec.get("select")) + tuple(rec.get(x) for x in subs):
                 for key in ("max_abs_err", "ms", "plain_ms", "bound_ms"):

@@ -16,6 +16,10 @@ import torch
 
 from repro_torch.device import resolve_device
 
+# The parameters outside the layer stack: the frontend families' input
+# projection "frontend" [frontend_dim, d_model] beside the token ones.
+TOP_LEVEL = ("embed", "final_norm", "head", "frontend")
+
 
 def _tensor(a, device) -> torch.Tensor:
     a = np.asarray(a)
@@ -27,9 +31,10 @@ def _tensor(a, device) -> torch.Tensor:
 
 def params_from_numpy(tree: dict, cfg, plan, device=None) -> dict:
     """tree: {"stack": {"period": (layer dict [n_rep, ...], ...),
-    "rem": (layer dict, ...)}, "embed", "final_norm"[, "head"]} of numpy
-    arrays → {"layers": [layer dict, ...], "embed", "final_norm"[, "head"]}
-    of tensors on `device` (None → cuda)."""
+    "rem": (layer dict, ...)}, "embed", "final_norm"[, "head"][,
+    "frontend"]} of numpy arrays → {"layers": [layer dict, ...], "embed",
+    "final_norm"[, "head"][, "frontend"]} of tensors on `device` (None →
+    cuda)."""
     dev = resolve_device(device)
     stack = tree["stack"]
     period, rem = list(stack["period"]), list(stack["rem"])
@@ -46,7 +51,7 @@ def params_from_numpy(tree: dict, cfg, plan, device=None) -> dict:
         raise ValueError(f"{len(layers)} layers bridged, config has "
                          f"{cfg.n_layers}")
     out = {"layers": layers}
-    for k in ("embed", "final_norm", "head"):
+    for k in TOP_LEVEL:
         if k in tree:
             out[k] = _tensor(tree[k], dev)
     return out
@@ -84,7 +89,7 @@ def params_to_numpy(params: dict, plan) -> dict:
     rem = tuple({k: _array(v) for k, v in layers[plan.n_rep * P + j].items()}
                 for j in range(len(plan.rem)))
     out = {"stack": {"period": period, "rem": rem}}
-    for k in ("embed", "final_norm", "head"):
+    for k in TOP_LEVEL:
         if k in params:
             out[k] = _array(params[k])
     return out

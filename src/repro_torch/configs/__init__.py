@@ -1,5 +1,5 @@
 """Architecture registry of the PyTorch port: ``get_config(arch_id)`` +
-reduced smoke variants. Only the architectures this port serves are
+reduced smoke variants. All ten of the reference's architectures are
 registered; asking for another raises NotImplementedError."""
 from __future__ import annotations
 
@@ -17,6 +17,8 @@ _MODULES = {
     "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
     "qwen3-moe-235b-a22b": "qwen3_moe_235b",
     "mamba2-130m": "mamba2_130m",
+    "phi-3-vision-4.2b": "phi3_vision",
+    "hubert-xlarge": "hubert_xlarge",
 }
 
 ARCH_IDS = list(_MODULES)

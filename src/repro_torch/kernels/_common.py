@@ -7,7 +7,13 @@ import importlib
 import torch
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# Head dims each wrapper's kernel is instantiated for. flash_prefill and
+# the split-KV decode routine (paged_decode, sink_decode) also take 80
+# (hubert-xlarge) and 96 (phi-3-vision); the paged-history routine
+# (paged_prefill, spec_verify) and block_topk take the powers of two only
+# (ROADMAP B17b).
 HEAD_DIMS = (32, 64, 128, 256)
+WIDE_HEAD_DIMS = (32, 64, 80, 96, 128, 256)
 
 # Every launch counter of the kernel wrappers, as (module, wrapper,
 # attribute): a wrapper adds one where it launches its kernel on the card.

@@ -176,9 +176,14 @@ constexpr int TC_WARPS = 4;
 constexpr int TC_BM = 16 * TC_WARPS;
 
 template <typename T> constexpr bool kIsF32 = std::is_same<T, float>::value;
-// Q and K rows: float HD + 8 (≡ 8 mod 16 words), bf16 HD + 16 elements.
+// Q and K rows: float HD + 8 (≡ 8 or 24 mod 32 words at every HD taken),
+// bf16 HD + 16 elements, or HD + 32 when HD ≡ 16 mod 32 (h 80: a row of 48
+// words would put rows g and g + 2 of a half-warp's 8-byte loads on the
+// same banks; 56 words ≡ 24 mod 32 keeps the four rows apart).
 template <typename T, int HD>
-__host__ __device__ constexpr int tc_ldk() { return kIsF32<T> ? HD + 8 : HD + 16; }
+__host__ __device__ constexpr int tc_ldk() {
+  return kIsF32<T> ? HD + 8 : (HD % 32 == 16 ? HD + 32 : HD + 16);
+}
 // V rows: float HD + 4 (≡ 4 mod 32 words), bf16 HD + 8 (an odd number of
 // 16-byte units, for ldmatrix).
 template <typename T, int HD>
@@ -465,8 +470,9 @@ __device__ __forceinline__ void tc_store_rows(T* out, TcRows<HD>& st, int row0,
 // Its DEC_WARPS warps take the chunks in turn; each warp double-buffers its
 // chunks with cp.async (`decode_stage_rows`, which both callers hand a row
 // base and a row stride) and keeps its own online-softmax state: M, L, C
-// [G] in shared memory, acc in registers (lane owns d = lane · HD/32 + 0 ..
-// HD/32 − 1 of each row). `decode_split_attend` is the CTA's walk;
+// [G] in shared memory, acc in registers (lane owns d = lane · VD + 0 ..
+// VD − 1 of each row, VD = dec_vd<HD>() = ceil(HD / 32), masked past HD).
+// `decode_split_attend` is the CTA's walk;
 // `decode_merge` folds the warps' states by log-sum-exp, `decode_combine`
 // (`lse_combine`) the splits of a split grid the same way. A warp or split that saw
 // no key has m = NEG_INF, l = 0, acc = 0 and adds exactly nothing next to
@@ -478,10 +484,19 @@ constexpr int DEC_STAGES = 2;
 // take; the 8-row stages keep the CTA's bytes those of HD = 128.
 template <int HD>
 __host__ __device__ constexpr int dec_tr() { return HD > 128 ? 8 : 16; }
-// Query rows a decode CTA holds: a lane keeps HD/32 accumulators of each,
-// MAXR·NT/HD rows keep that at 64 registers (16 at HD = 128, 8 at 256).
+// Query rows a decode CTA holds: a lane keeps dec_vd<HD>() accumulators of
+// each, MAXR·NT/HD rows keep that at 64 registers (16 at HD = 128, 8 at
+// 256; 25 rows of 3 at HD = 80, 21 of 3 at 96).
 template <int HD>
 __host__ __device__ constexpr int dec_gmax() { return MAXR * NT / HD; }
+// Output channels a lane owns in P·V and the merge: d = lane·VD .. lane·VD
+// + VD − 1, VD = ceil(HD / 32). At HD = 80 that is 3 channels for lanes 0-25
+// (lane 26 holds 78-79, the channels past HD are masked), so no channel of
+// 64-79 is left out, as HD / 32 = 2 would leave them.
+template <int HD>
+__host__ __device__ constexpr int dec_vd() { return (HD + 31) / 32; }
+template <int HD>
+__host__ __device__ constexpr bool dec_exact() { return HD % 32 == 0; }
 
 // One warp's staging buffer for a chunk of TR rows: K [TR][HD + 16 bytes]
 // (the pad keeps the score loop's row-wise reads conflict-free), V [TR][HD],
@@ -562,19 +577,23 @@ __device__ __forceinline__ void decode_stage_issue(
 // dequantized as it is read (int8: q · (sc[c] != 0 ? sc[c] : tk[r]), the
 // one float32 product of load_kv_tile); `valid(t)` says whether key t of
 // the chunk is visible (masked scores are NEG_INF). Softmax: lane r < G owns
-// row r. P·V: each lane its HD/32 columns of every row. P, M, L, C are this
+// row r. P·V: each lane its dec_vd<HD>() columns of every row (masked past
+// HD). P, M, L, C are this
 // warp's [G·TR], [G], [G], [G] in shared memory (TR = dec_tr<HD>()). Ends
 // with __syncwarp, so the caller may refill the stage right after it
 // returns.
 template <typename KV, int HD, int GMAX, typename ValidF>
 __device__ __forceinline__ void decode_block_step(
     const float* Qs, const DecStage<KV, HD>& st, float* P, float* M, float* L,
-    float* C, float (&acc)[GMAX][HD / 32], int G, int rows, float scale_log2,
-    ValidF valid) {
+    float* C, float (&acc)[GMAX][dec_vd<HD>()], int G, int rows,
+    float scale_log2, ValidF valid) {
   constexpr int LDQ = HD + 4;
   constexpr int LDK = DecStage<KV, HD>::LDK;
   constexpr int CH = 16 / sizeof(KV);   // elements per 16-byte load
-  constexpr int VD = HD / 32;
+  constexpr int VD = dec_vd<HD>();
+  static_assert(32 * VD >= HD && 32 * (VD - 1) < HD,
+                "the lanes' channels must cover HD");
+  static_assert(HD % CH == 0, "a row must be whole 16-byte loads");
   constexpr int TR = DecStage<KV, HD>::TR;
   const int lane = threadIdx.x & 31;
   for (int i = lane; i < G * rows; i += 32) {
@@ -644,12 +663,19 @@ __device__ __forceinline__ void decode_block_step(
 #pragma unroll 4
   for (int t = 0; t < rows; ++t) {
     float v[VD];
-    ld_f32<KV, VD>(st.V + t * HD + d0, v);
+    if constexpr (dec_exact<HD>()) {
+      ld_f32<KV, VD>(st.V + t * HD + d0, v);
+    } else {
+      // the tail lanes' channels past HD read nothing and stay 0
+#pragma unroll
+      for (int u = 0; u < VD; ++u)
+        v[u] = d0 + u < HD ? to_f32<KV>(st.V[t * HD + d0 + u]) : 0.f;
+    }
     if constexpr (kInt8Kv<KV>) {
       const float tk = st.vtk[t];
 #pragma unroll
       for (int u = 0; u < VD; ++u) {
-        const float sc = st.vsc[d0 + u];
+        const float sc = d0 + u < HD ? st.vsc[d0 + u] : 0.f;
         v[u] *= sc != 0.f ? sc : tk;
       }
     }
@@ -672,18 +698,18 @@ __device__ __forceinline__ void decode_block_step(
 // and column d, the CTA's max, sum and unnormalised output; m and l are the
 // same for every d of a row.
 template <int HD, int GMAX, typename EmitF>
-__device__ __forceinline__ void decode_merge(const float (&acc)[GMAX][HD / 32],
-                                             const float* Mall,
-                                             const float* Lall, float* Oall,
-                                             int G, EmitF emit) {
-  constexpr int VD = HD / 32;
+__device__ __forceinline__ void decode_merge(
+    const float (&acc)[GMAX][dec_vd<HD>()], const float* Mall,
+    const float* Lall, float* Oall, int G, EmitF emit) {
+  constexpr int VD = dec_vd<HD>();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 #pragma unroll
   for (int r = 0; r < GMAX; ++r) {
     if (r < G) {
 #pragma unroll
       for (int u = 0; u < VD; ++u)
-        Oall[((size_t)warp * G + r) * HD + lane * VD + u] = acc[r][u];
+        if (dec_exact<HD>() || lane * VD + u < HD)
+          Oall[((size_t)warp * G + r) * HD + lane * VD + u] = acc[r][u];
     }
   }
   __syncthreads();
@@ -757,7 +783,7 @@ __device__ __forceinline__ void decode_split_attend(
     float scale_log2, IssueF issue, ChunkF chunk) {
   constexpr int GMAX = dec_gmax<HD>();
   constexpr int TR = dec_tr<HD>();
-  constexpr int VD = HD / 32;
+  constexpr int VD = dec_vd<HD>();
   extern __shared__ __align__(16) unsigned char dec_smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float* Qs = reinterpret_cast<float*>(dec_smem);

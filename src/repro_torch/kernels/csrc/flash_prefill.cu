@@ -29,7 +29,11 @@
 //     rows keep fragment loads free of bank conflicts; ~101 KB (float32) or
 //     ~88 KB (bf16) of shared memory, two CTAs per SM; at h = 256 (gemma3)
 //     ~197 KB / ~168 KB, one CTA per SM, and each thread keeps 128 output
-//     accumulators (`TcRows<256>`) beside the 3xTF32 fragments;
+//     accumulators (`TcRows<256>`) beside the 3xTF32 fragments; h = 80
+//     (hubert-xlarge) and 96 (phi-3-vision) step through 10 / 12 k-tiles
+//     of 8 (5 / 6 of 16 in bf16) and take ~67 KB / ~79 KB (float32);
+//     bf16 Q and K rows at h 80 take a pad of 32 elements
+//     (`tc_ldk`), so the 8-byte fragment loads stay conflict-free;
 //   * key tiles wholly above the causal diagonal are never visited, nor are
 //     tiles wholly outside every row's window that also lie outside the sink
 //     (they contribute nothing); tiles visible to every row skip the mask;
@@ -168,10 +172,11 @@ extern "C" int flash_prefill_launch(int dtype, const void* q, const void* k,
     return launch<T, HD>(q, k, v, out, N, S, G, scale, causal, window,     \
                          sink, s);
   if (dtype == 0) {
-    FP_CASE(float, 32) FP_CASE(float, 64) FP_CASE(float, 128)
-    FP_CASE(float, 256)
+    FP_CASE(float, 32) FP_CASE(float, 64) FP_CASE(float, 80)
+    FP_CASE(float, 96) FP_CASE(float, 128) FP_CASE(float, 256)
   } else if (dtype == 1) {
     FP_CASE(__nv_bfloat16, 32) FP_CASE(__nv_bfloat16, 64)
+    FP_CASE(__nv_bfloat16, 80) FP_CASE(__nv_bfloat16, 96)
     FP_CASE(__nv_bfloat16, 128) FP_CASE(__nv_bfloat16, 256)
   }
 #undef FP_CASE

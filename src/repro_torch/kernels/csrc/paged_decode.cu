@@ -22,8 +22,9 @@
 //     touched; a split with no resident block adds exactly nothing;
 //   * the G query rows of the group sit in shared memory, so one K/V read
 //     serves all G rows (G = 6 on full-width qwen2-1.5b). A CTA holds at
-//     most dec_gmax = 2048/h rows (16 at h = 128, 8 at h = 256: a lane
-//     keeps h/32 accumulators of each); a wider group (granite-34b: 48
+//     most dec_gmax = 2048/h rows (16 at h = 128, 8 at h = 256, 25 at 80,
+//     21 at 96: a lane keeps ceil(h/32) accumulators of each, the last
+//     lanes' channels past h masked at h 80); a wider group (granite-34b: 48
 //     query heads over one kv head) is cut into n_grp row groups of `rows`
 //     rows, a further grid axis (kernels/paged_decode.py::
 //     decode_row_groups). Each row group reads the kv head again — the
@@ -33,7 +34,7 @@
 //     h = 256, whose stages would otherwise pass 227 KB) in turn, each
 //     with a two-stage cp.async buffer, so the next chunk is in flight while
 //     one computes. Scores are lane-parallel dot products, the softmax of
-//     row r runs in lane r, P·V gives each lane h/32 columns; every warp
+//     row r runs in lane r, P·V gives each lane ceil(h/32) columns; every warp
 //     keeps its own online-softmax state and the warps merge by
 //     log-sum-exp in shared memory;
 //   * with n_split > 1 each CTA writes (m, l, acc[G][h]) in float32 to a
@@ -165,10 +166,11 @@ static int dispatch(int dtype, bool int8, const void* q, const void* kp,
                                    out, ws, B, K, G, n_grp, rows, bs, nb,   \
                                    n_split, per, scale, s);
   if (dtype == 0) {
-    PD_CASE(float, 32) PD_CASE(float, 64) PD_CASE(float, 128)
-    PD_CASE(float, 256)
+    PD_CASE(float, 32) PD_CASE(float, 64) PD_CASE(float, 80)
+    PD_CASE(float, 96) PD_CASE(float, 128) PD_CASE(float, 256)
   } else if (dtype == 1) {
     PD_CASE(__nv_bfloat16, 32) PD_CASE(__nv_bfloat16, 64)
+    PD_CASE(__nv_bfloat16, 80) PD_CASE(__nv_bfloat16, 96)
     PD_CASE(__nv_bfloat16, 128) PD_CASE(__nv_bfloat16, 256)
   }
 #undef PD_CASE

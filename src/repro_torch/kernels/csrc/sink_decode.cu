@@ -19,7 +19,8 @@
 //   * grid (B, K·n_grp, n_split): split s of (sequence b, kv head kh)
 //     owns the SINK_CHUNK = 16-slot chunks [s·per, (s+1)·per) of the cache
 //     (staged 8 slots at a time at h = 256, `dec_tr`); a GQA group wider
-//     than a CTA holds (`dec_gmax`: 16 rows at h = 128, 8 at h = 256) is
+//     than a CTA holds (`dec_gmax`: 16 rows at h = 128, 8 at h = 256, 25
+//     at h = 80, 21 at h = 96) is
 //     cut into n_grp row groups of `rows` rows, each re-reading the kv
 //     head, as in paged_decode. n_split and per come
 //     from shapes alone (kernels/sink_decode.py::sink_splits, paged_decode's
@@ -150,10 +151,11 @@ extern "C" int sink_decode_launch(int dtype, const void* q, const void* kc,
                          ksb, ksk, ksw, vsb, vsk, vsw, n_split, per, scale, \
                          s);
   if (dtype == 0) {
-    SD_CASE(float, 32) SD_CASE(float, 64) SD_CASE(float, 128)
-    SD_CASE(float, 256)
+    SD_CASE(float, 32) SD_CASE(float, 64) SD_CASE(float, 80)
+    SD_CASE(float, 96) SD_CASE(float, 128) SD_CASE(float, 256)
   } else if (dtype == 1) {
     SD_CASE(__nv_bfloat16, 32) SD_CASE(__nv_bfloat16, 64)
+    SD_CASE(__nv_bfloat16, 80) SD_CASE(__nv_bfloat16, 96)
     SD_CASE(__nv_bfloat16, 128) SD_CASE(__nv_bfloat16, 256)
   }
 #undef SD_CASE

@@ -15,8 +15,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels._common import (DTYPE_CODES, HEAD_DIMS, kernel_arg,
-                                         refuse_autograd)
+from repro_torch.kernels._common import (DTYPE_CODES, WIDE_HEAD_DIMS,
+                                         kernel_arg, refuse_autograd)
 
 NEG_INF = -1e30
 
@@ -60,9 +60,9 @@ def flash_prefill(q, k, v, *, causal: bool = True, window: int = 0,
     if k.shape != (N, S, h) or v.shape != k.shape or SG % S:
         raise ValueError(f"keys {tuple(k.shape)} do not match q "
                          f"{tuple(q.shape)}")
-    if q.dtype not in DTYPE_CODES or h not in HEAD_DIMS:
+    if q.dtype not in DTYPE_CODES or h not in WIDE_HEAD_DIMS:
         raise ValueError(f"flash_prefill kernel takes float32/bfloat16 and "
-                         f"h in {HEAD_DIMS}, got {q.dtype}, h={h}")
+                         f"h in {WIDE_HEAD_DIMS}, got {q.dtype}, h={h}")
     dev = q.device
     q = kernel_arg(q, dev)
     kc = kernel_arg(k, dev, q.dtype)

@@ -21,15 +21,16 @@ import functools
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels._common import (DTYPE_CODES, HEAD_DIMS, gather_kv,
-                                         kernel_arg, per_row,
+from repro_torch.kernels._common import (DTYPE_CODES, WIDE_HEAD_DIMS,
+                                         gather_kv, kernel_arg, per_row,
                                          refuse_autograd, scale_plane_args)
 
 NEG_INF = -1e30
 DECODE_WARPS = 4          # warps per CTA of the kernel (csrc DEC_WARPS)
 DECODE_ROW_FLOATS = 2048  # query rows × h a decode CTA holds (csrc
-                          # dec_gmax = MAXR·NT/h: h/32 accumulators a lane
-                          # for each row; 16 rows at h 128, 8 at h 256)
+                          # dec_gmax = MAXR·NT/h: ceil(h/32) accumulators a
+                          # lane for each row; 16 rows at h 128, 8 at h 256,
+                          # 25 at h 80, 21 at h 96)
 
 
 def decode_row_groups(G: int, h: int) -> tuple[int, int]:
@@ -116,9 +117,9 @@ def paged_decode(q, k_pages, v_pages, tables, lens, *, k_scale=None,
     if (Kp, hp) != (K, h) or v_pages.shape != k_pages.shape:
         raise ValueError(f"pages {tuple(k_pages.shape)} do not match q "
                          f"{tuple(q.shape)}")
-    if q.dtype not in DTYPE_CODES or h not in HEAD_DIMS:
+    if q.dtype not in DTYPE_CODES or h not in WIDE_HEAD_DIMS:
         raise ValueError(f"paged_decode kernel takes float32/bfloat16 and "
-                         f"h in {HEAD_DIMS}, got {q.dtype}, h={h}")
+                         f"h in {WIDE_HEAD_DIMS}, got {q.dtype}, h={h}")
     dev = q.device
     q = kernel_arg(q, dev)
     kv_dtype = torch.int8 if quant else q.dtype

@@ -18,8 +18,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels._common import (DTYPE_CODES, HEAD_DIMS, kernel_arg,
-                                         per_row, refuse_autograd)
+from repro_torch.kernels._common import (DTYPE_CODES, WIDE_HEAD_DIMS,
+                                         kernel_arg, per_row, refuse_autograd)
 from repro_torch.kernels.paged_decode import (_sm_count, decode_row_groups,
                                               decode_splits)
 
@@ -78,9 +78,9 @@ def sink_decode(q, k_cache, v_cache, t):
     if (Bc, Kc, hc) != (B, K, h) or v_cache.shape != k_cache.shape:
         raise ValueError(f"caches {tuple(k_cache.shape)} do not match q "
                          f"{tuple(q.shape)}")
-    if q.dtype not in DTYPE_CODES or h not in HEAD_DIMS:
+    if q.dtype not in DTYPE_CODES or h not in WIDE_HEAD_DIMS:
         raise ValueError(f"sink_decode kernel takes float32/bfloat16 and "
-                         f"h in {HEAD_DIMS}, got {q.dtype}, h={h}")
+                         f"h in {WIDE_HEAD_DIMS}, got {q.dtype}, h={h}")
     dev = q.device
     q = kernel_arg(q, dev)
     for name, c in (("k_cache", k_cache), ("v_cache", v_cache)):

@@ -8,7 +8,9 @@ summary JSON. Per-request decoding config rides on SamplingParams:
         --reduced --device cpu --requests 8 --max-tokens 6
 
 --tp / --ep above 1 raise NotImplementedError: multi-GPU placement is
-ROADMAP A16.
+ROADMAP A16. So do the encoder-only and frontend archs (hubert-xlarge,
+phi-3-vision-4.2b): the Server serves token requests only
+(`serving.server.check_servable`).
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ import numpy as np
 
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.core.proxy import OASConfig, SamplingParams
-from repro_torch.serving.server import Server, ServerConfig
+from repro_torch.serving.server import Server, ServerConfig, check_servable
 
 
 def main(argv=None):
@@ -53,6 +55,7 @@ def main(argv=None):
             f"--tp {args.tp} --ep {args.ep}: multi-GPU placement is not "
             f"ported yet (ROADMAP A16)")
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
+    check_servable(cfg)
     oas = OASConfig(defer_window=0.0, cache_aware=not args.no_proxy,
                     lpt=not args.no_proxy, deferred=False)
     srv = Server(cfg, ServerConfig(n_prefill=args.prefill,

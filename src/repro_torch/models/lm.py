@@ -1,12 +1,16 @@
-"""Top-level model of the port: embeddings, tied (or untied) head, the
-training loss (`train_loss`, differentiable) and the serving entry points:
+"""Top-level model of the port: embeddings, the modality frontends (stubs:
+audio frames or vlm patches projected by the `frontend` parameter), tied
+(or untied) head, the training loss (`train_loss`, differentiable) and the
+serving entry points:
 whole-prompt `prefill` into dense caches, chunked `prefill_resume` and
 `decode` over paged or dense KV (with OmniAttn online top-k on paged full
 layers), and the speculative `verify` / `verify_commit` pair over paged
 KV. Mamba-2 layers carry their per-sequence state through
 the same entry points (verify refuses them). MoE layers route through the
 OmniPlacement tables each entry point takes (`default_tables()` to start);
-the per-layer expert counts come back in the aux."""
+the per-layer expert counts come back in the aux. An encoder-only config
+(hubert) has no cache: its `prefill` is the whole forward, per-frame
+logits through the flash-prefill kernel."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -38,8 +42,8 @@ class LM:
     @staticmethod
     def build(cfg: ModelConfig, pattern: Optional[list] = None,
               device=None) -> "LM":
-        """`device` None → cuda. Raises NotImplementedError for a
-        configuration a later slice of the port brings."""
+        """`device` None → cuda. Raises NotImplementedError for a family
+        the port does not model."""
         plan = stack_mod.StackPlan.from_config(cfg, pattern)
         stack_mod.check_supported(cfg)
         return LM(cfg, plan, resolve_device(device))
@@ -47,7 +51,7 @@ class LM:
     # ------------------------------------------------------------------
     def param_defs(self) -> dict:
         """{"layers": [per-layer {name: (shape, init, dtype)}], "embed",
-        "final_norm"[, "head"]: (shape, init, dtype)} with init
+        "final_norm"[, "head"][, "frontend"]: (shape, init, dtype)} with init
         "normal:<std>", "zeros" or "ones": the shapes, scales and dtypes of
         the reference's ParamDefs. A mamba layer carries the reference's
         `mamba_defs` (the SSD mixer) in place of attention. An MoE layer
@@ -103,6 +107,8 @@ class LM:
              "embed": ((cfg.vocab_size, D), f"normal:{D ** -0.5}", dt)}
         if not cfg.tie_embeddings:
             d["head"] = ((D, cfg.vocab_size), w, dt)
+        if cfg.frontend_dim:
+            d["frontend"] = ((cfg.frontend_dim, D), w, dt)
         return d
 
     def init(self, seed: int = 0) -> dict:
@@ -155,6 +161,22 @@ class LM:
         return params["embed"][tokens.long()].to(
             torch_dtype(self.cfg.compute_dtype))
 
+    def _embed_inputs(self, params, batch: dict):
+        """The stack's input rows [B, S', D] in the compute dtype (the
+        reference's `_embed_inputs`): audio frames [B, S, frontend_dim] @
+        frontend; for a vlm the patches [B, P, frontend_dim] @ frontend in
+        front of the token embeddings (S' = P + S); else the token
+        embeddings."""
+        cfg = self.cfg
+        cd = torch_dtype(cfg.compute_dtype)
+        if cfg.family == "audio":
+            return (batch["frames"].to(cd) @ params["frontend"]).to(cd)
+        if cfg.family == "vlm":
+            patch = batch["patches"].to(cd) @ params["frontend"]
+            return torch.cat([patch.to(cd),
+                              self._embed(params, batch["tokens"])], dim=1)
+        return self._embed(params, batch["tokens"])
+
     def _logits(self, params, x):
         cfg = self.cfg
         x = rms_norm(x, params["final_norm"], cfg.rms_eps)
@@ -164,17 +186,16 @@ class LM:
         return x.to(cd) @ params["head"]
 
     def train_loss(self, params, batch: dict, tables=None):
-        """batch {"tokens" [B, S], "labels" [B, S][, "mask" [B, S]]} → (mean
+        """batch {"tokens" [B, S] | "frames" [B, S, frontend_dim] (audio) |
+        "tokens" + "patches" [B, P, frontend_dim] (vlm), "labels" [B, S'][,
+        "mask" [B, S']]} (S' the stack's rows: P + S for a vlm) → (mean
         token cross-entropy, aux {"moe_counts": [per-MoE-layer [E]]}): the
-        whole sequences at positions arange(S) through `stack_apply(mode=
-        "train")` — plain differentiable attention and expert products, no
-        kernel, each layer an activation checkpoint under cfg.remat. MoE
-        layers route through `tables` (default_tables())."""
-        if "frames" in batch or "patches" in batch:
-            raise NotImplementedError(
-                "audio frames and vlm patches are not ported yet (ROADMAP "
-                "A15)")
-        x = self._embed(params, batch["tokens"])
+        whole sequences at positions arange(S') through `stack_apply(mode=
+        "train")` — plain differentiable attention (bidirectional where
+        cfg.causal is False) and expert products, no kernel, each layer an
+        activation checkpoint under cfg.remat. MoE layers route through
+        `tables` (default_tables())."""
+        x = self._embed_inputs(params, batch)
         positions = torch.arange(x.shape[1], device=x.device)
         x, _, _, counts = stack_mod.stack_apply(
             self.cfg, self.plan, params["layers"], x, mode="train",
@@ -185,20 +206,36 @@ class LM:
         return loss, {"moe_counts": counts}
 
     @torch.no_grad()
-    def prefill(self, params, tokens, *, max_len: int, true_len=None,
-                tables=None):
-        """Whole-prompt prefill: tokens [B, S] at positions arange(S), the
-        first `true_len` rows real (a right-padded prompt; default S).
+    def prefill(self, params, tokens=None, *, max_len: int = 0,
+                true_len=None, tables=None, patches=None, frames=None):
+        """Whole-prompt prefill: the stack's rows at positions arange(S),
+        the first `true_len` rows real (a right-padded prompt; default S).
+        The frontend input is a keyword: `patches` [B, P, frontend_dim]
+        for a vlm (its rows go in front of the tokens', so S = P + S_tok
+        and `true_len` and the cache's "pos" count the patch rows),
+        `frames` [B, S, frontend_dim] in place of `tokens` for audio.
         Every layer attends through the flash-prefill kernel; MoE layers
         route through `tables` (default_tables()). → (dense cache
         {"layers": [{"k","v": [B, W, K, h]}], "pos": true_len} — ring layers
         compressed to sink+recent, full layers padded to max_len — the
-        logits of the last real token [B, V], and aux {"moe_counts":
-        [per-MoE-layer [E]]})."""
-        B, S = tokens.shape
-        tl = S if true_len is None else int(true_len)
-        x = self._embed(params, tokens)
+        logits of the last real row [B, V], and aux {"moe_counts":
+        [per-MoE-layer [E]]}).
+
+        An encoder-only config (hubert) runs the whole forward instead
+        (`stack_apply(mode="encode")`: the kernel, bidirectional where
+        cfg.causal is False; max_len and true_len unused) and returns
+        (None, per-frame logits [B, S, V], aux), as the reference does."""
+        batch = {"tokens": tokens, "patches": patches, "frames": frames}
+        x = self._embed_inputs(params, batch)
+        B, S = x.shape[:2]
         positions = torch.arange(S, device=x.device)
+        if self.cfg.encoder_only:
+            x, _, _, counts = stack_mod.stack_apply(
+                self.cfg, self.plan, params["layers"], x, mode="encode",
+                positions=positions, caches=None, block_tables=None,
+                tables=tables)
+            return None, self._logits(params, x), {"moe_counts": counts}
+        tl = S if true_len is None else int(true_len)
         x, layers, _, counts = stack_mod.stack_apply(
             self.cfg, self.plan, params["layers"], x, mode="prefill",
             positions=positions, caches=None, block_tables=None,
@@ -209,12 +246,14 @@ class LM:
     @cached_property
     def chunked_prefill_support(self) -> tuple:
         """(supported, max_chunk_tokens), as the reference decides it:
-        chunked prefill is exact only when no attention layer's prefill mask
-        needs keys its ring has dropped — compressed layers qualify only
-        under cfg.prefill_sparse — and a ring bounds the chunk to its recent
-        width. (The reference also refuses encoder and frontend families,
-        which `check_supported` keeps out of the port.)"""
+        encoder-only configs and the frontend families (vlm, audio) have no
+        chunked prefill; otherwise it is exact only when no attention
+        layer's prefill mask needs keys its ring has dropped — compressed
+        layers qualify only under cfg.prefill_sparse — and a ring bounds
+        the chunk to its recent width."""
         cfg = self.cfg
+        if cfg.encoder_only or cfg.family in ("vlm", "audio"):
+            return False, 0
         limit = 1 << 30
         for spec in self.plan.all_specs():
             if spec.kind != "attn":

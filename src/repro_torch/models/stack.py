@@ -5,7 +5,8 @@ in a plain loop over a flat per-layer list (parameters are unstacked by
 `bridge.params_from_numpy`). `StackPlan` keeps the period form only to name
 the layers in the reference's order.
 
-Params:  {"layers": [layer dict, ...], "embed", "final_norm"[, "head"]}
+Params:  {"layers": [layer dict, ...], "embed", "final_norm"[, "head"][,
+          "frontend"]}
 Caches:  {"layers": [entry | None, ...], "pos": int}
 Attention layers are full (KV grows with the context) or ring layers
 (OmniAttn sink+recent compression, or a sliding window: a fixed capacity
@@ -92,14 +93,19 @@ def full_attn_layer(cfg: ModelConfig, spec: LayerSpec) -> bool:
     return spec.kind == "attn" and cache_window(cfg, spec) == (0, 0)
 
 
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
+
+
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for a configuration this slice of the port
-    does not serve (rather than silently serving something else)."""
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid") \
-            or cfg.encoder_only or not cfg.causal or cfg.frontend_dim:
+    """Raise NotImplementedError for a family the port does not model
+    (rather than silently running something else). Encoder-only and
+    bidirectional stacks and the frontend families (vlm patches, audio
+    frames) are modelled; serving them is refused by the `Server`
+    (`serving.server.check_servable`)."""
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (dense, MoE, SSM and "
-            f"hybrid decoders only)")
+            f"family {cfg.family!r} is not ported; the port models "
+            f"{FAMILIES}")
 
 
 def topk_block_budget(oa, nb: int) -> Optional[int]:
@@ -288,7 +294,12 @@ def attn_sublayer(cfg: ModelConfig, spec: LayerSpec, p: dict, x, *,
       entry is the window's rope'd K/V, staged for `stack_verify_commit`.
     mode "train": whole sequences [B, S] at positions arange(S), no cache,
       through the plain differentiable `chunked_attention` (never a
-      kernel: none has a backward); no entry."""
+      kernel: none has a backward); no entry.
+    mode "encode": the same whole sequences through the flash-prefill
+      kernel (causal or bidirectional as cfg.causal says), no cache and no
+      entry — an encoder's forward (`LM.prefill` of an encoder-only
+      config, the reference's mode "train" under use_pallas). Inference
+      only: the kernel refuses inputs that require grad."""
     B, S, _ = x.shape
     H, K, h = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     cd = torch_dtype(cfg.compute_dtype)
@@ -317,18 +328,18 @@ def attn_sublayer(cfg: ModelConfig, spec: LayerSpec, p: dict, x, *,
         out = attn_mod.chunked_attention(q, k, v, causal=cfg.causal,
                                          window=window, sink=use_sink,
                                          fp32_scores=cfg.attn_fp32_scores)
-    elif mode == "prefill" and cache is None:
+    elif mode == "encode" or (mode == "prefill" and cache is None):
         out = kops.attention_prefill_op(q, k, v, causal=cfg.causal,
                                         window=window, sink=use_sink)
-        if ring:
+        if mode == "prefill" and ring:
             kc, vc = attn_mod.compress_prefill_kv(k, v, sink=sink,
                                                   recent=recent,
                                                   true_len=true_len)
-        else:
+            new_cache = {"k": kc, "v": vc}
+        elif mode == "prefill":
             pad = (0, 0, 0, 0, 0, max_len - S)
-            kc = torch.nn.functional.pad(k, pad)
-            vc = torch.nn.functional.pad(v, pad)
-        new_cache = {"k": kc, "v": vc}
+            new_cache = {"k": torch.nn.functional.pad(k, pad),
+                         "v": torch.nn.functional.pad(v, pad)}
     elif mode == "prefill" and (ring or block_tables is None):
         # a chunk over the layer's dense cache (a ring, or a full layer's
         # [1, max_len] cache): attend the resident tokens and the causal
@@ -492,15 +503,15 @@ def mamba_sublayer(cfg: ModelConfig, p: dict, x, *, mode: str,
     """The Mamba-2 SSD mixer of one layer with its pre-norm and residual.
     → (x, new entry or None).
 
-    mode "prefill" or "train", cache None: whole sequences from a zero state
-      (a B=1 prompt, or a training batch); the new entry is returned. Mode
-      "prefill" with a cache: a chunk continuing the entry's state and
-      convolution rows, updated in place. With `true_len` (an int
-      or a 0-d device tensor, read on the device) the rows past it are
-      padding: their dt and x are zeroed, which leaves the state as it was
-      (decay exp(0) = 1, update 0), and the new convolution rows are the
-      last cw-1 real pre-convolution inputs, gathered from (old rows ‖
-      chunk) at true_len.
+    mode "prefill", "train" or "encode", cache None: whole sequences from a
+      zero state (a B=1 prompt, or a training batch); the new entry is
+      returned. Mode "prefill" with a cache: a chunk continuing the
+      entry's state and convolution rows, updated in place. With
+      `true_len` (an int or a 0-d device tensor, read on the device) the
+      rows past it are padding: their dt and x are zeroed, which leaves
+      the state as it was (decay exp(0) = 1, update 0), and the new
+      convolution rows are the last cw-1 real pre-convolution inputs,
+      gathered from (old rows ‖ chunk) at true_len.
     mode "decode": one token per slot, the entry updated in place (the
       convolution rows shift through a new tensor).
     mode "verify" raises: a rejected draft would need the recurrent state
@@ -644,6 +655,7 @@ def stack_apply(cfg: ModelConfig, plan: StackPlan, layers: list, x, *,
     (empty when off); counts the list of per-MoE-layer expert counts [E]
     (empty without MoE layers).
 
+    Mode "encode" runs whole sequences through the kernels, no cache.
     Mode "train" (whole sequences, no cache) is differentiable; with
     cfg.remat each layer is an activation checkpoint
     (`torch.utils.checkpoint`, non-reentrant): remat_policy "nothing"

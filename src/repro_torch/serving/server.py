@@ -123,6 +123,22 @@ class ServerConfig:
                             f"{type(self.quant).__name__}")
 
 
+def check_servable(cfg: ModelConfig) -> None:
+    """Raise NotImplementedError for a model the server cannot serve: an
+    encoder-only config has no decode step, and the frontend families take
+    frames or patches that a request of token ids does not carry. The
+    reference's Server feeds its prefill tokens only
+    (src/repro/serving/prefill.py), so it cannot serve them either; serving
+    a vlm on its tokens alone would be another model."""
+    if cfg.encoder_only or cfg.family in ("vlm", "audio"):
+        kind = "an encoder-only" if cfg.encoder_only else f"a {cfg.family}"
+        raise NotImplementedError(
+            f"{cfg.arch_id}: the Server cannot serve {kind} model — its "
+            f"requests carry token ids only (no frames or patches) and its "
+            f"engines prefill and decode tokens, as the reference's do; "
+            f"run it through LM.prefill / LM.decode instead")
+
+
 class Server:
     def __init__(self, cfg: ModelConfig, scfg: ServerConfig, *,
                  pattern: Optional[list] = None, params=None, seed: int = 0,
@@ -135,6 +151,7 @@ class Server:
             raise TypeError(f"Server(faults=...) takes a FaultPlane, got "
                             f"{type(faults).__name__}")
         scfg.check_supported()
+        check_servable(cfg)
         self.cfg, self.scfg = cfg, scfg
         # fired at the top of every step(), before any engine work
         self.faults = faults

@@ -58,15 +58,36 @@ def synth_tokens(cfg: DataConfig, step: int) -> np.ndarray:
 
 def make_batch(model_cfg: ModelConfig, data_cfg: DataConfig, step: int,
                device=None) -> dict:
-    """The step's batch {"tokens", "labels"} [B, S] int64 on `device`
-    (None → cuda): the stream's first S tokens and its next S. The
-    frontend families' batches (audio frames, vlm patches) are ROADMAP
-    A15."""
-    if model_cfg.family in ("audio", "vlm"):
-        raise NotImplementedError(
-            f"{model_cfg.family} batches are not ported yet (ROADMAP A15)")
+    """The step's batch on `device` (None → cuda), the reference's element
+    for element: {"tokens", "labels"} [B, S] int64 (the stream's first S
+    tokens and its next S); for audio {"frames" [B, S, frontend_dim]
+    float32 (standard normals from the step's seed + 1 stream), "labels"
+    (the first S tokens mod vocab)}; for a vlm {"tokens" [B, S - P],
+    "patches" [B, P, frontend_dim] float32 (seed + 2 stream), "labels"
+    [B, S] (zeros over the patch prefix, then the next tokens), "mask" [B,
+    S] float32 (zero over the prefix)}."""
     dev = resolve_device(device)
-    toks = torch.from_numpy(synth_tokens(data_cfg, step)).to(dev)
+    toks = synth_tokens(data_cfg, step)
+    B, S = data_cfg.global_batch, data_cfg.seq_len
+    t = lambda a: torch.from_numpy(a).to(dev)
+    if model_cfg.family == "audio":
+        rng = _batch_rng(data_cfg.seed + 1, step)
+        frames = rng.standard_normal(
+            (B, S, model_cfg.frontend_dim)).astype(np.float32)
+        return {"frames": t(frames),
+                "labels": t(toks[:, :-1] % model_cfg.vocab_size)}
+    if model_cfg.family == "vlm":
+        Pn = model_cfg.num_patches
+        rng = _batch_rng(data_cfg.seed + 2, step)
+        patches = rng.standard_normal(
+            (B, Pn, model_cfg.frontend_dim)).astype(np.float32)
+        labels = np.concatenate([np.zeros((B, Pn), np.int64),
+                                 toks[:, 1:S - Pn + 1]], axis=1)
+        mask = np.concatenate([np.zeros((B, Pn), np.float32),
+                               np.ones((B, S - Pn), np.float32)], axis=1)
+        return {"tokens": t(np.ascontiguousarray(toks[:, :S - Pn])),
+                "patches": t(patches), "labels": t(labels), "mask": t(mask)}
+    toks = t(toks)
     return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
 
 

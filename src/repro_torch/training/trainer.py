@@ -45,11 +45,15 @@ def loss_and_grads(lm: LM, params, batch: dict, tables=None) -> tuple:
     """→ (the loss, detached, and its gradients: a list in `tree_leaves`
     order, each in its parameter's dtype). The parameters are taken as
     leaves of the autograd graph through detached aliases, so the tensors
-    of `params` never require grad."""
+    of `params` never require grad. A parameter the loss does not read (an
+    audio model's token embedding) gets a zero gradient, as under
+    jax.grad."""
     req = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
     loss, _ = lm.train_loss(tree_unflatten(params, req), batch,
                             tables=tables)
-    return loss.detach(), list(torch.autograd.grad(loss, req))
+    grads = torch.autograd.grad(loss, req, allow_unused=True)
+    return loss.detach(), [torch.zeros_like(p) if g is None else g
+                           for p, g in zip(req, grads)]
 
 
 def make_train_step(lm: LM, *, lr: float = 3e-4, weight_decay: float = 0.1,

@@ -66,8 +66,9 @@ def test_no_jax_or_repro_import_in_source(path):
 def test_every_slice_module_is_checked():
     """The import check above walks the package; the modules of each slice
     (paged serving, the OmniAttn ring path, online top-k and SpecPlane,
-    MoE with OmniPlacement, QuantPlane, training, checkpoints and the
-    launchers) are among the ones it loads."""
+    MoE with OmniPlacement, QuantPlane, training, checkpoints, the
+    launchers and the frontend families' configs) are among the ones it
+    loads."""
     mods = set(_modules())
     for m in ("repro_torch.kernels.paged_decode",
               "repro_torch.kernels.sink_decode",
@@ -84,5 +85,7 @@ def test_every_slice_module_is_checked():
               "repro_torch.serving.quant", "repro_torch.tree",
               "repro_torch.training.optim", "repro_torch.training.data",
               "repro_torch.training.trainer", "repro_torch.checkpoint.store",
-              "repro_torch.launch.train", "repro_torch.launch.serve"):
+              "repro_torch.launch.train", "repro_torch.launch.serve",
+              "repro_torch.configs.hubert_xlarge",
+              "repro_torch.configs.phi3_vision"):
         assert m in mods, m

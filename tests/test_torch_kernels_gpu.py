@@ -923,21 +923,27 @@ def test_block_topk_wide_shapes_match_plain_and_selection(cuda, dtype, K, G,
 
 @pytest.mark.gpu
 def test_head_dims_outside_the_kernels_raise(cuda):
-    """h = 512 (and 96) is in no kernel's list: every attention wrapper
-    raises on the card, nothing falls back."""
+    """h = 48 and 512 are in no kernel's list, and 80 / 96 are not in
+    paged_prefill's, spec_verify's or block_topk's (ROADMAP B17b; the
+    other three take them): each such wrapper raises on the card, nothing
+    falls back and nothing is launched."""
     tb = torch.ones((1, 1), dtype=torch.int32, device=cuda)
     one = torch.ones(1, dtype=torch.int32, device=cuda)
-    for h in (96, 512):
+    counts = (paged_prefill.launches, spec_verify.launches,
+              block_topk_scores.launches, paged_decode.launches,
+              sink_decode.launches, flash_prefill.launches)
+    for h in (48, 80, 96, 512):
         q = torch.zeros((1, 1, 2, h), device=cuda)
         kp = torch.zeros((2, 1, 16, h), device=cuda)
-        with pytest.raises(ValueError):
-            paged_decode(q, kp, kp, tb, one)
-        with pytest.raises(ValueError):
-            sink_decode(q, kp[:1], kp[:1], one)
-        with pytest.raises(ValueError):
-            flash_prefill(torch.zeros((1, 8, h), device=cuda),
-                          torch.zeros((1, 4, h), device=cuda),
-                          torch.zeros((1, 4, h), device=cuda))
+        if h not in (80, 96):
+            with pytest.raises(ValueError):
+                paged_decode(q, kp, kp, tb, one)
+            with pytest.raises(ValueError):
+                sink_decode(q, kp[:1], kp[:1], one)
+            with pytest.raises(ValueError):
+                flash_prefill(torch.zeros((1, 8, h), device=cuda),
+                              torch.zeros((1, 4, h), device=cuda),
+                              torch.zeros((1, 4, h), device=cuda))
         qc = torch.zeros((1, 1, 4, h), device=cuda)
         kn = torch.zeros((1, 1, 2, h), device=cuda)
         with pytest.raises(ValueError):
@@ -948,3 +954,111 @@ def test_head_dims_outside_the_kernels_raise(cuda):
             block_topk_scores(q, torch.zeros((2, 1, h), device=cuda),
                               torch.zeros((2, 1, h), device=cuda), tb, one,
                               block_size=16)
+    assert counts == (paged_prefill.launches, spec_verify.launches,
+                      block_topk_scores.launches, paged_decode.launches,
+                      sink_decode.launches, flash_prefill.launches)
+
+
+# ---- hubert-xlarge's h 80 and phi-3-vision's h 96 -----------------------
+# (K, G, h): the two models' heads (G 1, fewer kv heads), GQA groups at the
+# decode routine's row limit (25 rows at h 80, 21 at 96) and one row past it
+FRONTEND = [(4, 1, 80), (4, 1, 96), (2, 4, 80), (2, 3, 96), (1, 25, 80),
+            (1, 26, 80), (1, 21, 96), (1, 22, 96)]
+
+
+def _channels_64_79_checked(got, want, dtype):
+    """At h 80 a lane owns ceil(80/32) = 3 output channels of the decode
+    routine (the last lanes masked): channels 64-79, which 80/32 = 2
+    channels a lane would never accumulate, hold the plain version's
+    values and are not zero."""
+    tail = got[..., 64:80].float()
+    torch.testing.assert_close(tail, want[..., 64:80].float(), **TOL[dtype])
+    assert float(tail.abs().amax()) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("K,G,h", FRONTEND)
+def test_paged_decode_frontend_head_dims_match_plain(cuda, dtype, int8, K,
+                                                     G, h):
+    rng = np.random.default_rng(K * 100 + G + h + int8 + 7)
+    lens, bs, nb = [1, 16, 17, 300, 1040, 1041], 16, 66
+    B, N = len(lens), len(lens) * nb + 1
+    q = _rand(rng, (B, K, G, h), dtype, cuda)
+    tables = _tables(rng, B, nb, N, cuda)
+    for b, n in enumerate(lens):
+        tables[b, -(-n // bs):] = 0
+    if int8:
+        kp, vp, sc = _int8_arena(rng, N, K, bs, h, tables, lens, cuda)
+    else:
+        kp = _rand(rng, (N, K, bs, h), dtype, cuda)
+        vp = _rand(rng, (N, K, bs, h), dtype, cuda)
+        kp[0] = vp[0] = 1e4
+        sc = {}
+    ln = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    n0, i0 = paged_decode.launches, paged_decode.int8_launches
+    got = paged_decode(q, kp, vp, tables, ln, **sc)
+    assert paged_decode.launches == n0 + 1
+    assert paged_decode.int8_launches == i0 + int(int8)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and torch.isfinite(got.float()).all()
+    want = paged_decode_plain(q, kp, vp, tables, ln, **sc)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    if h == 80:
+        _channels_64_79_checked(got, want, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K,G,h", FRONTEND)
+def test_sink_decode_frontend_head_dims_match_plain(cuda, dtype, K, G, h):
+    """phi-3-vision's dense caches in the model layout: occupancy 1, 17,
+    partial, exactly W and wrapped; slots past t poisoned; W 1,056 (a
+    1,040-row prompt and 16 steps) off the 16-slot chunk by nothing and
+    W 1,041 off it by one."""
+    rng = np.random.default_rng(K * 100 + G + h + 11)
+    for W in (1056, 1041):
+        ts = [1, 17, W // 3, W, W + 37]
+        B = len(ts)
+        q = _rand(rng, (B, K, G, h), dtype, cuda)
+        kc = _rand(rng, (B, W, K, h), dtype, cuda)
+        vc = _rand(rng, (B, W, K, h), dtype, cuda)
+        for b, t_b in enumerate(ts):
+            kc[b, t_b:] = vc[b, t_b:] = 1e4
+        kc, vc = kc.transpose(1, 2), vc.transpose(1, 2)
+        t = torch.tensor(ts, dtype=torch.int32, device=cuda)
+        n0 = sink_decode.launches
+        got = sink_decode(q, kc, vc, t)
+        assert sink_decode.launches == n0 + 1 and got.dtype == dtype
+        torch.cuda.synchronize()
+        want = sink_decode_plain(q, kc, vc, t)
+        torch.testing.assert_close(got.float(), want.float(),
+                                   **TOL_DENSE[dtype])
+        if h == 80:
+            _channels_64_79_checked(got, want, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,S,G,h,kw", [
+    (4, 1024, 1, 80, dict(causal=False)),                # hubert
+    (4, 333, 1, 80, dict(causal=False)),                 # ragged tiles
+    (2, 300, 2, 80, dict(causal=True, window=100, sink=16)),
+    (2, 200, 1, 80, dict(causal=False, window=64, sink=8)),
+    (4, 1024, 1, 96, dict(causal=True)),                 # phi-3-vision
+    (2, 1041, 1, 96, dict(causal=True)),
+    (2, 300, 3, 96, dict(causal=True, window=100, sink=16)),
+    (2, 77, 1, 96, dict(causal=False))])
+def test_flash_prefill_frontend_head_dims_match_plain(cuda, dtype, N, S, G,
+                                                      h, kw):
+    rng = np.random.default_rng(S + G + h + len(kw) + 13)
+    q = _rand(rng, (N, S * G, h), dtype, cuda)
+    k = _rand(rng, (N, S, h), dtype, cuda)
+    v = _rand(rng, (N, S, h), dtype, cuda)
+    n0 = flash_prefill.launches
+    got = flash_prefill(q, k, v, **kw)
+    assert flash_prefill.launches == n0 + 1 and got.dtype == dtype
+    torch.cuda.synchronize()
+    want = flash_prefill_plain(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), want.float(), **TOL_DENSE[dtype])

@@ -1,7 +1,10 @@
-"""The kernels' plain versions at the shapes phase 13's decoders bring, on
-the CPU, against `repro.kernels.ref` and (one small case each) the Pallas
-kernels in interpret mode: gemma3-4b's head width (h 256, K 4, G 2) and
-granite-34b's GQA group (K 1, G 48 at h 128), float32 and int8 where the
+"""The kernels' plain versions at the shapes phase 13's decoders and phase
+16's frontend families bring, on the CPU, against `repro.kernels.ref` and
+(one small case each) the Pallas kernels in interpret mode: gemma3-4b's
+head width (h 256, K 4, G 2), granite-34b's GQA group (K 1, G 48 at h
+128), hubert-xlarge's h 80 (G 1, bidirectional in flash_prefill) and
+phi-3-vision's h 96 (with a GQA group of 2 beside its G 1), float32 and
+int8 where the
 kernel has an int8 path (pages written as the QuantPlane writes them:
 sealed blocks with per-channel scales, unsealed tails with per-token
 scales). The CUDA kernels themselves are held to these plain versions on
@@ -35,8 +38,10 @@ torch.set_num_threads(2)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 TOL_DENSE = dict(rtol=2e-5, atol=2e-5)
-# (K, G, h): gemma3-4b's global layers, granite-34b's single kv head
-SHAPES = {"h256": (4, 2, 256), "g48": (1, 48, 128)}
+# (K, G, h): gemma3-4b's global layers, granite-34b's single kv head,
+# hubert-xlarge's and phi-3-vision's head dims (fewer heads)
+SHAPES = {"h256": (4, 2, 256), "g48": (1, 48, 128), "h80": (2, 1, 80),
+          "h96": (2, 2, 96)}
 PD_REF = jax.jit(ref.paged_decode_ref)
 PP_REF = jax.jit(ref.paged_prefill_ref, static_argnames=("window", "sink"))
 SV_REF = jax.jit(ref.spec_verify_ref)
@@ -165,12 +170,12 @@ def test_spec_verify_plain_matches_reference(shape, int8):
 
 @pytest.mark.parametrize("kw", [dict(causal=True, window=32),
                                 dict(causal=True, window=32, sink=8),
-                                dict(causal=True)],
-                         ids=["window", "sink", "causal"])
+                                dict(causal=True), dict(causal=False)],
+                         ids=["window", "sink", "causal", "bidir"])
 @pytest.mark.parametrize("shape", sorted(SHAPES))
 def test_flash_prefill_plain_matches_reference(shape, kw):
     """Row r of q [N, S·G, h] is token r // G: the reference on kv heads
-    repeated G times; the Pallas kernel joins at h 256 (G = 1 rows)."""
+    repeated G times; the Pallas kernel joins at h 256 and h 80."""
     K, G, h = SHAPES[shape]
     rng = np.random.default_rng(30 + len(shape) + len(kw))
     S = 64
@@ -184,7 +189,7 @@ def test_flash_prefill_plain_matches_reference(shape, kw):
     want = np.moveaxis(np.asarray(FP_REF(jnp.asarray(qh), kr, vr, **kw))
                        .reshape(K, G, S, h), 1, 2)
     np.testing.assert_allclose(got, want, **TOL_DENSE)
-    if shape == "h256":
+    if shape in ("h256", "h80"):
         pallas = np.asarray(j_flash_prefill(jnp.asarray(qh), kr, vr,
                                             block_q=64, block_k=64,
                                             interpret=True, **kw))

@@ -159,23 +159,29 @@ def test_unsupported_configs_raise():
     assert "mamba" in [s.kind for s in hyb.plan.all_specs()]
     assert hyb.plan.all_specs() == \
         jstack.StackPlan.from_config(hcfg, [0, 0]).all_specs()
-    # encoder-only and frontend families stay refused
+    # encoder-only and frontend families build, with the reference's plan
+    # and a frontend projection; an unknown family stays refused
+    enc = TLM.build(tcfg.with_updates(encoder_only=True), pattern=[0, 0],
+                    device="cpu")
+    assert enc.chunked_prefill_support == (False, 0)
+    acfg = tcfg.with_updates(family="audio", frontend_dim=64)
+    aud = TLM.build(acfg, pattern=[0, 0], device="cpu")
+    assert aud.plan.all_specs() == \
+        jstack.StackPlan.from_config(acfg, [0, 0]).all_specs()
+    assert aud.param_defs()["frontend"][0] == (64, acfg.d_model)
     with pytest.raises(NotImplementedError):
-        TLM.build(tcfg.with_updates(encoder_only=True), pattern=[0, 0],
+        TLM.build(tcfg.with_updates(family="diffusion"), pattern=[0, 0],
                   device="cpu")
-    with pytest.raises(NotImplementedError):
-        TLM.build(tcfg.with_updates(family="audio", frontend_dim=64),
-                  pattern=[0, 0], device="cpu")
-    # the registry: qwen3-moe and mamba2-130m (and the other decoders the
-    # stack models) are registered with the reference's configuration; an
-    # encoder is not
+    # the registry: qwen3-moe, mamba2-130m and the encoder hubert-xlarge
+    # (and the other architectures the stack models) are registered with
+    # the reference's configuration; an unknown id is not
     from repro.configs import get_config as j_get_config
     from repro_torch.configs import get_config
-    for arch in ("qwen3-moe-235b-a22b", "mamba2-130m"):
+    for arch in ("qwen3-moe-235b-a22b", "mamba2-130m", "hubert-xlarge"):
         assert dataclasses.asdict(get_config(arch)) == \
             dataclasses.asdict(j_get_config(arch))
     with pytest.raises(NotImplementedError):            # not registered
-        get_config("hubert-xlarge")
+        get_config("hubert-base")
     # MoE serves, with online top-k too: the model's selection plan is the
     # reference's (tests/test_torch_compositions.py holds the served
     # streams to the JAX Server)

@@ -258,10 +258,13 @@ def test_topk_plan_rejects_tables_past_limit(nb):
 # (G, h): one group at its largest (16 rows at h 128, 8 at h 256), one row
 # past it, granite-34b's 48 rows over one kv head, gemma3-4b's 2 at h 256,
 # the main path's 6, qwen3-moe's 16 and qwen3-32b's 8, groups at h 32/64,
-# a group far past the row limit
+# a group far past the row limit; hubert's and phi-3-vision's G 1 at h 80
+# and 96, and groups at their limits (25 rows at h 80, 21 at 96) and past
 ROW_GROUP_SHAPES = [(16, 128), (17, 128), (33, 128), (48, 128), (2, 256),
                     (8, 256), (9, 256), (48, 256), (6, 128), (8, 128),
-                    (1, 32), (64, 32), (65, 32), (33, 64), (300, 256)]
+                    (1, 32), (64, 32), (65, 32), (33, 64), (300, 256),
+                    (1, 80), (25, 80), (26, 80), (1, 96), (21, 96),
+                    (22, 96)]
 
 
 @pytest.mark.parametrize("G,h", ROW_GROUP_SHAPES)
@@ -274,8 +277,8 @@ def test_every_query_row_in_exactly_one_row_group(G, h):
         for r in range(lo, hi):
             covered[r] += 1
     assert covered == [1] * G
-    # a CTA keeps h/32 accumulators of each of its rows: at most 2048 / h
-    # rows (csrc dec_gmax), and no more groups than the limit needs
+    # a CTA keeps ceil(h/32) accumulators of each of its rows: at most
+    # 2048 / h rows (csrc dec_gmax), and no more groups than the limit needs
     assert DECODE_ROW_FLOATS == 2048
     assert 1 <= rows <= DECODE_ROW_FLOATS // h
     assert n_grp == -(-G // (DECODE_ROW_FLOATS // h))

@@ -31,8 +31,9 @@
   `test_grad_accum_equivalent` tolerances, and int8 gradient compression
   against the reference's step and training as in its
   `test_int8_grad_compression_trains`;
-- a train step over all eight architectures the port serves (the
-  reference's `test_train_step_smoke`);
+- a train step over all ten architectures the port models (the
+  reference's `test_train_step_smoke`), and an audio model's `train_loss`
+  on frames against the reference's;
 - train mode calls no kernel wrapper: every launch counter stays put and
   no `*_plain` twin runs.
 
@@ -419,7 +420,7 @@ def test_int8_grad_compression_trains():
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_train_step_smoke(arch):
-    """The reference's test_train_step_smoke on the port's eight
+    """The reference's test_train_step_smoke on the port's ten
     architectures, at their reduced configs (bfloat16 as registered)."""
     cfg = t_reduced_config(arch)
     lm = TLM.build(cfg, device="cpu")
@@ -466,8 +467,12 @@ def test_train_mode_calls_no_kernel(monkeypatch):
 
 
 def test_frontend_batches_refused():
-    lm = TLM.build(t_reduced_config("qwen2-1.5b"), device="cpu")
-    with pytest.raises(NotImplementedError, match="A15"):
-        lm.train_loss(lm.init(0), {"frames": torch.zeros(1, 4, 8),
-                                   "labels": torch.zeros(1, 4,
-                                                         dtype=torch.long)})
+    """Frames are no longer refused: an audio model's `train_loss` on the
+    reference's frames batch equals the reference's (float32, 1e-5
+    relative; every gradient in tests/test_torch_frontends_train.py)."""
+    lm, params, tlm, tparams = _models("hubert-xlarge", **F32)
+    jb, tb = _batches(lm.cfg, 32, 2, 0)
+    assert "frames" in tb and "tokens" not in tb
+    jloss, _ = lm.train_loss(params, jb)
+    loss, _ = tlm.train_loss(tparams, tb)
+    np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
