@@ -56,7 +56,10 @@ Phases (any failure raises, so the script exits non-zero):
      `Server.generate`, with the launch counters zeroed just before and
      read just after; check completion, greedy streams equal with prefix
      reuse on and off, pool invariants, one host fetch per decode step and
-     kernel launches == chunks x 28 / steps x 28;
+     kernel launches == chunks x 28 / steps x 28; then the device ms of one
+     captured decode step of six slots followed by the fused draw, all
+     greedy against one slot sampled, and of the draw alone both ways (the
+     threefry Gumbel draw's cost, `draw_cost`);
   4. cross-check reduced-width servers on the card against the same servers
      on the CPU (plain versions): identical greedy streams, logits within
      2e-3 — all-full-attention chunked paged, the default OmniAttn pattern
@@ -68,13 +71,27 @@ Phases (any failure raises, so the script exits non-zero):
      scale invariants on both devices); and the reduced configs of phase
      13's four decoders and phase 14's mamba2 and jamba chunked, qwen3-moe
      also with speculation and with online top-k (`cross_check_archs`);
+     and the sampling draw (`cross_check_sampled`): the threefry bits and
+     uniforms of 6 x 151,936 card against CPU bit for bit, then seeded
+     sampled requests (temperature 0.8-1.5, top-k / top-p on and off) on
+     the all-full stack chunked paged and the default pattern whole-prompt
+     in both KV layouts, streams equal card vs CPU under phase 5's
+     near-tie rule (the margin of masked logits + noise for a sampled
+     token);
   5. serve full-width qwen2-1.5b under the default OmniAttn pattern
      (`pattern=None`: 21 layers sink 128 + recent 4096, 7 full) with
      whole-prompt prefill, once with paged KV (flash_prefill + paged_decode)
      and once slot-dense (flash_prefill + sink_decode): 4,400-token prompts
      that wrap the rings, an exact repeat, short and sampled requests; check
      launches == whole prefills x 28 / steps x 28, one host fetch per step,
-     pool invariants and greedy streams equal across the two layouts;
+     pool invariants and greedy streams equal across the two layouts; every
+     whole prefill of the measured runs replays a "prefill.full" graph (one
+     per prompt bucket, the warm-up met both) and first tokens replay
+     "prefill.first"; each layout served again with capture=False on the
+     same weights, every stream (the sampled one too) equal under the
+     near-tie rule; host and wall ms of one whole 16- and 4,400-token
+     prefill, captured against eager in turns; TTFT of the 16-token
+     prompts; the graph pool's bytes;
   6. serve full-width qwen2-1.5b (28 full layers) with OmniAttn online top-k
      on six 3,968-token prompts: top-k off, topk_frac 0.25, the same with
      the attention mass measured, and a budget of the table width - 1 (the
@@ -221,10 +238,10 @@ Phases (any failure raises, so the script exits non-zero):
      carry phase 2's times at these shapes and phase 16's launches
      (paged_decode's with launches 0 and "on_path": false).
 Every serving phase of 3, 5-9 and 11-14 serves under CUDA-graph capture, the
-default on `cuda`: the decode step, the verify step and the prefill chunk
-are hot-loop entries (`DevicePlacement.hot_loop`), one graph per key
-replayed each step or chunk, and the launch counts above advance by the
-replays. Each phase asserts that its decode entry (the verify entry with
+default on `cuda`: the decode step, the verify step, the prefill chunk, the
+whole-prompt prefill and the first-token draw are hot-loop entries
+(`DevicePlacement.hot_loop`), one graph per key replayed each step, chunk,
+prompt or round, and the launch counts above advance by the replays. Each phase asserts that its decode entry (the verify entry with
 speculation on, and in phases 3, 8, 9 and 11 the chunk entry) replayed in
 its measured run and reports keys, eager calls, captures and replays per
 entry and the bytes of the graph pool.
@@ -281,6 +298,8 @@ SINK_EDGES = ((6, 4224, 6, 128, [1] * 6), (4, 100, 1, 64, [1, 99, 100, 250]),
               (3, 4223, 1, 32, [4222, 16, 5000]), (2, 16, 6, 128, [1, 40]),
               (4, 4608, 6, 128, [4608, 4097, 2, 4609]))
 P5_MAX_LEN, P5_LONG, P5_SHORT = 4608, 4400, 16
+# phase 5's whole prefills timed captured against eager: reps of (a, b, b, a)
+P5_TURNS = 4
 # phase-5 paged decode over the ring block runs: six slots of 264 blocks
 # (sink 128 + recent 4096 at bs 16), four wrapped long prompts, two short
 RING_MAIN = (264, [4224, 4224, 4224, 4224, 20, 20])
@@ -2238,9 +2257,11 @@ def full_width_config():
     return cfg
 
 
-def serve(dev, log, cfg, weights=None):
+def serve(dev, log, cfg, weights=None, timer=None):
     """Phase 3 on `cfg` (full-width qwen2-1.5b in main(); phase 13 passes
-    its decoders with their `weights`)."""
+    its decoders with their `weights`). With a `timer`, also the device ms
+    of a captured step with a sampled slot against all-greedy
+    (`draw_cost`)."""
     from repro_torch.core.proxy import SamplingParams
     from repro_torch.kernels.paged_decode import paged_decode
     from repro_torch.kernels.paged_prefill import paged_prefill
@@ -2296,7 +2317,9 @@ def serve(dev, log, cfg, weights=None):
         "greedy streams differ with prefix reuse on and off"
     off.kv_arena.pool.check_invariants(arena=off.kv_arena)
     sampled_equal = all(streams[r] == streams_off[r] for r in (12, 13))
+    draw = None if timer is None else draw_cost(srv, dev, timer)
     return {"launches": {"paged_prefill": n_pre, "paged_decode": n_dec},
+            "draw": draw,
             "prefill_chunks": ps["chunks"], "decode_steps": ds["steps"],
             "host_fetches": ds["host_fetches"],
             "reused_tokens": ps["reused_tokens"],
@@ -2334,11 +2357,12 @@ def default_pattern_workload(vocab, seed=21):
     return prompts, params
 
 
-def build_default_server(cfg, paged, dev, params=None):
+def build_default_server(cfg, paged, dev, params=None, placement=None):
     """Both layouts get the paged default's pool: every slot max_len plus
     one prompt of prefill headroom, (6 + 1) x 288 blocks. (The slot-dense
     engine's own default accounting pool, 4 x 16 GiB / bytes per slot, is
-    276 blocks at this width: one 4,400-token request at a time.)"""
+    276 blocks at this width: one 4,400-token request at a time.)
+    `placement` a DevicePlacement (capture=False), else the default."""
     from repro_torch.core.proxy import OASConfig
     from repro_torch.serving import Server, ServerConfig
     scfg = ServerConfig(decode_slots=6, max_len=P5_MAX_LEN, kv_block_size=16,
@@ -2346,20 +2370,94 @@ def build_default_server(cfg, paged, dev, params=None):
                         kv_blocks=(6 + 1) * -(-P5_MAX_LEN // 16),
                         paged_kv=paged, oas=OASConfig(defer_window=0.0))
     return Server(cfg, scfg, pattern=None, params=params, seed=0,
-                  device=dev)
+                  device=dev, placement=placement)
 
 
-def top2_margin(srv, prompt, stream, i):
-    """Top-2 logit margin of the token at stream position i, recomputed by a
-    whole-prompt prefill of prompt + stream[:i]."""
+# the entries a whole-prompt server replays in a measured run
+WHOLE_ENTRIES = ("decode.step", "prefill.full", "prefill.first")
+
+
+def warm_whole(srv, warm) -> dict:
+    """Phase 5's warm-up on other tokens, outside the counts and the
+    metrics: a pass over a 4,400- and a 16-token prompt (each prefill
+    bucket's and decode key's eager first call, cuBLAS shapes), the
+    second call of each prefill bucket alone (under capture it captures
+    the bucket's graph and replays it: → its wall ms), and a second pass
+    (the decode keys' captures), so the measured run only replays."""
+    from repro_torch.core.proxy import SamplingParams
+    from repro_torch.serving.prefill import PrefillTask
+    for i in range(2):
+        list(srv.generate([warm[0], warm[4]], SamplingParams(max_tokens=2)))
+        reset_stats(srv)
+        if i:
+            break
+        out = {}
+        for k, prompt in (("long", warm[0]), ("short", warm[4])):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            srv.prefills[0]._run_full(PrefillTask(-1, tuple(prompt)))
+            torch.cuda.synchronize()
+            out[k] = (time.perf_counter() - t) * 1e3
+    return out
+
+
+def whole_prefill_turns(servers: dict, prompts: dict, reps: int) -> dict:
+    """Host and wall ms of one whole prefill (`PrefillEngine._run_full`:
+    the upload, the "prefill.full" replay or its eager launches, the
+    clones) on each server, in turns (a, b, b, a per rep, so drift in the
+    process is shared): host ms until the call returns, wall ms until the
+    card is done too. → {server: {prompt name: {"host_ms", "wall_ms"}
+    medians, "n"}}."""
+    from repro_torch.serving.prefill import PrefillTask
+    got = {n: {k: ([], []) for k in prompts} for n in servers}
+    order = list(servers) + list(servers)[::-1]
+    for _ in range(reps):
+        for name in order:
+            eng = servers[name].prefills[0]
+            for k, prompt in prompts.items():
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                eng._run_full(PrefillTask(-1, tuple(prompt)))
+                host = time.perf_counter() - t
+                torch.cuda.synchronize()
+                got[name][k][0].append(host * 1e3)
+                got[name][k][1].append((time.perf_counter() - t) * 1e3)
+    return {n: {k: {"host_ms": float(np.median(h)),
+                    "wall_ms": float(np.median(w)), "n": len(h)}
+                for k, (h, w) in by.items()} for n, by in got.items()}
+
+
+def top2_margin(srv, prompt, stream, i, sp=None):
+    """Top-2 margin of what the draw maximised at stream position i,
+    recomputed by a whole-prompt prefill of prompt + stream[:i]: the logits
+    of a greedy request (`sp` None or temperature 0), the masked scaled
+    logits + the threefry Gumbel noise of (seed, context length) of a
+    seeded sampled one."""
     ctx = list(prompt) + list(stream[:i])
     S = min(1 << (len(ctx) - 1).bit_length(), srv.scfg.max_len)
+    dev = srv.lm.device
     toks = torch.tensor([ctx + [0] * (S - len(ctx))], dtype=torch.int32,
-                        device=srv.lm.device)
+                        device=dev)
     _, logits, _ = srv.lm.prefill(srv.params, toks,
                                   max_len=srv.scfg.max_len,
                                   true_len=len(ctx), tables=srv.tables)
-    top = torch.topk(logits[0].float(), 2).values
+    z = logits.float()
+    if sp is not None and sp.temperature > 0:
+        from repro_torch.core.proxy.params import device_row
+        from repro_torch.serving.prng import fold_in, gumbel
+        from repro_torch.serving.sampling import kept_mask
+        assert sp.seed is not None, "a sampled request's margin needs a seed"
+        t, k, p, key = device_row(sp)
+        scaled, keep = kept_mask(
+            z, torch.tensor([t], device=dev), torch.tensor([k], device=dev),
+            torch.tensor([p], device=dev))
+        noise = gumbel(fold_in(torch.from_numpy(key.astype(np.int64))[None]
+                               .to(dev), torch.tensor([len(ctx)],
+                                                      device=dev)),
+                       z.shape[1])
+        z = torch.where(keep, scaled, torch.full_like(scaled, -math.inf)) \
+            + noise
+    top = torch.topk(z[0], 2).values
     return float(top[0] - top[1])
 
 
@@ -2368,13 +2466,18 @@ def serve_default_pattern(dev, log, cfg):
     compressed layers (sink 128 + recent 4096) and 7 full ones, served twice
     — paged KV (flash_prefill + paged_decode) and slot-dense KV
     (flash_prefill + sink_decode) — with the counts zeroed just before each
-    measured run and read just after."""
+    measured run and read just after. Every whole prefill of the measured
+    runs replays a "prefill.full" graph (the warm-up met both buckets), and
+    first tokens replay "prefill.first". Each layout is served again with
+    capture=False on the same weights: every stream, the sampled one too,
+    equal up to phase 5's near-tie rule; then host and wall ms of one whole
+    prefill (16 and 4,400 tokens), captured and eager in turns."""
     from repro_torch.kernels.flash_prefill import flash_prefill
     from repro_torch.kernels.paged_decode import paged_decode
     from repro_torch.kernels.paged_prefill import paged_prefill
     from repro_torch.kernels.sink_decode import sink_decode
-    from repro_torch.core.proxy import SamplingParams
     from repro_torch.models.stack import full_attn_layer
+    from repro_torch.serving import DevicePlacement
     specs = None
     n_layers = cfg.n_layers
     prompts, params = default_pattern_workload(cfg.vocab_size)
@@ -2388,16 +2491,13 @@ def serve_default_pattern(dev, log, cfg):
         specs = srv.lm.plan.all_specs()
         torch.cuda.synchronize()
         log.append(f"{name}: server built in {time.monotonic() - t0:.1f} s")
-        # warm-up on other tokens: the 4608 and 16 prefill buckets, decode
-        # batches, cuBLAS shapes; outside the counts and the metrics
-        list(srv.generate([warm[0], warm[4]], SamplingParams(max_tokens=2)))
-        reset_stats(srv)
+        capture_ms = warm_whole(srv, warm)
         hl0 = hot_loops(srv)
         for kern in (flash_prefill, paged_decode, sink_decode,
                      paged_prefill):
             kern.launches = 0
         streams, finished, summ, wall = drive(srv, prompts, params)
-        hl = check_hot_loops(srv, hl0, dev)
+        hl = check_hot_loops(srv, hl0, dev, entries=WHOLE_ENTRIES)
         launches = {"flash_prefill": flash_prefill.launches,
                     "paged_decode": paged_decode.launches,
                     "sink_decode": sink_decode.launches,
@@ -2410,7 +2510,13 @@ def serve_default_pattern(dev, log, cfg):
         assert ds["host_fetches"] == ds["steps"] > 0, ds
         assert ps["cache_hits"] == 1 and ps["prefills"] == len(prompts) - 1, \
             ps
+        full = hl["prefill.full"]
+        assert full["eager"] + full["replays"] == ps["prefills"], (hl, ps)
+        assert hl["prefill.first"]["eager"] + hl["prefill.first"][
+            "replays"] == ps["host_fetches"], (hl, ps)
         if dev.type == "cuda":          # the counts move only on the card
+            # every whole prefill a replay: flash_prefill counted by them
+            assert full["eager"] == 0, hl
             assert launches["flash_prefill"] == ps["prefills"] * n_layers \
                 > 0, (launches, ps)
             dec = "paged_decode" if paged else "sink_decode"
@@ -2420,6 +2526,38 @@ def serve_default_pattern(dev, log, cfg):
             assert launches[other] == 0 == launches["paged_prefill"], \
                 launches
         srv.decodes[0].pool.check_invariants(arena=srv.kv_arena)
+        recs = sorted(srv.metrics.done, key=lambda r: r.rid)
+        # the same traffic eagerly (capture=False) on the same weights
+        eag = build_default_server(
+            cfg, paged, dev, params=weights,
+            placement=DevicePlacement.of(dev, capture=False))
+        eager_ms = warm_whole(eag, warm)
+        e_hl0 = hot_loops(eag)
+        e_streams, e_fin, e_summ, e_wall = drive(eag, prompts, params)
+        e_hl = check_hot_loops(eag, e_hl0, dev)
+        assert all(v["captures"] == v["replays"] == 0
+                   for n, v in e_hl.items() if n != "pool_gb"), e_hl
+        assert len(e_fin) == len(prompts), e_fin
+        e_recs = sorted(eag.metrics.done, key=lambda r: r.rid)
+        ties = []
+        for r, (a, b) in enumerate(zip(streams, e_streams)):
+            if a == b:
+                continue
+            i = next(j for j in range(len(a)) if a[j] != b[j])
+            margin = top2_margin(srv, prompts[r], a, i, params[r])
+            log.append(f"{name}: request {r} differs captured vs eager at "
+                       f"token {i}, top-2 margin {margin:.3g}")
+            if margin >= 1e-4:
+                raise AssertionError(f"{name}: stream {r} differs captured "
+                                     f"vs eager at token {i} (top-2 margin "
+                                     f"{margin:.3g})")
+            ties.append({"request": r, "token": i, "margin": margin})
+        turns = whole_prefill_turns(
+            {"captured": srv, "eager": eag},
+            {"short": prompts[4], "long": prompts[2]}, reps=P5_TURNS)
+        del eag
+        gc.collect()
+        torch.cuda.empty_cache()
         out[name] = {"launches": launches, "whole_prefills": ps["prefills"],
                      "cache_hits": ps["cache_hits"],
                      "decode_steps": ds["steps"],
@@ -2431,6 +2569,17 @@ def serve_default_pattern(dev, log, cfg):
                          "n_done", "ttft_mean", "ttft_p99", "tpot_mean_ms",
                          "tpot_p99_ms", "ott_tok_s", "ttt_tok_s")}
                      | {"wall_s": wall},
+                     "ttft_short_ms": [r.ttft() * 1e3 for r in recs[4:7]],
+                     "second_call_ms": capture_ms,
+                     "eager": {"metrics": {k: e_summ[k] for k in (
+                         "ttft_mean", "tpot_mean_ms", "ttt_tok_s")}
+                         | {"wall_s": e_wall},
+                         "ttft_short_ms": [r.ttft() * 1e3
+                                           for r in e_recs[4:7]],
+                         "second_call_ms": eager_ms,
+                         "streams_equal_captured": not ties,
+                         "near_ties": ties},
+                     "whole_prefill_ms": turns,
                      "streams": streams}
         servers[name] = srv
     # greedy streams (requests 0-5) identical across the two layouts, up to
@@ -2940,13 +3089,96 @@ def cross_check_reduced(dev, log):
                    f"{hot_loop_line(hl)}")
     assert mixed["paged"] == mixed["dense"], \
         "mixed stack chunked: paged and dense layouts differ on the card"
+    sampled = cross_check_sampled(dev, log, prompts, (cfg, params, gpu_params),
+                                  (rcfg, p4, g4))
     return {"logits_max_abs_err": worst, "streams_identical": True,
+            "sampled": sampled,
             "default_pattern_logits_max_abs_err": worst4,
             "default_pattern_streams_identical": True,
             "mixed_chunked_streams_identical": True,
             **cross_check_sparse_spec(dev, log, cfg),
             "quant": cross_check_quant(dev, log, cfg),
             "archs": cross_check_archs(dev, log)}
+
+
+def sampled_params(n, max_tokens=6):
+    """Seeded sampled requests over temperatures 0.8-1.5 with top-k and
+    top-p on and off; every fourth request greedy."""
+    from repro_torch.core.proxy import SamplingParams
+    return [SamplingParams(max_tokens=max_tokens) if i % 4 == 3 else
+            SamplingParams(temperature=(0.8, 1.0, 1.5)[i % 3],
+                           top_k=(64, 0, 20)[i % 3],
+                           top_p=(0.95, 0.9, 1.0)[i % 3], seed=900 + 7 * i,
+                           max_tokens=max_tokens) for i in range(n)]
+
+
+def cross_check_sampled(dev, log, prompts, full, default) -> dict:
+    """Phase 4, continued: the draw on the card against the CPU. The
+    threefry bits of `fold_in` + `random_bits32` at qwen2's vocabulary
+    (151,936) and their uniforms, bit for bit; then seeded sampled requests
+    (`sampled_params`) on the reduced servers, card against CPU: the
+    all-full stack chunked over paged KV (`full` = (cfg, CPU weights, card
+    weights)) and the default pattern whole-prompt in both KV layouts
+    (`default`). Streams equal up to phase 5's near-tie rule: a stream may
+    differ only where the CPU model's top-2 margin of what the draw
+    maximised is under 1e-4 at the first differing token."""
+    from repro_torch.core.proxy import OASConfig
+    from repro_torch.core.proxy.params import seed_key
+    from repro_torch.serving import Server, ServerConfig
+    from repro_torch.serving import prng
+    V = 151936
+    keys = torch.from_numpy(np.stack([seed_key(s) for s in (
+        0, 5, 905, 1 << 40, -7, 123456789)]).astype(np.int64))
+    fold = torch.tensor([0, 1, 17, 4400, 151935, 2 ** 31 - 1],
+                        dtype=torch.int32)
+    want = prng.random_bits32(prng.fold_in(keys, fold), V)
+    got = prng.random_bits32(prng.fold_in(keys.to(dev), fold.to(dev)), V)
+    assert torch.equal(got.cpu(), want), "threefry bits differ card vs CPU"
+    assert torch.equal(prng.uniform(got).cpu(), prng.uniform(want))
+    g_card = prng.gumbel(prng.fold_in(keys.to(dev), fold.to(dev)), V).cpu()
+    g_cpu = prng.gumbel(prng.fold_in(keys, fold), V)
+    gumbel_diff = float((g_card - g_cpu).abs().max())
+    log.append(f"the draw's threefry bits and uniforms over 6 x {V}: card "
+               f"equal to CPU bit for bit; Gumbel noise max |card - CPU| "
+               f"{gumbel_diff:.3g}")
+    params = sampled_params(len(prompts))
+    out = {"bits_equal": True, "gumbel_max_abs_diff": gumbel_diff}
+    runs = (("all_full_chunked_paged", full, [0] * full[0].n_layers,
+             dict(chunk_tokens=32, prefill_tick_budget=64, kv_blocks=40)),
+            ("default_whole_paged", default, None, dict(paged_kv=True)),
+            ("default_whole_dense", default, None, dict(paged_kv=False)))
+    for name, (c, p_cpu, p_card), pattern, knobs in runs:
+        scfg = ServerConfig(decode_slots=3, max_len=128, kv_block_size=8,
+                            oas=OASConfig(defer_window=0.0), **knobs)
+        got, servers = [], []
+        for d, p in (("cpu", p_cpu), (dev, p_card)):
+            srv = Server(c, scfg, pattern=pattern, params=p, device=d)
+            s = srv.run(list(zip(prompts, params)))
+            assert s["n_done"] == len(prompts)
+            got.append([tuple(r.output_tokens) for r in
+                        sorted(srv.metrics.done, key=lambda r: r.rid)])
+            servers.append(srv)
+        assert servers[1].prefills[0].chunked == (pattern is not None)
+        ties = []
+        for r, (a, b) in enumerate(zip(*got)):
+            if a == b:
+                continue
+            i = next(j for j in range(len(a)) if a[j] != b[j])
+            margin = top2_margin(servers[0], prompts[r], a, i, params[r])
+            log.append(f"sampled {name}: request {r} differs card vs CPU at "
+                       f"token {i}, top-2 margin {margin:.3g}")
+            if margin >= 1e-4:
+                raise AssertionError(f"sampled {name}: stream {r} differs "
+                                     f"card vs CPU (top-2 margin "
+                                     f"{margin:.3g})")
+            ties.append({"request": r, "token": i, "margin": margin})
+        hl = check_hot_loops(servers[1], {}, torch.device(dev))
+        out[name] = {"streams_equal": not ties, "near_ties": ties}
+        log.append(f"sampled {name}: {sum(sp.temperature > 0 for sp in params)}"
+                   f" sampled + {sum(sp.temperature <= 0 for sp in params)} "
+                   f"greedy streams card vs CPU equal: {not ties} (near-ties "
+                   f"{ties}); on the card {hot_loop_line(hl)}")
+    return out
 
 
 def cross_check_archs(dev, log, archs=("qwen3-32b", "granite-34b",
@@ -5347,6 +5579,63 @@ def capture_logits_diff(srv, dev, verify=False):
     return float((out - eager).abs().max())
 
 
+def draw_cost(srv, dev, timer) -> dict:
+    """Device ms of one captured decode step of `srv`'s model followed by
+    the fused draw (`sample_tokens`) over its [6, V] logits, replayed from
+    its graph: six slots over 16-entry tables of seeded random K/V at
+    mid-block positions (as `capture_logits_diff`), all greedy (the draw
+    skipped: argmax) against one slot sampled (temperature 0.9, top-k 64,
+    top-p 0.95: the sort, softmax and cumulative sum of the filter and the
+    threefry Gumbel noise); and the draw alone over the same logits, both
+    ways. The difference is what a step with a sampled slot pays."""
+    from repro_torch.serving import DevicePlacement
+    from repro_torch.serving.sampling import sample_tokens
+    lm, B, nb, bs = srv.lm, 6, 16, 16
+    V = lm.cfg.vocab_size
+    g = torch.Generator(device=dev)
+    g.manual_seed(7)
+    layers = random_arena(lm, B * nb + 1, bs, dev, srv.kv_arena.quant, g)
+    cache = {"layers": layers, "pos": 0}
+    tables = torch.arange(1, B * nb + 1, dtype=torch.int32,
+                          device=dev).reshape(B, nb)
+    pos = torch.tensor([200, 37, 101, 250, 5, 133], dtype=torch.int32,
+                       device=dev)
+    toks = torch.randint(0, V, (B, 1), generator=g, device=dev,
+                         dtype=torch.int32)
+    temp = torch.tensor([0.9] + [0.0] * (B - 1), device=dev)
+    top_k = torch.tensor([64] + [0] * (B - 1), dtype=torch.int32,
+                         device=dev)
+    top_p = torch.tensor([0.95] + [1.0] * (B - 1), device=dev)
+    keys = torch.stack([torch.arange(B, device=dev),
+                        torch.arange(B, device=dev) + 900], dim=1)
+    logits = torch.empty((B, V), dtype=torch.float32, device=dev)
+    out = torch.empty(B, dtype=torch.int32, device=dev)
+
+    def step(key, out):
+        lg = lm.decode(srv.params, cache, toks, pos[:, None],
+                       block_tables=tables, tables=srv.tables)[1]
+        logits.copy_(lg)
+        return out.copy_(sample_tokens(lg, temp, top_k, top_p, keys,
+                                       pos + 1, all_greedy=key[1]))
+
+    def draw(key, out):
+        return out.copy_(sample_tokens(logits, temp, top_k, top_p, keys,
+                                       pos + 1, all_greedy=key[1]))
+
+    res = {}
+    for name, fn in (("step", step), ("draw", draw)):
+        entry = DevicePlacement.of(dev).hot_loop(fn, name=f"check.{name}")
+        for greedy in (True, False):
+            key = (nb, greedy)
+            entry(key, (out,))
+            entry(key, (out,))              # capture, then one replay
+            res[f"{name}_ms_{'greedy' if greedy else 'sampled'}"] = \
+                timer(lambda: entry(key, (out,)))
+            assert dev.type != "cuda" or entry.replays[key] > 1
+    res["draw_cost_ms"] = res["step_ms_sampled"] - res["step_ms_greedy"]
+    return res
+
+
 def chunk_logits_diff(srv, dev):
     """Largest |difference| between the logits of one prefill chunk of
     `srv`'s model replayed from a captured graph and run eagerly on the
@@ -5615,7 +5904,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     cfg = full_width_config()
-    served = serve(dev, log, cfg)
+    served = serve(dev, log, cfg, timer=timer)
     on = served["reuse_on"]
     print(f"phase 3: full-width qwen2-1.5b served through the CUDA kernels "
           f"[{time.monotonic() - t0:.1f} s]")
@@ -5640,6 +5929,16 @@ def main() -> int:
           f"host {served['host_s_per_round'] * 1e3:.2f} ms per decode round")
     print(f"  hot loops (reuse off): "
           f"{hot_loop_line(served['hot_loops_reuse_off'])}")
+    dc = served["draw"]
+    print(f"  a captured decode step of six slots (16-entry tables): "
+          f"{dc['step_ms_greedy']:.4f} ms all greedy, "
+          f"{dc['step_ms_sampled']:.4f} ms with one sampled slot: the draw "
+          f"costs {dc['draw_cost_ms']:.4f} ms a step; the draw alone "
+          f"{dc['draw_ms_greedy']:.4f} ms greedy (argmax) vs "
+          f"{dc['draw_ms_sampled']:.4f} ms sampled (filter + threefry "
+          f"Gumbel over 6 x {cfg.vocab_size}); sampled streams equal with "
+          f"reuse on and off: {served['sampled_streams_equal_on_off']} "
+          f"[{smi}]")
     log.clear()
 
     report["reduced"] = cross_check_reduced(dev, log)
@@ -5670,6 +5969,34 @@ def main() -> int:
               f"tok/s over {m['wall_s']:.2f} s [{smi}]")
         print(f"  {name} KV: hot loops: {hot_loop_line(r['hot_loops'])}; "
               f"host {r['host_s_per_round'] * 1e3:.2f} ms per decode round")
+        full = r["hot_loops"]["prefill.full"]
+        print(f"  {name} KV: {full['replays']} of {r['whole_prefills']} "
+              f"whole prefills replayed from \"prefill.full\" graphs "
+              f"({full['captures']} captured in this run, {full['eager']} "
+              f"eager); TTFT of the three 16-token prompts "
+              + ", ".join(f"{x:.2f}" for x in r["ttft_short_ms"])
+              + f" ms [{smi}]")
+        e = r["eager"]
+        print(f"  {name} KV, capture=False: every stream (the sampled one "
+              f"too) equal to the captured run's: "
+              f"{e['streams_equal_captured']} (near-ties {e['near_ties']}); "
+              f"TTFT mean {e['metrics']['ttft_mean'] * 1e3:.2f} ms, of the "
+              f"16-token prompts "
+              + ", ".join(f"{x:.2f}" for x in e["ttft_short_ms"])
+              + f" ms; TPOT mean {e['metrics']['tpot_mean_ms']:.2f} ms "
+              f"[{smi}]")
+        print(f"  {name} KV: a bucket's second whole prefill (the capture "
+              f"and first replay) {r['second_call_ms']['long']:.1f} ms at "
+              f"{P5_MAX_LEN}, {r['second_call_ms']['short']:.1f} ms at "
+              f"{P5_SHORT}; eagerly {e['second_call_ms']['long']:.1f} / "
+              f"{e['second_call_ms']['short']:.1f} ms [{smi}]")
+        for k, lab in (("short", P5_SHORT), ("long", P5_LONG)):
+            c, g = (r["whole_prefill_ms"][x][k] for x in ("captured",
+                                                          "eager"))
+            print(f"  {name} KV: one whole {lab}-token prefill, in turns "
+                  f"(n {c['n']} each): host {c['host_ms']:.3f} ms captured "
+                  f"vs {g['host_ms']:.3f} ms eager, wall {c['wall_ms']:.3f} "
+                  f"ms vs {g['wall_ms']:.3f} ms [{smi}]")
     print(f"  greedy streams identical across layouts: "
           f"{omni['greedy_streams_identical']} "
           f"(near-ties {omni['near_ties']})")

@@ -307,14 +307,15 @@ def compress_prefill_kv(k, v, *, sink: int, recent: int, true_len=None):
     recent, so after `true_len` tokens (a right-padded prompt; default S)
     each ring slot holds the latest token of its residue class; ring slots
     no real token reached are zero. The sink slots copy rows :sink as they
-    are (padded rows included), as the reference does."""
+    are (padded rows included), as the reference does. `true_len` is an int
+    or a 0-d device tensor, read on the device."""
     B, S, K, h = k.shape
     W = sink + recent
     if true_len is None and S <= W:
         pad = (0, 0, 0, 0, 0, W - S)
         return (torch.nn.functional.pad(k, pad),
                 torch.nn.functional.pad(v, pad))
-    tl = S if true_len is None else int(true_len)
+    tl = S if true_len is None else true_len
     dev = k.device
     base = sink + torch.arange(recent, device=dev)
     n_wraps = torch.clamp(torch.div(tl - 1 - base, recent,

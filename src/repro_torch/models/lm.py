@@ -214,10 +214,12 @@ class LM:
         for a vlm (its rows go in front of the tokens', so S = P + S_tok
         and `true_len` and the cache's "pos" count the patch rows),
         `frames` [B, S, frontend_dim] in place of `tokens` for audio.
-        Every layer attends through the flash-prefill kernel; MoE layers
-        route through `tables` (default_tables()). → (dense cache
-        {"layers": [{"k","v": [B, W, K, h]}], "pos": true_len} — ring layers
-        compressed to sink+recent, full layers padded to max_len — the
+        `true_len` is an int or a 0-d device tensor, read on the device (the
+        last real row is gathered there), so a captured prefill bakes in no
+        host value. Every layer attends through the flash-prefill kernel;
+        MoE layers route through `tables` (default_tables()). → (dense
+        cache {"layers": [{"k","v": [B, W, K, h]}], "pos": true_len} — ring
+        layers compressed to sink+recent, full layers padded to max_len — the
         logits of the last real row [B, V], and aux {"moe_counts":
         [per-MoE-layer [E]]}).
 
@@ -235,13 +237,15 @@ class LM:
                 positions=positions, caches=None, block_tables=None,
                 tables=tables)
             return None, self._logits(params, x), {"moe_counts": counts}
-        tl = S if true_len is None else int(true_len)
+        tl = S if true_len is None else true_len
         x, layers, _, counts = stack_mod.stack_apply(
             self.cfg, self.plan, params["layers"], x, mode="prefill",
             positions=positions, caches=None, block_tables=None,
             true_len=true_len, max_len=max_len, tables=tables)
-        return ({"layers": layers, "pos": tl},
-                self._logits(params, x[:, tl - 1]), {"moe_counts": counts})
+        last = x.index_select(
+            1, (_device_int(tl, x.device) - 1).long().reshape(1))[:, 0]
+        return ({"layers": layers, "pos": tl}, self._logits(params, last),
+                {"moe_counts": counts})
 
     @cached_property
     def chunked_prefill_support(self) -> tuple:

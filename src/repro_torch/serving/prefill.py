@@ -29,14 +29,19 @@ keeps a clone of.
 
 Whole-prompt (chunking unsupported — OmniAttn-compressed layers without
 `prefill_sparse`, the default — or switched off): FIFO, one whole prompt
-per `LM.prefill` call through the flash-prefill kernel, into a dense B=1
-cache that the decode engine scatters into its own layout at admission.
-Stored prefixes are dense prefix-length snapshots adopted only by an exact
-repeat of the whole prompt.
+per `LM.prefill` through the flash-prefill kernel, run through the
+"prefill.full" hot-loop entry keyed by the prompt bucket S: its graph reads
+the prompt's tokens and true length from one static upload buffer and
+writes one static dense B=1 cache (every bucket shares it) and the [1, V]
+logits, of which the task keeps clones. The decode engine scatters the
+cache into its own layout at admission. Stored prefixes are dense
+prefix-length snapshots adopted only by an exact repeat of the whole
+prompt.
 
 First tokens of every prompt finished in one engine round are sampled in
-one fused call with one host fetch. MoE layers route through the engine's
-`tables` (the server rewrites them in place at a migration).
+one fused call (the "prefill.first" entry, keyed by the batch padded to a
+power of two and all_greedy) with one host fetch. MoE layers route through
+the engine's `tables` (the server rewrites them in place at a migration).
 """
 from __future__ import annotations
 
@@ -72,6 +77,35 @@ def clone_tree(tree):
     if isinstance(tree, torch.Tensor):
         return tree.clone()
     return tree
+
+
+class StagedUpload:
+    """A device int32 buffer of n values written from two alternating
+    pinned host stages. No fetch separates two uploads, so an earlier copy
+    may still be reading a stage: each is rewritten only after the event
+    recorded behind its last copy has completed. `stage()` → the next
+    stage as a numpy array to fill; `send()` copies it into `buf`."""
+
+    def __init__(self, n: int, device: torch.device):
+        self.buf = torch.zeros(n, dtype=torch.int32, device=device)
+        cuda = device.type == "cuda"
+        self._stages = [(torch.zeros(n, dtype=torch.int32, pin_memory=cuda),
+                         torch.cuda.Event() if cuda else None)
+                        for _ in range(2)]
+        self._next = 0
+
+    def stage(self) -> np.ndarray:
+        stage, done = self._stages[self._next]
+        if done is not None:
+            done.synchronize()
+        return stage.numpy()
+
+    def send(self) -> None:
+        stage, done = self._stages[self._next]
+        self._next ^= 1
+        self.buf.copy_(stage, non_blocking=True)
+        if done is not None:
+            done.record()
 
 
 @dataclass
@@ -148,34 +182,34 @@ class PrefillEngine:
             capacity_bytes=self.cache_cap_bytes)
         if self.paged:
             self.arena.reclaimers.append(self.store.evict_for_blocks)
+        self._logits = torch.zeros(
+            (1, self.lm.cfg.vocab_size),
+            dtype=torch_dtype(self.lm.cfg.compute_dtype), device=self.device)
+        self._tok_bufs: dict = {}
         if self.chunked:
             self._init_chunk_buffers()
+        else:
+            self._init_full_buffers()
+        self._first_bufs: dict = {}
+        self._first_step = self.placement.hot_loop(self._first_impl,
+                                                   name="prefill.first")
 
     def _init_chunk_buffers(self):
         """The static buffers of the "prefill.chunk" entry, owned by the
-        engine for its life: one device int32 upload buffer holding the
-        chunk's tokens [:chunk], the task's table row [chunk:chunk + nb] and
-        (off, chunk_len) at the end, each bucket's tokens a [1, S] view of
-        it; two pinned staging copies, each guarded by the event recorded
-        after its last upload; the [1, V] logits; the private cache (ring
-        leaves; dense, every leaf) composed with the arenas."""
-        cfg, plan, dev = self.lm.cfg, self.lm.plan, self.device
+        engine for its life (beside the [1, V] logits): one upload buffer
+        holding the chunk's tokens [:chunk], the task's table row
+        [chunk:chunk + nb] and (off, chunk_len) at the end, each bucket's
+        tokens a [1, S] view of it; the private cache (ring leaves; dense,
+        every leaf) composed with the arenas."""
+        cfg, plan = self.lm.cfg, self.lm.plan
         self.layout = "paged" if self.paged else "dense"
         nb = -(-self.max_len // self.block_size) if self.paged else 0
         n = self.chunk + nb + 2
-        self._up = torch.zeros(n, dtype=torch.int32, device=dev)
-        cuda = dev.type == "cuda"
-        self._stages = [(torch.zeros(n, dtype=torch.int32, pin_memory=cuda),
-                         torch.cuda.Event() if cuda else None)
-                        for _ in range(2)]
-        self._stage_next = 0
-        self._tok_bufs: dict = {}
+        self._upload_buf = StagedUpload(n, self.device)
+        self._up = self._upload_buf.buf
         self._row = (self._up[self.chunk:self.chunk + nb].view(1, nb)
                      if self.paged else None)
         self._ctl = self._up[n - 2:]
-        self._logits = torch.zeros((1, cfg.vocab_size),
-                                   dtype=torch_dtype(cfg.compute_dtype),
-                                   device=dev)
         self._priv = self._alloc_task_cache()
         cache = (merge_arena_cache(cfg, plan, self._priv, self.arena.kv)
                  if self.paged else self._priv)
@@ -184,6 +218,23 @@ class PrefillEngine:
                              if e is not None for t in e.values())
         self._chunk_step = self.placement.hot_loop(self._chunk_impl,
                                                    name="prefill.chunk")
+
+    def _init_full_buffers(self):
+        """The static buffers of the "prefill.full" entry, owned by the
+        engine for its life (beside the [1, V] logits): one upload buffer
+        holding the prompt's tokens [:max_len] and its true length at the
+        end, each bucket's tokens a [1, S] view of it; one dense B=1
+        max_len cache that every bucket writes (its leaves are max_len or
+        ring-width shaped whatever S is)."""
+        self._upload_buf = StagedUpload(self.max_len + 1, self.device)
+        self._up = self._upload_buf.buf
+        self._ctl = self._up[self.max_len:]
+        self._cache = alloc_cache(self.lm.cfg, self.lm.plan, 1, self.max_len,
+                                  self.device)
+        self._leaves = tuple(t for e in self._cache["layers"]
+                             for t in e.values())
+        self._full_step = self.placement.hot_loop(self._full_impl,
+                                                  name="prefill.full")
 
     def _alloc_task_cache(self) -> dict:
         """A task's private chunk cache: the bounded leaves (ring KV, mamba
@@ -488,15 +539,8 @@ class PrefillEngine:
     # ---- the "prefill.chunk" hot loop -----------------------------------
     def _upload(self, task: PrefillTask, S: int, cl: int) -> None:
         """The chunk's tokens, the task's table row and (off, chunk_len) in
-        one copy from pinned staging into the static upload buffer. No
-        fetch separates two chunks, so an earlier copy may still be reading
-        a staging buffer: the two alternate, and each is rewritten only
-        after the event recorded behind its last copy has completed."""
-        stage, done = self._stages[self._stage_next]
-        self._stage_next ^= 1
-        if done is not None:
-            done.synchronize()
-        a = stage.numpy()
+        one copy from pinned staging into the static upload buffer."""
+        a = self._upload_buf.stage()
         a[:cl] = task.prompt[task.cursor:task.cursor + cl]
         a[cl:S] = 0
         if self.paged:
@@ -505,9 +549,7 @@ class PrefillEngine:
             row[:] = 0
             row[:len(owned)] = owned
         a[-2:] = (task.cursor, cl)
-        self._up.copy_(stage, non_blocking=True)
-        if done is not None:
-            done.record()
+        self._upload_buf.send()
 
     def _swap(self, cache: dict, into_static: bool) -> None:
         """Copy a task's private leaves into the static private cache
@@ -521,11 +563,15 @@ class PrefillEngine:
                 else:
                     t[name].copy_(x)
 
-    def _static_inputs(self, S: int) -> tuple:
+    def _tokens(self, S: int) -> torch.Tensor:
         tok = self._tok_bufs.get(S)
         if tok is None:
             tok = self._tok_bufs[S] = self._up[:S].view(1, S)
-        return (tok, self._row, self._ctl, self._logits) + self._leaves
+        return tok
+
+    def _static_inputs(self, S: int) -> tuple:
+        return (self._tokens(S), self._row, self._ctl,
+                self._logits) + self._leaves
 
     def _chunk_impl(self, key, tokens, row, ctl, logits, *leaves):
         """The device side of one chunk (the "prefill.chunk" hot loop): the
@@ -538,22 +584,47 @@ class PrefillEngine:
             block_tables=row, tables=self.tables)
         return logits.copy_(lg)
 
+    # ---- the "prefill.full" hot loop ------------------------------------
     def _run_full(self, task: PrefillTask) -> int:
         """The whole prompt in one `LM.prefill`, right-padded to its pow2
-        bucket (lo=8, capped at max_len) so prompt lengths share shapes."""
+        bucket S (lo=8, capped at max_len) so prompt lengths share shapes:
+        tokens and true length uploaded, the "prefill.full" entry run at
+        key S, and clones of its static cache and logits kept by the task
+        (prefix snapshots and decode admission read them after later
+        prompts have rewritten the static ones)."""
         t0 = time.monotonic()
-        S = len(task.prompt)
-        pad = min(_bucket(S, lo=8), self.max_len) - S
-        toks = torch.tensor([list(task.prompt) + [0] * pad],
-                            dtype=torch.int32, device=self.device)
-        task.cache, task.logits, _ = self.lm.prefill(
-            self.params, toks, max_len=self.max_len, true_len=S,
-            tables=self.tables)
-        task.cursor = S
-        self.stats["tokens"] += S
+        L = len(task.prompt)
+        S = min(_bucket(L, lo=8), self.max_len)
+        a = self._upload_buf.stage()
+        a[:L] = task.prompt
+        a[L:S] = 0
+        a[-1] = L
+        self._upload_buf.send()
+        self._full_step(S, (self._tokens(S), self._ctl, self._logits)
+                        + self._leaves)
+        task.cache = dict(clone_tree(self._cache), pos=L)
+        task.logits = self._logits.clone()
+        task.cursor = L
+        self.stats["tokens"] += L
         self._note_peak(task)
         task.compute_s += time.monotonic() - t0
-        return S
+        return L
+
+    def _full_impl(self, key, tokens, ctl, logits, *leaves):
+        """The device side of one whole prefill (the "prefill.full" hot
+        loop): `LM.prefill` of the [1, S] tokens with the true length read
+        from `ctl` on the device, its cache copied into the static cache
+        and the last real row's logits into the static `logits`. key S.
+        → logits."""
+        cache, lg, _ = self.lm.prefill(self.params, tokens,
+                                       max_len=self.max_len,
+                                       true_len=ctl[0], tables=self.tables)
+        for s, e in zip(self._cache["layers"], cache["layers"]):
+            for name, x in s.items():
+                assert x.shape == e[name].shape and x.dtype == e[name].dtype, \
+                    (name, x.shape, e[name].shape, x.dtype, e[name].dtype)
+                x.copy_(e[name])
+        return logits.copy_(lg)
 
     def _finish(self, task: PrefillTask) -> PrefillTask:
         """Store bookkeeping for a completed prompt. Paged tasks turn into a
@@ -594,25 +665,57 @@ class PrefillEngine:
                               t.reused, t.compute_s, t_done)
                 for t, tok in zip(tasks, toks)]
 
+    # ---- the "prefill.first" hot loop -----------------------------------
     def sample_first(self, logits_list, params_list, rids, folds
                      ) -> np.ndarray:
         """Sample the first token of a batch of finished prompts under each
-        one's SamplingParams in ONE fused call + ONE host fetch.
-        logits_list: [1, V] tensors; folds: context lengths (prompt
-        lengths)."""
-        dev = self.device
-        rows = [device_row(p, r) for p, r in zip(params_list, rids)]
-        logits = torch.cat(list(logits_list), dim=0)
-        temp = torch.tensor([r[0] for r in rows], dtype=torch.float32,
-                            device=dev)
-        tk = torch.tensor([r[1] for r in rows], dtype=torch.int32, device=dev)
-        tp = torch.tensor([r[2] for r in rows], dtype=torch.float32,
-                          device=dev)
-        keys = torch.from_numpy(
-            np.stack([r[3] for r in rows]).astype(np.int64)).to(dev)
-        fold = torch.tensor(list(folds), dtype=torch.int32, device=dev)
-        out = sample_tokens(logits, temp, tk, tp, keys, fold,
-                            all_greedy=all(r[0] <= 0.0 for r in rows))
-        out = out.cpu().numpy()         # the round's single host fetch
+        one's SamplingParams in ONE fused call + ONE host fetch, padded to
+        a power of two by repeating the last row (as the reference does)
+        and run through the "prefill.first" entry at key (npad,
+        all_greedy). logits_list: [1, V] tensors; folds: context lengths
+        (prompt lengths)."""
+        n = len(logits_list)
+        npad = _bucket(n, lo=1)
+        idx = list(range(n)) + [n - 1] * (npad - n)
+        rows = [device_row(params_list[i], rids[i]) for i in idx]
+        up, logits, out = self._first_buffers(npad)
+        a = up.stage().reshape(6, npad)
+        a[0] = np.array([r[0] for r in rows], np.float32).view(np.int32)
+        a[1] = [r[1] for r in rows]
+        a[2] = np.array([r[2] for r in rows], np.float32).view(np.int32)
+        a[3:5] = np.stack([r[3] for r in rows]).astype(np.uint32).T.view(
+            np.int32)
+        a[5] = [folds[i] for i in idx]
+        up.send()
+        for i, j in enumerate(idx):
+            logits[i].copy_(logits_list[j][0])
+        all_greedy = all(r[0] <= 0.0 for r in rows)
+        self._first_step((npad, all_greedy), (up.buf, logits, out))
+        toks = out.cpu().numpy()        # the round's single host fetch
         self.stats["host_fetches"] += 1
-        return out
+        return toks[:n]
+
+    def _first_buffers(self, npad: int) -> tuple:
+        """The static inputs of "prefill.first" at batch npad, allocated at
+        its first use and kept: the upload of (temperature, top_k, top_p,
+        key[0], key[1], fold) rows (the floats by their bits), the [npad,
+        V] logits and the [npad] tokens."""
+        bufs = self._first_bufs.get(npad)
+        if bufs is None:
+            bufs = self._first_bufs[npad] = (
+                StagedUpload(6 * npad, self.device),
+                torch.zeros((npad, self._logits.shape[1]),
+                            dtype=self._logits.dtype, device=self.device),
+                torch.zeros(npad, dtype=torch.int32, device=self.device))
+        return bufs
+
+    def _first_impl(self, key, up, logits, out):
+        """The device side of one round's first tokens (the "prefill.first"
+        hot loop): the fused draw of `sample_tokens` over the static logits
+        with the rows' parameters read from the upload. key (npad,
+        all_greedy). → out."""
+        npad, all_greedy = key
+        u = up.view(6, npad)
+        return out.copy_(sample_tokens(
+            logits, u[0].view(torch.float32), u[1], u[2].view(torch.float32),
+            u[3:5].t(), u[5], all_greedy=all_greedy))

@@ -7,50 +7,21 @@ keep), the sort/softmax/draw machinery is skipped entirely.
 
 Sampled rows filter like the reference (src/repro/serving/sampling.py):
 scale by 1/temperature, keep the top-k logits (boundary ties kept), keep
-ranks whose exclusive cumulative probability is < top_p, then draw from the
-kept set. The draw is a Gumbel-max over uniforms from a counter-based hash
-of (base key, context length, vocab index), computed on the device: every
-token is a pure function of (seed, position), so a stream does not depend
-on batch composition, admission order or preemption. The bits differ from
-JAX's threefry; matching them is separate later work.
+ranks whose exclusive cumulative probability is < top_p, then draw as
+`jax.vmap(jax.random.categorical)` does on the row keys
+`jax.vmap(jax.random.fold_in)(keys, fold)`: the argmax of the masked
+logits plus Gumbel noise from JAX's threefry bits (`prng.py`), computed on
+the device. Every token is a pure function of (seed, context length), so a
+stream does not depend on batch composition, admission order or
+preemption, and it equals the reference's token for token wherever the top
+two values of masked + noise lie further apart than `log`'s last-ulp
+differences across backends.
 """
 from __future__ import annotations
 
 import torch
 
-_M32 = 0xFFFFFFFF
-
-
-def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
-    """(x * c) mod 2^32 for int64 tensors holding uint32 values, without
-    int64 overflow (the constant is split into 16-bit halves)."""
-    lo = x * (c & 0xFFFF)
-    hi = ((x * (c >> 16)) & 0xFFFF) << 16
-    return (lo + hi) & _M32
-
-
-def _mix32(x: torch.Tensor) -> torch.Tensor:
-    """A 32-bit avalanche finalizer (xorshift-multiply, 'lowbias32')."""
-    x = x ^ (x >> 16)
-    x = _mul32(x, 0x7FEB352D)
-    x = x ^ (x >> 15)
-    x = _mul32(x, 0x846CA68B)
-    return x ^ (x >> 16)
-
-
-def uniform_noise(keys: torch.Tensor, fold: torch.Tensor, V: int
-                  ) -> torch.Tensor:
-    """[n, V] float32 uniforms in (0, 1): a pure function of each row's base
-    key (keys [n, 2], uint32 values in int64) and fold [n] (the context
-    length), and of the vocab index."""
-    k0 = keys[:, 0].long() & _M32
-    k1 = keys[:, 1].long() & _M32
-    row = _mix32(_mix32(k0 ^ 0x9E3779B9) ^ k1)
-    row = _mix32(row ^ (fold.long() & _M32))
-    col = _mix32(torch.arange(V, device=keys.device, dtype=torch.long)
-                 + 0x632BE5AB)
-    h = _mix32(row[:, None] ^ col[None, :])
-    return ((h >> 8).float() + 0.5) * (1.0 / (1 << 24))
+from repro_torch.serving.prng import fold_in, gumbel
 
 
 def kept_mask(logits: torch.Tensor, temperature: torch.Tensor,
@@ -83,7 +54,6 @@ def sample_tokens(logits, temperature, top_k, top_p, keys, fold, *,
         return greedy_tok
     scaled, keep = kept_mask(logits, temperature, top_k, top_p)
     masked = torch.where(keep, scaled, torch.full_like(scaled, -torch.inf))
-    u = uniform_noise(keys, fold, logits.shape[1])
-    gumbel = -torch.log(-torch.log(u))
-    sampled = (masked + gumbel).argmax(dim=-1).to(torch.int32)
+    noise = gumbel(fold_in(keys, fold), logits.shape[1])
+    sampled = (noise + masked).argmax(dim=-1).to(torch.int32)
     return torch.where(temperature <= 0.0, greedy_tok, sampled)

@@ -7,7 +7,10 @@ the new contents visible; a migration rewrites the MoE tables every engine
 holds in place; the launch-counter arithmetic the entries apply at each
 replay; the prefill engine's "prefill.chunk" entry, one key per (chunk
 bucket, layout) shared by every task and offset, its static buffers kept
-across chunks and tasks. Capture itself needs a card (tests/test_torch_capture_gpu.py);
+across chunks and tasks; its "prefill.full" entry, one key per prompt
+bucket over one static cache that each task clones; its "prefill.first"
+entry, keyed by the batch padded to a power of two and all_greedy.
+Capture itself needs a card (tests/test_torch_capture_gpu.py);
 `capture=True` on the CPU raises.
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python -m pytest tests/test_torch_capture.py -q
@@ -192,7 +195,7 @@ def test_decode_buffers_keep_storage_across_steps_and_buckets():
         assert ptr_of.setdefault(nb, ptr) == ptr
     assert set(eng._tbl_bufs) == {8, 12}
     summ = srv.placement.hot_loops.summary()
-    assert set(summ) == {"decode.step", "prefill.chunk"}
+    assert set(summ) == {"decode.step", "prefill.chunk", "prefill.first"}
     s = summ["decode.step"]
     assert {(8, True), (8, False), (12, True)} <= set(s["keys"])
     assert all(k[0] in (8, 12) for k in s["keys"])
@@ -323,3 +326,131 @@ def test_prefill_chunk_entry_keys_and_static_buffers(paged):
     assert srv.prefills[0]._logits.data_ptr() == calls[0][3][1]
     if paged:
         srv.kv_arena.pool.check_invariants(arena=srv.kv_arena)
+
+
+# ---- the prefill engine's whole-prompt and first-token entries -----------
+def test_prefill_full_entry_keys_and_static_buffers():
+    """Whole-prompt prefill runs through "prefill.full", keyed by the
+    prompt bucket S = min(pow2 bucket >= 8, max_len): prompts of 40, 20,
+    9, 5 and 90 tokens meet the keys 64, 32, 16, 8 and 96. Each call finds
+    the bucket's token buffer, the true length, the logits and the static
+    cache's leaves at their first storage (one cache for every bucket),
+    holding the prompt's tokens, zeros past them, and its length. Each
+    task keeps clones that alias nothing static and equal one eager
+    `LM.prefill` of its padded prompt."""
+    from repro_torch.serving.prefill import PrefillTask
+    cfg = _cfg()
+    srv = _server(cfg, chunked_prefill=False)
+    eng = srv.prefills[0]
+    entry = eng._full_step
+    assert not eng.chunked and "prefill.full" in srv.placement.hot_loops.names()
+    rng = np.random.default_rng(8)
+    lens = (40, 20, 9, 5, 90)
+    prompts = [tuple(int(t) for t in rng.integers(0, cfg.vocab_size, n))
+               for n in lens]
+    calls, fn = [], entry.fn
+
+    def watched(key, tokens, ctl, logits, *leaves):
+        L = int(ctl[0])
+        assert tokens.shape == (1, key) and L <= key
+        assert tuple(int(t) for t in tokens[0, :L]) in prompts
+        assert not tokens[0, L:].any()
+        calls.append((key, L, tokens.data_ptr(),
+                      tuple(t.data_ptr() for t in (ctl, logits) + leaves)))
+        return fn(key, tokens, ctl, logits, *leaves)
+
+    kept, run_full = [], eng._run_full
+
+    def recorded(task: PrefillTask) -> int:
+        n = run_full(task)
+        kept.append((task.prompt, task.cache, task.logits))
+        return n
+
+    entry.fn, eng._run_full = watched, recorded
+    streams = _drive(srv, prompts, [SamplingParams(max_tokens=3)] * 5)
+    assert [len(s) for s in streams] == [3] * 5
+    assert sorted(entry.keys) == [8, 16, 32, 64, 96]
+    assert sorted(c[:2] for c in calls) == [(8, 5), (16, 9), (32, 20),
+                                            (64, 40), (96, 90)]
+    assert {c[3] for c in calls} == {calls[0][3]}
+    assert len({c[2] for c in calls}) == 1          # views of one buffer
+    assert entry.eager == {k: 1 for k in entry.keys}
+    static = {t.data_ptr() for t in eng._leaves + (eng._logits,)}
+    for prompt, cache, logits in kept:
+        L = len(prompt)
+        S = min(1 << max(L - 1, 7).bit_length(), 96)
+        toks = torch.tensor([list(prompt) + [0] * (S - L)],
+                            dtype=torch.int32)
+        want, wl, _ = srv.lm.prefill(srv.params, toks, max_len=96,
+                                     true_len=L, tables=srv.tables)
+        assert cache["pos"] == L and torch.equal(logits, wl)
+        assert logits.data_ptr() not in static
+        for e, w in zip(cache["layers"], want["layers"]):
+            for name, x in e.items():
+                assert x.data_ptr() not in static
+                assert torch.equal(x, w[name]), name
+    summ = srv.placement.hot_loops.summary()["prefill.full"]
+    assert summ["captures"] == summ["replays"] == 0
+
+
+def test_prefill_first_entry_pads_to_a_power_of_two():
+    """First tokens go through "prefill.first", keyed (npad, all_greedy):
+    batches of 1, 3, 5, 2 and 3 rows run at npad 1, 4, 8, 2 and 4, the
+    padding repeating the last row (its logits and parameters), and the
+    padded rows dropped. The tokens equal `sample_tokens` on the unpadded
+    rows; each call is one host fetch and keeps its npad's buffers."""
+    from repro_torch.core.proxy.params import device_row
+    from repro_torch.serving.sampling import sample_tokens
+    cfg = _cfg()
+    srv = _server(cfg)
+    eng = srv.prefills[0]
+    entry = eng._first_step
+    V = cfg.vocab_size
+    rng = np.random.default_rng(9)
+    logits = [torch.from_numpy(rng.standard_normal((1, V))
+                               .astype(np.float32) * 3) for _ in range(5)]
+    params = [SamplingParams(max_tokens=2) if i in (0, 3) else
+              SamplingParams(temperature=0.7 + 0.2 * i, top_k=(0, 20)[i % 2],
+                             top_p=0.9, seed=40 + i, max_tokens=2)
+              for i in range(5)]
+    rids, folds = [10, 11, 12, 13, 14], [17, 9, 33, 5, 60]
+    calls, fn = [], entry.fn
+
+    def watched(key, up, lg, out):
+        npad, _ = key
+        u = up.view(6, npad)
+        calls.append((key, tuple(t.data_ptr() for t in (up, lg, out)),
+                      lg.clone(), u.clone()))
+        return fn(key, up, lg, out)
+
+    entry.fn = watched
+    for n in (1, 3, 5, 2, 3):
+        before = eng.stats["host_fetches"]
+        got = eng.sample_first(logits[:n], params[:n], rids[:n], folds[:n])
+        assert eng.stats["host_fetches"] == before + 1
+        rows = [device_row(p, r) for p, r in zip(params[:n], rids[:n])]
+        want = sample_tokens(
+            torch.cat(logits[:n]),
+            torch.tensor([r[0] for r in rows], dtype=torch.float32),
+            torch.tensor([r[1] for r in rows], dtype=torch.int32),
+            torch.tensor([r[2] for r in rows], dtype=torch.float32),
+            torch.from_numpy(np.stack([r[3] for r in rows])
+                             .astype(np.int64)),
+            torch.tensor(folds[:n], dtype=torch.int32),
+            all_greedy=all(r[0] <= 0 for r in rows))
+        np.testing.assert_array_equal(got, want.numpy())
+        key, _, lg, u = calls[-1]
+        npad = key[0]
+        assert key == (npad, n == 1) and npad == 1 << (n - 1).bit_length()
+        for i in range(npad):
+            assert torch.equal(lg[i], logits[min(i, n - 1)][0])
+            j = min(i, n - 1)
+            assert int(u[5, i]) == folds[j] and int(u[1, i]) == rows[j][1]
+            assert float(u[0, i].view(torch.float32)) == np.float32(
+                rows[j][0])
+            assert (u[3:5, i].numpy().view(np.uint32) == rows[j][3]).all()
+    assert sorted(entry.keys) == [(1, True), (2, False), (4, False),
+                                  (8, False)]
+    assert entry.eager[(4, False)] == 2
+    ptrs = [c[1] for c in calls if c[0] == (4, False)]
+    assert ptrs[0] == ptrs[1]

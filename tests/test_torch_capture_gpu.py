@@ -15,7 +15,11 @@ the prefill engine's "prefill.chunk" entry on six paths (float32, int8,
 MoE, a resume after prefix reuse, ring layers over paged KV, dense KV),
 its static private leaves equal across the two modes too; and the SSM
 stacks: reduced mamba2-130m's decode step and chunks (its state and
-convolution rows updated in place), reduced jamba in bfloat16. Also: the
+convolution rows updated in place), reduced jamba in bfloat16; and the
+whole-prompt "prefill.full" and first-token "prefill.first" entries
+(default OmniAttn pattern paged and slot-dense, MoE, mamba2), their static
+cache and logits equal across the modes too. Also: the card's threefry
+bits and uniforms equal the CPU's bit for bit at V = 151,936; the
 fused top-k launch (a cluster launch) replayed from a graph equals its
 eager launch, and an exception inside a capture propagates (no fallback).
 This file imports neither jax nor the JAX package:
@@ -339,6 +343,94 @@ def test_capture_jamba_bfloat16(cuda):
                compute_dtype="bfloat16", param_dtype="bfloat16")
     _check_prefill(cfg, _traffic(cfg.vocab_size, seed=21, long=70),
                    enable_placement=False)
+
+
+# ---- whole-prompt prefill and first tokens: "prefill.full", "prefill.first"
+def _check_full(cfg, traffic, **kw):
+    """`_check_modes` over whole-prompt prefill: the "prefill.full" and
+    "prefill.first" entries replayed, every whole prefill one call of the
+    former, the static cache and logits equal across the two modes."""
+    cap, s_cap, n_cap = _serve(cfg, True, traffic, chunked_prefill=False,
+                               **kw)
+    eag, s_eag, n_eag = _serve(cfg, False, traffic, chunked_prefill=False,
+                               **kw)
+    assert s_cap == s_eag and len(s_cap) == len(traffic[0])
+    assert n_cap == n_eag and (n_cap or _no_kernels(cfg))
+    p_cap, p_eag = cap.prefills[0], eag.prefills[0]
+    assert not p_cap.chunked
+    assert p_cap.stats["prefills"] == p_eag.stats["prefills"] > 0
+    _equal_trees(p_cap._cache, p_eag._cache, "prefill static cache")
+    assert torch.equal(p_cap._logits, p_eag._logits)
+    _equal_trees(cap.decodes[0].state, eag.decodes[0].state, "state")
+    if cap.kv_arena is not None:
+        _equal_trees(cap.kv_arena.kv, eag.kv_arena.kv, "arena",
+                     skip_null=True)
+        cap.kv_arena.pool.check_invariants(arena=cap.kv_arena)
+    summ = cap.placement.hot_loops.summary()
+    full, first = summ["prefill.full"], summ["prefill.first"]
+    assert full["replays"] > 0 and 0 < full["captures"] <= len(
+        full["keys"]), summ
+    assert full["eager"] + full["replays"] == p_cap.stats["prefills"]
+    assert first["replays"] > 0, summ
+    assert first["eager"] + first["replays"] == \
+        p_cap.stats["host_fetches"]
+    eager = eag.placement.hot_loops.summary()
+    assert all(v["captures"] == v["replays"] == 0 for v in eager.values())
+    return summ
+
+
+DEFAULT = dict(n_layers=4, omniattn_sink_tokens=8, omniattn_recent_tokens=24)
+
+
+@pytest.mark.parametrize("paged", [True, False], ids=["paged", "dense"])
+def test_prefill_full_capture_default_pattern(cuda, paged):
+    """The default OmniAttn pattern (three compressed layers of four, sink
+    8 + recent 24): whole-prompt prefill through the flash-prefill kernel,
+    the rings compressed at the true length read on the device, then
+    paged or slot-dense decode."""
+    cfg = _cfg(**DEFAULT)
+    _check_full(cfg, _traffic(cfg.vocab_size, n=9, seed=22, long=70),
+                pattern=None, paged_kv=paged)
+
+
+def test_prefill_full_capture_moe(cuda):
+    cfg = reduced_config("qwen2-moe-a2.7b").with_updates(
+        compute_dtype="float32", param_dtype="float32")
+    _check_full(cfg, _traffic(cfg.vocab_size, n=9, seed=23, long=70),
+                enable_placement=False)
+
+
+def test_prefill_full_capture_mamba2(cuda):
+    """Mamba-2 layers prefilled whole from a zero state: the padding mask
+    and the convolution rows' gather read the true length on the device."""
+    cfg = _cfg("mamba2-130m")
+    _check_full(cfg, _traffic(cfg.vocab_size, n=9, seed=24, long=70),
+                paged_kv=False)
+
+
+def test_random_bits_on_the_card_equal_the_cpu(cuda):
+    """The draw's integer bits and uniforms are exact on any device: the
+    card's equal the CPU's bit for bit at qwen2's vocabulary; the Gumbel
+    noise (CUDA's logf against torch's CPU log) within 2 ulp at
+    max(|g|, 1)."""
+    from repro_torch.core.proxy.params import seed_key
+    from repro_torch.serving import prng
+    V = 151936
+    keys = torch.from_numpy(np.stack(
+        [seed_key(s) for s in (0, 5, 901, 1 << 40, -7, 123456789)])
+        .astype(np.int64))
+    fold = torch.tensor([0, 1, 17, 4400, 151935, 2 ** 31 - 1],
+                        dtype=torch.int32)
+    want = prng.random_bits32(prng.fold_in(keys, fold), V)
+    got_keys = prng.fold_in(keys.to(cuda), fold.to(cuda))
+    got = prng.random_bits32(got_keys, V)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(prng.uniform(got).cpu(), prng.uniform(want))
+    g, w = prng.gumbel(got_keys, V).cpu(), prng.gumbel(
+        prng.fold_in(keys, fold), V)
+    ulp = torch.from_numpy(np.spacing(np.maximum(w.abs().numpy(),
+                                                 np.float32(1.0))))
+    assert ((g - w).abs() <= 2 * ulp).all()
 
 
 def test_block_topk_select_replayed_equals_eager(cuda):

@@ -1,6 +1,8 @@
 """Device-side sampling of the PyTorch port: greedy rows are the argmax,
-draws are a pure function of (seed, position), and every sampled token lies
-in the set the JAX reference's top-k/top-p filter keeps."""
+draws are a pure function of (seed, position), every sampled token lies in
+the set the JAX reference's top-k/top-p filter keeps, and the tokens equal
+the reference's `sample_tokens` (threefry fold_in + Gumbel categorical),
+with the smallest top-2 margin of masked logits + noise reported."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -140,3 +142,46 @@ def test_draws_follow_the_filtered_distribution():
     freq = np.bincount(out, minlength=V) / n
     assert freq[6:].sum() == 0
     np.testing.assert_allclose(freq[:6], p, atol=0.05)
+
+
+def _grid_rows(n, V, seed, temp, top_k, top_p):
+    rng = np.random.default_rng(seed)
+    logits = rng.standard_normal((n, V)).astype(np.float32) * 3.0
+    temps = np.full(n, temp, np.float32)
+    temps[0] = 0.0                          # one greedy row in each batch
+    return (logits, temps, np.full(n, top_k, np.int32),
+            np.full(n, top_p, np.float32),
+            np.stack([seed_key(300 + 7 * i + seed) for i in range(n)]),
+            (np.arange(n) * 13 + seed).astype(np.int32))
+
+
+def _margin(args) -> float:
+    """The smallest gap between the top two of masked logits + noise over
+    the sampled rows (the reference's own values)."""
+    logits, temps, tks, tps, keys, fold = args
+    scaled, keep = kept_mask(*(torch.from_numpy(a) for a in
+                               (logits, temps, tks, tps)))
+    masked = torch.where(keep, scaled, torch.full_like(scaled, -np.inf))
+    jk = jax.vmap(jax.random.fold_in)(jnp.asarray(keys), jnp.asarray(fold))
+    g = jax.vmap(lambda k: jax.random.gumbel(k, (logits.shape[1],)))(jk)
+    z = np.asarray(g) + masked.numpy()
+    top = -np.sort(-z, axis=-1)[:, :2]
+    gap = top[:, 0] - top[:, 1]
+    return float(gap[temps > 0].min())
+
+
+@pytest.mark.parametrize("V", [211, 151936])
+@pytest.mark.parametrize("temp,top_k,top_p", [(0.9, 64, 0.95), (1.5, 5, 1.0),
+                                              (0.7, 0, 0.5), (1.0, 0, 1.0),
+                                              (1.2, 40, 0.8)])
+def test_sample_tokens_equal_reference(V, temp, top_k, top_p):
+    n = 6 if V > 1000 else 16
+    args = _grid_rows(n, V, int(temp * 10) + top_k, temp, top_k, top_p)
+    want = np.asarray(jax.jit(j_sample_tokens)(*(jnp.asarray(a)
+                                                 for a in args)))
+    t = [torch.from_numpy(a) for a in args]
+    t[4] = t[4].long()
+    got = sample_tokens(*t, all_greedy=False).numpy()
+    np.testing.assert_array_equal(
+        got, want, err_msg=f"sampled tokens differ; smallest top-2 margin "
+        f"of masked logits + noise {_margin(args):.3g}")

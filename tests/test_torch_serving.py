@@ -1,18 +1,22 @@
 """Serving slice of the PyTorch port against the JAX reference: the JAX
 `Server` and the port's `Server`, on the same bridged weights and a small
-shared-prefix workload, give identical greedy streams; the port's pool
-invariants hold at quiescence and a decode step does one host fetch."""
+shared-prefix workload, give identical greedy streams, and identical
+seeded sampled streams (chunked over paged and dense KV, whole-prompt
+under the default OmniAttn pattern); the port's pool invariants hold at
+quiescence and a decode step does one host fetch."""
 import jax
 import numpy as np
 import pytest
 import torch
 
 from repro.configs import reduced_config
+from repro.configs.base import OmniAttnConfig
 from repro.core.proxy import OASConfig
 from repro.serving import SamplingParams, Server, ServerConfig
 from repro.serving.kvpool import KVPool
 from repro_torch import bridge
 from repro_torch.configs import reduced_config as t_reduced_config
+from repro_torch.configs.base import OmniAttnConfig as TOmniAttnConfig
 from repro_torch.core.proxy import OASConfig as TOASConfig
 from repro_torch.core.proxy import SamplingParams as TSamplingParams
 from repro_torch.serving import FaultConfig as TFaultConfig
@@ -147,6 +151,70 @@ def test_sampled_requests_are_reproducible(servers):
         return tuple(t for o in outs if o.rid == rid for t in o.new_tokens)
     assert stream(alone, 0) == stream(mixed, 0)
     assert len(stream(alone, 0)) == 5
+
+
+def _sampled_params(cls, n, max_tokens=6):
+    """Seeded sampled requests over temperatures 0.8-1.5 with top-k and
+    top-p on and off; every fourth request greedy."""
+    out = []
+    for i in range(n):
+        if i % 4 == 3:
+            out.append(cls(max_tokens=max_tokens))
+            continue
+        out.append(cls(temperature=(0.8, 1.0, 1.5)[i % 3],
+                       top_k=(64, 0, 20)[i % 3], top_p=(0.95, 0.9, 1.0)[i % 3],
+                       seed=900 + 7 * i, max_tokens=max_tokens))
+    return out
+
+
+# (paged_kv, chunked_prefill, pattern): the default pattern (three
+# compressed layers of four, sink 8 + recent 24) has no chunked prefill
+SAMPLED_SETTINGS = {"chunked_paged": (True, True, [0, 0]),
+                    "chunked_dense": (False, True, [0, 0]),
+                    "whole_prompt": (True, False, None)}
+
+
+@pytest.mark.parametrize("setting", sorted(SAMPLED_SETTINGS))
+def test_sampled_streams_identical_to_jax_server(setting):
+    """The draw is the reference's (threefry fold_in of the base key with
+    the context length, Gumbel categorical), so seeded sampled streams
+    equal the JAX server's token for token, first tokens included."""
+    paged, chunked, pattern = SAMPLED_SETTINGS[setting]
+    kw = dict(compute_dtype="float32", param_dtype="float32",
+              n_layers=2 if pattern else 4)
+    cfg = reduced_config("qwen2-1.5b").with_updates(
+        **kw, omniattn=OmniAttnConfig(sink_tokens=8, recent_tokens=24))
+    tcfg = t_reduced_config("qwen2-1.5b").with_updates(
+        **kw, omniattn=TOmniAttnConfig(sink_tokens=8, recent_tokens=24))
+    sk = dict(SCFG, paged_kv=paged, chunked_prefill=chunked)
+    jsrv = Server(cfg, ServerConfig(**sk, oas=OASConfig(defer_window=0.0)),
+                  pattern=pattern)
+    tparams = bridge.params_from_numpy(jax.tree.map(np.asarray, jsrv.params),
+                                       tcfg, jsrv.lm.plan, device="cpu")
+    tsrv = TServer(tcfg, TServerConfig(**sk, oas=TOASConfig(
+        defer_window=0.0)), pattern=pattern, params=tparams, device="cpu")
+    assert tsrv.prefills[0].chunked == chunked
+    prompts = _workload(cfg.vocab_size, n=8)
+    prompts[2] = prompts[2] * 6                 # past the 32-slot rings
+    jout = jsrv.run(list(zip(prompts, _sampled_params(SamplingParams, 8))),
+                    max_wall_s=600)
+    s = tsrv.run(list(zip(prompts, _sampled_params(TSamplingParams, 8))),
+                 max_wall_s=600)
+    jstreams = {r.rid: tuple(r.output_tokens) for r in jsrv.metrics.done}
+    tstreams = {r.rid: tuple(r.output_tokens) for r in tsrv.metrics.done}
+    assert jout["n_done"] == s["n_done"] == len(prompts)
+    assert tstreams == jstreams
+    assert len({tstreams[r] for r in (0, 1, 4)}) == 3
+    ds = s["decode_stats"][0]
+    assert ds["host_fetches"] == ds["steps"] > 0
+    first = tsrv.placement.hot_loops.summary()["prefill.first"]
+    assert first["eager"] == s["prefill_stats"][0]["host_fetches"] > 0
+    assert any(not k[1] for k in first["keys"])
+    if not chunked:
+        full = tsrv.placement.hot_loops.summary()["prefill.full"]
+        assert full["eager"] == s["prefill_stats"][0]["prefills"] > 0
+    for e in tsrv.decodes:
+        e.pool.check_invariants(arena=tsrv.kv_arena)
 
 
 def test_kvpool_replay_matches_reference():

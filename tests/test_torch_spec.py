@@ -417,16 +417,19 @@ def test_all_rejected_rollback_keeps_streams(stack):
 def test_sampled_slot_rides_the_verify_window():
     """A seeded sampled request shares the batch with greedy ones: it never
     drafts, its stream equals spec off (a draw is a pure function of seed
-    and position), and the greedy streams equal the JAX server's."""
+    and position), and every stream, the sampled one included (the draw is
+    the reference's), equals the JAX server's."""
     jsrv, on, off = _servers("full")
     prompts = _prompts()[:3]
     jout, _ = _run(jsrv, [(p, SamplingParams(max_tokens=12))
-                          for p in prompts[:2]])
+                          for p in prompts[:2]] + [
+        (prompts[2], SamplingParams(temperature=0.8, seed=7,
+                                    max_tokens=12))])
     treqs = [(p, TSamplingParams(max_tokens=12)) for p in prompts[:2]] + [
         (prompts[2], TSamplingParams(temperature=0.8, seed=7,
                                      max_tokens=12))]
     tout, ts = _run(on, treqs)
     base, _ = _run(off, treqs)
     assert tout == base and len(tout) == 3
-    assert {r: tout[r] for r in (0, 1)} == jout
+    assert tout == jout
     assert ts["spec_accepted"] > 0
