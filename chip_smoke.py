@@ -237,6 +237,27 @@ Phases (any failure raises, so the script exits non-zero):
      2 steps, no kernel launched. The kernels line's `h80` / `h96` records
      carry phase 2's times at these shapes and phase 16's launches
      (paged_decode's with launches 0 and "on_path": false).
+ 17. serve qwen2-moe-a2.7b at full width over (tp 2, ep 2) = four ranks,
+     one process each (`dist_phase`; float32, P17_LAYERS of 24 layers,
+     every attention layer full): with four cards visible over NCCL, one
+     card a rank, the hot loops captured; with one card the four ranks
+     share cuda:0 over gloo and every placement is built with
+     capture=False (gloo collectives cannot be captured; NCCL refuses
+     two ranks on one GPU). The one-rank port Server on the same card
+     and seed-0 weights serves first; then each rank builds the seed's
+     whole one-rank model in turn, cuts its shard with `transfer_params`
+     and frees the rest. Every rank serves phase 3's mix (8 prompts, 16
+     greedy tokens) (a) chunked and (b) whole-prompt, streams equal to
+     the one-rank Server's on every rank, and (c) chunked with a forced
+     migration of two slots between the EP ranks mid-decode (streams
+     equal (a)'s; its seconds and the bytes moved between ranks). It
+     prints the transport and why, TTFT, TPOT, the all_to_all ms a MoE
+     layer and the collectives' share of rank 0's decode round (timed
+     alone at the step's shapes), each rank's peak memory. Phase 2 of
+     this phase (`check_rank_local_kernels`) holds paged_decode,
+     paged_prefill, flash_prefill and moe_gmm to their plain versions
+     at one rank's shapes; the kernels line's `tp2ep2` records carry
+     those times and rank 0's launches.
 Every serving phase of 3, 5-9 and 11-14 serves under CUDA-graph capture, the
 default on `cuda`: the decode step, the verify step, the prefill chunk, the
 whole-prompt prefill and the first-token draw are hot-loop entries
@@ -5823,6 +5844,420 @@ def serve_eager(dev, log, cfg, served, spec, quant):
     return out
 
 
+# ---- phase 17: qwen2-moe-a2.7b over (tp 2, ep 2) ranks ------------------
+P17_TP, P17_EP = 2, 2
+P17_LAYERS = 8          # of 24: one whole model and the four shards fit
+P17_DTYPE = "float32"
+P17_NEW = 16
+P17_SEED = 0
+P17_TIMEOUT_S = 240     # a collective waits this long before it fails
+P17_WORLD_S = 300       # the world joins within this, or is killed
+
+
+def dist_config():
+    """qwen2-moe-a2.7b at full width (moe_full_config's checks) in
+    float32, its first P17_LAYERS layers."""
+    return moe_full_config().with_updates(n_layers=P17_LAYERS,
+                                          param_dtype=P17_DTYPE,
+                                          compute_dtype=P17_DTYPE)
+
+
+def dist_server(cfg, chunked, dev=None, params=None, placement=None):
+    """Phase 17's server: 4 slots, 512-token context, 128-token chunks,
+    every attention layer full, the placement monitor off (phase 17 forces
+    its migration)."""
+    from repro_torch.core.proxy import OASConfig
+    from repro_torch.serving import Server, ServerConfig
+    scfg = ServerConfig(n_prefill=1, n_decode=1, decode_slots=4, max_len=512,
+                        chunk_tokens=128, prefill_tick_budget=512,
+                        kv_block_size=16, chunked_prefill=chunked,
+                        enable_placement=False,
+                        oas=OASConfig(defer_window=0.0))
+    return Server(cfg, scfg, pattern=[0] * cfg.n_layers, params=params,
+                  seed=P17_SEED, device=dev, placement=placement)
+
+
+def dist_workload(vocab):
+    """Eight prompts of phase 3's mix (five on a 384-token prefix + 64, three
+    of 16 tokens), P17_NEW greedy tokens each."""
+    from repro_torch.core.proxy import SamplingParams
+    prompts, _ = workload(vocab, n=8, seed=17)
+    return prompts, SamplingParams(max_tokens=P17_NEW)
+
+
+def warm_and_drive(srv, prompts, sp):
+    """Warm the server on other tokens (every chunk bucket and the decode
+    batch: the first call of each hot-loop key is eager, the second
+    captures), reset its stats and the launch counters, then drive the
+    main path → (streams, metrics, launches, decode round ms, hot loops)."""
+    from repro_torch.core.proxy import SamplingParams
+    warm, _ = workload(srv.cfg.vocab_size, n=6, seed=8)
+    for _ in range(2):
+        list(srv.generate(warm[:4], SamplingParams(max_tokens=3)))
+    reset_stats(srv)
+    before = hot_loops(srv)
+    zero_launch_counts()
+    streams, finished, m, wall = drive(srv, prompts, sp)
+    launches = {k.split(".")[0] + ("_int8" if "int8" in k else ""): v
+                for k, v in moved_counts().items()}
+    assert all(f == "length" for f in finished), finished
+    eng = srv.decodes[0]
+    return {"streams": streams, "metrics": m, "wall_s": wall,
+            "launches": launches,
+            "decode_round_ms": 1e3 * eng.stats["busy_s"]
+            / max(eng.stats["steps"], 1), "steps": eng.stats["steps"],
+            "hot_loops": check_hot_loops(srv, before, srv.placement.device,
+                                         CHUNKED_ENTRIES if
+                                         srv.prefills[0].chunked else
+                                         WHOLE_ENTRIES)}
+
+
+def swapped_slots_plan(srv):
+    """A forced migration between the two EP ranks: the first two slots of
+    rank 0 and rank 1 trade experts."""
+    from types import SimpleNamespace
+    old = srv.tables["slot_expert"].cpu().numpy()
+    new = old.copy()
+    new[0, :2], new[1, :2] = old[1, :2], old[0, :2]
+    return SimpleNamespace(new_slot_expert=new)
+
+
+def timed_collective(fn, dev, reps=20) -> float:
+    """Wall ms of one collective, every rank entering together."""
+    import torch.distributed as dist
+    fn()
+    dist.barrier()
+    torch.cuda.synchronize(dev)
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize(dev)
+    return 1e3 * (time.perf_counter() - t) / reps
+
+
+def collective_ms(ctx, cfg, dev) -> dict:
+    """The collectives of one decode step of 4 slots at their shapes, timed
+    alone: per MoE layer the attention psum, the dispatch and combine
+    all_to_alls ([ep, s·Cb, D], Cb 8 with the batch split over `data`),
+    the bucket counts' all_to_all, the MoE psum and the gather of y; per
+    step the embedding psum and the logits' gather; and a 128-token
+    chunk's dispatch all_to_all (Cb 24, rows replicated)."""
+    from repro_torch.models import moe as moe_mod
+    D, V = cfg.d_model, cfg.vocab_size
+    s = moe_mod.default_slot_count(cfg, ctx.ep)
+    k, cf = cfg.moe.top_k, cfg.moe.capacity_factor
+    cb_dec = moe_mod._bucket_capacity(4 // ctx.ep, k, ctx.ep, s, cf)
+    cb_pre = moe_mod._bucket_capacity(128, k, ctx.ep, s, cf)
+    z = lambda *shape, dt=torch.float32: torch.zeros(shape, dtype=dt,
+                                                     device=dev)
+    buf, cnt = z(ctx.ep, s * cb_dec, D), z(ctx.ep, s, dt=torch.int32)
+    pre, row, y = z(ctx.ep, s * cb_pre, D), z(4, 1, D), z(4 // ctx.ep, D)
+    logits = z(4, V // ctx.tp)
+    out = {
+        "psum_attn": timed_collective(lambda: ctx.psum_model(row), dev),
+        "a2a": timed_collective(lambda: ctx.all_to_all_data(buf), dev),
+        "a2a_counts": timed_collective(lambda: ctx.all_to_all_data(cnt),
+                                       dev),
+        "psum_moe": timed_collective(lambda: ctx.psum_model(y), dev),
+        "gather_y": timed_collective(lambda: ctx.all_gather_data(y), dev),
+        "gather_logits": timed_collective(
+            lambda: ctx.all_gather_model(logits), dev),
+        "a2a_chunk": timed_collective(lambda: ctx.all_to_all_data(pre), dev),
+        "a2a_bytes": buf.numel() * 4, "a2a_chunk_bytes": pre.numel() * 4}
+    out["psum_embed"] = out["psum_attn"]          # the same [4, 1, D] rows
+    out["a2a_per_moe_layer"] = 2 * out["a2a"] + out["a2a_counts"]
+    out["per_layer"] = (out["psum_attn"] + out["a2a_per_moe_layer"]
+                        + out["psum_moe"] + out["gather_y"])
+    out["per_step"] = cfg.n_layers * out["per_layer"] + out["psum_embed"] \
+        + out["gather_logits"]
+    return out
+
+
+def dist_rank(rank, world, backend, init, out_dir, dev_type="cuda"):
+    """One rank of phase 17: join the group, build the rank's shard of the
+    seed's one-rank model (the whole model is built one rank at a time and
+    carried over by transfer_params), serve (a) chunked, (b) whole-prompt,
+    (c) chunked with a forced migration mid-decode, time the collectives,
+    and write the results to <out_dir>/p17_rank<r>.json. `dev_type` "cpu"
+    rehearses the phase off the card (with the torch.cuda calls stubbed)."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from repro_torch.core.proxy import SamplingParams
+    from repro_torch.device import set_precision_policy
+    from repro_torch.models.lm import LM
+    from repro_torch.serving import DevicePlacement
+    set_precision_policy()
+    nccl = backend == "nccl"
+    dev = torch.device(dev_type, rank if nccl else 0)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method=init, rank=rank,
+                            world_size=world,
+                            timeout=timedelta(seconds=P17_TIMEOUT_S))
+    res = {"rank": rank}
+    try:
+        # gloo collectives cannot be captured: capture=False, explicitly
+        pl = DevicePlacement.build(P17_TP, P17_EP, dev, backend,
+                                   capture=None if nccl else False,
+                                   check_lockstep=True)
+        cfg = dist_config()
+        one = LM.build(cfg, pattern=[0] * cfg.n_layers, device=dev)
+        lm = LM.build(cfg, pattern=[0] * cfg.n_layers, device=dev,
+                      ctx=pl.ctx)
+        t0 = time.monotonic()
+        params = None
+        for r in range(world):
+            if r == rank:
+                whole = one.init(P17_SEED)
+                params = pl.transfer_params(one, whole, lm)
+                del whole
+                gc.collect()
+                torch.cuda.empty_cache()
+            dist.barrier()
+        res["shard_gb"] = params_gb(params)
+        res["transfer_s"] = time.monotonic() - t0
+        prompts, sp = dist_workload(cfg.vocab_size)
+        # one placement (hot-loop registry, graph pool) a server, on the
+        # rank's context
+        fresh = lambda: DevicePlacement(pl.device, pl.capture, pl.ctx)
+        for name, chunked in (("a_chunked", True), ("b_whole", False)):
+            srv = dist_server(cfg, chunked, params=params, placement=fresh())
+            res[name] = warm_and_drive(srv, prompts, sp)
+            del srv
+        res["collectives_ms"] = collective_ms(pl.ctx, cfg, dev)
+        # (c) add_request / step with a forced migration halfway through
+        # the decode steps (it moves the parameters in place: last)
+        srv = dist_server(cfg, True, params=params, placement=fresh())
+        rids = [srv.add_request(p, sp) for p in prompts]
+        got = {r: [] for r in rids}
+        done, migrated = set(), None
+        while len(done) < len(rids):
+            for o in srv.step():
+                got[o.rid].extend(o.new_tokens)
+                if o.finished:
+                    done.add(o.rid)
+            if migrated is None and \
+                    srv.decodes[0].stats["steps"] >= P17_NEW // 2:
+                migrated = srv.decodes[0].stats["steps"]
+                srv._apply_migration(swapped_slots_plan(srv))
+        res["c_migrate"] = {"streams": [got[r] for r in rids],
+                            "at_step": migrated,
+                            "migration": dict(srv.migration_stats),
+                            "slot_expert": srv.tables["slot_expert"]
+                            .cpu().tolist()}
+        del srv
+        res["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    except BaseException as exc:
+        res["error"] = f"{type(exc).__name__}: {exc}"
+    Path(out_dir).mkdir(exist_ok=True)
+    (Path(out_dir) / f"p17_rank{rank}.json").write_text(
+        json.dumps(res, default=float))
+    if "error" in res or nccl:
+        # a failed rank leaves at once (its peers may wait in a collective);
+        # an NCCL rank leaves without tearing its communicators down, which
+        # can block once graphs have captured them
+        sys.stdout.flush()
+        os._exit(1 if "error" in res else 0)
+    gc.collect()
+    dist.destroy_process_group()
+
+
+def check_rank_local_kernels(dev, timer, log, cfg):
+    """The four kernels of phase 17's path at one rank's shapes (tp 2, ep
+    2): paged_decode and paged_prefill over K / tp = 8 KV heads (G 1, h
+    128, phase 17's 4 slots and 128-token chunks), flash_prefill over 8
+    heads of a 448-token prompt padded to 512, and moe_gmm over the rank's
+    30 slots with ep·Cb rows each — 16 at a 4-slot decode step (w1/w3:
+    [30, 16, 2048] x [30, 2048, 704]), 48 at a 128-token chunk — each
+    against its plain version, timed with its bound and library call."""
+    from repro_torch.kernels.flash_prefill import (flash_prefill,
+                                                   flash_prefill_plain)
+    from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_plain
+    from repro_torch.kernels.paged_decode import (paged_decode,
+                                                  paged_decode_plain)
+    from repro_torch.kernels.paged_prefill import (paged_prefill,
+                                                   paged_prefill_plain)
+    from repro_torch.models import moe as moe_mod
+    dt = torch.float32
+    K, h = cfg.n_kv_heads // P17_TP, cfg.head_dim
+    G = cfg.n_heads // cfg.n_kv_heads
+    s = moe_mod.default_slot_count(cfg, P17_EP)
+    Fe = cfg.moe.d_ff_expert // P17_TP
+    k, cf = cfg.moe.top_k, cfg.moe.capacity_factor
+    cb_dec = moe_mod._bucket_capacity(4 // P17_EP, k, P17_EP, s, cf)
+    cb_pre = moe_mod._bucket_capacity(128, k, P17_EP, s, cf)
+    rec = {}
+
+    def one(name, kern, plain, args, bnd, lib, shape, tol=TOL[dt]):
+        got, want = kern(*args).float(), plain(*args).float()
+        torch.cuda.synchronize()
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"{name} tp2ep2: non-finite kernel output")
+        torch.testing.assert_close(got, want, **tol, msg=f"{name} tp2ep2")
+        err = float((got - want).abs().max())
+        log.append(f"{name} float32 tp2ep2 {shape}: max_abs_err={err:.3g}")
+        return {"max_abs_err": err, "ms": timer(lambda: kern(*args)),
+                "plain_ms": timer(lambda: plain(*args)),
+                "library_ms": timer(lib) if lib is not None else None,
+                "bound_ms": bnd[0], "bound_by": bnd[1], "bytes": bnd[2],
+                "flops": bnd[3], "shape": shape}
+
+    dec = decode_inputs(dev, dt, 4, K, G, h, 16, 32, 161,
+                        [449, 452, 455, 458], 71)
+    rec["paged_decode"] = one(
+        "paged_decode", paged_decode, paged_decode_plain, dec,
+        decode_bound(dec[0], dec[1], dec[3], dec[4]), sdpa_decode(*dec),
+        f"B 4, K {K}, G {G}, h {h}, nb 32, lens 449-458")
+    pre = prefill_inputs(dev, dt, 1, K, 128, G, h, 16, 32, 161, [256],
+                         [128], 72)
+    rec["paged_prefill"] = one(
+        "paged_prefill", paged_prefill, paged_prefill_plain, pre,
+        prefill_bound(pre[0], pre[1], pre[3], pre[5], pre[6], pre[7]),
+        sdpa_prefill(*pre), f"K {K}, G {G}, S 128, off 256")
+    g = torch.Generator(device=dev).manual_seed(73)
+    q, kk, vv = (torch.randn((K * G, 512, h), generator=g, device=dev)
+                 for _ in range(3))
+    fl = lambda *a: flash_prefill(*a, causal=True)
+    fp = lambda *a: flash_prefill_plain(*a, causal=True)
+    rec["flash_prefill"] = one(
+        "flash_prefill", fl, fp, (q, kk, vv),
+        flash_bound(q, kk, True, 0, 0),
+        sdpa_flash(q, kk, vv, True, 0, 0), f"N {K * G}, S 512, h {h}",
+        tol=TOL_DENSE[dt])
+    # decode: 4 slots' tokens x top-4 over 60 experts, about half of them on
+    # this rank's 30 slots; chunk: 128 tokens x top-4, all arriving twice
+    # (rows replicated over `data`)
+    x, w, nv = moe_gmm_inputs(dev, dt, s, P17_EP * cb_dec, cfg.d_model, Fe,
+                              8, 1, 74)
+    rec["moe_gmm"] = one(
+        "moe_gmm", moe_gmm, moe_gmm_plain, (x, w, nv),
+        moe_gmm_bound(x, w, nv), lambda: torch.bmm(x, w),
+        f"x [{s}, {P17_EP * cb_dec}, {cfg.d_model}] w [{s}, {cfg.d_model}, "
+        f"{Fe}], {int(nv.sum())} rows")
+    xc, wc, nc = moe_gmm_inputs(dev, dt, s, P17_EP * cb_pre, cfg.d_model, Fe,
+                                P17_EP * 128, 2, 75)
+    rec["moe_gmm"]["chunk"] = one(
+        "moe_gmm", moe_gmm, moe_gmm_plain, (xc, wc, nc),
+        moe_gmm_bound(xc, wc, nc), lambda: torch.bmm(xc, wc),
+        f"x [{s}, {P17_EP * cb_pre}, {cfg.d_model}], {int(nc.sum())} rows")
+    return rec
+
+
+def first_diff(got, want):
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a != b:
+            return i
+    return None
+
+
+def dist_phase(dev, timer, log):
+    """Phase 17: full-width qwen2-moe-a2.7b (P17_LAYERS layers, float32)
+    served over (tp 2, ep 2) ranks, one process each: NCCL with one card a
+    rank and the hot loops captured where four cards are visible, else the
+    four ranks share cuda:0 over gloo with capture=False. Its greedy
+    streams must equal the one-rank port Server's on the same card and
+    seed-0 weights; the rank-local kernels are held to their plain
+    versions. A failure here fails the run."""
+    from repro_torch.serving import Server  # noqa: F401  (the build check)
+    cfg = dist_config()
+    world = P17_TP * P17_EP
+    n_cards = torch.cuda.device_count()
+    nccl = n_cards >= world
+    backend = "nccl" if nccl else "gloo"
+    out = {"backend": backend, "cards": n_cards, "layers": cfg.n_layers,
+           "dtype": P17_DTYPE}
+    out["why"] = (f"{n_cards} cards visible: NCCL, one card a rank, hot loops"
+                  f" captured as CUDA graphs" if nccl else
+                  f"{n_cards} card visible: the {world} ranks share cuda:0 "
+                  f"over gloo (NCCL refuses two ranks on one GPU); gloo "
+                  f"collectives cannot be captured, so every placement is "
+                  f"built with capture=False")
+    out["kernels"] = check_rank_local_kernels(dev, timer, log, cfg)
+    torch.cuda.empty_cache()
+    prompts, sp = dist_workload(cfg.vocab_size)
+    # the one-rank port Server on the same card and seed-0 weights
+    ref = {}
+    srv = dist_server(cfg, True, dev=dev)
+    out["one_rank_weights_gb"] = params_gb(srv.params)
+    ref["a_chunked"] = warm_and_drive(srv, prompts, sp)
+    srvb = dist_server(cfg, False, dev=dev, params=srv.params)
+    ref["b_whole"] = warm_and_drive(srvb, prompts, sp)
+    out["one_rank"] = {k: {x: v[x] for x in ("metrics", "launches",
+                                             "decode_round_ms")}
+                       for k, v in ref.items()}
+    del srv, srvb
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["one_rank_peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    # the world: rank = e · tp + t, one process each
+    import socket
+    with socket.socket() as s_:
+        s_.bind(("localhost", 0))
+        init = f"tcp://localhost:{s_.getsockname()[1]}"
+    for f in OUT_DIR.glob("p17_rank*.json"):
+        f.unlink()
+    t0 = time.monotonic()
+    procs = torch.multiprocessing.start_processes(
+        dist_rank, args=(world, backend, init, str(OUT_DIR)), nprocs=world,
+        join=False, start_method="spawn")
+    failed = None
+    try:
+        while not procs.join(timeout=10):
+            if time.monotonic() - t0 > P17_WORLD_S:
+                failed = f"the world did not finish in {P17_WORLD_S} s"
+                break
+    except torch.multiprocessing.ProcessExitedException as exc:
+        failed = str(exc)
+    finally:
+        for p in procs.processes:
+            if p.is_alive():
+                p.kill()
+    out["world_s"] = time.monotonic() - t0
+    files = [OUT_DIR / f"p17_rank{r}.json" for r in range(world)]
+    ranks = [json.loads(f.read_text()) for f in files if f.exists()]
+    errors = [f"rank {r['rank']}: {r['error']}" for r in ranks if "error" in r]
+    if failed or errors or len(ranks) < world:
+        raise AssertionError(f"phase 17: {failed}; {errors}; "
+                             f"{len(ranks)} of {world} ranks reported")
+    # every rank emits the same tokens, equal to the one-rank Server's
+    for name in ("a_chunked", "b_whole"):
+        want = ref[name]["streams"]
+        for r in ranks:
+            got = r[name]["streams"]
+            for i, (a, b) in enumerate(zip(got, want)):
+                if a != b:
+                    raise AssertionError(
+                        f"phase 17 {name}: rank {r['rank']} request {i} "
+                        f"differs from the one-rank Server at token "
+                        f"{first_diff(a, b)}: {a} vs {b}")
+    for r in ranks:
+        if r["c_migrate"]["streams"] != ranks[0]["a_chunked"]["streams"]:
+            raise AssertionError(f"phase 17 (c): rank {r['rank']}'s streams "
+                                 f"changed across the forced migration")
+        if r["c_migrate"]["migration"]["bytes"] <= 0:
+            raise AssertionError("phase 17 (c): the migration moved nothing")
+    r0 = ranks[0]
+    for name in ("a_chunked", "b_whole"):
+        ln = r0[name]["launches"]
+        need = ("paged_decode", "moe_gmm") + (
+            ("paged_prefill",) if name == "a_chunked" else ("flash_prefill",))
+        for k in need:
+            if ln.get(k, 0) <= 0:
+                raise AssertionError(f"phase 17 {name}: no {k} launch")
+    out["ranks"] = ranks
+    cm = r0["collectives_ms"]
+    out["collective_share"] = cm["per_step"] / r0["a_chunked"][
+        "decode_round_ms"]
+    log.append(f"transport: {backend} — {out['why']}")
+    log.append(f"weights: one rank {out['one_rank_weights_gb']:.2f} GB; "
+               f"shards " + ", ".join(f"{r['shard_gb']:.2f}" for r in ranks)
+               + f" GB; built one rank at a time and carried over in "
+               f"{r0['transfer_s']:.1f} s")
+    return out
+
+
 # ----------------------------------------------------------------------
 def main() -> int:
     if not torch.cuda.is_available():
@@ -6444,6 +6879,57 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    t17 = time.monotonic()
+    dist17 = dist_phase(dev, timer, log)
+    r0 = dist17["ranks"][0]
+    print(f"phase 17 [{time.monotonic() - t0:.1f} s]: full-width "
+          f"qwen2-moe-a2.7b over (tp {P17_TP}, ep {P17_EP}), one process a "
+          f"rank, {dist17['layers']} of 24 layers, {dist17['dtype']}, in "
+          f"{time.monotonic() - t17:.1f} s (the world "
+          f"{dist17['world_s']:.1f} s)")
+    for line in log:
+        print("  " + line)
+    for name, what in (("a_chunked", "(a) chunked paged prefill"),
+                       ("b_whole", "(b) whole-prompt prefill")):
+        m, m1 = r0[name]["metrics"], dist17["one_rank"][name]["metrics"]
+        ln = {k: v for k, v in r0[name]["launches"].items() if v}
+        print(f"  {what}: 8 prompts x {P17_NEW} greedy tokens, streams of "
+              f"all four ranks equal the one-rank Server's; rank 0 launches "
+              f"{ln}; TTFT mean {m['ttft_mean'] * 1e3:.1f} ms p99 "
+              f"{m['ttft_p99'] * 1e3:.1f} ms, TPOT mean "
+              f"{m['tpot_mean_ms']:.2f} ms p99 {m['tpot_p99_ms']:.2f} ms, "
+              f"decode round {r0[name]['decode_round_ms']:.2f} ms (one rank: "
+              f"TTFT mean {m1['ttft_mean'] * 1e3:.1f} ms, TPOT mean "
+              f"{m1['tpot_mean_ms']:.2f} ms, decode round "
+              f"{dist17['one_rank'][name]['decode_round_ms']:.2f} ms) [{smi}]")
+    cm = r0["collectives_ms"]
+    print(f"  collectives ({dist17['backend']}), timed alone at a 4-slot "
+          f"decode step's shapes on rank 0: all_to_all "
+          f"{cm['a2a']:.3f} ms a call ({cm['a2a_bytes'] / 1e6:.2f} MB), "
+          f"{cm['a2a_per_moe_layer']:.3f} ms a MoE layer (dispatch + "
+          f"combine + counts); a 128-token chunk's all_to_all "
+          f"{cm['a2a_chunk']:.3f} ms ({cm['a2a_chunk_bytes'] / 1e6:.2f} MB);"
+          f" psum {cm['psum_attn']:.3f} ms, y gather {cm['gather_y']:.3f} "
+          f"ms, logits gather {cm['gather_logits']:.3f} ms; "
+          f"{cm['per_step']:.2f} ms a decode step = "
+          f"{dist17['collective_share']:.3f} of rank 0's "
+          f"{r0['a_chunked']['decode_round_ms']:.2f} ms decode round "
+          f"[{smi}]")
+    mig = r0["c_migrate"]
+    print(f"  (c) forced migration at decode step {mig['at_step']} (slots "
+          f"0-1 of ranks 0 and 1 trade experts): "
+          f"{mig['migration']['seconds']:.3f} s, "
+          f"{mig['migration']['bytes'] / 1e6:.1f} MB moved between ranks; "
+          f"streams equal (a)'s on every rank [{smi}]")
+    print(f"  peak memory per rank "
+          + ", ".join(f"{r['peak_mem_gb']:.2f}" for r in dist17["ranks"])
+          + f" GB (shards {r0['shard_gb']:.2f} GB each with the whole model"
+          f" built one rank at a time); one-rank Server peak "
+          f"{dist17['one_rank_peak_gb']:.2f} GB [{smi}]")
+    log.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
     for rec in (served, spec["runs"]["spec_on"], spec["runs"]["spec_off"],
                 quant):
         rec.pop("streams", None)
@@ -6451,7 +6937,7 @@ def main() -> int:
                   default_pattern=omni, topk=topk, spec=spec, moe=moe,
                   quant=quant, eager=eager, ring_chunks=rings, chaos=chaos,
                   archs=archs, mamba2=mamba2, jamba=jamba, train=trained,
-                  frontends=fronts)
+                  frontends=fronts, dist=dist17)
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 
@@ -6526,6 +7012,15 @@ def main() -> int:
         P16_NEW * fv["decode_launches_per_step"]
     new_launches["paged_decode"]["h96"] = 0
     new_launches["paged_decode"]["h80"] = 0
+    # phase 17's rank-local shapes, with rank 0's launches there
+    la, lb = r0["a_chunked"]["launches"], r0["b_whole"]["launches"]
+    for name, rec in dist17["kernels"].items():
+        kern[name]["float32_tp2ep2"] = rec
+    new_launches["paged_decode"]["tp2ep2"] = la["paged_decode"] \
+        + lb["paged_decode"]
+    new_launches["paged_prefill"]["tp2ep2"] = la["paged_prefill"]
+    new_launches["flash_prefill"]["tp2ep2"] = lb["flash_prefill"]
+    new_launches["moe_gmm"]["tp2ep2"] = la["moe_gmm"] + lb["moe_gmm"]
     new_int8 = {
         "paged_decode": {"h256": g3["d_int8"]["launches"]["paged_decode_int8"],
                          "h96": 0, "h80": 0},
@@ -6604,12 +7099,12 @@ def main() -> int:
             if rec is None:
                 continue
             subs = ("h256", "g48", "qwen3moe", "jamba", "jamba_ring",
-                    "jamba_chunk", "h80", "h96")
+                    "jamba_chunk", "h80", "h96", "tp2ep2")
             for sub in subs:
                 if sub in rec and rec[sub]["launches"] <= 0 and \
                         rec[sub].get("on_path", True):
                     raise AssertionError(f"{k['name']} {sub}: no launch in "
-                                         f"phase 13, 14 or 16")
+                                         f"phase 13, 14, 16 or 17")
             for r in (rec, rec.get("ring"), rec.get("long"),
                       rec.get("select")) + tuple(rec.get(x) for x in subs):
                 for key in ("max_abs_err", "ms", "plain_ms", "bound_ms"):

@@ -10,10 +10,19 @@ the same entry points (verify refuses them). MoE layers route through the
 OmniPlacement tables each entry point takes (`default_tables()` to start);
 the per-layer expert counts come back in the aux. An encoder-only config
 (hubert) has no cache: its `prefill` is the whole forward, per-frame
-logits through the flash-prefill kernel."""
+logits through the flash-prefill kernel.
+
+Over several ranks (an `LM` built with a `RankCtx` of world > 1) the
+parameters are this rank's shards, cut by `param_specs` — the port's copy
+of the reference's ParamDef specs: attention heads, the FFN and expert
+widths and the vocabulary over `model`, expert slots over `data`. The
+embedding is a masked local lookup summed over `model`; the logits are
+gathered over `model`, so sampling sees the full [n, V] row on every rank.
+`DevicePlacement.transfer_params` carries one-rank parameters into that
+layout."""
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from functools import cached_property
 from typing import Optional
 
@@ -21,6 +30,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device, torch_dtype
+from repro_torch.distributed.ctx import RankCtx
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import stack as stack_mod
 from repro_torch.models.common import cross_entropy, rms_norm
@@ -33,20 +43,55 @@ def _device_int(x, device) -> torch.Tensor:
     return torch.tensor(int(x), dtype=torch.int32, device=device)
 
 
+# The port's copy of the reference's ParamDef specs (src/repro/models/
+# stack.py:74-139, lm.py:38-41): per leaf, the mesh axis each dim shards
+# over. The reference's FSDP axis ("data" on the replicated big dim under
+# cfg.fsdp) is not ported: serving keeps those dims whole.
+LAYER_SPECS = {
+    "ln_attn": (None,), "wq": (None, "model"), "wk": (None, "model"),
+    "wv": (None, "model"), "wo": ("model", None), "bq": ("model",),
+    "bk": ("model",), "bv": ("model",), "q_norm": (None,),
+    "k_norm": (None,),
+    "w_z": (None, "model"), "w_x": (None, "model"), "w_bc": (None, None),
+    "w_dt": (None, "model"), "dt_bias": ("model",),
+    "conv_x": (None, "model"), "conv_bc": (None, None),
+    "A_log": ("model",), "D_skip": ("model",), "ssm_norm": ("model",),
+    "out_proj": ("model", None),
+    "ln_mlp": (None,), "w1": (None, "model"), "w3": (None, "model"),
+    "w2": ("model", None), "router": (None, None),
+    "moe_w1": ("data", None, None, "model"),
+    "moe_w3": ("data", None, None, "model"),
+    "moe_w2": ("data", None, "model", None),
+    "shared_w1": (None, "model"), "shared_w3": (None, "model"),
+    "shared_w2": ("model", None)}
+TOP_SPECS = {"embed": ("model", None), "head": (None, "model"),
+             "final_norm": (None,), "frontend": (None, None)}
+SLOT_LEAVES = ("moe_w1", "moe_w3", "moe_w2")
+
+
 @dataclass(frozen=True)
 class LM:
     cfg: ModelConfig
     plan: stack_mod.StackPlan
     device: torch.device
+    ctx: RankCtx = RankCtx()
 
     @staticmethod
     def build(cfg: ModelConfig, pattern: Optional[list] = None,
-              device=None) -> "LM":
-        """`device` None → cuda. Raises NotImplementedError for a family
-        the port does not model."""
+              device=None, ctx: Optional[RankCtx] = None) -> "LM":
+        """`device` None → cuda; `ctx` None → one rank. Raises
+        NotImplementedError for a family the port does not model, and
+        (naming ROADMAP A16b) for a model this slice cannot lay out over
+        `ctx`'s ranks (`stack.check_distributed`)."""
         plan = stack_mod.StackPlan.from_config(cfg, pattern)
         stack_mod.check_supported(cfg)
-        return LM(cfg, plan, resolve_device(device))
+        ctx = ctx if ctx is not None else RankCtx.local()
+        stack_mod.check_distributed(cfg, plan, ctx)
+        return LM(cfg, plan, resolve_device(device), ctx)
+
+    def one_rank(self) -> "LM":
+        """This model on one rank (the same config, plan and device)."""
+        return replace(self, ctx=RankCtx.local())
 
     # ------------------------------------------------------------------
     def param_defs(self) -> dict:
@@ -57,7 +102,10 @@ class LM:
         `mamba_defs` (the SSD mixer) in place of attention. An MoE layer
         (`LayerSpec.use_moe`) carries the router (float32 whatever
         param_dtype is), its slot weights [1, s, ...] and the shared
-        experts instead of the dense FFN."""
+        experts instead of the dense FFN. The shapes are the whole model's
+        over `ctx.ep` slot ranks: slot weights [ep, s, ...] with s =
+        `default_slot_count(cfg, ep)`; `param_specs` says how each leaf
+        shards."""
         cfg = self.cfg
         D, H, K, h, Fd = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                           cfg.head_dim, cfg.d_ff)
@@ -77,12 +125,13 @@ class LM:
         moe = {}
         m = cfg.moe
         if m.n_experts:
-            s, Fe = moe_mod.default_slot_count(cfg, 1), m.d_ff_expert
+            ep = self.ctx.ep
+            s, Fe = moe_mod.default_slot_count(cfg, ep), m.d_ff_expert
             moe = {"ln_mlp": ((D,), "ones", dt),
                    "router": ((D, m.n_experts), w, "float32"),
-                   "moe_w1": ((1, s, D, Fe), w, dt),
-                   "moe_w3": ((1, s, D, Fe), w, dt),
-                   "moe_w2": ((1, s, Fe, D), w, dt)}
+                   "moe_w1": ((ep, s, D, Fe), w, dt),
+                   "moe_w3": ((ep, s, D, Fe), w, dt),
+                   "moe_w2": ((ep, s, Fe, D), w, dt)}
             if m.n_shared_experts:
                 Fsh = m.n_shared_experts * Fe
                 moe.update(shared_w1=((D, Fsh), w, dt),
@@ -111,10 +160,33 @@ class LM:
             d["frontend"] = ((cfg.frontend_dim, D), w, dt)
         return d
 
+    def param_specs(self) -> dict:
+        """{"layers": [per-layer {name: spec}], top-level name: spec}: each
+        spec a tuple of mesh axes ("data", "model" or None) per dim, as
+        the reference's sanitized ParamDef specs: a dim that does not
+        divide over its axis stays whole (replicated)."""
+        defs = self.param_defs()
+
+        def sane(spec, shape):
+            return tuple(self.ctx.part_if(a, n) for a, n in zip(spec, shape))
+        out = {k: sane(TOP_SPECS[k], v[0]) for k, v in defs.items()
+               if k != "layers"}
+        out["layers"] = [{k: sane(LAYER_SPECS[k], v[0])
+                          for k, v in layer.items()}
+                         for layer in defs["layers"]]
+        return out
+
     def init(self, seed: int = 0) -> dict:
         """Fresh parameters on this LM's device from a seeded generator:
         weights normal(0, std) drawn in float32 and cast to their dtype,
-        biases zero, norm scales one."""
+        biases zero, norm scales one. One rank only: over several ranks
+        the seed's one-rank model (`one_rank().init(seed)`) is carried into
+        each rank's part by `DevicePlacement.place_params`, so one seed is
+        one model whatever the layout."""
+        if self.ctx.world > 1:
+            raise ValueError(
+                f"init over {self.ctx.world} ranks: init one_rank() and "
+                f"carry it with DevicePlacement.place_params")
         gen = torch.Generator(device=self.device)
         gen.manual_seed(int(seed))
 
@@ -137,7 +209,12 @@ class LM:
 
     def shapes(self) -> dict:
         """The parameter tree as "meta" tensors — shapes and dtypes, no
-        storage: a checkpoint restore's template."""
+        storage: a checkpoint restore's template. One rank only: a restore
+        into a rank's shards is ROADMAP A16b."""
+        if self.ctx.world > 1:
+            raise NotImplementedError(
+                f"a sharded checkpoint restore over {self.ctx.world} ranks "
+                f"(ROADMAP A16b)")
         defs = self.param_defs()
         make = lambda shape, _init, dtype: torch.empty(
             shape, dtype=torch_dtype(dtype), device="meta")
@@ -147,19 +224,30 @@ class LM:
         return out
 
     def default_tables(self) -> Optional[dict]:
-        """The round-robin placement's tables on this LM's device (one
-        rank), or None without MoE layers."""
+        """The round-robin placement's tables over `ctx.ep` slot ranks on
+        this LM's device (replicated on every rank), or None without MoE
+        layers."""
         m = self.cfg.moe
         if m.n_experts == 0:
             return None
-        s = moe_mod.default_slot_count(self.cfg, 1)
+        ep = self.ctx.ep
+        s = moe_mod.default_slot_count(self.cfg, ep)
         return moe_mod.tables_from_placement(
-            moe_mod.round_robin_placement(m.n_experts, 1, s), s, self.device)
+            moe_mod.round_robin_placement(m.n_experts, ep, s), s, self.device)
 
     # ------------------------------------------------------------------
     def _embed(self, params, tokens):
-        return params["embed"][tokens.long()].to(
-            torch_dtype(self.cfg.compute_dtype))
+        cd = torch_dtype(self.cfg.compute_dtype)
+        emb = params["embed"]
+        v_loc = emb.shape[0]
+        if v_loc == self.cfg.vocab_size:
+            return emb[tokens.long()].to(cd)
+        # this rank's vocabulary rows: a masked local lookup, summed over
+        # `model` (one rank holds each token's row, the others add zeros)
+        local = tokens.long() - self.ctx.t * v_loc
+        hit = (local >= 0) & (local < v_loc)
+        x = emb[local.clamp(0, v_loc - 1)] * hit[..., None].to(emb.dtype)
+        return self.ctx.psum_model(x).to(cd)
 
     def _embed_inputs(self, params, batch: dict):
         """The stack's input rows [B, S', D] in the compute dtype (the
@@ -181,9 +269,11 @@ class LM:
         cfg = self.cfg
         x = rms_norm(x, params["final_norm"], cfg.rms_eps)
         cd = torch_dtype(cfg.compute_dtype)
-        if cfg.tie_embeddings:
-            return x.to(cd) @ params["embed"].t()
-        return x.to(cd) @ params["head"]
+        w = params["embed"].t() if cfg.tie_embeddings else params["head"]
+        out = x.to(cd) @ w
+        if w.shape[1] != cfg.vocab_size:
+            out = self.ctx.all_gather_model(out, dim=-1)
+        return out
 
     def train_loss(self, params, batch: dict, tables=None):
         """batch {"tokens" [B, S] | "frames" [B, S, frontend_dim] (audio) |
@@ -194,13 +284,17 @@ class LM:
         "train")` — plain differentiable attention (bidirectional where
         cfg.causal is False) and expert products, no kernel, each layer an
         activation checkpoint under cfg.remat. MoE layers route through
-        `tables` (default_tables())."""
+        `tables` (default_tables()). One rank only: training over several
+        ranks is ROADMAP A16b."""
+        if self.ctx.world > 1:
+            raise NotImplementedError(
+                f"training over {self.ctx.world} ranks (ROADMAP A16b)")
         x = self._embed_inputs(params, batch)
         positions = torch.arange(x.shape[1], device=x.device)
         x, _, _, counts = stack_mod.stack_apply(
             self.cfg, self.plan, params["layers"], x, mode="train",
             positions=positions, caches=None, block_tables=None,
-            tables=tables)
+            tables=tables, ctx=self.ctx)
         loss = cross_entropy(self._logits(params, x), batch["labels"],
                              batch.get("mask"))
         return loss, {"moe_counts": counts}
@@ -235,13 +329,13 @@ class LM:
             x, _, _, counts = stack_mod.stack_apply(
                 self.cfg, self.plan, params["layers"], x, mode="encode",
                 positions=positions, caches=None, block_tables=None,
-                tables=tables)
+                tables=tables, ctx=self.ctx)
             return None, self._logits(params, x), {"moe_counts": counts}
         tl = S if true_len is None else true_len
         x, layers, _, counts = stack_mod.stack_apply(
             self.cfg, self.plan, params["layers"], x, mode="prefill",
             positions=positions, caches=None, block_tables=None,
-            true_len=true_len, max_len=max_len, tables=tables)
+            true_len=true_len, max_len=max_len, tables=tables, ctx=self.ctx)
         last = x.index_select(
             1, (_device_int(tl, x.device) - 1).long().reshape(1))[:, 0]
         return ({"layers": layers, "pos": tl}, self._logits(params, last),
@@ -294,7 +388,7 @@ class LM:
         x, _, _, counts = stack_mod.stack_apply(
             self.cfg, self.plan, params["layers"], x, mode="prefill",
             positions=positions, caches=cache, block_tables=block_tables,
-            true_len=cl_t, pos0=off_t, tables=tables)
+            true_len=cl_t, pos0=off_t, tables=tables, ctx=self.ctx)
         last = x.index_select(1, (cl_t - 1).long().reshape(1))[:, 0]
         logits = self._logits(params, last)
         return dict(cache, pos=off + cl), logits, {"moe_counts": counts}
@@ -317,7 +411,7 @@ class LM:
         x, _, sp, counts = stack_mod.stack_apply(
             self.cfg, self.plan, params["layers"], x, mode="decode",
             positions=positions, caches=cache, block_tables=block_tables,
-            token_mask=token_mask, tables=tables)
+            token_mask=token_mask, tables=tables, ctx=self.ctx)
         return cache, self._logits(params, x[:, 0]), {"sparsity": sp,
                                                       "moe_counts": counts}
 
@@ -339,7 +433,7 @@ class LM:
         x, staged, _, counts = stack_mod.stack_apply(
             self.cfg, self.plan, params["layers"], x, mode="verify",
             positions=pos2, caches=cache, block_tables=block_tables,
-            tables=tables, token_mask=token_mask)
+            tables=tables, token_mask=token_mask, ctx=self.ctx)
         return self._logits(params, x), staged, {"moe_counts": counts}
 
     def verify_commit(self, cache, staged, positions, n_write, block_tables):

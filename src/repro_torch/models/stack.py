@@ -46,6 +46,8 @@ import torch
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.device import torch_dtype
+from repro_torch.distributed.ctx import (RankCtx, decode_strategy,
+                                         prefill_strategy)
 from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
@@ -108,6 +110,37 @@ def check_supported(cfg: ModelConfig) -> None:
             f"{FAMILIES}")
 
 
+def check_distributed(cfg: ModelConfig, plan: StackPlan, ctx: RankCtx
+                      ) -> None:
+    """Raise NotImplementedError, naming ROADMAP A16b, for a model this
+    slice cannot lay out over `ctx`'s ranks: heads that do not divide over
+    `model` (the reference's 'wseq' decode and 'qseq' prefill strategies),
+    Mamba-2 layers at tp > 1, and OmniAttn's ring (sink + recent or
+    sliding-window) and online top-k layers at world > 1."""
+    if ctx.world == 1:
+        return
+    H, K, tp = cfg.n_heads, cfg.n_kv_heads, ctx.tp
+    if tp > 1 and K and (decode_strategy(K, tp) != "kv"
+                         or prefill_strategy(H, K, tp) != "heads"):
+        raise NotImplementedError(
+            f"{cfg.arch_id}: {H} query / {K} KV heads over tp={tp} need the "
+            f"'wseq' / 'qseq' strategies (ROADMAP A16b)")
+    specs = plan.all_specs()
+    if tp > 1 and any(sp.kind == "mamba" for sp in specs):
+        raise NotImplementedError(
+            f"{cfg.arch_id}: Mamba-2 layers at tp={tp} (ROADMAP A16b)")
+    if any(sp.kind == "attn" and not full_attn_layer(cfg, sp)
+           for sp in specs):
+        raise NotImplementedError(
+            f"{cfg.arch_id}: ring attention layers (OmniAttn sink+recent or "
+            f"a sliding window) over {ctx.world} ranks (ROADMAP A16b); pass "
+            f"pattern=[0] * n_layers")
+    if topk_block_budget(cfg.omniattn, 1 << 20) is not None:
+        raise NotImplementedError(
+            f"{cfg.arch_id}: OmniAttn online top-k over {ctx.world} ranks "
+            f"(ROADMAP A16b)")
+
+
 def topk_block_budget(oa, nb: int) -> Optional[int]:
     """Top-k block budget against a width-`nb` block table, or None when
     online sparsity is off (both budget knobs 0). Absolute `topk_blocks`
@@ -131,17 +164,26 @@ def ring_block_count(sink: int, recent: int, block_size: int) -> int:
 
 # ----------------------------------------------------------------------
 # Caches: the shared full-attention arenas and the engine-private side
+def local_kv_heads(cfg: ModelConfig, tp: int = 1) -> int:
+    """The KV heads one rank's caches hold: K / tp over `model` under the
+    'kv' decode strategy (the reference's `arena_specs`; the others are
+    refused by `check_distributed`), every block of every arena. The one
+    place the rank-local KV layout is decided: every allocator below and
+    the decode engine's transfer metering read it."""
+    return cfg.n_kv_heads // tp
+
+
 def alloc_arena_kv(cfg: ModelConfig, plan: StackPlan, n_arena_blocks: int,
                    block_size: int, device, dtype=None,
-                   quant: bool = False) -> list:
+                   quant: bool = False, tp: int = 1) -> list:
     """One entry per layer: {"k","v": [N, K, bs, h], "kmin","kmax","kmean":
     [N, K, h] float32} for full-attention layers (`n_arena_blocks` includes
     the null block 0), None elsewhere. With `quant` (QuantPlane) "k","v"
     are int8 and the entry adds the scale plane: "kscale","vscale" [N, K,
     h] per-channel seal scales and "ktok","vtok" [N, K, bs] per-token
-    scales, float32."""
+    scales, float32. K is this rank's `local_kv_heads` at `tp` > 1."""
     dtype = torch.int8 if quant else torch_dtype(dtype or cfg.compute_dtype)
-    K, h = cfg.n_kv_heads, cfg.head_dim
+    K, h = local_kv_heads(cfg, tp), cfg.head_dim
 
     def one(spec):
         if not full_attn_layer(cfg, spec):
@@ -192,13 +234,13 @@ def _alloc_mamba(cfg: ModelConfig, B: int, device, dtype) -> dict:
 
 
 def alloc_cache(cfg: ModelConfig, plan: StackPlan, B: int, max_len: int,
-                device, dtype=None) -> dict:
+                device, dtype=None, tp: int = 1) -> dict:
     """Dense caches for B sequences: every attention layer gets {"k","v":
     [B, W, K, h]} zeros, W = sink + recent for ring layers and max_len for
     full ones, every mamba layer its B-row entry (the reference's
-    `alloc_cache`)."""
+    `alloc_cache`); K / tp KV heads at `tp` > 1."""
     dtype = torch_dtype(dtype or cfg.compute_dtype)
-    K, h = cfg.n_kv_heads, cfg.head_dim
+    K, h = local_kv_heads(cfg, tp), cfg.head_dim
 
     def one(spec):
         if spec.kind == "mamba":
@@ -211,12 +253,13 @@ def alloc_cache(cfg: ModelConfig, plan: StackPlan, B: int, max_len: int,
 
 
 def alloc_prefill_private_cache(cfg: ModelConfig, plan: StackPlan,
-                                max_len: int, device, dtype=None) -> dict:
+                                max_len: int, device, dtype=None,
+                                tp: int = 1) -> dict:
     """B=1 task cache without full-attention layers (their KV lives in the
     shared arena): the position, dense [1, W, K, h] ring KV and the mamba
-    layers' B=1 entries."""
+    layers' B=1 entries (K / tp KV heads)."""
     dtype = torch_dtype(dtype or cfg.compute_dtype)
-    K, h = cfg.n_kv_heads, cfg.head_dim
+    K, h = local_kv_heads(cfg, tp), cfg.head_dim
 
     def one(spec):
         if full_attn_layer(cfg, spec):
@@ -231,14 +274,14 @@ def alloc_prefill_private_cache(cfg: ModelConfig, plan: StackPlan,
 
 def alloc_paged_private_cache(cfg: ModelConfig, plan: StackPlan,
                               n_slots: int, max_len: int, block_size: int,
-                              device, dtype=None) -> dict:
+                              device, dtype=None, tp: int = 1) -> dict:
     """Decode-engine private side of the paged cache: full-attention entries
     are None (shared arena); each ring layer gets [n_slots·bpw, K, bs, h]
     blocks, slot b statically owning blocks [b·bpw, (b+1)·bpw) (the
     reference's `layer_cache_shape_paged`); each mamba layer its per-slot
-    entry, row b slot b's."""
+    entry, row b slot b's. K / tp KV heads at `tp` > 1."""
     dtype = torch_dtype(dtype or cfg.compute_dtype)
-    K, h = cfg.n_kv_heads, cfg.head_dim
+    K, h = local_kv_heads(cfg, tp), cfg.head_dim
 
     def one(spec):
         if full_attn_layer(cfg, spec):
@@ -265,9 +308,15 @@ def merge_arena_cache(cfg: ModelConfig, plan: StackPlan, private: dict,
 def attn_sublayer(cfg: ModelConfig, spec: LayerSpec, p: dict, x, *,
                   mode: str, positions, cache: Optional[dict],
                   true_len: Optional[int] = None, block_tables=None,
-                  pos0: int = 0, max_len: int = 0, token_mask=None):
+                  pos0: int = 0, max_len: int = 0, token_mask=None,
+                  ctx: Optional[RankCtx] = None):
     """Attention of one layer. → (x, new cache entry or None, sparsity aux
     or None).
+
+    Tensor parallel over `ctx` (tp > 1): wq/wk/wv (and their biases) hold
+    this rank's heads, H / tp query heads over K / tp KV heads, so every
+    kernel runs on the rank-local heads unchanged; wo holds the matching
+    rows and its partial product is summed over `model`.
 
     mode "prefill", cache None: a whole B=1 prompt at positions arange(S)
       (the first `true_len` rows real) through the flash-prefill kernel; the
@@ -301,7 +350,8 @@ def attn_sublayer(cfg: ModelConfig, spec: LayerSpec, p: dict, x, *,
       config, the reference's mode "train" under use_pallas). Inference
       only: the kernel refuses inputs that require grad."""
     B, S, _ = x.shape
-    H, K, h = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    h = cfg.head_dim
+    H, K = p["wq"].shape[1] // h, p["wk"].shape[1] // h      # local heads
     cd = torch_dtype(cfg.compute_dtype)
     hid = rms_norm(x, p["ln_attn"], cfg.rms_eps).to(cd)
     q = hid @ p["wq"]
@@ -450,8 +500,10 @@ def attn_sublayer(cfg: ModelConfig, spec: LayerSpec, p: dict, x, *,
         out = kops.attention_decode_op(q[:, 0], kc, vc, t + 1)
     else:
         raise NotImplementedError(f"attention mode {mode!r} is not ported")
-    y = out.reshape(B, S, H * h)
-    return x + (y @ p["wo"]).to(x.dtype), new_cache, sp_aux
+    y = out.reshape(B, S, H * h) @ p["wo"]
+    if ctx is not None:
+        y = ctx.psum_model(y)
+    return x + y.to(x.dtype), new_cache, sp_aux
 
 
 def _select_blocks(cfg: ModelConfig, q, cache: dict, tbl, lens, token_mask):
@@ -581,18 +633,24 @@ def mamba_sublayer(cfg: ModelConfig, p: dict, x, *, mode: str,
 
 def ffn_sublayer(cfg: ModelConfig, spec: LayerSpec, p: dict, x, *,
                  tables: Optional[dict] = None, token_mask=None,
-                 train: bool = False):
+                 train: bool = False, ctx: Optional[RankCtx] = None):
     """Feed-forward with its pre-norm and residual: a dense SwiGLU, or on
     an MoE layer the routed experts (through the moe_gmm kernel, or plain
     products with `train`) plus the shared SwiGLU. → (x, expert counts
     [E] or None). token_mask [B] weights the counts of each row's S
-    tokens."""
+    tokens. Over `ctx`: w1/w3 hold this rank's columns and w2 its rows
+    where d_ff divides over `model` (then the product is summed over
+    `model`); the MoE layer splits its batch rows over `data` where B
+    divides over ep (the reference's batch_part)."""
     if not spec.use_moe and cfg.d_ff == 0:
         return x, None
     cd = torch_dtype(cfg.compute_dtype)
     hid = rms_norm(x, p["ln_mlp"], cfg.rms_eps).to(cd)
     if not spec.use_moe:
-        return x + swiglu(hid, p["w1"], p["w3"], p["w2"]).to(x.dtype), None
+        y = swiglu(hid, p["w1"], p["w3"], p["w2"])
+        if ctx is not None and p["w1"].shape[1] != cfg.d_ff:
+            y = ctx.psum_model(y)
+        return x + y.to(x.dtype), None
     B, S, D = x.shape
     shared = None
     if cfg.moe.n_shared_experts:
@@ -600,7 +658,9 @@ def ffn_sublayer(cfg: ModelConfig, spec: LayerSpec, p: dict, x, *,
     tm = None if token_mask is None else token_mask.repeat_interleave(S)
     y, counts = moe_mod.moe_ffn(cfg, hid.reshape(B * S, D), p["router"],
                                 p["moe_w1"], p["moe_w3"], p["moe_w2"],
-                                tables, shared, token_mask=tm, train=train)
+                                tables, shared, token_mask=tm, train=train,
+                                ctx=ctx, shard_tokens=ctx is not None
+                                and ctx.ep > 1 and B % ctx.ep == 0)
     return x + y.reshape(B, S, D).to(x.dtype), counts
 
 
@@ -624,7 +684,7 @@ def apply_layer(cfg: ModelConfig, spec: LayerSpec, p: dict, x, *, mode: str,
                 positions, cache: Optional[dict], block_tables=None,
                 true_len: Optional[int] = None, pos0: int = 0,
                 max_len: int = 0, token_mask=None,
-                tables: Optional[dict] = None):
+                tables: Optional[dict] = None, ctx: Optional[RankCtx] = None):
     """One layer: its mixer (attention or Mamba-2) and its FFN. → (x, new
     entry, sparsity aux, expert counts)."""
     sp = None
@@ -635,9 +695,10 @@ def apply_layer(cfg: ModelConfig, spec: LayerSpec, p: dict, x, *, mode: str,
         x, nc, sp = attn_sublayer(
             cfg, spec, p, x, mode=mode, positions=positions, cache=cache,
             true_len=true_len, block_tables=block_tables, pos0=pos0,
-            max_len=max_len, token_mask=token_mask)
+            max_len=max_len, token_mask=token_mask, ctx=ctx)
     x, cnt = ffn_sublayer(cfg, spec, p, x, tables=tables,
-                          token_mask=token_mask, train=mode == "train")
+                          token_mask=token_mask, train=mode == "train",
+                          ctx=ctx)
     return x, nc, sp, cnt
 
 
@@ -645,7 +706,7 @@ def stack_apply(cfg: ModelConfig, plan: StackPlan, layers: list, x, *,
                 mode: str, positions, caches: Optional[dict], block_tables,
                 true_len: Optional[int] = None, pos0: int = 0,
                 max_len: int = 0, token_mask=None,
-                tables: Optional[dict] = None):
+                tables: Optional[dict] = None, ctx: Optional[RankCtx] = None):
     """Run every layer in order. Caches given are updated in place (read
     only in mode "verify"). `tables` are the MoE placement tables (every
     MoE layer reads the same). → (x, entries, sparsity, counts): entries
@@ -666,16 +727,17 @@ def stack_apply(cfg: ModelConfig, plan: StackPlan, layers: list, x, *,
     remat = mode == "train" and cfg.remat
     if remat:
         from torch.utils.checkpoint import checkpoint
-        ctx = {"dots": dict(context_fn=_dots_context)}.get(cfg.remat_policy,
-                                                            {})
+        ckpt_kw = {"dots": dict(context_fn=_dots_context)}.get(
+            cfg.remat_policy, {})
     for i, (spec, p) in enumerate(zip(plan.all_specs(), layers)):
         kw = dict(mode=mode, positions=positions,
                   cache=None if caches is None else caches["layers"][i],
                   block_tables=block_tables, true_len=true_len, pos0=pos0,
-                  max_len=max_len, token_mask=token_mask, tables=tables)
+                  max_len=max_len, token_mask=token_mask, tables=tables,
+                  ctx=ctx)
         if remat:
             x, nc, sp, cnt = checkpoint(apply_layer, cfg, spec, p, x,
-                                        use_reentrant=False, **ctx, **kw)
+                                        use_reentrant=False, **ckpt_kw, **kw)
         else:
             x, nc, sp, cnt = apply_layer(cfg, spec, p, x, **kw)
         if entries is not None:

@@ -77,7 +77,7 @@ class KVArena:
         pool = KVPool(n_blocks=n_blocks, block_size=block_size)
         # +1: arena block 0 is the reserved null block (never allocated)
         kv = alloc_arena_kv(lm.cfg, lm.plan, n_blocks + 1, block_size,
-                            lm.device, quant=quant)
+                            lm.device, quant=quant, tp=lm.ctx.tp)
         return KVArena(lm, pool, kv, block_size, placement=placement)
 
     @property

@@ -62,8 +62,8 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models.lm import LM
 from repro_torch.models.stack import (alloc_cache, alloc_paged_private_cache,
                                       cache_window, full_attn_layer,
-                                      mamba_cache_shapes, merge_arena_cache,
-                                      ring_block_count)
+                                      local_kv_heads, mamba_cache_shapes,
+                                      merge_arena_cache, ring_block_count)
 from repro_torch.serving.arena import (BlockHandoff, KVArena, _bucket,
                                        blocks_to_dense_kv, dense_kv_to_blocks)
 from repro_torch.serving.kvpool import KVPool, tree_bytes
@@ -112,7 +112,8 @@ class DecodeEngine:
             # engine-private side: the per-slot ring block runs (the
             # full-attention arenas live in the shared KVArena)
             self.cache = alloc_paged_private_cache(
-                cfg, plan, self.n_slots, self.max_len, self.block_size, dev)
+                cfg, plan, self.n_slots, self.max_len, self.block_size, dev,
+                tp=self.lm.ctx.tp)
             self.tables_h = np.zeros((self.n_slots, self.max_blocks),
                                      np.int32)
             # one static device table per bucket nb, each with its pinned
@@ -132,7 +133,7 @@ class DecodeEngine:
             self.sparsity = None
             self.max_blocks = -(-self.max_len // self.block_size)
             self.cache = alloc_cache(cfg, plan, self.n_slots, self.max_len,
-                                     dev)
+                                     dev, tp=self.lm.ctx.tp)
             if self.kv_blocks is None:
                 per_slot = tree_bytes(self.cache) // max(self.n_slots, 1)
                 budget = max(HBM_BUDGET_BYTES // max(per_slot, 1),
@@ -161,9 +162,9 @@ class DecodeEngine:
         # transfer-cost metering: a B=1 dense interchange cache holds
         # max_len tokens of full-attention KV plus the bounded ring KV (and
         # the int32 position); the TRUE payload grows by `_full_tok_nbytes`
-        # per resident token
+        # per resident token (this rank's K / tp heads)
         it = torch_dtype(cfg.compute_dtype).itemsize
-        kvh = 2 * cfg.n_kv_heads * cfg.head_dim * it
+        kvh = 2 * local_kv_heads(cfg, self.lm.ctx.tp) * cfg.head_dim * it
         specs = plan.all_specs()
         n_full = sum(1 for sp in specs if full_attn_layer(cfg, sp))
         self._full_tok_nbytes = kvh * n_full

@@ -1,8 +1,15 @@
 """DevicePlacement — the device layer every serving engine is built through,
 and the choke point of its hot loops.
 
-On this slice it is single-device: it holds the torch device (cuda unless
-the caller asks for the CPU) and moves parameter trees onto it.
+It holds the torch device (cuda unless the caller asks for the CPU) and
+the `RankCtx` (`ctx`): one rank by default, or, through `build(tp, ep)`,
+this process's rank of an `ep × tp` world over `torch.distributed` —
+`data` the expert-parallel axis, `model` the tensor-parallel one, as in
+the reference's `DevicePlacement` (src/repro/serving/placement.py). Each
+rank holds its shard of the parameters (`place_params`, `transfer_params`,
+cut by `LM.param_specs`) and its K / tp KV heads of every arena block under
+the 'kv' strategy (`stack.local_kv_heads`); slot state, block tables and
+host bookkeeping are replicated.
 
 `hot_loop` is the port's counterpart of the reference's `donate_jit` and
 `HotLoopRegistry` (src/repro/serving/placement.py): every serving step that
@@ -23,8 +30,10 @@ so that tests and chip_smoke.py can compare the two modes (as
 `jax.disable_jit` does for the reference); nothing chooses it on its own.
 On the CPU the entries run eagerly and still count their calls per key;
 `capture=True` there raises. A failed capture or replay raises: it never
-falls back to eager. Multi-device (TP/EP) placement comes with a later
-slice.
+falls back to eager. Over NCCL the collectives inside a step are
+captured with it (warmed by the first, eager call); gloo's cannot be
+captured, so a gloo placement on the card takes capture=False
+explicitly.
 """
 from __future__ import annotations
 
@@ -35,10 +44,13 @@ from functools import cached_property
 from typing import Any, Callable, Optional, Union
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.ctx import RankCtx
 from repro_torch.kernels._common import (add_launch_counts, count_delta,
                                          launch_counts)
+from repro_torch.models.lm import SLOT_LEAVES
 
 
 def _to(tree, device):
@@ -49,6 +61,34 @@ def _to(tree, device):
     if isinstance(tree, torch.Tensor):
         return tree.to(device)
     return tree
+
+
+def _flat(tree: dict) -> dict:
+    """A parameter tree's leaves by name ("embed", "layers.3.wq", ...)."""
+    out = {k: v for k, v in tree.items() if k != "layers"}
+    for i, layer in enumerate(tree["layers"]):
+        out.update({f"layers.{i}.{k}": v for k, v in layer.items()})
+    return out
+
+
+def _shapes(lm, local: bool = False) -> dict:
+    """{leaf name: shape} of `lm`'s parameters: the whole model's, or with
+    `local` this rank's part (each dim cut by its spec's axis)."""
+    specs = _flat(lm.param_specs())
+    return {k: tuple(n // (lm.ctx.size(a) if local else 1)
+                     for n, a in zip(d[0], specs[k]))
+            for k, d in _flat(lm.param_defs()).items()}
+
+
+def shard_leaf(ctx: RankCtx, t: torch.Tensor, spec: tuple) -> torch.Tensor:
+    """This rank's part of a whole leaf: each dim with an axis in `spec`
+    narrowed to the rank's coordinate on it."""
+    for d, axis in enumerate(spec):
+        n = ctx.size(axis)
+        if n > 1:
+            w = t.shape[d] // n
+            t = t.narrow(d, ctx.coord(axis) * w, w)
+    return t.contiguous()
 
 
 def _signature(static_inputs: tuple) -> tuple:
@@ -166,14 +206,52 @@ class HotLoopRegistry:
 class DevicePlacement:
     device: torch.device
     capture: Optional[bool] = None     # None → on for cuda, off for the CPU
+    ctx: RankCtx = RankCtx()
 
     def __post_init__(self):
         on_cuda = self.device.type == "cuda"
+        gloo_cuda = on_cuda and self.ctx.backend == "gloo"
         if self.capture is None:
+            if gloo_cuda:
+                raise ValueError(
+                    "gloo collectives cannot be captured in a CUDA graph: "
+                    "pass capture=False for a gloo placement on the card")
             object.__setattr__(self, "capture", on_cuda)
         elif self.capture and not on_cuda:
             raise ValueError(f"CUDA-graph capture needs a CUDA device, not "
                              f"{self.device}")
+        elif self.capture and gloo_cuda:
+            raise ValueError("gloo collectives cannot be captured in a CUDA "
+                             "graph (capture=True over gloo)")
+
+    @staticmethod
+    def build(tp: int = 1, ep: int = 1, device=None,
+              backend: Optional[str] = None, *,
+              capture: Optional[bool] = None,
+              check_lockstep: bool = False) -> "DevicePlacement":
+        """This process's placement in an (ep, tp) world: rank e · tp + t
+        over the default process group, which must be initialised already
+        with world size tp · ep (and `backend`, when given). `device` None
+        → cuda:(rank mod the visible cards) over NCCL, which needs a card
+        per rank, else cuda. `check_lockstep` makes the server compare a
+        digest of its host decisions across ranks every round."""
+        if backend is not None and dist.is_initialized() and \
+                dist.get_backend() != backend:
+            raise ValueError(f"the process group runs "
+                             f"{dist.get_backend()}, not {backend}")
+        ctx = RankCtx.build(tp, ep, check_lockstep=check_lockstep)
+        if ctx.backend == "nccl":
+            n = torch.cuda.device_count()
+            if n < ctx.world:
+                raise RuntimeError(
+                    f"nccl needs a card per rank: {ctx.world} ranks, {n} "
+                    f"visible (use gloo to share a card)")
+            if device is None:
+                device = torch.device("cuda", ctx.rank % n)
+        dev = resolve_device(device)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        return DevicePlacement(dev, capture, ctx)
 
     @staticmethod
     def of(obj: Union[None, str, torch.device, "DevicePlacement"] = None,
@@ -187,9 +265,79 @@ class DevicePlacement:
             return obj
         return DevicePlacement(resolve_device(obj), capture)
 
-    def place_params(self, params):
-        """Every tensor of a parameter tree on this placement's device."""
-        return _to(params, self.device)
+    def place_params(self, params, lm=None):
+        """Every tensor of a parameter tree on this placement's device. Over
+        several ranks (`lm`, built on this placement, then required) the
+        tree is either one-rank parameters (`lm.one_rank()`'s shapes:
+        `LM.init`, a bridged tree, a checkpoint restore), carried into this
+        rank's part by `transfer_params`, or this rank's part already (what
+        `transfer_params` returns); any other tree raises."""
+        if self.ctx.world == 1:
+            return _to(params, self.device)
+        if lm is None:
+            raise ValueError("place_params over several ranks needs the LM "
+                             "(its param_specs)")
+        got = {k: tuple(v.shape) for k, v in _flat(params).items()}
+        one = lm.one_rank()
+        whole, local = _shapes(one), _shapes(lm, local=True)
+        if got == whole:
+            return self.transfer_params(one, params, lm)
+        if got == local:
+            return _to(params, self.device)
+        bad = sorted(set(got) ^ set(local))
+        if bad:
+            raise ValueError(f"parameter tree does not match {lm.cfg.arch_id}"
+                             f": leaves {bad[:4]} differ")
+        k = next((k for k in local if got[k] not in (local[k], whole[k])),
+                 None)
+        if k is None:
+            raise ValueError("parameter tree mixes one-rank and rank-local "
+                             "leaves")
+        raise ValueError(
+            f"parameter {k} has shape {got[k]}: neither the one-rank "
+            f"{whole[k]} nor this rank's {local[k]} (tp {self.ctx.tp}, ep "
+            f"{self.ctx.ep})")
+
+    def transfer_params(self, lm_src, params, lm_dst):
+        """Whole parameters laid out for `lm_src` (one rank, or the whole
+        [ep, s, ...] slot layout of its ctx.ep) → this rank's part for
+        `lm_dst`, built on this placement, on its device (the reference's
+        `DevicePlacement.transfer_params`, src/repro/serving/placement.py:
+        265-300). Only the MoE slot tensors depend on the layout: each of
+        this rank's destination slots takes its expert's canonical rows,
+        found through the source replica tables' first replica, then every
+        leaf is cut by `lm_dst.param_specs()`. Leaf by leaf: nothing larger
+        than one whole leaf is built."""
+        if lm_dst.device != self.device or lm_dst.ctx != self.ctx:
+            raise ValueError("lm_dst is not built on this placement")
+        ctx, dev = self.ctx, self.device
+        specs = lm_dst.param_specs()
+        cut = lambda t, spec: shard_leaf(ctx, t, spec).to(dev)
+        out = {k: cut(v, specs[k]) for k, v in params.items()
+               if k != "layers"}
+        slots = None
+        if lm_dst.cfg.moe.n_experts:
+            src_t = lm_src.default_tables()
+            rr = src_t["rep_rank"][:, 0].long().cpu()
+            rs = src_t["rep_slot"][:, 0].long().cpu()
+            se = lm_dst.default_tables()["slot_expert"][ctx.e].long().cpu()
+            slots = (rr, rs, se)
+        layers = []
+        for p, sp in zip(params["layers"], specs["layers"]):
+            q = {}
+            for k, v in p.items():
+                if k in SLOT_LEAVES:
+                    rr, rs, se = slots
+                    x = se.clamp(min=0)
+                    rows = v[rr[x].to(v.device), rs[x].to(v.device)]
+                    rows = rows * (se >= 0).to(v.device, v.dtype).view(
+                        -1, *([1] * (v.ndim - 2)))
+                    q[k] = cut(rows[None], (None,) + sp[k][1:])
+                else:
+                    q[k] = cut(v, sp[k])
+            layers.append(q)
+        out["layers"] = layers
+        return out
 
     # ---- the hot-loop choke point --------------------------------------
     @cached_property

@@ -230,7 +230,7 @@ class PrefillEngine:
         self._up = self._upload_buf.buf
         self._ctl = self._up[self.max_len:]
         self._cache = alloc_cache(self.lm.cfg, self.lm.plan, 1, self.max_len,
-                                  self.device)
+                                  self.device, tp=self.lm.ctx.tp)
         self._leaves = tuple(t for e in self._cache["layers"]
                              for t in e.values())
         self._full_step = self.placement.hot_loop(self._full_impl,
@@ -243,8 +243,9 @@ class PrefillEngine:
         cfg, plan = self.lm.cfg, self.lm.plan
         if self.paged:
             return alloc_prefill_private_cache(cfg, plan, self.max_len,
-                                               self.device)
-        return alloc_cache(cfg, plan, 1, self.max_len, self.device)
+                                               self.device, tp=self.lm.ctx.tp)
+        return alloc_cache(cfg, plan, 1, self.max_len, self.device,
+                           tp=self.lm.ctx.tp)
 
     # ---- paged-KV helpers --------------------------------------------
     @staticmethod

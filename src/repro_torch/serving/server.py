@@ -45,10 +45,26 @@ place, and a freed slot's table row goes to the null block.
 
 Speculation and online top-k compose with MoE layers (a verify step's
 window rows are routed and counted like decode rows).
+
+Over several ranks (a placement from `DevicePlacement.build(tp, ep)`)
+every rank runs the same Server in lockstep (SPMD): the parameters and
+arenas are the rank's shards, the collectives live in the layers, and
+every host decision — admission, proxy order, chunking, preemption,
+placement ticks, stopping — must come from the same inputs on every rank,
+or the next collective hangs. So no rank reads its own clock for a
+decision: each round starts with one broadcast of rank 0's clock (and, in
+`run` / `generate`, its go-on flag), and the engines' measured batch times
+reach the proxy as rank 0's. With `ctx.check_lockstep` every round ends
+with an all-gather of a digest of the scheduled request ids, the step
+count and the emitted tokens, and a difference raises. A migration moves
+an expert's canonical rows from the rank that holds them
+(`_apply_migration`). QuantPlane, SpecPlane and FaultPlane are refused
+over several ranks (ROADMAP A16b).
 """
 from __future__ import annotations
 
 import time
+import zlib
 from dataclasses import dataclass, field
 from typing import Iterator, Optional
 
@@ -139,14 +155,32 @@ def check_servable(cfg: ModelConfig) -> None:
             f"run it through LM.prefill / LM.decode instead")
 
 
+def check_distributed_server(scfg: ServerConfig, faults, world: int
+                             ) -> None:
+    """Raise NotImplementedError, naming ROADMAP A16b, for the planes this
+    slice does not run over several ranks: QuantPlane, SpecPlane and
+    FaultPlane."""
+    if world == 1:
+        return
+    for name, on in (("QuantPlane (ServerConfig.quant)",
+                      scfg.quant is not None),
+                     ("SpecPlane (ServerConfig.spec)", scfg.spec is not None),
+                     ("FaultPlane (Server(faults=...))", faults is not None)):
+        if on:
+            raise NotImplementedError(
+                f"{name} over {world} ranks (ROADMAP A16b)")
+
+
 class Server:
     def __init__(self, cfg: ModelConfig, scfg: ServerConfig, *,
                  pattern: Optional[list] = None, params=None, seed: int = 0,
                  device=None, faults=None,
                  placement: Optional[DevicePlacement] = None):
         """`params`: the port's parameter dict (e.g. from
-        `bridge.params_from_numpy`), or None for `LM.init(seed)`. `device`
-        None → cuda. `faults`: a FaultPlane, or None."""
+        `bridge.params_from_numpy`) — one-rank parameters, or over several
+        ranks this rank's part (`DevicePlacement.place_params`) — or None
+        for the seed's one-rank `LM.init(seed)`. `device` None → cuda.
+        `faults`: a FaultPlane, or None."""
         if faults is not None and not isinstance(faults, FaultPlane):
             raise TypeError(f"Server(faults=...) takes a FaultPlane, got "
                             f"{type(faults).__name__}")
@@ -157,10 +191,13 @@ class Server:
         self.faults = faults
         self.placement = placement if placement is not None else \
             DevicePlacement.of(device)
+        self.ctx = self.placement.ctx
+        check_distributed_server(scfg, faults, self.ctx.world)
         self.lm = LM.build(cfg, pattern=pattern,
-                           device=self.placement.device)
-        self.params = self.placement.place_params(params) \
-            if params is not None else self.lm.init(seed)
+                           device=self.placement.device, ctx=self.ctx)
+        if params is None:
+            params = self.lm.one_rank().init(seed)
+        self.params = self.placement.place_params(params, self.lm)
         self.tables = self.lm.default_tables()
         if self.tables is not None:
             # fixed shapes: _apply_migration rewrites them in place
@@ -226,6 +263,7 @@ class Server:
         # watchdog state: rid → (progress marker, step seen, wall seen)
         self._wd: dict = {}
         self.n_handoffs_swept = 0
+        self._round_now = 0.0             # the round's clock (rank 0's)
         self.placement_sched = None
         if scfg.enable_placement and cfg.moe.n_experts:
             s = int(self.tables["slot_expert"].shape[1])
@@ -235,18 +273,21 @@ class Server:
             if pcfg is None:
                 pcfg = SchedulerConfig(budget=0, max_slots=s)
             self.placement_sched = DynamicScheduler(
-                ep=1, n_experts=cfg.moe.n_experts, n_layers=1, cfg=pcfg,
-                placements=[moe_mod.round_robin_placement(
-                    cfg.moe.n_experts, 1, s)])
+                ep=self.ctx.ep, n_experts=cfg.moe.n_experts, n_layers=1,
+                cfg=pcfg, placements=[moe_mod.round_robin_placement(
+                    cfg.moe.n_experts, self.ctx.ep, s)])
         self.n_migrations = 0
         self.migration_log: list = []
+        # bytes of expert rows moved between ranks, and seconds, summed over
+        # the migrations applied
+        self.migration_stats = {"bytes": 0, "seconds": 0.0}
 
     # ---- request-level API -------------------------------------------
     def add_request(self, prompt: tuple,
                     params: Optional[SamplingParams] = None,
                     now: Optional[float] = None) -> int:
         """Register a request under its own SamplingParams; → rid."""
-        now = time.monotonic() if now is None else now
+        now = self._clock() if now is None else now
         params = params if params is not None else SamplingParams()
         rid = self._next_rid
         while rid in self.proxy.inflight:
@@ -286,13 +327,46 @@ class Server:
                 raise BackpressureError(
                     f"admission backlog {backlog} >= cap {cap}")
 
+    # ---- lockstep over ranks -------------------------------------------
+    def _clock(self) -> float:
+        """The time a host decision reads: the local clock on one rank,
+        the round's broadcast clock (rank 0's) over several."""
+        if self.ctx.world == 1:
+            return time.monotonic()
+        return self._round_now
+
+    def _rank0(self, values: list) -> list:
+        """Rank 0's float values on every rank (the values themselves on
+        one rank): for locally measured inputs of host decisions."""
+        return self.ctx.broadcast_floats(values)
+
+    def _check_lockstep(self):
+        """Raise if the ranks' host state diverged this round: a CRC of the
+        step count, the scheduled request ids of every engine and queue,
+        and the tokens emitted, all-gathered over the world."""
+        state = (self._step_count, sorted(self.proxy.inflight),
+                 sorted(self._pending_kv),
+                 [sorted(e.rid_slot.items()) for e in self.decodes],
+                 [[t.rid for t in e.queue] for e in self.prefills],
+                 sorted((r, tuple(t)) for r, t in self._fresh.items()))
+        digest = zlib.crc32(repr(state).encode())
+        got = self.ctx.all_gather_ints([self._step_count, digest])
+        if any(g != got[0] for g in got):
+            raise RuntimeError(f"ranks diverged at step {self._step_count}: "
+                               f"(step, digest) per rank {got}")
+
     def step(self, now: Optional[float] = None) -> list:
         """Advance the whole server one round → per-request deltas. Faults
         and their recovery run first, before any engine round and outside
         every graph, so no token is computed from corrupt or lost KV; then
         the orphan-handoff sweep, the proxy tick, the retirement of failed
-        requests, the prefill round, the decode round and the watchdog."""
+        requests, the prefill round, the decode round and the watchdog.
+        Over several ranks `now` is rank 0's (one broadcast)."""
         now = time.monotonic() if now is None else now
+        return self._round(self._rank0([now])[0])
+
+    def _round(self, now: float) -> list:
+        self._round_now = now
         if self.faults is not None:
             self.faults.on_step(self, self._step_count, now)
         if self.kv_arena is not None:
@@ -302,12 +376,14 @@ class Server:
         self._prefill_round()
         self._decode_round()
         self._watchdog(now)
+        if self.ctx.check_lockstep:
+            self._check_lockstep()
         return self._flush_outputs()
 
     def abort(self, rid: int, now: Optional[float] = None) -> bool:
         """Cancel a request wherever it lives. → True if it was in flight;
         the next step() carries RequestOutput(finish_reason="abort")."""
-        now = time.monotonic() if now is None else now
+        now = self._clock() if now is None else now
         req = self.proxy.abort(rid, now)
         if req is None:
             return False
@@ -340,11 +416,16 @@ class Server:
             if len(pparams) != len(plist):
                 raise ValueError(f"{len(plist)} prompts but "
                                  f"{len(pparams)} SamplingParams")
-        t0 = time.monotonic()
+        t0 = self._rank0([time.monotonic()])[0]
         live = {self.add_request(p, sp, now=t0)
                 for p, sp in zip(plist, pparams)}
-        while live and time.monotonic() - t0 < max_wall_s:
-            for out in self.step():
+        while live:
+            # one broadcast a round: rank 0's clock and go-on flag
+            now = time.monotonic()
+            now, go = self._rank0([now, float(now - t0 < max_wall_s)])
+            if not go:
+                break
+            for out in self._round(now):
                 if out.finished:
                     live.discard(out.rid)
                 yield out
@@ -455,7 +536,7 @@ class Server:
         streamed again."""
         if self.kv_arena is None:
             return []
-        now = time.monotonic() if now is None else now
+        now = self._clock() if now is None else now
         bad = self.kv_arena.find_corrupt_blocks()
         if not bad:
             return []
@@ -507,7 +588,7 @@ class Server:
         """Kill one engine instance: the proxy reroutes its in-flight
         requests (retry-capped) and the next step's engine rounds release
         its slots, queued tasks and undelivered results."""
-        now = time.monotonic() if now is None else now
+        now = self._clock() if now is None else now
         self.proxy.mark_unhealthy(kind, iid, now)
 
     def revive_instance(self, kind: str, iid: int):
@@ -516,7 +597,7 @@ class Server:
     def inject_kv_lost(self, rid: int, now: Optional[float] = None):
         """Lose one resident decode request's KV: its slot and blocks are
         released and the request reroutes through prefill, retry-capped."""
-        now = time.monotonic() if now is None else now
+        now = self._clock() if now is None else now
         req = self.proxy.inflight.get(rid)
         for eng in self.decodes:
             eng.release(rid)
@@ -569,7 +650,7 @@ class Server:
         admissions: dict = {}
         for req, inst, stage in self.proxy.tick(now):
             if stage == "prefill":
-                self.proxy.on_prefill_start(req, time.monotonic())
+                self.proxy.on_prefill_start(req, self._clock())
                 self.prefills[inst.iid].start(req.rid, req.tokens,
                                               prefix_hint=req.prefix_match,
                                               params=req.sampling)
@@ -577,7 +658,7 @@ class Server:
                 admissions.setdefault(inst.iid, []).append(req)
         for iid, reqs in admissions.items():
             eng = self.decodes[iid]
-            tnow = time.monotonic()
+            tnow = self._clock()
             items, live = [], []
             for r in reqs:
                 kv = self._pending_kv.pop(r.rid, None)
@@ -611,14 +692,19 @@ class Server:
                 continue
             if not eng.has_work():
                 continue
-            for rec in eng.step(budget):
+            recs = eng.step(budget)
+            # the measured times reach the proxy as rank 0's
+            times = self._rank0([x for r in recs
+                                 for x in (r.elapsed_s, r.t_done)])
+            for i, rec in enumerate(recs):
                 req = self.proxy.inflight.get(rec.rid)
-                tnow = time.monotonic()
+                tnow = self._clock()
                 if req is None or req.prefill_instance != iid:
                     self._release_handoff(rec.cache)    # stale result
                     continue
-                self.proxy.on_prefill_done(req, tnow, batch_time=rec.elapsed_s)
-                self.proxy.on_first_token(req, rec.t_done or tnow)
+                elapsed, t_done = times[2 * i], times[2 * i + 1]
+                self.proxy.on_prefill_done(req, tnow, batch_time=elapsed)
+                self.proxy.on_first_token(req, t_done or tnow)
                 reason = self._note_token(req, rec.first_token)
                 if reason:
                     # finished at its FIRST token: never admitted to decode
@@ -638,7 +724,8 @@ class Server:
                 eng.preempted.clear()
                 continue
             toks = eng.step()
-            now = time.monotonic()
+            now = self._clock()
+            batch_time = None
             finished = set()
             for rid, tok in toks.items():
                 req = self.proxy.inflight.get(rid)
@@ -657,9 +744,12 @@ class Server:
                 if reason:
                     finished.add(rid)
                     eng.release(rid)
+                    if batch_time is None:
+                        batch_time = self._rank0([
+                            eng.stats["busy_s"]
+                            / max(eng.stats["steps"], 1)])[0]
                     self.proxy.on_decode_done(req, now,
-                                              batch_time=eng.stats["busy_s"] /
-                                              max(eng.stats["steps"], 1))
+                                              batch_time=batch_time)
                     self._record_finish(req, reason)
             for rid, cache_one, tok, pos in eng.preempted:
                 req = self.proxy.inflight.get(rid)
@@ -699,23 +789,37 @@ class Server:
         rewrite the tables. Layer by layer and tensor by tensor, in place:
         each expert's canonical rows are gathered through the OLD tables'
         first replica, then scattered into the new slot layout (two
-        slot-sized temporaries at a time, never a copy of the stack). The
-        tables every engine holds are rewritten in place too (padded, every
-        placement's tables have the same shapes), so the decode step's
-        captured graphs read the new layout."""
+        slot-sized temporaries at a time, never a copy of the stack). Over
+        EP ranks a slot whose expert lived on another rank receives its
+        rows from that rank (`_migrate_slots`; `migration_stats` sums the
+        bytes moved between ranks and the seconds). The tables every engine
+        holds are rewritten in place too (padded, every placement's tables
+        have the same shapes), so the decode step's captured graphs read
+        the new layout."""
+        t0 = time.monotonic()
         old = self.tables
         rr = old["rep_rank"][:, 0].long()
         rs = old["rep_slot"][:, 0].long()
         new_se = np.asarray(plan.new_slot_expert)
+        moved = 0
         for p in self.params["layers"]:
             for k in ("moe_w1", "moe_w3", "moe_w2"):
-                if k in p:
+                if k not in p:
+                    continue
+                if self.ctx.ep == 1:
                     p[k].copy_(moe_mod.slots_from_canonical(p[k][rr, rs],
                                                             new_se))
+                else:
+                    moved += self._migrate_slots(p[k], rr.cpu().numpy(),
+                                                 rs.cpu().numpy(), new_se)
         new = moe_mod.pad_replicas(tables_from_placement_from_slots(
             new_se, self.placement.device))
         for k, t in self.tables.items():
             t.copy_(new[k])
+        if self.placement.device.type == "cuda":
+            torch.cuda.synchronize(self.placement.device)
+        self.migration_stats["bytes"] += moved
+        self.migration_stats["seconds"] += time.monotonic() - t0
         self.n_migrations += 1
         hist = self.placement_sched.history[-1] \
             if self.placement_sched is not None and \
@@ -724,6 +828,48 @@ class Server:
             "step": self._step_count,
             "b_before": float(hist.get("b", 0.0)),
             "b_after": float(hist.get("b_sim", 0.0))})
+
+    def _migrate_slots(self, w, rr: np.ndarray, rs: np.ndarray,
+                       new_se: np.ndarray) -> int:
+        """One slot tensor w [1, s, ...] (this rank's slots) re-slotted for
+        new_se [ep, s] in place. Expert x's canonical rows sit in old slot
+        rs[x] of rank rr[x]: a slot keeping its expert on the same rank
+        copies locally, the rest travel in one uneven all_to_all over
+        `data` that carries exactly the moved rows. → bytes moved between
+        ranks over the whole world (every `model` rank moves its part),
+        the same on every rank."""
+        ctx = self.ctx
+        ep, s = new_se.shape
+        new = torch.zeros_like(w[0])
+        send_rows, send = [], [0] * ep
+        recv_slots: list = [[] for _ in range(ep)]
+        n_cross = 0
+        for d in range(ep):
+            for j in range(s):
+                x = int(new_se[d, j])
+                if x < 0:
+                    continue
+                src = int(rr[x])
+                if src == d:
+                    if d == ctx.e:
+                        new[j] = w[0, int(rs[x])]
+                    continue
+                n_cross += 1
+                if src == ctx.e:
+                    send_rows.append(int(rs[x]))
+                    send[d] += 1
+                if d == ctx.e:
+                    recv_slots[src].append(j)
+        if n_cross:
+            idx = torch.tensor(send_rows, dtype=torch.long, device=w.device)
+            got = ctx.all_to_all_rows(w[0][idx], send,
+                                      [len(r) for r in recv_slots])
+            dst = [j for r in recv_slots for j in r]
+            if dst:
+                new[torch.tensor(dst, dtype=torch.long,
+                                 device=w.device)] = got
+        w[0].copy_(new)
+        return n_cross * w[0, 0].numel() * w.element_size() * ctx.tp
 
     def drain_decode_stats(self):
         """Fold the decode engines' device-side online-sparsity and
@@ -744,13 +890,15 @@ class Server:
         [(prompt_tokens, max_tokens:int)] or [(prompt_tokens,
         SamplingParams)]; arrivals: per-request offsets from t=0 (None → all
         at t=0). → the metrics summary plus engine stats."""
-        t_start = time.monotonic()
+        t_start = self._rank0([time.monotonic()])[0]
         todo = sorted(
             ((0.0 if arrivals is None else arrivals[i], i, p, spec)
              for i, (p, spec) in enumerate(requests)))
         k = 0
         while k < len(todo) or self.proxy.inflight:
-            now = time.monotonic()
+            # one broadcast a round: rank 0's clock decides arrivals, naps
+            # and the wall limit on every rank
+            now = self._rank0([time.monotonic()])[0]
             if now - t_start >= max_wall_s:
                 break
             while k < len(todo) and now - t_start >= todo[k][0]:
@@ -763,14 +911,14 @@ class Server:
                     pass        # shed (counted in metrics.n_shed)
                 k += 1
             if not self.proxy.inflight and k < len(todo):
-                wait = (t_start + todo[k][0]) - time.monotonic()
+                wait = (t_start + todo[k][0]) - now
                 if wait > 0:
                     nap = min(wait, self.scfg.idle_sleep_s)
                     time.sleep(nap)
                     self._idle_slept_s += nap
                     continue
-            self.step(now)
-        wall = time.monotonic() - t_start
+            self._round(now)
+        wall = self._rank0([time.monotonic()])[0] - t_start
         self.drain_decode_stats()
         summary = self.metrics.summary(wall)
         summary["wall_s"] = wall

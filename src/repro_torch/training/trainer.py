@@ -93,5 +93,12 @@ def make_train_step(lm: LM, *, lr: float = 3e-4, weight_decay: float = 0.1,
 
 
 def init_state(lm: LM, seed: int = 0) -> TrainState:
+    """Fresh parameters and AdamW moments. One rank only: the optimizer
+    state's specs over several ranks (the reference's `opt_specs`) are
+    ROADMAP A16b."""
+    if lm.ctx.world > 1:
+        raise NotImplementedError(
+            f"optimizer state over {lm.ctx.world} ranks (opt_specs, ROADMAP "
+            f"A16b)")
     params = lm.init(seed)
     return TrainState(params, adamw_init(params, lm.cfg.optimizer_dtype), 0)

@@ -67,8 +67,8 @@ def test_every_slice_module_is_checked():
     """The import check above walks the package; the modules of each slice
     (paged serving, the OmniAttn ring path, online top-k and SpecPlane,
     MoE with OmniPlacement, QuantPlane, training, checkpoints, the
-    launchers and the frontend families' configs) are among the ones it
-    loads."""
+    launchers, the frontend families' configs and the rank context of
+    multi-rank placement) are among the ones it loads."""
     mods = set(_modules())
     for m in ("repro_torch.kernels.paged_decode",
               "repro_torch.kernels.sink_decode",
@@ -87,5 +87,6 @@ def test_every_slice_module_is_checked():
               "repro_torch.training.trainer", "repro_torch.checkpoint.store",
               "repro_torch.launch.train", "repro_torch.launch.serve",
               "repro_torch.configs.hubert_xlarge",
-              "repro_torch.configs.phi3_vision"):
+              "repro_torch.configs.phi3_vision",
+              "repro_torch.distributed", "repro_torch.distributed.ctx"):
         assert m in mods, m

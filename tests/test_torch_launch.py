@@ -73,5 +73,30 @@ def test_serve_summary_keys_match_reference(capsys):
 
 
 def test_serve_refuses_multi_gpu():
-    with pytest.raises(NotImplementedError, match="A16"):
-        serve.main(["--reduced", "--device", "cpu", "--tp", "2"])
+    """--backend nccl needs a card per rank: with fewer visible (none on
+    this CPU) the launcher raises before it starts a process."""
+    n = torch.cuda.device_count()
+    with pytest.raises(RuntimeError, match="nccl needs a card per rank"):
+        serve.main(["--reduced", "--full-attention", "--device", "cpu",
+                    "--tp", "2", "--ep", str(n + 1), "--backend", "nccl"])
+
+
+def test_serve_refuses_ring_layers_over_ranks():
+    """Every config's default OmniAttn pattern has ring layers, which over
+    several ranks are ROADMAP A16b: without --full-attention the launcher
+    raises before it starts a process."""
+    with pytest.raises(NotImplementedError, match="A16b"):
+        serve.main(["--arch", "qwen2-moe-a2.7b", "--reduced", "--tp", "2",
+                    "--ep", "2", "--backend", "gloo", "--device", "cpu"])
+
+
+def test_serve_over_four_gloo_ranks(capsys):
+    """--tp 2 --ep 2 over gloo on the CPU: the launcher starts four ranks,
+    each serves reduced qwen2-moe-a2.7b (every layer full) in lockstep,
+    and rank 0's summary comes back with every request done."""
+    s = serve.main(["--arch", "qwen2-moe-a2.7b", "--reduced",
+                    "--full-attention", "--tp", "2", "--ep", "2",
+                    "--backend", "gloo", "--device", "cpu",
+                    "--requests", "4", "--max-tokens", "3"])
+    assert s["n_done"] == 4
+    assert '"n_done": 4' in capsys.readouterr().out

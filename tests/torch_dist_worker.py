@@ -1,0 +1,262 @@
+"""The rank side of tests/test_torch_distributed.py: one process of a
+(tp 2, ep 2) gloo world on the CPU. It imports neither jax nor the JAX
+package (a spawned rank starts a fresh interpreter), runs every case of the
+test module in one world and writes this rank's results to
+`<out>/rank<r>.pt`; the test process compares them with the JAX
+references and the one-rank port."""
+from __future__ import annotations
+
+import traceback
+from dataclasses import replace
+from datetime import timedelta
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+TP, EP = 2, 2
+WORLD = TP * EP
+TIMEOUT = timedelta(seconds=60)
+MOE_T = 48                       # moe_ffn rows (24 per rank when split)
+
+
+def moe_cfg(**kw):
+    from repro_torch.configs import reduced_config
+    return reduced_config("qwen2-moe-a2.7b").with_updates(
+        compute_dtype="float32", param_dtype="float32", **kw)
+
+
+def dense_cfg():
+    from repro_torch.configs import reduced_config
+    return reduced_config("qwen2-1.5b").with_updates(
+        compute_dtype="float32", param_dtype="float32")
+
+
+def ffn_inputs(cfg, seed=5, T=MOE_T):
+    """Seeded numpy inputs of one moe_ffn call: x, router, canonical expert
+    weights [E, ...], the shared experts and a token mask."""
+    rng = np.random.default_rng(seed)
+    E, Fe, D = cfg.moe.n_experts, cfg.moe.d_ff_expert, cfg.d_model
+    x = rng.standard_normal((T, D)).astype(np.float32)
+    rw = (rng.standard_normal((D, E)) * 0.1).astype(np.float32)
+    cw = [(rng.standard_normal(shp) * 0.05).astype(np.float32)
+          for shp in ((E, D, Fe), (E, D, Fe), (E, Fe, D))]
+    Fsh = cfg.moe.n_shared_experts * Fe
+    sh = [(rng.standard_normal(shp) * 0.05).astype(np.float32)
+          for shp in ((D, Fsh), (D, Fsh), (Fsh, D))]
+    mask = rng.random(T) < 0.7
+    return x, rw, cw, sh, mask
+
+
+def parity_requests(vocab, n=4, seed=11, max_tokens=8):
+    """tests/test_mesh_parity.py's request mix: a shared 12-token prefix on
+    every other request."""
+    rng = np.random.default_rng(seed)
+    base = tuple(rng.integers(0, vocab, 12).tolist())
+    reqs = []
+    for i in range(n):
+        if i % 2 == 0:
+            p = base + tuple(rng.integers(0, vocab, 5 + i).tolist())
+        else:
+            length = int(rng.integers(8, 24))
+            p = tuple(rng.integers(0, vocab, length).tolist())
+        reqs.append((p, max_tokens))
+    return reqs
+
+
+def preempt_requests(vocab):
+    rng = np.random.default_rng(23)
+    return [(tuple(rng.integers(0, vocab, 14).tolist()), 8) for _ in range(2)]
+
+
+# the server cases of tests/test_mesh_parity.py: (ServerConfig kwargs,
+# requests); "placement" switches the aggressive DynamicScheduler on
+SERVER_CASES = {
+    "bs8": (dict(max_len=96, kv_block_size=8, chunk_tokens=16), "parity"),
+    "bs16": (dict(max_len=96, kv_block_size=16, chunk_tokens=16), "parity"),
+    "preempt": (dict(max_len=96, kv_block_size=8, kv_blocks=5), "preempt"),
+    "migrate": (dict(max_len=128, kv_block_size=8, placement_interval=2,
+                     placement=True), "migrate"),
+}
+
+
+def case_requests(kind, vocab):
+    if kind == "parity":
+        return parity_requests(vocab)
+    if kind == "preempt":
+        return preempt_requests(vocab)
+    return parity_requests(vocab, n=4, seed=5, max_tokens=24)
+
+
+def server_config(case, port: bool, placement_on: bool = True):
+    """The ServerConfig of a case, the port's (port=True) or the JAX
+    reference's."""
+    kw, _ = SERVER_CASES[case]
+    kw = dict(kw)
+    enable = kw.pop("placement", False) and placement_on
+    if port:
+        from repro_torch.core.placement import SchedulerConfig
+        from repro_torch.core.proxy import OASConfig
+        from repro_torch.serving import ServerConfig
+    else:
+        from repro.core.placement import SchedulerConfig
+        from repro.core.proxy import OASConfig
+        from repro.serving import ServerConfig
+    pcfg = SchedulerConfig(b_trigger=1.01, delta=0.0, window=2,
+                           ema_alpha=1.0, budget=0) if enable else None
+    return ServerConfig(n_prefill=1, n_decode=1, decode_slots=4,
+                        enable_placement=enable, placement_cfg=pcfg,
+                        oas=OASConfig(defer_window=0.0), **kw)
+
+
+# ---- the rank side ----------------------------------------------------
+def _slots(ctx, cfg, cw):
+    """This rank's slot weights [1, s, ...] (expert width cut over
+    `model`) from canonical [E, ...] weights, by the round-robin tables
+    over ctx.ep."""
+    from repro_torch.models import moe as tmoe
+    s = tmoe.default_slot_count(cfg, ctx.ep)
+    se = tmoe.tables_from_placement(
+        tmoe.round_robin_placement(cfg.moe.n_experts, ctx.ep, s),
+        s)["slot_expert"]
+    out = []
+    for i, c in enumerate(cw):
+        w = tmoe.slots_from_canonical(torch.from_numpy(c), se[ctx.e][None])
+        dim = 3 if i < 2 else 2
+        n = w.shape[dim] // ctx.tp
+        out.append(w.narrow(dim, ctx.t * n, n).contiguous())
+    return out
+
+
+def _shared(ctx, sh):
+    n = sh[0].shape[1] // ctx.tp
+    a, b, c = (torch.from_numpy(x) for x in sh)
+    return (a[:, ctx.t * n:(ctx.t + 1) * n].contiguous(),
+            b[:, ctx.t * n:(ctx.t + 1) * n].contiguous(),
+            c[ctx.t * n:(ctx.t + 1) * n].contiguous())
+
+
+def run_moe(ctx, ctx12):
+    """moe_ffn over (tp 1, ep 2) and (tp 2, ep 2), int8 transport off and
+    on, the batch split over `data` or not."""
+    from repro_torch.models import moe as tmoe
+    out = {}
+    for cf in (8.0, 0.5):
+        cfg = moe_cfg()
+        cfg = replace(cfg, moe=replace(cfg.moe, capacity_factor=cf))
+        x, rw, cw, sh, mask = ffn_inputs(cfg)
+        tables = None
+        for name, c in (("tp1ep2", ctx12), ("tp2ep2", ctx)):
+            s = tmoe.default_slot_count(cfg, c.ep)
+            tables = tmoe.tables_from_placement(
+                tmoe.round_robin_placement(cfg.moe.n_experts, c.ep, s), s)
+            w = _slots(c, cfg, cw)
+            for int8 in (False, True):
+                ccfg = replace(cfg, moe_dispatch_int8=int8)
+                for split in (False, True):
+                    y, cnt = tmoe.moe_ffn(
+                        ccfg, torch.from_numpy(x), torch.from_numpy(rw), *w,
+                        tables, _shared(c, sh),
+                        token_mask=torch.from_numpy(mask), ctx=c,
+                        shard_tokens=split)
+                    out[(cf, name, int8, split)] = (y, cnt)
+    return out
+
+
+def run_tp_parts(ctx, inputs):
+    """The TP attention and FFN sublayers, the embedding and the head of a
+    reduced qwen2-1.5b, and whole-prompt logits of it and of qwen2-moe."""
+    from repro_torch.models import stack as tstack
+    from repro_torch.models.lm import LM
+    from repro_torch.serving import DevicePlacement
+    out = {}
+    pl = DevicePlacement(torch.device("cpu"), ctx=ctx)
+    cfg = dense_cfg()
+    lm = LM.build(cfg, pattern=[0] * cfg.n_layers, device="cpu", ctx=ctx)
+    p = pl.place_params(inputs["dense_params"], lm)
+    x = inputs["dense_x"]
+    spec = lm.plan.all_specs()[0]
+    lay = p["layers"][0]
+    pos = torch.arange(x.shape[1])
+    out["attn"] = tstack.attn_sublayer(cfg, spec, lay, x, mode="prefill",
+                                       positions=pos, cache=None, max_len=32,
+                                       ctx=ctx)[0]
+    out["ffn"] = tstack.ffn_sublayer(cfg, spec, lay, x, ctx=ctx)[0]
+    toks = inputs["dense_tokens"]
+    out["embed"] = lm._embed(p, toks)
+    out["head"] = lm._logits(p, x)
+    out["dense_prefill"] = lm.prefill(p, toks, max_len=32)[1]
+    mcfg = moe_cfg()
+    mlm = LM.build(mcfg, pattern=[0, 0], device="cpu", ctx=ctx)
+    mp = pl.transfer_params(mlm.one_rank(), inputs["moe_params"], mlm)
+    _, logits, aux = mlm.prefill(mp, toks, max_len=32,
+                                 tables=mlm.default_tables())
+    out["moe_prefill"] = (logits, aux["moe_counts"])
+    out["moe_shard"] = mp
+    return out
+
+
+# the server cases whose Server takes the one-rank parameters themselves
+# (it carries them into the rank's part); the others take this rank's part
+ONE_RANK_PARAMS = ("bs16", "preempt")
+
+
+def run_servers(ctx, inputs):
+    from repro_torch.models.lm import LM
+    from repro_torch.serving import DevicePlacement, Server
+    cfg = moe_cfg()
+    out = {}
+    for case, (_, kind) in SERVER_CASES.items():
+        pl = DevicePlacement(torch.device("cpu"), ctx=ctx)
+        lm = LM.build(cfg, pattern=[0, 0], device="cpu", ctx=ctx)
+        shard = pl.transfer_params(lm.one_rank(), inputs["moe_params"], lm)
+        params = inputs["moe_params"] if case in ONE_RANK_PARAMS else shard
+        srv = Server(cfg, server_config(case, port=True), pattern=[0, 0],
+                     params=params, placement=pl)
+        # the parameters the server holds are this rank's part either way
+        same = all(torch.equal(a, b) for a, b in zip(
+            _leaves(srv.params), _leaves(shard)))
+        s = srv.run(case_requests(kind, cfg.vocab_size), max_wall_s=120)
+        for eng in srv.decodes:
+            eng.pool.check_invariants(arena=srv.kv_arena)
+            assert eng.stats["host_fetches"] == eng.stats["steps"]
+        srv.kv_arena.pool.check_invariants(arena=srv.kv_arena)
+        out[case] = {
+            "n_done": s["n_done"],
+            "streams": {r.rid: tuple(r.output_tokens)
+                        for r in srv.metrics.done},
+            "preemptions": s["decode_stats"][0]["preemptions"],
+            "n_migrations": s["n_migrations"],
+            "migration_log": s["migration_log"],
+            "migration_stats": dict(srv.migration_stats),
+            "slot_expert": srv.tables["slot_expert"].clone(),
+            "params_are_shard": same}
+    return out
+
+
+def _leaves(tree: dict) -> list:
+    return [v for k, v in sorted(tree.items()) if k != "layers"] + \
+        [v for lay in tree["layers"] for _, v in sorted(lay.items())]
+
+
+def child(rank: int, store_path: str, in_path: str, out_dir: str):
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, WORLD),
+                            rank=rank, world_size=WORLD, timeout=TIMEOUT)
+    res = {}
+    try:
+        from repro_torch.distributed import RankCtx
+        ctx = RankCtx.build(TP, EP, check_lockstep=True)
+        # (tp 1, ep 2): the two ranks that share t form its data group
+        ctx12 = RankCtx(ep=EP, tp=1, rank=ctx.e, backend=ctx.backend,
+                        data_group=ctx.data_group)
+        inputs = torch.load(in_path, weights_only=False)
+        res["moe"] = run_moe(ctx, ctx12)
+        res["tp"] = run_tp_parts(ctx, inputs)
+        res["servers"] = run_servers(ctx, inputs)
+    except BaseException:
+        res["error"] = traceback.format_exc()
+        raise
+    finally:
+        torch.save(res, f"{out_dir}/rank{rank}.pt")
+        dist.destroy_process_group()
