@@ -768,8 +768,8 @@ def check_topk_select(dev, timer, log, cmp_scores):
     from repro_torch.kernels import build
     from repro_torch.kernels.block_topk import (
         TOPK_NB_MAX, block_topk_scores, block_topk_scores_plain,
-        block_topk_select, block_topk_select_plain, select_kv_blocks,
-        topk_cluster_plan)
+        block_topk_select, block_topk_select_plain, block_topk_select_scores,
+        select_kv_blocks, topk_cluster_plan)
     lib = build.load("block_topk")
     c, per = ctypes.c_int(), ctypes.c_int()
     for nb in range(1, TOPK_NB_MAX + 1):
@@ -804,12 +804,22 @@ def check_topk_select(dev, timer, log, cmp_scores):
                 zero = torch.zeros((), device=dev)
                 want = (*want[:4], torch.stack([
                     (act * n_res).sum(), (act * want[2]).sum(), zero, zero]))
-                for name, g, w in zip(("tables", "lens", "m", "selected",
-                                       "aux"), got[1:], want):
+                # the scores-given entry (tensor-parallel ranks rank the
+                # max of their score passes) on the same scores
+                given = block_topk_select_scores(got[0], a[3], a[4],
+                                                 block_size=16,
+                                                 token_mask=mask, **kw)
+                for name, g, g2, w in zip(("tables", "lens", "m",
+                                           "selected", "aux"), got[1:],
+                                          given, want):
                     if g.dtype != w.dtype or not torch.equal(g, w):
                         raise AssertionError(
                             f"block_topk_select {dn} nb={nb} {kw}: {name} "
                             f"differ from select_kv_blocks")
+                    if g2.dtype != w.dtype or not torch.equal(g2, w):
+                        raise AssertionError(
+                            f"block_topk_select_scores {dn} nb={nb} {kw}: "
+                            f"{name} differ from select_kv_blocks")
                 if kw["k_static"] >= nb and not (
                         torch.equal(got[1], a[3]) and torch.equal(got[2],
                                                                   a[4])):
@@ -824,8 +834,9 @@ def check_topk_select(dev, timer, log, cmp_scores):
                    f"{TOPK_SELECT_SWEEP[-1][1]}) x 4 budgets (absolute, "
                    f"frac 0.25, "
                    f"degrade, all forced), ties and a poisoned null block: "
-                   f"tables/lens/m/selected/aux equal select_kv_blocks on "
-                   f"the launch's scores; scores max_abs_err={worst:.3g}")
+                   f"tables/lens/m/selected/aux of the fused launch and of "
+                   f"the scores-given entry equal select_kv_blocks on the "
+                   f"launch's scores; scores max_abs_err={worst:.3g}")
         # phase 6 (b)'s call: frac 0.25 over the 256-wide table
         ta = topk_select_inputs(dev, dtype, 6, TOPK_MAIN[0], TOPK_MAIN[1],
                                 10)
@@ -5885,15 +5896,16 @@ def dist_workload(vocab):
     return prompts, SamplingParams(max_tokens=P17_NEW)
 
 
-def warm_and_drive(srv, prompts, sp):
-    """Warm the server on other tokens (every chunk bucket and the decode
-    batch: the first call of each hot-loop key is eager, the second
-    captures), reset its stats and the launch counters, then drive the
-    main path → (streams, metrics, launches, decode round ms, hot loops)."""
+def warm_and_drive(srv, prompts, sp, warm_prompts=4, warm_runs=2):
+    """Warm the server on other tokens (`warm_runs` runs of `warm_prompts`
+    448- and 16-token prompts: every chunk bucket and the decode batch; the
+    first call of each hot-loop key is eager, the second captures), reset
+    its stats and the launch counters, then drive the main path →
+    (streams, metrics, launches, decode round ms, hot loops)."""
     from repro_torch.core.proxy import SamplingParams
     warm, _ = workload(srv.cfg.vocab_size, n=6, seed=8)
-    for _ in range(2):
-        list(srv.generate(warm[:4], SamplingParams(max_tokens=3)))
+    for _ in range(warm_runs):
+        list(srv.generate(warm[:warm_prompts], SamplingParams(max_tokens=3)))
     reset_stats(srv)
     before = hot_loops(srv)
     zero_launch_counts()
@@ -5973,21 +5985,15 @@ def collective_ms(ctx, cfg, dev) -> dict:
     return out
 
 
-def dist_rank(rank, world, backend, init, out_dir, dev_type="cuda"):
-    """One rank of phase 17: join the group, build the rank's shard of the
-    seed's one-rank model (the whole model is built one rank at a time and
-    carried over by transfer_params), serve (a) chunked, (b) whole-prompt,
-    (c) chunked with a forced migration mid-decode, time the collectives,
-    and write the results to <out_dir>/p17_rank<r>.json. `dev_type` "cpu"
-    rehearses the phase off the card (with the torch.cuda calls stubbed)."""
+def join_world(rank, world, backend, init, dev_type):
+    """Join the phase's process group → (device, nccl): one card a rank
+    over NCCL, cuda:0 (or the CPU in a rehearsal) for every rank over
+    gloo."""
     from datetime import timedelta
 
     import torch.distributed as dist
 
-    from repro_torch.core.proxy import SamplingParams
     from repro_torch.device import set_precision_policy
-    from repro_torch.models.lm import LM
-    from repro_torch.serving import DevicePlacement
     set_precision_policy()
     nccl = backend == "nccl"
     dev = torch.device(dev_type, rank if nccl else 0)
@@ -5996,6 +6002,55 @@ def dist_rank(rank, world, backend, init, out_dir, dev_type="cuda"):
     dist.init_process_group(backend, init_method=init, rank=rank,
                             world_size=world,
                             timeout=timedelta(seconds=P17_TIMEOUT_S))
+    return dev, nccl
+
+
+def shard_weights(pl, cfg, pattern, dev, world, rank, res):
+    """This rank's shard of the seed's one-rank model: the whole model is
+    built one rank at a time and carried over by transfer_params (its
+    size and seconds go to `res`)."""
+    import torch.distributed as dist
+
+    from repro_torch.models.lm import LM
+    one = LM.build(cfg, pattern=pattern, device=dev)
+    lm = LM.build(cfg, pattern=pattern, device=dev, ctx=pl.ctx)
+    t0 = time.monotonic()
+    params = None
+    for r in range(world):
+        if r == rank:
+            whole = one.init(P17_SEED)
+            params = pl.transfer_params(one, whole, lm)
+            del whole
+            gc.collect()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    res["shard_gb"] = params_gb(params)
+    res["transfer_s"] = time.monotonic() - t0
+    return params
+
+
+def leave_world(res, out_file, nccl):
+    """Write this rank's results and leave: a failed rank at once (its
+    peers may wait in a collective), an NCCL rank without tearing its
+    communicators down (that can block once graphs have captured them)."""
+    import torch.distributed as dist
+    out_file.parent.mkdir(exist_ok=True)
+    out_file.write_text(json.dumps(res, default=float))
+    if "error" in res or nccl:
+        sys.stdout.flush()
+        os._exit(1 if "error" in res else 0)
+    gc.collect()
+    dist.destroy_process_group()
+
+
+def dist_rank(rank, world, backend, init, out_dir, dev_type="cuda"):
+    """One rank of phase 17: join the group, build the rank's shard of the
+    seed's one-rank model, serve (a) chunked, (b) whole-prompt, (c)
+    chunked with a forced migration mid-decode, time the collectives, and
+    write the results to <out_dir>/p17_rank<r>.json. `dev_type` "cpu"
+    rehearses the phase off the card (with the torch.cuda calls stubbed)."""
+    from repro_torch.serving import DevicePlacement
+    dev, nccl = join_world(rank, world, backend, init, dev_type)
     res = {"rank": rank}
     try:
         # gloo collectives cannot be captured: capture=False, explicitly
@@ -6003,21 +6058,8 @@ def dist_rank(rank, world, backend, init, out_dir, dev_type="cuda"):
                                    capture=None if nccl else False,
                                    check_lockstep=True)
         cfg = dist_config()
-        one = LM.build(cfg, pattern=[0] * cfg.n_layers, device=dev)
-        lm = LM.build(cfg, pattern=[0] * cfg.n_layers, device=dev,
-                      ctx=pl.ctx)
-        t0 = time.monotonic()
-        params = None
-        for r in range(world):
-            if r == rank:
-                whole = one.init(P17_SEED)
-                params = pl.transfer_params(one, whole, lm)
-                del whole
-                gc.collect()
-                torch.cuda.empty_cache()
-            dist.barrier()
-        res["shard_gb"] = params_gb(params)
-        res["transfer_s"] = time.monotonic() - t0
+        params = shard_weights(pl, cfg, [0] * cfg.n_layers, dev, world,
+                               rank, res)
         prompts, sp = dist_workload(cfg.vocab_size)
         # one placement (hot-loop registry, graph pool) a server, on the
         # rank's context
@@ -6051,27 +6093,27 @@ def dist_rank(rank, world, backend, init, out_dir, dev_type="cuda"):
         res["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
     except BaseException as exc:
         res["error"] = f"{type(exc).__name__}: {exc}"
-    Path(out_dir).mkdir(exist_ok=True)
-    (Path(out_dir) / f"p17_rank{rank}.json").write_text(
-        json.dumps(res, default=float))
-    if "error" in res or nccl:
-        # a failed rank leaves at once (its peers may wait in a collective);
-        # an NCCL rank leaves without tearing its communicators down, which
-        # can block once graphs have captured them
-        sys.stdout.flush()
-        os._exit(1 if "error" in res else 0)
-    gc.collect()
-    dist.destroy_process_group()
+    leave_world(res, Path(out_dir) / f"p17_rank{rank}.json", nccl)
 
 
 def check_rank_local_kernels(dev, timer, log, cfg):
-    """The four kernels of phase 17's path at one rank's shapes (tp 2, ep
-    2): paged_decode and paged_prefill over K / tp = 8 KV heads (G 1, h
-    128, phase 17's 4 slots and 128-token chunks), flash_prefill over 8
-    heads of a 448-token prompt padded to 512, and moe_gmm over the rank's
-    30 slots with ep·Cb rows each — 16 at a 4-slot decode step (w1/w3:
-    [30, 16, 2048] x [30, 2048, 704]), 48 at a 128-token chunk — each
-    against its plain version, timed with its bound and library call."""
+    """The kernels of phases 17 and 18 at one rank's shapes (tp 2, ep 2),
+    each against its plain version, timed with its bound and library call
+    → {kernel: {record name: record}}. Phase 17's four ("tp2ep2"):
+    paged_decode and paged_prefill over K / tp = 8 KV heads (G 1, h 128,
+    phase 17's 4 slots and 128-token chunks), flash_prefill over 8 heads
+    of a 448-token prompt padded to 512, and moe_gmm over the rank's 30
+    slots with ep·Cb rows each — 16 at a 4-slot decode step (w1/w3: [30,
+    16, 2048] x [30, 2048, 704]), 48 at a 128-token chunk. Phase 18's
+    OmniAttn shapes: paged_decode over 264-block ring tables
+    ("tp2ep2_ring"), flash_prefill over a 4,608-row bucket with sink 128 +
+    window 4,096 ("tp2ep2_window"), sink_decode over the W 4,224 ring
+    ("tp2ep2"), and block_topk's score pass over K 8 heads of an nb 288
+    table ("tp2ep2") with the scores-given ranking of the max-reduced
+    scores ("tp2ep2_select_scores", exact)."""
+    from repro_torch.kernels.block_topk import (
+        block_topk_scores, block_topk_scores_plain, block_topk_select_scores,
+        block_topk_select_scores_plain)
     from repro_torch.kernels.flash_prefill import (flash_prefill,
                                                    flash_prefill_plain)
     from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_plain
@@ -6079,6 +6121,7 @@ def check_rank_local_kernels(dev, timer, log, cfg):
                                                   paged_decode_plain)
     from repro_torch.kernels.paged_prefill import (paged_prefill,
                                                    paged_prefill_plain)
+    from repro_torch.kernels.sink_decode import sink_decode, sink_decode_plain
     from repro_torch.models import moe as moe_mod
     dt = torch.float32
     K, h = cfg.n_kv_heads // P17_TP, cfg.head_dim
@@ -6142,7 +6185,92 @@ def check_rank_local_kernels(dev, timer, log, cfg):
         "moe_gmm", moe_gmm, moe_gmm_plain, (xc, wc, nc),
         moe_gmm_bound(xc, wc, nc), lambda: torch.bmm(xc, wc),
         f"x [{s}, {P17_EP * cb_pre}, {cfg.d_model}], {int(nc.sum())} rows")
-    return rec
+    out = {name: {"tp2ep2": r} for name, r in rec.items()}
+    # phase 18: the ring layers' decode over their 264-block runs (three
+    # wrapped rings and a short one), a whole 4,416-4,480-token prompt's
+    # bucket through the sink + window mask, the slot-dense ring
+    sink, recent = cfg.omniattn.sink_tokens, cfg.omniattn.recent_tokens
+    W = sink + recent
+    nbr = -(-W // 16)
+    ring = decode_inputs(dev, dt, 4, K, G, h, 16, nbr, 4 * nbr + 1,
+                         [W, W, W, 130], 76)
+    out["paged_decode"]["tp2ep2_ring"] = one(
+        "paged_decode ring", paged_decode, paged_decode_plain, ring,
+        decode_bound(ring[0], ring[1], ring[3], ring[4]), sdpa_decode(*ring),
+        f"B 4, K {K}, G {G}, h {h}, nb {nbr}, lens {W} x 3, 130")
+    del ring
+    S = P18_MAX_LEN
+    q, kk, vv = (torch.randn((K * G, S, h), generator=g, device=dev)
+                 for _ in range(3))
+    fw = lambda *a: flash_prefill(*a, causal=True, window=recent, sink=sink)
+    fwp = lambda *a: flash_prefill_plain(*a, causal=True, window=recent,
+                                         sink=sink)
+    out["flash_prefill"]["tp2ep2_window"] = one(
+        "flash_prefill sink+window", fw, fwp, (q, kk, vv),
+        flash_bound(q, kk, True, recent, sink),
+        sdpa_flash(q, kk, vv, True, recent, sink),
+        f"N {K * G}, S {S}, h {h}, causal, sink {sink}, window {recent}",
+        tol=TOL_DENSE[dt])
+    del q, kk, vv
+    ts = [W, P18_LONG + 1, P18_LONG + 33, 130]
+    qs = torch.randn((4, K, G, h), generator=g, device=dev)
+    kc, vc = (torch.randn((4, W, K, h), generator=g, device=dev)
+              .transpose(1, 2) for _ in range(2))
+    t = torch.tensor(ts, dtype=torch.int32, device=dev)
+    out["sink_decode"] = {"tp2ep2": one(
+        "sink_decode", sink_decode, sink_decode_plain, (qs, kc, vc, t),
+        sink_bound(qs, kc, t), sdpa_sink(qs, kc, vc, t),
+        f"B 4, K {K}, G {G}, h {h}, W {W}, t {ts}", tol=TOL_DENSE[dt])}
+    del kc, vc
+    # block_topk at tp 2: each rank's score pass over its 8 heads, the max
+    # of the two ranks' scores, the ranking and compaction of that max
+    nbt = -(-P18_MAX_LEN // 16)
+    lens_t = [P18_LONG + 1, P18_LONG + 33, P18_LONG + 65, P18_LONG + 8]
+    ta = topk_inputs(dev, dt, 4, K, G, h, 16, nbt, 4 * nbt + 1, lens_t, 77)
+    sc = lambda *a: block_topk_scores(*a, block_size=16)
+    scp = lambda *a: block_topk_scores_plain(*a, block_size=16)
+    got, want = sc(*ta), scp(*ta)
+    neg = want == -1e30
+    if not torch.equal(got[neg], want[neg]) or (got[~neg] == -1e30).any():
+        raise AssertionError("block_topk tp2ep2: NEG_INF entries differ")
+    out["block_topk"] = {"tp2ep2": one(
+        "block_topk", sc, scp, ta, topk_bound(ta[0], ta[3], ta[4], 16),
+        None, f"B 4, K {K}, G {G}, h {h}, nb {nbt}, lens {lens_t}")}
+    other = topk_inputs(dev, dt, 4, K, G, h, 16, nbt, 4 * nbt + 1, lens_t,
+                        78)
+    scores = torch.maximum(sc(*ta), sc(ta[0], other[1], other[2], *ta[3:]))
+    k_static = -(-nbt // 4)
+    kw = dict(block_size=16, k_static=k_static, frac=0.25, sink_blocks=1,
+              recent_blocks=2, token_mask=torch.tensor(
+                  [True, True, True, False], device=dev))
+    sel = lambda: block_topk_select_scores(scores, ta[3], ta[4], **kw)
+    selp = lambda: block_topk_select_scores_plain(scores, ta[3], ta[4], **kw)
+    for name, a, b in zip(("tables", "lens", "m", "selected", "aux"), sel(),
+                          selp()):
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            raise AssertionError(f"block_topk_select_scores tp2ep2: {name} "
+                                 f"differ from the plain version")
+    log.append(f"block_topk_select_scores float32 tp2ep2 B 4, nb {nbt}, "
+               f"frac 0.25 over the max of two ranks' scores: tables, lens, "
+               f"counts, mask and stats equal the plain version")
+    gb = topk_given_bound(ta[3], ta[4], 16, k_static)
+    out["block_topk"]["tp2ep2_select_scores"] = {
+        "max_abs_err": 0.0, "exact": True, "ms": timer(sel),
+        "plain_ms": timer(selp), "library_ms": None, "bound_ms": gb[0],
+        "bound_by": gb[1], "bytes": gb[2], "flops": gb[3],
+        "shape": f"B 4, nb {nbt}, k_static {k_static}, frac 0.25"}
+    return out
+
+
+def topk_given_bound(tables, lens, bs, k_static):
+    """block_topk_select_scores: the scores and lens read once, the kept
+    blocks' table entries read, the compacted table, lens, counts, mask and
+    stats written once; the ranking is integer work and adds no
+    operations."""
+    B, nb = tables.shape
+    nbytes = 4 * B * nb + 4 * B + 4 * B * k_static + 4 * B * k_static \
+        + 8 * B + B * nb + 16
+    return bound(nbytes, 0, torch.float32)
 
 
 def first_diff(got, want):
@@ -6150,6 +6278,70 @@ def first_diff(got, want):
         if a != b:
             return i
     return None
+
+
+def world_init() -> str:
+    """A rendezvous address on a free local port."""
+    import socket
+    with socket.socket() as s_:
+        s_.bind(("localhost", 0))
+        return f"tcp://localhost:{s_.getsockname()[1]}"
+
+
+def run_world(fn, world, backend, prefix, limit_s) -> tuple:
+    """Spawn `world` ranks of fn(rank, world, backend, init, out_dir), each
+    writing OUT_DIR/<prefix><rank>.json, and wait at most `limit_s` →
+    (their results in rank order, the world's seconds). Raises if a rank
+    failed, hung or did not report."""
+    for f in OUT_DIR.glob(f"{prefix}*.json"):
+        f.unlink()
+    t0 = time.monotonic()
+    procs = torch.multiprocessing.start_processes(
+        fn, args=(world, backend, world_init(), str(OUT_DIR)), nprocs=world,
+        join=False, start_method="spawn")
+    failed = None
+    try:
+        while not procs.join(timeout=10):
+            if time.monotonic() - t0 > limit_s:
+                failed = f"the world did not finish in {limit_s} s"
+                break
+    except torch.multiprocessing.ProcessExitedException as exc:
+        failed = str(exc)
+    finally:
+        for p in procs.processes:
+            if p.is_alive():
+                p.kill()
+    seconds = time.monotonic() - t0
+    files = [OUT_DIR / f"{prefix}{r}.json" for r in range(world)]
+    ranks = [json.loads(f.read_text()) for f in files if f.exists()]
+    errors = [f"rank {r['rank']}: {r['error']}" for r in ranks if "error" in r]
+    if failed or errors or len(ranks) < world:
+        raise AssertionError(f"{prefix}: {failed}; {errors}; "
+                             f"{len(ranks)} of {world} ranks reported")
+    return ranks, seconds
+
+
+def check_rank_streams(phase, name, ranks, want, prompts, build):
+    """Every rank's streams of run `name` equal `want` (the one-rank
+    Server's), or raise naming the first differing token and the one-rank
+    model's top-2 logit margin there (a fresh one-rank server from
+    `build()`, the greedy context of `want`)."""
+    for r in ranks:
+        got = r[name]["streams"]
+        for k, (a, b) in enumerate(zip(got, want)):
+            if a == b:
+                continue
+            i = first_diff(a, b)
+            i = min(len(a), len(b)) if i is None else i
+            gc.collect()
+            torch.cuda.empty_cache()
+            srv = build()
+            margin = top2_margin(srv, prompts[k], b, i)
+            del srv
+            raise AssertionError(
+                f"{phase} {name}: rank {r['rank']} request {k} differs from "
+                f"the one-rank Server at token {i} (one-rank top-2 logit "
+                f"margin there {margin:.3g}): {a} vs {b}")
 
 
 def dist_phase(dev, timer, log):
@@ -6192,46 +6384,13 @@ def dist_phase(dev, timer, log):
     torch.cuda.empty_cache()
     out["one_rank_peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
     # the world: rank = e · tp + t, one process each
-    import socket
-    with socket.socket() as s_:
-        s_.bind(("localhost", 0))
-        init = f"tcp://localhost:{s_.getsockname()[1]}"
-    for f in OUT_DIR.glob("p17_rank*.json"):
-        f.unlink()
-    t0 = time.monotonic()
-    procs = torch.multiprocessing.start_processes(
-        dist_rank, args=(world, backend, init, str(OUT_DIR)), nprocs=world,
-        join=False, start_method="spawn")
-    failed = None
-    try:
-        while not procs.join(timeout=10):
-            if time.monotonic() - t0 > P17_WORLD_S:
-                failed = f"the world did not finish in {P17_WORLD_S} s"
-                break
-    except torch.multiprocessing.ProcessExitedException as exc:
-        failed = str(exc)
-    finally:
-        for p in procs.processes:
-            if p.is_alive():
-                p.kill()
-    out["world_s"] = time.monotonic() - t0
-    files = [OUT_DIR / f"p17_rank{r}.json" for r in range(world)]
-    ranks = [json.loads(f.read_text()) for f in files if f.exists()]
-    errors = [f"rank {r['rank']}: {r['error']}" for r in ranks if "error" in r]
-    if failed or errors or len(ranks) < world:
-        raise AssertionError(f"phase 17: {failed}; {errors}; "
-                             f"{len(ranks)} of {world} ranks reported")
+    ranks, out["world_s"] = run_world(dist_rank, world, backend, "p17_rank",
+                                      P17_WORLD_S)
     # every rank emits the same tokens, equal to the one-rank Server's
-    for name in ("a_chunked", "b_whole"):
-        want = ref[name]["streams"]
-        for r in ranks:
-            got = r[name]["streams"]
-            for i, (a, b) in enumerate(zip(got, want)):
-                if a != b:
-                    raise AssertionError(
-                        f"phase 17 {name}: rank {r['rank']} request {i} "
-                        f"differs from the one-rank Server at token "
-                        f"{first_diff(a, b)}: {a} vs {b}")
+    for name, chunked in (("a_chunked", True), ("b_whole", False)):
+        check_rank_streams("phase 17", name, ranks, ref[name]["streams"],
+                           prompts, lambda c=chunked: dist_server(cfg, c,
+                                                                  dev=dev))
     for r in ranks:
         if r["c_migrate"]["streams"] != ranks[0]["a_chunked"]["streams"]:
             raise AssertionError(f"phase 17 (c): rank {r['rank']}'s streams "
@@ -6255,6 +6414,163 @@ def dist_phase(dev, timer, log):
                f"shards " + ", ".join(f"{r['shard_gb']:.2f}" for r in ranks)
                + f" GB; built one rank at a time and carried over in "
                f"{r0['transfer_s']:.1f} s")
+    return out
+
+
+# ---- phase 18: OmniAttn's default pattern over (tp 2, ep 2) ranks -------
+P18_TP, P18_EP = 2, 2
+P18_PREFIX, P18_TAILS = 4096, (320, 352, 384)   # prompts of 4,416-4,480
+P18_LONG = P18_PREFIX + P18_TAILS[0]
+P18_MAX_LEN = 4608
+P18_NEW = 8
+P18_CHUNK = 512
+P18_BLOCKS = 1200       # 3 slots x 281 blocks of 16, plus the prefix store
+P18_TOPK_FRAC = 0.25
+P18_WORLD_S = 400       # the world joins within this, or is killed
+# the cases: (chunked prefill, paged KV, online top-k)
+P18_CASES = {"a_ring_paged": (True, True, False),
+             "b_whole_dense": (False, False, False),
+             "c_topk": (True, True, True)}
+
+
+def omni_config(case):
+    """Phase 17's model (qwen2-moe-a2.7b at full width, 8 of 24 layers,
+    float32) at its default pattern [1,1,1,0,1,1,1,0]: six rings of sink
+    128 + recent 4,096 and two full layers. Chunked cases mask prefill
+    chunks with the rings' sink + recent window (prefill_sparse); (c) sets
+    online top-k at frac 0.25 on the full layers."""
+    chunked, _, topk = P18_CASES[case]
+    cfg = dist_config().with_updates(prefill_sparse=chunked)
+    if topk:
+        from dataclasses import replace
+        cfg = cfg.with_updates(omniattn=replace(cfg.omniattn,
+                                                topk_frac=P18_TOPK_FRAC))
+    assert cfg.default_compression_pattern() == [1, 1, 1, 0] * 2
+    return cfg
+
+
+def omni_server(cfg, case, dev=None, params=None, placement=None):
+    """Phase 18's server: 4 slots, 4,608-token context, 512-token chunks,
+    the default pattern, the placement monitor off."""
+    from repro_torch.core.proxy import OASConfig
+    from repro_torch.serving import Server, ServerConfig
+    chunked, paged, _ = P18_CASES[case]
+    scfg = ServerConfig(n_prefill=1, n_decode=1, decode_slots=4,
+                        max_len=P18_MAX_LEN, chunk_tokens=P18_CHUNK,
+                        prefill_tick_budget=2 * P18_CHUNK, kv_block_size=16,
+                        kv_blocks=P18_BLOCKS, chunked_prefill=chunked,
+                        paged_kv=paged, enable_placement=False,
+                        oas=OASConfig(defer_window=0.0))
+    return Server(cfg, scfg, pattern=None, params=params, seed=P17_SEED,
+                  device=dev, placement=placement)
+
+
+def omni_workload(vocab):
+    """Three prompts on one 4,096-token prefix with 320-384 tokens each
+    after it (every ring of 4,224 wraps in prefill), P18_NEW greedy tokens
+    each."""
+    from repro_torch.core.proxy import SamplingParams
+    rng = np.random.default_rng(18)
+    base = tuple(int(t) for t in rng.integers(0, vocab, P18_PREFIX))
+    prompts = [base + tuple(int(t) for t in rng.integers(0, vocab, n))
+               for n in P18_TAILS]
+    return prompts, SamplingParams(max_tokens=P18_NEW)
+
+
+def omni_rank(rank, world, backend, init, out_dir, dev_type="cuda"):
+    """One rank of phase 18: join the group, build the rank's shard of the
+    seed's one-rank model, serve (a), (b), (c), time one `pmax_model` of a
+    decode step's block scores, and write the results to
+    <out_dir>/p18_rank<r>.json."""
+    from repro_torch.serving import DevicePlacement
+    dev, nccl = join_world(rank, world, backend, init, dev_type)
+    res = {"rank": rank}
+    try:
+        pl = DevicePlacement.build(P18_TP, P18_EP, dev, backend,
+                                   capture=None if nccl else False,
+                                   check_lockstep=True)
+        cfg = omni_config("a_ring_paged")
+        params = shard_weights(pl, cfg, None, dev, world, rank, res)
+        prompts, sp = omni_workload(cfg.vocab_size)
+        for case in P18_CASES:
+            srv = omni_server(omni_config(case), case, params=params,
+                              placement=DevicePlacement(pl.device, pl.capture,
+                                                        pl.ctx))
+            res[case] = warm_and_drive(srv, prompts, sp, warm_prompts=2,
+                                       warm_runs=1)
+            del srv
+            gc.collect()
+        nbt = -(-P18_MAX_LEN // 16)
+        scores = torch.zeros((4, nbt), device=dev)
+        res["pmax_ms"] = timed_collective(lambda: pl.ctx.pmax_model(scores),
+                                          dev)
+        res["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    except BaseException as exc:
+        res["error"] = f"{type(exc).__name__}: {exc}"
+    leave_world(res, Path(out_dir) / f"p18_rank{rank}.json", nccl)
+
+
+P18_NEEDS = {"a_ring_paged": ("paged_decode", "paged_prefill", "moe_gmm"),
+             "b_whole_dense": ("sink_decode", "flash_prefill", "moe_gmm"),
+             "c_topk": ("block_topk_scores", "block_topk_select_scores",
+                        "paged_decode", "paged_prefill", "moe_gmm")}
+
+
+def omni_dist_phase(dev, timer, log):
+    """Phase 18: phase 17's model at its DEFAULT pattern (six sink 128 +
+    recent 4,096 rings, two full layers) over (tp 2, ep 2) ranks, on the
+    transport phase 17 picks: (a) chunked prefill over paged ring runs,
+    (b) whole prompts into the slot-dense layout (sink_decode), (c) (a)
+    with online top-k at frac 0.25 on the full layers, whose block scores
+    each rank max-reduces over `model` before ranking. Every rank's
+    streams must equal the one-rank port Server's on the same card and
+    seed-0 weights, and in (c) its blocks scored and attended too; each
+    case launches its kernels. A failure here fails the run."""
+    world = P18_TP * P18_EP
+    n_cards = torch.cuda.device_count()
+    backend = "nccl" if n_cards >= world else "gloo"
+    out = {"backend": backend, "cards": n_cards}
+    cfg = omni_config("a_ring_paged")
+    prompts, sp = omni_workload(cfg.vocab_size)
+    ref, params = {}, None
+    for case in P18_CASES:
+        srv = omni_server(omni_config(case), case, dev=dev, params=params)
+        params = srv.params
+        ref[case] = warm_and_drive(srv, prompts, sp)
+        del srv
+        gc.collect()
+    out["one_rank"] = {k: {x: v[x] for x in ("metrics", "launches",
+                                             "decode_round_ms", "steps")}
+                       for k, v in ref.items()}
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks, out["world_s"] = run_world(omni_rank, world, backend, "p18_rank",
+                                      P18_WORLD_S)
+    for case in P18_CASES:
+        check_rank_streams("phase 18", case, ranks, ref[case]["streams"],
+                           prompts, lambda c=case: omni_server(
+                               omni_config(c), c, dev=dev))
+    want = ref["c_topk"]["metrics"]
+    for r in ranks:
+        got = r["c_topk"]["metrics"]
+        for k in ("blocks_scored", "blocks_attended"):
+            if got[k] != want[k] or not got[k] > 0:
+                raise AssertionError(f"phase 18 (c): rank {r['rank']} {k} "
+                                     f"{got[k]} vs the one-rank Server's "
+                                     f"{want[k]}")
+        if not got["blocks_attended"] < got["blocks_scored"]:
+            raise AssertionError("phase 18 (c): the budget did not bind")
+        for case, need in P18_NEEDS.items():
+            for k in need:
+                if r[case]["launches"].get(k, 0) <= 0:
+                    raise AssertionError(f"phase 18 {case}: rank "
+                                         f"{r['rank']} launched no {k}")
+    out["ranks"] = ranks
+    log.append(f"transport: {backend}; rank 0's shard "
+               f"{ranks[0]['shard_gb']:.2f} GB, carried over in "
+               f"{ranks[0]['transfer_s']:.1f} s; pmax_model of [4, "
+               f"{-(-P18_MAX_LEN // 16)}] scores {ranks[0]['pmax_ms']:.3f} ms")
     return out
 
 
@@ -6930,6 +7246,44 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    t18 = time.monotonic()
+    dist18 = omni_dist_phase(dev, timer, log)
+    q0 = dist18["ranks"][0]
+    print(f"phase 18 [{time.monotonic() - t0:.1f} s]: full-width "
+          f"qwen2-moe-a2.7b at its default pattern (six rings of sink 128 + "
+          f"recent 4,096, two full layers, 8 of 24 layers, float32) over (tp "
+          f"{P18_TP}, ep {P18_EP}), {dist18['backend']}, in "
+          f"{time.monotonic() - t18:.1f} s (the world "
+          f"{dist18['world_s']:.1f} s)")
+    for line in log:
+        print("  " + line)
+    for case, what in (("a_ring_paged", "(a) chunked prefill, paged ring "
+                        "runs"), ("b_whole_dense", "(b) whole prompts, "
+                                  "slot-dense"),
+                       ("c_topk", f"(c) (a) + top-k frac {P18_TOPK_FRAC}")):
+        m, m1 = q0[case]["metrics"], dist18["one_rank"][case]["metrics"]
+        ln = {k: v for k, v in q0[case]["launches"].items() if v}
+        extra = (f"; blocks scored / attended {m['blocks_scored']} / "
+                 f"{m['blocks_attended']} on every rank and one rank"
+                 if case == "c_topk" else "")
+        print(f"  {what}: {len(P18_TAILS)} prompts of "
+              f"{P18_PREFIX + P18_TAILS[0]}-{P18_PREFIX + P18_TAILS[-1]} "
+              f"tokens x {P18_NEW} greedy tokens, streams of all four ranks "
+              f"equal the one-rank Server's{extra}; rank 0 launches {ln}; "
+              f"TTFT mean {m['ttft_mean'] * 1e3:.1f} ms, TPOT mean "
+              f"{m['tpot_mean_ms']:.2f} ms, decode round "
+              f"{q0[case]['decode_round_ms']:.2f} ms (one rank: TTFT mean "
+              f"{m1['ttft_mean'] * 1e3:.1f} ms, TPOT mean "
+              f"{m1['tpot_mean_ms']:.2f} ms, decode round "
+              f"{dist18['one_rank'][case]['decode_round_ms']:.2f} ms) "
+              f"[{smi}]")
+    print(f"  peak memory per rank "
+          + ", ".join(f"{r['peak_mem_gb']:.2f}" for r in dist18["ranks"])
+          + f" GB [{smi}]")
+    log.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
     for rec in (served, spec["runs"]["spec_on"], spec["runs"]["spec_off"],
                 quant):
         rec.pop("streams", None)
@@ -6937,7 +7291,7 @@ def main() -> int:
                   default_pattern=omni, topk=topk, spec=spec, moe=moe,
                   quant=quant, eager=eager, ring_chunks=rings, chaos=chaos,
                   archs=archs, mamba2=mamba2, jamba=jamba, train=trained,
-                  frontends=fronts, dist=dist17)
+                  frontends=fronts, dist=dist17, omni_dist=dist18)
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 
@@ -7012,15 +7366,26 @@ def main() -> int:
         P16_NEW * fv["decode_launches_per_step"]
     new_launches["paged_decode"]["h96"] = 0
     new_launches["paged_decode"]["h80"] = 0
-    # phase 17's rank-local shapes, with rank 0's launches there
+    # phase 17's and 18's rank-local shapes, with rank 0's launches there
     la, lb = r0["a_chunked"]["launches"], r0["b_whole"]["launches"]
-    for name, rec in dist17["kernels"].items():
-        kern[name]["float32_tp2ep2"] = rec
+    for name, subs in dist17["kernels"].items():
+        for sub, rec in subs.items():
+            kern[name][f"float32_{sub}"] = rec
     new_launches["paged_decode"]["tp2ep2"] = la["paged_decode"] \
         + lb["paged_decode"]
     new_launches["paged_prefill"]["tp2ep2"] = la["paged_prefill"]
     new_launches["flash_prefill"]["tp2ep2"] = lb["flash_prefill"]
     new_launches["moe_gmm"]["tp2ep2"] = la["moe_gmm"] + lb["moe_gmm"]
+    # phase 18: every paged_decode launch of (a) (6 of its 8 layers are
+    # ring tables), (b)'s whole prompts (6 of 8 layers sink + window) and
+    # sink_decode steps, (c)'s two block_topk entries
+    qa, qb, qc = (q0[c]["launches"] for c in P18_CASES)
+    new_launches["paged_decode"]["tp2ep2_ring"] = qa["paged_decode"]
+    new_launches["flash_prefill"]["tp2ep2_window"] = qb["flash_prefill"]
+    new_launches["sink_decode"]["tp2ep2"] = qb["sink_decode"]
+    new_launches["block_topk"]["tp2ep2"] = qc["block_topk_scores"]
+    new_launches["block_topk"]["tp2ep2_select_scores"] = \
+        qc["block_topk_select_scores"]
     new_int8 = {
         "paged_decode": {"h256": g3["d_int8"]["launches"]["paged_decode_int8"],
                          "h96": 0, "h80": 0},
@@ -7099,12 +7464,13 @@ def main() -> int:
             if rec is None:
                 continue
             subs = ("h256", "g48", "qwen3moe", "jamba", "jamba_ring",
-                    "jamba_chunk", "h80", "h96", "tp2ep2")
+                    "jamba_chunk", "h80", "h96", "tp2ep2", "tp2ep2_ring",
+                    "tp2ep2_window", "tp2ep2_select_scores")
             for sub in subs:
                 if sub in rec and rec[sub]["launches"] <= 0 and \
                         rec[sub].get("on_path", True):
                     raise AssertionError(f"{k['name']} {sub}: no launch in "
-                                         f"phase 13, 14, 16 or 17")
+                                         f"phase 13, 14, 16, 17 or 18")
             for r in (rec, rec.get("ring"), rec.get("long"),
                       rec.get("select")) + tuple(rec.get(x) for x in subs):
                 for key in ("max_abs_err", "ms", "plain_ms", "bound_ms"):

@@ -6,10 +6,11 @@ The world is `ep × tp` processes, one rank each, laid out as
 e · tp + t. `data` is the expert-parallel (EP) axis, `model` the
 tensor-parallel (TP) axis. Where XLA inserts the collectives for the
 reference, the layers of the port call them here, explicitly, over
-`torch.distributed` subgroups: `psum_model` / `all_gather_model` over the
-ranks that share e, `all_to_all_data` / `all_gather_data` / `psum_batch`
-over the ranks that share t. `broadcast_floats` and `all_gather_ints`
-run over the whole world; the server keeps its ranks in lockstep with them.
+`torch.distributed` subgroups: `psum_model` / `pmax_model` /
+`all_gather_model` over the ranks that share e, `all_to_all_data` /
+`all_gather_data` / `psum_batch` over the ranks that share t.
+`broadcast_floats` and `all_gather_ints` run over the whole world; the
+server keeps its ranks in lockstep with them.
 
 `RankCtx.local()` is one rank and no process group: every collective is
 the identity, so a one-rank model runs exactly as it did before TP and EP.
@@ -119,6 +120,17 @@ class RankCtx:
             return x
         x = x.contiguous()
         dist.all_reduce(x, group=self.model_group)
+        return x
+
+    def pmax_model(self, x: torch.Tensor) -> torch.Tensor:
+        """Elementwise max over the `model` axis, in place when x is
+        contiguous: OmniAttn's top-k block scores, each rank's max over its
+        own heads, become the max over every head (the reference's
+        `ub.max(axis=(2, 3))` over all of them)."""
+        if self.tp == 1:
+            return x
+        x = x.contiguous()
+        dist.all_reduce(x, op=dist.ReduceOp.MAX, group=self.model_group)
         return x
 
     def all_gather_model(self, x: torch.Tensor, dim: int = -1

@@ -31,6 +31,7 @@ LAUNCH_COUNTERS = (
     ("spec_verify", "spec_verify", "launches"),
     ("spec_verify", "spec_verify", "int8_launches"),
     ("block_topk", "block_topk_scores", "launches"),
+    ("block_topk", "block_topk_select_scores", "launches"),
     ("moe_gmm", "moe_gmm", "launches"))
 
 

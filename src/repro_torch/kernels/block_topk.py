@@ -6,8 +6,12 @@ kernel `csrc/block_topk.cu` (the port of the TPU kernel
 src/repro/kernels/block_topk.py, and in select mode of the selection that
 follows it, src/repro/models/attention.py::select_kv_blocks) for tensors
 on a CUDA device, and run their plain PyTorch versions for tensors on the
-CPU. `block_topk_scores.launches` counts the launches of that kernel from
-either entry point (nothing else adds to it).
+CPU. `block_topk_scores.launches` counts the launches of its score pass
+from either entry point (nothing else adds to it).
+`block_topk_select_scores` ranks and compacts given scores — over several
+`model` ranks, the max of each rank's score pass over its own heads — with
+the kernel's scores-given entry; `block_topk_select_scores.launches`
+counts those launches.
 
 The score of tabled block j of sequence b bounds every key dot-product
 inside the block from above:
@@ -122,30 +126,45 @@ def select_kv_blocks(scores, tables, lens, *, block_size: int, k_static: int,
     return new_tables, new_lens, m, selected
 
 
-def block_topk_select_plain(q, kmin, kmax, tables, lens, *, block_size: int,
-                            k_static: int, frac: float = 0.0,
-                            sink_blocks: int = 1, recent_blocks: int = 2,
-                            token_mask=None):
-    """`block_topk_scores_plain` followed by `select_kv_blocks` → (scores,
-    new_tables, new_lens, m, selected, aux): aux [4] float32 is the decode
-    step's sparsity stats [Σ act·n_res, Σ act·m, 0, 0], act =
-    token_mask [B] (bool; None: every slot live)."""
-    B = q.shape[0]
-    lens = per_row(lens, B, q.device)
-    scores = block_topk_scores_plain(q, kmin, kmax, tables, lens,
-                                     block_size=block_size)
+def block_topk_select_scores_plain(scores, tables, lens, *, block_size: int,
+                                   k_static: int, frac: float = 0.0,
+                                   sink_blocks: int = 1,
+                                   recent_blocks: int = 2, token_mask=None):
+    """`select_kv_blocks` on given scores → (new_tables, new_lens, m,
+    selected, aux): aux [4] float32 is the decode step's sparsity stats
+    [Σ act·n_res, Σ act·m, 0, 0], act = token_mask [B] (bool; None: every
+    slot live)."""
+    B = scores.shape[0]
+    dev = scores.device
+    lens = per_row(lens, B, dev)
     sel = select_kv_blocks(scores, tables, lens, block_size=block_size,
                            k_static=k_static, frac=frac,
                            sink_blocks=sink_blocks,
                            recent_blocks=recent_blocks)
     act = token_mask.float() if token_mask is not None else \
-        torch.ones(B, dtype=torch.float32, device=q.device)
+        torch.ones(B, dtype=torch.float32, device=dev)
     n_res = torch.div(lens + block_size - 1, block_size,
                       rounding_mode="floor")
-    zero = torch.zeros((), dtype=torch.float32, device=q.device)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
     aux = torch.stack([(act * n_res).sum(), (act * sel[2]).sum(), zero,
                        zero])
-    return (scores, *sel, aux)
+    return (*sel, aux)
+
+
+def block_topk_select_plain(q, kmin, kmax, tables, lens, *, block_size: int,
+                            k_static: int, frac: float = 0.0,
+                            sink_blocks: int = 1, recent_blocks: int = 2,
+                            token_mask=None):
+    """`block_topk_scores_plain` followed by `select_kv_blocks` → (scores,
+    new_tables, new_lens, m, selected, aux), aux as
+    `block_topk_select_scores_plain` gives it."""
+    lens = per_row(lens, q.shape[0], q.device)
+    scores = block_topk_scores_plain(q, kmin, kmax, tables, lens,
+                                     block_size=block_size)
+    return (scores, *block_topk_select_scores_plain(
+        scores, tables, lens, block_size=block_size, k_static=k_static,
+        frac=frac, sink_blocks=sink_blocks, recent_blocks=recent_blocks,
+        token_mask=token_mask))
 
 
 def _kernel_args(q, kmin, kmax, tables, lens):
@@ -218,22 +237,10 @@ def block_topk_select(q, kmin, kmax, tables, lens, *, block_size: int,
     q, lo, hi, tbl, ln = _kernel_args(q, kmin, kmax, tables, lens)
     B, K, G, h = q.shape
     nb = tbl.shape[1]
-    if not 1 <= k_static <= nb:
-        raise ValueError(f"k_static {k_static} outside 1..{nb}")
-    if B * nb >= 1 << 24:
-        # aux sums counts of up to B·nb blocks in float32: exact below 2^24
-        raise ValueError(f"block_topk_select takes B·nb < 2^24, got {B}·{nb}")
     dev = q.device
-    if token_mask is not None and tuple(token_mask.shape) != (B,):
-        raise ValueError(f"token_mask {tuple(token_mask.shape)} is not [{B}]")
-    mask = None if token_mask is None else kernel_arg(token_mask, dev,
-                                                      torch.bool)
+    mask, new_tables, new_lens, m, selected, aux = _select_outputs(
+        B, nb, k_static, token_mask, dev)
     scores = torch.empty((B, nb), dtype=torch.float32, device=dev)
-    new_tables = torch.empty((B, k_static), dtype=torch.int32, device=dev)
-    new_lens = torch.empty((B,), dtype=torch.int32, device=dev)
-    m = torch.empty((B,), dtype=torch.int32, device=dev)
-    selected = torch.empty((B, nb), dtype=torch.bool, device=dev)
-    aux = torch.empty((4,), dtype=torch.float32, device=dev)
     lib = build.load("block_topk")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -248,3 +255,70 @@ def block_topk_select(q, kmin, kmax, tables, lens, *, block_size: int,
     build.check_launch("block_topk", rc)
     block_topk_scores.launches += 1
     return scores, new_tables, new_lens, m, selected, aux
+
+
+def _select_outputs(B, nb, k_static, token_mask, dev):
+    """Check a select launch's budget and mask → (mask or None, new_tables,
+    new_lens, m, selected, aux) allocated on dev."""
+    if not 1 <= k_static <= nb:
+        raise ValueError(f"k_static {k_static} outside 1..{nb}")
+    if B * nb >= 1 << 24:
+        # aux sums counts of up to B·nb blocks in float32: exact below 2^24
+        raise ValueError(f"block_topk_select takes B·nb < 2^24, got "
+                         f"{B}·{nb}")
+    if token_mask is not None and tuple(token_mask.shape) != (B,):
+        raise ValueError(f"token_mask {tuple(token_mask.shape)} is not [{B}]")
+    mask = None if token_mask is None else kernel_arg(token_mask, dev,
+                                                      torch.bool)
+    return (mask,
+            torch.empty((B, k_static), dtype=torch.int32, device=dev),
+            torch.empty((B,), dtype=torch.int32, device=dev),
+            torch.empty((B,), dtype=torch.int32, device=dev),
+            torch.empty((B, nb), dtype=torch.bool, device=dev),
+            torch.empty((4,), dtype=torch.float32, device=dev))
+
+
+def block_topk_select_scores(scores, tables, lens, *, block_size: int,
+                             k_static: int, frac: float = 0.0,
+                             sink_blocks: int = 1, recent_blocks: int = 2,
+                             token_mask=None):
+    """The ranking and compaction of `block_topk_select` on given scores
+    [B,nb] float32 (over several `model` ranks: the max of their score
+    passes) → (new_tables [B,k_static] int32, new_lens [B] int32, m [B]
+    int32, selected [B,nb] bool, aux [4] float32), bit for bit
+    `block_topk_select_scores_plain`. One launch of the kernel's
+    scores-given entry (a CTA per slot, no score pass); nothing is read on
+    the host. `block_topk_select_scores.launches` counts its launches."""
+    if scores.device.type != "cuda":
+        return block_topk_select_scores_plain(
+            scores, tables, lens, block_size=block_size, k_static=k_static,
+            frac=frac, sink_blocks=sink_blocks, recent_blocks=recent_blocks,
+            token_mask=token_mask)
+    refuse_autograd("block_topk_select_scores", scores)
+    B, nb = scores.shape
+    if tables.shape != (B, nb):
+        raise ValueError(f"tables {tuple(tables.shape)} do not match scores "
+                         f"{tuple(scores.shape)}")
+    topk_cluster_plan(nb)                         # raises past the limit
+    dev = scores.device
+    sc = kernel_arg(scores, dev, torch.float32)
+    tbl = kernel_arg(tables, dev, torch.int32)
+    ln = kernel_arg(per_row(lens, B, dev), dev, torch.int32)
+    mask, new_tables, new_lens, m, selected, aux = _select_outputs(
+        B, nb, k_static, token_mask, dev)
+    lib = build.load("block_topk")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.block_topk_select_scores_launch(
+            sc.data_ptr(), tbl.data_ptr(), ln.data_ptr(),
+            new_tables.data_ptr(), new_lens.data_ptr(), m.data_ptr(),
+            selected.data_ptr(), None if mask is None else mask.data_ptr(),
+            aux.data_ptr(), B, nb, int(block_size), int(k_static),
+            int(frac > 0), float(frac), int(sink_blocks), int(recent_blocks),
+            stream)
+    build.check_launch("block_topk", rc)
+    block_topk_select_scores.launches += 1
+    return new_tables, new_lens, m, selected, aux
+
+
+block_topk_select_scores.launches = 0

@@ -60,6 +60,10 @@ SIGNATURES = {
         # G, h, nb, bs, k_static, use_frac, frac, sink, recent
         "block_topk_select_launch": [_I, *[_P] * 12, *[_I] * 8, _F, _I, _I,
                                      _P],
+        # scores, tables, lens, new_tables, new_lens, m, selected, mask,
+        # aux, B, nb, bs, k_static, use_frac, frac, sink, recent, stream
+        "block_topk_select_scores_launch": [*[_P] * 9, *[_I] * 5, _F, _I,
+                                            _I, _P],
         "block_topk_plan": [_I, _P, _P],
     },
     "spec_verify": {

@@ -56,6 +56,10 @@
 //     lens alone, so slot 0's leader sums mask·n_res and mask·m over the
 //     slots into aux[4] while the scores load, and no eager op follows the
 //     launch.
+// `block_topk_select_scores_launch` is select mode on scores given (a CTA
+// per slot, no score pass): over tensor-parallel ranks each rank scores its
+// own heads with `block_topk_launch`, the scores are max-reduced across the
+// ranks, and this entry ranks and compacts them, the same on every rank.
 // Limit: a table of at most NB_MAX = 8192 entries (131,072 tokens at
 // bs 16; qwen2-1.5b's 32,768-token context needs 2,048), keys 64 KB of
 // shared memory. The wrapper raises past it.
@@ -542,6 +546,51 @@ static int dispatch(int dtype, int h, const Args& a, cudaStream_t s) {
   return -1;
 }
 
+// Scores given: the ranking and compaction of select mode on scores [B, nb]
+// that another pass wrote (over several tensor-parallel ranks, the max of
+// each rank's score pass over its own heads). One CTA per slot: its keys
+// are built from the scores exactly as score_share builds them, then
+// rank_and_compact runs as in the fused launch, so the outputs are
+// bit-identical to select_kv_blocks on the same scores.
+__global__ void __launch_bounds__(THREADS) select_given_kernel(const Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned long long* keys = reinterpret_cast<unsigned long long*>(smem);
+  const int nb = a.nb, b = blockIdx.x, P2 = sort_width(nb);
+  unsigned char* flags = reinterpret_cast<unsigned char*>(keys + P2);
+  const int L = a.lens[b];
+  const int n_res = floor_div(L + a.bs - 1, a.bs);
+  const float* sc = a.scores + (size_t)b * nb;
+  for (int j = threadIdx.x; j < P2; j += THREADS) {
+    if (j < nb) {
+      const bool res = (long long)j * a.bs < L;
+      const bool forced = j < a.sink || j >= n_res - a.recent;
+      const float adj =
+          !res ? neg_inf() : (forced ? pos_inf() : __ldg(sc + j));
+      keys[j] = ((unsigned long long)desc_code(adj) << 32) | (unsigned)j;
+      flags[j] = 0;
+    } else {
+      keys[j] = ~0ull;
+    }
+  }
+  if (a.aux != nullptr && b == 0) step_stats(a);   // uniform over the CTA
+  __syncthreads();
+  rank_and_compact(a, keys, flags, b, L, n_res);
+}
+
+static int launch_given(const Args& a, cudaStream_t stream) {
+  int cluster = 0, per = 0;
+  if (plan(a.nb, &cluster, &per) != 0) return -1;
+  const size_t smem = (size_t)sort_width(a.nb) * 8 + align16(a.nb);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        select_given_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  select_given_kernel<<<a.B, THREADS, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace topk
 
 // The plan of a width-nb table: → 0 and (*cluster, *per), or -1 past the
@@ -599,4 +648,29 @@ extern "C" int block_topk_select_launch(
   a.k_static = k_static, a.use_frac = use_frac, a.frac = frac;
   a.sink = sink, a.recent = recent;
   return topk::dispatch<true>(dtype, h, a, static_cast<cudaStream_t>(stream));
+}
+
+// The ranking and compaction of block_topk_select_launch on given float32
+// scores [B, nb] (no score pass): the same budget, keys, sort, mask,
+// compacted table, lens, counts and stats. Returns as the other entries.
+extern "C" int block_topk_select_scores_launch(
+    const void* scores, const void* tables, const void* lens,
+    void* new_tables, void* new_lens, void* m, void* selected,
+    const void* mask, void* aux, int B, int nb, int bs, int k_static,
+    int use_frac, float frac, int sink, int recent, void* stream) {
+  if (B < 1 || nb < 1 || bs < 1 || k_static < 1 || k_static > nb) return -1;
+  topk::Args a = {};
+  a.tables = static_cast<const int*>(tables);
+  a.lens = static_cast<const int*>(lens);
+  a.scores = static_cast<float*>(const_cast<void*>(scores));
+  a.new_tables = static_cast<int*>(new_tables);
+  a.new_lens = static_cast<int*>(new_lens);
+  a.m = static_cast<int*>(m);
+  a.selected = static_cast<unsigned char*>(selected);
+  a.mask = static_cast<const unsigned char*>(mask);
+  a.aux = static_cast<float*>(aux);
+  a.B = B, a.nb = nb, a.bs = bs;
+  a.k_static = k_static, a.use_frac = use_frac, a.frac = frac;
+  a.sink = sink, a.recent = recent;
+  return topk::launch_given(a, static_cast<cudaStream_t>(stream));
 }

@@ -2,7 +2,7 @@
 kv-head-major layouts (the counterparts of src/repro/kernels/ops.py)."""
 from __future__ import annotations
 
-from repro_torch.kernels.block_topk import block_topk_select
+from repro_torch.kernels.block_topk import block_topk_scores, block_topk_select
 from repro_torch.kernels.flash_prefill import flash_prefill
 from repro_torch.kernels.paged_decode import paged_decode
 from repro_torch.kernels.paged_prefill import paged_prefill
@@ -87,6 +87,16 @@ def block_topk_select_op(q, kmin, kmax, tables, lens, *, block_size,
                              frac=frac, sink_blocks=sink_blocks,
                              recent_blocks=recent_blocks,
                              token_mask=token_mask)
+
+
+def block_topk_scores_op(q, kmin, kmax, tables, lens, *, block_size):
+    """q [B,H,h]; kmin/kmax [N,K,h]; tables [B,nb]; lens [B] → scores
+    [B,nb] float32 (NEG_INF past the residency): the score pass alone, over
+    the heads q holds."""
+    B, H, h = q.shape
+    K = kmin.shape[1]
+    return block_topk_scores(q.reshape(B, K, H // K, h), kmin, kmax, tables,
+                             lens, block_size=block_size)
 
 
 def spec_verify_op(q, k_new, v_new, k_pages, v_pages, tables, off, n_tok,

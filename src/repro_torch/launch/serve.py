@@ -14,15 +14,21 @@ otherwise the launcher starts the tp · ep processes itself
 (torch.multiprocessing) and prints rank 0's summary. --backend nccl, the
 default on cuda, needs a card per rank; --backend gloo runs on the CPU,
 or lets several ranks share one card (its collectives are not captured
-into CUDA graphs there). OmniAttn's ring layers over several ranks are
-ROADMAP A16b, and every config's default pattern has some: over ranks,
---full-attention (every attention layer full, pattern [0] * n_layers)
-serves the model this slice lays out; without it the launcher raises
-NotImplementedError before it starts a process.
+into CUDA graphs there). Over ranks, as on one, the model is the config's
+OmniAttn default pattern (ring layers of sink + recent, sliding windows,
+online top-k where the config sets a budget), each rank holding K / tp KV
+heads; --full-attention serves every attention layer full instead
+(pattern [0] * n_layers). What a rank cannot lay out — heads that do not
+divide over --tp, Mamba-2 layers at --tp > 1 — raises NotImplementedError
+naming ROADMAP A16b before any process starts.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch \\
-        qwen2-moe-a2.7b --reduced --full-attention --tp 2 --ep 2 \\
-        --backend gloo --device cpu
+        qwen2-moe-a2.7b --reduced --tp 2 --ep 2 --backend gloo --device cpu
+
+The tests that hold this path to the JAX reference on the CPU:
+`PYTHONPATH=src JAX_PLATFORMS=cpu python -m pytest
+tests/test_torch_distributed.py tests/test_torch_distributed_omniattn.py
+tests/test_torch_launch.py -q`.
 
 The encoder-only and frontend archs (hubert-xlarge, phi-3-vision-4.2b)
 raise NotImplementedError: the Server serves token requests only

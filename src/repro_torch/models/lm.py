@@ -82,7 +82,9 @@ class LM:
         """`device` None → cuda; `ctx` None → one rank. Raises
         NotImplementedError for a family the port does not model, and
         (naming ROADMAP A16b) for a model this slice cannot lay out over
-        `ctx`'s ranks (`stack.check_distributed`)."""
+        `ctx`'s ranks: heads that do not divide over tp, Mamba-2 layers at
+        tp > 1 (`stack.check_distributed`). OmniAttn's ring, sliding-window
+        and online top-k layers lay out over ranks."""
         plan = stack_mod.StackPlan.from_config(cfg, pattern)
         stack_mod.check_supported(cfg)
         ctx = ctx if ctx is not None else RankCtx.local()

@@ -35,6 +35,12 @@ over OmniPlacement slot tables (models/moe.py) plus the shared SwiGLU; a
 stack without an FFN (d_ff 0, no MoE: mamba2) skips it.
 `check_supported` raises NotImplementedError for what a later slice brings
 (encoder, frontend and non-causal families).
+Over `tp × ep` ranks (a `RankCtx`) every cache above holds the rank's
+K / tp KV heads (`local_kv_heads`) — full arenas, paged ring runs,
+slot-dense rings, sliding windows, prefill caches — and attention runs
+unchanged on the rank's heads; online top-k max-reduces its block scores
+over `model` before ranking (`_select_blocks`). `check_distributed`
+refuses what a rank cannot lay out (ROADMAP A16b).
 """
 from __future__ import annotations
 
@@ -49,6 +55,7 @@ from repro_torch.device import torch_dtype
 from repro_torch.distributed.ctx import (RankCtx, decode_strategy,
                                          prefill_strategy)
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.block_topk import block_topk_select_scores
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssd as ssd_mod
@@ -114,9 +121,12 @@ def check_distributed(cfg: ModelConfig, plan: StackPlan, ctx: RankCtx
                       ) -> None:
     """Raise NotImplementedError, naming ROADMAP A16b, for a model this
     slice cannot lay out over `ctx`'s ranks: heads that do not divide over
-    `model` (the reference's 'wseq' decode and 'qseq' prefill strategies),
-    Mamba-2 layers at tp > 1, and OmniAttn's ring (sink + recent or
-    sliding-window) and online top-k layers at world > 1."""
+    `model` (the reference's 'wseq' decode and 'qseq' prefill strategies)
+    and Mamba-2 layers at tp > 1. OmniAttn's ring layers (sink + recent or
+    a sliding window, paged runs or slot-dense) hold K / tp heads a rank
+    and run as on one rank; online top-k reduces its block scores over
+    `model` before ranking (`_select_blocks`), so every rank attends the
+    same blocks."""
     if ctx.world == 1:
         return
     H, K, tp = cfg.n_heads, cfg.n_kv_heads, ctx.tp
@@ -125,20 +135,9 @@ def check_distributed(cfg: ModelConfig, plan: StackPlan, ctx: RankCtx
         raise NotImplementedError(
             f"{cfg.arch_id}: {H} query / {K} KV heads over tp={tp} need the "
             f"'wseq' / 'qseq' strategies (ROADMAP A16b)")
-    specs = plan.all_specs()
-    if tp > 1 and any(sp.kind == "mamba" for sp in specs):
+    if tp > 1 and any(sp.kind == "mamba" for sp in plan.all_specs()):
         raise NotImplementedError(
             f"{cfg.arch_id}: Mamba-2 layers at tp={tp} (ROADMAP A16b)")
-    if any(sp.kind == "attn" and not full_attn_layer(cfg, sp)
-           for sp in specs):
-        raise NotImplementedError(
-            f"{cfg.arch_id}: ring attention layers (OmniAttn sink+recent or "
-            f"a sliding window) over {ctx.world} ranks (ROADMAP A16b); pass "
-            f"pattern=[0] * n_layers")
-    if topk_block_budget(cfg.omniattn, 1 << 20) is not None:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: OmniAttn online top-k over {ctx.world} ranks "
-            f"(ROADMAP A16b)")
 
 
 def topk_block_budget(oa, nb: int) -> Optional[int]:
@@ -315,8 +314,11 @@ def attn_sublayer(cfg: ModelConfig, spec: LayerSpec, p: dict, x, *,
 
     Tensor parallel over `ctx` (tp > 1): wq/wk/wv (and their biases) hold
     this rank's heads, H / tp query heads over K / tp KV heads, so every
-    kernel runs on the rank-local heads unchanged; wo holds the matching
-    rows and its partial product is summed over `model`.
+    kernel runs on the rank-local heads unchanged — ring layers and
+    sliding windows included, their caches at K / tp heads; wo holds the
+    matching rows and its partial product is summed over `model`. Online
+    top-k is the one step that needs every head: its block scores are
+    max-reduced over `model` before ranking (`_select_blocks`).
 
     mode "prefill", cache None: a whole B=1 prompt at positions arange(S)
       (the first `true_len` rows real) through the flash-prefill kernel; the
@@ -470,7 +472,7 @@ def attn_sublayer(cfg: ModelConfig, spec: LayerSpec, p: dict, x, *,
                                             k_scale=qkw.get("k_scale"),
                                             k_tok=qkw.get("k_tok"))
             tbl, lens, sp_aux = _select_blocks(cfg, q[:, 0], cache, tbl,
-                                               lens, token_mask)
+                                               lens, token_mask, ctx)
         out = kops.attention_paged_decode_op(q[:, 0], kc, vc, tbl, lens,
                                              **qkw)
     elif mode == "verify":
@@ -506,12 +508,23 @@ def attn_sublayer(cfg: ModelConfig, spec: LayerSpec, p: dict, x, *,
     return x + y.to(x.dtype), new_cache, sp_aux
 
 
-def _select_blocks(cfg: ModelConfig, q, cache: dict, tbl, lens, token_mask):
+def _select_blocks(cfg: ModelConfig, q, cache: dict, tbl, lens, token_mask,
+                   ctx: Optional[RankCtx] = None):
     """OmniAttn online top-k on one paged full layer's decode step. q
-    [B, H, h]; tbl [B, nb]; lens [B]. → (table, lens) to attend, and the aux
-    [blocks_scored, blocks_attended, mass_sum, mass_n] (None when sparsity
-    is off). A budget covering the whole (bucketed) table skips selection:
-    exact attention, still reported so the stats stay comparable."""
+    [B, H, h] (this rank's heads); tbl [B, nb]; lens [B]. → (table, lens) to
+    attend, and the aux [blocks_scored, blocks_attended, mass_sum, mass_n]
+    (None when sparsity is off). A budget covering the whole (bucketed)
+    table skips selection: exact attention, still reported so the stats
+    stay comparable.
+
+    A block's score is a max over every (kv head, query head). At tp > 1 a
+    rank holds H / tp of them, so the rank's scores are reduced over
+    `model` (`pmax_model`) before ranking: every rank keeps the same blocks
+    and the partial outputs its `wo` psum adds are over one block set.
+    NEG_INF past the residency survives the max (every rank shares lens).
+    The stats follow from lens and the reduced selection, so they are the
+    same on every rank; the mass, a mean over this rank's heads, is
+    averaged over `model`."""
     oa = cfg.omniattn
     nb = tbl.shape[1]
     k_static = topk_block_budget(oa, nb)
@@ -525,18 +538,32 @@ def _select_blocks(cfg: ModelConfig, q, cache: dict, tbl, lens, token_mask):
         mn = act.sum() if oa.topk_measure_mass else \
             torch.zeros((), dtype=torch.float32, device=q.device)
         return tbl, lens, torch.stack([scored, scored, mn, mn])
-    # scores, ranking, compaction and the stats: one kernel launch on the
-    # card
-    _, tbl_s, lens_s, m, selected, aux = kops.block_topk_select_op(
-        q, cache["kmin"], cache["kmax"], tbl, lens, block_size=bs,
-        k_static=k_static, frac=0.0 if oa.topk_blocks > 0 else oa.topk_frac,
-        sink_blocks=max(oa.topk_sink_blocks, 0),
-        recent_blocks=max(oa.topk_recent_blocks, 1), token_mask=token_mask)
+    sel_kw = dict(block_size=bs, k_static=k_static,
+                  frac=0.0 if oa.topk_blocks > 0 else oa.topk_frac,
+                  sink_blocks=max(oa.topk_sink_blocks, 0),
+                  recent_blocks=max(oa.topk_recent_blocks, 1),
+                  token_mask=token_mask)
+    tp = 1 if ctx is None else ctx.tp
+    if tp == 1:
+        # scores, ranking, compaction and the stats: one kernel launch on
+        # the card
+        _, tbl_s, lens_s, m, selected, aux = kops.block_topk_select_op(
+            q, cache["kmin"], cache["kmax"], tbl, lens, **sel_kw)
+    else:
+        # the rank's scores, their max over `model`, then the ranking and
+        # compaction on the reduced scores (one launch each on the card)
+        scores = kops.block_topk_scores_op(q, cache["kmin"], cache["kmax"],
+                                           tbl, lens, block_size=bs)
+        scores = ctx.pmax_model(scores)
+        tbl_s, lens_s, m, selected, aux = block_topk_select_scores(
+            scores, tbl, lens, **sel_kw)
     if oa.topk_measure_mass:
         mass = attn_mod.selected_attention_mass(q, cache["k"], tbl, lens,
                                                 selected,
                                                 k_scale=cache.get("kscale"),
                                                 k_tok=cache.get("ktok"))
+        if tp > 1:
+            mass = ctx.psum_model(mass) / tp
         act = _live(token_mask, q)
         aux = torch.stack([aux[0], aux[1], (act * mass).sum(), act.sum()])
     return tbl_s, lens_s, aux

@@ -24,6 +24,13 @@ window positions, the greedy-prefix acceptance on the device, and a masked
 commit of the accepted rows. The slot-dense layout refuses speculation and
 ignores the top-k knobs, as the reference does.
 
+Over ranks every leaf is the rank's: the arenas, the ring block runs, the
+slot-dense caches and the handoff and preemption leaves hold K / tp KV
+heads (`stack.local_kv_heads`), and a ring run's slot arithmetic
+(`attn_mod.ring_slot`) is the same on every rank. Top-k stats are the same
+on every rank (the selection follows one max over `model`): they are
+drained per rank and never summed over ranks.
+
 MoE layers route through the engine's `tables`; each step adds the live
 rows' expert counts to a [L_moe, E] device accumulator that the server
 drains at placement ticks (`take_moe_counts`); a verify step adds the

@@ -31,9 +31,12 @@ so that tests and chip_smoke.py can compare the two modes (as
 On the CPU the entries run eagerly and still count their calls per key;
 `capture=True` there raises. A failed capture or replay raises: it never
 falls back to eager. Over NCCL the collectives inside a step are
-captured with it (warmed by the first, eager call); gloo's cannot be
-captured, so a gloo placement on the card takes capture=False
-explicitly.
+captured with it (warmed by the first, eager call) — the psums and
+all_to_alls of every layer and, with online top-k at tp > 1, each paged
+full layer's `pmax_model` of its [B, nb] block scores between the two
+block-topk launches; it adds no key and no static buffer, since its
+scores are a temporary of the step. gloo's cannot be captured, so a gloo
+placement on the card takes capture=False explicitly.
 """
 from __future__ import annotations
 

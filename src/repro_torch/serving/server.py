@@ -58,8 +58,14 @@ reach the proxy as rank 0's. With `ctx.check_lockstep` every round ends
 with an all-gather of a digest of the scheduled request ids, the step
 count and the emitted tokens, and a difference raises. A migration moves
 an expert's canonical rows from the rank that holds them
-(`_apply_migration`). QuantPlane, SpecPlane and FaultPlane are refused
-over several ranks (ROADMAP A16b).
+(`_apply_migration`); it moves expert rows only, never a slot's ring KV.
+OmniAttn runs over ranks as on one: ring layers (paged ring runs or
+slot-dense, sink + recent or a sliding window), chunks over them, whole
+prompts compressed into them, and preemption's handoff of their leaves,
+all at the rank's K / tp KV heads; online top-k max-reduces its block
+scores over `model` before ranking, so every rank attends the same blocks.
+QuantPlane, SpecPlane and FaultPlane are refused over several ranks
+(ROADMAP A16b).
 """
 from __future__ import annotations
 
@@ -159,7 +165,8 @@ def check_distributed_server(scfg: ServerConfig, faults, world: int
                              ) -> None:
     """Raise NotImplementedError, naming ROADMAP A16b, for the planes this
     slice does not run over several ranks: QuantPlane, SpecPlane and
-    FaultPlane."""
+    FaultPlane. OmniAttn's layers do run over ranks; what the model itself
+    cannot lay out is `stack.check_distributed`'s to refuse."""
     if world == 1:
         return
     for name, on in (("QuantPlane (ServerConfig.quant)",
@@ -343,12 +350,22 @@ class Server:
     def _check_lockstep(self):
         """Raise if the ranks' host state diverged this round: a CRC of the
         step count, the scheduled request ids of every engine and queue,
-        and the tokens emitted, all-gathered over the world."""
+        the tokens emitted and, with online top-k, each decode engine's
+        blocks scored and attended (its device accumulator and the drained
+        stats: one more device read a round, made only here), all-gathered
+        over the world. The top-k counts are the same on every rank by
+        construction — the scores are max-reduced over `model` before any
+        rank ranks them — so a difference means a rank's budget or
+        residency drifted."""
+        blocks = [(e.state["sparsity"][:2].tolist(), e.stats["blocks_scored"],
+                   e.stats["blocks_attended"])
+                  for e in self.decodes if "sparsity" in e.state]
         state = (self._step_count, sorted(self.proxy.inflight),
                  sorted(self._pending_kv),
                  [sorted(e.rid_slot.items()) for e in self.decodes],
                  [[t.rid for t in e.queue] for e in self.prefills],
-                 sorted((r, tuple(t)) for r, t in self._fresh.items()))
+                 sorted((r, tuple(t)) for r, t in self._fresh.items()),
+                 blocks)
         digest = zlib.crc32(repr(state).encode())
         got = self.ctx.all_gather_ints([self._step_count, digest])
         if any(g != got[0] for g in got):

@@ -24,6 +24,14 @@ totals to ``MetricsAggregator.note_sparsity``. Selection degrades to exact
 attention whenever the budget covers a slot's resident blocks — a server
 with ``budget ≥ max_blocks`` is greedy bit-identical to the exact paged
 engine.
+
+Over ranks every rank builds the same controller from the same config and
+geometry: the plan depends on neither tp nor ep. At tp > 1 each rank
+scores its own heads, the scores are max-reduced over ``model`` before the
+ranking (``models/stack.py::_select_blocks``), so every rank attends the
+same blocks and drains the same stats; nothing is summed over ranks (the
+mass, a mean over a rank's heads, is averaged over ``model`` on the
+device).
 """
 from __future__ import annotations
 

@@ -25,10 +25,10 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels.block_topk import (TOPK_NB_MAX, block_topk_scores,
-                                            block_topk_scores_plain,
-                                            block_topk_select,
-                                            select_kv_blocks)
+from repro_torch.kernels.block_topk import (
+    TOPK_NB_MAX, block_topk_scores, block_topk_scores_plain,
+    block_topk_select, block_topk_select_scores,
+    block_topk_select_scores_plain, select_kv_blocks)
 from repro_torch.kernels.flash_prefill import (flash_prefill,
                                                flash_prefill_plain)
 from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_plain
@@ -268,6 +268,41 @@ def test_block_topk_select_matches_selection(cuda, dtype, budget, nb):
     assert torch.equal(got[0][neg], plain[neg])
     assert not (got[0][~neg] == -1e30).any()
     torch.testing.assert_close(got[0], plain, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("budget", sorted(TOPK_BUDGETS))
+@pytest.mark.parametrize("nb", [8, 33, 256, 276, 1000, TOPK_NB_MAX])
+def test_block_topk_select_scores_matches_selection(cuda, budget, nb):
+    """The scores-given entry (the tensor-parallel path: each rank's score
+    pass, a max over `model`, then this launch): on given float32 scores
+    with ties, NEG_INF past the residency and a live mask, its table,
+    lens, counts, mask and stats equal `block_topk_select_scores_plain`
+    (`select_kv_blocks` and the step's stats) bit for bit."""
+    rng = np.random.default_rng(7 * nb + len(budget))
+    B, bs = 4, 16
+    N = B * nb + 1
+    tables = torch.from_numpy(rng.permutation(np.arange(1, N))[:B * nb]
+                              .reshape(B, nb).astype(np.int32)).to(cuda)
+    lens = torch.tensor([1, nb * bs // 2 + 5, nb * bs, nb * bs - 3],
+                        dtype=torch.int32, device=cuda)
+    scores = torch.from_numpy(rng.integers(-4, 5, (B, nb)).astype(
+        np.float32)).to(cuda)                       # ties everywhere
+    res = torch.arange(nb, device=cuda)[None] * bs < lens[:, None]
+    scores = torch.where(res, scores, torch.full_like(scores, -1e30))
+    kw = dict(dict(sink_blocks=1, recent_blocks=2), **TOPK_BUDGETS[budget](nb))
+    mask = None if budget == "absolute" else torch.tensor(
+        [True, False, True, True], device=cuda)
+    n0 = block_topk_select_scores.launches
+    got = block_topk_select_scores(scores, tables, lens, block_size=bs,
+                                   token_mask=mask, **kw)
+    assert block_topk_select_scores.launches == n0 + 1
+    torch.cuda.synchronize()
+    want = block_topk_select_scores_plain(scores, tables, lens,
+                                          block_size=bs, token_mask=mask,
+                                          **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
 
 
 @pytest.mark.gpu

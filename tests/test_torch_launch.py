@@ -81,13 +81,25 @@ def test_serve_refuses_multi_gpu():
                     "--tp", "2", "--ep", str(n + 1), "--backend", "nccl"])
 
 
-def test_serve_refuses_ring_layers_over_ranks():
-    """Every config's default OmniAttn pattern has ring layers, which over
-    several ranks are ROADMAP A16b: without --full-attention the launcher
-    raises before it starts a process."""
+def test_serve_default_pattern_over_four_gloo_ranks(capsys):
+    """Over ranks the launcher serves the config's default OmniAttn
+    pattern (reduced qwen2-moe-a2.7b: both layers sink + recent rings)
+    without --full-attention: four gloo ranks, every request done by its
+    length, as on one rank."""
+    argv = ["--arch", "qwen2-moe-a2.7b", "--reduced", "--device", "cpu",
+            "--requests", "4", "--max-tokens", "3"]
+    one = serve.main(argv)
+    s = serve.main(argv + ["--tp", "2", "--ep", "2", "--backend", "gloo"])
+    assert s["n_done"] == one["n_done"] == 4
+    assert s["n_length"] == one["n_length"] == 4
+
+
+def test_serve_refuses_mamba_over_tp():
+    """What a rank still cannot lay out raises A16b before any process
+    starts: Mamba-2 layers at tp > 1."""
     with pytest.raises(NotImplementedError, match="A16b"):
-        serve.main(["--arch", "qwen2-moe-a2.7b", "--reduced", "--tp", "2",
-                    "--ep", "2", "--backend", "gloo", "--device", "cpu"])
+        serve.main(["--arch", "mamba2-130m", "--reduced", "--tp", "2",
+                    "--backend", "gloo", "--device", "cpu"])
 
 
 def test_serve_over_four_gloo_ranks(capsys):

@@ -109,6 +109,37 @@ def server_config(case, port: bool, placement_on: bool = True):
                         oas=OASConfig(defer_window=0.0), **kw)
 
 
+def top2_margin(cfg, params, prompt, stream, i, pattern=None) -> float:
+    """The one-rank port's top-2 logit margin at stream position i: a
+    whole-prompt prefill of prompt + stream[:i] on the CPU."""
+    from repro_torch.models.lm import LM
+    lm = LM.build(cfg, pattern=pattern, device="cpu")
+    ctx = list(prompt) + list(stream[:i])
+    with torch.no_grad():
+        _, logits, _ = lm.prefill(params, torch.tensor([ctx]),
+                                  max_len=len(ctx) + 1,
+                                  tables=lm.default_tables())
+    top = torch.topk(logits[0].float(), 2).values
+    return float(top[0] - top[1])
+
+
+def assert_streams(got: dict, want: dict, what: str, margin=None):
+    """Equal streams {rid: tokens}, or an AssertionError naming the first
+    differing token and, with `margin` (rid, i → float), the one-rank
+    model's top-2 logit margin there."""
+    assert got.keys() == want.keys(), (what, sorted(got), sorted(want))
+    for rid in sorted(want):
+        a, b = got[rid], want[rid]
+        if a == b:
+            continue
+        i = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                 min(len(a), len(b)))
+        m = f" (one-rank top-2 logit margin there {margin(rid, i):.3g})" \
+            if margin is not None and i < len(b) else ""
+        raise AssertionError(f"{what}: request {rid} differs from the "
+                             f"reference at token {i}{m}: {a} vs {b}")
+
+
 # ---- the rank side ----------------------------------------------------
 def _slots(ctx, cfg, cw):
     """This rank's slot weights [1, s, ...] (expert width cut over
@@ -259,4 +290,232 @@ def child(rank: int, store_path: str, in_path: str, out_dir: str):
         raise
     finally:
         torch.save(res, f"{out_dir}/rank{rank}.pt")
+        dist.destroy_process_group()
+
+
+# ---- tests/test_torch_distributed_omniattn.py: OmniAttn over ranks -------
+# the reference's mesh-parity cases at the default pattern (pattern None:
+# reduced qwen2-moe's two layers are both sink 4 + recent 16 rings, and
+# whole prompts prefill because prefill_sparse is off), chunks over the
+# rings (prefill_sparse on), the slot-dense layout, and online top-k over
+# two full layers: name → (ServerConfig case or kwargs, requests, pattern,
+# config updates)
+TOPK_SCFG = dict(max_len=128, kv_block_size=8, chunk_tokens=16,
+                 prefill_tick_budget=32, kv_blocks=60)
+TOPK_KNOBS = dict(topk_blocks=3, topk_measure_mass=True)
+OMNI_CASES = {
+    "bs8": ("bs8", "parity", None, {}),
+    "bs16": ("bs16", "parity", None, {}),
+    "preempt": ("preempt", "preempt", None, {}),
+    "migrate": ("migrate", "migrate", None, {}),
+    "sparse": ("bs8", "parity", None, dict(prefill_sparse=True)),
+    "dense": (dict(max_len=96, kv_block_size=8, chunk_tokens=16,
+                   paged_kv=False), "parity", None, {}),
+    "topk": (TOPK_SCFG, "topk", [0, 0], {"omniattn": TOPK_KNOBS}),
+}
+G3_SCFG = dict(max_len=96, kv_block_size=8, chunk_tokens=16)
+# _select_blocks' unit case: B slots over nb blocks of SEL_BS tokens, the
+# reduced qwen2-moe's H 4 query / K 2 KV heads (one KV head a rank at tp 2)
+SEL_B, SEL_NB, SEL_BS = 3, 10, 8
+
+
+def omni_cfg(case):
+    """The port's config of an OmniAttn case."""
+    upd = dict(OMNI_CASES[case][3])
+    knobs = upd.pop("omniattn", None)
+    cfg = moe_cfg(**upd)
+    if knobs:
+        cfg = cfg.with_updates(omniattn=replace(cfg.omniattn, **knobs))
+    return cfg
+
+
+def g3_cfg():
+    from repro_torch.configs import reduced_config
+    return reduced_config("gemma3-4b").with_updates(
+        compute_dtype="float32", param_dtype="float32")
+
+
+def topk_requests(vocab):
+    """Four prompts of 33-90 tokens: up to 13 resident blocks of 8 against
+    a budget of 3."""
+    rng = np.random.default_rng(11)
+    return [(tuple(int(x) for x in rng.integers(0, vocab, n)), 8)
+            for n in (50, 70, 33, 90)]
+
+
+def g3_requests(vocab):
+    """Prompts past reduced gemma3's 32-token windows and 20-token rings."""
+    rng = np.random.default_rng(61)
+    return [(tuple(int(x) for x in rng.integers(0, vocab, n)), 10)
+            for n in (40, 48, 21, 57)]
+
+
+def omni_requests(kind, vocab):
+    if kind == "topk":
+        return topk_requests(vocab)
+    return case_requests(kind, vocab)
+
+
+def omni_server_config(case, port: bool, placement_on: bool = True):
+    scase = OMNI_CASES[case][0]
+    if isinstance(scase, str):
+        return server_config(scase, port, placement_on)
+    return server_config_kw(scase, port)
+
+
+def server_config_kw(kw, port: bool):
+    if port:
+        from repro_torch.core.proxy import OASConfig
+        from repro_torch.serving import ServerConfig
+    else:
+        from repro.core.proxy import OASConfig
+        from repro.serving import ServerConfig
+    return ServerConfig(n_prefill=1, n_decode=1, decode_slots=4,
+                        enable_placement=False, oas=OASConfig(
+                            defer_window=0.0), **kw)
+
+
+def select_inputs(seed=3):
+    """Seeded inputs of one top-k decode step over one paged layer: q
+    [B, H, h], the block summaries kmin/kmax [N, K, h], tables and lens,
+    with the first KV head's queries scaled down so that each rank, ranking
+    its own heads alone, keeps other blocks than the max over all heads."""
+    cfg = moe_cfg()
+    H, K, h = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    rng = np.random.default_rng(seed)
+    N = SEL_B * SEL_NB + 1
+    q = rng.standard_normal((SEL_B, H, h)).astype(np.float32)
+    q[:, :H // K] *= 0.25
+    lo = rng.standard_normal((N, K, h)).astype(np.float32)
+    hi = lo + np.abs(rng.standard_normal((N, K, h))).astype(np.float32)
+    tables = (1 + np.arange(SEL_B * SEL_NB)).reshape(SEL_B, SEL_NB)
+    lens = np.array([SEL_NB * SEL_BS, SEL_NB * SEL_BS - 3, 5 * SEL_BS + 1])
+    return {"q": torch.from_numpy(q), "kmin": torch.from_numpy(lo),
+            "kmax": torch.from_numpy(hi),
+            "tables": torch.from_numpy(tables.astype(np.int32)),
+            "lens": torch.from_numpy(lens.astype(np.int32)),
+            "mask": torch.tensor([True, True, False])}
+
+
+def run_select(cfg, ins, t: int = 0, tp: int = 1, ctx=None):
+    """`stack._select_blocks` on the heads of `model` rank t of tp (all of
+    them at tp 1) → (table, lens, aux) on the CPU; `ctx` None ranks that
+    rank's own scores alone."""
+    from repro_torch.models import stack as tstack
+    H, K, h = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    hq, hk = H // tp, K // tp
+    N = ins["kmin"].shape[0]
+    cache = {"k": torch.zeros((N, hk, SEL_BS, h)),
+             "kmin": ins["kmin"][:, t * hk:(t + 1) * hk].contiguous(),
+             "kmax": ins["kmax"][:, t * hk:(t + 1) * hk].contiguous()}
+    q = ins["q"][:, t * hq:(t + 1) * hq].contiguous()
+    scfg = cfg.with_updates(omniattn=replace(cfg.omniattn, topk_blocks=4))
+    tbl, lens, aux = tstack._select_blocks(scfg, q, cache, ins["tables"],
+                                           ins["lens"], ins["mask"], ctx)
+    return tbl, lens, aux
+
+
+class PairCtx:
+    """(tp 2, ep 1) inside the (tp 2, ep 2) world: the two ranks that share
+    e serve a dense model as a world of their own. The server's world
+    collectives (the round's clock, the lockstep digest) run over their
+    `model` group."""
+
+    @staticmethod
+    def of(ctx):
+        from repro_torch.distributed import RankCtx
+
+        class _Pair(RankCtx):
+            def broadcast_floats(self, values):
+                t = torch.tensor(values, dtype=torch.float64)
+                dist.broadcast(t, src=dist.get_global_rank(
+                    self.model_group, 0), group=self.model_group)
+                return t.tolist()
+
+            def all_gather_ints(self, values):
+                t = torch.tensor(values, dtype=torch.int64)
+                parts = [torch.empty_like(t) for _ in range(self.world)]
+                dist.all_gather(parts, t, group=self.model_group)
+                return [p.tolist() for p in parts]
+
+        return _Pair(ep=1, tp=ctx.tp, rank=ctx.t, backend=ctx.backend,
+                     model_group=ctx.model_group, check_lockstep=True)
+
+
+def _ring_leaves(srv) -> list:
+    """Every ring-layer leaf of the decode engines' private caches."""
+    return [t for eng in srv.decodes for e in eng.cache["layers"]
+            if e is not None for t in e.values()]
+
+
+def _serve(srv, reqs, spy_migration=False) -> dict:
+    kept = []
+    if spy_migration:
+        # a migration moves expert rows, never ring KV
+        orig = srv._apply_migration
+
+        def spied(plan):
+            before = [t.clone() for t in _ring_leaves(srv)]
+            out = orig(plan)
+            kept.append(all(torch.equal(a, b) for a, b in zip(
+                before, _ring_leaves(srv))) and len(before) > 0)
+            return out
+        srv._apply_migration = spied
+    s = srv.run(reqs, max_wall_s=120)
+    for eng in srv.decodes:
+        eng.pool.check_invariants(arena=srv.kv_arena)
+        assert eng.stats["host_fetches"] == eng.stats["steps"]
+    if srv.kv_arena is not None:
+        srv.kv_arena.pool.check_invariants(arena=srv.kv_arena)
+    ds = s["decode_stats"][0]
+    return {"n_done": s["n_done"],
+            "streams": {r.rid: tuple(r.output_tokens)
+                        for r in srv.metrics.done},
+            "preemptions": ds["preemptions"],
+            "n_migrations": s["n_migrations"],
+            "migration_bytes": srv.migration_stats["bytes"],
+            "ring_kept": kept,
+            "prefill_chunked": srv.prefills[0].chunked,
+            "sparsity": {k: s[k] for k in ("blocks_scored", "blocks_attended",
+                                           "attn_mass_kept") if k in s}}
+
+
+def run_omni_servers(ctx, inputs):
+    from repro_torch.serving import DevicePlacement, Server
+    out = {}
+    cpu = torch.device("cpu")
+    for case, (_, kind, pattern, _) in OMNI_CASES.items():
+        cfg = omni_cfg(case)
+        srv = Server(cfg, omni_server_config(case, port=True),
+                     pattern=pattern, params=inputs["moe_params"],
+                     placement=DevicePlacement(cpu, ctx=ctx))
+        out[case] = _serve(srv, omni_requests(kind, cfg.vocab_size),
+                           spy_migration=case == "migrate")
+    pair = PairCtx.of(ctx)
+    cfg = g3_cfg()
+    srv = Server(cfg, server_config_kw(G3_SCFG, port=True),
+                 params=inputs["g3_params"],
+                 placement=DevicePlacement(cpu, ctx=pair))
+    out["gemma3"] = _serve(srv, g3_requests(cfg.vocab_size))
+    return out
+
+
+def omni_child(rank: int, store_path: str, in_path: str, out_dir: str):
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, WORLD),
+                            rank=rank, world_size=WORLD, timeout=TIMEOUT)
+    res = {}
+    try:
+        from repro_torch.distributed import RankCtx
+        ctx = RankCtx.build(TP, EP, check_lockstep=True)
+        inputs = torch.load(in_path, weights_only=False)
+        cfg = moe_cfg()
+        res["select"] = run_select(cfg, inputs["select"], ctx.t, TP, ctx)
+        res["select_local"] = run_select(cfg, inputs["select"], ctx.t, TP)
+        res["servers"] = run_omni_servers(ctx, inputs)
+    except BaseException:
+        res["error"] = traceback.format_exc()
+        raise
+    finally:
+        torch.save(res, f"{out_dir}/omni_rank{rank}.pt")
         dist.destroy_process_group()
