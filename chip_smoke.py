@@ -6097,7 +6097,7 @@ def dist_rank(rank, world, backend, init, out_dir, dev_type="cuda"):
 
 
 def check_rank_local_kernels(dev, timer, log, cfg):
-    """The kernels of phases 17 and 18 at one rank's shapes (tp 2, ep 2),
+    """The kernels of phases 17, 18 and 19 at one rank's shapes,
     each against its plain version, timed with its bound and library call
     → {kernel: {record name: record}}. Phase 17's four ("tp2ep2"):
     paged_decode and paged_prefill over K / tp = 8 KV heads (G 1, h 128,
@@ -6110,7 +6110,11 @@ def check_rank_local_kernels(dev, timer, log, cfg):
     window 4,096 ("tp2ep2_window"), sink_decode over the W 4,224 ring
     ("tp2ep2"), and block_topk's score pass over K 8 heads of an nb 288
     table ("tp2ep2") with the scores-given ranking of the max-reduced
-    scores ("tp2ep2_select_scores", exact)."""
+    scores ("tp2ep2_select_scores", exact). Phase 19's (tp 4, ep 1) 'wseq'
+    shapes ("tp4"): granite-34b's G 12 over one KV head — paged_decode over
+    full tables and ring runs ("tp4_ring"), paged_prefill, sink_decode,
+    flash_prefill — and qwen2-1.5b's G 3 ("tp4_qwen2": paged_decode,
+    paged_prefill; on no served path)."""
     from repro_torch.kernels.block_topk import (
         block_topk_scores, block_topk_scores_plain, block_topk_select_scores,
         block_topk_select_scores_plain)
@@ -6123,6 +6127,7 @@ def check_rank_local_kernels(dev, timer, log, cfg):
                                                    paged_prefill_plain)
     from repro_torch.kernels.sink_decode import sink_decode, sink_decode_plain
     from repro_torch.models import moe as moe_mod
+    from repro_torch.models import stack as tstack
     dt = torch.float32
     K, h = cfg.n_kv_heads // P17_TP, cfg.head_dim
     G = cfg.n_heads // cfg.n_kv_heads
@@ -6133,14 +6138,15 @@ def check_rank_local_kernels(dev, timer, log, cfg):
     cb_pre = moe_mod._bucket_capacity(128, k, P17_EP, s, cf)
     rec = {}
 
-    def one(name, kern, plain, args, bnd, lib, shape, tol=TOL[dt]):
+    def one(name, kern, plain, args, bnd, lib, shape, tol=TOL[dt],
+            sub="tp2ep2"):
         got, want = kern(*args).float(), plain(*args).float()
         torch.cuda.synchronize()
         if not torch.isfinite(got).all():
-            raise AssertionError(f"{name} tp2ep2: non-finite kernel output")
-        torch.testing.assert_close(got, want, **tol, msg=f"{name} tp2ep2")
+            raise AssertionError(f"{name} {sub}: non-finite kernel output")
+        torch.testing.assert_close(got, want, **tol, msg=f"{name} {sub}")
         err = float((got - want).abs().max())
-        log.append(f"{name} float32 tp2ep2 {shape}: max_abs_err={err:.3g}")
+        log.append(f"{name} float32 {sub} {shape}: max_abs_err={err:.3g}")
         return {"max_abs_err": err, "ms": timer(lambda: kern(*args)),
                 "plain_ms": timer(lambda: plain(*args)),
                 "library_ms": timer(lib) if lib is not None else None,
@@ -6259,6 +6265,64 @@ def check_rank_local_kernels(dev, timer, log, cfg):
         "plain_ms": timer(selp), "library_ms": None, "bound_ms": gb[0],
         "bound_by": gb[1], "bytes": gb[2], "flops": gb[3],
         "shape": f"B 4, nb {nbt}, k_static {k_static}, frac 0.25"}
+    del ta, other, scores
+    # phase 19 ("tp4"): one rank of (tp 4, ep 1) under 'wseq' — granite's
+    # 12 query heads over its one KV head (G 12) at phase 19's shapes:
+    # decode over full tables (nb 32) and ring runs (nb 264, the rings
+    # not yet wrapped at 449-458 tokens), a 128-token chunk at offset 256,
+    # the slot-dense ring (W 4,224) and a 448-token prompt's 512 bucket;
+    # and qwen2-1.5b's 3 query heads over KV head t // 2 (G 3), which no
+    # phase serves at tp 4
+    from repro_torch.configs import get_config
+    for sub, arch in (("tp4", "granite-34b"), ("tp4_qwen2", "qwen2-1.5b")):
+        c = get_config(arch)
+        hl = tstack.head_layout(c, 4)
+        Kt, Gt, ht = hl.nk, hl.nq // hl.nk, c.head_dim
+        lens = [449, 452, 455, 458]
+        dec = decode_inputs(dev, dt, 4, Kt, Gt, ht, 16, 32, 161, lens, 81)
+        out["paged_decode"][sub] = one(
+            "paged_decode", paged_decode, paged_decode_plain, dec,
+            decode_bound(dec[0], dec[1], dec[3], dec[4]), sdpa_decode(*dec),
+            f"{arch} rank: B 4, K {Kt}, G {Gt}, h {ht}, nb 32, lens "
+            f"449-458", sub=sub)
+        pre = prefill_inputs(dev, dt, 1, Kt, 128, Gt, ht, 16, 32, 161,
+                             [256], [128], 82)
+        out["paged_prefill"][sub] = one(
+            "paged_prefill", paged_prefill, paged_prefill_plain, pre,
+            prefill_bound(pre[0], pre[1], pre[3], pre[5], pre[6], pre[7]),
+            sdpa_prefill(*pre), f"{arch} rank: K {Kt}, G {Gt}, S 128, "
+            f"off 256", sub=sub)
+        if sub != "tp4":
+            continue
+        nbr = -(-(c.omniattn.sink_tokens + c.omniattn.recent_tokens) // 16)
+        ring = decode_inputs(dev, dt, 4, Kt, Gt, ht, 16, nbr, 4 * nbr + 1,
+                             lens, 83)
+        out["paged_decode"]["tp4_ring"] = one(
+            "paged_decode ring", paged_decode, paged_decode_plain, ring,
+            decode_bound(ring[0], ring[1], ring[3], ring[4]),
+            sdpa_decode(*ring), f"{arch} rank: B 4, K {Kt}, G {Gt}, h {ht},"
+            f" nb {nbr}, lens 449-458", sub="tp4_ring")
+        del ring
+        W = c.omniattn.sink_tokens + c.omniattn.recent_tokens
+        qs = torch.randn((4, Kt, Gt, ht), generator=g, device=dev)
+        kc, vc = (torch.randn((4, W, Kt, ht), generator=g, device=dev)
+                  .transpose(1, 2) for _ in range(2))
+        t = torch.tensor(lens, dtype=torch.int32, device=dev)
+        out["sink_decode"]["tp4"] = one(
+            "sink_decode", sink_decode, sink_decode_plain, (qs, kc, vc, t),
+            sink_bound(qs, kc, t), sdpa_sink(qs, kc, vc, t),
+            f"{arch} rank: B 4, K {Kt}, G {Gt}, h {ht}, W {W}, t {lens}",
+            tol=TOL_DENSE[dt], sub="tp4")
+        del kc, vc
+        q, kk, vv = (torch.randn((Kt * Gt, 512, ht), generator=g,
+                                 device=dev) for _ in range(3))
+        out["flash_prefill"]["tp4"] = one(
+            "flash_prefill", fl, fp, (q, kk, vv),
+            flash_bound(q, kk, True, 0, 0),
+            sdpa_flash(q, kk, vv, True, 0, 0),
+            f"{arch} rank: N {Kt * Gt}, S 512, h {ht}", tol=TOL_DENSE[dt],
+            sub="tp4")
+        del q, kk, vv
     return out
 
 
@@ -6571,6 +6635,174 @@ def omni_dist_phase(dev, timer, log):
                f"{ranks[0]['shard_gb']:.2f} GB, carried over in "
                f"{ranks[0]['transfer_s']:.1f} s; pmax_model of [4, "
                f"{-(-P18_MAX_LEN // 16)}] scores {ranks[0]['pmax_ms']:.3f} ms")
+    return out
+
+
+# ---- phase 19: every layout over (tp 4, ep 1): granite-34b, mamba2 ------
+P19_TP, P19_EP = 4, 1
+P19_LAYERS = 8          # of granite's 88: the one-rank model and the four
+                        # shards fit on one card together
+P19_WORLD_S = 420       # the world joins within this, or is killed
+# the runs: name → (arch, chunked prefill, paged KV)
+P19_RUNS = {"a_granite_chunked": ("granite-34b", True, True),
+            "a_granite_whole": ("granite-34b", False, False),
+            "b_mamba2_chunked": ("mamba2-130m", True, True)}
+P19_NEEDS = {"a_granite_chunked": ("paged_decode", "paged_prefill"),
+             "a_granite_whole": ("sink_decode", "flash_prefill"),
+             "b_mamba2_chunked": ()}
+
+
+def layout_config(run):
+    """Phase 19's model of `run`: granite-34b at full width (d 6,144, 48
+    query heads over 1 KV head, h 128, d_ff 24,576, vocab 49,152) in
+    float32, its first P19_LAYERS layers at the default pattern (three of
+    four layers sink 128 + recent 4,096 rings; chunked runs mask their
+    chunks with it, prefill_sparse), or mamba2-130m as published."""
+    from repro_torch.configs import get_config
+    arch, chunked, _ = P19_RUNS[run]
+    if arch == "mamba2-130m":
+        return mamba2_config()
+    cfg = get_config(arch).with_updates(
+        n_layers=P19_LAYERS, compute_dtype="float32", param_dtype="float32",
+        prefill_sparse=chunked)
+    assert (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+            cfg.d_ff, cfg.vocab_size) == (6144, 48, 1, 128, 24576, 49152)
+    assert cfg.default_compression_pattern() == [1, 1, 1, 0] * 2
+    return cfg
+
+
+def layout_server(run, dev=None, params=None, placement=None):
+    """Phase 19's server: phase 17's (4 slots, 512-token context, 128-token
+    chunks) at the config's default pattern; (a)'s whole-prompt run
+    slot-dense."""
+    from repro_torch.core.proxy import OASConfig
+    from repro_torch.serving import Server, ServerConfig
+    _, chunked, paged = P19_RUNS[run]
+    scfg = ServerConfig(n_prefill=1, n_decode=1, decode_slots=4, max_len=512,
+                        chunk_tokens=128, prefill_tick_budget=512,
+                        kv_block_size=16, chunked_prefill=chunked,
+                        paged_kv=paged, enable_placement=False,
+                        oas=OASConfig(defer_window=0.0))
+    return Server(layout_config(run), scfg, pattern=None, params=params,
+                  seed=P17_SEED, device=dev, placement=placement)
+
+
+def layout_collective_ms(ctx, cfg, dev) -> dict:
+    """The collectives of one decode step of 4 slots at (tp 4, ep 1),
+    timed alone: per layer the psums of the [4, 1, D] partial rows
+    (attention's wo and the FFN's w2; a Mamba-2 layer's out_proj and its
+    ssm_norm's [4, 1, 1] sums of squares), per step the embedding's psum
+    and the logits' gather."""
+    D, V = cfg.d_model, cfg.vocab_size
+    z = lambda *shape: torch.zeros(shape, dtype=torch.float32, device=dev)
+    row, ss, logits = z(4, 1, D), z(4, 1, 1), z(4, V // ctx.tp)
+    out = {"psum_row": timed_collective(lambda: ctx.psum_model(row), dev),
+           "psum_ss": timed_collective(lambda: ctx.psum_model(ss), dev),
+           "gather_logits": timed_collective(
+               lambda: ctx.all_gather_model(logits), dev)}
+    second = out["psum_ss"] if cfg.family == "ssm" else out["psum_row"]
+    out["per_layer"] = out["psum_row"] + second
+    out["per_step"] = cfg.n_layers * out["per_layer"] + out["psum_row"] \
+        + out["gather_logits"]
+    return out
+
+
+def layout_rank(rank, world, backend, init, out_dir, dev_type="cuda"):
+    """One rank of phase 19: join the group; per model, build the rank's
+    shard of the seed's one-rank model (transfer_params), serve its runs,
+    time a decode step's collectives; write <out_dir>/p19_rank<r>.json."""
+    from repro_torch.serving import DevicePlacement
+    dev, nccl = join_world(rank, world, backend, init, dev_type)
+    res = {"rank": rank}
+    try:
+        pl = DevicePlacement.build(P19_TP, P19_EP, dev, backend,
+                                   capture=None if nccl else False,
+                                   check_lockstep=True)
+        for arch in ("granite-34b", "mamba2-130m"):
+            runs = [r for r, v in P19_RUNS.items() if v[0] == arch]
+            cfg = layout_config(runs[0])
+            res[arch] = {}
+            params = shard_weights(pl, cfg, None, dev, world, rank,
+                                   res[arch])
+            prompts, sp = dist_workload(cfg.vocab_size)
+            for run in runs:
+                srv = layout_server(run, params=params,
+                                    placement=DevicePlacement(
+                                        pl.device, pl.capture, pl.ctx))
+                res[run] = warm_and_drive(srv, prompts, sp, warm_prompts=2,
+                                          warm_runs=1)
+                del srv
+                gc.collect()
+            res[arch]["collectives_ms"] = layout_collective_ms(pl.ctx, cfg,
+                                                               dev)
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+        res["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    except BaseException as exc:
+        res["error"] = f"{type(exc).__name__}: {exc}"
+    leave_world(res, Path(out_dir) / f"p19_rank{rank}.json", nccl)
+
+
+def layout_dist_phase(dev, timer, log):
+    """Phase 19: the layouts phases 17 and 18 did not reach, over (tp 4,
+    ep 1) on the transport phase 17 picks: (a) granite-34b (P19_LAYERS
+    layers at full width, float32, its default pattern), MQA, so 'wseq':
+    each rank 12 query heads over the one KV head that every rank's caches
+    hold whole — chunked over paged arenas and ring runs, and whole
+    prompts into the slot-dense layout; (b) mamba2-130m as published, 6
+    of its 24 SSD heads a rank, chunked. The one-rank port Server serves
+    first on seed-0 weights; every rank's streams must equal its; each run
+    launches its kernels. A failure here fails the run."""
+    world = P19_TP * P19_EP
+    n_cards = torch.cuda.device_count()
+    backend = "nccl" if n_cards >= world else "gloo"
+    out = {"backend": backend, "cards": n_cards, "one_rank": {}}
+    ref, params, prompts = {}, None, {}
+    for run, (arch, _, _) in P19_RUNS.items():
+        if params is not None and params[0] != arch:
+            params = None
+            gc.collect()
+            torch.cuda.empty_cache()
+        srv = layout_server(run, dev=dev,
+                            params=None if params is None else params[1])
+        params = (arch, srv.params)
+        prompts[run], sp = dist_workload(srv.cfg.vocab_size)
+        ref[run] = warm_and_drive(srv, prompts[run], sp, warm_prompts=2,
+                                  warm_runs=1)
+        out["one_rank"][run] = {x: ref[run][x] for x in (
+            "metrics", "launches", "decode_round_ms", "steps")}
+        out["one_rank"][run]["weights_gb"] = params_gb(srv.params)
+        del srv
+        gc.collect()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["one_rank_peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    ranks, out["world_s"] = run_world(layout_rank, world, backend, "p19_rank",
+                                      P19_WORLD_S)
+    for run in P19_RUNS:
+        check_rank_streams("phase 19", run, ranks, ref[run]["streams"],
+                           prompts[run], lambda r=run: layout_server(
+                               r, dev=dev))
+    for r in ranks:
+        for run, need in P19_NEEDS.items():
+            for k in need:
+                if r[run]["launches"].get(k, 0) <= 0:
+                    raise AssertionError(f"phase 19 {run}: rank "
+                                         f"{r['rank']} launched no {k}")
+        if dev.type == "cuda" and any(r["b_mamba2_chunked"]["launches"]
+                                      .values()):
+            raise AssertionError("phase 19 (b): mamba2 launched a kernel")
+    out["ranks"] = ranks
+    r0 = ranks[0]
+    out["collective_share"] = {
+        run: r0[P19_RUNS[run][0]]["collectives_ms"]["per_step"]
+        / r0[run]["decode_round_ms"] for run in P19_RUNS}
+    log.append(f"transport: {backend}; rank 0's shards: granite "
+               f"{r0['granite-34b']['shard_gb']:.2f} GB carried over in "
+               f"{r0['granite-34b']['transfer_s']:.1f} s, mamba2 "
+               f"{r0['mamba2-130m']['shard_gb']:.3f} GB")
     return out
 
 
@@ -7284,6 +7516,48 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    t19 = time.monotonic()
+    dist19 = layout_dist_phase(dev, timer, log)
+    l0 = dist19["ranks"][0]
+    print(f"phase 19 [{time.monotonic() - t0:.1f} s]: over (tp {P19_TP}, ep "
+          f"{P19_EP}), {dist19['backend']}: granite-34b at full width "
+          f"({P19_LAYERS} of 88 layers, float32, default pattern; 'wseq': "
+          f"12 query heads a rank over the one KV head) and mamba2-130m as "
+          f"published (6 of 24 SSD heads a rank), in "
+          f"{time.monotonic() - t19:.1f} s (the world "
+          f"{dist19['world_s']:.1f} s)")
+    for line in log:
+        print("  " + line)
+    for run, what in (("a_granite_chunked", "(a) granite, chunked prefill "
+                       "over paged arenas and ring runs"),
+                      ("a_granite_whole", "(a) granite, whole prompts, "
+                       "slot-dense"),
+                      ("b_mamba2_chunked", "(b) mamba2, chunked paged")):
+        m, o = l0[run]["metrics"], dist19["one_rank"][run]
+        m1 = o["metrics"]
+        ln = {k: v for k, v in l0[run]["launches"].items() if v}
+        cm = l0[P19_RUNS[run][0]]["collectives_ms"]
+        print(f"  {what}: 8 prompts x {P17_NEW} greedy tokens, streams of "
+              f"all four ranks equal the one-rank Server's; rank 0 launches "
+              f"{ln}; TTFT mean {m['ttft_mean'] * 1e3:.1f} ms p99 "
+              f"{m['ttft_p99'] * 1e3:.1f} ms, TPOT mean "
+              f"{m['tpot_mean_ms']:.2f} ms p99 {m['tpot_p99_ms']:.2f} ms, "
+              f"decode round {l0[run]['decode_round_ms']:.2f} ms, "
+              f"collectives {cm['per_step']:.2f} ms a step = "
+              f"{dist19['collective_share'][run]:.3f} of it (one rank: "
+              f"TTFT mean {m1['ttft_mean'] * 1e3:.1f} ms, TPOT mean "
+              f"{m1['tpot_mean_ms']:.2f} ms, decode round "
+              f"{o['decode_round_ms']:.2f} ms, weights "
+              f"{o['weights_gb']:.2f} GB) [{smi}]")
+    print(f"  peak memory per rank "
+          + ", ".join(f"{r['peak_mem_gb']:.2f}" for r in dist19["ranks"])
+          + f" GB (granite shards {l0['granite-34b']['shard_gb']:.2f} GB "
+          f"each, the whole model built one rank at a time); one-rank "
+          f"Server peak {dist19['one_rank_peak_gb']:.2f} GB [{smi}]")
+    log.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
     for rec in (served, spec["runs"]["spec_on"], spec["runs"]["spec_off"],
                 quant):
         rec.pop("streams", None)
@@ -7291,7 +7565,8 @@ def main() -> int:
                   default_pattern=omni, topk=topk, spec=spec, moe=moe,
                   quant=quant, eager=eager, ring_chunks=rings, chaos=chaos,
                   archs=archs, mamba2=mamba2, jamba=jamba, train=trained,
-                  frontends=fronts, dist=dist17, omni_dist=dist18)
+                  frontends=fronts, dist=dist17, omni_dist=dist18,
+                  layout_dist=dist19)
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 
@@ -7386,6 +7661,18 @@ def main() -> int:
     new_launches["block_topk"]["tp2ep2"] = qc["block_topk_scores"]
     new_launches["block_topk"]["tp2ep2_select_scores"] = \
         qc["block_topk_select_scores"]
+    # phase 19: rank 0's launches of (a) chunked (paged_decode over 2 full
+    # and 6 ring tables a step: both records count every launch) and (a)
+    # whole-prompt slot-dense; qwen2-1.5b's tp4 shapes are on no path
+    ga, gw = (l0[r]["launches"] for r in ("a_granite_chunked",
+                                          "a_granite_whole"))
+    new_launches["paged_decode"]["tp4"] = ga["paged_decode"]
+    new_launches["paged_decode"]["tp4_ring"] = ga["paged_decode"]
+    new_launches["paged_prefill"]["tp4"] = ga["paged_prefill"]
+    new_launches["sink_decode"]["tp4"] = gw["sink_decode"]
+    new_launches["flash_prefill"]["tp4"] = gw["flash_prefill"]
+    new_launches["paged_decode"]["tp4_qwen2"] = 0
+    new_launches["paged_prefill"]["tp4_qwen2"] = 0
     new_int8 = {
         "paged_decode": {"h256": g3["d_int8"]["launches"]["paged_decode_int8"],
                          "h96": 0, "h80": 0},
@@ -7451,6 +7738,8 @@ def main() -> int:
                                                     "library_ms",
                                                     "max_abs_err")}
                 entry[sub]["on_path"] = launches_ > 0
+            if sub == "tp4_qwen2":
+                entry[sub]["on_path"] = False
         for sub, launches_ in new_int8.get(name, {}).items():
             src = kern_q[key][f"float32_{sub}"]
             entry["int8"][sub] = {k: src[k] for k in (
@@ -7465,12 +7754,13 @@ def main() -> int:
                 continue
             subs = ("h256", "g48", "qwen3moe", "jamba", "jamba_ring",
                     "jamba_chunk", "h80", "h96", "tp2ep2", "tp2ep2_ring",
-                    "tp2ep2_window", "tp2ep2_select_scores")
+                    "tp2ep2_window", "tp2ep2_select_scores", "tp4",
+                    "tp4_ring", "tp4_qwen2")
             for sub in subs:
                 if sub in rec and rec[sub]["launches"] <= 0 and \
                         rec[sub].get("on_path", True):
                     raise AssertionError(f"{k['name']} {sub}: no launch in "
-                                         f"phase 13, 14, 16, 17 or 18")
+                                         f"phase 13, 14, 16, 17, 18 or 19")
             for r in (rec, rec.get("ring"), rec.get("long"),
                       rec.get("select")) + tuple(rec.get(x) for x in subs):
                 for key in ("max_abs_err", "ms", "plain_ms", "bound_ms"):

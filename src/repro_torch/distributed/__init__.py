@@ -1,6 +1,5 @@
 """Multi-rank placement of the port: the rank context (`RankCtx`) with
 its `data` (EP) and `model` (TP) subgroups and explicit collectives."""
-from repro_torch.distributed.ctx import (RankCtx, decode_strategy,
-                                         prefill_strategy)
+from repro_torch.distributed.ctx import RankCtx
 
-__all__ = ["RankCtx", "decode_strategy", "prefill_strategy"]
+__all__ = ["RankCtx"]

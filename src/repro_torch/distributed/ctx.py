@@ -25,16 +25,6 @@ import torch
 import torch.distributed as dist
 
 
-def prefill_strategy(n_heads: int, n_kv: int, tp: int) -> str:
-    """The reference's choice (src/repro/models/attention.py:28-29)."""
-    return "heads" if n_heads % tp == 0 else "qseq"
-
-
-def decode_strategy(n_kv: int, tp: int) -> str:
-    """The reference's choice (src/repro/models/attention.py:32-33)."""
-    return "kv" if n_kv % tp == 0 else "wseq"
-
-
 @dataclass(frozen=True)
 class RankCtx:
     ep: int = 1

@@ -16,11 +16,25 @@ default on cuda, needs a card per rank; --backend gloo runs on the CPU,
 or lets several ranks share one card (its collectives are not captured
 into CUDA graphs there). Over ranks, as on one, the model is the config's
 OmniAttn default pattern (ring layers of sink + recent, sliding windows,
-online top-k where the config sets a budget), each rank holding K / tp KV
-heads; --full-attention serves every attention layer full instead
-(pattern [0] * n_layers). What a rank cannot lay out — heads that do not
-divide over --tp, Mamba-2 layers at --tp > 1 — raises NotImplementedError
-naming ROADMAP A16b before any process starts.
+online top-k where the config sets a budget); --full-attention serves
+every attention layer full instead (pattern [0] * n_layers). Every
+servable config lays out at any --tp (`models.stack.head_layout`,
+`mamba_layout`), as the reference's launcher accepts it:
+
+    config                tp 2          tp 4          tp 8
+    qwen2-1.5b (12/2)     kv            wseq          replicated
+    qwen3-32b (64/8)      kv            kv            kv
+    gemma3-4b (8/4)       kv            kv            wseq
+    granite-34b (48/1)    wseq          wseq          wseq
+    qwen2-moe (16/16)     kv            kv            kv
+    qwen3-moe (64/4)      kv            kv            wseq
+    jamba (64/8)          kv            kv            kv
+    mamba2-130m           24 SSD heads split over tp
+
+'kv': K / tp KV heads a rank. 'wseq': the rank's H / tp query heads and
+the one KV head they read (a rank's caches hold that head). 'replicated':
+every rank holds and computes every head, and adds no psum. jamba's
+Mamba-2 mixers split their 256 SSD heads over tp.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch \\
         qwen2-moe-a2.7b --reduced --tp 2 --ep 2 --backend gloo --device cpu
@@ -48,8 +62,6 @@ import torch
 
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.core.proxy import OASConfig, SamplingParams
-from repro_torch.distributed.ctx import RankCtx
-from repro_torch.models.stack import StackPlan, check_distributed
 from repro_torch.serving.server import Server, ServerConfig, check_servable
 
 # how long a rank waits in a collective before the group gives up
@@ -183,11 +195,9 @@ def main(argv=None):
                           if not isinstance(v, list)}, indent=1,
                          default=float))
         return s
-    # what the ranks' LM.build would refuse (ROADMAP A16b), refused here,
+    # what no rank can serve (the frontend families) is refused here,
     # before any process starts
-    cfg, pattern = _model(args)
-    check_distributed(cfg, StackPlan.from_config(cfg, pattern),
-                      RankCtx(ep=args.ep, tp=args.tp))
+    _model(args)
     backend = _backend(args)
     if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
         # torchrun: this process is one rank of the world it names

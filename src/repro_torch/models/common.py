@@ -15,6 +15,18 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
     return (out * scale.float()).to(x.dtype)
 
 
+def rms_norm_over_model(x: torch.Tensor, scale: torch.Tensor, eps: float,
+                        ctx, width: int) -> torch.Tensor:
+    """`rms_norm` over a last dim that `ctx`'s `model` axis splits: x and
+    scale hold this rank's columns, the sum of squares is summed over
+    `model` and divided by the whole `width` (a rank-local RMS would
+    normalise each rank's columns alone)."""
+    x32 = x.float()
+    ss = ctx.psum_model(x32.square().sum(dim=-1, keepdim=True))
+    out = x32 * torch.rsqrt(ss / width + eps)
+    return (out * scale.float()).to(x.dtype)
+
+
 def swiglu(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
            w2: torch.Tensor) -> torch.Tensor:
     return (F.silu(x @ w1) * (x @ w3)) @ w2

@@ -13,11 +13,13 @@ the per-layer expert counts come back in the aux. An encoder-only config
 logits through the flash-prefill kernel.
 
 Over several ranks (an `LM` built with a `RankCtx` of world > 1) the
-parameters are this rank's shards, cut by `param_specs` — the port's copy
-of the reference's ParamDef specs: attention heads, the FFN and expert
-widths and the vocabulary over `model`, expert slots over `data`. The
-embedding is a masked local lookup summed over `model`; the logits are
-gathered over `model`, so sampling sees the full [n, V] row on every rank.
+parameters are this rank's shards, cut by `param_cuts`: the FFN and
+expert widths and the vocabulary over `model` and expert slots over
+`data` as the reference's ParamDef specs say (`param_specs`), attention
+by whole heads (`stack.head_layout`) and a Mamba-2 mixer by its SSD heads
+and their channels (`stack.mamba_layout`). The embedding is a masked
+local lookup summed over `model`; the logits are gathered over `model`,
+so sampling sees the full [n, V] row on every rank.
 `DevicePlacement.transfer_params` carries one-rank parameters into that
 layout."""
 from __future__ import annotations
@@ -80,15 +82,14 @@ class LM:
     def build(cfg: ModelConfig, pattern: Optional[list] = None,
               device=None, ctx: Optional[RankCtx] = None) -> "LM":
         """`device` None → cuda; `ctx` None → one rank. Raises
-        NotImplementedError for a family the port does not model, and
-        (naming ROADMAP A16b) for a model this slice cannot lay out over
-        `ctx`'s ranks: heads that do not divide over tp, Mamba-2 layers at
-        tp > 1 (`stack.check_distributed`). OmniAttn's ring, sliding-window
-        and online top-k layers lay out over ranks."""
+        NotImplementedError for a family the port does not model. Every
+        modelled stack lays out over any `ctx`: attention by
+        `stack.head_layout` ('kv', 'wseq' or replicated), Mamba-2 mixers by
+        `stack.mamba_layout`, OmniAttn's ring, sliding-window and online
+        top-k layers included."""
         plan = stack_mod.StackPlan.from_config(cfg, pattern)
         stack_mod.check_supported(cfg)
         ctx = ctx if ctx is not None else RankCtx.local()
-        stack_mod.check_distributed(cfg, plan, ctx)
         return LM(cfg, plan, resolve_device(device), ctx)
 
     def one_rank(self) -> "LM":
@@ -166,7 +167,9 @@ class LM:
         """{"layers": [per-layer {name: spec}], top-level name: spec}: each
         spec a tuple of mesh axes ("data", "model" or None) per dim, as
         the reference's sanitized ParamDef specs: a dim that does not
-        divide over its axis stays whole (replicated)."""
+        divide over its axis stays whole (replicated). The reference cuts
+        wk / wv by channels even where that splits a head; the port's cut
+        is `param_cuts`."""
         defs = self.param_defs()
 
         def sane(spec, shape):
@@ -176,6 +179,42 @@ class LM:
         out["layers"] = [{k: sane(LAYER_SPECS[k], v[0])
                           for k, v in layer.items()}
                          for layer in defs["layers"]]
+        return out
+
+    def param_cuts(self) -> dict:
+        """This rank's part of every leaf, in the tree of `param_specs`:
+        per dim None (whole) or (start, length). Dims follow the specs at
+        the rank's coordinate (an even split), but for the attention and
+        Mamba-2 leaves, which are cut by whole heads: wq / bq columns and
+        wo rows by the rank's query heads, wk / wv / bk / bv columns by its
+        KV heads (`stack.head_layout`: under 'wseq' the one head several
+        ranks share; a replicated sublayer whole), and the mixer by its
+        SSD heads and their d_in channels (`stack.mamba_layout`)."""
+        cfg, ctx = self.cfg, self.ctx
+        h = cfg.head_dim
+        hl = stack_mod.head_layout(cfg, ctx.tp, ctx.t)
+        ml = stack_mod.mamba_layout(cfg, ctx.tp, ctx.t)
+        qc, kc = (hl.q0 * h, hl.nq * h), (hl.k0 * h, hl.nk * h)
+        ch, hd = (ml.c0, ml.nc), (ml.h0, ml.nh)
+        by_head = {"wq": (None, qc), "bq": (qc,), "wo": (qc, None),
+                   "wk": (None, kc), "wv": (None, kc), "bk": (kc,),
+                   "bv": (kc,), "w_z": (None, ch), "w_x": (None, ch),
+                   "conv_x": (None, ch), "ssm_norm": (ch,),
+                   "out_proj": (ch, None), "w_dt": (None, hd),
+                   "dt_bias": (hd,), "A_log": (hd,), "D_skip": (hd,)}
+
+        def cut(name, spec, shape):
+            out = by_head.get(name) or tuple(
+                None if ctx.size(a) == 1 else
+                (ctx.coord(a) * (n // ctx.size(a)), n // ctx.size(a))
+                for a, n in zip(spec, shape))
+            return tuple(None if c is None or c == (0, n) else c
+                         for c, n in zip(out, shape))
+        defs, specs = self.param_defs(), self.param_specs()
+        out = {k: cut(k, specs[k], v[0]) for k, v in defs.items()
+               if k != "layers"}
+        out["layers"] = [{k: cut(k, sl[k], v[0]) for k, v in dl.items()}
+                         for dl, sl in zip(defs["layers"], specs["layers"])]
         return out
 
     def init(self, seed: int = 0) -> dict:

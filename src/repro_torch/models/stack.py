@@ -35,12 +35,18 @@ over OmniPlacement slot tables (models/moe.py) plus the shared SwiGLU; a
 stack without an FFN (d_ff 0, no MoE: mamba2) skips it.
 `check_supported` raises NotImplementedError for what a later slice brings
 (encoder, frontend and non-causal families).
-Over `tp × ep` ranks (a `RankCtx`) every cache above holds the rank's
-K / tp KV heads (`local_kv_heads`) — full arenas, paged ring runs,
-slot-dense rings, sliding windows, prefill caches — and attention runs
-unchanged on the rank's heads; online top-k max-reduces its block scores
-over `model` before ranking (`_select_blocks`). `check_distributed`
-refuses what a rank cannot lay out (ROADMAP A16b).
+Over `tp × ep` ranks (a `RankCtx`) `head_layout` decides each rank's
+attention heads, for every config at any tp: K / tp KV heads under 'kv';
+under 'wseq' (K % tp != 0, tp % K == 0) the rank's H / tp query heads and
+the one KV head they read, whole; otherwise the sublayer replicated
+(every head on every rank, no psum). Every cache above holds the rank's
+KV heads — full arenas, paged ring runs, slot-dense rings, sliding
+windows, prefill caches — and attention runs unchanged on them; online
+top-k max-reduces its block scores over `model` before ranking
+(`_select_blocks`). `mamba_layout` cuts a Mamba-2 mixer by its SSD heads
+and their d_in channels (replicated where the heads do not divide): the
+state and `conv_x` rows hold the rank's share, `conv_bc` stays whole,
+`ssm_norm` reduces its sum of squares over `model`.
 """
 from __future__ import annotations
 
@@ -52,14 +58,13 @@ import torch
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.device import torch_dtype
-from repro_torch.distributed.ctx import (RankCtx, decode_strategy,
-                                         prefill_strategy)
+from repro_torch.distributed.ctx import RankCtx
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.block_topk import block_topk_select_scores
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssd as ssd_mod
-from repro_torch.models.common import rms_norm, swiglu
+from repro_torch.models.common import rms_norm, rms_norm_over_model, swiglu
 
 
 @dataclass(frozen=True)
@@ -117,29 +122,6 @@ def check_supported(cfg: ModelConfig) -> None:
             f"{FAMILIES}")
 
 
-def check_distributed(cfg: ModelConfig, plan: StackPlan, ctx: RankCtx
-                      ) -> None:
-    """Raise NotImplementedError, naming ROADMAP A16b, for a model this
-    slice cannot lay out over `ctx`'s ranks: heads that do not divide over
-    `model` (the reference's 'wseq' decode and 'qseq' prefill strategies)
-    and Mamba-2 layers at tp > 1. OmniAttn's ring layers (sink + recent or
-    a sliding window, paged runs or slot-dense) hold K / tp heads a rank
-    and run as on one rank; online top-k reduces its block scores over
-    `model` before ranking (`_select_blocks`), so every rank attends the
-    same blocks."""
-    if ctx.world == 1:
-        return
-    H, K, tp = cfg.n_heads, cfg.n_kv_heads, ctx.tp
-    if tp > 1 and K and (decode_strategy(K, tp) != "kv"
-                         or prefill_strategy(H, K, tp) != "heads"):
-        raise NotImplementedError(
-            f"{cfg.arch_id}: {H} query / {K} KV heads over tp={tp} need the "
-            f"'wseq' / 'qseq' strategies (ROADMAP A16b)")
-    if tp > 1 and any(sp.kind == "mamba" for sp in plan.all_specs()):
-        raise NotImplementedError(
-            f"{cfg.arch_id}: Mamba-2 layers at tp={tp} (ROADMAP A16b)")
-
-
 def topk_block_budget(oa, nb: int) -> Optional[int]:
     """Top-k block budget against a width-`nb` block table, or None when
     online sparsity is off (both budget knobs 0). Absolute `topk_blocks`
@@ -163,13 +145,74 @@ def ring_block_count(sink: int, recent: int, block_size: int) -> int:
 
 # ----------------------------------------------------------------------
 # Caches: the shared full-attention arenas and the engine-private side
-def local_kv_heads(cfg: ModelConfig, tp: int = 1) -> int:
-    """The KV heads one rank's caches hold: K / tp over `model` under the
-    'kv' decode strategy (the reference's `arena_specs`; the others are
-    refused by `check_distributed`), every block of every arena. The one
-    place the rank-local KV layout is decided: every allocator below and
-    the decode engine's transfer metering read it."""
-    return cfg.n_kv_heads // tp
+@dataclass(frozen=True)
+class HeadLayout:
+    """One rank's share of an attention sublayer over `model`: query heads
+    [q0, q0 + nq) and KV heads [k0, k0 + nk), and whether the sublayer is
+    replicated (every rank holds and computes every head; its output is
+    whole, so nothing is summed over `model`)."""
+    kind: str                         # "kv", "wseq" or "replicated"
+    q0: int
+    nq: int
+    k0: int
+    nk: int
+
+    @property
+    def replicated(self) -> bool:
+        return self.kind == "replicated"
+
+
+def head_layout(cfg: ModelConfig, tp: int = 1, t: int = 0) -> HeadLayout:
+    """The attention heads rank t of `tp` holds — the one place the
+    rank-local attention layout is decided: the parameter cut
+    (`LM.param_cuts`), every allocator below, the arena, the engines and
+    the transfer metering read it.
+
+    'kv' (K % tp == 0, the reference's decode strategy of that name):
+      H / tp query heads over K / tp KV heads.
+    'wseq' (K % tp != 0, H % tp == 0 and tp % K == 0: a rank's query
+      heads lie in one GQA group): the rank's H / tp query heads and the
+      one KV head t·K // tp they read, whole — the reference keeps its
+      paged arenas whole under 'wseq' (`arena_kv_part`); here every cache
+      holds that head.
+    'replicated' (H % tp != 0, the reference's 'qseq', or a rank's query
+      heads straddling two KV heads): every head on every rank."""
+    H, K = cfg.n_heads, cfg.n_kv_heads
+    if K % tp == 0:                   # then H % tp == 0 as well
+        nq, nk = H // tp, K // tp
+        return HeadLayout("kv", t * nq, nq, t * nk, nk)
+    if H % tp == 0 and tp % K == 0:
+        nq = H // tp
+        return HeadLayout("wseq", t * nq, nq, t * K // tp, 1)
+    return HeadLayout("replicated", 0, H, 0, K)
+
+
+@dataclass(frozen=True)
+class MambaLayout:
+    """One rank's share of a Mamba-2 mixer over `model`: SSD heads
+    [h0, h0 + nh) and their d_in channels [c0, c0 + nc); replicated where
+    the heads do not divide over `model` (every rank the whole mixer, no
+    psum)."""
+    h0: int
+    nh: int
+    c0: int
+    nc: int
+    replicated: bool
+
+
+def mamba_layout(cfg: ModelConfig, tp: int = 1, t: int = 0) -> MambaLayout:
+    """The reference's cut (src/repro/models/stack.py:90-109, 174-183):
+    w_z, w_x, conv_x, ssm_norm and the state's channels by d_in; w_dt,
+    dt_bias, A_log, D_skip by SSD heads; out_proj by rows (its product
+    summed over `model`); w_bc and conv_bc whole."""
+    ssm = cfg.ssm
+    d_in = ssm.expand * cfg.d_model
+    nh = d_in // ssm.head_dim if ssm.head_dim else 0
+    if nh % tp:
+        return MambaLayout(0, nh, 0, d_in, True)
+    n = nh // tp
+    return MambaLayout(t * n, n, t * n * ssm.head_dim, n * ssm.head_dim,
+                       False)
 
 
 def alloc_arena_kv(cfg: ModelConfig, plan: StackPlan, n_arena_blocks: int,
@@ -180,9 +223,10 @@ def alloc_arena_kv(cfg: ModelConfig, plan: StackPlan, n_arena_blocks: int,
     the null block 0), None elsewhere. With `quant` (QuantPlane) "k","v"
     are int8 and the entry adds the scale plane: "kscale","vscale" [N, K,
     h] per-channel seal scales and "ktok","vtok" [N, K, bs] per-token
-    scales, float32. K is this rank's `local_kv_heads` at `tp` > 1."""
+    scales, float32. K is this rank's KV heads (`head_layout`) at `tp` >
+    1."""
     dtype = torch.int8 if quant else torch_dtype(dtype or cfg.compute_dtype)
-    K, h = local_kv_heads(cfg, tp), cfg.head_dim
+    K, h = head_layout(cfg, tp).nk, cfg.head_dim
 
     def one(spec):
         if not full_attn_layer(cfg, spec):
@@ -213,23 +257,25 @@ def quant_kwargs(entry: dict) -> dict:
                 v_scale=entry["vscale"], v_tok=entry["vtok"])
 
 
-def mamba_cache_shapes(cfg: ModelConfig, B: int, dtype=None) -> dict:
+def mamba_cache_shapes(cfg: ModelConfig, B: int, dtype=None,
+                       tp: int = 1) -> dict:
     """{name: (shape, dtype)} of a mamba layer's entry for B sequences: the
     SSD state, always float32 (the reference's `cache_struct`), and the two
-    convolutions' last cw-1 pre-convolution inputs in the compute dtype."""
+    convolutions' last cw-1 pre-convolution inputs in the compute dtype. At
+    `tp` > 1 the state and `conv_x` hold the rank's heads and channels
+    (`mamba_layout`); `conv_bc` is whole."""
     dtype = torch_dtype(dtype or cfg.compute_dtype)
     ssm = cfg.ssm
-    d_in = ssm.expand * cfg.d_model
-    nh = d_in // ssm.head_dim
+    lay = mamba_layout(cfg, tp)
     cw1 = ssm.conv_width - 1
-    return {"state": ((B, nh, ssm.head_dim, ssm.d_state), torch.float32),
-            "conv_x": ((B, cw1, d_in), dtype),
+    return {"state": ((B, lay.nh, ssm.head_dim, ssm.d_state), torch.float32),
+            "conv_x": ((B, cw1, lay.nc), dtype),
             "conv_bc": ((B, cw1, 2 * ssm.d_state), dtype)}
 
 
-def _alloc_mamba(cfg: ModelConfig, B: int, device, dtype) -> dict:
+def _alloc_mamba(cfg: ModelConfig, B: int, device, dtype, tp: int) -> dict:
     return {n: torch.zeros(shp, dtype=dt, device=device)
-            for n, (shp, dt) in mamba_cache_shapes(cfg, B, dtype).items()}
+            for n, (shp, dt) in mamba_cache_shapes(cfg, B, dtype, tp).items()}
 
 
 def alloc_cache(cfg: ModelConfig, plan: StackPlan, B: int, max_len: int,
@@ -237,13 +283,14 @@ def alloc_cache(cfg: ModelConfig, plan: StackPlan, B: int, max_len: int,
     """Dense caches for B sequences: every attention layer gets {"k","v":
     [B, W, K, h]} zeros, W = sink + recent for ring layers and max_len for
     full ones, every mamba layer its B-row entry (the reference's
-    `alloc_cache`); K / tp KV heads at `tp` > 1."""
+    `alloc_cache`); the rank's heads and channels at `tp` > 1
+    (`head_layout`, `mamba_layout`)."""
     dtype = torch_dtype(dtype or cfg.compute_dtype)
-    K, h = local_kv_heads(cfg, tp), cfg.head_dim
+    K, h = head_layout(cfg, tp).nk, cfg.head_dim
 
     def one(spec):
         if spec.kind == "mamba":
-            return _alloc_mamba(cfg, B, device, dtype)
+            return _alloc_mamba(cfg, B, device, dtype, tp)
         sink, recent = cache_window(cfg, spec)
         W = (sink + recent) if (sink or recent) else max_len
         return {n: torch.zeros((B, W, K, h), dtype=dtype, device=device)
@@ -256,15 +303,15 @@ def alloc_prefill_private_cache(cfg: ModelConfig, plan: StackPlan,
                                 tp: int = 1) -> dict:
     """B=1 task cache without full-attention layers (their KV lives in the
     shared arena): the position, dense [1, W, K, h] ring KV and the mamba
-    layers' B=1 entries (K / tp KV heads)."""
+    layers' B=1 entries (the rank's share at `tp` > 1)."""
     dtype = torch_dtype(dtype or cfg.compute_dtype)
-    K, h = local_kv_heads(cfg, tp), cfg.head_dim
+    K, h = head_layout(cfg, tp).nk, cfg.head_dim
 
     def one(spec):
         if full_attn_layer(cfg, spec):
             return None
         if spec.kind == "mamba":
-            return _alloc_mamba(cfg, 1, device, dtype)
+            return _alloc_mamba(cfg, 1, device, dtype, tp)
         W = sum(cache_window(cfg, spec))
         return {n: torch.zeros((1, W, K, h), dtype=dtype, device=device)
                 for n in ("k", "v")}
@@ -278,15 +325,15 @@ def alloc_paged_private_cache(cfg: ModelConfig, plan: StackPlan,
     are None (shared arena); each ring layer gets [n_slots·bpw, K, bs, h]
     blocks, slot b statically owning blocks [b·bpw, (b+1)·bpw) (the
     reference's `layer_cache_shape_paged`); each mamba layer its per-slot
-    entry, row b slot b's. K / tp KV heads at `tp` > 1."""
+    entry, row b slot b's. The rank's share at `tp` > 1."""
     dtype = torch_dtype(dtype or cfg.compute_dtype)
-    K, h = local_kv_heads(cfg, tp), cfg.head_dim
+    K, h = head_layout(cfg, tp).nk, cfg.head_dim
 
     def one(spec):
         if full_attn_layer(cfg, spec):
             return None
         if spec.kind == "mamba":
-            return _alloc_mamba(cfg, n_slots, device, dtype)
+            return _alloc_mamba(cfg, n_slots, device, dtype, tp)
         bpw = ring_block_count(*cache_window(cfg, spec), block_size)
         shp = (n_slots * bpw, K, block_size, h)
         return {n: torch.zeros(shp, dtype=dtype, device=device)
@@ -313,12 +360,14 @@ def attn_sublayer(cfg: ModelConfig, spec: LayerSpec, p: dict, x, *,
     or None).
 
     Tensor parallel over `ctx` (tp > 1): wq/wk/wv (and their biases) hold
-    this rank's heads, H / tp query heads over K / tp KV heads, so every
+    this rank's whole heads (`head_layout`: H / tp query heads over K / tp
+    KV heads, or under 'wseq' over the one KV head they read), so every
     kernel runs on the rank-local heads unchanged — ring layers and
-    sliding windows included, their caches at K / tp heads; wo holds the
-    matching rows and its partial product is summed over `model`. Online
-    top-k is the one step that needs every head: its block scores are
-    max-reduced over `model` before ranking (`_select_blocks`).
+    sliding windows included, their caches at the rank's KV heads; wo
+    holds the matching rows and its partial product is summed over
+    `model`. A replicated sublayer holds every head and sums nothing.
+    Online top-k is the one step that needs every head: its block scores
+    are max-reduced over `model` before ranking (`_select_blocks`).
 
     mode "prefill", cache None: a whole B=1 prompt at positions arange(S)
       (the first `true_len` rows real) through the flash-prefill kernel; the
@@ -503,7 +552,7 @@ def attn_sublayer(cfg: ModelConfig, spec: LayerSpec, p: dict, x, *,
     else:
         raise NotImplementedError(f"attention mode {mode!r} is not ported")
     y = out.reshape(B, S, H * h) @ p["wo"]
-    if ctx is not None:
+    if ctx is not None and not head_layout(cfg, ctx.tp).replicated:
         y = ctx.psum_model(y)
     return x + y.to(x.dtype), new_cache, sp_aux
 
@@ -518,13 +567,16 @@ def _select_blocks(cfg: ModelConfig, q, cache: dict, tbl, lens, token_mask,
     stay comparable.
 
     A block's score is a max over every (kv head, query head). At tp > 1 a
-    rank holds H / tp of them, so the rank's scores are reduced over
-    `model` (`pmax_model`) before ranking: every rank keeps the same blocks
-    and the partial outputs its `wo` psum adds are over one block set.
-    NEG_INF past the residency survives the max (every rank shares lens).
-    The stats follow from lens and the reduced selection, so they are the
-    same on every rank; the mass, a mean over this rank's heads, is
-    averaged over `model`."""
+    rank holds H / tp query heads (under 'wseq' beside the other ranks of
+    its KV head), so the rank's scores are reduced over `model`
+    (`pmax_model`) before ranking: every rank keeps the same blocks and
+    the partial outputs its `wo` psum adds are over one block set. A max
+    over ranks that repeat a KV head is unchanged by the repeat. NEG_INF
+    past the residency survives the max (every rank shares lens). The
+    stats follow from lens and the reduced selection, so they are the
+    same on every rank; the mass, a mean over this rank's H / tp query
+    heads (each query head on one rank), is averaged over `model`. A
+    replicated sublayer holds every head: it reduces nothing."""
     oa = cfg.omniattn
     nb = tbl.shape[1]
     k_static = topk_block_budget(oa, nb)
@@ -543,7 +595,8 @@ def _select_blocks(cfg: ModelConfig, q, cache: dict, tbl, lens, token_mask,
                   sink_blocks=max(oa.topk_sink_blocks, 0),
                   recent_blocks=max(oa.topk_recent_blocks, 1),
                   token_mask=token_mask)
-    tp = 1 if ctx is None else ctx.tp
+    tp = 1 if ctx is None or head_layout(cfg, ctx.tp).replicated \
+        else ctx.tp
     if tp == 1:
         # scores, ranking, compaction and the stats: one kernel launch on
         # the card
@@ -578,9 +631,17 @@ def _live(token_mask, q):
 
 
 def mamba_sublayer(cfg: ModelConfig, p: dict, x, *, mode: str,
-                   cache: Optional[dict], true_len=None):
+                   cache: Optional[dict], true_len=None,
+                   ctx: Optional[RankCtx] = None):
     """The Mamba-2 SSD mixer of one layer with its pre-norm and residual.
     → (x, new entry or None).
+
+    Tensor parallel over `ctx` (tp > 1, `mamba_layout`): p and the entry
+    hold this rank's SSD heads and their d_in channels (w_bc, conv_bc
+    whole), the scans run on them unchanged, `ssm_norm` — one RMSNorm over
+    the whole d_in — sums its squares over `model`, and `out_proj`'s
+    partial product is summed over `model`. A replicated mixer sums
+    nothing.
 
     mode "prefill", "train" or "encode", cache None: whole sequences from a
       zero state (a B=1 prompt, or a training batch); the new entry is
@@ -601,8 +662,9 @@ def mamba_sublayer(cfg: ModelConfig, p: dict, x, *, mode: str,
             "speculative verify has no multi-token SSM rollback path")
     B, S, D = x.shape
     ssm = cfg.ssm
-    d_in = ssm.expand * D
-    nh = d_in // ssm.head_dim
+    d_in, nh = p["w_x"].shape[1], p["w_dt"].shape[1]       # this rank's
+    sharded = ctx is not None and ctx.tp > 1 and \
+        not mamba_layout(cfg, ctx.tp).replicated
     N, cw = ssm.d_state, ssm.conv_width
     cd = torch_dtype(cfg.compute_dtype)
     hid = rms_norm(x, p["ln_attn"], cfg.rms_eps).to(cd)
@@ -646,10 +708,14 @@ def mamba_sublayer(cfg: ModelConfig, p: dict, x, *, mode: str,
         y, new_state = ssd_mod.ssd_chunked(xh, dt, A, Bm, Cm, ssm.chunk,
                                            init)
     y = y + xh.to(y.dtype) * p["D_skip"].to(y.dtype)[None, None, :, None]
-    y = y.reshape(B, S, d_in)
-    y = rms_norm(y * torch.nn.functional.silu(z.to(y.dtype)), p["ssm_norm"],
-                 cfg.rms_eps)
-    out = (y.to(cd) @ p["out_proj"]).to(x.dtype)
+    y = y.reshape(B, S, d_in) * torch.nn.functional.silu(z.to(y.dtype))
+    if sharded:
+        y = rms_norm_over_model(y, p["ssm_norm"], cfg.rms_eps, ctx,
+                                ssm.expand * D)
+        out = ctx.psum_model(y.to(cd) @ p["out_proj"]).to(x.dtype)
+    else:
+        y = rms_norm(y, p["ssm_norm"], cfg.rms_eps)
+        out = (y.to(cd) @ p["out_proj"]).to(x.dtype)
     entry = {"state": new_state, "conv_x": new_cx, "conv_bc": new_cbc}
     if cache is None:
         return x + out, entry
@@ -717,7 +783,7 @@ def apply_layer(cfg: ModelConfig, spec: LayerSpec, p: dict, x, *, mode: str,
     sp = None
     if spec.kind == "mamba":
         x, nc = mamba_sublayer(cfg, p, x, mode=mode, cache=cache,
-                               true_len=true_len)
+                               true_len=true_len, ctx=ctx)
     else:
         x, nc, sp = attn_sublayer(
             cfg, spec, p, x, mode=mode, positions=positions, cache=cache,

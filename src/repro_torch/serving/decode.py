@@ -25,8 +25,9 @@ commit of the accepted rows. The slot-dense layout refuses speculation and
 ignores the top-k knobs, as the reference does.
 
 Over ranks every leaf is the rank's: the arenas, the ring block runs, the
-slot-dense caches and the handoff and preemption leaves hold K / tp KV
-heads (`stack.local_kv_heads`), and a ring run's slot arithmetic
+slot-dense caches and the handoff and preemption leaves hold its KV heads
+(`stack.head_layout`) and its share of each Mamba-2 state and `conv_x`
+rows (`stack.mamba_layout`), and a ring run's slot arithmetic
 (`attn_mod.ring_slot`) is the same on every rank. Top-k stats are the same
 on every rank (the selection follows one max over `model`): they are
 drained per rank and never summed over ranks.
@@ -69,7 +70,7 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models.lm import LM
 from repro_torch.models.stack import (alloc_cache, alloc_paged_private_cache,
                                       cache_window, full_attn_layer,
-                                      local_kv_heads, mamba_cache_shapes,
+                                      head_layout, mamba_cache_shapes,
                                       merge_arena_cache, ring_block_count)
 from repro_torch.serving.arena import (BlockHandoff, KVArena, _bucket,
                                        blocks_to_dense_kv, dense_kv_to_blocks)
@@ -169,9 +170,10 @@ class DecodeEngine:
         # transfer-cost metering: a B=1 dense interchange cache holds
         # max_len tokens of full-attention KV plus the bounded ring KV (and
         # the int32 position); the TRUE payload grows by `_full_tok_nbytes`
-        # per resident token (this rank's K / tp heads)
+        # per resident token (this rank's KV heads and Mamba-2 share)
+        tp = self.lm.ctx.tp
         it = torch_dtype(cfg.compute_dtype).itemsize
-        kvh = 2 * local_kv_heads(cfg, self.lm.ctx.tp) * cfg.head_dim * it
+        kvh = 2 * head_layout(cfg, tp).nk * cfg.head_dim * it
         specs = plan.all_specs()
         n_full = sum(1 for sp in specs if full_attn_layer(cfg, sp))
         self._full_tok_nbytes = kvh * n_full
@@ -179,7 +181,7 @@ class DecodeEngine:
         # convolution rows
         mamba_nbytes = sum(
             math.prod(shp) * dt.itemsize
-            for shp, dt in mamba_cache_shapes(cfg, 1).values())
+            for shp, dt in mamba_cache_shapes(cfg, 1, tp=tp).values())
         bounded = sum(mamba_nbytes if sp.kind == "mamba" else
                       kvh * sum(cache_window(cfg, sp)) for sp in specs
                       if not full_attn_layer(cfg, sp))

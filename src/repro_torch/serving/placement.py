@@ -7,9 +7,10 @@ this process's rank of an `ep × tp` world over `torch.distributed` —
 `data` the expert-parallel axis, `model` the tensor-parallel one, as in
 the reference's `DevicePlacement` (src/repro/serving/placement.py). Each
 rank holds its shard of the parameters (`place_params`, `transfer_params`,
-cut by `LM.param_specs`) and its K / tp KV heads of every arena block under
-the 'kv' strategy (`stack.local_kv_heads`); slot state, block tables and
-host bookkeeping are replicated.
+cut by `LM.param_cuts`) and its KV heads of every arena block
+(`stack.head_layout`: K / tp under 'kv', the one shared head under
+'wseq', all of them for a replicated sublayer); slot state, block tables
+and host bookkeeping are replicated.
 
 `hot_loop` is the port's counterpart of the reference's `donate_jit` and
 `HotLoopRegistry` (src/repro/serving/placement.py): every serving step that
@@ -76,21 +77,19 @@ def _flat(tree: dict) -> dict:
 
 def _shapes(lm, local: bool = False) -> dict:
     """{leaf name: shape} of `lm`'s parameters: the whole model's, or with
-    `local` this rank's part (each dim cut by its spec's axis)."""
-    specs = _flat(lm.param_specs())
-    return {k: tuple(n // (lm.ctx.size(a) if local else 1)
-                     for n, a in zip(d[0], specs[k]))
+    `local` this rank's part (each dim cut by `param_cuts`)."""
+    cuts = _flat(lm.param_cuts())
+    return {k: tuple(c[1] if local and c is not None else n
+                     for n, c in zip(d[0], cuts[k]))
             for k, d in _flat(lm.param_defs()).items()}
 
 
-def shard_leaf(ctx: RankCtx, t: torch.Tensor, spec: tuple) -> torch.Tensor:
-    """This rank's part of a whole leaf: each dim with an axis in `spec`
-    narrowed to the rank's coordinate on it."""
-    for d, axis in enumerate(spec):
-        n = ctx.size(axis)
-        if n > 1:
-            w = t.shape[d] // n
-            t = t.narrow(d, ctx.coord(axis) * w, w)
+def shard_leaf(t: torch.Tensor, cut: tuple) -> torch.Tensor:
+    """This rank's part of a whole leaf: each dim with a (start, length)
+    in `cut` (`LM.param_cuts`) narrowed to it."""
+    for d, c in enumerate(cut):
+        if c is not None:
+            t = t.narrow(d, *c)
     return t.contiguous()
 
 
@@ -279,7 +278,7 @@ class DevicePlacement:
             return _to(params, self.device)
         if lm is None:
             raise ValueError("place_params over several ranks needs the LM "
-                             "(its param_specs)")
+                             "(its param_cuts)")
         got = {k: tuple(v.shape) for k, v in _flat(params).items()}
         one = lm.one_rank()
         whole, local = _shapes(one), _shapes(lm, local=True)
@@ -309,13 +308,14 @@ class DevicePlacement:
         265-300). Only the MoE slot tensors depend on the layout: each of
         this rank's destination slots takes its expert's canonical rows,
         found through the source replica tables' first replica, then every
-        leaf is cut by `lm_dst.param_specs()`. Leaf by leaf: nothing larger
-        than one whole leaf is built."""
+        leaf is cut by `lm_dst.param_cuts()` (whole heads for attention and
+        Mamba-2 leaves). Leaf by leaf: nothing larger than one whole leaf
+        is built."""
         if lm_dst.device != self.device or lm_dst.ctx != self.ctx:
             raise ValueError("lm_dst is not built on this placement")
         ctx, dev = self.ctx, self.device
-        specs = lm_dst.param_specs()
-        cut = lambda t, spec: shard_leaf(ctx, t, spec).to(dev)
+        specs = lm_dst.param_cuts()
+        cut = lambda t, c: shard_leaf(t, c).to(dev)
         out = {k: cut(v, specs[k]) for k, v in params.items()
                if k != "layers"}
         slots = None

@@ -38,11 +38,12 @@ cache into its own layout at admission. Stored prefixes are dense
 prefix-length snapshots adopted only by an exact repeat of the whole
 prompt.
 
-Over ranks each rank prefills its K / tp KV heads: the arenas' blocks,
-each task's dense ring (chunks over it through `prefill_resume_attention`
-with the `prefill_sparse` sink + recent mask), the whole prompt's cache
-compressed by `compress_prefill_kv`, and the ring leaves a handoff
-carries.
+Over ranks each rank prefills its KV heads (`stack.head_layout`): the
+arenas' blocks, each task's dense ring (chunks over it through
+`prefill_resume_attention` with the `prefill_sparse` sink + recent mask),
+the whole prompt's cache compressed by `compress_prefill_kv`, and the ring
+leaves a handoff carries; and its share of each Mamba-2 state and
+`conv_x` rows (`stack.mamba_layout`), which a re-prefill rebuilds.
 
 First tokens of every prompt finished in one engine round are sampled in
 one fused call (the "prefill.first" entry, keyed by the batch padded to a

@@ -62,10 +62,13 @@ an expert's canonical rows from the rank that holds them
 OmniAttn runs over ranks as on one: ring layers (paged ring runs or
 slot-dense, sink + recent or a sliding window), chunks over them, whole
 prompts compressed into them, and preemption's handoff of their leaves,
-all at the rank's K / tp KV heads; online top-k max-reduces its block
-scores over `model` before ranking, so every rank attends the same blocks.
-QuantPlane, SpecPlane and FaultPlane are refused over several ranks
-(ROADMAP A16b).
+all at the rank's KV heads (`stack.head_layout`: K / tp under 'kv', the
+one head its query heads read under 'wseq', all of them for a replicated
+sublayer); online top-k max-reduces its block scores over `model` before
+ranking, so every rank attends the same blocks. Mamba-2 layers carry the
+rank's share of each slot's state (`stack.mamba_layout`) through
+admission, prefix reuse, handoff and preemption. QuantPlane, SpecPlane and
+FaultPlane are refused over several ranks (ROADMAP A16b).
 """
 from __future__ import annotations
 
@@ -165,8 +168,8 @@ def check_distributed_server(scfg: ServerConfig, faults, world: int
                              ) -> None:
     """Raise NotImplementedError, naming ROADMAP A16b, for the planes this
     slice does not run over several ranks: QuantPlane, SpecPlane and
-    FaultPlane. OmniAttn's layers do run over ranks; what the model itself
-    cannot lay out is `stack.check_distributed`'s to refuse."""
+    FaultPlane. Every servable model lays out over ranks (attention by
+    `stack.head_layout`, Mamba-2 by `stack.mamba_layout`)."""
     if world == 1:
         return
     for name, on in (("QuantPlane (ServerConfig.quant)",

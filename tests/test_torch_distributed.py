@@ -19,7 +19,8 @@ JAX references on the same bridged inputs.
   `Server`'s, `KVPool.check_invariants` on every rank, and the lockstep
   digest checked every round; two of them hand the Server the one-rank
   parameters themselves;
-- every A16b refusal.
+- every A16b refusal (what a rank cannot lay out is none:
+  tests/test_torch_distributed_layouts.py builds and serves every layout).
 
 The JAX references run on an Auto-axis mesh (its MoE decode needs one on
 this jax; ROADMAP C1). Every process group has a 60 s timeout and the
@@ -391,7 +392,6 @@ def _fake(tp=2, ep=2):
 
 
 def _refused(case):
-    from repro_torch.configs import reduced_config as t_reduced
     from repro_torch.serving import ServerConfig
     from repro_torch.serving.faults import FaultPlane
     from repro_torch.serving.quant import QuantConfig
@@ -399,17 +399,6 @@ def _refused(case):
     from repro_torch.training.trainer import init_state
     moe = W.moe_cfg()
     cpu = torch.device("cpu")
-    if case == "wseq":
-        cfg = moe.with_updates(n_kv_heads=1)
-        return lambda: TLM.build(cfg, pattern=[0, 0], device="cpu",
-                                 ctx=_fake())
-    if case == "qseq":
-        cfg = moe.with_updates(n_heads=6, n_kv_heads=2)
-        return lambda: TLM.build(cfg, pattern=[0, 0], device="cpu",
-                                 ctx=_fake(tp=4, ep=1))
-    if case == "mamba":
-        cfg = t_reduced("mamba2-130m")
-        return lambda: TLM.build(cfg, device="cpu", ctx=_fake(ep=1))
     if case in ("quant", "spec", "faults"):
         kw = {"quant": dict(quant=QuantConfig()),
               "spec": dict(spec=SpecConfig(k=2))}.get(case, {})
@@ -428,9 +417,8 @@ def _refused(case):
     return lambda: lm.shapes()       # a sharded checkpoint restore
 
 
-@pytest.mark.parametrize("case", ["wseq", "qseq", "mamba", "quant", "spec",
-                                  "faults", "train", "opt_specs",
-                                  "restore"])
+@pytest.mark.parametrize("case", ["quant", "spec", "faults", "train",
+                                  "opt_specs", "restore"])
 def test_a16b_refusals(case):
     with pytest.raises(NotImplementedError, match="A16b"):
         _refused(case)()
@@ -460,7 +448,7 @@ def test_build_needs_an_initialised_group():
 def test_specs_describe_the_rank_local_allocations():
     """What one (tp 2, ep 2) rank's engines allocate, as the reference's
     arena and slot-state specs lay it out under the 'kv' strategy
-    (`stack.local_kv_heads` decides it): K / tp KV heads in every block of
+    (`stack.head_layout` decides it): K / tp KV heads in every block of
     the shared arena and in the prefill engine's dense cache, the decode
     slot state whole, and the transfer metering of K / tp heads a
     token."""
@@ -479,7 +467,8 @@ def test_specs_describe_the_rank_local_allocations():
     one, one_pf = engines(RankCtx.local())
     eng, pf = engines(_fake())
     K = cfg.n_kv_heads
-    assert tstack.local_kv_heads(cfg, 2) == K // 2
+    assert tstack.head_layout(cfg, 2).kind == "kv"
+    assert tstack.head_layout(cfg, 2).nk == K // 2
     for whole, part in zip(one.arena.kv, eng.arena.kv):
         for name, t in whole.items():
             assert part[name].shape[0] == t.shape[0] == 13      # + null

@@ -259,8 +259,9 @@ def test_select_blocks_reduces_scores_over_model(world):
 @pytest.mark.parametrize("kind", ["ring", "window", "topk"])
 def test_omniattn_layers_build_over_ranks(kind):
     """The default pattern's rings, sliding windows and online top-k lay
-    out over (tp 2, ep 2) (they raised A16b before); wseq / qseq and
-    Mamba-2 at tp > 1 still raise (test_torch_distributed.py)."""
+    out over (tp 2, ep 2) (they raised A16b before); the 'wseq' and
+    replicated layouts and Mamba-2 at tp > 1 are
+    test_torch_distributed_layouts.py's."""
     fake = RankCtx(ep=2, tp=2)
     if kind == "window":
         cfg = W.g3_cfg()

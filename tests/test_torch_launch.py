@@ -7,7 +7,9 @@
   final parameters;
 - `launch.serve.main`: the summary's keys are the reference launcher's
   (`repro.launch.serve`) on the same flags, every request completes, and
-  --tp / --ep above 1 raise naming ROADMAP A16.
+  --tp / --ep above 1 serve over four gloo ranks (reduced qwen2-moe at its
+  default pattern and every layer full, reduced mamba2-130m with its
+  Mamba-2 mixers split over tp) with one rank's summary counts.
 """
 import numpy as np
 import pytest
@@ -94,12 +96,16 @@ def test_serve_default_pattern_over_four_gloo_ranks(capsys):
     assert s["n_length"] == one["n_length"] == 4
 
 
-def test_serve_refuses_mamba_over_tp():
-    """What a rank still cannot lay out raises A16b before any process
-    starts: Mamba-2 layers at tp > 1."""
-    with pytest.raises(NotImplementedError, match="A16b"):
-        serve.main(["--arch", "mamba2-130m", "--reduced", "--tp", "2",
-                    "--backend", "gloo", "--device", "cpu"])
+def test_serve_mamba2_over_four_gloo_ranks(capsys):
+    """Mamba-2 layers at tp 2 (each rank half the SSD heads, `ssm_norm`
+    reduced over `model`): four gloo ranks serve reduced mamba2-130m, every
+    request done by its length, as on one rank."""
+    argv = ["--arch", "mamba2-130m", "--reduced", "--device", "cpu",
+            "--requests", "4", "--max-tokens", "3"]
+    one = serve.main(argv)
+    s = serve.main(argv + ["--tp", "2", "--ep", "2", "--backend", "gloo"])
+    assert s["n_done"] == one["n_done"] == 4
+    assert s["n_length"] == one["n_length"] == 4
 
 
 def test_serve_over_four_gloo_ranks(capsys):

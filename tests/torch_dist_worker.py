@@ -519,3 +519,136 @@ def omni_child(rank: int, store_path: str, in_path: str, out_dir: str):
     finally:
         torch.save(res, f"{out_dir}/omni_rank{rank}.pt")
         dist.destroy_process_group()
+
+
+# ---- tests/test_torch_distributed_layouts.py: every layout over ranks --
+# name → (arch, config updates, pattern, ServerConfig kwargs, requests):
+# reduced granite-34b (H 4 over K 1: 'wseq', two query heads a rank over
+# the one KV head) at its default pattern (both layers rings) whole-prompt
+# and in chunks, at [0, 1] (a shared arena holds the one head) and with a
+# top-k budget of 3 blocks; reduced qwen2-1.5b at H 3 over K 1 (the
+# replicated sublayer); reduced mamba2-130m on a shared-prefix mix, once
+# with a pool cut until it preempts; reduced jamba cut to one period at its
+# default pattern (Mamba-2 at tp 2, MoE over ep 2, attention under 'kv')
+PARITY_SCFG = dict(max_len=96, kv_block_size=8, chunk_tokens=16)
+SSM_SCFG = dict(max_len=96, chunk_tokens=16, prefill_tick_budget=32,
+                kv_blocks=40, kv_block_size=8)
+LAYOUT_CASES = {
+    "granite_whole": ("granite-34b", {}, None, PARITY_SCFG, "parity"),
+    "granite_chunks": ("granite-34b", dict(prefill_sparse=True), None,
+                       PARITY_SCFG, "parity"),
+    "granite_arena": ("granite-34b", dict(prefill_sparse=True), [0, 1],
+                      PARITY_SCFG, "parity"),
+    "granite_topk": ("granite-34b", {"omniattn": TOPK_KNOBS}, [0, 0],
+                     TOPK_SCFG, "topk"),
+    "qwen2_h3": ("qwen2-1.5b", dict(n_heads=3, n_kv_heads=1,
+                                    prefill_sparse=True), [0, 1],
+                 PARITY_SCFG, "parity"),
+    "mamba2": ("mamba2-130m", {}, None, SSM_SCFG, "ssm"),
+    "mamba2_preempt": ("mamba2-130m", {}, None, dict(SSM_SCFG, kv_blocks=12),
+                       "ssm"),
+    "jamba": ("jamba-1.5-large-398b", dict(n_layers=8), None, PARITY_SCFG,
+              "short"),
+}
+# the cases whose reference is another case's (the same model, weights and
+# requests: a pool cut until it preempts gives the free pool's streams)
+LAYOUT_REF = {"mamba2_preempt": "mamba2"}
+
+
+def layout_cfg(case, port: bool = True):
+    """The case's reduced config (the port's, or the reference's with
+    `port` False), float32."""
+    if port:
+        from repro_torch.configs import reduced_config
+    else:
+        from repro.configs import reduced_config
+    arch, upd, _, _, _ = LAYOUT_CASES[case]
+    upd = dict(upd)
+    knobs = upd.pop("omniattn", None)
+    cfg = reduced_config(arch).with_updates(
+        compute_dtype="float32", param_dtype="float32", **upd)
+    if knobs:
+        cfg = cfg.with_updates(omniattn=replace(cfg.omniattn, **knobs))
+    return cfg
+
+
+def ssm_requests(vocab, n=5, prefix=40, new=12):
+    """Two of three prompts on a `prefix`-token shared prefix plus 8
+    distinct tokens, the rest 6 tokens (tests/test_torch_ssm_serving.py's
+    mix)."""
+    rng = np.random.default_rng(29)
+    base = tuple(int(t) for t in rng.integers(0, vocab, prefix))
+    return [(base + tuple(int(t) for t in rng.integers(0, vocab, 8))
+             if i % 3 != 2 else
+             tuple(int(t) for t in rng.integers(0, vocab, 6)), new)
+            for i in range(n)]
+
+
+def layout_requests(kind, vocab):
+    if kind == "ssm":
+        return ssm_requests(vocab)
+    if kind == "short":
+        # four prompts in one 16-token prefill bucket
+        rng = np.random.default_rng(37)
+        return [(tuple(int(t) for t in rng.integers(0, vocab, n)), 6)
+                for n in (13, 16, 15, 11)]
+    return omni_requests(kind, vocab)
+
+
+def layout_server_config(case, port: bool):
+    return server_config_kw(LAYOUT_CASES[case][3], port)
+
+
+# the cases whose weights the test process bridges after the world starts
+# (the reference's init of jamba takes longest): the last cases served
+LAYOUT_LATE = ("jamba",)
+
+
+def wait_load(path: str, limit_s: float = 120.0):
+    """torch.load of a file another process writes (its writer renames it
+    into place when complete), waiting at most `limit_s`."""
+    import os
+    import time
+    t0 = time.monotonic()
+    while not os.path.exists(path):
+        if time.monotonic() - t0 > limit_s:
+            raise TimeoutError(f"{path} did not appear in {limit_s} s")
+        time.sleep(0.1)
+    return torch.load(path, weights_only=False)
+
+
+def run_layout_servers(ctx, inputs, late_path):
+    from repro_torch.serving import DevicePlacement, Server
+    out = {}
+    cpu = torch.device("cpu")
+    params = dict(inputs["params"])
+    for case, (_, _, pattern, _, kind) in LAYOUT_CASES.items():
+        if case not in params:
+            params.update(wait_load(late_path)["params"])
+        cfg = layout_cfg(case)
+        srv = Server(cfg, layout_server_config(case, port=True),
+                     pattern=pattern, params=params[case],
+                     placement=DevicePlacement(cpu, ctx=ctx))
+        out[case] = _serve(srv, layout_requests(kind, cfg.vocab_size))
+        out[case]["private_shapes"] = {
+            n: tuple(t.shape) for e in srv.decodes[0].cache["layers"]
+            if e is not None for n, t in e.items()}
+    return out
+
+
+def layout_child(rank: int, store_path: str, in_path: str, out_dir: str):
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, WORLD),
+                            rank=rank, world_size=WORLD, timeout=TIMEOUT)
+    res = {}
+    try:
+        from repro_torch.distributed import RankCtx
+        ctx = RankCtx.build(TP, EP, check_lockstep=True)
+        inputs = torch.load(in_path, weights_only=False)
+        res["servers"] = run_layout_servers(ctx, inputs, in_path + ".late")
+    except BaseException:
+        res["error"] = traceback.format_exc()
+        raise
+    finally:
+        torch.save(res, f"{out_dir}/layout_rank{rank}.pt")
+        dist.destroy_process_group()
