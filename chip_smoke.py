@@ -171,7 +171,7 @@ Phases (any failure raises, so the script exits non-zero):
      phase 7's prompts twice over, (d) int8 arenas plain and with
      speculation, (e) the default pattern paged and dense — every
      comparison equal up to phase 5's near-tie rule; qwen3-32b and
-     granite-34b at 24 layers through phases 3 and 7 (phase 7's prompts
+     granite-34b at 8 layers through phases 3 and 7 (phase 7's prompts
      twice over), granite also whole-prompt on the slot-dense layout and
      with online top-k at 0.5; qwen3-moe-235b-a22b at 5 layers through
      phases 7 (at a capacity that drops nothing; the serving capacity's
@@ -250,14 +250,25 @@ Phases (any failure raises, so the script exits non-zero):
      greedy tokens) (a) chunked and (b) whole-prompt, streams equal to
      the one-rank Server's on every rank, and (c) chunked with a forced
      migration of two slots between the EP ranks mid-decode (streams
-     equal (a)'s; its seconds and the bytes moved between ranks). It
+     equal (a)'s; its seconds and the bytes moved between ranks); then
+     QuantPlane and SpecPlane over the ranks: (d) int8 arenas on (a)'s
+     traffic, (e) SpecConfig(k=4) on four of phase 7's drafting prompts
+     and its sampled request, and (f) both, the
+     speculating runs on both sides at a capacity factor that drops
+     nothing (P17_SPEC_CF) — every rank's streams equal the one-rank
+     Server's (int8 up to a near-tie below P17_INT8_TIE), the spec
+     counters and quant figures equal on every rank, a rank's
+     quant_block_bytes half the one rank's, rank 0's int8 / verify /
+     moe_gmm launches made, the capacity cut's drops printed. It
      prints the transport and why, TTFT, TPOT, the all_to_all ms a MoE
      layer and the collectives' share of rank 0's decode round (timed
      alone at the step's shapes), each rank's peak memory. Phase 2 of
      this phase (`check_rank_local_kernels`) holds paged_decode,
-     paged_prefill, flash_prefill and moe_gmm to their plain versions
-     at one rank's shapes; the kernels line's `tp2ep2` records carry
-     those times and rank 0's launches.
+     paged_prefill, flash_prefill, moe_gmm and spec_verify, and the int8
+     paths of paged_decode, paged_prefill and spec_verify, to their plain
+     versions at one rank's shapes; the kernels line's `tp2ep2` (and
+     moe_gmm's `tp2ep2_verify`) records carry those times and rank 0's
+     launches.
 Every serving phase of 3, 5-9 and 11-14 serves under CUDA-graph capture, the
 default on `cuda`: the decode step, the verify step, the prefill chunk, the
 whole-prompt prefill and the first-token draw are hot-loop entries
@@ -4132,10 +4143,11 @@ def serve_moe(dev, log, cfg, weights=None):
 
 
 # ---- phase 13: the reference's other four decoders at full width -------
-# depth cuts forced by 80 GB of float32 weights (PERF.md §4): qwen3-32b and
-# granite-34b keep 24 layers, qwen3-moe-235b-a22b 5 (129 expert slots x 3 x
-# 4,096 x 1,536 floats = 9.7 GB a layer); gemma3-4b keeps all 34
-P13_DEPTH = {"qwen3-32b": 24, "granite-34b": 24, "qwen3-moe-235b-a22b": 5}
+# depth cuts forced by 80 GB of float32 weights (PERF.md §4) and by the
+# script's 1,200 s: qwen3-32b and granite-34b keep 8 layers,
+# qwen3-moe-235b-a22b 5 (129 expert slots x 3 x 4,096 x 1,536 floats =
+# 9.7 GB a layer); gemma3-4b keeps all 34
+P13_DEPTH = {"qwen3-32b": 8, "granite-34b": 8, "qwen3-moe-235b-a22b": 5}
 # gemma3-4b's traffic: six prompts of 1,536-2,048 tokens, the 1st, 2nd, 4th
 # and 5th on a shared 512-token prefix (four chunks), so the 1,024-token
 # local windows wrap; two sampled requests on the prefix; 16 new tokens
@@ -5862,7 +5874,33 @@ P17_DTYPE = "float32"
 P17_NEW = 16
 P17_SEED = 0
 P17_TIMEOUT_S = 240     # a collective waits this long before it fails
-P17_WORLD_S = 300       # the world joins within this, or is killed
+P17_WORLD_S = 600       # the world joins within this, or is killed
+# (d)-(f): QuantPlane and SpecPlane over the ranks, run → (int8 arenas,
+# speculation at k P7_K, the launches rank 0 must make)
+P17_PLANES = {
+    "d_quant": (True, False, ("paged_decode_int8", "paged_prefill_int8",
+                              "moe_gmm")),
+    "e_spec": (False, True, ("spec_verify", "moe_gmm")),
+    "f_quant_spec": (True, True, ("spec_verify_int8", "paged_decode_int8",
+                                  "paged_prefill_int8", "moe_gmm"))}
+# the capacity factor of the speculating runs (e), (f), on both sides: one
+# rank routes a verify window's 20 rows in one cut, a rank its 10 at a
+# capacity reckoned from those 10, so at the serving factor the two drop
+# different assignments (ROADMAP C5) and their streams may part; at 16 (>=
+# E / top_k = 15) every bucket holds every row and nothing drops
+P17_SPEC_CF = 16.0
+# the speculating runs' greedy requests, of spec_workload's six
+P17_SPEC_GREEDY = 4
+# the warm-up before each of phase 17's runs, on the ranks and on one rank
+# (warm_and_drive): one run of two prompts, as phases 18 and 19 warm (over
+# gloo nothing is captured); a speculating run's two sides warm alike,
+# since the warm-up's finished requests feed the suffix table and the
+# radix tree that the drafts read
+P17_WARM = dict(warm_prompts=2, warm_runs=1)
+# the largest one-rank top-2 logit margin at which an int8 stream over the
+# ranks may leave the one-rank Server's: an int8 rounding boundary crossed
+# by a sum taken in another order (a rank's GEMMs over its heads)
+P17_INT8_TIE = 1e-2
 
 
 def dist_config():
@@ -5873,17 +5911,22 @@ def dist_config():
                                           compute_dtype=P17_DTYPE)
 
 
-def dist_server(cfg, chunked, dev=None, params=None, placement=None):
+def dist_server(cfg, chunked, dev=None, params=None, placement=None,
+                quant=False, spec=False):
     """Phase 17's server: 4 slots, 512-token context, 128-token chunks,
     every attention layer full, the placement monitor off (phase 17 forces
-    its migration)."""
+    its migration); `quant` int8 arenas, `spec` SpecConfig(k=P7_K)."""
     from repro_torch.core.proxy import OASConfig
     from repro_torch.serving import Server, ServerConfig
+    from repro_torch.serving.quant import QuantConfig
+    from repro_torch.serving.spec import SpecConfig
     scfg = ServerConfig(n_prefill=1, n_decode=1, decode_slots=4, max_len=512,
                         chunk_tokens=128, prefill_tick_budget=512,
                         kv_block_size=16, chunked_prefill=chunked,
                         enable_placement=False,
-                        oas=OASConfig(defer_window=0.0))
+                        oas=OASConfig(defer_window=0.0),
+                        quant=QuantConfig() if quant else None,
+                        spec=SpecConfig(k=P7_K) if spec else None)
     return Server(cfg, scfg, pattern=[0] * cfg.n_layers, params=params,
                   seed=P17_SEED, device=dev, placement=placement)
 
@@ -5898,30 +5941,50 @@ def dist_workload(vocab):
 
 def warm_and_drive(srv, prompts, sp, warm_prompts=4, warm_runs=2):
     """Warm the server on other tokens (`warm_runs` runs of `warm_prompts`
-    448- and 16-token prompts: every chunk bucket and the decode batch; the
+    448- and 16-token prompts: every chunk bucket and the decode batch; a
+    speculating server on phase 7's warm-up prompts, which draft; the
     first call of each hot-loop key is eager, the second captures), reset
-    its stats and the launch counters, then drive the main path →
-    (streams, metrics, launches, decode round ms, hot loops)."""
+    its stats, the launch counters and the capacity cut's drop tally, then
+    drive the main path → (streams, metrics, launches, decode round ms,
+    hot loops, the decode engine's speculation and quant stats, the
+    assignments the capacity dropped)."""
     from repro_torch.core.proxy import SamplingParams
-    warm, _ = workload(srv.cfg.vocab_size, n=6, seed=8)
+    from repro_torch.models import moe as moe_mod
+    eng = srv.decodes[0]
+    if eng.spec_ctl is None:
+        warm = workload(srv.cfg.vocab_size, n=6, seed=8)[0]
+        wsp = SamplingParams(max_tokens=3)
+    else:
+        warm = spec_workload(srv.cfg.vocab_size, seed=42)[0][:2]
+        wsp = SamplingParams(max_tokens=8)
+    warm = warm[:warm_prompts]
     for _ in range(warm_runs):
-        list(srv.generate(warm[:warm_prompts], SamplingParams(max_tokens=3)))
+        list(srv.generate(warm, wsp))
     reset_stats(srv)
     before = hot_loops(srv)
     zero_launch_counts()
+    drops = moe_mod.drop_tally(srv.placement.device)
+    drops.zero_()
     streams, finished, m, wall = drive(srv, prompts, sp)
     launches = {k.split(".")[0] + ("_int8" if "int8" in k else ""): v
                 for k, v in moved_counts().items()}
     assert all(f == "length" for f in finished), finished
-    eng = srv.decodes[0]
+    entries = CHUNKED_ENTRIES if srv.prefills[0].chunked else WHOLE_ENTRIES
+    if eng.spec_ctl is not None:
+        entries = entries + ("decode.verify",)
+    ds = eng.stats
+    assert ds["host_fetches"] == ds["steps"] > 0, ds
     return {"streams": streams, "metrics": m, "wall_s": wall,
             "launches": launches,
-            "decode_round_ms": 1e3 * eng.stats["busy_s"]
-            / max(eng.stats["steps"], 1), "steps": eng.stats["steps"],
+            "decode_round_ms": 1e3 * ds["busy_s"] / max(ds["steps"], 1),
+            "steps": ds["steps"],
             "hot_loops": check_hot_loops(srv, before, srv.placement.device,
-                                         CHUNKED_ENTRIES if
-                                         srv.prefills[0].chunked else
-                                         WHOLE_ENTRIES)}
+                                         entries),
+            "decode_stats": {k: ds[k] for k in (
+                "spec_drafted", "spec_accepted", "spec_emitted",
+                "spec_verifies", "quant_layers", "quant_block_bytes",
+                "quant_block_bytes_f32") if k in ds},
+            "drops": float(drops)}
 
 
 def swapped_slots_plan(srv):
@@ -6043,16 +6106,50 @@ def leave_world(res, out_file, nccl):
     dist.destroy_process_group()
 
 
+def plane_config(cfg, run):
+    """`cfg` at the capacity factor of a (d)-(f) run: P17_SPEC_CF where it
+    speculates, the serving factor otherwise."""
+    if P17_PLANES[run][1]:
+        return cfg.with_updates(moe_capacity_factor=P17_SPEC_CF)
+    return cfg
+
+
+def plane_workload(run, vocab):
+    """Phase 17's traffic of a (d)-(f) run: phase 17's prompts for int8
+    arenas alone; for a speculating server phase 7's first P17_SPEC_GREEDY
+    drafting prompts and its sampled request, which waits for a slot
+    (cut from phase 7's seven requests for the script's time limit)."""
+    if P17_PLANES[run][1]:
+        prompts, params = spec_workload(vocab)
+        keep = list(range(P17_SPEC_GREEDY)) + [len(prompts) - 1]
+        return [prompts[i] for i in keep], [params[i] for i in keep]
+    return dist_workload(vocab)
+
+
+def serve_planes(srv, run, dev, **warm) -> dict:
+    """One (d)-(f) run on `srv` (warm_and_drive, with `warm`'s warm-up
+    knobs), with the peak memory it took."""
+    torch.cuda.reset_peak_memory_stats(dev)
+    rec = warm_and_drive(srv, *plane_workload(run, srv.cfg.vocab_size),
+                         **warm)
+    rec["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    return rec
+
+
 def dist_rank(rank, world, backend, init, out_dir, dev_type="cuda"):
     """One rank of phase 17: join the group, build the rank's shard of the
     seed's one-rank model, serve (a) chunked, (b) whole-prompt, (c)
-    chunked with a forced migration mid-decode, time the collectives, and
-    write the results to <out_dir>/p17_rank<r>.json. `dev_type` "cpu"
-    rehearses the phase off the card (with the torch.cuda calls stubbed)."""
+    chunked with a forced migration mid-decode, time the collectives,
+    serve (d) int8 arenas, (e) speculation and (f) both, and write the
+    results to <out_dir>/p17_rank<r>.json. `dev_type` "cpu" rehearses the
+    phase off the card (with the torch.cuda calls stubbed)."""
+    from repro_torch.models import moe as moe_mod
     from repro_torch.serving import DevicePlacement
     dev, nccl = join_world(rank, world, backend, init, dev_type)
     res = {"rank": rank}
     try:
+        # the capacity cut's drops count from here on (before any capture)
+        moe_mod.drop_tally(dev)
         # gloo collectives cannot be captured: capture=False, explicitly
         pl = DevicePlacement.build(P17_TP, P17_EP, dev, backend,
                                    capture=None if nccl else False,
@@ -6066,9 +6163,17 @@ def dist_rank(rank, world, backend, init, out_dir, dev_type="cuda"):
         fresh = lambda: DevicePlacement(pl.device, pl.capture, pl.ctx)
         for name, chunked in (("a_chunked", True), ("b_whole", False)):
             srv = dist_server(cfg, chunked, params=params, placement=fresh())
-            res[name] = warm_and_drive(srv, prompts, sp)
+            res[name] = warm_and_drive(srv, prompts, sp, **P17_WARM)
             del srv
         res["collectives_ms"] = collective_ms(pl.ctx, cfg, dev)
+        res["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        # (d)-(f): QuantPlane and SpecPlane on the rank's shard, each run's
+        # peak memory its own
+        for run, (quant, spec, _) in P17_PLANES.items():
+            srv = dist_server(plane_config(cfg, run), True, params=params,
+                              placement=fresh(), quant=quant, spec=spec)
+            res[run] = serve_planes(srv, run, dev, **P17_WARM)
+            del srv
         # (c) add_request / step with a forced migration halfway through
         # the decode steps (it moves the parameters in place: last)
         srv = dist_server(cfg, True, params=params, placement=fresh())
@@ -6090,7 +6195,6 @@ def dist_rank(rank, world, backend, init, out_dir, dev_type="cuda"):
                             "slot_expert": srv.tables["slot_expert"]
                             .cpu().tolist()}
         del srv
-        res["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
     except BaseException as exc:
         res["error"] = f"{type(exc).__name__}: {exc}"
     leave_world(res, Path(out_dir) / f"p17_rank{rank}.json", nccl)
@@ -6104,7 +6208,13 @@ def check_rank_local_kernels(dev, timer, log, cfg):
     phase 17's 4 slots and 128-token chunks), flash_prefill over 8 heads
     of a 448-token prompt padded to 512, and moe_gmm over the rank's 30
     slots with ep·Cb rows each — 16 at a 4-slot decode step (w1/w3: [30,
-    16, 2048] x [30, 2048, 704]), 48 at a 128-token chunk. Phase 18's
+    16, 2048] x [30, 2048, 704]), 48 at a 128-token chunk, and (d)-(f)'s
+    QuantPlane and SpecPlane shapes: paged_decode and paged_prefill on
+    int8 arenas of the rank's 8 KV heads, spec_verify over a 4-slot window
+    of P7_K + 1 rows in float32 and int8 (each int8 path against
+    dequantize-then-SDPA; returned under "int8"), and moe_gmm at a verify
+    window's rows ("tp2ep2_verify": this rank's half of 4 x 5 rows, top-4).
+    Phase 18's
     OmniAttn shapes: paged_decode over 264-block ring tables
     ("tp2ep2_ring"), flash_prefill over a 4,608-row bucket with sink 128 +
     window 4,096 ("tp2ep2_window"), sink_decode over the W 4,224 ring
@@ -6126,6 +6236,8 @@ def check_rank_local_kernels(dev, timer, log, cfg):
     from repro_torch.kernels.paged_prefill import (paged_prefill,
                                                    paged_prefill_plain)
     from repro_torch.kernels.sink_decode import sink_decode, sink_decode_plain
+    from repro_torch.kernels.spec_verify import (spec_verify,
+                                                 spec_verify_plain)
     from repro_torch.models import moe as moe_mod
     from repro_torch.models import stack as tstack
     dt = torch.float32
@@ -6191,7 +6303,54 @@ def check_rank_local_kernels(dev, timer, log, cfg):
         "moe_gmm", moe_gmm, moe_gmm_plain, (xc, wc, nc),
         moe_gmm_bound(xc, wc, nc), lambda: torch.bmm(xc, wc),
         f"x [{s}, {P17_EP * cb_pre}, {cfg.d_model}], {int(nc.sum())} rows")
-    out = {name: {"tp2ep2": r} for name, r in rec.items()}
+    # phase 17 (e)-(f)'s verify window at their capacity factor: 4 slots x
+    # (P7_K + 1) rows, this rank's half of them (the batch split over
+    # `data`) routed top-4 over 60 experts, about half of the 80
+    # assignments on this rank's 30 slots
+    S_ver = P7_K + 1
+    cb_ver = moe_mod._bucket_capacity(4 * S_ver // P17_EP, k, P17_EP, s,
+                                      P17_SPEC_CF)
+    xv, wv, nv_ = moe_gmm_inputs(dev, dt, s, P17_EP * cb_ver, cfg.d_model,
+                                 Fe, 4 * S_ver * k // 2, 1, 79)
+    rec["moe_gmm_verify"] = one(
+        "moe_gmm verify", moe_gmm, moe_gmm_plain, (xv, wv, nv_),
+        moe_gmm_bound(xv, wv, nv_), lambda: torch.bmm(xv, wv),
+        f"x [{s}, {P17_EP * cb_ver}, {cfg.d_model}] w [{s}, {cfg.d_model}, "
+        f"{Fe}], {int(nv_.sum())} rows")
+    sv = prefill_inputs(dev, dt, 4, K, S_ver, G, h, 16, 32, 161,
+                        [256, 262, 270, 281], [S_ver] * 4, 80)
+    rec["spec_verify"] = one(
+        "spec_verify", spec_verify, spec_verify_plain, sv,
+        prefill_bound(sv[0], sv[1], sv[3], sv[5], sv[6], sv[7]),
+        sdpa_prefill(*sv), f"B 4, K {K}, G {G}, S {S_ver}, off 256-281")
+    # the int8 paths of (d)-(f), over arenas of the rank's K heads written
+    # by the port's int8 write path, against dequantize-then-SDPA
+    int8 = {}
+    for name, kern, plain, lib, seed in (
+            ("paged_decode", paged_decode, paged_decode_plain,
+             sdpa_decode_int8, 84),
+            ("paged_prefill", paged_prefill, paged_prefill_plain,
+             sdpa_prefill_int8, 86),
+            ("spec_verify", spec_verify, spec_verify_plain,
+             sdpa_prefill_int8, 88)):
+        a = {"paged_decode": dec, "paged_prefill": pre,
+             "spec_verify": sv}[name]
+        tb, ln = (a[3], a[4]) if name == "paged_decode" else (a[5], a[6])
+        kq, vq, sc = int8_arena(dev, K, 16, h, 161, tb, ln, seed)
+        args = (a[0], kq, vq, a[3], a[4]) if name == "paged_decode" else \
+            (a[0], a[1], a[2], kq, vq, a[5], a[6], a[7])
+        bnd = decode_bound(a[0], kq, a[3], a[4]) if name == "paged_decode" \
+            else prefill_bound(a[0], a[1], kq, a[5], a[6], a[7])
+        int8[name] = {"tp2ep2": one(
+            f"{name} int8", lambda *x, f=kern: f(*x, **sc),
+            lambda *x, f=plain: f(*x, **sc), args, bnd, lib(*args, sc),
+            rec[name]["shape"] if name in rec else "")}
+        int8[name]["tp2ep2"]["library"] = "dequant+sdpa"
+        del kq, vq
+    out = {name: {"tp2ep2": r} for name, r in rec.items()
+           if name != "moe_gmm_verify"}
+    out["moe_gmm"]["tp2ep2_verify"] = rec["moe_gmm_verify"]
+    out["int8"] = int8
     # phase 18: the ring layers' decode over their 264-block runs (three
     # wrapped rings and a short one), a whole 4,416-4,480-token prompt's
     # bucket through the sink + window mask, the slot-dense ring
@@ -6412,12 +6571,18 @@ def dist_phase(dev, timer, log):
     """Phase 17: full-width qwen2-moe-a2.7b (P17_LAYERS layers, float32)
     served over (tp 2, ep 2) ranks, one process each: NCCL with one card a
     rank and the hot loops captured where four cards are visible, else the
-    four ranks share cuda:0 over gloo with capture=False. Its greedy
-    streams must equal the one-rank port Server's on the same card and
-    seed-0 weights; the rank-local kernels are held to their plain
-    versions. A failure here fails the run."""
+    four ranks share cuda:0 over gloo with capture=False. (a) chunked, (b)
+    whole-prompt, (c) a forced migration, then QuantPlane and SpecPlane:
+    (d) int8 arenas, (e) SpecConfig(k=P7_K) on P17_SPEC_GREEDY of phase
+    7's drafting prompts and its sampled request, (f) both
+    (`check_plane_runs`). Its streams must equal the one-rank port
+    Server's on the same card and seed-0 weights; the rank-local kernels
+    are held to their plain versions. A failure here fails the run."""
+    from repro_torch.models import moe as moe_mod
     from repro_torch.serving import Server  # noqa: F401  (the build check)
     cfg = dist_config()
+    # the capacity cut's drops count from here on (before any capture)
+    moe_mod.drop_tally(dev)
     world = P17_TP * P17_EP
     n_cards = torch.cuda.device_count()
     nccl = n_cards >= world
@@ -6431,22 +6596,35 @@ def dist_phase(dev, timer, log):
                   f"collectives cannot be captured, so every placement is "
                   f"built with capture=False")
     out["kernels"] = check_rank_local_kernels(dev, timer, log, cfg)
+    out["kernels_int8"] = out["kernels"].pop("int8")
     torch.cuda.empty_cache()
     prompts, sp = dist_workload(cfg.vocab_size)
     # the one-rank port Server on the same card and seed-0 weights
     ref = {}
     srv = dist_server(cfg, True, dev=dev)
     out["one_rank_weights_gb"] = params_gb(srv.params)
-    ref["a_chunked"] = warm_and_drive(srv, prompts, sp)
+    ref["a_chunked"] = warm_and_drive(srv, prompts, sp, **P17_WARM)
     srvb = dist_server(cfg, False, dev=dev, params=srv.params)
-    ref["b_whole"] = warm_and_drive(srvb, prompts, sp)
+    ref["b_whole"] = warm_and_drive(srvb, prompts, sp, **P17_WARM)
     out["one_rank"] = {k: {x: v[x] for x in ("metrics", "launches",
                                              "decode_round_ms")}
                        for k, v in ref.items()}
-    del srv, srvb
+    del srvb
+    out["one_rank_peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    # (d)-(f) on the same weights
+    weights = srv.params
+    del srv
+    for run, (quant, spec, _) in P17_PLANES.items():
+        srvp = dist_server(plane_config(cfg, run), True, dev=dev,
+                           params=weights, quant=quant, spec=spec)
+        ref[run] = serve_planes(srvp, run, dev, **P17_WARM)
+        out["one_rank"][run] = {x: ref[run][x] for x in (
+            "metrics", "launches", "decode_round_ms", "decode_stats",
+            "drops", "peak_mem_gb", "steps")}
+        del srvp
+    del weights
     gc.collect()
     torch.cuda.empty_cache()
-    out["one_rank_peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
     # the world: rank = e · tp + t, one process each
     ranks, out["world_s"] = run_world(dist_rank, world, backend, "p17_rank",
                                       P17_WORLD_S)
@@ -6469,6 +6647,7 @@ def dist_phase(dev, timer, log):
         for k in need:
             if ln.get(k, 0) <= 0:
                 raise AssertionError(f"phase 17 {name}: no {k} launch")
+    out["planes"] = check_plane_runs(ranks, ref, cfg, dev, log)
     out["ranks"] = ranks
     cm = r0["collectives_ms"]
     out["collective_share"] = cm["per_step"] / r0["a_chunked"][
@@ -6478,6 +6657,70 @@ def dist_phase(dev, timer, log):
                f"shards " + ", ".join(f"{r['shard_gb']:.2f}" for r in ranks)
                + f" GB; built one rank at a time and carried over in "
                f"{r0['transfer_s']:.1f} s")
+    return out
+
+
+def check_plane_runs(ranks, ref, cfg, dev, log) -> dict:
+    """Phase 17 (d)-(f) against the one-rank Server's runs `ref`: every
+    rank's streams equal them — exactly in float32, an int8 stream up to a
+    near-tie of one-rank top-2 margin below P17_INT8_TIE (a one-rank
+    server is built only where a stream differs) —, the speculation
+    counters are equal on every rank, each rank's int8 residency figures
+    are its own (half the one-rank figure: 8 of 16 KV heads), the
+    speculating runs drop nothing at P17_SPEC_CF on either side, and rank
+    0 launched the run's kernels. → per run the near-ties and the figures
+    printed."""
+    out = {}
+    for run, (quant, spec, need) in P17_PLANES.items():
+        prompts, sp = plane_workload(run, cfg.vocab_size)
+        want = ref[run]["streams"]
+        pcfg = plane_config(cfg, run)
+        if not quant:
+            check_rank_streams("phase 17", run, ranks, want, prompts,
+                               lambda s_=spec: dist_server(pcfg, True,
+                                                           dev=dev,
+                                                           spec=s_))
+            ties = []
+        else:
+            ties = []
+            for r in ranks:
+                if r[run]["streams"] == want:
+                    continue
+                gc.collect()
+                torch.cuda.empty_cache()
+                srv = dist_server(pcfg, True, dev=dev, quant=True,
+                                  spec=spec)
+                ties += near_tie_diffs(srv, prompts, sp, r[run]["streams"],
+                                       want, f"phase 17 {run} rank "
+                                       f"{r['rank']}", log,
+                                       limit=P17_INT8_TIE)
+                del srv
+        stats = [r[run]["decode_stats"] for r in ranks]
+        if any(s_ != stats[0] for s_ in stats):
+            raise AssertionError(f"phase 17 {run}: the decode stats differ "
+                                 f"between ranks: {stats}")
+        one = ref[run]["decode_stats"]
+        if quant:
+            for k in ("quant_block_bytes", "quant_block_bytes_f32"):
+                if not 0 < 2 * stats[0][k] == one[k]:
+                    raise AssertionError(f"phase 17 {run}: {k} {stats[0][k]}"
+                                         f" is not half the one-rank {one[k]}")
+        if spec and stats[0]["spec_verifies"] <= 0:
+            raise AssertionError(f"phase 17 {run}: no verify step")
+        ln = ranks[0][run]["launches"]
+        for k in need:
+            if ln.get(k, 0) <= 0:
+                raise AssertionError(f"phase 17 {run}: rank 0 made no {k} "
+                                     f"launch")
+        drops = [r[run]["drops"] for r in ranks]
+        if spec and (any(drops) or ref[run]["drops"]):
+            raise AssertionError(f"phase 17 {run}: capacity factor "
+                                 f"{P17_SPEC_CF} dropped assignments: ranks "
+                                 f"{drops}, one rank {ref[run]['drops']}")
+        out[run] = {"near_ties": ties, "decode_stats": stats[0],
+                    "one_rank_decode_stats": one, "drops": drops,
+                    "one_rank_drops": ref[run]["drops"],
+                    "capacity_factor": pcfg.moe.capacity_factor}
     return out
 
 
@@ -7226,7 +7469,8 @@ def main() -> int:
     archs = serve_archs(dev, log)
     print(f"phase 13 [{time.monotonic() - t0:.1f} s]: the other four "
           f"decoders at full width in {time.monotonic() - t13:.1f} s "
-          f"(gemma3-4b all 34 layers; qwen3-32b, granite-34b 24 layers, "
+          f"(gemma3-4b all 34 layers; qwen3-32b, granite-34b "
+          f"{P13_DEPTH['granite-34b']} layers, "
           f"qwen3-moe-235b-a22b 5)")
     for line in log:
         print("  " + line)
@@ -7469,6 +7713,41 @@ def main() -> int:
           f"{mig['migration']['seconds']:.3f} s, "
           f"{mig['migration']['bytes'] / 1e6:.1f} MB moved between ranks; "
           f"streams equal (a)'s on every rank [{smi}]")
+    for run, what in (("d_quant", "(d) int8 arenas, chunked"),
+                      ("e_spec", f"(e) SpecConfig(k={P7_K})"),
+                      ("f_quant_spec", "(f) int8 arenas + speculation")):
+        pr, r1 = dist17["planes"][run], dist17["one_rank"][run]
+        m, m1 = r0[run]["metrics"], r1["metrics"]
+        ln = {k: v for k, v in r0[run]["launches"].items() if v}
+        ds, ds1 = pr["decode_stats"], pr["one_rank_decode_stats"]
+        figs = []
+        if "spec_verifies" in ds:
+            figs.append("spec drafted/accepted/emitted/verifies " + "/".join(
+                str(ds[k]) for k in ("spec_drafted", "spec_accepted",
+                                     "spec_emitted", "spec_verifies"))
+                + " on every rank (one rank " + "/".join(
+                    str(ds1[k]) for k in ("spec_drafted", "spec_accepted",
+                                          "spec_emitted", "spec_verifies"))
+                + ")")
+        if "quant_block_bytes" in ds:
+            figs.append(f"quant_block_bytes {ds['quant_block_bytes']} / f32 "
+                        f"{ds['quant_block_bytes_f32']} a rank (one rank "
+                        f"{ds1['quant_block_bytes']} / "
+                        f"{ds1['quant_block_bytes_f32']})")
+        print(f"  {what}: streams of all four ranks equal the one-rank "
+              f"Server's ({len(pr['near_ties'])} int8 near-ties below "
+              f"{P17_INT8_TIE}); " + "; ".join(figs)
+              + f"; at capacity factor {pr['capacity_factor']} the "
+              f"capacity cut dropped {pr['drops']} assignments a rank (one "
+              f"rank {pr['one_rank_drops']}); rank 0 launches {ln}; TTFT mean "
+              f"{m['ttft_mean'] * 1e3:.1f} ms, TPOT mean "
+              f"{m['tpot_mean_ms']:.2f} ms, decode round "
+              f"{r0[run]['decode_round_ms']:.2f} ms, peak "
+              f"{r0[run]['peak_mem_gb']:.2f} GB (one rank: TTFT mean "
+              f"{m1['ttft_mean'] * 1e3:.1f} ms, TPOT mean "
+              f"{m1['tpot_mean_ms']:.2f} ms, decode round "
+              f"{r1['decode_round_ms']:.2f} ms, peak "
+              f"{r1['peak_mem_gb']:.2f} GB) [{smi}]")
     print(f"  peak memory per rank "
           + ", ".join(f"{r['peak_mem_gb']:.2f}" for r in dist17["ranks"])
           + f" GB (shards {r0['shard_gb']:.2f} GB each with the whole model"
@@ -7651,6 +7930,15 @@ def main() -> int:
     new_launches["paged_prefill"]["tp2ep2"] = la["paged_prefill"]
     new_launches["flash_prefill"]["tp2ep2"] = lb["flash_prefill"]
     new_launches["moe_gmm"]["tp2ep2"] = la["moe_gmm"] + lb["moe_gmm"]
+    # phase 17 (d)-(f): the int8 arenas and the verify window, rank 0's
+    # launches there (moe_gmm: every launch of the speculating runs)
+    for name, subs in dist17["kernels_int8"].items():
+        for sub, rec in subs.items():
+            kern_q[name][f"float32_{sub}"] = rec
+    ld, le, lf = (r0[run]["launches"] for run in P17_PLANES)
+    new_launches["spec_verify"]["tp2ep2"] = le["spec_verify"]
+    new_launches["moe_gmm"]["tp2ep2_verify"] = le["moe_gmm"] \
+        + lf["moe_gmm"]
     # phase 18: every paged_decode launch of (a) (6 of its 8 layers are
     # ring tables), (b)'s whole prompts (6 of 8 layers sink + window) and
     # sink_decode steps, (c)'s two block_topk entries
@@ -7680,6 +7968,11 @@ def main() -> int:
             "h256": g3["d_int8"]["launches"]["paged_prefill_int8"]},
         "spec_verify": {
             "h256": g3["d_int8_spec_on"]["launches"]["spec_verify_int8"]}}
+    new_int8["paged_decode"]["tp2ep2"] = ld["paged_decode_int8"] \
+        + lf["paged_decode_int8"]
+    new_int8["paged_prefill"]["tp2ep2"] = ld["paged_prefill_int8"] \
+        + lf["paged_prefill_int8"]
+    new_int8["spec_verify"]["tp2ep2"] = lf["spec_verify_int8"]
     line = {"kernels": []}
     for name, key, dn, launches in rows:
         r = kern[key][dn]
@@ -7754,8 +8047,8 @@ def main() -> int:
                 continue
             subs = ("h256", "g48", "qwen3moe", "jamba", "jamba_ring",
                     "jamba_chunk", "h80", "h96", "tp2ep2", "tp2ep2_ring",
-                    "tp2ep2_window", "tp2ep2_select_scores", "tp4",
-                    "tp4_ring", "tp4_qwen2")
+                    "tp2ep2_window", "tp2ep2_select_scores",
+                    "tp2ep2_verify", "tp4", "tp4_ring", "tp4_qwen2")
             for sub in subs:
                 if sub in rec and rec[sub]["launches"] <= 0 and \
                         rec[sub].get("on_path", True):

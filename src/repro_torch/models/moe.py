@@ -134,6 +134,25 @@ def router(cfg: ModelConfig, x, router_w):
     return vals, idx, probs
 
 
+# the capacity cut's drop tallies, one per device (`drop_tally`)
+_DROP_TALLY: dict = {}
+
+
+def drop_tally(device) -> torch.Tensor:
+    """The running count of the live (token, choice) assignments that a
+    bucket's capacity dropped in `moe_ffn` on `device` (weighted like the
+    expert counts: inactive and padded rows count nothing): a float32
+    scalar each call adds to in place on the device, so the replays of a
+    captured step count too. It is created, and counts from then on, at
+    the first call for the device (before the steps that should count are
+    captured); zero it in place to restart. Read by tests and
+    chip_smoke.py; nothing on the serving path reads it."""
+    dev = torch.empty(0, device=device).device
+    if dev not in _DROP_TALLY:
+        _DROP_TALLY[dev] = torch.zeros((), dtype=torch.float32, device=dev)
+    return _DROP_TALLY[dev]
+
+
 def _bucket_capacity(tc: int, k: int, ep: int, s: int, cf: float) -> int:
     c = math.ceil(tc * k * cf / (ep * s))
     return max(8, ((c + 7) // 8) * 8)
@@ -181,8 +200,9 @@ def moe_ffn(cfg: ModelConfig, x, router_w, w1, w3, w2, tables: dict,
     the reference's batch_part) this rank routes its T / ep rows, the
     counts are summed over `data` and y is gathered back to [T, D].
     Assignments past a bucket's capacity are dropped (they add 0; the kept
-    gates are not renormalised). With `train` the products are
-    `torch.bmm` (the kernel has no backward); one rank only."""
+    gates are not renormalised; `drop_tally` counts them). With `train`
+    the products are `torch.bmm` (the kernel has no backward); one rank
+    only."""
     ctx = ctx if ctx is not None else RankCtx.local()
     if w1.shape[0] != 1:
         raise ValueError(
@@ -234,6 +254,9 @@ def moe_ffn(cfg: ModelConfig, x, router_w, w1, w3, w2, tables: dict,
         onehot = (key[:, None] == bucket_ids[None, :]).to(torch.int32)
         pos = (torch.cumsum(onehot, dim=0) * onehot).sum(-1) - 1
         valid = pos < Cb
+        tally = _DROP_TALLY.get(dev)
+        if tally is not None:
+            tally += (cw[c * a:(c + 1) * a] * ~valid).sum()
         # dropped assignments land on a spare row past the buffer
         flat = torch.where(valid, key * Cb + pos,
                            torch.full_like(key, nb * Cb))

@@ -28,9 +28,13 @@ Over ranks every leaf is the rank's: the arenas, the ring block runs, the
 slot-dense caches and the handoff and preemption leaves hold its KV heads
 (`stack.head_layout`) and its share of each Mamba-2 state and `conv_x`
 rows (`stack.mamba_layout`), and a ring run's slot arithmetic
-(`attn_mod.ring_slot`) is the same on every rank. Top-k stats are the same
-on every rank (the selection follows one max over `model`): they are
-drained per rank and never summed over ranks.
+(`attn_mod.ring_slot`) is the same on every rank; int8 arenas hold the
+rank's KV heads with their scale plane. Top-k stats are the same on every
+rank (the selection follows one max over `model`), and so are the
+speculation stats: drafts come from the host's tokens alone, and the
+verify step's accept decision from logits every rank holds whole, so
+every rank accepts the same prefix and commits, rolls back and emits
+alike. Both are drained per rank and never summed over ranks.
 
 MoE layers route through the engine's `tables`; each step adds the live
 rows' expert counts to a [L_moe, E] device accumulator that the server

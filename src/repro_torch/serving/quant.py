@@ -20,7 +20,7 @@ from typing import Optional
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import torch_dtype
-from repro_torch.models.stack import StackPlan, full_attn_layer
+from repro_torch.models.stack import StackPlan, full_attn_layer, head_layout
 
 
 @dataclass(frozen=True)
@@ -50,11 +50,16 @@ class QuantController:
     @staticmethod
     def from_model(cfg: ModelConfig, plan: StackPlan,
                    qcfg: Optional[QuantConfig], block_size: int, *,
-                   paged_kv: bool = True) -> Optional["QuantController"]:
+                   paged_kv: bool = True,
+                   tp: int = 1) -> Optional["QuantController"]:
         """→ a controller when `qcfg` asks for int8 arenas and the stack has
         a full-attention layer, else None (quant off). Raises ValueError for
         a width other than 8 bits and for quant over the slot-dense layout
-        (the scale plane lives on arena blocks)."""
+        (the scale plane lives on arena blocks). The residency figures are
+        one rank's: its arena blocks hold the KV heads
+        `head_layout(cfg, tp)` gives it (K / tp under 'kv', the one head
+        under 'wseq', every head when the sublayer is replicated), so at
+        tp 1 they are the whole model's."""
         if qcfg is None:
             return None
         if qcfg.bits != 8:
@@ -67,7 +72,7 @@ class QuantController:
         n_quant = sum(1 for s in plan.all_specs() if full_attn_layer(cfg, s))
         if n_quant == 0:
             return None                 # nothing to quantize: quant off
-        K, h, bs = cfg.n_kv_heads, cfg.head_dim, block_size
+        K, h, bs = head_layout(cfg, tp).nk, cfg.head_dim, block_size
         it = torch_dtype(cfg.compute_dtype).itemsize
         return QuantController(QuantPlan(
             bits=8, n_quant_layers=n_quant,

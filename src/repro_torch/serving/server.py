@@ -67,8 +67,14 @@ one head its query heads read under 'wseq', all of them for a replicated
 sublayer); online top-k max-reduces its block scores over `model` before
 ranking, so every rank attends the same blocks. Mamba-2 layers carry the
 rank's share of each slot's state (`stack.mamba_layout`) through
-admission, prefix reuse, handoff and preemption. QuantPlane, SpecPlane and
-FaultPlane are refused over several ranks (ROADMAP A16b).
+admission, prefix reuse, handoff and preemption. QuantPlane serves over
+ranks on int8 arenas of the rank's KV heads (its residency figures are
+the rank's own); SpecPlane drafts on the host from tokens and finished
+requests alone, which every rank holds alike, and its verify step takes
+its accept decision from logits that every rank holds whole after the
+`model` reductions, so every rank accepts the same prefix; the lockstep
+digest carries the speculation counters. FaultPlane is refused over
+several ranks (ROADMAP A16b).
 """
 from __future__ import annotations
 
@@ -100,6 +106,12 @@ from repro_torch.serving.spec import SpecConfig
 # decode rounds between drains of the engines' device-side sparsity and
 # speculation windows (a host sync each; the reference's monitor interval)
 STAT_DRAIN_ROUNDS = 16
+# the decode engines' device accumulators the lockstep digest carries:
+# state key → (leading entries compared, the drained stats keys)
+LOCKSTEP_COUNTERS = {
+    "sparsity": (2, ("blocks_scored", "blocks_attended")),
+    "spec": (4, ("spec_drafted", "spec_accepted", "spec_emitted",
+                 "spec_verifies"))}
 
 
 @dataclass
@@ -166,19 +178,16 @@ def check_servable(cfg: ModelConfig) -> None:
 
 def check_distributed_server(scfg: ServerConfig, faults, world: int
                              ) -> None:
-    """Raise NotImplementedError, naming ROADMAP A16b, for the planes this
-    slice does not run over several ranks: QuantPlane, SpecPlane and
-    FaultPlane. Every servable model lays out over ranks (attention by
-    `stack.head_layout`, Mamba-2 by `stack.mamba_layout`)."""
-    if world == 1:
-        return
-    for name, on in (("QuantPlane (ServerConfig.quant)",
-                      scfg.quant is not None),
-                     ("SpecPlane (ServerConfig.spec)", scfg.spec is not None),
-                     ("FaultPlane (Server(faults=...))", faults is not None)):
-        if on:
-            raise NotImplementedError(
-                f"{name} over {world} ranks (ROADMAP A16b)")
+    """Raise NotImplementedError, naming ROADMAP A16b, for the one plane
+    this port does not run over several ranks: FaultPlane. QuantPlane and
+    SpecPlane serve over ranks (each rank's int8 arenas hold its own KV
+    heads, and every rank takes the same verify decision); every servable
+    model lays out over ranks (attention by `stack.head_layout`, Mamba-2
+    by `stack.mamba_layout`)."""
+    if world > 1 and faults is not None:
+        raise NotImplementedError(
+            f"FaultPlane (Server(faults=...)) over {world} ranks "
+            f"(ROADMAP A16b)")
 
 
 class Server:
@@ -220,10 +229,11 @@ class Server:
         self.kv_arena = None
         # QuantPlane: validated against this stack (raises on a width other
         # than 8 bits or over slot-dense KV; None when no full-attention
-        # layer exists to quantize) before any arena is allocated
+        # layer exists to quantize) before any arena is allocated; its
+        # residency figures are this rank's KV heads'
         self.quant_ctl = QuantController.from_model(
             cfg, self.lm.plan, scfg.quant, scfg.kv_block_size,
-            paged_kv=scfg.paged_kv)
+            paged_kv=scfg.paged_kv, tp=self.ctx.tp)
         if scfg.paged_kv:
             max_blocks = -(-scfg.max_len // scfg.kv_block_size)
             n_blocks = scfg.kv_blocks if scfg.kv_blocks is not None else \
@@ -353,22 +363,26 @@ class Server:
     def _check_lockstep(self):
         """Raise if the ranks' host state diverged this round: a CRC of the
         step count, the scheduled request ids of every engine and queue,
-        the tokens emitted and, with online top-k, each decode engine's
-        blocks scored and attended (its device accumulator and the drained
-        stats: one more device read a round, made only here), all-gathered
-        over the world. The top-k counts are the same on every rank by
-        construction — the scores are max-reduced over `model` before any
-        rank ranks them — so a difference means a rank's budget or
-        residency drifted."""
-        blocks = [(e.state["sparsity"][:2].tolist(), e.stats["blocks_scored"],
-                   e.stats["blocks_attended"])
-                  for e in self.decodes if "sparsity" in e.state]
+        the tokens emitted and each decode engine's device counters — with
+        online top-k the blocks scored and attended, with speculation
+        [drafted, accepted, emitted, verifies] (each the device accumulator
+        and the drained stats: one more device read a round, made only
+        here) — all-gathered over the world. These counters are the same
+        on every rank by construction (the top-k scores are max-reduced
+        over `model` before any rank ranks them; every rank holds the
+        verify window's whole logits and the same drafts), so a difference
+        means a rank's budget, residency or accept decision drifted; they
+        are never summed over ranks."""
+        counters = [(e.state[n][:k].tolist(), [e.stats[s] for s in keys])
+                    for e in self.decodes
+                    for n, (k, keys) in LOCKSTEP_COUNTERS.items()
+                    if n in e.state]
         state = (self._step_count, sorted(self.proxy.inflight),
                  sorted(self._pending_kv),
                  [sorted(e.rid_slot.items()) for e in self.decodes],
                  [[t.rid for t in e.queue] for e in self.prefills],
                  sorted((r, tuple(t)) for r, t in self._fresh.items()),
-                 blocks)
+                 counters)
         digest = zlib.crc32(repr(state).encode())
         got = self.ctx.all_gather_ints([self._step_count, digest])
         if any(g != got[0] for g in got):

@@ -20,6 +20,11 @@ from token statistics the serving system already holds —
      by FINISHED requests, giving cross-request speculation on shared
      phrasing.
 
+Every source reads only tokens (admission, accepted tokens), finished or
+preempted requests and the proxy's tree of served prompts, nothing of the
+device, so over several ranks, which admit, emit, release and dispatch
+alike, every rank's controller drafts the same tokens.
+
 Correctness never depends on draft quality: the verify step accepts exactly
 the longest prefix matching its own greedy argmax and re-derives every
 emitted token from its own logits, so the emitted stream is bit-identical

@@ -399,9 +399,11 @@ def _refused(case):
     from repro_torch.training.trainer import init_state
     moe = W.moe_cfg()
     cpu = torch.device("cpu")
-    if case in ("quant", "spec", "faults"):
+    if case in ("quant", "spec", "both", "faults"):
         kw = {"quant": dict(quant=QuantConfig()),
-              "spec": dict(spec=SpecConfig(k=2))}.get(case, {})
+              "spec": dict(spec=SpecConfig(k=2)),
+              "both": dict(quant=QuantConfig(),
+                           spec=SpecConfig(k=2))}.get(case, {})
         faults = FaultPlane() if case == "faults" else None
         return lambda: TServer(moe, ServerConfig(**kw), pattern=[0, 0],
                                faults=faults, placement=DevicePlacement(
@@ -417,11 +419,99 @@ def _refused(case):
     return lambda: lm.shapes()       # a sharded checkpoint restore
 
 
-@pytest.mark.parametrize("case", ["quant", "spec", "faults", "train",
-                                  "opt_specs", "restore"])
+@pytest.mark.parametrize("case", ["faults", "train", "opt_specs",
+                                  "restore"])
 def test_a16b_refusals(case):
     with pytest.raises(NotImplementedError, match="A16b"):
         _refused(case)()
+
+
+@pytest.mark.parametrize("case", ["quant", "spec", "both"])
+def test_planes_build_over_ranks(case):
+    """QuantPlane and SpecPlane, alone and together, build over a fake
+    (tp 2, ep 2) rank (they raised A16b before): int8 arenas of the rank's
+    one KV head of two, and a verify entry on the decode engine;
+    tests/test_torch_distributed_planes.py serves them over four ranks."""
+    srv = _refused(case)()
+    assert srv.ctx.world == 4
+    eng = srv.decodes[0]
+    assert (eng.spec_ctl is not None) == (case != "quant")
+    arena = [e for e in srv.kv_arena.kv if e is not None]
+    assert arena and all(e["k"].shape[1] == W.moe_cfg().n_kv_heads // 2
+                         for e in arena)
+    assert all((e["k"].dtype == torch.int8) == (case != "spec")
+               for e in arena)
+
+
+@pytest.mark.parametrize("arch,upd,tp,kind", [
+    ("qwen2-moe-a2.7b", {}, 2, "kv"),
+    ("qwen2-moe-a2.7b", {}, 1, "kv"),
+    ("granite-34b", {}, 2, "wseq"),
+    ("qwen2-1.5b", dict(n_heads=3, n_kv_heads=1), 2, "replicated")])
+def test_quant_figures_are_the_ranks(arch, upd, tp, kind):
+    """QuantController's residency figures over ranks are one rank's: the
+    KV heads `head_layout` gives the rank (K / tp under 'kv', the one head
+    under 'wseq', every head replicated), equal to the bytes one block of
+    that rank's int8 arenas pins; at tp 1 the whole model's."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.serving import ServerConfig
+    from repro_torch.serving.quant import QuantConfig, QuantController
+    cfg = reduced_config(arch).with_updates(compute_dtype="float32",
+                                            param_dtype="float32", **upd)
+    lm = TLM.build(cfg, pattern=[0] * cfg.n_layers, device="cpu")
+    one = QuantController.from_model(cfg, lm.plan, QuantConfig(), 16)
+    got = QuantController.from_model(cfg, lm.plan, QuantConfig(), 16, tp=tp)
+    hl = tstack.head_layout(cfg, tp)
+    assert hl.kind == kind
+    assert got.plan.payload_bytes_int8 * cfg.n_kv_heads == \
+        one.plan.payload_bytes_int8 * hl.nk
+    assert got.compression() == one.compression()
+    srv = TServer(cfg, ServerConfig(quant=QuantConfig(), decode_slots=2,
+                                    max_len=32, kv_blocks=4),
+                  pattern=[0] * cfg.n_layers, placement=DevicePlacement(
+                      torch.device("cpu"), ctx=_fake(tp=tp, ep=1)))
+    st = srv.decodes[0].stats
+    # one block's int8 payload and scale plane over the full layers
+    pinned = sum(e[n][0].numel() * e[n].element_size()
+                 for e in srv.kv_arena.kv if e is not None
+                 for n in ("k", "v", "kscale", "vscale", "ktok", "vtok"))
+    assert all(e["k"].shape[1] == hl.nk for e in srv.kv_arena.kv
+               if e is not None)
+    assert st["quant_block_bytes"] == pinned
+    assert st["quant_block_bytes_f32"] * cfg.n_kv_heads == \
+        one.plan.payload_bytes_f32 * one.plan.n_quant_layers * hl.nk
+
+
+@pytest.mark.parametrize("where", ["device", "drained"])
+def test_lockstep_digest_carries_spec_counters(where):
+    """The round digest carries each decode engine's speculation counters,
+    the device accumulator's [drafted, accepted, emitted, verifies] and
+    the drained spec_* stats: a rank whose counters alone differ raises."""
+    from repro_torch.serving import ServerConfig
+    from repro_torch.serving.spec import SpecConfig
+
+    class TwoRanks(RankCtx):
+        other = None
+
+        def all_gather_ints(self, values):
+            # "rank 1" keeps the digest of the first round it saw
+            if self.other is None:
+                self.other = list(values)
+            return [list(values), self.other]
+
+    srv = TServer(W.moe_cfg(), ServerConfig(decode_slots=2, max_len=32,
+                                            spec=SpecConfig(k=2)),
+                  pattern=[0, 0], device="cpu")
+    srv.ctx = TwoRanks(ep=2, check_lockstep=True)
+    srv._check_lockstep()
+    srv._check_lockstep()            # nothing moved: the digests agree
+    eng = srv.decodes[0]
+    if where == "device":
+        eng.state["spec"][1] += 1
+    else:
+        eng.stats["spec_accepted"] += 1
+    with pytest.raises(RuntimeError, match="diverged"):
+        srv._check_lockstep()
 
 
 def test_lockstep_divergence_raises():

@@ -123,6 +123,13 @@ def top2_margin(cfg, params, prompt, stream, i, pattern=None) -> float:
     return float(top[0] - top[1])
 
 
+def first_diff(a, b) -> int:
+    """The first position where token lists a and b differ (the shorter
+    length where one is a prefix of the other)."""
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                min(len(a), len(b)))
+
+
 def assert_streams(got: dict, want: dict, what: str, margin=None):
     """Equal streams {rid: tokens}, or an AssertionError naming the first
     differing token and, with `margin` (rid, i → float), the one-rank
@@ -132,8 +139,7 @@ def assert_streams(got: dict, want: dict, what: str, margin=None):
         a, b = got[rid], want[rid]
         if a == b:
             continue
-        i = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
-                 min(len(a), len(b)))
+        i = first_diff(a, b)
         m = f" (one-rank top-2 logit margin there {margin(rid, i):.3g})" \
             if margin is not None and i < len(b) else ""
         raise AssertionError(f"{what}: request {rid} differs from the "
@@ -651,4 +657,160 @@ def layout_child(rank: int, store_path: str, in_path: str, out_dir: str):
         raise
     finally:
         torch.save(res, f"{out_dir}/layout_rank{rank}.pt")
+        dist.destroy_process_group()
+
+
+# ---- tests/test_torch_distributed_planes.py: QuantPlane and SpecPlane ---
+# name → (arch, config updates, pattern, ServerConfig kwargs, requests,
+# planes, world): reduced qwen2-moe-a2.7b over (tp 2, ep 2) with every
+# layer full, int8 arenas ("q"), speculation at k 4 ("s") and both, one
+# int8 case with a pool cut until it preempts, speculation over the
+# default pattern's rings (prefilled in chunks: a verify window over a
+# compressed layer needs `prefill_sparse`, as in the reference); reduced
+# granite-34b under 'wseq' served by each pair of ranks that shares e
+# ("pair"), int8 at [0, 0] and speculation at [0, 1]
+PLANES_SCFG = dict(max_len=96, kv_block_size=16, chunk_tokens=16)
+SPARSE = dict(prefill_sparse=True)
+PLANES_CASES = {
+    "quant": ("qwen2-moe-a2.7b", {}, [0, 0], PLANES_SCFG, "parity", "q",
+              "world"),
+    "quant_preempt": ("qwen2-moe-a2.7b", {}, [0, 0],
+                      SERVER_CASES["preempt"][0], "preempt", "q", "world"),
+    "spec": ("qwen2-moe-a2.7b", {}, [0, 0], PLANES_SCFG, "spec", "s",
+             "world"),
+    "both": ("qwen2-moe-a2.7b", {}, [0, 0], PLANES_SCFG, "spec", "qs",
+             "world"),
+    "ring_spec": ("qwen2-moe-a2.7b", SPARSE, None, PLANES_SCFG, "spec", "s",
+                  "world"),
+    "granite_quant": ("granite-34b", {}, [0, 0], PLANES_SCFG, "parity", "q",
+                      "pair"),
+    "granite_spec": ("granite-34b", SPARSE, [0, 1], PLANES_SCFG, "spec",
+                     "s", "pair"),
+}
+SPEC_K = 4
+
+
+def planes_cfg(case, port: bool = True):
+    """The case's reduced config, float32 (the reference's with `port`
+    False)."""
+    if port:
+        from repro_torch.configs import reduced_config
+    else:
+        from repro.configs import reduced_config
+    arch, upd = PLANES_CASES[case][:2]
+    return reduced_config(arch).with_updates(
+        compute_dtype="float32", param_dtype="float32", **upd)
+
+
+def spec_requests(vocab, port: bool = True):
+    """Three greedy prompts that draft (a seeded 6-token phrase four times,
+    16 new tokens each), one seeded sampled request (temperature 0.8, a
+    12-token prompt, 8 tokens), then the first prompt again: it waits for a
+    slot and drafts from the suffix table its finished twin fed."""
+    if port:
+        from repro_torch.core.proxy import SamplingParams
+    else:
+        from repro.core.proxy import SamplingParams
+    rng = np.random.default_rng(41)
+    phrases = [tuple(int(t) for t in rng.integers(0, vocab, 6)) * 4
+               for _ in range(3)]
+    sampled = tuple(int(t) for t in rng.integers(0, vocab, 12))
+    greedy = SamplingParams(max_tokens=16)
+    return [(phrases[0], greedy), (phrases[1], greedy), (phrases[2], greedy),
+            (sampled, SamplingParams(temperature=0.8, seed=907,
+                                     max_tokens=8)),
+            (phrases[0], greedy)]
+
+
+def planes_requests(case, vocab, port: bool = True):
+    kind = PLANES_CASES[case][4]
+    if kind == "spec":
+        return spec_requests(vocab, port)
+    return case_requests(kind, vocab)
+
+
+def planes_server_config(case, port: bool):
+    """The case's ServerConfig with its planes, the port's or the
+    reference's."""
+    planes = PLANES_CASES[case][5]
+    if port:
+        from repro_torch.serving.quant import QuantConfig
+        from repro_torch.serving.spec import SpecConfig
+    else:
+        from repro.serving.quant import QuantConfig
+        from repro.serving.spec import SpecConfig
+    scfg = server_config_kw(PLANES_CASES[case][3], port)
+    return replace(scfg, quant=QuantConfig() if "q" in planes else None,
+                   spec=SpecConfig(k=SPEC_K) if "s" in planes else None)
+
+
+def serve_planes(case, params, placement) -> dict:
+    """Serve a case on `placement` (one rank or this rank's) → streams,
+    the spec counters (the metrics' and the decode engine's drained
+    stats), the quant figures, the capacity cut's drops and the checks
+    every rank runs: pool invariants, one host fetch a decode step."""
+    from repro_torch.models import moe as tmoe
+    from repro_torch.serving import Server
+    cfg = planes_cfg(case)
+    srv = Server(cfg, planes_server_config(case, port=True),
+                 pattern=PLANES_CASES[case][2], params=params,
+                 placement=placement)
+    drops = tmoe.drop_tally(placement.device)
+    drops.zero_()
+    s = srv.run(planes_requests(case, cfg.vocab_size), max_wall_s=120)
+    for eng in srv.decodes:
+        eng.pool.check_invariants(arena=srv.kv_arena)
+        assert eng.stats["host_fetches"] == eng.stats["steps"] > 0
+    srv.kv_arena.pool.check_invariants(arena=srv.kv_arena)
+    ds = s["decode_stats"][0]
+    keys = ("spec_drafted", "spec_accepted", "spec_emitted",
+            "spec_verifies", "quant_layers", "quant_block_bytes",
+            "quant_block_bytes_f32", "preemptions")
+    return {"n_done": s["n_done"],
+            "streams": {r.rid: tuple(r.output_tokens)
+                        for r in srv.metrics.done},
+            "summary": {k: s[k] for k in ("spec_drafted", "spec_accepted",
+                                          "spec_verifies") if k in s},
+            "decode_stats": {k: ds[k] for k in keys if k in ds},
+            "arena_heads": [tuple(e["k"].shape) for e in srv.kv_arena.kv
+                            if e is not None],
+            "arena_int8": [e["k"].dtype == torch.int8
+                           for e in srv.kv_arena.kv if e is not None],
+            # what one arena block pins across the full layers: its payload
+            # and, on int8 arenas, its scale plane
+            "block_bytes": sum(t[0].numel() * t.element_size()
+                               for e in srv.kv_arena.kv if e is not None
+                               for n, t in e.items()
+                               if n in ("k", "v", "kscale", "vscale",
+                                        "ktok", "vtok")),
+            "drops": float(drops)}
+
+
+def run_planes_servers(ctx, inputs):
+    from repro_torch.serving import DevicePlacement
+    cpu = torch.device("cpu")
+    pair = PairCtx.of(ctx)
+    out = {}
+    for case, (*_, world) in PLANES_CASES.items():
+        c = ctx if world == "world" else pair
+        out[case] = serve_planes(case, inputs["params"][case],
+                                 DevicePlacement(cpu, ctx=c))
+    return out
+
+
+def planes_child(rank: int, store_path: str, in_path: str, out_dir: str):
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, WORLD),
+                            rank=rank, world_size=WORLD, timeout=TIMEOUT)
+    res = {}
+    try:
+        from repro_torch.distributed import RankCtx
+        ctx = RankCtx.build(TP, EP, check_lockstep=True)
+        inputs = torch.load(in_path, weights_only=False)
+        res["servers"] = run_planes_servers(ctx, inputs)
+    except BaseException:
+        res["error"] = traceback.format_exc()
+        raise
+    finally:
+        torch.save(res, f"{out_dir}/planes_rank{rank}.pt")
         dist.destroy_process_group()
