@@ -163,7 +163,8 @@ Phases (any failure raises, so the script exits non-zero):
      quarantined blocks, swept handoffs and re-prefilled chunks;
  13. serve the reference's other four decoders at full width, one model's
      weights (seed 0) alive at a time (`serve_archs`): gemma3-4b at full
-     depth (34 layers: 29 window rings of 1,024, 5 full; h 256) on six
+     width, 6 of its 34 layers (one whole period of its 5 local : 1
+     global pattern: 5 window rings of 1,024, 1 full; h 256) on six
      1,536-2,048-token prompts with a shared 512-token prefix and two
      sampled requests, (a) chunked paged with prefix reuse on and off
      (greedy streams equal), online top-k at 0.25 on (a)'s model, (b)
@@ -189,7 +190,12 @@ Phases (any failure raises, so the script exits non-zero):
      time split into the SSD, the GEMMs and the rest), (b) topk-long's
      six 3,968-token prompts chunked paged against whole-prompt
      slot-dense (phase 5's near-tie rule), (c) speculation refused and
-     int8 arenas degraded to float ((a)'s streams); then
+     int8 arenas degraded to float ((a)'s streams), (d) FaultPlane on
+     phase 12's two prefill and two decode instances and phase 12's
+     traffic (a), fault-free then seed 1 (`serve_ssm_chaos`): the chaos
+     streams, greedy and sampled, equal the fault-free streams, every
+     kv_corrupt skipped (no summary plane), injected and skipped per
+     kind printed; then
      jamba-1.5-large-398b at full width in bfloat16, its first 5 layers
      (m, m+moe, m, m+moe, attn; ~50 GB), on (d) phase 3's traffic with
      phase 8's monitor knobs, reuse on and off (streams equal) and on
@@ -259,7 +265,15 @@ Phases (any failure raises, so the script exits non-zero):
      Server's (int8 up to a near-tie below P17_INT8_TIE), the spec
      counters and quant figures equal on every rank, a rank's
      quant_block_bytes half the one rank's, rank 0's int8 / verify /
-     moe_gmm launches made, the capacity cut's drops printed. It
+     moe_gmm launches made, the capacity cut's drops printed; (g)
+     FaultPlane over the ranks: phase 12's two-prefill, two-decode
+     server at P17_SPEC_CF, fault-free then seed 1 (`chaos_world`):
+     every rank's fault-free streams equal the one-rank Server's
+     fault-free streams, the chaos streams equal them on every rank, and
+     every rank's plane fired the same faults; per rank the faults
+     injected and skipped, the blocks quarantined, the host ms of each
+     recover_corruption (its world reduction of the corruption mask
+     included) and one `pmax_world` of the mask timed alone. It
      prints the transport and why, TTFT, TPOT, the all_to_all ms a MoE
      layer and the collectives' share of rank 0's decode round (timed
      alone at the step's shapes), each rank's peak memory. Phase 2 of
@@ -2846,7 +2860,9 @@ def chaos_run(srv, prompts, params, warm, dev, plane=None):
     streams, finished, summ, wall = drive(srv, prompts, params)
     launches = {k.__name__: k.launches for k in kerns}
     del srv.recover_corruption
-    n_layers = srv.cfg.n_layers
+    # the layers whose KV the arenas hold (every one of qwen2's, none of
+    # mamba2's, whose runs launch no kernel)
+    n_layers = sum(s_.kind == "attn" for s_ in srv.lm.plan.all_specs())
     spec = srv.scfg.spec is not None
     hl = check_hot_loops(srv, hl0, dev, entries=(
         "decode.verify" if spec else "decode.step", "prefill.chunk"))
@@ -2860,8 +2876,8 @@ def chaos_run(srv, prompts, params, warm, dev, plane=None):
     for e in srv.decodes:
         assert e.stats["host_fetches"] == e.stats["steps"], e.stats
     if dev.type == "cuda":
-        assert launches["paged_prefill"] == chunks * n_layers > 0, \
-            (launches, chunks)
+        assert launches["paged_prefill"] == chunks * n_layers and \
+            chunks > 0, (launches, chunks)
         assert launches["paged_decode"] == (steps - verifies) * n_layers, \
             (launches, steps, verifies)
         assert launches["spec_verify"] == verifies * n_layers, \
@@ -4146,8 +4162,14 @@ def serve_moe(dev, log, cfg, weights=None):
 # depth cuts forced by 80 GB of float32 weights (PERF.md §4) and by the
 # script's 1,200 s: qwen3-32b and granite-34b keep 8 layers,
 # qwen3-moe-235b-a22b 5 (129 expert slots x 3 x 4,096 x 1,536 floats =
-# 9.7 GB a layer); gemma3-4b keeps all 34
-P13_DEPTH = {"qwen3-32b": 8, "granite-34b": 8, "qwen3-moe-235b-a22b": 5}
+# 9.7 GB a layer); gemma3-4b keeps 6 of its 34, one whole period of its
+# 5 local : 1 global pattern (5 window layers, 1 full), which pays for
+# phase 14 (d) and phase 17 (g)
+P13_DEPTH = {"gemma3-4b": 6, "qwen3-32b": 8, "granite-34b": 8,
+             "qwen3-moe-235b-a22b": 5}
+# gemma3-4b's published depth (the seconds the cut saves are reckoned
+# against it)
+G3_LAYERS_PUBLISHED = 34
 # gemma3-4b's traffic: six prompts of 1,536-2,048 tokens, the 1st, 2nd, 4th
 # and 5th on a shared 512-token prefix (four chunks), so the 1,024-token
 # local windows wrap; two sampled requests on the prefix; 16 new tokens
@@ -4196,8 +4218,8 @@ def gemma3_workload(vocab, seed=61):
 
 def build_g3_server(cfg, dev, params, pattern="full", **knobs):
     """gemma3-4b's server: phase 3's knobs at max_len 2,304 with a
-    1,200-block pool; `pattern` "full" is [0] * 34 (29 window layers, 5
-    full), None the default OmniAttn pattern."""
+    1,200-block pool; `pattern` "full" is [0] * n_layers (at 6 layers 5
+    window layers, 1 full), None the default OmniAttn pattern."""
     from repro_torch.core.proxy import OASConfig
     from repro_torch.serving import Server, ServerConfig
     scfg = ServerConfig(**(dict(
@@ -4263,12 +4285,13 @@ def near_tie_diffs(srv, prompts, params, got, want, what, log,
 
 
 def serve_gemma3(dev, log, cfg, params):
-    """Phase 13 on full-width, full-depth gemma3-4b (h 256, 8 query heads
-    over 4 kv heads, 29 window layers + 5 full): (a) chunked paged prefill
-    with prefix reuse on and off; top-k on (a)'s model; (b) whole-prompt
-    prefill on the slot-dense layout; (c) speculation on and off; (d) int8
-    arenas, plain and with speculation; (e) the default OmniAttn pattern
-    (the 5 globals compressed to sink + recent), paged and dense."""
+    """Phase 13 on full-width gemma3-4b at P13_DEPTH's 6 layers (h 256, 8
+    query heads over 4 kv heads, 5 window layers + 1 full): (a) chunked
+    paged prefill with prefix reuse on and off; top-k on (a)'s model; (b)
+    whole-prompt prefill on the slot-dense layout; (c) speculation on and
+    off; (d) int8 arenas, plain and with speculation; (e) the default
+    OmniAttn pattern (the globals compressed to sink + recent), paged and
+    dense."""
     from repro_torch.core.proxy import SamplingParams
     from repro_torch.serving.quant import QuantConfig
     from repro_torch.serving.spec import SpecConfig
@@ -4478,6 +4501,8 @@ def serve_archs(dev, log, archs=("gemma3-4b", "qwen3-32b", "granite-34b",
 # jamba-1.5-large-398b in bfloat16, cut to its first 5 layers (m, m+moe, m,
 # m+moe, attn: ~50 GB of weights; one whole 8-layer period is ~95 GB)
 P14_JAMBA_DEPTH = 5
+# phase 14 (d)'s fault seed (mamba2-130m under FaultPlane chaos)
+P14_CHAOS_SEED = 1
 # phase 5's near-tie limit for bfloat16 logits: two of their steps at the
 # top logit's magnitude of jamba's seed-0 weights
 BF16_TIE = 2 ** -4
@@ -4639,7 +4664,9 @@ def serve_mamba2(dev, log, timer):
     traffic chunked paged, prefix reuse on and off, captured and eager;
     (b) topk-long's six 3,968-token prompts chunked paged against
     whole-prompt slot-dense; (c) speculation refused, int8 arenas degraded
-    to float. No kernel of the port runs: its launches must stay 0."""
+    to float; (d) FaultPlane chaos over two prefill and two decode
+    instances (`serve_ssm_chaos`). No kernel of the port runs: its launches
+    must stay 0."""
     from repro_torch.core.proxy import SamplingParams
     from repro_torch.serving import DevicePlacement
     from repro_torch.serving.quant import QuantConfig
@@ -4717,6 +4744,7 @@ def serve_mamba2(dev, log, timer):
         "mamba2 long: whole-prompt slot-dense vs chunked paged", log)
     runs["b_chunked_paged"], runs["b_whole_dense"] = b, d
     del srv
+    rec["chaos"] = serve_ssm_chaos(dev, log, cfg, params)
     for r in runs.values():
         r.pop("streams")
     rec["runs"] = runs
@@ -4726,6 +4754,47 @@ def serve_mamba2(dev, log, timer):
     gc.collect()
     torch.cuda.empty_cache()
     return rec
+
+
+def serve_ssm_chaos(dev, log, cfg, params) -> dict:
+    """Phase 14 (d): FaultPlane on `cfg` (mamba2-130m as published) over
+    phase 12's two prefill and two decode instances and phase 12's traffic
+    (a): a fault-free run, then FaultPlane(FaultConfig(P14_CHAOS_SEED,
+    horizon)) on a new warmed server, the horizon half the fault-free
+    server steps (phase 12's rule). Every restart, handoff and preemption
+    moves a slot's Mamba-2 state and convolution rows, and a restarted
+    request re-prefills them; the chaos streams (greedy and sampled) must
+    equal the fault-free streams. No arena entry carries a summary plane,
+    so every kv_corrupt is skipped, as in the reference."""
+    from repro_torch.core.proxy import SamplingParams
+    from repro_torch.serving import FaultConfig, FaultPlane
+    t0 = time.monotonic()
+    prompts, sp = chaos_workload(cfg.vocab_size)
+    warm = (workload(cfg.vocab_size, seed=8)[0], SamplingParams(max_tokens=4))
+    base = build_chaos_server(cfg, dev, params=params)
+    ref = chaos_run(base, prompts, sp, warm, dev)
+    assert ref["streams"] == ref.pop("outputs")
+    horizon = max(ref["server_steps"] // 2, 3)
+    plane = FaultPlane(FaultConfig(seed=P14_CHAOS_SEED, horizon=horizon))
+    srv = build_chaos_server(cfg, dev, params=params)
+    run = chaos_run(srv, prompts, sp, warm, dev, plane=plane)
+    diffs = {k: stream_diffs(base, prompts, sp, run[k], w)
+             for k, w in (("streams", run["outputs"]),
+                          ("outputs", ref["streams"]))}
+    del srv, base
+    if any(diffs.values()):
+        raise AssertionError(f"mamba2 (d) seed {P14_CHAOS_SEED}: streams "
+                             f"differ ({diffs}); fired {plane.fired}")
+    assert plane.injected["kv_corrupt"] == 0, plane.fired
+    run["reprefilled_chunks"] = run["chunks"] - ref["chunks"]
+    for r in (ref, run):
+        r.pop("streams")
+    run.pop("outputs")
+    log.append(f"mamba2 (d) seed {P14_CHAOS_SEED}, horizon {horizon}: chaos "
+               f"streams equal the fault-free streams ({len(prompts)} "
+               f"requests, two sampled)")
+    return {"fault_free": ref, "run": run, "horizon": horizon,
+            "seconds": time.monotonic() - t0}
 
 
 def serve_jamba(dev, log):
@@ -5901,6 +5970,15 @@ P17_WARM = dict(warm_prompts=2, warm_runs=1)
 # ranks may leave the one-rank Server's: an int8 rounding boundary crossed
 # by a sum taken in another order (a rank's GEMMs over its heads)
 P17_INT8_TIE = 1e-2
+# (g): FaultPlane over the ranks on phase 12's two-prefill, two-decode
+# server at P17_SPEC_CF (a restart changes which rows share a capacity cut:
+# at a factor where nothing drops it cannot move a drop, C5), fault-free,
+# then this seed with phase 12's horizon (half the fault-free server steps)
+P17_CHAOS_SEED = 1
+# (g)'s traffic, cut for the script's time limit (each gloo round of a
+# two-prefill, two-decode server runs a prefill round and two decode
+# steps): prompts of one chunk, P17_CHAOS_NEW new tokens each
+P17_CHAOS_PROMPTS, P17_CHAOS_NEW = 8, 8
 
 
 def dist_config():
@@ -5912,19 +5990,24 @@ def dist_config():
 
 
 def dist_server(cfg, chunked, dev=None, params=None, placement=None,
-                quant=False, spec=False):
+                quant=False, spec=False, chaos=False):
     """Phase 17's server: 4 slots, 512-token context, 128-token chunks,
     every attention layer full, the placement monitor off (phase 17 forces
-    its migration); `quant` int8 arenas, `spec` SpecConfig(k=P7_K)."""
+    its migration); `quant` int8 arenas, `spec` SpecConfig(k=P7_K),
+    `chaos` phase 12's two prefill and two decode instances, watchdog and
+    ten retries."""
     from repro_torch.core.proxy import OASConfig
     from repro_torch.serving import Server, ServerConfig
     from repro_torch.serving.quant import QuantConfig
     from repro_torch.serving.spec import SpecConfig
-    scfg = ServerConfig(n_prefill=1, n_decode=1, decode_slots=4, max_len=512,
-                        chunk_tokens=128, prefill_tick_budget=512,
-                        kv_block_size=16, chunked_prefill=chunked,
-                        enable_placement=False,
-                        oas=OASConfig(defer_window=0.0),
+    n_inst = 2 if chaos else 1
+    scfg = ServerConfig(n_prefill=n_inst, n_decode=n_inst, decode_slots=4,
+                        max_len=512, chunk_tokens=128,
+                        prefill_tick_budget=512, kv_block_size=16,
+                        chunked_prefill=chunked, enable_placement=False,
+                        oas=OASConfig(defer_window=0.0, max_retries=10)
+                        if chaos else OASConfig(defer_window=0.0),
+                        watchdog_steps=200 if chaos else None,
                         quant=QuantConfig() if quant else None,
                         spec=SpecConfig(k=P7_K) if spec else None)
     return Server(cfg, scfg, pattern=[0] * cfg.n_layers, params=params,
@@ -6136,12 +6219,60 @@ def serve_planes(srv, run, dev, **warm) -> dict:
     return rec
 
 
+def dist_chaos_server(cfg, dev=None, params=None, placement=None):
+    """Phase 17 (g)'s server: phase 17's knobs at P17_SPEC_CF on two
+    prefill and two decode instances with phase 12's watchdog and
+    retries."""
+    return dist_server(cfg.with_updates(moe_capacity_factor=P17_SPEC_CF),
+                       True, dev=dev, params=params, placement=placement,
+                       chaos=True)
+
+
+def dist_chaos_traffic(vocab):
+    """Phase 17 (g)'s traffic: P17_CHAOS_PROMPTS seeded prompts of 32-80
+    tokens (one chunk each) x P17_CHAOS_NEW greedy tokens, and a warm-up
+    of two other 24-token prompts x 3 tokens (the plane attaches after
+    it)."""
+    from repro_torch.core.proxy import SamplingParams
+    rng = np.random.default_rng(32)
+
+    def draw(n):
+        return tuple(int(t) for t in rng.integers(0, vocab, n))
+    prompts = [draw(int(rng.integers(32, 81)))
+               for _ in range(P17_CHAOS_PROMPTS)]
+    return prompts, SamplingParams(max_tokens=P17_CHAOS_NEW), (
+        [draw(24) for _ in range(2)], SamplingParams(max_tokens=3))
+
+
+def chaos_world(cfg, params, fresh, dev) -> dict:
+    """Phase 17 (g) on this rank (every rank in lockstep): a fault-free run
+    on a new warmed server, the time of one `pmax_world` of its [N+1]
+    corruption mask alone, then FaultPlane(FaultConfig(P17_CHAOS_SEED,
+    horizon)) on another (`chaos_run`: each `recover_corruption` timed on
+    the host, the world reduction included)."""
+    from repro_torch.serving import FaultConfig, FaultPlane
+    prompts, sp, warm = dist_chaos_traffic(cfg.vocab_size)
+    base = dist_chaos_server(cfg, params=params, placement=fresh())
+    ff = chaos_run(base, prompts, sp, warm, dev)
+    mask = base.kv_arena.corrupt_mask()
+    pmax_ms = timed_collective(lambda: base.ctx.pmax_world(mask), dev)
+    del base
+    horizon = max(ff["server_steps"] // 2, 3)
+    plane = FaultPlane(FaultConfig(seed=P17_CHAOS_SEED, horizon=horizon))
+    srv = dist_chaos_server(cfg, params=params, placement=fresh())
+    run = chaos_run(srv, prompts, sp, warm, dev, plane=plane)
+    del srv
+    return {"fault_free": ff, "chaos": run, "horizon": horizon,
+            "pmax_world_ms": pmax_ms, "mask_len": int(mask.numel())}
+
+
 def dist_rank(rank, world, backend, init, out_dir, dev_type="cuda"):
     """One rank of phase 17: join the group, build the rank's shard of the
     seed's one-rank model, serve (a) chunked, (b) whole-prompt, (c)
     chunked with a forced migration mid-decode, time the collectives,
-    serve (d) int8 arenas, (e) speculation and (f) both, and write the
-    results to <out_dir>/p17_rank<r>.json. `dev_type` "cpu" rehearses the
+    serve (d) int8 arenas, (e) speculation and (f) both, (g) FaultPlane
+    chaos (`chaos_world`), and write the results to
+    <out_dir>/p17_rank<r>.json. `dev_type` "cpu" rehearses the
     phase off the card (with the torch.cuda calls stubbed)."""
     from repro_torch.models import moe as moe_mod
     from repro_torch.serving import DevicePlacement
@@ -6174,6 +6305,7 @@ def dist_rank(rank, world, backend, init, out_dir, dev_type="cuda"):
                               placement=fresh(), quant=quant, spec=spec)
             res[run] = serve_planes(srv, run, dev, **P17_WARM)
             del srv
+        res["g_chaos"] = chaos_world(cfg, params, fresh, dev)
         # (c) add_request / step with a forced migration halfway through
         # the decode steps (it moves the parameters in place: last)
         srv = dist_server(cfg, True, params=params, placement=fresh())
@@ -6575,7 +6707,9 @@ def dist_phase(dev, timer, log):
     whole-prompt, (c) a forced migration, then QuantPlane and SpecPlane:
     (d) int8 arenas, (e) SpecConfig(k=P7_K) on P17_SPEC_GREEDY of phase
     7's drafting prompts and its sampled request, (f) both
-    (`check_plane_runs`). Its streams must equal the one-rank port
+    (`check_plane_runs`), (g) FaultPlane chaos on two prefill and two
+    decode instances (`chaos_world`, `check_chaos_world`). Its streams
+    must equal the one-rank port
     Server's on the same card and seed-0 weights; the rank-local kernels
     are held to their plain versions. A failure here fails the run."""
     from repro_torch.models import moe as moe_mod
@@ -6622,7 +6756,13 @@ def dist_phase(dev, timer, log):
             "metrics", "launches", "decode_round_ms", "decode_stats",
             "drops", "peak_mem_gb", "steps")}
         del srvp
-    del weights
+    # (g): the one-rank fault-free run at the same factor
+    prompts_g, sp_g, warm_g = dist_chaos_traffic(cfg.vocab_size)
+    srvg = dist_chaos_server(cfg, dev=dev, params=weights)
+    ref["g_chaos"] = chaos_run(srvg, prompts_g, sp_g, warm_g, dev)
+    out["one_rank"]["g_chaos"] = {x: ref["g_chaos"][x] for x in (
+        "metrics", "server_steps", "chunks", "decode_steps", "wall_s")}
+    del srvg, weights
     gc.collect()
     torch.cuda.empty_cache()
     # the world: rank = e · tp + t, one process each
@@ -6648,6 +6788,7 @@ def dist_phase(dev, timer, log):
             if ln.get(k, 0) <= 0:
                 raise AssertionError(f"phase 17 {name}: no {k} launch")
     out["planes"] = check_plane_runs(ranks, ref, cfg, dev, log)
+    out["chaos"] = check_chaos_world(ranks, ref["g_chaos"]["streams"])
     out["ranks"] = ranks
     cm = r0["collectives_ms"]
     out["collective_share"] = cm["per_step"] / r0["a_chunked"][
@@ -6658,6 +6799,52 @@ def dist_phase(dev, timer, log):
                + f" GB; built one rank at a time and carried over in "
                f"{r0['transfer_s']:.1f} s")
     return out
+
+
+def check_chaos_world(ranks, want) -> dict:
+    """Phase 17 (g): on every rank the fault-free streams equal the
+    one-rank Server's fault-free streams `want`, the chaos run's streamed
+    deltas equal its outputs and both equal the fault-free streams; every
+    rank's plane fired the same faults at the same steps (its `fired`
+    list), skipped the same, and every rank quarantined the same blocks.
+    → per rank the figures phase 17 prints."""
+    out = []
+    g0 = ranks[0]["g_chaos"]
+    for r in ranks:
+        g = r["g_chaos"]
+        ff, run = g["fault_free"], g["chaos"]
+        for what, got, exp in (
+                ("fault-free vs the one-rank Server", ff["streams"], want),
+                ("chaos deltas vs outputs", run["streams"], run["outputs"]),
+                ("chaos vs fault-free", run["outputs"], ff["streams"])):
+            for k, (a, b) in enumerate(zip(got, exp)):
+                if a != b:
+                    raise AssertionError(
+                        f"phase 17 (g) rank {r['rank']} {what}: request {k} "
+                        f"differs at token {first_diff(a, b)}: {a} vs {b}")
+            if len(got) != len(exp):
+                raise AssertionError(f"phase 17 (g) rank {r['rank']} {what}:"
+                                     f" {len(got)} vs {len(exp)} streams")
+        for key in ("fired", "injected", "skipped", "quarantined",
+                    "retries", "handoffs_swept"):
+            if run[key] != g0["chaos"][key]:
+                raise AssertionError(f"phase 17 (g): rank {r['rank']}'s "
+                                     f"{key} {run[key]} differs from rank "
+                                     f"0's {g0['chaos'][key]}")
+        out.append({"rank": r["rank"], "injected": run["injected"],
+                    "skipped": run["skipped"],
+                    "quarantined": run["quarantined"],
+                    "retries": run["retries"],
+                    "handoffs_swept": run["handoffs_swept"],
+                    "recover_ms": [1e3 * x for x in run["recover_s"]],
+                    "pmax_world_ms": g["pmax_world_ms"],
+                    "mask_len": g["mask_len"], "horizon": g["horizon"],
+                    "server_steps": [ff["server_steps"],
+                                     run["server_steps"]],
+                    "walls": [ff["wall_s"], run["wall_s"]]})
+    if sum(g0["chaos"]["injected"].values()) <= 0:
+        raise AssertionError("phase 17 (g): the plane injected nothing")
+    return {"ranks": out, "fired": g0["chaos"]["fired"]}
 
 
 def check_plane_runs(ranks, ref, cfg, dev, log) -> dict:
@@ -6726,6 +6913,9 @@ def check_plane_runs(ranks, ref, cfg, dev, log) -> dict:
 
 # ---- phase 18: OmniAttn's default pattern over (tp 2, ep 2) ranks -------
 P18_TP, P18_EP = 2, 2
+# of 24: one period of the default pattern [1,1,1,0], for the script's
+# time limit
+P18_LAYERS = 4
 P18_PREFIX, P18_TAILS = 4096, (320, 352, 384)   # prompts of 4,416-4,480
 P18_LONG = P18_PREFIX + P18_TAILS[0]
 P18_MAX_LEN = 4608
@@ -6741,18 +6931,20 @@ P18_CASES = {"a_ring_paged": (True, True, False),
 
 
 def omni_config(case):
-    """Phase 17's model (qwen2-moe-a2.7b at full width, 8 of 24 layers,
-    float32) at its default pattern [1,1,1,0,1,1,1,0]: six rings of sink
-    128 + recent 4,096 and two full layers. Chunked cases mask prefill
+    """Phase 17's model (qwen2-moe-a2.7b at full width, float32) cut to
+    P18_LAYERS layers at its default pattern [1,1,1,0]: three rings of sink
+    128 + recent 4,096 and one full layer. Chunked cases mask prefill
     chunks with the rings' sink + recent window (prefill_sparse); (c) sets
     online top-k at frac 0.25 on the full layers."""
     chunked, _, topk = P18_CASES[case]
-    cfg = dist_config().with_updates(prefill_sparse=chunked)
+    cfg = dist_config().with_updates(prefill_sparse=chunked,
+                                     n_layers=P18_LAYERS)
     if topk:
         from dataclasses import replace
         cfg = cfg.with_updates(omniattn=replace(cfg.omniattn,
                                                 topk_frac=P18_TOPK_FRAC))
-    assert cfg.default_compression_pattern() == [1, 1, 1, 0] * 2
+    assert cfg.default_compression_pattern() == \
+        [1, 1, 1, 0] * (P18_LAYERS // 4)
     return cfg
 
 
@@ -6824,8 +7016,9 @@ P18_NEEDS = {"a_ring_paged": ("paged_decode", "paged_prefill", "moe_gmm"),
 
 
 def omni_dist_phase(dev, timer, log):
-    """Phase 18: phase 17's model at its DEFAULT pattern (six sink 128 +
-    recent 4,096 rings, two full layers) over (tp 2, ep 2) ranks, on the
+    """Phase 18: phase 17's model, P18_LAYERS layers, at its DEFAULT
+    pattern (sink 128 + recent 4,096 rings, a full layer in every four)
+    over (tp 2, ep 2) ranks, on the
     transport phase 17 picks: (a) chunked prefill over paged ring runs,
     (b) whole prompts into the slot-dense layout (sink_decode), (c) (a)
     with online top-k at frac 0.25 on the full layers, whose block scores
@@ -7467,11 +7660,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     t13 = time.monotonic()
     archs = serve_archs(dev, log)
+    g3_s = archs["gemma3-4b"]["seconds"] if "gemma3-4b" in archs else 0.0
     print(f"phase 13 [{time.monotonic() - t0:.1f} s]: the other four "
           f"decoders at full width in {time.monotonic() - t13:.1f} s "
-          f"(gemma3-4b all 34 layers; qwen3-32b, granite-34b "
+          f"(gemma3-4b {P13_DEPTH['gemma3-4b']} of "
+          f"{G3_LAYERS_PUBLISHED} layers; qwen3-32b, granite-34b "
           f"{P13_DEPTH['granite-34b']} layers, "
-          f"qwen3-moe-235b-a22b 5)")
+          f"qwen3-moe-235b-a22b {P13_DEPTH['qwen3-moe-235b-a22b']}); the "
+          f"gemma3-4b cut saves about "
+          f"{g3_s * (G3_LAYERS_PUBLISHED / P13_DEPTH['gemma3-4b'] - 1):.1f}"
+          f" s (its {g3_s:.1f} s reckoned by depth to "
+          f"{G3_LAYERS_PUBLISHED} layers, not measured)")
     for line in log:
         print("  " + line)
     for arch, rec in archs.items():
@@ -7552,6 +7751,23 @@ def main() -> int:
               f"SSD {c['ssd_ms']:.4f} + GEMM {c['gemm_ms']:.4f} + rest "
               f"{c['rest_ms']:.4f} ms (SSD share {c['ssd_share']:.3f}) "
               f"[{smi}]")
+    ch = mamba2["chaos"]
+    for name, r in (("fault-free", ch["fault_free"]),
+                    (f"seed {P14_CHAOS_SEED}", ch["run"])):
+        m = r["metrics"]
+        extra = "" if r["injected"] is None else (
+            f"; injected {r['injected']}, skipped {r['skipped']}; retries "
+            f"{r['retries']}, blocks quarantined {r['quarantined']}, "
+            f"handoffs swept {r['handoffs_swept']}, re-prefilled chunks "
+            f"{r['reprefilled_chunks']}")
+        print(f"  mamba2 (d) chaos, 2 prefill + 2 decode, {name}: "
+              f"{r['server_steps']} server steps, {r['chunks']} chunks, "
+              f"{r['decode_steps']} decode steps, no kernel launched{extra};"
+              f" wall {r['wall_s']:.3f} s, TTFT mean "
+              f"{m['ttft_mean'] * 1e3:.1f} ms, TPOT mean "
+              f"{m['tpot_mean_ms']:.2f} ms [{smi}]")
+    print(f"  mamba2 (d): chaos streams equal the fault-free streams; horizon"
+          f" {ch['horizon']}; {ch['seconds']:.1f} s [{smi}]")
     print(f"  mamba2: weights {mamba2['weights_gb']:.2f} GB, state "
           f"{mamba2['state_bytes_per_slot'] / 1e6:.2f} MB a slot, peak "
           f"{mamba2['peak_mem_gb']:.2f} GB, {mamba2['seconds']:.1f} s; "
@@ -7748,6 +7964,27 @@ def main() -> int:
               f"{m1['tpot_mean_ms']:.2f} ms, decode round "
               f"{r1['decode_round_ms']:.2f} ms, peak "
               f"{r1['peak_mem_gb']:.2f} GB) [{smi}]")
+    ch, g1 = dist17["chaos"], dist17["one_rank"]["g_chaos"]
+    print(f"  (g) FaultPlane over the ranks, 2 prefill + 2 decode at "
+          f"capacity factor {P17_SPEC_CF}, seed {P17_CHAOS_SEED}, horizon "
+          f"{ch['ranks'][0]['horizon']}: every rank's fault-free streams "
+          f"equal the one-rank Server's ({g1['server_steps']} server steps, "
+          f"wall {g1['wall_s']:.3f} s), the chaos streams equal the "
+          f"fault-free streams on every rank, the planes fired the same "
+          f"{len(ch['fired'])} faults on every rank: {ch['fired']} [{smi}]")
+    for c in ch["ranks"]:
+        print(f"  (g) rank {c['rank']}: injected "
+              f"{ {k: v for k, v in c['injected'].items() if v} }, skipped "
+              f"{ {k: v for k, v in c['skipped'].items() if v} }; blocks "
+              f"quarantined {c['quarantined']}, retries {c['retries']}, "
+              f"handoffs swept {c['handoffs_swept']}; recover_corruption "
+              f"host ms (world reduction included) "
+              + ", ".join(f"{x:.2f}" for x in c["recover_ms"])
+              + f"; pmax_world of the [{c['mask_len']}] mask alone "
+              f"{c['pmax_world_ms']:.3f} ms ({dist17['backend']}); server "
+              f"steps fault-free / chaos {c['server_steps'][0]} / "
+              f"{c['server_steps'][1]}, walls {c['walls'][0]:.3f} / "
+              f"{c['walls'][1]:.3f} s [{smi}]")
     print(f"  peak memory per rank "
           + ", ".join(f"{r['peak_mem_gb']:.2f}" for r in dist17["ranks"])
           + f" GB (shards {r0['shard_gb']:.2f} GB each with the whole model"
@@ -7761,8 +7998,9 @@ def main() -> int:
     dist18 = omni_dist_phase(dev, timer, log)
     q0 = dist18["ranks"][0]
     print(f"phase 18 [{time.monotonic() - t0:.1f} s]: full-width "
-          f"qwen2-moe-a2.7b at its default pattern (six rings of sink 128 + "
-          f"recent 4,096, two full layers, 8 of 24 layers, float32) over (tp "
+          f"qwen2-moe-a2.7b at its default pattern ({P18_LAYERS * 3 // 4} "
+          f"rings of sink 128 + recent 4,096, {P18_LAYERS // 4} full, "
+          f"{P18_LAYERS} of 24 layers, float32) over (tp "
           f"{P18_TP}, ep {P18_EP}), {dist18['backend']}, in "
           f"{time.monotonic() - t18:.1f} s (the world "
           f"{dist18['world_s']:.1f} s)")
@@ -7884,7 +8122,7 @@ def main() -> int:
             "h256": sum(g3[r]["launches"]["flash_prefill"] for r in (
                 "b_whole_dense", "e_default_paged", "e_default_dense")),
             "g48": gr["dense"]["launches"]["flash_prefill"]},
-        # gemma3's ring width (29 of 34 layers); the count is all widths'
+        # gemma3's ring width (5 of 6 layers); the count is all widths'
         "sink_decode": {
             "h256": sum(g3[r]["launches"]["sink_decode"] for r in (
                 "b_whole_dense", "e_default_dense")),
@@ -7939,8 +8177,8 @@ def main() -> int:
     new_launches["spec_verify"]["tp2ep2"] = le["spec_verify"]
     new_launches["moe_gmm"]["tp2ep2_verify"] = le["moe_gmm"] \
         + lf["moe_gmm"]
-    # phase 18: every paged_decode launch of (a) (6 of its 8 layers are
-    # ring tables), (b)'s whole prompts (6 of 8 layers sink + window) and
+    # phase 18: every paged_decode launch of (a) (3 of its 4 layers are
+    # ring tables), (b)'s whole prompts (3 of 4 layers sink + window) and
     # sink_decode steps, (c)'s two block_topk entries
     qa, qb, qc = (q0[c]["launches"] for c in P18_CASES)
     new_launches["paged_decode"]["tp2ep2_ring"] = qa["paged_decode"]

@@ -9,8 +9,10 @@ reference, the layers of the port call them here, explicitly, over
 `torch.distributed` subgroups: `psum_model` / `pmax_model` /
 `all_gather_model` over the ranks that share e, `all_to_all_data` /
 `all_gather_data` / `psum_batch` over the ranks that share t.
-`broadcast_floats` and `all_gather_ints` run over the whole world; the
-server keeps its ranks in lockstep with them.
+`broadcast_floats`, `all_gather_ints` and `pmax_world` run over the whole
+world: the server keeps its ranks in lockstep with the first two, and
+takes every recovery decision that reads rank-local device state (which
+arena blocks are corrupt) from the third.
 
 `RankCtx.local()` is one rank and no process group: every collective is
 the identity, so a one-rank model runs exactly as it did before TP and EP.
@@ -165,6 +167,19 @@ class RankCtx:
         x = x.contiguous()
         dist.all_reduce(x, group=self.data_group)
         return x
+
+    def pmax_world(self, x: torch.Tensor) -> torch.Tensor:
+        """Elementwise max over every rank of the world (the identity on
+        one rank): FaultPlane's corruption mask and its "written anywhere"
+        bit, each rank's view of its own KV heads, become the union over
+        all of them. A bool tensor travels as int32 (NCCL reduces no bool)
+        and comes back bool; other tensors are reduced in place when
+        contiguous."""
+        if self.world == 1:
+            return x
+        y = x.to(torch.int32) if x.dtype == torch.bool else x.contiguous()
+        dist.all_reduce(y, op=dist.ReduceOp.MAX)
+        return y.bool() if x.dtype == torch.bool else y
 
     def broadcast_floats(self, values: list) -> list:
         """Rank 0's float64 values on every rank (one broadcast over the

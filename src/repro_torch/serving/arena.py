@@ -105,6 +105,22 @@ class KVArena:
             for t in e.values():
                 t[dst] = t[src]
 
+    def read_block(self, b: int) -> list:
+        """A copy of physical block `b` across every layer arena: per layer
+        None or {leaf: [...] one block's rows} (content, summaries and, on
+        int8 arenas, the scale rows)."""
+        return [None if e is None else {n: t[b].clone() for n, t in e.items()}
+                for e in self.kv]
+
+    def write_block(self, rows: list, dst: int):
+        """Write a `read_block` copy into physical block `dst` of every
+        layer arena."""
+        for e, r in zip(self.kv, rows):
+            if e is None:
+                continue
+            for n, t in e.items():
+                t[dst] = r[n]
+
     def scrub_block(self, b: int):
         """Zero one physical block in every leaf of every layer arena, in
         place: content, summaries and (int8 arenas) the scale and per-token
@@ -136,14 +152,19 @@ class KVArena:
             bad |= mism.flatten(1).any(dim=1)
         return bad
 
-    def find_corrupt_blocks(self) -> list:
+    def find_corrupt_blocks(self, ctx=None) -> list:
         """Summary-plane corruption scan: the block ids whose stored key
         summaries disagree with their content (a fault that changed K
         without going through a summary-maintaining write). The scan runs
         on the device; one fetch of the [N+1] mask. Call at recovery
-        points, not per step."""
-        return [int(b) for b in
-                torch.nonzero(self.corrupt_mask().cpu()).flatten()]
+        points, not per step. With `ctx` (a RankCtx) the mask is first
+        max-reduced over every rank of its world (`pmax_world`), so each
+        rank gets the union of what any rank's KV heads show: a collective,
+        which every rank must call at the same step."""
+        mask = self.corrupt_mask()
+        if ctx is not None:
+            mask = ctx.pmax_world(mask)
+        return [int(b) for b in torch.nonzero(mask.cpu()).flatten()]
 
     @staticmethod
     def _dense_k(entry) -> np.ndarray:

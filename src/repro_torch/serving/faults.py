@@ -36,6 +36,18 @@ schedule (and `FaultPlane(cfg).schedule` equals the reference's):
 A fault whose precondition is absent when it fires (nothing resident to
 corrupt, no parked handoff, no killable instance) is counted in `skipped`,
 so chaos harnesses can assert on what actually fired.
+
+Over several ranks every rank builds the same plane from the same seed and
+its server calls `on_step` at the same step with rank 0's clock, so every
+rank fires the same schedule. Every target draw reads the shared rng and
+host state that lockstep keeps equal on every rank (the proxy's health and
+EWMA, the pool's mappings, the parked handoffs, the resident rids); no
+draw reads a rank-local value. The two reads of device state are
+`kv_corrupt`'s: whether an int8 block holds a written slot, and which
+blocks the summary scan condemns. Each rank holds only its own KV heads of
+a block, so both are max-reduced over the world (`RankCtx.pmax_world`)
+before any decision: every rank skips the same faults and condemns, drops
+and restarts the same blocks and requests.
 """
 from __future__ import annotations
 
@@ -74,13 +86,19 @@ def corrupt_block(arena: KVArena, b: int, offset: float = 1.0):
             k[b] += offset
 
 
-def _unwritten_int8(arena: KVArena, b: int) -> bool:
+def _unwritten_int8(arena: KVArena, b: int, ctx) -> bool:
     """Block `b` of an int8 arena holds no written slot: every scale row
     (sealed per channel or per token) is zero in every layer, as for a
-    block a decode slot has grown into but not written yet."""
+    block a decode slot has grown into but not written yet. The "written"
+    bit of this rank's KV heads is max-reduced over `ctx`'s world (a
+    RankCtx; the identity on one rank), so every rank takes the same skip
+    decision: a collective, every rank calls it for the same block."""
     ents = [e for e in arena.kv if e is not None and "kscale" in e]
-    return bool(ents) and not bool(torch.stack(
-        [e["kscale"][b].any() | e["ktok"][b].any() for e in ents]).any())
+    if not ents:
+        return False
+    written = torch.stack([e["kscale"][b].any() | e["ktok"][b].any()
+                           for e in ents]).any().reshape(1)
+    return not bool(ctx.pmax_world(written))
 
 
 @dataclass(frozen=True)
@@ -204,7 +222,7 @@ class FaultPlane:
                 return
             b = self._pick(cands)
             offset = 0.5 + float(self.rng.random())
-            if _unwritten_int8(arena, b):
+            if _unwritten_int8(arena, b, server.ctx):
                 # every slot's scale is zero, so the block dequantizes to
                 # zero whatever its payload: no content to corrupt, and no
                 # scan could see it (the reference asserts here and fails)

@@ -55,13 +55,18 @@ class StoreEntry:
     a refcounted arena block list (`blocks`, held in the pool under this
     entry's key) plus the bounded private leaves (ring KV / mamba state) in
     `cache`. `nbytes` is the REAL resident size (prefix-length KV, not a
-    max_len allocation) — what byte-capped LRU eviction weighs."""
+    max_len allocation) — what byte-capped LRU eviction weighs. `tail`
+    (int8 arenas): the partial tail block as it was published
+    (`KVArena.read_block`); the block itself stays shared with the request
+    that wrote it, whose decode appends seal it later and re-quantize the
+    stored tokens, so adopters copy the published rows instead."""
     n: int
     tokens: tuple
     cache: object
     logits: object
     blocks: Optional[Tuple[int, ...]] = None
     nbytes: int = 0
+    tail: Optional[list] = None
 
 
 class PrefixKVStore:
@@ -116,12 +121,13 @@ class PrefixKVStore:
 
     def put(self, tokens, cache, logits, now: Optional[float] = None, *,
             blocks: Optional[Sequence[int]] = None,
-            nbytes: Optional[int] = None):
+            nbytes: Optional[int] = None, tail: Optional[list] = None):
         """Store a prefix snapshot. `blocks` (paged mode): arena block ids
         covering the prefix — adopted in the pool under this entry's key so
         a later release by the writing request cannot free them. `nbytes`:
         real resident bytes (computed from the tensors when omitted — pass
-        it for paged entries, whose arena bytes live outside `cache`)."""
+        it for paged entries, whose arena bytes live outside `cache`).
+        `tail`: the published rows of a partial tail block (StoreEntry)."""
         if self.capacity <= 0:
             return
         tokens = tuple(tokens)
@@ -144,7 +150,7 @@ class PrefixKVStore:
             nbytes = tree_bytes(cache) + tree_bytes(logits)
         self.entries[handle] = StoreEntry(len(tokens), tokens, cache, logits,
                                           tuple(blocks) if blocks is not None
-                                          else None, nbytes)
+                                          else None, nbytes, tail)
         self._enforce_caps()
 
     def _enforce_caps(self):

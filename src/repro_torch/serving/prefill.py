@@ -308,15 +308,23 @@ class PrefillEngine:
                          copy_private: bool) -> None:
         """Publish the first `n` tokens of a task as a store entry: the
         covering blocks are adopted (refcounted) by the store — zero copy —
-        and only the bounded private leaves are snapshotted."""
+        and only the bounded private leaves are snapshotted. On int8 arenas
+        a partial tail block's rows are copied too: the task goes on
+        writing that block (its next chunk, or its decode appends once
+        admitted), and the seal at the block's last slot re-quantizes the
+        stored tokens per channel, so an adopter copying the shared block
+        would read other KV than this prefill wrote — a restarted request
+        re-adopting its own prompt would leave its fault-free stream."""
         pool = self.arena.pool
         blocks = pool.owned(self._pf_key(task.rid))[:pool.blocks_for(n)]
         priv = clone_tree(task.cache) if copy_private else task.cache
         priv = dict(priv, pos=n)
+        tail = (self.arena.read_block(blocks[-1])
+                if self.arena.quant and n % pool.block_size else None)
         nbytes = (len(blocks) * self.arena.block_nbytes + tree_bytes(priv)
-                  + tree_bytes(task.logits))
+                  + tree_bytes(task.logits) + tree_bytes(tail))
         self.store.put(task.prompt[:n], priv, task.logits, blocks=blocks,
-                       nbytes=nbytes)
+                       nbytes=nbytes, tail=tail)
 
     def _release_result(self, rec: PrefillResult) -> None:
         """Drop an undelivered result (supersede/abort): its handoff still
@@ -410,7 +418,9 @@ class PrefillEngine:
                 tbl = pool.allocate(key, n, shared=ent.blocks[:full])
                 if tbl is None:
                     return              # backpressure: prefill from scratch
-            if pool.blocks_for(n) > full:   # partial tail → copy-on-write
+            if ent.tail is not None:        # int8: the published rows
+                self.arena.write_block(ent.tail, tbl[full])
+            elif pool.blocks_for(n) > full:     # partial tail → copy
                 self.arena.copy_block(ent.blocks[full], tbl[full])
         finally:
             pool.release(pin)

@@ -73,8 +73,19 @@ the rank's own); SpecPlane drafts on the host from tokens and finished
 requests alone, which every rank holds alike, and its verify step takes
 its accept decision from logits that every rank holds whole after the
 `model` reductions, so every rank accepts the same prefix; the lockstep
-digest carries the speculation counters. FaultPlane is refused over
-several ranks (ROADMAP A16b).
+digest carries the speculation counters. FaultPlane serves over ranks:
+every rank builds the same plane from the same seed and fires the same
+schedule at the top of the same step, and every target it draws comes from
+host state that lockstep keeps equal. The one recovery that reads
+rank-local device state, `recover_corruption`, is a collective: each
+rank's summary scan sees only its own KV heads, so the scan's mask is
+max-reduced over the world before its one fetch and every rank condemns,
+quarantines and scrubs the union of what any rank found (a block corrupted
+on one rank's heads only included); `kv_corrupt`'s "written" check on int8
+arenas is reduced alike. The lockstep digest carries the recovery state
+too (quarantined blocks, swept handoffs, the instances' health, each
+request's retries and the plane's counts), so a recovery that parts the
+ranks raises in the round where it happened.
 """
 from __future__ import annotations
 
@@ -176,20 +187,6 @@ def check_servable(cfg: ModelConfig) -> None:
             f"run it through LM.prefill / LM.decode instead")
 
 
-def check_distributed_server(scfg: ServerConfig, faults, world: int
-                             ) -> None:
-    """Raise NotImplementedError, naming ROADMAP A16b, for the one plane
-    this port does not run over several ranks: FaultPlane. QuantPlane and
-    SpecPlane serve over ranks (each rank's int8 arenas hold its own KV
-    heads, and every rank takes the same verify decision); every servable
-    model lays out over ranks (attention by `stack.head_layout`, Mamba-2
-    by `stack.mamba_layout`)."""
-    if world > 1 and faults is not None:
-        raise NotImplementedError(
-            f"FaultPlane (Server(faults=...)) over {world} ranks "
-            f"(ROADMAP A16b)")
-
-
 class Server:
     def __init__(self, cfg: ModelConfig, scfg: ServerConfig, *,
                  pattern: Optional[list] = None, params=None, seed: int = 0,
@@ -211,7 +208,6 @@ class Server:
         self.placement = placement if placement is not None else \
             DevicePlacement.of(device)
         self.ctx = self.placement.ctx
-        check_distributed_server(scfg, faults, self.ctx.world)
         self.lm = LM.build(cfg, pattern=pattern,
                            device=self.placement.device, ctx=self.ctx)
         if params is None:
@@ -363,7 +359,10 @@ class Server:
     def _check_lockstep(self):
         """Raise if the ranks' host state diverged this round: a CRC of the
         step count, the scheduled request ids of every engine and queue,
-        the tokens emitted and each decode engine's device counters — with
+        the tokens emitted, the recovery state (the quarantined blocks,
+        the handoffs swept, every instance's health, each in-flight
+        request's retries and, with a FaultPlane, its injected and skipped
+        counts) and each decode engine's device counters — with
         online top-k the blocks scored and attended, with speculation
         [drafted, accepted, emitted, verifies] (each the device accumulator
         and the drained stats: one more device read a round, made only
@@ -377,12 +376,20 @@ class Server:
                     for e in self.decodes
                     for n, (k, keys) in LOCKSTEP_COUNTERS.items()
                     if n in e.state]
+        recovery = (
+            sorted(self.kv_arena.pool.quarantined)
+            if self.kv_arena is not None else [], self.n_handoffs_swept,
+            [s.healthy for s in self.proxy.prefill + self.proxy.decode],
+            sorted((r, q.n_retries) for r, q in self.proxy.inflight.items()),
+            None if self.faults is None else
+            (sorted(self.faults.injected.items()),
+             sorted(self.faults.skipped.items())))
         state = (self._step_count, sorted(self.proxy.inflight),
                  sorted(self._pending_kv),
                  [sorted(e.rid_slot.items()) for e in self.decodes],
                  [[t.rid for t in e.queue] for e in self.prefills],
                  sorted((r, tuple(t)) for r, t in self._fresh.items()),
-                 counters)
+                 recovery, counters)
         digest = zlib.crc32(repr(state).encode())
         got = self.ctx.all_gather_ints([self._step_count, digest])
         if any(g != got[0] for g in got):
@@ -567,11 +574,15 @@ class Server:
         quarantine and scrub the now unmapped blocks in place. → condemned
         block ids. Restarted requests regenerate the same prefix
         (positional draws) and the delivered counter keeps it from being
-        streamed again."""
+        streamed again. Over several ranks this is a collective: the scan's
+        mask is max-reduced over the world before its fetch, so every rank
+        condemns the union of what any rank's KV heads show, and every
+        rank must call it at the same step (FaultPlane does: its schedule
+        is seeded and fires at the top of the same step on every rank)."""
         if self.kv_arena is None:
             return []
         now = self._clock() if now is None else now
-        bad = self.kv_arena.find_corrupt_blocks()
+        bad = self.kv_arena.find_corrupt_blocks(self.ctx)
         if not bad:
             return []
         badset = set(bad)

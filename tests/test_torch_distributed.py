@@ -19,8 +19,11 @@ JAX references on the same bridged inputs.
   `Server`'s, `KVPool.check_invariants` on every rank, and the lockstep
   digest checked every round; two of them hand the Server the one-rank
   parameters themselves;
-- every A16b refusal (what a rank cannot lay out is none:
-  tests/test_torch_distributed_layouts.py builds and serves every layout).
+- every A16b refusal: training, optimizer state and a sharded restore
+  (what a rank cannot lay out is none: tests/test_torch_distributed_layouts.py
+  builds and serves every layout; the planes are none either: QuantPlane,
+  SpecPlane and FaultPlane build here over a fake rank and serve in
+  tests/test_torch_distributed_planes.py and _faults.py).
 
 The JAX references run on an Auto-axis mesh (its MoE decode needs one on
 this jax; ROADMAP C1). Every process group has a 60 s timeout and the
@@ -419,27 +422,28 @@ def _refused(case):
     return lambda: lm.shapes()       # a sharded checkpoint restore
 
 
-@pytest.mark.parametrize("case", ["faults", "train", "opt_specs",
-                                  "restore"])
+@pytest.mark.parametrize("case", ["train", "opt_specs", "restore"])
 def test_a16b_refusals(case):
     with pytest.raises(NotImplementedError, match="A16b"):
         _refused(case)()
 
 
-@pytest.mark.parametrize("case", ["quant", "spec", "both"])
+@pytest.mark.parametrize("case", ["quant", "spec", "both", "faults"])
 def test_planes_build_over_ranks(case):
-    """QuantPlane and SpecPlane, alone and together, build over a fake
-    (tp 2, ep 2) rank (they raised A16b before): int8 arenas of the rank's
-    one KV head of two, and a verify entry on the decode engine;
-    tests/test_torch_distributed_planes.py serves them over four ranks."""
+    """QuantPlane, SpecPlane (alone and together) and FaultPlane build over
+    a fake (tp 2, ep 2) rank (they raised A16b before): int8 arenas of the
+    rank's one KV head of two, a verify entry on the decode engine, the
+    plane on the server; tests/test_torch_distributed_planes.py and
+    tests/test_torch_distributed_faults.py serve them over four ranks."""
     srv = _refused(case)()
     assert srv.ctx.world == 4
     eng = srv.decodes[0]
-    assert (eng.spec_ctl is not None) == (case != "quant")
+    assert (eng.spec_ctl is not None) == (case in ("spec", "both"))
+    assert (srv.faults is not None) == (case == "faults")
     arena = [e for e in srv.kv_arena.kv if e is not None]
     assert arena and all(e["k"].shape[1] == W.moe_cfg().n_kv_heads // 2
                          for e in arena)
-    assert all((e["k"].dtype == torch.int8) == (case != "spec")
+    assert all((e["k"].dtype == torch.int8) == (case in ("quant", "both"))
                for e in arena)
 
 
@@ -510,6 +514,58 @@ def test_lockstep_digest_carries_spec_counters(where):
         eng.state["spec"][1] += 1
     else:
         eng.stats["spec_accepted"] += 1
+    with pytest.raises(RuntimeError, match="diverged"):
+        srv._check_lockstep()
+
+
+def _recovery_moves():
+    """What each recovery can change on one rank alone (the server's)."""
+    def quarantine(srv):
+        srv.kv_arena.pool.quarantine(3)
+
+    def sweep(srv):
+        srv.n_handoffs_swept += 1
+
+    def health(srv):
+        srv.proxy.mark_unhealthy("decode", 0, 0.0)
+
+    def retry(srv):
+        next(iter(srv.proxy.inflight.values())).n_retries += 1
+
+    def plane(srv):
+        srv.faults.skipped["kv_corrupt"] += 1
+    return {"quarantined": quarantine, "swept": sweep, "healthy": health,
+            "retries": retry, "plane": plane}
+
+
+@pytest.mark.parametrize("what", list(_recovery_moves()))
+def test_lockstep_digest_carries_recovery_state(what):
+    """The round digest carries what FaultPlane's recovery changes: the
+    quarantined blocks, the handoffs swept, every instance's health, each
+    in-flight request's retries and the plane's injected / skipped
+    counts. A rank whose recovery state alone differs raises in that
+    round, not later at a collective."""
+    from repro_torch.core.proxy import SamplingParams
+    from repro_torch.serving import ServerConfig
+    from repro_torch.serving.faults import FaultPlane
+
+    class TwoRanks(RankCtx):
+        other = None
+
+        def all_gather_ints(self, values):
+            # "rank 1" keeps the digest of the first round it saw
+            if self.other is None:
+                self.other = list(values)
+            return [list(values), self.other]
+
+    srv = TServer(W.moe_cfg(), ServerConfig(n_decode=2, decode_slots=2,
+                                            max_len=32),
+                  pattern=[0, 0], device="cpu", faults=FaultPlane())
+    srv.add_request((1, 2, 3), SamplingParams(max_tokens=2))
+    srv.ctx = TwoRanks(ep=2, check_lockstep=True)
+    srv._check_lockstep()
+    srv._check_lockstep()            # nothing moved: the digests agree
+    _recovery_moves()[what](srv)
     with pytest.raises(RuntimeError, match="diverged"):
         srv._check_lockstep()
 

@@ -814,3 +814,253 @@ def planes_child(rank: int, store_path: str, in_path: str, out_dir: str):
     finally:
         torch.save(res, f"{out_dir}/planes_rank{rank}.pt")
         dist.destroy_process_group()
+
+
+# ---- tests/test_torch_distributed_faults.py: FaultPlane over ranks -----
+# tests/test_torch_faults.py's soak server (two prefill and two decode
+# instances, so that kills can fire; the watchdog on; ten retries) and its
+# workloads, served over (tp 2, ep 2) fault-free and under chaos; every MoE
+# layer at a capacity factor where no bucket drops an assignment (a
+# restart changes which rows share a capacity cut, ROADMAP C5): name →
+# (arch, config updates, requests, planes, chaos seeds). Every attention
+# layer is full; jamba is cut to one period (Mamba-2 at tp 2, MoE over ep
+# 2, attention under 'kv')
+FAULT_SOAK = dict(n_prefill=2, n_decode=2, decode_slots=4, max_len=128,
+                  chunk_tokens=32, prefill_tick_budget=64, kv_blocks=96,
+                  watchdog_steps=200)
+FAULT_CF = 16.0
+FAULT_HORIZON = 20
+FAULT_CASES = {
+    "moe": ("qwen2-moe-a2.7b", {}, "soak", "", (1,)),
+    "moe_int8": ("qwen2-moe-a2.7b", {}, "soak", "q", (1,)),
+    "moe_spec": ("qwen2-moe-a2.7b", {}, "spec", "s", (1,)),
+    "jamba": ("jamba-1.5-large-398b", dict(n_layers=8), "soak", "", (1,)),
+}
+# the rank whose KV heads alone carry the corruption of the one-rank case
+CORRUPT_RANK = 3
+
+
+def faults_cfg(case, port: bool = True):
+    """The case's reduced config, float32, at FAULT_CF (the reference's with
+    `port` False)."""
+    if port:
+        from repro_torch.configs import reduced_config
+    else:
+        from repro.configs import reduced_config
+    arch, upd = FAULT_CASES[case][:2]
+    return reduced_config(arch).with_updates(
+        compute_dtype="float32", param_dtype="float32",
+        moe_capacity_factor=FAULT_CF, **upd)
+
+
+def soak_requests(vocab):
+    """tests/test_torch_faults.py's soak workload: 8 prompts of 24 tokens,
+    12 new each."""
+    rng = np.random.default_rng(42)
+    return [(tuple(int(t) for t in rng.integers(0, vocab, 24)), 12)
+            for _ in range(8)]
+
+
+def soak_spec_requests(vocab):
+    """tests/test_torch_faults.py's speculation soak workload: four prompts
+    of one repeated 6-token phrase, four random ones."""
+    rng = np.random.default_rng(7)
+    gram = tuple(int(t) for t in rng.integers(0, vocab, 6))
+    return [(gram * 3, 12) for _ in range(4)] + \
+        [(tuple(int(t) for t in rng.integers(0, vocab, 24)), 12)
+         for _ in range(4)]
+
+
+def faults_requests(case, vocab):
+    return (soak_spec_requests if FAULT_CASES[case][2] == "spec"
+            else soak_requests)(vocab)
+
+
+def faults_server_config(case, port: bool):
+    """The case's soak ServerConfig with its planes, the port's or the
+    reference's."""
+    if port:
+        from repro_torch.core.proxy import OASConfig
+        from repro_torch.serving import ServerConfig
+        from repro_torch.serving.quant import QuantConfig
+        from repro_torch.serving.spec import SpecConfig
+    else:
+        from repro.core.proxy import OASConfig
+        from repro.serving import ServerConfig
+        from repro.serving.quant import QuantConfig
+        from repro.serving.spec import SpecConfig
+    planes = FAULT_CASES[case][3]
+    return ServerConfig(**FAULT_SOAK, oas=OASConfig(defer_window=0.0,
+                                                    max_retries=10),
+                        quant=QuantConfig() if "q" in planes else None,
+                        spec=SpecConfig(k=SPEC_K) if "s" in planes else None)
+
+
+def faults_server(case, params, placement, plane=None):
+    from repro_torch.serving import Server
+    cfg = faults_cfg(case)
+    return Server(cfg, faults_server_config(case, port=True),
+                  pattern=[0] * cfg.n_layers, params=params,
+                  placement=placement, faults=plane)
+
+
+def drive_soak(srv, reqs, before_step=None, max_steps=3000) -> dict:
+    """Submit every request at rank 0's clock and step() until quiescent
+    (every rank sees the same in-flight set, so every rank steps alike);
+    `before_step(srv, step)` runs ahead of each step. → streams, streamed
+    deltas, finish records, steps."""
+    import time
+    t0 = srv.ctx.broadcast_floats([time.monotonic()])[0]
+    for p, m in reqs:
+        srv.add_request(p, _sampling(m), now=t0)
+    deltas: dict = {}
+    finishes: dict = {}
+    steps = 0
+    while srv.proxy.inflight and steps < max_steps:
+        if before_step is not None:
+            before_step(srv, steps)
+        for out in srv.step():
+            deltas.setdefault(out.rid, []).extend(out.new_tokens)
+            if out.finished:
+                finishes[out.rid] = (out.finish_reason, out.n_generated)
+        steps += 1
+    assert not srv.proxy.inflight, f"not quiescent after {steps} steps"
+    return {"streams": {r.rid: tuple(r.output_tokens)
+                        for r in srv.metrics.done},
+            "deltas": {r: tuple(d) for r, d in deltas.items()},
+            "finishes": finishes, "steps": steps}
+
+
+def _sampling(m):
+    from repro_torch.core.proxy import SamplingParams
+    return SamplingParams(max_tokens=int(m))
+
+
+def check_quiescent(srv):
+    """One host fetch a decode step, the pool invariants, and no block
+    mapping left but the prefix stores'."""
+    for eng in srv.decodes:
+        assert eng.stats["host_fetches"] == eng.stats["steps"], eng.stats
+    pool = srv.kv_arena.pool
+    pool.check_invariants(arena=srv.kv_arena)
+    left = [k for k in pool.per_request
+            if not (isinstance(k, tuple) and k[0] == "store")]
+    assert not left, f"pool keys left at quiescence: {left}"
+
+
+def fault_run(case, params, placement, seed=None) -> dict:
+    """One soak of `case` on `placement` (one rank, or this rank of a
+    world): fault-free, or under FaultPlane(FaultConfig(seed,
+    FAULT_HORIZON)) → streams, deltas, the plane's record, the recovery
+    figures, the capacity cut's drops and the host ms of each
+    recover_corruption."""
+    import time
+
+    from repro_torch.models import moe as tmoe
+    from repro_torch.serving import FaultConfig, FaultPlane
+    plane = None if seed is None else FaultPlane(
+        FaultConfig(seed=seed, horizon=FAULT_HORIZON))
+    srv = faults_server(case, params, placement, plane)
+    recover, recover_ms = srv.recover_corruption, []
+
+    def timed(now=None):
+        t = time.perf_counter()
+        got = recover(now)
+        recover_ms.append(1e3 * (time.perf_counter() - t))
+        return got
+    srv.recover_corruption = timed
+    drops = tmoe.drop_tally(placement.device)
+    drops.zero_()
+    rec = drive_soak(srv, faults_requests(case, srv.cfg.vocab_size))
+    check_quiescent(srv)
+    s = srv.metrics.summary(1.0)
+    rec.update({
+        "n_errors": s["n_errors"], "n_timeouts": s["n_timeouts"],
+        "n_retries": s["n_retries"],
+        "blocks_quarantined": s["blocks_quarantined"],
+        "quarantined": sorted(srv.kv_arena.pool.quarantined),
+        "handoffs_swept": srv.n_handoffs_swept,
+        "preemptions": sum(e.stats["preemptions"] for e in srv.decodes),
+        "drops": float(drops), "recover_ms": recover_ms,
+        "fired": None if plane is None else list(plane.fired),
+        "injected": None if plane is None else dict(plane.injected),
+        "skipped": None if plane is None else dict(plane.skipped)})
+    return rec
+
+
+def corrupt_on_one_rank(params, placement) -> dict:
+    """Case "moe" driven by add_request / step: at the first step where a
+    decode slot holds a request, the first arena block of the lowest such
+    rid is corrupted on rank CORRUPT_RANK's KV heads only
+    (`faults.corrupt_block` on that rank's arena), then every rank calls
+    `recover_corruption` at the same step. → the block, each rank's own
+    scan before the recovery, what the recovery condemned, whether the
+    block left circulation and was scrubbed on this rank, and the run's
+    streams."""
+    from repro_torch.serving.faults import corrupt_block
+    srv = faults_server("moe", params, placement)
+    pool, ctx = srv.kv_arena.pool, srv.ctx
+    out: dict = {}
+
+    def before_step(srv, step):
+        if "block" in out:
+            return
+        resident = sorted(r for e in srv.decodes for r in e.rid_slot
+                          if pool.owned(r))
+        if not resident:
+            return
+        b = pool.owned(resident[0])[0]
+        if ctx.rank == CORRUPT_RANK:
+            corrupt_block(srv.kv_arena, b, offset=0.75)
+        out["block"], out["at_step"] = b, step
+        out["local_scan"] = srv.kv_arena.find_corrupt_blocks()
+        out["condemned"] = srv.recover_corruption()
+        out["left_circulation"] = b in pool.quarantined and \
+            b not in pool.refcount
+        out["scrubbed"] = all(not t[b].any() for e in srv.kv_arena.kv
+                              if e is not None for t in e.values())
+    rec = drive_soak(srv, soak_requests(srv.cfg.vocab_size), before_step)
+    check_quiescent(srv)
+    out.update(streams=rec["streams"], deltas=rec["deltas"],
+               quarantined=sorted(pool.quarantined),
+               blocks_quarantined=srv.metrics.blocks_quarantined,
+               n_retries=srv.metrics.summary(1.0)["n_retries"])
+    return out
+
+
+def pmax_world_check(ctx) -> dict:
+    """`RankCtx.pmax_world` on a bool, an int64 and a float32 tensor whose
+    values differ by rank."""
+    flags = torch.zeros(WORLD + 1, dtype=torch.bool)
+    flags[ctx.rank] = True
+    ints = torch.tensor([ctx.rank, -ctx.rank, 7], dtype=torch.int64)
+    floats = torch.tensor([0.5 * ctx.rank, -1.0])
+    return {"bool": ctx.pmax_world(flags), "int": ctx.pmax_world(ints),
+            "float": ctx.pmax_world(floats)}
+
+
+def faults_child(rank: int, store_path: str, in_path: str, out_dir: str):
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, WORLD),
+                            rank=rank, world_size=WORLD, timeout=TIMEOUT)
+    res = {}
+    try:
+        from repro_torch.distributed import RankCtx
+        from repro_torch.serving import DevicePlacement
+        ctx = RankCtx.build(TP, EP, check_lockstep=True)
+        inputs = torch.load(in_path, weights_only=False)
+        cpu = torch.device("cpu")
+        res["pmax_world"] = pmax_world_check(ctx)
+        for case, (arch, *_, seeds) in FAULT_CASES.items():
+            params = inputs["params"][arch]
+            res[case] = {seed: fault_run(case, params,
+                                         DevicePlacement(cpu, ctx=ctx), seed)
+                         for seed in (None,) + seeds}
+        res["corrupt_one_rank"] = corrupt_on_one_rank(
+            inputs["params"]["qwen2-moe-a2.7b"], DevicePlacement(cpu, ctx=ctx))
+    except BaseException:
+        res["error"] = traceback.format_exc()
+        raise
+    finally:
+        torch.save(res, f"{out_dir}/faults_rank{rank}.pt")
+        dist.destroy_process_group()
