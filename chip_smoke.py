@@ -3,6 +3,20 @@
     python3 chip_smoke.py
 
 Phases (any failure raises, so the script exits non-zero):
+  0. ContractGuard (`repro_torch.analysis`): `contract_gate()`, the strict
+     contract lint over src/repro_torch (its rule count and waived
+     diagnostics printed, any unwaived diagnostic fails the run); and,
+     after phase 19 (nothing later uses the card), the live hot-loop
+     audit's negative control (`audit_control`): a throwaway placement
+     (capture on) whose one entry calls `.item()` on a cuda tensor — its
+     audited eager call must report a purity finding and its capture must
+     raise. The audit
+     (`hot_loop_audit.audit_server`) is attached, before their first
+     request, to phase 3's server (reuse on), phase 7's SpecPlane server,
+     phase 9 (a)'s int8 server and rank 0's (a) server of phase 17: each
+     prints one line (entries, keys, aten ops and kernel launches a call,
+     the checks run, findings, the observed calls' seconds); any finding
+     fails the run;
   1. build the port's seven CUDA kernels from src/repro_torch/kernels/csrc,
      one nvcc per source, all at once;
   2. hold each kernel against its plain PyTorch version on the card, at the
@@ -2271,6 +2285,56 @@ def hot_loop_line(hl) -> str:
         f"; graph pool {hl['pool_gb']:.3f} GB"
 
 
+def audit_record(audit) -> dict:
+    """The live hot-loop audit's report (`repro_torch.analysis.
+    hot_loop_audit`) as a record; a finding, or an audit that observed no
+    entry, fails the phase."""
+    rep = audit.report()
+    assert rep.ok() and rep.audited, rep.format()
+    return {"line": rep.line(), "audited": rep.audited,
+            "skipped": rep.skipped, "checks": rep.checks,
+            "entries": rep.entries, "seconds": rep.seconds}
+
+
+def audit_control(dev) -> dict:
+    """The audit's negative control, run last (a failed capture may leave
+    its side stream current and its pool allocating): a throwaway
+    placement on the card, capture on, and one entry whose fn calls
+    `.item()` on a cuda tensor. Its first call, audited, must record a
+    purity finding (before the op runs: the sync debug mode then raises),
+    and its second call, the capture, must raise; else the run fails."""
+    from repro_torch.analysis.hot_loop_audit import audit_placement
+    from repro_torch.serving import DevicePlacement
+    t0 = time.monotonic()
+    pl = DevicePlacement.of(dev)
+    assert pl.capture
+    x, out = torch.ones(4, device=dev), torch.zeros((), device=dev)
+
+    def step(key, x, out):
+        return out.fill_(x.sum().item())
+
+    entry = pl.hot_loop(step, name="control.item")
+    eager_error = capture_error = None
+    with audit_placement(pl) as audit:
+        try:
+            entry(0, (x, out))
+        except RuntimeError as e:
+            eager_error = str(e).splitlines()[0]
+    rep = audit.report()
+    try:
+        entry(0, (x, out))
+    except RuntimeError as e:
+        capture_error = str(e).splitlines()[0]
+    rec = {"findings": [f.format() for f in rep.findings],
+           "purity": sum(f.check == "purity" for f in rep.findings),
+           "eager_error": eager_error, "capture_error": capture_error,
+           "captures": sum(entry.captures.values()),
+           "seconds": time.monotonic() - t0}
+    assert rec["purity"] >= 1 and rec["capture_error"] and \
+        not rec["captures"], rec
+    return rec
+
+
 def reset_stats(srv):
     from repro_torch.core.proxy import MetricsAggregator
     srv.metrics = MetricsAggregator()
@@ -2314,11 +2378,13 @@ def full_width_config():
     return cfg
 
 
-def serve(dev, log, cfg, weights=None, timer=None):
+def serve(dev, log, cfg, weights=None, timer=None, audit=False):
     """Phase 3 on `cfg` (full-width qwen2-1.5b in main(); phase 13 passes
     its decoders with their `weights`). With a `timer`, also the device ms
     of a captured step with a sampled slot against all-greedy
-    (`draw_cost`)."""
+    (`draw_cost`); with `audit`, the live hot-loop audit of the reuse-on
+    server from its warm-up through the measured run."""
+    from repro_torch.analysis.hot_loop_audit import audit_server
     from repro_torch.core.proxy import SamplingParams
     from repro_torch.kernels.paged_decode import paged_decode
     from repro_torch.kernels.paged_prefill import paged_prefill
@@ -2336,6 +2402,7 @@ def serve(dev, log, cfg, weights=None, timer=None):
     torch.cuda.synchronize()
     log.append(f"server built (weights + arena) in "
                f"{time.monotonic() - t0:.1f} s")
+    auditor = audit_server(srv).attach() if audit else None
     # warm-up: the same workload shape on other tokens (every chunk bucket,
     # decode batch and cuBLAS shape the measured run meets), outside the
     # counts and the metrics
@@ -2361,6 +2428,10 @@ def serve(dev, log, cfg, weights=None, timer=None):
         assert n_dec == ds["steps"] * n_layers > 0, (n_dec, ds["steps"])
     assert ps["reused_tokens"] > 0 and ds["handoff_copy_bytes"] == 0
     srv.kv_arena.pool.check_invariants(arena=srv.kv_arena)
+    audited = None
+    if auditor is not None:
+        auditor.detach()
+        audited = audit_record(auditor)
 
     off = build_server(cfg, False, dev, params=srv.params)
     list(off.generate(warm_prompts, SamplingParams(max_tokens=4)))
@@ -2376,7 +2447,7 @@ def serve(dev, log, cfg, weights=None, timer=None):
     sampled_equal = all(streams[r] == streams_off[r] for r in (12, 13))
     draw = None if timer is None else draw_cost(srv, dev, timer)
     return {"launches": {"paged_prefill": n_pre, "paged_decode": n_dec},
-            "draw": draw,
+            "draw": draw, "audit": audited,
             "prefill_chunks": ps["chunks"], "decode_steps": ds["steps"],
             "host_fetches": ds["host_fetches"],
             "reused_tokens": ps["reused_tokens"],
@@ -3624,13 +3695,16 @@ def spec_workload(vocab, seed=41, repeats=1):
     return prompts, params
 
 
-def serve_spec(dev, log, cfg, weights=None, repeats=1, require_equal=True):
+def serve_spec(dev, log, cfg, weights=None, repeats=1, require_equal=True,
+               audit=False):
     """Phase 7 on `cfg` (full-width qwen2-1.5b in main(); phase 13 passes
     its decoders with their `weights`): phase 3's server with and
     without SpecConfig(k=4), on the same weights. MoE layers also route
     the verify window (moe_gmm's launches are counted). With
     `require_equal` False the streams that differ are reported, not
-    refused."""
+    refused. With `audit`, the live hot-loop audit of the speculating
+    server from its warm-up through the measured run."""
+    from repro_torch.analysis.hot_loop_audit import audit_server
     from repro_torch.core.proxy import SamplingParams
     from repro_torch.kernels.paged_decode import paged_decode
     from repro_torch.kernels.spec_verify import spec_verify
@@ -3641,9 +3715,12 @@ def serve_spec(dev, log, cfg, weights=None, repeats=1, require_equal=True):
     warm, _ = spec_workload(cfg.vocab_size, seed=42)
     from repro_torch.kernels.moe_gmm import moe_gmm
     out, streams_of, servers = {}, {}, {}
+    audited = None
     for name, spec in (("spec_off", None), ("spec_on", SpecConfig(k=P7_K))):
         srv = build_server(cfg, True, dev, params=weights, spec=spec)
         weights = srv.params
+        auditor = audit_server(srv).attach() \
+            if audit and spec is not None else None
         list(srv.generate(warm[:2], SamplingParams(max_tokens=8)))
         reset_stats(srv)
         hl0 = hot_loops(srv)
@@ -3676,6 +3753,9 @@ def serve_spec(dev, log, cfg, weights=None, repeats=1, require_equal=True):
             assert launches["moe_gmm"] == 3 * n_moe * (chunks + ds["steps"]),\
                 (launches, chunks, ds)
         srv.kv_arena.pool.check_invariants(arena=srv.kv_arena)
+        if auditor is not None:
+            auditor.detach()
+            audited = audit_record(auditor)
         streams_of[name] = streams
         servers[name] = srv
         out[name] = {"launches": launches, "decode_steps": ds["steps"],
@@ -3712,7 +3792,7 @@ def serve_spec(dev, log, cfg, weights=None, repeats=1, require_equal=True):
     del servers
     torch.cuda.empty_cache()
     return {"runs": out, "streams_identical": not ties and not differ,
-            "near_ties": ties, "differ": differ}
+            "near_ties": ties, "differ": differ, "audit": audited}
 
 # ---- phase 9: QuantPlane at full width -------------------------------
 def quant_workload(vocab, seed=7):
@@ -3746,7 +3826,9 @@ def serve_quant(dev, log, cfg):
     with 24 new tokens and a sampled request; (b) phase 7's prompts without
     and with SpecConfig(k=4); (c) (a)'s traffic on a pool cut until a
     request is preempted. The float32 server's streams on (a)'s traffic
-    are reported beside (a)'s, not gated."""
+    are reported beside (a)'s, not gated. The live hot-loop audit watches
+    (a)'s server from its warm-up through the measured run."""
+    from repro_torch.analysis.hot_loop_audit import audit_server
     from repro_torch.core.proxy import SamplingParams
     from repro_torch.kernels.paged_decode import paged_decode
     from repro_torch.kernels.paged_prefill import paged_prefill
@@ -3778,6 +3860,7 @@ def serve_quant(dev, log, cfg):
     t0 = time.monotonic()
     srv = build_server(cfg, True, dev, quant=QuantConfig())
     weights = srv.params
+    auditor = audit_server(srv).attach()
     list(srv.generate(warm, SamplingParams(max_tokens=4)))
     reset_stats(srv)
     hl0 = hot_loops(srv)
@@ -3785,6 +3868,9 @@ def serve_quant(dev, log, cfg):
     streams, finished, summ, wall = drive(srv, prompts, params)
     launches = counts()
     hl = check_hot_loops(srv, hl0, dev, entries=CHUNKED_ENTRIES)
+    auditor.detach()
+    audited = audit_record(auditor)
+    assert audited["checks"].get("quant-upcast", 0) > 0, audited
     # copies: (b) reuses this server and resets its stats
     ps, ds = dict(srv.prefills[0].stats), dict(srv.decodes[0].stats)
     check_run(srv, streams, finished, [P9_NEW] * 13, 13)
@@ -3916,6 +4002,7 @@ def serve_quant(dev, log, cfg):
             "decode_steps": ds["steps"], "host_fetches": ds["host_fetches"],
             "host_s_per_round": ds["busy_s"] / ds["steps"],
             "hot_loops": hl, "hot_loops_f32": hl_f32, "streams": streams,
+            "audit": audited,
             "reused_tokens": ps["reused_tokens"],
             "block_nbytes": {"int8": q_bytes * n_layers,
                              "float32": f_bytes * n_layers, "ratio": ratio},
@@ -5938,7 +6025,8 @@ def serve_eager(dev, log, cfg, served, spec, quant):
 
 # ---- phase 17: qwen2-moe-a2.7b over (tp 2, ep 2) ranks ------------------
 P17_TP, P17_EP = 2, 2
-P17_LAYERS = 8          # of 24: one whole model and the four shards fit
+P17_LAYERS = 4          # of 24: the one-rank model and the four shards
+                        # fit, and the script its time limit
 P17_DTYPE = "float32"
 P17_NEW = 16
 P17_SEED = 0
@@ -6274,6 +6362,7 @@ def dist_rank(rank, world, backend, init, out_dir, dev_type="cuda"):
     chaos (`chaos_world`), and write the results to
     <out_dir>/p17_rank<r>.json. `dev_type` "cpu" rehearses the
     phase off the card (with the torch.cuda calls stubbed)."""
+    from repro_torch.analysis.hot_loop_audit import audit_server
     from repro_torch.models import moe as moe_mod
     from repro_torch.serving import DevicePlacement
     dev, nccl = join_world(rank, world, backend, init, dev_type)
@@ -6294,7 +6383,15 @@ def dist_rank(rank, world, backend, init, out_dir, dev_type="cuda"):
         fresh = lambda: DevicePlacement(pl.device, pl.capture, pl.ctx)
         for name, chunked in (("a_chunked", True), ("b_whole", False)):
             srv = dist_server(cfg, chunked, params=params, placement=fresh())
+            # the live hot-loop audit of rank 0's (a), its rank-local
+            # layout check included
+            auditor = audit_server(srv).attach() \
+                if rank == 0 and chunked else None
             res[name] = warm_and_drive(srv, prompts, sp, **P17_WARM)
+            if auditor is not None:
+                auditor.detach()
+                res["audit"] = audit_record(auditor)
+                assert res["audit"]["checks"].get("rank-local", 0) > 0
             del srv
         res["collectives_ms"] = collective_ms(pl.ctx, cfg, dev)
         res["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
@@ -7076,8 +7173,8 @@ def omni_dist_phase(dev, timer, log):
 
 # ---- phase 19: every layout over (tp 4, ep 1): granite-34b, mamba2 ------
 P19_TP, P19_EP = 4, 1
-P19_LAYERS = 8          # of granite's 88: the one-rank model and the four
-                        # shards fit on one card together
+P19_LAYERS = 4          # of granite's 88: one period of its default
+                        # pattern [1, 1, 1, 0]
 P19_WORLD_S = 420       # the world joins within this, or is killed
 # the runs: name → (arch, chunked prefill, paged KV)
 P19_RUNS = {"a_granite_chunked": ("granite-34b", True, True),
@@ -7103,7 +7200,7 @@ def layout_config(run):
         prefill_sparse=chunked)
     assert (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
             cfg.d_ff, cfg.vocab_size) == (6144, 48, 1, 128, 24576, 49152)
-    assert cfg.default_compression_pattern() == [1, 1, 1, 0] * 2
+    assert cfg.default_compression_pattern() == [1, 1, 1, 0]
     return cfg
 
 
@@ -7249,6 +7346,8 @@ def main() -> int:
               "False)", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.analysis import contract_gate
+    from repro_torch.analysis.rules import RULES
     from repro_torch.device import set_precision_policy
     from repro_torch.kernels import build
     set_precision_policy()
@@ -7259,8 +7358,17 @@ def main() -> int:
     log: list = []
 
     t0 = time.monotonic()
+    gate = contract_gate()
+    gate_s = time.monotonic() - t0
+    report["contract"] = {"rules": len(RULES), "waived": len(gate.waived()),
+                          "gate_s": gate_s}
+    print(f"phase 0: contract_gate passed: {len(RULES)} rules, 0 errors, "
+          f"{len(gate.waived())} waived diagnostic(s), {gate_s:.2f} s "
+          f"[{smi}]")
+
+    tb = time.monotonic()
     builds = build.build_all()
-    report["build_s"] = time.monotonic() - t0
+    report["build_s"] = time.monotonic() - tb
     print(f"phase 1: kernels built in {report['build_s']:.1f} s "
           + ", ".join(f"{k} {v['seconds']:.1f} s" for k, v in builds.items()))
     report["ptxas"] = {name: ptxas_report(b["log"])
@@ -7323,7 +7431,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     cfg = full_width_config()
-    served = serve(dev, log, cfg, timer=timer)
+    served = serve(dev, log, cfg, timer=timer, audit=True)
     on = served["reuse_on"]
     print(f"phase 3: full-width qwen2-1.5b served through the CUDA kernels "
           f"[{time.monotonic() - t0:.1f} s]")
@@ -7348,6 +7456,7 @@ def main() -> int:
           f"host {served['host_s_per_round'] * 1e3:.2f} ms per decode round")
     print(f"  hot loops (reuse off): "
           f"{hot_loop_line(served['hot_loops_reuse_off'])}")
+    print(f"  hot-loop audit (reuse on): {served['audit']['line']} [{smi}]")
     dc = served["draw"]
     print(f"  a captured decode step of six slots (16-entry tables): "
           f"{dc['step_ms_greedy']:.4f} ms all greedy, "
@@ -7453,7 +7562,7 @@ def main() -> int:
           f"{topk['frac_streams_equal_off']}/6")
     log.clear()
 
-    spec = serve_spec(dev, log, cfg)
+    spec = serve_spec(dev, log, cfg, audit=True)
     print(f"phase 7 [{time.monotonic() - t0:.1f} s]: full-width qwen2-1.5b, "
           f"SpecPlane speculation k=4")
     for line in log:
@@ -7475,6 +7584,7 @@ def main() -> int:
               f"{r['host_s_per_round'] * 1e3:.2f} ms per decode round")
     print(f"  streams identical with speculation on and off: "
           f"{spec['streams_identical']} (near-ties {spec['near_ties']})")
+    print(f"  hot-loop audit (spec on): {spec['audit']['line']} [{smi}]")
 
     log.clear()
 
@@ -7557,6 +7667,7 @@ def main() -> int:
           f"float32 server: {hot_loop_line(quant['hot_loops_f32'])}")
     for name, r in quant["spec"].items():
         print(f"  (b) {name}: hot loops: {hot_loop_line(r['hot_loops'])}")
+    print(f"  (a) hot-loop audit: {quant['audit']['line']} [{smi}]")
     log.clear()
 
     gc.collect()
@@ -7910,6 +8021,8 @@ def main() -> int:
               f"TTFT mean {m1['ttft_mean'] * 1e3:.1f} ms, TPOT mean "
               f"{m1['tpot_mean_ms']:.2f} ms, decode round "
               f"{dist17['one_rank'][name]['decode_round_ms']:.2f} ms) [{smi}]")
+    print(f"  (a) rank 0's hot-loop audit ({dist17['backend']}, capture "
+          f"{dist17['backend'] == 'nccl'}): {r0['audit']['line']} [{smi}]")
     cm = r0["collectives_ms"]
     print(f"  collectives ({dist17['backend']}), timed alone at a 4-slot "
           f"decode step's shapes on rank 0: all_to_all "
@@ -8075,6 +8188,15 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # the audit's negative control runs last: nothing after it uses the card
+    device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+              "count": torch.cuda.device_count()}
+    control = report["contract"]["control"] = audit_control(dev)
+    print(f"the audit's negative control: {control['purity']} purity "
+          f"finding(s) ({control['findings'][0]}); the eager call raised "
+          f"under the sync debug mode ({control['eager_error']}); the "
+          f"capture raised ({control['capture_error']}); "
+          f"{control['seconds']:.2f} s [{smi}]")
     for rec in (served, spec["runs"]["spec_on"], spec["runs"]["spec_off"],
                 quant):
         rec.pop("streams", None)
@@ -8301,12 +8423,16 @@ def main() -> int:
             if rec["launches"] <= 0:
                 raise AssertionError(f"{k['name']}: no launch on the main "
                                      f"path")
+    audits = {"phase 3": served["audit"], "phase 7": spec["audit"],
+              "phase 9": quant["audit"], "phase 17 rank 0": r0["audit"]}
+    print(f"ContractGuard's work: the gate {gate_s:.2f} s, the negative "
+          f"control {control['seconds']:.2f} s, the audited first calls "
+          + ", ".join(f"{k} {a['seconds']:.2f} s" for k, a in audits.items())
+          + f" (host wall time of those eager calls, watched) [{smi}]")
     print(f"all phases done in {time.monotonic() - t0:.1f} s")
     print(smi)
     print(json.dumps(line))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+    print(json.dumps({"ok": True, "device": device}))
     return 0
 
 

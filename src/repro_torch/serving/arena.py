@@ -24,6 +24,7 @@ from repro_torch.models.lm import LM
 from repro_torch.models.stack import alloc_arena_kv
 from repro_torch.serving.kvpool import KVPool
 from repro_torch.serving.placement import DevicePlacement
+from repro_torch.tree import tree_leaves
 
 
 def _bucket(n: int, lo: int = 32) -> int:
@@ -38,6 +39,13 @@ def _pow2_floor(n: int) -> int:
     while b * 2 <= n:
         b *= 2
     return b
+
+
+def kv_bytes(cache) -> int:
+    """Bytes of every tensor in a KV tree (an arena's `kv`, a dense cache;
+    non-tensor leaves such as "pos" count nothing)."""
+    return sum(x.numel() * x.element_size() for x in tree_leaves(cache)
+               if isinstance(x, torch.Tensor))
 
 
 def dense_kv_to_blocks(x, n_blocks: int, block_size: int):

@@ -225,7 +225,8 @@ class DecodeEngine:
         # entries of the two steps
         self._next = torch.zeros(n, dtype=torch.int32, device=dev)
         self._step = self.placement.hot_loop(self._step_impl,
-                                             name="decode.step")
+                                             name="decode.step",
+                                             arenas=self._cache_layers)
         if self.spec_ctl is not None:
             k = self.spec_ctl.k
             self._drafts = (torch.zeros((n, k), dtype=torch.int32,
@@ -235,7 +236,8 @@ class DecodeEngine:
             self._packed = torch.zeros((n, k + 2), dtype=torch.int32,
                                        device=dev)
             self._verify = self.placement.hot_loop(self._verify_impl,
-                                                   name="decode.verify")
+                                                   name="decode.verify",
+                                                   arenas=self._cache_layers)
         self.pos_h = np.zeros(n, np.int64)      # next write position
         self.tok_h = np.zeros(n, np.int64)      # current input token
         self.tokens_h = np.zeros(n, np.int64)   # pool-accounted tokens
@@ -268,6 +270,11 @@ class DecodeEngine:
             return self.cache
         return merge_arena_cache(self.lm.cfg, self.lm.plan, self.cache,
                                  self.arena.kv)
+
+    def _cache_layers(self) -> list:
+        """The per-layer cache entries the decode and verify steps update
+        in place (the hot-loop entries' `arenas`)."""
+        return self._full_cache()["layers"]
 
     def _true_kv_nbytes(self, n_tokens: int) -> int:
         """Real bytes of a request's cache at `n_tokens` resident tokens:

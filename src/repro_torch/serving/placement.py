@@ -107,10 +107,16 @@ class HotLoopEntry:
     the caller hands it (its table, its static outputs); a key's first
     call fixes them, and a later call with other storage raises. fn must
     write every result into tensors allocated outside the capture and
-    return those."""
+    return those. `arenas`, when given, returns the per-layer cache
+    entries the step updates in place (the live audit,
+    `repro_torch.analysis.hot_loop_audit`, holds them to their storage and
+    layout); `auditor` is the registry's, None unless an audit is
+    attached."""
     name: str
     fn: Callable
     placement: "DevicePlacement"
+    arenas: Optional[Callable] = None
+    auditor: Any = None
     eager: Counter = field(default_factory=Counter)      # key → calls
     captures: Counter = field(default_factory=Counter)
     replays: Counter = field(default_factory=Counter)
@@ -139,6 +145,11 @@ class HotLoopEntry:
             self.replays[key] += 1
             return self.outputs[key]
         if not self.placement.capture or self.eager[key] == 0:
+            if self.auditor is not None and self.eager[key] == 0:
+                # a key's first call, watched: the same fn on the same
+                # inputs, once (a replay is never audited)
+                self.eager[key] += 1
+                return self.auditor.observe(self, key, static_inputs)
             self.eager[key] += 1
             return self.fn(key, *static_inputs)
         return self._capture(key, static_inputs)
@@ -175,10 +186,20 @@ class HotLoopEntry:
 @dataclass
 class HotLoopRegistry:
     entries: list = field(default_factory=list)
+    auditor: Any = None     # the attached live audit, handed to each entry
 
     def add(self, entry: HotLoopEntry) -> HotLoopEntry:
+        entry.auditor = self.auditor
         self.entries.append(entry)
         return entry
+
+    def attach(self, auditor) -> None:
+        """Every entry, and every one added later, calls
+        `auditor.observe(entry, key, static_inputs)` in place of its fn on
+        each key's first call until `attach(None)`."""
+        self.auditor = auditor
+        for e in self.entries:
+            e.auditor = auditor
 
     def names(self) -> list:
         return [e.name for e in self.entries]
@@ -354,11 +375,14 @@ class DevicePlacement:
         """The memory pool every graph of this placement is captured into."""
         return torch.cuda.graph_pool_handle()
 
-    def hot_loop(self, fn: Callable, *, name: str) -> HotLoopEntry:
+    def hot_loop(self, fn: Callable, *, name: str,
+                 arenas: Optional[Callable] = None) -> HotLoopEntry:
         """Build a serving step through the choke point: → the registered
-        entry, called as `entry(key, static_inputs)`."""
+        entry, called as `entry(key, static_inputs)`. `arenas()` → the
+        per-layer cache entries the step updates in place, if any."""
         return self.hot_loops.add(HotLoopEntry(name=name, fn=fn,
-                                               placement=self))
+                                               placement=self,
+                                               arenas=arenas))
 
     def graph_pool_bytes(self) -> int:
         """Bytes the CUDA caching allocator holds in this placement's graph

@@ -223,8 +223,9 @@ class PrefillEngine:
         self._cache = dict(cache, pos=self._ctl[0])
         self._leaves = tuple(t for e in self._cache["layers"]
                              if e is not None for t in e.values())
-        self._chunk_step = self.placement.hot_loop(self._chunk_impl,
-                                                   name="prefill.chunk")
+        self._chunk_step = self.placement.hot_loop(
+            self._chunk_impl, name="prefill.chunk",
+            arenas=lambda: self._cache["layers"])
 
     def _init_full_buffers(self):
         """The static buffers of the "prefill.full" entry, owned by the

@@ -256,3 +256,29 @@ def test_capacity_drops_reported(world):
             assert ranks == [0.0] * W.WORLD and one == 0.0, case
         elif "s" not in planes:
             assert ranks == [one] * W.WORLD, case
+
+
+def test_hot_loop_audit_over_ranks(world):
+    """The live hot-loop audit of W.AUDITED_CASE (int8 arenas and
+    SpecConfig(k=4)) on every rank and on one rank: every registered entry
+    observed, no finding; on the ranks the rank-local layout check ran on
+    every observed call that holds an arena (each arena leaf at this
+    rank's `head_layout(cfg, tp).nk` KV heads), and the int8 upcast check
+    on the same calls."""
+    case = W.AUDITED_CASE
+    recs = [res["servers"][case]["audit"] for res in world["ranks"]]
+    one = world["one"][case]["audit"]
+    for r, a in enumerate(recs + [one]):
+        assert not a["findings"], (r, a["findings"])
+        assert a["audited"] == one["audited"] and "decode.verify" in \
+            a["audited"], (r, a["audited"])
+        assert 0 < a["checks"]["quant-upcast"] < a["checks"]["purity"], \
+            (r, a["checks"])
+    for r, a in enumerate(recs):
+        assert a["world"] > 1 and a["checks"]["rank-local"] == \
+            a["checks"]["quant-upcast"], (r, a["checks"])
+    assert "rank-local" not in one["checks"] and one["world"] == 1
+    # the other cases ran unwatched
+    assert not any(res["servers"][c]["audit"]["checks"]
+                   for res in world["ranks"] for c in W.PLANES_CASES
+                   if c != case)

@@ -688,6 +688,9 @@ PLANES_CASES = {
                      "s", "pair"),
 }
 SPEC_K = 4
+# the case whose every run is audited live (int8 arenas and the verify
+# window: every check of repro_torch.analysis.hot_loop_audit is armed)
+AUDITED_CASE = "both"
 
 
 def planes_cfg(case, port: bool = True):
@@ -748,7 +751,10 @@ def serve_planes(case, params, placement) -> dict:
     """Serve a case on `placement` (one rank or this rank's) → streams,
     the spec counters (the metrics' and the decode engine's drained
     stats), the quant figures, the capacity cut's drops and the checks
-    every rank runs: pool invariants, one host fetch a decode step."""
+    every rank runs: pool invariants, one host fetch a decode step; for
+    AUDITED_CASE, the live hot-loop audit of the run (at world > 1 its
+    rank-local layout check too)."""
+    from repro_torch.analysis.hot_loop_audit import audit_server
     from repro_torch.models import moe as tmoe
     from repro_torch.serving import Server
     cfg = planes_cfg(case)
@@ -757,7 +763,12 @@ def serve_planes(case, params, placement) -> dict:
                  placement=placement)
     drops = tmoe.drop_tally(placement.device)
     drops.zero_()
+    audit = audit_server(srv, require_called=True)
+    if case == AUDITED_CASE:
+        audit.attach()
     s = srv.run(planes_requests(case, cfg.vocab_size), max_wall_s=120)
+    audit.detach()
+    rep = audit.report()
     for eng in srv.decodes:
         eng.pool.check_invariants(arena=srv.kv_arena)
         assert eng.stats["host_fetches"] == eng.stats["steps"] > 0
@@ -783,7 +794,10 @@ def serve_planes(case, params, placement) -> dict:
                                for n, t in e.items()
                                if n in ("k", "v", "kscale", "vscale",
                                         "ktok", "vtok")),
-            "drops": float(drops)}
+            "drops": float(drops),
+            "audit": {"findings": [f.format() for f in rep.findings],
+                      "audited": rep.audited, "checks": rep.checks,
+                      "world": placement.ctx.world}}
 
 
 def run_planes_servers(ctx, inputs):
