@@ -6,7 +6,7 @@ Phases (any failure raises, so the script exits non-zero):
   0. ContractGuard (`repro_torch.analysis`): `contract_gate()`, the strict
      contract lint over src/repro_torch (its rule count and waived
      diagnostics printed, any unwaived diagnostic fails the run); and,
-     after phase 19 (nothing later uses the card), the live hot-loop
+     after phase 20 (nothing later uses the card), the live hot-loop
      audit's negative control (`audit_control`): a throwaway placement
      (capture on) whose one entry calls `.item()` on a cuda tensor — its
      audited eager call must report a purity finding and its capture must
@@ -297,6 +297,20 @@ Phases (any failure raises, so the script exits non-zero):
      versions at one rank's shapes; the kernels line's `tp2ep2` (and
      moe_gmm's `tp2ep2_verify`) records carry those times and rank 0's
      launches.
+  20. the port's tooling (`examples_phase`, `dryrun_phase`): (a) the three
+     examples/torch_*.py in this process at their demo sizes —
+     quickstart's six requests done and its repeat an APC hit,
+     serve_disaggregated's requests completed or aborted with work
+     requeued by its failure drill and no block leaked,
+     train_with_recovery --tiny resumed at its checkpoint step with a
+     finite loss; (b) the dry run (`repro_torch.launch.dryrun`) of
+     full-width qwen2-1.5b's float32 prefill [1, 4,096], float32 decode
+     of 8 slots over a 4,095-token slot-dense cache and bf16 train step
+     [8, 512], each traced on meta tensors, then run eagerly on the card:
+     the argument bytes and the products' flops (FlopCounterMode) equal
+     the dry run's, the kernel launches its kernel calls, the peak above
+     the arguments its peak-live bytes within ±25 % + 256 MiB, and its
+     roofline time is at most the step's device time (CUDA events).
 Every serving phase of 3, 5-9 and 11-14 serves under CUDA-graph capture, the
 default on `cuda`: the decode step, the verify step, the prefill chunk, the
 whole-prompt prefill and the first-token draw are hot-loop entries
@@ -326,6 +340,12 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out"
+sys.path.insert(0, str(ROOT / "src"))
+# the card's peaks and every kernel's bound have one source, shared with the
+# dry run (python -m repro_torch.launch.dryrun)
+from repro_torch.launch.cost import (  # noqa: E402
+    PEAK_FLOPS, decode_bound, flash_bound, moe_gmm_bound, prefill_bound,
+    sink_bound, topk_bound, topk_given_bound, topk_select_bound)
 REPLACES = {"paged_decode": "src/repro/kernels/paged_decode.py:99",
             "paged_prefill": "src/repro/kernels/paged_prefill.py:131",
             "flash_prefill": "src/repro/kernels/flash_prefill.py:73",
@@ -333,14 +353,6 @@ REPLACES = {"paged_decode": "src/repro/kernels/paged_decode.py:99",
             "spec_verify": "src/repro/kernels/spec_verify.py:123",
             "block_topk": "src/repro/kernels/block_topk.py:73",
             "moe_gmm": "src/repro/kernels/moe_gmm.py:49"}
-HBM_BYTES_S = 3.35e12                        # H100 SXM HBM3
-# float32 products at float32 accuracy: the tensor cores' 3xTF32 split
-# (three TF32 products per float32 product) at the dense TF32 peak of 495
-# TF/s gives 165 TF/s, above the 67 TF/s of float32 outside tensor cores,
-# so the least time of float32 work is reckoned at this rate
-F32_3XTF32_FLOPS = 495e12 / 3
-PEAK_FLOPS = {torch.float32: F32_3XTF32_FLOPS,
-              torch.bfloat16: 989e12}        # bf16 tensor cores, dense
 TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
        torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
 TOL_DENSE = {torch.float32: dict(rtol=2e-5, atol=2e-5),   # flash_prefill,
@@ -490,52 +502,6 @@ def prefill_inputs(dev, dtype, B, K, S, G, h, bs, nb, N, off, cl, seed):
     off = torch.tensor(off, dtype=torch.int32, device=dev)
     cl = torch.tensor(cl, dtype=torch.int32, device=dev)
     return q, kn, vn, kp, vp, tables, off, cl
-
-
-def block_bytes(kp):
-    """Bytes one resident block moves per kv head, K and V together: the
-    payload, plus on int8 arenas the block's float32 scale rows (h seal
-    scales + bs token scales, each for K and V)."""
-    bs, h = kp.shape[2], kp.shape[3]
-    nbytes = 2 * bs * h * kp.element_size()
-    if kp.dtype == torch.int8:
-        nbytes += 2 * (h + bs) * 4
-    return nbytes
-
-
-def decode_bound(q, kp, tables, lens):
-    B, K, G, h = q.shape
-    bs, e = kp.shape[2], q.element_size()
-    ln = lens.cpu().numpy().astype(np.int64)
-    blocks = np.minimum(-(-ln // bs), tables.shape[1]).sum()
-    nbytes = (2 * q.numel() * e + tables.numel() * 4 + lens.numel() * 4
-              + int(blocks) * K * block_bytes(kp))
-    flops = 4 * K * G * h * int(ln.sum())
-    return bound(nbytes, flops, q.dtype)
-
-
-def prefill_bound(q, kn, kp, tables, off, cl):
-    B, K, SG, h = q.shape
-    S = kn.shape[2]
-    G = SG // S
-    bs, e = kp.shape[2], q.element_size()
-    o = off.cpu().numpy().astype(np.int64)
-    c = cl.cpu().numpy().astype(np.int64)
-    blocks = np.minimum(-(-o // bs), tables.shape[1]).sum()
-    i = np.arange(S)
-    visible = sum(int(G * (ob + np.minimum(i + 1, cb)).sum())
-                  for ob, cb in zip(o, c))               # keys per row, summed
-    nbytes = (2 * q.numel() * e + 2 * kn.numel() * e + tables.numel() * 4
-              + 8 * B + int(blocks) * K * block_bytes(kp))
-    flops = 4 * K * h * visible
-    return bound(nbytes, flops, q.dtype)
-
-
-def bound(nbytes, flops, dtype):
-    t_mem = nbytes / HBM_BYTES_S
-    t_ops = flops / PEAK_FLOPS[dtype]
-    return (1e3 * max(t_mem, t_ops), "bytes" if t_mem >= t_ops
-            else "operations", nbytes, flops)
 
 
 def sdpa_decode(q, kp, vp, tables, lens):
@@ -744,30 +710,6 @@ def topk_inputs(dev, dtype, B, K, G, h, bs, nb, N, lens, seed):
     tables = perm[:B * nb].reshape(B, nb).to(torch.int32)
     lens = torch.tensor(lens, dtype=torch.int32, device=dev)
     return q, kmin, kmax, tables, lens
-
-
-def topk_bound(q, tables, lens, bs):
-    """Bytes and operations of one block_topk call: q, the table, lens and
-    the scores once, and the two float32 summary rows of every resident
-    (block, kv head); 4 operations (2 products, max, add) per (resident
-    block, kv head, query row, channel), in float32."""
-    B, K, G, h = q.shape
-    nb = tables.shape[1]
-    ln = lens.cpu().numpy().astype(np.int64)
-    blocks = int(np.minimum(-(-ln // bs), nb).sum())
-    nbytes = (q.numel() * q.element_size() + tables.numel() * 4 + 4 * B
-              + 4 * B * nb + 2 * blocks * K * h * 4)
-    return bound(nbytes, 4 * blocks * K * G * h, torch.float32)
-
-
-def topk_select_bound(q, tables, lens, bs, k_static):
-    """block_topk_select: the scoring's bytes and operations (topk_bound)
-    plus its outputs written once (the compacted table, lens, counts and
-    the [B, nb] bool mask); the ranking is integer work and adds none."""
-    B, nb = tables.shape
-    nbytes, flops = topk_bound(q, tables, lens, bs)[2:]
-    nbytes += 4 * B * k_static + 8 * B + B * nb
-    return bound(nbytes, flops, torch.float32)
 
 
 # block_topk_select's sweep (B, nb, lens): one-block and mid-block tails,
@@ -1267,34 +1209,6 @@ def check_quant_kernels(dev, timer, log):
     return rec
 
 
-def flash_bound(q, k, causal, window, sink):
-    """Bytes and flops of one flash_prefill call: q, k, v read once, the
-    output written once; 4·h flops per visible (query row, key) pair."""
-    N, SG, h = q.shape
-    S = k.shape[1]
-    G = SG // S
-    e = q.element_size()
-    p = np.arange(S)[:, None]
-    t = np.arange(S)[None, :]
-    ok = (t <= p) if causal else np.ones((S, S), bool)
-    if window > 0:
-        ok = ok & (((p - t) < window) | (t < sink))
-    visible = N * G * int(ok.sum())
-    nbytes = 2 * q.numel() * e + 2 * k.numel() * e
-    return bound(nbytes, 4 * h * visible, q.dtype)
-
-
-def sink_bound(q, kc, t):
-    """Bytes and flops of one sink_decode call: the live slots min(t, W) of
-    each (sequence, kv head) read once, q read and the output written."""
-    B, K, G, h = q.shape
-    W = kc.shape[2]
-    e = q.element_size()
-    live = int(np.minimum(t.cpu().numpy().astype(np.int64), W).sum())
-    nbytes = 2 * q.numel() * e + 2 * live * K * h * e + 4 * B
-    return bound(nbytes, 4 * K * G * h * live, q.dtype)
-
-
 def sdpa_flash(q, k, v, causal, window, sink):
     """One scaled_dot_product_attention call on the same data, kv heads
     expanded to query heads outside the timed call."""
@@ -1477,20 +1391,6 @@ def moe_gmm_inputs(dev, dtype, S, C, D, F, n_tok, k, seed):
     x = (torch.randn((S, C, D), generator=g, device=dev) * rows).to(dtype)
     w = (torch.randn((S, D, F), generator=g, device=dev) * 0.02).to(dtype)
     return x, w, n_valid
-
-
-def moe_gmm_bound(x, w, n_valid):
-    """Bytes and operations of one moe_gmm call: the weights of every slot
-    with a valid row, the valid rows of x (the rows at or past n_valid are
-    never read), the whole output (written, zeros included) and n_valid,
-    once each; 2 operations per (valid row, D, F)."""
-    S, C, D = x.shape
-    F = w.shape[2]
-    nv = n_valid.cpu().numpy().astype(np.int64)
-    e = x.element_size()
-    nbytes = (int((nv > 0).sum()) * D * F * e + int(nv.sum()) * D * e
-              + S * C * F * e + 4 * S)
-    return bound(nbytes, 2 * int(nv.sum()) * D * F, x.dtype)
 
 
 def check_moe_kernels(dev, timer, log):
@@ -4247,16 +4147,20 @@ def serve_moe(dev, log, cfg, weights=None):
 
 # ---- phase 13: the reference's other four decoders at full width -------
 # depth cuts forced by 80 GB of float32 weights (PERF.md §4) and by the
-# script's 1,200 s: qwen3-32b and granite-34b keep 8 layers,
+# script's 1,200 s: qwen3-32b and granite-34b keep 4 layers (one period of
+# granite's default [1,1,1,0] pattern; 8 before phase 20 was added),
 # qwen3-moe-235b-a22b 5 (129 expert slots x 3 x 4,096 x 1,536 floats =
 # 9.7 GB a layer); gemma3-4b keeps 6 of its 34, one whole period of its
 # 5 local : 1 global pattern (5 window layers, 1 full), which pays for
 # phase 14 (d) and phase 17 (g)
-P13_DEPTH = {"gemma3-4b": 6, "qwen3-32b": 8, "granite-34b": 8,
+P13_DEPTH = {"gemma3-4b": 6, "qwen3-32b": 4, "granite-34b": 4,
              "qwen3-moe-235b-a22b": 5}
 # gemma3-4b's published depth (the seconds the cut saves are reckoned
 # against it)
 G3_LAYERS_PUBLISHED = 34
+# qwen3-32b's and granite-34b's depth before the cut to 4 (the seconds the
+# cut saves are reckoned against it)
+P13_DEPTH_BEFORE = 8
 # gemma3-4b's traffic: six prompts of 1,536-2,048 tokens, the 1st, 2nd, 4th
 # and 5th on a shared 512-token prefix (four chunks), so the 1,024-token
 # local windows wrap; two sampled requests on the prefix; 16 new tokens
@@ -6714,17 +6618,6 @@ def check_rank_local_kernels(dev, timer, log, cfg):
     return out
 
 
-def topk_given_bound(tables, lens, bs, k_static):
-    """block_topk_select_scores: the scores and lens read once, the kept
-    blocks' table entries read, the compacted table, lens, counts, mask and
-    stats written once; the ranking is integer work and adds no
-    operations."""
-    B, nb = tables.shape
-    nbytes = 4 * B * nb + 4 * B + 4 * B * k_static + 4 * B * k_static \
-        + 8 * B + B * nb + 16
-    return bound(nbytes, 0, torch.float32)
-
-
 def first_diff(got, want):
     for i, (a, b) in enumerate(zip(got, want)):
         if a != b:
@@ -7340,6 +7233,169 @@ def layout_dist_phase(dev, timer, log):
 
 
 # ----------------------------------------------------------------------
+# ---- phase 20: the examples and the dry run against the card -----------
+# (b)'s cells: full-width qwen2-1.5b as published (28 layers, d 1,536,
+# 12/2 heads, h 128, vocab 151,936) at its default pattern, (name, kind,
+# seq_len, batch, dtype): a whole 4,096-token prompt, a decode step of 8
+# slots over a slot-dense cache holding 4,095 tokens, a train step of
+# 8 x 512 tokens
+P20_CELLS = (("prefill", "prefill", 4096, 1, "float32"),
+             ("decode", "decode", 4096, 8, "float32"),
+             ("train", "train", 512, 8, "bfloat16"))
+# the card's peak during a step against the dry run's peak-live bytes
+P20_PEAK_REL, P20_PEAK_ABS = 0.25, 256 * 2 ** 20
+P20_REPS = 3            # timed steps a cell, after one warm-up
+P20_CKPT_DIR = ROOT / "chiprun_ckpt" / "p20"
+
+
+def run_example(name: str, argv: list) -> tuple:
+    """examples/<name>.py's main(argv), in this process → (its summary,
+    the lines it printed)."""
+    import contextlib
+    import importlib.util
+    import io
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = mod.main(argv)
+    return res, buf.getvalue().splitlines()
+
+
+def examples_phase(dev) -> dict:
+    """Phase 20 (a): the port's three examples on the card, in-process,
+    at their full demo sizes: quickstart's six requests all done and its
+    repeat an APC hit with the same greedy stream; serve_disaggregated's
+    requests all completed or aborted, at least one requeued by the
+    failure drill, the pool invariants holding (the example asserts them)
+    and no block leaked; train_with_recovery --tiny resumed at its
+    checkpoint step with a finite final loss."""
+    import shutil
+    os.environ.pop("REPRO_SMOKE", None)
+    out = {}
+    t = time.monotonic()
+    qs, lines = run_example("torch_quickstart", ["--device", dev.type])
+    assert qs["n_done"] == qs["n_requests"] == 6, qs
+    assert qs["apc_hits"] > 0 and qs["repeat_equal"], qs
+    out["quickstart"] = {k: v for k, v in qs.items() if k != "streamed"} | {
+        "seconds": time.monotonic() - t, "tail": lines[-8:]}
+    t = time.monotonic()
+    sd, lines = run_example("torch_serve_disaggregated",
+                            ["--device", dev.type])
+    assert sd["n_done"] + sd["n_aborted"] == sd["n_requests"], sd
+    assert sd["n_requeued"] >= 1 and sd["arena"] and not sd["leaked"], sd
+    out["serve_disaggregated"] = sd | {"seconds": time.monotonic() - t,
+                                       "tail": lines[-5:]}
+    t = time.monotonic()
+    shutil.rmtree(P20_CKPT_DIR, ignore_errors=True)
+    tr, lines = run_example("torch_train_with_recovery",
+                            ["--tiny", "--device", dev.type, "--ckpt-dir",
+                             str(P20_CKPT_DIR)])
+    shutil.rmtree(P20_CKPT_DIR, ignore_errors=True)
+    assert tr["preempt_exit"] == 42, tr
+    assert tr["resumed_at"] == tr["expected_resume"], tr
+    assert tr["finite"], tr
+    out["train_with_recovery"] = tr | {"seconds": time.monotonic() - t,
+                                       "tail": lines[-3:]}
+    return out
+
+
+def p20_cell(dev, name, kind, seq, batch, dtype) -> dict:
+    """Phase 20 (b), one cell: the dry run's counts on meta tensors, then
+    the same step eagerly on the card with its CUDA kernels (one warm-up,
+    then a step for each figure) held to them: argument bytes exactly,
+    the products' flops (FlopCounterMode) exactly, the kernel launches
+    equal to the kernel calls charged, the peak within P20_PEAK_REL +
+    P20_PEAK_ABS of the peak-live bytes, and the roofline's least time at
+    most the measured device time (CUDA events, median of P20_REPS)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels._common import count_delta, launch_counts
+    from repro_torch.launch import cost, dryrun
+    from repro_torch.launch.mesh import dry_ctx
+    cfg = get_config("qwen2-1.5b").with_updates(compute_dtype=dtype,
+                                                param_dtype=dtype)
+    shape = ShapeConfig(f"p20_{name}", seq, batch, kind)
+    t = time.monotonic()
+    fn, args, lm, _ = dryrun.build_cell("qwen2-1.5b", shape, dry_ctx(),
+                                        cfg=cfg)
+    dry = dryrun.count_cell(fn, args)
+    dry_s = time.monotonic() - t
+    del fn, args, lm
+    fn, args, lm, _ = dryrun.build_cell("qwen2-1.5b", shape, dry_ctx(),
+                                        cfg=cfg, device=dev)
+    def step():
+        """One step, its result dropped (a decode or train step's state
+        lives on in its arguments)."""
+        fn(*args)
+
+    step()                                  # warm-up (cuBLAS workspaces)
+    torch.cuda.synchronize()
+    arg_bytes = cost.distinct_bytes(args)
+    before = launch_counts()
+    step()
+    torch.cuda.synchronize()
+    launches = count_delta(before, launch_counts())
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    step()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    with FlopCounterMode(display=False) as fc:
+        step()
+    products = fc.get_total_flops()
+    ms = []
+    for _ in range(P20_REPS):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        a.record()
+        step()
+        b.record()
+        torch.cuda.synchronize()
+        ms.append(a.elapsed_time(b))
+    del fn, args, lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem = dry["memory_analysis"]
+    dry_launches = {f"{k}.launches": v for k, v in dry["kernel_calls"].items()}
+    bound_ms = 1e3 * dry["roofline"]["time_s"]
+    measured = float(np.median(ms))
+    rec = {"shape": [batch, seq], "kind": kind, "dtype": dtype,
+           "dry_s": dry_s, "argument_bytes": arg_bytes,
+           "dry_argument_bytes": mem["argument_bytes"],
+           "peak_bytes": peak, "dry_peak_live_bytes": mem["peak_live_bytes"],
+           "product_flops": products, "dry_product_flops":
+           dry["product_flops"], "launches": launches,
+           "dry_kernel_calls": dry["kernel_calls"], "ms": ms,
+           "ms_median": measured, "bound_ms": bound_ms,
+           "bound_by": dry["roofline"]["dominant"],
+           "terms_ms": {k: 1e3 * v for k, v in
+                        dry["roofline"]["terms"].items()},
+           "bound_over_measured": bound_ms / measured,
+           "flops_per_device": dry["flops_per_device"],
+           "bytes_per_device": dry["bytes_per_device"],
+           "min_bytes_per_device": dry["min_bytes_per_device"],
+           "fits": mem["argument_bytes"] + mem["peak_live_bytes"]
+           <= cost.CARD_MEMORY_BYTES}
+    assert arg_bytes == mem["argument_bytes"], rec
+    assert products == dry["product_flops"], rec
+    assert launches == dry_launches, rec
+    assert abs(peak - mem["peak_live_bytes"]) <= \
+        P20_PEAK_REL * mem["peak_live_bytes"] + P20_PEAK_ABS, rec
+    assert bound_ms <= measured, rec
+    return rec
+
+
+def dryrun_phase(dev) -> dict:
+    """Phase 20 (b): the three cells of P20_CELLS (`p20_cell`)."""
+    return {c[0]: p20_cell(dev, *c) for c in P20_CELLS}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -7781,7 +7837,12 @@ def main() -> int:
           f"gemma3-4b cut saves about "
           f"{g3_s * (G3_LAYERS_PUBLISHED / P13_DEPTH['gemma3-4b'] - 1):.1f}"
           f" s (its {g3_s:.1f} s reckoned by depth to "
-          f"{G3_LAYERS_PUBLISHED} layers, not measured)")
+          f"{G3_LAYERS_PUBLISHED} layers, not measured); the cut of "
+          f"qwen3-32b and granite-34b from {P13_DEPTH_BEFORE} to "
+          f"{P13_DEPTH['granite-34b']} layers saves about "
+          + " + ".join(f"{archs[a]['seconds'] * (P13_DEPTH_BEFORE / P13_DEPTH[a] - 1):.1f}"
+                       for a in ("qwen3-32b", "granite-34b") if a in archs)
+          + " s (reckoned by depth, not measured)")
     for line in log:
         print("  " + line)
     for arch, rec in archs.items():
@@ -8185,6 +8246,46 @@ def main() -> int:
           f"each, the whole model built one rank at a time); one-rank "
           f"Server peak {dist19['one_rank_peak_gb']:.2f} GB [{smi}]")
     log.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t20 = time.monotonic()
+    ex20 = examples_phase(dev)
+    t20b = time.monotonic()
+    dry20 = dryrun_phase(dev)
+    print(f"phase 20 [{time.monotonic() - t0:.1f} s]: the examples and the "
+          f"dry run against the card in {time.monotonic() - t20:.1f} s "
+          f"((a) {t20b - t20:.1f} s, (b) {time.monotonic() - t20b:.1f} s)")
+    qs, sd, tr = (ex20[k] for k in ("quickstart", "serve_disaggregated",
+                                    "train_with_recovery"))
+    print(f"  (a) examples/torch_quickstart.py: {qs['n_done']}/"
+          f"{qs['n_requests']} requests done, APC hits {qs['apc_hits']} "
+          f"(the repeat's stream equal: {qs['repeat_equal']}), "
+          f"{qs['seconds']:.1f} s; examples/torch_serve_disaggregated.py: "
+          f"{sd['n_done']} completed + {sd['n_aborted']} aborted of "
+          f"{sd['n_requests']}, {sd['n_requeued']} requeued by the failure "
+          f"drill, pool invariants held, no block leaked, "
+          f"{sd['seconds']:.1f} s; examples/torch_train_with_recovery.py "
+          f"--tiny: preempted (exit {tr['preempt_exit']}), resumed at step "
+          f"{tr['resumed_at']}, final loss {tr['final_loss']:.4f}, "
+          f"{tr['seconds']:.1f} s [{smi}]")
+    for name, r in dry20.items():
+        print(f"  (b) qwen2-1.5b {name} {r['dtype']} [{r['shape'][0]}, "
+              f"{r['shape'][1]}]: argument bytes {r['argument_bytes']} "
+              f"(dry run {r['dry_argument_bytes']}); peak "
+              f"{r['peak_bytes'] / 2 ** 20:.1f} MiB above the arguments vs "
+              f"the dry run's peak-live {r['dry_peak_live_bytes'] / 2 ** 20:.1f}"
+              f" MiB; product flops {r['product_flops']} (dry run "
+              f"{int(r['dry_product_flops'])}); launches {r['launches'] or 'none'}"
+              f" (dry run {r['dry_kernel_calls'] or 'none'}); device time "
+              f"{r['ms_median']:.3f} ms (median of "
+              + ", ".join(f"{x:.3f}" for x in r["ms"])
+              + f") against the roofline's {r['bound_ms']:.3f} ms "
+              f"({r['bound_by']}; compute {r['terms_ms']['compute_s']:.3f} / "
+              f"memory {r['terms_ms']['memory_s']:.3f} ms): bound / measured "
+              f"{r['bound_over_measured']:.4f}; the dry run traced in "
+              f"{r['dry_s']:.2f} s [{smi}]")
+    report["phase20"] = {"examples": ex20, "dryrun": dry20}
     gc.collect()
     torch.cuda.empty_cache()
 

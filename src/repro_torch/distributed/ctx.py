@@ -16,6 +16,14 @@ arena blocks are corrupt) from the third.
 
 `RankCtx.local()` is one rank and no process group: every collective is
 the identity, so a one-rank model runs exactly as it did before TP and EP.
+
+`RankCtx.dry(tp, ep, rank)` is one rank of a world that does not exist:
+backend "dry", no process group. Its collectives take meta tensors and
+return results of the right shape and dtype (a sum or max keeps its
+input's, a gather concatenates copies, an all_to_all keeps its shape), and
+tell each sink in DRY_SINKS what this rank would send (launch/cost.py's
+counter is one): `sink.collective(kind, method, bytes)`, the kind as the
+reference's HLO names it ("all-reduce", "all-gather", "all-to-all").
 """
 from __future__ import annotations
 
@@ -25,6 +33,22 @@ from typing import Any, Optional
 
 import torch
 import torch.distributed as dist
+
+
+# RankCtx method → the collective kind it runs
+COLLECTIVE_KINDS = {
+    "psum_model": "all-reduce", "pmax_model": "all-reduce",
+    "psum_batch": "all-reduce", "pmax_world": "all-reduce",
+    "all_gather_model": "all-gather", "all_gather_data": "all-gather",
+    "all_to_all_data": "all-to-all", "all_to_all_rows": "all-to-all"}
+# what the dry backend's collectives are reported to (a dry run's counter)
+DRY_SINKS: list = []
+
+
+def _dry(method: str, x: torch.Tensor) -> None:
+    for sink in DRY_SINKS:
+        sink.collective(COLLECTIVE_KINDS[method], method,
+                        x.numel() * x.element_size())
 
 
 @dataclass(frozen=True)
@@ -41,6 +65,16 @@ class RankCtx:
     @staticmethod
     def local() -> "RankCtx":
         return RankCtx()
+
+    @staticmethod
+    def dry(tp: int = 1, ep: int = 1, rank: int = 0) -> "RankCtx":
+        """Rank `rank` of an (ep, tp) world without a process group: the
+        layout of a dry run on meta tensors (launch/dryrun.py). Its
+        collectives compute nothing; they return right-shaped results and
+        report their bytes to DRY_SINKS."""
+        if tp < 1 or ep < 1 or not 0 <= rank < tp * ep:
+            raise ValueError(f"tp={tp}, ep={ep}, rank={rank}")
+        return RankCtx(ep, tp, rank, "dry")
 
     @staticmethod
     def build(tp: int = 1, ep: int = 1, *,
@@ -110,6 +144,9 @@ class RankCtx:
         """Sum over the `model` axis, in place when x is contiguous."""
         if self.tp == 1:
             return x
+        if self.backend == "dry":
+            _dry("psum_model", x)
+            return x
         x = x.contiguous()
         dist.all_reduce(x, group=self.model_group)
         return x
@@ -121,6 +158,9 @@ class RankCtx:
         `ub.max(axis=(2, 3))` over all of them)."""
         if self.tp == 1:
             return x
+        if self.backend == "dry":
+            _dry("pmax_model", x)
+            return x
         x = x.contiguous()
         dist.all_reduce(x, op=dist.ReduceOp.MAX, group=self.model_group)
         return x
@@ -130,6 +170,9 @@ class RankCtx:
         """The tp parts of a `model`-sharded dim, concatenated in t order."""
         if self.tp == 1:
             return x
+        if self.backend == "dry":
+            _dry("all_gather_model", x)
+            return torch.cat([x] * self.tp, dim=dim)
         return _all_gather(x, dim, self.tp, self.model_group)
 
     def all_to_all_data(self, x: torch.Tensor) -> torch.Tensor:
@@ -138,6 +181,9 @@ class RankCtx:
         tile from rank i lands at i."""
         if self.ep == 1:
             return x
+        if self.backend == "dry":
+            _dry("all_to_all_data", x)
+            return torch.empty_like(x)
         x = x.contiguous()
         out = torch.empty_like(x)
         dist.all_to_all_single(out, x, group=self.data_group)
@@ -150,6 +196,9 @@ class RankCtx:
         if self.ep == 1:
             return x
         out = x.new_empty((sum(recv),) + tuple(x.shape[1:]))
+        if self.backend == "dry":
+            _dry("all_to_all_rows", x)
+            return out
         dist.all_to_all_single(out, x.contiguous(), output_split_sizes=recv,
                                input_split_sizes=send, group=self.data_group)
         return out
@@ -157,12 +206,18 @@ class RankCtx:
     def all_gather_data(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
         if self.ep == 1:
             return x
+        if self.backend == "dry":
+            _dry("all_gather_data", x)
+            return torch.cat([x] * self.ep, dim=dim)
         return _all_gather(x, dim, self.ep, self.data_group)
 
     def psum_batch(self, x: torch.Tensor) -> torch.Tensor:
         """Sum over the axis tokens are sharded on (`data`): the expert
         counts of a batch split over EP ranks."""
         if self.ep == 1:
+            return x
+        if self.backend == "dry":
+            _dry("psum_batch", x)
             return x
         x = x.contiguous()
         dist.all_reduce(x, group=self.data_group)
@@ -177,6 +232,9 @@ class RankCtx:
         contiguous."""
         if self.world == 1:
             return x
+        if self.backend == "dry":
+            _dry("pmax_world", x)
+            return x
         y = x.to(torch.int32) if x.dtype == torch.bool else x.contiguous()
         dist.all_reduce(y, op=dist.ReduceOp.MAX)
         return y.bool() if x.dtype == torch.bool else y
@@ -184,7 +242,7 @@ class RankCtx:
     def broadcast_floats(self, values: list) -> list:
         """Rank 0's float64 values on every rank (one broadcast over the
         world)."""
-        if self.world == 1:
+        if self.world == 1 or self.backend == "dry":
             return list(values)
         t = torch.tensor(values, dtype=torch.float64,
                          device=self.host_device)
@@ -195,6 +253,8 @@ class RankCtx:
         """Every rank's int64 values, in rank order."""
         if self.world == 1:
             return [list(values)]
+        if self.backend == "dry":
+            return [list(values) for _ in range(self.world)]
         t = torch.tensor(values, dtype=torch.int64, device=self.host_device)
         parts = [torch.empty_like(t) for _ in range(self.world)]
         dist.all_gather(parts, t)

@@ -1,5 +1,6 @@
-"""Argument checks shared by the kernel wrappers, and the one list of their
-launch counters."""
+"""Argument checks shared by the kernel wrappers, the one list of their
+launch counters, and the meta-tensor path every wrapper takes for a dry
+run (`meta_call`)."""
 from __future__ import annotations
 
 import importlib
@@ -33,6 +34,24 @@ LAUNCH_COUNTERS = (
     ("block_topk", "block_topk_scores", "launches"),
     ("block_topk", "block_topk_select_scores", "launches"),
     ("moe_gmm", "moe_gmm", "launches"))
+
+
+# The active cost meters of a dry run (launch/cost.py's CostCounter adds
+# itself while it counts): each takes a `charge` per kernel call on meta
+# tensors.
+METERS: list = []
+
+
+def meta_call(name: str, out, cost: tuple, dtype):
+    """A kernel wrapper's call on meta tensors (a dry run): neither the
+    kernel nor its plain twin runs. Every active meter is charged once
+    with the kernel's bytes and operations, `cost` being the wrapper's
+    bound from launch/cost.py, (ms, by, bytes, operations), reckoned at
+    the full occupancy of the tensors given. → out, the empty output of
+    the kernel's shape. No launch counter moves: nothing is launched."""
+    for m in METERS:
+        m.charge(name, cost[2], cost[3], dtype)
+    return out
 
 
 def _wrapper(module: str, name: str):

@@ -23,11 +23,13 @@ lens[b] (their table entries alias the null block).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels._common import (DTYPE_CODES, HEAD_DIMS, kernel_arg,
-                                         per_row, refuse_autograd)
+                                         meta_call, per_row, refuse_autograd)
 
 NEG_INF = -1e30
 # the kernel's grid (csrc/block_topk.cu::topk::plan): a cluster of CTAs per
@@ -193,6 +195,12 @@ def block_topk_scores(q, kmin, kmax, tables, lens, *, block_size: int):
     """q [B,K,G,h] float32/bfloat16; kmin/kmax [N,K,h] float32; tables
     [B,nb] physical block ids; lens [B] resident logical slots → scores
     [B,nb] float32. Summaries of non-resident blocks are never read."""
+    if q.device.type == "meta":
+        from repro_torch.launch.cost import topk_bound
+        return meta_call("block_topk_scores",
+                         q.new_empty(tables.shape, dtype=torch.float32),
+                         topk_bound(q, tables, lens, block_size),
+                         torch.float32)
     if q.device.type != "cuda":
         return block_topk_scores_plain(q, kmin, kmax, tables, lens,
                                        block_size=block_size)
@@ -228,6 +236,13 @@ def block_topk_select(q, kmin, kmax, tables, lens, *, block_size: int,
     `select_kv_blocks` on the returned scores and aux that of
     `block_topk_select_plain`, bit for bit. Every argument but the tensors
     is fixed by the config: nothing is read on the host."""
+    if q.device.type == "meta":
+        from repro_torch.launch.cost import topk_select_bound
+        return meta_call("block_topk_scores",
+                         (q.new_empty(tables.shape, dtype=torch.float32),
+                          *_meta_select_outputs(tables, k_static)),
+                         topk_select_bound(q, tables, lens, block_size,
+                                           k_static), torch.float32)
     if q.device.type != "cuda":
         return block_topk_select_plain(
             q, kmin, kmax, tables, lens, block_size=block_size,
@@ -255,6 +270,15 @@ def block_topk_select(q, kmin, kmax, tables, lens, *, block_size: int,
     build.check_launch("block_topk", rc)
     block_topk_scores.launches += 1
     return scores, new_tables, new_lens, m, selected, aux
+
+
+def _meta_select_outputs(tables, k_static) -> tuple:
+    """(new_tables, new_lens, m, selected, aux), empty, on meta."""
+    B, nb = tables.shape
+    e = functools.partial(torch.empty, device=tables.device)
+    return (e((B, k_static), dtype=torch.int32), e((B,), dtype=torch.int32),
+            e((B,), dtype=torch.int32), e((B, nb), dtype=torch.bool),
+            e((4,), dtype=torch.float32))
 
 
 def _select_outputs(B, nb, k_static, token_mask, dev):
@@ -289,6 +313,12 @@ def block_topk_select_scores(scores, tables, lens, *, block_size: int,
     `block_topk_select_scores_plain`. One launch of the kernel's
     scores-given entry (a CTA per slot, no score pass); nothing is read on
     the host. `block_topk_select_scores.launches` counts its launches."""
+    if scores.device.type == "meta":
+        from repro_torch.launch.cost import topk_given_bound
+        return meta_call("block_topk_select_scores",
+                         _meta_select_outputs(tables, k_static),
+                         topk_given_bound(tables, lens, block_size, k_static),
+                         torch.float32)
     if scores.device.type != "cuda":
         return block_topk_select_scores_plain(
             scores, tables, lens, block_size=block_size, k_static=k_static,

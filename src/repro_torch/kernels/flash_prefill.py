@@ -16,7 +16,8 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels._common import (DTYPE_CODES, WIDE_HEAD_DIMS,
-                                         kernel_arg, refuse_autograd)
+                                         kernel_arg, meta_call,
+                                         refuse_autograd)
 
 NEG_INF = -1e30
 
@@ -51,6 +52,10 @@ def flash_prefill(q, k, v, *, causal: bool = True, window: int = 0,
                   sink: int = 0):
     """q [N,S·G,h]; k/v [N,S,h] → o [N,S·G,h] in q's dtype (see
     `flash_prefill_plain` for the mask)."""
+    if q.device.type == "meta":
+        from repro_torch.launch.cost import flash_bound
+        return meta_call("flash_prefill", torch.empty_like(q),
+                         flash_bound(q, k, causal, window, sink), q.dtype)
     if q.device.type != "cuda":
         return flash_prefill_plain(q, k, v, causal=causal, window=window,
                                    sink=sink)

@@ -21,7 +21,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels._common import (DTYPE_CODES, kernel_arg,
-                                         refuse_autograd)
+                                         meta_call, refuse_autograd)
 from repro_torch.kernels.paged_decode import _sm_count
 
 # the kernel's work item and occupancy (csrc/moe_gmm.cu BN, RT, CTAS_PER_SM)
@@ -54,6 +54,10 @@ def moe_gmm(x, w, n_valid):
     int → [s, C, F]. On the card a slot with n_valid = 0 never reads its
     weights, and rows at or past n_valid are written as zeros without
     being read."""
+    if x.device.type == "meta":
+        from repro_torch.launch.cost import moe_gmm_bound
+        return meta_call("moe_gmm", x.new_empty(x.shape[:2] + w.shape[2:]),
+                         moe_gmm_bound(x, w, n_valid), x.dtype)
     if x.device.type != "cuda":
         return moe_gmm_plain(x, w, n_valid)
     refuse_autograd("moe_gmm", x, w)

@@ -22,8 +22,9 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels._common import (DTYPE_CODES, WIDE_HEAD_DIMS,
-                                         gather_kv, kernel_arg, per_row,
-                                         refuse_autograd, scale_plane_args)
+                                         gather_kv, kernel_arg, meta_call,
+                                         per_row, refuse_autograd,
+                                         scale_plane_args)
 
 NEG_INF = -1e30
 DECODE_WARPS = 4          # warps per CTA of the kernel (csrc DEC_WARPS)
@@ -107,6 +108,10 @@ def paged_decode(q, k_pages, v_pages, tables, lens, *, k_scale=None,
     arenas pass their scale plane: k_scale/v_scale [N,K,h], k_tok/v_tok
     [N,K,bs] float32; the pages then must be int8 (never cast)."""
     quant = k_scale is not None
+    if q.device.type == "meta":
+        from repro_torch.launch.cost import decode_bound
+        return meta_call("paged_decode", torch.empty_like(q),
+                         decode_bound(q, k_pages, tables, lens), q.dtype)
     if q.device.type != "cuda":
         return paged_decode_plain(q, k_pages, v_pages, tables, lens,
                                   k_scale=k_scale, k_tok=k_tok,

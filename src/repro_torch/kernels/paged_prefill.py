@@ -18,7 +18,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels._common import (DTYPE_CODES, HEAD_DIMS, gather_kv,
-                                         kernel_arg, per_row,
+                                         kernel_arg, meta_call, per_row,
                                          refuse_autograd, scale_plane_args)
 from repro_torch.kernels.paged_decode import _sm_count, prefill_splits
 
@@ -78,6 +78,11 @@ def paged_prefill(q, k_new, v_new, k_pages, v_pages, tables, off, chunk_len,
     (k_scale/v_scale [N,K,h], k_tok/v_tok [N,K,bs] float32); k_new/v_new
     stay in q's dtype."""
     quant = k_scale is not None
+    if q.device.type == "meta":
+        from repro_torch.launch.cost import prefill_bound
+        return meta_call("paged_prefill", torch.empty_like(q),
+                         prefill_bound(q, k_new, k_pages, tables, off,
+                                       chunk_len), q.dtype)
     if q.device.type != "cuda":
         return paged_prefill_plain(q, k_new, v_new, k_pages, v_pages, tables,
                                    off, chunk_len, window=window, sink=sink,

@@ -19,7 +19,8 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels._common import (DTYPE_CODES, WIDE_HEAD_DIMS,
-                                         kernel_arg, per_row, refuse_autograd)
+                                         kernel_arg, meta_call, per_row,
+                                         refuse_autograd)
 from repro_torch.kernels.paged_decode import (_sm_count, decode_row_groups,
                                               decode_splits)
 
@@ -70,6 +71,10 @@ def sink_decode(q, k_cache, v_cache, t):
     """q [B,K,G,h]; caches [B,K,W,h] (strided views allowed); t [B]
     occupancy (≥ 1: slots < min(t, W) are live) → o [B,K,G,h] in q's
     dtype."""
+    if q.device.type == "meta":
+        from repro_torch.launch.cost import sink_bound
+        return meta_call("sink_decode", torch.empty_like(q),
+                         sink_bound(q, k_cache, t), q.dtype)
     if q.device.type != "cuda":
         return sink_decode_plain(q, k_cache, v_cache, t)
     refuse_autograd("sink_decode", q, k_cache, v_cache)

@@ -19,7 +19,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels._common import (DTYPE_CODES, HEAD_DIMS, kernel_arg,
-                                         per_row, refuse_autograd,
+                                         meta_call, per_row, refuse_autograd,
                                          scale_plane_args)
 from repro_torch.kernels.paged_decode import _sm_count, prefill_splits
 from repro_torch.kernels.paged_prefill import paged_prefill_plain
@@ -49,6 +49,11 @@ def spec_verify(q, k_new, v_new, k_pages, v_pages, tables, off, n_tok, *,
     [N,K,h], k_tok/v_tok [N,K,bs] float32); k_new/v_new stay in q's
     dtype."""
     quant = k_scale is not None
+    if q.device.type == "meta":
+        from repro_torch.launch.cost import prefill_bound
+        return meta_call("spec_verify", torch.empty_like(q),
+                         prefill_bound(q, k_new, k_pages, tables, off, n_tok),
+                         q.dtype)
     if q.device.type != "cuda":
         return spec_verify_plain(q, k_new, v_new, k_pages, v_pages, tables,
                                  off, n_tok, k_scale=k_scale, k_tok=k_tok,
