@@ -186,9 +186,9 @@ Phases (any failure raises, so the script exits non-zero):
      phase 7's prompts twice over, (d) int8 arenas plain and with
      speculation, (e) the default pattern paged and dense — every
      comparison equal up to phase 5's near-tie rule; qwen3-32b and
-     granite-34b at 8 layers through phases 3 and 7 (phase 7's prompts
+     granite-34b at 4 layers through phases 3 and 7 (phase 7's prompts
      twice over), granite also whole-prompt on the slot-dense layout and
-     with online top-k at 0.5; qwen3-moe-235b-a22b at 5 layers through
+     with online top-k at 0.5; qwen3-moe-235b-a22b at 2 layers through
      phases 7 (at a capacity that drops nothing; the serving capacity's
      differing streams reported), 6 and 8 — each run's launch counts
      (paged_prefill == chunks x full layers, paged_decode == steps x
@@ -311,6 +311,20 @@ Phases (any failure raises, so the script exits non-zero):
      the dry run's, the kernel launches its kernel calls, the peak above
      the arguments its peak-live bytes within ±25 % + 256 MiB, and its
      roofline time is at most the step's device time (CUDA events).
+  21. training over (tp 2, ep 2) ranks (`dist_train_phase`), one process
+     a rank (NCCL with a card a rank where four are visible, else four
+     gloo ranks sharing cuda:0), against the one-rank port's steps on the
+     same card run first: (a) full-width qwen2-1.5b in float32 (P21_LAYERS
+     layers) and (b) full-width qwen2-moe-a2.7b in float32 (P21_MOE_LAYERS
+     layers, grad_accum 2, capacity factor P21_MOE_CF), two steps at the
+     launcher's batch 8 x seq 128: every rank's loss and gradient norm
+     within P15_CPU_TOL of the one rank's, the parameters saved over the
+     ranks and restored on one rank within `p21_params_close`; (c) (a)'s
+     state restored on one rank and cut to each rank's part equal to that
+     rank's bit for bit; (d) rank 0's collective bytes and calls per kind
+     in one step equal to the dry run's train record
+     (`CollectiveBytes` wraps torch.distributed's calls); (e) the
+     bf16-as-published step's time a rank, printed.
 Every serving phase of 3, 5-9 and 11-14 serves under CUDA-graph capture, the
 default on `cuda`: the decode step, the verify step, the prefill chunk, the
 whole-prompt prefill and the first-token draw are hot-loop entries
@@ -4149,18 +4163,20 @@ def serve_moe(dev, log, cfg, weights=None):
 # depth cuts forced by 80 GB of float32 weights (PERF.md §4) and by the
 # script's 1,200 s: qwen3-32b and granite-34b keep 4 layers (one period of
 # granite's default [1,1,1,0] pattern; 8 before phase 20 was added),
-# qwen3-moe-235b-a22b 5 (129 expert slots x 3 x 4,096 x 1,536 floats =
-# 9.7 GB a layer); gemma3-4b keeps 6 of its 34, one whole period of its
+# qwen3-moe-235b-a22b 2 (129 expert slots x 3 x 4,096 x 1,536 floats =
+# 9.7 GB a layer; 5 before phase 21 was added); gemma3-4b keeps 6 of its
+# 34, one whole period of its
 # 5 local : 1 global pattern (5 window layers, 1 full), which pays for
 # phase 14 (d) and phase 17 (g)
 P13_DEPTH = {"gemma3-4b": 6, "qwen3-32b": 4, "granite-34b": 4,
-             "qwen3-moe-235b-a22b": 5}
+             "qwen3-moe-235b-a22b": 2}
 # gemma3-4b's published depth (the seconds the cut saves are reckoned
 # against it)
 G3_LAYERS_PUBLISHED = 34
 # qwen3-32b's and granite-34b's depth before the cut to 4 (the seconds the
-# cut saves are reckoned against it)
+# cut saves are reckoned against it), and qwen3-moe-235b-a22b's
 P13_DEPTH_BEFORE = 8
+P13_MOE_DEPTH_BEFORE = 5
 # gemma3-4b's traffic: six prompts of 1,536-2,048 tokens, the 1st, 2nd, 4th
 # and 5th on a shared 512-token prefix (four chunks), so the 1,024-token
 # local windows wrap; two sampled requests on the prefix; 16 new tokens
@@ -7396,6 +7412,366 @@ def dryrun_phase(dev) -> dict:
     return {c[0]: p20_cell(dev, *c) for c in P20_CELLS}
 
 
+# ---- phase 21: training over (tp, ep) ranks on the card --------------------
+P21_TP, P21_EP = 2, 2
+# (a) qwen2-1.5b at full width in float32, its first P21_LAYERS of 28
+# layers: four ranks share one card over gloo, each holding its float32
+# parameters, gradients and moments and, for the save, every whole leaf
+# in turn
+P21_LAYERS = 4
+# (b) qwen2-moe-a2.7b at full width in float32, grad_accum 2 (published),
+# cut to its first P21_MOE_LAYERS layers: at phase 17's 4 a rank's float32
+# parameters, gradients, accumulators and moments take ~21 GB, and four
+# of them do not fit one 80 GB card
+P21_MOE_LAYERS = 2
+# ... at capacity factor P21_MOE_CF: a bucket's capacity follows the rows
+# a rank routes (its share over `data`), so a cut that drops would drop
+# different assignments on one rank and over four; at 16 neither drops
+P21_MOE_CF = 16.0
+P21_STEPS, P21_BATCH, P21_SEQ, P21_LR = 2, 8, 128, 3e-4
+P21_SEED = 0
+P21_BF16_STEPS = 2       # (e): timed steps after one warm-up
+P21_WORLD_S = 600        # the world joins within this, or is killed
+P21_CKPT_DIR = ROOT / "chiprun_ckpt" / "p21"
+# gathered parameters after the steps against the one rank's: every
+# element within P21_PARAM_ABS but for at most P21_PARAM_FRAC of them, and
+# those within steps x lr (an element whose gradient is float32 noise
+# moves by up to lr a step, of either sign, in either run)
+P21_PARAM_ABS, P21_PARAM_FRAC = 1e-5, 1e-4
+
+
+def p21_configs() -> dict:
+    """Phase 21's configs: (a) qwen2-1.5b and (b) qwen2-moe-a2.7b at
+    their published widths (the phase-15 checks) in float32, cut by
+    depth; (e) qwen2-1.5b as published (bfloat16, remat), cut alike."""
+    from dataclasses import replace
+    f32 = dict(param_dtype="float32", compute_dtype="float32")
+    pub = train_config("qwen2-1.5b").with_updates(n_layers=P21_LAYERS)
+    moe = train_config("qwen2-moe-a2.7b")
+    return {"a": pub.with_updates(**f32),
+            "b": moe.with_updates(n_layers=P21_MOE_LAYERS, moe=replace(
+                moe.moe, capacity_factor=P21_MOE_CF), **f32),
+            "e": pub}
+
+
+def p21_batch(cfg, step, dev):
+    from repro_torch.training.data import DataConfig, make_batch
+    return make_batch(cfg, DataConfig(cfg.vocab_size, P21_SEQ, P21_BATCH),
+                      step, device=dev)
+
+
+def p21_sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def p21_steps(lm, params, opt, dev, steps=P21_STEPS, count=None) -> list:
+    """`steps` train steps of the launcher's batches → per step the loss,
+    gradient norm and device-synchronised ms; `count` (a context manager)
+    wraps the first step."""
+    import contextlib
+    from repro_torch.training.trainer import make_train_step
+    step = make_train_step(lm, lr=P21_LR)
+    tables = lm.default_tables()
+    hist = []
+    for s in range(steps):
+        batch = p21_batch(lm.cfg, s, dev)
+        p21_sync(dev)
+        t = time.monotonic()
+        with (count if s == 0 and count is not None
+              else contextlib.nullcontext()):
+            params, opt, m = step(params, opt, batch, tables)
+            loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        p21_sync(dev)
+        hist.append({"loss": loss, "grad_norm": gnorm,
+                     "ms": (time.monotonic() - t) * 1e3})
+    return hist
+
+
+def p21_one_rank(cfg, dev) -> dict:
+    """The one-rank port's P21_STEPS steps on the card from the seed's
+    state → {"hist", "params": the parameters after them, on the CPU}."""
+    from repro_torch.models.lm import LM
+    from repro_torch.training.trainer import init_state
+    from repro_torch.tree import tree_map
+    from repro_torch.models import moe as moe_mod
+    lm = LM.build(cfg, device=dev)
+    st = init_state(lm, P21_SEED)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    moe_mod.drop_tally(dev).zero_()
+    hist = p21_steps(lm, st.params, st.opt, dev)
+    out = {"hist": hist, "params": tree_map(lambda t: t.cpu(), st.params),
+           "drops": float(moe_mod.drop_tally(dev)),
+           "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9
+           if dev.type == "cuda" else 0.0}
+    del st, lm
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+class CollectiveBytes:
+    """Counts what this process hands `torch.distributed` while active, as
+    the dry backend counts it (`distributed/ctx.py`'s `_dry`): per kind
+    the calls and the bytes of the tensor each call sends (all_reduce's
+    tensor, all_gather's input, all_to_all_single's input). A wrapper
+    around the three calls; the program is not changed."""
+    KINDS = {"all_reduce": "all-reduce", "all_gather": "all-gather",
+             "all_to_all_single": "all-to-all"}
+
+    def __init__(self):
+        self.bytes, self.counts, self._orig = {}, {}, {}
+
+    def _wrap(self, name, fn):
+        kind = self.KINDS[name]
+
+        def counted(*a, **k):
+            x = a[1] if name in ("all_gather", "all_to_all_single") else a[0]
+            self.bytes[kind] = self.bytes.get(kind, 0) + \
+                x.numel() * x.element_size()
+            self.counts[kind] = self.counts.get(kind, 0) + 1
+            return fn(*a, **k)
+        return counted
+
+    def __enter__(self):
+        import torch.distributed as dist
+        for name in self.KINDS:
+            self._orig[name] = getattr(dist, name)
+            setattr(dist, name, self._wrap(name, self._orig[name]))
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+        for name, fn in self._orig.items():
+            setattr(dist, name, fn)
+
+
+def p21_rank_state(lm, pl, world, rank):
+    """This rank's part of the seed's state (`init_state`): the whole
+    one-rank model is built one rank at a time, so four whole models are
+    never on the card together."""
+    import torch.distributed as dist
+    from repro_torch.training.trainer import init_state
+    st = None
+    for r in range(world):
+        if r == rank:
+            st = init_state(lm, P21_SEED)
+            gc.collect()
+            if pl.device.type == "cuda":
+                torch.cuda.empty_cache()
+        dist.barrier()
+    return st.params, st.opt
+
+
+def p21_digests(tree) -> dict:
+    """sha256 of every leaf's bytes, by leaf name."""
+    import hashlib
+    from repro_torch.tree import tree_items
+    return {k: hashlib.sha256(v.detach().contiguous().cpu().reshape(-1)
+                              .view(torch.uint8).numpy()).hexdigest()
+            for k, v in tree_items(tree)}
+
+
+def train_rank(rank, world, backend, init, out_dir, dev_type="cuda"):
+    """One rank of phase 21: (a) P21_STEPS steps of full-width qwen2-1.5b
+    (float32) over (tp 2, ep 2), the first under `CollectiveBytes`, and a
+    sharded save of its state (with the digests of this rank's parts);
+    (b) the same steps of qwen2-moe-a2.7b and a sharded save of its
+    parameters; (e) the bf16-as-published step's time. Results to
+    <out_dir>/p21_rank<r>.json."""
+    import shutil
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.lm import LM
+    from repro_torch.serving import DevicePlacement
+    dev, nccl = join_world(rank, world, backend, init, dev_type)
+    res = {"rank": rank}
+    try:
+        pl = DevicePlacement.build(P21_TP, P21_EP, dev, backend,
+                                   capture=False)
+        # the parent's configs (`p21_configs`)
+        cfgs = torch.load(Path(out_dir) / "p21_configs.pt",
+                          weights_only=False)
+        for case in ("a", "b"):
+            lm = LM.build(cfgs[case], device=dev, ctx=pl.ctx)
+            params, opt = p21_rank_state(lm, pl, world, rank)
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(dev)
+            counter = CollectiveBytes() if case == "a" else None
+            moe_mod.drop_tally(dev).zero_()
+            res[case] = {"hist": p21_steps(lm, params, opt, dev,
+                                           count=counter),
+                         "drops": float(moe_mod.drop_tally(dev))}
+            if counter is not None:
+                res[case]["collective_bytes"] = counter.bytes
+                res[case]["collective_counts"] = counter.counts
+            res[case]["peak_gb"] = (torch.cuda.max_memory_allocated(dev)
+                                    / 1e9 if dev.type == "cuda" else 0.0)
+            d = P21_CKPT_DIR / case
+            if rank == 0 and d.exists():
+                shutil.rmtree(d)
+            state = {"params": params, "opt": opt} if case == "a" else \
+                {"params": params}
+            t = time.monotonic()
+            CheckpointManager(d, lm=lm).save(P21_STEPS, state)
+            res[case]["save_s"] = time.monotonic() - t
+            if case == "a":
+                res[case]["digests"] = {
+                    "params": p21_digests(params),
+                    "m": p21_digests(opt["m"]), "v": p21_digests(opt["v"])}
+            del params, opt, state, lm
+            gc.collect()
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        # (e) qwen2-1.5b as published: bfloat16, remat, float32 moments
+        lm = LM.build(cfgs["e"], device=dev, ctx=pl.ctx)
+        params, opt = p21_rank_state(lm, pl, world, rank)
+        hist = p21_steps(lm, params, opt, dev, steps=1 + P21_BF16_STEPS)
+        res["e"] = {"hist": hist,
+                    "step_ms": [h["ms"] for h in hist[1:]]}
+        del params, opt, lm
+        import resource
+        res["host_peak_gb"] = resource.getrusage(
+            resource.RUSAGE_SELF).ru_maxrss / 1e6
+    except BaseException as exc:
+        import traceback
+        res["error"] = f"{type(exc).__name__}: {exc}\n" + \
+            traceback.format_exc()[-3000:]
+    leave_world(res, Path(out_dir) / f"p21_rank{rank}.json", nccl)
+
+
+def p21_params_close(got, want, what) -> dict:
+    """P21_PARAM_ABS / P21_PARAM_FRAC / steps x lr over every leaf → the
+    worst |diff| and the share of elements past P21_PARAM_ABS."""
+    from repro_torch.tree import tree_items
+    w = dict(tree_items(want))
+    worst, over, n = 0.0, 0, 0
+    for k, g in tree_items(got):
+        d = (g.float() - w[k].float()).abs()
+        worst = max(worst, float(d.max()))
+        over += int((d > P21_PARAM_ABS).sum())
+        n += d.numel()
+    rec = {"max_abs": worst, "share_over": over / n}
+    assert worst <= P21_STEPS * P21_LR * 1.05, (what, rec)
+    assert rec["share_over"] <= P21_PARAM_FRAC, (what, rec)
+    return rec
+
+
+def p21_rank_part(lm, whole, rank):
+    """Rank `rank`'s part of a whole one-rank tree (as `place_params` would
+    carry it there), on the CPU."""
+    from repro_torch.distributed import RankCtx
+    from repro_torch.serving import DevicePlacement
+    from dataclasses import replace
+    ctx = RankCtx(ep=P21_EP, tp=P21_TP, rank=rank)
+    one = replace(lm, device=torch.device("cpu"))
+    return DevicePlacement(torch.device("cpu"), False, ctx).transfer_params(
+        one, whole, replace(one, ctx=ctx))
+
+
+def dist_train_phase(dev) -> dict:
+    """Phase 21: training over (tp 2, ep 2) ranks on the card, one process
+    a rank (NCCL with one card a rank where four are visible, else four
+    gloo ranks sharing cuda:0), against the one-rank port's steps on the
+    same card run first. (a) full-width qwen2-1.5b, float32, P21_LAYERS
+    layers; (b) full-width qwen2-moe-a2.7b, float32, P21_MOE_LAYERS
+    layers, grad_accum 2: each rank's loss and gradient norm in every step
+    equal the one rank's within P15_CPU_TOL, and the parameters after the
+    steps (saved over the ranks, restored on one rank) within
+    `p21_params_close`; (c) (a)'s save over the ranks restored on one rank
+    and cut to each rank's part equals that rank's state bit for bit
+    (sha256 of every leaf of its parameters and moments); (d) rank 0's
+    collective bytes and calls per kind in (a)'s first step against the
+    dry run's train record for the layout and shape (`dryrun.dry_cell`):
+    equal; (e) the bf16-as-published step's time a rank, printed."""
+    from repro_torch.checkpoint import load_checkpoint
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.models.lm import LM
+    from repro_torch.training.optim import adamw_init
+    cfgs = p21_configs()
+    world = P21_TP * P21_EP
+    n_cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+    nccl = n_cards >= world
+    backend = "nccl" if nccl else "gloo"
+    out = {"backend": backend, "cards": n_cards,
+           "layers": {c: cfgs[c].n_layers for c in cfgs}}
+    OUT_DIR.mkdir(exist_ok=True)
+    torch.save(cfgs, OUT_DIR / "p21_configs.pt")
+    t0 = time.monotonic()
+    one = {c: p21_one_rank(cfgs[c], dev) for c in ("a", "b")}
+    out["one_rank_s"] = time.monotonic() - t0
+    out["one_rank"] = {c: {k: one[c][k] for k in ("hist", "peak_gb",
+                                                  "drops")} for c in one}
+    # (d)'s dry run: rank 0 of the layout, the same config and shape
+    t = time.monotonic()
+    shape = ShapeConfig("p21_train", P21_SEQ, P21_BATCH, "train")
+    dry = dryrun.dry_cell("qwen2-1.5b", shape, (P21_EP, P21_TP),
+                          cfg=cfgs["a"], rank=0)
+    assert dry["status"] == "ok", dry.get("traceback")
+    out["dry_s"] = time.monotonic() - t
+    ranks, out["world_s"] = run_world(train_rank, world, backend,
+                                      "p21_rank", P21_WORLD_S)
+    out["ranks"] = ranks
+    # (a), (b): every rank's steps against the one rank's, no assignment
+    # dropped on either side
+    for case in ("a", "b"):
+        assert one[case]["drops"] == 0, (case, one[case]["drops"])
+        for r in ranks:
+            assert r[case]["drops"] == 0, (case, r["rank"], r[case]["drops"])
+            for s, (got, want) in enumerate(zip(r[case]["hist"],
+                                                one[case]["hist"])):
+                for k, tol in P15_CPU_TOL.items():
+                    assert abs(got[k] - want[k]) <= tol * abs(want[k]), (
+                        f"phase 21 ({case}) rank {r['rank']} step {s} {k}",
+                        got[k], want[k])
+    # the states saved over the ranks, restored on one rank (the CPU)
+    t = time.monotonic()
+    restored = {}
+    for case in ("a", "b"):
+        shapes = LM.build(cfgs[case], device="meta").shapes()
+        tmpl = {"params": shapes}
+        if case == "a":
+            tmpl["opt"] = adamw_init(shapes)
+        restored[case], step, extra = load_checkpoint(P21_CKPT_DIR / case,
+                                                      template=tmpl)
+        assert step == P21_STEPS and extra == {"saved_tp": P21_TP,
+                                               "saved_ep": P21_EP}, extra
+        out[case] = p21_params_close(restored[case]["params"],
+                                     one[case]["params"], f"({case})")
+    out["restore_s"] = time.monotonic() - t
+    # (c) each rank's part of the restored state, bit for bit
+    lm_a = LM.build(cfgs["a"], device="cpu")
+    st = restored["a"]
+    n_leaves = 0
+    for r in ranks:
+        for name, tree in (("params", st["params"]), ("m", st["opt"]["m"]),
+                           ("v", st["opt"]["v"])):
+            got = p21_digests(p21_rank_part(lm_a, tree, r["rank"]))
+            want = r["a"]["digests"][name]
+            assert got == want, (f"phase 21 (c) rank {r['rank']} {name}",
+                                 sorted(k for k in want
+                                        if got.get(k) != want[k])[:4])
+            n_leaves += len(want)
+    out["c_leaves"] = n_leaves
+    # (d) rank 0's bytes per kind in one step against the dry run's
+    coll = dry["collective_bytes_per_device"]
+    r0 = ranks[0]["a"]
+    out["d"] = {"card": {"bytes": r0["collective_bytes"],
+                         "counts": r0["collective_counts"]},
+                "dry": {"bytes": {k: coll[k] for k in coll
+                                  if k not in ("total", "counts", "calls")},
+                        "counts": coll["counts"], "calls": coll["calls"]}}
+    assert out["d"]["card"]["bytes"] == out["d"]["dry"]["bytes"], out["d"]
+    assert out["d"]["card"]["counts"] == out["d"]["dry"]["counts"], out["d"]
+    out["e"] = {r["rank"]: r["e"]["step_ms"] for r in ranks}
+    del restored, one
+    gc.collect()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -7842,7 +8218,11 @@ def main() -> int:
           f"{P13_DEPTH['granite-34b']} layers saves about "
           + " + ".join(f"{archs[a]['seconds'] * (P13_DEPTH_BEFORE / P13_DEPTH[a] - 1):.1f}"
                        for a in ("qwen3-32b", "granite-34b") if a in archs)
-          + " s (reckoned by depth, not measured)")
+          + " s, and of qwen3-moe-235b-a22b from "
+          f"{P13_MOE_DEPTH_BEFORE} to {P13_DEPTH['qwen3-moe-235b-a22b']} "
+          + "".join(f"about {archs[a]['seconds'] * (P13_MOE_DEPTH_BEFORE / P13_DEPTH[a] - 1):.1f} s"
+                    for a in ("qwen3-moe-235b-a22b",) if a in archs)
+          + " (reckoned by depth, not measured)")
     for line in log:
         print("  " + line)
     for arch, rec in archs.items():
@@ -8286,6 +8666,71 @@ def main() -> int:
               f"{r['bound_over_measured']:.4f}; the dry run traced in "
               f"{r['dry_s']:.2f} s [{smi}]")
     report["phase20"] = {"examples": ex20, "dryrun": dry20}
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t21 = time.monotonic()
+    tr21 = dist_train_phase(dev)
+    print(f"phase 21 [{time.monotonic() - t0:.1f} s]: training over (tp "
+          f"{P21_TP}, ep {P21_EP}) ranks, one process a rank, "
+          f"{tr21['backend']} ({tr21['cards']} card(s) visible), in "
+          f"{time.monotonic() - t21:.1f} s (the one rank "
+          f"{tr21['one_rank_s']:.1f} s, the world {tr21['world_s']:.1f} s, "
+          f"the restores {tr21['restore_s']:.1f} s)")
+    names = {"a": f"qwen2-1.5b, float32, {tr21['layers']['a']} of 28 "
+                  f"layers", "b": f"qwen2-moe-a2.7b, float32, "
+             f"{tr21['layers']['b']} of 24 layers, grad_accum 2, capacity "
+             f"factor {P21_MOE_CF:g}"}
+    for c in ("a", "b"):
+        one_h = tr21["one_rank"][c]["hist"]
+        rel = {k: max(abs(r[c]["hist"][i][k] - one_h[i][k])
+                      / abs(one_h[i][k]) for r in tr21["ranks"]
+                      for i in range(len(one_h)))
+               for k in ("loss", "grad_norm")}
+        print(f"  ({c}) {names[c]}, batch {P21_BATCH} x seq {P21_SEQ}: "
+              f"losses " + ", ".join(f"{h['loss']:.6f}" for h in one_h)
+              + ", gradient norms "
+              + ", ".join(f"{h['grad_norm']:.6f}" for h in one_h)
+              + f" on one rank; every rank's within {rel['loss']:.2e} / "
+              f"{rel['grad_norm']:.2e} (relative; tolerance "
+              f"{P15_CPU_TOL['loss']:g} / {P15_CPU_TOL['grad_norm']:g}); "
+              f"parameters after {P21_STEPS} steps, saved over the ranks "
+              f"and restored on one rank: max |diff| "
+              f"{tr21[c]['max_abs']:.3g}, share past {P21_PARAM_ABS:g} "
+              f"{tr21[c]['share_over']:.2e}; no assignment dropped [{smi}]")
+        print(f"  ({c}) step ms: one rank "
+              + ", ".join(f"{h['ms']:.1f}" for h in one_h)
+              + "; rank 0 " + ", ".join(
+                  f"{h['ms']:.1f}" for h in tr21["ranks"][0][c]["hist"])
+              + f"; peak GB one rank {tr21['one_rank'][c]['peak_gb']:.2f}, "
+              f"ranks " + ", ".join(f"{r[c]['peak_gb']:.2f}"
+                                    for r in tr21["ranks"])
+              + f"; the sharded save " + ", ".join(
+                  f"{r[c]['save_s']:.1f}" for r in tr21["ranks"])
+              + f" s a rank [{smi}]")
+    print(f"  (c) (a)'s state saved over the ranks (each rank writes the "
+          f"parts it owns), restored on one rank and cut to each rank's "
+          f"part: "
+          f"{tr21['c_leaves']} leaves of parameters and moments over "
+          f"{len(tr21['ranks'])} ranks equal bit for bit (sha256)")
+    d = tr21["d"]
+    print(f"  (d) rank 0's collectives in (a)'s first step, card vs dry "
+          f"run (dryrun.dry_cell, the same config, layout and shape): "
+          + "; ".join(f"{k} {d['card']['bytes'].get(k, 0)} / "
+                      f"{d['dry']['bytes'].get(k, 0)} bytes in "
+                      f"{d['card']['counts'].get(k, 0)} / "
+                      f"{d['dry']['counts'].get(k, 0)} calls"
+                      for k in sorted(set(d['card']['bytes'])
+                                      | set(d['dry']['bytes'])))
+          + f"; the dry run's calls {d['dry']['calls']} (traced in "
+          f"{tr21['dry_s']:.1f} s)")
+    print(f"  (e) qwen2-1.5b as published (bfloat16, remat), "
+          f"{tr21['layers']['e']} layers, batch {P21_BATCH} x seq "
+          f"{P21_SEQ}, step ms a rank after one warm-up: "
+          + "; ".join(f"rank {r} " + ", ".join(f"{x:.1f}" for x in v)
+                      for r, v in sorted(tr21["e"].items()))
+          + f" [{smi}]")
+    report["phase21"] = tr21
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -24,6 +24,51 @@ input's, a gather concatenates copies, an all_to_all keeps its shape), and
 tell each sink in DRY_SINKS what this rank would send (launch/cost.py's
 counter is one): `sink.collective(kind, method, bytes)`, the kind as the
 reference's HLO names it ("all-reduce", "all-gather", "all-to-all").
+
+Training over ranks (autograd). Where grad mode is on and the input
+requires grad, every collective runs as a `torch.autograd.Function` with
+its transpose; everywhere else (serving, its CUDA graphs, `no_grad`) it
+is the bare call above, in place where it was. The transposes follow one
+cotangent convention:
+
+  every rank computes the whole loss (replicated over `model`; over
+  `data` the global loss, each rank's rows summed into it); the cotangent
+  of a tensor replicated over `model` is replicated, whole, on every
+  rank, and the cotangent of a rank's shard is that shard's.
+
+Inside a `model`-sharded region (an attention or Mamba-2 sublayer split by
+heads, a dense or expert FFN split by width, the vocabulary-sharded head)
+a tensor that every rank computes alike (the sublayer's normed input as
+each branch reads it, the router's logits, Mamba-2's B/C rows, a 'wseq'
+KV head several ranks read) gets only this rank's share of its cotangent;
+the sum over `model` is the whole. Hence:
+
+  psum_model            output replicated: backward the identity.
+  enter_model           Megatron's "f" at a sharded region's entry:
+                        identity forward, psum over `model` backward.
+                        Before a psum_model whose sum feeds each rank's
+                        own shard (rms_norm_over_model's sum of squares,
+                        which each rank applies to its own channels) it
+                        makes that psum's backward a psum too.
+  all_gather_model /    backward takes this rank's slice.
+  all_gather_data
+  all_to_all_data       backward is the same tiled all_to_all (the op is
+                        its own transpose); all_to_all_rows swaps its
+                        send and receive counts.
+  psum_batch            output replicated over `data` (the loss's global
+                        sums, the expert counts): backward the identity.
+  share_over_data       a loss each `data` rank computes whole from the
+                        same replicated rows: identity forward, backward
+                        times 1 / ep, so that summing the parameters'
+                        gradients over `data` gives the gradient once.
+
+Each parameter's gradient is then this rank's share: whole for a
+`model`-sharded leaf, partial over `data` for a leaf replicated over it
+(the trainer sums it), and partial over `model` for a leaf that a sharded
+region reads whole (the trainer sums it over the ranks that hold the same
+part: `LM.grad_sync`). On one rank every Function is skipped (the
+identity), and on the dry backend each reports its bytes, the backward's
+included.
 """
 from __future__ import annotations
 
@@ -38,7 +83,8 @@ import torch.distributed as dist
 # RankCtx method → the collective kind it runs
 COLLECTIVE_KINDS = {
     "psum_model": "all-reduce", "pmax_model": "all-reduce",
-    "psum_batch": "all-reduce", "pmax_world": "all-reduce",
+    "psum_batch": "all-reduce", "pmax_batch": "all-reduce",
+    "pmax_world": "all-reduce",
     "all_gather_model": "all-gather", "all_gather_data": "all-gather",
     "all_to_all_data": "all-to-all", "all_to_all_rows": "all-to-all"}
 # what the dry backend's collectives are reported to (a dry run's counter)
@@ -49,6 +95,12 @@ def _dry(method: str, x: torch.Tensor) -> None:
     for sink in DRY_SINKS:
         sink.collective(COLLECTIVE_KINDS[method], method,
                         x.numel() * x.element_size())
+
+
+def _grad_path(x: torch.Tensor) -> bool:
+    """True where a collective must be differentiable: grad mode on and
+    an input that requires grad."""
+    return torch.is_grad_enabled() and x.requires_grad
 
 
 @dataclass(frozen=True)
@@ -141,21 +193,27 @@ class RankCtx:
 
     # ---- collectives (identities on one rank) ---------------------------
     def psum_model(self, x: torch.Tensor) -> torch.Tensor:
-        """Sum over the `model` axis, in place when x is contiguous."""
+        """Sum over the `model` axis, in place when x is contiguous (out of
+        place on the autograd path, whose backward is the identity)."""
         if self.tp == 1:
             return x
-        if self.backend == "dry":
-            _dry("psum_model", x)
+        if _grad_path(x):
+            return _Psum.apply(x, self, "model")
+        return self._psum("model", x)
+
+    def enter_model(self, x: torch.Tensor) -> torch.Tensor:
+        """The entry of a `model`-sharded region (Megatron's "f"): x as it
+        is, and on the autograd path a backward that sums x's cotangent
+        over `model` (each rank's region adds only its share)."""
+        if self.tp == 1 or not _grad_path(x):
             return x
-        x = x.contiguous()
-        dist.all_reduce(x, group=self.model_group)
-        return x
+        return _EnterModel.apply(x, self)
 
     def pmax_model(self, x: torch.Tensor) -> torch.Tensor:
         """Elementwise max over the `model` axis, in place when x is
         contiguous: OmniAttn's top-k block scores, each rank's max over its
         own heads, become the max over every head (the reference's
-        `ub.max(axis=(2, 3))` over all of them)."""
+        `ub.max(axis=(2, 3))` over all of them). No backward."""
         if self.tp == 1:
             return x
         if self.backend == "dry":
@@ -167,34 +225,105 @@ class RankCtx:
 
     def all_gather_model(self, x: torch.Tensor, dim: int = -1
                          ) -> torch.Tensor:
-        """The tp parts of a `model`-sharded dim, concatenated in t order."""
+        """The tp parts of a `model`-sharded dim, concatenated in t order.
+        Backward: this rank's slice."""
         if self.tp == 1:
             return x
-        if self.backend == "dry":
-            _dry("all_gather_model", x)
-            return torch.cat([x] * self.tp, dim=dim)
-        return _all_gather(x, dim, self.tp, self.model_group)
+        if _grad_path(x):
+            return _AllGather.apply(x, self, "model", dim)
+        return self._gather("model", x, dim)
 
     def all_to_all_data(self, x: torch.Tensor) -> torch.Tensor:
         """`jax.lax.all_to_all(x, "data", 0, 0, tiled=True)`: dim 0 of x
         [ep·n, ...] splits into ep tiles, tile j goes to data rank j, and the
-        tile from rank i lands at i."""
+        tile from rank i lands at i. Backward: the same all_to_all."""
         if self.ep == 1:
             return x
-        if self.backend == "dry":
-            _dry("all_to_all_data", x)
-            return torch.empty_like(x)
-        x = x.contiguous()
-        out = torch.empty_like(x)
-        dist.all_to_all_single(out, x, group=self.data_group)
-        return out
+        if _grad_path(x):
+            return _AllToAll.apply(x, self, None, None)
+        return self._all_to_all(x)
 
     def all_to_all_rows(self, x: torch.Tensor, send: list, recv: list
                         ) -> torch.Tensor:
         """An uneven all_to_all over `data`: send[j] rows of x (in j order)
-        go to data rank j, recv[i] rows arrive from rank i (in i order)."""
+        go to data rank j, recv[i] rows arrive from rank i (in i order).
+        Backward: the all_to_all with send and recv swapped."""
         if self.ep == 1:
             return x
+        if _grad_path(x):
+            return _AllToAll.apply(x, self, list(send), list(recv))
+        return self._all_to_all(x, send, recv)
+
+    def all_gather_data(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """The ep parts of a `data`-sharded dim, in e order. Backward:
+        this rank's rows."""
+        if self.ep == 1:
+            return x
+        if _grad_path(x):
+            return _AllGather.apply(x, self, "data", dim)
+        return self._gather("data", x, dim)
+
+    def psum_batch(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum over the axis tokens are sharded on (`data`): the expert
+        counts of a batch split over EP ranks, the loss's global sums.
+        Backward: the identity (the sum is replicated over `data`)."""
+        if self.ep == 1:
+            return x
+        if _grad_path(x):
+            return _Psum.apply(x, self, "data")
+        return self._psum("data", x)
+
+    def pmax_batch(self, x: torch.Tensor) -> torch.Tensor:
+        """Elementwise max over `data`, in place when x is contiguous (a
+        slot leaf's int8 gradient scale). No backward."""
+        if self.ep == 1:
+            return x
+        if self.backend == "dry":
+            _dry("pmax_batch", x)
+            return x
+        x = x.contiguous()
+        dist.all_reduce(x, op=dist.ReduceOp.MAX, group=self.data_group)
+        return x
+
+    def share_over_data(self, loss: torch.Tensor) -> torch.Tensor:
+        """A loss that every `data` rank computes whole, from the same
+        replicated rows: the loss as it is, and a backward that gives each
+        rank 1 / ep of the cotangent, so that the trainer's sum over
+        `data` counts the gradient once (an expert slot, which every rank
+        dispatches its copy of the rows to, sums the ep shares itself)."""
+        if self.ep == 1 or not _grad_path(loss):
+            return loss
+        return _ShareOverData.apply(loss, self.ep)
+
+    # ---- the bare calls -------------------------------------------------
+    def _group(self, axis: str):
+        return self.model_group if axis == "model" else self.data_group
+
+    def _psum(self, axis: str, x: torch.Tensor) -> torch.Tensor:
+        if self.backend == "dry":
+            _dry("psum_model" if axis == "model" else "psum_batch", x)
+            return x
+        x = x.contiguous()
+        dist.all_reduce(x, group=self._group(axis))
+        return x
+
+    def _gather(self, axis: str, x: torch.Tensor, dim: int) -> torch.Tensor:
+        n = self.size(axis)
+        if self.backend == "dry":
+            _dry(f"all_gather_{axis}", x)
+            return torch.cat([x] * n, dim=dim)
+        return _all_gather(x, dim, n, self._group(axis))
+
+    def _all_to_all(self, x: torch.Tensor, send: Optional[list] = None,
+                    recv: Optional[list] = None) -> torch.Tensor:
+        if send is None:
+            if self.backend == "dry":
+                _dry("all_to_all_data", x)
+                return torch.empty_like(x)
+            x = x.contiguous()
+            out = torch.empty_like(x)
+            dist.all_to_all_single(out, x, group=self.data_group)
+            return out
         out = x.new_empty((sum(recv),) + tuple(x.shape[1:]))
         if self.backend == "dry":
             _dry("all_to_all_rows", x)
@@ -202,26 +331,6 @@ class RankCtx:
         dist.all_to_all_single(out, x.contiguous(), output_split_sizes=recv,
                                input_split_sizes=send, group=self.data_group)
         return out
-
-    def all_gather_data(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
-        if self.ep == 1:
-            return x
-        if self.backend == "dry":
-            _dry("all_gather_data", x)
-            return torch.cat([x] * self.ep, dim=dim)
-        return _all_gather(x, dim, self.ep, self.data_group)
-
-    def psum_batch(self, x: torch.Tensor) -> torch.Tensor:
-        """Sum over the axis tokens are sharded on (`data`): the expert
-        counts of a batch split over EP ranks."""
-        if self.ep == 1:
-            return x
-        if self.backend == "dry":
-            _dry("psum_batch", x)
-            return x
-        x = x.contiguous()
-        dist.all_reduce(x, group=self.data_group)
-        return x
 
     def pmax_world(self, x: torch.Tensor) -> torch.Tensor:
         """Elementwise max over every rank of the world (the identity on
@@ -266,3 +375,61 @@ def _all_gather(x: torch.Tensor, dim: int, n: int, group) -> torch.Tensor:
     parts = [torch.empty_like(x) for _ in range(n)]
     dist.all_gather(parts, x, group=group)
     return torch.cat(parts, dim=dim)
+
+
+# ---- the autograd Functions (module docstring: the convention) ----------
+# Inside forward and backward grad mode is off, so the RankCtx methods they
+# call take the bare paths; each forward reduces a copy, never its input.
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(fc, x, rctx, axis):
+        return rctx._psum(axis, x.clone(memory_format=torch.contiguous_format))
+
+    @staticmethod
+    def backward(fc, g):
+        return g, None, None
+
+
+class _EnterModel(torch.autograd.Function):
+    @staticmethod
+    def forward(fc, x, rctx):
+        fc.rctx = rctx
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(fc, g):
+        return fc.rctx._psum("model", g.clone(
+            memory_format=torch.contiguous_format)), None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(fc, x, rctx, axis, dim):
+        fc.coord, fc.n, fc.dim = rctx.coord(axis), x.shape[dim], dim
+        return rctx._gather(axis, x, dim)
+
+    @staticmethod
+    def backward(fc, g):
+        return g.narrow(fc.dim, fc.coord * fc.n, fc.n), None, None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(fc, x, rctx, send, recv):
+        fc.rctx, fc.send, fc.recv = rctx, send, recv
+        return rctx._all_to_all(x, send, recv)
+
+    @staticmethod
+    def backward(fc, g):
+        return fc.rctx._all_to_all(g, fc.recv, fc.send), None, None, None
+
+
+class _ShareOverData(torch.autograd.Function):
+    @staticmethod
+    def forward(fc, loss, ep):
+        fc.ep = ep
+        return loss.view_as(loss)
+
+    @staticmethod
+    def backward(fc, g):
+        return g / fc.ep, None

@@ -18,9 +18,12 @@ roofline's memory term; `fits`, whether the arguments and the peak-live
 bytes fit the card's memory; `card`, the card whose datasheet peaks price
 it. Every figure is a prediction from those peaks, not a measurement.
 
-A train cell over several ranks is skipped: training over ranks is
-ROADMAP A16b item 4 (`LM.train_loss` refuses it). An encoder-only
-architecture has no decode step, as in the reference."""
+A train cell over several ranks traces one rank's step on its rows of the
+global batch (`LM.batch_rows`), its backward's collectives and the
+trainer's gradient reductions included. The reference's FSDP axis is not
+ported (ROADMAP A16b item 5): a config that sets `fsdp` keeps those dims
+whole on every `data` rank, and its record says so (`"fsdp"`). An
+encoder-only architecture has no decode step, as in the reference."""
 from __future__ import annotations
 
 import argparse
@@ -43,7 +46,7 @@ from repro_torch.models.lm import LM
 from repro_torch.training.optim import adamw_init
 from repro_torch.training.trainer import make_train_step
 
-TRAIN_OVER_RANKS = "training over ranks: ROADMAP A16b item 4"
+FSDP_NOT_PORTED = "not ported (ROADMAP A16b item 5)"
 
 
 def _shape(shape) -> ShapeConfig:
@@ -103,6 +106,8 @@ def build_cell(arch: str, shape, ctx, overrides: dict | None = None,
             "seq_len": shape.seq_len, "global_batch": shape.global_batch,
             "compute_dtype": cfg.compute_dtype,
             "ref_batch_part": ref_batch_part(ctx, shape.global_batch)}
+    if cfg.fsdp:
+        meta["fsdp"] = FSDP_NOT_PORTED
     return fn, args, lm, meta
 
 
@@ -163,8 +168,6 @@ def dry_cell(arch: str, shape, layout: tuple = (1, 1),
            "layout": {"ep": ep, "tp": tp, "rank": rank},
            "overrides": overrides or {}, "card": card_record()}
     ok, why = supports_shape(cfg or get_config(arch), shape)
-    if ok and shape.kind == "train" and ep * tp > 1:
-        ok, why = False, TRAIN_OVER_RANKS
     if not ok:
         rec.update(status="skipped", reason=why)
         return rec

@@ -6,11 +6,13 @@ storage, so a full-width step traces without memory.
 Over several ranks the tensors are one rank's: the parameters cut by
 `LM.param_cuts` (attention by whole heads, the FFN, expert widths and
 vocabulary over `model`, expert slots over `data`) and the caches at the
-rank's KV heads (`stack.head_layout`). The batch is whole on every rank,
-as the port lays it out: its Server holds every slot on every rank, and
-an MoE layer splits its rows over `data` itself (`stack.ffn_sublayer`).
-The reference's `batch_part` would split the batch over `data` instead;
-`ref_batch_part` says where."""
+rank's KV heads (`stack.head_layout`). A prefill or decode batch is whole
+on every rank, as the port serves it: its Server holds every slot on
+every rank, and an MoE layer splits its rows over `data` itself
+(`stack.ffn_sublayer`). A train batch is the global one too, and the
+train step runs on the rank's rows of it (`LM.batch_rows`, the
+reference's `batch_part`: `ref_batch_part` says where it splits), so a
+train cell prices a rank that holds its share."""
 from __future__ import annotations
 
 import torch
@@ -39,18 +41,9 @@ def ref_batch_part(ctx: RankCtx, B: int):
 
 
 def param_specs(lm: LM) -> dict:
-    """The rank's parameter tree as meta tensors: each leaf of
-    `LM.param_defs` at its `LM.param_cuts` length on every cut dim (at
-    one rank, `LM.shapes()`)."""
-    defs, cuts = lm.param_defs(), lm.param_cuts()
-
-    def one(d, c):
-        shape = tuple(n if cc is None else cc[1] for n, cc in zip(d[0], c))
-        return meta(shape, d[2])
-    out = {k: one(v, cuts[k]) for k, v in defs.items() if k != "layers"}
-    out["layers"] = [{k: one(v, cl[k]) for k, v in dl.items()}
-                     for dl, cl in zip(defs["layers"], cuts["layers"])]
-    return out
+    """The rank's parameter tree as meta tensors: `LM.shapes()`, each leaf
+    of `LM.param_defs` at its `LM.param_cuts` length on every cut dim."""
+    return lm.shapes()
 
 
 def batch_specs(cfg: ModelConfig, shape: ShapeConfig, ctx: RankCtx) -> dict:

@@ -20,9 +20,13 @@ def rms_norm_over_model(x: torch.Tensor, scale: torch.Tensor, eps: float,
     """`rms_norm` over a last dim that `ctx`'s `model` axis splits: x and
     scale hold this rank's columns, the sum of squares is summed over
     `model` and divided by the whole `width` (a rank-local RMS would
-    normalise each rank's columns alone)."""
+    normalise each rank's columns alone). The sum feeds every rank's own
+    columns, so in training its cotangent is summed over `model` too
+    (`enter_model` before the psum; an identity backward would give each
+    rank's columns only their own share of it)."""
     x32 = x.float()
-    ss = ctx.psum_model(x32.square().sum(dim=-1, keepdim=True))
+    ss = ctx.psum_model(ctx.enter_model(
+        x32.square().sum(dim=-1, keepdim=True)))
     out = x32 * torch.rsqrt(ss / width + eps)
     return (out * scale.float()).to(x.dtype)
 
@@ -58,15 +62,26 @@ def apply_rope(x: torch.Tensor, positions, theta: float) -> torch.Tensor:
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  mask=None) -> torch.Tensor:
+                  mask=None, ctx=None) -> torch.Tensor:
     """Mean token cross-entropy through a float32 logsumexp. logits
     [..., V]; labels [...] int; mask [...] (optional) weights the tokens,
-    over a denominator of max(sum(mask), 1)."""
+    over a denominator of max(sum(mask), 1). With `ctx` (ep > 1; the rows
+    are this rank's share of a batch split over `data`) the mean is the
+    global one, the reference's over the whole batch: (Σ nll·mask, Σ mask)
+    summed over `data`, then divided once (unmasked: by the global token
+    count). A mean of the ranks' means would weigh each rank alike
+    whatever its mask holds."""
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     nll = lse - ll
+    over_data = ctx is not None and ctx.ep > 1
     if mask is None:
+        if over_data:
+            return ctx.psum_batch(nll.sum()) / (nll.numel() * ctx.ep)
         return nll.mean()
     mask = mask.float()
+    if over_data:
+        sums = ctx.psum_batch(torch.stack([(nll * mask).sum(), mask.sum()]))
+        return sums[0] / torch.clamp(sums[1], min=1.0)
     return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)

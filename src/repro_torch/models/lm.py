@@ -21,7 +21,11 @@ and their channels (`stack.mamba_layout`). The embedding is a masked
 local lookup summed over `model`; the logits are gathered over `model`,
 so sampling sees the full [n, V] row on every rank.
 `DevicePlacement.transfer_params` carries one-rank parameters into that
-layout."""
+layout. Training over ranks (`train_loss`) splits the batch over `data`
+(`batch_rows`, the reference's batch_part) and runs the stack on the
+rank's rows through differentiable collectives (distributed/ctx.py's
+convention); `grad_sync` says, per leaf, how the trainer completes each
+rank's share of its gradient."""
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
@@ -69,6 +73,27 @@ LAYER_SPECS = {
 TOP_SPECS = {"embed": ("model", None), "head": (None, "model"),
              "final_norm": (None,), "frontend": (None, None)}
 SLOT_LEAVES = ("moe_w1", "moe_w3", "moe_w2")
+# leaves a sharded region reads whole (or, under 'wseq', a KV head several
+# ranks read): in training each rank's gradient of them is its share
+REGION_SHARED = {"attn": ("wk", "wv", "bk", "bv", "q_norm", "k_norm"),
+                 "mamba": ("w_bc", "conv_bc"), "moe": ("router",)}
+
+
+@dataclass(frozen=True)
+class LeafSync:
+    """How a training rank completes its share of one leaf's gradient
+    (`LM.grad_sync`): `over_data` — the leaf is replicated over `data`
+    (every leaf but the expert slots), so its gradient is summed over
+    `data`; `groups` > 0 — a sharded region reads the leaf, and the
+    `model` ranks that hold the same part of it fall into `groups` groups
+    (1: every rank holds it whole), this rank in group `group`: its
+    gradient is summed within its group; `owner` — this rank counts the
+    leaf in the global gradient norm (the first rank of those holding the
+    same part)."""
+    over_data: bool
+    groups: int
+    group: int
+    owner: bool
 
 
 @dataclass(frozen=True)
@@ -249,19 +274,82 @@ class LM:
         return params
 
     def shapes(self) -> dict:
-        """The parameter tree as "meta" tensors — shapes and dtypes, no
-        storage: a checkpoint restore's template. One rank only: a restore
-        into a rank's shards is ROADMAP A16b."""
-        if self.ctx.world > 1:
-            raise NotImplementedError(
-                f"a sharded checkpoint restore over {self.ctx.world} ranks "
-                f"(ROADMAP A16b)")
-        defs = self.param_defs()
-        make = lambda shape, _init, dtype: torch.empty(
-            shape, dtype=torch_dtype(dtype), device="meta")
-        out = {k: make(*v) for k, v in defs.items() if k != "layers"}
-        out["layers"] = [{k: make(*v) for k, v in layer.items()}
-                         for layer in defs["layers"]]
+        """This rank's parameter tree as "meta" tensors — shapes and
+        dtypes, no storage: each leaf of `param_defs` at its `param_cuts`
+        length on every cut dim (on one rank the whole model). A
+        checkpoint restore's template (`load_checkpoint` cuts the stored
+        whole leaves to it) and the dry run's parameters."""
+        defs, cuts = self.param_defs(), self.param_cuts()
+
+        def make(d, c):
+            shape = tuple(n if cc is None else cc[1]
+                          for n, cc in zip(d[0], c))
+            return torch.empty(shape, dtype=torch_dtype(d[2]),
+                               device="meta")
+        out = {k: make(v, cuts[k]) for k, v in defs.items()
+               if k != "layers"}
+        out["layers"] = [{k: make(v, cl[k]) for k, v in dl.items()}
+                         for dl, cl in zip(defs["layers"], cuts["layers"])]
+        return out
+
+    def rank_cuts(self, rank: int) -> dict:
+        """`param_cuts` of rank `rank` of this LM's layout (sizes only: no
+        process group is touched)."""
+        return replace(self, ctx=RankCtx.dry(self.ctx.tp, self.ctx.ep,
+                                             rank)).param_cuts()
+
+    def batch_rows(self, B: int) -> Optional[slice]:
+        """This rank's rows of a batch of B (the reference's
+        `MeshCtx.batch_part`): its 1 / ep slice over `data` where B
+        divides over ep > 1, else None — the whole batch on every rank,
+        as the reference replicates it."""
+        ep = self.ctx.ep
+        if ep == 1 or B % ep:
+            return None
+        n = B // ep
+        return slice(self.ctx.e * n, (self.ctx.e + 1) * n)
+
+    @cached_property
+    def grad_sync(self) -> dict:
+        """{leaf: LeafSync} in the tree of `param_defs`: how this rank
+        completes its share of each leaf's gradient in training. A leaf
+        is summed over `data` unless it is an expert slot (whose rows
+        arrive from every data rank through the dispatch); over `model`
+        where a sharded region reads it whole or shares it — q_norm and
+        k_norm, a 'wseq' KV head's wk / wv / bk / bv (summed over exactly
+        the ranks that read it), Mamba-2's w_bc and conv_bc, the router
+        of experts split over `model`."""
+        ctx = self.ctx
+        mine = self.param_cuts()
+        peers = [mine if t == ctx.t else self.rank_cuts(ctx.e * ctx.tp + t)
+                 for t in range(ctx.tp)]
+        attn_sh = not stack_mod.head_layout(self.cfg, ctx.tp).replicated
+        mamba_sh = not stack_mod.mamba_layout(self.cfg, ctx.tp).replicated
+
+        def one(name, get, region_sharded):
+            parts = [get(p) for p in peers]
+            distinct = list(dict.fromkeys(parts))
+            group = distinct.index(get(mine))
+            shared = ctx.tp > 1 and region_sharded and \
+                parts.count(get(mine)) > 1
+            over_data = ctx.ep > 1 and name not in SLOT_LEAVES
+            owner = parts.index(get(mine)) == ctx.t and \
+                (not over_data or ctx.e == 0)
+            return LeafSync(over_data, len(distinct) if shared else 0,
+                            group, owner)
+
+        out = {k: one(k, lambda c, k=k: c[k], False)
+               for k in mine if k != "layers"}
+        layers = []
+        for i, layer in enumerate(mine["layers"]):
+            routed_sh = "moe_w1" in layer and layer["moe_w1"][-1] is not None
+            sh = {**{n: attn_sh for n in REGION_SHARED["attn"]},
+                  **{n: mamba_sh for n in REGION_SHARED["mamba"]},
+                  "router": routed_sh}
+            layers.append({k: one(k, lambda c, i=i, k=k: c["layers"][i][k],
+                                  sh.get(k, False))
+                           for k in layer})
+        out["layers"] = layers
         return out
 
     def default_tables(self) -> Optional[dict]:
@@ -311,12 +399,15 @@ class LM:
         x = rms_norm(x, params["final_norm"], cfg.rms_eps)
         cd = torch_dtype(cfg.compute_dtype)
         w = params["embed"].t() if cfg.tie_embeddings else params["head"]
-        out = x.to(cd) @ w
-        if w.shape[1] != cfg.vocab_size:
-            out = self.ctx.all_gather_model(out, dim=-1)
-        return out
+        if w.shape[1] == cfg.vocab_size:
+            return x.to(cd) @ w
+        # the vocabulary-sharded head: "f" at its entry (a no-op without
+        # grad), the rank's columns gathered over `model`
+        out = self.ctx.enter_model(x.to(cd)) @ w
+        return self.ctx.all_gather_model(out, dim=-1)
 
-    def train_loss(self, params, batch: dict, tables=None):
+    def train_loss(self, params, batch: dict, tables=None, *,
+                   local_rows: bool = False):
         """batch {"tokens" [B, S] | "frames" [B, S, frontend_dim] (audio) |
         "tokens" + "patches" [B, P, frontend_dim] (vlm), "labels" [B, S'][,
         "mask" [B, S']]} (S' the stack's rows: P + S for a vlm) → (mean
@@ -325,19 +416,37 @@ class LM:
         "train")` — plain differentiable attention (bidirectional where
         cfg.causal is False) and expert products, no kernel, each layer an
         activation checkpoint under cfg.remat. MoE layers route through
-        `tables` (default_tables()). One rank only: training over several
-        ranks is ROADMAP A16b."""
-        if self.ctx.world > 1:
-            raise NotImplementedError(
-                f"training over {self.ctx.world} ranks (ROADMAP A16b)")
+        `tables` (default_tables()).
+
+        Over ranks the batch is the global one, cut here to this rank's
+        rows (`batch_rows`), or with `local_rows` this rank's rows of a
+        batch split over `data` already. The loss is the global mean on
+        every rank (`cross_entropy` sums over `data`) and the expert
+        counts are summed over `data`. A batch that does not divide over
+        ep runs whole on every rank (the loss's gradient shared 1 / ep a
+        rank: `RankCtx.share_over_data`). Each parameter's gradient is
+        then this rank's share; `grad_sync` says how to complete it
+        (training/trainer.py does)."""
+        ctx = self.ctx
+        split = local_rows and ctx.ep > 1
+        if not local_rows and ctx.ep > 1:
+            rows = self.batch_rows(batch["labels"].shape[0])
+            if rows is not None:
+                batch = {k: v[rows] for k, v in batch.items()}
+                split = True
         x = self._embed_inputs(params, batch)
         positions = torch.arange(x.shape[1], device=x.device)
         x, _, _, counts = stack_mod.stack_apply(
             self.cfg, self.plan, params["layers"], x, mode="train",
             positions=positions, caches=None, block_tables=None,
-            tables=tables, ctx=self.ctx)
+            tables=tables, ctx=ctx)
         loss = cross_entropy(self._logits(params, x), batch["labels"],
-                             batch.get("mask"))
+                             batch.get("mask"), ctx=ctx if split else None)
+        if split:
+            if counts:
+                counts = list(ctx.psum_batch(torch.stack(counts)).unbind(0))
+        elif ctx.ep > 1:
+            loss = ctx.share_over_data(loss)
         return loss, {"moe_counts": counts}
 
     @torch.no_grad()

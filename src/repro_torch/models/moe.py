@@ -166,12 +166,30 @@ def _a2a(ctx: RankCtx, cfg: ModelConfig, x):
     reference's transport, src/repro/models/moe.py:174-184)."""
     if not cfg.moe_dispatch_int8:
         return ctx.all_to_all_data(x)
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Int8Transport.apply(x, ctx, cfg)
     scale = torch.clamp(x.abs().amax(dim=-1, keepdim=True) / 127.0,
                         min=1e-9)
     q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
     q = ctx.all_to_all_data(q)
     scale = ctx.all_to_all_data(scale.float())
     return q.to(x.dtype) * scale.to(x.dtype)
+
+
+class _Int8Transport(torch.autograd.Function):
+    """The int8 transport on the autograd path: the forward quantizes,
+    exchanges and dequantizes as `_a2a` does; the backward carries the
+    float cotangent through the same tiled all_to_all (straight through
+    the rounding)."""
+
+    @staticmethod
+    def forward(fc, x, ctx, cfg):
+        fc.ctx = ctx
+        return _a2a(ctx, cfg, x)
+
+    @staticmethod
+    def backward(fc, g):
+        return fc.ctx.all_to_all_data(g.contiguous()), None, None
 
 
 def moe_ffn(cfg: ModelConfig, x, router_w, w1, w3, w2, tables: dict,
@@ -201,8 +219,13 @@ def moe_ffn(cfg: ModelConfig, x, router_w, w1, w3, w2, tables: dict,
     counts are summed over `data` and y is gathered back to [T, D].
     Assignments past a bucket's capacity are dropped (they add 0; the kept
     gates are not renormalised; `drop_tally` counts them). With `train`
-    the products are `torch.bmm` (the kernel has no backward); one rank
-    only."""
+    the products are `torch.bmm` (the kernel has no backward) and the
+    exchanges are differentiable: the rank routes its own rows (never
+    `shard_tokens`), an expert slot's gradient stays on the rank that
+    holds it, and where a width is sharded over `model` that branch's
+    input enters it through `ctx.enter_model` (the router reads the
+    routed branch's, so its gradient is each rank's share: the trainer
+    sums it, `LM.grad_sync`)."""
     ctx = ctx if ctx is not None else RankCtx.local()
     if w1.shape[0] != 1:
         raise ValueError(
@@ -219,6 +242,15 @@ def moe_ffn(cfg: ModelConfig, x, router_w, w1, w3, w2, tables: dict,
         if token_mask is not None:
             token_mask = token_mask[ctx.e * T_loc:(ctx.e + 1) * T_loc]
     T, D = x.shape
+    # the sharded branches' input ("f": a no-op without grad); the routed
+    # branch (router, dispatch) and the shared experts each take it where
+    # their width is split over `model`
+    full_sh = cfg.moe.n_shared_experts * cfg.moe.d_ff_expert
+    routed_split = w1.shape[-1] != cfg.moe.d_ff_expert
+    shared_split = shared is not None and shared[0].shape[1] != full_sh
+    xf = ctx.enter_model(x) if routed_split or shared_split else x
+    x_shared = xf if shared_split else x
+    x = xf if routed_split else x
     gates, eidx, _ = router(cfg, x, router_w)                 # [T, k]
     cw = (token_mask.float().repeat_interleave(k)
           if token_mask is not None else
@@ -305,11 +337,9 @@ def moe_ffn(cfg: ModelConfig, x, router_w, w1, w3, w2, tables: dict,
     # partial sums over `model` where a width is sharded (the routed
     # experts', the shared experts'): one psum for both
     split, whole = [], []
-    (split if w1.shape[-1] != cfg.moe.d_ff_expert else whole).append(y)
+    (split if routed_split else whole).append(y)
     if shared is not None:
-        full = cfg.moe.n_shared_experts * cfg.moe.d_ff_expert
-        (split if shared[0].shape[1] != full else whole).append(
-            swiglu(x, *shared))
+        (split if shared_split else whole).append(swiglu(x_shared, *shared))
     y = ctx.psum_model(sum(split[1:], split[0])) if split else None
     for part in whole:
         y = part if y is None else y + part

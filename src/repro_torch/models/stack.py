@@ -394,7 +394,13 @@ def attn_sublayer(cfg: ModelConfig, spec: LayerSpec, p: dict, x, *,
       entry is the window's rope'd K/V, staged for `stack_verify_commit`.
     mode "train": whole sequences [B, S] at positions arange(S), no cache,
       through the plain differentiable `chunked_attention` (never a
-      kernel: none has a backward); no entry.
+      kernel: none has a backward); no entry. Over ranks B is this rank's
+      rows and the heads its `head_layout`; the normed input enters the
+      sharded heads through `ctx.enter_model`, so its gradient is summed
+      over `model`. The gradients of what the ranks hold alike inside the
+      sublayer (q_norm, k_norm; under 'wseq' the KV head wk / wv / bk /
+      bv several ranks read) are each rank's share: the trainer sums
+      them over the ranks that hold them (`LM.grad_sync`).
     mode "encode": the same whole sequences through the flash-prefill
       kernel (causal or bidirectional as cfg.causal says), no cache and no
       entry — an encoder's forward (`LM.prefill` of an encoder-only
@@ -404,7 +410,11 @@ def attn_sublayer(cfg: ModelConfig, spec: LayerSpec, p: dict, x, *,
     h = cfg.head_dim
     H, K = p["wq"].shape[1] // h, p["wk"].shape[1] // h      # local heads
     cd = torch_dtype(cfg.compute_dtype)
+    sharded = ctx is not None and ctx.tp > 1 and \
+        not head_layout(cfg, ctx.tp).replicated
     hid = rms_norm(x, p["ln_attn"], cfg.rms_eps).to(cd)
+    if sharded:
+        hid = ctx.enter_model(hid)          # "f": a no-op without grad
     q = hid @ p["wq"]
     k = hid @ p["wk"]
     v = hid @ p["wv"]
@@ -552,7 +562,7 @@ def attn_sublayer(cfg: ModelConfig, spec: LayerSpec, p: dict, x, *,
     else:
         raise NotImplementedError(f"attention mode {mode!r} is not ported")
     y = out.reshape(B, S, H * h) @ p["wo"]
-    if ctx is not None and not head_layout(cfg, ctx.tp).replicated:
+    if sharded:
         y = ctx.psum_model(y)
     return x + y.to(x.dtype), new_cache, sp_aux
 
@@ -641,7 +651,11 @@ def mamba_sublayer(cfg: ModelConfig, p: dict, x, *, mode: str,
     whole), the scans run on them unchanged, `ssm_norm` — one RMSNorm over
     the whole d_in — sums its squares over `model`, and `out_proj`'s
     partial product is summed over `model`. A replicated mixer sums
-    nothing.
+    nothing. In training the normed input enters the sharded mixer
+    through `ctx.enter_model` (its gradient summed over `model`) and
+    w_bc / conv_bc, whole on every rank but feeding the rank's SSD heads,
+    get each rank's share of their gradients (the trainer sums them:
+    `LM.grad_sync`).
 
     mode "prefill", "train" or "encode", cache None: whole sequences from a
       zero state (a B=1 prompt, or a training batch); the new entry is
@@ -668,6 +682,8 @@ def mamba_sublayer(cfg: ModelConfig, p: dict, x, *, mode: str,
     N, cw = ssm.d_state, ssm.conv_width
     cd = torch_dtype(cfg.compute_dtype)
     hid = rms_norm(x, p["ln_attn"], cfg.rms_eps).to(cd)
+    if sharded:
+        hid = ctx.enter_model(hid)          # "f": a no-op without grad
     z = hid @ p["w_z"]
     xin = hid @ p["w_x"]
     bc = hid @ p["w_bc"]
@@ -734,14 +750,19 @@ def ffn_sublayer(cfg: ModelConfig, spec: LayerSpec, p: dict, x, *,
     tokens. Over `ctx`: w1/w3 hold this rank's columns and w2 its rows
     where d_ff divides over `model` (then the product is summed over
     `model`); the MoE layer splits its batch rows over `data` where B
-    divides over ep (the reference's batch_part)."""
+    divides over ep (the reference's batch_part). With `train` the rows
+    are this rank's already (`LM.train_loss` cut them) and are routed as
+    they are."""
     if not spec.use_moe and cfg.d_ff == 0:
         return x, None
     cd = torch_dtype(cfg.compute_dtype)
     hid = rms_norm(x, p["ln_mlp"], cfg.rms_eps).to(cd)
     if not spec.use_moe:
+        split = ctx is not None and p["w1"].shape[1] != cfg.d_ff
+        if split:
+            hid = ctx.enter_model(hid)      # "f": a no-op without grad
         y = swiglu(hid, p["w1"], p["w3"], p["w2"])
-        if ctx is not None and p["w1"].shape[1] != cfg.d_ff:
+        if split:
             y = ctx.psum_model(y)
         return x + y.to(x.dtype), None
     B, S, D = x.shape
@@ -752,8 +773,9 @@ def ffn_sublayer(cfg: ModelConfig, spec: LayerSpec, p: dict, x, *,
     y, counts = moe_mod.moe_ffn(cfg, hid.reshape(B * S, D), p["router"],
                                 p["moe_w1"], p["moe_w3"], p["moe_w2"],
                                 tables, shared, token_mask=tm, train=train,
-                                ctx=ctx, shard_tokens=ctx is not None
-                                and ctx.ep > 1 and B % ctx.ep == 0)
+                                ctx=ctx, shard_tokens=not train
+                                and ctx is not None and ctx.ep > 1
+                                and B % ctx.ep == 0)
     return x + y.reshape(B, S, D).to(x.dtype), counts
 
 
@@ -814,7 +836,13 @@ def stack_apply(cfg: ModelConfig, plan: StackPlan, layers: list, x, *,
     cfg.remat each layer is an activation checkpoint
     (`torch.utils.checkpoint`, non-reentrant): remat_policy "nothing"
     keeps only the layer's input and recomputes the rest in the backward,
-    "dots" also keeps the matrix products' outputs."""
+    "dots" also keeps the matrix products' outputs. Over ranks the
+    recomputation re-runs the layer's forward collectives (psums,
+    all_to_alls) inside the backward, between the backward's own: every
+    rank walks the same layers in the same order, so every group meets
+    them in the same order. "dots" saves no collective's output (they are
+    not matrix products), so none is saved and skipped on one rank while
+    re-issued on another."""
     entries = [] if caches is None or mode == "verify" else None
     sparsity, counts = [], []
     remat = mode == "train" and cfg.remat

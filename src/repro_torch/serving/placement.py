@@ -93,6 +93,36 @@ def shard_leaf(t: torch.Tensor, cut: tuple) -> torch.Tensor:
     return t.contiguous()
 
 
+def _slot_table(lm) -> tuple:
+    """(rep_rank, rep_slot of each expert's first replica [E], slot_expert
+    [R, s]) of `lm`'s round-robin placement over its ctx.ep, on the CPU."""
+    from repro_torch.models import moe as moe_mod
+    cfg, ep = lm.cfg, lm.ctx.ep
+    s = moe_mod.default_slot_count(cfg, ep)
+    t = moe_mod.tables_from_placement(
+        moe_mod.round_robin_placement(cfg.moe.n_experts, ep, s), s, "cpu")
+    return (t["rep_rank"][:, 0].long(), t["rep_slot"][:, 0].long(),
+            t["slot_expert"].long())
+
+
+def _slot_rows(src: tuple, dst: tuple, e: int, v: torch.Tensor
+               ) -> torch.Tensor:
+    """Rank e's slots [s_dst, ...] of the destination layout from a whole
+    slot leaf v [R_src, s_src, ...] of the source layout (`_slot_table`
+    of each): each slot takes its expert's rows through the source's first
+    replica; an empty slot is zeros."""
+    rr, rs, _ = src
+    se = dst[2][e]
+    x = se.clamp(min=0)
+    rows = v[rr[x].to(v.device), rs[x].to(v.device)]
+    return rows * (se >= 0).to(v.device, v.dtype).view(
+        -1, *([1] * (v.ndim - 2)))
+
+
+def _is_opt(tree) -> bool:
+    return isinstance(tree, dict) and set(tree) == {"m", "v", "step"}
+
+
 def _signature(static_inputs: tuple) -> tuple:
     return tuple((x.data_ptr(), tuple(x.shape), x.dtype)
                  if isinstance(x, torch.Tensor) else x
@@ -294,12 +324,19 @@ class DevicePlacement:
         tree is either one-rank parameters (`lm.one_rank()`'s shapes:
         `LM.init`, a bridged tree, a checkpoint restore), carried into this
         rank's part by `transfer_params`, or this rank's part already (what
-        `transfer_params` returns); any other tree raises."""
+        `transfer_params` returns); any other tree raises. An AdamW state
+        ({"m", "v", "step"}) is carried the same way: its moments by the
+        parameters' cuts (the reference's `opt_specs`), its step
+        replicated."""
         if self.ctx.world == 1:
             return _to(params, self.device)
         if lm is None:
             raise ValueError("place_params over several ranks needs the LM "
                              "(its param_cuts)")
+        if _is_opt(params):
+            return {"m": self.place_params(params["m"], lm),
+                    "v": self.place_params(params["v"], lm),
+                    "step": params["step"].to(self.device)}
         got = {k: tuple(v.shape) for k, v in _flat(params).items()}
         one = lm.one_rank()
         whole, local = _shapes(one), _shapes(lm, local=True)
@@ -339,28 +376,46 @@ class DevicePlacement:
         cut = lambda t, c: shard_leaf(t, c).to(dev)
         out = {k: cut(v, specs[k]) for k, v in params.items()
                if k != "layers"}
-        slots = None
         if lm_dst.cfg.moe.n_experts:
-            src_t = lm_src.default_tables()
-            rr = src_t["rep_rank"][:, 0].long().cpu()
-            rs = src_t["rep_slot"][:, 0].long().cpu()
-            se = lm_dst.default_tables()["slot_expert"][ctx.e].long().cpu()
-            slots = (rr, rs, se)
+            src, dst = _slot_table(lm_src), _slot_table(lm_dst)
         layers = []
         for p, sp in zip(params["layers"], specs["layers"]):
             q = {}
             for k, v in p.items():
                 if k in SLOT_LEAVES:
-                    rr, rs, se = slots
-                    x = se.clamp(min=0)
-                    rows = v[rr[x].to(v.device), rs[x].to(v.device)]
-                    rows = rows * (se >= 0).to(v.device, v.dtype).view(
-                        -1, *([1] * (v.ndim - 2)))
+                    rows = _slot_rows(src, dst, ctx.e, v)
                     q[k] = cut(rows[None], (None,) + sp[k][1:])
                 else:
                     q[k] = cut(v, sp[k])
             layers.append(q)
         out["layers"] = layers
+        return out
+
+    def rank_parts(self, lm, params) -> list:
+        """What this rank writes of a parameter-shaped tree in a sharded
+        save: [(leaf name as `tree_items` spells it, part, cut, the whole
+        one-rank shape)] for each leaf it owns (`LM.grad_sync`: of the
+        ranks holding the same part, the first), each cut (`param_cuts`'
+        form) in the one-rank tree's coordinates — an expert slot leaf's
+        live slots at their experts' one-rank slots (the round-robin
+        placement's, one run of consecutive experts a rank)."""
+        sync, cuts = _flat(lm.grad_sync), _flat(lm.param_cuts())
+        whole = _flat(lm.one_rank().param_defs())
+        if lm.cfg.moe.n_experts:
+            se = _slot_table(lm)[2][self.ctx.e]
+            live = int((se >= 0).sum())
+            first = int(se[0])
+            if not torch.equal(se[:live], torch.arange(first, first + live)):
+                raise ValueError(f"rank {self.ctx.rank}'s slots {se.tolist()}"
+                                 f" are not one run of experts")
+        out = []
+        for name, v in _flat(params).items():
+            if not sync[name].owner:
+                continue
+            cut = cuts[name]
+            if name.rsplit(".", 1)[-1] in SLOT_LEAVES:
+                v, cut = v[:, :live], (None, (first, live)) + cut[2:]
+            out.append((name.replace(".", "/"), v, cut, whole[name][0]))
         return out
 
     # ---- the hot-loop choke point --------------------------------------

@@ -19,8 +19,11 @@ JAX references on the same bridged inputs.
   `Server`'s, `KVPool.check_invariants` on every rank, and the lockstep
   digest checked every round; two of them hand the Server the one-rank
   parameters themselves;
-- every A16b refusal: training, optimizer state and a sharded restore
-  (what a rank cannot lay out is none: tests/test_torch_distributed_layouts.py
+- what ROADMAP A16b item 4 once refused, held on a fake (tp 2, ep 2)
+  rank: the restore template (`LM.shapes()`, the `param_cuts` lengths),
+  `init_state`'s rank-local moments and a meta train loss on the dry
+  backend (training itself runs in tests/test_torch_train_ranks.py;
+  what a rank cannot lay out is none: tests/test_torch_distributed_layouts.py
   builds and serves every layout; the planes are none either: QuantPlane,
   SpecPlane and FaultPlane build here over a fake rank and serve in
   tests/test_torch_distributed_planes.py and _faults.py).
@@ -414,18 +417,45 @@ def _refused(case):
     lm = TLM(moe, TLM.build(moe, pattern=[0, 0], device="cpu").plan, cpu,
              _fake())
     if case == "train":
-        batch = {"tokens": torch.zeros((1, 4), dtype=torch.long),
-                 "labels": torch.zeros((1, 4), dtype=torch.long)}
-        return lambda: lm.train_loss({}, batch)
+        dry = TLM(moe, lm.plan, torch.device("meta"), RankCtx.dry(2, 2, 0))
+        batch = {k: torch.empty((4, 8), dtype=torch.long, device="meta")
+                 for k in ("tokens", "labels")}
+        return lambda: dry.train_loss(dry.shapes(), batch,
+                                      tables=dry.default_tables())[0]
     if case == "opt_specs":
-        return lambda: init_state(lm)
-    return lambda: lm.shapes()       # a sharded checkpoint restore
+        return lambda: (lm, init_state(lm))
+    return lambda: lm       # a sharded checkpoint restore's template
 
 
 @pytest.mark.parametrize("case", ["train", "opt_specs", "restore"])
 def test_a16b_refusals(case):
-    with pytest.raises(NotImplementedError, match="A16b"):
-        _refused(case)()
+    """ROADMAP A16b item 4's refusals are gone: on a fake (tp 2, ep 2)
+    rank a train loss traces on the dry backend to a 0-d meta loss,
+    `init_state` gives the rank's parts with moments of their shapes (the
+    reference's `opt_specs`), and `LM.shapes()` gives the `param_cuts`
+    lengths."""
+    from repro_torch.serving.placement import _flat, _shapes
+    from repro_torch.tree import tree_leaves
+    got = _refused(case)()
+    if case == "train":
+        assert got.device.type == "meta" and got.shape == ()
+        return
+    if case == "opt_specs":
+        lm, st = got
+        local = _shapes(lm, local=True)
+        assert {k: tuple(v.shape) for k, v in _flat(st.params).items()} \
+            == local
+        for name in ("m", "v"):
+            assert {k: tuple(v.shape) for k, v in
+                    _flat(st.opt[name]).items()} == local
+        assert int(st.opt["step"]) == 0
+        assert all(float(m.abs().max()) == 0
+                   for m in tree_leaves(st.opt["m"]))
+        return
+    shapes = {k: tuple(v.shape) for k, v in _flat(got.shapes()).items()}
+    assert shapes == _shapes(got, local=True)
+    assert shapes != _shapes(got.one_rank())
+    assert all(v.device.type == "meta" for v in tree_leaves(got.shapes()))
 
 
 @pytest.mark.parametrize("case", ["quant", "spec", "both", "faults"])
