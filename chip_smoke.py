@@ -320,11 +320,22 @@ Phases (any failure raises, so the script exits non-zero):
      launcher's batch 8 x seq 128: every rank's loss and gradient norm
      within P15_CPU_TOL of the one rank's, the parameters saved over the
      ranks and restored on one rank within `p21_params_close`; (c) (a)'s
-     state restored on one rank and cut to each rank's part equal to that
-     rank's bit for bit; (d) rank 0's collective bytes and calls per kind
-     in one step equal to the dry run's train record
+     parameters restored on one rank and cut to each rank's part equal to
+     that rank's bit for bit; (d) rank 0's collective bytes and calls per
+     kind in one step equal to the dry run's train record
      (`CollectiveBytes` wraps torch.distributed's calls); (e) the
-     bf16-as-published step's time a rank, printed.
+     bf16-as-published step's time a rank, printed; (f) FSDP: full-width
+     qwen3-32b in float32 (P21_FSDP_LAYERS of 64 layers, fsdp and remat
+     as published, grad_accum 1) over the same ranks, each holding 1 / 2
+     of every leaf's d_model dim and its moments, gathered at each
+     layer's entry and reduce-scattered in the backward: two steps within
+     P15_CPU_TOL of the one rank's, the sharded save of the parameters
+     and the first moment restored on one rank and cut to each rank's
+     part bit for bit, rank
+     0's bytes and calls per kind (all-gather, reduce-scatter,
+     all-reduce) equal to the dry run's, the peak a rank against the dry
+     run's with and without FSDP, each rank's host peak resident memory,
+     its step ms.
 Every serving phase of 3, 5-9 and 11-14 serves under CUDA-graph capture, the
 default on `cuda`: the decode step, the verify step, the prefill chunk, the
 whole-prompt prefill and the first-token draw are hot-loop entries
@@ -4947,7 +4958,11 @@ P15_PUBLISHED = {
                         "moe.n_experts": 60, "moe.top_k": 4,
                         "moe.n_shared_experts": 4, "moe.d_ff_expert": 1408,
                         "grad_accum": 2, "param_dtype": "bfloat16",
-                        "optimizer_dtype": "float32"}}
+                        "optimizer_dtype": "float32"},
+    "qwen3-32b": dict(n_layers=64, d_model=5120, n_heads=64, n_kv_heads=8,
+                      head_dim=128, d_ff=25600, vocab_size=151936,
+                      tie_embeddings=False, qk_norm=True, fsdp=True,
+                      remat=True, remat_policy="nothing", grad_accum=8)}
 
 
 def train_config(arch):
@@ -5945,8 +5960,9 @@ def serve_eager(dev, log, cfg, served, spec, quant):
 
 # ---- phase 17: qwen2-moe-a2.7b over (tp 2, ep 2) ranks ------------------
 P17_TP, P17_EP = 2, 2
-P17_LAYERS = 4          # of 24: the one-rank model and the four shards
-                        # fit, and the script its time limit
+P17_LAYERS = 2          # of 24: the one-rank model and the four shards
+                        # fit, and the script its time limit (4 before
+                        # phase 21 (f) was added)
 P17_DTYPE = "float32"
 P17_NEW = 16
 P17_SEED = 0
@@ -7417,8 +7433,8 @@ P21_TP, P21_EP = 2, 2
 # (a) qwen2-1.5b at full width in float32, its first P21_LAYERS of 28
 # layers: four ranks share one card over gloo, each holding its float32
 # parameters, gradients and moments and, for the save, every whole leaf
-# in turn
-P21_LAYERS = 4
+# in turn (4 before (f) was added, for the script's time limit)
+P21_LAYERS = 2
 # (b) qwen2-moe-a2.7b at full width in float32, grad_accum 2 (published),
 # cut to its first P21_MOE_LAYERS layers: at phase 17's 4 a rank's float32
 # parameters, gradients, accumulators and moments take ~21 GB, and four
@@ -7438,12 +7454,26 @@ P21_CKPT_DIR = ROOT / "chiprun_ckpt" / "p21"
 # those within steps x lr (an element whose gradient is float32 noise
 # moves by up to lr a step, of either sign, in either run)
 P21_PARAM_ABS, P21_PARAM_FRAC = 1e-5, 1e-4
+# (f) qwen3-32b at full width in float32 under FSDP (as published), its
+# first P21_FSDP_LAYERS of 64 layers: ~2.53 B parameters, 10.1 GB, ~40 GB
+# with gradients and moments on one rank; over (tp 2, ep 2) a rank holds
+# a quarter, so four of them share one card. grad_accum 1: the published
+# 8 would leave one row a microbatch, which does not split over ep 2. Its
+# sharded save holds the parameters and the first moment m (20.2 GB), and
+# (a)'s and (b)'s the parameters (1.3 and 7.0 GB): with phase 15's 15.4 GB
+# checkpoint the script writes ~44 GB of the 45 GiB (48.3 GB) of disk
+# writes the card's machine allows a run, and v too would take 10.1 GB
+# more (the FSDP save of both moments is held on the CPU,
+# tests/test_torch_train_fsdp.py)
+P21_FSDP_LAYERS = 2
 
 
 def p21_configs() -> dict:
     """Phase 21's configs: (a) qwen2-1.5b and (b) qwen2-moe-a2.7b at
     their published widths (the phase-15 checks) in float32, cut by
-    depth; (e) qwen2-1.5b as published (bfloat16, remat), cut alike."""
+    depth; (e) qwen2-1.5b as published (bfloat16, remat), cut alike; (f)
+    qwen3-32b at its published widths, fsdp and remat, in float32, cut
+    by depth, grad_accum 1."""
     from dataclasses import replace
     f32 = dict(param_dtype="float32", compute_dtype="float32")
     pub = train_config("qwen2-1.5b").with_updates(n_layers=P21_LAYERS)
@@ -7451,7 +7481,9 @@ def p21_configs() -> dict:
     return {"a": pub.with_updates(**f32),
             "b": moe.with_updates(n_layers=P21_MOE_LAYERS, moe=replace(
                 moe.moe, capacity_factor=P21_MOE_CF), **f32),
-            "e": pub}
+            "e": pub,
+            "f": train_config("qwen3-32b").with_updates(
+                n_layers=P21_FSDP_LAYERS, grad_accum=1, **f32)}
 
 
 def p21_batch(cfg, step, dev):
@@ -7516,10 +7548,13 @@ class CollectiveBytes:
     """Counts what this process hands `torch.distributed` while active, as
     the dry backend counts it (`distributed/ctx.py`'s `_dry`): per kind
     the calls and the bytes of the tensor each call sends (all_reduce's
-    tensor, all_gather's input, all_to_all_single's input). A wrapper
-    around the three calls; the program is not changed."""
+    tensor, all_gather's and all_gather_into_tensor's input,
+    all_to_all_single's input, reduce_scatter_tensor's whole input). A
+    wrapper around the five calls; the program is not changed."""
     KINDS = {"all_reduce": "all-reduce", "all_gather": "all-gather",
-             "all_to_all_single": "all-to-all"}
+             "all_to_all_single": "all-to-all",
+             "all_gather_into_tensor": "all-gather",
+             "reduce_scatter_tensor": "reduce-scatter"}
 
     def __init__(self):
         self.bytes, self.counts, self._orig = {}, {}, {}
@@ -7528,7 +7563,7 @@ class CollectiveBytes:
         kind = self.KINDS[name]
 
         def counted(*a, **k):
-            x = a[1] if name in ("all_gather", "all_to_all_single") else a[0]
+            x = a[0] if name == "all_reduce" else a[1]
             self.bytes[kind] = self.bytes.get(kind, 0) + \
                 x.numel() * x.element_size()
             self.counts[kind] = self.counts.get(kind, 0) + 1
@@ -7566,12 +7601,19 @@ def p21_rank_state(lm, pl, world, rank):
 
 
 def p21_digests(tree) -> dict:
-    """sha256 of every leaf's bytes, by leaf name."""
+    """sha256 of every leaf's bytes, by leaf name (eight leaves at a time:
+    hashlib and the copies release the GIL)."""
     import hashlib
+    from concurrent.futures import ThreadPoolExecutor
     from repro_torch.tree import tree_items
-    return {k: hashlib.sha256(v.detach().contiguous().cpu().reshape(-1)
+    items = tree_items(tree)
+
+    def one(v):
+        return hashlib.sha256(v.detach().contiguous().cpu().reshape(-1)
                               .view(torch.uint8).numpy()).hexdigest()
-            for k, v in tree_items(tree)}
+    with ThreadPoolExecutor(8) as pool:
+        return dict(zip([k for k, _ in items],
+                        pool.map(one, [v for _, v in items])))
 
 
 def train_rank(rank, world, backend, init, out_dir, dev_type="cuda"):
@@ -7579,7 +7621,9 @@ def train_rank(rank, world, backend, init, out_dir, dev_type="cuda"):
     (float32) over (tp 2, ep 2), the first under `CollectiveBytes`, and a
     sharded save of its state (with the digests of this rank's parts);
     (b) the same steps of qwen2-moe-a2.7b and a sharded save of its
-    parameters; (e) the bf16-as-published step's time. Results to
+    parameters; (e) the bf16-as-published step's time; (f) (a)'s steps,
+    counts, save and digests for qwen3-32b under FSDP, with the bytes
+    its state holds and the host's peak resident memory. Results to
     <out_dir>/p21_rank<r>.json."""
     import shutil
     from repro_torch.checkpoint import CheckpointManager
@@ -7612,16 +7656,12 @@ def train_rank(rank, world, backend, init, out_dir, dev_type="cuda"):
             d = P21_CKPT_DIR / case
             if rank == 0 and d.exists():
                 shutil.rmtree(d)
-            state = {"params": params, "opt": opt} if case == "a" else \
-                {"params": params}
             t = time.monotonic()
-            CheckpointManager(d, lm=lm).save(P21_STEPS, state)
+            CheckpointManager(d, lm=lm).save(P21_STEPS, {"params": params})
             res[case]["save_s"] = time.monotonic() - t
             if case == "a":
-                res[case]["digests"] = {
-                    "params": p21_digests(params),
-                    "m": p21_digests(opt["m"]), "v": p21_digests(opt["v"])}
-            del params, opt, state, lm
+                res[case]["digests"] = {"params": p21_digests(params)}
+            del params, opt, lm
             gc.collect()
             if dev.type == "cuda":
                 torch.cuda.empty_cache()
@@ -7632,9 +7672,10 @@ def train_rank(rank, world, backend, init, out_dir, dev_type="cuda"):
         res["e"] = {"hist": hist,
                     "step_ms": [h["ms"] for h in hist[1:]]}
         del params, opt, lm
-        import resource
-        res["host_peak_gb"] = resource.getrusage(
-            resource.RUSAGE_SELF).ru_maxrss / 1e6
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        res["f"] = p21_fsdp_rank(cfgs["f"], pl, dev, world, rank)
     except BaseException as exc:
         import traceback
         res["error"] = f"{type(exc).__name__}: {exc}\n" + \
@@ -7642,14 +7683,105 @@ def train_rank(rank, world, backend, init, out_dir, dev_type="cuda"):
     leave_world(res, Path(out_dir) / f"p21_rank{rank}.json", nccl)
 
 
+class HostPeak:
+    """This process's peak resident memory while active, in GB: the
+    kernel's VmHWM where /proc/self/status has it, else the largest
+    VmRSS a thread reads every 20 ms (a peak shorter than that can be
+    missed); NaN where neither can be read. getrusage's ru_maxrss would
+    carry the spawning parent's peak across exec."""
+
+    def __init__(self):
+        import threading
+        self.peak, self.source = float("nan"), "not measured"
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._poll, daemon=True)
+
+    @staticmethod
+    def _read(key):
+        try:
+            for line in Path("/proc/self/status").read_text().splitlines():
+                if line.startswith(key):
+                    return int(line.split()[1]) * 1024 / 1e9
+        except OSError:
+            pass
+        return None
+
+    def _poll(self):
+        while not self._stop.wait(0.02):
+            v = self._read("VmRSS:")
+            if v is not None:
+                self.peak = v if self.peak != self.peak else max(self.peak,
+                                                                 v)
+                self.source = "VmRSS every 20 ms"
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        hwm = self._read("VmHWM:")
+        if hwm is not None:
+            self.peak, self.source = hwm, "VmHWM"
+
+
+def p21_fsdp_rank(cfg, pl, dev, world, rank) -> dict:
+    """Phase 21 (f) on one rank: qwen3-32b under FSDP over `pl`'s ranks
+    (its state built one rank at a time, each rank's a quarter), P21_STEPS
+    steps, the first under `CollectiveBytes`, the peak memory a rank, a
+    sharded save of the parameters and the first moment and the digests
+    of this rank's parts,
+    the bytes its parameters and moments hold and the host's peak
+    resident memory."""
+    import shutil
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.models.lm import LM
+    from repro_torch.tree import tree_leaves
+    t0 = time.monotonic()
+    host = HostPeak().__enter__()
+    lm = LM.build(cfg, device=dev, ctx=pl.ctx)
+    params, opt = p21_rank_state(lm, pl, world, rank)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    counter = CollectiveBytes()
+    out = {"hist": p21_steps(lm, params, opt, dev, count=counter),
+           "collective_bytes": counter.bytes,
+           "collective_counts": counter.counts,
+           "peak_gb": (torch.cuda.max_memory_allocated(dev) / 1e9
+                       if dev.type == "cuda" else 0.0),
+           "state_bytes": sum(t.numel() * t.element_size() for t in
+                              tree_leaves({"p": params, "m": opt["m"],
+                                           "v": opt["v"]}))}
+    d = P21_CKPT_DIR / "f"
+    if rank == 0 and d.exists():
+        shutil.rmtree(d)
+    t = time.monotonic()
+    CheckpointManager(d, lm=lm).save(P21_STEPS, {"params": params,
+                                                 "opt": {"m": opt["m"]}})
+    out["save_s"] = time.monotonic() - t
+    out["digests"] = {"params": p21_digests(params),
+                      "m": p21_digests(opt["m"])}
+    out["seconds"] = time.monotonic() - t0
+    host.__exit__()
+    out["host_peak_gb"], out["host_peak_source"] = host.peak, host.source
+    del params, opt, lm
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
 def p21_params_close(got, want, what) -> dict:
     """P21_PARAM_ABS / P21_PARAM_FRAC / steps x lr over every leaf → the
-    worst |diff| and the share of elements past P21_PARAM_ABS."""
+    worst |diff| and the share of elements past P21_PARAM_ABS (each pair
+    of leaves compared on the card where there is one)."""
     from repro_torch.tree import tree_items
+    dev = torch.device("cuda" if torch.cuda.is_available() else "cpu")
     w = dict(tree_items(want))
     worst, over, n = 0.0, 0, 0
     for k, g in tree_items(got):
-        d = (g.float() - w[k].float()).abs()
+        d = (g.to(dev).float() - w[k].to(dev).float()).abs()
         worst = max(worst, float(d.max()))
         over += int((d > P21_PARAM_ABS).sum())
         n += d.numel()
@@ -7681,16 +7813,19 @@ def dist_train_phase(dev) -> dict:
     equal the one rank's within P15_CPU_TOL, and the parameters after the
     steps (saved over the ranks, restored on one rank) within
     `p21_params_close`; (c) (a)'s save over the ranks restored on one rank
-    and cut to each rank's part equals that rank's state bit for bit
-    (sha256 of every leaf of its parameters and moments); (d) rank 0's
+    and cut to each rank's part equals that rank's parameters bit for bit
+    (sha256 of every leaf); (d) rank 0's
     collective bytes and calls per kind in (a)'s first step against the
     dry run's train record for the layout and shape (`dryrun.dry_cell`):
-    equal; (e) the bf16-as-published step's time a rank, printed."""
+    equal; (e) the bf16-as-published step's time a rank, printed; (f)
+    full-width qwen3-32b under FSDP (float32, P21_FSDP_LAYERS layers):
+    (a)'s step checks, (c)'s restore bit for bit (of the parameters and
+    the first moment) and (d)'s bytes against its own dry cell, the peak
+    a rank against the dry run's with and without FSDP."""
     from repro_torch.checkpoint import load_checkpoint
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch import dryrun
     from repro_torch.models.lm import LM
-    from repro_torch.training.optim import adamw_init
     cfgs = p21_configs()
     world = P21_TP * P21_EP
     n_cards = torch.cuda.device_count() if dev.type == "cuda" else 0
@@ -7701,26 +7836,32 @@ def dist_train_phase(dev) -> dict:
     OUT_DIR.mkdir(exist_ok=True)
     torch.save(cfgs, OUT_DIR / "p21_configs.pt")
     t0 = time.monotonic()
-    one = {c: p21_one_rank(cfgs[c], dev) for c in ("a", "b")}
+    one = {c: p21_one_rank(cfgs[c], dev) for c in ("a", "b", "f")}
     out["one_rank_s"] = time.monotonic() - t0
     out["one_rank"] = {c: {k: one[c][k] for k in ("hist", "peak_gb",
                                                   "drops")} for c in one}
-    # (d)'s dry run: rank 0 of the layout, the same config and shape
+    # (d)'s dry run: rank 0 of the layout, the same config and shape; and
+    # (f)'s, with FSDP and without
     t = time.monotonic()
     shape = ShapeConfig("p21_train", P21_SEQ, P21_BATCH, "train")
     dry = dryrun.dry_cell("qwen2-1.5b", shape, (P21_EP, P21_TP),
                           cfg=cfgs["a"], rank=0)
-    assert dry["status"] == "ok", dry.get("traceback")
+    dry_f = {fs: dryrun.dry_cell("qwen3-32b", shape, (P21_EP, P21_TP),
+                                 cfg=cfgs["f"].with_updates(fsdp=fs),
+                                 rank=0) for fs in (True, False)}
+    for rec in (dry, *dry_f.values()):
+        assert rec["status"] == "ok", rec.get("traceback")
     out["dry_s"] = time.monotonic() - t
     ranks, out["world_s"] = run_world(train_rank, world, backend,
                                       "p21_rank", P21_WORLD_S)
     out["ranks"] = ranks
-    # (a), (b): every rank's steps against the one rank's, no assignment
-    # dropped on either side
-    for case in ("a", "b"):
+    # (a), (b), (f): every rank's steps against the one rank's, no
+    # assignment dropped on either side
+    for case in ("a", "b", "f"):
         assert one[case]["drops"] == 0, (case, one[case]["drops"])
         for r in ranks:
-            assert r[case]["drops"] == 0, (case, r["rank"], r[case]["drops"])
+            assert r[case].get("drops", 0) == 0, (case, r["rank"],
+                                                  r[case]["drops"])
             for s, (got, want) in enumerate(zip(r[case]["hist"],
                                                 one[case]["hist"])):
                 for k, tol in P15_CPU_TOL.items():
@@ -7732,43 +7873,117 @@ def dist_train_phase(dev) -> dict:
     restored = {}
     for case in ("a", "b"):
         shapes = LM.build(cfgs[case], device="meta").shapes()
-        tmpl = {"params": shapes}
-        if case == "a":
-            tmpl["opt"] = adamw_init(shapes)
-        restored[case], step, extra = load_checkpoint(P21_CKPT_DIR / case,
-                                                      template=tmpl)
+        restored[case], step, extra = load_checkpoint(
+            P21_CKPT_DIR / case, template={"params": shapes})
         assert step == P21_STEPS and extra == {"saved_tp": P21_TP,
                                                "saved_ep": P21_EP}, extra
         out[case] = p21_params_close(restored[case]["params"],
                                      one[case]["params"], f"({case})")
     out["restore_s"] = time.monotonic() - t
-    # (c) each rank's part of the restored state, bit for bit
-    lm_a = LM.build(cfgs["a"], device="cpu")
+    # (c) each rank's part of the restored parameters, bit for bit
     st = restored["a"]
+    out["c_leaves"] = p21_parts_equal(
+        LM.build(cfgs["a"], device="cpu"), ranks, "a",
+        {"params": st["params"]})
+    # (d) rank 0's bytes per kind in one step against the dry run's
+    out["d"] = p21_collectives(ranks[0]["a"], dry)
+    out["e"] = {r["rank"]: r["e"]["step_ms"] for r in ranks}
+    del restored, st
+    gc.collect()
+    out["f"] = p21_fsdp_checks(cfgs["f"], ranks, one["f"], dry_f)
+    del one
+    gc.collect()
+    return out
+
+
+def p21_parts_equal(lm_cpu, ranks, case, trees) -> int:
+    """Each rank's part of each restored whole tree ({name: tree}) against
+    the sha256 digests the rank took of its own: equal leaf by leaf. →
+    the number of leaves compared."""
     n_leaves = 0
     for r in ranks:
-        for name, tree in (("params", st["params"]), ("m", st["opt"]["m"]),
-                           ("v", st["opt"]["v"])):
-            got = p21_digests(p21_rank_part(lm_a, tree, r["rank"]))
-            want = r["a"]["digests"][name]
-            assert got == want, (f"phase 21 (c) rank {r['rank']} {name}",
-                                 sorted(k for k in want
-                                        if got.get(k) != want[k])[:4])
+        for name, tree in trees.items():
+            got = p21_digests(p21_rank_part(lm_cpu, tree, r["rank"]))
+            want = r[case]["digests"][name]
+            assert got == want, (f"phase 21 ({case}) rank {r['rank']} "
+                                 f"{name}", sorted(k for k in want
+                                                   if got.get(k) != want[k])
+                                 [:4])
             n_leaves += len(want)
-    out["c_leaves"] = n_leaves
-    # (d) rank 0's bytes per kind in one step against the dry run's
+    return n_leaves
+
+
+def p21_collectives(rank_case, dry) -> dict:
+    """A rank's bytes and calls per collective kind in a step (its
+    `CollectiveBytes`) beside the dry run's record for the same cell:
+    equal per kind."""
     coll = dry["collective_bytes_per_device"]
-    r0 = ranks[0]["a"]
-    out["d"] = {"card": {"bytes": r0["collective_bytes"],
-                         "counts": r0["collective_counts"]},
-                "dry": {"bytes": {k: coll[k] for k in coll
-                                  if k not in ("total", "counts", "calls")},
-                        "counts": coll["counts"], "calls": coll["calls"]}}
-    assert out["d"]["card"]["bytes"] == out["d"]["dry"]["bytes"], out["d"]
-    assert out["d"]["card"]["counts"] == out["d"]["dry"]["counts"], out["d"]
-    out["e"] = {r["rank"]: r["e"]["step_ms"] for r in ranks}
-    del restored, one
+    out = {"card": {"bytes": rank_case["collective_bytes"],
+                    "counts": rank_case["collective_counts"]},
+           "dry": {"bytes": {k: coll[k] for k in coll
+                             if k not in ("total", "counts", "calls")},
+                   "counts": coll["counts"], "calls": coll["calls"]}}
+    assert out["card"]["bytes"] == out["dry"]["bytes"], out
+    assert out["card"]["counts"] == out["dry"]["counts"], out
+    return out
+
+
+def p21_fsdp_checks(cfg, ranks, one, dry_f) -> dict:
+    """Phase 21 (f) against the one rank and the dry run: (f)'s save of
+    the parameters and the first moment over the ranks restored on one
+    rank (the CPU), the parameters within `p21_params_close` of the one
+    rank's, and both cut to each rank's part equal to that rank's bit
+    for bit; rank 0's bytes and calls per kind
+    in the first step equal to the FSDP dry cell's; the peak a rank, the
+    state it holds and the host's peak beside the dry run's needs with
+    and without FSDP. The save is removed once checked."""
+    import shutil
+    from repro_torch.checkpoint import load_checkpoint
+    from repro_torch.models.lm import LM
+    from repro_torch.training.optim import adamw_init
+    t = time.monotonic()
+    host = HostPeak().__enter__()
+    lm = LM.build(cfg, device="meta")
+    shapes = lm.shapes()
+    st, step, extra = load_checkpoint(P21_CKPT_DIR / "f", template={
+        "params": shapes, "opt": {"m": adamw_init(shapes)["m"]}})
+    assert step == P21_STEPS and extra == {"saved_tp": P21_TP,
+                                           "saved_ep": P21_EP}, extra
+    out = {"load_s": time.monotonic() - t}
+    out["params"] = p21_params_close(st["params"], one["params"], "(f)")
+    out["leaves"] = p21_parts_equal(LM.build(cfg, device="cpu"), ranks,
+                                    "f", {"params": st["params"],
+                                          "m": st["opt"]["m"]})
+    del st
     gc.collect()
+    host.__exit__()
+    shutil.rmtree(P21_CKPT_DIR / "f")     # 20.2 GB of parameters and m
+    out["restore_s"] = time.monotonic() - t
+    out["d"] = p21_collectives(ranks[0]["f"], dry_f[True])
+    assert out["d"]["card"]["bytes"].get("reduce-scatter", 0) > 0, out["d"]
+    out["peak_gb"] = {r["rank"]: r["f"]["peak_gb"] for r in ranks}
+    out["state_gb"] = {r["rank"]: r["f"]["state_bytes"] / 1e9
+                       for r in ranks}
+    out["host_peak_gb"] = {r["rank"]: r["f"]["host_peak_gb"] for r in ranks}
+    out["host_peak_gb"]["parent"] = host.peak
+    out["host_peak_source"] = {r["f"]["host_peak_source"] for r in ranks}
+    out["host_peak_source"] = sorted(out["host_peak_source"]
+                                     | {host.source})
+    out["dry"] = {("fsdp" if fs else "no_fsdp"): {
+        "argument_gb": rec["memory_analysis"]["argument_bytes"] / 1e9,
+        "need_gb": rec["device_bytes_needed"] / 1e9,
+        "fits": rec["fits"]} for fs, rec in dry_f.items()}
+    # a rank's parameters and moments are the dry run's sharded arguments
+    # but the batch (int32 tokens and labels) and the step counter
+    args = dry_f[True]["memory_analysis"]["argument_bytes"]
+    assert all(r["f"]["state_bytes"] + 8 * P21_BATCH * P21_SEQ + 4 == args
+               for r in ranks), (args, out["state_gb"])
+    out["step_ms"] = {r["rank"]: [h["ms"] for h in r["f"]["hist"]]
+                      for r in ranks}
+    out["rel"] = {k: max(abs(r["f"]["hist"][i][k] - h[k]) / abs(h[k])
+                         for r in ranks for i, h in enumerate(one["hist"]))
+                  for k in ("loss", "grad_norm")}
+    out["rank_s"] = max(r["f"]["seconds"] for r in ranks)
     return out
 
 
@@ -8711,7 +8926,7 @@ def main() -> int:
     print(f"  (c) (a)'s state saved over the ranks (each rank writes the "
           f"parts it owns), restored on one rank and cut to each rank's "
           f"part: "
-          f"{tr21['c_leaves']} leaves of parameters and moments over "
+          f"{tr21['c_leaves']} leaves of parameters over "
           f"{len(tr21['ranks'])} ranks equal bit for bit (sha256)")
     d = tr21["d"]
     print(f"  (d) rank 0's collectives in (a)'s first step, card vs dry "
@@ -8730,6 +8945,45 @@ def main() -> int:
           + "; ".join(f"rank {r} " + ", ".join(f"{x:.1f}" for x in v)
                       for r, v in sorted(tr21["e"].items()))
           + f" [{smi}]")
+    f = tr21["f"]
+    print(f"  (f) qwen3-32b under FSDP (float32, {tr21['layers']['f']} of 64 "
+          f"layers, remat 'nothing', grad_accum 1), batch {P21_BATCH} x seq "
+          f"{P21_SEQ}: losses " + ", ".join(
+              f"{h['loss']:.6f}" for h in tr21["one_rank"]["f"]["hist"])
+          + f" on one rank, every rank's within {f['rel']['loss']:.2e} / "
+          f"{f['rel']['grad_norm']:.2e} (relative); parameters "
+          f"restored on one rank: max |diff| {f['params']['max_abs']:.3g}, "
+          f"share past {P21_PARAM_ABS:g} {f['params']['share_over']:.2e}; "
+          f"{f['leaves']} leaves of parameters and first moments cut to "
+          f"each rank's part "
+          f"equal bit for bit; rank 0's collectives, card / "
+          f"dry run: " + "; ".join(
+              f"{k} {f['d']['card']['bytes'].get(k, 0)} / "
+              f"{f['d']['dry']['bytes'].get(k, 0)} bytes in "
+              f"{f['d']['card']['counts'].get(k, 0)} / "
+              f"{f['d']['dry']['counts'].get(k, 0)} calls"
+              for k in sorted(set(f['d']['card']['bytes'])
+                              | set(f['d']['dry']['bytes']))) + f" [{smi}]")
+    print(f"  (f) memory a rank: state (parameters + moments) "
+          + ", ".join(f"{v:.2f}" for v in f["state_gb"].values())
+          + " GB; peak " + ", ".join(f"{v:.2f}" for v in
+                                     f["peak_gb"].values())
+          + f" GB (one rank {tr21['one_rank']['f']['peak_gb']:.2f} GB); "
+          f"the dry run's arguments + peak live "
+          f"{f['dry']['fsdp']['need_gb']:.2f} GB with FSDP, "
+          f"{f['dry']['no_fsdp']['need_gb']:.2f} GB without "
+          f"(arguments {f['dry']['fsdp']['argument_gb']:.2f} / "
+          f"{f['dry']['no_fsdp']['argument_gb']:.2f} GB); host peak resident "
+          + ", ".join(f"{k} {v:.2f}" for k, v in f["host_peak_gb"].items())
+          + f" GB ({', '.join(f['host_peak_source'])}) [{smi}]")
+    print(f"  (f) step ms a rank: " + "; ".join(
+              f"rank {r} " + ", ".join(f"{x:.1f}" for x in v)
+              for r, v in sorted(f["step_ms"].items()))
+          + f" (one rank " + ", ".join(
+              f"{h['ms']:.1f}" for h in tr21["one_rank"]["f"]["hist"])
+          + f"); (f) took {f['rank_s']:.1f} s in the world, "
+          f"{f['restore_s']:.1f} s restoring and checking (the load "
+          f"{f['load_s']:.1f} s) [{smi}]")
     report["phase21"] = tr21
     gc.collect()
     torch.cuda.empty_cache()

@@ -81,9 +81,11 @@ def _over_params(tree, fn):
 
 def _barrier(ctx) -> None:
     """Every rank of ctx's world waits here: a psum over `model`, then
-    over `data` (the second waits for every rank's first)."""
+    over `data` (the second waits for every rank's first), read back on
+    the host — under NCCL a collective returns once it is enqueued on the
+    card, so without the read a rank would run ahead of the others."""
     t = torch.zeros(1, device=ctx.host_device)
-    ctx.psum_batch(ctx.psum_model(t))
+    ctx.psum_batch(ctx.psum_model(t)).cpu()
 
 
 def _write_leaves(tmp: Path, prefix: str, items, chunk_mb: int,

@@ -8,7 +8,8 @@ tensor-parallel (TP) axis. Where XLA inserts the collectives for the
 reference, the layers of the port call them here, explicitly, over
 `torch.distributed` subgroups: `psum_model` / `pmax_model` /
 `all_gather_model` over the ranks that share e, `all_to_all_data` /
-`all_gather_data` / `psum_batch` over the ranks that share t.
+`all_gather_data` / `psum_batch` / `gather_params` over the ranks that
+share t.
 `broadcast_floats`, `all_gather_ints` and `pmax_world` run over the whole
 world: the server keeps its ranks in lockstep with the first two, and
 takes every recovery decision that reads rank-local device state (which
@@ -23,7 +24,8 @@ return results of the right shape and dtype (a sum or max keeps its
 input's, a gather concatenates copies, an all_to_all keeps its shape), and
 tell each sink in DRY_SINKS what this rank would send (launch/cost.py's
 counter is one): `sink.collective(kind, method, bytes)`, the kind as the
-reference's HLO names it ("all-reduce", "all-gather", "all-to-all").
+reference's HLO names it ("all-reduce", "all-gather", "all-to-all",
+"reduce-scatter").
 
 Training over ranks (autograd). Where grad mode is on and the input
 requires grad, every collective runs as a `torch.autograd.Function` with
@@ -61,14 +63,22 @@ the sum over `model` is the whole. Hence:
                         same replicated rows: identity forward, backward
                         times 1 / ep, so that summing the parameters'
                         gradients over `data` gives the gradient once.
+  gather_params         FSDP: a parameter's `data`-sharded dim whole for
+                        use. Backward: a reduce-scatter — every `data`
+                        rank's share of the whole leaf's gradient summed,
+                        this rank's slice kept. Not all_gather_data's
+                        transpose, which only takes the rank's slice: the
+                        leaf is one tensor every `data` rank reads whole,
+                        so its gradient is the sum of their shares.
 
 Each parameter's gradient is then this rank's share: whole for a
 `model`-sharded leaf, partial over `data` for a leaf replicated over it
 (the trainer sums it), and partial over `model` for a leaf that a sharded
 region reads whole (the trainer sums it over the ranks that hold the same
-part: `LM.grad_sync`). On one rank every Function is skipped (the
-identity), and on the dry backend each reports its bytes, the backward's
-included.
+part: `LM.grad_sync`). An FSDP slice's gradient leaves its backward
+summed over `data` already (`gather_params`). On one rank every Function
+is skipped (the identity), and on the dry backend each reports its bytes,
+the backward's included.
 """
 from __future__ import annotations
 
@@ -86,7 +96,8 @@ COLLECTIVE_KINDS = {
     "psum_batch": "all-reduce", "pmax_batch": "all-reduce",
     "pmax_world": "all-reduce",
     "all_gather_model": "all-gather", "all_gather_data": "all-gather",
-    "all_to_all_data": "all-to-all", "all_to_all_rows": "all-to-all"}
+    "all_to_all_data": "all-to-all", "all_to_all_rows": "all-to-all",
+    "gather_params": "all-gather", "scatter_grads": "reduce-scatter"}
 # what the dry backend's collectives are reported to (a dry run's counter)
 DRY_SINKS: list = []
 
@@ -263,6 +274,20 @@ class RankCtx:
             return _AllGather.apply(x, self, "data", dim)
         return self._gather("data", x, dim)
 
+    def gather_params(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """FSDP: the ep slices of a parameter whose dim `dim` is sharded
+        over `data`, concatenated in e order into the whole leaf (one
+        `all_gather_into_tensor`). Backward: one `reduce_scatter_tensor`
+        of the whole leaf's cotangent — the sum over `data`, cut to this
+        rank's slice. Raises on ep 1: a cut leaf without its group is a
+        fault, never kept as it is."""
+        if self.ep == 1:
+            raise ValueError(f"gather_params of a leaf cut over data on "
+                             f"ep 1 (shape {tuple(x.shape)}, dim {dim})")
+        if _grad_path(x):
+            return _GatherParams.apply(x, self, dim)
+        return self._gather_params(x, dim)
+
     def psum_batch(self, x: torch.Tensor) -> torch.Tensor:
         """Sum over the axis tokens are sharded on (`data`): the expert
         counts of a batch split over EP ranks, the loss's global sums.
@@ -313,6 +338,29 @@ class RankCtx:
             _dry(f"all_gather_{axis}", x)
             return torch.cat([x] * n, dim=dim)
         return _all_gather(x, dim, n, self._group(axis))
+
+    def _gather_params(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        n = self.ep
+        if self.backend == "dry":
+            _dry("gather_params", x)
+            return torch.cat([x] * n, dim=dim)
+        x = x.contiguous()
+        out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
+        dist.all_gather_into_tensor(out, x, group=self.data_group)
+        return out if dim == 0 else torch.cat(out.chunk(n), dim=dim)
+
+    def _scatter_grads(self, g: torch.Tensor, dim: int) -> torch.Tensor:
+        n = self.ep
+        shape = list(g.shape)
+        shape[dim] //= n
+        if self.backend == "dry":
+            _dry("scatter_grads", g)
+            return g.new_empty(shape)
+        parts = g.contiguous() if dim == 0 else \
+            torch.cat(g.chunk(n, dim=dim), 0)
+        out = g.new_empty(shape)
+        dist.reduce_scatter_tensor(out, parts, group=self.data_group)
+        return out
 
     def _all_to_all(self, x: torch.Tensor, send: Optional[list] = None,
                     recv: Optional[list] = None) -> torch.Tensor:
@@ -422,6 +470,17 @@ class _AllToAll(torch.autograd.Function):
     @staticmethod
     def backward(fc, g):
         return fc.rctx._all_to_all(g, fc.recv, fc.send), None, None, None
+
+
+class _GatherParams(torch.autograd.Function):
+    @staticmethod
+    def forward(fc, x, rctx, dim):
+        fc.rctx, fc.dim = rctx, dim
+        return rctx._gather_params(x, dim)
+
+    @staticmethod
+    def backward(fc, g):
+        return fc.rctx._scatter_grads(g, fc.dim), None, None
 
 
 class _ShareOverData(torch.autograd.Function):

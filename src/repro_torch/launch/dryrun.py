@@ -20,10 +20,12 @@ it. Every figure is a prediction from those peaks, not a measurement.
 
 A train cell over several ranks traces one rank's step on its rows of the
 global batch (`LM.batch_rows`), its backward's collectives and the
-trainer's gradient reductions included. The reference's FSDP axis is not
-ported (ROADMAP A16b item 5): a config that sets `fsdp` keeps those dims
-whole on every `data` rank, and its record says so (`"fsdp"`). An
-encoder-only architecture has no decode step, as in the reference."""
+trainer's gradient reductions included. Under cfg.fsdp the rank's
+parameters and moments hold 1 / ep of each leaf's d_model dim
+(`LM.param_specs`), so the argument bytes are the sharded ones, and the
+trace counts each layer's gather ("all-gather", again in the backward
+under remat) and each gradient's "reduce-scatter". An encoder-only
+architecture has no decode step, as in the reference."""
 from __future__ import annotations
 
 import argparse
@@ -45,9 +47,6 @@ from repro_torch.launch.specs import (batch_specs, decode_specs,
 from repro_torch.models.lm import LM
 from repro_torch.training.optim import adamw_init
 from repro_torch.training.trainer import make_train_step
-
-FSDP_NOT_PORTED = "not ported (ROADMAP A16b item 5)"
-
 
 def _shape(shape) -> ShapeConfig:
     return SHAPES[shape] if isinstance(shape, str) else shape
@@ -106,8 +105,6 @@ def build_cell(arch: str, shape, ctx, overrides: dict | None = None,
             "seq_len": shape.seq_len, "global_batch": shape.global_batch,
             "compute_dtype": cfg.compute_dtype,
             "ref_batch_part": ref_batch_part(ctx, shape.global_batch)}
-    if cfg.fsdp:
-        meta["fsdp"] = FSDP_NOT_PORTED
     return fn, args, lm, meta
 
 

@@ -54,7 +54,7 @@ import argparse
 import gc
 import json
 import os
-import socket
+import tempfile
 from datetime import timedelta
 
 import numpy as np
@@ -180,12 +180,6 @@ def _rank_main(rank: int, args, backend: str, init: str, out=None):
     return summary
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 def main(argv=None):
     args = _parser().parse_args(argv)
     world = args.tp * args.ep
@@ -211,11 +205,13 @@ def main(argv=None):
     else:
         mp = torch.multiprocessing.get_context("spawn")
         q = mp.SimpleQueue()
-        init = f"tcp://localhost:{_free_port()}"
-        torch.multiprocessing.start_processes(
-            _rank_main, args=(args, backend, init, q), nprocs=world,
-            start_method="spawn")
-        s = q.get()
+        # a file rendezvous of this run's own (a free TCP port picked here
+        # could be bound by another process before rank 0 listens on it)
+        with tempfile.TemporaryDirectory() as d:
+            torch.multiprocessing.start_processes(
+                _rank_main, args=(args, backend, f"file://{d}/store", q),
+                nprocs=world, start_method="spawn")
+            s = q.get()
     if s is not None:
         print(json.dumps(s, indent=1, default=float))
     return s

@@ -30,6 +30,7 @@ from __future__ import annotations
 import argparse
 import os
 import sys
+import tempfile
 import time
 from datetime import timedelta
 
@@ -153,13 +154,6 @@ def _rank_main(rank: int, args, backend: str, init: str, out=None,
     return loss
 
 
-def _free_port() -> int:
-    import socket
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 def main(argv=None, on_step=None):
     """Run the launcher on `argv` → the last step's loss (over ranks rank
     0's). `on_step(step, params, opt, metrics)`, if given, is called after
@@ -180,15 +174,18 @@ def main(argv=None, on_step=None):
                           on_step=on_step)
     mp = torch.multiprocessing.get_context("spawn")
     q = mp.SimpleQueue()
-    try:
-        torch.multiprocessing.start_processes(
-            _rank_main, args=(args, backend, f"tcp://localhost:{_free_port()}",
-                              q), nprocs=world, start_method="spawn")
-    except torch.multiprocessing.ProcessExitedException as exc:
-        if exc.exit_code == PREEMPT_EXIT:
-            sys.exit(PREEMPT_EXIT)
-        raise
-    return q.get()
+    # a file rendezvous of this run's own: a free TCP port picked here could
+    # be bound by another process before rank 0 listens on it
+    with tempfile.TemporaryDirectory() as d:
+        try:
+            torch.multiprocessing.start_processes(
+                _rank_main, args=(args, backend, f"file://{d}/store", q),
+                nprocs=world, start_method="spawn")
+        except torch.multiprocessing.ProcessExitedException as exc:
+            if exc.exit_code == PREEMPT_EXIT:
+                sys.exit(PREEMPT_EXIT)
+            raise
+        return q.get()
 
 
 if __name__ == "__main__":

@@ -17,9 +17,12 @@ parameters are this rank's shards, cut by `param_cuts`: the FFN and
 expert widths and the vocabulary over `model` and expert slots over
 `data` as the reference's ParamDef specs say (`param_specs`), attention
 by whole heads (`stack.head_layout`) and a Mamba-2 mixer by its SSD heads
-and their channels (`stack.mamba_layout`). The embedding is a masked
-local lookup summed over `model`; the logits are gathered over `model`,
-so sampling sees the full [n, V] row on every rank.
+and their channels (`stack.mamba_layout`). Under cfg.fsdp each leaf's
+otherwise replicated d_model dim is cut over `data` too (`leaf_spec`),
+and gathered whole where it is used (`stack.gather_fsdp`: at each layer's
+entry, and in `_embed` / `_logits`). The embedding is a masked local
+lookup summed over `model`; the logits are gathered over `model`, so
+sampling sees the full [n, V] row on every rank.
 `DevicePlacement.transfer_params` carries one-rank parameters into that
 layout. Training over ranks (`train_loss`) splits the batch over `data`
 (`batch_rows`, the reference's batch_part) and runs the stack on the
@@ -50,9 +53,8 @@ def _device_int(x, device) -> torch.Tensor:
 
 
 # The port's copy of the reference's ParamDef specs (src/repro/models/
-# stack.py:74-139, lm.py:38-41): per leaf, the mesh axis each dim shards
-# over. The reference's FSDP axis ("data" on the replicated big dim under
-# cfg.fsdp) is not ported: serving keeps those dims whole.
+# stack.py:74-139, lm.py:38-41) without FSDP: per leaf, the mesh axis each
+# dim shards over. `leaf_spec` adds the FSDP axis.
 LAYER_SPECS = {
     "ln_attn": (None,), "wq": (None, "model"), "wk": (None, "model"),
     "wv": (None, "model"), "wo": ("model", None), "bq": ("model",),
@@ -79,17 +81,28 @@ REGION_SHARED = {"attn": ("wk", "wv", "bk", "bv", "q_norm", "k_norm"),
                  "mamba": ("w_bc", "conv_bc"), "moe": ("router",)}
 
 
+def leaf_spec(cfg: ModelConfig, name: str) -> tuple:
+    """The reference's spec of leaf `name` under `cfg`: LAYER_SPECS /
+    TOP_SPECS, and under cfg.fsdp "data" on the leaf's otherwise
+    replicated d_model dim (`stack.FSDP_DIMS`, the reference's `_fs`)."""
+    spec = TOP_SPECS.get(name) or LAYER_SPECS[name]
+    d = stack_mod.FSDP_DIMS.get(name)
+    if cfg.fsdp and d is not None:
+        spec = spec[:d] + ("data",) + spec[d + 1:]
+    return spec
+
+
 @dataclass(frozen=True)
 class LeafSync:
     """How a training rank completes its share of one leaf's gradient
     (`LM.grad_sync`): `over_data` — the leaf is replicated over `data`
-    (every leaf but the expert slots), so its gradient is summed over
-    `data`; `groups` > 0 — a sharded region reads the leaf, and the
-    `model` ranks that hold the same part of it fall into `groups` groups
-    (1: every rank holds it whole), this rank in group `group`: its
-    gradient is summed within its group; `owner` — this rank counts the
-    leaf in the global gradient norm (the first rank of those holding the
-    same part)."""
+    (every leaf its spec does not cut over `data`: not an expert slot,
+    not an FSDP slice), so its gradient is summed over `data`; `groups`
+    > 0 — a sharded region reads the leaf, and the `model` ranks that
+    hold the same part of it fall into `groups` groups (1: every rank
+    holds it whole), this rank in group `group`: its gradient is summed
+    within its group; `owner` — this rank counts the leaf in the global
+    gradient norm (the first rank of those holding the same part)."""
     over_data: bool
     groups: int
     group: int
@@ -192,16 +205,17 @@ class LM:
         """{"layers": [per-layer {name: spec}], top-level name: spec}: each
         spec a tuple of mesh axes ("data", "model" or None) per dim, as
         the reference's sanitized ParamDef specs: a dim that does not
-        divide over its axis stays whole (replicated). The reference cuts
-        wk / wv by channels even where that splits a head; the port's cut
-        is `param_cuts`."""
+        divide over its axis stays whole (replicated). Under cfg.fsdp a
+        leaf's d_model dim is "data" (`leaf_spec`). The reference cuts wk /
+        wv by channels even where that splits a head; the port's cut is
+        `param_cuts`."""
         defs = self.param_defs()
 
         def sane(spec, shape):
             return tuple(self.ctx.part_if(a, n) for a, n in zip(spec, shape))
-        out = {k: sane(TOP_SPECS[k], v[0]) for k, v in defs.items()
-               if k != "layers"}
-        out["layers"] = [{k: sane(LAYER_SPECS[k], v[0])
+        out = {k: sane(leaf_spec(self.cfg, k), v[0])
+               for k, v in defs.items() if k != "layers"}
+        out["layers"] = [{k: sane(leaf_spec(self.cfg, k), v[0])
                           for k, v in layer.items()}
                          for layer in defs["layers"]]
         return out
@@ -214,7 +228,11 @@ class LM:
         wo rows by the rank's query heads, wk / wv / bk / bv columns by its
         KV heads (`stack.head_layout`: under 'wseq' the one head several
         ranks share; a replicated sublayer whole), and the mixer by its
-        SSD heads and their d_in channels (`stack.mamba_layout`)."""
+        SSD heads and their d_in channels (`stack.mamba_layout`). A head
+        cut takes the `model` dim only: the leaf's other dim keeps its
+        spec's cut, so under cfg.fsdp its d_model dim is cut over `data`
+        too — a 'wseq' KV head that several `model` ranks read and a
+        replicated sublayer included."""
         cfg, ctx = self.cfg, self.ctx
         h = cfg.head_dim
         hl = stack_mod.head_layout(cfg, ctx.tp, ctx.t)
@@ -229,10 +247,11 @@ class LM:
                    "dt_bias": (hd,), "A_log": (hd,), "D_skip": (hd,)}
 
         def cut(name, spec, shape):
-            out = by_head.get(name) or tuple(
-                None if ctx.size(a) == 1 else
+            head = by_head.get(name, (None,) * len(shape))
+            out = tuple(
+                h if h is not None else None if ctx.size(a) == 1 else
                 (ctx.coord(a) * (n // ctx.size(a)), n // ctx.size(a))
-                for a, n in zip(spec, shape))
+                for h, a, n in zip(head, spec, shape))
             return tuple(None if c is None or c == (0, n) else c
                          for c, n in zip(out, shape))
         defs, specs = self.param_defs(), self.param_specs()
@@ -313,14 +332,16 @@ class LM:
     def grad_sync(self) -> dict:
         """{leaf: LeafSync} in the tree of `param_defs`: how this rank
         completes its share of each leaf's gradient in training. A leaf
-        is summed over `data` unless it is an expert slot (whose rows
-        arrive from every data rank through the dispatch); over `model`
+        is summed over `data` unless its spec cuts it over `data`: an
+        expert slot (whose rows arrive from every data rank through the
+        dispatch) or an FSDP slice (its gather's backward reduce-scatters
+        the gradient; every `data` rank owns its own slice); over `model`
         where a sharded region reads it whole or shares it — q_norm and
         k_norm, a 'wseq' KV head's wk / wv / bk / bv (summed over exactly
         the ranks that read it), Mamba-2's w_bc and conv_bc, the router
         of experts split over `model`."""
         ctx = self.ctx
-        mine = self.param_cuts()
+        mine, specs = self.param_cuts(), self.param_specs()
         peers = [mine if t == ctx.t else self.rank_cuts(ctx.e * ctx.tp + t)
                  for t in range(ctx.tp)]
         attn_sh = not stack_mod.head_layout(self.cfg, ctx.tp).replicated
@@ -332,7 +353,7 @@ class LM:
             group = distinct.index(get(mine))
             shared = ctx.tp > 1 and region_sharded and \
                 parts.count(get(mine)) > 1
-            over_data = ctx.ep > 1 and name not in SLOT_LEAVES
+            over_data = ctx.ep > 1 and "data" not in get(specs)
             owner = parts.index(get(mine)) == ctx.t and \
                 (not over_data or ctx.e == 0)
             return LeafSync(over_data, len(distinct) if shared else 0,
@@ -367,7 +388,8 @@ class LM:
     # ------------------------------------------------------------------
     def _embed(self, params, tokens):
         cd = torch_dtype(self.cfg.compute_dtype)
-        emb = params["embed"]
+        emb = stack_mod.gather_fsdp(self.cfg, params, self.ctx,
+                                    ("embed",))["embed"]
         v_loc = emb.shape[0]
         if v_loc == self.cfg.vocab_size:
             return emb[tokens.long()].to(cd)
@@ -398,7 +420,9 @@ class LM:
         cfg = self.cfg
         x = rms_norm(x, params["final_norm"], cfg.rms_eps)
         cd = torch_dtype(cfg.compute_dtype)
-        w = params["embed"].t() if cfg.tie_embeddings else params["head"]
+        name = "embed" if cfg.tie_embeddings else "head"
+        w = stack_mod.gather_fsdp(cfg, params, self.ctx, (name,))[name]
+        w = w.t() if cfg.tie_embeddings else w
         if w.shape[1] == cfg.vocab_size:
             return x.to(cd) @ w
         # the vocabulary-sharded head: "f" at its entry (a no-op without

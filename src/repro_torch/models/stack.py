@@ -47,6 +47,12 @@ top-k max-reduces its block scores over `model` before ranking
 and their d_in channels (replicated where the heads do not divide): the
 state and `conv_x` rows hold the rank's share, `conv_bc` stays whole,
 `ssm_norm` reduces its sum of squares over `model`.
+Under cfg.fsdp a rank over ep > 1 `data` ranks holds 1 / ep of each
+leaf's otherwise replicated d_model dim (`FSDP_DIMS`, the reference's
+`_fs`); `apply_layer` gathers the layer's cut leaves whole at its entry
+(`gather_fsdp`, inside the layer's activation checkpoint: under remat the
+backward gathers again instead of keeping whole weights), and the
+gather's backward reduce-scatters their gradients (`RankCtx.gather_params`).
 """
 from __future__ import annotations
 
@@ -108,6 +114,42 @@ def full_attn_layer(cfg: ModelConfig, spec: LayerSpec) -> bool:
 
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
+
+# the dim of each leaf the reference's FSDP axis shards over `data` under
+# cfg.fsdp (`_fs`, src/repro/models/stack.py:66-137, lm.py:34-41): its
+# otherwise replicated big dim, d_model for every one of them
+FSDP_DIMS = {"wq": 0, "wk": 0, "wv": 0, "wo": 1,
+             "w_z": 0, "w_x": 0, "w_bc": 0, "w_dt": 0, "out_proj": 1,
+             "w1": 0, "w3": 0, "w2": 1,
+             "shared_w1": 0, "shared_w3": 0, "shared_w2": 1,
+             "embed": 1, "head": 0}
+
+
+def gather_fsdp(cfg: ModelConfig, p: dict, ctx: Optional[RankCtx],
+                names=None) -> dict:
+    """p with its FSDP leaves (of `names`, default all of FSDP_DIMS)
+    gathered whole (`RankCtx.gather_params`, in FSDP_DIMS order on every
+    rank) where their spec cuts them over `data`: cfg.fsdp on ep > 1
+    ranks over which d_model divides (`lm.leaf_spec` sanitized by
+    `RankCtx.part_if`, as `LM.param_specs` does). Elsewhere p as it is;
+    under cfg.fsdp a leaf shorter than d_model there has lost its `data`
+    group, and raises."""
+    if not cfg.fsdp:
+        return p
+    names = FSDP_DIMS if names is None else names
+    if ctx is None or ctx.ep == 1 or ctx.part_if("data", cfg.d_model) \
+            is None:
+        for k in names:
+            v = p.get(k)
+            if v is not None and v.shape[FSDP_DIMS[k]] != cfg.d_model:
+                raise ValueError(f"{k} {tuple(v.shape)} is cut over data "
+                                 f"but has no data group to gather it")
+        return p
+    out = dict(p)
+    for k in names:
+        if k in p:
+            out[k] = ctx.gather_params(p[k], FSDP_DIMS[k])
+    return out
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -800,8 +842,10 @@ def apply_layer(cfg: ModelConfig, spec: LayerSpec, p: dict, x, *, mode: str,
                 true_len: Optional[int] = None, pos0: int = 0,
                 max_len: int = 0, token_mask=None,
                 tables: Optional[dict] = None, ctx: Optional[RankCtx] = None):
-    """One layer: its mixer (attention or Mamba-2) and its FFN. → (x, new
-    entry, sparsity aux, expert counts)."""
+    """One layer: its mixer (attention or Mamba-2) and its FFN, its FSDP
+    leaves gathered whole first (`gather_fsdp`). → (x, new entry,
+    sparsity aux, expert counts)."""
+    p = gather_fsdp(cfg, p, ctx)
     sp = None
     if spec.kind == "mamba":
         x, nc = mamba_sublayer(cfg, p, x, mode=mode, cache=cache,

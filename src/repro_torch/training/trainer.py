@@ -15,8 +15,9 @@ microbatch of it (the reference's) is cut to the rank's rows over `data`
 by `LM.train_loss`. Autograd gives each rank its share of every gradient
 (distributed/ctx.py's convention); `reduce_grads` completes it where XLA
 inserts the reductions for the reference — a sum over `data` for every
-leaf replicated over it (not the expert slots), and over `model` within
-the ranks that hold the same part of a leaf a sharded region reads
+leaf replicated over it (not the expert slots, and not an FSDP slice,
+whose gather's backward reduce-scattered it already), and over `model`
+within the ranks that hold the same part of a leaf a sharded region reads
 (`LM.grad_sync`). The int8 scale is the whole leaf's (a max over the
 ranks that shard it), the clip norm the global one (`adamw_update`)."""
 from __future__ import annotations

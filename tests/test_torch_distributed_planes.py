@@ -27,8 +27,10 @@ batch at a capacity reckoned from that half (ROADMAP C5). An int8 stream
 that differs is accepted only as a near-tie: its first differing token's
 one-rank top-2 logit margin must be below INT8_NEAR_TIE (ROADMAP C,
 "cross-device int8 bytes"); float32 streams must be equal. The JAX MoE
-references run on an Auto-axis mesh (ROADMAP C1). Every process group has
-a 60 s timeout and the world joins within WORLD_LIMIT_S."""
+references run on an Auto-axis mesh (ROADMAP C1), with the reference's
+preemption repaired in the harness (ROADMAP C7:
+tests/jax_preempt_repair.py). Every process group has a 60 s timeout and
+the world joins within WORLD_LIMIT_S."""
 import time
 
 import jax
@@ -41,6 +43,7 @@ import torch_dist_worker as W
 from repro.serving import Server
 from repro_torch import bridge
 from repro_torch.serving import DevicePlacement
+from jax_preempt_repair import jax_preempt_repaired  # noqa: F401 (C7)
 from test_torch_distributed import auto_mesh
 
 torch.set_num_threads(2)

@@ -5,10 +5,10 @@ on the CPU:
   for all ten architectures and the four SHAPES;
 - at (ep, tp) = (1, 1), (1, 4), (2, 2), `LM.param_specs` equals the
   reference's `LM.specs()` over an AbstractMesh((ep, tp), ('data',
-  'model')) (FSDP off: the port does not shard over it), and the ranks'
-  cut parameters sum to the whole model times each leaf's replication;
-  where `param_cuts` cuts by head otherwise than the spec, the head
-  layout ('wseq', replicated) is what explains it;
+  'model')), FSDP's "data" on the five configs that set it included, and
+  the ranks' cut parameters sum to the whole model times each leaf's
+  replication; where `param_cuts` cuts by head otherwise than the spec,
+  the head layout ('wseq', replicated) is what explains it;
 - at one rank the meta decode cache has the reference's `cache_struct`
   shapes and dtypes at decode_32k and long_500k;
 - on reduced qwen2-1.5b and qwen2-moe the meta trace counts the product
@@ -16,7 +16,9 @@ on the CPU:
   the kernel calls; each kernel charge is its formula at the shapes the
   CPU run gives the kernel; the argument bytes are exact;
 - at (tp 2, ep 2) the dry backend's collectives of a reduced qwen2-moe
-  decode step are the ones counted by hand, per layer;
+  decode step are the ones counted by hand, per layer; a qwen3-32b train
+  cell (FSDP) reduce-scatters every FSDP leaf's gradient once and its
+  argument bytes are the sharded ones;
 - `run_cell` / the CLI write ok and skipped records."""
 import json
 import math
@@ -104,7 +106,7 @@ def test_param_specs_and_cuts_match_reference(layout):
     explained = []
     for arch in ARCH_IDS:
         cfg = get_config(arch)
-        ref = RefLM.build(ref_config(arch).with_updates(fsdp=False), mesh)
+        ref = RefLM.build(ref_config(arch), mesh)
         lms = [LM.build(cfg, device="meta", ctx=dry_ctx(tp, ep, r))
                for r in range(ep * tp)]
         specs = lms[0].param_specs()
@@ -123,16 +125,19 @@ def test_param_specs_and_cuts_match_reference(layout):
             for name, (shape, _, _) in layer.items():
                 whole = math.prod(shape)
                 held = sum(t["layers"][i][name].numel() for t in trees)
-                rep = _rep(specs["layers"][i][name], lms[0].ctx)
+                spec = specs["layers"][i][name]
+                rep = _rep(spec, lms[0].ctx)
                 if held == whole * rep:
                     continue
                 # a head cut that differs from the even split of the spec
+                # (which keeps its FSDP cut over `data` on the other dim)
+                fs = ep if "data" in spec else 1
                 if name in KV_LEAVES and hl.kind == "wseq":
-                    want_rep = ep * tp * hl.nk // cfg.n_kv_heads
+                    want_rep = ep * tp * hl.nk // cfg.n_kv_heads // fs
                 elif name in ATTN_LEAVES and hl.replicated:
-                    want_rep = ep * tp
+                    want_rep = ep * tp // fs
                 elif name in MAMBA_LEAVES and ml.replicated:
-                    want_rep = ep * tp
+                    want_rep = ep * tp // fs
                 else:
                     raise AssertionError((arch, i, name, held, whole, rep))
                 assert held == whole * want_rep, (arch, i, name)
@@ -296,6 +301,50 @@ def test_collectives_at_tp2_ep2_counted_by_hand():
         "all-reduce": B * D * 4 + L * (B * D * 4 + T * D * 4 + E * 4),
         "all-to-all": L * (2 * payload + ep * s * 4),
         "all-gather": L * T * D * 4 + B * (V // 2) * 4}
+
+
+def test_fsdp_train_cell_reduce_scatters_and_shards():
+    """qwen3-32b (cfg.fsdp, as published) at full width, cut to 2 layers,
+    a train cell at (ep 2, tp 2): in each of grad_accum's microbatches
+    every leaf cut over `data` has its gradient reduce-scattered once, its
+    whole (after the `model` cut) bytes each, and is gathered in the
+    forward and, a layer's, again in the backward (remat "nothing"); the
+    argument bytes are the sharded parameters' and moments' plus the
+    batch's, about half of the same cell's without FSDP."""
+    shape = ShapeConfig("t", 128, 8, "train")
+    rec = dryrun.dry_cell("qwen3-32b", shape, (2, 2),
+                          overrides={"n_layers": 2})
+    plain = dryrun.dry_cell("qwen3-32b", shape, (2, 2),
+                            overrides={"n_layers": 2, "fsdp": False})
+    assert rec["status"] == plain["status"] == "ok", rec.get("traceback")
+    assert "fsdp" not in rec
+    cfg = get_config("qwen3-32b").with_updates(n_layers=2)
+    assert cfg.fsdp and cfg.remat and cfg.remat_policy == "nothing"
+    lm = LM.build(cfg, device="meta", ctx=dry_ctx(2, 2, 0))
+    specs, shapes = lm.param_specs(), lm.shapes()
+    cut = [v for k, v in shapes.items() if k != "layers" and
+           "data" in specs[k]] + \
+        [v for sl, layer in zip(specs["layers"], shapes["layers"])
+         for k, v in layer.items() if "data" in sl[k]]
+    nbytes = sum(v.numel() * v.element_size() for v in cut)
+    coll, A = rec["collective_bytes_per_device"], cfg.grad_accum
+    assert coll["reduce-scatter"] == A * 2 * nbytes > 0
+    assert coll["counts"]["reduce-scatter"] == A * len(cut)
+    assert coll["calls"]["gather_params"] == A * (len(cut) + sum(
+        "data" in sl[k] for sl in specs["layers"] for k in sl))
+    assert "reduce-scatter" not in plain["collective_bytes_per_device"]
+    batch = 2 * shape.global_batch * shape.seq_len * 4
+    param = sum(v.numel() * v.element_size() for v in
+                [*(v for k, v in shapes.items() if k != "layers"),
+                 *(v for layer in shapes["layers"] for v in layer.values())])
+    mom = torch.empty((), dtype=getattr(torch, cfg.optimizer_dtype)
+                      ).element_size()
+    n = param // torch.empty((), dtype=getattr(torch, cfg.param_dtype)
+                             ).element_size()
+    args = rec["memory_analysis"]["argument_bytes"]
+    assert args == param + 2 * n * mom + batch + 4
+    assert args - batch <= 0.55 * (plain["memory_analysis"]
+                                   ["argument_bytes"] - batch)
 
 
 def test_run_cell_and_cli(tmp_path):

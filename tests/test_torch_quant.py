@@ -59,6 +59,7 @@ from repro_torch.serving.arena import KVArena as TKVArena
 from repro_torch.serving.quant import QuantConfig as TQuantConfig
 from repro_torch.serving.quant import QuantController as TQuantController
 from repro_torch.serving.spec import SpecConfig as TSpecConfig
+from jax_preempt_repair import jax_preempt_repaired  # noqa: F401 (C7)
 
 torch.set_num_threads(2)
 

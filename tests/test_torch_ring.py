@@ -33,6 +33,7 @@ from repro_torch.models.lm import LM as TLM
 from repro_torch.serving import Server as TServer
 from repro_torch.serving import ServerConfig as TServerConfig
 from repro_torch.serving.arena import blocks_to_dense_kv, dense_kv_to_blocks
+from jax_preempt_repair import jax_preempt_repaired  # noqa: F401 (C7)
 
 torch.set_num_threads(2)
 

@@ -26,6 +26,7 @@ from repro_torch.serving import ServerConfig as TServerConfig
 from repro_torch.serving.kvpool import KVPool as TKVPool
 from repro_torch.serving.quant import QuantConfig as TQuantConfig
 from repro_torch.serving.spec import SpecConfig as TSpecConfig
+from jax_preempt_repair import jax_preempt_repaired  # noqa: F401 (C7)
 
 torch.set_num_threads(2)
 
